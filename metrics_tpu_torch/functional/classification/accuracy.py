@@ -1,0 +1,169 @@
+"""Accuracy (incl. top-k and subset accuracy).
+
+Counterpart of ``metrics_tpu/functional/classification/accuracy.py``.
+"""
+from typing import Optional, Tuple
+
+import torch
+
+from metrics_tpu_torch.functional.classification.stat_scores import (
+    _check_average_arg,
+    _reduce_stat_scores,
+    _stat_scores_update,
+)
+from metrics_tpu_torch.utilities.checks import (
+    _check_classification_inputs,
+    _input_format_classification,
+    _input_squeeze,
+)
+from metrics_tpu_torch.utilities.data import Tensor
+from metrics_tpu_torch.utilities.enums import AverageMethod, DataType, MDMCAverageMethod
+
+
+def _check_subset_validity(mode: DataType) -> bool:
+    return mode in (DataType.MULTILABEL, DataType.MULTIDIM_MULTICLASS)
+
+
+def _mode(
+    preds: Tensor,
+    target: Tensor,
+    threshold: float,
+    top_k: Optional[int],
+    num_classes: Optional[int],
+    multiclass: Optional[bool],
+) -> DataType:
+    return _check_classification_inputs(
+        preds, target, threshold=threshold, top_k=top_k, num_classes=num_classes, multiclass=multiclass
+    )
+
+
+def _accuracy_update(
+    preds: Tensor,
+    target: Tensor,
+    reduce: str,
+    mdmc_reduce: Optional[str],
+    threshold: float,
+    num_classes: Optional[int],
+    top_k: Optional[int],
+    multiclass: Optional[bool],
+    ignore_index: Optional[int],
+    mode: DataType,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    if mode == DataType.MULTILABEL and top_k:
+        raise ValueError("You can not use the `top_k` parameter to calculate accuracy for multi-label inputs.")
+
+    preds, target = _input_squeeze(preds, target)
+    return _stat_scores_update(
+        preds,
+        target,
+        reduce=reduce,
+        mdmc_reduce=mdmc_reduce,
+        threshold=threshold,
+        num_classes=num_classes,
+        top_k=top_k,
+        multiclass=multiclass,
+        ignore_index=ignore_index,
+    )
+
+
+def _accuracy_compute(
+    tp: Tensor,
+    fp: Tensor,
+    tn: Tensor,
+    fn: Tensor,
+    average: Optional[str],
+    mdmc_average: Optional[str],
+    mode: DataType,
+) -> Tensor:
+    simple_average = (AverageMethod.MICRO, AverageMethod.SAMPLES)
+    if (mode == DataType.BINARY and average in simple_average) or mode == DataType.MULTILABEL:
+        numerator = tp + tn
+        denominator = tp + tn + fp + fn
+    else:
+        numerator = tp
+        denominator = tp + fn
+
+    if average == AverageMethod.NONE and mdmc_average != MDMCAverageMethod.SAMPLEWISE:
+        # a class is absent when it has no TPs, FPs or FNs: flag with -1 so the
+        # reduction reports NaN for it
+        meaningless = (tp | fn | fp) == 0
+        numerator = torch.where(meaningless, -1, numerator)
+        denominator = torch.where(meaningless, -1, denominator)
+
+    return _reduce_stat_scores(
+        numerator=numerator,
+        denominator=denominator,
+        weights=None if average != AverageMethod.WEIGHTED else tp + fn,
+        average=average,
+        mdmc_average=mdmc_average,
+    )
+
+
+def _subset_accuracy_update(
+    preds: Tensor,
+    target: Tensor,
+    threshold: float,
+    top_k: Optional[int],
+) -> Tuple[Tensor, Tensor]:
+    """This batch's ``(correct, total)`` int32 counts for subset accuracy."""
+    preds, target = _input_squeeze(preds, target)
+    preds, target, mode = _input_format_classification(preds, target, threshold=threshold, top_k=top_k)
+
+    if mode == DataType.MULTILABEL and top_k:
+        raise ValueError("You can not use the `top_k` parameter to calculate accuracy for multi-label inputs.")
+
+    if mode == DataType.MULTILABEL:
+        correct = torch.sum(torch.all(preds == target, dim=1))
+        total = torch.tensor(target.shape[0], device=target.device)
+    elif mode == DataType.MULTICLASS:
+        correct = torch.sum(preds * target)
+        total = torch.sum(target)
+    elif mode == DataType.MULTIDIM_MULTICLASS:
+        sample_correct = torch.sum(preds * target, dim=(1, 2))
+        correct = torch.sum(sample_correct == target.shape[2])
+        total = torch.tensor(target.shape[0], device=target.device)
+    else:
+        raise ValueError(f"Subset accuracy is undefined for {mode} inputs.")
+
+    return correct.to(torch.int32), total.to(torch.int32)
+
+
+def _subset_accuracy_compute(correct: Tensor, total: Tensor) -> Tensor:
+    return correct.float() / total
+
+
+def accuracy(
+    preds: Tensor,
+    target: Tensor,
+    average: str = "micro",
+    mdmc_average: Optional[str] = "global",
+    threshold: float = 0.5,
+    top_k: Optional[int] = None,
+    subset_accuracy: bool = False,
+    num_classes: Optional[int] = None,
+    multiclass: Optional[bool] = None,
+    ignore_index: Optional[int] = None,
+) -> Tensor:
+    """Fraction of correctly classified samples (micro/macro/weighted/samples
+    averaging, top-k for multi-class probabilities, subset accuracy for
+    multi-label / multi-dim inputs)."""
+    if not 0 < threshold < 1:
+        raise ValueError(f"The `threshold` should be a float in the (0,1) interval, got {threshold}")
+
+    _check_average_arg(average, mdmc_average, num_classes, ignore_index)
+
+    if top_k is not None and (not isinstance(top_k, int) or top_k <= 0):
+        raise ValueError(f"The `top_k` should be an integer larger than 0, got {top_k}")
+
+    preds, target = _input_squeeze(torch.as_tensor(preds), torch.as_tensor(target))
+    mode = _mode(preds, target, threshold, top_k, num_classes, multiclass)
+    reduce = "macro" if average in ["weighted", "none", None] else average
+
+    if subset_accuracy and _check_subset_validity(mode):
+        correct, total = _subset_accuracy_update(preds, target, threshold, top_k)
+        return _subset_accuracy_compute(correct, total)
+
+    tp, fp, tn, fn = _accuracy_update(
+        preds, target, reduce, mdmc_average, threshold, num_classes, top_k, multiclass, ignore_index, mode
+    )
+    return _accuracy_compute(tp, fp, tn, fn, average, mdmc_average, mode)
