@@ -11,8 +11,11 @@ Phases, in order; any failure exits non-zero before the last line:
    versions; build the CUDA kernels from ``metrics_tpu_torch/csrc`` with
    ``nvcc`` and print the build time and the compiler's resource report.
 2. Hold each kernel against its plain PyTorch version on the same CUDA
-   tensors, at the main-path shape and at ragged ones: exact equality.
-3. The main path: ImageNet-1k evaluation (1000 classes, the 50,000-image
+   tensors, at the main-path shapes and at ragged ones: exact equality, but
+   for float sums of the segment scatter (B3), which add in an order that
+   changes from run to run: within rtol=atol=1e-5 (a few float32 ulps of
+   sums of a few terms), and run twice to print the run-to-run difference.
+3. The first path: ImageNet-1k evaluation (1000 classes, the 50,000-image
    validation split in batches of 1024 float32 softmax rows, 49 ``forward``
    calls, then ``compute()``) through
    ``MetricCollection({Accuracy, macro Precision/Recall/F1, ConfusionMatrix})``
@@ -21,6 +24,18 @@ Phases, in order; any failure exits non-zero before the last line:
    batches (counts exactly, float metrics within 1e-6).
    The per-``forward`` time of the collection, and under the profiler the
    device's busy share of ten forwards with the kernels that fill it.
+3b. The keyed path, the serving entry point: ``MultiTenantCollection({Accuracy,
+   macro Precision/Recall/F1})`` over 10,000 tenants, ten classes, on the
+   card, ``validate_ids=False``; 50 ``update`` calls of 4096-row mixed
+   batches (float32 softmax rows, int64 targets, tenant ids uniform in
+   [0, 10000); the last batch holds 3000 real rows padded with id -1 and
+   zero rows), then ``compute()``. B3 must launch once per bundle per update
+   (100), B4 max once per update (50), B1 and B2 never; every multiclass row
+   has one true class, so the Accuracy bundle's tp + fn over all tenants
+   must count the real rows; the stacked states must equal the same
+   collection's on the CPU exactly, the per-tenant values within 1e-6.
+   The per-``update`` time, the ``compute()`` time, and the device's busy
+   share of ten updates under the profiler.
 4. Times at the main-path shapes: the median of 50 CUDA-event-timed calls
    of each kernel's wrapper, of its plain version and of the one PyTorch
    call that computes the same function (where there is one), each beside
@@ -50,6 +65,12 @@ SEED = 20261016
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 REPS = 50
+#: the keyed path: the repo's multitenant serving configuration
+KEYED_TENANTS = 10_000
+KEYED_ROWS = 4096
+KEYED_CLASSES = 10
+KEYED_UPDATES = 50
+KEYED_LAST_REAL = 3000
 
 
 def fail(message: str) -> None:
@@ -143,6 +164,70 @@ def build_collection(M, device):
     })
 
 
+def make_keyed_batches(torch, device):
+    """The 50 seeded 4096-row mixed batches of the keyed path: ``(tenant ids,
+    softmax rows, int64 targets)``; the last holds 3000 real rows and is
+    padded with id -1 and zero rows, as a ragged last cohort is."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 2)
+    batches = []
+    rows = torch.arange(KEYED_ROWS, device=device)
+    for step in range(KEYED_UPDATES):
+        ids = torch.randint(0, KEYED_TENANTS, (KEYED_ROWS,), generator=gen, device=device)
+        target = torch.randint(0, KEYED_CLASSES, (KEYED_ROWS,), generator=gen, device=device)
+        logits = torch.randn((KEYED_ROWS, KEYED_CLASSES), generator=gen, device=device)
+        logits[rows, target] += 2.0
+        preds = torch.softmax(logits, dim=1)
+        if step == KEYED_UPDATES - 1:
+            ids[KEYED_LAST_REAL:] = -1
+            preds[KEYED_LAST_REAL:] = 0.0
+            target[KEYED_LAST_REAL:] = 0
+        batches.append((ids, preds, target))
+    return batches
+
+
+def build_keyed(M, device):
+    kw = dict(average="macro", num_classes=KEYED_CLASSES, device=device)
+    return M.MultiTenantCollection({
+        "Accuracy": M.Accuracy(device=device),
+        "Precision": M.Precision(**kw),
+        "Recall": M.Recall(**kw),
+        "F1": M.F1(**kw),
+    }, num_tenants=KEYED_TENANTS, validate_ids=False, device=device)
+
+
+def scatter_inputs(torch, gen, dev, r, s, d, floats=False):
+    """Rows (integer-valued, or normal floats) and ids uniform in [0, s) with
+    -1, s and s+7 mixed in."""
+    if floats:
+        rows = torch.randn((r, d), generator=gen, device=dev)
+    else:
+        rows = torch.randint(-2, 3, (r, d), generator=gen, device=dev).float()
+    ids = torch.randint(0, s, (r,), generator=gen, device=dev)
+    ids[0::97], ids[1::97], ids[2::97] = -1, s, s + 7
+    return rows, ids
+
+
+def special_rows(torch, dev):
+    """NaN, signed zeros and infinities, routed so each case has a segment."""
+    nan, inf = float("nan"), float("inf")
+    cases = [(nan, 0), (1.0, 0), (2.0, 1), (nan, 1), (-0.0, 2), (0.0, 2), (0.0, 3), (-0.0, 3), (-0.0, 4),
+             (0.0, 5), (inf, 6), (1.0, 6), (-inf, 7), (-1.0, 7), (inf, 8), (-inf, 8), (5.0, -1), (5.0, 12)]
+    rows = torch.tensor([[v, -v] for v, _ in cases], device=dev)
+    ids = torch.tensor([sid for _, sid in cases], device=dev)
+    return rows, ids, 12  # segments 9..11 get no row
+
+
+def same_bits(a, b) -> bool:
+    """Equal values, NaN where NaN (of either sign: a NaN's sign bit and
+    payload carry nothing), and the same sign of zero."""
+    import torch
+
+    return (a.shape == b.shape and a.dtype == b.dtype and bool(torch.equal(a.isnan(), b.isnan()))
+            and bool(torch.equal(torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0)))
+            and bool(torch.equal(torch.signbit(a) & ~a.isnan(), torch.signbit(b) & ~b.isnan())))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--record", help="also write the full record to this JSON file")
@@ -156,6 +241,14 @@ def main() -> int:
     import metrics_tpu_torch as M
     from metrics_tpu_torch.kernels import _common
     from metrics_tpu_torch.kernels.confusion_matrix import confmat_counts_cuda, confmat_counts_torch
+    from metrics_tpu_torch.kernels.segment_scatter import (
+        segment_scatter_add_cuda,
+        segment_scatter_add_torch,
+        segment_scatter_max_cuda,
+        segment_scatter_max_torch,
+        segment_scatter_min_cuda,
+        segment_scatter_min_torch,
+    )
     from metrics_tpu_torch.kernels.stat_scores import stat_scores_counts_cuda, stat_scores_counts_torch
     from metrics_tpu_torch.utilities.checks import _input_format_classification
 
@@ -215,6 +308,50 @@ def main() -> int:
               f"{'equal' if ok else 'DIFFERENT'}")
         if not ok:
             fail(f"confmat_counts differs from its plain version at N={n}, C={c}")
+
+    scatter = {"segment_scatter_add": (segment_scatter_add_cuda, segment_scatter_add_torch),
+               "segment_scatter_max": (segment_scatter_max_cuda, segment_scatter_max_torch),
+               "segment_scatter_min": (segment_scatter_min_cuda, segment_scatter_min_torch)}
+    scatter_cases = [(KEYED_ROWS, KEYED_TENANTS, 40), (KEYED_ROWS, KEYED_TENANTS, 6), (KEYED_ROWS, KEYED_TENANTS, 1),
+                     (1, 1, 1), (4099, 100_000, 3), (300, 64, 16)]
+    for op, (kernel, plain) in scatter.items():
+        errors[op] = 0.0
+        for r, s, d in scatter_cases:
+            rows, ids = scatter_inputs(torch, gen, dev, r, s, d)
+            got = kernel(rows, ids, s, device=dev)
+            torch.cuda.synchronize()
+            want = plain(rows, ids, s)
+            ok = all(same_bits(g, w) for g, w in zip(got, want))
+            parity.append({"kernel": op, "shape": [r, s, d], "rows": "integer-valued", "equal": ok})
+            print(f"[parity] {op} R={r} S={s} D={d} integer-valued rows, invalid ids: "
+                  f"{'equal' if ok else 'DIFFERENT'}")
+            if not ok:
+                fail(f"{op} differs from its plain version at R={r}, S={s}, D={d}")
+        if op == "segment_scatter_add":
+            rows, ids = scatter_inputs(torch, gen, dev, KEYED_ROWS, KEYED_TENANTS, 40, floats=True)
+            first, counts = kernel(rows, ids, KEYED_TENANTS, device=dev)
+            second, _ = kernel(rows, ids, KEYED_TENANTS, device=dev)
+            want, want_counts = plain(rows, ids, KEYED_TENANTS)
+            torch.cuda.synchronize()
+            err = float((first - want).abs().max())
+            rerun = float((first - second).abs().max())
+            ok = torch.allclose(first, want, rtol=1e-5, atol=1e-5) and torch.equal(counts, want_counts)
+            errors[op] = max(errors[op], err)
+            parity.append({"kernel": op, "shape": [KEYED_ROWS, KEYED_TENANTS, 40], "rows": "float",
+                           "max_abs_err": err, "run_to_run_max_abs_diff": rerun, "equal": ok})
+            print(f"[parity] {op} R={KEYED_ROWS} S={KEYED_TENANTS} D=40 float rows: max |kernel - plain| {err:.3e} "
+                  f"(rtol=atol=1e-5), run-to-run max |diff| {rerun:.3e}")
+            if not ok:
+                fail(f"{op} float sums differ from the plain version beyond the tolerance")
+        else:
+            rows, ids, s = special_rows(torch, dev)
+            got = kernel(rows, ids, s, device=dev)
+            torch.cuda.synchronize()
+            ok = all(same_bits(g, w) for g, w in zip(got, plain(rows, ids, s)))
+            parity.append({"kernel": op, "rows": "NaN, +-0.0, +-inf, invalid ids", "equal": ok})
+            print(f"[parity] {op} NaN, +-0.0 and +-inf rows, empty segments: {'equal' if ok else 'DIFFERENT'}")
+            if not ok:
+                fail(f"{op} differs from its plain version on NaN, signed-zero or infinite rows")
     record["parity"] = parity
 
     # -- 3. the main path -------------------------------------------------
@@ -234,7 +371,7 @@ def main() -> int:
     gpu_out = gpu.compute()
     torch.cuda.synchronize()
     compute_ms = (time.perf_counter() - start) * 1e3
-    launches = {op: _common.launch_count(op) for op in errors}
+    launches = {op: _common.launch_count(op) for op in ("stat_scores_counts", "confmat_counts")}
     print(f"[main] 49 forward + compute on {kind}: launches {launches}; forward median "
           f"{statistics.median(step_ms):.3f} ms (first {step_ms[0]:.3f} ms), compute {compute_ms:.3f} ms")
     for op, count in launches.items():
@@ -291,6 +428,82 @@ def main() -> int:
     record["main"]["profile"] = {"forwards": 10, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
                                  "top_device": breakdown}
 
+    # -- 3b. the keyed path ------------------------------------------------------
+    keyed_batches = make_keyed_batches(torch, dev)
+    real_rows = (KEYED_UPDATES - 1) * KEYED_ROWS + KEYED_LAST_REAL
+    keyed_gpu = build_keyed(M, dev)
+    torch.cuda.synchronize()
+    _common.reset_dispatch_counters()
+    update_ms = []
+    for ids, preds, target in keyed_batches:
+        start = time.perf_counter()
+        keyed_gpu.update(ids, preds, target)
+        torch.cuda.synchronize()
+        update_ms.append((time.perf_counter() - start) * 1e3)
+    start = time.perf_counter()
+    keyed_out = keyed_gpu.compute()
+    torch.cuda.synchronize()
+    keyed_compute_ms = (time.perf_counter() - start) * 1e3
+    keyed_ops = ("segment_scatter_add", "segment_scatter_max", "segment_scatter_min", "stat_scores_counts",
+                 "confmat_counts")
+    keyed_launches = {op: _common.launch_count(op) for op in keyed_ops}
+    print(f"[keyed] {KEYED_UPDATES} update of {KEYED_ROWS} rows into {KEYED_TENANTS} tenants + compute on {kind}: "
+          f"launches {keyed_launches}; update median {statistics.median(update_ms):.3f} ms "
+          f"(first {update_ms[0]:.3f} ms), compute {keyed_compute_ms:.3f} ms")
+    expected = {"segment_scatter_add": 2 * KEYED_UPDATES, "segment_scatter_max": KEYED_UPDATES,
+                "segment_scatter_min": 0, "stat_scores_counts": 0, "confmat_counts": 0}
+    for op, count in expected.items():
+        if keyed_launches[op] != count:
+            fail(f"{op} launched {keyed_launches[op]} times on the keyed path, expected {count}")
+    if keyed_gpu.state_bundles != 2:
+        fail(f"the keyed collection holds {keyed_gpu.state_bundles} state bundles, expected 2")
+    acc = keyed_gpu._keyed["Accuracy"]
+    counted = int((acc.tp.long() + acc.fn.long()).sum())
+    if counted != real_rows:
+        fail(f"the Accuracy bundle counts {counted} rows, expected the {real_rows} real rows")
+
+    keyed_cpu = build_keyed(M, "cpu")
+    for ids, preds, target in keyed_batches:
+        keyed_cpu.update(ids.cpu(), preds.cpu(), target.cpu())
+    cpu_out = keyed_cpu.compute()
+    for owner, km in keyed_gpu._keyed.items():
+        for name, value in km._get_states().items():
+            want = getattr(keyed_cpu._keyed[owner], name)
+            if value.dtype != want.dtype or not torch.equal(value.cpu(), want):
+                fail(f"keyed state {owner}.{name} on the card differs from the CPU's")
+    keyed_diffs = {}
+    for name, value in keyed_out.items():
+        got, want = value.cpu(), cpu_out[name]
+        if got.shape != (KEYED_TENANTS,) or got.dtype != want.dtype or not torch.equal(got.isnan(), want.isnan()):
+            fail(f"keyed {name}: {tuple(got.shape)} {got.dtype} on the card, NaN where the CPU's is not, or the reverse")
+        keyed_diffs[name] = float(torch.nan_to_num(got - want).abs().max())
+        if keyed_diffs[name] > 1e-6:
+            fail(f"keyed {name} differs from the CPU's by {keyed_diffs[name]}")
+    means = {name: float(value[~value.isnan()].mean()) for name, value in keyed_out.items()}
+    print(f"[keyed] card == CPU (states exact; values max |diff| {keyed_diffs}); tp + fn over tenants = "
+          f"{counted} real rows; tenant means {means}")
+    record["keyed"] = {"launches": keyed_launches, "update_ms": update_ms, "compute_ms": keyed_compute_ms,
+                       "real_rows": counted, "tenant_means": means, "max_abs_diff_vs_cpu": keyed_diffs}
+
+    probe = build_keyed(M, dev)
+    probe.update(*keyed_batches[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for ids, preds, target in keyed_batches[1:11]:
+            probe.update(ids, preds, target)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    busy_ms = _device_us(prof) / 1e3
+    top = sorted(_device_events(prof), key=lambda e: -e.self_device_time_total)[:10]
+    breakdown = [{"name": e.key[:80], "calls": e.count, "device_us": e.self_device_time_total} for e in top]
+    print(f"[keyed] 10 updates under the profiler: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+          f"(idle share {1 - busy_ms / wall_ms:.3f})")
+    for row in breakdown:
+        print(f"[keyed]   {row['device_us']:10.1f} us  {row['calls']:4d} x  {row['name']}")
+    record["keyed"]["profile"] = {"updates": 10, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                                  "top_device": breakdown}
+
     # -- 4. times at the main-path shapes ------------------------------------
     preds, target = batches[0]
     canon_p, canon_t, _ = _input_format_classification(preds, target)
@@ -317,6 +530,31 @@ def main() -> int:
         "stat_scores_counts": {"bound": b1_bound, "shape": f"preds, target ({n}, {c}) int32"},
         "confmat_counts": {"bound": b2_bound, "shape": f"preds, target ({n},) int64, C={c}"},
     }
+    # the keyed path's shapes: its ids, and rows of 0/1-valued deltas
+    s_ = KEYED_TENANTS
+    keyed_ids = keyed_batches[0][0]
+    safe = torch.where((keyed_ids >= 0) & (keyed_ids < s_), keyed_ids, s_)
+    for op, d in (("segment_scatter_add", 40), ("segment_scatter_add_d6", 6), ("segment_scatter_max", 1),
+                  ("segment_scatter_min", 1)):
+        kernel_op = op.replace("_d6", "")
+        kernel, plain = scatter[kernel_op]
+        rows = torch.randint(0, 2, (KEYED_ROWS, d), generator=gen, device=dev).float()
+        buffer = torch.zeros((s_ + 1, d), device=dev)
+        if kernel_op == "segment_scatter_add":
+            library = (lambda buffer=buffer, rows=rows: buffer.index_add_(0, safe, rows))
+        else:
+            index = safe.unsqueeze(1).expand(-1, d).contiguous()
+            how = "amax" if kernel_op.endswith("max") else "amin"
+            library = (lambda buffer=buffer, index=index, rows=rows, how=how:
+                       buffer.scatter_reduce_(0, index, rows, how, include_self=True))
+        nbytes = KEYED_ROWS * d * 4 + KEYED_ROWS * 8 + s_ * d * 4 + s_ * 4
+        calls[op] = {
+            "ms": lambda kernel=kernel, rows=rows: kernel(rows, keyed_ids, s_, device=dev),
+            "plain_ms": lambda plain=plain, rows=rows: plain(rows, keyed_ids, s_),
+            "library_ms": library,
+        }
+        timings[op] = {"bound": bound(nbytes, KEYED_ROWS * d), "shape": f"rows ({KEYED_ROWS}, {d}) float32, ids "
+                       f"({KEYED_ROWS},) int64, S={s_}"}
     for op, fns in calls.items():
         t = timings[op]
         for key, fn in fns.items():
@@ -335,16 +573,26 @@ def main() -> int:
 
     # -- 5. report -------------------------------------------------------
     sources = {"stat_scores_counts": "metrics_tpu_torch/csrc/stat_scores.cu",
-               "confmat_counts": "metrics_tpu_torch/csrc/confusion_matrix.cu"}
+               "confmat_counts": "metrics_tpu_torch/csrc/confusion_matrix.cu",
+               "segment_scatter_add": "metrics_tpu_torch/csrc/segment_scatter.cu",
+               "segment_scatter_max": "metrics_tpu_torch/csrc/segment_scatter.cu",
+               "segment_scatter_min": "metrics_tpu_torch/csrc/segment_scatter.cu"}
     replaces = {"stat_scores_counts": "metrics_tpu/kernels/stat_scores.py:73",
-                "confmat_counts": "metrics_tpu/kernels/confusion_matrix.py:45"}
+                "confmat_counts": "metrics_tpu/kernels/confusion_matrix.py:45",
+                "segment_scatter_add": "metrics_tpu/kernels/segment_scatter.py:93",
+                "segment_scatter_max": "metrics_tpu/kernels/segment_scatter.py:227",
+                "segment_scatter_min": "metrics_tpu/kernels/segment_scatter.py:227"}
+    # launches on each kernel's own path: the ImageNet-1k collection for B1
+    # and B2, the keyed collection for B3 and B4 (no ported metric has a
+    # "min" leaf yet, so B4 min is held against its plain version only)
+    path_launches = {**launches, **{op: keyed_launches[op] for op in scatter}}
     kernels = [
         {"name": op, "route": "cuda", "source": sources[op], "replaces": replaces[op],
-         "launches": launches[op], "max_abs_err": errors[op], "ms": timings[op]["ms"],
+         "launches": path_launches[op], "max_abs_err": errors[op], "ms": timings[op]["ms"],
          "plain_ms": timings[op]["plain_ms"], "bound_ms": timings[op]["bound"][0],
          "bound_by": timings[op]["bound"][1], "library_ms": timings[op]["library_ms"],
          "device_ms": timings[op]["device_ms"]}
-        for op in ("stat_scores_counts", "confmat_counts")
+        for op in sources
     ]
     record["kernels"] = kernels
     if args.record:

@@ -7,9 +7,11 @@ tensors on an explicit device (``device=``, default ``"cuda"``); the hot
 counting loops run hand-written CUDA kernels for ``sm_90a``
 (``metrics_tpu_torch/csrc``), built with ``nvcc`` at first use.
 
-This slice covers the stat-scores and confusion-matrix classification path:
-``Accuracy``, ``Precision``, ``Recall``, ``FBeta``, ``F1``, ``StatScores``,
-``ConfusionMatrix`` and ``MetricCollection``.
+The slices so far cover the stat-scores and confusion-matrix classification
+path (``Accuracy``, ``Precision``, ``Recall``, ``FBeta``, ``F1``,
+``StatScores``, ``ConfusionMatrix`` and ``MetricCollection``) and the
+multi-tenant keyed state over it (``KeyedMetric`` and
+``MultiTenantCollection``).
 """
 from metrics_tpu_torch.classification import (  # noqa: F401
     F1,
@@ -22,3 +24,4 @@ from metrics_tpu_torch.classification import (  # noqa: F401
 )
 from metrics_tpu_torch.collections import MetricCollection  # noqa: F401
 from metrics_tpu_torch.metric import Metric  # noqa: F401
+from metrics_tpu_torch.wrappers import KeyedMetric, MultiTenantCollection  # noqa: F401

@@ -4,7 +4,7 @@ Counterpart of ``metrics_tpu/classification/accuracy.py``: a StatScores
 subclass with extra sum-reduced ``correct``/``total`` states for the
 subset-accuracy path and mode-locking across updates.
 """
-from typing import Any, Callable, Optional, Union
+from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 
@@ -17,7 +17,7 @@ from metrics_tpu_torch.functional.classification.accuracy import (
     _subset_accuracy_compute,
     _subset_accuracy_update,
 )
-from metrics_tpu_torch.utilities.data import Tensor
+from metrics_tpu_torch.utilities.data import Tensor, _is_batched
 from metrics_tpu_torch.utilities.enums import DataType
 
 #: mode <-> synced-code mapping for the ``mode_code`` state (0 = unset; the
@@ -162,11 +162,23 @@ class Accuracy(StatScores):
 
             self._accumulate(tp, fp, tn, fn)
 
+    def _restore_derived(self, state: Dict[str, Tensor]) -> None:
+        """Decode the learned data mode from installed ``mode_code`` states
+        (a fresh instance never saw a batch). The max over the possibly
+        tenant-stacked codes mirrors the ``dist_reduce_fx="max"`` sync; it is
+        read once, on the host, before a keyed compute fans out per tenant."""
+        if self.mode is not None or "mode_code" not in state:
+            return
+        code = int(torch.as_tensor(state["mode_code"]).max())
+        if code:
+            self.mode = _MODE_CODES[code]
+
     def _effective_mode(self):
         """The data mode for compute(): locally learned, or — when this process
         never updated, or its states were installed from elsewhere — decoded
-        from the (synced) ``mode_code``."""
-        if self.mode is not None:
+        from the (synced) ``mode_code``. Inside a vmapped compute no value can
+        be read: the mode is then what update or :meth:`_restore_derived` set."""
+        if self.mode is not None or _is_batched(self.mode_code):
             return self.mode
         return _MODE_CODES[int(self.mode_code.max().item())]
 

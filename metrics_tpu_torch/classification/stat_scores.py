@@ -11,6 +11,7 @@ import torch
 
 from metrics_tpu_torch.functional.classification.stat_scores import _stat_scores_compute, _stat_scores_update
 from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.utilities.checks import _check_classification_inputs, _input_squeeze
 from metrics_tpu_torch.utilities.data import Tensor, dim_zero_cat
 from metrics_tpu_torch.utilities.enums import AverageMethod, MDMCAverageMethod
 
@@ -108,6 +109,13 @@ class StatScores(Metric):
             multiclass=self.multiclass,
             ignore_index=self.ignore_index,
         )
+
+    def _validate_batch(self, preds: Tensor, target: Tensor) -> None:
+        """The value checks of the canonicalization, on the whole batch."""
+        preds, target = _input_squeeze(torch.as_tensor(preds), torch.as_tensor(target))
+        if preds.dtype in (torch.float16, torch.bfloat16):
+            preds = preds.float()
+        _check_classification_inputs(preds, target, self.threshold, self.num_classes, self.multiclass, self.top_k)
 
     def _shared_update_key(self) -> Optional[Tuple]:
         # sharing is only valid when the subclass runs StatScores' update

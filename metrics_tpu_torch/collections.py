@@ -6,7 +6,9 @@ with per-metric kwarg filtering, dict ``compute``, ``reset``, ``clone`` and
 ``state_dict``. Members that advertise the same
 :meth:`~metrics_tpu_torch.metric.Metric._shared_update_key` (macro
 Precision, Recall and F1 with equal settings) share one canonicalization and
-one count pass per batch (:meth:`MetricCollection._shared_deltas`).
+one count pass per batch (:meth:`MetricCollection._shared_deltas`), and
+the keyed collection stacks them as one state bundle
+(:meth:`MetricCollection._group_layout`).
 """
 from collections import OrderedDict
 from copy import deepcopy
@@ -97,6 +99,31 @@ class MetricCollection:
             for name in names:
                 deltas[name] = value
         return deltas
+
+    def _group_layout(self) -> list:
+        """``[(owner_name, [member names]), ...]`` in member order: one entry
+        per group of members that can share one state, plus one singleton
+        entry per other member. Members share when their shared-update keys
+        are equal AND their state layouts (names, shapes, dtypes,
+        reductions, device) are equal, so their states can never diverge: the
+        exact key that stands in for the JAX package's trace fingerprints
+        (``collections.py:193-228``). Members with a custom sync stay alone."""
+        layout: list = []
+        index: Dict[Tuple, int] = {}
+        for name, m in self.items(keep_base=True):
+            key = m._shared_update_key()
+            if key is not None and m.dist_sync_fn is None and not m.dist_sync_on_step:
+                states = tuple(
+                    (k, "list" if isinstance(d, list) else (tuple(d.shape), str(d.dtype)), m._reductions[k])
+                    for k, d in sorted(m._defaults.items())
+                )
+                key = (key, states, str(m.device), repr(m.process_group))
+                if key in index:
+                    layout[index[key]][1].append(name)
+                    continue
+                index[key] = len(layout)
+            layout.append((name, [name]))
+        return layout
 
     def compute(self) -> Dict[str, Any]:
         """Compute every metric (each syncs its own states)."""

@@ -32,6 +32,8 @@ def _mode(
     num_classes: Optional[int],
     multiclass: Optional[bool],
 ) -> DataType:
+    """The input case. Its value checks are skipped inside ``torch.func.vmap``,
+    where the case follows from shapes and dtypes alone."""
     return _check_classification_inputs(
         preds, target, threshold=threshold, top_k=top_k, num_classes=num_classes, multiclass=multiclass
     )

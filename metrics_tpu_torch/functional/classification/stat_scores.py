@@ -7,6 +7,12 @@ canonical inputs (``reduce="macro"``) go through the CUDA kernel
 :func:`~metrics_tpu_torch.kernels.stat_scores.stat_scores_counts_cuda` at
 the seam where the JAX package consults its Pallas kernel
 (``stat_scores.py:46-55``).
+
+Inside ``torch.func.vmap`` (the keyed path's per-row update) that seam takes
+the plain compare chain instead: each row is a length-1 batch, so there is
+no row reduction for the kernel to do, and the per-row terms are
+elementwise. On a TPU the JAX package batches its ``pallas_call`` there;
+the CUDA kernel takes no batched tensor.
 """
 from typing import Optional, Tuple
 
@@ -14,7 +20,7 @@ import torch
 
 from metrics_tpu_torch.kernels.stat_scores import stat_scores_counts_cuda
 from metrics_tpu_torch.utilities.checks import _input_format_classification
-from metrics_tpu_torch.utilities.data import Tensor
+from metrics_tpu_torch.utilities.data import Tensor, _is_batched
 from metrics_tpu_torch.utilities.enums import AverageMethod, MDMCAverageMethod
 
 
@@ -36,7 +42,9 @@ def _stat_scores(
     """Count tp/fp/tn/fn over canonical binary ``(N, C)`` or ``(N, C, X)`` inputs.
 
     Output shapes: micro -> scalar / ``(N,)``; macro -> ``(C,)`` / ``(N, C)``;
-    samples -> ``(N,)`` / ``(N, X)``.
+    samples -> ``(N,)`` / ``(N, X)``. Macro counts of 2-D inputs go through
+    the B1 kernel, except inside ``torch.func.vmap``, where the compare chain
+    below computes each row's terms.
     """
     if reduce == "micro":
         dim = (0, 1) if preds.ndim == 2 else (1, 2)
@@ -47,7 +55,7 @@ def _stat_scores(
     else:
         raise ValueError(f"The `reduce` {reduce} is not valid.")
 
-    if reduce == "macro" and preds.ndim == 2:
+    if reduce == "macro" and preds.ndim == 2 and not _is_batched(preds, target):
         return stat_scores_counts_cuda(preds.contiguous(), target.contiguous(), device=preds.device)
 
     true_pred = target == preds

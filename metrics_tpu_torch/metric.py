@@ -17,6 +17,9 @@ limited to the eager stateful path:
   than one process, or an injected ``dist_sync_fn``, ``compute()`` gathers
   every state from every process and reduces it, then restores the local
   states. With one process nothing is gathered.
+* **Pure-state calls.** :meth:`apply_update` and :meth:`apply_compute` run
+  ``update``/``compute`` on a state dict handed in (``metric.py:500-563``)
+  and leave the live states as they were; the keyed path vmaps them.
 """
 import functools
 import inspect
@@ -172,6 +175,43 @@ class Metric(ABC):
         for name, value in state.items():
             setattr(self, name, value)
 
+    @contextmanager
+    def _bound_state(self, state: StateDict):
+        """Swap ``state`` in as the live state for the block, then restore the
+        live states and the cache flags as they were (pure-call plumbing)."""
+        saved = self._get_states()
+        saved_flags = (self._computed, self._update_called, self._forward_cache)
+        self._set_states(state)
+        try:
+            yield
+        finally:
+            self._set_states(saved)
+            self._computed, self._update_called, self._forward_cache = saved_flags
+
+    def apply_update(self, state: StateDict, *args: Any, **kwargs: Any) -> StateDict:
+        """Pure update: ``state`` advanced by this batch; the live states stay
+        as they were. Safe under ``torch.func.vmap``."""
+        with self._bound_state({k: (list(v) if isinstance(v, list) else v) for k, v in state.items()}):
+            self._unwrapped_update(*args, **kwargs)
+            return self._get_states()
+
+    def apply_compute(self, state: StateDict) -> Any:
+        """Pure compute: the value of ``state``, without cross-process sync
+        (``compute()`` syncs the live states first)."""
+        with self._bound_state(state):
+            return self._unwrapped_compute()
+
+    def _restore_derived(self, state: StateDict) -> None:
+        """Refresh Python attributes that ``update`` learns from the data
+        (``Accuracy.mode``) from installed states, possibly tenant-stacked, in
+        an instance that never saw a batch. Default: none."""
+
+    def _validate_batch(self, *args: Any, **kwargs: Any) -> None:
+        """The value checks of ``update`` on a whole batch. The keyed path
+        runs them once before its vmapped per-row update, in which no value
+        can be read to the host. Default: none."""
+
+
     def _check_input_device(self, args: Tuple, kwargs: Dict) -> None:
         """Raise on an input tensor that lies on another device than the states."""
         for value in (*args, *kwargs.values()):
@@ -250,6 +290,10 @@ class Metric(ABC):
     @property
     def _unwrapped_update(self) -> Callable:
         return self.update.__wrapped__  # type: ignore[attr-defined]
+
+    @property
+    def _unwrapped_compute(self) -> Callable:
+        return self.compute.__wrapped__  # type: ignore[attr-defined]
 
     def __call__(self, *args: Any, **kwargs: Any) -> Any:
         return self.forward(*args, **kwargs)

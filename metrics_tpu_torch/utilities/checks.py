@@ -11,13 +11,21 @@ float predictions) need data values on the host. Each tensor's
 that pair: canonicalizing a batch of float predictions costs one
 device-to-host read of the targets, where reading each value separately
 would cost one synchronisation per check.
+
+Inside ``torch.func.vmap`` (the keyed path's per-row update, see
+:func:`~metrics_tpu_torch.utilities.stacked.row_states`) no value can be
+read: the ranges are then ``None`` and every value check is skipped, where
+the JAX package skips them under ``_is_traced`` (``checks.py:40,72,141,205``).
+The keyed path runs the same checks once on the whole batch before the
+vmap. Label predictions without ``num_classes`` raise there, as they do
+under a JAX trace (``checks.py:280-284``).
 """
 import math
 from typing import Optional, Tuple, Union
 
 import torch
 
-from metrics_tpu_torch.utilities.data import Tensor, select_topk, to_onehot
+from metrics_tpu_torch.utilities.data import Tensor, _is_batched, select_topk, to_onehot
 from metrics_tpu_torch.utilities.enums import DataType
 
 Number = Union[int, float]
@@ -190,9 +198,11 @@ def _check_inputs_with_ranges(
     top_k: Optional[int],
 ) -> Tuple[DataType, Range, Range]:
     """Full input validation: the inferred case, plus the host ranges of
-    ``target`` and of integer ``preds`` (``None`` for float ``preds``)."""
-    t_range = _host_range(target)
-    p_range = None if preds.is_floating_point() else _host_range(preds)
+    ``target`` and of integer ``preds`` (``None`` for float ``preds``, and
+    for both inside a vmapped program, where the value checks are skipped)."""
+    batched = _is_batched(preds, target)
+    t_range = None if batched else _host_range(target)
+    p_range = None if batched or preds.is_floating_point() else _host_range(preds)
 
     _basic_input_validation(preds, target, multiclass, t_range, p_range)
 
@@ -289,6 +299,11 @@ def _input_format_classification(
             preds = select_topk(preds, top_k or 1)
         else:
             if not num_classes:
+                if _is_batched(preds, target):
+                    raise ValueError(
+                        "`num_classes` must be given explicitly when canonicalizing label "
+                        "predictions inside a vmapped (per-row) program."
+                    )
                 p_hi = (p_range or (0, 0))[1]
                 num_classes = int(max(p_hi, (t_range or (0, 0))[1])) + 1
             preds = to_onehot(preds, max(2, num_classes))

@@ -6,6 +6,10 @@ classification path uses, plus the device rule of the port
 comparison with an ``arange`` along the class axis, so a label outside
 ``[0, C)`` gives an all-zero row (as ``jax.nn.one_hot`` does) instead of a
 device-side assert.
+
+:func:`_is_batched` is the counterpart of JAX's ``_is_traced``: it is true
+for a tensor inside ``torch.func.vmap`` (the per-row update of the keyed
+path), where a value cannot be read to the host.
 """
 from typing import Any, Callable, List, Mapping, Optional, Sequence, Tuple, Union
 
@@ -14,6 +18,12 @@ import torch
 from metrics_tpu_torch.utilities.prints import rank_zero_warn
 
 Tensor = torch.Tensor
+
+
+def _is_batched(*tensors: Any) -> bool:
+    """True if any of ``tensors`` is a batched tensor of ``torch.func.vmap``
+    (whose values cannot be read to the host with ``.item()``/``.tolist()``)."""
+    return any(isinstance(t, Tensor) and torch._C._functorch.is_batchedtensor(t) for t in tensors)
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -80,6 +90,8 @@ def to_onehot(label_tensor: Tensor, num_classes: Optional[int] = None) -> Tensor
     if label_tensor.dtype == torch.bool:
         label_tensor = label_tensor.to(torch.int32)
     if num_classes is None:
+        if _is_batched(label_tensor):
+            raise ValueError("`num_classes` must be given explicitly when one-hot encoding inside a vmapped program.")
         num_classes = int(label_tensor.max().item()) + 1
     classes = _class_axis(num_classes, label_tensor.ndim + 1, label_tensor.device)
     return (label_tensor.unsqueeze(1) == classes).to(label_tensor.dtype)
@@ -102,7 +114,14 @@ def to_categorical(x: Tensor, argmax_dim: int = 1) -> Tensor:
 
 
 def get_num_classes(preds: Tensor, target: Tensor, num_classes: Optional[int] = None) -> int:
-    """Infer the number of classes from data values (reads them on the host)."""
+    """Infer the number of classes from data values (reads them on the host).
+
+    Inside a vmapped program no value can be read: ``num_classes`` is then
+    returned as given, and raises when it is not."""
+    if _is_batched(preds, target):
+        if num_classes is None:
+            raise ValueError("`num_classes` must be given explicitly inside a vmapped program.")
+        return num_classes
     num_target_classes = int(target.max().item()) + 1
     num_pred_classes = int(preds.max().item()) + 1
     num_all_classes = max(num_target_classes, num_pred_classes)

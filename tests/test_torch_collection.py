@@ -150,6 +150,7 @@ def test_collection_naming_clone_and_state_dict():
 def test_port_imports_neither_jax_nor_metrics_tpu():
     code = (
         "import sys, metrics_tpu_torch, metrics_tpu_torch.functional, metrics_tpu_torch.utilities.convert\n"
+        "import metrics_tpu_torch.wrappers, metrics_tpu_torch.utilities.stacked, metrics_tpu_torch.kernels.segment_scatter\n"
         "bad = [m for m in sys.modules if m in ('jax', 'metrics_tpu') or m.startswith(('jax.', 'metrics_tpu.'))]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
     )
@@ -170,6 +171,8 @@ def _imported_modules(path: Path):
 def test_port_sources_import_neither_jax_nor_metrics_tpu():
     files = sorted((ROOT / "metrics_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    for new in ("wrappers/__init__.py", "wrappers/multitenant.py", "utilities/stacked.py", "kernels/segment_scatter.py"):
+        assert ROOT / "metrics_tpu_torch" / new in files
     for path in files:
         for name in _imported_modules(path):
             root = name.split(".")[0]
