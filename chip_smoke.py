@@ -15,6 +15,11 @@ Phases, in order; any failure exits non-zero before the last line:
    for float sums of the segment scatter (B3), which add in an order that
    changes from run to run: within rtol=atol=1e-5 (a few float32 ulps of
    sums of a few terms), and run twice to print the run-to-run difference.
+   B5's histograms must also equal the plain version run on the CPU (the
+   plain version on the card divides by a device tensor, never by a Python
+   scalar, whose CUDA division multiplies by the reciprocal), including at
+   every bin edge and its float32 neighbours, and for NaN, +-inf and
+   subnormal scores.
 3. The first path: ImageNet-1k evaluation (1000 classes, the 50,000-image
    validation split in batches of 1024 float32 softmax rows, 49 ``forward``
    calls, then ``compute()``) through
@@ -36,6 +41,20 @@ Phases, in order; any failure exits non-zero before the last line:
    collection's on the CPU exactly, the per-tenant values within 1e-6.
    The per-``update`` time, the ``compute()`` time, and the device's busy
    share of ten updates under the profiler.
+3c. The sketched curve path: the same 49 ImageNet-1k batches through
+   ``MetricCollection({AUROC, AveragePrecision})`` with ``num_classes=1000,
+   sketched=True`` (2048 bins over (0, 1)) and ``compute_on_step=False``: 49
+   ``update`` calls, then ``compute()``. B5 must launch twice per batch (98),
+   B1-B4 never; the histogram states must equal the same collection's on the
+   CPU exactly, the values within 1e-6. The per-``update`` time, the
+   ``compute()`` time, the device's busy share of ten updates under the
+   profiler, and (printed, not asserted) the exact list-mode AUROC of the
+   same stream and its distance from the sketched one.
+3d. The binary scorer stream: 100 updates of 10,000 seeded scores (labels
+   Bernoulli(score)) into ``AUROC``, ``ROC`` and ``PrecisionRecallCurve``
+   with ``sketched=True`` and into the exact ``AUROC()``. B5 must launch 300
+   times; the sketched states must equal the CPU's exactly and the values
+   within 1e-6; the sketched AUROC must lie within 5e-3 of the exact one.
 4. Times at the main-path shapes: the median of 50 CUDA-event-timed calls
    of each kernel's wrapper, of its plain version and of the one PyTorch
    call that computes the same function (where there is one), each beside
@@ -71,6 +90,12 @@ KEYED_ROWS = 4096
 KEYED_CLASSES = 10
 KEYED_UPDATES = 50
 KEYED_LAST_REAL = 3000
+#: the sketched curves: the class default grid, and the binary scorer stream
+#: of the JAX package's bench_sketched_state_sync (1,000,000 scores in chunks
+#: of 10,000)
+NUM_BINS = 2048
+STREAM_UPDATES = 100
+STREAM_CHUNK = 10_000
 
 
 def fail(message: str) -> None:
@@ -218,6 +243,74 @@ def special_rows(torch, dev):
     return rows, ids, 12  # segments 9..11 get no row
 
 
+def build_curves(M, device):
+    kw = dict(num_classes=NUM_CLASSES, sketched=True, num_bins=NUM_BINS, compute_on_step=False, device=device)
+    return M.MetricCollection({"AUROC": M.AUROC(**kw), "AveragePrecision": M.AveragePrecision(**kw)})
+
+
+def build_stream(M, device):
+    kw = dict(sketched=True, num_bins=NUM_BINS, device=device)
+    return {"AUROC": M.AUROC(**kw), "ROC": M.ROC(**kw), "PrecisionRecallCurve": M.PrecisionRecallCurve(**kw)}
+
+
+def make_stream(torch, device):
+    """The 100 seeded chunks of the binary scorer stream: uniform scores,
+    labels Bernoulli(score), int64."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 3)
+    chunks = []
+    for _ in range(STREAM_UPDATES):
+        scores = torch.rand(STREAM_CHUNK, generator=gen, device=device)
+        labels = (torch.rand(STREAM_CHUNK, generator=gen, device=device) < scores).long()
+        chunks.append((scores, labels))
+    return chunks
+
+
+def edge_scores(torch, dev, b, lo, hi):
+    """Every bin edge of the grid with its float32 neighbours, then NaN,
+    +-inf, signed zeros, subnormals and scores outside [lo, hi]."""
+    edges = (lo + (hi - lo) * torch.arange(b + 1, dtype=torch.float64, device=dev) / b).float()
+    up = torch.nextafter(edges, torch.full_like(edges, float("inf")))
+    down = torch.nextafter(edges, torch.full_like(edges, float("-inf")))
+    special = torch.tensor([float("nan"), float("inf"), float("-inf"), 0.0, -0.0, 1e-45, -1e-45, -1e-39, -1e-30,
+                            lo - 1.0, hi + 1.0], device=dev)
+    return torch.cat([edges, up, down, special])
+
+
+def trees_equal(torch, got, want) -> bool:
+    """Equal structure and dtypes, values equal exactly."""
+    if isinstance(want, (list, tuple)):
+        return len(got) == len(want) and all(trees_equal(torch, g, w) for g, w in zip(got, want))
+    return got.dtype == want.dtype and got.shape == want.shape and bool(torch.equal(got.cpu(), want))
+
+
+def tree_max_diff(torch, got, want) -> float:
+    """Largest |got - want| over a (nested) tuple of tensors; raises on a shape or NaN mismatch."""
+    if isinstance(want, (list, tuple)):
+        return max(tree_max_diff(torch, g, w) for g, w in zip(got, want))
+    got = got.cpu()
+    if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(got.isnan(), want.isnan()):
+        fail(f"{tuple(got.shape)} {got.dtype} on the card against {tuple(want.shape)} {want.dtype} on the CPU, "
+             "or NaN in other places")
+    return float(torch.nan_to_num(got - want).abs().max()) if got.numel() else 0.0
+
+
+def profile_steps(torch, step, inputs):
+    """Wall time, device busy time and the top device rows of ``step`` over ``inputs``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for args in inputs:
+            step(*args)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    busy_ms = _device_us(prof) / 1e3
+    top = sorted(_device_events(prof), key=lambda e: -e.self_device_time_total)[:10]
+    breakdown = [{"name": e.key[:80], "calls": e.count, "device_us": e.self_device_time_total} for e in top]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "top_device": breakdown}
+
+
 def same_bits(a, b) -> bool:
     """Equal values, NaN where NaN (of either sign: a NaN's sign bit and
     payload carry nothing), and the same sign of zero."""
@@ -240,6 +333,7 @@ def main() -> int:
 
     import metrics_tpu_torch as M
     from metrics_tpu_torch.kernels import _common
+    from metrics_tpu_torch.kernels.binned_counts import label_score_histograms_cuda, label_score_histograms_torch
     from metrics_tpu_torch.kernels.confusion_matrix import confmat_counts_cuda, confmat_counts_torch
     from metrics_tpu_torch.kernels.segment_scatter import (
         segment_scatter_add_cuda,
@@ -352,6 +446,43 @@ def main() -> int:
             print(f"[parity] {op} NaN, +-0.0 and +-inf rows, empty segments: {'equal' if ok else 'DIFFERENT'}")
             if not ok:
                 fail(f"{op} differs from its plain version on NaN, signed-zero or infinite rows")
+
+    # B5: kernel == plain on the card == plain on the CPU, bit for bit
+    errors["label_score_histograms"] = 0.0
+    hist_cases = []
+    for n, c, b in [(BATCH, NUM_CLASSES, NUM_BINS), (STREAM_CHUNK, 1, NUM_BINS), (1, 3, 4096), (7, 3, 4096),
+                    (1023, 3, 4096)]:
+        scores = torch.rand((n, c), generator=gen, device=dev)
+        labels = torch.randint(0, 2, (n, c), generator=gen, device=dev, dtype=torch.int32)
+        hist_cases.append((f"N={n} C={c} B={b} uniform scores", scores, labels, b, 0.0, 1.0))
+    for b, lo, hi in [(NUM_BINS, 0.0, 1.0), (1000, 0.0, 1.0), (4096, 0.1, 0.7)]:
+        scores = edge_scores(torch, dev, b, lo, hi).reshape(-1, 1)
+        labels = (torch.arange(scores.shape[0], device=dev) % 2).int().reshape(-1, 1)
+        hist_cases.append((f"every edge of B={b} over ({lo}, {hi}) with neighbours, NaN, +-inf, subnormals",
+                           scores, labels, b, lo, hi))
+    scores = torch.randn((4096, 3), generator=gen, device=dev) * 3
+    scores[::101] = float("nan")
+    scores[1::103] = float("inf")
+    hist_cases.append(("N=4096 C=3 B=32 over (-2, 2), out of range, NaN, inf", scores,
+                       torch.randint(0, 2, (4096, 3), generator=gen, device=dev), 32, -2.0, 2.0))
+    hist_cases.append(("N=1024 C=1000 B=2048 bf16 scores, float32 targets",
+                       torch.rand((BATCH, NUM_CLASSES), generator=gen, device=dev).bfloat16(),
+                       torch.randint(0, 2, (BATCH, NUM_CLASSES), generator=gen, device=dev).float(), NUM_BINS, 0.0,
+                       1.0))
+    for label, scores, labels, b, lo, hi in hist_cases:
+        got = label_score_histograms_cuda(scores, labels, b, lo, hi, device=dev)
+        torch.cuda.synchronize()
+        want = label_score_histograms_torch(scores, labels, b, lo, hi)
+        want_cpu = label_score_histograms_torch(scores.cpu(), labels.cpu(), b, lo, hi)
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        ok = trees_equal(torch, got, want_cpu) and all(torch.equal(g, w) for g, w in zip(got, want))
+        errors["label_score_histograms"] = max(errors["label_score_histograms"], err)
+        parity.append({"kernel": "label_score_histograms", "case": label, "equal": ok, "max_abs_err": err,
+                       "clipped": float(got[2])})
+        print(f"[parity] label_score_histograms {label}: {'equal' if ok else 'DIFFERENT'} "
+              f"(kernel == plain on the card == plain on the CPU; clipped {float(got[2]):.0f})")
+        if not ok:
+            fail(f"label_score_histograms differs from its plain version: {label}")
     record["parity"] = parity
 
     # -- 3. the main path -------------------------------------------------
@@ -504,6 +635,127 @@ def main() -> int:
     record["keyed"]["profile"] = {"updates": 10, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
                                   "top_device": breakdown}
 
+    # -- 3c. the sketched curve path ------------------------------------------
+    all_ops = ("stat_scores_counts", "confmat_counts", "segment_scatter_add", "segment_scatter_max",
+               "segment_scatter_min", "label_score_histograms")
+    curves_gpu = build_curves(M, dev)
+    torch.cuda.synchronize()
+    _common.reset_dispatch_counters()
+    curve_update_ms = []
+    for preds, target in batches:
+        start = time.perf_counter()
+        curves_gpu.update(preds, target)
+        torch.cuda.synchronize()
+        curve_update_ms.append((time.perf_counter() - start) * 1e3)
+    start = time.perf_counter()
+    curves_out = curves_gpu.compute()
+    torch.cuda.synchronize()
+    curves_compute_ms = (time.perf_counter() - start) * 1e3
+    curve_launches = {op: _common.launch_count(op) for op in all_ops}
+    print(f"[curves] 49 update + compute of sketched AUROC + AveragePrecision (C={NUM_CLASSES}, B={NUM_BINS}) on "
+          f"{kind}: launches {curve_launches}; update median {statistics.median(curve_update_ms):.3f} ms "
+          f"(first {curve_update_ms[0]:.3f} ms), compute {curves_compute_ms:.3f} ms")
+    for op, count in curve_launches.items():
+        want = 2 * len(batches) if op == "label_score_histograms" else 0
+        if count != want:
+            fail(f"{op} launched {count} times on the curve path, expected {want}")
+
+    curves_cpu = build_curves(M, "cpu")
+    for preds, target in batches:
+        curves_cpu.update(preds.cpu(), target.cpu())
+    curves_cpu_out = curves_cpu.compute()
+    for name in ("AUROC", "AveragePrecision"):
+        for state in ("pos_hist", "neg_hist", "sketch_clipped"):
+            if not trees_equal(torch, getattr(curves_gpu[name], state), getattr(curves_cpu[name], state)):
+                fail(f"sketched state {name}.{state} on the card differs from the CPU's")
+    curve_diffs = {name: tree_max_diff(torch, curves_out[name], curves_cpu_out[name]) for name in curves_out}
+    if max(curve_diffs.values()) > 1e-6 or not all(bool(torch.isfinite(v).all()) for v in curves_out.values()):
+        fail(f"sketched curve values differ from the CPU's by {curve_diffs} or are not finite")
+    if curves_out["AveragePrecision"].shape != (NUM_CLASSES,):
+        fail(f"AveragePrecision has the shape {tuple(curves_out['AveragePrecision'].shape)}")
+    pos_total = float(curves_gpu["AUROC"].pos_hist.sum())
+    neg_total = float(curves_gpu["AUROC"].neg_hist.sum())
+    if pos_total != NUM_SAMPLES or neg_total != NUM_SAMPLES * (NUM_CLASSES - 1):
+        fail(f"the histograms count {pos_total} positives and {neg_total} negatives")
+    sketched_auroc = float(curves_out["AUROC"])
+    mean_ap = float(curves_out["AveragePrecision"].mean())
+    state_bytes = sum(getattr(curves_gpu[n], s).numel() * 4 for n in curves_out
+                      for s in ("pos_hist", "neg_hist", "sketch_clipped"))
+    print(f"[curves] card == CPU (histograms exact; values max |diff| {curve_diffs}); "
+          f"macro AUROC {sketched_auroc:.6f}, "
+          f"mean AP {mean_ap:.6f}; sketched state {state_bytes} bytes on the card")
+    curve_profile = profile_steps(torch, curves_gpu.update, batches[1:11])
+    print(f"[curves] 10 updates under the profiler: wall {curve_profile['wall_ms']:.3f} ms, device busy "
+          f"{curve_profile['device_busy_ms']:.3f} ms (idle share "
+          f"{1 - curve_profile['device_busy_ms'] / curve_profile['wall_ms']:.3f})")
+    for row in curve_profile["top_device"]:
+        print(f"[curves]   {row['device_us']:10.1f} us  {row['calls']:4d} x  {row['name']}")
+    exact = M.AUROC(num_classes=NUM_CLASSES, compute_on_step=False, device=dev)
+    for preds, target in batches:
+        exact.update(preds, target)
+    start = time.perf_counter()
+    exact_auroc = float(exact.compute())
+    exact_compute_ms = (time.perf_counter() - start) * 1e3
+    del exact
+    print(f"[curves] exact list-mode macro AUROC {exact_auroc:.6f} (compute {exact_compute_ms:.1f} ms); "
+          f"|sketched - exact| = {abs(sketched_auroc - exact_auroc):.3e}")
+    record["curves"] = {"launches": curve_launches, "update_ms": curve_update_ms, "compute_ms": curves_compute_ms,
+                        "auroc": sketched_auroc, "mean_ap": mean_ap, "max_abs_diff_vs_cpu": curve_diffs,
+                        "state_bytes": state_bytes, "profile": curve_profile, "exact_auroc": exact_auroc,
+                        "exact_compute_ms": exact_compute_ms, "sketched_minus_exact": sketched_auroc - exact_auroc}
+
+    # -- 3d. the binary scorer stream ----------------------------------------------
+    chunks = make_stream(torch, dev)
+    stream_gpu = build_stream(M, dev)
+    stream_exact = M.AUROC(compute_on_step=False, device=dev)
+    torch.cuda.synchronize()
+    _common.reset_dispatch_counters()
+    stream_update_ms = []
+    for scores, labels in chunks:
+        start = time.perf_counter()
+        for m in stream_gpu.values():
+            m.update(scores, labels)
+        torch.cuda.synchronize()
+        stream_update_ms.append((time.perf_counter() - start) * 1e3)
+        stream_exact.update(scores, labels)
+    stream_launches = {op: _common.launch_count(op) for op in all_ops}
+    stream_out = {name: m.compute() for name, m in stream_gpu.items()}
+    stream_exact_auroc = float(stream_exact.compute())
+    print(f"[stream] {STREAM_UPDATES} updates of {STREAM_CHUNK} scores into sketched AUROC + ROC + "
+          f"PrecisionRecallCurve on {kind}: launches {stream_launches}; update median (three metrics) "
+          f"{statistics.median(stream_update_ms):.3f} ms")
+    for op, count in stream_launches.items():
+        want = 3 * STREAM_UPDATES if op == "label_score_histograms" else 0
+        if count != want:
+            fail(f"{op} launched {count} times on the binary stream, expected {want}")
+    stream_cpu = build_stream(M, "cpu")
+    for scores, labels in chunks:
+        for m in stream_cpu.values():
+            m.update(scores.cpu(), labels.cpu())
+    for name, m in stream_gpu.items():
+        for state in ("pos_hist", "neg_hist", "sketch_clipped"):
+            if not trees_equal(torch, getattr(m, state), getattr(stream_cpu[name], state)):
+                fail(f"sketched state {name}.{state} of the binary stream differs from the CPU's")
+    stream_diffs = {name: tree_max_diff(torch, stream_out[name], stream_cpu[name].compute()) for name in stream_out}
+    if max(stream_diffs.values()) > 1e-6:
+        fail(f"binary stream values differ from the CPU's by {stream_diffs}")
+    stream_auroc = float(stream_out["AUROC"])
+    gap = abs(stream_auroc - stream_exact_auroc)
+    stream_state_bytes = sum(getattr(stream_gpu["AUROC"], s).numel() * 4 for s in ("pos_hist", "neg_hist",
+                                                                                    "sketch_clipped"))
+    print(f"[stream] card == CPU (states exact; values max |diff| {stream_diffs}); sketched AUROC {stream_auroc:.6f}, "
+          f"exact {stream_exact_auroc:.6f}, |diff| {gap:.3e} (limit 5e-3); sketched state {stream_state_bytes} bytes "
+          f"per metric, whatever the count of scores (the exact state holds "
+          f"{STREAM_UPDATES * STREAM_CHUNK * 12} bytes)")
+    if gap > 5e-3:
+        fail(f"the sketched AUROC of the binary stream is {gap} from the exact one")
+    if stream_state_bytes != 2 * NUM_BINS * 4 + 4:
+        fail(f"the sketched state holds {stream_state_bytes} bytes")
+    del stream_exact
+    record["stream"] = {"launches": stream_launches, "update_ms": stream_update_ms, "auroc": stream_auroc,
+                        "exact_auroc": stream_exact_auroc, "max_abs_diff_vs_cpu": stream_diffs,
+                        "state_bytes_per_metric": stream_state_bytes}
+
     # -- 4. times at the main-path shapes ------------------------------------
     preds, target = batches[0]
     canon_p, canon_t, _ = _input_format_classification(preds, target)
@@ -555,6 +807,29 @@ def main() -> int:
         }
         timings[op] = {"bound": bound(nbytes, KEYED_ROWS * d), "shape": f"rows ({KEYED_ROWS}, {d}) float32, ids "
                        f"({KEYED_ROWS},) int64, S={s_}"}
+    # B5 at the curve path's shape (one ImageNet-1k batch, one-hot int32
+    # targets, as AUROC/AveragePrecision hand it over) and at the binary
+    # stream's; the library call counts the flat (label, class, bin) index,
+    # computed outside the timed region: no bucketize, no NaN rule, no
+    # clipped count
+    from metrics_tpu_torch.kernels.binned_counts import _bin_index
+
+    onehot = (batches[0][1].unsqueeze(1) == torch.arange(NUM_CLASSES, device=dev)).to(torch.int32)
+    for op, scores, labels in (("label_score_histograms", batches[0][0], onehot),
+                               ("label_score_histograms_c1", chunks[0][0].reshape(-1, 1),
+                                chunks[0][1].reshape(-1, 1).to(torch.int32))):
+        n, c = scores.shape
+        cells = c * NUM_BINS
+        flat = (torch.where(labels == 1, 0, cells) + torch.arange(c, device=dev) * NUM_BINS
+                + _bin_index(scores, NUM_BINS, 0.0, 1.0)).reshape(-1)
+        calls[op] = {
+            "ms": lambda scores=scores, labels=labels: label_score_histograms_cuda(scores, labels, NUM_BINS,
+                                                                                   device=dev),
+            "plain_ms": lambda scores=scores, labels=labels: label_score_histograms_torch(scores, labels, NUM_BINS),
+            "library_ms": lambda flat=flat, cells=cells: torch.bincount(flat, minlength=2 * cells),
+        }
+        timings[op] = {"bound": bound(2 * n * c * 4 + 2 * cells * 4 + 4, 4 * n * c),
+                       "shape": f"scores ({n}, {c}) float32, targets ({n}, {c}) int32, B={NUM_BINS}"}
     for op, fns in calls.items():
         t = timings[op]
         for key, fn in fns.items():
@@ -576,16 +851,21 @@ def main() -> int:
                "confmat_counts": "metrics_tpu_torch/csrc/confusion_matrix.cu",
                "segment_scatter_add": "metrics_tpu_torch/csrc/segment_scatter.cu",
                "segment_scatter_max": "metrics_tpu_torch/csrc/segment_scatter.cu",
-               "segment_scatter_min": "metrics_tpu_torch/csrc/segment_scatter.cu"}
+               "segment_scatter_min": "metrics_tpu_torch/csrc/segment_scatter.cu",
+               "label_score_histograms": "metrics_tpu_torch/csrc/binned_counts.cu"}
     replaces = {"stat_scores_counts": "metrics_tpu/kernels/stat_scores.py:73",
                 "confmat_counts": "metrics_tpu/kernels/confusion_matrix.py:45",
                 "segment_scatter_add": "metrics_tpu/kernels/segment_scatter.py:93",
                 "segment_scatter_max": "metrics_tpu/kernels/segment_scatter.py:227",
-                "segment_scatter_min": "metrics_tpu/kernels/segment_scatter.py:227"}
+                "segment_scatter_min": "metrics_tpu/kernels/segment_scatter.py:227",
+                "label_score_histograms": "metrics_tpu/kernels/binned_counts.py:81"}
     # launches on each kernel's own path: the ImageNet-1k collection for B1
     # and B2, the keyed collection for B3 and B4 (no ported metric has a
-    # "min" leaf yet, so B4 min is held against its plain version only)
-    path_launches = {**launches, **{op: keyed_launches[op] for op in scatter}}
+    # "min" leaf yet, so B4 min is held against its plain version only), the
+    # sketched curve collection for B5 (the binary stream's 300 are in the
+    # record); times at each path's shape
+    path_launches = {**launches, **{op: keyed_launches[op] for op in scatter},
+                     "label_score_histograms": curve_launches["label_score_histograms"]}
     kernels = [
         {"name": op, "route": "cuda", "source": sources[op], "replaces": replaces[op],
          "launches": path_launches[op], "max_abs_err": errors[op], "ms": timings[op]["ms"],

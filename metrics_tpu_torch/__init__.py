@@ -9,16 +9,26 @@ counting loops run hand-written CUDA kernels for ``sm_90a``
 
 The slices so far cover the stat-scores and confusion-matrix classification
 path (``Accuracy``, ``Precision``, ``Recall``, ``FBeta``, ``F1``,
-``StatScores``, ``ConfusionMatrix`` and ``MetricCollection``) and the
+``StatScores``, ``ConfusionMatrix`` and ``MetricCollection``), the
 multi-tenant keyed state over it (``KeyedMetric`` and
-``MultiTenantCollection``).
+``MultiTenantCollection``), and the curve metrics (``AUROC``,
+``AveragePrecision``, ``ROC``, ``PrecisionRecallCurve``, ``AUC`` and the
+binned curves), exact or ``sketched=True``.
 """
 from metrics_tpu_torch.classification import (  # noqa: F401
+    AUC,
+    AUROC,
     F1,
+    ROC,
     Accuracy,
+    AveragePrecision,
+    BinnedAveragePrecision,
+    BinnedPrecisionRecallCurve,
+    BinnedRecallAtFixedPrecision,
     ConfusionMatrix,
     FBeta,
     Precision,
+    PrecisionRecallCurve,
     Recall,
     StatScores,
 )

@@ -1,0 +1,123 @@
+"""Area under the ROC curve.
+
+Counterpart of ``metrics_tpu/functional/classification/auroc.py``: the
+input-mode inference of ``_auroc_update`` (``:19-32``) and ``_auroc_compute``
+(``:35-109``) with macro/weighted/micro averaging and the ``max_fpr``
+partial AUC with McClish correction. Values are float32.
+"""
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from metrics_tpu_torch.functional.classification.auc import _auc_compute_without_check
+from metrics_tpu_torch.functional.classification.roc import roc
+from metrics_tpu_torch.utilities.checks import _input_format_classification
+from metrics_tpu_torch.utilities.data import Tensor
+from metrics_tpu_torch.utilities.enums import AverageMethod, DataType
+
+
+def _auroc_update(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor, DataType]:
+    # canonicalization is used only to infer and validate the input mode
+    _, _, mode = _input_format_classification(preds, target)
+
+    if mode == DataType.MULTIDIM_MULTICLASS and preds.ndim > target.ndim:
+        n_classes = preds.shape[1]
+        preds = torch.swapaxes(preds, 0, 1).reshape(n_classes, -1).T
+        target = target.reshape(-1)
+    if mode == DataType.MULTILABEL and preds.ndim > 2:
+        n_classes = preds.shape[1]
+        preds = torch.swapaxes(preds, 0, 1).reshape(n_classes, -1).T
+        target = torch.swapaxes(target, 0, 1).reshape(n_classes, -1).T
+
+    return preds, target, mode
+
+
+def _auroc_compute(
+    preds: Tensor,
+    target: Tensor,
+    mode: DataType,
+    num_classes: Optional[int] = None,
+    pos_label: Optional[int] = None,
+    average: Optional[str] = "macro",
+    max_fpr: Optional[float] = None,
+    sample_weights: Optional[Sequence] = None,
+) -> Tensor:
+    if mode == DataType.BINARY:
+        num_classes = 1
+
+    if max_fpr is not None:
+        if not isinstance(max_fpr, float) or not 0 < max_fpr <= 1:
+            raise ValueError(f"`max_fpr` should be a float in range (0, 1], got: {max_fpr}")
+        if mode != DataType.BINARY:
+            raise ValueError(
+                "Partial AUC computation not available in multilabel/multiclass setting, 'max_fpr' must be"
+                f" set to `None`, received `{max_fpr}`."
+            )
+
+    if mode == DataType.MULTILABEL:
+        if average == AverageMethod.MICRO:
+            fpr, tpr, _ = roc(preds.reshape(-1), target.reshape(-1), 1, pos_label, sample_weights)
+        else:
+            output = [
+                roc(preds[:, i], target[:, i], num_classes=1, pos_label=1, sample_weights=sample_weights)
+                for i in range(num_classes)
+            ]
+            fpr = [o[0] for o in output]
+            tpr = [o[1] for o in output]
+    else:
+        if mode != DataType.BINARY and num_classes is None:
+            raise ValueError("Detected input to ``multiclass`` but you did not provide ``num_classes`` argument")
+        fpr, tpr, _ = roc(preds, target, num_classes, pos_label, sample_weights)
+
+    if max_fpr is None or max_fpr == 1:
+        if mode == DataType.MULTILABEL and average == AverageMethod.MICRO:
+            pass
+        elif num_classes != 1:
+            auc_scores = [_auc_compute_without_check(x, y, 1.0) for x, y in zip(fpr, tpr)]
+
+            if average == AverageMethod.NONE:
+                return torch.stack(auc_scores)
+            if average == AverageMethod.MACRO:
+                return torch.mean(torch.stack(auc_scores))
+            if average == AverageMethod.WEIGHTED:
+                if mode == DataType.MULTILABEL:
+                    support = torch.sum(target, dim=0)
+                else:
+                    support = torch.bincount(target.reshape(-1).long(), minlength=num_classes)[:num_classes]
+                return torch.sum(torch.stack(auc_scores) * support / torch.sum(support))
+
+            allowed_average = (AverageMethod.NONE.value, AverageMethod.MACRO.value, AverageMethod.WEIGHTED.value)
+            raise ValueError(
+                f"Argument `average` expected to be one of the following: {allowed_average} but got {average}"
+            )
+
+        return _auc_compute_without_check(fpr, tpr, 1.0)
+
+    # partial AUC up to max_fpr with linear interpolation at the cut
+    max_fpr_t = torch.tensor(max_fpr, dtype=fpr.dtype, device=fpr.device)
+    stop = int(torch.searchsorted(fpr, max_fpr_t, right=True))
+    weight = (max_fpr_t - fpr[stop - 1]) / (fpr[stop] - fpr[stop - 1])
+    interp_tpr = tpr[stop - 1] + weight * (tpr[stop] - tpr[stop - 1])
+    tpr = torch.cat([tpr[:stop], interp_tpr.reshape(1)])
+    fpr = torch.cat([fpr[:stop], max_fpr_t.reshape(1)])
+
+    partial_auc = _auc_compute_without_check(fpr, tpr, 1.0)
+
+    # McClish correction: 0.5 if non-discriminant, 1 if maximal
+    min_area = 0.5 * max_fpr**2
+    max_area = max_fpr
+    return 0.5 * (1 + (partial_auc - min_area) / (max_area - min_area))
+
+
+def auroc(
+    preds: Tensor,
+    target: Tensor,
+    num_classes: Optional[int] = None,
+    pos_label: Optional[int] = None,
+    average: Optional[str] = "macro",
+    max_fpr: Optional[float] = None,
+    sample_weights: Optional[Sequence] = None,
+) -> Tensor:
+    """Area under the ROC curve (binary, multiclass, multilabel)."""
+    preds, target, mode = _auroc_update(preds, target)
+    return _auroc_compute(preds, target, mode, num_classes, pos_label, average, max_fpr, sample_weights)

@@ -10,8 +10,14 @@ against. Each launch adds one to the op's count
 * ``stat_scores_counts`` — fused tp/fp/tn/fn counting for the stat-scores family;
 * ``confmat_counts`` — confusion-matrix counting;
 * ``segment_scatter_add``, ``segment_scatter_max``, ``segment_scatter_min`` —
-  the keyed update's routing of per-row deltas to tenants.
+  the keyed update's routing of per-row deltas to tenants;
+* ``label_score_histograms`` — the sketched curves' per-class score
+  histograms split by label.
 """
+from metrics_tpu_torch.kernels.binned_counts import (  # noqa: F401
+    label_score_histograms_cuda,
+    label_score_histograms_torch,
+)
 from metrics_tpu_torch.kernels.confusion_matrix import confmat_counts_cuda, confmat_counts_torch  # noqa: F401
 from metrics_tpu_torch.kernels.stat_scores import stat_scores_counts_cuda, stat_scores_counts_torch  # noqa: F401
 from metrics_tpu_torch.kernels.segment_scatter import (  # noqa: F401

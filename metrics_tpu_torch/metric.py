@@ -123,6 +123,7 @@ class Metric(ABC):
 
         self._defaults: Dict[str, StateValue] = {}
         self._persistent: Dict[str, bool] = {}
+        self._buffers: Dict[str, bool] = {}
         self._reductions: Dict[str, Optional[Union[str, Callable]]] = {}
 
         self._update_signature = inspect.signature(self.update)
@@ -139,6 +140,7 @@ class Metric(ABC):
         default: StateValue,
         dist_reduce_fx: Optional[Union[str, Callable]] = None,
         persistent: bool = False,
+        buffer: bool = False,
     ) -> None:
         """Register a state variable, accessible as ``self.<name>``.
 
@@ -146,7 +148,9 @@ class Metric(ABC):
         metric's device) or an empty list (unbounded accumulator of per-batch
         tensors). ``dist_reduce_fx`` is one of ``"sum" | "mean" | "cat" |
         "max" | "min" | None`` or a callable receiving the stacked
-        ``(world, ...)`` gather.
+        ``(world, ...)`` gather. ``buffer=True`` pins the state's persistence:
+        :meth:`persistent` leaves it as registered (the binned curves'
+        ``thresholds``, always saved).
         """
         is_empty_list = isinstance(default, list) and not default
         if not (isinstance(default, Tensor) or is_empty_list):
@@ -161,6 +165,7 @@ class Metric(ABC):
             default = default.to(self.device)
         self._defaults[name] = default if isinstance(default, Tensor) else []
         self._persistent[name] = persistent
+        self._buffers[name] = buffer
         self._reductions[name] = dist_reduce_fx
         setattr(self, name, _copy_state(self._defaults[name]))
 
@@ -503,7 +508,8 @@ class Metric(ABC):
 
     def persistent(self, mode: bool = False) -> None:
         for key in self._persistent:
-            self._persistent[key] = mode
+            if not self._buffers[key]:
+                self._persistent[key] = mode
 
     def state_dict(self, destination: Optional[dict] = None, prefix: str = "") -> dict:
         """Persistent states, synced across processes first so the saved

@@ -4,10 +4,12 @@ The system has no weights; its counterpart is metric state.
 :func:`load_numpy_states` installs states read from a ``metrics_tpu``
 metric (``_get_states()`` or ``state_dict()`` through ``np.asarray``) as a
 port metric's states, with the port's dtypes on its device, so a stream
-counted so far under JAX continues under PyTorch. That holds for a plain
-metric, a ``MetricCollection``, a ``KeyedMetric`` (its stacked
-``(capacity, ...)`` states) and a ``MultiTenantCollection`` (one stacked
-bundle per layout owner).
+counted so far under JAX continues under PyTorch: fixed-shape states (the
+sketched curves' float32 histograms among them) and list states (the exact
+curves' ``preds``/``target``). That holds for a plain metric, a
+``MetricCollection``, a ``KeyedMetric`` (its stacked ``(capacity, ...)``
+states) and a ``MultiTenantCollection`` (one stacked bundle per layout
+owner).
 """
 from typing import Dict, List, Mapping, Optional, Union
 
@@ -36,9 +38,12 @@ def load_numpy_states(
     its stacked ``(capacity, ...)`` states; a ``MultiTenantCollection`` maps
     each bundle's owner name to them (its layout is built first). Metrics
     that learn attributes from the data decode them from the installed
-    states (``Accuracy.mode`` from ``mode_code``). ``device`` defaults to
-    the metric's device; another device raises, since the states must lie
-    where the metric keeps them.
+    states (``Accuracy.mode`` from ``mode_code``; a list-mode ``ROC``,
+    ``PrecisionRecallCurve`` or ``AveragePrecision`` its ``num_classes`` and
+    ``pos_label`` from the ranks of its ``preds``/``target`` lists; a
+    list-mode ``AUROC`` infers its data mode at compute). ``device``
+    defaults to the metric's device; another device raises, since the states
+    must lie where the metric keeps them.
     """
     if isinstance(metric, MultiTenantCollection):
         metric.build()

@@ -1,7 +1,8 @@
 """Tensor and device helpers shared by the metrics.
 
 Counterpart of ``metrics_tpu/utilities/data.py``, limited to what the
-classification path uses, plus the device rule of the port
+classification path uses (with ``METRIC_EPS``, the curves' guard against a
+zero denominator), plus the device rule of the port
 (:func:`resolve_device`, :func:`check_device`). The one-hot and top-k masks are built by
 comparison with an ``arange`` along the class axis, so a label outside
 ``[0, C)`` gives an all-zero row (as ``jax.nn.one_hot`` does) instead of a
@@ -18,6 +19,8 @@ import torch
 from metrics_tpu_torch.utilities.prints import rank_zero_warn
 
 Tensor = torch.Tensor
+
+METRIC_EPS = 1e-6
 
 
 def _is_batched(*tensors: Any) -> bool:

@@ -1,0 +1,259 @@
+"""The port's label/score histograms (B5) and sketch curve functions against the JAX package's.
+
+The plain PyTorch version (``label_score_histograms_torch``) is held
+bit-identical to the JAX package's ``label_score_histograms_xla`` and to its
+Pallas kernel in interpret mode, on the same numpy inputs, over the case
+matrix of ``TestSketchHistogramKernel`` in
+``tests/kernels/test_pallas_kernels.py``, plus the NaN/+-inf/+-0/subnormal
+case and every bin edge with its float32 neighbours. Counts of ones are
+exact in float32, so no tolerance applies. The ``hist_*`` curve functions
+are held within 1e-6 of the JAX ones on the same histograms, and
+``binned_tp_fp_fn`` exactly. The wrapper runs the plain version for a CPU
+tensor and launches nothing; the cases that launch kernel B5 carry the
+``cuda`` marker and skip here.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from metrics_tpu.kernels import sketches as jax_sketches
+from metrics_tpu.kernels.binned_counts import (
+    binned_tp_fp_fn as jax_binned_tp_fp_fn,
+    label_score_histograms_pallas,
+    label_score_histograms_xla,
+)
+from metrics_tpu_torch.kernels import _common, sketches
+from metrics_tpu_torch.kernels.binned_counts import (
+    binned_tp_fp_fn,
+    label_score_histograms,
+    label_score_histograms_cuda,
+    label_score_histograms_torch,
+)
+
+_OP = "label_score_histograms"
+
+
+@pytest.fixture
+def cuda_device():
+    if not _common.cuda_kernels_available():
+        pytest.skip("needs a Hopper (sm_90) CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.fixture(autouse=True)
+def _zero_counters():
+    _common.reset_dispatch_counters()
+    yield
+    _common.reset_dispatch_counters()
+
+
+def _plain(preds, target, b, lo=0.0, hi=1.0):
+    pos, neg, clipped = label_score_histograms_torch(torch.from_numpy(preds), torch.from_numpy(target), b, lo, hi)
+    c = preds.shape[1]
+    assert pos.dtype == neg.dtype == clipped.dtype == torch.float32
+    assert pos.shape == neg.shape == (c, b) and clipped.shape == ()
+    return pos.numpy(), neg.numpy(), clipped.numpy()
+
+
+def _assert_bit_identical(preds, target, b, lo=0.0, hi=1.0, pallas=True):
+    got = _plain(preds, target, b, lo, hi)
+    refs = [label_score_histograms_xla(jnp.asarray(preds), jnp.asarray(target), b, lo, hi)]
+    if pallas:
+        refs.append(label_score_histograms_pallas(jnp.asarray(preds), jnp.asarray(target), b, lo, hi,
+                                                  interpret=True))
+    for ref in refs:
+        for g, w in zip(got, ref):
+            assert np.asarray(w).dtype == np.float32
+            np.testing.assert_array_equal(g, np.asarray(w))
+    return got
+
+
+def _bf16_to_f32(x):
+    """float32 values that bfloat16 holds exactly (the rounding of both
+    frameworks is then irrelevant)."""
+    return (x.view(np.uint32) & np.uint32(0xFFFF0000)).view(np.float32)
+
+
+class TestLabelScoreHistograms:
+    @pytest.mark.parametrize("n,c,b", [(64, 1, 16), (300, 4, 64), (1000, 3, 256), (7, 2, 2048)])
+    def test_parity_bit_identical(self, n, c, b):
+        rng = np.random.RandomState(n + c + b)
+        _assert_bit_identical(rng.rand(n, c).astype(np.float32), rng.randint(0, 2, (n, c)), b)
+
+    @pytest.mark.parametrize("seed", range(5))
+    def test_out_of_range_clip_parity_fuzz(self, seed):
+        rng = np.random.RandomState(seed)
+        n, c, b = rng.randint(1, 300), rng.randint(1, 5), int(rng.choice([8, 64, 500]))
+        preds = (rng.rand(n, c) * 2.0 - 0.5).astype(np.float32)  # spills [0, 1]
+        _, _, clipped = _assert_bit_identical(preds, rng.randint(0, 2, (n, c)), b)
+        assert float(clipped) > 0
+
+    def test_custom_range(self):
+        rng = np.random.RandomState(11)
+        _assert_bit_identical((rng.randn(200, 2) * 3).astype(np.float32), rng.randint(0, 2, (200, 2)), 32, -2.0, 2.0)
+
+    @pytest.mark.parametrize("pdtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("tdtype", [np.int32, np.float32])
+    def test_dtypes(self, pdtype, tdtype):
+        rng = np.random.RandomState(12)
+        preds = _bf16_to_f32(rng.rand(64, 2).astype(np.float32))
+        target = rng.randint(0, 2, (64, 2)).astype(tdtype)
+        want = label_score_histograms_xla(jnp.asarray(preds).astype(pdtype), jnp.asarray(target), 16)
+        want_p = label_score_histograms_pallas(jnp.asarray(preds).astype(pdtype), jnp.asarray(target), 16,
+                                               interpret=True)
+        t_preds = torch.from_numpy(preds).to(getattr(torch, pdtype))
+        got = label_score_histograms_torch(t_preds, torch.from_numpy(target), 16)
+        for g, w, wp in zip(got, want, want_p):
+            assert g.dtype == torch.float32
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+            np.testing.assert_array_equal(g.numpy(), np.asarray(wp))
+
+    def test_empty_batch(self):
+        pos, neg, clipped = _plain(np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32), 8)
+        assert not pos.any() and not neg.any() and float(clipped) == 0.0
+        want = label_score_histograms_pallas(jnp.zeros((0, 3), jnp.float32), jnp.zeros((0, 3), jnp.int32), 8,
+                                             interpret=True)
+        for g, w in zip((pos, neg, clipped), want):
+            np.testing.assert_array_equal(g, np.asarray(w))
+
+    def test_single_row_and_mass_conservation(self):
+        pos, neg, clipped = _plain(np.asarray([[0.5]], np.float32), np.asarray([[1]]), 4)
+        assert pos.sum() == 1.0 and neg.sum() == 0.0 and float(clipped) == 0.0
+
+    def test_max_pallas_bins(self):
+        rng = np.random.RandomState(13)
+        _assert_bit_identical(rng.rand(16, 1).astype(np.float32), rng.randint(0, 2, (16, 1)), 4096)
+
+    def test_nan_inf_signed_zero(self):
+        """NaN lands in bin 0 unclipped (the naive cast of NaN would be
+        -2**31); +-inf clip into the edge bins and are counted; a negative
+        subnormal reads as zero, as XLA reads it, and is not clipped."""
+        f32 = np.float32
+        preds = np.array([np.nan, -np.nan, np.inf, -np.inf, 0.0, -0.0, 1.0, np.nextafter(f32(1), f32(2)), -1e-8,
+                          0.125, np.nextafter(f32(0.125), f32(0)), 0.999999], f32).reshape(-1, 1)
+        pos, neg, clipped = _assert_bit_identical(preds, np.ones(preds.shape, np.int32), 8)
+        np.testing.assert_array_equal(pos[0], [7, 1, 0, 0, 0, 0, 0, 4])
+        assert not neg.any() and float(clipped) == 4.0
+        tiny = np.array([[-1e-45], [1e-45], [-1e-39], [-1e-30]], f32)
+        _, _, clipped = _assert_bit_identical(tiny, np.zeros(tiny.shape, np.int32), 8)
+        assert float(clipped) == 1.0  # only -1e-30, a normal float32
+
+    @pytest.mark.parametrize("b,lo,hi", [(2048, 0.0, 1.0), (1000, 0.0, 1.0), (4096, 0.0, 1.0), (32, -2.0, 2.0),
+                                         (4096, 0.1, 0.7), (64, 0.1, 0.7)])
+    def test_every_bin_edge_and_its_neighbours(self, b, lo, hi):
+        """Bit-identical to the eager ``_xla`` (IEEE division by the span)
+        at every edge. The compiled formulations (interpret ``_pallas``,
+        ``jit(_xla)``) multiply by the span's reciprocal instead, which moves
+        edge scores when the span is not a power of two (0.6 here), so they
+        are held to the plain version only where it is."""
+        edges = (lo + (hi - lo) * np.arange(b + 1, dtype=np.float64) / b).astype(np.float32)
+        preds = np.concatenate([edges, np.nextafter(edges, np.float32(np.inf)),
+                                np.nextafter(edges, np.float32(-np.inf))]).reshape(-1, 1)
+        target = (np.arange(preds.shape[0]) % 2).astype(np.int32).reshape(-1, 1)
+        span_is_power_of_two = float(np.log2(hi - lo)).is_integer()
+        _assert_bit_identical(preds, target, b, lo, hi, pallas=span_is_power_of_two)
+        if not span_is_power_of_two:
+            compiled = label_score_histograms_pallas(jnp.asarray(preds), jnp.asarray(target), b, lo, hi,
+                                                     interpret=True)
+            assert not np.array_equal(np.asarray(compiled[0]), _plain(preds, target, b, lo, hi)[0])
+
+    def test_matches_grid_index_and_clipped_count(self):
+        rng = np.random.RandomState(14)
+        x = (rng.rand(500) * 1.4 - 0.2).astype(np.float32)
+        x[:3] = [np.nan, np.inf, -np.inf]
+        got = sketches.grid_index(torch.from_numpy(x), 64, 0.0, 1.0)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(jax_sketches.grid_index(jnp.asarray(x), 64, 0.0, 1.0)))
+        assert float(sketches.clipped_count(torch.from_numpy(x), 0.0, 1.0)) == float(
+            jax_sketches.clipped_count(jnp.asarray(x), 0.0, 1.0))
+
+    def test_wrapper_takes_a_cpu_tensor_to_the_plain_version(self):
+        rng = np.random.RandomState(15)
+        preds = torch.from_numpy(rng.rand(40, 3).astype(np.float32))
+        target = torch.from_numpy(rng.randint(0, 2, (40, 3)))
+        for got in (label_score_histograms_cuda(preds, target, 16, device="cpu"),
+                    label_score_histograms(preds, target, 16)):
+            for g, w in zip(got, label_score_histograms_torch(preds, target, 16)):
+                assert torch.equal(g, w)
+        assert _common.dispatch_count(_OP, "torch") == 2 and _common.launch_count(_OP) == 0
+
+    def test_wrapper_rejects_what_it_does_not_take(self):
+        preds, target = torch.rand(8, 2), torch.zeros(8, 2, dtype=torch.int32)
+        with pytest.raises(ValueError, match="one shape"):
+            label_score_histograms_cuda(preds, target[:, :1], 16, device="cpu")
+        with pytest.raises(ValueError, match="num_bins"):
+            label_score_histograms_cuda(preds, target, 0, device="cpu")
+        with pytest.raises(ValueError, match="lo < hi"):
+            label_score_histograms_cuda(preds, target, 16, 1.0, 1.0, device="cpu")
+        with pytest.raises(ValueError, match="expected a tensor on"):
+            label_score_histograms_cuda(preds, target.to("meta"), 16, device="cpu")
+
+    def test_plain_version_runs_under_vmap(self):
+        """The keyed path's per-row update: each row a length-1 batch, the
+        out-of-place plain version inside ``torch.func.vmap``."""
+        rng = np.random.RandomState(16)
+        preds = torch.from_numpy(rng.rand(30, 1, 1).astype(np.float32))
+        target = torch.from_numpy(rng.randint(0, 2, (30, 1, 1)).astype(np.int32))
+        pos, neg, clipped = torch.func.vmap(lambda p, t: label_score_histograms(p, t, 8))(preds, target)
+        assert pos.shape == (30, 1, 8) and clipped.shape == (30,)
+        want = label_score_histograms_torch(preds.reshape(-1, 1), target.reshape(-1, 1), 8)
+        np.testing.assert_array_equal(pos.sum(0).numpy(), want[0].numpy())
+        np.testing.assert_array_equal(neg.sum(0).numpy(), want[1].numpy())
+        assert _common.dispatch_count(_OP, "torch") == 0  # the wrapper was not reached
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("n,c,b", [(1024, 1000, 2048), (10_000, 1, 2048), (7, 3, 4096), (1023, 3, 4096)])
+    def test_kernel_matches_the_plain_version(self, cuda_device, n, c, b):
+        gen = torch.Generator(device=cuda_device).manual_seed(n + c)
+        preds = torch.rand((n, c), generator=gen, device=cuda_device)
+        target = torch.randint(0, 2, (n, c), generator=gen, device=cuda_device, dtype=torch.int32)
+        got = label_score_histograms_cuda(preds, target, b, device=cuda_device)
+        torch.cuda.synchronize()
+        for g, w in zip(got, label_score_histograms_torch(preds, target, b)):
+            assert torch.equal(g, w)
+        assert _common.launch_count(_OP) == 1
+
+
+class TestHistCurves:
+    @staticmethod
+    def _hists(seed, c=3, b=64, empty_label=False):
+        rng = np.random.RandomState(seed)
+        pos = rng.randint(0, 5, (c, b)).astype(np.float32)
+        neg = rng.randint(0, 5, (c, b)).astype(np.float32)
+        if empty_label:
+            pos[0] = 0.0  # a class without positives: NaN in both packages
+        return pos, neg
+
+    @staticmethod
+    def _close(got, want):
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6, equal_nan=True)
+
+    @pytest.mark.parametrize("seed", range(3))
+    @pytest.mark.parametrize("empty_label", [False, True])
+    def test_auroc_and_average_precision(self, seed, empty_label):
+        pos, neg = self._hists(seed, empty_label=empty_label)
+        tp, tn = torch.from_numpy(pos), torch.from_numpy(neg)
+        self._close(sketches.hist_auroc(tp, tn), jax_sketches.hist_auroc(jnp.asarray(pos), jnp.asarray(neg)))
+        self._close(sketches.hist_average_precision(tp, tn),
+                    jax_sketches.hist_average_precision(jnp.asarray(pos), jnp.asarray(neg)))
+
+    @pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (-2.0, 2.0)])
+    def test_roc_and_precision_recall_curve(self, lo, hi):
+        pos, neg = self._hists(4, c=2, b=32)
+        tp, tn = torch.from_numpy(pos), torch.from_numpy(neg)
+        for ours, theirs in ((sketches.hist_roc, jax_sketches.hist_roc),
+                             (sketches.hist_precision_recall_curve, jax_sketches.hist_precision_recall_curve)):
+            for g, w in zip(ours(tp, tn, lo, hi), theirs(jnp.asarray(pos), jnp.asarray(neg), lo, hi)):
+                self._close(g, w)
+
+    def test_binned_tp_fp_fn(self):
+        rng = np.random.RandomState(5)
+        preds, target = rng.rand(100, 3).astype(np.float32), rng.randint(0, 2, (100, 3))
+        thresholds = np.linspace(0, 1, 11).astype(np.float32)
+        got = binned_tp_fp_fn(torch.from_numpy(preds), torch.from_numpy(target), torch.from_numpy(thresholds))
+        want = jax_binned_tp_fp_fn(jnp.asarray(preds), jnp.asarray(target), jnp.asarray(thresholds))
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float32
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
