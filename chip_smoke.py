@@ -141,6 +141,25 @@ def _device_us(prof) -> float:
     return sum(e.self_device_time_total for e in _device_events(prof))
 
 
+def host_us(pieces, calls: int = 1000, warmup: int = 50) -> dict:
+    """Host time (us per call) of each ``(name, fn)`` piece: ``calls`` calls
+    back to back on the host clock, with no synchronisation in between (the
+    device work a piece enqueues runs behind it and is not counted)."""
+    import torch
+
+    out = {}
+    for name, fn in pieces:
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out[name] = (time.perf_counter() - start) / calls * 1e6
+        torch.cuda.synchronize()
+    return out
+
+
 def device_ms(fn, reps: int = REPS):
     """Device time of one call of ``fn`` (its kernels and memsets, without
     the host's launch cost) by the profiler; None if it saw no device time."""
@@ -241,6 +260,55 @@ def special_rows(torch, dev):
     rows = torch.tensor([[v, -v] for v, _ in cases], device=dev)
     ids = torch.tensor([sid for _, sid in cases], device=dev)
     return rows, ids, 12  # segments 9..11 get no row
+
+
+def scatter_host_pieces(torch, dev, ids):
+    """The host-side pieces of the B3 and B4 wrappers at the keyed path's
+    shapes (rows (4096, 40) and (4096, 1), 10,000 segments), each timed
+    alone by :func:`host_us`, then the whole wrappers. The parent design's
+    pieces (fills, the device context, the ``Stream`` object, the uncached
+    capability query) are timed beside the pieces that replace them."""
+    from metrics_tpu_torch.kernels import _common
+    from metrics_tpu_torch.kernels import segment_scatter as ss
+    from metrics_tpu_torch.utilities.data import resolve_device
+
+    s, d = KEYED_TENANTS, 40
+    rows = torch.zeros((KEYED_ROWS, d), device=dev)
+    rows1 = torch.zeros((KEYED_ROWS, 1), device=dev)
+    out = torch.empty((s, d), device=dev)
+    counts = torch.empty(s, dtype=torch.int32, device=dev)
+    launch = _common.kernel_function(ss._ENTRY, ss._ARGTYPES)
+    stream = _common.current_stream_handle(dev)
+    args = (rows.data_ptr(), ids.data_ptr(), KEYED_ROWS, d, s, 8, ss._ADD, 4, out.data_ptr(), counts.data_ptr(),
+            dev.index, stream)
+
+    def device_context():
+        with torch.cuda.device(dev):
+            pass
+
+    return [
+        ("resolve_device", lambda: resolve_device(dev)),
+        ("_check (capability cached)", lambda: ss._check("segment_scatter_add", rows, ids, s, dev)),
+        ("require_capability (cached)", lambda: _common.require_capability(dev)),
+        ("torch.empty (S, 40) float32", lambda: torch.empty((s, d), dtype=torch.float32, device=dev)),
+        ("torch.empty (S,) int32", lambda: torch.empty(s, dtype=torch.int32, device=dev)),
+        ("data_ptr x4 + element_size", lambda: (rows.data_ptr(), ids.data_ptr(), out.data_ptr(), counts.data_ptr(),
+                                                ids.element_size())),
+        ("vector_width", lambda: ss.vector_width(d, args[0] | args[8])),
+        ("kernel_function lookup", lambda: _common.kernel_function(ss._ENTRY, ss._ARGTYPES)),
+        ("current_stream_handle", lambda: _common.current_stream_handle(dev)),
+        ("ctypes call, S = 0 (returns early in C)", lambda: launch(*args[:4], 0, *args[5:])),
+        ("ctypes call, D = 40 (device scope, fill and scatter launches)", lambda: launch(*args)),
+        ("launch counter", lambda: _common.note_kernel_dispatch("host_pieces_probe", "cuda")),
+        ("segment_scatter_add_cuda D=40, whole", lambda: ss.segment_scatter_add_cuda(rows, ids, s, device=dev)),
+        ("segment_scatter_max_cuda D=1, whole", lambda: ss.segment_scatter_max_cuda(rows1, ids, s, device=dev)),
+        ("parent: torch.cuda.get_device_capability", lambda: torch.cuda.get_device_capability(dev)),
+        ("parent: torch.zeros (S, 40) float32", lambda: torch.zeros((s, d), dtype=torch.float32, device=dev)),
+        ("parent: torch.zeros (S,) int32", lambda: torch.zeros(s, dtype=torch.int32, device=dev)),
+        ("parent: torch.full (S, 1) -inf", lambda: torch.full((s, 1), float("-inf"), device=dev)),
+        ("parent: torch.cuda.device context", device_context),
+        ("parent: torch.cuda.current_stream(dev).cuda_stream", lambda: torch.cuda.current_stream(dev).cuda_stream),
+    ]
 
 
 def build_curves(M, device):

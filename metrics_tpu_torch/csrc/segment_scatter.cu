@@ -8,60 +8,87 @@
 // ids with the rows on its matrix unit (sums) or masks a (TILE, S) tile per
 // feature and reduces it (extrema), with the whole (S, D) output resident in
 // VMEM, which caps S at 1024 and D at 511 (sums) or 16 (extrema). On Hopper
-// each row element is one atomic into the output in device memory, so
-// neither cap exists: at the keyed path's S = 10,000 tenants and D = 40 the
-// 1.6 MB output stays in the 50 MB L2 cache.
+// each row vector is one atomic into the output in device memory, so neither
+// cap exists: at the keyed path's S = 10,000 tenants and D = 40 the 1.6 MB
+// output stays in the 50 MB L2 cache.
 //
 // Bound: bytes. Each row element and id is read once and each output
 // element written once: at R = 4096, D = 40, S = 10,000 that is 2.33 MB,
-// 0.70 us at the H100's 3.35 TB/s; a few microseconds of launch cost
-// dominate at this size.
+// 0.70 us at the H100's 3.35 TB/s. At this size a call costs its launches
+// and the host's work around them, not bandwidth, so the design cuts both:
 //
-// Design: one thread per row element (flat grid-stride loop over R * D), so
-// a warp's loads are coalesced whatever D is (D is 1, 6 or 40 on the keyed
-// path; a warp per row would leave most lanes idle at D = 1 or 6). The
-// thread of feature 0 also adds the row to its segment's count. An id < 0 or
-// >= S is dropped from both outputs, as the TPU kernels drop it. The caller
-// fills the outputs: zeros for sums and counts, -inf (max) or +inf (min) for
-// extrema, the identities that empty segments keep.
+// - One C entry per call does everything on the caller's stream: it makes
+//   the caller's device current (and restores the old one), initialises the
+//   outputs the wrapper allocated uninitialised (zeros for sums and counts,
+//   -inf for max and +inf for min, the identities that empty segments keep),
+//   then scatters. The wrapper makes no fill of its own.
+// - Sums (B3) read rows as 16-byte float4 vectors where D % 4 == 0 and the
+//   rows and sums pointers are 16-byte aligned, else as float2 (D even,
+//   8-byte aligned), else as scalars (the wrapper picks the width), and add
+//   each vector with one of Hopper's vector float atomics (atomicAdd on
+//   float4/float2, `red.global.add.v4.f32` on sm_90, global memory only): at
+//   D = 40, 10 atomics per row instead of 40. A vector whose lanes are all
+//   zero is skipped (adding +-0.0 to a sum that starts at +0.0 never changes
+//   it, and a slot never becomes -0.0). One thread per vector (flat
+//   grid-stride loop over R * D / V), so a warp's loads stay coalesced at
+//   any D (1, 6 or 40 on the keyed path); the row's id is loaded once per
+//   vector and the thread of the row's first vector adds the row's count.
+//   Index math is 32-bit (the wrapper keeps R * D below 2^31), but for the
+//   output offset id * D, taken in 64 bits.
+// - Extrema (B4): a 32-bit atomicCAS loop per element that stores x where x
+//   beats the slot in the order of XLA's segment_max/segment_min: NaN beats
+//   everything (a NaN row makes its segment NaN), and +0.0 is above -0.0
+//   (max of {-0.0, +0.0} is +0.0, min is -0.0, in any row order). That order
+//   is total, so the result does not depend on the order of the atomics.
+//   The slot is read first and the CAS skipped when x cannot win; a stale
+//   read only costs a retry, since a slot only ever moves up (max) or down
+//   (min). The ordered-int atomicMax trick would not propagate NaN this way.
+//   There is no vector CAS, so B4 stays scalar.
 //
-// Sums: atomicAdd in f32, skipping zeros (adding +-0.0 to a sum that starts
-// at +0.0 never changes it). The order of the additions changes from run to
-// run, so float sums agree with a sequential sum to rounding only;
-// integer-valued rows whose per-segment sums stay below 2^24 are exact.
-//
-// Extrema: a 32-bit atomicCAS loop that stores x where x beats the slot in
-// the order of XLA's segment_max/segment_min: NaN beats everything (a NaN
-// row makes its segment NaN), and +0.0 is above -0.0 (max of {-0.0, +0.0} is
-// +0.0, min is -0.0, in any row order). That order is total, so the result
-// does not depend on the order of the atomics. The slot is read first and
-// the CAS skipped when x cannot win; a stale read only costs a retry, since
-// a slot only ever moves up (max) or down (min). The ordered-int atomicMax
-// trick would not propagate NaN this way.
+// An id < 0 or >= S is dropped from both outputs, as the TPU kernels drop it.
+// The order of the float additions changes from run to run, so float sums
+// agree with a sequential sum to rounding only; integer-valued rows whose
+// per-segment sums stay below 2^24 are exact.
+#include <atomic>
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <limits>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int64_t kMaxBlocks = 2112;  // sixteen blocks per SM of the H100's 132
+constexpr int kMaxBlocks = 2112;  // sixteen blocks per SM of the H100's 132
+constexpr int kMaxDevices = 64;
 
-template <typename Index>
-__global__ void segment_add_kernel(const float* __restrict__ rows, const Index* __restrict__ ids, int64_t r,
-                                   int64_t d, int64_t s, float* __restrict__ sums, int* __restrict__ counts) {
-  const int64_t width = d > 0 ? d : 1;
-  const int64_t total = r * width;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < total; i += stride) {
-    const int64_t row = i / width;
-    const int64_t f = i - row * width;
+enum Op { kAdd = 0, kMax = 1, kMin = 2 };
+
+// --- the scatters, one item per thread of a grid-stride loop -----------------
+
+template <typename Index, int V>
+__device__ __forceinline__ void add_items(const float* __restrict__ rows, const Index* __restrict__ ids, int r, int d,
+                                          int s, float* __restrict__ sums, int* __restrict__ counts, int first,
+                                          int stride) {
+  const int per_row = d > 0 ? d / V : 1;
+  const int total = r * per_row;
+  for (int i = first; i < total; i += stride) {
+    const int row = i / per_row;
+    const int v = i - row * per_row;
     const int64_t id = static_cast<int64_t>(ids[row]);
     if (id < 0 || id >= s) continue;
-    if (f < d) {
+    if (v == 0) atomicAdd(counts + id, 1);
+    if (d == 0) continue;
+    float* slot = sums + id * d + v * V;
+    if constexpr (V == 4) {
+      const float4 x = reinterpret_cast<const float4*>(rows)[i];
+      if (x.x != 0.0f || x.y != 0.0f || x.z != 0.0f || x.w != 0.0f) atomicAdd(reinterpret_cast<float4*>(slot), x);
+    } else if constexpr (V == 2) {
+      const float2 x = reinterpret_cast<const float2*>(rows)[i];
+      if (x.x != 0.0f || x.y != 0.0f) atomicAdd(reinterpret_cast<float2*>(slot), x);
+    } else {
       const float x = rows[i];
-      if (x != 0.0f) atomicAdd(sums + id * d + f, x);
+      if (x != 0.0f) atomicAdd(slot, x);
     }
-    if (f == 0) atomicAdd(counts + id, 1);
   }
 }
 
@@ -69,91 +96,215 @@ __device__ __forceinline__ bool negative(float v) { return (__float_as_uint(v) >
 
 // True where x takes the place of old in a max (kMax) or a min. (v != v is
 // true for NaN only; nvcc keeps it without --use_fast_math.)
-template <bool kMax>
+template <bool kIsMax>
 __device__ __forceinline__ bool beats(float x, float old) {
   if (old != old) return false;
   if (x != x) return true;
-  if (kMax) return x > old || (x == old && negative(old) && !negative(x));
+  if (kIsMax) return x > old || (x == old && negative(old) && !negative(x));
   return x < old || (x == old && !negative(old) && negative(x));
 }
 
-template <typename Index, bool kMax>
-__global__ void segment_extremal_kernel(const float* __restrict__ rows, const Index* __restrict__ ids, int64_t r,
-                                        int64_t d, int64_t s, float* __restrict__ out, int* __restrict__ counts) {
-  const int64_t width = d > 0 ? d : 1;
-  const int64_t total = r * width;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < total; i += stride) {
-    const int64_t row = i / width;
-    const int64_t f = i - row * width;
+template <typename Index, bool kIsMax>
+__device__ __forceinline__ void extremal_items(const float* __restrict__ rows, const Index* __restrict__ ids, int r,
+                                               int d, int s, float* __restrict__ out, int* __restrict__ counts,
+                                               int first, int stride) {
+  const int width = d > 0 ? d : 1;
+  const int total = r * width;
+  for (int i = first; i < total; i += stride) {
+    const int row = i / width;
+    const int f = i - row * width;
     const int64_t id = static_cast<int64_t>(ids[row]);
     if (id < 0 || id >= s) continue;
-    if (f < d) {
-      const float x = rows[i];
-      unsigned int* slot = reinterpret_cast<unsigned int*>(out + id * d + f);
-      unsigned int old = *reinterpret_cast<volatile unsigned int*>(slot);
-      while (beats<kMax>(x, __uint_as_float(old))) {
-        const unsigned int assumed = old;
-        old = atomicCAS(slot, assumed, __float_as_uint(x));
-        if (old == assumed) break;
-      }
-    }
     if (f == 0) atomicAdd(counts + id, 1);
+    if (d == 0) continue;
+    const float x = rows[i];
+    unsigned int* slot = reinterpret_cast<unsigned int*>(out + id * d + f);
+    unsigned int old = *reinterpret_cast<volatile unsigned int*>(slot);
+    while (beats<kIsMax>(x, __uint_as_float(old))) {
+      const unsigned int assumed = old;
+      old = atomicCAS(slot, assumed, __float_as_uint(x));
+      if (old == assumed) break;
+    }
   }
 }
 
-unsigned blocks_for(int64_t r, int64_t d) {
-  const int64_t total = r * (d > 0 ? d : 1);
-  int64_t blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  return static_cast<unsigned>(blocks);
-}
-
-template <typename Index>
-int launch_add(const void* rows, const void* ids, int64_t r, int64_t d, int64_t s, void* sums, void* counts,
-               cudaStream_t stream) {
-  segment_add_kernel<Index><<<blocks_for(r, d), kThreads, 0, stream>>>(
-      static_cast<const float*>(rows), static_cast<const Index*>(ids), r, d, s, static_cast<float*>(sums),
-      static_cast<int*>(counts));
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename Index>
-int launch_extremal(const void* rows, const void* ids, int64_t r, int64_t d, int64_t s, int is_max, void* out,
-                    void* counts, cudaStream_t stream) {
-  const float* x = static_cast<const float*>(rows);
-  const Index* i = static_cast<const Index*>(ids);
-  float* o = static_cast<float*>(out);
-  int* c = static_cast<int*>(counts);
-  if (is_max) {
-    segment_extremal_kernel<Index, true><<<blocks_for(r, d), kThreads, 0, stream>>>(x, i, r, d, s, o, c);
+template <typename Index, int V, int kOp>
+__device__ __forceinline__ void scatter_items(const float* rows, const Index* ids, int r, int d, int s, float* out,
+                                              int* counts, int first, int stride) {
+  if constexpr (kOp == kAdd) {
+    add_items<Index, V>(rows, ids, r, d, s, out, counts, first, stride);
   } else {
-    segment_extremal_kernel<Index, false><<<blocks_for(r, d), kThreads, 0, stream>>>(x, i, r, d, s, o, c);
+    extremal_items<Index, kOp == kMax>(rows, ids, r, d, s, out, counts, first, stride);
   }
+}
+
+// out and counts are 16-byte aligned (the entry checks), so the body of each
+// goes out as 16-byte stores and the last n % 4 (s % 4) elements one by one.
+__device__ __forceinline__ void init_items(float* __restrict__ out, int64_t n, float value, int* __restrict__ counts,
+                                           int s, int64_t first, int64_t stride) {
+  const int64_t n4 = n / 4;
+  const float4 v4 = make_float4(value, value, value, value);
+  for (int64_t i = first; i < n4; i += stride) reinterpret_cast<float4*>(out)[i] = v4;
+  for (int64_t i = n4 * 4 + first; i < n; i += stride) out[i] = value;
+  const int s4 = s / 4;
+  for (int64_t i = first; i < s4; i += stride) reinterpret_cast<int4*>(counts)[i] = make_int4(0, 0, 0, 0);
+  for (int64_t i = s4 * 4 + first; i < s; i += stride) counts[i] = 0;
+}
+
+// --- form 1: two operations, a fill kernel then the scatter kernel -----------
+
+__global__ void fill_kernel(float* out, int64_t n, float value, int* counts, int s) {
+  init_items(out, n, value, counts, s, static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x,
+             static_cast<int64_t>(gridDim.x) * blockDim.x);
+}
+
+template <typename Index, int V, int kOp>
+__global__ void scatter_kernel(const float* rows, const Index* ids, int r, int d, int s, float* out, int* counts) {
+  scatter_items<Index, V, kOp>(rows, ids, r, d, s, out, counts, blockIdx.x * blockDim.x + threadIdx.x,
+                               gridDim.x * blockDim.x);
+}
+
+int blocks_for(int64_t items) {
+  const int64_t blocks = (items + kThreads - 1) / kThreads;
+  return static_cast<int>(blocks < 1 ? 1 : (blocks > kMaxBlocks ? kMaxBlocks : blocks));
+}
+
+// --- form 2: one cooperative launch that initialises, syncs the grid, scatters
+
+template <typename Index, int V, int kOp>
+__global__ void coop_kernel(const float* rows, const Index* ids, int r, int d, int s, float* out, int* counts,
+                            float value) {
+  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  const int stride = gridDim.x * blockDim.x;
+  init_items(out, static_cast<int64_t>(s) * d, value, counts, s, first, stride);
+  cooperative_groups::this_grid().sync();
+  scatter_items<Index, V, kOp>(rows, ids, r, d, s, out, counts, first, stride);
+}
+
+std::atomic<int> coop_blocks_per_sm_cap{0};  // 0: as many as fit
+
+// Blocks of a cooperative launch: all co-resident, counted once per device.
+template <typename Index, int V, int kOp>
+int coop_blocks(int device) {
+  static std::atomic<int> cache[kMaxDevices];
+  int blocks = cache[device].load(std::memory_order_relaxed);
+  if (blocks == 0) {
+    int per_sm = 0, sms = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, coop_kernel<Index, V, kOp>, kThreads, 0) !=
+            cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess) {
+      return 0;
+    }
+    blocks = per_sm * sms;
+    cache[device].store(blocks, std::memory_order_relaxed);
+  }
+  const int cap = coop_blocks_per_sm_cap.load(std::memory_order_relaxed);
+  if (cap > 0) {
+    int sms = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (cap * sms < blocks) blocks = cap * sms;
+  }
+  return blocks;
+}
+
+// --- one call: device, init, scatter -----------------------------------------
+
+// Makes `device` current for the call's lifetime and restores the old one.
+class DeviceScope {
+ public:
+  explicit DeviceScope(int device) {
+    err_ = cudaGetDevice(&old_);
+    if (err_ == cudaSuccess && old_ != device) {
+      err_ = cudaSetDevice(device);
+      restore_ = err_ == cudaSuccess;
+    }
+  }
+  ~DeviceScope() {
+    if (restore_) cudaSetDevice(old_);
+  }
+  cudaError_t error() const { return err_; }
+
+ private:
+  int old_ = 0;
+  bool restore_ = false;
+  cudaError_t err_;
+};
+
+template <typename Index, int V, int kOp>
+int run(const void* rows_, const void* ids_, int r, int d, int s, void* out_, void* counts_, float value, int device,
+        bool cooperative, cudaStream_t stream) {
+  const float* rows = static_cast<const float*>(rows_);
+  const Index* ids = static_cast<const Index*>(ids_);
+  float* out = static_cast<float*>(out_);
+  int* counts = static_cast<int*>(counts_);
+  const int64_t n = static_cast<int64_t>(s) * d;
+  const int64_t items = static_cast<int64_t>(r) * (d > 0 ? d / V : 1);
+  if (cooperative) {
+    int grid = coop_blocks<Index, V, kOp>(device);
+    if (grid == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+    int64_t work = items > n ? items : n;
+    if (work < s) work = s;
+    if (blocks_for(work) < grid) grid = blocks_for(work);
+    void* args[] = {&rows, &ids, &r, &d, &s, &out, &counts, &value};
+    return static_cast<int>(
+        cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(coop_kernel<Index, V, kOp>), grid, kThreads, args,
+                                    0, stream));
+  }
+  fill_kernel<<<blocks_for((n > s ? n : s) / 4 + 1), kThreads, 0, stream>>>(out, n, value, counts, s);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || r == 0) return static_cast<int>(err);
+  scatter_kernel<Index, V, kOp><<<blocks_for(items), kThreads, 0, stream>>>(rows, ids, r, d, s, out, counts);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Index>
+int dispatch(const void* rows, const void* ids, int r, int d, int s, int op, int vec, void* out, void* counts,
+             int device, bool cooperative, cudaStream_t stream) {
+  constexpr float inf = std::numeric_limits<float>::infinity();
+  switch (op * 8 + vec) {
+    case kAdd * 8 + 4: return run<Index, 4, kAdd>(rows, ids, r, d, s, out, counts, 0.0f, device, cooperative, stream);
+    case kAdd * 8 + 2: return run<Index, 2, kAdd>(rows, ids, r, d, s, out, counts, 0.0f, device, cooperative, stream);
+    case kAdd * 8 + 1: return run<Index, 1, kAdd>(rows, ids, r, d, s, out, counts, 0.0f, device, cooperative, stream);
+    case kMax * 8 + 1: return run<Index, 1, kMax>(rows, ids, r, d, s, out, counts, -inf, device, cooperative, stream);
+    case kMin * 8 + 1: return run<Index, 1, kMin>(rows, ids, r, d, s, out, counts, inf, device, cooperative, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int entry(const void* rows, const void* ids, int r, int d, int s, int index_bytes, int op, int vec, void* out,
+          void* counts, int device, void* stream, bool cooperative) {
+  if (s <= 0) return 0;
+  if ((reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(counts)) % 16 != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  if (device < 0 || device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return static_cast<int>(scope.error());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (index_bytes == 8) return dispatch<int64_t>(rows, ids, r, d, s, op, vec, out, counts, device, cooperative, st);
+  if (index_bytes == 4) return dispatch<int32_t>(rows, ids, r, d, s, op, vec, out, counts, device, cooperative, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// rows: (r, d) float32, contiguous. ids: (r,) int32 (index_bytes=4) or int64
-// (index_bytes=8). sums: (s, d) float32, zero-filled. counts: (s,) int32,
-// zero-filled. Returns cudaGetLastError() after the launch.
-extern "C" int segment_scatter_add_launch(const void* rows, const void* ids, int64_t r, int64_t d, int64_t s,
-                                          int index_bytes, void* sums, void* counts, void* stream) {
-  if (r <= 0 || s <= 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (index_bytes == 8) return launch_add<int64_t>(rows, ids, r, d, s, sums, counts, st);
-  if (index_bytes == 4) return launch_add<int32_t>(rows, ids, r, d, s, sums, counts, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+// rows: (r, d) float32, contiguous, r * max(d, 1) < 2^31. ids: (r,) int32
+// (index_bytes=4) or int64 (index_bytes=8). op: 0 sums (B3), 1 max, 2 min
+// (B4). vec: floats per vector access, 4, 2 or 1 (1 for B4); d % vec == 0
+// and rows and out aligned to 4 * vec bytes. out: (s, d) float32 and
+// counts: (s,) int32, both uninitialised and 16-byte aligned: the call fills them (0, -inf or
+// +inf; counts 0) and then scatters, on `stream`, with `device` current.
+// Returns the first CUDA error of the call (0 if none); s <= 0 does nothing.
+extern "C" int segment_scatter_launch(const void* rows, const void* ids, int r, int d, int s, int index_bytes, int op,
+                                      int vec, void* out, void* counts, int device, void* stream) {
+  return entry(rows, ids, r, d, s, index_bytes, op, vec, out, counts, device, stream, false);
 }
 
-// As segment_scatter_add_launch, with out: (s, d) float32 filled with -inf
-// (is_max=1) or +inf (is_max=0).
-extern "C" int segment_scatter_extremal_launch(const void* rows, const void* ids, int64_t r, int64_t d, int64_t s,
-                                               int index_bytes, int is_max, void* out, void* counts, void* stream) {
-  if (r <= 0 || s <= 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (index_bytes == 8) return launch_extremal<int64_t>(rows, ids, r, d, s, is_max, out, counts, st);
-  if (index_bytes == 4) return launch_extremal<int32_t>(rows, ids, r, d, s, is_max, out, counts, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+// The same call as one cooperative launch.
+extern "C" int segment_scatter_coop_launch(const void* rows, const void* ids, int r, int d, int s, int index_bytes,
+                                           int op, int vec, void* out, void* counts, int device, void* stream) {
+  return entry(rows, ids, r, d, s, index_bytes, op, vec, out, counts, device, stream, true);
 }
+
+// Caps the blocks per SM of the cooperative form (0: as many as fit).
+extern "C" void segment_scatter_set_coop_blocks_per_sm(int cap) { coop_blocks_per_sm_cap.store(cap); }

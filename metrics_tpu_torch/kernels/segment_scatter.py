@@ -31,17 +31,24 @@ from typing import Tuple, Union
 
 import torch
 
-from metrics_tpu_torch.kernels._common import check_launch, kernel_function, note_kernel_dispatch, require_capability
+from metrics_tpu_torch.kernels._common import (
+    check_launch,
+    current_stream_handle,
+    kernel_function,
+    note_kernel_dispatch,
+    require_capability,
+)
 from metrics_tpu_torch.utilities.data import Tensor, check_device, resolve_device
 
-_ADD_ARGTYPES = (
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+_ARGTYPES = (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
 )
-_EXTREMAL_ARGTYPES = (
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-)
+_ENTRY = "segment_scatter_launch"
+#: the C entry's ``op`` argument
+_ADD, _MAX, _MIN = 0, 1, 2
+#: the kernels index rows in 32 bits: ``R * max(D, 1)`` stays below this
+_MAX_ITEMS = 2**31
 #: largest segment count the int32 counts and the JAX package's int32 ids address
 _MAX_SEGMENTS = 2**31 - 1
 
@@ -98,24 +105,65 @@ def segment_scatter_min_torch(rows: Tensor, segment_ids: Tensor, num_segments: i
     return _segment_scatter_extremal_torch(rows, segment_ids, num_segments, "min")
 
 
+def vector_width(d: int, address: int) -> int:
+    """Floats per vector access of the B3 kernel for rows of width ``d``.
+
+    ``address`` is the bitwise OR of the pointers the vectors touch (the rows
+    and the sums), whose low bits are zero only where every pointer's are:
+    4 (``float4``) where ``d % 4 == 0`` and ``address`` is 16-byte aligned, 2
+    (``float2``) where ``d`` is even and ``address`` 8-byte aligned, else 1.
+    Row ``i`` starts ``4 * d * i`` bytes after the first, so the first row's
+    alignment holds for every row.
+    """
+    if d % 4 == 0 and address % 16 == 0:
+        return 4
+    if d % 2 == 0 and address % 8 == 0:
+        return 2
+    return 1
+
+
 def _check(op: str, rows: Tensor, segment_ids: Tensor, num_segments: int, device: torch.device) -> None:
-    check_device(device, rows, segment_ids)
+    # attribute reads first; method calls and the device comparison last
     if rows.ndim != 2 or segment_ids.ndim != 1 or segment_ids.shape[0] != rows.shape[0]:
         raise ValueError(f"{op} takes rows of shape (R, D) and ids of shape (R,), got {tuple(rows.shape)} and"
                          f" {tuple(segment_ids.shape)}")
     if not 1 <= num_segments <= _MAX_SEGMENTS:
         raise ValueError(f"{op} takes 1 <= num_segments <= {_MAX_SEGMENTS}, got {num_segments}")
-    if segment_ids.dtype.is_floating_point or segment_ids.dtype == torch.bool or segment_ids.is_complex():
-        raise TypeError(f"{op} takes integer segment ids, got {segment_ids.dtype}")
+    r, d = rows.shape
+    if r * max(d, 1) >= _MAX_ITEMS:
+        raise ValueError(f"{op} takes R * max(D, 1) < {_MAX_ITEMS} (the kernels index in 32 bits), got R={r}, D={d}")
+    ids_dtype = segment_ids.dtype
+    if ids_dtype.is_floating_point or ids_dtype.is_complex or ids_dtype == torch.bool:
+        raise TypeError(f"{op} takes integer segment ids, got {ids_dtype}")
     if device.type == "cuda":
-        if rows.dtype != torch.float32 or segment_ids.dtype not in (torch.int32, torch.int64):
-            raise TypeError(f"{op} takes float32 rows and int32 or int64 ids, got {rows.dtype} and"
-                            f" {segment_ids.dtype}")
+        if rows.dtype != torch.float32 or ids_dtype not in (torch.int32, torch.int64):
+            raise TypeError(f"{op} takes float32 rows and int32 or int64 ids, got {rows.dtype} and {ids_dtype}")
         if not (rows.is_contiguous() and segment_ids.is_contiguous()):
             raise ValueError(f"{op} takes contiguous inputs")
+        check_device(device, rows, segment_ids)
         require_capability(device)
-    elif device.type != "cpu":
+    elif device.type == "cpu":
+        check_device(device, rows, segment_ids)
+    else:
         raise ValueError(f"{op} runs on a CUDA or the CPU device, not on {device}")
+
+
+def _scatter_cuda(name: str, op: int, rows: Tensor, segment_ids: Tensor, num_segments: int,
+                  device: torch.device) -> Tuple[Tensor, Tensor]:
+    """One call into the C library: it fills the uninitialised outputs and
+    scatters into them on the current stream of ``device``."""
+    r, d = rows.shape
+    out = torch.empty((num_segments, d), dtype=torch.float32, device=device)
+    counts = torch.empty(num_segments, dtype=torch.int32, device=device)
+    rows_ptr, out_ptr = rows.data_ptr(), out.data_ptr()
+    vec = vector_width(d, rows_ptr | out_ptr) if op == _ADD else 1
+    launch = kernel_function(_ENTRY, _ARGTYPES)
+    err = launch(rows_ptr, segment_ids.data_ptr(), r, d, num_segments, segment_ids.element_size(), op, vec, out_ptr,
+                 counts.data_ptr(), device.index, current_stream_handle(device))
+    check_launch(name, err)
+    if r:
+        note_kernel_dispatch(name, "cuda")
+    return out, counts
 
 
 def segment_scatter_add_cuda(
@@ -133,18 +181,7 @@ def segment_scatter_add_cuda(
     if device.type == "cpu":
         note_kernel_dispatch(op, "torch")
         return segment_scatter_add_torch(rows, segment_ids, num_segments)
-    r, d = rows.shape
-    sums = torch.zeros((num_segments, d), dtype=torch.float32, device=device)
-    counts = torch.zeros(num_segments, dtype=torch.int32, device=device)
-    if r:
-        launch = kernel_function("segment_scatter_add_launch", _ADD_ARGTYPES)
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = launch(rows.data_ptr(), segment_ids.data_ptr(), r, d, num_segments, segment_ids.element_size(),
-                         sums.data_ptr(), counts.data_ptr(), stream)
-            check_launch(op, err)
-        note_kernel_dispatch(op, "cuda")
-    return sums, counts
+    return _scatter_cuda(op, _ADD, rows, segment_ids, num_segments, device)
 
 
 def _segment_scatter_extremal_cuda(
@@ -156,18 +193,7 @@ def _segment_scatter_extremal_cuda(
     if device.type == "cpu":
         note_kernel_dispatch(name, "torch")
         return _segment_scatter_extremal_torch(rows, segment_ids, num_segments, op)
-    r, d = rows.shape
-    out = torch.full((num_segments, d), float("-inf") if op == "max" else float("inf"), device=device)
-    counts = torch.zeros(num_segments, dtype=torch.int32, device=device)
-    if r:
-        launch = kernel_function("segment_scatter_extremal_launch", _EXTREMAL_ARGTYPES)
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = launch(rows.data_ptr(), segment_ids.data_ptr(), r, d, num_segments, segment_ids.element_size(),
-                         int(op == "max"), out.data_ptr(), counts.data_ptr(), stream)
-            check_launch(name, err)
-        note_kernel_dispatch(name, "cuda")
-    return out, counts
+    return _scatter_cuda(name, _MAX if op == "max" else _MIN, rows, segment_ids, num_segments, device)
 
 
 def segment_scatter_max_cuda(
