@@ -19,7 +19,10 @@ Phases, in order; any failure exits non-zero before the last line:
    plain version on the card divides by a device tensor, never by a Python
    scalar, whose CUDA division multiplies by the reciprocal), including at
    every bin edge and its float32 neighbours, and for NaN, +-inf and
-   subnormal scores.
+   subnormal scores. The segment scatters (B3, B4) are held at every
+   vector width B3 takes (D = 40, 8, 6, 4, 2, 1 at the keyed path's shapes,
+   and ragged shapes), each with int64 and int32 ids and with rows 16-, 4-
+   and 8-byte aligned (views that start one or two floats into a buffer).
 3. The first path: ImageNet-1k evaluation (1000 classes, the 50,000-image
    validation split in batches of 1024 float32 softmax rows, 49 ``forward``
    calls, then ``compute()``) through
@@ -60,7 +63,9 @@ Phases, in order; any failure exits non-zero before the last line:
    call that computes the same function (where there is one), each beside
    the least time the card could take; and the same calls' device time
    alone (kernels and memsets, by the profiler), which leaves out the
-   host's launch cost.
+   host's launch cost. For B3 and B4 also the library call with its own
+   output and index (``library_alloc_ms``), and the host time of each piece
+   of their wrappers (1000 calls back to back, no synchronisation).
 5. One JSON line ``{"kernels": [...]}``, the card line again, and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -240,16 +245,20 @@ def build_keyed(M, device):
     }, num_tenants=KEYED_TENANTS, validate_ids=False, device=device)
 
 
-def scatter_inputs(torch, gen, dev, r, s, d, floats=False):
-    """Rows (integer-valued, or normal floats) and ids uniform in [0, s) with
-    -1, s and s+7 mixed in."""
+def scatter_inputs(torch, gen, dev, r, s, d, floats=False, ids_dtype=None, offset=0):
+    """Rows (integer-valued, or normal floats) that start ``offset`` floats
+    into their buffer (1 leaves them 4-byte aligned, 2 8-byte aligned), and
+    ids (int64, or ``ids_dtype``) uniform in [0, s) with -1, s and s+7 mixed
+    in."""
+    n = r * d
     if floats:
-        rows = torch.randn((r, d), generator=gen, device=dev)
+        buf = torch.randn((n + offset,), generator=gen, device=dev)
     else:
-        rows = torch.randint(-2, 3, (r, d), generator=gen, device=dev).float()
+        buf = torch.randint(-2, 3, (n + offset,), generator=gen, device=dev).float()
+    rows = buf[offset:offset + n].view(r, d)
     ids = torch.randint(0, s, (r,), generator=gen, device=dev)
     ids[0::97], ids[1::97], ids[2::97] = -1, s, s + 7
-    return rows, ids
+    return rows, ids if ids_dtype is None else ids.to(ids_dtype)
 
 
 def special_rows(torch, dev):
@@ -287,18 +296,21 @@ def scatter_host_pieces(torch, dev, ids):
             pass
 
     return [
-        ("resolve_device", lambda: resolve_device(dev)),
+        ("_kernel_device (resolved device)", lambda: ss._kernel_device(dev)),
+        ("parent: resolve_device", lambda: resolve_device(dev)),
         ("_check (capability cached)", lambda: ss._check("segment_scatter_add", rows, ids, s, dev)),
         ("require_capability (cached)", lambda: _common.require_capability(dev)),
-        ("torch.empty (S, 40) float32", lambda: torch.empty((s, d), dtype=torch.float32, device=dev)),
-        ("torch.empty (S,) int32", lambda: torch.empty(s, dtype=torch.int32, device=dev)),
+        ("torch.empty(S, 40) float32", lambda: torch.empty(s, d, dtype=torch.float32, device=dev)),
+        ("torch.empty((S, 40)) float32, shape as a tuple", lambda: torch.empty((s, d), dtype=torch.float32,
+                                                                              device=dev)),
+        ("torch.empty(S) int32", lambda: torch.empty(s, dtype=torch.int32, device=dev)),
         ("data_ptr x4 + element_size", lambda: (rows.data_ptr(), ids.data_ptr(), out.data_ptr(), counts.data_ptr(),
                                                 ids.element_size())),
         ("vector_width", lambda: ss.vector_width(d, args[0] | args[8])),
         ("kernel_function lookup", lambda: _common.kernel_function(ss._ENTRY, ss._ARGTYPES)),
         ("current_stream_handle", lambda: _common.current_stream_handle(dev)),
         ("ctypes call, S = 0 (returns early in C)", lambda: launch(*args[:4], 0, *args[5:])),
-        ("ctypes call, D = 40 (device scope, fill and scatter launches)", lambda: launch(*args)),
+        ("ctypes call, D = 40 (device scope, one cooperative launch)", lambda: launch(*args)),
         ("launch counter", lambda: _common.note_kernel_dispatch("host_pieces_probe", "cuda")),
         ("segment_scatter_add_cuda D=40, whole", lambda: ss.segment_scatter_add_cuda(rows, ids, s, device=dev)),
         ("segment_scatter_max_cuda D=1, whole", lambda: ss.segment_scatter_max_cuda(rows1, ids, s, device=dev)),
@@ -410,6 +422,7 @@ def main() -> int:
         segment_scatter_max_torch,
         segment_scatter_min_cuda,
         segment_scatter_min_torch,
+        vector_width,
     )
     from metrics_tpu_torch.kernels.stat_scores import stat_scores_counts_cuda, stat_scores_counts_torch
     from metrics_tpu_torch.utilities.checks import _input_format_classification
@@ -474,21 +487,30 @@ def main() -> int:
     scatter = {"segment_scatter_add": (segment_scatter_add_cuda, segment_scatter_add_torch),
                "segment_scatter_max": (segment_scatter_max_cuda, segment_scatter_max_torch),
                "segment_scatter_min": (segment_scatter_min_cuda, segment_scatter_min_torch)}
-    scatter_cases = [(KEYED_ROWS, KEYED_TENANTS, 40), (KEYED_ROWS, KEYED_TENANTS, 6), (KEYED_ROWS, KEYED_TENANTS, 1),
-                     (1, 1, 1), (4099, 100_000, 3), (300, 64, 16)]
+    # the keyed path's shapes at every vector width B3 takes, ragged shapes;
+    # each with int64 and int32 ids, and rows 16-, 4- and 8-byte aligned
+    scatter_cases = [(KEYED_ROWS, KEYED_TENANTS, d) for d in (40, 8, 6, 4, 2, 1)] + [
+        (1, 1, 1), (4099, 100_000, 3), (300, 64, 16)]
     for op, (kernel, plain) in scatter.items():
         errors[op] = 0.0
         for r, s, d in scatter_cases:
-            rows, ids = scatter_inputs(torch, gen, dev, r, s, d)
-            got = kernel(rows, ids, s, device=dev)
-            torch.cuda.synchronize()
-            want = plain(rows, ids, s)
-            ok = all(same_bits(g, w) for g, w in zip(got, want))
-            parity.append({"kernel": op, "shape": [r, s, d], "rows": "integer-valued", "equal": ok})
-            print(f"[parity] {op} R={r} S={s} D={d} integer-valued rows, invalid ids: "
-                  f"{'equal' if ok else 'DIFFERENT'}")
-            if not ok:
-                fail(f"{op} differs from its plain version at R={r}, S={s}, D={d}")
+            widths = set()
+            for ids_dtype in (torch.int64, torch.int32):
+                for offset in (0, 1, 2):
+                    rows, ids = scatter_inputs(torch, gen, dev, r, s, d, ids_dtype=ids_dtype, offset=offset)
+                    got = kernel(rows, ids, s, device=dev)
+                    torch.cuda.synchronize()
+                    want = plain(rows, ids, s)
+                    ok = all(same_bits(g, w) for g, w in zip(got, want))
+                    width = vector_width(d, rows.data_ptr() | got[0].data_ptr()) if op == "segment_scatter_add" else 1
+                    widths.add(width)
+                    parity.append({"kernel": op, "shape": [r, s, d], "rows": "integer-valued", "ids": str(ids_dtype),
+                                   "row_offset_bytes": 4 * offset, "vector_width": width, "equal": ok})
+                    if not ok:
+                        fail(f"{op} differs from its plain version at R={r}, S={s}, D={d}, {ids_dtype} ids, rows "
+                             f"{4 * offset} bytes into their buffer")
+            print(f"[parity] {op} R={r} S={s} D={d} integer-valued rows, invalid ids; int64 and int32 ids, rows at "
+                  f"byte offsets 0, 4 and 8 (vector widths {sorted(widths)}): equal")
         if op == "segment_scatter_add":
             rows, ids = scatter_inputs(torch, gen, dev, KEYED_ROWS, KEYED_TENANTS, 40, floats=True)
             first, counts = kernel(rows, ids, KEYED_TENANTS, device=dev)
@@ -860,18 +882,33 @@ def main() -> int:
         kernel, plain = scatter[kernel_op]
         rows = torch.randint(0, 2, (KEYED_ROWS, d), generator=gen, device=dev).float()
         buffer = torch.zeros((s_ + 1, d), device=dev)
+        # library_ms: the one call into a buffer allocated once, the safe
+        # index made outside the timed region; library_alloc_ms: the same
+        # call with its own output (zeros or a -inf/+inf fill of (S+1, D))
+        # and the safe index made per call, as a caller pays them (neither
+        # counts the rows per segment, as the kernels also do)
         if kernel_op == "segment_scatter_add":
             library = (lambda buffer=buffer, rows=rows: buffer.index_add_(0, safe, rows))
+
+            def library_alloc(rows=rows, d=d):
+                ids = torch.where((keyed_ids >= 0) & (keyed_ids < s_), keyed_ids, s_)
+                return torch.zeros((s_ + 1, d), device=dev).index_add_(0, ids, rows)
         else:
             index = safe.unsqueeze(1).expand(-1, d).contiguous()
             how = "amax" if kernel_op.endswith("max") else "amin"
             library = (lambda buffer=buffer, index=index, rows=rows, how=how:
                        buffer.scatter_reduce_(0, index, rows, how, include_self=True))
+
+            def library_alloc(rows=rows, d=d, how=how):
+                ids = torch.where((keyed_ids >= 0) & (keyed_ids < s_), keyed_ids, s_)
+                out = torch.full((s_ + 1, d), float("-inf") if how == "amax" else float("inf"), device=dev)
+                return out.scatter_reduce_(0, ids.unsqueeze(1).expand(-1, d), rows, how, include_self=True)
         nbytes = KEYED_ROWS * d * 4 + KEYED_ROWS * 8 + s_ * d * 4 + s_ * 4
         calls[op] = {
             "ms": lambda kernel=kernel, rows=rows: kernel(rows, keyed_ids, s_, device=dev),
             "plain_ms": lambda plain=plain, rows=rows: plain(rows, keyed_ids, s_),
             "library_ms": library,
+            "library_alloc_ms": library_alloc,
         }
         timings[op] = {"bound": bound(nbytes, KEYED_ROWS * d), "shape": f"rows ({KEYED_ROWS}, {d}) float32, ids "
                        f"({KEYED_ROWS},) int64, S={s_}"}
@@ -911,8 +948,19 @@ def main() -> int:
         print(f"[time] {op} at {t['shape']}, per call (device only): kernel {fmt(t['ms'])} "
               f"({fmt(t['device_ms'])}), plain {fmt(t['plain_ms'])} ({fmt(t['plain_device_ms'])}), "
               f"library {fmt(t['library_ms'])} ({fmt(t['library_device_ms'])}), "
-              f"bound {t['bound'][0]:.4f} ms ({t['bound'][1]})")
+              f"library with its own output {fmt(t.get('library_alloc_ms'))} "
+              f"({fmt(t.get('library_alloc_device_ms'))}), bound {t['bound'][0]:.4f} ms ({t['bound'][1]})")
     record["timings"] = timings
+    # what the CUDA-event wrapper time counts when nothing runs between the
+    # two events: a floor under every "ms" above
+    floor_ms = cuda_ms(lambda: None)
+    print(f"[time] CUDA-event floor (nothing between the two events): {fmt(floor_ms)}")
+    record["cuda_event_floor_ms"] = floor_ms
+    # where a B3/B4 wrapper call's host time goes, piece by piece
+    pieces = host_us(scatter_host_pieces(torch, dev, keyed_ids))
+    for name, us in pieces.items():
+        print(f"[host] {us:8.3f} us per call  {name}")
+    record["scatter_host_pieces_us"] = pieces
 
     # -- 5. report -------------------------------------------------------
     sources = {"stat_scores_counts": "metrics_tpu_torch/csrc/stat_scores.cu",
@@ -939,7 +987,7 @@ def main() -> int:
          "launches": path_launches[op], "max_abs_err": errors[op], "ms": timings[op]["ms"],
          "plain_ms": timings[op]["plain_ms"], "bound_ms": timings[op]["bound"][0],
          "bound_by": timings[op]["bound"][1], "library_ms": timings[op]["library_ms"],
-         "device_ms": timings[op]["device_ms"]}
+         "library_alloc_ms": timings[op].get("library_alloc_ms"), "device_ms": timings[op]["device_ms"]}
         for op in sources
     ]
     record["kernels"] = kernels

@@ -11,8 +11,14 @@ them into one shared library named by a hash of the sources and flags, and
 renames it into place under ``build/kernels/`` at the root of the checkout,
 so a half-written library is never loaded. The library has a plain C
 interface and is loaded with ``ctypes``: every pointer and the stream pass
-as ``c_void_p``, and each entry returns ``cudaGetLastError()`` after its
-launch.
+as ``c_void_p``, and each entry returns the CUDA error of its launch (0 if
+none), which :func:`check_launch` raises.
+
+A wrapper's host time is most of a kernel call at the paths' sizes, so the
+pieces every wrapper goes through are cheap after the first call: the
+device's capability is asked once (:func:`require_capability`), a resolved
+entry is read without a lock (:func:`kernel_function`), and the stream is
+read as its raw handle (:func:`current_stream_handle`).
 """
 import ctypes
 import hashlib

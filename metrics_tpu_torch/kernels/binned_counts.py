@@ -39,7 +39,13 @@ from typing import Tuple, Union
 
 import torch
 
-from metrics_tpu_torch.kernels._common import check_launch, kernel_function, note_kernel_dispatch, require_capability
+from metrics_tpu_torch.kernels._common import (
+    check_launch,
+    current_stream_handle,
+    kernel_function,
+    note_kernel_dispatch,
+    require_capability,
+)
 from metrics_tpu_torch.utilities.data import Tensor, _is_batched, check_device, resolve_device
 
 _OP = "label_score_histograms"
@@ -124,7 +130,7 @@ def label_score_histograms_cuda(
     if n and c:
         launch = kernel_function("label_score_histograms_launch", _ARGTYPES)
         with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
+            stream = current_stream_handle(device)
             err = launch(x.data_ptr(), t.data_ptr(), n, c, num_bins, lo, hi, hi - lo, out.data_ptr(), stream)
             check_launch(_OP, err)
         note_kernel_dispatch(_OP, "cuda")

@@ -21,7 +21,13 @@ from typing import Union
 
 import torch
 
-from metrics_tpu_torch.kernels._common import check_launch, kernel_function, note_kernel_dispatch, require_capability
+from metrics_tpu_torch.kernels._common import (
+    check_launch,
+    current_stream_handle,
+    kernel_function,
+    note_kernel_dispatch,
+    require_capability,
+)
 from metrics_tpu_torch.utilities.data import Tensor, check_device, resolve_device
 
 _OP = "confmat_counts"
@@ -74,7 +80,7 @@ def confmat_counts_cuda(
     if n:
         launch = kernel_function("confmat_counts_launch", _ARGTYPES)
         with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
+            stream = current_stream_handle(device)
             err = launch(
                 preds.data_ptr(), target.data_ptr(), n, num_classes, preds.element_size(), out.data_ptr(), stream
             )

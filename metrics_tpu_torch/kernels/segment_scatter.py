@@ -12,9 +12,13 @@ per-segment results plus ``(S,)`` int32 counts of valid rows; an id < 0 or
 * :func:`segment_scatter_add_cuda` (B3) and :func:`segment_scatter_max_cuda`
   / :func:`segment_scatter_min_cuda` (B4), the wrappers of the hand-written
   kernels in ``csrc/segment_scatter.cu`` (which replace the Pallas
-  ``_scatter_kernel`` and ``_extremal_kernel``): one atomic per row element.
-  They take a CUDA tensor to the kernel and a CPU tensor to the plain
-  version.
+  ``_scatter_kernel`` and ``_extremal_kernel``). They take a CUDA tensor to
+  the kernel and a CPU tensor to the plain version. On the card a call is
+  two ``torch.empty`` outputs and one call into the C library, which makes
+  the device current, fills the outputs and scatters in one cooperative
+  launch (B3 adds rows as ``float4``/``float2`` vectors where
+  :func:`vector_width` allows, one vector atomic each; B4 takes one CAS loop
+  per element).
 
 Sums: the kernel adds in f32 in an order that changes from run to run;
 integer-valued data whose per-segment sums stay below 2^24 is exact, other
@@ -122,6 +126,16 @@ def vector_width(d: int, address: int) -> int:
     return 1
 
 
+def _kernel_device(device: Union[str, torch.device]) -> torch.device:
+    """``device`` resolved: a ``torch.device`` that names its index, as the
+    keyed metrics pass theirs, is taken as it is (without a card no tensor
+    lies on a CUDA device, so the device check still raises); anything else
+    goes through :func:`resolve_device`."""
+    if type(device) is torch.device and device.index is not None:
+        return device
+    return resolve_device(device)
+
+
 def _check(op: str, rows: Tensor, segment_ids: Tensor, num_segments: int, device: torch.device) -> None:
     # attribute reads first; method calls and the device comparison last
     if rows.ndim != 2 or segment_ids.ndim != 1 or segment_ids.shape[0] != rows.shape[0]:
@@ -150,19 +164,19 @@ def _check(op: str, rows: Tensor, segment_ids: Tensor, num_segments: int, device
 
 def _scatter_cuda(name: str, op: int, rows: Tensor, segment_ids: Tensor, num_segments: int,
                   device: torch.device) -> Tuple[Tensor, Tensor]:
-    """One call into the C library: it fills the uninitialised outputs and
-    scatters into them on the current stream of ``device``."""
+    """One call into the C library, which fills the uninitialised outputs and
+    scatters into them in one launch on the current stream of ``device``."""
     r, d = rows.shape
-    out = torch.empty((num_segments, d), dtype=torch.float32, device=device)
+    # the shape as separate arguments: as a tuple it took 10-35% more host time on the H100's host
+    out = torch.empty(num_segments, d, dtype=torch.float32, device=device)
     counts = torch.empty(num_segments, dtype=torch.int32, device=device)
     rows_ptr, out_ptr = rows.data_ptr(), out.data_ptr()
     vec = vector_width(d, rows_ptr | out_ptr) if op == _ADD else 1
-    launch = kernel_function(_ENTRY, _ARGTYPES)
-    err = launch(rows_ptr, segment_ids.data_ptr(), r, d, num_segments, segment_ids.element_size(), op, vec, out_ptr,
-                 counts.data_ptr(), device.index, current_stream_handle(device))
+    err = kernel_function(_ENTRY, _ARGTYPES)(
+        rows_ptr, segment_ids.data_ptr(), r, d, num_segments, segment_ids.element_size(), op, vec, out_ptr,
+        counts.data_ptr(), device.index, current_stream_handle(device))
     check_launch(name, err)
-    if r:
-        note_kernel_dispatch(name, "cuda")
+    note_kernel_dispatch(name, "cuda")
     return out, counts
 
 
@@ -176,7 +190,7 @@ def segment_scatter_add_cuda(
     take.
     """
     op = "segment_scatter_add"
-    device = resolve_device(device)
+    device = _kernel_device(device)
     _check(op, rows, segment_ids, num_segments, device)
     if device.type == "cpu":
         note_kernel_dispatch(op, "torch")
@@ -188,7 +202,7 @@ def _segment_scatter_extremal_cuda(
     rows: Tensor, segment_ids: Tensor, num_segments: int, op: str, device: Union[str, torch.device]
 ) -> Tuple[Tensor, Tensor]:
     name = f"segment_scatter_{op}"
-    device = resolve_device(device)
+    device = _kernel_device(device)
     _check(name, rows, segment_ids, num_segments, device)
     if device.type == "cpu":
         note_kernel_dispatch(name, "torch")

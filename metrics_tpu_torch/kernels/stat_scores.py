@@ -17,7 +17,13 @@ from typing import Tuple, Union
 
 import torch
 
-from metrics_tpu_torch.kernels._common import check_launch, kernel_function, note_kernel_dispatch, require_capability
+from metrics_tpu_torch.kernels._common import (
+    check_launch,
+    current_stream_handle,
+    kernel_function,
+    note_kernel_dispatch,
+    require_capability,
+)
 from metrics_tpu_torch.utilities.data import Tensor, check_device, resolve_device
 
 _OP = "stat_scores_counts"
@@ -67,7 +73,7 @@ def stat_scores_counts_cuda(
     if n and c:
         launch = kernel_function("stat_scores_counts_launch", _ARGTYPES)
         with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
+            stream = current_stream_handle(device)
             check_launch(_OP, launch(preds.data_ptr(), target.data_ptr(), n, c, out.data_ptr(), stream))
         note_kernel_dispatch(_OP, "cuda")
     return out[0], out[1], out[2], out[3]

@@ -3,8 +3,10 @@
 The plain PyTorch versions are held against both JAX formulations of each
 kernel (``_xla`` and the Pallas kernel in interpret mode) on the same numpy
 inputs, exactly. The wrappers are held to their device rule: a CPU tensor
-runs the plain version and launches nothing. The cases that launch the CUDA
-kernels need a card; they carry the ``cuda`` marker and skip here.
+runs the plain version and launches nothing. The shared plumbing caches its
+answers: the capability of a device is asked once, and a resolved C entry is
+read without the lock. The cases that launch the CUDA kernels need a card;
+they carry the ``cuda`` marker and skip here.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -125,6 +127,45 @@ def test_cpu_tensors_raise_under_the_default_cuda_device():
 def test_wrappers_reject_shapes_the_kernel_does_not_take(call):
     with pytest.raises(ValueError):
         call()
+
+
+def _recording_capability(monkeypatch, capability):
+    asked = []
+    monkeypatch.setattr(_common, "_CAPABLE_DEVICES", set())
+    monkeypatch.setattr(torch.cuda, "get_device_capability", lambda device: asked.append(device) or capability)
+    return asked
+
+
+def test_require_capability_asks_each_device_once(monkeypatch):
+    asked = _recording_capability(monkeypatch, (9, 0))
+    for _ in range(3):
+        _common.require_capability(torch.device("cuda", 0))
+    assert len(asked) == 1
+    _common.require_capability(torch.device("cuda", 1))
+    _common.require_capability(torch.device("cuda", 1))
+    assert len(asked) == 2
+
+
+def test_require_capability_raises_on_every_call_for_another_card(monkeypatch):
+    asked = _recording_capability(monkeypatch, (8, 0))
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="sm_90a"):
+            _common.require_capability(torch.device("cuda", 0))
+    assert len(asked) == 2
+
+
+def test_kernel_function_reads_a_resolved_entry_without_the_lock(monkeypatch):
+    class NoLock:
+        def __enter__(self):
+            raise AssertionError("the lock was taken on a resolved entry")
+
+        def __exit__(self, *exc):
+            return False
+
+    entry = object()
+    monkeypatch.setitem(_common._FUNCTIONS, "probe_entry", entry)
+    monkeypatch.setattr(_common, "_LIB_LOCK", NoLock())
+    assert _common.kernel_function("probe_entry", ()) is entry
 
 
 @pytest.mark.cuda

@@ -12,7 +12,10 @@ Pallas-vs-XLA tolerance: the one-hot contraction rounds differently). Shapes
 above the Pallas kernels' VMEM gates (S > 1024, D > 511 for sums or > 16 for
 extrema) are held against ``_xla`` only. The wrappers run the plain version
 for a CPU tensor and launch nothing; the cases that launch the CUDA kernels
-carry the ``cuda`` marker and skip here.
+carry the ``cuda`` marker and skip here. The CUDA path's plumbing (one call
+into the C library, outputs left unfilled for it, the vector width, the
+32-bit size limit, a failed launch raising) is tested on the CPU against a
+stand-in for the library.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +31,7 @@ from metrics_tpu.kernels.segment_scatter import (
     segment_scatter_min_xla,
 )
 from metrics_tpu_torch.kernels import _common
+from metrics_tpu_torch.kernels import segment_scatter as ss
 from metrics_tpu_torch.kernels.segment_scatter import (
     segment_scatter_add_cuda,
     segment_scatter_add_torch,
@@ -35,6 +39,7 @@ from metrics_tpu_torch.kernels.segment_scatter import (
     segment_scatter_max_torch,
     segment_scatter_min_cuda,
     segment_scatter_min_torch,
+    vector_width,
 )
 
 _TORCH = {"add": segment_scatter_add_torch, "max": segment_scatter_max_torch, "min": segment_scatter_min_torch}
@@ -253,6 +258,15 @@ def test_cpu_tensors_raise_under_the_default_cuda_device(op):
 
 
 @pytest.mark.parametrize("op", ["add", "max", "min"])
+def test_cpu_tensors_raise_under_an_indexed_cuda_device(op):
+    """A resolved ``cuda:0`` skips the availability probe; CPU tensors are
+    then not on the device asked for, and the wrapper raises all the same."""
+    with pytest.raises((RuntimeError, ValueError)):
+        _CUDA[op](torch.zeros(4, 2), torch.zeros(4, dtype=torch.int64), 3, device=torch.device("cuda", 0))
+    assert _common.launch_count(f"segment_scatter_{op}") == 0
+
+
+@pytest.mark.parametrize("op", ["add", "max", "min"])
 @pytest.mark.parametrize(
     "rows,ids,s,error",
     [
@@ -268,18 +282,120 @@ def test_wrappers_reject_what_the_kernels_do_not_take(op, rows, ids, s, error):
         _CUDA[op](rows, ids, s, device="cpu")
 
 
+@pytest.mark.parametrize(
+    "d,offset,want",
+    [(40, 0, 4), (8, 0, 4), (4, 0, 4), (0, 0, 4), (40, 8, 2), (4, 8, 2), (6, 0, 2), (2, 0, 2), (2, 8, 2),
+     (40, 4, 1), (6, 4, 1), (2, 4, 1), (3, 0, 1), (1, 0, 1), (40, 12, 1)],
+)
+def test_vector_width_follows_d_and_the_alignment(d, offset, want):
+    """float4 takes D % 4 == 0 and 16-byte alignment, float2 D even and 8 bytes, else scalars."""
+    assert vector_width(d, (1 << 20) + offset) == want
+
+
+@pytest.mark.parametrize("offset,want", [(0, 4), (1, 1), (2, 2), (3, 1), (4, 4)])
+def test_vector_width_of_a_view_into_a_buffer(offset, want):
+    """The OR of the rows' and the sums' pointers is as aligned as the less aligned of the two."""
+    buf = torch.zeros(64 * 8 + 8)
+    assert buf.data_ptr() % 16 == 0
+    rows = buf[offset:offset + 64 * 8].view(64, 8)
+    sums = torch.empty(10, 8)
+    assert vector_width(8, rows.data_ptr() | sums.data_ptr()) == want
+    assert vector_width(8, sums.data_ptr() | rows.data_ptr()) == want
+
+
+@pytest.mark.parametrize("op", ["add", "max", "min"])
+def test_wrappers_reject_rows_past_the_32_bit_index(op, monkeypatch):
+    """R * max(D, 1) must stay below the kernels' 32-bit index limit (2**31;
+    lowered here so that no large tensor is needed)."""
+    monkeypatch.setattr(ss, "_MAX_ITEMS", 64)
+    ids = torch.zeros(16, dtype=torch.int64)
+    with pytest.raises(ValueError, match="32 bits"):
+        _CUDA[op](torch.zeros(16, 4), ids, 3, device="cpu")
+    with pytest.raises(ValueError, match="32 bits"):
+        _CUDA[op](torch.zeros(64, 0), torch.zeros(64, dtype=torch.int64), 3, device="cpu")
+    sums, counts = _CUDA[op](torch.zeros(15, 4), ids[:15], 3, device="cpu")
+    assert int(counts.sum()) == 15
+
+
+class _FakeLibrary:
+    """Stands in for the C entry: records each call and returns ``err``."""
+
+    def __init__(self, err=0):
+        self.err, self.calls = err, []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return self.err
+
+
+def _forbid(*_, **__):
+    raise AssertionError("the CUDA path must not call this")
+
+
+@pytest.fixture
+def fake_library(monkeypatch):
+    lib = _FakeLibrary()
+    entries = []
+    monkeypatch.setattr(ss, "kernel_function", lambda name, argtypes: entries.append(name) or lib)
+    monkeypatch.setattr(ss, "current_stream_handle", lambda device: 1234)
+    for name in ("zeros", "full", "zeros_like", "full_like"):
+        monkeypatch.setattr(torch, name, _forbid)
+    monkeypatch.setattr(torch.cuda, "device", _forbid)
+    lib.entries = entries
+    return lib
+
+
+@pytest.mark.parametrize("op,code", [("add", 0), ("max", 1), ("min", 2)])
+@pytest.mark.parametrize("d,offset", [(40, 0), (40, 1), (6, 0), (1, 0)])
+@pytest.mark.parametrize("ids_dtype", [torch.int64, torch.int32])
+def test_cuda_path_makes_one_library_call_and_no_fill(fake_library, op, code, d, offset, ids_dtype):
+    """The library fills the outputs itself: the wrapper allocates them with
+    ``torch.empty`` only, makes no ``torch.zeros``/``torch.full`` call and
+    enters no ``torch.cuda.device`` context, and calls the C entry once with
+    the device index, the stream handle and the vector width."""
+    buf = torch.ones(8 * d + offset)
+    rows, ids = buf[offset:offset + 8 * d].view(8, d), torch.arange(8).to(ids_dtype)
+    name = f"segment_scatter_{op}"
+    out, counts = ss._scatter_cuda(name, code, rows, ids, 10, torch.device("cpu"))
+    assert fake_library.entries == ["segment_scatter_launch"] and len(fake_library.calls) == 1
+    args = fake_library.calls[0]
+    width = vector_width(d, rows.data_ptr() | out.data_ptr()) if op == "add" else 1
+    assert args[0] == rows.data_ptr() and args[1] == ids.data_ptr()
+    assert args[2:8] == (8, d, 10, ids.element_size(), code, width)
+    assert args[8] == out.data_ptr() and args[9] == counts.data_ptr() and args[11] == 1234
+    assert out.shape == (10, d) and out.dtype == torch.float32 and out.is_contiguous()
+    assert counts.shape == (10,) and counts.dtype == torch.int32
+    assert _common.launch_count(name) == 1
+
+
+@pytest.mark.parametrize("op,code", [("add", 0), ("max", 1)])
+def test_a_failed_launch_raises_and_is_not_counted(fake_library, op, code):
+    fake_library.err = 700
+    name = f"segment_scatter_{op}"
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        ss._scatter_cuda(name, code, torch.ones(8, 4), torch.arange(8), 10, torch.device("cpu"))
+    assert _common.launch_count(name) == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("op", ["add", "max", "min"])
-@pytest.mark.parametrize("r,s,d", [(4096, 10_000, 40), (4096, 10_000, 6), (4096, 10_000, 1), (1, 1, 1),
+@pytest.mark.parametrize("r,s,d", [(4096, 10_000, 40), (4096, 10_000, 8), (4096, 10_000, 6), (4096, 10_000, 4),
+                                   (4096, 10_000, 3), (4096, 10_000, 2), (4096, 10_000, 1), (1, 1, 1),
                                    (4099, 100_000, 3), (300, 64, 16)])
-def test_kernel_matches_plain(cuda_device, op, r, s, d):
-    rng = np.random.RandomState(r + d)
-    rows = torch.from_numpy(rng.randint(-3, 4, (r, d)).astype(np.float32)).to(cuda_device)
-    ids = torch.from_numpy(rng.randint(-1, s + 8, r)).to(cuda_device)
+@pytest.mark.parametrize("offset", [0, 1, 2])
+@pytest.mark.parametrize("ids_dtype", [torch.int64, torch.int32])
+def test_kernel_matches_plain(cuda_device, op, r, s, d, offset, ids_dtype):
+    """Bit for bit the plain version, with rows that start 0, 4 or 8 bytes
+    into their buffer (float4, scalar or float2 access for B3 where D
+    allows) and int64 or int32 ids, invalid ones among them."""
+    rng = np.random.RandomState(r + 10 * d + offset)
+    buf = torch.from_numpy(rng.randint(-3, 4, r * d + offset).astype(np.float32)).to(cuda_device)
+    rows = buf[offset:offset + r * d].view(r, d)
+    ids = torch.from_numpy(rng.randint(-1, s + 8, r)).to(ids_dtype).to(cuda_device)
     got = _CUDA[op](rows, ids, s)
     torch.cuda.synchronize()
     for g, w in zip(got, _TORCH[op](rows, ids, s)):
-        assert torch.equal(g, w)
+        _assert_exact(g.cpu().numpy(), w.cpu().numpy())
     assert _common.launch_count(f"segment_scatter_{op}") == 1
 
 
@@ -302,3 +418,4 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError):
         segment_scatter_max_cuda(torch.zeros(2, 4, device=cuda_device).t(), ids, 3)
     assert _common.launch_count("segment_scatter_add") == 0
+
