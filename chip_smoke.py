@@ -296,7 +296,7 @@ def scatter_host_pieces(torch, dev, ids):
             pass
 
     return [
-        ("_kernel_device (resolved device)", lambda: ss._kernel_device(dev)),
+        ("kernel_device (resolved device)", lambda: _common.kernel_device(dev)),
         ("parent: resolve_device", lambda: resolve_device(dev)),
         ("_check (capability cached)", lambda: ss._check("segment_scatter_add", rows, ids, s, dev)),
         ("require_capability (cached)", lambda: _common.require_capability(dev)),

@@ -8,25 +8,41 @@
 // a time, builds a (TILE, B) one-hot of the bin indices in VMEM and
 // contracts it with the label masses on its matrix unit: N * B
 // multiply-adds per class for N useful additions. On Hopper each score is
-// one addition of 1.0 into its bin.
+// one addition of 1 into its bin.
 //
 // Bound: bytes. Each score and label is read once and each histogram bin
-// written once: at N = 1024, C = 1000, B = 2048 that is 8.2 MB of input and
-// 16.4 MB of output, 7.3 us at the H100's 3.35 TB/s. At N = 10,000, C = 1
-// it is 96 KB (0.03 us): launch latency sets that floor.
+// written once: at N = 1024, C = 1000, B = 2048 that is 8.2 MB of input
+// (4.1 MB with class ids for labels) and 16.4 MB of output, 7.3 us (6.1 us)
+// at the H100's 3.35 TB/s. At N = 10,000, C = 1 it is 96 KB (0.03 us): the
+// latency of one launch sets that floor.
 //
-// Design: a grid-stride loop over the N * C scores in memory order, so a
-// warp reads 32 neighbouring classes of a row (C = 1000) or 32 rows (C = 1)
-// coalesced. Two ways to count:
-//  * when both histograms fit in 47 KB of shared memory (2 * C * B * 4
-//    bytes, C = 1 at B = 2048 takes 16 KB), each block counts
-//    into its own copy in shared memory with integer atomics and then adds
-//    its non-zero bins to the output; rows of one class contend there, not
-//    in L2;
-//  * otherwise each score is one float atomicAdd of 1.0 into the output,
-//    which at C = 1000, B = 2048 (16.4 MB) stays in the 50 MB L2 cache.
-// Adding whole numbers below 2^24 in float32 is exact, so the counts do not
-// depend on the order of the atomics. Each block adds its clipped count once.
+// Design: owner computes. The caller's plan cuts the C class columns into
+// tiles of K columns whose two (K, B) count tiles fit in a block's shared
+// memory (up to 226 KB, opted into per kernel), and the N rows into chunks;
+// block (tile, chunk) zeroes its counts, walks its rows reading K scores and
+// K labels per row (16-byte loads where C, K and the pointers allow), and
+// counts with 32-bit integer atomics in shared memory. Then, by mode:
+//  * store (one chunk): the block owns its (K, B) tiles of both outputs and
+//    stores them as float32 with plain coalesced 16-byte stores. Every
+//    output bin is written exactly once: no fill, no global atomic, and the
+//    result does not depend on the order of anything. The clipped count is
+//    stored by the block itself when the grid is one block, else added by
+//    each block that has any to a cell that a 4-byte memset on the same
+//    stream zeroed first.
+//  * add (several chunks; few columns, many rows): each block adds its
+//    non-zero bins to the outputs with float atomics. Adding whole numbers
+//    below 2^24 in float32 is exact, so the counts do not depend on the
+//    order of the atomics.
+//  * global (B so large that one column's two tiles do not fit): one float
+//    atomicAdd of 1.0 per score into the outputs.
+// Labels come dense ((N, C) int32, positive where 1) or as one class id per
+// row ((N,) int32 or int64, positive where the id equals the column; an id
+// outside [0, C) makes the whole row negative), which saves reading and
+// building N * C labels in the one-vs-rest case.
+// A warp's lanes cover several rows of a few columns, so scores that share a
+// bin (softmax negatives near 0) meet at one shared-memory address: with
+// 16-byte loads each lane starts at another of its four columns, which
+// spreads a warp's adds over all of them.
 //
 // The bin index is the reference's float32 arithmetic in its order:
 // floor((x - lo) / span * B), clipped to [0, B - 1], with lo, span and B
@@ -35,22 +51,40 @@
 // reciprocal). A NaN score goes to bin 0 and is not clipped, as in the
 // reference; +-inf clip into the edge bins and are counted; a subnormal score
 // counts as zero, as XLA reads it.
+#include <atomic>
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "device_scope.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kMaxThreads = 1024;
+constexpr int kGlobalThreads = 256;
 constexpr int64_t kMaxGlobalBlocks = 2112;  // sixteen blocks per SM of the H100's 132
-constexpr int64_t kMaxSharedBlocks = 264;   // two per SM: each block flushes its whole copy
-constexpr int64_t kScoresPerSharedBlock = 4096;
-// the 48 KB a block may use without opting in, less room for add_clipped's
-// static warp sums
-constexpr int64_t kSharedBytes = 47 * 1024;
+// the 227 KB a block can opt into, less 1 KB for the static warp sums
+constexpr int kMaxDynamicShared = 232448 - 1024;
+
+enum Mode { kStore = 0, kAdd = 1, kGlobal = 2 };
+enum Labels { kDense = 0, kIds32 = 1, kIds64 = 2 };
+// how the add mode's outputs get their zeroes (measured against each other)
+enum ZeroForm { kMemset = 0, kCooperative = 1 };
 
 struct Grid {
   float lo, hi, span, bins, last;  // last = B - 1
   int num_bins;
+};
+
+struct Job {
+  const float* x;
+  const void* labels;
+  int n, c;
+  Grid g;
+  int k, rows_per_chunk, mode, zero_form, aggregate;
+  float* pos;
+  float* neg;
+  float* clipped;
 };
 
 // XLA reads a subnormal as zero (on the TPU and on the CPU), which decides
@@ -67,90 +101,337 @@ __device__ __forceinline__ int bin_of(float x, const Grid& g) {
 
 __device__ __forceinline__ int out_of_range(float x, const Grid& g) { return (x < g.lo) || (x > g.hi); }
 
-// Adds a block's clipped count to the output, once per block and only if
-// it is non-zero.
-__device__ void add_clipped(int count, float* clipped) {
-  __shared__ int warp_sums[kThreads / 32];
+// The class id of a row, as the int32 the dense one-hot is built from (an
+// int64 id is cut to its low 32 bits, as its cast to int32 would).
+template <int kLabels>
+__device__ __forceinline__ int row_id(const void* labels, size_t row) {
+  if constexpr (kLabels == kIds64) return static_cast<int>(static_cast<const int64_t*>(labels)[row]);
+  return static_cast<const int*>(labels)[row];
+}
+
+// The block's sum of `count`; thread 0 holds it.
+__device__ int block_sum(int count) {
+  __shared__ int warp_sums[kMaxThreads / 32];
   for (int offset = 16; offset > 0; offset >>= 1) count += __shfl_down_sync(0xffffffffu, count, offset);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) warp_sums[warp] = count;
   __syncthreads();
+  int total = 0;
   if (threadIdx.x == 0) {
-    int total = 0;
-    for (int w = 0; w < kThreads / 32; ++w) total += warp_sums[w];
-    if (total) atomicAdd(clipped, static_cast<float>(total));
+    for (int w = 0; w < (blockDim.x + 31) / 32; ++w) total += warp_sums[w];
+  }
+  return total;
+}
+
+// One score into the block's counts. With `aggregate`, the lanes of a warp
+// that hit one cell send one add of their number.
+__device__ __forceinline__ void count_score(unsigned int* counts, float score, bool positive, int column_cell,
+                                            int neg_offset, const Grid& g, int aggregate, int& clipped) {
+  const float v = flush_subnormal(score);
+  const int cell = (positive ? 0 : neg_offset) + column_cell + bin_of(v, g);
+  clipped += out_of_range(v, g);
+  if (aggregate) {
+    const unsigned peers = __match_any_sync(__activemask(), cell);
+    if ((__ffs(peers) - 1) == (threadIdx.x & 31)) atomicAdd(counts + cell, static_cast<unsigned>(__popc(peers)));
+  } else {
+    atomicAdd(counts + cell, 1u);
   }
 }
 
-__global__ void hist_global_kernel(const float* __restrict__ x, const int* __restrict__ t, int64_t total, int64_t c,
-                                   Grid g, float* __restrict__ hist, float* __restrict__ clipped) {
-  const int64_t neg_offset = c * g.num_bins;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  int count = 0;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < total; i += stride) {
-    const float v = flush_subnormal(x[i]);
-    const int64_t col = i % c;
-    const int64_t cell = (t[i] == 1 ? 0 : neg_offset) + col * g.num_bins + bin_of(v, g);
-    atomicAdd(hist + cell, 1.0f);
-    count += out_of_range(v, g);
+__device__ __forceinline__ float pick(const float4& v, int i) { return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w; }
+__device__ __forceinline__ int pick(const int4& v, int i) { return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w; }
+
+// `words` counts of a tile (16-byte aligned in shared memory) to the output as float32.
+__device__ __forceinline__ void store_tile(const unsigned int* __restrict__ src, float* __restrict__ dst, int words) {
+  int done = 0;
+  if (reinterpret_cast<uintptr_t>(dst) % 16 == 0) {
+    const int vectors = words / 4;
+    for (int i = threadIdx.x; i < vectors; i += blockDim.x) {
+      const uint4 n = reinterpret_cast<const uint4*>(src)[i];
+      reinterpret_cast<float4*>(dst)[i] = make_float4(static_cast<float>(n.x), static_cast<float>(n.y),
+                                                      static_cast<float>(n.z), static_cast<float>(n.w));
+    }
+    done = vectors * 4;
   }
-  add_clipped(count, clipped);
+  for (int i = done + threadIdx.x; i < words; i += blockDim.x) dst[i] = static_cast<float>(src[i]);
 }
 
-__global__ void hist_shared_kernel(const float* __restrict__ x, const int* __restrict__ t, int64_t total, int c,
-                                   Grid g, float* __restrict__ hist, float* __restrict__ clipped) {
-  extern __shared__ unsigned int local[];
-  const int neg_offset = c * g.num_bins;
-  const int cells = 2 * neg_offset;
-  for (int j = threadIdx.x; j < cells; j += blockDim.x) local[j] = 0u;
+__device__ __forceinline__ void add_tile(const unsigned int* __restrict__ src, float* __restrict__ dst, int words) {
+  for (int i = threadIdx.x; i < words; i += blockDim.x) {
+    const unsigned int n = src[i];
+    if (n) atomicAdd(dst + i, static_cast<float>(n));
+  }
+}
+
+// Block (tile, chunk) = (blockIdx.x, blockIdx.y): columns [k0, k0 + kw) of
+// rows [row_begin, row_end). V = 4 reads four columns per 16-byte load (the
+// entry checks C % 4 == 0, K % 4 == 0 and the pointers' alignment).
+template <int kLabels, int V>
+__global__ void __launch_bounds__(kMaxThreads) hist_tile_kernel(const Job job) {
+  extern __shared__ __align__(16) unsigned int counts[];
+  const Grid g = job.g;
+  const int b = g.num_bins;
+  const int c = job.c;
+  const int k0 = blockIdx.x * job.k;
+  const int kw = min(job.k, c - k0);
+  const int words = kw * b;
+  const int neg_offset = (words + 3) & ~3;  // the neg tile starts 16-byte aligned
+  const unsigned row_begin = blockIdx.y * static_cast<unsigned>(job.rows_per_chunk);
+  const unsigned row_end = min(static_cast<unsigned>(job.n), row_begin + static_cast<unsigned>(job.rows_per_chunk));
+  const float* __restrict__ x = job.x;
+  const int* __restrict__ dense = static_cast<const int*>(job.labels);
+
+  if (job.mode == kAdd && job.zero_form == kCooperative) {
+    // this block's share of the outputs' zeroes; no add lands before the grid sync below
+    const int64_t cells = static_cast<int64_t>(c) * b;
+    const int64_t first = (static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x) * blockDim.x + threadIdx.x;
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * gridDim.y * blockDim.x;
+    for (int64_t i = first; i < cells; i += stride) {
+      job.pos[i] = 0.0f;
+      job.neg[i] = 0.0f;
+    }
+    if (first == 0) *job.clipped = 0.0f;
+  }
+  for (int i = threadIdx.x; i < neg_offset / 2; i += blockDim.x) {
+    reinterpret_cast<uint4*>(counts)[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
   __syncthreads();
+
+  // threads as (row lane, item of the row): consecutive threads read
+  // consecutive addresses of one row, then the next row
+  // rows a thread loads before it counts them (eight scores either way)
+  constexpr unsigned kRowsInFlight = V == 4 ? 2 : 8;
+  const int per_row = kw / V;
+  const int tx = min(per_row, static_cast<int>(blockDim.x));
+  const int q0 = threadIdx.x % tx;
+  const unsigned r0 = threadIdx.x / tx;
+  const unsigned rstep = blockDim.x / tx;
+  int clipped = 0;
+  if (r0 < rstep) {
+    for (int q = q0; q < per_row; q += tx) {
+      const int j = q * V;  // the item's first column within the tile
+      for (unsigned row = row_begin + r0; row < row_end; row += kRowsInFlight * rstep) {
+        if constexpr (V == 4) {
+          float4 xs[kRowsInFlight];
+          int4 ts[kRowsInFlight];
+          int ids[kRowsInFlight];
+#pragma unroll
+          for (unsigned u = 0; u < kRowsInFlight; ++u) {
+            const size_t r = row + u * rstep;
+            if (r < row_end) {
+              xs[u] = *reinterpret_cast<const float4*>(x + r * c + k0 + j);
+              if constexpr (kLabels == kDense) {
+                ts[u] = *reinterpret_cast<const int4*>(dense + r * c + k0 + j);
+              } else {
+                ids[u] = row_id<kLabels>(job.labels, r);
+              }
+            }
+          }
+          const int rot = r0 & 3;  // each row lane starts at another column
+#pragma unroll
+          for (unsigned u = 0; u < kRowsInFlight; ++u) {
+            if (row + u * rstep < row_end) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int i = (e + rot) & 3;
+                bool positive;
+                if constexpr (kLabels == kDense) {
+                  positive = pick(ts[u], i) == 1;
+                } else {
+                  positive = ids[u] == k0 + j + i;
+                }
+                count_score(counts, pick(xs[u], i), positive, (j + i) * b, neg_offset, g, job.aggregate, clipped);
+              }
+            }
+          }
+        } else {
+          float xs[kRowsInFlight];
+          int ts[kRowsInFlight];
+#pragma unroll
+          for (unsigned u = 0; u < kRowsInFlight; ++u) {
+            const size_t r = row + u * rstep;
+            if (r < row_end) {
+              xs[u] = x[r * c + k0 + j];
+              if constexpr (kLabels == kDense) {
+                ts[u] = dense[r * c + k0 + j];
+              } else {
+                ts[u] = row_id<kLabels>(job.labels, r);
+              }
+            }
+          }
+#pragma unroll
+          for (unsigned u = 0; u < kRowsInFlight; ++u) {
+            if (row + u * rstep < row_end) {
+              const bool positive = kLabels == kDense ? ts[u] == 1 : ts[u] == k0 + j;
+              count_score(counts, xs[u], positive, j * b, neg_offset, g, job.aggregate, clipped);
+            }
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  const int out_offset = k0 * b;
+  if (job.mode == kStore) {
+    store_tile(counts, job.pos + out_offset, words);
+    store_tile(counts + neg_offset, job.neg + out_offset, words);
+  } else {
+    if (job.zero_form == kCooperative) cooperative_groups::this_grid().sync();
+    add_tile(counts, job.pos + out_offset, words);
+    add_tile(counts + neg_offset, job.neg + out_offset, words);
+  }
+  const int total = block_sum(clipped);
+  if (threadIdx.x == 0) {
+    if (job.mode == kStore && gridDim.x == 1) {
+      *job.clipped = static_cast<float>(total);
+    } else if (total) {
+      atomicAdd(job.clipped, static_cast<float>(total));
+    }
+  }
+}
+
+// One float atomic per score into zeroed outputs, for grids whose single
+// column does not fit in shared memory.
+template <int kLabels>
+__global__ void hist_global_kernel(const Job job) {
+  const Grid g = job.g;
+  const int64_t c = job.c;
+  const int64_t total = static_cast<int64_t>(job.n) * c;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  int count = 0;
+  const float* __restrict__ x = job.x;
+  int clipped = 0;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < total; i += stride) {
     const float v = flush_subnormal(x[i]);
-    const int col = static_cast<int>(i % c);
-    atomicAdd(local + (t[i] == 1 ? 0 : neg_offset) + col * g.num_bins + bin_of(v, g), 1u);
-    count += out_of_range(v, g);
+    const int64_t row = i / c;
+    const int col = static_cast<int>(i - row * c);
+    bool positive;
+    if constexpr (kLabels == kDense) {
+      positive = static_cast<const int*>(job.labels)[i] == 1;
+    } else {
+      positive = row_id<kLabels>(job.labels, row) == col;
+    }
+    atomicAdd((positive ? job.pos : job.neg) + col * g.num_bins + bin_of(v, g), 1.0f);
+    clipped += out_of_range(v, g);
   }
-  __syncthreads();
-  for (int j = threadIdx.x; j < cells; j += blockDim.x) {
-    const unsigned int n = local[j];
-    if (n) atomicAdd(hist + j, static_cast<float>(n));
-  }
-  add_clipped(count, clipped);
+  const int sum = block_sum(clipped);
+  if (threadIdx.x == 0 && sum) atomicAdd(job.clipped, static_cast<float>(sum));
 }
 
 int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
+// Zeroes of the two (c, b) outputs and the clipped count, on `stream`: one
+// memset where the caller laid them out back to back, else three.
+cudaError_t zero_outputs(const Job& job, cudaStream_t stream) {
+  const size_t cells = static_cast<size_t>(job.c) * job.g.num_bins;
+  if (job.neg == job.pos + cells && job.clipped == job.neg + cells) {
+    return cudaMemsetAsync(job.pos, 0, (2 * cells + 1) * sizeof(float), stream);
+  }
+  cudaError_t err = cudaMemsetAsync(job.pos, 0, cells * sizeof(float), stream);
+  if (err == cudaSuccess) err = cudaMemsetAsync(job.neg, 0, cells * sizeof(float), stream);
+  if (err == cudaSuccess) err = cudaMemsetAsync(job.clipped, 0, sizeof(float), stream);
+  return err;
+}
+
+template <int kLabels, int V>
+cudaError_t launch_tiles(const Job& job, int tiles, int chunks, int threads, int device, cudaStream_t stream) {
+  const int b = job.g.num_bins;
+  const size_t shared = 2 * static_cast<size_t>((job.k * b + 3) & ~3) * sizeof(unsigned int);
+  if (shared > static_cast<size_t>(kMaxDynamicShared)) return cudaErrorInvalidValue;
+  // a block may use more than 48 KB of shared memory only once its kernel opted in, per device
+  static std::atomic<bool> opted_in[kMaxDevices];
+  if (!opted_in[device].load(std::memory_order_acquire)) {
+    const cudaError_t err = cudaFuncSetAttribute(hist_tile_kernel<kLabels, V>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynamicShared);
+    if (err != cudaSuccess) return err;
+    opted_in[device].store(true, std::memory_order_release);
+  }
+  const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(chunks));
+  if (job.mode == kAdd && job.zero_form == kCooperative) {
+    void* args[] = {const_cast<Job*>(&job)};
+    return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(hist_tile_kernel<kLabels, V>), grid,
+                                       dim3(static_cast<unsigned>(threads)), args, shared, stream);
+  }
+  if (job.mode == kAdd) {
+    const cudaError_t err = zero_outputs(job, stream);
+    if (err != cudaSuccess) return err;
+  } else if (tiles > 1) {
+    const cudaError_t err = cudaMemsetAsync(job.clipped, 0, sizeof(float), stream);
+    if (err != cudaSuccess) return err;
+  }
+  hist_tile_kernel<kLabels, V><<<grid, threads, shared, stream>>>(job);
+  return cudaGetLastError();
+}
+
+template <int kLabels>
+cudaError_t launch(const Job& job, int tiles, int chunks, int threads, int vec, int device, cudaStream_t stream) {
+  if (job.mode == kGlobal) {
+    const cudaError_t err = zero_outputs(job, stream);
+    if (err != cudaSuccess) return err;
+    int64_t blocks = ceil_div(static_cast<int64_t>(job.n) * job.c, kGlobalThreads);
+    if (blocks > kMaxGlobalBlocks) blocks = kMaxGlobalBlocks;
+    if (blocks > 0) hist_global_kernel<kLabels><<<static_cast<unsigned>(blocks), kGlobalThreads, 0, stream>>>(job);
+    return cudaGetLastError();
+  }
+  if (vec == 4) return launch_tiles<kLabels, 4>(job, tiles, chunks, threads, device, stream);
+  return launch_tiles<kLabels, 1>(job, tiles, chunks, threads, device, stream);
+}
+
 }  // namespace
 
-// preds: (n, c) float32, target: (n, c) int32 (1 = positive), both
-// contiguous. out: 2 * c * num_bins + 1 float32, zero-filled: pos_hist
-// (c, num_bins), then neg_hist (c, num_bins), then the clipped count. lo, hi
-// and span = hi - lo are the caller's float32 roundings. Returns
-// cudaGetLastError() after the launch.
-extern "C" int label_score_histograms_launch(const void* preds, const void* target, int64_t n, int64_t c,
-                                             int num_bins, float lo, float hi, float span, void* out,
-                                             void* stream) {
-  if (n <= 0 || c <= 0) return 0;
-  if (num_bins < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const Grid g{lo, hi, span, static_cast<float>(num_bins), static_cast<float>(num_bins - 1), num_bins};
-  const int64_t total = n * c;
-  const float* x = static_cast<const float*>(preds);
-  const int* t = static_cast<const int*>(target);
-  float* hist = static_cast<float*>(out);
-  float* clipped = hist + 2 * c * num_bins;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t shared_bytes = 2 * c * num_bins * static_cast<int64_t>(sizeof(unsigned int));
-  if (shared_bytes <= kSharedBytes) {
-    int64_t blocks = ceil_div(total, kScoresPerSharedBlock);
-    if (blocks > kMaxSharedBlocks) blocks = kMaxSharedBlocks;
-    hist_shared_kernel<<<static_cast<unsigned>(blocks), kThreads, static_cast<size_t>(shared_bytes), st>>>(
-        x, t, total, static_cast<int>(c), g, hist, clipped);
-  } else {
-    int64_t blocks = ceil_div(total, kThreads);
-    if (blocks > kMaxGlobalBlocks) blocks = kMaxGlobalBlocks;
-    hist_global_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(x, t, total, c, g, hist, clipped);
+// preds: (n, c) float32, contiguous. labels, by label_form: 0, (n, c) int32,
+// contiguous, 1 = positive; 4 or 8, (n,) int32 or int64 class ids, positive
+// where the id equals the column. pos, neg: (c, num_bins) float32, clipped:
+// one float32, all uninitialised: the call writes every element. lo, hi and
+// span = hi - lo are the caller's float32 roundings. The plan, chosen by the
+// caller: mode 0 (store: chunks = 1), 1 (add) or 2 (global); k columns per
+// tile (2 * k * num_bins counts within the shared-memory budget), chunks of
+// rows (at most 65535), threads per block (a multiple of 32, at most 1024),
+// vec 4 (c % 4 == 0, k % 4 == 0, preds and dense labels 16-byte aligned) or
+// 1. zero_form (add mode): 0 memsets, 1 a cooperative launch that fills
+// before a grid sync (tiles * chunks blocks must be co-resident); aggregate:
+// 1 sends one shared-memory add per distinct cell of a warp. Everything goes
+// to `stream` with `device` made current for the call. Returns the first
+// CUDA error of the call (0 if none).
+extern "C" int label_score_histograms_launch(const void* preds, const void* labels, int label_form, int n, int c,
+                                             int num_bins, float lo, float hi, float span, int mode, int k,
+                                             int chunks, int threads, int vec, int zero_form, int aggregate,
+                                             void* pos, void* neg, void* clipped, int device, void* stream) {
+  if (n < 0 || c < 0 || num_bins < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (mode != kGlobal && (k < 1 || chunks < 1 || chunks > 65535 || threads < 32 || threads > kMaxThreads ||
+                          threads % 32 != 0 || (mode == kStore && chunks != 1))) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (vec == 4) {
+    const uintptr_t address =
+        reinterpret_cast<uintptr_t>(preds) | (label_form == 0 ? reinterpret_cast<uintptr_t>(labels) : 0);
+    if (c % 4 != 0 || k % 4 != 0 || address % 16 != 0) return static_cast<int>(cudaErrorMisalignedAddress);
+  } else if (vec != 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return static_cast<int>(scope.error());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (c == 0) return static_cast<int>(cudaMemsetAsync(clipped, 0, sizeof(float), st));
+  Job job;
+  job.x = static_cast<const float*>(preds);
+  job.labels = labels;
+  job.n = n;
+  job.c = c;
+  job.g = Grid{lo, hi, span, static_cast<float>(num_bins), static_cast<float>(num_bins - 1), num_bins};
+  job.k = k;
+  job.rows_per_chunk = mode == kGlobal ? n : static_cast<int>(ceil_div(n > 0 ? n : 1, chunks));
+  job.mode = mode;
+  job.zero_form = zero_form;
+  job.aggregate = aggregate;
+  job.pos = static_cast<float*>(pos);
+  job.neg = static_cast<float*>(neg);
+  job.clipped = static_cast<float*>(clipped);
+  const int tiles = mode == kGlobal ? 0 : static_cast<int>(ceil_div(c, k));
+  switch (label_form) {
+    case 0: return static_cast<int>(launch<kDense>(job, tiles, chunks, threads, vec, device, st));
+    case 4: return static_cast<int>(launch<kIds32>(job, tiles, chunks, threads, vec, device, st));
+    case 8: return static_cast<int>(launch<kIds64>(job, tiles, chunks, threads, vec, device, st));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

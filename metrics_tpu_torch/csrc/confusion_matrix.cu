@@ -21,6 +21,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "device_scope.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -80,10 +82,14 @@ int launch(const void* preds, const void* target, int64_t n, int c, void* out, c
 }  // namespace
 
 // preds, target: (n,) int32 (index_bytes=4) or int64 (index_bytes=8),
-// contiguous. out: (c, c) int32, zero-filled. Returns cudaGetLastError()
-// after the launch.
+// contiguous. out: (c, c) int32, zero-filled. The launch goes to `stream` with
+// `device` made current for the call. Returns the first CUDA error of the
+// call (0 if none).
 extern "C" int confmat_counts_launch(const void* preds, const void* target, int64_t n, int c, int index_bytes,
-                                     void* out, void* stream) {
+                                     void* out, int device, void* stream) {
+  if (n <= 0 || c <= 0) return 0;
+  DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return static_cast<int>(scope.error());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (index_bytes == 8) return launch<int64_t>(preds, target, n, c, out, s);
   if (index_bytes == 4) return launch<int32_t>(preds, target, n, c, out, s);

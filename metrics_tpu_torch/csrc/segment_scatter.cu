@@ -60,11 +60,12 @@
 #include <cuda_runtime.h>
 #include <limits>
 
+#include "device_scope.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kItemsPerThread = 8;
-constexpr int kMaxDevices = 64;
 
 enum Op { kAdd = 0, kMax = 1, kMin = 2 };
 
@@ -194,27 +195,6 @@ cudaError_t grid_limits(int device, int* sms, int* max_blocks) {
   return cudaSuccess;
 }
 
-// Makes `device` current for the call's lifetime and restores the old one.
-class DeviceScope {
- public:
-  explicit DeviceScope(int device) {
-    err_ = cudaGetDevice(&old_);
-    if (err_ == cudaSuccess && old_ != device) {
-      err_ = cudaSetDevice(device);
-      restore_ = err_ == cudaSuccess;
-    }
-  }
-  ~DeviceScope() {
-    if (restore_) cudaSetDevice(old_);
-  }
-  cudaError_t error() const { return err_; }
-
- private:
-  int old_ = 0;
-  bool restore_ = false;
-  cudaError_t err_;
-};
-
 template <typename Index, int V, int kOp>
 int launch(const void* rows_, const void* ids_, int r, int d, int s, void* out_, void* counts_, float value,
            int device, cudaStream_t stream) {
@@ -269,7 +249,6 @@ extern "C" int segment_scatter_launch(const void* rows, const void* ids, int r, 
   if ((reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(counts)) % 16 != 0) {
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
-  if (device < 0 || device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
   DeviceScope scope(device);
   if (scope.error() != cudaSuccess) return static_cast<int>(scope.error());
   cudaStream_t st = static_cast<cudaStream_t>(stream);

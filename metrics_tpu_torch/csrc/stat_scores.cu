@@ -19,6 +19,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "device_scope.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -52,10 +54,13 @@ __global__ void stat_scores_counts_kernel(const int* __restrict__ preds, const i
 }  // namespace
 
 // preds, target: (n, c) int32, contiguous. out: (4, c) int32, zero-filled,
-// rows tp, fp, tn, fn. Returns cudaGetLastError() after the launch.
+// rows tp, fp, tn, fn. The launch goes to `stream` with `device` made current
+// for the call. Returns the first CUDA error of the call (0 if none).
 extern "C" int stat_scores_counts_launch(const void* preds, const void* target, int64_t n, int64_t c, void* out,
-                                         void* stream) {
+                                         int device, void* stream) {
   if (n <= 0 || c <= 0) return 0;
+  DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return static_cast<int>(scope.error());
   const int64_t col_blocks = (c + kThreads - 1) / kThreads;
   int64_t chunks = kTargetBlocks / col_blocks;
   if (chunks < 1) chunks = 1;

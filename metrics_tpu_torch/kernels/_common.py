@@ -17,8 +17,11 @@ none), which :func:`check_launch` raises.
 A wrapper's host time is most of a kernel call at the paths' sizes, so the
 pieces every wrapper goes through are cheap after the first call: the
 device's capability is asked once (:func:`require_capability`), a resolved
-entry is read without a lock (:func:`kernel_function`), and the stream is
-read as its raw handle (:func:`current_stream_handle`).
+device is taken as it is (:func:`kernel_device`), a resolved entry is read
+without a lock (:func:`kernel_function`), and the stream is read as its raw
+handle (:func:`current_stream_handle`). Each C entry takes the device index
+and makes that device current itself (``csrc/device_scope.cuh``), so no
+wrapper enters a ``torch.cuda.device`` context.
 """
 import ctypes
 import hashlib
@@ -27,9 +30,11 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Set, Tuple
+from typing import Dict, List, Optional, Sequence, Set, Tuple, Union
 
 import torch
+
+from metrics_tpu_torch.utilities.data import resolve_device
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -62,6 +67,28 @@ def require_capability(device: torch.device) -> None:
         )
     if device.index is not None:
         _CAPABLE_DEVICES.add(device.index)
+
+
+def kernel_device(device: Union[str, torch.device]) -> torch.device:
+    """``device`` resolved: a ``torch.device`` that names its index, as the
+    metrics pass theirs, is taken as it is (without a card no tensor lies on
+    a CUDA device, so the wrappers' device check still raises); anything else
+    goes through :func:`~metrics_tpu_torch.utilities.data.resolve_device`."""
+    if type(device) is torch.device and device.index is not None:
+        return device
+    return resolve_device(device)
+
+
+#: ``{device index: streaming multiprocessors}``, asked once per device
+_SM_COUNTS: Dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """How many streaming multiprocessors the CUDA ``device`` has (132 on an H100 SXM)."""
+    count = _SM_COUNTS.get(device.index)
+    if count is None:
+        count = _SM_COUNTS[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return count
 
 
 def current_stream_handle(device: torch.device) -> int:

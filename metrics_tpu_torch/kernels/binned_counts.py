@@ -35,30 +35,115 @@ fewer than 2^24 scores into one bin.
 compiler-fused compare (no Pallas kernel backs it).
 """
 import ctypes
-from typing import Tuple, Union
+from functools import lru_cache
+from typing import NamedTuple, Tuple, Union
 
 import torch
 
 from metrics_tpu_torch.kernels._common import (
     check_launch,
     current_stream_handle,
+    kernel_device,
     kernel_function,
     note_kernel_dispatch,
     require_capability,
+    sm_count,
 )
-from metrics_tpu_torch.utilities.data import Tensor, _is_batched, check_device, resolve_device
+from metrics_tpu_torch.utilities.data import Tensor, _is_batched, check_device, to_onehot
 
 _OP = "label_score_histograms"
+_ENTRY = "label_score_histograms_launch"
 _ARGTYPES = (
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-    ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_float, ctypes.c_float, ctypes.c_float,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
 )
 #: largest cell count 2 * C * num_bins the wrapper takes (num_bins reaches the kernel as a 32-bit int)
 _MAX_CELLS = 2**31 - 1
+#: the kernel counts rows in 32 bits
+_MAX_ROWS = 2**31 - 1
 #: the smallest normal float32; scores of smaller magnitude count as zero
 _TINY = torch.finfo(torch.float32).tiny
 
+#: the kernel's modes (the C entry's ``mode`` argument)
+STORE, ADD, GLOBAL = 0, 1, 2
+#: the C entry's ``label_form`` argument: dense (N, C) int32 labels
+_DENSE = 0
+#: shared memory a block's two count tiles may take: the 227 KB a block of an
+#: H100 can opt into, less 1 KB for the kernel's static shared memory
+SHARED_BUDGET = 227 * 1024 - 1024
+_THREADS = 1024
+#: the most scores of its tile one block walks alone before the rows are cut into chunks
+_ONE_CHUNK_ITEMS = 16 * _THREADS
+#: scores per block that the chunks of the add mode aim at
+_CHUNK_ITEMS = 8 * _THREADS
+_MAX_CHUNKS = 65535
+#: the C entry's ``zero_form`` (add mode: 0 memsets, 1 a cooperative launch) and ``aggregate`` arguments
+_ZERO_FORM, _AGGREGATE = 0, 0
+
 Histograms = Tuple[Tensor, Tensor, Tensor]
+
+
+class HistogramPlan(NamedTuple):
+    """How the B5 kernel cuts one call: ``tiles`` of ``k`` class columns times
+    ``chunks`` of ``rows_per_chunk`` rows, one block of ``threads`` each, whose
+    two count tiles take ``shared_bytes`` of shared memory."""
+
+    mode: int
+    k: int
+    tiles: int
+    chunks: int
+    rows_per_chunk: int
+    threads: int
+    shared_bytes: int
+
+
+def tile_shared_bytes(k: int, num_bins: int) -> int:
+    """Bytes of the two ``(k, num_bins)`` uint32 count tiles, each padded to 16 bytes."""
+    return 2 * ((k * num_bins + 3) // 4 * 4) * 4
+
+
+@lru_cache(maxsize=256)
+def histogram_plan(n: int, c: int, num_bins: int, sms: int = 132, budget: int = SHARED_BUDGET) -> HistogramPlan:
+    """The B5 kernel's plan for ``(n, c)`` scores on ``num_bins`` bins, on a
+    card of ``sms`` multiprocessors with ``budget`` bytes of shared memory a block.
+
+    * The tile width ``k``: as many columns as fit (``2 * k * num_bins * 4``
+      bytes within ``budget``), cut down until the tiles fill the card, and
+      a multiple of 8 where ``c`` and the budget allow, so that a row's ``k``
+      floats are whole 32-byte sectors.
+    * ``STORE`` with one chunk where the tiles fill at least half the card
+      or one block walks its tile's scores alone quickly enough: every block
+      owns its output tile and stores it.
+    * ``ADD`` otherwise (few columns, many rows): the rows are cut into
+      chunks until the grid fills the card, and the blocks add to the output.
+    * ``GLOBAL`` where not even one column fits (``num_bins`` above about
+      28,000 at the default budget): no shared memory, no tiles.
+    """
+    if tile_shared_bytes(1, num_bins) > budget:
+        return HistogramPlan(GLOBAL, 0, 0, 0, n, 0, 0)
+    fits = budget // tile_shared_bytes(1, num_bins)
+    while tile_shared_bytes(fits, num_bins) > budget:  # the padding of an odd tile
+        fits -= 1
+    k = min(c, fits)
+    if c >= 8 and fits >= 8:
+        k = min(max(c // sms // 8 * 8, 8), fits // 8 * 8)
+    tiles = -(-c // k)
+    chunks = 1
+    if 2 * tiles < sms and n * k > _ONE_CHUNK_ITEMS:
+        chunks = min(sms // tiles, -(-n * k // _CHUNK_ITEMS), _MAX_CHUNKS)
+    rows_per_chunk = -(-max(n, 1) // chunks)
+    chunks = -(-max(n, 1) // rows_per_chunk)
+    return HistogramPlan(STORE if chunks == 1 else ADD, k, tiles, chunks, rows_per_chunk, _THREADS,
+                         tile_shared_bytes(k, num_bins))
+
+
+def load_width(c: int, k: int, address: int) -> int:
+    """Scores per load of the B5 kernel: 4 (16 bytes) where the row stride
+    ``c`` and the tile width ``k`` are multiples of 4 and ``address`` (the
+    bitwise OR of the pointers the loads touch) is 16-byte aligned, else 1."""
+    return 4 if c % 4 == 0 and k % 4 == 0 and address % 16 == 0 else 1
 
 
 def _bin_index(x: Tensor, num_bins: int, lo: float, hi: float) -> Tensor:
@@ -87,16 +172,65 @@ def label_score_histograms_torch(
     return hist[:cells].reshape(c, num_bins), hist[cells:].reshape(c, num_bins), clipped
 
 
-def _check(preds: Tensor, target: Tensor, num_bins: int, lo: float, hi: float, device: torch.device) -> None:
-    check_device(device, preds, target)
-    if preds.ndim != 2 or preds.shape != target.shape:
-        raise ValueError(f"{_OP} takes preds and target of one shape (N, C), got {tuple(preds.shape)} and"
-                         f" {tuple(target.shape)}")
+def _onevsrest_torch(preds: Tensor, labels: Tensor, num_bins: int, lo: float = 0.0, hi: float = 1.0) -> Histograms:
+    """The plain version of the class-id label form: the dense one-hot of
+    the ids (an id outside ``[0, C)`` gives an all-negative row), then
+    :func:`label_score_histograms_torch`."""
+    onehot = to_onehot(labels.to(torch.int32), num_classes=preds.shape[-1])
+    return label_score_histograms_torch(preds, onehot, num_bins, lo, hi)
+
+
+def _check(preds: Tensor, labels: Tensor, dense: bool, num_bins: int, lo: float, hi: float,
+           device: torch.device) -> None:
+    # attribute reads first; the device comparison last
+    if dense:
+        if preds.ndim != 2 or preds.shape != labels.shape:
+            raise ValueError(f"{_OP} takes preds and target of one shape (N, C), got {tuple(preds.shape)} and"
+                             f" {tuple(labels.shape)}")
+    elif preds.ndim != 2 or labels.ndim != 1 or labels.shape[0] != preds.shape[0]:
+        raise ValueError(f"{_OP} takes preds of shape (N, C) and class ids of shape (N,), got {tuple(preds.shape)}"
+                         f" and {tuple(labels.shape)}")
     if not (isinstance(num_bins, int) and num_bins >= 1 and 2 * preds.shape[1] * num_bins <= _MAX_CELLS):
         raise ValueError(f"{_OP} takes an integer num_bins >= 1 with 2 * C * num_bins <= {_MAX_CELLS}, got"
                          f" {num_bins} at C = {preds.shape[1]}")
+    if preds.shape[0] > _MAX_ROWS:
+        raise ValueError(f"{_OP} takes at most {_MAX_ROWS} rows, got {preds.shape[0]}")
     if not lo < hi:
         raise ValueError(f"{_OP} needs lo < hi, got {lo} and {hi}")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{_OP} runs on a CUDA or the CPU device, not on {device}")
+    check_device(device, preds, labels)
+
+
+def _histograms_cuda(preds: Tensor, labels: Tensor, dense: bool, num_bins: int, lo: float, hi: float,
+                     device: torch.device) -> Histograms:
+    """One call into the C library, which counts into three uninitialised
+    outputs (and writes every element of them) on the current stream of
+    ``device``. Inputs the kernel reads as they are pass untouched."""
+    x = preds if preds.dtype == torch.float32 and preds.is_contiguous() else preds.to(torch.float32).contiguous()
+    if dense:
+        t = labels if labels.dtype == torch.int32 else (labels == 1).to(torch.int32)
+        form = _DENSE
+    else:
+        t = labels if labels.dtype in (torch.int32, torch.int64) else labels.to(torch.int32)
+        form = t.element_size()
+    if not t.is_contiguous():
+        t = t.contiguous()
+    n, c = x.shape
+    plan = histogram_plan(n, c, num_bins, sm_count(device))
+    # the shapes as separate arguments, one tensor per output: cheaper on the host than views of one buffer
+    pos = torch.empty(c, num_bins, dtype=torch.float32, device=device)
+    neg = torch.empty(c, num_bins, dtype=torch.float32, device=device)
+    clipped = torch.empty((), dtype=torch.float32, device=device)
+    x_ptr, t_ptr = x.data_ptr(), t.data_ptr()
+    vec = load_width(c, plan.k, x_ptr | t_ptr if dense else x_ptr)
+    err = kernel_function(_ENTRY, _ARGTYPES)(
+        x_ptr, t_ptr, form, n, c, num_bins, lo, hi, hi - lo, plan.mode, plan.k, plan.chunks, plan.threads, vec,
+        _ZERO_FORM, _AGGREGATE, pos.data_ptr(), neg.data_ptr(), clipped.data_ptr(), device.index,
+        current_stream_handle(device))
+    check_launch(_OP, err)
+    note_kernel_dispatch(_OP, "cuda")
+    return pos, neg, clipped
 
 
 def label_score_histograms_cuda(
@@ -113,28 +247,13 @@ def label_score_histograms_cuda(
     other than int32 turned into ``target == 1`` as int32); on the CPU the
     plain version does. Raises on inputs the kernel does not take.
     """
-    device = resolve_device(device)
-    _check(preds, target, num_bins, lo, hi, device)
+    device = kernel_device(device)
+    _check(preds, target, True, num_bins, lo, hi, device)
     if device.type == "cpu":
         note_kernel_dispatch(_OP, "torch")
         return label_score_histograms_torch(preds, target, num_bins, lo, hi)
-    if device.type != "cuda":
-        raise ValueError(f"{_OP} runs on a CUDA or the CPU device, not on {device}")
     require_capability(device)
-    x = preds.to(torch.float32).contiguous()
-    t = (target if target.dtype == torch.int32 else (target == 1).to(torch.int32)).contiguous()
-    n, c = x.shape
-    cells = c * num_bins
-    # one zero fill for both histograms and the clipped count
-    out = torch.zeros(2 * cells + 1, dtype=torch.float32, device=device)
-    if n and c:
-        launch = kernel_function("label_score_histograms_launch", _ARGTYPES)
-        with torch.cuda.device(device):
-            stream = current_stream_handle(device)
-            err = launch(x.data_ptr(), t.data_ptr(), n, c, num_bins, lo, hi, hi - lo, out.data_ptr(), stream)
-            check_launch(_OP, err)
-        note_kernel_dispatch(_OP, "cuda")
-    return out[:cells].view(c, num_bins), out[cells:2 * cells].view(c, num_bins), out[2 * cells]
+    return _histograms_cuda(preds, target, True, num_bins, lo, hi, device)
 
 
 def label_score_histograms(
@@ -150,6 +269,27 @@ def label_score_histograms(
     if _is_batched(preds, target):
         return label_score_histograms_torch(preds, target, num_bins, lo, hi)
     return label_score_histograms_cuda(preds, target, num_bins, lo, hi, device=preds.device)
+
+
+def _label_score_histograms_onevsrest(
+    preds: Tensor, labels: Tensor, num_bins: int, lo: float = 0.0, hi: float = 1.0
+) -> Histograms:
+    """:func:`label_score_histograms` of ``(N, C)`` class scores against the
+    one-hot of ``(N,)`` integer class ids (one class against the rest),
+    without building the one-hot on the card: kernel B5 takes the ids and
+    counts a score as positive where its row's id equals its column. On the
+    CPU and inside ``torch.func.vmap`` the plain version builds the one-hot.
+    Equal to ``label_score_histograms(preds, to_onehot(labels.to(int32), C))``
+    for every id, one outside ``[0, C)`` included (an all-negative row)."""
+    if _is_batched(preds, labels):
+        return _onevsrest_torch(preds, labels, num_bins, lo, hi)
+    device = preds.device
+    _check(preds, labels, False, num_bins, lo, hi, device)
+    if device.type == "cpu":
+        note_kernel_dispatch(_OP, "torch")
+        return _onevsrest_torch(preds, labels, num_bins, lo, hi)
+    require_capability(device)
+    return _histograms_cuda(preds, labels, False, num_bins, lo, hi, device)
 
 
 def binned_tp_fp_fn(preds: Tensor, target: Tensor, thresholds: Tensor) -> Tuple[Tensor, Tensor, Tensor]:

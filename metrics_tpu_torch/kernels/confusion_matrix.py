@@ -24,15 +24,17 @@ import torch
 from metrics_tpu_torch.kernels._common import (
     check_launch,
     current_stream_handle,
+    kernel_device,
     kernel_function,
     note_kernel_dispatch,
     require_capability,
 )
-from metrics_tpu_torch.utilities.data import Tensor, check_device, resolve_device
+from metrics_tpu_torch.utilities.data import Tensor, check_device
 
 _OP = "confmat_counts"
 _ARGTYPES = (
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_void_p,
 )
 #: largest C whose C*C flat index fits the kernel's int32 output indexing
 _MAX_CLASSES = 46340
@@ -57,7 +59,7 @@ def confmat_counts_cuda(
     On a CUDA device the kernel counts; on the CPU the plain version does.
     Raises on inputs the kernel does not take.
     """
-    device = resolve_device(device)
+    device = kernel_device(device)
     check_device(device, preds, target)
     if preds.ndim != 1 or preds.shape != target.shape:
         raise ValueError(f"expected preds and target of one shape (N,), got {tuple(preds.shape)} and"
@@ -78,12 +80,10 @@ def confmat_counts_cuda(
     out = torch.zeros((num_classes, num_classes), dtype=torch.int32, device=device)
     n = preds.shape[0]
     if n:
-        launch = kernel_function("confmat_counts_launch", _ARGTYPES)
-        with torch.cuda.device(device):
-            stream = current_stream_handle(device)
-            err = launch(
-                preds.data_ptr(), target.data_ptr(), n, num_classes, preds.element_size(), out.data_ptr(), stream
-            )
-            check_launch(_OP, err)
+        # the C entry makes the device current for its launch
+        err = kernel_function("confmat_counts_launch", _ARGTYPES)(
+            preds.data_ptr(), target.data_ptr(), n, num_classes, preds.element_size(), out.data_ptr(), device.index,
+            current_stream_handle(device))
+        check_launch(_OP, err)
         note_kernel_dispatch(_OP, "cuda")
     return out

@@ -38,11 +38,12 @@ import torch
 from metrics_tpu_torch.kernels._common import (
     check_launch,
     current_stream_handle,
+    kernel_device,
     kernel_function,
     note_kernel_dispatch,
     require_capability,
 )
-from metrics_tpu_torch.utilities.data import Tensor, check_device, resolve_device
+from metrics_tpu_torch.utilities.data import Tensor, check_device
 
 _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -126,16 +127,6 @@ def vector_width(d: int, address: int) -> int:
     return 1
 
 
-def _kernel_device(device: Union[str, torch.device]) -> torch.device:
-    """``device`` resolved: a ``torch.device`` that names its index, as the
-    keyed metrics pass theirs, is taken as it is (without a card no tensor
-    lies on a CUDA device, so the device check still raises); anything else
-    goes through :func:`resolve_device`."""
-    if type(device) is torch.device and device.index is not None:
-        return device
-    return resolve_device(device)
-
-
 def _check(op: str, rows: Tensor, segment_ids: Tensor, num_segments: int, device: torch.device) -> None:
     # attribute reads first; method calls and the device comparison last
     if rows.ndim != 2 or segment_ids.ndim != 1 or segment_ids.shape[0] != rows.shape[0]:
@@ -190,7 +181,7 @@ def segment_scatter_add_cuda(
     take.
     """
     op = "segment_scatter_add"
-    device = _kernel_device(device)
+    device = kernel_device(device)
     _check(op, rows, segment_ids, num_segments, device)
     if device.type == "cpu":
         note_kernel_dispatch(op, "torch")
@@ -202,7 +193,7 @@ def _segment_scatter_extremal_cuda(
     rows: Tensor, segment_ids: Tensor, num_segments: int, op: str, device: Union[str, torch.device]
 ) -> Tuple[Tensor, Tensor]:
     name = f"segment_scatter_{op}"
-    device = _kernel_device(device)
+    device = kernel_device(device)
     _check(name, rows, segment_ids, num_segments, device)
     if device.type == "cpu":
         note_kernel_dispatch(name, "torch")

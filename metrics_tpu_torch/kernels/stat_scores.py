@@ -20,14 +20,17 @@ import torch
 from metrics_tpu_torch.kernels._common import (
     check_launch,
     current_stream_handle,
+    kernel_device,
     kernel_function,
     note_kernel_dispatch,
     require_capability,
 )
-from metrics_tpu_torch.utilities.data import Tensor, check_device, resolve_device
+from metrics_tpu_torch.utilities.data import Tensor, check_device
 
 _OP = "stat_scores_counts"
-_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p)
+_ARGTYPES = (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p
+)
 
 
 def stat_scores_counts_torch(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
@@ -52,7 +55,7 @@ def stat_scores_counts_cuda(
     On a CUDA device the kernel counts; on the CPU the plain version does.
     Raises on inputs the kernel does not take.
     """
-    device = resolve_device(device)
+    device = kernel_device(device)
     check_device(device, preds, target)
     if preds.ndim != 2 or preds.shape != target.shape:
         raise ValueError(f"expected preds and target of one shape (N, C), got {tuple(preds.shape)} and"
@@ -71,9 +74,9 @@ def stat_scores_counts_cuda(
     n, c = preds.shape
     out = torch.zeros((4, c), dtype=torch.int32, device=device)
     if n and c:
-        launch = kernel_function("stat_scores_counts_launch", _ARGTYPES)
-        with torch.cuda.device(device):
-            stream = current_stream_handle(device)
-            check_launch(_OP, launch(preds.data_ptr(), target.data_ptr(), n, c, out.data_ptr(), stream))
+        # the C entry makes the device current for its launch
+        err = kernel_function("stat_scores_counts_launch", _ARGTYPES)(
+            preds.data_ptr(), target.data_ptr(), n, c, out.data_ptr(), device.index, current_stream_handle(device))
+        check_launch(_OP, err)
         note_kernel_dispatch(_OP, "cuda")
     return out[0], out[1], out[2], out[3]

@@ -6,8 +6,9 @@ back ``sketched=True`` in ``AUROC``, ``ROC``, ``PrecisionRecallCurve`` and
 ``AveragePrecision`` (fixed ``(C, num_bins)`` ``pos_hist``/``neg_hist``
 float32 ``"sum"`` states plus a scalar ``sketch_clipped`` counter) and
 canonicalizes each batch (binary, multiclass one-vs-rest, multilabel) into
-one call of :func:`~metrics_tpu_torch.kernels.binned_counts.label_score_histograms`,
-which on the card launches kernel B5.
+one call of :func:`~metrics_tpu_torch.kernels.binned_counts.label_score_histograms`
+(the multiclass case hands over its ``(N,)`` class ids in place of their
+one-hot), which on the card launches kernel B5.
 
 Because every sketch state is a fixed-shape ``"sum"`` tensor, the sketched
 metrics take the fused forward and can be keyed per tenant
@@ -20,8 +21,8 @@ from typing import Optional, Tuple
 import torch
 
 from metrics_tpu_torch.functional.classification.auroc import _auroc_update
-from metrics_tpu_torch.kernels.binned_counts import label_score_histograms
-from metrics_tpu_torch.utilities.data import Tensor, _is_batched, to_onehot
+from metrics_tpu_torch.kernels.binned_counts import _label_score_histograms_onevsrest, label_score_histograms
+from metrics_tpu_torch.utilities.data import Tensor, _is_batched
 from metrics_tpu_torch.utilities.enums import DataType
 
 __all__ = ["HistogramSketchMixin"]
@@ -88,6 +89,8 @@ class HistogramSketchMixin:
         """Accumulate one batch into the label histograms: binary, multiclass
         one-vs-rest or multilabel inputs over the fixed score grid."""
         preds, target, mode = _auroc_update(preds, target)
+        lo, hi = self._sketch_range
+        histograms = label_score_histograms
         if self._sketch_multilabel:
             if mode != DataType.MULTILABEL or preds.ndim != 2 or preds.shape[1] != self.num_classes:
                 raise ValueError(
@@ -101,15 +104,16 @@ class HistogramSketchMixin:
                     f"`sketched` mode with num_classes={self.num_classes} expects (N, C) class scores"
                     f" and (N,) labels, got mode {mode} with preds shape {tuple(preds.shape)}"
                 )
-            target = to_onehot(target.to(torch.int32), num_classes=self.num_classes)
+            # one class against the rest: the kernel takes the (N,) class ids
+            # and builds no (N, C) one-hot on the card
+            histograms = _label_score_histograms_onevsrest
         else:
             if mode != DataType.BINARY:
                 raise ValueError(f"`sketched` mode supports binary inputs only, got mode {mode}")
             pos_label = 1 if getattr(self, "pos_label", None) is None else self.pos_label
             preds = preds.reshape(-1, 1)
             target = (target == pos_label).to(torch.int32).reshape(-1, 1)
-        lo, hi = self._sketch_range
-        pos, neg, clipped = label_score_histograms(preds, target, self._sketch_bins, lo, hi)
+        pos, neg, clipped = histograms(preds, target, self._sketch_bins, lo, hi)
         self.pos_hist = self.pos_hist + pos
         self.neg_hist = self.neg_hist + neg
         self.sketch_clipped = self.sketch_clipped + clipped

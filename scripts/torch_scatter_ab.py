@@ -41,15 +41,16 @@ BLOCKS, BLOCK = 20, 100
 ROUNDS = 3
 
 
-def load(checkout: str) -> dict:
-    """Import ``checkout``'s package apart from any other copy: its modules
-    leave ``sys.modules`` once loaded (the package imports nothing lazily),
-    so another checkout's copy can load beside it."""
+def load(checkout: str, names=("", ".kernels._common", ".kernels.segment_scatter")) -> dict:
+    """Import ``checkout``'s package (the modules ``names``, relative to it)
+    apart from any other copy: its modules leave ``sys.modules`` once loaded
+    (the package imports nothing lazily), so another checkout's copy can load
+    beside it."""
     ours = [n for n in sys.modules if n == PKG or n.startswith(PKG + ".")]
     saved = {n: sys.modules.pop(n) for n in ours}
     sys.path.insert(0, checkout)
     try:
-        return {n: importlib.import_module(f"{PKG}{n}") for n in ("", ".kernels._common", ".kernels.segment_scatter")}
+        return {n: importlib.import_module(f"{PKG}{n}") for n in names}
     finally:
         sys.path.remove(checkout)
         for n in [n for n in sys.modules if n == PKG or n.startswith(PKG + ".")]:
