@@ -19,7 +19,12 @@ Phases, in order; any failure exits non-zero before the last line:
    plain version on the card divides by a device tensor, never by a Python
    scalar, whose CUDA division multiplies by the reciprocal), including at
    every bin edge and its float32 neighbours, and for NaN, +-inf and
-   subnormal scores. The segment scatters (B3, B4) are held at every
+   subnormal scores; at ragged last tiles (C = 7, 1001), one row, scores
+   that start 4 and 8 bytes into their buffer, many chunks times tiles
+   ((100000, 10)), a grid too wide for shared memory (B = 65536), all-equal
+   scores, and with the labels as one class id per row (int32 and int64,
+   ids outside [0, C) among them) against the one-hot of the ids.
+   The segment scatters (B3, B4) are held at every
    vector width B3 takes (D = 40, 8, 6, 4, 2, 1 at the keyed path's shapes,
    and ragged shapes), each with int64 and int32 ids and with rows 16-, 4-
    and 8-byte aligned (views that start one or two floats into a buffer).
@@ -65,7 +70,12 @@ Phases, in order; any failure exits non-zero before the last line:
    alone (kernels and memsets, by the profiler), which leaves out the
    host's launch cost. For B3 and B4 also the library call with its own
    output and index (``library_alloc_ms``), and the host time of each piece
-   of their wrappers (1000 calls back to back, no synchronisation).
+   of their wrappers (1000 calls back to back, no synchronisation); the
+   same for B5's wrapper, beside the pieces its earlier design paid. B5 is
+   timed with dense labels and with class ids at the curve path's shape and
+   at the binary stream's; the device time of B1, B2 and B5 is split by
+   device operation (fill, memset, kernel), and an empty kernel's device
+   time is printed as the floor under the stream shape's byte bound.
 5. One JSON line ``{"kernels": [...]}``, the card line again, and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -73,6 +83,7 @@ With ``--record PATH`` the full record (every parity case, every forward's
 time, the profile, the timings) is also written to PATH as JSON.
 """
 import argparse
+import ctypes
 import json
 import os
 import statistics
@@ -179,6 +190,20 @@ def device_ms(fn, reps: int = REPS):
         torch.cuda.synchronize()
     total_us = _device_us(prof)
     return total_us / reps / 1e3 if total_us > 0 else None
+
+
+def device_split(fn, reps: int = REPS) -> dict:
+    """Device time (us per call of ``fn``) of each device operation, by its name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:70]: e.self_device_time_total / reps for e in _device_events(prof)}
 
 
 def bound(nbytes: int, nops: int) -> tuple:
@@ -323,6 +348,65 @@ def scatter_host_pieces(torch, dev, ids):
     ]
 
 
+def hist_host_pieces(torch, dev, scores, onehot, ids):
+    """The host-side pieces of the B5 wrapper at the curve path's shape
+    (scores (1024, 1000), 2048 bins), each timed alone by :func:`host_us`,
+    then the whole wrapper with dense labels and with class ids. The earlier
+    design's pieces (the zero fill, the views on return, the device context,
+    ``resolve_device``, the one-hot of the ids) are timed beside the pieces
+    that replace them."""
+    from metrics_tpu_torch.kernels import _common
+    from metrics_tpu_torch.kernels import binned_counts as bc
+    from metrics_tpu_torch.utilities.data import resolve_device, to_onehot
+
+    n, c = scores.shape
+    b, cells = NUM_BINS, c * NUM_BINS
+    plan = bc.histogram_plan(n, c, b, _common.sm_count(dev))
+    pos, neg = torch.empty(c, b, device=dev), torch.empty(c, b, device=dev)
+    clipped = torch.empty((), device=dev)
+    out = torch.empty(2 * cells + 1, device=dev)
+    launch = _common.kernel_function(bc._ENTRY, bc._ARGTYPES)
+    stream = _common.current_stream_handle(dev)
+    args = (scores.data_ptr(), onehot.data_ptr(), 0, n, c, b, 0.0, 1.0, 1.0, plan.mode, plan.k, plan.chunks,
+            plan.threads, 4, pos.data_ptr(), neg.data_ptr(), clipped.data_ptr(), dev.index, stream)
+
+    def device_context():
+        with torch.cuda.device(dev):
+            pass
+
+    return [
+        ("kernel_device (resolved device)", lambda: _common.kernel_device(dev)),
+        ("_check (dense labels)", lambda: bc._check(scores, onehot, True, b, 0.0, 1.0, dev)),
+        ("input qualifies: dtype and is_contiguous reads", lambda: (scores.dtype == torch.float32
+                                                                     and scores.is_contiguous()
+                                                                     and onehot.is_contiguous())),
+        ("histogram_plan (cached) + sm_count", lambda: bc.histogram_plan(n, c, b, _common.sm_count(dev))),
+        ("torch.empty(C, B) x2 + torch.empty(())", lambda: (torch.empty(c, b, dtype=torch.float32, device=dev),
+                                                            torch.empty(c, b, dtype=torch.float32, device=dev),
+                                                            torch.empty((), dtype=torch.float32, device=dev))),
+        ("torch.empty(2, C, B).unbind(0) + torch.empty(())", lambda: (
+            torch.empty(2, c, b, dtype=torch.float32, device=dev).unbind(0),
+            torch.empty((), dtype=torch.float32, device=dev))),
+        ("data_ptr x5 + load_width", lambda: (bc.load_width(c, plan.k, scores.data_ptr() | onehot.data_ptr()),
+                                              pos.data_ptr(), neg.data_ptr(), clipped.data_ptr())),
+        ("ctypes call, C = 0 (one 4-byte memset in C)", lambda: launch(*args[:4], 0, *args[5:])),
+        ("ctypes call (device scope, 4-byte memset, one launch)", lambda: launch(*args)),
+        ("launch counter", lambda: _common.note_kernel_dispatch("host_pieces_probe", "cuda")),
+        ("label_score_histograms_cuda, dense labels, whole", lambda: bc.label_score_histograms_cuda(
+            scores, onehot, b, device=dev)),
+        ("_label_score_histograms_onevsrest, class ids, whole", lambda: bc._label_score_histograms_onevsrest(
+            scores, ids, b)),
+        ("earlier: resolve_device", lambda: resolve_device(dev)),
+        ("earlier: .to(float32).contiguous() on inputs that qualify", lambda: (scores.to(torch.float32).contiguous(),
+                                                                                 onehot.contiguous())),
+        ("earlier: torch.zeros(2 * C * B + 1)", lambda: torch.zeros(2 * cells + 1, dtype=torch.float32, device=dev)),
+        ("earlier: torch.cuda.device context", device_context),
+        ("earlier: three views of one buffer on return", lambda: (out[:cells].view(c, b),
+                                                                   out[cells:2 * cells].view(c, b), out[2 * cells])),
+        ("earlier: to_onehot(ids.to(int32), C) before the dense call", lambda: to_onehot(ids.to(torch.int32), c)),
+    ]
+
+
 def build_curves(M, device):
     kw = dict(num_classes=NUM_CLASSES, sketched=True, num_bins=NUM_BINS, compute_on_step=False, device=device)
     return M.MetricCollection({"AUROC": M.AUROC(**kw), "AveragePrecision": M.AveragePrecision(**kw)})
@@ -413,7 +497,13 @@ def main() -> int:
 
     import metrics_tpu_torch as M
     from metrics_tpu_torch.kernels import _common
-    from metrics_tpu_torch.kernels.binned_counts import label_score_histograms_cuda, label_score_histograms_torch
+    from metrics_tpu_torch.kernels.binned_counts import (
+        _label_score_histograms_onevsrest,
+        _onevsrest_torch,
+        histogram_plan,
+        label_score_histograms_cuda,
+        label_score_histograms_torch,
+    )
     from metrics_tpu_torch.kernels.confusion_matrix import confmat_counts_cuda, confmat_counts_torch
     from metrics_tpu_torch.kernels.segment_scatter import (
         segment_scatter_add_cuda,
@@ -559,18 +649,54 @@ def main() -> int:
                        torch.rand((BATCH, NUM_CLASSES), generator=gen, device=dev).bfloat16(),
                        torch.randint(0, 2, (BATCH, NUM_CLASSES), generator=gen, device=dev).float(), NUM_BINS, 0.0,
                        1.0))
+    # ragged last tiles, one row, many chunks times tiles, a grid too wide for
+    # shared memory, one hot bin; scores 4 and 8 bytes into their buffer
+    for n, c, b in [(300, 7, NUM_BINS), (64, 1001, NUM_BINS), (1, NUM_CLASSES, NUM_BINS), (1, 1, NUM_BINS),
+                    (100_000, 10, NUM_BINS), (16, 4, 65536)]:
+        scores = torch.rand((n, c), generator=gen, device=dev)
+        labels = torch.randint(0, 2, (n, c), generator=gen, device=dev, dtype=torch.int32)
+        hist_cases.append((f"N={n} C={c} B={b} uniform scores", scores, labels, b, 0.0, 1.0))
+    hist_cases.append((f"N={BATCH} C={NUM_CLASSES} B={NUM_BINS} all scores equal",
+                       torch.full((BATCH, NUM_CLASSES), 0.25, device=dev),
+                       torch.randint(0, 2, (BATCH, NUM_CLASSES), generator=gen, device=dev, dtype=torch.int32),
+                       NUM_BINS, 0.0, 1.0))
+    for offset in (1, 2):
+        buf = torch.rand(BATCH * NUM_CLASSES + offset, generator=gen, device=dev)
+        hist_cases.append((f"N={BATCH} C={NUM_CLASSES} B={NUM_BINS} scores {4 * offset} bytes into their buffer",
+                           buf[offset:].view(BATCH, NUM_CLASSES),
+                           torch.randint(0, 2, (BATCH, NUM_CLASSES), generator=gen, device=dev, dtype=torch.int32),
+                           NUM_BINS, 0.0, 1.0))
+    # the labels as one class id per row (ids outside [0, C) among them)
+    for n, c, b, ids_dtype in [(BATCH, NUM_CLASSES, NUM_BINS, torch.int64), (BATCH, NUM_CLASSES, NUM_BINS, torch.int32),
+                               (848, NUM_CLASSES, NUM_BINS, torch.int64), (64, 1001, NUM_BINS, torch.int32),
+                               (100_000, 10, NUM_BINS, torch.int64), (300, 7, NUM_BINS, torch.int32),
+                               (16, 4, 65536, torch.int64)]:
+        scores = torch.rand((n, c), generator=gen, device=dev) * 1.2 - 0.1
+        ids = torch.randint(-1, c + 1, (n,), generator=gen, device=dev).to(ids_dtype)
+        hist_cases.append((f"N={n} C={c} B={b} class ids {ids_dtype}, some outside [0, C)", scores, ids, b, 0.0, 1.0))
     for label, scores, labels, b, lo, hi in hist_cases:
-        got = label_score_histograms_cuda(scores, labels, b, lo, hi, device=dev)
+        if labels.ndim == 1:  # class ids against the one-hot of the ids
+            kernel, plain = _label_score_histograms_onevsrest, _onevsrest_torch
+        else:
+            kernel = (lambda *a: label_score_histograms_cuda(*a, device=dev))
+            plain = label_score_histograms_torch
+        before = _common.launch_count("label_score_histograms")
+        got = kernel(scores, labels, b, lo, hi)
         torch.cuda.synchronize()
-        want = label_score_histograms_torch(scores, labels, b, lo, hi)
-        want_cpu = label_score_histograms_torch(scores.cpu(), labels.cpu(), b, lo, hi)
+        if _common.launch_count("label_score_histograms") != before + 1:
+            fail(f"label_score_histograms did not count one launch: {label}")
+        want = plain(scores, labels, b, lo, hi)
+        want_cpu = plain(scores.cpu(), labels.cpu(), b, lo, hi)
         err = max(float((g - w).abs().max()) for g, w in zip(got, want))
         ok = trees_equal(torch, got, want_cpu) and all(torch.equal(g, w) for g, w in zip(got, want))
         errors["label_score_histograms"] = max(errors["label_score_histograms"], err)
         parity.append({"kernel": "label_score_histograms", "case": label, "equal": ok, "max_abs_err": err,
                        "clipped": float(got[2])})
+        plan = histogram_plan(scores.shape[0], scores.shape[1], b, _common.sm_count(dev))
+        mode = ("store", "add", "global")[plan.mode]
         print(f"[parity] label_score_histograms {label}: {'equal' if ok else 'DIFFERENT'} "
-              f"(kernel == plain on the card == plain on the CPU; clipped {float(got[2]):.0f})")
+              f"(kernel == plain on the card == plain on the CPU; clipped {float(got[2]):.0f}; {mode}, "
+              f"{plan.tiles} tiles of {plan.k} x {plan.chunks} chunks)")
         if not ok:
             fail(f"label_score_histograms differs from its plain version: {label}")
     record["parity"] = parity
@@ -919,22 +1045,36 @@ def main() -> int:
     # clipped count
     from metrics_tpu_torch.kernels.binned_counts import _bin_index
 
-    onehot = (batches[0][1].unsqueeze(1) == torch.arange(NUM_CLASSES, device=dev)).to(torch.int32)
-    for op, scores, labels in (("label_score_histograms", batches[0][0], onehot),
+    # "label_score_histograms" is the form the curve path launches: the
+    # (N,) class ids of the batch (it reads N * C * 4 bytes of labels less
+    # than the dense form, "_dense", which the multilabel case still takes)
+    class_ids = batches[0][1]
+    onehot = (class_ids.unsqueeze(1) == torch.arange(NUM_CLASSES, device=dev)).to(torch.int32)
+    for op, scores, labels in (("label_score_histograms", batches[0][0], class_ids),
+                               ("label_score_histograms_dense", batches[0][0], onehot),
                                ("label_score_histograms_c1", chunks[0][0].reshape(-1, 1),
                                 chunks[0][1].reshape(-1, 1).to(torch.int32))):
         n, c = scores.shape
         cells = c * NUM_BINS
-        flat = (torch.where(labels == 1, 0, cells) + torch.arange(c, device=dev) * NUM_BINS
+        dense = labels.ndim == 2
+        positive = labels == 1 if dense else labels.unsqueeze(1) == torch.arange(c, device=dev)
+        flat = (torch.where(positive, 0, cells) + torch.arange(c, device=dev) * NUM_BINS
                 + _bin_index(scores, NUM_BINS, 0.0, 1.0)).reshape(-1)
-        calls[op] = {
-            "ms": lambda scores=scores, labels=labels: label_score_histograms_cuda(scores, labels, NUM_BINS,
-                                                                                   device=dev),
-            "plain_ms": lambda scores=scores, labels=labels: label_score_histograms_torch(scores, labels, NUM_BINS),
-            "library_ms": lambda flat=flat, cells=cells: torch.bincount(flat, minlength=2 * cells),
-        }
-        timings[op] = {"bound": bound(2 * n * c * 4 + 2 * cells * 4 + 4, 4 * n * c),
-                       "shape": f"scores ({n}, {c}) float32, targets ({n}, {c}) int32, B={NUM_BINS}"}
+        if dense:
+            kernel = (lambda scores=scores, labels=labels: label_score_histograms_cuda(scores, labels, NUM_BINS,
+                                                                                       device=dev))
+            plain = (lambda scores=scores, labels=labels: label_score_histograms_torch(scores, labels, NUM_BINS))
+        else:
+            kernel = (lambda scores=scores, labels=labels: _label_score_histograms_onevsrest(scores, labels,
+                                                                                             NUM_BINS))
+            plain = (lambda scores=scores, labels=labels: _onevsrest_torch(scores, labels, NUM_BINS))
+        calls[op] = {"ms": kernel, "plain_ms": plain,
+                     "library_ms": lambda flat=flat, cells=cells: torch.bincount(flat, minlength=2 * cells)}
+        label_bytes = n * c * 4 if dense else n * labels.element_size()
+        timings[op] = {"bound": bound(n * c * 4 + label_bytes + 2 * cells * 4 + 4, 4 * n * c),
+                       "shape": f"scores ({n}, {c}) float32, "
+                                + (f"targets ({n}, {c}) int32" if dense else f"class ids ({n},) {labels.dtype}")
+                                + f", B={NUM_BINS}"}
     for op, fns in calls.items():
         t = timings[op]
         for key, fn in fns.items():
@@ -950,6 +1090,31 @@ def main() -> int:
               f"library {fmt(t['library_ms'])} ({fmt(t['library_device_ms'])}), "
               f"library with its own output {fmt(t.get('library_alloc_ms'))} "
               f"({fmt(t.get('library_alloc_device_ms'))}), bound {t['bound'][0]:.4f} ms ({t['bound'][1]})")
+    # the device time of B1, B2 and B5 by device operation: the wrappers'
+    # fills and memsets apart from their kernels
+    splits = {op: device_split(calls[op]["ms"]) for op in ("stat_scores_counts", "confmat_counts",
+                                                           "label_score_histograms", "label_score_histograms_dense",
+                                                           "label_score_histograms_c1")}
+    for op, split in splits.items():
+        parts = "; ".join(f"{us:.3f} us {name}" for name, us in sorted(split.items(), key=lambda kv: -kv[1]))
+        print(f"[time] {op} device time by operation, per call: {sum(split.values()):.3f} us = {parts}")
+        timings[op]["device_split_us"] = split
+    # the same scores 4 bytes into a buffer: the kernel then takes 4-byte loads in place of 16-byte ones
+    shifted = torch.empty(BATCH * NUM_CLASSES + 1, device=dev)[1:].view(BATCH, NUM_CLASSES).copy_(batches[0][0])
+    for op, labels, kernel in (("label_score_histograms", class_ids, _label_score_histograms_onevsrest),
+                               ("label_score_histograms_dense", onehot,
+                                lambda *a: label_score_histograms_cuda(*a, device=dev))):
+        split = device_split(lambda: kernel(shifted, labels, NUM_BINS))
+        print(f"[time] {op} with 4-byte loads (scores 4 bytes into their buffer), device time per call: "
+              f"{sum(split.values()):.3f} us against {sum(splits[op].values()):.3f} us with 16-byte loads")
+        timings[op]["device_scalar_loads_us"] = sum(split.values())
+    # the floor under B5's byte bound at the stream's shape: an empty kernel
+    empty = _common.kernel_function("empty_kernel_launch", (ctypes.c_int, ctypes.c_void_p))
+    raw_stream = _common.current_stream_handle(dev)
+    empty_device_ms = device_ms(lambda: _common.check_launch("empty_kernel", empty(dev.index, raw_stream)))
+    print(f"[time] an empty kernel's device time, the floor under label_score_histograms_c1's byte bound of "
+          f"{timings['label_score_histograms_c1']['bound'][0]:.5f} ms: {fmt(empty_device_ms)}")
+    record["empty_kernel_device_ms"] = empty_device_ms
     record["timings"] = timings
     # what the CUDA-event wrapper time counts when nothing runs between the
     # two events: a floor under every "ms" above
@@ -961,6 +1126,11 @@ def main() -> int:
     for name, us in pieces.items():
         print(f"[host] {us:8.3f} us per call  {name}")
     record["scatter_host_pieces_us"] = pieces
+    # and a B5 wrapper call's
+    pieces = host_us(hist_host_pieces(torch, dev, batches[0][0], onehot, class_ids))
+    for name, us in pieces.items():
+        print(f"[host] {us:8.3f} us per call  B5: {name}")
+    record["hist_host_pieces_us"] = pieces
 
     # -- 5. report -------------------------------------------------------
     sources = {"stat_scores_counts": "metrics_tpu_torch/csrc/stat_scores.cu",
@@ -990,6 +1160,15 @@ def main() -> int:
          "library_alloc_ms": timings[op].get("library_alloc_ms"), "device_ms": timings[op]["device_ms"]}
         for op in sources
     ]
+    # B5's entry is the class-id form at the curve path's shape (its 98
+    # launches); the dense form at that shape and the binary stream's shape
+    # (300 launches there) ride along
+    for suffix in ("dense", "c1"):
+        t = timings[f"label_score_histograms_{suffix}"]
+        kernels[-1].update({f"{suffix}_ms": t["ms"], f"{suffix}_device_ms": t["device_ms"],
+                            f"{suffix}_plain_ms": t["plain_ms"], f"{suffix}_bound_ms": t["bound"][0],
+                            f"{suffix}_library_ms": t["library_ms"]})
+    kernels[-1]["c1_launches"] = stream_launches["label_score_histograms"]
     record["kernels"] = kernels
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)

@@ -20,8 +20,10 @@
 // tiles of K columns whose two (K, B) count tiles fit in a block's shared
 // memory (up to 226 KB, opted into per kernel), and the N rows into chunks;
 // block (tile, chunk) zeroes its counts, walks its rows reading K scores and
-// K labels per row (16-byte loads where C, K and the pointers allow), and
-// counts with 32-bit integer atomics in shared memory. Then, by mode:
+// K labels per row (K a multiple of 8 where C allows, so that a row's K
+// floats are whole 32-byte sectors; 16-byte loads where C, K and the
+// pointers allow), and counts with 32-bit integer atomics in shared memory.
+// Then, by mode:
 //  * store (one chunk): the block owns its (K, B) tiles of both outputs and
 //    stores them as float32 with plain coalesced 16-byte stores. Every
 //    output bin is written exactly once: no fill, no global atomic, and the
@@ -29,20 +31,31 @@
 //    stored by the block itself when the grid is one block, else added by
 //    each block that has any to a cell that a 4-byte memset on the same
 //    stream zeroed first.
-//  * add (several chunks; few columns, many rows): each block adds its
-//    non-zero bins to the outputs with float atomics. Adding whole numbers
-//    below 2^24 in float32 is exact, so the counts do not depend on the
-//    order of the atomics.
+//  * add (several chunks; few columns, many rows, as the binary stream's
+//    10,000 x 1): one cooperative launch whose blocks first zero their share
+//    of the outputs, count, sync the grid and then add their non-zero bins
+//    with float atomics. Adding whole numbers below 2^24 in float32 is
+//    exact, so the counts do not depend on the order of the atomics. On the
+//    H100 the cooperative launch took 4.7 us of device time at 10,000 x 1
+//    against 6.0-6.8 us behind three memsets (4.3-4.4 behind one memset of
+//    outputs laid out back to back, whose views cost the host more), and
+//    8.6 against 10.8 us at 1,000,000 x 1; one block that stores took 6.4.
 //  * global (B so large that one column's two tiles do not fit): one float
 //    atomicAdd of 1.0 per score into the outputs.
 // Labels come dense ((N, C) int32, positive where 1) or as one class id per
 // row ((N,) int32 or int64, positive where the id equals the column; an id
 // outside [0, C) makes the whole row negative), which saves reading and
 // building N * C labels in the one-vs-rest case.
-// A warp's lanes cover several rows of a few columns, so scores that share a
-// bin (softmax negatives near 0) meet at one shared-memory address: with
-// 16-byte loads each lane starts at another of its four columns, which
-// spreads a warp's adds over all of them.
+// A warp's lanes cover several rows of the tile's K columns, so scores that
+// share a bin (softmax negatives near 0) meet at one shared-memory address:
+// 32 / K ways with 4-byte loads; with 16-byte loads each lane starts at
+// another of its four columns, which spreads a warp's adds over all of them
+// as well. A warp-aggregated add (__match_any_sync, one add per distinct
+// cell) was slower on the H100 both on softmax rows (15.5 against 11.4 us at
+// 1024 x 1000) and on all-equal scores (12.6 against 11.4 us), so the adds
+// are plain. The 16-byte loads took the same time as 4-byte loads with dense
+// labels (10.4 against 10.5 us) and 0.7 us less with class ids (9.8 against
+// 10.5 us), the curve path's form, so both widths stay, chosen by alignment.
 //
 // The bin index is the reference's float32 arithmetic in its order:
 // floor((x - lo) / span * B), clipped to [0, B - 1], with lo, span and B
@@ -68,8 +81,6 @@ constexpr int kMaxDynamicShared = 232448 - 1024;
 
 enum Mode { kStore = 0, kAdd = 1, kGlobal = 2 };
 enum Labels { kDense = 0, kIds32 = 1, kIds64 = 2 };
-// how the add mode's outputs get their zeroes (measured against each other)
-enum ZeroForm { kMemset = 0, kCooperative = 1 };
 
 struct Grid {
   float lo, hi, span, bins, last;  // last = B - 1
@@ -81,7 +92,7 @@ struct Job {
   const void* labels;
   int n, c;
   Grid g;
-  int k, rows_per_chunk, mode, zero_form, aggregate;
+  int k, rows_per_chunk, mode;
   float* pos;
   float* neg;
   float* clipped;
@@ -123,19 +134,12 @@ __device__ int block_sum(int count) {
   return total;
 }
 
-// One score into the block's counts. With `aggregate`, the lanes of a warp
-// that hit one cell send one add of their number.
+// One score into the block's counts.
 __device__ __forceinline__ void count_score(unsigned int* counts, float score, bool positive, int column_cell,
-                                            int neg_offset, const Grid& g, int aggregate, int& clipped) {
+                                            int neg_offset, const Grid& g, int& clipped) {
   const float v = flush_subnormal(score);
-  const int cell = (positive ? 0 : neg_offset) + column_cell + bin_of(v, g);
+  atomicAdd(counts + (positive ? 0 : neg_offset) + column_cell + bin_of(v, g), 1u);
   clipped += out_of_range(v, g);
-  if (aggregate) {
-    const unsigned peers = __match_any_sync(__activemask(), cell);
-    if ((__ffs(peers) - 1) == (threadIdx.x & 31)) atomicAdd(counts + cell, static_cast<unsigned>(__popc(peers)));
-  } else {
-    atomicAdd(counts + cell, 1u);
-  }
 }
 
 __device__ __forceinline__ float pick(const float4& v, int i) { return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w; }
@@ -181,7 +185,7 @@ __global__ void __launch_bounds__(kMaxThreads) hist_tile_kernel(const Job job) {
   const float* __restrict__ x = job.x;
   const int* __restrict__ dense = static_cast<const int*>(job.labels);
 
-  if (job.mode == kAdd && job.zero_form == kCooperative) {
+  if (job.mode == kAdd) {
     // this block's share of the outputs' zeroes; no add lands before the grid sync below
     const int64_t cells = static_cast<int64_t>(c) * b;
     const int64_t first = (static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x) * blockDim.x + threadIdx.x;
@@ -197,10 +201,9 @@ __global__ void __launch_bounds__(kMaxThreads) hist_tile_kernel(const Job job) {
   }
   __syncthreads();
 
-  // threads as (row lane, item of the row): consecutive threads read
-  // consecutive addresses of one row, then the next row
-  // rows a thread loads before it counts them (eight scores either way)
-  constexpr unsigned kRowsInFlight = V == 4 ? 2 : 8;
+  // threads as (row lane, item of the row: V columns): consecutive threads
+  // read consecutive addresses of one row, then the next row
+  constexpr unsigned kRowsInFlight = 8 / V;  // rows a thread loads before it counts them: eight scores
   const int per_row = kw / V;
   const int tx = min(per_row, static_cast<int>(blockDim.x));
   const int q0 = threadIdx.x % tx;
@@ -240,13 +243,13 @@ __global__ void __launch_bounds__(kMaxThreads) hist_tile_kernel(const Job job) {
                 } else {
                   positive = ids[u] == k0 + j + i;
                 }
-                count_score(counts, pick(xs[u], i), positive, (j + i) * b, neg_offset, g, job.aggregate, clipped);
+                count_score(counts, pick(xs[u], i), positive, (j + i) * b, neg_offset, g, clipped);
               }
             }
           }
         } else {
           float xs[kRowsInFlight];
-          int ts[kRowsInFlight];
+          int ts[kRowsInFlight];  // the dense label, or the row's class id
 #pragma unroll
           for (unsigned u = 0; u < kRowsInFlight; ++u) {
             const size_t r = row + u * rstep;
@@ -263,7 +266,7 @@ __global__ void __launch_bounds__(kMaxThreads) hist_tile_kernel(const Job job) {
           for (unsigned u = 0; u < kRowsInFlight; ++u) {
             if (row + u * rstep < row_end) {
               const bool positive = kLabels == kDense ? ts[u] == 1 : ts[u] == k0 + j;
-              count_score(counts, xs[u], positive, j * b, neg_offset, g, job.aggregate, clipped);
+              count_score(counts, xs[u], positive, j * b, neg_offset, g, clipped);
             }
           }
         }
@@ -277,7 +280,7 @@ __global__ void __launch_bounds__(kMaxThreads) hist_tile_kernel(const Job job) {
     store_tile(counts, job.pos + out_offset, words);
     store_tile(counts + neg_offset, job.neg + out_offset, words);
   } else {
-    if (job.zero_form == kCooperative) cooperative_groups::this_grid().sync();
+    cooperative_groups::this_grid().sync();
     add_tile(counts, job.pos + out_offset, words);
     add_tile(counts + neg_offset, job.neg + out_offset, words);
   }
@@ -320,13 +323,9 @@ __global__ void hist_global_kernel(const Job job) {
 
 int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
-// Zeroes of the two (c, b) outputs and the clipped count, on `stream`: one
-// memset where the caller laid them out back to back, else three.
+// Zeroes of the two (c, b) outputs and the clipped count, on `stream`.
 cudaError_t zero_outputs(const Job& job, cudaStream_t stream) {
   const size_t cells = static_cast<size_t>(job.c) * job.g.num_bins;
-  if (job.neg == job.pos + cells && job.clipped == job.neg + cells) {
-    return cudaMemsetAsync(job.pos, 0, (2 * cells + 1) * sizeof(float), stream);
-  }
   cudaError_t err = cudaMemsetAsync(job.pos, 0, cells * sizeof(float), stream);
   if (err == cudaSuccess) err = cudaMemsetAsync(job.neg, 0, cells * sizeof(float), stream);
   if (err == cudaSuccess) err = cudaMemsetAsync(job.clipped, 0, sizeof(float), stream);
@@ -347,15 +346,12 @@ cudaError_t launch_tiles(const Job& job, int tiles, int chunks, int threads, int
     opted_in[device].store(true, std::memory_order_release);
   }
   const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(chunks));
-  if (job.mode == kAdd && job.zero_form == kCooperative) {
+  if (job.mode == kAdd) {
     void* args[] = {const_cast<Job*>(&job)};
     return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(hist_tile_kernel<kLabels, V>), grid,
                                        dim3(static_cast<unsigned>(threads)), args, shared, stream);
   }
-  if (job.mode == kAdd) {
-    const cudaError_t err = zero_outputs(job, stream);
-    if (err != cudaSuccess) return err;
-  } else if (tiles > 1) {
+  if (tiles > 1) {  // several blocks add to the clipped count; one block stores it
     const cudaError_t err = cudaMemsetAsync(job.clipped, 0, sizeof(float), stream);
     if (err != cudaSuccess) return err;
   }
@@ -384,19 +380,17 @@ cudaError_t launch(const Job& job, int tiles, int chunks, int threads, int vec, 
 // where the id equals the column. pos, neg: (c, num_bins) float32, clipped:
 // one float32, all uninitialised: the call writes every element. lo, hi and
 // span = hi - lo are the caller's float32 roundings. The plan, chosen by the
-// caller: mode 0 (store: chunks = 1), 1 (add) or 2 (global); k columns per
+// caller: mode 0 (store: chunks = 1), 1 (add: a cooperative launch, so its
+// tiles * chunks blocks must be co-resident) or 2 (global); k columns per
 // tile (2 * k * num_bins counts within the shared-memory budget), chunks of
 // rows (at most 65535), threads per block (a multiple of 32, at most 1024),
 // vec 4 (c % 4 == 0, k % 4 == 0, preds and dense labels 16-byte aligned) or
-// 1. zero_form (add mode): 0 memsets, 1 a cooperative launch that fills
-// before a grid sync (tiles * chunks blocks must be co-resident); aggregate:
-// 1 sends one shared-memory add per distinct cell of a warp. Everything goes
-// to `stream` with `device` made current for the call. Returns the first
-// CUDA error of the call (0 if none).
+// 1. Everything goes to `stream` with `device` made current for the call.
+// Returns the first CUDA error of the call (0 if none).
 extern "C" int label_score_histograms_launch(const void* preds, const void* labels, int label_form, int n, int c,
                                              int num_bins, float lo, float hi, float span, int mode, int k,
-                                             int chunks, int threads, int vec, int zero_form, int aggregate,
-                                             void* pos, void* neg, void* clipped, int device, void* stream) {
+                                             int chunks, int threads, int vec, void* pos, void* neg, void* clipped,
+                                             int device, void* stream) {
   if (n < 0 || c < 0 || num_bins < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (mode != kGlobal && (k < 1 || chunks < 1 || chunks > 65535 || threads < 32 || threads > kMaxThreads ||
                           threads % 32 != 0 || (mode == kStore && chunks != 1))) {
@@ -422,8 +416,6 @@ extern "C" int label_score_histograms_launch(const void* preds, const void* labe
   job.k = k;
   job.rows_per_chunk = mode == kGlobal ? n : static_cast<int>(ceil_div(n > 0 ? n : 1, chunks));
   job.mode = mode;
-  job.zero_form = zero_form;
-  job.aggregate = aggregate;
   job.pos = static_cast<float*>(pos);
   job.neg = static_cast<float*>(neg);
   job.clipped = static_cast<float*>(clipped);

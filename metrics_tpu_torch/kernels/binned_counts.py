@@ -16,7 +16,17 @@ formulations:
 * :func:`label_score_histograms_cuda` (B5), the wrapper of the hand-written
   kernel ``csrc/binned_counts.cu`` (which replaces the Pallas
   ``_hist_kernel``). It takes a CUDA tensor to the kernel and a CPU tensor
-  to the plain version.
+  to the plain version. On the card a call is three ``torch.empty`` outputs
+  and one call into the C library under a plan chosen here
+  (:func:`histogram_plan`): blocks count tiles of class columns in shared
+  memory and store each output tile once, or, for few columns and many
+  rows, add their chunks' counts to outputs that the same cooperative
+  launch zeroes first. The kernel writes every output element, so nothing
+  is filled beforehand.
+
+The multiclass one-vs-rest case hands its ``(N,)`` class ids over in place
+of their ``(N, C)`` one-hot (:func:`_label_score_histograms_onevsrest`):
+the kernel counts a score as positive where its row's id equals its column.
 
 Both give the JAX package's histograms bit for bit. The bin index is
 ``floor((x - lo) / span * num_bins)`` in float32, in that order, clipped to
@@ -56,7 +66,7 @@ _ENTRY = "label_score_histograms_launch"
 _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_float, ctypes.c_float, ctypes.c_float,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
 )
 #: largest cell count 2 * C * num_bins the wrapper takes (num_bins reaches the kernel as a 32-bit int)
@@ -74,13 +84,15 @@ _DENSE = 0
 #: H100 can opt into, less 1 KB for the kernel's static shared memory
 SHARED_BUDGET = 227 * 1024 - 1024
 _THREADS = 1024
-#: the most scores of its tile one block walks alone before the rows are cut into chunks
-_ONE_CHUNK_ITEMS = 16 * _THREADS
-#: scores per block that the chunks of the add mode aim at
-_CHUNK_ITEMS = 8 * _THREADS
+#: the most scores of its tile one block walks alone before the rows are cut
+#: into chunks (at the binary stream's 10,000 one block that stores took 6.4 us
+#: on the H100, 20 to 40 chunks that add 4.7)
+_ONE_CHUNK_ITEMS = 2 * _THREADS
+#: the fewest scores per block that the chunks of the add mode aim at
+_CHUNK_ITEMS = 512
+#: threads of an add-mode block with few scores and small count tiles
+_SMALL_THREADS, _SMALL_ITEMS, _SMALL_SHARED = 256, 1024, 32 * 1024
 _MAX_CHUNKS = 65535
-#: the C entry's ``zero_form`` (add mode: 0 memsets, 1 a cooperative launch) and ``aggregate`` arguments
-_ZERO_FORM, _AGGREGATE = 0, 0
 
 Histograms = Tuple[Tensor, Tensor, Tensor]
 
@@ -105,38 +117,44 @@ def tile_shared_bytes(k: int, num_bins: int) -> int:
 
 
 @lru_cache(maxsize=256)
-def histogram_plan(n: int, c: int, num_bins: int, sms: int = 132, budget: int = SHARED_BUDGET) -> HistogramPlan:
+def histogram_plan(n: int, c: int, num_bins: int, sms: int = 132) -> HistogramPlan:
     """The B5 kernel's plan for ``(n, c)`` scores on ``num_bins`` bins, on a
-    card of ``sms`` multiprocessors with ``budget`` bytes of shared memory a block.
+    card of ``sms`` multiprocessors.
 
     * The tile width ``k``: as many columns as fit (``2 * k * num_bins * 4``
-      bytes within ``budget``), cut down until the tiles fill the card, and
+      bytes within ``SHARED_BUDGET``), cut down until the tiles fill the card, and
       a multiple of 8 where ``c`` and the budget allow, so that a row's ``k``
       floats are whole 32-byte sectors.
     * ``STORE`` with one chunk where the tiles fill at least half the card
       or one block walks its tile's scores alone quickly enough: every block
       owns its output tile and stores it.
     * ``ADD`` otherwise (few columns, many rows): the rows are cut into
-      chunks until the grid fills the card, and the blocks add to the output.
+      chunks of at least ``_CHUNK_ITEMS`` scores (more where the count tiles
+      are large, since every block zeroes and reads out its own), at most
+      until the grid fills the card (one block per multiprocessor: the launch
+      is cooperative), and the blocks add to the output.
     * ``GLOBAL`` where not even one column fits (``num_bins`` above about
-      28,000 at the default budget): no shared memory, no tiles.
+      28,000): no shared memory, no tiles.
     """
-    if tile_shared_bytes(1, num_bins) > budget:
+    if tile_shared_bytes(1, num_bins) > SHARED_BUDGET:
         return HistogramPlan(GLOBAL, 0, 0, 0, n, 0, 0)
-    fits = budget // tile_shared_bytes(1, num_bins)
-    while tile_shared_bytes(fits, num_bins) > budget:  # the padding of an odd tile
+    fits = SHARED_BUDGET // tile_shared_bytes(1, num_bins)
+    while tile_shared_bytes(fits, num_bins) > SHARED_BUDGET:  # the padding of an odd tile
         fits -= 1
     k = min(c, fits)
     if c >= 8 and fits >= 8:
         k = min(max(c // sms // 8 * 8, 8), fits // 8 * 8)
     tiles = -(-c // k)
+    shared = tile_shared_bytes(k, num_bins)
     chunks = 1
     if 2 * tiles < sms and n * k > _ONE_CHUNK_ITEMS:
-        chunks = min(sms // tiles, -(-n * k // _CHUNK_ITEMS), _MAX_CHUNKS)
+        chunks = min(sms // tiles, -(-n * k // max(_CHUNK_ITEMS, shared // 32)), _MAX_CHUNKS)
     rows_per_chunk = -(-max(n, 1) // chunks)
     chunks = -(-max(n, 1) // rows_per_chunk)
-    return HistogramPlan(STORE if chunks == 1 else ADD, k, tiles, chunks, rows_per_chunk, _THREADS,
-                         tile_shared_bytes(k, num_bins))
+    if chunks == 1:
+        return HistogramPlan(STORE, k, tiles, 1, rows_per_chunk, _THREADS, shared)
+    small = rows_per_chunk * k <= _SMALL_ITEMS and shared <= _SMALL_SHARED
+    return HistogramPlan(ADD, k, tiles, chunks, rows_per_chunk, _SMALL_THREADS if small else _THREADS, shared)
 
 
 def load_width(c: int, k: int, address: int) -> int:
@@ -226,8 +244,7 @@ def _histograms_cuda(preds: Tensor, labels: Tensor, dense: bool, num_bins: int, 
     vec = load_width(c, plan.k, x_ptr | t_ptr if dense else x_ptr)
     err = kernel_function(_ENTRY, _ARGTYPES)(
         x_ptr, t_ptr, form, n, c, num_bins, lo, hi, hi - lo, plan.mode, plan.k, plan.chunks, plan.threads, vec,
-        _ZERO_FORM, _AGGREGATE, pos.data_ptr(), neg.data_ptr(), clipped.data_ptr(), device.index,
-        current_stream_handle(device))
+        pos.data_ptr(), neg.data_ptr(), clipped.data_ptr(), device.index, current_stream_handle(device))
     check_launch(_OP, err)
     note_kernel_dispatch(_OP, "cuda")
     return pos, neg, clipped

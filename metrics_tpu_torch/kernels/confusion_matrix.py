@@ -76,11 +76,15 @@ def confmat_counts_cuda(
     if not (preds.is_contiguous() and target.is_contiguous()):
         raise ValueError(f"{_OP} takes contiguous inputs")
     require_capability(device)
+    return _counts_cuda(preds, target, num_classes, device)
 
+
+def _counts_cuda(preds: Tensor, target: Tensor, num_classes: int, device: torch.device) -> Tensor:
+    """One zero fill and one call into the C library, which makes ``device``
+    current for its launch on that device's current stream."""
     out = torch.zeros((num_classes, num_classes), dtype=torch.int32, device=device)
     n = preds.shape[0]
     if n:
-        # the C entry makes the device current for its launch
         err = kernel_function("confmat_counts_launch", _ARGTYPES)(
             preds.data_ptr(), target.data_ptr(), n, num_classes, preds.element_size(), out.data_ptr(), device.index,
             current_stream_handle(device))

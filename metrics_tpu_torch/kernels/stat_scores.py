@@ -70,11 +70,15 @@ def stat_scores_counts_cuda(
     if not (preds.is_contiguous() and target.is_contiguous()):
         raise ValueError(f"{_OP} takes contiguous inputs")
     require_capability(device)
+    return _counts_cuda(preds, target, device)
 
+
+def _counts_cuda(preds: Tensor, target: Tensor, device: torch.device) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """One zero fill and one call into the C library, which makes ``device``
+    current for its launch on that device's current stream."""
     n, c = preds.shape
     out = torch.zeros((4, c), dtype=torch.int32, device=device)
     if n and c:
-        # the C entry makes the device current for its launch
         err = kernel_function("stat_scores_counts_launch", _ARGTYPES)(
             preds.data_ptr(), target.data_ptr(), n, c, out.data_ptr(), device.index, current_stream_handle(device))
         check_launch(_OP, err)

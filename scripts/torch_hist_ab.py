@@ -33,7 +33,6 @@ It prints medians, the ratio this/other, and in how many pairs this
 checkout was faster.
 """
 import os
-import statistics
 import sys
 import time
 
@@ -43,19 +42,6 @@ BLOCKS, BLOCK = 20, 100
 ROUNDS = 3
 MODULES = ("", ".kernels._common", ".kernels.binned_counts")
 HIST_STATES = ("pos_hist", "neg_hist", "sketch_clipped")
-
-
-def device_split(c, torch, fn, reps: int = 50) -> dict:
-    """Device time (us per call of ``fn``) of each device operation by name."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key[:70]: e.self_device_time_total / reps for e in c._device_events(prof)}
 
 
 def print_split(label: str, split: dict) -> None:
@@ -133,7 +119,7 @@ def main() -> int:
         host = host_blocks(torch, calls)
         summary(f"label_score_histograms {label} host per call", host[0], host[1], "us")
         for (side, _), call in zip(sides, calls):
-            print_split(f"label_score_histograms {label}, {side}", device_split(c, torch, call))
+            print_split(f"label_score_histograms {label}, {side}", c.device_split(call))
 
     curves = [c.build_curves(m[""], dev) for m in (this, other)]
     updates = ([], [])
@@ -175,7 +161,7 @@ def main() -> int:
     for (side, _), collection, stream in zip(sides, curves, streams):
         it = iter(batches[1:11] * 6)
         print_split(f"one curve update (two metrics), {side}",
-                    device_split(c, torch, lambda: collection.update(*next(it))))
+                    c.device_split(lambda: collection.update(*next(it))))
         it = iter(chunks[1:11] * 6)
 
         def stream_update(it=it, stream=stream):
@@ -183,7 +169,7 @@ def main() -> int:
             for metric in stream.values():
                 metric.update(*chunk)
 
-        print_split(f"one stream update (three metrics), {side}", device_split(c, torch, stream_update))
+        print_split(f"one stream update (three metrics), {side}", c.device_split(stream_update))
     return 0
 
 

@@ -10,7 +10,11 @@ exact in float32, so no tolerance applies. The ``hist_*`` curve functions
 are held within 1e-6 of the JAX ones on the same histograms, and
 ``binned_tp_fp_fn`` exactly. The wrapper runs the plain version for a CPU
 tensor and launches nothing; the cases that launch kernel B5 carry the
-``cuda`` marker and skip here.
+``cuda`` marker and skip here. The kernel's plan (``histogram_plan``: tile
+width, row chunks, mode, shared memory) and load width are pure functions
+held here; the CUDA path's plumbing (one C call, no fill, no device context)
+is held against a fake library; and the class-id label form is held exact
+against the JAX package's functions on the one-hot of the ids.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -23,12 +27,22 @@ from metrics_tpu.kernels.binned_counts import (
     label_score_histograms_pallas,
     label_score_histograms_xla,
 )
+from metrics_tpu.utilities.data import to_onehot as jax_to_onehot
 from metrics_tpu_torch.kernels import _common, sketches
+from metrics_tpu_torch.kernels import binned_counts as bc
 from metrics_tpu_torch.kernels.binned_counts import (
+    ADD,
+    GLOBAL,
+    SHARED_BUDGET,
+    STORE,
+    _label_score_histograms_onevsrest,
     binned_tp_fp_fn,
+    histogram_plan,
     label_score_histograms,
     label_score_histograms_cuda,
     label_score_histograms_torch,
+    load_width,
+    tile_shared_bytes,
 )
 
 _OP = "label_score_histograms"
@@ -203,7 +217,9 @@ class TestLabelScoreHistograms:
         assert _common.dispatch_count(_OP, "torch") == 0  # the wrapper was not reached
 
     @pytest.mark.cuda
-    @pytest.mark.parametrize("n,c,b", [(1024, 1000, 2048), (10_000, 1, 2048), (7, 3, 4096), (1023, 3, 4096)])
+    @pytest.mark.parametrize("n,c,b", [(1024, 1000, 2048), (10_000, 1, 2048), (7, 3, 4096), (1023, 3, 4096),
+                                       (300, 7, 2048), (64, 1001, 2048), (1, 1, 2048), (100_000, 10, 2048),
+                                       (16, 4, 65536)])
     def test_kernel_matches_the_plain_version(self, cuda_device, n, c, b):
         gen = torch.Generator(device=cuda_device).manual_seed(n + c)
         preds = torch.rand((n, c), generator=gen, device=cuda_device)
@@ -257,3 +273,224 @@ class TestHistCurves:
         for g, w in zip(got, want):
             assert g.dtype == torch.float32
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+# --------------------------------------------------------------------------
+# the kernel's plan, its plumbing and the class-id label form
+# --------------------------------------------------------------------------
+
+PLAN_SHAPES = [(1024, 1000, 2048), (10000, 1, 2048), (4096, 3, 32), (1, 1, 2), (100000, 10, 2048), (64, 1001, 2048),
+               (16, 4, 65536), (0, 5, 8)]
+
+
+class TestHistogramPlan:
+    @pytest.mark.parametrize("n,c,b", PLAN_SHAPES)
+    def test_tiles_cover_every_column_once_within_the_budget(self, n, c, b):
+        plan = histogram_plan(n, c, b, 132)
+        if plan.mode == GLOBAL:
+            assert tile_shared_bytes(1, b) > SHARED_BUDGET  # not even one column fits
+            return
+        assert plan.shared_bytes == tile_shared_bytes(plan.k, b) <= SHARED_BUDGET
+        assert 2 * plan.k * b * 4 <= plan.shared_bytes
+        columns = [col for tile in range(plan.tiles) for col in range(tile * plan.k, min(c, (tile + 1) * plan.k))]
+        assert columns == list(range(c))
+        assert plan.tiles == -(-c // plan.k) and 1 <= plan.k <= c
+        rows = [row for chunk in range(plan.chunks)
+                for row in range(chunk * plan.rows_per_chunk, min(n, (chunk + 1) * plan.rows_per_chunk))]
+        assert len(rows) == n and (n == 0 or rows[-1] == n - 1)
+        assert (plan.mode == STORE) == (plan.chunks == 1)
+        assert plan.threads % 32 == 0 and 32 <= plan.threads <= 1024 and plan.chunks <= 65535
+        if plan.mode == ADD:  # one cooperative launch: every block resident at once, one per multiprocessor
+            assert plan.tiles * plan.chunks <= 132
+
+    @pytest.mark.parametrize("n,c,b,mode,k,tiles,chunks", [
+        (1024, 1000, 2048, STORE, 8, 125, 1),  # 128 KB a block, one block per multiprocessor, no row chunks
+        (10000, 1, 2048, ADD, 1, 1, 20),  # the binary stream: one tile, many row chunks
+        (4096, 3, 32, ADD, 3, 1, 24),
+        (1, 1, 2, STORE, 1, 1, 1),
+        (100000, 10, 2048, ADD, 8, 2, 66),
+        (64, 1001, 2048, STORE, 8, 126, 1),  # the last tile holds one column
+        (16, 4, 65536, GLOBAL, 0, 0, 0),
+        (0, 5, 8, STORE, 5, 1, 1),  # an empty batch still stores its zeroes
+    ])
+    def test_plans_of_the_paths_shapes(self, n, c, b, mode, k, tiles, chunks):
+        plan = histogram_plan(n, c, b, 132)
+        assert (plan.mode, plan.k, plan.tiles, plan.chunks) == (mode, k, tiles, chunks)
+
+    def test_tile_width_is_a_multiple_of_8_where_c_and_the_budget_allow(self):
+        for c, b in [(1000, 2048), (1001, 2048), (5000, 2048), (100_000, 16), (4096, 32), (8, 2048)]:
+            assert histogram_plan(1024, c, b, 132).k % 8 == 0
+        assert histogram_plan(1024, 7, 2048, 132).k == 7  # fewer than 8 columns: one tile
+        assert histogram_plan(1024, 1000, 16384, 132).k == 1  # 128 KB a column: one column a tile
+
+    def test_the_card_size_steers_the_plan(self):
+        assert histogram_plan(10000, 1, 2048, 16).chunks == 16
+        assert histogram_plan(1024, 64, 2048, 8).mode == STORE  # eight tiles fill a card of eight
+
+
+@pytest.mark.parametrize("c,k,offset,want", [(1000, 8, 0, 4), (1000, 8, 4, 1), (1000, 8, 8, 1), (1000, 8, 16, 4),
+                                             (1001, 8, 0, 1), (10, 8, 0, 1), (12, 6, 0, 1), (4, 4, 0, 4), (1, 1, 0, 1)])
+def test_load_width_follows_c_k_and_the_alignment(c, k, offset, want):
+    """16-byte loads take a row stride and a tile width that are multiples of 4 and 16-byte alignment."""
+    assert load_width(c, k, (1 << 20) + offset) == want
+
+
+class _FakeLibrary:
+    """Stands in for the C entry: records each call and returns ``err``."""
+
+    def __init__(self, err=0):
+        self.err, self.calls = err, []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return self.err
+
+
+def _forbid(*_, **__):
+    raise AssertionError("the CUDA path must not call this")
+
+
+@pytest.fixture
+def fake_library(monkeypatch):
+    lib = _FakeLibrary()
+    entries = []
+    monkeypatch.setattr(bc, "kernel_function", lambda name, argtypes: entries.append(name) or lib)
+    monkeypatch.setattr(bc, "current_stream_handle", lambda device: 1234)
+    monkeypatch.setattr(bc, "sm_count", lambda device: 132)
+    for name in ("zeros", "full", "zeros_like", "full_like"):
+        monkeypatch.setattr(torch, name, _forbid)
+    monkeypatch.setattr(torch.cuda, "device", _forbid)
+    lib.entries = entries
+    return lib
+
+
+class TestCudaPathPlumbing:
+    @pytest.mark.parametrize("n,c,b", [(64, 8, 16), (40, 3, 2048), (3000, 1, 2048), (16, 4, 65536)])
+    @pytest.mark.parametrize("form", ["dense", "ids32", "ids64"])
+    def test_one_library_call_no_fill_no_device_context(self, fake_library, n, c, b, form):
+        """The library writes every output element itself: the wrapper
+        allocates three ``torch.empty`` outputs, makes no ``torch.zeros``/
+        ``torch.full`` call, enters no ``torch.cuda.device`` context, passes
+        inputs that qualify as they are, and calls the C entry once with the
+        plan, the label form, the device index and the stream handle."""
+        preds = torch.rand(n, c)
+        dense = form == "dense"
+        labels = (torch.randint(0, 2, (n, c), dtype=torch.int32) if dense
+                  else torch.randint(0, c, (n,), dtype=torch.int32 if form == "ids32" else torch.int64))
+        pos, neg, clipped = bc._histograms_cuda(preds, labels, dense, b, 0.0, 1.0, torch.device("cpu"))
+        assert fake_library.entries == ["label_score_histograms_launch"] and len(fake_library.calls) == 1
+        args = fake_library.calls[0]
+        assert len(args) == len(bc._ARGTYPES)
+        plan = histogram_plan(n, c, b, 132)
+        assert args[0] == preds.data_ptr() and args[1] == labels.data_ptr()  # no copy of inputs that qualify
+        assert args[2] == {"dense": 0, "ids32": 4, "ids64": 8}[form]
+        assert args[3:6] == (n, c, b) and args[6:9] == (0.0, 1.0, 1.0)
+        assert args[9:13] == (plan.mode, plan.k, plan.chunks, plan.threads)
+        assert args[13] == load_width(c, plan.k, preds.data_ptr() | (labels.data_ptr() if dense else 0))
+        assert args[14:17] == (pos.data_ptr(), neg.data_ptr(), clipped.data_ptr()) and args[17:] == (None, 1234)
+        for hist in (pos, neg):
+            assert hist.shape == (c, b) and hist.dtype == torch.float32 and hist.is_contiguous()
+        assert clipped.shape == () and clipped.dtype == torch.float32
+        assert _common.launch_count(_OP) == 1
+
+    def test_inputs_that_do_not_qualify_are_converted_once(self, fake_library):
+        preds = torch.rand(6, 8, dtype=torch.float64).t()  # (8, 6), not contiguous, not float32
+        target = torch.randint(0, 2, (8, 6)).float()
+        bc._histograms_cuda(preds, target, True, 16, 0.0, 1.0, torch.device("cpu"))
+        bc._histograms_cuda(preds, torch.arange(8, dtype=torch.int16), False, 16, 0.0, 1.0, torch.device("cpu"))
+        for args, form in zip(fake_library.calls, (0, 4)):
+            assert args[0] != preds.data_ptr() and args[2] == form and args[3:5] == (8, 6)
+
+    @pytest.mark.parametrize("dense", [True, False])
+    def test_a_failed_launch_raises_and_is_not_counted(self, fake_library, dense):
+        """No fallback to the plain version: the error surfaces."""
+        fake_library.err = 700
+        labels = torch.ones(8, 2, dtype=torch.int32) if dense else torch.arange(8) % 2
+        with pytest.raises(RuntimeError, match="CUDA error 700"):
+            bc._histograms_cuda(torch.rand(8, 2), labels, dense, 16, 0.0, 1.0, torch.device("cpu"))
+        assert _common.launch_count(_OP) == 0 and _common.dispatch_count(_OP, "torch") == 0
+
+
+def _onevsrest(preds, ids, b, lo=0.0, hi=1.0):
+    got = _label_score_histograms_onevsrest(torch.from_numpy(preds), torch.from_numpy(ids), b, lo, hi)
+    assert all(g.dtype == torch.float32 for g in got)
+    return [g.numpy() for g in got]
+
+
+class TestClassIdLabels:
+    @pytest.mark.parametrize("n,c,b", [(64, 4, 16), (300, 10, 64), (1000, 3, 256), (7, 12, 2048)])
+    @pytest.mark.parametrize("dtype", [np.int32, np.int64])
+    def test_bit_identical_to_jax_on_the_one_hot(self, n, c, b, dtype):
+        rng = np.random.RandomState(n + c + b)
+        preds = (rng.rand(n, c) * 1.2 - 0.1).astype(np.float32)
+        ids = rng.randint(0, c, n).astype(dtype)
+        onehot = np.asarray(jax_to_onehot(jnp.asarray(ids), num_classes=c))
+        assert onehot.shape == (n, c) and (onehot.sum(axis=1) == 1).all()
+        got = _onevsrest(preds, ids, b)
+        for ref in (label_score_histograms_xla(jnp.asarray(preds), jnp.asarray(onehot), b),
+                    label_score_histograms_pallas(jnp.asarray(preds), jnp.asarray(onehot), b, interpret=True)):
+            for g, w in zip(got, ref):
+                np.testing.assert_array_equal(g, np.asarray(w))
+        assert _common.dispatch_count(_OP, "torch") == 1 and _common.launch_count(_OP) == 0
+
+    @pytest.mark.parametrize("dtype", [np.int32, np.int64])
+    def test_an_id_outside_the_classes_is_an_all_negative_row_as_in_the_one_hot(self, dtype):
+        """``to_onehot`` of both packages gives a label outside ``[0, C)``
+        an all-zero row, so every score of that row counts as negative."""
+        rng = np.random.RandomState(21)
+        preds = rng.rand(40, 5).astype(np.float32)
+        ids = rng.randint(-2, 8, 40).astype(dtype)
+        onehot = np.array(jax_to_onehot(jnp.asarray(ids), num_classes=5))
+        assert ((ids < 0) | (ids >= 5)).any() and (onehot[(ids < 0) | (ids >= 5)] == 0).all()
+        got = _onevsrest(preds, ids, 32)
+        for g, w in zip(got, label_score_histograms_xla(jnp.asarray(preds), jnp.asarray(onehot), 32)):
+            np.testing.assert_array_equal(g, np.asarray(w))
+        dense = label_score_histograms(torch.from_numpy(preds), torch.from_numpy(onehot), 32)
+        for g, w in zip(got, dense):
+            np.testing.assert_array_equal(g, w.numpy())
+        assert got[0].sum() == ((ids >= 0) & (ids < 5)).sum() and got[0].sum() + got[1].sum() == preds.size
+
+    def test_custom_range_and_other_integer_dtypes(self):
+        rng = np.random.RandomState(22)
+        preds = (rng.randn(200, 3) * 3).astype(np.float32)
+        ids = rng.randint(0, 3, 200)
+        want = label_score_histograms_xla(jnp.asarray(preds), jax_to_onehot(jnp.asarray(ids), num_classes=3), 32,
+                                          -2.0, 2.0)
+        for dtype in (np.uint8, np.int16, np.int64):
+            for g, w in zip(_onevsrest(preds, ids.astype(dtype), 32, -2.0, 2.0), want):
+                np.testing.assert_array_equal(g, np.asarray(w))
+
+    def test_rejects_what_it_does_not_take(self):
+        preds = torch.rand(8, 3)
+        with pytest.raises(ValueError, match="class ids of shape"):
+            _label_score_histograms_onevsrest(preds, torch.zeros(8, 3, dtype=torch.int64), 16)
+        with pytest.raises(ValueError, match="class ids of shape"):
+            _label_score_histograms_onevsrest(preds, torch.zeros(7, dtype=torch.int64), 16)
+        with pytest.raises(ValueError, match="num_bins"):
+            _label_score_histograms_onevsrest(preds, torch.zeros(8, dtype=torch.int64), 0)
+        with pytest.raises(ValueError, match="expected a tensor on"):
+            _label_score_histograms_onevsrest(preds, torch.zeros(8, dtype=torch.int64, device="meta"), 16)
+
+    def test_plain_version_runs_under_vmap(self):
+        rng = np.random.RandomState(23)
+        preds = torch.from_numpy(rng.rand(30, 1, 4).astype(np.float32))
+        ids = torch.from_numpy(rng.randint(0, 4, (30, 1)))
+        pos, neg, clipped = torch.func.vmap(lambda p, t: _label_score_histograms_onevsrest(p, t, 8))(preds, ids)
+        assert pos.shape == (30, 4, 8) and clipped.shape == (30,)
+        want = _label_score_histograms_onevsrest(preds.reshape(-1, 4), ids.reshape(-1), 8)
+        np.testing.assert_array_equal(pos.sum(0).numpy(), want[0].numpy())
+        np.testing.assert_array_equal(neg.sum(0).numpy(), want[1].numpy())
+        assert _common.dispatch_count(_OP, "torch") == 1  # the flat call only: under the vmap no wrapper is reached
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("n,c,b", [(1024, 1000, 2048), (64, 1001, 2048), (100_000, 10, 2048), (16, 4, 65536)])
+    @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+    def test_kernel_matches_the_plain_version(self, cuda_device, n, c, b, dtype):
+        gen = torch.Generator(device=cuda_device).manual_seed(n + c)
+        preds = torch.rand((n, c), generator=gen, device=cuda_device)
+        ids = torch.randint(-1, c + 1, (n,), generator=gen, device=cuda_device).to(dtype)
+        got = _label_score_histograms_onevsrest(preds, ids, b)
+        torch.cuda.synchronize()
+        for g, w in zip(got, bc._onevsrest_torch(preds, ids, b)):
+            assert torch.equal(g, w)
+        assert _common.launch_count(_OP) == 1

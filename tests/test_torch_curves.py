@@ -131,6 +131,29 @@ def test_sketched_mode_matches_jax(name, kind, kw, num_bins):
     assert _common.dispatch_count("label_score_histograms", "torch") == 3
 
 
+@pytest.mark.parametrize("name", ["AUROC", "AveragePrecision"])
+@pytest.mark.parametrize("target_dtype", [np.int64, np.int32])
+@pytest.mark.parametrize("c", [3, 12])
+def test_sketched_multiclass_hands_over_class_ids_and_matches_jax(name, target_dtype, c, monkeypatch):
+    """One class against the rest: the sketch update hands the ``(N,)``
+    class ids to the histogram function (no ``(N, C)`` one-hot of its own),
+    and the states stay the JAX package's bit for bit, the values within 1e-6."""
+    from metrics_tpu_torch.utilities import sketching
+
+    seen = []
+    onevsrest = sketching._label_score_histograms_onevsrest
+    monkeypatch.setattr(sketching, "_label_score_histograms_onevsrest",
+                        lambda preds, labels, *a: seen.append(tuple(labels.shape)) or onevsrest(preds, labels, *a))
+    monkeypatch.setattr(sketching, "label_score_histograms", None)  # the dense form is not reached
+    port, ref = _pair(name, sketched=True, num_bins=64, num_classes=c)
+    batches = [(p, t.astype(target_dtype)) for p, t in _batches("multiclass", c, n=50, c=c)]
+    _drive(port, ref, batches)
+    assert seen == [(50,)] * 3
+    _assert_hist_states(port, ref)
+    _assert_close(port.compute(), ref.compute())
+    assert _common.dispatch_count("label_score_histograms", "torch") == 3
+
+
 @pytest.mark.parametrize("average", ["macro", "weighted", None])
 @pytest.mark.parametrize("sketched", [False, True])
 def test_multiclass_auroc_averages_match_jax(average, sketched):

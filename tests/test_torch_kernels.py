@@ -5,8 +5,11 @@ kernel (``_xla`` and the Pallas kernel in interpret mode) on the same numpy
 inputs, exactly. The wrappers are held to their device rule: a CPU tensor
 runs the plain version and launches nothing. The shared plumbing caches its
 answers: the capability of a device is asked once, and a resolved C entry is
-read without the lock. The cases that launch the CUDA kernels need a card;
-they carry the ``cuda`` marker and skip here.
+read without the lock, a resolved device is taken as it is. The CUDA path's
+plumbing of B1 and B2 (one call into the C library with the device index
+and the stream handle, no ``torch.cuda.device`` context) is held against a
+fake library. The cases that launch the CUDA kernels need a card; they carry
+the ``cuda`` marker and skip here.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +19,8 @@ import torch
 from metrics_tpu.kernels.confusion_matrix import confmat_counts_pallas, confmat_counts_xla
 from metrics_tpu.kernels.stat_scores import stat_scores_counts_pallas, stat_scores_counts_xla
 from metrics_tpu_torch.kernels import _common
+from metrics_tpu_torch.kernels import confusion_matrix as cm
+from metrics_tpu_torch.kernels import stat_scores as st
 from metrics_tpu_torch.kernels.confusion_matrix import confmat_counts_cuda, confmat_counts_torch
 from metrics_tpu_torch.kernels.stat_scores import stat_scores_counts_cuda, stat_scores_counts_torch
 
@@ -166,6 +171,99 @@ def test_kernel_function_reads_a_resolved_entry_without_the_lock(monkeypatch):
     monkeypatch.setitem(_common._FUNCTIONS, "probe_entry", entry)
     monkeypatch.setattr(_common, "_LIB_LOCK", NoLock())
     assert _common.kernel_function("probe_entry", ()) is entry
+
+
+def test_kernel_device_takes_a_resolved_device_as_it_is(monkeypatch):
+    """A ``torch.device`` that names its index skips ``resolve_device``
+    (whose CUDA query would raise here); a string or a bare ``cuda`` goes
+    through it."""
+    resolved = torch.device("cuda", 1)
+    assert _common.kernel_device(resolved) is resolved
+    assert _common.kernel_device("cpu") == torch.device("cpu")
+    seen = []
+    monkeypatch.setattr(_common, "resolve_device", lambda device: seen.append(device) or torch.device("cuda", 0))
+    assert _common.kernel_device("cuda") == torch.device("cuda", 0)
+    assert _common.kernel_device(torch.device("cuda")) == torch.device("cuda", 0)
+    assert seen == ["cuda", torch.device("cuda")]
+
+
+def test_sm_count_asks_each_device_once(monkeypatch):
+    calls = []
+
+    class _Properties:
+        multi_processor_count = 132
+
+    monkeypatch.setattr(_common, "_SM_COUNTS", {})
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda device: calls.append(device) or _Properties())
+    device = torch.device("cuda", 3)
+    assert [_common.sm_count(device) for _ in range(3)] == [132, 132, 132]
+    assert calls == [device]
+
+
+class _FakeLibrary:
+    """Stands in for a C entry: records each call and returns ``err``."""
+
+    def __init__(self):
+        self.err, self.calls, self.entries = 0, [], []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return self.err
+
+
+def _forbid(*_, **__):
+    raise AssertionError("the CUDA path must not call this")
+
+
+@pytest.fixture
+def fake_library(monkeypatch):
+    lib = _FakeLibrary()
+    for module in (st, cm):
+        monkeypatch.setattr(module, "kernel_function", lambda name, argtypes: lib.entries.append(name) or lib)
+        monkeypatch.setattr(module, "current_stream_handle", lambda device: 1234)
+    monkeypatch.setattr(torch.cuda, "device", _forbid)
+    return lib
+
+
+@pytest.mark.parametrize("n,c", [(8, 5), (1, 1), (300, 129)])
+def test_stat_scores_cuda_path_makes_one_library_call_with_the_device_index(fake_library, n, c):
+    """The C entry makes the device current itself: the wrapper enters no
+    ``torch.cuda.device`` context and passes the device index and the
+    stream handle."""
+    preds, target = (torch.from_numpy(a) for a in _binary(n, c, seed=n + c))
+    out = st._counts_cuda(preds, target, torch.device("cpu"))
+    assert fake_library.entries == ["stat_scores_counts_launch"] and len(fake_library.calls) == 1
+    args = fake_library.calls[0]
+    assert len(args) == len(st._ARGTYPES)
+    assert args[:4] == (preds.data_ptr(), target.data_ptr(), n, c) and args[5:] == (None, 1234)
+    assert len(out) == 4 and all(o.shape == (c,) and o.dtype == torch.int32 for o in out)
+    assert args[4] == out[0].data_ptr()
+    assert _common.launch_count("stat_scores_counts") == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_confmat_cuda_path_makes_one_library_call_with_the_device_index(fake_library, dtype):
+    preds, target = (torch.from_numpy(a).to(dtype) for a in _labels(50, 7, seed=3))
+    out = cm._counts_cuda(preds, target, 7, torch.device("cpu"))
+    assert fake_library.entries == ["confmat_counts_launch"] and len(fake_library.calls) == 1
+    args = fake_library.calls[0]
+    assert len(args) == len(cm._ARGTYPES)
+    assert args == (preds.data_ptr(), target.data_ptr(), 50, 7, preds.element_size(), out.data_ptr(), None, 1234)
+    assert out.shape == (7, 7) and out.dtype == torch.int32
+    assert _common.launch_count("confmat_counts") == 1
+
+
+@pytest.mark.parametrize("op", ["stat_scores_counts", "confmat_counts"])
+def test_a_failed_launch_raises_and_is_not_counted(fake_library, op):
+    fake_library.err = 700
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        if op == "stat_scores_counts":
+            st._counts_cuda(torch.ones(4, 3, dtype=torch.int32), torch.ones(4, 3, dtype=torch.int32),
+                            torch.device("cpu"))
+        else:
+            cm._counts_cuda(torch.ones(4, dtype=torch.int64), torch.ones(4, dtype=torch.int64), 3,
+                            torch.device("cpu"))
+    assert _common.launch_count(op) == 0 and _common.dispatch_count(op, "torch") == 0
 
 
 @pytest.mark.cuda
