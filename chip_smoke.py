@@ -31,8 +31,10 @@ Phases, in order; any failure exits non-zero before the last line:
 3. The first path: ImageNet-1k evaluation (1000 classes, the 50,000-image
    validation split in batches of 1024 float32 softmax rows, 49 ``forward``
    calls, then ``compute()``) through
-   ``MetricCollection({Accuracy, macro Precision/Recall/F1, ConfusionMatrix})``
-   on the card. Each kernel must have launched exactly once per batch, and
+   ``MetricCollection({Accuracy, macro Precision/Recall/F1/Specificity,
+   ConfusionMatrix, IoU, CohenKappa, MatthewsCorrcoef})`` on the card. Each
+   kernel must have launched exactly once per batch (the macro members share
+   one B1 update, the confusion-matrix members one B2 update), and
    the results must equal the same collection run on the CPU over the same
    batches (counts exactly, float metrics within 1e-6).
    The per-``forward`` time of the collection, and under the profiler the
@@ -63,6 +65,15 @@ Phases, in order; any failure exits non-zero before the last line:
    with ``sketched=True`` and into the exact ``AUROC()``. B5 must launch 300
    times; the sketched states must equal the CPU's exactly and the values
    within 1e-6; the sketched AUROC must lie within 5e-3 of the exact one.
+3e. The epoch-end sync over ``torch.distributed``: an NCCL group of world
+   size 1 (tcp on localhost). The gather protocol
+   (``utilities/distributed.py::_gather_all_leaves``) runs on the ImageNet
+   collection's whole state bundle and on the keyed collection's stacked
+   leaves: exactly two ``all_gather`` calls per bundle, every leaf back
+   bit-identical and on the card; ``sync_state_packed`` of the collection's
+   states makes one ``all_reduce`` per bucket and gives the states back. The
+   median time of each over 49 repetitions is printed beside the card. One
+   card cannot show a sync of two ranks; the gloo tests show it on the CPU.
 4. Times at the main-path shapes: the median of 50 CUDA-event-timed calls
    of each kernel's wrapper, of its plain version and of the one PyTorch
    call that computes the same function (where there is one), each beside
@@ -229,13 +240,132 @@ def make_batches(torch, device):
 
 
 def build_collection(M, device):
+    """The ImageNet-1k collection: the macro stat-scores members share one B1
+    update per batch, the confusion-matrix members one B2 update."""
+    macro = dict(average="macro", num_classes=NUM_CLASSES, device=device)
     return M.MetricCollection({
         "Accuracy": M.Accuracy(device=device),
-        "Precision": M.Precision(average="macro", num_classes=NUM_CLASSES, device=device),
-        "Recall": M.Recall(average="macro", num_classes=NUM_CLASSES, device=device),
-        "F1": M.F1(average="macro", num_classes=NUM_CLASSES, device=device),
+        "Precision": M.Precision(**macro),
+        "Recall": M.Recall(**macro),
+        "F1": M.F1(**macro),
+        "Specificity": M.Specificity(**macro),
         "ConfusionMatrix": M.ConfusionMatrix(num_classes=NUM_CLASSES, device=device),
+        "IoU": M.IoU(num_classes=NUM_CLASSES, device=device),
+        "CohenKappa": M.CohenKappa(num_classes=NUM_CLASSES, device=device),
+        "MatthewsCorrcoef": M.MatthewsCorrcoef(num_classes=NUM_CLASSES, device=device),
     })
+
+
+def sync_phase(torch, gpu, keyed_gpu, card) -> dict:
+    """Phase 3e: the epoch-end sync's protocol over NCCL, on one card (world
+    size 1). Every failure fails the run."""
+    import socket
+    import warnings
+
+    import torch.distributed as dist
+    from metrics_tpu_torch.utilities import distributed as mdist
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    real_gather, real_reduce = mdist._all_gather, dist.all_reduce
+    calls = {"all_gather": 0, "all_reduce": 0}
+
+    def counted_gather(buf, group):
+        calls["all_gather"] += 1
+        return real_gather(buf, group)
+
+    def counted_reduce(*a, **k):
+        calls["all_reduce"] += 1
+        return real_reduce(*a, **k)
+
+    mdist._all_gather, dist.all_reduce = counted_gather, counted_reduce
+    out = {"backend": dist.get_backend(), "world_size": dist.get_world_size()}
+    try:
+        bundles = {
+            "imagenet_collection": [m._pre_sync_states()[0] for m in gpu.values()],
+            "keyed_collection": [km._get_states() for km in keyed_gpu._keyed.values()],
+        }
+        # the first collective of the group sets NCCL's communicator up
+        mdist._gather_all_leaves(mdist._tree_leaves(bundles["imagenet_collection"], []), None)
+        torch.cuda.synchronize()
+        for name, trees in bundles.items():
+            leaves = mdist._tree_leaves(trees, [])
+            calls["all_gather"] = 0
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                gathered = mdist._gather_all_leaves(leaves, None)
+                torch.cuda.set_sync_debug_mode("default")
+            host_syncs = sum("synchroniz" in str(w.message) for w in seen)
+            torch.cuda.synchronize()
+            if calls["all_gather"] != 2:
+                fail(f"the {name} bundle took {calls['all_gather']} all_gather calls, expected 2")
+            for leaf, members in zip(leaves, gathered):
+                got = members[0] if len(members) == 1 else None
+                if got is None or got.device != leaf.device or got.dtype != leaf.dtype or not torch.equal(got, leaf):
+                    fail(f"the {name} bundle did not come back bit-identical on the card")
+            payload = sum(leaf.numel() * leaf.element_size() for leaf in leaves)
+            out[name] = {"leaves": len(leaves), "payload_bytes": payload, "all_gather": 2,
+                         "synchronizing_calls": host_syncs}
+            print(f"[sync] {name}: {len(leaves)} leaves, {payload} bytes, 2 all_gather calls, bit-identical on "
+                  f"the card; synchronizing calls seen by the sync debug mode: {host_syncs}")
+
+        state, reductions = {}, {}
+        for n, m in gpu.items(keep_base=True):
+            for k, v in m._get_states().items():
+                state[f"{n}.{k}"], reductions[f"{n}.{k}"] = v, m._reductions[k]
+        buckets = len({(reductions[k], v.dtype) for k, v in state.items()})
+        calls["all_reduce"] = 0
+        synced = mdist.sync_state_packed(state, reductions, dist.group.WORLD)
+        torch.cuda.synchronize()
+        if calls["all_reduce"] != buckets:
+            fail(f"sync_state_packed made {calls['all_reduce']} all_reduce calls for {buckets} buckets")
+        for k, v in state.items():
+            if synced[k].device != v.device or synced[k].dtype != v.dtype or not torch.equal(synced[k], v):
+                fail(f"sync_state_packed changed {k} at world size 1")
+        out["packed"] = {"leaves": len(state), "buckets": buckets, "all_reduce": calls["all_reduce"]}
+
+        leaves = mdist._tree_leaves(bundles["imagenet_collection"], [])
+        gather_ms, packed_ms = [], []
+        for _ in range(49):
+            start = time.perf_counter()
+            mdist._gather_all_leaves(leaves, None)
+            torch.cuda.synchronize()
+            gather_ms.append((time.perf_counter() - start) * 1e3)
+            start = time.perf_counter()
+            mdist.sync_state_packed(state, reductions, dist.group.WORLD)
+            torch.cuda.synchronize()
+            packed_ms.append((time.perf_counter() - start) * 1e3)
+        out["gather_ms"], out["sync_state_packed_ms"] = gather_ms, packed_ms
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            for _ in range(10):
+                mdist._gather_all_leaves(leaves, None)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - start) * 1e3
+        busy_ms = _device_us(prof) / 1e3
+        top = sorted(_device_events(prof), key=lambda e: -e.self_device_time_total)[:6]
+        out["profile"] = {"gathers": 10, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                          "top_device": [{"name": e.key[:80], "calls": e.count, "device_us": e.self_device_time_total}
+                                         for e in top]}
+        print(f"[sync] 10 packed gathers of that bundle under the profiler: wall {wall_ms:.3f} ms, device busy "
+              f"{busy_ms:.3f} ms (idle share {1 - busy_ms / wall_ms:.3f})")
+        for row in out["profile"]["top_device"]:
+            print(f"[sync]   {row['device_us']:10.1f} us  {row['calls']:4d} x  {row['name']}")
+        print(f"[sync] ImageNet-1k collection bundle ({out['imagenet_collection']['leaves']} leaves, "
+              f"{out['imagenet_collection']['payload_bytes']} bytes) over {out['backend']} at world size "
+              f"{out['world_size']}: packed gather median {statistics.median(gather_ms):.3f} ms, "
+              f"sync_state_packed ({buckets} all_reduce) median {statistics.median(packed_ms):.3f} ms, 49 reps, on {card}; one card cannot show a sync of two "
+              f"ranks (the gloo tests hold two processes on the CPU)")
+    finally:
+        mdist._all_gather, dist.all_reduce = real_gather, real_reduce
+        dist.destroy_process_group()
+    return out
 
 
 def make_keyed_batches(torch, device):
@@ -971,6 +1101,9 @@ def main() -> int:
     record["stream"] = {"launches": stream_launches, "update_ms": stream_update_ms, "auroc": stream_auroc,
                         "exact_auroc": stream_exact_auroc, "max_abs_diff_vs_cpu": stream_diffs,
                         "state_bytes_per_metric": stream_state_bytes}
+
+    # -- 3e. the epoch-end sync over NCCL --------------------------------------
+    record["sync"] = sync_phase(torch, gpu, keyed_gpu, card)
 
     # -- 4. times at the main-path shapes ------------------------------------
     preds, target = batches[0]

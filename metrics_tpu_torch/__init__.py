@@ -9,11 +9,13 @@ counting loops run hand-written CUDA kernels for ``sm_90a``
 
 The slices so far cover the stat-scores and confusion-matrix classification
 path (``Accuracy``, ``Precision``, ``Recall``, ``FBeta``, ``F1``,
-``StatScores``, ``ConfusionMatrix`` and ``MetricCollection``), the
+``Specificity``, ``StatScores``, ``ConfusionMatrix``, ``IoU``,
+``CohenKappa``, ``MatthewsCorrcoef`` and ``MetricCollection``), the
 multi-tenant keyed state over it (``KeyedMetric`` and
 ``MultiTenantCollection``), and the curve metrics (``AUROC``,
 ``AveragePrecision``, ``ROC``, ``PrecisionRecallCurve``, ``AUC`` and the
-binned curves), exact or ``sketched=True``.
+binned curves), exact or ``sketched=True``, and the epoch-end sync over
+``torch.distributed`` (``utilities/distributed.py``, ``transport/``).
 """
 from metrics_tpu_torch.classification import (  # noqa: F401
     AUC,
@@ -25,11 +27,15 @@ from metrics_tpu_torch.classification import (  # noqa: F401
     BinnedAveragePrecision,
     BinnedPrecisionRecallCurve,
     BinnedRecallAtFixedPrecision,
+    CohenKappa,
     ConfusionMatrix,
     FBeta,
+    IoU,
+    MatthewsCorrcoef,
     Precision,
     PrecisionRecallCurve,
     Recall,
+    Specificity,
     StatScores,
 )
 from metrics_tpu_torch.collections import MetricCollection  # noqa: F401

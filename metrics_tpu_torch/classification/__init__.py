@@ -8,9 +8,13 @@ from metrics_tpu_torch.classification.binned_precision_recall import (  # noqa: 
     BinnedPrecisionRecallCurve,
     BinnedRecallAtFixedPrecision,
 )
+from metrics_tpu_torch.classification.cohen_kappa import CohenKappa  # noqa: F401
 from metrics_tpu_torch.classification.confusion_matrix import ConfusionMatrix  # noqa: F401
 from metrics_tpu_torch.classification.f_beta import F1, FBeta  # noqa: F401
+from metrics_tpu_torch.classification.iou import IoU  # noqa: F401
+from metrics_tpu_torch.classification.matthews_corrcoef import MatthewsCorrcoef  # noqa: F401
 from metrics_tpu_torch.classification.precision_recall import Precision, Recall  # noqa: F401
 from metrics_tpu_torch.classification.precision_recall_curve import PrecisionRecallCurve  # noqa: F401
 from metrics_tpu_torch.classification.roc import ROC  # noqa: F401
+from metrics_tpu_torch.classification.specificity import Specificity  # noqa: F401
 from metrics_tpu_torch.classification.stat_scores import StatScores  # noqa: F401

@@ -9,12 +9,18 @@ Precision, Recall and F1 with equal settings) share one canonicalization and
 one count pass per batch (:meth:`MetricCollection._shared_deltas`), and
 the keyed collection stacks them as one state bundle
 (:meth:`MetricCollection._group_layout`).
+
+Under ``torch.distributed`` :meth:`MetricCollection.compute` syncs every
+packable member in ONE ``gather_all_pytrees`` per process group (one
+descriptor round and one payload round), each shared-update class once
+(``metrics_tpu/collections.py:890-1060``).
 """
 from collections import OrderedDict
 from copy import deepcopy
-from typing import Any, Dict, Iterable, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.utilities import distributed as _dist
 from metrics_tpu_torch.utilities.prints import rank_zero_warn
 
 
@@ -126,8 +132,105 @@ class MetricCollection:
         return layout
 
     def compute(self) -> Dict[str, Any]:
-        """Compute every metric (each syncs its own states)."""
-        return {k: m.compute() for k, m in self.items()}
+        """Compute every metric; the whole collection syncs in one transport.
+
+        Under ``torch.distributed`` every packable member's states (one
+        bundle per shared-update class, whose members hold identical states)
+        ride ONE ``gather_all_pytrees`` per process group: two rounds for
+        the collection. Members with an injected ``dist_sync_fn``, an
+        overridden sync or a pinned transport sync themselves. Every
+        member's local states and sync flag are restored afterwards."""
+        adopted: list = []
+        try:
+            self._adopt_packed_synced_states(adopted)
+            return {k: m.compute() for k, m in self.items()}
+        finally:
+            for m, cache, prev_to_sync in adopted:
+                m._set_states(cache)
+                m._to_sync = prev_to_sync
+
+    def _class_aliases(self, *, packed: bool) -> Dict[str, List[str]]:
+        """``{representative: [class members]}`` for each shared-update class
+        that can sync once: equal reductions, group, gather (and, for the
+        packed sync, transport), and some member without a cached value."""
+        alias: Dict[str, List[str]] = {}
+        for names in self._class_groups().values():
+            if len(names) < 2 or all(self._metrics[n]._computed is not None for n in names):
+                continue
+            rep = self._metrics[names[0]]
+            if any(
+                self._metrics[n]._reductions != rep._reductions
+                or self._metrics[n].process_group != rep.process_group
+                or self._metrics[n].dist_sync_fn is not rep.dist_sync_fn
+                or (packed and self._metrics[n].transport is not rep.transport)
+                for n in names[1:]
+            ):
+                continue
+            alias[names[0]] = names
+        return alias
+
+    def _fan_out(self, names: List[str], adopted: list) -> None:
+        """Point the other members of a class at the representative's synced states."""
+        synced = self._metrics[names[0]]._get_states()
+        for n in names[1:]:
+            m = self._metrics[n]
+            adopted.append((m, m._get_states(), m._to_sync))
+            m._set_states({k: (list(v) if isinstance(v, list) else v) for k, v in synced.items()})
+            m._to_sync = False
+
+    def _adopt_packed_synced_states(self, adopted: list) -> None:
+        """Sync every packable member in ONE packed gather per process group
+        and point the members at the synced states; restore records go to
+        ``adopted`` as they happen, so a failure midway is fully restorable.
+
+        Packable: the default gather (no ``dist_sync_fn``), the base
+        ``Metric._sync_dist``, no pinned transport, at least one state, sync
+        not already off. A shared-update class sends its representative's
+        bundle once; the rest syncs per class or per member."""
+        if not _dist.distributed_available():
+            return self._adopt_class_synced_states(adopted)
+        alias = self._class_aliases(packed=True)
+        aliased = {n for names in alias.values() for n in names[1:]}
+        bundles: Dict[str, Tuple[Any, List[str]]] = {}
+        for name, m in self.items(keep_base=True):
+            if name in aliased or (m._computed is not None and name not in alias):
+                continue
+            if (
+                m.dist_sync_fn is not None
+                or type(m)._sync_dist is not Metric._sync_dist
+                or m.transport is not None
+                or not m._defaults
+                or not m._to_sync
+            ):
+                continue
+            bundles.setdefault(repr(m.process_group), (m.process_group, []))[1].append(name)
+
+        for group, names in bundles.values():
+            pre = [self._metrics[n]._pre_sync_states() for n in names]
+            gathered = _dist.gather_all_pytrees([states for states, _ in pre], group=group)
+            for n, (_, list_dtypes), g in zip(names, pre, gathered):
+                m = self._metrics[n]
+                adopted.append((m, m._get_states(), m._to_sync))
+                m._apply_gathered_states(g, list_dtypes)
+                m._to_sync = False  # synced: compute() must not gather again
+                if n in alias:
+                    self._fan_out(alias[n], adopted)
+        self._adopt_class_synced_states(adopted, skip={n for _, ns in bundles.values() for n in ns} | aliased)
+
+    def _adopt_class_synced_states(self, adopted: list, skip: Optional[set] = None) -> None:
+        """Sync one representative per shared-update class and point the
+        members at its synced states (a no-op when nothing syncs). ``skip``
+        names members the packed sync already served."""
+        for names in self._class_aliases(packed=False).values():
+            if skip and any(n in skip for n in names):
+                continue
+            rep = self._metrics[names[0]]
+            cache = rep.sync(dist_sync_fn=rep.dist_sync_fn, process_group=rep.process_group)
+            if not cache:
+                continue
+            adopted.append((rep, cache, rep._to_sync))
+            rep._to_sync = False
+            self._fan_out(names, adopted)
 
     def reset(self) -> None:
         for _, m in self.items(keep_base=True):

@@ -6,13 +6,17 @@ from metrics_tpu_torch.functional.classification import (  # noqa: F401
     auc,
     auroc,
     average_precision,
+    cohen_kappa,
     confusion_matrix,
     f1,
     fbeta,
+    iou,
+    matthews_corrcoef,
     precision,
     precision_recall,
     precision_recall_curve,
     recall,
     roc,
+    specificity,
     stat_scores,
 )

@@ -16,10 +16,16 @@ limited to the eager stateful path:
 * **Sync at compute.** With a ``torch.distributed`` process group of more
   than one process, or an injected ``dist_sync_fn``, ``compute()`` gathers
   every state from every process and reduces it, then restores the local
-  states. With one process nothing is gathered.
+  states. With one process nothing is gathered. The default gather goes
+  through the active transport (``metrics_tpu_torch.transport``): the
+  whole state dict in one descriptor round and one payload round
+  (``utilities/distributed.py``); an injected ``dist_sync_fn`` is called
+  per state.
 * **Pure-state calls.** :meth:`apply_update` and :meth:`apply_compute` run
-  ``update``/``compute`` on a state dict handed in (``metric.py:500-563``)
+  ``update``/``compute`` on a state dict handed in (``metric.py:500-588``)
   and leave the live states as they were; the keyed path vmaps them.
+  :meth:`apply_compute` syncs the state over the metric's process group
+  first (:meth:`sync_state`, one collective per bucket).
 """
 import functools
 import inspect
@@ -42,7 +48,7 @@ from metrics_tpu_torch.utilities.data import (
     dim_zero_sum,
     resolve_device,
 )
-from metrics_tpu_torch.utilities.distributed import distributed_available, gather_all_tensors
+from metrics_tpu_torch.utilities.distributed import distributed_available, gather_all_tensors, sync_state_packed
 from metrics_tpu_torch.utilities.prints import rank_zero_warn
 
 Tensor = torch.Tensor
@@ -56,6 +62,9 @@ _STR_REDUCTIONS: Dict[str, Callable] = {
     "max": dim_zero_max,
     "min": dim_zero_min,
 }
+
+#: ``apply_compute``'s default ``process_group``: the metric's own
+_GROUP_UNSET = object()
 
 #: reductions whose per-batch state deltas can be merged into the accumulated
 #: state without re-running ``update`` (enables the fused forward path);
@@ -86,8 +95,10 @@ class Metric(ABC):
             on the current batch; otherwise it only accumulates and returns None.
         dist_sync_on_step: synchronize state across processes on every
             ``forward`` before computing the step value.
-        process_group: the ``torch.distributed`` process group the states
-            sync over (default: the whole world).
+        process_group: the group the states sync over at ``compute()``:
+            ``None`` (the whole world), a ``torch.distributed`` process group,
+            or a collection of global ranks (the rounds span the world, only
+            those ranks' states enter the result).
         dist_sync_fn: override for the gather used at ``compute()``; receives
             one state tensor and ``group=`` and returns the per-process list.
         device: where the states live (default ``"cuda"``). Building a metric
@@ -129,6 +140,28 @@ class Metric(ABC):
         self._update_signature = inspect.signature(self.update)
         self.update = self._wrap_update(self.update)  # type: ignore[method-assign]
         self.compute = self._wrap_compute(self.compute)  # type: ignore[method-assign]
+
+    def set_transport(self, transport: Optional[Any]) -> "Metric":
+        """Pin this metric to a transport (``metrics_tpu_torch.transport``);
+        ``None`` restores the ambient one. A pinned metric syncs itself and
+        stays out of its collection's packed sync. Returns ``self``."""
+        if transport is not None:
+            from metrics_tpu_torch.transport import Transport
+
+            if not isinstance(transport, Transport):
+                raise TypeError(f"expected a metrics_tpu_torch.transport.Transport, got {transport!r}")
+        self.__dict__["_transport"] = transport
+        return self
+
+    @property
+    def transport(self) -> Optional[Any]:
+        """This metric's pinned transport (``None``: the ambient one)."""
+        return self.__dict__.get("_transport")
+
+    def _resolve_transport(self) -> Any:
+        from metrics_tpu_torch.transport import resolve_transport
+
+        return resolve_transport(self)
 
     # ------------------------------------------------------------------
     # state registry
@@ -200,11 +233,26 @@ class Metric(ABC):
             self._unwrapped_update(*args, **kwargs)
             return self._get_states()
 
-    def apply_compute(self, state: StateDict) -> Any:
-        """Pure compute: the value of ``state``, without cross-process sync
-        (``compute()`` syncs the live states first)."""
+    def apply_compute(self, state: StateDict, process_group: Any = _GROUP_UNSET) -> Any:
+        """Pure compute: the value of ``state``, synced over ``process_group``
+        first (default: the metric's own; ``None``: no sync). The packed sync
+        needs a ``torch.distributed`` ``ProcessGroup``: a collection of ranks
+        raises, on every process alike."""
+        if process_group is _GROUP_UNSET:
+            process_group = self.process_group
+        state = self.sync_state(state, process_group)
         with self._bound_state(state):
             return self._unwrapped_compute()
+
+    def sync_state(self, state: StateDict, process_group: Any) -> StateDict:
+        """``state`` synced over ``process_group`` (a ``torch.distributed``
+        ``ProcessGroup``) with one collective per (reduction, dtype) bucket
+        and one pair of gather rounds for the ``"cat"``/``None`` leaves
+        (:func:`~metrics_tpu_torch.utilities.distributed.sync_state_packed`);
+        ``None`` returns it as it is."""
+        if process_group is None:
+            return state
+        return sync_state_packed(state, self._reductions, process_group)
 
     def _restore_derived(self, state: StateDict) -> None:
         """Refresh Python attributes that ``update`` learns from the data
@@ -420,11 +468,17 @@ class Metric(ABC):
                     states[name] = [torch.zeros((0,), dtype=torch.float32, device=self.device)]
         return states, list_dtypes
 
-    def _apply_gathered_states(self, gathered: StateDict, list_dtypes: Dict[str, torch.dtype]) -> None:
+    def _apply_gathered_states(
+        self, gathered: StateDict, list_dtypes: Dict[str, torch.dtype], presynced: Optional[StateDict] = None
+    ) -> None:
         """Reduce the per-process gather results into the live states (stack
         + reduction for tensor states, flatten + cat for list states, empty
-        shards dropped)."""
+        shards dropped). ``presynced`` holds leaves the transport already
+        reduced; they are set as they are."""
         for name, fx in self._reductions.items():
+            if presynced is not None and name in presynced:
+                setattr(self, name, presynced[name])
+                continue
             value = gathered[name]
             if isinstance(value[0], Tensor):
                 value = torch.stack(value)
@@ -443,8 +497,18 @@ class Metric(ABC):
     def _sync_dist(self, dist_sync_fn: Callable = gather_all_tensors, process_group: Optional[Any] = None) -> None:
         states, list_dtypes = self._pre_sync_states()
         group = process_group or self.process_group
-        gathered = apply_to_collection(states, Tensor, dist_sync_fn, group=group)
-        self._apply_gathered_states(gathered, list_dtypes)
+        presynced = None
+        if dist_sync_fn is gather_all_tensors:
+            # the default: the transport may reduce some leaves in place, and
+            # the rest rides one descriptor round and one payload round
+            transport = self._resolve_transport()
+            presynced = transport.reduce_states(states, self._reductions, group=group)
+            rest = {k: v for k, v in states.items() if k not in (presynced or {})}
+            gathered = transport.gather_pytrees([rest], group=group)[0] if rest else {}
+        else:
+            # an injected gather keeps its per-state contract
+            gathered = apply_to_collection(states, Tensor, dist_sync_fn, group=group)
+        self._apply_gathered_states(gathered, list_dtypes, presynced)
 
     def sync(
         self,

@@ -68,7 +68,8 @@ def dim_zero_cat(x: Union[Tensor, List[Tensor], Tuple[Tensor, ...]]) -> Tensor:
 
 
 def dim_zero_sum(x: Tensor) -> Tensor:
-    return torch.sum(x, dim=0)
+    # in the states' dtype: torch.sum would promote an int32 count to int64
+    return torch.sum(x, dim=0, dtype=x.dtype)
 
 
 def dim_zero_mean(x: Tensor) -> Tensor:

@@ -1,16 +1,86 @@
-"""Cross-process gather for the epoch-end state sync.
+"""Cross-process sync of metric state over ``torch.distributed``.
 
-Counterpart of the eager gather in ``metrics_tpu/utilities/distributed.py``
-(``distributed_available`` and ``gather_all_arrays``), over
-``torch.distributed``: tensors whose shapes differ across processes (a
-``"cat"`` state after ragged batches) are padded to the largest shape for the
-collective and trimmed back after it.
+Counterpart of the eager half of ``metrics_tpu/utilities/distributed.py``:
+the descriptor + payload gather protocol (``_leaf_descriptor`` ``:411``,
+``_align_leaf`` ``:436``, ``_gather_all_leaves`` ``:490``,
+``gather_all_arrays`` ``:740``, ``gather_all_pytrees`` ``:782``,
+``_gather_pytrees_impl`` ``:820``), the eager meaning of the packed sync
+``sync_state_packed`` ``:1152``, and ``reduce`` ``:77``. The JAX package's
+in-graph sync (mesh axes, ``Hierarchy``) has no counterpart here.
+
+**The gather protocol.** Every leaf of a whole state bundle crosses the
+processes in ONE descriptor round and at most ONE payload round:
+
+* the descriptor round all-gathers one ``(L, 10)`` int64 tensor, one row
+  ``[ndim, d0..d7, dtype_code]`` per leaf (the codes index
+  :data:`_GATHER_DTYPES`, the JAX package's nine dtypes in its order). It is
+  the one host read of a sync: every shape, offset and alignment below is
+  worked out on the host from it;
+* the payload round all-gathers one ``uint8`` buffer per process holding
+  every leaf's bytes, padded to the round's largest byte count (NCCL needs
+  equal sizes). It is skipped on every process when every contribution is
+  empty. **Layout difference:** each leaf starts at a 16-byte-aligned
+  offset (the JAX package packs the leaves back to back), so that
+  ``Tensor.view(dtype)`` can read an int64 leaf that follows a 3-byte bool
+  leaf. Both sides compute the offsets from the descriptors, so no result
+  changes;
+* a process that never updated a list state contributes a ``(0,)`` float32
+  placeholder: it is aligned to its group's trailing dims and dtype over the
+  non-empty members (``_align_leaf``), so an empty rank neither breaks the
+  collective nor changes a dtype;
+* every error (a bad ``group``, a leaf over 8 dims or of a dtype outside the
+  nine, bfloat16 among them, an ndim or dtype mismatch inside the group) is
+  raised only after both rounds, on the processes it concerns, so a bad rank
+  cannot hang its peers.
+
+Both rounds go through :func:`_all_gather`, the module's one collective:
+``torch.distributed.all_gather`` into a list of views of one stacked
+tensor, which gloo and NCCL both take for ``uint8`` and ``int64`` (gloo
+refuses ``all_gather_into_tensor``'s stacked output). The group's backend
+decides where the buffers live: CUDA tensors on the current device under
+NCCL, so the payload never leaves the card; CPU tensors otherwise (gloo).
+
+``group`` takes ``None`` (the world), a ``torch.distributed.ProcessGroup``
+(the rounds run over that group) or a collection of global ranks: then the
+rounds span the world and only the decode narrows, as the JAX package does,
+so disjoint groups sync in the same rounds.
 """
-from typing import Any, List, Optional
+import math
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
-import torch.nn.functional as F
+
+Tensor = torch.Tensor
+
+#: descriptor layout of the gather: [ndim, d0..d7, dtype_code]
+_MAX_GATHER_NDIM = 8
+#: dtypes the gather can align across processes (code = index), in the JAX
+#: package's order (``metrics_tpu/utilities/distributed.py:342-352``)
+_GATHER_DTYPES = (
+    torch.bool,
+    torch.uint8,
+    torch.int8,
+    torch.int16,
+    torch.int32,
+    torch.int64,
+    torch.float16,
+    torch.float32,
+    torch.float64,
+)
+#: every leaf of the payload starts at a multiple of this many bytes
+_PAYLOAD_ALIGN = 16
+
+
+def reduce(to_reduce: Tensor, reduction: str) -> Tensor:
+    """Reduce a tensor with ``'elementwise_mean'``, ``'sum'`` or ``'none'``."""
+    if reduction == "elementwise_mean":
+        return torch.mean(to_reduce)
+    if reduction == "none":
+        return to_reduce
+    if reduction == "sum":
+        return torch.sum(to_reduce)
+    raise ValueError("Reduction parameter unknown.")
 
 
 def distributed_available() -> bool:
@@ -18,26 +88,346 @@ def distributed_available() -> bool:
     return dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
 
 
-def gather_all_tensors(result: torch.Tensor, group: Optional[Any] = None) -> List[torch.Tensor]:
-    """``result`` from every process of ``group`` (default: the world), in rank order."""
-    if group is None:
-        group = dist.group.WORLD
-    result = result.contiguous()
-    world_size = dist.get_world_size(group)
-    if result.ndim == 0:
-        gathered = [torch.zeros_like(result) for _ in range(world_size)]
-        dist.all_gather(gathered, result, group=group)
-        return gathered
+def _all_gather(buf: Tensor, group: Optional[Any]) -> Tensor:
+    """``buf`` from every process of ``group`` (``None``: the world), stacked
+    ``(world, ...)`` in rank order. The protocol's one collective."""
+    out = buf.new_empty((dist.get_world_size(group), *buf.shape))
+    dist.all_gather(list(out.unbind(0)), buf, group=group)
+    return out
 
-    local_size = torch.tensor(result.shape, device=result.device)
-    sizes = [torch.zeros_like(local_size) for _ in range(world_size)]
-    dist.all_gather(sizes, local_size, group=group)
-    max_size = torch.stack(sizes).amax(dim=0)
 
-    pad: List[int] = []
-    for dim in reversed(range(result.ndim)):
-        pad += [0, int(max_size[dim]) - result.shape[dim]]
-    padded = F.pad(result, pad)
-    gathered = [torch.zeros_like(padded) for _ in range(world_size)]
-    dist.all_gather(gathered, padded, group=group)
-    return [g[tuple(slice(0, int(d)) for d in size)] for g, size in zip(gathered, sizes)]
+def _exchange_device(group: Optional[Any]) -> torch.device:
+    """Where the buffers of a round over ``group`` live: the current CUDA
+    device under NCCL, else the CPU."""
+    if dist.is_initialized() and dist.get_backend(group) == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def _resolve_group(group: Optional[Any], nprocs: int) -> List[int]:
+    """The member ranks (slots of the rounds) a ``group`` argument names.
+
+    ``None`` and a ``ProcessGroup`` -> every slot of the rounds; a
+    collection of ints -> those global ranks. Raises eagerly when called
+    directly; :func:`_gather_all_leaves` defers the raise past its rounds.
+    """
+    if group is None or isinstance(group, dist.ProcessGroup):
+        return list(range(nprocs))
+    message = f"group must be None, a torch.distributed ProcessGroup, or a collection of process indices; got {group!r}"
+    if isinstance(group, str):
+        raise TypeError(message)
+    try:
+        members = sorted({int(i) for i in group})
+    except (TypeError, ValueError):
+        raise TypeError(message)
+    if not members:
+        raise ValueError("group must name at least one process index")
+    if members[0] < 0 or members[-1] >= nprocs:
+        raise ValueError(f"group {group!r} names process indices outside [0, {nprocs})")
+    return members
+
+
+def _leaf_descriptor(leaf: Tensor) -> Tuple[List[int], Optional[str]]:
+    """Descriptor row ``[ndim, d0..d7, dtype_code]`` of one leaf. A leaf the
+    protocol cannot align gets an empty ``(0,)`` float32 row and the error,
+    raised after the rounds."""
+    row = [0] * (_MAX_GATHER_NDIM + 2)
+    error = None
+    if leaf.ndim > _MAX_GATHER_NDIM:
+        error = f"gather_all_tensors supports up to {_MAX_GATHER_NDIM} dims, got {leaf.ndim}"
+    elif leaf.dtype not in _GATHER_DTYPES:
+        error = f"gather_all_tensors cannot align dtype {_dtype_name(leaf.dtype)} across ranks"
+    if error is not None:
+        row[0], row[-1] = 1, _GATHER_DTYPES.index(torch.float32)
+        return row, error
+    row[0] = leaf.ndim
+    row[1 : 1 + leaf.ndim] = leaf.shape
+    row[-1] = _GATHER_DTYPES.index(leaf.dtype)
+    return row, None
+
+
+def _row_count(row: Sequence[int]) -> int:
+    return math.prod(row[1 : 1 + row[0]])  # a 0-d leaf counts one element
+
+
+def _row_layout(rows: Sequence[Sequence[int]]) -> Tuple[List[int], int]:
+    """One process's payload layout from its descriptor rows: each leaf's
+    byte offset (16-byte aligned) and the total byte count."""
+    offsets, total = [], 0
+    for row in rows:
+        offsets.append(total)
+        nbytes = _row_count(row) * _GATHER_DTYPES[row[-1]].itemsize
+        total += -(-nbytes // _PAYLOAD_ALIGN) * _PAYLOAD_ALIGN
+    return offsets, total
+
+
+def _align_leaf(
+    leaf_desc: Sequence[Sequence[int]], members: List[int]
+) -> Tuple[Dict[int, Tuple[int, ...]], List[int], torch.dtype, Optional[str]]:
+    """Alignment of one leaf inside ``members`` from its per-slot descriptor
+    rows: ``(shapes, counts, target_dtype, group_error)``.
+
+    Consistency is required over the non-empty members only; an empty
+    member becomes 0 rows of its peers' trailing dims (a 0-length vector
+    when the peers are 0-d). A violation is returned, not raised: the other
+    groups of the same rounds are committed to the payload round.
+    """
+    ndims = [int(row[0]) for row in leaf_desc]
+    counts = [_row_count(row) for row in leaf_desc]
+    codes = [int(row[-1]) for row in leaf_desc]
+
+    group_error = None
+    nonempty = [i for i in members if counts[i] > 0]
+    if nonempty:
+        if len({ndims[i] for i in nonempty}) > 1:
+            group_error = (
+                "gather_all_tensors: group members hold data of different ranks"
+                f" (ndims {[ndims[i] for i in members]})"
+            )
+        elif len({codes[i] for i in nonempty}) > 1:
+            group_error = "gather_all_tensors: group members hold data of different dtypes"
+        ref_ndim = ndims[nonempty[0]]
+        target_dtype = _GATHER_DTYPES[codes[nonempty[0]]]
+    else:
+        ref_ndim = max(ndims[i] for i in members)
+        target_dtype = _GATHER_DTYPES[codes[members[0]]]
+
+    shapes: Dict[int, Tuple[int, ...]] = {}
+    for i in members:
+        nd = min(ndims[i], ref_ndim)
+        shapes[i] = tuple(int(d) for d in leaf_desc[i][1 : 1 + nd]) + (0,) * (ref_ndim - nd)
+    if nonempty:
+        max_shape = [max(shapes[i][d] for i in nonempty) for d in range(ref_ndim)]
+    else:
+        max_shape = [1] * ref_ndim
+    for i in members:
+        if counts[i] == 0:
+            shapes[i] = (0, *max_shape[1:]) if ref_ndim > 0 else (0,)
+    return shapes, counts, target_dtype, group_error
+
+
+def _gather_all_leaves(
+    leaves: List[Tensor],
+    group: Optional[Any],
+    *,
+    participants: Optional[Sequence[int]] = None,
+) -> List[List[Tensor]]:
+    """Every leaf from every member of ``group``, in ONE descriptor round and
+    at most ONE payload round: per leaf, the members' tensors in ascending
+    rank order, each on the device of the local leaf.
+
+    ``participants`` (a transport's subgroup) narrows the decoded members
+    and never widens them; the rounds still span the group.
+    """
+    round_group = group if isinstance(group, dist.ProcessGroup) else None
+    device = _exchange_device(round_group)
+
+    rows: List[List[int]] = []
+    local_error: Optional[str] = None
+    for leaf in leaves:
+        row, err = _leaf_descriptor(leaf)
+        rows.append(row)
+        local_error = local_error or err
+    desc = torch.tensor(rows, dtype=torch.int64).reshape(len(leaves), _MAX_GATHER_NDIM + 2)
+    if device.type == "cuda":  # from pinned memory the copy does not wait for the card
+        desc = desc.pin_memory().to(device, non_blocking=True)
+    all_desc = _all_gather(desc, round_group).cpu().tolist()  # the sync's one host read
+    nprocs = len(all_desc)
+
+    arg_error: Optional[Exception] = None
+    try:
+        members = _resolve_group(group, nprocs)
+    except (TypeError, ValueError) as err:
+        arg_error, members = err, list(range(nprocs))
+    if participants is not None:
+        wanted = set(participants)
+        members = [m for m in members if m in wanted] or members
+
+    aligned = [_align_leaf([all_desc[i][j] for i in range(nprocs)], members) for j in range(len(leaves))]
+    group_error = next((a[3] for a in aligned if a[3] is not None), None)
+    layouts = [_row_layout(slot_rows) for slot_rows in all_desc]
+    max_bytes = max(total for _, total in layouts)
+
+    gathered = None
+    if max_bytes:
+        buf = torch.zeros(max_bytes, dtype=torch.uint8, device=device)
+        offsets, _ = _row_layout(rows)
+        for leaf, row, offset in zip(leaves, rows, offsets):
+            n = _row_count(row) * _GATHER_DTYPES[row[-1]].itemsize
+            if n:  # an unalignable leaf's row is empty: it rides as no bytes
+                buf[offset : offset + n].copy_(leaf.reshape(-1).view(torch.uint8))
+        gathered = _all_gather(buf, round_group)
+
+    if arg_error is not None:
+        raise arg_error
+    if local_error is not None:
+        raise ValueError(local_error)
+    if group_error is not None:
+        raise ValueError(group_error)
+
+    out: List[List[Tensor]] = []
+    for j, (leaf, (shapes, counts, target_dtype, _)) in enumerate(zip(leaves, aligned)):
+        per_member = []
+        for s in members:
+            if counts[s] == 0:
+                per_member.append(torch.zeros(shapes[s], dtype=target_dtype, device=leaf.device))
+                continue
+            start = layouts[s][0][j]
+            raw = gathered[s, start : start + counts[s] * target_dtype.itemsize]
+            per_member.append(raw.view(target_dtype).reshape(shapes[s]).to(leaf.device))
+        out.append(per_member)
+    return out
+
+
+def _tree_leaves(tree: Any, out: List[Any]) -> List[Any]:
+    """The leaves of nested dicts, lists and tuples, dict keys sorted (as JAX
+    flattens them), so that processes agree on the order whatever the
+    insertion order of their dicts."""
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            _tree_leaves(tree[key], out)
+    elif isinstance(tree, (list, tuple)):
+        for value in tree:
+            _tree_leaves(value, out)
+    else:
+        out.append(tree)
+    return out
+
+
+def _tree_refill(tree: Any, leaves: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _tree_refill(tree[k], leaves) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_refill(v, leaves) for v in tree)
+    return next(leaves)
+
+
+def _gather_pytrees_impl(
+    trees: List[Any], group: Optional[Any] = None, *, participants: Optional[Sequence[int]] = None
+) -> List[Any]:
+    """The rounds behind :func:`gather_all_pytrees` when distributed, the
+    world-1 identity otherwise."""
+    leaves = [torch.as_tensor(leaf) for leaf in _tree_leaves(trees, [])]
+    if distributed_available():
+        gathered = _gather_all_leaves(leaves, group, participants=participants)
+    else:
+        gathered = [[leaf] for leaf in leaves]
+    return _tree_refill(list(trees), iter(gathered))
+
+
+def gather_all_tensors(result: Tensor, group: Optional[Any] = None) -> List[Tensor]:
+    """``result`` from every member of ``group``, in ascending rank order,
+    each restored to its true shape: the per-array form of the protocol,
+    through the active transport (``metrics_tpu_torch.transport``).
+
+    A member with no data (a never-updated list state) comes back as 0 rows
+    of its peers' trailing dims and dtype; errors are raised after the
+    rounds. See the module docstring for ``group``."""
+    from metrics_tpu_torch.transport import resolve_transport
+
+    return resolve_transport().gather_array(torch.as_tensor(result), group=group)
+
+
+def gather_all_pytrees(trees: List[Any], group: Optional[Any] = None) -> List[Any]:
+    """Every tensor leaf of ``trees`` (dicts, lists, tuples) in ONE
+    descriptor round and ONE payload round, through the active transport.
+
+    Returns one tree per input tree with each leaf replaced by the list of
+    the group members' tensors, exactly what mapping
+    :func:`gather_all_tensors` over the leaves gives, at two rounds in all.
+    The leaf count must agree across processes; shapes, ndims and dtypes may
+    differ between groups."""
+    from metrics_tpu_torch.transport import resolve_transport
+
+    return resolve_transport().gather_pytrees(trees, group=group)
+
+
+#: the all_reduce each elementwise reduction joins ("mean" sums, then divides)
+_REDUCE_OPS = {"sum": "sum", "mean": "sum", "max": "max", "min": "min"}
+
+
+def sync_state_packed(
+    state: Dict[str, Union[Tensor, List[Tensor]]],
+    reductions: Dict[str, Any],
+    process_group: Any,
+) -> Dict[str, Union[Tensor, List[Tensor]]]:
+    """The state synced over ``process_group`` (a ``ProcessGroup``, e.g.
+    ``torch.distributed.group.WORLD``) with one collective per bucket.
+
+    The eager counterpart of ``metrics_tpu/utilities/distributed.py:1152``:
+
+    * ``"sum"``/``"mean"``/``"max"``/``"min"`` leaves are flattened and
+      concatenated per (reduction, dtype) into ONE ``all_reduce`` (a
+      ``"mean"`` leaf sums and is divided by the group's size);
+    * ``"cat"`` and ``None`` leaves ride one pair of protocol rounds: a
+      ``"cat"`` leaf comes back concatenated in rank order, a ``None`` leaf
+      stacked ``(world, ...)``;
+    * a callable reduction keeps its own gather and sees the stacked leaf.
+
+    List states are concatenated first; an empty one contributes the
+    protocol's placeholder and stays as it was when every member is empty.
+    Integer, extremal and gathered leaves equal the gather path
+    (:meth:`Metric.sync`) bit for bit, float sums to reassociation.
+    """
+    if not isinstance(process_group, dist.ProcessGroup):
+        raise TypeError(
+            "sync_state_packed reduces over a torch.distributed ProcessGroup (e.g."
+            f" torch.distributed.group.WORLD); got {process_group!r}"
+        )
+    device = _exchange_device(process_group)
+    # where an empty list state's placeholder lives: beside the other states
+    home = next((t.device for v in state.values() for t in (v if isinstance(v, list) else [v])), device)
+    synced: Dict[str, Union[Tensor, List[Tensor]]] = {}
+    buckets: Dict[Tuple[str, torch.dtype], List[Tuple[str, Tensor]]] = {}
+    gathers: List[Tuple[str, Tensor, Any]] = []
+    callables: List[Tuple[str, Tensor, Callable]] = []
+    for name, value in state.items():
+        fx = reductions.get(name)
+        if isinstance(value, list):
+            fx = "cat" if fx is None else fx
+            if not value:
+                if fx != "cat":
+                    synced[name] = value
+                    continue
+                value = torch.zeros((0,), dtype=torch.float32, device=home)
+            else:
+                value = torch.cat([torch.atleast_1d(v) for v in value])
+        if callable(fx):
+            callables.append((name, value, fx))
+        elif fx in _REDUCE_OPS:
+            buckets.setdefault((_REDUCE_OPS[fx], value.dtype), []).append((name, value))
+        elif fx in ("cat", None):
+            gathers.append((name, value, fx))
+        else:
+            raise ValueError(f"Unknown dist_reduce_fx: {fx!r}")
+
+    world = dist.get_world_size(process_group)
+    ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
+    for (op, _), entries in buckets.items():
+        buf = torch.cat([v.reshape(-1) for _, v in entries]).to(device)
+        dist.all_reduce(buf, op=ops[op], group=process_group)
+        offset = 0
+        for name, value in entries:
+            piece = buf[offset : offset + value.numel()].reshape(value.shape).to(value.device)
+            offset += value.numel()
+            if reductions.get(name) == "mean":
+                piece = (piece if piece.is_floating_point() else piece.float()) / world
+            synced[name] = piece
+
+    if gathers:
+        members = _gather_all_leaves([v for _, v, _ in gathers], process_group)
+        for (name, value, fx), pieces in zip(gathers, members):
+            if isinstance(state[name], list):
+                filled = [p for p in pieces if p.numel() > 0]
+                synced[name] = [torch.cat(filled)] if filled else state[name]
+            elif fx == "cat":
+                synced[name] = torch.cat([torch.atleast_1d(p) for p in pieces])
+            else:
+                synced[name] = torch.stack(pieces)
+    for name, value, fx in callables:
+        synced[name] = fx(torch.stack(_gather_all_leaves([value], process_group)[0]))
+    return {name: synced[name] for name in state}

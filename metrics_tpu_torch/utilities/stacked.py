@@ -61,7 +61,7 @@ def vmap_update(metric: Any, body: Optional[Callable] = None) -> Callable:
 def vmap_compute(metric: Any) -> Callable:
     """``torch.func.vmap`` of one child's pure compute over the leading stack
     axis: ``stacked_state -> stacked values`` (no cross-process sync)."""
-    return torch.func.vmap(metric.apply_compute)
+    return torch.func.vmap(lambda state: metric.apply_compute(state, process_group=None))
 
 
 def row_states(metric: Any, args: Tuple, kwargs: Dict) -> Dict[str, Any]:

@@ -525,8 +525,9 @@ class MultiTenantCollection:
 
     def compute(self) -> Dict[str, Any]:
         """``{member name: per-tenant values}`` — each bundle syncs once
-        (cross-process gather of the stacked leaves) and fans out to every
-        member's own compute, vmapped over the tenant axis."""
+        (its stacked leaves in one descriptor round and one payload round,
+        whatever the number of tenants) and fans out to every member's own
+        compute, vmapped over the tenant axis."""
         out: Dict[str, Any] = {}
         keyed = self._require_built()
         for owner, names in self._layout:

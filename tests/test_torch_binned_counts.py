@@ -9,8 +9,8 @@ case and every bin edge with its float32 neighbours. Counts of ones are
 exact in float32, so no tolerance applies. The ``hist_*`` curve functions
 are held within 1e-6 of the JAX ones on the same histograms, and
 ``binned_tp_fp_fn`` exactly. The wrapper runs the plain version for a CPU
-tensor and launches nothing; the cases that launch kernel B5 carry the
-``cuda`` marker and skip here. The kernel's plan (``histogram_plan``: tile
+tensor and launches nothing; the cases that launch kernel B5 live in
+``tests/test_torch_card.py``. The kernel's plan (``histogram_plan``: tile
 width, row chunks, mode, shared memory) and load width are pure functions
 held here; the CUDA path's plumbing (one C call, no fill, no device context)
 is held against a fake library; and the class-id label form is held exact
@@ -46,13 +46,6 @@ from metrics_tpu_torch.kernels.binned_counts import (
 )
 
 _OP = "label_score_histograms"
-
-
-@pytest.fixture
-def cuda_device():
-    if not _common.cuda_kernels_available():
-        pytest.skip("needs a Hopper (sm_90) CUDA card")
-    return torch.device("cuda")
 
 
 @pytest.fixture(autouse=True)
@@ -215,20 +208,6 @@ class TestLabelScoreHistograms:
         np.testing.assert_array_equal(pos.sum(0).numpy(), want[0].numpy())
         np.testing.assert_array_equal(neg.sum(0).numpy(), want[1].numpy())
         assert _common.dispatch_count(_OP, "torch") == 0  # the wrapper was not reached
-
-    @pytest.mark.cuda
-    @pytest.mark.parametrize("n,c,b", [(1024, 1000, 2048), (10_000, 1, 2048), (7, 3, 4096), (1023, 3, 4096),
-                                       (300, 7, 2048), (64, 1001, 2048), (1, 1, 2048), (100_000, 10, 2048),
-                                       (16, 4, 65536)])
-    def test_kernel_matches_the_plain_version(self, cuda_device, n, c, b):
-        gen = torch.Generator(device=cuda_device).manual_seed(n + c)
-        preds = torch.rand((n, c), generator=gen, device=cuda_device)
-        target = torch.randint(0, 2, (n, c), generator=gen, device=cuda_device, dtype=torch.int32)
-        got = label_score_histograms_cuda(preds, target, b, device=cuda_device)
-        torch.cuda.synchronize()
-        for g, w in zip(got, label_score_histograms_torch(preds, target, b)):
-            assert torch.equal(g, w)
-        assert _common.launch_count(_OP) == 1
 
 
 class TestHistCurves:
@@ -481,16 +460,3 @@ class TestClassIdLabels:
         np.testing.assert_array_equal(pos.sum(0).numpy(), want[0].numpy())
         np.testing.assert_array_equal(neg.sum(0).numpy(), want[1].numpy())
         assert _common.dispatch_count(_OP, "torch") == 1  # the flat call only: under the vmap no wrapper is reached
-
-    @pytest.mark.cuda
-    @pytest.mark.parametrize("n,c,b", [(1024, 1000, 2048), (64, 1001, 2048), (100_000, 10, 2048), (16, 4, 65536)])
-    @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
-    def test_kernel_matches_the_plain_version(self, cuda_device, n, c, b, dtype):
-        gen = torch.Generator(device=cuda_device).manual_seed(n + c)
-        preds = torch.rand((n, c), generator=gen, device=cuda_device)
-        ids = torch.randint(-1, c + 1, (n,), generator=gen, device=cuda_device).to(dtype)
-        got = _label_score_histograms_onevsrest(preds, ids, b)
-        torch.cuda.synchronize()
-        for g, w in zip(got, bc._onevsrest_torch(preds, ids, b)):
-            assert torch.equal(g, w)
-        assert _common.launch_count(_OP) == 1

@@ -1,0 +1,215 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every case here launches a kernel of ``metrics_tpu_torch/csrc`` and needs a
+Hopper card: each carries the ``cuda`` marker and skips where there is none.
+The file imports ``torch`` and the port only (no JAX, no ``metrics_tpu``),
+so it runs on a machine that has no JAX:
+
+    python -m pytest -m cuda tests/test_torch_card.py
+
+Each kernel is held against its plain version (``<op>_torch``) on the same
+CUDA tensors, exactly (B3's float sums too: the inputs are integer-valued),
+and must count one launch per call; the keyed collection on the card must
+equal the same collection on the CPU.
+"""
+import numpy as np
+import pytest
+import torch
+
+import metrics_tpu_torch as T
+from metrics_tpu_torch.kernels import _common
+from metrics_tpu_torch.kernels import binned_counts as bc
+from metrics_tpu_torch.kernels.binned_counts import (
+    _label_score_histograms_onevsrest,
+    label_score_histograms_cuda,
+    label_score_histograms_torch,
+)
+from metrics_tpu_torch.kernels.confusion_matrix import confmat_counts_cuda, confmat_counts_torch
+from metrics_tpu_torch.kernels.segment_scatter import (
+    segment_scatter_add_cuda,
+    segment_scatter_add_torch,
+    segment_scatter_max_cuda,
+    segment_scatter_max_torch,
+    segment_scatter_min_cuda,
+    segment_scatter_min_torch,
+)
+from metrics_tpu_torch.kernels.stat_scores import stat_scores_counts_cuda, stat_scores_counts_torch
+
+_TORCH = {"add": segment_scatter_add_torch, "max": segment_scatter_max_torch, "min": segment_scatter_min_torch}
+_CUDA = {"add": segment_scatter_add_cuda, "max": segment_scatter_max_cuda, "min": segment_scatter_min_cuda}
+_HIST = "label_score_histograms"
+C = 10
+
+
+@pytest.fixture
+def cuda_device():
+    if not _common.cuda_kernels_available():
+        pytest.skip("needs a Hopper (sm_90) CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.fixture(autouse=True)
+def _zero_counters():
+    _common.reset_dispatch_counters()
+    yield
+    _common.reset_dispatch_counters()
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x))
+
+
+def _assert_exact(got, want):
+    """Equal values, NaN equal to NaN, and the same sign of zero (the sign
+    bit of a NaN carries nothing and is not compared)."""
+    want = np.asarray(want)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(np.signbit(got) & ~np.isnan(got), np.signbit(want) & ~np.isnan(want))
+
+
+# -- B1 and B2 --------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c", [(1, 1), (1023, 129), (1024, 1000), (4096, 2048)])
+def test_stat_scores_kernel_matches_plain(cuda_device, n, c):
+    rng = np.random.RandomState(c)
+    preds, target = (torch.from_numpy(rng.randint(0, 2, (n, c)).astype(np.int32)).to(cuda_device) for _ in range(2))
+    got = stat_scores_counts_cuda(preds, target)
+    torch.cuda.synchronize()
+    for g, w in zip(got, stat_scores_counts_torch(preds, target)):
+        assert torch.equal(g, w)
+    assert _common.launch_count("stat_scores_counts") == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,dtype", [(1, 1000, torch.int64), (1024, 3, torch.int64), (1024, 64, torch.int32),
+                                       (1024, 1000, torch.int64)])
+def test_confmat_kernel_matches_plain(cuda_device, n, c, dtype):
+    rng = np.random.RandomState(c)
+    preds, target = (torch.from_numpy(rng.randint(0, c, n)).to(cuda_device, dtype) for _ in range(2))
+    got = confmat_counts_cuda(preds, target, c)
+    torch.cuda.synchronize()
+    assert torch.equal(got, confmat_counts_torch(preds, target, c))
+    assert _common.launch_count("confmat_counts") == 1
+
+
+@pytest.mark.cuda
+def test_b1_b2_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    p = torch.zeros(8, 4, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(TypeError):
+        stat_scores_counts_cuda(p, p)
+    q = torch.zeros(4, 8, dtype=torch.int32, device=cuda_device).t()
+    with pytest.raises(ValueError):
+        stat_scores_counts_cuda(q, q)
+    with pytest.raises(TypeError):
+        confmat_counts_cuda(p[:, 0].contiguous(), p[:, 0].int().contiguous(), 3)
+    assert _common.launch_count("stat_scores_counts") == 0
+
+
+# -- B3 and B4 --------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["add", "max", "min"])
+@pytest.mark.parametrize("r,s,d", [(4096, 10_000, 40), (4096, 10_000, 8), (4096, 10_000, 6), (4096, 10_000, 4),
+                                   (4096, 10_000, 3), (4096, 10_000, 2), (4096, 10_000, 1), (1, 1, 1),
+                                   (4099, 100_000, 3), (300, 64, 16)])
+@pytest.mark.parametrize("offset", [0, 1, 2])
+@pytest.mark.parametrize("ids_dtype", [torch.int64, torch.int32])
+def test_segment_scatter_kernel_matches_plain(cuda_device, op, r, s, d, offset, ids_dtype):
+    """Bit for bit the plain version, with rows that start 0, 4 or 8 bytes
+    into their buffer (float4, scalar or float2 access for B3 where D
+    allows) and int64 or int32 ids, invalid ones among them."""
+    rng = np.random.RandomState(r + 10 * d + offset)
+    buf = torch.from_numpy(rng.randint(-3, 4, r * d + offset).astype(np.float32)).to(cuda_device)
+    rows = buf[offset:offset + r * d].view(r, d)
+    ids = torch.from_numpy(rng.randint(-1, s + 8, r)).to(ids_dtype).to(cuda_device)
+    got = _CUDA[op](rows, ids, s)
+    torch.cuda.synchronize()
+    for g, w in zip(got, _TORCH[op](rows, ids, s)):
+        _assert_exact(g.cpu().numpy(), w.cpu().numpy())
+    assert _common.launch_count(f"segment_scatter_{op}") == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["max", "min"])
+def test_extremal_kernel_nan_and_signed_zero(cuda_device, op):
+    rows = torch.tensor([[np.nan], [1.0], [-0.0], [0.0], [0.0], [-0.0], [np.inf], [-np.inf]], device=cuda_device)
+    ids = torch.tensor([0, 0, 1, 1, 2, 2, 3, 3], device=cuda_device)
+    got, _ = _CUDA[op](rows, ids, 5)
+    want, _ = _TORCH[op](rows, ids, 5)
+    torch.cuda.synchronize()
+    _assert_exact(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_b3_b4_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    ids = torch.zeros(4, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(TypeError):
+        segment_scatter_add_cuda(torch.zeros(4, 2, dtype=torch.float64, device=cuda_device), ids, 3)
+    with pytest.raises(ValueError):
+        segment_scatter_max_cuda(torch.zeros(2, 4, device=cuda_device).t(), ids, 3)
+    assert _common.launch_count("segment_scatter_add") == 0
+
+
+# -- B5 ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,b", [(1024, 1000, 2048), (10_000, 1, 2048), (7, 3, 4096), (1023, 3, 4096),
+                                   (300, 7, 2048), (64, 1001, 2048), (1, 1, 2048), (100_000, 10, 2048),
+                                   (16, 4, 65536)])
+def test_histogram_kernel_matches_plain(cuda_device, n, c, b):
+    gen = torch.Generator(device=cuda_device).manual_seed(n + c)
+    preds = torch.rand((n, c), generator=gen, device=cuda_device)
+    target = torch.randint(0, 2, (n, c), generator=gen, device=cuda_device, dtype=torch.int32)
+    got = label_score_histograms_cuda(preds, target, b, device=cuda_device)
+    torch.cuda.synchronize()
+    for g, w in zip(got, label_score_histograms_torch(preds, target, b)):
+        assert torch.equal(g, w)
+    assert _common.launch_count(_HIST) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,b", [(1024, 1000, 2048), (64, 1001, 2048), (100_000, 10, 2048), (16, 4, 65536)])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_histogram_kernel_with_class_ids_matches_plain(cuda_device, n, c, b, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(n + c)
+    preds = torch.rand((n, c), generator=gen, device=cuda_device)
+    ids = torch.randint(-1, c + 1, (n,), generator=gen, device=cuda_device).to(dtype)
+    got = _label_score_histograms_onevsrest(preds, ids, b)
+    torch.cuda.synchronize()
+    for g, w in zip(got, bc._onevsrest_torch(preds, ids, b)):
+        assert torch.equal(g, w)
+    assert _common.launch_count(_HIST) == 1
+
+
+# -- the keyed collection ------------------------------------------------------------
+
+
+def _members(**device):
+    kw = dict(average="macro", num_classes=C, **device)
+    return {"Accuracy": T.Accuracy(**device), "Precision": T.Precision(**kw), "Recall": T.Recall(**kw),
+            "F1": T.F1(**kw)}
+
+
+@pytest.mark.cuda
+def test_keyed_collection_on_the_card_matches_the_cpu(cuda_device):
+    rng = np.random.RandomState(10)
+    card = T.MultiTenantCollection(_members(device=cuda_device), 50, validate_ids=False, device=cuda_device)
+    host = T.MultiTenantCollection(_members(device="cpu"), 50, validate_ids=False, device="cpu")
+    for _ in range(3):
+        ids = rng.randint(-1, 51, 256)
+        logits = rng.rand(256, C).astype(np.float32)
+        preds, target = logits / logits.sum(-1, keepdims=True), rng.randint(0, C, 256)
+        card.update(_t(ids).to(cuda_device), _t(preds).to(cuda_device), _t(target).to(cuda_device))
+        host.update(_t(ids), _t(preds), _t(target))
+    assert _common.launch_count("segment_scatter_add") == 6 and _common.launch_count("segment_scatter_max") == 3
+    assert _common.launch_count("stat_scores_counts") == 0
+    for owner, km in host._keyed.items():
+        for name, value in km._get_states().items():
+            assert torch.equal(getattr(card._keyed[owner], name).cpu(), value)
+    got, want = card.compute(), host.compute()
+    for name in want:
+        torch.testing.assert_close(got[name].cpu(), want[name], rtol=1e-6, atol=1e-7, equal_nan=True)

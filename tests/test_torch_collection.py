@@ -153,6 +153,7 @@ def test_port_imports_neither_jax_nor_metrics_tpu():
         "import metrics_tpu_torch.wrappers, metrics_tpu_torch.utilities.stacked, metrics_tpu_torch.kernels.segment_scatter\n"
         "import metrics_tpu_torch.kernels.binned_counts, metrics_tpu_torch.kernels.sketches\n"
         "import metrics_tpu_torch.utilities.sketching, metrics_tpu_torch.classification.binned_precision_recall\n"
+        "import metrics_tpu_torch.transport, metrics_tpu_torch.utilities.distributed\n"
         "bad = [m for m in sys.modules if m in ('jax', 'metrics_tpu') or m.startswith(('jax.', 'metrics_tpu.'))]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
     )
@@ -171,11 +172,15 @@ def _imported_modules(path: Path):
 
 
 def test_port_sources_import_neither_jax_nor_metrics_tpu():
-    files = sorted((ROOT / "metrics_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "metrics_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tests/test_torch_card.py"]
     assert len(files) > 10
     for new in ("wrappers/__init__.py", "wrappers/multitenant.py", "utilities/stacked.py", "kernels/segment_scatter.py",
                 "kernels/binned_counts.py", "kernels/sketches.py", "utilities/sketching.py", "classification/auroc.py",
-                "functional/classification/precision_recall_curve.py"):
+                "functional/classification/precision_recall_curve.py", "transport/__init__.py", "transport/base.py",
+                "transport/gather.py", "transport/loopback.py", "utilities/distributed.py", "classification/iou.py",
+                "classification/cohen_kappa.py", "classification/matthews_corrcoef.py", "classification/specificity.py",
+                "functional/classification/iou.py", "functional/classification/cohen_kappa.py",
+                "functional/classification/matthews_corrcoef.py", "functional/classification/specificity.py"):
         assert ROOT / "metrics_tpu_torch" / new in files
     for path in files:
         for name in _imported_modules(path):

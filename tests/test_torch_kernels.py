@@ -8,8 +8,8 @@ answers: the capability of a device is asked once, and a resolved C entry is
 read without the lock, a resolved device is taken as it is. The CUDA path's
 plumbing of B1 and B2 (one call into the C library with the device index
 and the stream handle, no ``torch.cuda.device`` context) is held against a
-fake library. The cases that launch the CUDA kernels need a card; they carry
-the ``cuda`` marker and skip here.
+fake library. The cases that launch the CUDA kernels need a card: they live
+in ``tests/test_torch_card.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -23,13 +23,6 @@ from metrics_tpu_torch.kernels import confusion_matrix as cm
 from metrics_tpu_torch.kernels import stat_scores as st
 from metrics_tpu_torch.kernels.confusion_matrix import confmat_counts_cuda, confmat_counts_torch
 from metrics_tpu_torch.kernels.stat_scores import stat_scores_counts_cuda, stat_scores_counts_torch
-
-
-@pytest.fixture
-def cuda_device():
-    if not _common.cuda_kernels_available():
-        pytest.skip("needs a Hopper (sm_90) CUDA card")
-    return torch.device("cuda")
 
 
 @pytest.fixture(autouse=True)
@@ -264,38 +257,3 @@ def test_a_failed_launch_raises_and_is_not_counted(fake_library, op):
             cm._counts_cuda(torch.ones(4, dtype=torch.int64), torch.ones(4, dtype=torch.int64), 3,
                             torch.device("cpu"))
     assert _common.launch_count(op) == 0 and _common.dispatch_count(op, "torch") == 0
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n,c", [(1, 1), (1023, 129), (1024, 1000), (4096, 2048)])
-def test_stat_scores_kernel_matches_plain(cuda_device, n, c):
-    preds, target = (torch.from_numpy(x).to(cuda_device) for x in _binary(n, c, seed=c))
-    got = stat_scores_counts_cuda(preds, target)
-    torch.cuda.synchronize()
-    for g, w in zip(got, stat_scores_counts_torch(preds, target)):
-        assert torch.equal(g, w)
-    assert _common.launch_count("stat_scores_counts") == 1
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n,c,dtype", [(1, 1000, torch.int64), (1024, 3, torch.int64), (1024, 64, torch.int32),
-                                       (1024, 1000, torch.int64)])
-def test_confmat_kernel_matches_plain(cuda_device, n, c, dtype):
-    preds, target = (torch.from_numpy(x).to(cuda_device, dtype) for x in _labels(n, c, seed=c))
-    got = confmat_counts_cuda(preds, target, c)
-    torch.cuda.synchronize()
-    assert torch.equal(got, confmat_counts_torch(preds, target, c))
-    assert _common.launch_count("confmat_counts") == 1
-
-
-@pytest.mark.cuda
-def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
-    p = torch.zeros(8, 4, dtype=torch.int64, device=cuda_device)
-    with pytest.raises(TypeError):
-        stat_scores_counts_cuda(p, p)
-    q = torch.zeros(4, 8, dtype=torch.int32, device=cuda_device).t()
-    with pytest.raises(ValueError):
-        stat_scores_counts_cuda(q, q)
-    with pytest.raises(TypeError):
-        confmat_counts_cuda(p[:, 0].contiguous(), p[:, 0].int().contiguous(), 3)
-    assert _common.launch_count("stat_scores_counts") == 0

@@ -31,13 +31,6 @@ C = 10
 CPU = {"device": "cpu"}
 
 
-@pytest.fixture
-def cuda_device():
-    if not _common.cuda_kernels_available():
-        pytest.skip("needs a Hopper (sm_90) CUDA card")
-    return torch.device("cuda")
-
-
 @pytest.fixture(autouse=True)
 def _zero_counters():
     _common.reset_dispatch_counters()
@@ -505,23 +498,3 @@ def test_injected_sync_doubles_sum_leaves_and_keeps_the_max_leaf():
     _assert_values(keyed.compute(), plain.compute())  # ratios of doubled counts
     for name, value in before.items():
         assert torch.equal(getattr(keyed, name), value)  # local states restored
-
-
-@pytest.mark.cuda
-def test_keyed_collection_on_the_card_matches_the_cpu(cuda_device):
-    rng = np.random.RandomState(10)
-    card = T.MultiTenantCollection(_members(T, device=cuda_device), 50, validate_ids=False, device=cuda_device)
-    host = T.MultiTenantCollection(_members(T, **CPU), 50, validate_ids=False, **CPU)
-    for _ in range(3):
-        ids = rng.randint(-1, 51, 256)
-        preds, target = _probs_batch(rng, rows=256, c=C)
-        card.update(_t(ids).to(cuda_device), _t(preds).to(cuda_device), _t(target).to(cuda_device))
-        host.update(_t(ids), _t(preds), _t(target))
-    assert _common.launch_count("segment_scatter_add") == 6 and _common.launch_count("segment_scatter_max") == 3
-    assert _common.launch_count("stat_scores_counts") == 0
-    for owner, km in host._keyed.items():
-        for name, value in km._get_states().items():
-            assert torch.equal(getattr(card._keyed[owner], name).cpu(), value)
-    got, want = card.compute(), host.compute()
-    for name in want:
-        torch.testing.assert_close(got[name].cpu(), want[name], rtol=1e-6, atol=1e-7, equal_nan=True)

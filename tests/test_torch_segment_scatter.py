@@ -12,7 +12,7 @@ Pallas-vs-XLA tolerance: the one-hot contraction rounds differently). Shapes
 above the Pallas kernels' VMEM gates (S > 1024, D > 511 for sums or > 16 for
 extrema) are held against ``_xla`` only. The wrappers run the plain version
 for a CPU tensor and launch nothing; the cases that launch the CUDA kernels
-carry the ``cuda`` marker and skip here. The CUDA path's plumbing (one call
+live in ``tests/test_torch_card.py``. The CUDA path's plumbing (one call
 into the C library, outputs left unfilled for it, the vector width, the
 32-bit size limit, a failed launch raising) is tested on the CPU against a
 stand-in for the library.
@@ -48,13 +48,6 @@ _XLA = {"add": segment_scatter_add_xla, "max": segment_scatter_max_xla, "min": s
 _PALLAS = {"add": segment_scatter_add_pallas, "max": segment_scatter_max_pallas, "min": segment_scatter_min_pallas}
 #: the Pallas kernels' VMEM gates (metrics_tpu/kernels/segment_scatter.py:56-59,177)
 _PALLAS_MAX_S, _PALLAS_MAX_D = 1024, {"add": 511, "max": 16, "min": 16}
-
-
-@pytest.fixture
-def cuda_device():
-    if not _common.cuda_kernels_available():
-        pytest.skip("needs a Hopper (sm_90) CUDA card")
-    return torch.device("cuda")
 
 
 @pytest.fixture(autouse=True)
@@ -375,47 +368,3 @@ def test_a_failed_launch_raises_and_is_not_counted(fake_library, op, code):
     with pytest.raises(RuntimeError, match="CUDA error 700"):
         ss._scatter_cuda(name, code, torch.ones(8, 4), torch.arange(8), 10, torch.device("cpu"))
     assert _common.launch_count(name) == 0
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("op", ["add", "max", "min"])
-@pytest.mark.parametrize("r,s,d", [(4096, 10_000, 40), (4096, 10_000, 8), (4096, 10_000, 6), (4096, 10_000, 4),
-                                   (4096, 10_000, 3), (4096, 10_000, 2), (4096, 10_000, 1), (1, 1, 1),
-                                   (4099, 100_000, 3), (300, 64, 16)])
-@pytest.mark.parametrize("offset", [0, 1, 2])
-@pytest.mark.parametrize("ids_dtype", [torch.int64, torch.int32])
-def test_kernel_matches_plain(cuda_device, op, r, s, d, offset, ids_dtype):
-    """Bit for bit the plain version, with rows that start 0, 4 or 8 bytes
-    into their buffer (float4, scalar or float2 access for B3 where D
-    allows) and int64 or int32 ids, invalid ones among them."""
-    rng = np.random.RandomState(r + 10 * d + offset)
-    buf = torch.from_numpy(rng.randint(-3, 4, r * d + offset).astype(np.float32)).to(cuda_device)
-    rows = buf[offset:offset + r * d].view(r, d)
-    ids = torch.from_numpy(rng.randint(-1, s + 8, r)).to(ids_dtype).to(cuda_device)
-    got = _CUDA[op](rows, ids, s)
-    torch.cuda.synchronize()
-    for g, w in zip(got, _TORCH[op](rows, ids, s)):
-        _assert_exact(g.cpu().numpy(), w.cpu().numpy())
-    assert _common.launch_count(f"segment_scatter_{op}") == 1
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("op", ["max", "min"])
-def test_extremal_kernel_nan_and_signed_zero(cuda_device, op):
-    rows = torch.tensor([[np.nan], [1.0], [-0.0], [0.0], [0.0], [-0.0], [np.inf], [-np.inf]], device=cuda_device)
-    ids = torch.tensor([0, 0, 1, 1, 2, 2, 3, 3], device=cuda_device)
-    got, _ = _CUDA[op](rows, ids, 5)
-    want, _ = _TORCH[op](rows, ids, 5)
-    torch.cuda.synchronize()
-    _assert_exact(got.cpu().numpy(), want.cpu().numpy())
-
-
-@pytest.mark.cuda
-def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
-    ids = torch.zeros(4, dtype=torch.int64, device=cuda_device)
-    with pytest.raises(TypeError):
-        segment_scatter_add_cuda(torch.zeros(4, 2, dtype=torch.float64, device=cuda_device), ids, 3)
-    with pytest.raises(ValueError):
-        segment_scatter_max_cuda(torch.zeros(2, 4, device=cuda_device).t(), ids, 3)
-    assert _common.launch_count("segment_scatter_add") == 0
-
