@@ -65,6 +65,27 @@ Phases, in order; any failure exits non-zero before the last line:
    with ``sketched=True`` and into the exact ``AUROC()``. B5 must launch 300
    times; the sketched states must equal the CPU's exactly and the values
    within 1e-6; the sketched AUROC must lie within 5e-3 of the exact one.
+3f. The leftovers at full width: the same 49 batches through
+   ``HammingDistance``, ``Hinge(multiclass_mode="crammer-singer")``,
+   ``KLDivergence`` (the softmax rows against seeded target distributions)
+   and ``AverageMeter`` (of each batch's top-1 confidences), by ``forward``,
+   and through the composition ``2 * P * R / (P + R)`` of macro Precision
+   and Recall, by ``update``. Each value must equal the CPU run's within
+   1e-6, and B1 must launch as often as the CPU run dispatches its plain
+   version (4 per step: the tree holds P and R twice, and each occurrence
+   updates). The per-step time.
+3g. What telemetry costs: the collection's ``forward`` (three passes of the
+   49 batches) and the keyed ``update`` (the 50 batches) with telemetry on
+   and off, interleaved call by call in this process; both medians and
+   their ratio; and the synchronizing calls of the 49 forwards and of the
+   50 updates counted by ``torch.cuda.set_sync_debug_mode``, on and off,
+   which must be equal.
+   Telemetry stays on (the default) in every other phase; after each of
+   3-3d and 3f, ``observability.snapshot()`` must count every op's launches
+   as ``launch_count`` does, and each object on the card must hold the
+   counters and info blobs of its twin driven on the CPU through the same
+   calls (the keyed collection counts the last batch's 1096 pad rows under
+   ``invalid_tenant_ids``).
 3e. The epoch-end sync over ``torch.distributed``: an NCCL group of world
    size 1 (tcp on localhost). The gather protocol
    (``utilities/distributed.py::_gather_all_leaves``) runs on the ImageNet
@@ -74,6 +95,8 @@ Phases, in order; any failure exits non-zero before the last line:
    states makes one ``all_reduce`` per bucket and gives the states back. The
    median time of each over 49 repetitions is printed beside the card. One
    card cannot show a sync of two ranks; the gloo tests show it on the CPU.
+   The telemetry of the two bundles' gathers must read 2 gathers, 2
+   descriptor and 2 payload rounds, and one span per round.
 4. Times at the main-path shapes: the median of 50 CUDA-event-timed calls
    of each kernel's wrapper, of its plain version and of the one PyTorch
    call that computes the same function (where there is one), each beside
@@ -263,6 +286,7 @@ def sync_phase(torch, gpu, keyed_gpu, card) -> dict:
     import warnings
 
     import torch.distributed as dist
+    from metrics_tpu_torch import observability
     from metrics_tpu_torch.utilities import distributed as mdist
 
     with socket.socket() as s:
@@ -291,6 +315,7 @@ def sync_phase(torch, gpu, keyed_gpu, card) -> dict:
         # the first collective of the group sets NCCL's communicator up
         mdist._gather_all_leaves(mdist._tree_leaves(bundles["imagenet_collection"], []), None)
         torch.cuda.synchronize()
+        observability.reset()
         for name, trees in bundles.items():
             leaves = mdist._tree_leaves(trees, [])
             calls["all_gather"] = 0
@@ -312,6 +337,18 @@ def sync_phase(torch, gpu, keyed_gpu, card) -> dict:
                          "synchronizing_calls": host_syncs}
             print(f"[sync] {name}: {len(leaves)} leaves, {payload} bytes, 2 all_gather calls, bit-identical on "
                   f"the card; synchronizing calls seen by the sync debug mode: {host_syncs}")
+
+        sync = observability.snapshot()["sync"]
+        rounds = {b: sum(s.bucket == b for s in observability.TRACER.records())
+                  for b in ("descriptor", "payload", "transport")}
+        if (sync["gathers"], sync["descriptor_rounds"], sync["payload_rounds"]) != (2, 2, 2) or rounds != {
+                "descriptor": 2, "payload": 2, "transport": 2}:
+            fail(f"the two bundles' gathers recorded {sync['gathers']} gathers, {sync['descriptor_rounds']} "
+                 f"descriptor and {sync['payload_rounds']} payload rounds, spans {rounds}; expected 2 of each")
+        out["telemetry"] = {k: sync[k] for k in ("gathers", "gather_leaves", "descriptor_rounds", "payload_rounds",
+                                                 "payload_bytes_out", "transport_bytes")}
+        out["telemetry"]["spans"] = rounds
+        print(f"[sync] telemetry of the two gathers: {json.dumps(out['telemetry'], sort_keys=True)}")
 
         state, reductions = {}, {}
         for n, m in gpu.items(keep_base=True):
@@ -365,6 +402,63 @@ def sync_phase(torch, gpu, keyed_gpu, card) -> dict:
     finally:
         mdist._all_gather, dist.all_reduce = real_gather, real_reduce
         dist.destroy_process_group()
+    return out
+
+
+def telemetry_cost(torch, M, dev, batches, keyed_batches, card) -> dict:
+    """Phase 3g: the ImageNet-1k collection's forward and the keyed
+    collection's update with telemetry on and off, interleaved call by call
+    in this one process (the order alternates), over three passes of the 49
+    forwards and one of the 50 updates; then the synchronizing calls of the
+    49 forwards and of the 50 updates in each state, which must be equal,
+    and come from the same lines, over two passes each (a first pass under
+    the debug mode, not counted, takes what happens once)."""
+    from metrics_tpu_torch import observability
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - start) * 1e3
+
+    coll, keyed = build_collection(M, dev), build_keyed(M, dev)
+    coll(*batches[0])
+    keyed.update(*keyed_batches[0])
+    times = {"forward": {"on": [], "off": []}, "keyed_update": {"on": [], "off": []}}
+    calls = [("forward", coll, args) for _ in range(3) for args in batches]
+    calls += [("keyed_update", keyed.update, args) for args in keyed_batches]
+    try:
+        for i, (what, fn, args) in enumerate(calls):
+            for state in (("on", "off") if i % 2 == 0 else ("off", "on")):
+                observability.enable(state == "on")
+                times[what][state].append(timed(fn, *args))
+        # a first pass under the debug mode takes whatever it does once;
+        # then off, on, on, off
+        sites = {f"{what}_{state}": [] for what in ("forward", "keyed_update") for state in ("on", "off")}
+        for state in ("warmup", "off", "on", "on", "off"):
+            observability.enable(state != "off")
+            forward_sites = sync_calls(torch, lambda: [coll(*args) for args in batches])
+            keyed_sites = sync_calls(torch, lambda: [keyed.update(*args) for args in keyed_batches])
+            if state != "warmup":
+                sites[f"forward_{state}"] += forward_sites
+                sites[f"keyed_update_{state}"] += keyed_sites
+    finally:
+        observability.enable()
+    syncs = {k: len(v) // 2 for k, v in sites.items()}  # per pass of the 49 forwards / 50 updates
+    out = {"times_ms": times, "synchronizing_calls": syncs,
+           "sync_sites": {k: {s: v.count(s) for s in sorted(set(v))} for k, v in sites.items()}}
+    for what, t in times.items():
+        on, off = statistics.median(t["on"]), statistics.median(t["off"])
+        out[what] = {"on_median_ms": on, "off_median_ms": off, "ratio": on / off, "pairs": len(t["on"])}
+        print(f"[telemetry] {what}: median {on:.4f} ms on, {off:.4f} ms off, ratio {on / off:.4f} over "
+              f"{len(t['on'])} interleaved pairs, on {card}")
+    print(f"[telemetry] synchronizing calls (sync debug mode): 49 forwards {syncs['forward_on']} on / "
+          f"{syncs['forward_off']} off; 50 keyed updates {syncs['keyed_update_on']} on / {syncs['keyed_update_off']} off")
+    for what in ("forward", "keyed_update"):
+        if sorted(sites[f"{what}_on"]) != sorted(sites[f"{what}_off"]):
+            fail(f"telemetry changes the synchronizing calls of the {what}s: {syncs}; sites on "
+                 f"{out['sync_sites'][what + '_on']}, off {out['sync_sites'][what + '_off']}")
     return out
 
 
@@ -603,6 +697,86 @@ def profile_steps(torch, step, inputs):
     top = sorted(_device_events(prof), key=lambda e: -e.self_device_time_total)[:10]
     breakdown = [{"name": e.key[:80], "calls": e.count, "device_us": e.self_device_time_total} for e in top]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "top_device": breakdown}
+
+
+KERNEL_OPS = ("stat_scores_counts", "confmat_counts", "segment_scatter_add", "segment_scatter_max",
+              "segment_scatter_min", "label_score_histograms")
+
+
+def check_telemetry(phase, pairs):
+    """After a phase: ``observability.snapshot()["kernels"]`` must count each
+    op's launches as ``launch_count`` does, and each object driven on the
+    card must hold the counters and info blobs of its twin driven on the CPU
+    through the same calls. Returns the card objects' counters."""
+    from metrics_tpu_torch import observability
+    from metrics_tpu_torch.kernels import _common
+
+    snap = observability.snapshot()
+    dispatch = snap["kernels"]["dispatch"]
+    for op in KERNEL_OPS:
+        if dispatch.get(op, {}).get("cuda", 0) != _common.launch_count(op):
+            fail(f"[{phase}] snapshot()['kernels'] counts {dispatch.get(op)} for {op}, launch_count "
+                 f"{_common.launch_count(op)}")
+    counters = {}
+    for label, card_obj, cpu_obj in pairs:
+        got = snap["metrics"].get(card_obj.telemetry_key, {})
+        want = snap["metrics"].get(cpu_obj.telemetry_key, {})
+        if got.get("counters", {}) != want.get("counters", {}) or got.get("info", {}) != want.get("info", {}):
+            fail(f"[{phase}] telemetry of {label} on the card {got.get('counters')} {got.get('info')} differs from "
+                 f"the CPU run's {want.get('counters')} {want.get('info')}")
+        counters[label] = got.get("counters", {})
+    launched = {op: dispatch[op]["cuda"] for op in KERNEL_OPS if dispatch.get(op, {}).get("cuda")}
+    print(f"[{phase}] telemetry == CPU run's for {len(pairs)} objects; snapshot kernels (cuda) {launched}; "
+          f"counters {json.dumps(counters, sort_keys=True)}")
+    return counters
+
+
+def sync_calls(torch, fn) -> list:
+    """Where the sync debug mode reports a synchronizing call while ``fn``
+    runs: one ``"file:line"`` per call."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in seen if "synchroniz" in str(w.message)]
+
+
+def make_kl_targets(torch, device):
+    """Phase 3f's seeded target distributions, one ``(n, 1000)`` softmax per
+    ImageNet-1k batch."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 4)
+    sizes = [min(BATCH, NUM_SAMPLES - start) for start in range(0, NUM_SAMPLES, BATCH)]
+    return [torch.softmax(torch.randn((n, NUM_CLASSES), generator=gen, device=device), dim=1) for n in sizes]
+
+
+def build_leftovers(M, device):
+    """Phase 3f's metrics: the leftovers, the meter and the composition
+    ``2 * P * R / (P + R)`` of macro Precision and Recall."""
+    macro = dict(average="macro", num_classes=NUM_CLASSES, device=device)
+    p, r = M.Precision(**macro), M.Recall(**macro)
+    return {
+        "HammingDistance": M.HammingDistance(device=device),
+        "Hinge": M.Hinge(multiclass_mode="crammer-singer", device=device),
+        "KLDivergence": M.KLDivergence(device=device),
+        "AverageMeter": M.AverageMeter(device=device),
+        "F1ofPR": 2 * p * r / (p + r),
+    }
+
+
+def leftovers_step(metrics, preds, target, q):
+    """One 3f step: the forwards of the leftovers and the meter (of the
+    batch's mean top-1 confidence), one update of the composition."""
+    metrics["HammingDistance"](preds, target)
+    metrics["Hinge"](preds, target)
+    metrics["KLDivergence"](preds, q)
+    metrics["AverageMeter"](preds.max(dim=1).values)
+    metrics["F1ofPR"].update(preds, target)
 
 
 def same_bits(a, b) -> bool:
@@ -880,8 +1054,9 @@ def main() -> int:
         fail(f"Accuracy {float(gpu_out['Accuracy'])} disagrees with the confusion matrix's {top1}")
     values = {k: float(v) for k, v in gpu_out.items() if v.ndim == 0}
     print(f"[main] card == CPU (max |diff| {diffs}); values {values}")
+    main_telemetry = check_telemetry("main", [(n, gpu[n], cpu[n]) for n in gpu.keys(keep_base=True)])
     record["main"] = {"launches": launches, "forward_ms": step_ms, "compute_ms": compute_ms,
-                      "values": values, "max_abs_diff_vs_cpu": diffs}
+                      "values": values, "max_abs_diff_vs_cpu": diffs, "telemetry": main_telemetry}
 
     # where a forward's time goes: device busy share over 10 steady forwards
     from torch.profiler import ProfilerActivity, profile
@@ -959,8 +1134,17 @@ def main() -> int:
     means = {name: float(value[~value.isnan()].mean()) for name, value in keyed_out.items()}
     print(f"[keyed] card == CPU (states exact; values max |diff| {keyed_diffs}); tp + fn over tenants = "
           f"{counted} real rows; tenant means {means}")
+    keyed_pairs = [("MultiTenantCollection", keyed_gpu, keyed_cpu),
+                   ("MetricCollection", keyed_gpu._collection, keyed_cpu._collection)]
+    keyed_pairs += [(f"KeyedMetric[{o}]", km, keyed_cpu._keyed[o]) for o, km in keyed_gpu._keyed.items()]
+    keyed_telemetry = check_telemetry("keyed", keyed_pairs)
+    invalid = keyed_telemetry["MultiTenantCollection"].get("invalid_tenant_ids")
+    if invalid != KEYED_ROWS - KEYED_LAST_REAL:
+        fail(f"the keyed collection counts {invalid} invalid tenant ids, expected the "
+             f"{KEYED_ROWS - KEYED_LAST_REAL} pad rows")
     record["keyed"] = {"launches": keyed_launches, "update_ms": update_ms, "compute_ms": keyed_compute_ms,
-                       "real_rows": counted, "tenant_means": means, "max_abs_diff_vs_cpu": keyed_diffs}
+                       "real_rows": counted, "tenant_means": means, "max_abs_diff_vs_cpu": keyed_diffs,
+                       "telemetry": keyed_telemetry}
 
     probe = build_keyed(M, dev)
     probe.update(*keyed_batches[0])
@@ -982,8 +1166,7 @@ def main() -> int:
                                   "top_device": breakdown}
 
     # -- 3c. the sketched curve path ------------------------------------------
-    all_ops = ("stat_scores_counts", "confmat_counts", "segment_scatter_add", "segment_scatter_max",
-               "segment_scatter_min", "label_score_histograms")
+    all_ops = KERNEL_OPS
     curves_gpu = build_curves(M, dev)
     torch.cuda.synchronize()
     _common.reset_dispatch_counters()
@@ -1030,6 +1213,7 @@ def main() -> int:
     print(f"[curves] card == CPU (histograms exact; values max |diff| {curve_diffs}); "
           f"macro AUROC {sketched_auroc:.6f}, "
           f"mean AP {mean_ap:.6f}; sketched state {state_bytes} bytes on the card")
+    curve_telemetry = check_telemetry("curves", [(n, curves_gpu[n], curves_cpu[n]) for n in curves_out])
     curve_profile = profile_steps(torch, curves_gpu.update, batches[1:11])
     print(f"[curves] 10 updates under the profiler: wall {curve_profile['wall_ms']:.3f} ms, device busy "
           f"{curve_profile['device_busy_ms']:.3f} ms (idle share "
@@ -1048,7 +1232,8 @@ def main() -> int:
     record["curves"] = {"launches": curve_launches, "update_ms": curve_update_ms, "compute_ms": curves_compute_ms,
                         "auroc": sketched_auroc, "mean_ap": mean_ap, "max_abs_diff_vs_cpu": curve_diffs,
                         "state_bytes": state_bytes, "profile": curve_profile, "exact_auroc": exact_auroc,
-                        "exact_compute_ms": exact_compute_ms, "sketched_minus_exact": sketched_auroc - exact_auroc}
+                        "exact_compute_ms": exact_compute_ms, "sketched_minus_exact": sketched_auroc - exact_auroc,
+                        "telemetry": curve_telemetry}
 
     # -- 3d. the binary scorer stream ----------------------------------------------
     chunks = make_stream(torch, dev)
@@ -1098,9 +1283,61 @@ def main() -> int:
     if stream_state_bytes != 2 * NUM_BINS * 4 + 4:
         fail(f"the sketched state holds {stream_state_bytes} bytes")
     del stream_exact
+    stream_telemetry = check_telemetry("stream", [(n, m, stream_cpu[n]) for n, m in stream_gpu.items()])
     record["stream"] = {"launches": stream_launches, "update_ms": stream_update_ms, "auroc": stream_auroc,
                         "exact_auroc": stream_exact_auroc, "max_abs_diff_vs_cpu": stream_diffs,
-                        "state_bytes_per_metric": stream_state_bytes}
+                        "state_bytes_per_metric": stream_state_bytes, "telemetry": stream_telemetry}
+
+    # -- 3f. the leftovers, the meter and a composition at full width -----------
+    kl_targets = make_kl_targets(torch, dev)
+    left_gpu = build_leftovers(M, dev)
+    torch.cuda.synchronize()
+    _common.reset_dispatch_counters()
+    left_ms = []
+    for (preds, target), q in zip(batches, kl_targets):
+        start = time.perf_counter()
+        leftovers_step(left_gpu, preds, target, q)
+        torch.cuda.synchronize()
+        left_ms.append((time.perf_counter() - start) * 1e3)
+    left_out = {name: m.compute() for name, m in left_gpu.items()}
+    left_launches = {op: _common.launch_count(op) for op in all_ops}
+    left_cpu = build_leftovers(M, "cpu")
+    _common.reset_dispatch_counters()
+    for (preds, target), q in zip(batches, kl_targets):
+        leftovers_step(left_cpu, preds.cpu(), target.cpu(), q.cpu())
+    cpu_b1 = _common.dispatch_count("stat_scores_counts", "torch")
+    left_diffs = {}
+    for name, m in left_cpu.items():
+        want = m.compute()
+        got = left_out[name].cpu()
+        if got.shape != want.shape or got.dtype != want.dtype or not bool(torch.isfinite(got).all()):
+            fail(f"[leftovers] {name}: {tuple(got.shape)} {got.dtype} on the card, {tuple(want.shape)} {want.dtype} "
+                 "on the CPU, or not finite")
+        left_diffs[name] = float((got - want).abs().max())
+        if left_diffs[name] > 1e-6:
+            fail(f"[leftovers] {name}: {got} on the card, {want} on the CPU")
+    print(f"[leftovers] 49 steps of HammingDistance, Hinge (crammer-singer), KLDivergence, AverageMeter forward + "
+          f"2PR/(P+R) update at (1024, {NUM_CLASSES}) on {kind}: launches {left_launches}; step median "
+          f"{statistics.median(left_ms):.3f} ms (first {left_ms[0]:.3f} ms); card == CPU (max |diff| {left_diffs}); "
+          f"values { {k: float(v) for k, v in left_out.items()} }")
+    # the expression tree holds P and R twice (in 2 * P * R and in P + R),
+    # and each occurrence fans the update out: four B1 launches a step
+    if left_launches["stat_scores_counts"] != cpu_b1 or cpu_b1 != 4 * len(batches):
+        fail(f"[leftovers] B1 launched {left_launches['stat_scores_counts']} times; the CPU run counts {cpu_b1} "
+             f"dispatches, expected {4 * len(batches)}")
+    if any(count for op, count in left_launches.items() if op != "stat_scores_counts"):
+        fail(f"[leftovers] an unexpected kernel launched: {left_launches}")
+    comp_gpu, comp_cpu = left_gpu["F1ofPR"], left_cpu["F1ofPR"]
+    left_pairs = [(n, m, left_cpu[n]) for n, m in left_gpu.items()]
+    left_pairs += [("F1ofPR.P", comp_gpu.metric_a.metric_a.metric_b, comp_cpu.metric_a.metric_a.metric_b),
+                   ("F1ofPR.R", comp_gpu.metric_a.metric_b, comp_cpu.metric_a.metric_b)]
+    left_telemetry = check_telemetry("leftovers", left_pairs)
+    record["leftovers"] = {"launches": left_launches, "cpu_stat_scores_dispatches": cpu_b1, "step_ms": left_ms,
+                           "values": {k: float(v) for k, v in left_out.items()}, "max_abs_diff_vs_cpu": left_diffs,
+                           "telemetry": left_telemetry}
+
+    # -- 3g. what telemetry costs on the card ---------------------------------------
+    record["telemetry_cost"] = telemetry_cost(torch, M, dev, batches, keyed_batches, card)
 
     # -- 3e. the epoch-end sync over NCCL --------------------------------------
     record["sync"] = sync_phase(torch, gpu, keyed_gpu, card)

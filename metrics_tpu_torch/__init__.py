@@ -10,13 +10,18 @@ counting loops run hand-written CUDA kernels for ``sm_90a``
 The slices so far cover the stat-scores and confusion-matrix classification
 path (``Accuracy``, ``Precision``, ``Recall``, ``FBeta``, ``F1``,
 ``Specificity``, ``StatScores``, ``ConfusionMatrix``, ``IoU``,
-``CohenKappa``, ``MatthewsCorrcoef`` and ``MetricCollection``), the
-multi-tenant keyed state over it (``KeyedMetric`` and
-``MultiTenantCollection``), and the curve metrics (``AUROC``,
+``CohenKappa``, ``MatthewsCorrcoef`` and ``MetricCollection``), the other
+classification metrics (``HammingDistance``, ``Hinge``, ``KLDivergence``,
+the functional ``dice_score``), ``AverageMeter``, the arithmetic of metrics
+(``CompositionalMetric``), the multi-tenant keyed state (``KeyedMetric``
+and ``MultiTenantCollection``), the curve metrics (``AUROC``,
 ``AveragePrecision``, ``ROC``, ``PrecisionRecallCurve``, ``AUC`` and the
-binned curves), exact or ``sketched=True``, and the epoch-end sync over
-``torch.distributed`` (``utilities/distributed.py``, ``transport/``).
+binned curves), exact or ``sketched=True``, the epoch-end sync over
+``torch.distributed`` (``utilities/distributed.py``, ``transport/``) and
+the telemetry core (``observability``: counters, events, histograms,
+collective spans, ``snapshot()``, ``render_prometheus()``).
 """
+from metrics_tpu_torch.average import AverageMeter  # noqa: F401
 from metrics_tpu_torch.classification import (  # noqa: F401
     AUC,
     AUROC,
@@ -30,7 +35,10 @@ from metrics_tpu_torch.classification import (  # noqa: F401
     CohenKappa,
     ConfusionMatrix,
     FBeta,
+    HammingDistance,
+    Hinge,
     IoU,
+    KLDivergence,
     MatthewsCorrcoef,
     Precision,
     PrecisionRecallCurve,
@@ -39,5 +47,5 @@ from metrics_tpu_torch.classification import (  # noqa: F401
     StatScores,
 )
 from metrics_tpu_torch.collections import MetricCollection  # noqa: F401
-from metrics_tpu_torch.metric import Metric  # noqa: F401
+from metrics_tpu_torch.metric import CompositionalMetric, Metric  # noqa: F401
 from metrics_tpu_torch.wrappers import KeyedMetric, MultiTenantCollection  # noqa: F401

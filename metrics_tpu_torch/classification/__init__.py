@@ -11,7 +11,10 @@ from metrics_tpu_torch.classification.binned_precision_recall import (  # noqa: 
 from metrics_tpu_torch.classification.cohen_kappa import CohenKappa  # noqa: F401
 from metrics_tpu_torch.classification.confusion_matrix import ConfusionMatrix  # noqa: F401
 from metrics_tpu_torch.classification.f_beta import F1, FBeta  # noqa: F401
+from metrics_tpu_torch.classification.hamming_distance import HammingDistance  # noqa: F401
+from metrics_tpu_torch.classification.hinge import Hinge  # noqa: F401
 from metrics_tpu_torch.classification.iou import IoU  # noqa: F401
+from metrics_tpu_torch.classification.kldivergence import KLDivergence  # noqa: F401
 from metrics_tpu_torch.classification.matthews_corrcoef import MatthewsCorrcoef  # noqa: F401
 from metrics_tpu_torch.classification.precision_recall import Precision, Recall  # noqa: F401
 from metrics_tpu_torch.classification.precision_recall_curve import PrecisionRecallCurve  # noqa: F401

@@ -145,6 +145,7 @@ class AUROC(HistogramSketchMixin, Metric):
         if self.sketched:
             supports = self._hist_check_degenerate()
             per_class = hist_auroc(self.pos_hist, self.neg_hist)
+            self._publish_hist_info()
             if self._sketch_multiclass or self._sketch_multilabel:
                 if self.average == "weighted":
                     support = supports if supports is not None else torch.sum(self.pos_hist, dim=-1)

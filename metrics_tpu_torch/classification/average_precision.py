@@ -104,6 +104,7 @@ class AveragePrecision(HistogramSketchMixin, Metric):
             # per-class/label APs as a (C,) tensor (binary: the scalar); a
             # degenerate stream gives NaN, as the exact recall does, no raise
             per_class = hist_average_precision(self.pos_hist, self.neg_hist)
+            self._publish_hist_info()
             if self._sketch_multiclass or self._sketch_multilabel:
                 return per_class
             return per_class[0]

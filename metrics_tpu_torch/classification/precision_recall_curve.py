@@ -109,6 +109,7 @@ class PrecisionRecallCurve(HistogramSketchMixin, Metric):
         if self.sketched:
             lo, hi = self._sketch_range
             precision, recall, thresholds = hist_precision_recall_curve(self.pos_hist, self.neg_hist, lo, hi)
+            self._publish_hist_info()
             if self._sketch_multiclass or self._sketch_multilabel:
                 return list(precision), list(recall), [thresholds for _ in range(self.num_classes)]
             return precision[0], recall[0], thresholds

@@ -87,6 +87,7 @@ class ROC(HistogramSketchMixin, Metric):
         if self.sketched:
             lo, hi = self._sketch_range
             fpr, tpr, thresholds = hist_roc(self.pos_hist, self.neg_hist, lo, hi)
+            self._publish_hist_info()
             if self._sketch_multiclass or self._sketch_multilabel:
                 return list(fpr), list(tpr), [thresholds for _ in range(self.num_classes)]
             return fpr[0], tpr[0], thresholds

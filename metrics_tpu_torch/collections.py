@@ -13,13 +13,26 @@ the keyed collection stacks them as one state bundle
 Under ``torch.distributed`` :meth:`MetricCollection.compute` syncs every
 packable member in ONE ``gather_all_pytrees`` per process group (one
 descriptor round and one payload round), each shared-update class once
-(``metrics_tpu/collections.py:890-1060``).
+(``metrics_tpu/collections.py:890-1060``), inside one ``sync`` collective
+span (``bucket="collection"``).
+
+Telemetry: the collection registers its own key (:attr:`telemetry_key`);
+its members count their own calls, and, as in the JAX package's eager
+collection, nothing counts under the collection's key per batch. The JAX
+package's dedup counters (``collections.py:380-433``) belong to its
+compute groups; the port's counterpart is the keyed collection's shared
+bundles, whose layout :meth:`_note_compute_groups` records at
+``MultiTenantCollection.build`` and whose dedup its updates count.
 """
+import time
 from collections import OrderedDict
 from copy import deepcopy
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
-from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.metric import Metric, _observed_forward
+from metrics_tpu_torch.observability.events import EVENTS
+from metrics_tpu_torch.observability.registry import TELEMETRY
+from metrics_tpu_torch.observability.tracing import TRACER
 from metrics_tpu_torch.utilities import distributed as _dist
 from metrics_tpu_torch.utilities.prints import rank_zero_warn
 
@@ -51,6 +64,19 @@ class MetricCollection:
     def __call__(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
         return self.forward(*args, **kwargs)
 
+    @property
+    def telemetry_key(self) -> str:
+        """Per-instance telemetry key (see :attr:`Metric.telemetry_key`)."""
+        key = self.__dict__.get("_telemetry_key")
+        if key is None:
+            key = TELEMETRY.register(self)
+            self._telemetry_key = key
+        return key
+
+    def __getstate__(self) -> dict:
+        # a clone or an unpickled copy registers a key of its own
+        return {k: v for k, v in self.__dict__.items() if k != "_telemetry_key"}
+
     def _check_input_device(self, args: Tuple, kwargs: Dict) -> None:
         for m in self._metrics.values():
             m._check_input_device(args, kwargs)
@@ -65,8 +91,12 @@ class MetricCollection:
         for name, m in self.items(keep_base=True):
             deltas = shared.get(name)
             if deltas is not None and m._states_mergeable():
-                out[self._set_name(name)] = m._forward_fused(
-                    *args, _update_thunk=lambda m=m, d=deltas: m._accumulate(*d), **m._filter_kwargs(**kwargs)
+                out[self._set_name(name)] = _observed_forward(
+                    m,
+                    "forward_fused_calls",
+                    lambda m=m, d=deltas: m._forward_fused(
+                        *args, _update_thunk=lambda: m._accumulate(*d), **m._filter_kwargs(**kwargs)
+                    ),
                 )
             else:
                 out[self._set_name(name)] = m(*args, **m._filter_kwargs(**kwargs))
@@ -130,6 +160,28 @@ class MetricCollection:
                 index[key] = len(layout)
             layout.append((name, [name]))
         return layout
+
+    def _note_compute_groups(self) -> None:
+        """Record the shared-state groups of :meth:`_group_layout` as the JAX
+        package's ``build_compute_groups`` records its groups
+        (``collections.py:175-190``): a ``compute_group_count`` counter, the
+        ``compute_groups`` info blob and a ``compile`` event. Like it,
+        records nothing for a collection of fewer than two members."""
+        if len(self._metrics) < 2:
+            return
+        groups = {owner: list(names) for owner, names in self._group_layout() if len(names) > 1}
+        if TELEMETRY.enabled:
+            key = self.telemetry_key
+            TELEMETRY.inc(key, "compute_group_count", len(groups))
+            TELEMETRY.set_info(key, "compute_groups", {"groups": groups, "members": len(self._metrics)})
+        if EVENTS.enabled:
+            EVENTS.record(
+                "compile",
+                self.telemetry_key,
+                path="compute_groups",
+                groups=list(groups.values()),
+                members=len(self._metrics),
+            )
 
     def compute(self) -> Dict[str, Any]:
         """Compute every metric; the whole collection syncs in one transport.
@@ -207,9 +259,27 @@ class MetricCollection:
 
         for group, names in bundles.values():
             pre = [self._metrics[n]._pre_sync_states() for n in names]
+            sync_start = time.perf_counter() if EVENTS.enabled else None
+            # one span around the whole bundle: a deterministic id per epoch
+            # sync, shared by every participating process
+            span = (
+                TRACER.begin("sync", group=_dist.group_label(group), bucket="collection") if TRACER.enabled else None
+            )
             gathered = _dist.gather_all_pytrees([states for states, _ in pre], group=group)
-            for n, (_, list_dtypes), g in zip(names, pre, gathered):
+            span_id = TRACER.end(span, collection=self.telemetry_key, members=list(names)) if span else None
+            if sync_start is not None:
+                EVENTS.record(
+                    "sync",
+                    self.telemetry_key,
+                    dur_s=time.perf_counter() - sync_start,
+                    t_start=sync_start,
+                    members=list(names),
+                    packed=True,
+                    span_id=span_id,
+                )
+            for n, (states, list_dtypes), g in zip(names, pre, gathered):
                 m = self._metrics[n]
+                m._note_sync_telemetry(states)
                 adopted.append((m, m._get_states(), m._to_sync))
                 m._apply_gathered_states(g, list_dtypes)
                 m._to_sync = False  # synced: compute() must not gather again

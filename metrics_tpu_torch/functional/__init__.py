@@ -8,9 +8,13 @@ from metrics_tpu_torch.functional.classification import (  # noqa: F401
     average_precision,
     cohen_kappa,
     confusion_matrix,
+    dice_score,
     f1,
     fbeta,
+    hamming_distance,
+    hinge,
     iou,
+    kldivergence,
     matthews_corrcoef,
     precision,
     precision_recall,

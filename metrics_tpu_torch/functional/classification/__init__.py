@@ -5,8 +5,12 @@ from metrics_tpu_torch.functional.classification.auroc import auroc  # noqa: F40
 from metrics_tpu_torch.functional.classification.average_precision import average_precision  # noqa: F401
 from metrics_tpu_torch.functional.classification.cohen_kappa import cohen_kappa  # noqa: F401
 from metrics_tpu_torch.functional.classification.confusion_matrix import confusion_matrix  # noqa: F401
+from metrics_tpu_torch.functional.classification.dice import dice_score  # noqa: F401
 from metrics_tpu_torch.functional.classification.f_beta import f1, fbeta  # noqa: F401
+from metrics_tpu_torch.functional.classification.hamming_distance import hamming_distance  # noqa: F401
+from metrics_tpu_torch.functional.classification.hinge import hinge  # noqa: F401
 from metrics_tpu_torch.functional.classification.iou import iou  # noqa: F401
+from metrics_tpu_torch.functional.classification.kldivergence import kldivergence  # noqa: F401
 from metrics_tpu_torch.functional.classification.matthews_corrcoef import matthews_corrcoef  # noqa: F401
 from metrics_tpu_torch.functional.classification.precision_recall import (  # noqa: F401
     precision,

@@ -1,7 +1,8 @@
 """Shared plumbing for the CUDA kernel modules.
 
 Counterpart of ``metrics_tpu/kernels/_common.py``: the availability probe,
-the dispatch counters (whose ``"cuda"`` path is each kernel's launch count)
+the dispatch counters (whose ``"cuda"`` path is each kernel's launch count,
+read into ``observability.snapshot()["kernels"]`` by :func:`dispatch_summary`)
 and the build and load of the kernels' shared library.
 
 The kernels are CUDA C++ for Hopper (``sm_90a``) under
@@ -109,10 +110,23 @@ _DISPATCH_COUNTS: Dict[str, Dict[str, int]] = {}
 
 def note_kernel_dispatch(op: str, path: str) -> None:
     """Record one dispatch of ``op``: ``path="cuda"`` where its kernel was
-    launched, ``path="torch"`` where its plain version ran on the CPU."""
+    launched, ``path="torch"`` where its plain version ran on the CPU.
+
+    Unlike the JAX package's counters, these count whether telemetry is on
+    or off: the ``"cuda"`` count is the launch count that proves a path ran
+    through its kernel (``launch_count``), and ``observability.reset()``
+    leaves them as they are, as it leaves the JAX package's."""
     with _DISPATCH_LOCK:
         by_path = _DISPATCH_COUNTS.setdefault(op, {})
         by_path[path] = by_path.get(path, 0) + 1
+
+
+def dispatch_summary() -> Dict[str, Dict[str, Dict[str, int]]]:
+    """The ``snapshot()["kernels"]`` section, ``{"dispatch": {op: {path: n}}}``
+    in the JAX package's form (``"cuda"``/``"torch"`` where it has
+    ``"pallas"``/``"xla"``)."""
+    with _DISPATCH_LOCK:
+        return {"dispatch": {op: dict(paths) for op, paths in _DISPATCH_COUNTS.items()}}
 
 
 def dispatch_count(op: str, path: str) -> int:

@@ -26,10 +26,22 @@ limited to the eager stateful path:
   and leave the live states as they were; the keyed path vmaps them.
   :meth:`apply_compute` syncs the state over the metric's process group
   first (:meth:`sync_state`, one collective per bucket).
+* **Telemetry.** ``forward``, ``update``, ``compute``, ``reset`` and the
+  epoch sync count their calls and time themselves into
+  ``observability.TELEMETRY`` under :attr:`Metric.telemetry_key`, and append
+  events to ``observability.EVENTS`` (``metric.py:122-140,670-673,
+  1164-1211,1286-1340``). Each call site first reads the lock-free
+  ``enabled`` flags, so with telemetry off no clock is read. The times are
+  host times: on the card ``update`` and ``forward`` return once their work
+  is enqueued, so they measure dispatch, as the JAX package's asynchronous
+  dispatch does; nothing synchronizes to make them "true".
+* **Arithmetic.** ``a + b``, ``a * 2``, ``abs(a)``, ``a[1]`` and the other
+  operators build a lazy :class:`CompositionalMetric` (``metric.py:1722-1925``).
 """
 import functools
 import inspect
 import os
+import time
 from abc import ABC, abstractmethod
 from contextlib import contextmanager
 from copy import deepcopy
@@ -38,6 +50,9 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 import torch
 import torch.distributed as dist
 
+from metrics_tpu_torch.observability.events import EVENTS
+from metrics_tpu_torch.observability.registry import TELEMETRY
+from metrics_tpu_torch.observability.tracing import TRACER
 from metrics_tpu_torch.utilities.data import (
     _flatten,
     apply_to_collection,
@@ -48,7 +63,12 @@ from metrics_tpu_torch.utilities.data import (
     dim_zero_sum,
     resolve_device,
 )
-from metrics_tpu_torch.utilities.distributed import distributed_available, gather_all_tensors, sync_state_packed
+from metrics_tpu_torch.utilities.distributed import (
+    distributed_available,
+    gather_all_tensors,
+    group_label,
+    sync_state_packed,
+)
 from metrics_tpu_torch.utilities.prints import rank_zero_warn
 
 Tensor = torch.Tensor
@@ -80,6 +100,26 @@ def _resolve_reduction(fx: Optional[Union[str, Callable]]) -> Optional[Callable]
 
 def _copy_state(value: StateValue) -> StateValue:
     return list(value) if isinstance(value, list) else value.clone()
+
+
+def _state_nbytes(states: StateDict) -> int:
+    """Bytes of every tensor of ``states`` (shapes and dtypes only)."""
+    return sum(t.numel() * t.element_size() for v in states.values() for t in (v if isinstance(v, list) else [v]))
+
+
+def _observed_forward(obj: Any, counter: str, thunk: Callable) -> Any:
+    """Run one forward under telemetry: path counter + host wall-time
+    histogram + event (``metric.py:122-140``)."""
+    if not (TELEMETRY.enabled or EVENTS.enabled):
+        return thunk()
+    start = time.perf_counter()
+    try:
+        return thunk()
+    finally:
+        dur = time.perf_counter() - start
+        key = obj.telemetry_key
+        TELEMETRY.record_call(key, counter, "forward", dur)
+        EVENTS.record("forward", key, dur_s=dur, t_start=start, path=counter)
 
 
 class Metric(ABC):
@@ -162,6 +202,18 @@ class Metric(ABC):
         from metrics_tpu_torch.transport import resolve_transport
 
         return resolve_transport(self)
+
+    @property
+    def telemetry_key(self) -> str:
+        """Stable per-instance telemetry key (``"<Class>#<ordinal>"``), under
+        which this metric's counters and timers appear in
+        ``observability.snapshot()``. Assigned at first use; clones and
+        unpickled copies get fresh keys (their counters start at zero)."""
+        key = self.__dict__.get("_telemetry_key")
+        if key is None:
+            key = TELEMETRY.register(self)
+            self._telemetry_key = key
+        return key
 
     # ------------------------------------------------------------------
     # state registry
@@ -305,6 +357,10 @@ class Metric(ABC):
         as the :meth:`_wrap_update` wrapper."""
         self._computed = None
         self._update_called = True
+        if TELEMETRY.enabled:
+            TELEMETRY.inc(self.telemetry_key, "update_calls")
+        if EVENTS.enabled:
+            EVENTS.record("update", self.telemetry_key, path="shared_deltas")
         self._accumulate(*deltas)
 
     def _states_mergeable(self) -> bool:
@@ -355,8 +411,10 @@ class Metric(ABC):
         """Accumulate this batch and (if ``compute_on_step``) return its value."""
         self._check_input_device(args, kwargs)
         if self._states_mergeable():
-            return self._forward_fused(*args, **kwargs)
-        return self._forward_double_update(*args, **kwargs)
+            return _observed_forward(self, "forward_fused_calls", lambda: self._forward_fused(*args, **kwargs))
+        return _observed_forward(
+            self, "forward_double_update_calls", lambda: self._forward_double_update(*args, **kwargs)
+        )
 
     def _forward_fused(self, *args: Any, _update_thunk: Optional[Callable] = None, **kwargs: Any) -> Any:
         accumulated = self._get_states()
@@ -416,7 +474,16 @@ class Metric(ABC):
             self._check_input_device(args, kwargs)
             self._computed = None
             self._update_called = True
-            return update(*args, **kwargs)
+            if not (TELEMETRY.enabled or EVENTS.enabled):
+                return update(*args, **kwargs)
+            start = time.perf_counter()
+            try:
+                return update(*args, **kwargs)
+            finally:
+                dur = time.perf_counter() - start
+                key = self.telemetry_key
+                TELEMETRY.record_call(key, "update_calls", "update", dur)
+                EVENTS.record("update", key, dur_s=dur, t_start=start)
 
         return wrapped_func
 
@@ -430,14 +497,24 @@ class Metric(ABC):
                     " as metric states have not yet been updated.",
                     UserWarning,
                 )
+            if TELEMETRY.enabled:
+                TELEMETRY.inc(self.telemetry_key, "compute_calls")
             if self._computed is not None:
                 return self._computed
+            start = time.perf_counter() if (TELEMETRY.enabled or EVENTS.enabled) else None
             with self.sync_context(
                 dist_sync_fn=self.dist_sync_fn,
                 should_sync=self._to_sync,
                 restore_cache=self._restore_cache,
             ):
                 self._computed = compute(*args, **kwargs)
+            if start is not None:
+                dur = time.perf_counter() - start
+                TELEMETRY.observe(self.telemetry_key, "compute", dur)
+                EVENTS.record("compute", self.telemetry_key, dur_s=dur, t_start=start)
+            return self._computed
+            if key is not None:
+                TELEMETRY.inc(key, "compute_calls")
             return self._computed
 
         return wrapped_func
@@ -494,9 +571,26 @@ class Metric(ABC):
             reduction_fn = _resolve_reduction(fx)
             setattr(self, name, reduction_fn(value) if reduction_fn is not None else value)
 
+    def _note_sync_telemetry(self, states: StateDict) -> Optional[int]:
+        """Per-metric sync counters; returns the payload byte count (``None``
+        when nothing records)."""
+        if not (TELEMETRY.enabled or EVENTS.enabled):
+            return None
+        payload_bytes = _state_nbytes(states)
+        if TELEMETRY.enabled:
+            key = self.telemetry_key
+            TELEMETRY.inc(key, "sync_calls")
+            TELEMETRY.inc(key, "sync_payload_bytes", payload_bytes)
+        return payload_bytes
+
     def _sync_dist(self, dist_sync_fn: Callable = gather_all_tensors, process_group: Optional[Any] = None) -> None:
         states, list_dtypes = self._pre_sync_states()
+        payload_bytes = self._note_sync_telemetry(states)
+        sync_start = time.perf_counter() if EVENTS.enabled else None
         group = process_group or self.process_group
+        # one span around the epoch sync: a deterministic id shared by every
+        # participating process
+        span = TRACER.begin("sync", group=group_label(group), bucket="metric") if TRACER.enabled else None
         presynced = None
         if dist_sync_fn is gather_all_tensors:
             # the default: the transport may reduce some leaves in place, and
@@ -508,6 +602,16 @@ class Metric(ABC):
         else:
             # an injected gather keeps its per-state contract
             gathered = apply_to_collection(states, Tensor, dist_sync_fn, group=group)
+        span_id = TRACER.end(span, metric=self.telemetry_key) if span else None
+        if sync_start is not None:
+            EVENTS.record(
+                "sync",
+                self.telemetry_key,
+                dur_s=time.perf_counter() - sync_start,
+                t_start=sync_start,
+                payload_bytes=payload_bytes,
+                span_id=span_id,
+            )
         self._apply_gathered_states(gathered, list_dtypes, presynced)
 
     def sync(
@@ -562,6 +666,8 @@ class Metric(ABC):
 
     def reset(self) -> None:
         """Restore every state to its default."""
+        if TELEMETRY.enabled:
+            TELEMETRY.inc(self.telemetry_key, "reset_calls")
         self._update_called = False
         self._forward_cache = None
         self._computed = None
@@ -617,7 +723,11 @@ class Metric(ABC):
     def __getstate__(self) -> dict:
         # the wrapped update/compute are rebuilt on unpickling; tensors pickle
         # with their device
-        return {k: v for k, v in self.__dict__.items() if k not in ("update", "compute", "_update_signature")}
+        return {
+            k: v
+            for k, v in self.__dict__.items()
+            if k not in ("update", "compute", "_update_signature", "_telemetry_key")
+        }
 
     def __setstate__(self, state: dict) -> None:
         self.__dict__.update(state)
@@ -639,3 +749,207 @@ class Metric(ABC):
 
     def __repr__(self) -> str:
         return f"{self.__class__.__name__}()"
+
+
+class CompositionalMetric(Metric):
+    """Lazy composition of two metrics under an operator, evaluated at compute().
+
+    Counterpart of ``metrics_tpu/metric.py:1722-1867``. ``update`` fans out
+    to both children with per-child keyword filtering; ``compute`` applies
+    ``op`` to the child results; sync is a no-op here, because each child
+    syncs itself. The composition owns no state, so ``forward`` takes the
+    double-update protocol (``_fusable = False``): each child runs its own
+    update, and a composition of two stat-scores metrics counts its batch
+    twice where a collection's shared update counts it once. Its reset
+    resets the children, so a ``forward`` leaves them holding the last
+    batch only, as the reference's forward does.
+    """
+
+    _fusable = False  # children own the state; use the double-update forward
+
+    def __init__(
+        self,
+        operator: Callable,
+        metric_a: Union[Metric, int, float, Tensor],
+        metric_b: Union[Metric, int, float, Tensor, None],
+    ) -> None:
+        operands = (metric_a, metric_b)
+        device = next((m.device for m in operands if isinstance(m, Metric)), None)
+        if device is None:
+            device = next((m.device for m in operands if isinstance(m, Tensor)), "cpu")
+        super().__init__(device=device)
+        self.op = operator
+        self.metric_a = metric_a
+        self.metric_b = metric_b
+
+    def _sync_dist(self, dist_sync_fn: Optional[Callable] = None, process_group: Optional[Any] = None) -> None:
+        pass  # children sync themselves
+
+    def jit_forward(self, enable: bool = True, donate: bool = True) -> "Metric":
+        """Refused with the JAX package's error: the children own the state,
+        so no compiled forward can thread it. ``enable=False`` is a no-op."""
+        if enable:
+            raise ValueError(
+                "CompositionalMetric cannot jit its forward (children own the state); call"
+                " jit_forward() on the child metrics, or jit a function over their pure API."
+            )
+        return self
+
+    def update(self, *args: Any, **kwargs: Any) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.update(*args, **self.metric_a._filter_kwargs(**kwargs))
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.update(*args, **self.metric_b._filter_kwargs(**kwargs))
+
+    def compute(self) -> Any:
+        val_a = self.metric_a.compute() if isinstance(self.metric_a, Metric) else self.metric_a
+        val_b = self.metric_b.compute() if isinstance(self.metric_b, Metric) else self.metric_b
+        if val_b is None:
+            return self.op(val_a)
+        return self.op(val_a, val_b)
+
+    def reset(self) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.reset()
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.reset()
+
+    def persistent(self, mode: bool = False) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.persistent(mode=mode)
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.persistent(mode=mode)
+
+    # pure API: child states keyed "a"/"b" (an aliased child, ``m + m``,
+    # holds one state "a" that advances twice per step, as the eager update
+    # does)
+
+    def init_state(self) -> StateDict:
+        state: StateDict = {}
+        if isinstance(self.metric_a, Metric):
+            state["a"] = self.metric_a.init_state()
+        if isinstance(self.metric_b, Metric) and self.metric_b is not self.metric_a:
+            state["b"] = self.metric_b.init_state()
+        return state
+
+    def apply_update(self, state: StateDict, *args: Any, **kwargs: Any) -> StateDict:
+        new_state: StateDict = {}
+        if isinstance(self.metric_a, Metric):
+            new_state["a"] = self.metric_a.apply_update(state["a"], *args, **self.metric_a._filter_kwargs(**kwargs))
+        if isinstance(self.metric_b, Metric):
+            if self.metric_b is self.metric_a:
+                new_state["a"] = self.metric_a.apply_update(
+                    new_state["a"], *args, **self.metric_a._filter_kwargs(**kwargs)
+                )
+            else:
+                new_state["b"] = self.metric_b.apply_update(
+                    state["b"], *args, **self.metric_b._filter_kwargs(**kwargs)
+                )
+        return new_state
+
+    def apply_compute(self, state: StateDict, process_group: Any = _GROUP_UNSET) -> Any:
+        # forwarded as given: unset, each child syncs over its own group
+        val_a = (
+            self.metric_a.apply_compute(state["a"], process_group=process_group)
+            if isinstance(self.metric_a, Metric)
+            else self.metric_a
+        )
+        if isinstance(self.metric_b, Metric):
+            val_b = (
+                val_a
+                if self.metric_b is self.metric_a
+                else self.metric_b.apply_compute(state["b"], process_group=process_group)
+            )
+        else:
+            val_b = self.metric_b
+        if val_b is None:
+            return self.op(val_a)
+        return self.op(val_a, val_b)
+
+    def __repr__(self) -> str:
+        _op_name = getattr(self.op, "__name__", repr(self.op))
+        return f"{self.__class__.__name__}(\n  {_op_name}(\n    {self.metric_a!r},\n    {self.metric_b!r}\n  )\n)"
+
+
+def _binary_op(fn: Callable) -> Callable:
+    """``fn`` over two operands, a number among them made a tensor on the
+    other's device (torch's binary functions take a tensor first)."""
+
+    @functools.wraps(fn)
+    def op(a: Any, b: Any) -> Tensor:
+        if not isinstance(a, Tensor):
+            a = torch.as_tensor(a, device=b.device if isinstance(b, Tensor) else None)
+        if not isinstance(b, Tensor):
+            b = torch.as_tensor(b, device=a.device)
+        return fn(a, b)
+
+    return op
+
+
+def _neg(value: Tensor) -> Tensor:
+    return -torch.abs(value)
+
+
+def _install_operators() -> None:
+    """Attach the arithmetic, bitwise and comparison operators that build
+    lazy compositions (``metric.py:1869-1925``): 11 binary operators and
+    their reflected forms, 6 comparisons, ``abs``, ``+``/``-`` (which the
+    reference maps to ``abs`` and ``-abs``), ``~`` and indexing. ``//`` is
+    ``torch.floor_divide`` and ``%`` is ``torch.fmod`` (the sign of the
+    dividend), the reference's own functions."""
+
+    def binary(op: Callable, swap: bool = False) -> Callable:
+        def method(self: Metric, other: Any) -> CompositionalMetric:
+            if swap:
+                return CompositionalMetric(op, other, self)
+            return CompositionalMetric(op, self, other)
+
+        return method
+
+    def unary(op: Callable) -> Callable:
+        def method(self: Metric) -> CompositionalMetric:
+            return CompositionalMetric(op, self, None)
+
+        return method
+
+    binary_table = {
+        "add": torch.add,
+        "sub": torch.sub,
+        "mul": torch.mul,
+        "truediv": torch.true_divide,
+        "floordiv": torch.floor_divide,
+        "mod": torch.fmod,
+        "pow": torch.pow,
+        "matmul": torch.matmul,
+        "and": torch.bitwise_and,
+        "or": torch.bitwise_or,
+        "xor": torch.bitwise_xor,
+    }
+    for name, fn in binary_table.items():
+        op = _binary_op(fn)
+        setattr(Metric, f"__{name}__", binary(op))
+        setattr(Metric, f"__r{name}__", binary(op, swap=True))
+
+    for name, fn in {
+        "eq": torch.eq,
+        "ne": torch.ne,
+        "lt": torch.lt,
+        "le": torch.le,
+        "gt": torch.gt,
+        "ge": torch.ge,
+    }.items():
+        setattr(Metric, f"__{name}__", binary(_binary_op(fn)))
+
+    Metric.__abs__ = unary(torch.abs)  # type: ignore[attr-defined]
+    Metric.__pos__ = unary(torch.abs)  # type: ignore[attr-defined]
+    Metric.__neg__ = unary(_neg)  # type: ignore[attr-defined]
+    Metric.__invert__ = unary(torch.bitwise_not)  # type: ignore[attr-defined]
+    Metric.__inv__ = Metric.__invert__  # type: ignore[attr-defined]
+
+    def getitem(self: Metric, idx: Any) -> CompositionalMetric:
+        return CompositionalMetric(lambda x: x[idx], self, None)
+
+    Metric.__getitem__ = getitem  # type: ignore[attr-defined]
+
+
+_install_operators()

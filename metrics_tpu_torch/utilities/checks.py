@@ -33,6 +33,12 @@ Number = Union[int, float]
 Range = Optional[Tuple[Number, Number]]
 
 
+def _check_same_shape(preds: Tensor, target: Tensor) -> None:
+    """Raise if predictions and targets differ in shape."""
+    if preds.shape != target.shape:
+        raise RuntimeError("Predictions and targets are expected to have the same shape")
+
+
 def _host_range(x: Tensor) -> Range:
     """``(min, max)`` of ``x`` read to the host in one transfer."""
     if x.numel() == 0:

@@ -44,12 +44,32 @@ NCCL, so the payload never leaves the card; CPU tensors otherwise (gloo).
 (the rounds run over that group) or a collection of global ranks: then the
 rounds span the world and only the decode narrows, as the JAX package does,
 so disjoint groups sync in the same rounds.
+
+**Telemetry** (``metrics_tpu/utilities/distributed.py:359-361,873-915,
+1055-1088``). Each gather records three collective spans (the gather, its
+descriptor round, its payload round) with deterministic ids, one
+``TELEMETRY.record_gather`` (rounds, leaves, bytes, the rounds' host
+times), the ``sync_round_trip_seconds`` and ``gather_payload_bytes``
+histograms and a ``sync`` event; each :func:`sync_state_packed` call
+records ``TELEMETRY.record_in_graph_sync`` and one span per bucket. The
+byte counts are the JAX package's: ``bytes_out``/``bytes_in`` count the
+leaves' own bytes, while ``transport_bytes`` counts what the rounds move,
+the port's 16-byte alignment included. The times are host times. The
+descriptor round's time is real, since it ends in the sync's one host
+read; under NCCL the payload round's time is the time to enqueue it (the
+card copies on after it returns), and nothing synchronizes to change that.
 """
 import math
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
+
+from metrics_tpu_torch.observability.events import EVENTS
+from metrics_tpu_torch.observability.histogram import observe_gather_payload, observe_sync_round_trip
+from metrics_tpu_torch.observability.registry import TELEMETRY
+from metrics_tpu_torch.observability.tracing import TRACER
 
 Tensor = torch.Tensor
 
@@ -94,6 +114,16 @@ def _all_gather(buf: Tensor, group: Optional[Any]) -> Tensor:
     out = buf.new_empty((dist.get_world_size(group), *buf.shape))
     dist.all_gather(list(out.unbind(0)), buf, group=group)
     return out
+
+
+def group_label(group: Optional[Any]) -> str:
+    """A label of ``group`` that every member process spells alike (the span
+    ids' group): ``repr`` of ``None`` or a collection of ranks, as the JAX
+    package spells it, and a ``ProcessGroup``'s global ranks, whose ``repr``
+    would name an address."""
+    if isinstance(group, dist.ProcessGroup):
+        return repr(dist.get_process_group_ranks(group))
+    return repr(group)
 
 
 def _exchange_device(group: Optional[Any]) -> torch.device:
@@ -223,6 +253,8 @@ def _gather_all_leaves(
     ``participants`` (a transport's subgroup) narrows the decoded members
     and never widens them; the rounds still span the group.
     """
+    observed = TELEMETRY.enabled or EVENTS.enabled
+    transport_start = time.perf_counter() if observed else 0.0
     round_group = group if isinstance(group, dist.ProcessGroup) else None
     device = _exchange_device(round_group)
 
@@ -233,10 +265,22 @@ def _gather_all_leaves(
         rows.append(row)
         local_error = local_error or err
     desc = torch.tensor(rows, dtype=torch.int64).reshape(len(leaves), _MAX_GATHER_NDIM + 2)
+    desc_bytes = desc.numel() * desc.element_size()
     if device.type == "cuda":  # from pinned memory the copy does not wait for the card
         desc = desc.pin_memory().to(device, non_blocking=True)
+    # the global rank of each slot of a round over a ProcessGroup handle
+    slot_ranks = dist.get_process_group_ranks(round_group) if round_group is not None else None
+    t_span = d_span = None
+    if TRACER.enabled:
+        label = _span_group(group, slot_ranks, participants)
+        t_span = TRACER.begin("gather", group=label, bucket="transport")
+        d_span = TRACER.begin("gather", group=label, bucket="descriptor")
+    desc_start = time.perf_counter() if observed else 0.0
     all_desc = _all_gather(desc, round_group).cpu().tolist()  # the sync's one host read
+    desc_dur = time.perf_counter() - desc_start if observed else 0.0
     nprocs = len(all_desc)
+    if d_span is not None:
+        TRACER.end(d_span, leaves=len(leaves), bytes=desc_bytes)
 
     arg_error: Optional[Exception] = None
     try:
@@ -253,6 +297,7 @@ def _gather_all_leaves(
     max_bytes = max(total for _, total in layouts)
 
     gathered = None
+    payload_dur = 0.0
     if max_bytes:
         buf = torch.zeros(max_bytes, dtype=torch.uint8, device=device)
         offsets, _ = _row_layout(rows)
@@ -260,7 +305,29 @@ def _gather_all_leaves(
             n = _row_count(row) * _GATHER_DTYPES[row[-1]].itemsize
             if n:  # an unalignable leaf's row is empty: it rides as no bytes
                 buf[offset : offset + n].copy_(leaf.reshape(-1).view(torch.uint8))
+        p_span = TRACER.begin("gather", group=t_span.group, bucket="payload") if t_span is not None else None
+        payload_start = time.perf_counter() if observed else 0.0
         gathered = _all_gather(buf, round_group)
+        payload_dur = time.perf_counter() - payload_start if observed else 0.0
+        if p_span is not None:
+            TRACER.end(p_span, leaves=len(leaves), bytes=nprocs * max_bytes)
+
+    span_id = TRACER.end(t_span, leaves=len(leaves), members=_ranks(members, slot_ranks)) if t_span else None
+    if observed:
+        _record_gather(
+            rows=rows,
+            all_desc=all_desc,
+            aligned=aligned,
+            members=members,
+            slot_ranks=slot_ranks,
+            desc_bytes=desc_bytes,
+            max_bytes=max_bytes,
+            error=arg_error is not None or local_error is not None or group_error is not None,
+            start=transport_start,
+            descriptor_s=desc_dur,
+            payload_s=payload_dur,
+            span_id=span_id,
+        )
 
     if arg_error is not None:
         raise arg_error
@@ -281,6 +348,114 @@ def _gather_all_leaves(
             per_member.append(raw.view(target_dtype).reshape(shapes[s]).to(leaf.device))
         out.append(per_member)
     return out
+
+
+def _ranks(slots: Sequence[int], slot_ranks: Optional[List[int]]) -> List[int]:
+    """Global ranks of slots of a round (slots are global ranks in a round
+    over the world)."""
+    return [int(s) for s in slots] if slot_ranks is None else [slot_ranks[s] for s in slots]
+
+
+def _span_group(group: Optional[Any], slot_ranks: Optional[List[int]], participants: Optional[Sequence[int]]) -> str:
+    """The gather spans' group label, ``"0,1"``: the ranks whose state the
+    gather decodes, as the JAX package labels them. Worked out before the
+    rounds from the arguments alone, so every process labels alike; an
+    argument the rounds will reject labels the world."""
+    nprocs = len(slot_ranks) if slot_ranks is not None else world_size()
+    try:
+        members = _resolve_group(group, nprocs)
+    except (TypeError, ValueError):
+        members = list(range(nprocs))
+    if participants is not None:
+        members = [m for m in members if m in set(participants)] or members
+    return ",".join(str(r) for r in _ranks(members, slot_ranks))
+
+
+def world_size() -> int:
+    """Processes of the default group (1 when none is initialised)."""
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def _record_gather(
+    *,
+    rows: List[List[int]],
+    all_desc: List[List[List[int]]],
+    aligned: List[Tuple[Any, List[int], torch.dtype, Optional[str]]],
+    members: List[int],
+    slot_ranks: Optional[List[int]],
+    desc_bytes: int,
+    max_bytes: int,
+    error: bool,
+    start: float,
+    descriptor_s: float,
+    payload_s: float,
+    span_id: Optional[str],
+) -> None:
+    """One gather into the registry, the histograms and the event log
+    (``metrics_tpu/utilities/distributed.py:860-937``). ``bytes_out``/
+    ``bytes_in`` are the leaves' own bytes, this process's and its decoded
+    members'; ``transport_bytes`` what both rounds moved across the
+    processes. Never raises: telemetry must not break a sync."""
+    try:
+        nprocs = len(all_desc)
+        bytes_out = sum(_row_count(row) * _GATHER_DTYPES[row[-1]].itemsize for row in rows)
+        bytes_in = sum(
+            counts[s] * _GATHER_DTYPES[all_desc[s][j][-1]].itemsize
+            for j, (_, counts, _, _) in enumerate(aligned)
+            for s in members
+        )
+        payload_rounds = 1 if max_bytes else 0
+        transport_bytes = nprocs * desc_bytes + payload_rounds * nprocs * max_bytes
+        participants = _ranks(range(nprocs), slot_ranks)
+        member_ranks = _ranks(members, slot_ranks)
+        world = max(world_size(), nprocs)
+        dur = time.perf_counter() - start
+        if TELEMETRY.enabled:
+            observe_sync_round_trip(dur, transport="gather")
+            observe_sync_round_trip(descriptor_s, transport="gather_descriptor")
+            if payload_rounds:
+                observe_sync_round_trip(payload_s, transport="gather_payload")
+            observe_gather_payload(transport_bytes)
+            TELEMETRY.record_gather(
+                bytes_out=bytes_out,
+                bytes_in=bytes_in,
+                transport_bytes=transport_bytes,
+                descriptor_rounds=1,
+                payload_rounds=payload_rounds,
+                world=world,
+                members=member_ranks,
+                error=error,
+                leaves=len(rows),
+                descriptor_s=descriptor_s,
+                payload_s=payload_s,
+                participants=participants,
+            )
+        if EVENTS.enabled:
+            from metrics_tpu_torch.observability.tracing import _process_index
+
+            EVENTS.record(
+                "sync",
+                None,
+                dur_s=dur,
+                t_start=start,
+                transport="gather",
+                leaves=len(rows),
+                bytes_out=bytes_out,
+                bytes_in=bytes_in,
+                transport_bytes=transport_bytes,
+                descriptor_rounds=1,
+                payload_rounds=payload_rounds,
+                descriptor_s=round(float(descriptor_s), 9),
+                payload_s=round(float(payload_s), 9),
+                span_id=span_id,
+                process=_process_index(),
+                world=world,
+                members=member_ranks,
+                error=bool(error),
+                participants=participants,
+            )
+    except Exception:  # pragma: no cover - telemetry must never break a sync
+        pass
 
 
 def _tree_leaves(tree: Any, out: List[Any]) -> List[Any]:
@@ -348,6 +523,9 @@ def gather_all_pytrees(trees: List[Any], group: Optional[Any] = None) -> List[An
 
 #: the all_reduce each elementwise reduction joins ("mean" sums, then divides)
 _REDUCE_OPS = {"sum": "sum", "mean": "sum", "max": "max", "min": "min"}
+#: the collective kind each reduction records, in the JAX package's names
+#: (``metrics_tpu/utilities/distributed.py:1091``)
+_RECORD_KINDS = {"sum": "psum", "mean": "pmean", "max": "pmax", "min": "pmin"}
 
 
 def sync_state_packed(
@@ -372,6 +550,14 @@ def sync_state_packed(
     protocol's placeholder and stays as it was when every member is empty.
     Integer, extremal and gathered leaves equal the gather path
     (:meth:`Metric.sync`) bit for bit, float sums to reassociation.
+
+    Telemetry: one ``in_graph`` span per ``all_reduce`` bucket, labelled
+    ``"p<op>/<dtype>"`` (a ``"mean"`` leaf rides ``psum``, where the JAX
+    package gives it a ``pmean`` bucket), and one
+    ``TELEMETRY.record_in_graph_sync`` per call: states per kind
+    (``psum``/``pmean``/``pmax``/``pmin``/``all_gather``, as the JAX
+    package counts them), bytes, buckets, and the collectives per leaf
+    against those issued (``all_reduce`` calls plus gathers).
     """
     if not isinstance(process_group, dist.ProcessGroup):
         raise TypeError(
@@ -385,6 +571,9 @@ def sync_state_packed(
     buckets: Dict[Tuple[str, torch.dtype], List[Tuple[str, Tensor]]] = {}
     gathers: List[Tuple[str, Tensor, Any]] = []
     callables: List[Tuple[str, Tensor, Callable]] = []
+    kinds: Dict[str, int] = {}
+    gather_labels: Dict[str, int] = {}
+    bytes_traced = 0
     for name, value in state.items():
         fx = reductions.get(name)
         if isinstance(value, list):
@@ -396,6 +585,15 @@ def sync_state_packed(
                 value = torch.zeros((0,), dtype=torch.float32, device=home)
             else:
                 value = torch.cat([torch.atleast_1d(v) for v in value])
+                bytes_traced += value.numel() * value.element_size()
+        else:
+            bytes_traced += value.numel() * value.element_size()
+        kind = _RECORD_KINDS.get(fx, "all_gather") if not callable(fx) else "all_gather"
+        if not (isinstance(state[name], list) and not state[name]):  # the JAX package skips empty lists
+            kinds[kind] = kinds.get(kind, 0) + 1
+            if kind == "all_gather":
+                label = f"all_gather/{_dtype_name(value.dtype)}"
+                gather_labels[label] = gather_labels.get(label, 0) + 1
         if callable(fx):
             callables.append((name, value, fx))
         elif fx in _REDUCE_OPS:
@@ -406,10 +604,14 @@ def sync_state_packed(
             raise ValueError(f"Unknown dist_reduce_fx: {fx!r}")
 
     world = dist.get_world_size(process_group)
+    label = group_label(process_group)
     ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
-    for (op, _), entries in buckets.items():
+    for (op, dtype), entries in buckets.items():
         buf = torch.cat([v.reshape(-1) for _, v in entries]).to(device)
+        span = TRACER.begin("in_graph", group=label, bucket=f"p{op}/{_dtype_name(dtype)}") if TRACER.enabled else None
         dist.all_reduce(buf, op=ops[op], group=process_group)
+        if span is not None:
+            TRACER.end(span, leaves=len(entries))
         offset = 0
         for name, value in entries:
             piece = buf[offset : offset + value.numel()].reshape(value.shape).to(value.device)
@@ -430,4 +632,14 @@ def sync_state_packed(
                 synced[name] = torch.stack(pieces)
     for name, value, fx in callables:
         synced[name] = fx(torch.stack(_gather_all_leaves([value], process_group)[0]))
+    if kinds and TELEMETRY.enabled:
+        bucket_compo = {f"p{op}/{_dtype_name(dtype)}": len(entries) for (op, dtype), entries in buckets.items()}
+        TELEMETRY.record_in_graph_sync(
+            label,
+            kinds,
+            bytes_traced,
+            buckets={**bucket_compo, **gather_labels},
+            collectives_before=sum(kinds.values()),
+            collectives_after=len(buckets) + (1 if gathers else 0) + len(callables),
+        )
     return {name: synced[name] for name in state}

@@ -13,8 +13,15 @@ one-hot), which on the card launches kernel B5.
 Because every sketch state is a fixed-shape ``"sum"`` tensor, the sketched
 metrics take the fused forward and can be keyed per tenant
 (``KeyedMetric``), and their sync adds the histograms whatever the sample
-count. The JAX package's sketch telemetry (``sketch_merges`` and the
-``info.sketch`` blob) waits for the port's telemetry registry.
+count.
+
+:class:`SketchTelemetryMixin` (``metrics_tpu/utilities/sketching.py:60-85``)
+is the sketches' telemetry: a ``sketch_merges`` counter (each state merge
+of a fused forward; the JAX package's cross-shard count at compute,
+``_count_sketch_merges``, comes with the retrieval metrics that call it) and the
+``info.sketch`` snapshot blob (kind, bins, range, classes, the clipped
+count), published at compute with the blob's tensor values read to the host
+in one read.
 """
 from typing import Optional, Tuple
 
@@ -22,10 +29,11 @@ import torch
 
 from metrics_tpu_torch.functional.classification.auroc import _auroc_update
 from metrics_tpu_torch.kernels.binned_counts import _label_score_histograms_onevsrest, label_score_histograms
+from metrics_tpu_torch.observability.registry import TELEMETRY
 from metrics_tpu_torch.utilities.data import Tensor, _is_batched
 from metrics_tpu_torch.utilities.enums import DataType
 
-__all__ = ["HistogramSketchMixin"]
+__all__ = ["HistogramSketchMixin", "SketchTelemetryMixin"]
 
 
 def _check_num_bins(num_bins: int) -> None:
@@ -43,11 +51,39 @@ def _check_range(name: str, rng: Tuple[float, float]) -> Tuple[float, float]:
     return lo, hi
 
 
-class HistogramSketchMixin:
+class SketchTelemetryMixin:
+    """Telemetry shared by every ``sketched=True`` metric mode."""
+
+    #: set by the concrete metric's sketched-state init
+    sketched: bool = False
+
+    def merge_states(self, a, b):  # type: ignore[override]
+        merged = super().merge_states(a, b)
+        # host-side count only; inside a vmap (a keyed program) nothing counts
+        if self.sketched and TELEMETRY.enabled and not _is_batched(*a.values(), *b.values()):
+            TELEMETRY.inc(self.telemetry_key, "sketch_merges")
+        return merged
+
+    def _publish_sketch_info(self, **info) -> None:
+        """Publish the ``info.sketch`` snapshot blob. Its tensor values are
+        stacked and read to the host in ONE read (the JAX package reads each
+        with ``float``); inside a vmap nothing can be read, and nothing is
+        published."""
+        if not TELEMETRY.enabled:
+            return
+        tensors = {k: v for k, v in info.items() if isinstance(v, Tensor)}
+        if tensors:
+            if _is_batched(*tensors.values()):
+                return
+            values = torch.stack([v.reshape(()).to(torch.float64) for v in tensors.values()]).tolist()
+            info = {**info, **dict(zip(tensors, values))}
+        TELEMETRY.set_info(self.telemetry_key, "sketch", info)
+
+
+class HistogramSketchMixin(SketchTelemetryMixin):
     """Binned-label-histogram states and canonicalized update for the
     threshold-curve metrics' ``sketched=True`` mode."""
 
-    sketched: bool = False
     _sketch_multilabel = False
 
     def _init_hist_states(
@@ -137,3 +173,12 @@ class HistogramSketchMixin:
             if n > 0 and p == 0:
                 raise ValueError("No positive samples in targets, true positive value should be meaningless")
         return pos
+
+    def _publish_hist_info(self) -> None:
+        self._publish_sketch_info(
+            kind="binned_histogram",
+            bins=self._sketch_bins,
+            range=list(self._sketch_range),
+            classes=int(self.pos_hist.shape[0]),
+            overflow=self.sketch_clipped,
+        )

@@ -36,8 +36,24 @@ always on the pure ``apply_update`` path — invalid rows are dropped by the
 kernels (ids are clipped against the physical ``capacity``, so an id in the
 padding band ``[num_tenants, capacity)`` lands in a padding row that compute
 slices off). :meth:`KeyedMetric._segment_scatter` returns the dropped count
-as a device scalar; no update reads it to the host.
+as a device scalar; no update reads it to the host. With telemetry on it is
+added into a device-side accumulator under ``invalid_tenant_ids``
+(``metrics_tpu/wrappers/multitenant.py:318-321``), read only when
+``observability.snapshot()`` or ``TELEMETRY.counter`` asks, so a keyed
+update makes the same synchronizing calls with telemetry on as off.
+
+Telemetry (``multitenant.py:711-745,1135-1180,1347-1390``): each keyed
+update counts its rows (``keyed_update_rows``) and its dispatch
+(``keyed_update_dispatches``), observes its host time under
+``dispatch_seconds{path=keyed_scatter}`` and records an ``update`` event
+with ``path="keyed_scatter"``; the collection's build records its layout
+(``info.keyed``, the ``compute_groups`` of its inner collection and a
+``compile`` event) and each collection update the members its bundles
+serve beyond one (``update_dedup_skipped``). The JAX package's compile
+counters (``jit_forward_compiles``) have no counterpart until the port has
+a compiled step (ROADMAP queue A item 11).
 """
+import time
 from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -50,6 +66,9 @@ from metrics_tpu_torch.kernels.segment_scatter import (
     segment_scatter_min_cuda,
 )
 from metrics_tpu_torch.metric import Metric, StateDict
+from metrics_tpu_torch.observability.events import EVENTS
+from metrics_tpu_torch.observability.histogram import observe_dispatch
+from metrics_tpu_torch.observability.registry import TELEMETRY
 from metrics_tpu_torch.utilities.data import Tensor, check_device, resolve_device
 from metrics_tpu_torch.utilities.stacked import broadcast_stack, row_states, vmap_compute
 
@@ -67,6 +86,22 @@ def _pow2_at_least(n: int) -> int:
     """The smallest power of two >= ``n`` (>= 1) — the padded-capacity
     discipline of the elastic API (``grow``/``compact``)."""
     return 1 << max(0, int(n) - 1).bit_length()
+
+
+def _note_keyed_update(obj: Any, start: float, rows: int, **payload: Any) -> None:
+    """The keyed update's telemetry (``multitenant.py:719-745``): rows,
+    dispatch count and host time, and the ``keyed_scatter`` event."""
+    dur = time.perf_counter() - start
+    key = obj.telemetry_key
+    if TELEMETRY.enabled:
+        TELEMETRY.inc(key, "keyed_update_rows", rows)
+        TELEMETRY.inc(key, "keyed_update_dispatches")
+        observe_dispatch(dur, "keyed_scatter")
+    if EVENTS.enabled:
+        EVENTS.record(
+            "update", key, dur_s=dur, t_start=start, path="keyed_scatter", tenants=obj.num_tenants, rows=rows,
+            **payload,
+        )
 
 
 def _keyed_gate(metric: Metric, what: str = "base_metric") -> None:
@@ -289,8 +324,11 @@ class KeyedMetric(Metric):
 
     def apply_update(self, state: StateDict, tenant_ids: Any, *args: Any, **kwargs: Any) -> StateDict:
         """Pure keyed update: the stacked state advanced by one mixed event
-        batch; invalid ids are dropped (this path never raises on them)."""
-        return self._segment_scatter(state, self._canonical_ids(tenant_ids), args, kwargs)[0]
+        batch; invalid ids are dropped (this path never raises on them) and
+        counted under ``invalid_tenant_ids`` while telemetry is on."""
+        new_state, invalid = self._segment_scatter(state, self._canonical_ids(tenant_ids), args, kwargs)
+        TELEMETRY.add_device(self.telemetry_key, "invalid_tenant_ids", invalid)
+        return new_state
 
     def update(self, tenant_ids: Any, *args: Any, **kwargs: Any) -> None:
         """Route one mixed event batch to every tenant.
@@ -303,8 +341,12 @@ class KeyedMetric(Metric):
         ids = self._canonical_ids(tenant_ids)
         if self.validate_ids:
             self._validate_ids_eager(ids)
-        new_state, _ = self._segment_scatter(self._get_states(), ids, args, kwargs)
+        start = time.perf_counter() if (TELEMETRY.enabled or EVENTS.enabled) else None
+        new_state, invalid = self._segment_scatter(self._get_states(), ids, args, kwargs)
         self._set_states(new_state)
+        if start is not None:
+            TELEMETRY.add_device(self.telemetry_key, "invalid_tenant_ids", invalid)
+            _note_keyed_update(self, start, int(ids.shape[0]))
 
     # ------------------------------------------------------------------
     # compute fan-out + rollups
@@ -379,6 +421,8 @@ class KeyedMetric(Metric):
         self._set_states(new)
         self._computed = None
         self._forward_cache = None
+        if TELEMETRY.enabled:
+            TELEMETRY.inc(self.telemetry_key, "reset_calls")
 
     def __repr__(self) -> str:
         return f"KeyedMetric({self._child!r}, num_tenants={self.num_tenants})"
@@ -444,6 +488,15 @@ class MultiTenantCollection:
         self._keyed: Optional["OrderedDict[str, KeyedMetric]"] = None
         self._layout: List[Tuple[str, list]] = []
 
+    @property
+    def telemetry_key(self) -> str:
+        """Per-instance telemetry key (see :attr:`Metric.telemetry_key`)."""
+        key = self.__dict__.get("_telemetry_key")
+        if key is None:
+            key = TELEMETRY.register(self)
+            self._telemetry_key = key
+        return key
+
     # ------------------------------------------------------------------
     # build: layout -> stacked bundles
     # ------------------------------------------------------------------
@@ -454,15 +507,34 @@ class MultiTenantCollection:
         first ``update``; idempotent afterwards. The grouping reads no batch,
         so ``sample_batch`` is optional. Returns ``{owner: [member names]}``
         for the multi-member groups formed."""
-        if self._keyed is None:
-            coll = self._collection
-            self._layout = coll._group_layout()
-            self._keyed = OrderedDict(
-                (owner, KeyedMetric(coll[owner], self.num_tenants, validate_ids=False, capacity=self._capacity,
-                                    device=self.device))
-                for owner, _ in self._layout
+        if self._keyed is not None:
+            return {o: list(ns) for o, ns in self._layout if len(ns) > 1}
+        coll = self._collection
+        coll._note_compute_groups()
+        self._layout = coll._group_layout()
+        self._keyed = OrderedDict(
+            (owner, KeyedMetric(coll[owner], self.num_tenants, validate_ids=False, capacity=self._capacity,
+                                device=self.device))
+            for owner, _ in self._layout
+        )
+        groups = {o: list(ns) for o, ns in self._layout if len(ns) > 1}
+        if TELEMETRY.enabled:
+            TELEMETRY.set_info(
+                self.telemetry_key,
+                "keyed",
+                {"tenants": self.num_tenants, "state_bundles": len(self._keyed), "members": len(coll), "groups": groups},
             )
-        return {o: list(ns) for o, ns in self._layout if len(ns) > 1}
+        if EVENTS.enabled:
+            EVENTS.record(
+                "compile",
+                self.telemetry_key,
+                path="keyed_build",
+                tenants=self.num_tenants,
+                state_bundles=len(self._keyed),
+                members=len(coll),
+                groups=list(groups.values()),
+            )
+        return groups
 
     def _require_built(self) -> "OrderedDict[str, KeyedMetric]":
         if self._keyed is None:
@@ -487,11 +559,16 @@ class MultiTenantCollection:
     # ------------------------------------------------------------------
 
     def _scatter_all(self, state: Dict[str, StateDict], ids: Tensor, *args: Any, **kwargs: Any) -> Dict[str, StateDict]:
-        """Every bundle advanced by one batch (each member's kwargs filtered)."""
-        return {
-            owner: keyed._segment_scatter(state[owner], ids, args, self._collection[owner]._filter_kwargs(**kwargs))[0]
-            for owner, keyed in self._keyed.items()
-        }
+        """Every bundle advanced by one batch (each member's kwargs filtered);
+        the first bundle's invalid-id count goes under the collection's key."""
+        new: Dict[str, StateDict] = {}
+        invalid = None
+        for owner, keyed in self._keyed.items():
+            fkw = self._collection[owner]._filter_kwargs(**kwargs)
+            new[owner], inv = keyed._segment_scatter(state[owner], ids, args, fkw)
+            invalid = inv if invalid is None else invalid
+        TELEMETRY.add_device(self.telemetry_key, "invalid_tenant_ids", invalid)
+        return new
 
     def _canonical_ids(self, tenant_ids: Any) -> Tensor:
         return next(iter(self._require_built().values()))._canonical_ids(tenant_ids)
@@ -507,12 +584,22 @@ class MultiTenantCollection:
         ids = self._canonical_ids(tenant_ids)
         if self.validate_ids:
             next(iter(keyed.values()))._validate_ids_eager(ids)
+        start = time.perf_counter() if (TELEMETRY.enabled or EVENTS.enabled) else None
         state = {owner: km._get_states() for owner, km in keyed.items()}
         new_state = self._scatter_all(state, ids, *args, **kwargs)
         for owner, km in keyed.items():
             km._set_states(new_state[owner])
             km._update_called = True
             km._computed = None
+        if start is not None:
+            if TELEMETRY.enabled:
+                TELEMETRY.inc(self.telemetry_key, "update_calls")
+                skipped = sum(len(ns) - 1 for _, ns in self._layout)
+                if skipped:
+                    TELEMETRY.inc(self.telemetry_key, "update_dedup_skipped", skipped)
+            _note_keyed_update(
+                self, start, int(ids.shape[0]), members=len(self._collection), state_bundles=len(state)
+            )
 
     # ------------------------------------------------------------------
     # compute fan-out + rollups

@@ -154,6 +154,9 @@ def test_port_imports_neither_jax_nor_metrics_tpu():
         "import metrics_tpu_torch.kernels.binned_counts, metrics_tpu_torch.kernels.sketches\n"
         "import metrics_tpu_torch.utilities.sketching, metrics_tpu_torch.classification.binned_precision_recall\n"
         "import metrics_tpu_torch.transport, metrics_tpu_torch.utilities.distributed\n"
+        "import metrics_tpu_torch.observability, metrics_tpu_torch.observability.export, metrics_tpu_torch.average\n"
+        "import metrics_tpu_torch.classification.hinge, metrics_tpu_torch.classification.kldivergence\n"
+        "import metrics_tpu_torch.classification.hamming_distance, metrics_tpu_torch.functional.classification.dice\n"
         "bad = [m for m in sys.modules if m in ('jax', 'metrics_tpu') or m.startswith(('jax.', 'metrics_tpu.'))]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
     )
@@ -180,7 +183,12 @@ def test_port_sources_import_neither_jax_nor_metrics_tpu():
                 "transport/gather.py", "transport/loopback.py", "utilities/distributed.py", "classification/iou.py",
                 "classification/cohen_kappa.py", "classification/matthews_corrcoef.py", "classification/specificity.py",
                 "functional/classification/iou.py", "functional/classification/cohen_kappa.py",
-                "functional/classification/matthews_corrcoef.py", "functional/classification/specificity.py"):
+                "functional/classification/matthews_corrcoef.py", "functional/classification/specificity.py",
+                "observability/__init__.py", "observability/histogram.py", "observability/registry.py",
+                "observability/events.py", "observability/tracing.py", "observability/export.py", "average.py",
+                "classification/hamming_distance.py", "classification/hinge.py", "classification/kldivergence.py",
+                "functional/classification/hamming_distance.py", "functional/classification/dice.py",
+                "functional/classification/hinge.py", "functional/classification/kldivergence.py"):
         assert ROOT / "metrics_tpu_torch" / new in files
     for path in files:
         for name in _imported_modules(path):

@@ -7,7 +7,9 @@ the JAX package. The same numpy inputs per rank go through the JAX
 faked) and through the port's ``gather_all_tensors``/``gather_all_pytrees``
 (its ``_all_gather`` faked, the module's one collective). Per rank, the
 results must agree in values and, separately, in dtypes; the same ranks
-must raise the same errors after the same number of rounds.
+must raise the same errors after the same number of rounds. The gathers'
+telemetry — the collective span ids of each simulated rank and the sync
+records (rounds, leaves, bytes) — must equal the JAX package's too.
 """
 import threading
 import time
@@ -18,8 +20,12 @@ import numpy as np
 import pytest
 import torch
 
+import metrics_tpu as J
+import metrics_tpu.observability as jobs
 import metrics_tpu.utilities.distributed as jdist
 import metrics_tpu_torch as T
+import metrics_tpu_torch.observability as tobs
+import metrics_tpu_torch.observability.tracing as ttracing
 import metrics_tpu_torch.utilities.distributed as tdist
 from metrics_tpu_torch.metric import Metric
 from metrics_tpu_torch.utilities.data import dim_zero_cat
@@ -56,6 +62,8 @@ def _run_ranks(fns, pkg):
         patches = [
             (tdist, "_all_gather", lambda buf, group: torch.stack(swap(buf))),
             (tdist, "distributed_available", lambda: True),
+            (tdist, "world_size", lambda: nprocs),
+            (ttracing, "_process_index", lambda: rank_of_thread[threading.get_ident()]),
         ]
     results, errors = [None] * nprocs, [None] * nprocs
 
@@ -503,3 +511,100 @@ def test_a_metric_pinned_to_a_subgroup_transport_decodes_only_its_participants()
     got, errors, calls = _run_ranks([rank(0), rank(1), rank(2)], "torch")
     assert errors == [None] * 3 and calls == [2] * 3  # the rounds still span every rank
     assert got == [[0, 0, 2, 2]] * 3
+
+
+# -- the gathers' telemetry -------------------------------------------------------------
+
+#: sync-record fields that must equal the JAX package's exactly
+_SYNC_FIELDS = ("gathers", "gather_errors", "gather_leaves", "payload_bytes_out", "payload_bytes_in",
+                "descriptor_rounds", "payload_rounds", "subgroup_rounds", "transports", "groups", "participants")
+
+
+@pytest.fixture()
+def telemetry():
+    for obs in (jobs, tobs):
+        obs.reset()
+        obs.enable()
+    yield
+    for obs in (jobs, tobs):
+        obs.reset()
+
+
+def _spans(obs, nprocs):
+    records = obs.TRACER.records()
+    return [[s.span_id for s in records if s.process == r] for r in range(nprocs)]
+
+
+def _payload_bytes(per_rank, align):
+    """The payload round's width: the largest rank's leaf bytes, each leaf
+    rounded up to ``align`` (a leaf the protocol cannot align rides as none)."""
+    def leaf_bytes(leaf):
+        arr = np.asarray(leaf)
+        if arr.dtype.kind == "c" or arr.dtype == _BF16 or arr.ndim > 8:
+            return 0
+        return -(-arr.size * arr.dtype.itemsize // align) * align
+
+    return max(sum(leaf_bytes(leaf) for leaf in tdist._tree_leaves(local, [])) for local in per_rank)
+
+
+@pytest.mark.parametrize("case", sorted(TREE_CASES))
+def test_gather_spans_and_sync_records_match_the_jax_package(telemetry, case):
+    per_rank, groups = TREE_CASES[case]
+    nprocs = len(per_rank)
+    _parity(per_rank, groups, kind="trees")
+    assert _spans(tobs, nprocs) == _spans(jobs, nprocs)
+    assert all(len(ids) == (2 if case == "all_empty" else 3) for ids in _spans(tobs, nprocs))
+    tsync, jsync = tobs.snapshot()["sync"], jobs.snapshot()["sync"]
+    for field in _SYNC_FIELDS:
+        assert tsync[field] == jsync[field], field
+    # transport_bytes: the same descriptor bytes; the payload round's width
+    # differs only by the port's 16-byte leaf alignment
+    padding = nprocs * nprocs * (_payload_bytes(per_rank, 16) - _payload_bytes(per_rank, 1))
+    assert tsync["transport_bytes"] == jsync["transport_bytes"] + padding
+
+
+def test_span_ids_of_successive_gathers_count_up_per_group(telemetry):
+    per_rank = [np.asarray([1.0 + r], np.float32) for r in range(3)]
+    for _ in range(2):
+        _parity(per_rank)
+    ids = _spans(tobs, 3)
+    assert ids == _spans(jobs, 3)
+    assert ids[0] == [f"gather|0,1,2|{b}|{n}" for n in range(2) for b in ("descriptor", "payload", "transport")]
+    assert ids[0] == ids[1] == ids[2]  # the same collective, the same id on every rank
+
+
+def test_collection_sync_spans_and_counters_match_the_jax_package(telemetry):
+    rng = np.random.RandomState(0)
+    probs = rng.rand(2, 32, 3).astype(np.float32)
+    probs /= probs.sum(-1, keepdims=True)
+    target = rng.randint(0, 3, (2, 32))
+
+    def build(pkg, **dev):
+        return pkg.MetricCollection({
+            "Accuracy": pkg.Accuracy(**dev), "Precision": pkg.Precision(average="macro", num_classes=3, **dev),
+            "Recall": pkg.Recall(average="macro", num_classes=3, **dev), "ConfusionMatrix": pkg.ConfusionMatrix(3, **dev),
+        })
+
+    colls = {"jax": [build(J) for _ in range(2)], "torch": [build(T, device="cpu") for _ in range(2)]}
+
+    def rank(pkg, r):
+        conv = jnp.asarray if pkg == "jax" else torch.from_numpy
+
+        def run():
+            coll = colls[pkg][r]
+            coll.update(conv(probs[r]), conv(target[r]))
+            return coll.compute()
+
+        return run
+
+    for pkg in ("jax", "torch"):
+        _, errors, calls = _run_ranks([rank(pkg, 0), rank(pkg, 1)], pkg)
+        assert errors == [None, None] and calls == [2, 2]
+    assert _spans(tobs, 2) == _spans(jobs, 2)
+    assert _spans(tobs, 2)[0][-1] == "sync|None|collection|0"
+    tsnap, jsnap = tobs.snapshot(), jobs.snapshot()
+    for tcoll, jcoll in zip(colls["torch"], colls["jax"]):
+        for name in tcoll.keys(keep_base=True):
+            want = jsnap["metrics"][jcoll[name].telemetry_key]["counters"]
+            got = tsnap["metrics"][tcoll[name].telemetry_key]["counters"]
+            assert got.get("sync_calls") == want.get("sync_calls"), name

@@ -16,7 +16,10 @@ collective (``utilities/distributed.py::_all_gather``) on each rank. Cases:
 * a ``MultiTenantCollection``: two rounds per bundle at N = 10 and 1000;
 * groups: a ``ProcessGroup`` handle over both ranks, one over rank 0 alone,
   and disjoint rank collections in one round;
-* ``apply_compute(state, process_group=WORLD)`` against ``compute()``.
+* ``apply_compute(state, process_group=WORLD)`` against ``compute()``;
+* telemetry: the collection's sync and one ``sync_state_packed`` with its
+  spans and sync records, against the JAX package's (its collection in N
+  threads at a barrier, its packed sync in ``shard_map`` over two devices).
 """
 import datetime
 import multiprocessing as mp
@@ -56,7 +59,17 @@ def _data(seed=0):
         # rank 0 takes three batches, rank 1 one
         "collection": [(probs(n, C), rng.randint(0, C, n)) for n in (32, 17, 9, 23)],
         "keyed": [(rng.randint(0, 1000, 64), probs(64, C), rng.randint(0, C, 64)) for _ in range(3)],
+        # one (WORLD, ...) stack per leaf: rank r syncs row r
+        "packed": {
+            "a": rng.rand(WORLD, 2, 3).astype(np.float32),
+            "b": rng.randint(0, 9, (WORLD, 4)).astype(np.int32),
+            "c": rng.rand(WORLD).astype(np.float32),
+            "d": rng.randint(0, 9, (WORLD, 2)).astype(np.int32),
+        },
     }
+
+
+PACKED_REDUCTIONS = {"a": "sum", "b": "sum", "c": "max", "d": "min"}
 
 
 def _collection(pkg, **device):
@@ -183,6 +196,27 @@ def _case_apply_compute(rank, data):
     return out
 
 
+def _case_telemetry(rank, data):
+    import torch.distributed as dist
+
+    from metrics_tpu_torch import observability
+
+    observability.reset()
+    coll = _collection(T, **CPU)
+    for preds, target in data["collection"][:3] if rank == 0 else data["collection"][3:]:
+        coll.update(_t(preds), _t(target))
+    coll.compute()
+    state = {k: _t(v[rank]) for k, v in data["packed"].items()}
+    tdist.sync_state_packed(state, PACKED_REDUCTIONS, dist.group.WORLD)
+    snap = observability.snapshot()
+    return {
+        "spans": [(s.span_id, s.process) for s in observability.TRACER.records()],
+        "sync": snap["sync"],
+        "sync_calls": {n: snap["metrics"][m.telemetry_key]["counters"].get("sync_calls")
+                       for n, m in coll.items(keep_base=True)},
+    }
+
+
 CASES = {
     "probe_auroc": _case_probe_auroc,
     "probe_samples": _case_probe_samples,
@@ -195,6 +229,7 @@ CASES = {
     "group_handle": _case_group_handle,
     "disjoint_rank_groups": _case_disjoint_rank_groups,
     "apply_compute": _case_apply_compute,
+    "telemetry": _case_telemetry,
 }
 
 
@@ -379,3 +414,125 @@ def test_apply_compute_over_a_process_group_equals_the_gather_path(synced, name)
         packed, gathered = r[name]
         assert packed.dtype == gathered.dtype
         np.testing.assert_array_equal(packed, gathered)
+
+
+# -- telemetry: spans and sync records against the JAX package -------------------------
+
+
+def _jax_collection_in_threads(data):
+    """The JAX package's collection sync of the same partition, two ranks
+    simulated by threads at a barrier; returns its tracer's spans per rank
+    and its sync records (both ranks recorded into one registry) and the
+    members' counters."""
+    import threading
+
+    import jax
+    import jax.numpy as jnp
+
+    import metrics_tpu as J
+    import metrics_tpu.observability as jobs
+    import metrics_tpu.utilities.distributed as jdist
+
+    barrier, exchange, rank_of = threading.Barrier(WORLD), {}, {}
+
+    def swap(x):
+        exchange[rank_of[threading.get_ident()]] = np.asarray(x)
+        barrier.wait()
+        got = np.stack([exchange[r] for r in range(WORLD)])
+        barrier.wait()
+        return got
+
+    colls, errors = [_collection(J) for _ in range(WORLD)], []
+
+    def run(rank):
+        rank_of[threading.get_ident()] = rank
+        try:
+            for preds, target in data["collection"][:3] if rank == 0 else data["collection"][3:]:
+                colls[rank].update(jnp.asarray(preds), jnp.asarray(target))
+            colls[rank].compute()
+        except Exception as err:  # pragma: no cover - reported below
+            errors.append(err)
+            barrier.abort()
+
+    patches = [(jdist, "_process_allgather", swap), (jdist, "distributed_available", lambda: True),
+               (jdist, "world_size", lambda: WORLD), (jax, "process_index", lambda: rank_of[threading.get_ident()])]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    jobs.reset()
+    for mod, name, value in patches:
+        setattr(mod, name, value)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            threads = [threading.Thread(target=run, args=(r,)) for r in range(WORLD)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+    finally:
+        for mod, name, value in saved:
+            setattr(mod, name, value)
+    assert not errors, errors
+    snap = jobs.snapshot()
+    spans = [[s.span_id for s in jobs.TRACER.records() if s.process == r] for r in range(WORLD)]
+    sync_calls = [{n: snap["metrics"][m.telemetry_key]["counters"].get("sync_calls") for n, m in c.items(keep_base=True)}
+                  for c in colls]
+    jobs.reset()
+    return spans, snap["sync"], sync_calls
+
+
+def _jax_packed_sync_record(data):
+    """The JAX package's in-graph record of the same packed sync, traced in
+    ``shard_map`` over two virtual devices."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+    from jax.sharding import PartitionSpec as P
+
+    import metrics_tpu.observability as jobs
+    import metrics_tpu.utilities.distributed as jdist
+
+    def body(state):
+        return jdist.sync_state_packed({k: v[0] for k, v in state.items()}, PACKED_REDUCTIONS, "data")
+
+    if hasattr(jax, "shard_map"):  # pragma: no cover - newer jax
+        fn = jax.shard_map(body, mesh=Mesh(np.array(jax.devices()[:WORLD]), ("data",)), in_specs=P("data"),
+                           out_specs=P(), check_vma=False)
+    else:
+        from jax.experimental.shard_map import shard_map
+
+        fn = shard_map(body, mesh=Mesh(np.array(jax.devices()[:WORLD]), ("data",)), in_specs=P("data"),
+                       out_specs=P(), check_rep=False)
+    jobs.reset()
+    jax.jit(fn)({k: jnp.asarray(v) for k, v in data["packed"].items()})
+    record = jobs.snapshot()["sync"]["in_graph"]
+    spans = [(s.kind, s.bucket, s.seq) for s in jobs.TRACER.records()]
+    jobs.reset()
+    return record, spans
+
+
+def test_sync_spans_and_records_equal_the_jax_package(synced):
+    got, rounds, data = _ok(synced, "telemetry")
+    assert rounds == [2, 2]  # the collection's two rounds; sync_state_packed does no gather here
+    port_spans = [[sid for sid, process in r["spans"]] for r in got]
+    assert [p for r in got for _, p in r["spans"]] == [0] * len(got[0]["spans"]) + [1] * len(got[1]["spans"])
+    assert port_spans[0] == port_spans[1]  # one id per collective, alike on both ranks
+
+    jax_spans, jax_sync, jax_sync_calls = _jax_collection_in_threads(data)
+    gather_spans = [sid for sid in port_spans[0] if not sid.startswith("in_graph|")]
+    assert all(gather_spans == ids for ids in jax_spans)
+    assert [r["sync_calls"] for r in got] == jax_sync_calls
+    for field in ("gathers", "gather_errors", "gather_leaves", "payload_bytes_out", "payload_bytes_in",
+                  "descriptor_rounds", "payload_rounds", "subgroup_rounds"):
+        assert sum(r["sync"][field] for r in got) == jax_sync[field], field
+    assert {k: {"gathers": sum(r["sync"]["groups"][k]["gathers"] for r in got), "world": WORLD}
+            for k in got[0]["sync"]["groups"]} == jax_sync["groups"]
+
+    record, jax_in_graph_spans = _jax_packed_sync_record(data)
+    port_in_graph_spans = [tuple(sid.split("|")[i] for i in (0, 2, 3)) for sid in port_spans[0] if sid.startswith("in_graph|")]
+    assert sorted(port_in_graph_spans) == sorted((k, b, str(n)) for k, b, n in jax_in_graph_spans)
+    for r in got:
+        ig = r["sync"]["in_graph"]
+        for field in ("syncs", "states", "bytes_traced", "collectives", "buckets", "collectives_before",
+                      "collectives_after", "dedup_groups", "dedup_members", "levels"):
+            assert ig[field] == record[field], field
+        assert ig["axes"] == {repr("[0, 1]"): 1}
