@@ -110,6 +110,36 @@ Phases, in order; any failure exits non-zero before the last line:
    at the binary stream's; the device time of B1, B2 and B5 is split by
    device operation (fill, memset, kernel), and an empty kernel's device
    time is printed as the floor under the stream shape's byte bound.
+3h. The serving plane (``metrics_tpu_torch.serving``). (a) Replay: phase
+   3b's 50 cohorts (49 x 4096 rows and the last cohort's 3000 real rows, as
+   host numpy) through ``AdmissionQueue(keyed.update, start=False,
+   max_batch=4096, pad_to_bucket=True)``, a ``flush()`` after each, once
+   unstaged and once with ``staging=True``: the stacked states must equal
+   phase 3b's exactly and the values within 1e-6, B3 100 and B4 max 50
+   launches per path, 1096 ``invalid_tenant_ids`` (the last flush padded
+   3000 -> 4096), ``rows_routed`` = 49 * 4096 + 3000, both conservation
+   laws, no ``dispatch_error``; under the sync debug mode a staged flush
+   makes exactly the synchronizing calls of a direct ``update`` of the same
+   cohort on device tensors (the unstaged flush's count is printed); the
+   per-flush medians beside phase 3b's per-update median. (b) Soak, twice
+   (unstaged, then ``staging=True``), 10 s each: ``SLOScheduler(
+   KeyedMetric(Accuracy(), num_tenants=10_000, validate_ids=False),
+   max_batch=2048, max_delay_ms=5, policy="shed_oldest",
+   max_staleness_s=1.0, pad_to_bucket=True)`` fed by 4 producer threads of
+   64-row cohorts (uniform tenants, float32 scores, Bernoulli(score) int32
+   targets, seeded) at 20,000 rows/s in all and read every second for 16
+   random tenants. Printed: achieved rows/s, flushes/s by trigger, ingest
+   p50/p99 (the ``serving_ingest_seconds`` histogram), shed rows by reason,
+   the staged run's overlap and prefetched cohorts, the read outcomes, and
+   the device idle share over one second of the window (profiler). At
+   drain: both conservation laws exactly, submitted - shed == the tenant
+   report's ``rows_routed``, the ``serving.*`` counters == the queue's
+   ledger, no ``dispatch_error`` and no ``_last_error``, B3 and B4 max
+   launched once per flush, and the keyed state == a CPU ``KeyedMetric``
+   updated in one call with every cohort the scheduler dispatched.
+   (c) ``compute_async()`` of the ImageNet-1k collection after 25 of its 49
+   forwards equals a synchronous ``compute()`` at that point and is not
+   moved by the 24 forwards after it; the caller's time in each is printed.
 5. One JSON line ``{"kernels": [...]}``, the card line again, and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -146,6 +176,19 @@ KEYED_LAST_REAL = 3000
 NUM_BINS = 2048
 STREAM_UPDATES = 100
 STREAM_CHUNK = 10_000
+#: the serving soak (scripts/soak.py:52-61, scripts/bench_suite.py:2009-2012):
+#: 10,000 tenants, 2048-row micro-batches, a 5 ms deadline, shed_oldest, a
+#: 1 s staleness budget, 4 producer threads of 64-row cohorts pacing 20,000
+#: rows/s, a reader of 16 tenants every second; 10 s per run (the soak's
+#: 60 s, cut to fit the script's time limit)
+SOAK_TENANTS = 10_000
+SOAK_MAX_BATCH = 2048
+SOAK_DELAY_MS = 5.0
+SOAK_RATE = 20_000
+SOAK_PRODUCERS = 4
+SOAK_COHORT = 64
+SOAK_SECONDS = 10.0
+SOAK_READ_TENANTS = 16
 
 
 def fail(message: str) -> None:
@@ -746,6 +789,274 @@ def sync_calls(torch, fn) -> list:
     return [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in seen if "synchroniz" in str(w.message)]
 
 
+def _host_cohorts(keyed_batches):
+    """Phase 3b's cohorts as host numpy, the last one cut to its real rows."""
+    host = [tuple(t.cpu().numpy() for t in batch) for batch in keyed_batches]
+    host[-1] = tuple(a[:KEYED_LAST_REAL] for a in host[-1])
+    return host
+
+
+def check_ledger(phase, q, routed):
+    """Both conservation laws of the queue's exact ledger, no dispatch error,
+    and ``submitted - shed`` == the rows the keyed state ingested."""
+    s = q.stats()
+    reasons = s["shed_by_reason"]
+    post = sum(reasons.get(k, 0) for k in ("shed_oldest", "dispatch_error", "poisoned", "breaker_open"))
+    if s["admitted"] != s["dispatched"] + s["resident"] + post:
+        fail(f"[{phase}] admitted != dispatched + resident + shed after admission: {s}")
+    if s["submitted"] - s["shed"] != s["dispatched"] + s["resident"]:
+        fail(f"[{phase}] submitted - shed != dispatched + resident: {s}")
+    if reasons.get("dispatch_error", 0) or q._last_error is not None:
+        fail(f"[{phase}] a dispatch failed: {s['last_error']} ({reasons})")
+    if s["submitted"] - s["shed"] != routed:
+        fail(f"[{phase}] submitted - shed = {s['submitted'] - s['shed']}, the tenant report routed {routed}")
+    return s
+
+
+def serving_replay(torch, M, dev, keyed_batches, keyed_gpu, keyed_out, direct_ms, card) -> dict:
+    """Phase 3h-a: phase 3b's cohorts through an admission queue, unstaged
+    and staged; states == phase 3b's direct updates, launches, ledger, and
+    the synchronizing calls of a flush against a direct update's."""
+    from metrics_tpu_torch import observability
+    from metrics_tpu_torch.kernels import _common
+    from metrics_tpu_torch.serving import AdmissionQueue
+
+    host = _host_cohorts(keyed_batches)
+    real_rows = sum(len(c[0]) for c in host)
+    out = {"direct_update_median_ms": direct_ms}
+    for path in ("unstaged", "staged"):
+        keyed = build_keyed(M, dev)
+        q = AdmissionQueue(keyed.update, start=False, max_batch=KEYED_ROWS, pad_to_bucket=True,
+                           staging=path == "staged")
+        torch.cuda.synchronize()
+        _common.reset_dispatch_counters()
+        flush_ms = []
+        for ids, preds, target in host:
+            q.submit_many(ids, preds, target)
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            q.flush()
+            torch.cuda.synchronize()
+            flush_ms.append((time.perf_counter() - start) * 1e3)
+        launches = {op: _common.launch_count(op) for op in ("segment_scatter_add", "segment_scatter_max",
+                                                           "segment_scatter_min", "stat_scores_counts")}
+        want = {"segment_scatter_add": 2 * KEYED_UPDATES, "segment_scatter_max": KEYED_UPDATES,
+                "segment_scatter_min": 0, "stat_scores_counts": 0}
+        if launches != want:
+            fail(f"[replay {path}] launches {launches}, expected {want}")
+        for owner, km in keyed._keyed.items():
+            for name, value in km._get_states().items():
+                if not torch.equal(value, getattr(keyed_gpu._keyed[owner], name)):
+                    fail(f"[replay {path}] state {owner}.{name} differs from phase 3b's direct updates")
+        values = keyed.compute()
+        diffs = {name: tree_max_diff(torch, values[name], keyed_out[name].cpu()) for name in keyed_out}
+        if max(diffs.values()) > 1e-6:
+            fail(f"[replay {path}] values differ from phase 3b's by {diffs}")
+        report = keyed.tenant_report()
+        if report["rows_routed"] != real_rows or report["invalid_tenant_ids"] != KEYED_ROWS - KEYED_LAST_REAL:
+            fail(f"[replay {path}] the tenant report routes {report['rows_routed']} rows (expected {real_rows}) and "
+                 f"counts {report['invalid_tenant_ids']} invalid ids (expected {KEYED_ROWS - KEYED_LAST_REAL})")
+        stats = check_ledger(f"replay {path}", q, report["rows_routed"])
+        # synchronizing calls: three more (warm) flushes against a direct
+        # update of the same cohorts on device tensors
+        direct = build_keyed(M, dev)
+        direct.update(*(torch.from_numpy(a).to(dev) for a in host[0]))
+        flush_sites, direct_sites = [], []
+        for ids, preds, target in host[:3]:
+            q.submit_many(ids, preds, target)
+            flush_sites.append(sorted(sync_calls(torch, q.flush)))
+            args = [torch.from_numpy(a).to(dev) for a in (ids.astype("int32"), preds, target)]
+            torch.cuda.synchronize()
+            direct_sites.append(sorted(sync_calls(torch, lambda: direct.update(*args))))
+        q.close()
+        if path == "staged" and flush_sites != direct_sites:
+            fail(f"[replay staged] a staged flush makes other synchronizing calls than a direct update: "
+                 f"{flush_sites} against {direct_sites}")
+        sites = {site: flush_sites[0].count(site) for site in sorted(set(flush_sites[0]))}
+        med = statistics.median(flush_ms)
+        print(f"[replay {path}] {len(host)} flushes of phase 3b's cohorts on {card}: flush median {med:.3f} ms "
+              f"(first {flush_ms[0]:.3f} ms; phase 3b's direct update median {direct_ms:.3f} ms); launches {launches}; "
+              f"states == phase 3b's, values max |diff| {max(diffs.values()):.2e}; rows_routed {real_rows}, invalid ids "
+              f"{report['invalid_tenant_ids']}; synchronizing calls per flush {len(flush_sites[0])} at {sites} "
+              f"(a direct update: {len(direct_sites[0])})")
+        out[path] = {"flush_ms": flush_ms, "flush_median_ms": med, "launches": launches, "max_abs_diff": diffs,
+                     "sync_calls_per_flush": len(flush_sites[0]), "sync_sites": sites,
+                     "direct_update_sync_calls": len(direct_sites[0]), "ledger": stats}
+        del keyed, direct
+    observability.reset()
+    return out
+
+
+def serving_soak(torch, M, dev, staging, card) -> dict:
+    """Phase 3h-b: the soak at its full width for ``SOAK_SECONDS``; every
+    check of the module docstring; returns the run's record."""
+    import threading
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from metrics_tpu_torch import observability
+    from metrics_tpu_torch.kernels import _common
+    from metrics_tpu_torch.observability.histogram import HISTOGRAMS
+    from metrics_tpu_torch.serving import SERVING_STATS, SLOScheduler
+
+    label = "soak staged" if staging else "soak unstaged"
+    rng = np.random.default_rng(SEED + 8)
+    per_producer = int(SOAK_RATE * SOAK_SECONDS) // SOAK_PRODUCERS // SOAK_COHORT * SOAK_COHORT
+    data = []
+    for _ in range(SOAK_PRODUCERS):
+        scores = rng.random(per_producer, dtype=np.float32)
+        data.append((rng.integers(0, SOAK_TENANTS, per_producer), scores,
+                     (rng.random(per_producer) < scores).astype(np.int32)))
+    keyed = M.KeyedMetric(M.Accuracy(device=dev), num_tenants=SOAK_TENANTS, validate_ids=False, device=dev)
+    dispatched = []  # host copies of every cohort the scheduler dispatched
+    real_update = keyed.update
+
+    def recorded_update(ids, *cols):
+        dispatched.append([np.array(a) for a in (ids, *cols)])
+        real_update(ids, *cols)
+
+    keyed.update = recorded_update
+    observability.reset()
+    svc = SLOScheduler(keyed, max_batch=SOAK_MAX_BATCH, max_delay_ms=SOAK_DELAY_MS, policy="shed_oldest",
+                       max_staleness_s=1.0, pad_to_bucket=True, staging=staging)
+    # one warm cohort through, and a first read that installs the cache
+    svc.submit_many(data[0][0][:SOAK_COHORT], data[0][1][:SOAK_COHORT], data[0][2][:SOAK_COHORT])
+    if not svc.drain(timeout=60):
+        fail(f"[{label}] the warm cohort did not drain")
+    svc.read(np.arange(SOAK_READ_TENANTS))
+    torch.cuda.synchronize()
+    _common.reset_dispatch_counters()
+    flushes_before = svc.queue.stats()["flushes"]
+    interval = SOAK_PRODUCERS * SOAK_COHORT / SOAK_RATE
+    t0 = time.perf_counter() + 0.05
+    stop = threading.Event()
+    errors = []
+
+    def producer(k):
+        try:
+            ids, scores, targets = data[k]
+            for i in range(per_producer // SOAK_COHORT):
+                delay = t0 + (i + k / SOAK_PRODUCERS) * interval - time.perf_counter()
+                if delay > 0:
+                    time.sleep(delay)
+                rows = slice(i * SOAK_COHORT, (i + 1) * SOAK_COHORT)
+                svc.submit_many(ids[rows], scores[rows], targets[rows])
+        except Exception as err:  # noqa: BLE001 - failed below
+            errors.append(err)
+
+    def reader():
+        try:
+            rrng = np.random.default_rng(SEED + 9)
+            while not stop.wait(1.0):
+                values = svc.read(rrng.choice(SOAK_TENANTS, SOAK_READ_TENANTS, replace=False))
+                if values.shape != (SOAK_READ_TENANTS,):
+                    errors.append(ValueError(f"a read returned {values.shape}"))
+        except Exception as err:  # noqa: BLE001 - failed below
+            errors.append(err)
+
+    threads = [threading.Thread(target=producer, args=(k,)) for k in range(SOAK_PRODUCERS)]
+    read_thread = threading.Thread(target=reader)
+    for t in threads + [read_thread]:
+        t.start()
+    time.sleep(max(0.0, t0 + SOAK_SECONDS / 2 - 0.5 - time.perf_counter()))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        window_start = time.perf_counter()
+        time.sleep(1.0)
+        window_ms = (time.perf_counter() - window_start) * 1e3
+    for t in threads:
+        t.join(timeout=SOAK_SECONDS + 60)
+    submit_s = time.perf_counter() - t0
+    drained = svc.drain(timeout=120)
+    drain_s = time.perf_counter() - t0
+    stop.set()
+    read_thread.join(timeout=60)
+    if any(t.is_alive() for t in threads + [read_thread]) or not drained or errors:
+        fail(f"[{label}] producers or reader did not finish, or the queue did not drain: {errors}")
+    busy_ms = _device_us(prof) / 1e3
+    stats = check_ledger(label, svc.queue, keyed.tenant_report()["rows_routed"])
+    serving = SERVING_STATS.summary()
+    for counter, field in (("submitted_rows", "submitted"), ("admitted_rows", "admitted"), ("shed_rows", "shed"),
+                           ("dispatched_rows", "dispatched"), ("flushes", "flushes")):
+        if serving[counter] != stats[field]:
+            fail(f"[{label}] serving.{counter} = {serving[counter]}, the queue's ledger {field} = {stats[field]}")
+    if serving["shed_by_reason"] != stats["shed_by_reason"]:
+        fail(f"[{label}] serving.shed_by_reason {serving['shed_by_reason']} != {stats['shed_by_reason']}")
+    window_flushes = stats["flushes"] - flushes_before
+    launches = {op: _common.launch_count(op) for op in ("segment_scatter_add", "segment_scatter_max")}
+    if launches != {"segment_scatter_add": window_flushes, "segment_scatter_max": window_flushes}:
+        fail(f"[{label}] launches {launches} over {window_flushes} flushes")
+    svc.close(timeout=30)
+    # the keyed state == a CPU KeyedMetric given every dispatched cohort in one update
+    ids, scores, targets = (np.concatenate(col) for col in zip(*dispatched))
+    if int((ids >= 0).sum()) != stats["dispatched"]:
+        fail(f"[{label}] the dispatched cohorts hold {int((ids >= 0).sum())} real rows, the ledger {stats['dispatched']}")
+    ref = M.KeyedMetric(M.Accuracy(device="cpu"), num_tenants=SOAK_TENANTS, validate_ids=False, device="cpu")
+    ref.update(torch.from_numpy(ids), torch.from_numpy(scores), torch.from_numpy(targets))
+    for name, value in keyed._get_states().items():
+        if not torch.equal(value.cpu(), getattr(ref, name)):
+            fail(f"[{label}] keyed state {name} differs from the CPU's over the dispatched rows")
+
+    def pct(name, q):
+        return HISTOGRAMS.get(name, unit="s", policy="shed_oldest").percentile(q) * 1e3
+
+    triggers = {k: v / submit_s for k, v in serving["flushes_by_trigger"].items()}
+    reads = {k: serving[k] for k in ("reads", "cache_hits", "tenant_cache_hits", "stale_serves", "cache_misses",
+                                     "refreshes", "coalesced_refreshes")}
+    out = {
+        "submitted": stats["submitted"], "dispatched": stats["dispatched"], "shed_by_reason": stats["shed_by_reason"],
+        "submit_seconds": submit_s, "drain_seconds": drain_s, "achieved_rows_per_s": stats["submitted"] / submit_s,
+        "flushes": stats["flushes"], "flushes_per_s_by_trigger": triggers,
+        "rows_per_flush": stats["dispatched"] / stats["flushes"],
+        "ingest_p50_ms": pct("serving_ingest_seconds", 50), "ingest_p99_ms": pct("serving_ingest_seconds", 99),
+        "queue_wait_p50_ms": pct("serving_queue_wait_seconds", 50),
+        "queue_wait_p99_ms": pct("serving_queue_wait_seconds", 99),
+        "dispatch_p50_ms": pct("serving_dispatch_seconds", 50), "dispatch_p99_ms": pct("serving_dispatch_seconds", 99),
+        "reads": reads, "device_busy_ms": busy_ms, "window_ms": window_ms, "idle_share": 1 - busy_ms / window_ms,
+        "launches": launches, "staging": stats["staging"],
+    }
+    staged = (f"; overlap {stats['staging']['overlap_seconds']:.4f} s over {stats['staging']['prefetched_cohorts']} "
+              f"prefetched of {stats['staging']['staged_cohorts']} staged cohorts") if staging else ""
+    print(f"[{label}] {SOAK_SECONDS:.0f} s at {SOAK_RATE} rows/s on {card}: achieved {out['achieved_rows_per_s']:.1f} "
+          f"rows/s submitted ({stats['submitted']} rows, drained {drain_s:.3f} s after start), {stats['flushes']} flushes "
+          f"({out['rows_per_flush']:.1f} rows each), flushes/s by trigger "
+          f"{ {k: round(v, 3) for k, v in triggers.items()} }; ingest p50 {out['ingest_p50_ms']:.3f} ms, p99 "
+          f"{out['ingest_p99_ms']:.3f} ms (queue wait p50 {out['queue_wait_p50_ms']:.3f} / p99 "
+          f"{out['queue_wait_p99_ms']:.3f}, dispatch p50 {out['dispatch_p50_ms']:.3f} / p99 {out['dispatch_p99_ms']:.3f}); "
+          f"shed {stats['shed_by_reason']}; reads {reads}; device idle share {out['idle_share']:.4f} "
+          f"({busy_ms:.3f} ms busy in {window_ms:.1f} ms){staged}; keyed state == CPU over the dispatched rows")
+    observability.reset()
+    return out
+
+
+def compute_async_phase(torch, M, dev, batches, card) -> dict:
+    """Phase 3h-c: ``compute_async`` of the ImageNet-1k collection after 25 of
+    its 49 forwards against a synchronous ``compute()`` at that point."""
+    coll = build_collection(M, dev)
+    for preds, target in batches[:25]:
+        coll(preds, target)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    future = coll.compute_async()
+    async_ms = (time.perf_counter() - start) * 1e3
+    start = time.perf_counter()
+    want = coll.compute()
+    torch.cuda.synchronize()
+    sync_ms = (time.perf_counter() - start) * 1e3
+    for preds, target in batches[25:]:
+        coll(preds, target)
+    got = future.result(timeout=120)
+    if got.keys() != want.keys() or not all(same_bits(got[k], want[k]) for k in want):
+        fail(f"compute_async {dict((k, float(v)) for k, v in got.items() if v.ndim == 0)} != compute() at the "
+             f"snapshot {dict((k, float(v)) for k, v in want.items() if v.ndim == 0)}")
+    moved = sorted(k for k, v in coll.compute().items() if not same_bits(v, want[k]))
+    print(f"[compute_async] after 25 of 49 forwards on {card}: the future == compute() at the snapshot, unmoved by "
+          f"the 24 forwards after it (the live values moved for {len(moved)} members); caller's time "
+          f"{async_ms:.3f} ms in compute_async against {sync_ms:.3f} ms in compute()")
+    return {"compute_async_ms": async_ms, "compute_ms": sync_ms, "generation": future.generation,
+            "members_moved_after": moved}
+
+
 def make_kl_targets(torch, device):
     """Phase 3f's seeded target distributions, one ``(n, 1000)`` softmax per
     ImageNet-1k batch."""
@@ -1342,6 +1653,15 @@ def main() -> int:
     # -- 3e. the epoch-end sync over NCCL --------------------------------------
     record["sync"] = sync_phase(torch, gpu, keyed_gpu, card)
 
+    # -- 3h. the serving plane ----------------------------------------------------
+    record["serving"] = {
+        "replay": serving_replay(torch, M, dev, keyed_batches, keyed_gpu, keyed_out, statistics.median(update_ms),
+                                 card),
+        "soak_unstaged": serving_soak(torch, M, dev, False, card),
+        "soak_staged": serving_soak(torch, M, dev, True, card),
+        "compute_async": compute_async_phase(torch, M, dev, batches, card),
+    }
+
     # -- 4. times at the main-path shapes ------------------------------------
     preds, target = batches[0]
     canon_p, canon_t, _ = _input_format_classification(preds, target)
@@ -1539,6 +1859,14 @@ def main() -> int:
                             f"{suffix}_plain_ms": t["plain_ms"], f"{suffix}_bound_ms": t["bound"][0],
                             f"{suffix}_library_ms": t["library_ms"]})
     kernels[-1]["c1_launches"] = stream_launches["label_score_histograms"]
+    # B3 and B4 max on the serving path too: the replay's paths and the soaks
+    serving = record["serving"]
+    for entry in kernels:
+        if entry["name"] in ("segment_scatter_add", "segment_scatter_max"):
+            entry["serving_launches"] = {
+                **{f"replay_{path}": serving["replay"][path]["launches"][entry["name"]] for path in ("unstaged", "staged")},
+                **{run: serving[run]["launches"][entry["name"]] for run in ("soak_unstaged", "soak_staged")},
+            }
     record["kernels"] = kernels
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)

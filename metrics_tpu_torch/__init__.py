@@ -17,9 +17,12 @@ the functional ``dice_score``), ``AverageMeter``, the arithmetic of metrics
 and ``MultiTenantCollection``), the curve metrics (``AUROC``,
 ``AveragePrecision``, ``ROC``, ``PrecisionRecallCurve``, ``AUC`` and the
 binned curves), exact or ``sketched=True``, the epoch-end sync over
-``torch.distributed`` (``utilities/distributed.py``, ``transport/``) and
-the telemetry core (``observability``: counters, events, histograms,
-collective spans, ``snapshot()``, ``render_prometheus()``).
+``torch.distributed`` (``utilities/distributed.py``, ``transport/``), the
+telemetry core (``observability``: counters, events, histograms,
+collective spans, ``snapshot()``, ``render_prometheus()``), and the serving
+plane (``serving``: ``AdmissionQueue``, ``SLOScheduler``, the staging ring;
+``compute_async`` on the background engine of ``utilities/async_sync.py``;
+``resilience``: ``RetryPolicy``, ``DeadlineBudget``, ``CircuitBreaker``).
 """
 from metrics_tpu_torch.average import AverageMeter  # noqa: F401
 from metrics_tpu_torch.classification import (  # noqa: F401
@@ -49,3 +52,7 @@ from metrics_tpu_torch.classification import (  # noqa: F401
 from metrics_tpu_torch.collections import MetricCollection  # noqa: F401
 from metrics_tpu_torch.metric import CompositionalMetric, Metric  # noqa: F401
 from metrics_tpu_torch.wrappers import KeyedMetric, MultiTenantCollection  # noqa: F401
+from metrics_tpu_torch import serving  # noqa: F401 E402
+from metrics_tpu_torch.serving import AdmissionQueue, SLOScheduler  # noqa: F401 E402
+from metrics_tpu_torch import resilience  # noqa: F401 E402
+from metrics_tpu_torch.resilience import CircuitBreaker, DeadlineBudget, RetryPolicy  # noqa: F401 E402

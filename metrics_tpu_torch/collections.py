@@ -201,6 +201,26 @@ class MetricCollection:
                 m._set_states(cache)
                 m._to_sync = prev_to_sync
 
+    def compute_async(
+        self,
+        *,
+        on_degraded: str = "retry",
+        round_timeout_s: Optional[float] = None,
+        max_retries: Optional[int] = None,
+        backoff_s: Optional[float] = None,
+    ) -> Any:
+        """:meth:`compute` on the background engine (``collections.py:925``):
+        the whole collection is cloned on the caller's thread and the clone's
+        packed sync and compute run on the engine; the future resolves to the
+        ``{name: value}`` dict :meth:`compute` at the snapshot would return.
+        The policy arguments are :meth:`Metric.compute_async`'s."""
+        from metrics_tpu_torch.utilities.async_sync import compute_async
+
+        return compute_async(
+            self, on_degraded=on_degraded, round_timeout_s=round_timeout_s, max_retries=max_retries,
+            backoff_s=backoff_s,
+        )
+
     def _class_aliases(self, *, packed: bool) -> Dict[str, List[str]]:
         """``{representative: [class members]}`` for each shared-update class
         that can sync once: equal reductions, group, gather (and, for the

@@ -513,9 +513,6 @@ class Metric(ABC):
                 TELEMETRY.observe(self.telemetry_key, "compute", dur)
                 EVENTS.record("compute", self.telemetry_key, dur_s=dur, t_start=start)
             return self._computed
-            if key is not None:
-                TELEMETRY.inc(key, "compute_calls")
-            return self._computed
 
         return wrapped_func
 
@@ -651,6 +648,36 @@ class Metric(ABC):
         yield
         if cache and restore_cache:
             self._set_states(cache)
+
+    def compute_async(
+        self,
+        *,
+        on_degraded: str = "retry",
+        round_timeout_s: Optional[float] = None,
+        max_retries: Optional[int] = None,
+        backoff_s: Optional[float] = None,
+    ) -> Any:
+        """Epoch-end compute with the cross-process gather off the caller's
+        path (``metric.py:1380``).
+
+        Clones the live states on the caller's thread (a real copy: on the
+        card the copies are enqueued on the caller's stream, after the
+        updates they snapshot) and hands the clone's ``compute()`` to the
+        background engine (:mod:`metrics_tpu_torch.utilities.async_sync`).
+        Returns a :class:`~metrics_tpu_torch.utilities.async_sync.SyncFuture`
+        whose ``result()`` is what :meth:`compute` at the snapshot would have
+        returned; later updates of the live metric do not change it.
+        ``on_degraded``/``round_timeout_s``/``max_retries``/``backoff_s``
+        select the policy for a round that raises or times out. Every process
+        must submit the same ``compute_async`` calls in the same order, as
+        for ``compute()``.
+        """
+        from metrics_tpu_torch.utilities.async_sync import compute_async
+
+        return compute_async(
+            self, on_degraded=on_degraded, round_timeout_s=round_timeout_s, max_retries=max_retries,
+            backoff_s=backoff_s,
+        )
 
     # ------------------------------------------------------------------
     # lifecycle

@@ -28,9 +28,10 @@ telemetry is on or off. Typical scrape::
     snap = observability.snapshot()           # JSON-serializable dict
     text = observability.render_prometheus()  # Prometheus text format
 
-The JAX package's health, retrace, cost, SLO, memory, profiling, timeline,
-aggregation and fleet-tracing pieces are not ported yet (ROADMAP queue A
-item 13).
+The snapshot also carries the ``async_sync``, ``serving`` and
+``resilience`` sections of the planes that fill them. The JAX package's
+health, retrace, cost, SLO, memory, profiling, timeline, aggregation and
+fleet-tracing pieces are not ported yet (ROADMAP queue A item 13).
 """
 from metrics_tpu_torch.observability.events import (  # noqa: F401
     EVENT_KINDS,
@@ -69,14 +70,26 @@ def disable() -> None:
 
 def reset() -> None:
     """Clear all recorded counters, timers, sync stats, events, histograms
-    (window rings included) and collective spans; enablement and the step
+    (window rings included), collective spans, and the async engine's,
+    serving plane's and resilience plane's counters; enablement and the step
     tag survive, and so do the kernels' dispatch counters. Span-id sequence
-    counters reset too — like any collective, reset on every process
-    together or on none."""
+    counters and async generations reset too — like any collective, reset on
+    every process together or on none."""
+    import sys
+
     TELEMETRY.reset()
     EVENTS.clear()
     HISTOGRAMS.reset()
     TRACER.clear()
+    async_sync = sys.modules.get("metrics_tpu_torch.utilities.async_sync")
+    if async_sync is not None and async_sync._ENGINE is not None:
+        async_sync._ENGINE.reset()
+    serving = sys.modules.get("metrics_tpu_torch.serving.telemetry")
+    if serving is not None:
+        serving.SERVING_STATS.reset()
+    resilience = sys.modules.get("metrics_tpu_torch.resilience.telemetry")
+    if resilience is not None:
+        resilience.RESILIENCE_STATS.reset()
 
 
 __all__ = [

@@ -3,18 +3,20 @@
 Counterpart of ``metrics_tpu/observability/export.py`` (``snapshot``,
 ``dumps``, ``render_prometheus``), covering the sections the port records
 so far: ``metrics`` (counters, timers, info blobs), ``sync``, ``events``,
-``histograms``, ``tracing`` (the span tracker's summary) and ``kernels``
-(dispatch counts per op and path). The JAX package's ``retrace``,
-``health``, ``async_sync``, ``serving``, ``durability``, ``resilience``,
-``slo``, ``profiling`` and ``memory`` sections come with the planes that
-fill them (ROADMAP queue A items 10, 13 and 14); until then they are absent
-from the port's snapshot, and a renderer given the JAX package's layout
-renders the covered sections in the same text. :func:`render_prometheus`
+``histograms``, ``tracing`` (the span tracker's summary), ``async_sync``
+(the background engine), ``serving`` (the admission queues and the
+scheduler), ``resilience`` (the policy decisions) and ``kernels`` (dispatch
+counts per op and path). The JAX package's ``retrace``, ``health``,
+``durability``, ``slo``, ``profiling`` and ``memory`` sections come with the
+planes that fill them (ROADMAP queue A items 13 and 14); until then they are
+absent from the port's snapshot, and a renderer given the JAX package's
+layout renders the covered sections in the same text. :func:`render_prometheus`
 gives the Prometheus text exposition format: every series carries
 ``# HELP`` / ``# TYPE`` metadata, histograms render as ``_bucket``/``_sum``/
 ``_count``.
 """
 import json
+import sys
 from typing import Any, Dict, List, Optional
 
 from metrics_tpu_torch.kernels._common import dispatch_summary
@@ -51,7 +53,72 @@ _HELP: Dict[str, str] = {
     "sync_subgroup_rounds_total": "Transport rounds whose exchanges spanned a proper subgroup of the processes (true subgroup formation).",
     "sync_in_graph_level_syncs_total": "Hierarchical in-graph sync lowerings per level label (ici/dcn).",
     "kernel_dispatch_total": "Kernel launches (cuda) and plain-version runs (torch) per op.",
+    "tenants": "Tenant-axis size of a multi-tenant wrapper.",
+    "tenants_active": "Tenants that received at least one event row.",
+    "tenant_rows_routed_total": "Event rows routed to tenant states.",
+    "tenant_invalid_rate": "Fraction of routed rows with out-of-range tenant ids.",
+    "async_sync_submitted_total": "Background syncs submitted to the async engine.",
+    "async_sync_completed_total": "Background syncs resolved (fresh or stale).",
+    "async_sync_failed_total": "Background syncs that exhausted their degraded-link policy.",
+    "async_sync_retries_total": "Transport attempts the retry policy re-issued.",
+    "async_sync_timeouts_total": "Transport rounds that exceeded their round timeout.",
+    "async_sync_stale_serves_total": "Futures served from the last completed generation (stale policy).",
+    "async_sync_quorum_syncs_total": "Background syncs reduced over the healthy subgroup (quorum policy).",
+    "async_sync_degraded_rounds_total": "Transport rounds started with flagged degraded peers.",
+    "async_sync_in_flight": "Background syncs queued or running right now.",
+    "async_sync_coalesced_total": "Submissions served by an already-pending job for the same key (coalesce=True).",
+    "serving_queues": "Live admission queues in the serving plane.",
+    "serving_queue_depth_rows": "Rows resident across the serving plane's admission queues.",
+    "serving_queue_depth_high_water": "Peak resident rows observed at a flush.",
+    "serving_submitted_rows_total": "Event rows offered to the admission queues.",
+    "serving_admitted_rows_total": "Event rows admitted past the backpressure policy.",
+    "serving_shed_rows_total": "Event rows shed by the load-shedding policies (exactly accounted).",
+    "serving_shed_by_reason_total": "Shed rows split by policy reason.",
+    "serving_dispatched_rows_total": "Rows delivered to keyed update dispatches.",
+    "serving_flushes_total": "Coalesced dispatches (micro-batch flushes).",
+    "serving_flushes_by_trigger_total": "Flushes split by trigger (size/deadline/manual/close).",
+    "serving_dispatch_errors_total": "Flush dispatches that raised (their rows count as shed).",
+    "serving_reads_total": "SLO-governed per-tenant reads served.",
+    "serving_cache_hits_total": "Reads served from a fresh result cache.",
+    "serving_cache_misses_total": "Reads that had to wait for a fresh compute.",
+    "serving_stale_serves_total": "Reads served a stale-within-budget cached generation.",
+    "serving_refreshes_total": "Result-cache refreshes scheduled on the background engine.",
+    "serving_coalesced_refreshes_total": "Stale reads that joined an in-flight refresh.",
+    "serving_generation_bumps_total": "Write-generation bumps (one per dispatched flush).",
+    "serving_tenant_cache_hits_total": "Reads served from cache by per-tenant generation freshness (global generation moved, requested tenants untouched).",
+    "serving_ingest_seconds": "Admission-to-dispatch-complete wall time per event row.",
+    "serving_queue_wait_seconds": "Submit-to-flush-start wall time per event row (host-queue component of ingest).",
+    "serving_dispatch_seconds": "Flush-start-to-dispatch-complete wall time per event row (device component of ingest).",
+    "serving_read_staleness_seconds": "Cache-generation age observed by scheduler reads (0 for fresh hits).",
+    "serving_flush_seconds": "One coalesced keyed dispatch's wall time.",
+    "serving_queue_depth": "Rows resident at flush time (log2 count histogram).",
+    "resilience_faults_injected_total": "Faults fired by the installed FaultPlan (all seams).",
+    "resilience_faults_by_seam_total": "Injected faults split by (seam, mode).",
+    "resilience_detector_suspects_total": "Peers the phi-accrual detector promoted to failed.",
+    "resilience_peer_failures_total": "Membership transitions marking a peer failed.",
+    "resilience_peer_rejoins_total": "Membership transitions re-admitting a recovered peer.",
+    "resilience_epoch_transitions_total": "Membership epoch bumps (failures + rejoins).",
+    "resilience_policy_retries_total": "Backoff sleeps taken through the unified RetryPolicy.",
+    "resilience_deadline_exhausted_total": "DeadlineBudget expiries surfaced to callers.",
+    "resilience_breaker_opens_total": "Circuit breakers tripped open by consecutive failures.",
+    "resilience_breaker_short_circuits_total": "Calls refused by an open circuit breaker.",
+    "resilience_membership_epoch": "Current membership epoch (fleet view takes the max).",
 }
+
+#: the counter fields of the planes' sections, in the JAX package's order
+_ASYNC_SYNC_FIELDS = (
+    "submitted", "completed", "failed", "retries", "timeouts", "stale_serves", "quorum_syncs", "degraded_rounds",
+    "coalesced",
+)
+_SERVING_FIELDS = (
+    "submitted_rows", "admitted_rows", "shed_rows", "dispatched_rows", "flushes", "dispatch_errors", "reads",
+    "cache_hits", "cache_misses", "stale_serves", "tenant_cache_hits", "refreshes", "coalesced_refreshes",
+    "generation_bumps",
+)
+_RESILIENCE_FIELDS = (
+    "faults_injected", "detector_suspects", "peer_failures", "peer_rejoins", "epoch_transitions", "policy_retries",
+    "deadline_exhausted", "breaker_opens", "breaker_short_circuits",
+)
 
 
 def snapshot(include_timers: bool = True) -> Dict[str, Any]:
@@ -76,17 +143,39 @@ def snapshot(include_timers: bool = True) -> Dict[str, Any]:
           "tracing": {"enabled": bool, "capacity": int, "size": int,
                       "recorded_total": int, "dropped": int,
                       "by_kind": {...}, "straggler": None},
+          "async_sync": {"engine_alive": bool, "in_flight": int,
+                         "submitted": int, "completed": int, "failed": int,
+                         "retries": int, "timeouts": int, "stale_serves": int,
+                         "quorum_syncs": int, "degraded_rounds": int,
+                         "coalesced": int, "generations": {key: int}},
+          "serving": {"queues": int, "depth": int, "admitted_rows": int,
+                      "shed_rows": int, "shed_by_reason": {...},
+                      "dispatched_rows": int, "flushes": int,
+                      "flushes_by_trigger": {...}, "reads": int, ...},
+          "resilience": {"policy_retries": int, "breaker_opens": int, ...},
           "kernels": {"dispatch": {op: {"cuda": int, "torch": int}}},
         }
 
-    Reading it reads the device-side counts (``invalid_tenant_ids``) to the
-    host once. Always JSON-serializable.
+    ``async_sync`` is ``{}`` until the first ``compute_async`` (or serving
+    refresh) makes the background engine; ``serving`` is ``{}`` until the
+    first admission queue is built, and ``resilience`` until a policy
+    decision is recorded. Reading the snapshot reads the device-side counts
+    (``invalid_tenant_ids``) to the host once. Always JSON-serializable.
     """
     snap = TELEMETRY.snapshot(include_timers=include_timers)
     snap["schema"] = SCHEMA_VERSION
     snap["events"] = EVENTS.summary()
     snap["histograms"] = HISTOGRAMS.snapshot()
     snap["tracing"] = TRACER.summary()
+    # the planes' sections are read only where their modules were imported:
+    # a process that never serves keeps its snapshot and its imports clean
+    for section, module in (
+        ("async_sync", "metrics_tpu_torch.utilities.async_sync"),
+        ("serving", "metrics_tpu_torch.serving.telemetry"),
+        ("resilience", "metrics_tpu_torch.resilience.telemetry"),
+    ):
+        loaded = sys.modules.get(module)
+        snap[section] = loaded.summary() if loaded is not None else {}
     snap["kernels"] = dispatch_summary()
     return snap
 
@@ -167,6 +256,14 @@ def _render_metrics(snap: Dict[str, Any], out: _Renderer) -> None:
             out.emit("sketch_bins", labels, sk.get("bins", sk.get("capacity", 0)))
             out.emit("sketch_overflow_total", labels, sk.get("overflow", 0), "counter")
             out.emit("sketch_merges_total", labels, entry.get("counters", {}).get("sketch_merges", 0), "counter")
+        tr = entry.get("info", {}).get("tenant_report")
+        if tr is not None:
+            # the multi-tenant drill-down rollup (the full report is the blob)
+            labels = {"metric": key}
+            out.emit("tenants", labels, tr.get("tenants", 0))
+            out.emit("tenants_active", labels, tr.get("occupancy", {}).get("active", 0))
+            out.emit("tenant_rows_routed_total", labels, tr.get("rows_routed", 0), "counter")
+            out.emit("tenant_invalid_rate", labels, tr.get("invalid_rate", 0.0))
 
 
 def _render_sync(snap: Dict[str, Any], out: _Renderer) -> None:
@@ -200,6 +297,39 @@ def _render_sync(snap: Dict[str, Any], out: _Renderer) -> None:
             out.emit(f"sync_in_graph_{field}_total", {}, in_graph[field], "counter")
 
 
+def _render_planes(snap: Dict[str, Any], out: _Renderer) -> None:
+    """The ``async_sync``, ``serving`` and ``resilience`` families under the
+    JAX package's series names."""
+    async_sync = snap.get("async_sync", {})
+    if async_sync:
+        for field in _ASYNC_SYNC_FIELDS:
+            if field in async_sync:
+                out.emit(f"async_sync_{field}_total", {}, async_sync[field], "counter")
+        out.emit("async_sync_in_flight", {}, async_sync.get("in_flight", 0))
+    serving = snap.get("serving", {})
+    if serving:
+        out.emit("serving_queues", {}, serving.get("queues", 0))
+        out.emit("serving_queue_depth_rows", {}, serving.get("depth", 0))
+        out.emit("serving_queue_depth_high_water", {}, serving.get("depth_high_water", 0))
+        for field in _SERVING_FIELDS:
+            if field in serving:
+                out.emit(f"serving_{field}_total", {}, serving[field], "counter")
+        for reason, n in sorted(serving.get("shed_by_reason", {}).items()):
+            out.emit("serving_shed_by_reason_total", {"reason": reason}, n, "counter")
+        for trigger, n in sorted(serving.get("flushes_by_trigger", {}).items()):
+            out.emit("serving_flushes_by_trigger_total", {"trigger": trigger}, n, "counter")
+    resilience = snap.get("resilience", {})
+    if resilience:
+        for field in _RESILIENCE_FIELDS:
+            if field in resilience:
+                out.emit(f"resilience_{field}_total", {}, resilience[field], "counter")
+        if "epoch" in resilience:
+            out.emit("resilience_membership_epoch", {}, resilience["epoch"])
+        for key, n in sorted(resilience.get("faults_by_seam", {}).items()):
+            seam, _, mode = key.rpartition(":")
+            out.emit("resilience_faults_by_seam_total", {"seam": seam, "mode": mode}, n, "counter")
+
+
 def render_prometheus(snap: Optional[Dict[str, Any]] = None) -> str:
     """Render a snapshot (default: a fresh :func:`snapshot`) in the
     Prometheus text exposition format (0.0.4), the sections in the JAX
@@ -209,6 +339,7 @@ def render_prometheus(snap: Optional[Dict[str, Any]] = None) -> str:
     out = _Renderer()
     _render_metrics(snap, out)
     _render_sync(snap, out)
+    _render_planes(snap, out)
     for op, paths in sorted(snap.get("kernels", {}).get("dispatch", {}).items()):
         # one series per (kernel op, path): launches on the card ("cuda")
         # and plain-version runs on the CPU ("torch")

@@ -178,6 +178,28 @@ class SpanTracker:
         finally:
             self.end(span, **payload)
 
+    def record_span(
+        self,
+        kind: str,
+        group: str = "all",
+        bucket: str = "-",
+        *,
+        enter_ago_s: float = 0.0,
+        exit_ago_s: float = 0.0,
+        **payload: Any,
+    ) -> Optional[str]:
+        """Record an already-elapsed interval after the fact
+        (``tracing.py:225``): the span entered ``enter_ago_s`` seconds before
+        now and exited ``exit_ago_s`` seconds before now. The serving queue
+        records its wait and dispatch spans this way at flush time, from
+        endpoints stamped as they happened. Returns the span id."""
+        span = self.begin(kind, group=group, bucket=bucket)
+        if span is None:
+            return None
+        enter_ago = max(float(enter_ago_s), 0.0)
+        exit_ago = min(max(float(exit_ago_s), 0.0), enter_ago)
+        return self._append(span._replace(enter_s=span.enter_s - enter_ago), span.enter_s - exit_ago, payload)
+
     # -- reading ------------------------------------------------------------
 
     def records(self) -> List[CollectiveSpan]:

@@ -19,7 +19,7 @@ import torch
 from metrics_tpu_torch.collections import MetricCollection
 from metrics_tpu_torch.metric import Metric
 from metrics_tpu_torch.utilities.data import resolve_device
-from metrics_tpu_torch.wrappers.multitenant import MultiTenantCollection
+from metrics_tpu_torch.wrappers.multitenant import KeyedMetric, MultiTenantCollection
 
 NumpyState = Union[np.ndarray, List[np.ndarray]]
 
@@ -74,3 +74,25 @@ def load_numpy_states(
     metric._restore_derived(installed)
     metric._update_called = True
     metric._computed = None
+
+
+def load_tenant_traffic(
+    metric: Union[KeyedMetric, MultiTenantCollection],
+    rows: Optional[np.ndarray],
+    last_seen: Optional[np.ndarray],
+) -> None:
+    """Install a keyed wrapper's traffic ledger: the ``(rows, last_seen)``
+    pair of the JAX object's ``_traffic.arrays()`` (``(None, None)`` when it
+    recorded nothing), one entry per tenant. It replaces whatever ``metric``
+    recorded; the ledger stays on the host."""
+    if (rows is None) != (last_seen is None):
+        raise ValueError("rows and last_seen are given together or not at all")
+    ledger = metric._traffic
+    ledger.clear()
+    if rows is None:
+        return
+    rows, last_seen = np.array(rows, dtype=np.int64), np.array(last_seen, dtype=np.float64)
+    if rows.shape != (ledger.n,) or last_seen.shape != (ledger.n,):
+        raise ValueError(f"the ledger holds {ledger.n} tenants, got {rows.shape} rows and {last_seen.shape} stamps")
+    with ledger._lock:
+        ledger.rows, ledger.last_seen = rows, last_seen

@@ -52,11 +52,28 @@ with ``path="keyed_scatter"``; the collection's build records its layout
 serve beyond one (``update_dedup_skipped``). The JAX package's compile
 counters (``jit_forward_compiles``) have no counterpart until the port has
 a compiled step (ROADMAP queue A item 11).
+
+Serving (``multitenant.py:156-314,433-441,679-720``): ``update`` runs under a
+lazy, process-local re-entrant lock (:meth:`KeyedMetric._serial_lock`,
+dropped on pickle and clone), so the admission queue's flusher and other
+ingest threads never interleave their read-modify-write of the stacked
+state. While telemetry is on every update feeds a per-tenant traffic ledger
+(:class:`_TenantTraffic`: rows routed and the last time each tenant was
+seen) behind :meth:`KeyedMetric.tenant_report`. Ids on the host (numpy, a CPU
+tensor, or the admission queue's staged host view carrying its device twin,
+``device_tensor``) feed it on the host; ids on the card feed a ledger kept on
+the card: the segment-scatter kernel's per-tenant row counts are added into
+it (three device operations per update), and it is read to the host only
+when a report asks, so a keyed update makes the same synchronizing calls
+with telemetry on as off. A staged view's twin is
+what the update dispatches; its host view validates the ids without a read.
 """
+import threading
 import time
 from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from metrics_tpu_torch.collections import MetricCollection
@@ -102,6 +119,187 @@ def _note_keyed_update(obj: Any, start: float, rows: int, **payload: Any) -> Non
             "update", key, dur_s=dur, t_start=start, path="keyed_scatter", tenants=obj.num_tenants, rows=rows,
             **payload,
         )
+
+
+def _unstage(x: Any) -> Any:
+    """Swap the admission queue's staged host view (``serving/staging.py``)
+    for its device twin; anything else passes through. Duck-typed on the
+    ``device_tensor`` attribute, so this module never imports serving."""
+    staged = getattr(x, "device_tensor", None)
+    return x if staged is None else staged
+
+
+def _note_traffic(traffic: "_TenantTraffic", host_ids: Optional[np.ndarray], ids: Tensor, counts: Tensor) -> None:
+    """Feed the ledger: from the host ids when there are any (a staged view,
+    or ids on the CPU), else from the update's per-tenant counts on its card."""
+    if host_ids is None and ids.device.type == "cpu":
+        host_ids = ids.numpy()
+    if host_ids is not None:
+        traffic.note(host_ids)
+    else:
+        traffic.note_counts(counts)
+
+
+class _TenantTraffic:
+    """Per-tenant traffic and staleness ledger behind ``tenant_report()``
+    (``multitenant.py:156-300``).
+
+    Per tenant: the event rows routed and the wall-clock instant of the last
+    routed row. Host ids feed numpy arrays (``rows`` int64, ``last_seen``
+    float64, NaN where never seen; :meth:`note`); an update on a card feeds
+    two device tensors with the per-tenant row counts its segment-scatter
+    kernel already computed (:meth:`note_counts`: the counts added to
+    ``device_rows``, one host ``time.time()`` filled into ``device_seen``
+    where a count is non-zero), with no host read. Either form allocates on
+    its first note. :meth:`arrays` merges both (rows add, stamps take the
+    later) with one read of the device form, so a report reads the same
+    numbers whichever form fed it. Invalid ids are dropped, as the kernels
+    drop them. Every mutation and read runs under one lock: the
+    admission queue's flusher notes while readers report on other threads.
+    """
+
+    __slots__ = ("n", "rows", "last_seen", "device_rows", "device_seen", "_lock")
+
+    def __init__(self, n: int) -> None:
+        self.n = int(n)
+        self.rows: Optional[np.ndarray] = None
+        self.last_seen: Optional[np.ndarray] = None
+        self.device_rows: Optional[Tensor] = None
+        self.device_seen: Optional[Tensor] = None
+        self._lock = threading.Lock()
+
+    def __getstate__(self) -> dict:
+        # the lock is process-local: pickles and clones make a fresh one
+        with self._lock:
+            return {k: getattr(self, k) for k in self.__slots__ if k != "_lock"}
+
+    def __setstate__(self, state: dict) -> None:
+        for k, v in state.items():
+            setattr(self, k, v)
+        self._lock = threading.Lock()
+
+    def note(self, ids: Any) -> None:
+        concrete = np.asarray(ids).reshape(-1)
+        valid = concrete[(concrete >= 0) & (concrete < self.n)]
+        if valid.size == 0:
+            return
+        counts = np.bincount(valid, minlength=self.n)
+        stamp = time.time()
+        touched = np.unique(valid)
+        with self._lock:
+            if self.rows is None:
+                self.rows = np.zeros(self.n, dtype=np.int64)
+                self.last_seen = np.full(self.n, np.nan)
+            self.rows += counts
+            self.last_seen[touched] = stamp
+
+    def note_counts(self, counts: Tensor) -> None:
+        """Note one update from its per-tenant row counts (a ``(>= n,)``
+        integer tensor on the update's device, invalid rows not counted)."""
+        counts = counts[: self.n]
+        stamp = time.time()
+        with self._lock:
+            if self.device_rows is None:
+                self.device_rows = torch.zeros(self.n, dtype=torch.int64, device=counts.device)
+                self.device_seen = torch.full((self.n,), float("nan"), dtype=torch.float64, device=counts.device)
+            self.device_rows += counts
+            self.device_seen.masked_fill_(counts > 0, stamp)
+
+    def arrays(self) -> Tuple[Optional[np.ndarray], Optional[np.ndarray]]:
+        """One consistent ``(rows, last_seen)`` copy (``(None, None)`` when
+        nothing was recorded); the device form is read in one transfer."""
+        with self._lock:
+            rows = None if self.rows is None else self.rows.copy()
+            seen = None if self.last_seen is None else self.last_seen.copy()
+            if self.device_rows is not None:
+                # both device tensors in one read: the stamps ride as their int64 bits
+                both = torch.cat([self.device_rows, self.device_seen.view(torch.int64)]).cpu()
+                d_rows, d_seen = both[: self.n].numpy(), both[self.n:].numpy().view(np.float64)
+                rows = d_rows if rows is None else rows + d_rows
+                seen = d_seen if seen is None else np.fmax(seen, d_seen)
+        return rows, seen
+
+    def clear(self, ids: Optional[Any] = None) -> None:
+        with self._lock:
+            if ids is None:
+                self.rows = self.last_seen = self.device_rows = self.device_seen = None
+                return
+            idx = np.asarray(ids).reshape(-1)
+            if self.rows is not None:
+                self.rows[idx] = 0
+                self.last_seen[idx] = np.nan
+            if self.device_rows is not None:
+                didx = torch.as_tensor(idx, device=self.device_rows.device)
+                self.device_rows[didx] = 0
+                self.device_seen[didx] = float("nan")
+
+    def report(self, top_k: int, invalid: int) -> Dict[str, Any]:
+        """The drill-down dict (see ``KeyedMetric.tenant_report``), built from
+        one consistent copy of the ledger."""
+        now = time.time()
+        n = self.n
+        rows, last_seen = self.arrays()
+        tracking = rows is not None
+        if not tracking:
+            rows = np.zeros(n, dtype=np.int64)
+        active_mask = rows > 0
+        active = int(active_mask.sum())
+        rows_total = int(rows.sum())
+        k = max(0, min(int(top_k), n))
+        top: List[Dict[str, Any]] = []
+        if rows_total and k:
+            order = np.argsort(rows)[::-1][:k]
+            top = [{"tenant": int(i), "rows": int(rows[i])} for i in order if rows[i] > 0]
+        staleness: Dict[str, Any] = {"p50": None, "p95": None, "max": None}
+        stalest: List[Dict[str, Any]] = []
+        if active and last_seen is not None:
+            ages = now - last_seen[active_mask]
+            staleness = {
+                "p50": round(float(np.percentile(ages, 50)), 6),
+                "p95": round(float(np.percentile(ages, 95)), 6),
+                "max": round(float(ages.max()), 6),
+            }
+            active_ids = np.nonzero(active_mask)[0]
+            order = np.argsort(ages)[::-1][: min(k, active)]
+            stalest = [{"tenant": int(active_ids[i]), "age_s": round(float(ages[i]), 6)} for i in order]
+        routed_plus_invalid = rows_total + int(invalid)
+        return {
+            "tenants": n,
+            "tracking": tracking,
+            "rows_routed": rows_total,
+            "occupancy": {"active": active, "fraction": round(active / n, 6) if n else 0.0},
+            "top_traffic": top,
+            "invalid_tenant_ids": int(invalid),
+            "invalid_rate": round(int(invalid) / routed_plus_invalid, 6) if routed_plus_invalid else 0.0,
+            "staleness_s": staleness,
+            "stalest": stalest,
+            "generated_unix_s": round(now, 3),
+        }
+
+
+def _publish_tenant_report(key: str, report: Dict[str, Any]) -> None:
+    """Land a tenant report's compact rollup on the snapshot (the
+    ``tenant_report`` info blob the Prometheus renderer reads) and the event
+    timeline (``multitenant.py:302-314``)."""
+    compact = {
+        "tenants": report["tenants"],
+        "rows_routed": report["rows_routed"],
+        "occupancy": report["occupancy"],
+        "invalid_rate": report["invalid_rate"],
+    }
+    if TELEMETRY.enabled:
+        TELEMETRY.set_info(key, "tenant_report", compact)
+    if EVENTS.enabled:
+        EVENTS.record("tenant_report", key, **compact)
+
+
+def _serial_lock(obj: Any) -> "threading.RLock":
+    """``obj``'s stateful-update lock: lazy and process-local (never in a
+    pickle or a clone), made once even when threads race to make it."""
+    lock = obj.__dict__.get("_ingest_lock")
+    if lock is None:
+        lock = obj.__dict__.setdefault("_ingest_lock", threading.RLock())
+    return lock
 
 
 def _keyed_gate(metric: Metric, what: str = "base_metric") -> None:
@@ -234,17 +432,28 @@ class KeyedMetric(Metric):
                 dist_reduce_fx=self._child._reductions[name],
                 persistent=self._child._persistent[name],
             )
+        self._traffic = _TenantTraffic(self.num_tenants)
 
     @property
     def capacity(self) -> int:
         """Physical tenant-axis size of the stacked leaves (>= ``num_tenants``)."""
         return self._capacity
 
+    def _serial_lock(self) -> "threading.RLock":
+        """The stateful-update lock (``multitenant.py:433-441``): concurrent
+        ingest threads calling ``update`` would otherwise interleave their
+        read-modify-write of the stacked state. The pure ``apply_update``
+        never takes it."""
+        return _serial_lock(self)
+
     # ------------------------------------------------------------------
     # tenant-id canonicalization / validation
     # ------------------------------------------------------------------
 
     def _canonical_ids(self, tenant_ids: Any) -> Tensor:
+        # a staged cohort (serving/staging.py) carries its device twin: the
+        # update dispatches the twin, so no second copy to the card
+        tenant_ids = _unstage(tenant_ids)
         ids = tenant_ids if isinstance(tenant_ids, Tensor) else torch.as_tensor(tenant_ids, device=self.device)
         check_device(self.device, ids)
         if ids.dtype.is_floating_point or ids.is_complex() or ids.dtype == torch.bool:
@@ -257,13 +466,20 @@ class KeyedMetric(Metric):
             )
         return ids if ids.dtype in (torch.int32, torch.int64) else ids.long()
 
-    def _validate_ids_eager(self, ids: Tensor) -> None:
-        """Id check of the stateful path, in one host read: descriptive raise."""
-        if ids.numel() == 0:
+    def _validate_ids_eager(self, ids: Any) -> None:
+        """Id check of the stateful path: descriptive raise. Host ids (a
+        staged cohort's host view) are checked on the host; a tensor in one
+        host read."""
+        if isinstance(ids, np.ndarray):
+            bad_host = (ids < 0) | (ids >= self.num_tenants)
+            first = int(np.argmax(bad_host)) if bad_host.size else 0
+            count, value = int(bad_host.sum()), int(ids[first]) if bad_host.size else 0
+        elif ids.numel() == 0:
             return
-        bad = (ids < 0) | (ids >= self.num_tenants)
-        first = torch.argmax(bad.to(torch.int32))
-        count, first, value = torch.stack([bad.sum(), first, ids[first].long()]).tolist()
+        else:
+            bad = (ids < 0) | (ids >= self.num_tenants)
+            first = torch.argmax(bad.to(torch.int32))
+            count, first, value = torch.stack([bad.sum(), first, ids[first].long()]).tolist()
         if count:
             raise ValueError(
                 f"tenant_ids contains {count} id(s) outside the valid range"
@@ -279,7 +495,16 @@ class KeyedMetric(Metric):
     def _segment_scatter(
         self, state: StateDict, ids: Tensor, args: Tuple, kwargs: Dict
     ) -> Tuple[StateDict, Tensor]:
-        """Pure keyed update core: ``(new_stacked_state, invalid_count)``.
+        """Pure keyed update core: ``(new_stacked_state, invalid_count)``
+        (see :meth:`_scatter_counted`)."""
+        new_state, invalid, _ = self._scatter_counted(state, ids, args, kwargs)
+        return new_state, invalid
+
+    def _scatter_counted(
+        self, state: StateDict, ids: Tensor, args: Tuple, kwargs: Dict
+    ) -> Tuple[StateDict, Tensor, Tensor]:
+        """``(new_stacked_state, invalid_count, counts)``: the keyed update
+        and the first kernel's ``(capacity,)`` int32 row counts per tenant.
 
         The kernels drop ids < 0 or >= the PHYSICAL capacity; an id in the
         padding band ``[num_tenants, capacity)`` lands in a padding row, which
@@ -290,6 +515,7 @@ class KeyedMetric(Metric):
         child._validate_batch(*args, **kwargs)
         per_row = row_states(child, args, kwargs)
         new: StateDict = {}
+        counts: Optional[Tensor] = None
         sums = [name for name, fx in child._reductions.items() if fx == "sum"]
         if sums:
             layout, columns = [], []
@@ -298,7 +524,7 @@ class KeyedMetric(Metric):
                 flat = delta.reshape(delta.shape[0], -1).to(torch.float32)
                 layout.append((name, tuple(delta.shape[1:]), flat.shape[1]))
                 columns.append(flat)
-            packed, _ = segment_scatter_add_cuda(torch.cat(columns, dim=1).contiguous(), ids, n, device=self.device)
+            packed, counts = segment_scatter_add_cuda(torch.cat(columns, dim=1).contiguous(), ids, n, device=self.device)
             offset = 0
             for name, shape, width in layout:
                 delta = packed[:, offset:offset + width].reshape((n,) + shape)
@@ -311,12 +537,13 @@ class KeyedMetric(Metric):
             kernel, pick = (segment_scatter_max_cuda, torch.maximum) if fx == "max" else (segment_scatter_min_cuda,
                                                                                            torch.minimum)
             flat = rows.reshape(rows.shape[0], -1).to(torch.float32).contiguous()
-            seg, counts = kernel(flat, ids, n, device=self.device)
+            seg, seg_counts = kernel(flat, ids, n, device=self.device)
+            counts = seg_counts if counts is None else counts
             seg = seg.reshape((n,) + tuple(rows.shape[1:]))
-            has_rows = (counts > 0).reshape((n,) + (1,) * (rows.ndim - 1))
+            has_rows = (seg_counts > 0).reshape((n,) + (1,) * (rows.ndim - 1))
             new[name] = torch.where(has_rows, pick(state[name], seg.to(state[name].dtype)), state[name])
         invalid = torch.sum((ids < 0) | (ids >= n)).to(torch.int32)
-        return {name: new[name] for name in child._reductions}, invalid
+        return {name: new[name] for name in child._reductions}, invalid, counts
 
     # ------------------------------------------------------------------
     # pure and stateful API
@@ -336,14 +563,23 @@ class KeyedMetric(Metric):
         ``tenant_ids`` is a rank-1 integer tensor aligned with the leading
         event-row axis of every tensor argument. With ``validate_ids=True``
         (default) out-of-range ids raise here, before anything is scattered;
-        with ``False`` the kernels drop them.
+        with ``False`` the kernels drop them. A staged cohort (the admission
+        queue's host views carrying ``device_tensor`` twins) dispatches the
+        twins; its host view keeps the id check and the traffic ledger free
+        of host reads. Concurrent callers are serialized.
         """
+        host_ids = tenant_ids if getattr(tenant_ids, "device_tensor", None) is not None else None
         ids = self._canonical_ids(tenant_ids)
         if self.validate_ids:
-            self._validate_ids_eager(ids)
+            self._validate_ids_eager(ids if host_ids is None else host_ids)
+        args = tuple(_unstage(a) for a in args)
+        kwargs = {k: _unstage(v) for k, v in kwargs.items()}
         start = time.perf_counter() if (TELEMETRY.enabled or EVENTS.enabled) else None
-        new_state, invalid = self._segment_scatter(self._get_states(), ids, args, kwargs)
-        self._set_states(new_state)
+        with self._serial_lock():
+            new_state, invalid, counts = self._scatter_counted(self._get_states(), ids, args, kwargs)
+            self._set_states(new_state)
+        if TELEMETRY.enabled:
+            _note_traffic(self._traffic, host_ids, ids, counts)
         if start is not None:
             TELEMETRY.add_device(self.telemetry_key, "invalid_tenant_ids", invalid)
             _note_keyed_update(self, start, int(ids.shape[0]))
@@ -399,30 +635,61 @@ class KeyedMetric(Metric):
         distribution."""
         return _nanpercentile(self._scalar_values(key), q)
 
+    def tenant_report(self, top_k: int = 10) -> Dict[str, Any]:
+        """Per-tenant drill-down from the traffic ledger (``multitenant.py:868``).
+
+        Occupancy (tenants that received a row, count and fraction), the
+        ``top_k`` tenants by rows routed (``{"tenant", "rows"}``), the
+        ``invalid_tenant_ids`` counter and its rate over all routed rows, and
+        last-update staleness: p50/p95/max age in seconds over active tenants
+        and the ``top_k`` stalest. The ledger is fed while telemetry is on
+        (``tracking`` is ``False`` when nothing was recorded); a ledger on the
+        card and the invalid-id count are read to the host here. The compact
+        rollup lands on the snapshot (``tenant_report`` info blob, the
+        ``metrics_tpu_tenants*`` series) and the event timeline.
+        """
+        invalid = TELEMETRY.counter(self.telemetry_key, "invalid_tenant_ids")
+        report = self._traffic.report(top_k, invalid)
+        report["metric"] = f"KeyedMetric({type(self._child).__name__})"
+        _publish_tenant_report(self.telemetry_key, report)
+        return report
+
     # ------------------------------------------------------------------
     # lifecycle
     # ------------------------------------------------------------------
 
     def reset(self, tenant_ids: Optional[Any] = None) -> None:
-        """Restore every tenant — or only ``tenant_ids`` — to the defaults.
+        """Restore every tenant — or only ``tenant_ids`` — to the defaults,
+        and clear their traffic.
 
         The partial form writes the child defaults into the named rows of
         every stacked leaf (out of place), leaving all other tenants'
         accumulation intact; its ids always validate."""
         if tenant_ids is None:
+            self._traffic.clear()
             return super().reset()
         ids = self._canonical_ids(tenant_ids)
         self._validate_ids_eager(ids)
+        self._traffic.clear(ids.cpu().numpy())
         new: StateDict = {}
-        for name, default in self._child._defaults.items():
-            leaf = getattr(self, name).clone()
-            leaf[ids] = default
-            new[name] = leaf
-        self._set_states(new)
+        with self._serial_lock():
+            for name, default in self._child._defaults.items():
+                leaf = getattr(self, name).clone()
+                leaf[ids] = default
+                new[name] = leaf
+            self._set_states(new)
         self._computed = None
         self._forward_cache = None
         if TELEMETRY.enabled:
             TELEMETRY.inc(self.telemetry_key, "reset_calls")
+
+    def __getstate__(self) -> dict:
+        # a snapshot (clone, pickle) is taken between two updates, never in
+        # the middle of one; the lock itself stays with the live instance
+        with self._serial_lock():
+            state = super().__getstate__()
+        state.pop("_ingest_lock", None)
+        return state
 
     def __repr__(self) -> str:
         return f"KeyedMetric({self._child!r}, num_tenants={self.num_tenants})"
@@ -487,6 +754,11 @@ class MultiTenantCollection:
         self.device = resolve_device(device)
         self._keyed: Optional["OrderedDict[str, KeyedMetric]"] = None
         self._layout: List[Tuple[str, list]] = []
+        self._traffic = _TenantTraffic(self.num_tenants)
+
+    def _serial_lock(self) -> "threading.RLock":
+        """Stateful-update serialization (see :meth:`KeyedMetric._serial_lock`)."""
+        return _serial_lock(self)
 
     @property
     def telemetry_key(self) -> str:
@@ -507,16 +779,18 @@ class MultiTenantCollection:
         first ``update``; idempotent afterwards. The grouping reads no batch,
         so ``sample_batch`` is optional. Returns ``{owner: [member names]}``
         for the multi-member groups formed."""
-        if self._keyed is not None:
-            return {o: list(ns) for o, ns in self._layout if len(ns) > 1}
-        coll = self._collection
-        coll._note_compute_groups()
-        self._layout = coll._group_layout()
-        self._keyed = OrderedDict(
-            (owner, KeyedMetric(coll[owner], self.num_tenants, validate_ids=False, capacity=self._capacity,
-                                device=self.device))
-            for owner, _ in self._layout
-        )
+        with self._serial_lock():  # two first updates on two threads build once
+            if self._keyed is not None:
+                return {o: list(ns) for o, ns in self._layout if len(ns) > 1}
+            coll = self._collection
+            coll._note_compute_groups()
+            layout = coll._group_layout()
+            keyed = OrderedDict(
+                (owner, KeyedMetric(coll[owner], self.num_tenants, validate_ids=False, capacity=self._capacity,
+                                    device=self.device))
+                for owner, _ in layout
+            )
+            self._layout, self._keyed = layout, keyed
         groups = {o: list(ns) for o, ns in self._layout if len(ns) > 1}
         if TELEMETRY.enabled:
             TELEMETRY.set_info(
@@ -558,17 +832,21 @@ class MultiTenantCollection:
     # one update for every bundle
     # ------------------------------------------------------------------
 
-    def _scatter_all(self, state: Dict[str, StateDict], ids: Tensor, *args: Any, **kwargs: Any) -> Dict[str, StateDict]:
-        """Every bundle advanced by one batch (each member's kwargs filtered);
-        the first bundle's invalid-id count goes under the collection's key."""
+    def _scatter_all(
+        self, state: Dict[str, StateDict], ids: Tensor, *args: Any, **kwargs: Any
+    ) -> Tuple[Dict[str, StateDict], Tensor]:
+        """Every bundle advanced by one batch (each member's kwargs filtered),
+        and the first bundle's per-tenant row counts; its invalid-id count
+        goes under the collection's key."""
         new: Dict[str, StateDict] = {}
-        invalid = None
+        invalid = counts = None
         for owner, keyed in self._keyed.items():
             fkw = self._collection[owner]._filter_kwargs(**kwargs)
-            new[owner], inv = keyed._segment_scatter(state[owner], ids, args, fkw)
-            invalid = inv if invalid is None else invalid
+            new[owner], inv, cnt = keyed._scatter_counted(state[owner], ids, args, fkw)
+            if invalid is None:
+                invalid, counts = inv, cnt
         TELEMETRY.add_device(self.telemetry_key, "invalid_tenant_ids", invalid)
-        return new
+        return new, counts
 
     def _canonical_ids(self, tenant_ids: Any) -> Tensor:
         return next(iter(self._require_built().values()))._canonical_ids(tenant_ids)
@@ -580,17 +858,23 @@ class MultiTenantCollection:
         if self._keyed is None:
             self.build()
         keyed = self._keyed
+        host_ids = tenant_ids if getattr(tenant_ids, "device_tensor", None) is not None else None
+        args = tuple(_unstage(a) for a in args)
+        kwargs = {k: _unstage(v) for k, v in kwargs.items()}
         self._collection._check_input_device(args, kwargs)
         ids = self._canonical_ids(tenant_ids)
         if self.validate_ids:
-            next(iter(keyed.values()))._validate_ids_eager(ids)
+            next(iter(keyed.values()))._validate_ids_eager(ids if host_ids is None else host_ids)
         start = time.perf_counter() if (TELEMETRY.enabled or EVENTS.enabled) else None
-        state = {owner: km._get_states() for owner, km in keyed.items()}
-        new_state = self._scatter_all(state, ids, *args, **kwargs)
-        for owner, km in keyed.items():
-            km._set_states(new_state[owner])
-            km._update_called = True
-            km._computed = None
+        with self._serial_lock():
+            state = {owner: km._get_states() for owner, km in keyed.items()}
+            new_state, counts = self._scatter_all(state, ids, *args, **kwargs)
+            for owner, km in keyed.items():
+                km._set_states(new_state[owner])
+                km._update_called = True
+                km._computed = None
+        if TELEMETRY.enabled:
+            _note_traffic(self._traffic, host_ids, ids, counts)
         if start is not None:
             if TELEMETRY.enabled:
                 TELEMETRY.inc(self.telemetry_key, "update_calls")
@@ -674,11 +958,25 @@ class MultiTenantCollection:
         return _nanpercentile(self._member_series(metric, key), q)
 
     def reset(self, tenant_ids: Optional[Any] = None) -> None:
-        """Reset every bundle — all tenants, or only ``tenant_ids``."""
+        """Reset every bundle — all tenants, or only ``tenant_ids`` — and
+        their traffic."""
         if self._keyed is None:
             return
         for km in self._keyed.values():
             km.reset(tenant_ids)
+        self._traffic.clear(None if tenant_ids is None else torch.as_tensor(tenant_ids).cpu().numpy())
+
+    def tenant_report(self, top_k: int = 10) -> Dict[str, Any]:
+        """Per-tenant drill-down for the whole collection
+        (``multitenant.py:1646``): one ledger, since every member sees the
+        same routed rows; see :meth:`KeyedMetric.tenant_report`."""
+        invalid = TELEMETRY.counter(self.telemetry_key, "invalid_tenant_ids")
+        report = self._traffic.report(top_k, invalid)
+        report["metric"] = "MultiTenantCollection"
+        report["members"] = len(self._collection)
+        report["state_bundles"] = len(self._keyed) if self._keyed is not None else 0
+        _publish_tenant_report(self.telemetry_key, report)
+        return report
 
     # ------------------------------------------------------------------
     # container / misc protocol
@@ -692,6 +990,11 @@ class MultiTenantCollection:
 
     def __len__(self) -> int:
         return len(self._collection)
+
+    def __getstate__(self) -> dict:
+        # a copy registers a telemetry key of its own; the lock stays here
+        with self._serial_lock():
+            return {k: v for k, v in self.__dict__.items() if k not in ("_telemetry_key", "_ingest_lock")}
 
     def __repr__(self) -> str:
         return (

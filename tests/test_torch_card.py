@@ -10,7 +10,9 @@ so it runs on a machine that has no JAX:
 Each kernel is held against its plain version (``<op>_torch``) on the same
 CUDA tensors, exactly (B3's float sums too: the inputs are integer-valued),
 and must count one launch per call; the keyed collection on the card must
-equal the same collection on the CPU.
+equal the same collection on the CPU, directly and through the serving
+queue (unstaged and staged), and the tenant ledger kept on the card must
+read what the host ledger reads.
 """
 import numpy as np
 import pytest
@@ -213,3 +215,86 @@ def test_keyed_collection_on_the_card_matches_the_cpu(cuda_device):
     got, want = card.compute(), host.compute()
     for name in want:
         torch.testing.assert_close(got[name].cpu(), want[name], rtol=1e-6, atol=1e-7, equal_nan=True)
+
+
+# -- the serving plane -----------------------------------------------------------------
+
+
+def _keyed_cohorts(seed, cohorts, n):
+    rng = np.random.RandomState(seed)
+    out = []
+    for rows in cohorts:
+        logits = rng.rand(rows, C).astype(np.float32)
+        out.append((rng.randint(0, n, rows), logits / logits.sum(-1, keepdims=True), rng.randint(0, C, rows)))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("staging", [False, True])
+def test_the_queue_on_the_card_matches_the_cpu(cuda_device, staging):
+    """Cohorts through an ``AdmissionQueue`` over a card collection and over
+    a CPU one: ledgers and stacked states equal, the pad rows counted as
+    invalid ids, B3/B4 launched once per bundle per flush. Staged, the twins
+    are copied on the queue's side stream from pinned slots."""
+    from metrics_tpu_torch.serving import AdmissionQueue
+
+    n, cohorts = 40, [100, 256, 77]
+    card = T.MultiTenantCollection(_members(device=cuda_device), n, validate_ids=False, device=cuda_device)
+    host = T.MultiTenantCollection(_members(device="cpu"), n, validate_ids=False, device="cpu")
+    seen = []
+    queues = [AdmissionQueue(m.update, max_batch=256, pad_to_bucket=True, staging=staging, start=False)
+              for m in (card, host)]
+    real_update = card.update
+
+    def spy(ids, *cols):
+        seen.append([getattr(c, "device_tensor", None) for c in (ids, *cols)])
+        real_update(ids, *cols)
+
+    queues[0]._target = spy
+    for ids, preds, target in _keyed_cohorts(3, cohorts, n):
+        for q in queues:
+            q.submit_many(ids, preds, target)
+            q.flush()
+    torch.cuda.synchronize()
+    ledgers = [q.stats() for q in queues]
+    for ledger in ledgers:
+        for k in ("stage_seconds", "overlap_seconds", "overlap_fraction"):
+            ledger["staging"].pop(k, None)
+    assert ledgers[0] == ledgers[1] and ledgers[0]["last_error"] is None
+    assert all(t.device.type == "cuda" for twins in seen for t in twins)
+    if staging:
+        assert queues[0]._copy_stream is not None and queues[0]._slots.pin
+        assert all(s is None or s.tensors[0].is_pinned() for s in queues[0]._slots._slots)
+    assert _common.launch_count("segment_scatter_add") == 2 * len(cohorts)
+    assert _common.launch_count("segment_scatter_max") == len(cohorts)
+    for owner, km in host._keyed.items():
+        for name, value in km._get_states().items():
+            assert torch.equal(getattr(card._keyed[owner], name).cpu(), value)
+    reports = [m.tenant_report() for m in (card, host)]
+    for key in ("rows_routed", "occupancy", "top_traffic", "invalid_tenant_ids"):
+        assert reports[0][key] == reports[1][key]
+    assert reports[0]["invalid_tenant_ids"] == (128 - 100) + (128 - 77)
+    for q in queues:
+        q.close()
+
+
+@pytest.mark.cuda
+def test_the_device_ledger_equals_the_host_ledger(cuda_device):
+    """Ids on the card feed the ledger's device form from the kernels'
+    per-tenant counts (no host read); it must report what a CPU twin's host
+    form reports for the same batches."""
+    rng = np.random.RandomState(4)
+    card = T.KeyedMetric(T.Accuracy(device=cuda_device), 30, validate_ids=False, device=cuda_device)
+    host = T.KeyedMetric(T.Accuracy(device="cpu"), 30, validate_ids=False, device="cpu")
+    for step in range(5):
+        ids, preds = rng.randint(-2, 33, 200), rng.rand(200).astype(np.float32)
+        target = (rng.rand(200) < preds).astype(np.int64)
+        card.update(_t(ids).to(cuda_device, torch.int32 if step % 2 else torch.int64), _t(preds).to(cuda_device),
+                    _t(target).to(cuda_device))
+        host.update(_t(ids), _t(preds), _t(target))
+    assert card._traffic.rows is None and card._traffic.device_rows.device.type == "cuda"
+    (cr, cs), (hr, hs) = card._traffic.arrays(), host._traffic.arrays()
+    assert np.array_equal(cr, hr) and np.array_equal(np.isnan(cs), np.isnan(hs))
+    reports = [m.tenant_report() for m in (card, host)]
+    for key in ("rows_routed", "occupancy", "top_traffic", "invalid_tenant_ids", "invalid_rate"):
+        assert reports[0][key] == reports[1][key]

@@ -293,7 +293,9 @@ _TIME_SERIES = re.compile(
     r"^(metrics_tpu_(eager_seconds|dispatch_seconds|sync_round_trip_seconds)_(bucket|sum)"
     r"|metrics_tpu_sync_(descriptor|payload)_seconds_total)\b"
 )
-#: sections of the JAX snapshot that the port does not record yet
+#: sections left out of the comparison: those the port does not record yet,
+#: the serving, async and resilience planes (held in their own test files;
+#: these sequences do not touch them) and the kernels
 _JAX_ONLY = ("retrace", "health", "async_sync", "serving", "durability", "resilience", "slo", "profiling",
              "memory", "kernels")
 
@@ -351,7 +353,8 @@ def test_snapshot_is_json_and_has_the_port_sections():
     _run_both("keyed")
     snap = json.loads(tobs.dumps())
     assert snap["schema"] == jobs.snapshot()["schema"] == 1
-    assert set(snap) == {"schema", "enabled", "metrics", "sync", "events", "histograms", "tracing", "kernels"}
+    assert set(snap) == {"schema", "enabled", "metrics", "sync", "events", "histograms", "tracing", "async_sync",
+                         "serving", "resilience", "kernels"}
     assert "dispatch_seconds{path=keyed_scatter}" in snap["histograms"]
     assert snap["tracing"]["straggler"] is None
 
