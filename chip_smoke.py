@@ -79,7 +79,9 @@ Phases, in order; any failure exits non-zero before the last line:
    and off, interleaved call by call in this process; both medians and
    their ratio; and the synchronizing calls of the 49 forwards and of the
    50 updates counted by ``torch.cuda.set_sync_debug_mode``, on and off,
-   which must be equal.
+   which must be equal; then the keyed update with telemetry on, with its
+   tenant ledger and with a ledger that notes nothing, interleaved call by
+   call over two passes of the 50 batches (medians, ratio).
    Telemetry stays on (the default) in every other phase; after each of
    3-3d and 3f, ``observability.snapshot()`` must count every op's launches
    as ``launch_count`` does, and each object on the card must hold the
@@ -114,14 +116,18 @@ Phases, in order; any failure exits non-zero before the last line:
    3b's 50 cohorts (49 x 4096 rows and the last cohort's 3000 real rows, as
    host numpy) through ``AdmissionQueue(keyed.update, start=False,
    max_batch=4096, pad_to_bucket=True)``, a ``flush()`` after each, once
-   unstaged and once with ``staging=True``: the stacked states must equal
-   phase 3b's exactly and the values within 1e-6, B3 100 and B4 max 50
-   launches per path, 1096 ``invalid_tenant_ids`` (the last flush padded
+   unstaged and once with ``staging=True``, and a third time staged with
+   every cohort resident before the flusher starts, so that each flush
+   prefetches the next cohort on the staging lane (prefetched cohorts must
+   be > 0): the stacked states must equal
+   phase 3b's exactly and the values within 1e-6, 50 flushes, B3 100 and
+   B4 max 50 launches per path, 1096 ``invalid_tenant_ids`` (the last flush padded
    3000 -> 4096), ``rows_routed`` = 49 * 4096 + 3000, both conservation
    laws, no ``dispatch_error``; under the sync debug mode a staged flush
    makes exactly the synchronizing calls of a direct ``update`` of the same
    cohort on device tensors (the unstaged flush's count is printed); the
-   per-flush medians beside phase 3b's per-update median. (b) Soak, twice
+   per-flush medians (the flusher's run: its mean from its start to
+   drain) beside phase 3b's per-update median. (b) Soak, twice
    (unstaged, then ``staging=True``), 10 s each: ``SLOScheduler(
    KeyedMetric(Accuracy(), num_tenants=10_000, validate_ids=False),
    max_batch=2048, max_delay_ms=5, policy="shed_oldest",
@@ -130,8 +136,10 @@ Phases, in order; any failure exits non-zero before the last line:
    targets, seeded) at 20,000 rows/s in all and read every second for 16
    random tenants. Printed: achieved rows/s, flushes/s by trigger, ingest
    p50/p99 (the ``serving_ingest_seconds`` histogram), shed rows by reason,
-   the staged run's overlap and prefetched cohorts, the read outcomes, and
-   the device idle share over one second of the window (profiler). At
+   the staged run's overlap and prefetched cohorts, the read outcomes, the
+   reader's reads done against those due (one a second) and each read's
+   wall time (p50/p99), and the device idle share over one second of the
+   window (profiler). At
    drain: both conservation laws exactly, submitted - shed == the tenant
    report's ``rows_routed``, the ``serving.*`` counters == the queue's
    ledger, no ``dispatch_error`` and no ``_last_error``, B3 and B4 max
@@ -139,7 +147,8 @@ Phases, in order; any failure exits non-zero before the last line:
    updated in one call with every cohort the scheduler dispatched.
    (c) ``compute_async()`` of the ImageNet-1k collection after 25 of its 49
    forwards equals a synchronous ``compute()`` at that point and is not
-   moved by the 24 forwards after it; the caller's time in each is printed.
+   moved by the 24 forwards after it; the caller's time in each is printed,
+   and the time of the clone (the snapshot) alone.
 5. One JSON line ``{"kernels": [...]}``, the card line again, and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -448,6 +457,18 @@ def sync_phase(torch, gpu, keyed_gpu, card) -> dict:
     return out
 
 
+class _NoLedger:
+    """A tenant ledger that notes nothing: phase 3g's keyed update without
+    its ledger."""
+
+    @staticmethod
+    def note(counts) -> None:
+        pass
+
+
+_NO_LEDGER = _NoLedger()
+
+
 def telemetry_cost(torch, M, dev, batches, keyed_batches, card) -> dict:
     """Phase 3g: the ImageNet-1k collection's forward and the keyed
     collection's update with telemetry on and off, interleaved call by call
@@ -488,9 +509,25 @@ def telemetry_cost(torch, M, dev, batches, keyed_batches, card) -> dict:
                 sites[f"keyed_update_{state}"] += keyed_sites
     finally:
         observability.enable()
+    # the tenant ledger alone: telemetry on, the keyed collection's ledger
+    # swapped for one that notes nothing, call by call (the order alternates),
+    # over two passes of the 50 updates
+    ledger = keyed._traffic
+    ledger_times = {"with": [], "without": []}
+    for i, args in enumerate(keyed_batches * 2):
+        for state in (("with", "without") if i % 2 == 0 else ("without", "with")):
+            keyed._traffic = ledger if state == "with" else _NO_LEDGER
+            ledger_times[state].append(timed(keyed.update, *args))
+    keyed._traffic = ledger
     syncs = {k: len(v) // 2 for k, v in sites.items()}  # per pass of the 49 forwards / 50 updates
-    out = {"times_ms": times, "synchronizing_calls": syncs,
+    out = {"times_ms": times, "synchronizing_calls": syncs, "ledger_times_ms": ledger_times,
            "sync_sites": {k: {s: v.count(s) for s in sorted(set(v))} for k, v in sites.items()}}
+    with_l, without_l = (statistics.median(ledger_times[k]) for k in ("with", "without"))
+    out["keyed_update_ledger"] = {"with_median_ms": with_l, "without_median_ms": without_l,
+                                  "ratio": with_l / without_l, "pairs": len(ledger_times["with"])}
+    print(f"[telemetry] keyed_update with telemetry on: median {with_l:.4f} ms with the tenant ledger, "
+          f"{without_l:.4f} ms without, ratio {with_l / without_l:.4f} over {len(ledger_times['with'])} "
+          f"interleaved pairs, on {card}")
     for what, t in times.items():
         on, off = statistics.median(t["on"]), statistics.median(t["off"])
         out[what] = {"on_median_ms": on, "off_median_ms": off, "ratio": on / off, "pairs": len(t["on"])}
@@ -824,20 +861,36 @@ def serving_replay(torch, M, dev, keyed_batches, keyed_gpu, keyed_out, direct_ms
     host = _host_cohorts(keyed_batches)
     real_rows = sum(len(c[0]) for c in host)
     out = {"direct_update_median_ms": direct_ms}
-    for path in ("unstaged", "staged"):
+    for path in ("unstaged", "staged", "prefetched"):
         keyed = build_keyed(M, dev)
+        flusher = path == "prefetched"
         q = AdmissionQueue(keyed.update, start=False, max_batch=KEYED_ROWS, pad_to_bucket=True,
-                           staging=path == "staged")
+                           staging=path != "unstaged", max_delay_ms=1000.0, capacity_rows=len(host) * KEYED_ROWS)
         torch.cuda.synchronize()
         _common.reset_dispatch_counters()
         flush_ms = []
-        for ids, preds, target in host:
-            q.submit_many(ids, preds, target)
-            torch.cuda.synchronize()
+        if flusher:
+            # every cohort resident, then the flusher started: each
+            # size-triggered flush pops one cohort and prefetches the next on
+            # the staging lane, so a flush carries one of phase 3b's cohorts
             start = time.perf_counter()
-            q.flush()
+            for ids, preds, target in host:
+                q.submit_many(ids, preds, target)
+            submit_ms = (time.perf_counter() - start) * 1e3
+            start = time.perf_counter()
+            q._ensure_flusher()
+            if not q.drain(timeout=120):
+                fail("[replay prefetched] the queue did not drain")
             torch.cuda.synchronize()
-            flush_ms.append((time.perf_counter() - start) * 1e3)
+            flush_ms.append((time.perf_counter() - start) * 1e3 / q.stats()["flushes"])
+        else:
+            for ids, preds, target in host:
+                q.submit_many(ids, preds, target)
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                q.flush()
+                torch.cuda.synchronize()
+                flush_ms.append((time.perf_counter() - start) * 1e3)
         launches = {op: _common.launch_count(op) for op in ("segment_scatter_add", "segment_scatter_max",
                                                            "segment_scatter_min", "stat_scores_counts")}
         want = {"segment_scatter_add": 2 * KEYED_UPDATES, "segment_scatter_max": KEYED_UPDATES,
@@ -857,6 +910,21 @@ def serving_replay(torch, M, dev, keyed_batches, keyed_gpu, keyed_out, direct_ms
             fail(f"[replay {path}] the tenant report routes {report['rows_routed']} rows (expected {real_rows}) and "
                  f"counts {report['invalid_tenant_ids']} invalid ids (expected {KEYED_ROWS - KEYED_LAST_REAL})")
         stats = check_ledger(f"replay {path}", q, report["rows_routed"])
+        if stats["flushes"] != KEYED_UPDATES:
+            fail(f"[replay {path}] {stats['flushes']} flushes, expected one per cohort ({KEYED_UPDATES})")
+        if flusher:
+            staging = stats["staging"]
+            if not staging["prefetched_cohorts"]:
+                fail(f"[replay prefetched] no cohort was prefetched: {staging}")
+            q.close(timeout=30)
+            print(f"[replay prefetched] {len(host)} cohorts resident ({submit_ms:.1f} ms to submit), then the flusher "
+                  f"on {card}: {flush_ms[0]:.3f} ms per flush from its start to drain; {staging['prefetched_cohorts']} "
+                  f"of {staging['staged_cohorts']} cohorts prefetched on the staging lane, overlap "
+                  f"{staging['overlap_seconds']:.4f} s of {staging['stage_seconds']:.4f} s staging; launches "
+                  f"{launches}; states == phase 3b's, values max |diff| {max(diffs.values()):.2e}")
+            out[path] = {"flush_ms_mean": flush_ms[0], "submit_ms": submit_ms, "launches": launches, "max_abs_diff": diffs, "ledger": stats}
+            del keyed
+            continue
         # synchronizing calls: three more (warm) flushes against a direct
         # update of the same cohorts on device tensors
         direct = build_keyed(M, dev)
@@ -885,6 +953,10 @@ def serving_replay(torch, M, dev, keyed_batches, keyed_gpu, keyed_out, direct_ms
         del keyed, direct
     observability.reset()
     return out
+
+
+def _ms(value) -> str:
+    return "none" if value is None else f"{value:.3f}"
 
 
 def serving_soak(torch, M, dev, staging, card) -> dict:
@@ -945,13 +1017,21 @@ def serving_soak(torch, M, dev, staging, card) -> dict:
         except Exception as err:  # noqa: BLE001 - failed below
             errors.append(err)
 
+    read_ms = []  # each read's wall time, on the reader's thread
+    read_span = []
+
     def reader():
         try:
             rrng = np.random.default_rng(SEED + 9)
+            begun = time.perf_counter()
             while not stop.wait(1.0):
-                values = svc.read(rrng.choice(SOAK_TENANTS, SOAK_READ_TENANTS, replace=False))
+                tenants = rrng.choice(SOAK_TENANTS, SOAK_READ_TENANTS, replace=False)
+                start = time.perf_counter()
+                values = svc.read(tenants)
+                read_ms.append((time.perf_counter() - start) * 1e3)
                 if values.shape != (SOAK_READ_TENANTS,):
                     errors.append(ValueError(f"a read returned {values.shape}"))
+            read_span.append(time.perf_counter() - begun)
         except Exception as err:  # noqa: BLE001 - failed below
             errors.append(err)
 
@@ -1003,6 +1083,9 @@ def serving_soak(torch, M, dev, staging, card) -> dict:
     triggers = {k: v / submit_s for k, v in serving["flushes_by_trigger"].items()}
     reads = {k: serving[k] for k in ("reads", "cache_hits", "tenant_cache_hits", "stale_serves", "cache_misses",
                                      "refreshes", "coalesced_refreshes")}
+    # a read is due each second the reader ran; one that takes longer delays the next
+    reads_due = int(read_span[0])
+    read_p50, read_p99 = (float(np.percentile(read_ms, q)) for q in (50, 99)) if read_ms else (None, None)
     out = {
         "submitted": stats["submitted"], "dispatched": stats["dispatched"], "shed_by_reason": stats["shed_by_reason"],
         "submit_seconds": submit_s, "drain_seconds": drain_s, "achieved_rows_per_s": stats["submitted"] / submit_s,
@@ -1012,7 +1095,8 @@ def serving_soak(torch, M, dev, staging, card) -> dict:
         "queue_wait_p50_ms": pct("serving_queue_wait_seconds", 50),
         "queue_wait_p99_ms": pct("serving_queue_wait_seconds", 99),
         "dispatch_p50_ms": pct("serving_dispatch_seconds", 50), "dispatch_p99_ms": pct("serving_dispatch_seconds", 99),
-        "reads": reads, "device_busy_ms": busy_ms, "window_ms": window_ms, "idle_share": 1 - busy_ms / window_ms,
+        "reads": reads, "reader_reads_done": len(read_ms), "reader_reads_due": reads_due, "read_ms": read_ms,
+        "read_p50_ms": read_p50, "read_p99_ms": read_p99, "device_busy_ms": busy_ms, "window_ms": window_ms, "idle_share": 1 - busy_ms / window_ms,
         "launches": launches, "staging": stats["staging"],
     }
     staged = (f"; overlap {stats['staging']['overlap_seconds']:.4f} s over {stats['staging']['prefetched_cohorts']} "
@@ -1023,7 +1107,9 @@ def serving_soak(torch, M, dev, staging, card) -> dict:
           f"{ {k: round(v, 3) for k, v in triggers.items()} }; ingest p50 {out['ingest_p50_ms']:.3f} ms, p99 "
           f"{out['ingest_p99_ms']:.3f} ms (queue wait p50 {out['queue_wait_p50_ms']:.3f} / p99 "
           f"{out['queue_wait_p99_ms']:.3f}, dispatch p50 {out['dispatch_p50_ms']:.3f} / p99 {out['dispatch_p99_ms']:.3f}); "
-          f"shed {stats['shed_by_reason']}; reads {reads}; device idle share {out['idle_share']:.4f} "
+          f"shed {stats['shed_by_reason']}; reader {len(read_ms)} reads done of {reads_due} due (one a second over "
+          f"{read_span[0]:.3f} s), read wall time p50 {_ms(read_p50)} / p99 {_ms(read_p99)} ms; read outcomes "
+          f"{reads}; device idle share {out['idle_share']:.4f} "
           f"({busy_ms:.3f} ms busy in {window_ms:.1f} ms){staged}; keyed state == CPU over the dispatched rows")
     observability.reset()
     return out
@@ -1036,6 +1122,14 @@ def compute_async_phase(torch, M, dev, batches, card) -> dict:
     for preds, target in batches[:25]:
         coll(preds, target)
     torch.cuda.synchronize()
+    # the snapshot compute_async takes on the caller's thread: a clone (a
+    # deepcopy of the collection), timed alone over five calls
+    clone_ms = []
+    for _ in range(5):
+        start = time.perf_counter()
+        coll.clone()
+        torch.cuda.synchronize()
+        clone_ms.append((time.perf_counter() - start) * 1e3)
     start = time.perf_counter()
     future = coll.compute_async()
     async_ms = (time.perf_counter() - start) * 1e3
@@ -1052,8 +1146,9 @@ def compute_async_phase(torch, M, dev, batches, card) -> dict:
     moved = sorted(k for k, v in coll.compute().items() if not same_bits(v, want[k]))
     print(f"[compute_async] after 25 of 49 forwards on {card}: the future == compute() at the snapshot, unmoved by "
           f"the 24 forwards after it (the live values moved for {len(moved)} members); caller's time "
-          f"{async_ms:.3f} ms in compute_async against {sync_ms:.3f} ms in compute()")
-    return {"compute_async_ms": async_ms, "compute_ms": sync_ms, "generation": future.generation,
+          f"{async_ms:.3f} ms in compute_async against {sync_ms:.3f} ms in compute(); a clone alone, median of 5: "
+          f"{statistics.median(clone_ms):.3f} ms")
+    return {"compute_async_ms": async_ms, "compute_ms": sync_ms, "clone_ms": clone_ms, "generation": future.generation,
             "members_moved_after": moved}
 
 
@@ -1864,7 +1959,7 @@ def main() -> int:
     for entry in kernels:
         if entry["name"] in ("segment_scatter_add", "segment_scatter_max"):
             entry["serving_launches"] = {
-                **{f"replay_{path}": serving["replay"][path]["launches"][entry["name"]] for path in ("unstaged", "staged")},
+                **{f"replay_{path}": serving["replay"][path]["launches"][entry["name"]] for path in ("unstaged", "staged", "prefetched")},
                 **{run: serving[run]["launches"][entry["name"]] for run in ("soak_unstaged", "soak_staged")},
             }
     record["kernels"] = kernels

@@ -84,7 +84,7 @@ def load_tenant_traffic(
     """Install a keyed wrapper's traffic ledger: the ``(rows, last_seen)``
     pair of the JAX object's ``_traffic.arrays()`` (``(None, None)`` when it
     recorded nothing), one entry per tenant. It replaces whatever ``metric``
-    recorded; the ledger stays on the host."""
+    recorded; the ledger lands on ``metric``'s device."""
     if (rows is None) != (last_seen is None):
         raise ValueError("rows and last_seen are given together or not at all")
     ledger = metric._traffic
@@ -95,4 +95,5 @@ def load_tenant_traffic(
     if rows.shape != (ledger.n,) or last_seen.shape != (ledger.n,):
         raise ValueError(f"the ledger holds {ledger.n} tenants, got {rows.shape} rows and {last_seen.shape} stamps")
     with ledger._lock:
-        ledger.rows, ledger.last_seen = rows, last_seen
+        ledger.rows = torch.from_numpy(rows).to(metric.device)
+        ledger.last_seen = torch.from_numpy(last_seen).to(metric.device)

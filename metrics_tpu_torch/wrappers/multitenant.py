@@ -59,14 +59,14 @@ dropped on pickle and clone), so the admission queue's flusher and other
 ingest threads never interleave their read-modify-write of the stacked
 state. While telemetry is on every update feeds a per-tenant traffic ledger
 (:class:`_TenantTraffic`: rows routed and the last time each tenant was
-seen) behind :meth:`KeyedMetric.tenant_report`. Ids on the host (numpy, a CPU
-tensor, or the admission queue's staged host view carrying its device twin,
-``device_tensor``) feed it on the host; ids on the card feed a ledger kept on
-the card: the segment-scatter kernel's per-tenant row counts are added into
-it (three device operations per update), and it is read to the host only
+seen) behind :meth:`KeyedMetric.tenant_report`. The ledger lives on the
+update's device and is fed the segment-scatter kernel's per-tenant row
+counts (three device operations per update); it is read to the host only
 when a report asks, so a keyed update makes the same synchronizing calls
-with telemetry on as off. A staged view's twin is
-what the update dispatches; its host view validates the ids without a read.
+with telemetry on as off. (The JAX package reads the ids on the host
+instead.) The admission queue's staged host view carries its device twin
+(``device_tensor``): the twin is what the update dispatches, and the host
+view validates the ids without a read.
 """
 import threading
 import time
@@ -129,43 +129,29 @@ def _unstage(x: Any) -> Any:
     return x if staged is None else staged
 
 
-def _note_traffic(traffic: "_TenantTraffic", host_ids: Optional[np.ndarray], ids: Tensor, counts: Tensor) -> None:
-    """Feed the ledger: from the host ids when there are any (a staged view,
-    or ids on the CPU), else from the update's per-tenant counts on its card."""
-    if host_ids is None and ids.device.type == "cpu":
-        host_ids = ids.numpy()
-    if host_ids is not None:
-        traffic.note(host_ids)
-    else:
-        traffic.note_counts(counts)
-
-
 class _TenantTraffic:
     """Per-tenant traffic and staleness ledger behind ``tenant_report()``
     (``multitenant.py:156-300``).
 
-    Per tenant: the event rows routed and the wall-clock instant of the last
-    routed row. Host ids feed numpy arrays (``rows`` int64, ``last_seen``
-    float64, NaN where never seen; :meth:`note`); an update on a card feeds
-    two device tensors with the per-tenant row counts its segment-scatter
-    kernel already computed (:meth:`note_counts`: the counts added to
-    ``device_rows``, one host ``time.time()`` filled into ``device_seen``
-    where a count is non-zero), with no host read. Either form allocates on
-    its first note. :meth:`arrays` merges both (rows add, stamps take the
-    later) with one read of the device form, so a report reads the same
-    numbers whichever form fed it. Invalid ids are dropped, as the kernels
-    drop them. Every mutation and read runs under one lock: the
-    admission queue's flusher notes while readers report on other threads.
+    Per tenant: the event rows routed (``rows``, int64) and the wall-clock
+    instant of the last routed row (``last_seen``, float64, NaN where never
+    seen), two tensors on the update's device, allocated on the first note.
+    An update feeds them the per-tenant row counts its segment-scatter kernel
+    already computed (:meth:`note`: the counts added in, one host
+    ``time.time()`` filled in where a count is non-zero), so the ledger never
+    reads the ids on the host: on a card it costs no synchronizing call, and
+    invalid ids are dropped as the kernels drop them. :meth:`arrays` reads
+    both to the host in one transfer. Every mutation and read runs under one
+    lock: the admission queue's flusher notes while readers report on other
+    threads.
     """
 
-    __slots__ = ("n", "rows", "last_seen", "device_rows", "device_seen", "_lock")
+    __slots__ = ("n", "rows", "last_seen", "_lock")
 
     def __init__(self, n: int) -> None:
         self.n = int(n)
-        self.rows: Optional[np.ndarray] = None
-        self.last_seen: Optional[np.ndarray] = None
-        self.device_rows: Optional[Tensor] = None
-        self.device_seen: Optional[Tensor] = None
+        self.rows: Optional[Tensor] = None
+        self.last_seen: Optional[Tensor] = None
         self._lock = threading.Lock()
 
     def __getstate__(self) -> dict:
@@ -178,60 +164,36 @@ class _TenantTraffic:
             setattr(self, k, v)
         self._lock = threading.Lock()
 
-    def note(self, ids: Any) -> None:
-        concrete = np.asarray(ids).reshape(-1)
-        valid = concrete[(concrete >= 0) & (concrete < self.n)]
-        if valid.size == 0:
-            return
-        counts = np.bincount(valid, minlength=self.n)
-        stamp = time.time()
-        touched = np.unique(valid)
-        with self._lock:
-            if self.rows is None:
-                self.rows = np.zeros(self.n, dtype=np.int64)
-                self.last_seen = np.full(self.n, np.nan)
-            self.rows += counts
-            self.last_seen[touched] = stamp
-
-    def note_counts(self, counts: Tensor) -> None:
+    def note(self, counts: Tensor) -> None:
         """Note one update from its per-tenant row counts (a ``(>= n,)``
         integer tensor on the update's device, invalid rows not counted)."""
         counts = counts[: self.n]
         stamp = time.time()
         with self._lock:
-            if self.device_rows is None:
-                self.device_rows = torch.zeros(self.n, dtype=torch.int64, device=counts.device)
-                self.device_seen = torch.full((self.n,), float("nan"), dtype=torch.float64, device=counts.device)
-            self.device_rows += counts
-            self.device_seen.masked_fill_(counts > 0, stamp)
+            if self.rows is None:
+                self.rows = torch.zeros(self.n, dtype=torch.int64, device=counts.device)
+                self.last_seen = torch.full((self.n,), float("nan"), dtype=torch.float64, device=counts.device)
+            self.rows += counts
+            self.last_seen.masked_fill_(counts > 0, stamp)
 
     def arrays(self) -> Tuple[Optional[np.ndarray], Optional[np.ndarray]]:
-        """One consistent ``(rows, last_seen)`` copy (``(None, None)`` when
-        nothing was recorded); the device form is read in one transfer."""
+        """One consistent ``(rows, last_seen)`` host copy (``(None, None)``
+        when nothing was recorded), read in one transfer."""
         with self._lock:
-            rows = None if self.rows is None else self.rows.copy()
-            seen = None if self.last_seen is None else self.last_seen.copy()
-            if self.device_rows is not None:
-                # both device tensors in one read: the stamps ride as their int64 bits
-                both = torch.cat([self.device_rows, self.device_seen.view(torch.int64)]).cpu()
-                d_rows, d_seen = both[: self.n].numpy(), both[self.n:].numpy().view(np.float64)
-                rows = d_rows if rows is None else rows + d_rows
-                seen = d_seen if seen is None else np.fmax(seen, d_seen)
-        return rows, seen
+            if self.rows is None:
+                return None, None
+            # both tensors in one read: the stamps ride as their int64 bits
+            both = torch.cat([self.rows, self.last_seen.view(torch.int64)]).cpu().numpy()
+        return both[: self.n], both[self.n:].view(np.float64)
 
-    def clear(self, ids: Optional[Any] = None) -> None:
+    def clear(self, ids: Optional[Tensor] = None) -> None:
         with self._lock:
             if ids is None:
-                self.rows = self.last_seen = self.device_rows = self.device_seen = None
-                return
-            idx = np.asarray(ids).reshape(-1)
-            if self.rows is not None:
+                self.rows = self.last_seen = None
+            elif self.rows is not None:
+                idx = ids.reshape(-1).to(self.rows.device)
                 self.rows[idx] = 0
-                self.last_seen[idx] = np.nan
-            if self.device_rows is not None:
-                didx = torch.as_tensor(idx, device=self.device_rows.device)
-                self.device_rows[didx] = 0
-                self.device_seen[didx] = float("nan")
+                self.last_seen[idx] = float("nan")
 
     def report(self, top_k: int, invalid: int) -> Dict[str, Any]:
         """The drill-down dict (see ``KeyedMetric.tenant_report``), built from
@@ -504,7 +466,8 @@ class KeyedMetric(Metric):
         self, state: StateDict, ids: Tensor, args: Tuple, kwargs: Dict
     ) -> Tuple[StateDict, Tensor, Tensor]:
         """``(new_stacked_state, invalid_count, counts)``: the keyed update
-        and the first kernel's ``(capacity,)`` int32 row counts per tenant.
+        and the first kernel's ``(capacity,)`` int32 row counts per tenant
+        (the traffic ledger's feed).
 
         The kernels drop ids < 0 or >= the PHYSICAL capacity; an id in the
         padding band ``[num_tenants, capacity)`` lands in a padding row, which
@@ -565,8 +528,8 @@ class KeyedMetric(Metric):
         (default) out-of-range ids raise here, before anything is scattered;
         with ``False`` the kernels drop them. A staged cohort (the admission
         queue's host views carrying ``device_tensor`` twins) dispatches the
-        twins; its host view keeps the id check and the traffic ledger free
-        of host reads. Concurrent callers are serialized.
+        twins; its host view keeps the id check free of host reads.
+        Concurrent callers are serialized.
         """
         host_ids = tenant_ids if getattr(tenant_ids, "device_tensor", None) is not None else None
         ids = self._canonical_ids(tenant_ids)
@@ -579,7 +542,7 @@ class KeyedMetric(Metric):
             new_state, invalid, counts = self._scatter_counted(self._get_states(), ids, args, kwargs)
             self._set_states(new_state)
         if TELEMETRY.enabled:
-            _note_traffic(self._traffic, host_ids, ids, counts)
+            self._traffic.note(counts)
         if start is not None:
             TELEMETRY.add_device(self.telemetry_key, "invalid_tenant_ids", invalid)
             _note_keyed_update(self, start, int(ids.shape[0]))
@@ -643,8 +606,8 @@ class KeyedMetric(Metric):
         ``invalid_tenant_ids`` counter and its rate over all routed rows, and
         last-update staleness: p50/p95/max age in seconds over active tenants
         and the ``top_k`` stalest. The ledger is fed while telemetry is on
-        (``tracking`` is ``False`` when nothing was recorded); a ledger on the
-        card and the invalid-id count are read to the host here. The compact
+        (``tracking`` is ``False`` when nothing was recorded); the ledger and
+        the invalid-id count are read to the host here. The compact
         rollup lands on the snapshot (``tenant_report`` info blob, the
         ``metrics_tpu_tenants*`` series) and the event timeline.
         """
@@ -670,7 +633,7 @@ class KeyedMetric(Metric):
             return super().reset()
         ids = self._canonical_ids(tenant_ids)
         self._validate_ids_eager(ids)
-        self._traffic.clear(ids.cpu().numpy())
+        self._traffic.clear(ids)
         new: StateDict = {}
         with self._serial_lock():
             for name, default in self._child._defaults.items():
@@ -874,7 +837,7 @@ class MultiTenantCollection:
                 km._update_called = True
                 km._computed = None
         if TELEMETRY.enabled:
-            _note_traffic(self._traffic, host_ids, ids, counts)
+            self._traffic.note(counts)
         if start is not None:
             if TELEMETRY.enabled:
                 TELEMETRY.inc(self.telemetry_key, "update_calls")
@@ -964,7 +927,7 @@ class MultiTenantCollection:
             return
         for km in self._keyed.values():
             km.reset(tenant_ids)
-        self._traffic.clear(None if tenant_ids is None else torch.as_tensor(tenant_ids).cpu().numpy())
+        self._traffic.clear(None if tenant_ids is None else self._canonical_ids(tenant_ids))
 
     def tenant_report(self, top_k: int = 10) -> Dict[str, Any]:
         """Per-tenant drill-down for the whole collection

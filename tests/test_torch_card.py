@@ -11,8 +11,9 @@ Each kernel is held against its plain version (``<op>_torch``) on the same
 CUDA tensors, exactly (B3's float sums too: the inputs are integer-valued),
 and must count one launch per call; the keyed collection on the card must
 equal the same collection on the CPU, directly and through the serving
-queue (unstaged and staged), and the tenant ledger kept on the card must
-read what the host ledger reads.
+queue (unstaged and staged, and staged with the flusher prefetching on
+the staging lane), and the tenant ledger kept on the card must read what a
+CPU twin's ledger reads.
 """
 import numpy as np
 import pytest
@@ -279,10 +280,39 @@ def test_the_queue_on_the_card_matches_the_cpu(cuda_device, staging):
 
 
 @pytest.mark.cuda
+def test_the_queue_prefetches_on_the_card_with_its_flusher_running(cuda_device):
+    """Staged, with the flusher thread running and two full cohorts per
+    submit: the flusher dispatches one while the staging lane fills and
+    copies the next on the side stream, and the dispatch waits on its copy
+    event. Cohorts must be prefetched, and the stacked states must equal a
+    CPU collection's after the same rows exactly."""
+    from metrics_tpu_torch.serving import AdmissionQueue
+
+    n, batch = 40, 128
+    card = T.MultiTenantCollection(_members(device=cuda_device), n, validate_ids=False, device=cuda_device)
+    host = T.MultiTenantCollection(_members(device="cpu"), n, validate_ids=False, device="cpu")
+    q = AdmissionQueue(card.update, max_batch=batch, max_delay_ms=1000.0, staging=True)
+    try:
+        for ids, preds, target in _keyed_cohorts(5, [2 * batch] * 12, n):
+            q.submit_many(ids, preds, target)
+            host.update(_t(ids), _t(preds), _t(target))
+        assert q.drain(timeout=60)
+        stats = q.stats()
+    finally:
+        q.close(timeout=10)
+    torch.cuda.synchronize()
+    assert stats["last_error"] is None and stats["dispatched"] == 24 * batch and stats["shed"] == 0
+    assert stats["staging"]["prefetched_cohorts"] > 0
+    for owner, km in host._keyed.items():
+        for name, value in km._get_states().items():
+            assert torch.equal(getattr(card._keyed[owner], name).cpu(), value)
+
+
+@pytest.mark.cuda
 def test_the_device_ledger_equals_the_host_ledger(cuda_device):
-    """Ids on the card feed the ledger's device form from the kernels'
-    per-tenant counts (no host read); it must report what a CPU twin's host
-    form reports for the same batches."""
+    """Ids on the card feed the ledger on the card from the kernels'
+    per-tenant counts (no host read); it must report what a CPU twin's
+    ledger reports for the same batches."""
     rng = np.random.RandomState(4)
     card = T.KeyedMetric(T.Accuracy(device=cuda_device), 30, validate_ids=False, device=cuda_device)
     host = T.KeyedMetric(T.Accuracy(device="cpu"), 30, validate_ids=False, device="cpu")
@@ -292,7 +322,7 @@ def test_the_device_ledger_equals_the_host_ledger(cuda_device):
         card.update(_t(ids).to(cuda_device, torch.int32 if step % 2 else torch.int64), _t(preds).to(cuda_device),
                     _t(target).to(cuda_device))
         host.update(_t(ids), _t(preds), _t(target))
-    assert card._traffic.rows is None and card._traffic.device_rows.device.type == "cuda"
+    assert card._traffic.rows.device.type == "cuda" and host._traffic.rows.device.type == "cpu"
     (cr, cs), (hr, hs) = card._traffic.arrays(), host._traffic.arrays()
     assert np.array_equal(cr, hr) and np.array_equal(np.isnan(cs), np.isnan(hs))
     reports = [m.tenant_report() for m in (card, host)]

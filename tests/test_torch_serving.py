@@ -1334,6 +1334,34 @@ def test_four_producers_under_block_lose_nothing_and_end_in_the_jax_states(stagi
         np.testing.assert_array_equal(ts[k], js[k], err_msg=k)
 
 
+def test_the_flusher_prefetches_full_cohorts_and_ends_in_the_jax_states():
+    """Staged, the flusher running, two full cohorts per submit: each flush
+    stages the next full cohort on the staging lane while it dispatches. The
+    lane's cohorts reach the target in order, and the integer states equal
+    the JAX package's fed the same rows."""
+    n, batch, submits = 20, 32, 10
+    tm = T.MultiTenantCollection([T.Accuracy(**CPU), T.Precision(num_classes=3, average="macro", **CPU)], n,
+                                 validate_ids=False, **CPU)
+    jm = J.MultiTenantCollection([J.Accuracy(), J.Precision(num_classes=3, average="macro")], n, validate_ids=False)
+    q = tserving.AdmissionQueue(tm.update, max_batch=batch, max_delay_ms=1000.0, staging=True)
+    cohorts = [_keyed_rows(500 + k, 2 * batch, n, multiclass=True) for k in range(submits)]
+    try:
+        for ids, preds, target in cohorts:
+            q.submit_many(ids, preds, target)
+        assert q.drain(10.0)
+    finally:
+        q.close(timeout=2.0)
+    s = q.stats()
+    _assert_invariant(q)
+    assert s["shed"] == 0 and s["dispatched"] == 2 * submits * batch and s["last_error"] is None
+    assert s["staging"]["prefetched_cohorts"] > 0
+    for ids, preds, target in cohorts:
+        jm.update(jnp.asarray(ids), jnp.asarray(preds), jnp.asarray(target))
+    js, ts = _states(jm), _states(tm)
+    for k in js:
+        np.testing.assert_array_equal(ts[k], js[k], err_msg=k)
+
+
 def test_racing_writers_and_flushers_match_a_serial_referee():
     writers, rows_per, tenants = 4, 150, 16
     rec = _Recorder()

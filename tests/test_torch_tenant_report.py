@@ -4,10 +4,10 @@ The same seeded numpy batches go through the JAX ``KeyedMetric`` /
 ``MultiTenantCollection`` and the port's (``device="cpu"``); the reports
 must be equal once their clock-valued fields (``staleness_s``,
 ``stalest``' ages, ``generated_unix_s``) are masked, and their snapshot
-blobs, Prometheus series and events must agree. The ledger's device form
-(the one an update on a card feeds with its kernel's per-tenant row counts,
-``_TenantTraffic.note_counts``) is driven here with the plain version's
-counts on the CPU and must read the same arrays as the host form. Threaded
+blobs, Prometheus series and events must agree. The port's ledger, fed
+the kernels' per-tenant row counts (``_TenantTraffic.note``), is driven
+here with the plain version's counts on the CPU and must read the same
+arrays as the JAX ledger fed the ids. Threaded
 cases (writers and report readers on one wrapper) must lose no row and end
 in the JAX package's integer states.
 """
@@ -24,6 +24,7 @@ import torch
 
 import metrics_tpu as J
 import metrics_tpu.observability as jobs
+from metrics_tpu.wrappers.multitenant import _TenantTraffic as JTenantTraffic
 import metrics_tpu_torch as T
 import metrics_tpu_torch.observability as tobs
 from metrics_tpu_torch.kernels.segment_scatter import segment_scatter_add_torch
@@ -189,7 +190,7 @@ def test_telemetry_off_records_no_traffic():
     tm = T.KeyedMetric(T.Accuracy(**CPU), 4, **CPU)
     ids, probs, target = _batch(8, 4)
     tm.update(torch.from_numpy(ids), torch.from_numpy(probs), torch.from_numpy(target))
-    assert tm._traffic.rows is None and tm._traffic.device_rows is None
+    assert tm._traffic.rows is None
     rep = tm.tenant_report()
     assert rep["tracking"] is False and rep["rows_routed"] == 0
     tobs.enable()
@@ -208,35 +209,49 @@ def _counts(ids, capacity, dtype=torch.int64):
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
-def test_device_form_reads_the_same_arrays_as_the_host_form(seed, dtype):
-    """The form an update on a card feeds (its kernel's per-tenant counts
-    added in, one read at report time) against the host form, on the same
-    batches with invalid ids among them, a padded capacity too; driven with
-    the plain version's counts on the CPU."""
+def test_counts_fed_ledger_reads_the_jax_ledgers_arrays(seed, dtype):
+    """The port's ledger, fed the kernels' per-tenant counts (added in, one
+    read at report time), against the JAX ledger fed the ids on the host,
+    on the same batches with invalid ids among them, a padded capacity too;
+    driven with the plain version's counts on the CPU."""
     rng = np.random.RandomState(seed)
-    host, dev = _TenantTraffic(12), _TenantTraffic(12)
+    jax_ledger, ledger = JTenantTraffic(12), _TenantTraffic(12)
     for _ in range(4):
         ids = rng.randint(-3, 18, 50)
-        host.note(ids)
-        dev.note_counts(_counts(ids, 16, dtype))
-    assert dev.rows is None and dev.device_rows.shape == (12,) and dev.device_seen.dtype == torch.float64
-    (hr, hs), (dr, ds) = host.arrays(), dev.arrays()
-    np.testing.assert_array_equal(dr, hr)
-    np.testing.assert_array_equal(np.isnan(ds), np.isnan(hs))
-    assert dr.dtype == np.int64 and ds.dtype == np.float64
-    a, b = host.report(5, 7), dev.report(5, 7)
-    assert _masked(a) == _masked(b)
+        jax_ledger.note(ids)
+        ledger.note(_counts(ids, 16, dtype))
+    assert ledger.rows.shape == (12,) and ledger.last_seen.dtype == torch.float64
+    (jr, js), (tr, ts) = jax_ledger.arrays(), ledger.arrays()
+    np.testing.assert_array_equal(tr, jr)
+    np.testing.assert_array_equal(np.isnan(ts), np.isnan(js))
+    assert tr.dtype == np.int64 and ts.dtype == np.float64
+    assert _masked(ledger.report(5, 7)) == _masked(jax_ledger.report(5, 7))
 
 
-def test_mixed_forms_merge_and_clear():
+def test_a_ledger_fed_only_invalid_ids_tracks_with_no_rows():
+    """The one reading that differs from the JAX ledger: it learns whether a
+    row was valid from the counts on the update's device, so it starts
+    tracking at the first update, where the JAX ledger waits for a valid id
+    (``tracking`` is ``True`` here, ``False`` there; no row either way)."""
+    jm, tm = _pair(4, validate_ids=False)
+    _update(jm, tm, *_batch(3, 4, ids=np.array([-1, 4, 9])))
+    jrep, trep = jm.tenant_report(), tm.tenant_report()
+    assert jrep["tracking"] is False and trep["tracking"] is True
+    jrep["tracking"] = True
+    assert _masked(trep) == _masked(jrep) and trep["rows_routed"] == 0 and trep["invalid_tenant_ids"] == 3
+
+
+def test_ledger_notes_stamps_and_clears():
     ledger = _TenantTraffic(6)
-    ledger.note(np.array([0, 1, 1]))
+    assert ledger.arrays() == (None, None)
+    ledger.note(_counts([0, 1, 1], 6))
+    first = ledger.arrays()[1][0]
     time.sleep(0.01)
-    ledger.note_counts(_counts([1, 5, 9], 6))
+    ledger.note(_counts([1, 5, 9], 6))
     rows, seen = ledger.arrays()
     np.testing.assert_array_equal(rows, [1, 3, 0, 0, 0, 1])
-    assert seen[1] >= seen[0] and np.isnan(seen[2])
-    ledger.clear(np.array([1]))
+    assert seen[0] == first and seen[1] > first and np.isnan(seen[2])
+    ledger.clear(torch.tensor([1]))
     rows, seen = ledger.arrays()
     np.testing.assert_array_equal(rows, [1, 0, 0, 0, 0, 1])
     assert np.isnan(seen[1])
@@ -244,7 +259,7 @@ def test_mixed_forms_merge_and_clear():
     assert ledger.arrays() == (None, None)
 
 
-def test_a_staged_view_feeds_the_host_ledger_and_dispatches_its_twin():
+def test_a_staged_view_dispatches_its_twin_and_feeds_the_ledger():
     tm = T.KeyedMetric(T.Accuracy(**CPU), 6, validate_ids=False, **CPU)
     ref = T.KeyedMetric(T.Accuracy(**CPU), 6, validate_ids=False, **CPU)
     ids, probs, target = _batch(10, 6)
@@ -255,7 +270,8 @@ def test_a_staged_view_feeds_the_host_ledger_and_dispatches_its_twin():
     ref.update(torch.from_numpy(ids), torch.from_numpy(probs), torch.from_numpy(target))
     for name, value in tm._get_states().items():
         assert torch.equal(value, getattr(ref, name))
-    assert tm._traffic.rows is not None and tm._traffic.device_rows is None
+    assert tm._traffic.rows.device == tm.device
+    np.testing.assert_array_equal(tm._traffic.arrays()[0], ref._traffic.arrays()[0])
     assert tm.tenant_report()["rows_routed"] == 9 and tm.tenant_report()["invalid_tenant_ids"] == 1
 
 
