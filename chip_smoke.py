@@ -28,6 +28,12 @@ Phases, in order; any failure exits non-zero before the last line:
    vector width B3 takes (D = 40, 8, 6, 4, 2, 1 at the keyed path's shapes,
    and ragged shapes), each with int64 and int32 ids and with rows 16-, 4-
    and 8-byte aligned (views that start one or two floats into a buffer).
+2b. Each kernel's wrapper captured once into a CUDA graph
+   (``capture_error_mode="thread_local"``, as the compiled step captures) at
+   its path's shape and replayed twice on fresh inputs, each replay equal
+   to the plain version (B3's float sums within rtol = atol = 1e-5): B1, B2,
+   B3, B4 max, B5 with class ids and B5's add mode (the binary stream's
+   shape), the cooperative launches among them.
 3. The first path: ImageNet-1k evaluation (1000 classes, the 50,000-image
    validation split in batches of 1024 float32 softmax rows, 49 ``forward``
    calls, then ``compute()``) through
@@ -65,6 +71,32 @@ Phases, in order; any failure exits non-zero before the last line:
    with ``sketched=True`` and into the exact ``AUROC()``. B5 must launch 300
    times; the sketched states must equal the CPU's exactly and the values
    within 1e-6; the sketched AUROC must lie within 5e-3 of the exact one.
+3i. The compiled step (``jit_forward``, ``warmup``, ``update_many``: CUDA
+   graphs replayed over the metrics' own state, written in place). (a) The
+   ImageNet-1k collection under ``jit_forward()``, ``warmup`` of both batch
+   shapes, then the 49 forwards: B1 49 and B2 49 launches counted through the
+   replays, every on-step value and ``compute()`` == 49 eager forwards
+   (counts exactly, floats within 1e-6); the time per forward back to back;
+   zero synchronizing calls in 10 compiled forwards; the device idle share
+   of 10 under the profiler; then a fresh eager and a fresh compiled
+   collection over the 49 batches call by call (both medians and their
+   ratio; every value equal), with a handle kept on one state from batch 10
+   (the step takes the copying graph and the handle keeps its values) and a
+   ``reset()`` of both at batch 30; then ``update_many`` over 6 stacked
+   groups of 7 batches, one of 6 and the 848-row batch alone, captured in a
+   first pass, ``reset()``, and counted in a second: states == 49 eager
+   updates, B1 49, B2 49. (b) Phase 3b's keyed collection: ``warmup``, then
+   ``update_many`` with K = 5 ten times over the 50 cohorts (captured by a
+   first call, then ``reset()``): B3 100, B4 50, stacked states and the
+   tenant report (all but its clock) == the eager updates'; then the
+   compiled ``update`` after ``warmup`` against the eager one, call by call
+   (medians, states equal, synchronizing calls of one update). (c) Phase
+   3c's sketched curves under ``jit_forward`` (``compute_on_step=False``):
+   B5 98, histograms == eager exactly. (d) The binary stream through
+   ``AUROC(capacity=1_000_000)`` and ``AveragePrecision(capacity=1_000_000)``
+   under ``jit_forward``: ``compute()`` == the exact list mode within 1e-6;
+   ``AUROC(capacity=500_000, overflow="error")`` raises
+   ``BufferOverflowError`` at ``compute()``.
 3f. The leftovers at full width: the same 49 batches through
    ``HammingDistance``, ``Hinge(multiclass_mode="crammer-singer")``,
    ``KLDivergence`` (the softmax rows against seeded target distributions)
@@ -109,7 +141,9 @@ Phases, in order; any failure exits non-zero before the last line:
    of their wrappers (1000 calls back to back, no synchronisation); the
    same for B5's wrapper, beside the pieces its earlier design paid. B5 is
    timed with dense labels and with class ids at the curve path's shape and
-   at the binary stream's; the device time of B1, B2 and B5 is split by
+   at the binary stream's; each kernel's device time is also read from 50
+   calls captured into one CUDA graph and replayed between two CUDA events
+   (the launch cost amortized); the device time of B1, B2 and B5 is split by
    device operation (fill, memset, kernel), and an empty kernel's device
    time is printed as the floor under the stream shape's byte bound.
 3h. The serving plane (``metrics_tpu_torch.serving``). (a) Replay: phase
@@ -278,6 +312,38 @@ def device_ms(fn, reps: int = REPS):
     return total_us / reps / 1e3 if total_us > 0 else None
 
 
+def graph_ms(fn, reps: int = REPS) -> float:
+    """Device time of one call of ``fn`` without the host's launch cost:
+    ``reps`` calls captured into one CUDA graph (their launches counted per
+    replay, as the compiled step counts them), the graph replayed between
+    two CUDA events; the median of five replays over ``reps``."""
+    import torch
+
+    from metrics_tpu_torch.kernels import _common
+
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with _common.capture_tally() as tally, torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(reps):
+            fn()
+    times = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        _common.note_replay(tally)
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
 def device_split(fn, reps: int = REPS) -> dict:
     """Device time (us per call of ``fn``) of each device operation, by its name."""
     import torch
@@ -297,6 +363,459 @@ def bound(nbytes: int, nops: int) -> tuple:
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = nops / PEAK_OPS_PER_S * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def graph_probe(torch, dev) -> dict:
+    """Phase 2b: each kernel's wrapper captured once in a CUDA graph
+    (``capture_error_mode="thread_local"``, as the compiled step captures)
+    at its path's shape, replayed twice on fresh inputs copied into the
+    graph's input buffers, each replay held against the plain version (B3's
+    float sums within rtol = atol = 1e-5, everything else exactly). B3, B4
+    and B5's add mode are cooperative launches; a capture that refuses one
+    fails the run here."""
+    from metrics_tpu_torch.kernels import _common
+    from metrics_tpu_torch.kernels.binned_counts import (
+        _label_score_histograms_onevsrest,
+        _onevsrest_torch,
+        histogram_plan,
+        label_score_histograms_cuda,
+        label_score_histograms_torch,
+    )
+    from metrics_tpu_torch.kernels.confusion_matrix import confmat_counts_cuda, confmat_counts_torch
+    from metrics_tpu_torch.kernels.segment_scatter import (
+        segment_scatter_add_cuda,
+        segment_scatter_add_torch,
+        segment_scatter_max_cuda,
+        segment_scatter_max_torch,
+    )
+    from metrics_tpu_torch.kernels.stat_scores import stat_scores_counts_cuda, stat_scores_counts_torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 9)
+
+    def ids_rows(d):
+        return (torch.randint(-1, KEYED_TENANTS + 1, (KEYED_ROWS,), generator=gen, device=dev),
+                torch.rand((KEYED_ROWS, d), generator=gen, device=dev))
+
+    def scores_ids():
+        return (torch.rand((BATCH, NUM_CLASSES), generator=gen, device=dev),
+                torch.randint(0, NUM_CLASSES, (BATCH,), generator=gen, device=dev))
+
+    def stream():
+        s = torch.rand((STREAM_CHUNK, 1), generator=gen, device=dev)
+        return s, (torch.rand((STREAM_CHUNK, 1), generator=gen, device=dev) < s).to(torch.int32)
+
+    def canonical():
+        return (torch.randint(0, 2, (BATCH, NUM_CLASSES), generator=gen, device=dev, dtype=torch.int32),
+                torch.randint(0, 2, (BATCH, NUM_CLASSES), generator=gen, device=dev, dtype=torch.int32))
+
+    def labels():
+        return (torch.randint(0, NUM_CLASSES, (BATCH,), generator=gen, device=dev),
+                torch.randint(0, NUM_CLASSES, (BATCH,), generator=gen, device=dev))
+
+    cases = [
+        ("stat_scores_counts", canonical, lambda p, t: stat_scores_counts_cuda(p, t, device=dev),
+         stat_scores_counts_torch, 0.0),
+        ("confmat_counts", labels, lambda p, t: (confmat_counts_cuda(p, t, NUM_CLASSES, device=dev),),
+         lambda p, t: (confmat_counts_torch(p, t, NUM_CLASSES),), 0.0),
+        ("segment_scatter_add", lambda: ids_rows(40),
+         lambda i, r: segment_scatter_add_cuda(r, i, KEYED_TENANTS, device=dev),
+         lambda i, r: segment_scatter_add_torch(r, i, KEYED_TENANTS), 1e-5),
+        ("segment_scatter_max", lambda: ids_rows(1),
+         lambda i, r: segment_scatter_max_cuda(r, i, KEYED_TENANTS, device=dev),
+         lambda i, r: segment_scatter_max_torch(r, i, KEYED_TENANTS), 0.0),
+        ("label_score_histograms", scores_ids,
+         lambda s, i: _label_score_histograms_onevsrest(s, i, NUM_BINS),
+         lambda s, i: _onevsrest_torch(s, i, NUM_BINS), 0.0),
+        ("label_score_histograms_stream", stream,
+         lambda s, t: label_score_histograms_cuda(s, t, NUM_BINS, device=dev),
+         lambda s, t: label_score_histograms_torch(s, t, NUM_BINS), 0.0),
+    ]
+    out = {}
+    for name, make, kernel, plain, tol in cases:
+        static = [x.clone() for x in make()]
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            kernel(*static)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                captured = kernel(*static)
+        except Exception as err:  # noqa: BLE001 - the probe reports what the capture refused
+            fail(f"[graph probe] {name}: the capture refused the launch: {type(err).__name__}: {err}")
+        errs = []
+        for _ in range(2):
+            fresh = make()
+            for buf, x in zip(static, fresh):
+                buf.copy_(x)
+            graph.replay()
+            torch.cuda.synchronize()
+            want = plain(*fresh)
+            for g, w in zip(captured, want):
+                diff = torch.where(g == w, 0.0, (g.double() - w.double()).abs())  # equal infinities differ by 0
+                errs.append(float(diff.max()) if g.numel() else 0.0)
+                ok = (torch.allclose(g, w, rtol=tol, atol=tol) if tol else torch.equal(g, w)) and g.dtype == w.dtype
+                if not ok:
+                    fail(f"[graph probe] {name}: a replay differs from the plain version by {errs[-1]}")
+        extra = ""
+        if name == "label_score_histograms_stream":
+            plan = histogram_plan(STREAM_CHUNK, 1, NUM_BINS, _common.sm_count(dev))
+            extra = f" ({('store', 'add', 'global')[plan.mode]} mode)"
+        out[name] = max(errs)
+        print(f"[graph probe] {name}{extra}: captured with thread_local mode, two replays == plain "
+              f"(max |diff| {max(errs):.3e})")
+    return out
+
+
+def graph_probe_main() -> int:
+    """Build the kernels and run :func:`graph_probe` alone."""
+    import torch
+
+    from metrics_tpu_torch.kernels import _common
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    print(card_line())
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    _common.build_library()
+    graph_probe(torch, torch.device("cuda", 0))
+    return 0
+
+
+#: the tenant report's keys that do not depend on the clock
+_REPORT_KEYS = ("tenants", "tracking", "rows_routed", "occupancy", "top_traffic", "invalid_tenant_ids", "invalid_rate")
+
+
+def _values_equal(torch, name, got, want) -> float:
+    """``got`` == ``want``: integer tensors exactly, floats within 1e-6
+    (NaN where the other is NaN); returns the largest difference."""
+    if got is None or want is None:
+        if got is not want:
+            fail(f"[compiled] {name}: {got} against {want}")
+        return 0.0
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"[compiled] {name}: {tuple(got.shape)} {got.dtype} against {tuple(want.shape)} {want.dtype}")
+    if not got.is_floating_point():
+        if not torch.equal(got, want):
+            fail(f"[compiled] {name}: counts differ from the eager run's")
+        return 0.0
+    if not torch.equal(got.isnan(), want.isnan()):
+        fail(f"[compiled] {name}: NaN where the eager run's is not, or the reverse")
+    diff = float(torch.nan_to_num(got.double() - want.double()).abs().max()) if got.numel() else 0.0
+    if diff > 1e-6:
+        fail(f"[compiled] {name}: differs from the eager run's by {diff}")
+    return diff
+
+
+def _states_equal(torch, label, got, want) -> None:
+    for name, value in want._get_states().items():
+        if not torch.equal(getattr(got, name), value):
+            fail(f"[compiled] {label}.{name} differs from the eager run's")
+
+
+def compiled_phase(torch, M, dev, card) -> dict:
+    """Phase 3i: the compiled step (``jit_forward``, ``warmup``,
+    ``update_many``: CUDA graphs replayed over the metrics' own state) on
+    every path at full width, each against the same path run eagerly."""
+    from metrics_tpu_torch.kernels import _common
+
+    record = {}
+    batches = make_batches(torch, dev)
+    scope_ops = ("stat_scores_counts", "confmat_counts")
+
+    # (a) the ImageNet-1k collection: warmup, then the 49 forwards alone (launches, values)
+    # a capture runs the program once eagerly first (its launches count), so
+    # every signature of the path (1024 rows, and the 848-row last batch) is
+    # warmed before the counted run
+    comp = build_collection(M, dev).jit_forward()
+    start = time.perf_counter()
+    warm = comp.warmup(*batches[0])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - start
+    comp.warmup(*batches[-1])
+    _common.reset_dispatch_counters()
+    comp_values = []
+    for preds, target in batches:
+        comp_values.append(comp(preds, target))
+    torch.cuda.synchronize()
+    launches = {op: _common.launch_count(op) for op in KERNEL_OPS}
+    for op in KERNEL_OPS:
+        want = len(batches) if op in scope_ops else 0
+        if launches[op] != want:
+            fail(f"[compiled] {op} launched {launches[op]} times through the replays of 49 forwards, expected {want}")
+    cache = comp._jit_forward_fn.cache_info()
+    if warm["compiled_this_call"] is not True or cache != {"entries": 2, "hits": 49, "misses": 2}:
+        fail(f"[compiled] warmup {warm['compiled_this_call']}, dispatch cache {cache}: expected the two warmups' "
+             "captures and 49 replays")
+    print(f"[compiled] ImageNet-1k collection jit_forward + warmup on {card}: capture {warm_s * 1e3:.1f} ms "
+          f"(compile_seconds {warm['compile_seconds']}); launches through the replays of 49 forwards {launches}; "
+          f"dispatch cache {cache}; groups {comp._compute_groups}")
+    # zero synchronizing calls per forward after warmup
+    # back to back, no synchronization between forwards: the host's time per
+    # forward, or the card's where the card is the slower
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for preds, target in batches[1:41]:
+        comp(preds, target)
+    host_end = time.perf_counter()
+    torch.cuda.synchronize()
+    back_ms = ((time.perf_counter() - t0) * 1e3 / 40, (host_end - t0) * 1e3 / 40)
+    syncs = sync_calls(torch, lambda: [comp(*b) for b in batches[1:11]])
+    if syncs:
+        fail(f"[compiled] 10 compiled forwards made {len(syncs)} synchronizing calls: {syncs[:5]}")
+    prof = profile_steps(torch, comp, batches[11:21])
+    idle = 1 - prof["device_busy_ms"] / prof["wall_ms"]
+    print(f"[compiled] 40 compiled forwards back to back: {back_ms[0]:.3f} ms each to the card's end, "
+          f"{back_ms[1]:.3f} ms each of host dispatch; 10 compiled forwards: 0 synchronizing calls; under the "
+          f"profiler wall {prof['wall_ms']:.3f} ms, device busy {prof['device_busy_ms']:.3f} ms (idle share {idle:.3f})")
+    for row in prof["top_device"]:
+        print(f"[compiled]   {row['device_us']:10.1f} us  {row['calls']:4d} x  {row['name']}")
+
+    # the same 49 batches eagerly and compiled (fresh collections), call by
+    # call: every on-step value equal; a handle kept on one state at batch 10
+    # (the copying graph; the handle keeps its values) and a reset() of both
+    # at batch 30
+    eager, comp2 = build_collection(M, dev), build_collection(M, dev).jit_forward()
+    comp2.warmup(*batches[0])
+    comp2.warmup(*batches[-1])
+    eager_ms, comp_ms, diffs = [], [], {}
+    handle = kept = None
+    for i, (preds, target) in enumerate(batches):
+        if i == 30:
+            eager.reset()
+            comp2.reset()
+        if i == 10:
+            handle = comp2["F1"].tp
+            kept = handle.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = eager(preds, target)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = comp2(preds, target)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        eager_ms.append((t1 - t0) * 1e3)
+        comp_ms.append((t2 - t1) * 1e3)
+        for name, value in want.items():
+            diffs[name] = max(diffs.get(name, 0.0), _values_equal(torch, f"step {i} {name}", got[name], value))
+        if i == 10:
+            if not torch.equal(handle, kept):
+                fail("[compiled] the compiled step wrote into a state tensor held outside the collection")
+            fallbacks = M.observability.snapshot()["metrics"][comp2.telemetry_key]["counters"].get(
+                "jit_forward_alias_fallbacks")
+            if fallbacks != 1:
+                fail(f"[compiled] the aliased step counted {fallbacks} alias fallbacks, expected 1")
+    if not torch.equal(handle, kept):
+        fail("[compiled] a later step wrote into the state tensor held outside the collection")
+    del handle
+    final_eager, final_comp = eager.compute(), comp2.compute()
+    for name, value in final_eager.items():
+        _values_equal(torch, f"compute() {name}", final_comp[name], value)
+    # the first compiled run (no reset) against phase 3's states: 49 eager forwards
+    ref = build_collection(M, dev)
+    for i, (preds, target) in enumerate(batches):
+        want = ref(preds, target)
+        for name, value in want.items():
+            _values_equal(torch, f"step {i} {name} (first compiled run)", comp_values[i][name], value)
+    ref_out = ref.compute()
+    e_med, c_med = statistics.median(eager_ms), statistics.median(comp_ms)
+    print(f"[compiled] eager and compiled forwards interleaved, 49 batches on {card}: eager median {e_med:.3f} ms, "
+          f"compiled median {c_med:.3f} ms (ratio {c_med / e_med:.3f}); every on-step value and compute() == eager "
+          f"(max |diff| {max(diffs.values()):.2e}); a kept state handle took the copying graph and kept its values; "
+          f"reset() at batch 30 == eager")
+
+    # update_many: 6 stacked groups of 7 batches, one of 6, and the 848-row
+    # batch alone (K = 1); a first pass captures the three signatures, then
+    # reset() and the counted pass, which only replays
+    many = build_collection(M, dev)
+    groups = [batches[k:k + 7] for k in range(0, 42, 7)] + [batches[42:48], batches[48:]]
+    stacks = [(torch.stack([p for p, _ in group]), torch.stack([t for _, t in group])) for group in groups]
+    for stacked in stacks:
+        many.update_many(*stacked)
+    many.reset()
+    torch.cuda.synchronize()
+    _common.reset_dispatch_counters()
+    many_ms = []
+    for stacked in stacks:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        many.update_many(*stacked)
+        torch.cuda.synchronize()
+        many_ms.append((time.perf_counter() - t0) * 1e3)
+    many_launches = {op: _common.launch_count(op) for op in scope_ops}
+    if many_launches != {"stat_scores_counts": 49, "confmat_counts": 49}:
+        fail(f"[compiled] update_many launched {many_launches}, expected 49 each")
+    for name in many.keys(keep_base=True):
+        _states_equal(torch, f"update_many {name}", many[name], ref[name])
+    many_out = many.compute()
+    for name, value in ref_out.items():
+        _values_equal(torch, f"update_many compute() {name}", many_out[name], value)
+    print(f"[compiled] update_many over 49 batches (6 x K=7, K=6, K=1; captured in a first pass, then reset()): "
+          f"states == 49 eager updates, launches {many_launches}; per call "
+          f"{', '.join(f'{ms:.2f}' for ms in many_ms)} ms")
+    record["collection"] = {
+        "launches": launches, "warmup": {k: v for k, v in warm.items() if k != "state_memory"},
+        "capture_ms": warm_s * 1e3, "sync_calls_10_forwards": len(syncs), "profile": prof, "idle_share": idle,
+        "back_to_back_ms": back_ms[0], "back_to_back_host_ms": back_ms[1],
+        "eager_ms": eager_ms, "compiled_ms": comp_ms, "eager_median_ms": e_med, "compiled_median_ms": c_med,
+        "max_abs_diff": diffs, "update_many_ms": many_ms, "update_many_launches": many_launches,
+    }
+
+    # (b) the keyed cohorts: warmup, then update_many with K = 5, ten times
+    keyed_batches = make_keyed_batches(torch, dev)
+    keyed_ref = build_keyed(M, dev)
+    for cohort in keyed_batches:
+        keyed_ref.update(*cohort)
+    keyed = build_keyed(M, dev)
+    start = time.perf_counter()
+    keyed_warm = keyed.warmup(*keyed_batches[0])
+    torch.cuda.synchronize()
+    keyed_warm_s = time.perf_counter() - start
+    keyed_stacks = [[torch.stack([c[j] for c in keyed_batches[k:k + 5]]) for j in range(3)]
+                    for k in range(0, KEYED_UPDATES, 5)]
+    # the first call captures update_many's graph (cohorts 0-4 hold no invalid id), then reset()
+    keyed.update_many(*keyed_stacks[0])
+    keyed.reset()
+    torch.cuda.synchronize()
+    _common.reset_dispatch_counters()
+    keyed_many_ms = []
+    for stacked in keyed_stacks:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        keyed.update_many(*stacked)
+        torch.cuda.synchronize()
+        keyed_many_ms.append((time.perf_counter() - t0) * 1e3)
+    keyed_launches = {op: _common.launch_count(op) for op in KERNEL_OPS}
+    want_launches = {op: 0 for op in KERNEL_OPS}
+    want_launches.update(segment_scatter_add=2 * KEYED_UPDATES, segment_scatter_max=KEYED_UPDATES)
+    if keyed_launches != want_launches:
+        fail(f"[compiled] keyed update_many launched {keyed_launches}, expected {want_launches}")
+    for owner, km in keyed_ref._keyed.items():
+        _states_equal(torch, f"keyed {owner}", keyed._keyed[owner], km)
+    rep_ref, rep = keyed_ref.tenant_report(), keyed.tenant_report()
+    for key in _REPORT_KEYS:
+        if rep[key] != rep_ref[key]:
+            fail(f"[compiled] the keyed tenant report's {key} is {rep[key]}, eager {rep_ref[key]}")
+    # the compiled single update after warmup, interleaved with the eager one
+    keyed2, keyed_eager = build_keyed(M, dev), build_keyed(M, dev)
+    keyed2.warmup(*keyed_batches[0])
+    keyed_ms, keyed_eager_ms = [], []
+    for cohort in keyed_batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        keyed_eager.update(*cohort)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        keyed2.update(*cohort)
+        torch.cuda.synchronize()
+        keyed_eager_ms.append((t1 - t0) * 1e3)
+        keyed_ms.append((time.perf_counter() - t1) * 1e3)
+    for owner, km in keyed_ref._keyed.items():
+        _states_equal(torch, f"keyed compiled update {owner}", keyed2._keyed[owner], km)
+    keyed_syncs = sync_calls(torch, lambda: keyed2.update(*keyed_batches[1]))
+    per_cohort = statistics.median(keyed_many_ms) / 5
+    print(f"[compiled] keyed: warmup {keyed_warm_s * 1e3:.1f} ms; update_many K=5 x 10 over the 50 cohorts: launches "
+          f"{ {k: v for k, v in keyed_launches.items() if v} }, states == eager, tenant report == eager; per call "
+          f"median {statistics.median(keyed_many_ms):.3f} ms ({per_cohort:.3f} ms per cohort); compiled update median {statistics.median(keyed_ms):.3f} ms against "
+          f"eager {statistics.median(keyed_eager_ms):.3f} ms, interleaved; states == eager; "
+          f"{len(keyed_syncs)} synchronizing calls per compiled update")
+    record["keyed"] = {"launches": keyed_launches, "warmup_ms": keyed_warm_s * 1e3, "update_many_ms": keyed_many_ms,
+                       "update_many_per_cohort_ms": per_cohort, "compiled_update_ms": keyed_ms,
+                       "eager_update_ms": keyed_eager_ms, "sync_calls_per_update": len(keyed_syncs),
+                       "warmup": {k: v for k, v in keyed_warm.items() if k != "state_memory"}}
+
+    # (c) the sketched curves under jit_forward (compute_on_step=False)
+    curves_ref = build_curves(M, dev)
+    for preds, target in batches:
+        curves_ref.update(preds, target)
+    curves = build_curves(M, dev).jit_forward()
+    curves.warmup(*batches[0])
+    curves.warmup(*batches[-1])
+    _common.reset_dispatch_counters()
+    curve_ms = []
+    for preds, target in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if curves(preds, target) != {"AUROC": None, "AveragePrecision": None}:
+            fail("[compiled] a curve metric built with compute_on_step=False returned a value")
+        torch.cuda.synchronize()
+        curve_ms.append((time.perf_counter() - t0) * 1e3)
+    curve_launches = {op: _common.launch_count(op) for op in KERNEL_OPS}
+    if curve_launches["label_score_histograms"] != 2 * len(batches) or sum(curve_launches.values()) != 2 * len(batches):
+        fail(f"[compiled] the sketched curves launched {curve_launches}, expected B5 {2 * len(batches)} only")
+    for name in ("AUROC", "AveragePrecision"):
+        _states_equal(torch, f"curves {name}", curves[name], curves_ref[name])
+    curve_out, curve_ref_out = curves.compute(), curves_ref.compute()
+    for name, value in curve_ref_out.items():
+        _values_equal(torch, f"curves compute() {name}", curve_out[name], value)
+    print(f"[compiled] sketched AUROC + AveragePrecision (C={NUM_CLASSES}) jit_forward over 49 batches: launches "
+          f"{ {k: v for k, v in curve_launches.items() if v} }, histograms == eager exactly; forward median "
+          f"{statistics.median(curve_ms):.3f} ms")
+    record["curves"] = {"launches": curve_launches, "forward_ms": curve_ms}
+
+    # (d) capacity mode: the binary stream through AUROC/AveragePrecision(capacity=1_000_000)
+    chunks = make_stream(torch, dev)
+    exact = {"AUROC": M.AUROC(compute_on_step=False, device=dev),
+             "AveragePrecision": M.AveragePrecision(compute_on_step=False, device=dev)}
+    capped = {name: getattr(M, name)(capacity=STREAM_UPDATES * STREAM_CHUNK, device=dev).jit_forward()
+              for name in exact}
+    capped["AUROC"].warmup(*chunks[0])
+    over = M.AUROC(capacity=STREAM_UPDATES * STREAM_CHUNK // 2, overflow="error", compute_on_step=False,
+                   device=dev).jit_forward()
+    cap_ms = []
+    for scores, labels in chunks:
+        for m in exact.values():
+            m.update(scores, labels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for m in capped.values():
+            m(scores, labels)
+        torch.cuda.synchronize()
+        cap_ms.append((time.perf_counter() - t0) * 1e3)
+        over(scores, labels)
+    cap_diffs = {}
+    for name, m in capped.items():
+        got, want = m.compute(), exact[name].compute()
+        cap_diffs[name] = abs(float(got) - float(want))
+        if not (cap_diffs[name] <= 1e-6):
+            fail(f"[compiled] {name}(capacity=1_000_000) computes {float(got)}, the exact list mode {float(want)}")
+    try:
+        over.compute()
+    except M.BufferOverflowError as err:
+        overflow_msg = str(err).split(".")[0]
+    else:
+        fail("[compiled] AUROC(capacity=500_000, overflow='error') did not raise BufferOverflowError at compute()")
+    print(f"[compiled] capacity mode, 100 chunks of {STREAM_CHUNK} scores under jit_forward: |capacity - exact| "
+          f"{cap_diffs} (limit 1e-6); step of both metrics median {statistics.median(cap_ms):.3f} ms; "
+          f"capacity={STREAM_UPDATES * STREAM_CHUNK // 2} with overflow='error' raised at compute(): {overflow_msg}")
+    record["capacity"] = {"max_abs_diff": cap_diffs, "step_ms": cap_ms, "overflow_error": overflow_msg}
+    return record
+
+
+def compiled_phase_main(record_path: str = "") -> int:
+    """Build the kernels and run :func:`compiled_phase` alone; with
+    ``record_path``, write its record there as JSON."""
+    import torch
+
+    import metrics_tpu_torch as M
+    from metrics_tpu_torch.kernels import _common
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    card = card_line()
+    print(card)
+    _common.build_library()
+    record = compiled_phase(torch, M, torch.device("cuda", 0), card)
+    if record_path:
+        os.makedirs(os.path.dirname(os.path.abspath(record_path)), exist_ok=True)
+        with open(record_path, "w") as fh:
+            json.dump(record, fh, indent=1, default=str)
+    return 0
 
 
 def make_batches(torch, device):
@@ -813,7 +1332,8 @@ def check_telemetry(phase, pairs):
 
 def sync_calls(torch, fn) -> list:
     """Where the sync debug mode reports a synchronizing call while ``fn``
-    runs: one ``"file:line"`` per call."""
+    runs: one ``"file:line"`` per call (the mode's own notice that it is a
+    prototype, raised as it is switched on, is not a call)."""
     import warnings
 
     with warnings.catch_warnings(record=True) as seen:
@@ -823,7 +1343,8 @@ def sync_calls(torch, fn) -> list:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in seen if "synchroniz" in str(w.message)]
+    return [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in seen
+            if "synchroniz" in str(w.message) and "prototype feature" not in str(w.message)]
 
 
 def _host_cohorts(keyed_batches):
@@ -1411,6 +1932,9 @@ def main() -> int:
             fail(f"label_score_histograms differs from its plain version: {label}")
     record["parity"] = parity
 
+    # -- 2b. each kernel captured into a CUDA graph and replayed ------------------
+    record["graph_probe"] = graph_probe(torch, dev)
+
     # -- 3. the main path -------------------------------------------------
     batches = make_batches(torch, dev)
     if len(batches) != 49 or batches[-1][0].shape[0] != 848:
@@ -1694,6 +2218,9 @@ def main() -> int:
                         "exact_auroc": stream_exact_auroc, "max_abs_diff_vs_cpu": stream_diffs,
                         "state_bytes_per_metric": stream_state_bytes, "telemetry": stream_telemetry}
 
+    # -- 3i. the compiled step: CUDA graphs replayed over the metrics' state ------
+    record["compiled"] = compiled_phase(torch, M, dev, card)
+
     # -- 3f. the leftovers, the meter and a composition at full width -----------
     kl_targets = make_kl_targets(torch, dev)
     left_gpu = build_leftovers(M, dev)
@@ -1865,13 +2392,16 @@ def main() -> int:
         for key, fn in fns.items():
             t[key] = None if fn is None else cuda_ms(fn)
             t[key.replace("ms", "device_ms")] = None if fn is None else device_ms(fn)
+        # the kernel's device time with the launch cost amortized: 50 calls in one replayed graph
+        t["graph_ms"] = graph_ms(fns["ms"])
 
     def fmt(ms):
         return "none" if ms is None else f"{ms:.4f} ms"
 
     for op, t in timings.items():
         print(f"[time] {op} at {t['shape']}, per call (device only): kernel {fmt(t['ms'])} "
-              f"({fmt(t['device_ms'])}), plain {fmt(t['plain_ms'])} ({fmt(t['plain_device_ms'])}), "
+              f"({fmt(t['device_ms'])}; in a replayed graph of 50 calls {fmt(t['graph_ms'])}), "
+              f"plain {fmt(t['plain_ms'])} ({fmt(t['plain_device_ms'])}), "
               f"library {fmt(t['library_ms'])} ({fmt(t['library_device_ms'])}), "
               f"library with its own output {fmt(t.get('library_alloc_ms'))} "
               f"({fmt(t.get('library_alloc_device_ms'))}), bound {t['bound'][0]:.4f} ms ({t['bound'][1]})")
@@ -1937,12 +2467,17 @@ def main() -> int:
     # record); times at each path's shape
     path_launches = {**launches, **{op: keyed_launches[op] for op in scatter},
                      "label_score_histograms": curve_launches["label_score_histograms"]}
+    # launches counted through the replays of the compiled step (phase 3i)
+    compiled = record["compiled"]
+    compiled_launches = {op: compiled["collection"]["launches"][op] + compiled["keyed"]["launches"][op]
+                         + compiled["curves"]["launches"][op] for op in sources}
     kernels = [
         {"name": op, "route": "cuda", "source": sources[op], "replaces": replaces[op],
          "launches": path_launches[op], "max_abs_err": errors[op], "ms": timings[op]["ms"],
          "plain_ms": timings[op]["plain_ms"], "bound_ms": timings[op]["bound"][0],
          "bound_by": timings[op]["bound"][1], "library_ms": timings[op]["library_ms"],
-         "library_alloc_ms": timings[op].get("library_alloc_ms"), "device_ms": timings[op]["device_ms"]}
+         "library_alloc_ms": timings[op].get("library_alloc_ms"), "device_ms": timings[op]["device_ms"],
+         "graph_ms": timings[op]["graph_ms"], "compiled_launches": compiled_launches[op]}
         for op in sources
     ]
     # B5's entry is the class-id form at the curve path's shape (its 98
@@ -1951,6 +2486,7 @@ def main() -> int:
     for suffix in ("dense", "c1"):
         t = timings[f"label_score_histograms_{suffix}"]
         kernels[-1].update({f"{suffix}_ms": t["ms"], f"{suffix}_device_ms": t["device_ms"],
+                            f"{suffix}_graph_ms": t["graph_ms"],
                             f"{suffix}_plain_ms": t["plain_ms"], f"{suffix}_bound_ms": t["bound"][0],
                             f"{suffix}_library_ms": t["library_ms"]})
     kernels[-1]["c1_launches"] = stream_launches["label_score_histograms"]

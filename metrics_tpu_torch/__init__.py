@@ -22,7 +22,10 @@ telemetry core (``observability``: counters, events, histograms,
 collective spans, ``snapshot()``, ``render_prometheus()``), and the serving
 plane (``serving``: ``AdmissionQueue``, ``SLOScheduler``, the staging ring;
 ``compute_async`` on the background engine of ``utilities/async_sync.py``;
-``resilience``: ``RetryPolicy``, ``DeadlineBudget``, ``CircuitBreaker``).
+``resilience``: ``RetryPolicy``, ``DeadlineBudget``, ``CircuitBreaker``),
+and the compiled step (``jit_forward``, ``warmup``, ``update_many``: one
+CUDA graph per input signature, replayed over the metric's own state; the
+curves' ``capacity=`` mode, ``BufferOverflowError``).
 """
 from metrics_tpu_torch.average import AverageMeter  # noqa: F401
 from metrics_tpu_torch.classification import (  # noqa: F401
@@ -51,6 +54,7 @@ from metrics_tpu_torch.classification import (  # noqa: F401
 )
 from metrics_tpu_torch.collections import MetricCollection  # noqa: F401
 from metrics_tpu_torch.metric import CompositionalMetric, Metric  # noqa: F401
+from metrics_tpu_torch.utilities.capped_buffer import BufferOverflowError  # noqa: F401
 from metrics_tpu_torch.wrappers import KeyedMetric, MultiTenantCollection  # noqa: F401
 from metrics_tpu_torch import serving  # noqa: F401 E402
 from metrics_tpu_torch.serving import AdmissionQueue, SLOScheduler  # noqa: F401 E402

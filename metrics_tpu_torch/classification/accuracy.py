@@ -17,7 +17,7 @@ from metrics_tpu_torch.functional.classification.accuracy import (
     _subset_accuracy_compute,
     _subset_accuracy_update,
 )
-from metrics_tpu_torch.utilities.data import Tensor, _is_batched
+from metrics_tpu_torch.utilities.data import Tensor, _is_traced
 from metrics_tpu_torch.utilities.enums import DataType
 
 #: mode <-> synced-code mapping for the ``mode_code`` state (0 = unset; the
@@ -178,7 +178,7 @@ class Accuracy(StatScores):
         never updated, or its states were installed from elsewhere — decoded
         from the (synced) ``mode_code``. Inside a vmapped compute no value can
         be read: the mode is then what update or :meth:`_restore_derived` set."""
-        if self.mode is not None or _is_batched(self.mode_code):
+        if self.mode is not None or _is_traced(self.mode_code):
             return self.mode
         return _MODE_CODES[int(self.mode_code.max().item())]
 

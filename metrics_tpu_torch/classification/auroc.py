@@ -8,33 +8,31 @@ Counterpart of ``metrics_tpu/classification/auroc.py``, in two modes:
 * ``sketched=True``: fixed ``(C, num_bins)`` label histograms
   (:class:`~metrics_tpu_torch.utilities.sketching.HistogramSketchMixin`),
   filled on the card by kernel B5 and read by
-  :func:`~metrics_tpu_torch.kernels.sketches.hist_auroc`.
-
-The JAX package's third mode, ``capacity=`` (a fixed-size sample buffer for
-compiled steps), waits for the port's compiled-step slice; asking for it
-raises ``NotImplementedError``.
+  :func:`~metrics_tpu_torch.kernels.sketches.hist_auroc`;
+* ``capacity=N``: a fixed-size sample buffer and a fill counter
+  (:class:`~metrics_tpu_torch.utilities.capped_buffer.CappedBufferMixin`),
+  whose state keeps its shape, so the compiled step captures it once; the
+  masked sort-scan of
+  :mod:`~metrics_tpu_torch.functional.classification.masked_curves` at
+  compute. Binary by default, multiclass with ``num_classes=C``
+  (one-vs-rest), multilabel with ``multilabel=True``; samples past the
+  capacity drop with a warning, or raise at ``compute()`` with
+  ``overflow="error"``.
 """
 from typing import Any, Callable, Optional, Tuple, Union
 
 import torch
 
 from metrics_tpu_torch.functional.classification.auroc import _auroc_compute, _auroc_update
+from metrics_tpu_torch.functional.classification.masked_curves import masked_binary_auroc
 from metrics_tpu_torch.kernels.sketches import hist_auroc
 from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.utilities.capped_buffer import CappedBufferMixin
 from metrics_tpu_torch.utilities.data import Tensor, dim_zero_cat
 from metrics_tpu_torch.utilities.sketching import HistogramSketchMixin
 
 
-def _refuse_capacity(capacity: Optional[int], overflow: str) -> None:
-    """Raise for the ``capacity=`` mode (and its ``overflow=`` policy), not ported yet."""
-    if capacity is not None or overflow != "warn":
-        raise NotImplementedError(
-            "the `capacity=` mode (and its `overflow=` policy) is not ported yet: it waits for the"
-            " compiled-step slice, ROADMAP queue A item 11; use the list mode or `sketched=True`"
-        )
-
-
-class AUROC(HistogramSketchMixin, Metric):
+class AUROC(HistogramSketchMixin, CappedBufferMixin, Metric):
     """Area under the ROC curve over all batches.
 
     Args:
@@ -45,10 +43,16 @@ class AUROC(HistogramSketchMixin, Metric):
             mode) or ``None`` (per class).
         max_fpr: integrate only up to this false-positive rate and
             standardize (McClish correction); binary list mode only.
-        capacity / overflow: the JAX package's fixed-buffer mode, not ported
-            yet (raises ``NotImplementedError``).
-        multilabel: sketched-mode hint that ``(N, C)`` inputs are per-label
-            binaries rather than class probabilities.
+        capacity: accumulate into a fixed-size sample buffer instead of the
+            unbounded lists (a state of fixed shape, for the compiled step).
+            Binary by default; with ``num_classes > 1`` the one-vs-rest
+            macro/weighted average. Incompatible with ``max_fpr``.
+        overflow: capacity-mode policy past the buffer: ``"warn"`` (drop and
+            warn) or ``"error"`` (raise
+            :class:`~metrics_tpu_torch.utilities.capped_buffer.BufferOverflowError`
+            at the next eager ``compute()``).
+        multilabel: capacity/sketched-mode hint that ``(N, C)`` inputs are
+            per-label binaries rather than class probabilities.
         sketched: keep two fixed ``(C, num_bins)`` histograms instead of the
             O(samples) lists; the value matches the exact one within the
             JAX package's documented tolerance (each bin acts as one tie
@@ -63,6 +67,10 @@ class AUROC(HistogramSketchMixin, Metric):
 
     is_differentiable = False
     _fusable = False
+    _sketch_hint = (
+        "Alternatively, AUROC(sketched=True) keeps fixed-size binned-histogram"
+        " states (bounded memory, one all_reduce at sync regardless of sample count)."
+    )
 
     def __init__(
         self,
@@ -117,7 +125,13 @@ class AUROC(HistogramSketchMixin, Metric):
             self._fusable = True
             self._init_hist_states(num_bins, score_range, num_classes, pos_label, multilabel=multilabel)
             return
-        _refuse_capacity(capacity, overflow)
+        if capacity is not None:
+            if max_fpr is not None:
+                raise ValueError("`capacity` mode does not support `max_fpr`")
+            if num_classes is not None and num_classes > 1 and average not in ("macro", "weighted"):
+                raise ValueError("multi-column `capacity` mode supports average 'macro' or 'weighted'")
+            self._init_capacity_states(capacity, num_classes, pos_label, multilabel=multilabel, overflow=overflow)
+            return
         if multilabel:
             raise ValueError("`multilabel` is a `capacity`/`sketched`-mode hint; list mode infers it from data")
         self.add_state("preds", default=[], dist_reduce_fx="cat")
@@ -127,6 +141,9 @@ class AUROC(HistogramSketchMixin, Metric):
         """Append the batch scores/targets to the state (or bin them)."""
         if self.sketched:
             self._hist_update(preds, target)
+            return
+        if self.capacity is not None:
+            self._buffer_update(preds, target)
             return
 
         preds, target, mode = _auroc_update(preds, target)
@@ -154,6 +171,17 @@ class AUROC(HistogramSketchMixin, Metric):
                     return per_class
                 return torch.mean(per_class)
             return per_class[0]
+
+        if self.capacity is not None:
+            preds, target, valid = self._buffer_flatten()
+            supports = self._check_degenerate_classes(target, valid)
+            if self._capacity_multiclass or self._capacity_multilabel:
+                per_class = self._one_vs_rest(masked_binary_auroc, preds, target, valid)
+                if self.average == "weighted":
+                    support = supports if supports is not None else self._class_supports(target, valid)
+                    return torch.sum(per_class * support / torch.clamp(torch.sum(support), min=1.0))
+                return torch.mean(per_class)
+            return masked_binary_auroc(preds, target, valid)
 
         preds = dim_zero_cat(self.preds)
         target = dim_zero_cat(self.target)

@@ -1,36 +1,39 @@
 """AveragePrecision module metric.
 
 Counterpart of ``metrics_tpu/classification/average_precision.py``: list
-mode (``"cat"`` states, exact step-function integral at compute) and
+mode (``"cat"`` states, exact step-function integral at compute),
 ``sketched=True`` (fixed label histograms filled by kernel B5, read by
-:func:`~metrics_tpu_torch.kernels.sketches.hist_average_precision`). The
-``capacity=`` mode is not ported yet and raises ``NotImplementedError``.
+:func:`~metrics_tpu_torch.kernels.sketches.hist_average_precision`) and
+``capacity=N`` (a fixed-size sample buffer for the compiled step, the
+masked sort-scan at compute; see :class:`~metrics_tpu_torch.AUROC`).
 """
 from typing import Any, Callable, List, Optional, Tuple, Union
 
 import torch
 
-from metrics_tpu_torch.classification.auroc import _refuse_capacity
 from metrics_tpu_torch.classification.precision_recall_curve import _restore_curve_attributes
 from metrics_tpu_torch.functional.classification.average_precision import (
     _average_precision_compute,
     _average_precision_update,
 )
+from metrics_tpu_torch.functional.classification.masked_curves import masked_binary_average_precision
 from metrics_tpu_torch.kernels.sketches import hist_average_precision
 from metrics_tpu_torch.metric import Metric, StateDict
+from metrics_tpu_torch.utilities.capped_buffer import CappedBufferMixin
 from metrics_tpu_torch.utilities.data import Tensor, dim_zero_cat
 from metrics_tpu_torch.utilities.sketching import HistogramSketchMixin
 
 
-class AveragePrecision(HistogramSketchMixin, Metric):
+class AveragePrecision(HistogramSketchMixin, CappedBufferMixin, Metric):
     """Average precision over all batches.
 
     Args:
         num_classes: class count for multi-class scores (per-class values);
             unset for binary streams.
         pos_label: which binary label counts as positive.
-        capacity / overflow: the JAX package's fixed-buffer mode, not ported
-            yet (raises ``NotImplementedError``).
+        capacity / overflow: the fixed-size sample buffer mode (see
+            :class:`~metrics_tpu_torch.AUROC`); with ``num_classes > 1``
+            compute returns the per-class values as a ``(C,)`` tensor.
         multilabel / sketched / num_bins / score_range: the sketched mode,
             as on :class:`~metrics_tpu_torch.AUROC`; multi-class sketched
             compute returns the per-class values as a ``(C,)`` tensor.
@@ -40,6 +43,10 @@ class AveragePrecision(HistogramSketchMixin, Metric):
 
     is_differentiable = False
     _fusable = False
+    _sketch_hint = (
+        "Alternatively, AveragePrecision(sketched=True) keeps fixed-size"
+        " binned-histogram states (bounded memory, one all_reduce at sync)."
+    )
 
     def __init__(
         self,
@@ -75,7 +82,9 @@ class AveragePrecision(HistogramSketchMixin, Metric):
             self._fusable = True
             self._init_hist_states(num_bins, score_range, num_classes, pos_label, multilabel=multilabel)
             return
-        _refuse_capacity(capacity, overflow)
+        if capacity is not None:
+            self._init_capacity_states(capacity, num_classes, pos_label, multilabel=multilabel, overflow=overflow)
+            return
         if multilabel:
             raise ValueError("`multilabel` is a `capacity`/`sketched`-mode hint; list mode infers it from data")
         self.add_state("preds", default=[], dist_reduce_fx="cat")
@@ -85,6 +94,9 @@ class AveragePrecision(HistogramSketchMixin, Metric):
         """Append the canonicalized batch to the state (or bin it)."""
         if self.sketched:
             self._hist_update(preds, target)
+            return
+        if self.capacity is not None:
+            self._buffer_update(preds, target)
             return
 
         preds, target, num_classes, pos_label = _average_precision_update(
@@ -108,6 +120,13 @@ class AveragePrecision(HistogramSketchMixin, Metric):
             if self._sketch_multiclass or self._sketch_multilabel:
                 return per_class
             return per_class[0]
+
+        if self.capacity is not None:
+            preds, target, valid = self._buffer_flatten()
+            if self._capacity_multiclass or self._capacity_multilabel:
+                # per-class/label values as a (C,) tensor (the list mode returns a list)
+                return self._one_vs_rest(masked_binary_average_precision, preds, target, valid)
+            return masked_binary_average_precision(preds, target, valid)
 
         preds = dim_zero_cat(self.preds)
         target = dim_zero_cat(self.target)

@@ -116,14 +116,14 @@ def _subset_accuracy_update(
 
     if mode == DataType.MULTILABEL:
         correct = torch.sum(torch.all(preds == target, dim=1))
-        total = torch.tensor(target.shape[0], device=target.device)
+        total = torch.full((), target.shape[0], dtype=torch.int64, device=target.device)
     elif mode == DataType.MULTICLASS:
         correct = torch.sum(preds * target)
         total = torch.sum(target)
     elif mode == DataType.MULTIDIM_MULTICLASS:
         sample_correct = torch.sum(preds * target, dim=(1, 2))
         correct = torch.sum(sample_correct == target.shape[2])
-        total = torch.tensor(target.shape[0], device=target.device)
+        total = torch.full((), target.shape[0], dtype=torch.int64, device=target.device)
     else:
         raise ValueError(f"Subset accuracy is undefined for {mode} inputs.")
 

@@ -13,7 +13,7 @@ import torch
 
 from metrics_tpu_torch.kernels.confusion_matrix import confmat_counts_cuda
 from metrics_tpu_torch.utilities.checks import _input_format_classification
-from metrics_tpu_torch.utilities.data import Tensor
+from metrics_tpu_torch.utilities.data import Tensor, _is_traced
 from metrics_tpu_torch.utilities.enums import DataType
 from metrics_tpu_torch.utilities.prints import rank_zero_warn
 
@@ -38,8 +38,9 @@ def _confusion_matrix_update(
         return confmat.to(torch.int32)
 
     # the kernel drops out-of-bounds pairs; fail loudly on the host instead
-    # (one transfer for both maxima)
-    if preds.numel():
+    # (one transfer for both maxima); under a trace no value can be read and
+    # the check skips, as the JAX package's does (``confusion_matrix.py:62``)
+    if preds.numel() and not _is_traced(preds, target):
         hi = int(torch.stack([preds.amax(), target.amax()]).amax().item())
         if hi >= num_classes:
             raise ValueError(f"Detected class label {hi} but `num_classes={num_classes}`")
@@ -62,7 +63,7 @@ def _confusion_matrix_compute(confmat: Tensor, normalize: Optional[str] = None) 
             cm = confmat / torch.sum(confmat)
         nan_mask = torch.isnan(cm)
         cm = torch.where(nan_mask, 0.0, cm)
-        num_nan = int(torch.sum(nan_mask).item())
+        num_nan = 0 if _is_traced(cm) else int(torch.sum(nan_mask).item())
         if num_nan:
             rank_zero_warn(f"{num_nan} nan values found in confusion matrix have been replaced with zeros.")
         return cm

@@ -31,7 +31,7 @@ def _del_column(data: Tensor, index: int) -> Tensor:
 
 def _set_class(x: Tensor, index: int, value: float) -> Tensor:
     """``x`` with entry ``index`` of its last axis set to ``value`` (out of place)."""
-    return x.index_fill(-1, torch.tensor(index, device=x.device), value)
+    return x.index_fill(-1, torch.full((1,), index, dtype=torch.int64, device=x.device), value)
 
 
 def _stat_scores(

@@ -5,6 +5,12 @@ the dispatch counters (whose ``"cuda"`` path is each kernel's launch count,
 read into ``observability.snapshot()["kernels"]`` by :func:`dispatch_summary`)
 and the build and load of the kernels' shared library.
 
+Launches inside a CUDA graph count when the graph runs: while a compiled
+dispatch captures (:func:`capture_tally`), a wrapper's launch goes to that
+graph's own tally instead of the counters (a capture launches nothing), and
+every replay adds the tally to the ``"cuda"`` counts (:func:`note_replay`).
+The JAX package notes a dispatch once per trace instead.
+
 The kernels are CUDA C++ for Hopper (``sm_90a``) under
 ``metrics_tpu_torch/csrc``. At first use, :func:`build_library` compiles
 each source with ``nvcc`` (all at once, one process per source), links
@@ -30,8 +36,9 @@ import os
 import shutil
 import subprocess
 import threading
+from contextlib import contextmanager
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Set, Tuple, Union
+from typing import Dict, Iterator, List, Optional, Sequence, Set, Tuple, Union
 
 import torch
 
@@ -108,14 +115,50 @@ _DISPATCH_LOCK = threading.Lock()
 _DISPATCH_COUNTS: Dict[str, Dict[str, int]] = {}
 
 
+class _Capture(threading.local):
+    #: ``{op: launches}`` of the graph this thread is capturing, else None
+    tally: Optional[Dict[str, int]] = None
+
+
+_CAPTURE = _Capture()
+
+
+@contextmanager
+def capture_tally() -> Iterator[Dict[str, int]]:
+    """For the block (a CUDA graph's capture on this thread), collect the
+    kernel launches the wrappers note into the yielded ``{op: launches}``
+    tally instead of the counters; :func:`note_replay` counts it per replay."""
+    saved, _CAPTURE.tally = _CAPTURE.tally, {}
+    try:
+        yield _CAPTURE.tally
+    finally:
+        _CAPTURE.tally = saved
+
+
+def note_replay(tally: Dict[str, int]) -> None:
+    """Count one replay of a captured graph: each op's launches in it."""
+    if not tally:
+        return
+    with _DISPATCH_LOCK:
+        for op, n in tally.items():
+            by_path = _DISPATCH_COUNTS.setdefault(op, {})
+            by_path["cuda"] = by_path.get("cuda", 0) + n
+
+
 def note_kernel_dispatch(op: str, path: str) -> None:
     """Record one dispatch of ``op``: ``path="cuda"`` where its kernel was
-    launched, ``path="torch"`` where its plain version ran on the CPU.
+    launched, ``path="torch"`` where its plain version ran on the CPU. A
+    launch captured into a CUDA graph goes to the graph's tally
+    (:func:`capture_tally`) and counts at each replay.
 
     Unlike the JAX package's counters, these count whether telemetry is on
     or off: the ``"cuda"`` count is the launch count that proves a path ran
     through its kernel (``launch_count``), and ``observability.reset()``
     leaves them as they are, as it leaves the JAX package's."""
+    tally = _CAPTURE.tally
+    if tally is not None and path == "cuda":
+        tally[op] = tally.get(op, 0) + 1
+        return
     with _DISPATCH_LOCK:
         by_path = _DISPATCH_COUNTS.setdefault(op, {})
         by_path[path] = by_path.get(path, 0) + 1

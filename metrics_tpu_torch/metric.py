@@ -37,10 +37,22 @@ limited to the eager stateful path:
   dispatch does; nothing synchronizes to make them "true".
 * **Arithmetic.** ``a + b``, ``a * 2``, ``abs(a)``, ``a[1]`` and the other
   operators build a lazy :class:`CompositionalMetric` (``metric.py:1722-1925``).
+* **The compiled step** (``metric.py:596-1085``). :meth:`Metric.jit_forward`
+  routes ``forward`` through a :class:`~metrics_tpu_torch.utilities.aot.CompiledDispatch`
+  of the pure :meth:`apply_forward`: on the card one CUDA graph per input
+  signature, replayed every step, writing the state tensors in place (the
+  counterpart of the JAX package's donation); :meth:`warmup` captures it
+  ahead of the first step, and :meth:`update_many` runs K stacked
+  micro-batches as K updates unrolled into one graph. Inside the program no
+  value is read to the host, so the value checks skip, as under a JAX trace.
+  A state tensor held outside the metric takes that step through the copying
+  graph, which leaves it as it was.
 """
+import contextlib
 import functools
 import inspect
 import os
+import sys
 import time
 from abc import ABC, abstractmethod
 from contextlib import contextmanager
@@ -51,9 +63,12 @@ import torch
 import torch.distributed as dist
 
 from metrics_tpu_torch.observability.events import EVENTS
+from metrics_tpu_torch.observability.histogram import observe_dispatch
 from metrics_tpu_torch.observability.registry import TELEMETRY
 from metrics_tpu_torch.observability.tracing import TRACER
+from metrics_tpu_torch.utilities.aot import CompiledDispatch, GraphPool, _storage_users
 from metrics_tpu_torch.utilities.data import (
+    _counts_traces,
     _flatten,
     apply_to_collection,
     dim_zero_cat,
@@ -62,6 +77,7 @@ from metrics_tpu_torch.utilities.data import (
     dim_zero_min,
     dim_zero_sum,
     resolve_device,
+    untraced_repeats,
 )
 from metrics_tpu_torch.utilities.distributed import (
     distributed_available,
@@ -105,6 +121,128 @@ def _copy_state(value: StateValue) -> StateValue:
 def _state_nbytes(states: StateDict) -> int:
     """Bytes of every tensor of ``states`` (shapes and dtypes only)."""
     return sum(t.numel() * t.element_size() for v in states.values() for t in (v if isinstance(v, list) else [v]))
+
+
+#: an owner's compiled dispatches (a keyed metric's two last among them)
+_DISPATCH_ATTRS = (
+    "_jit_forward_fn", "_jit_forward_copy_fn", "_update_many_fn", "_update_many_copy_fn", "_keyed_update_fn",
+    "_keyed_update_copy_fn",
+)
+#: the attributes of the compiled step that never pickle nor copy
+_COMPILED_ATTRS = _DISPATCH_ATTRS + ("_graph_pool", "_donation_warned")
+
+
+def _signature(*args: Any, **kwargs: Any) -> str:
+    """A compact description of a call's arguments (shapes and dtypes of
+    tensors, the values of the rest) for the ``compile`` events."""
+    def one(x: Any) -> str:
+        if isinstance(x, Tensor):
+            return f"{str(x.dtype).replace('torch.', '')}{list(x.shape)}"
+        return repr(x)
+
+    parts = [one(a) for a in args] + [f"{k}={one(v)}" for k, v in sorted(kwargs.items())]
+    return "(" + ", ".join(parts) + ")"
+
+
+def _note_compiled_dispatch(obj: Any, fn: CompiledDispatch, counter: str = "forward_compiled_calls") -> None:
+    """Telemetry of one compiled dispatch (``metric.py:141``): count the call
+    and, when it captured afresh, the compile. ``warmup`` captures count
+    apart (``warmup_compiles``)."""
+    key = obj.telemetry_key
+    TELEMETRY.inc(key, counter)
+    if fn.last_compiled:
+        TELEMETRY.inc(key, "jit_forward_compiles")
+
+
+def _warmup_report(obj: Any, fn: CompiledDispatch, fresh: bool, start: float, signature: str, metric: str,
+                   **extra: Any) -> Dict[str, Any]:
+    """A ``warmup``'s bookkeeping (``metric.py:952``): its counters, the
+    ``compile`` event, and the JAX package's report keys; ``"forward"`` has
+    no cost analysis and ``"state_memory"`` no ledger until the cost and
+    memory planes."""
+    key = obj.telemetry_key
+    if TELEMETRY.enabled:
+        TELEMETRY.inc(key, "warmup_calls")
+        if fresh:
+            TELEMETRY.inc(key, "warmup_compiles")
+    EVENTS.record(
+        "compile", key, dur_s=fn.last_compile_s, t_start=start, path="warmup", fresh=fresh,
+        donated=fn.donate_state, signature=signature, **extra,
+    )
+    return {
+        "metric": metric,
+        **extra,
+        "compiled_this_call": fresh,
+        "compile_seconds": round(fn.last_compile_s, 6),
+        "donated": fn.donate_state,
+        "executables_cached": fn._cache_size(),
+        "dispatch_cache": fn.cache_info(),
+        "forward": {"available": False, "reason": "no cost analysis of a CUDA graph yet"},
+        "state_memory": None,
+    }
+
+
+def _microbatch_len(args: Tuple, kwargs: Dict) -> int:
+    """The micro-batch count K of an ``update_many`` call (``metric.py:174``):
+    the shared leading axis of every stacked tensor argument. 0-d leaves and
+    python numbers broadcast to all K micro-batches and don't vote."""
+    from torch.utils._pytree import tree_leaves
+
+    lengths = set()
+    for leaf in tree_leaves((args, kwargs)):
+        shape = getattr(leaf, "shape", None)
+        if shape is None or len(shape) == 0:
+            continue
+        lengths.add(int(shape[0]))
+    if not lengths:
+        raise ValueError(
+            "update_many expects at least one stacked array argument whose leading"
+            " axis is the micro-batch count K"
+        )
+    if len(lengths) > 1:
+        raise ValueError(
+            "update_many: stacked arguments disagree on the micro-batch count"
+            f" (leading axes {sorted(lengths)}); every array argument must carry"
+            " the same leading K"
+        )
+    return lengths.pop()
+
+
+def _unrolled(step: Callable, state: Any, stacked: Tuple, stacked_kwargs: Dict) -> Any:
+    """``state`` advanced by ``step(state, *args, **kwargs)`` once per
+    micro-batch of the stacked arguments (the port's ``lax.scan``: K steps
+    unrolled into one program). Leaves of rank >= 1 are sliced along their
+    leading K axis; 0-d leaves and python numbers broadcast."""
+    from torch.utils._pytree import tree_flatten, tree_unflatten
+
+    leaves, spec = tree_flatten((stacked, stacked_kwargs))
+    for i in range(_microbatch_len(stacked, stacked_kwargs)):
+        sliced = [leaf[i] if getattr(leaf, "ndim", 0) >= 1 else leaf for leaf in leaves]
+        args, kwargs = tree_unflatten(sliced, spec)
+        with untraced_repeats() if i else contextlib.nullcontext():
+            state = step(state, *args, **kwargs)
+    return state
+
+
+def _aliased_leaf(state: StateDict, dispatches: Tuple, shared: Optional[Callable[[str, Tensor], int]] = None
+                  ) -> Optional[str]:
+    """The first leaf of the bundle ``state`` (the owner's ``_get_states()``)
+    that something outside its owner holds — the object itself, by its
+    reference count (``metric.py:866``), or its storage, through a view —
+    else ``None``. Expected references: the owner's attribute, ``state``,
+    the loop variable, ``getrefcount``'s argument, the owner's compiled
+    dispatches' entries, and ``shared(name, leaf)`` more (members of a group
+    pointing at the same tensor)."""
+    for name in state:
+        v = state[name]
+        if not isinstance(v, Tensor):
+            continue  # list states never reach the compiled path (the gate)
+        expected = 4 + sum(d.refs(v) for d in dispatches if d is not None)
+        if shared is not None:
+            expected += shared(name, v)
+        if sys.getrefcount(v) > expected or _storage_users(v) > 1:
+            return name
+    return None
 
 
 def _observed_forward(obj: Any, counter: str, thunk: Callable) -> Any:
@@ -151,6 +289,15 @@ class Metric(ABC):
     higher_is_better: Optional[bool] = None
     #: set False on subclasses whose forward must use the double-update protocol
     _fusable: bool = True
+    #: the compiled step (:meth:`jit_forward`): off until asked for
+    _jit_forward_enabled: bool = False
+    _jit_forward_donate: bool = True
+    _jit_forward_fn: Optional[CompiledDispatch] = None
+    _jit_forward_copy_fn: Optional[CompiledDispatch] = None
+    _update_many_fn: Optional[CompiledDispatch] = None
+    _update_many_copy_fn: Optional[CompiledDispatch] = None
+    #: appended to the unbounded-list refusal of the compiled step
+    _sketch_hint: str = ""
 
     def __init__(
         self,
@@ -280,7 +427,10 @@ class Metric(ABC):
 
     def apply_update(self, state: StateDict, *args: Any, **kwargs: Any) -> StateDict:
         """Pure update: ``state`` advanced by this batch; the live states stay
-        as they were. Safe under ``torch.func.vmap``."""
+        as they were. Safe under ``torch.func.vmap`` and inside a compiled
+        program, where its capture counts ``update_traces``."""
+        if TELEMETRY.enabled and _counts_traces():
+            TELEMETRY.inc(self.telemetry_key, "update_traces")
         with self._bound_state({k: (list(v) if isinstance(v, list) else v) for k, v in state.items()}):
             self._unwrapped_update(*args, **kwargs)
             return self._get_states()
@@ -295,6 +445,36 @@ class Metric(ABC):
         state = self.sync_state(state, process_group)
         with self._bound_state(state):
             return self._unwrapped_compute()
+
+    def apply_forward(
+        self,
+        state: StateDict,
+        *args: Any,
+        process_group: Any = _GROUP_UNSET,
+        batch_state: Optional[StateDict] = None,
+        **kwargs: Any,
+    ) -> Tuple[StateDict, Any]:
+        """Pure forward (``metric.py:596``): ``(accumulated state, batch
+        value)`` in one update pass. The value is this batch's alone, synced
+        over ``process_group`` only with ``dist_sync_on_step``; ``batch_state``
+        lets a collection hand in the batch-local state of a shared update."""
+        if process_group is _GROUP_UNSET:
+            process_group = self.process_group
+        if batch_state is None:
+            batch_state = self.apply_update(self.init_state(), *args, **kwargs)
+        value = self.apply_compute(batch_state, process_group=process_group if self.dist_sync_on_step else None)
+        if self._states_mergeable():
+            new_state = self.merge_states(state, batch_state)
+        else:
+            new_state = self.apply_update(state, *args, **kwargs)
+        return new_state, value
+
+    def _apply_accumulate(self, state: StateDict, deltas: Tuple) -> StateDict:
+        """Pure analogue of :meth:`_accumulate`: ``state`` advanced by
+        precomputed shared deltas."""
+        with self._bound_state({k: (list(v) if isinstance(v, list) else v) for k, v in state.items()}):
+            self._accumulate(*deltas)
+            return self._get_states()
 
     def sync_state(self, state: StateDict, process_group: Any) -> StateDict:
         """``state`` synced over ``process_group`` (a ``torch.distributed``
@@ -410,11 +590,251 @@ class Metric(ABC):
     def forward(self, *args: Any, **kwargs: Any) -> Any:
         """Accumulate this batch and (if ``compute_on_step``) return its value."""
         self._check_input_device(args, kwargs)
+        if self._jit_forward_enabled:
+            return self._forward_jitted(*args, **kwargs)
         if self._states_mergeable():
             return _observed_forward(self, "forward_fused_calls", lambda: self._forward_fused(*args, **kwargs))
         return _observed_forward(
             self, "forward_double_update_calls", lambda: self._forward_double_update(*args, **kwargs)
         )
+
+    # -- the compiled step ----------------------------------------------------
+
+    def jit_forward(self, enable: bool = True, donate: bool = True) -> "Metric":
+        """Route the stateful ``forward`` through one compiled program (opt-in;
+        ``metric.py:749``).
+
+        The eager ``m(preds, target)`` launches each operation from the host
+        and reads the targets' range to the host for its value checks:
+        host-bound, a few milliseconds per step. After ``m.jit_forward()`` the
+        same call runs the pure :meth:`apply_forward` through a
+        :class:`~metrics_tpu_torch.utilities.aot.CompiledDispatch`: on the card
+        a CUDA graph per input signature, captured at its first call (or by
+        :meth:`warmup`) and replayed after, with no synchronizing call::
+
+            acc = Accuracy().jit_forward()
+            acc.warmup(preds0, target0)          # optional: capture now
+            for preds, target in loader:
+                batch_acc = acc(preds, target)   # one replay
+            acc.compute()                        # epoch sync as usual
+
+        The graph writes the state tensors in place (``donate=True``, the
+        counterpart of the JAX package's donation); a state tensor held
+        outside the metric (a kept handle to ``m.some_state``, or a view of
+        it) takes that step through the copying graph instead, which leaves
+        it as it was, with a one-shot warning (``jit_forward_alias_fallbacks``).
+        ``donate=False`` always copies.
+
+        The trades, as under a JAX trace: the value checks skip (shape and
+        dtype errors still raise), every new input shape pays one capture,
+        and what the eager path infers from input values must be given:
+        integer label predictions need ``num_classes=``. Python ``bool`` and
+        string arguments are static (one graph per value). Refused
+        (``ValueError``) for unbounded list states (use the
+        ``capacity=``/``sketched=True`` modes) and for ``dist_sync_on_step``.
+        """
+        if not enable:
+            self._jit_forward_enabled = False
+            self._drop_compiled_dispatch()
+            return self
+        self._jit_forward_gate()
+        self._jit_forward_enabled = True
+        self._jit_forward_donate = bool(donate)
+        self._drop_compiled_dispatch()
+        return self
+
+    def _drop_compiled_dispatch(self) -> None:
+        """Drop every captured program (donation flag changed, enablement
+        toggled, unpickled or cloned copy)."""
+        for name in ("_jit_forward_fn", "_jit_forward_copy_fn", "_update_many_fn", "_update_many_copy_fn"):
+            self.__dict__[name] = None
+
+    def _compiled_state_gate(self) -> None:
+        """Raise ``ValueError`` if the state cannot thread a compiled program
+        (``metric.py:812``); side-effect free, so a collection can check its
+        members without touching their own enablement."""
+        if any(isinstance(v, list) for v in self._defaults.values()):
+            hint = f" {self._sketch_hint}" if self._sketch_hint else ""
+            raise ValueError(
+                f"{self.__class__.__name__} holds unbounded list states, whose pytree grows"
+                " every step under jit (a retrace per call); use the fixed-shape"
+                " `capacity=`/`streaming=` mode of this metric with jit_forward, or keep the"
+                f" eager forward.{hint}"
+            )
+        if set(self.init_state()) != set(self._defaults):
+            raise ValueError(
+                f"{self.__class__.__name__} overrides the pure-state protocol (its init_state"
+                " keys differ from the registered states), so its stateful forward cannot be"
+                " jitted generically; jit a function over its pure apply_update/apply_compute"
+                " API instead."
+            )
+
+    def _jit_forward_gate(self) -> None:
+        """:meth:`_compiled_state_gate` plus the forward-only refusal."""
+        self._compiled_state_gate()
+        if self.dist_sync_on_step:
+            raise ValueError(
+                "jit_forward cannot trace the eager on-step gather of dist_sync_on_step=True;"
+                " use apply_forward with a mesh axis for compiled on-step sync."
+            )
+
+    def _pool(self) -> GraphPool:
+        """The memory pool every graph of this metric shares."""
+        pool = self.__dict__.get("_graph_pool")
+        if pool is None:
+            pool = self.__dict__["_graph_pool"] = GraphPool()
+        return pool
+
+    def _dispatches(self) -> Tuple:
+        return tuple(self.__dict__.get(n) for n in _DISPATCH_ATTRS)
+
+    def _dispatch_refs(self, t: Tensor) -> int:
+        """References to ``t`` held by every compiled dispatch of this metric."""
+        return sum(d.refs(t) for d in self._dispatches() if d is not None)
+
+    def _forward_program(self, state: StateDict, *args: Any, **kwargs: Any) -> Tuple[StateDict, Any]:
+        if self.compute_on_step:
+            return self.apply_forward(state, *args, process_group=None, **kwargs)
+        return self.apply_update(state, *args, **kwargs), None
+
+    def _forward_dispatch(self, donate: bool) -> CompiledDispatch:
+        name = "_jit_forward_fn" if donate else "_jit_forward_copy_fn"
+        fn = self.__dict__.get(name)
+        if fn is None:
+            fn = CompiledDispatch(self._forward_program, donate_state=donate, pool=self._pool(),
+                                  owner_refs=self._dispatch_refs)
+            self.__dict__[name] = fn
+        return fn
+
+    def _donation_safe_state(self, state: StateDict) -> Tuple[StateDict, bool]:
+        """``(state, True)`` when the compiled step may write ``state`` in
+        place; ``(state, False)`` when a leaf is held outside the metric
+        (``metric.py:866``): that step then takes the copying graph, with a
+        one-shot warning. (The JAX package also copies a leaf that is the
+        registered default; the port's states are always copies of theirs.)"""
+        aliased = _aliased_leaf(state, self._dispatches())
+        if aliased is None:
+            return state, True
+        self._note_alias_fallback(aliased)
+        return state, False
+
+    def _note_alias_fallback(self, aliased: str) -> None:
+        if TELEMETRY.enabled:
+            TELEMETRY.inc(self.telemetry_key, "jit_forward_alias_fallbacks")
+        if not self.__dict__.get("_donation_warned", False):
+            self._donation_warned = True
+            rank_zero_warn(
+                f"{self.__class__.__name__}.jit_forward: state `{aliased}` is referenced"
+                " outside the metric, so this step dispatches through the copying"
+                " graph instead of writing the state tensors in place (which would"
+                " change the external handle). Drop external references to metric"
+                " states to restore in-place updates, or call jit_forward(donate=False)"
+                " to keep the copying path silently.",
+                UserWarning,
+            )
+
+    def _forward_jitted(self, *args: Any, **kwargs: Any) -> Any:
+        # a cached compute() result may be a state tensor: cleared BEFORE the
+        # alias check, so it cannot be written under a caller holding it
+        self._computed = None
+        self._forward_cache = None
+        state = self._get_states()
+        donatable = False
+        if self._jit_forward_donate:
+            state, donatable = self._donation_safe_state(state)
+        fn = self._forward_dispatch(donatable)
+        start = time.perf_counter() if (EVENTS.enabled or TELEMETRY.enabled) else None
+        new_state, value = fn(state, *args, **kwargs)
+        if start is not None:
+            # host time of the dispatch (a replay is enqueued, not waited for)
+            dur = time.perf_counter() - start
+            if TELEMETRY.enabled:
+                observe_dispatch(dur, "compiled")
+            EVENTS.record(
+                "forward", self.telemetry_key, dur_s=dur, t_start=start, path="compiled",
+                compiled_this_call=bool(fn.last_compiled), donated=fn.donate_state,
+            )
+        if TELEMETRY.enabled:
+            _note_compiled_dispatch(self, fn)
+        self._set_states(new_state)
+        self._update_called = True
+        self._computed = None
+        self._forward_cache = value
+        return value
+
+    def warmup(self, *sample_batch: Any, **kwargs: Any) -> Dict[str, Any]:
+        """Capture the ``jit_forward`` program for this batch's signature
+        ahead of the first step (``metric.py:952``): the state does not
+        change, a ``compile`` event is recorded, and the first real step is a
+        replay. Enables :meth:`jit_forward` if it is not enabled (the same
+        refusals). Returns the JAX package's report keys; ``compile_seconds``
+        is the capture's wall time."""
+        if not self._jit_forward_enabled:
+            self.jit_forward(donate=self._jit_forward_donate)
+        self._check_input_device(sample_batch, kwargs)
+        fn = self._forward_dispatch(self._jit_forward_donate)
+        start = time.perf_counter()
+        fresh = fn.warm(self._get_states(), *sample_batch, **kwargs)
+        return _warmup_report(self, fn, fresh, start, _signature(*sample_batch, **kwargs), type(self).__name__)
+
+    # -- K micro-batches in one program ----------------------------------------
+
+    def _scan_update_many(self, state: StateDict, stacked: Tuple, stacked_kwargs: Dict) -> Tuple[StateDict, Any]:
+        """Pure K-micro-batch update (``metric.py:1012``): K
+        :meth:`apply_update` steps unrolled into one program."""
+        return _unrolled(self.apply_update, state, stacked, stacked_kwargs), None
+
+    def _update_many_dispatch(self, donatable: bool) -> CompiledDispatch:
+        donate = donatable and self._jit_forward_donate
+        name = "_update_many_fn" if donate else "_update_many_copy_fn"
+        fn = self.__dict__.get(name)
+        if fn is None:
+            fn = CompiledDispatch(self._scan_update_many, donate_state=donate, pool=self._pool(),
+                                  owner_refs=self._dispatch_refs)
+            self.__dict__[name] = fn
+        return fn
+
+    def update_many(self, *stacked: Any, **stacked_kwargs: Any) -> None:
+        """Accumulate K stacked micro-batches in ONE compiled dispatch
+        (``metric.py:1038``): every tensor argument carries a leading axis of
+        K, and the call equals K ``update`` calls, run as one CUDA graph of K
+        unrolled updates over the state (written in place, as by
+        :meth:`jit_forward`; ``donate=False`` there copies here too). 0-d
+        leaves and python numbers broadcast to every micro-batch; ``bool``
+        flags are static. Works with or without :meth:`jit_forward`; the
+        same refusals apply."""
+        self._dispatch_update_many(stacked, stacked_kwargs)
+
+    def _dispatch_update_many(self, stacked: Tuple, stacked_kwargs: Dict) -> Any:
+        """:meth:`update_many`'s body; returns the program's extra output."""
+        self._compiled_state_gate()
+        self._check_input_device(stacked, stacked_kwargs)
+        k = _microbatch_len(stacked, stacked_kwargs)
+        self._computed = None
+        self._forward_cache = None
+        state = self._get_states()
+        donatable = True
+        if self._jit_forward_donate:
+            state, donatable = self._donation_safe_state(state)
+        fn = self._update_many_dispatch(donatable)
+        start = time.perf_counter() if (TELEMETRY.enabled or EVENTS.enabled) else None
+        new_state, extra = fn(state, stacked, stacked_kwargs)
+        if start is not None:
+            dur = time.perf_counter() - start
+            key = self.telemetry_key
+            if TELEMETRY.enabled:
+                TELEMETRY.inc(key, "update_many_calls")
+                TELEMETRY.inc(key, "update_many_batches", k)
+                observe_dispatch(dur, "update_many")
+                _note_compiled_dispatch(self, fn, counter="update_many_dispatches")
+            EVENTS.record(
+                "update", key, dur_s=dur, t_start=start, path="scan_microbatch", batches=k,
+                compiled_this_call=bool(fn.last_compiled), donated=fn.donate_state,
+            )
+        self._set_states(new_state)
+        self._update_called = True
+        self._computed = None
+        return extra
 
     def _forward_fused(self, *args: Any, _update_thunk: Optional[Callable] = None, **kwargs: Any) -> Any:
         accumulated = self._get_states()
@@ -698,6 +1118,7 @@ class Metric(ABC):
         self._update_called = False
         self._forward_cache = None
         self._computed = None
+        self.__dict__.pop("_loaded_state", None)
         self._set_states(self.init_state())
 
     def clone(self) -> "Metric":
@@ -735,6 +1156,8 @@ class Metric(ABC):
                     setattr(self, key, [torch.as_tensor(v).to(self.device) for v in value])
                 else:
                     setattr(self, key, torch.as_tensor(value).to(self.device))
+                # a collection's compiled step may group this metric only after a value check
+                self.__dict__["_loaded_state"] = True
 
     # ------------------------------------------------------------------
     # misc protocol
@@ -750,10 +1173,11 @@ class Metric(ABC):
     def __getstate__(self) -> dict:
         # the wrapped update/compute are rebuilt on unpickling; tensors pickle
         # with their device
+        # captured graphs never pickle nor copy: the copy captures its own
         return {
             k: v
             for k, v in self.__dict__.items()
-            if k not in ("update", "compute", "_update_signature", "_telemetry_key")
+            if k not in ("update", "compute", "_update_signature", "_telemetry_key", *_COMPILED_ATTRS)
         }
 
     def __setstate__(self, state: dict) -> None:
@@ -816,11 +1240,16 @@ class CompositionalMetric(Metric):
         """Refused with the JAX package's error: the children own the state,
         so no compiled forward can thread it. ``enable=False`` is a no-op."""
         if enable:
-            raise ValueError(
-                "CompositionalMetric cannot jit its forward (children own the state); call"
-                " jit_forward() on the child metrics, or jit a function over their pure API."
-            )
+            self._compiled_state_gate()
         return self
+
+    def _compiled_state_gate(self) -> None:
+        """Every compiled path (``jit_forward``, ``warmup``, ``update_many``)
+        is refused, as in the JAX package."""
+        raise ValueError(
+            "CompositionalMetric cannot jit its forward (children own the state); call"
+            " jit_forward() on the child metrics, or jit a function over their pure API."
+        )
 
     def update(self, *args: Any, **kwargs: Any) -> None:
         if isinstance(self.metric_a, Metric):

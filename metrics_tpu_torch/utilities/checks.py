@@ -13,19 +13,23 @@ device-to-host read of the targets, where reading each value separately
 would cost one synchronisation per check.
 
 Inside ``torch.func.vmap`` (the keyed path's per-row update, see
-:func:`~metrics_tpu_torch.utilities.stacked.row_states`) no value can be
-read: the ranges are then ``None`` and every value check is skipped, where
-the JAX package skips them under ``_is_traced`` (``checks.py:40,72,141,205``).
-The keyed path runs the same checks once on the whole batch before the
-vmap. Label predictions without ``num_classes`` raise there, as they do
-under a JAX trace (``checks.py:280-284``).
+:func:`~metrics_tpu_torch.utilities.stacked.row_states`) and inside a
+compiled dispatch's program (``jit_forward``, ``update_many``, captured
+into a CUDA graph on the card) no value can be read
+(:func:`~metrics_tpu_torch.utilities.data._is_traced`): the ranges are then
+``None`` and :func:`_host_range` is never called, so every value check and
+the class-count inference skip, where the JAX package skips them under
+``_is_traced`` (``checks.py:40,72,141,205``). The eager keyed path runs the
+same checks once on the whole batch before the vmap. Label predictions
+without ``num_classes`` raise there, as they do under a JAX trace
+(``checks.py:280-284``).
 """
 import math
 from typing import Optional, Tuple, Union
 
 import torch
 
-from metrics_tpu_torch.utilities.data import Tensor, _is_batched, select_topk, to_onehot
+from metrics_tpu_torch.utilities.data import Tensor, _is_traced, select_topk, to_onehot
 from metrics_tpu_torch.utilities.enums import DataType
 
 Number = Union[int, float]
@@ -205,10 +209,10 @@ def _check_inputs_with_ranges(
 ) -> Tuple[DataType, Range, Range]:
     """Full input validation: the inferred case, plus the host ranges of
     ``target`` and of integer ``preds`` (``None`` for float ``preds``, and
-    for both inside a vmapped program, where the value checks are skipped)."""
-    batched = _is_batched(preds, target)
-    t_range = None if batched else _host_range(target)
-    p_range = None if batched or preds.is_floating_point() else _host_range(preds)
+    for both inside a traced program, where the value checks are skipped)."""
+    traced = _is_traced(preds, target)
+    t_range = None if traced else _host_range(target)
+    p_range = None if traced or preds.is_floating_point() else _host_range(preds)
 
     _basic_input_validation(preds, target, multiclass, t_range, p_range)
 
@@ -305,10 +309,10 @@ def _input_format_classification(
             preds = select_topk(preds, top_k or 1)
         else:
             if not num_classes:
-                if _is_batched(preds, target):
+                if _is_traced(preds, target):
                     raise ValueError(
                         "`num_classes` must be given explicitly when canonicalizing label "
-                        "predictions inside a vmapped (per-row) program."
+                        "predictions inside a traced (vmapped or compiled) program."
                     )
                 p_hi = (p_range or (0, 0))[1]
                 num_classes = int(max(p_hi, (t_range or (0, 0))[1])) + 1

@@ -8,10 +8,15 @@ comparison with an ``arange`` along the class axis, so a label outside
 ``[0, C)`` gives an all-zero row (as ``jax.nn.one_hot`` does) instead of a
 device-side assert.
 
-:func:`_is_batched` is the counterpart of JAX's ``_is_traced``: it is true
+:func:`_is_traced` is the counterpart of JAX's ``_is_traced``: it is true
 for a tensor inside ``torch.func.vmap`` (the per-row update of the keyed
-path), where a value cannot be read to the host.
+path, :func:`_is_batched`) and for any tensor while a compiled dispatch
+runs its program (:class:`trace_scope`, set by
+:class:`~metrics_tpu_torch.utilities.aot.CompiledDispatch`: on the card the
+program is captured into a CUDA graph, which no host read may enter). Both
+times a value cannot be read to the host, and the value checks skip.
 """
+import threading
 from typing import Any, Callable, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
@@ -27,6 +32,67 @@ def _is_batched(*tensors: Any) -> bool:
     """True if any of ``tensors`` is a batched tensor of ``torch.func.vmap``
     (whose values cannot be read to the host with ``.item()``/``.tolist()``)."""
     return any(isinstance(t, Tensor) and torch._C._functorch.is_batchedtensor(t) for t in tensors)
+
+
+class _TraceState(threading.local):
+    """Per thread: whether a compiled dispatch's program is running
+    (``active``), and whether this run records trace telemetry
+    (``count_traces``: a capture on the card, the first call of a signature
+    on the CPU, as a JAX trace runs once per compile)."""
+
+    active = False
+    count_traces = False
+
+
+_TRACE = _TraceState()
+
+
+class trace_scope:
+    """Context manager marking the block as a compiled program's run on this
+    thread (see :func:`_is_traced`); nests, restoring the outer state."""
+
+    __slots__ = ("_count", "_saved")
+
+    def __init__(self, count_traces: bool = False) -> None:
+        self._count = bool(count_traces)
+
+    def __enter__(self) -> "trace_scope":
+        self._saved = (_TRACE.active, _TRACE.count_traces)
+        _TRACE.active, _TRACE.count_traces = True, self._count
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        _TRACE.active, _TRACE.count_traces = self._saved
+
+
+def _is_traced(*tensors: Any) -> bool:
+    """True inside a compiled dispatch's program on this thread, whatever the
+    tensors, or if any of ``tensors`` is a ``torch.func.vmap`` batched
+    tensor: no value can be read to the host."""
+    return _TRACE.active or _is_batched(*tensors)
+
+
+def _counts_traces() -> bool:
+    """True while a compiled dispatch captures (or, on the CPU, runs a
+    signature for the first time): the trace counters count then, once per
+    pure call, as a JAX trace runs each call once."""
+    return _TRACE.active and _TRACE.count_traces
+
+
+class untraced_repeats:
+    """Context manager for the second and later micro-batches of an
+    unrolled ``update_many``: a JAX ``lax.scan`` traces its body once,
+    however many micro-batches it scans, so their calls count no trace."""
+
+    __slots__ = ("_saved",)
+
+    def __enter__(self) -> "untraced_repeats":
+        self._saved = _TRACE.count_traces
+        _TRACE.count_traces = False
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        _TRACE.count_traces = self._saved
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -94,8 +160,8 @@ def to_onehot(label_tensor: Tensor, num_classes: Optional[int] = None) -> Tensor
     if label_tensor.dtype == torch.bool:
         label_tensor = label_tensor.to(torch.int32)
     if num_classes is None:
-        if _is_batched(label_tensor):
-            raise ValueError("`num_classes` must be given explicitly when one-hot encoding inside a vmapped program.")
+        if _is_traced(label_tensor):
+            raise ValueError("`num_classes` must be given explicitly when one-hot encoding inside a traced program.")
         num_classes = int(label_tensor.max().item()) + 1
     classes = _class_axis(num_classes, label_tensor.ndim + 1, label_tensor.device)
     return (label_tensor.unsqueeze(1) == classes).to(label_tensor.dtype)
@@ -120,11 +186,11 @@ def to_categorical(x: Tensor, argmax_dim: int = 1) -> Tensor:
 def get_num_classes(preds: Tensor, target: Tensor, num_classes: Optional[int] = None) -> int:
     """Infer the number of classes from data values (reads them on the host).
 
-    Inside a vmapped program no value can be read: ``num_classes`` is then
+    Inside a traced program no value can be read: ``num_classes`` is then
     returned as given, and raises when it is not."""
-    if _is_batched(preds, target):
+    if _is_traced(preds, target):
         if num_classes is None:
-            raise ValueError("`num_classes` must be given explicitly inside a vmapped program.")
+            raise ValueError("`num_classes` must be given explicitly inside a traced program.")
         return num_classes
     num_target_classes = int(target.max().item()) + 1
     num_pred_classes = int(preds.max().item()) + 1

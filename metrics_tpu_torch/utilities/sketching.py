@@ -30,7 +30,7 @@ import torch
 from metrics_tpu_torch.functional.classification.auroc import _auroc_update
 from metrics_tpu_torch.kernels.binned_counts import _label_score_histograms_onevsrest, label_score_histograms
 from metrics_tpu_torch.observability.registry import TELEMETRY
-from metrics_tpu_torch.utilities.data import Tensor, _is_batched
+from metrics_tpu_torch.utilities.data import Tensor, _is_traced
 from metrics_tpu_torch.utilities.enums import DataType
 
 __all__ = ["HistogramSketchMixin", "SketchTelemetryMixin"]
@@ -59,21 +59,22 @@ class SketchTelemetryMixin:
 
     def merge_states(self, a, b):  # type: ignore[override]
         merged = super().merge_states(a, b)
-        # host-side count only; inside a vmap (a keyed program) nothing counts
-        if self.sketched and TELEMETRY.enabled and not _is_batched(*a.values(), *b.values()):
+        # host-side count only; inside a vmap (a keyed program) or a compiled
+        # program nothing counts, as under a JAX trace
+        if self.sketched and TELEMETRY.enabled and not _is_traced(*a.values(), *b.values()):
             TELEMETRY.inc(self.telemetry_key, "sketch_merges")
         return merged
 
     def _publish_sketch_info(self, **info) -> None:
         """Publish the ``info.sketch`` snapshot blob. Its tensor values are
         stacked and read to the host in ONE read (the JAX package reads each
-        with ``float``); inside a vmap nothing can be read, and nothing is
-        published."""
+        with ``float``); inside a vmap or a compiled program nothing can be
+        read, and nothing is published."""
         if not TELEMETRY.enabled:
             return
         tensors = {k: v for k, v in info.items() if isinstance(v, Tensor)}
         if tensors:
-            if _is_batched(*tensors.values()):
+            if _is_traced(*tensors.values()):
                 return
             values = torch.stack([v.reshape(()).to(torch.float64) for v in tensors.values()]).tolist()
             info = {**info, **dict(zip(tensors, values))}
@@ -157,10 +158,10 @@ class HistogramSketchMixin(SketchTelemetryMixin):
     def _hist_check_degenerate(self) -> Optional[Tensor]:
         """Raise on degenerate (single-label) histograms; return the
         per-class positive supports for weighted averaging. Inside
-        ``torch.func.vmap`` (the keyed compute) no value can be read, so
-        nothing is checked and the ``hist_*`` functions give the 0/0 NaN the
-        exact arithmetic would."""
-        if _is_batched(self.pos_hist, self.neg_hist):
+        ``torch.func.vmap`` (the keyed compute) or a compiled program no value
+        can be read, so nothing is checked and the ``hist_*`` functions give
+        the 0/0 NaN the exact arithmetic would."""
+        if _is_traced(self.pos_hist, self.neg_hist):
             return None
         pos = torch.sum(self.pos_hist, dim=-1)
         neg = torch.sum(self.neg_hist, dim=-1)

@@ -18,7 +18,7 @@ update evaluated on every EVENT ROW of a batch independently (a vmap over the
 leading event axis, each row kept as a length-1 batch so the child sees the
 layout it was written for), producing per-row partial states that a segment
 scatter then routes to their tenants. Inside it no value can be read to the
-host (see :func:`~metrics_tpu_torch.utilities.data._is_batched`).
+host (see :func:`~metrics_tpu_torch.utilities.data._is_traced`).
 """
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 

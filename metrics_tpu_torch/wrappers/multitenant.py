@@ -49,9 +49,20 @@ update counts its rows (``keyed_update_rows``) and its dispatch
 with ``path="keyed_scatter"``; the collection's build records its layout
 (``info.keyed``, the ``compute_groups`` of its inner collection and a
 ``compile`` event) and each collection update the members its bundles
-serve beyond one (``update_dedup_skipped``). The JAX package's compile
-counters (``jit_forward_compiles``) have no counterpart until the port has
-a compiled step (ROADMAP queue A item 11).
+serve beyond one (``update_dedup_skipped``).
+
+The compiled step (``multitenant.py:664-780,1380-1470``): after
+:meth:`KeyedMetric.warmup` or :meth:`KeyedMetric.jit_forward` (and
+:meth:`MultiTenantCollection.warmup`) the keyed update dispatches through a
+:class:`~metrics_tpu_torch.utilities.aot.CompiledDispatch` (one CUDA graph
+per batch signature on the card; the stacked state written in place), as
+every JAX keyed update does; without them it stays eager. The eager id
+check stays outside the graph (``validate_ids=True``), and the tenant
+ledger and the invalid-id counter are fed the graph's outputs after the
+replay. ``update_many`` runs K stacked cohorts as K keyed updates unrolled
+into one graph. The compiled counters (``jit_forward_compiles``,
+``update_many_*``, ``warmup_*``, ``update_traces``) count as in the JAX
+package.
 
 Serving (``multitenant.py:156-314,433-441,679-720``): ``update`` runs under a
 lazy, process-local re-entrant lock (:meth:`KeyedMetric._serial_lock`,
@@ -82,11 +93,21 @@ from metrics_tpu_torch.kernels.segment_scatter import (
     segment_scatter_max_cuda,
     segment_scatter_min_cuda,
 )
-from metrics_tpu_torch.metric import Metric, StateDict
+from metrics_tpu_torch.metric import (
+    Metric,
+    StateDict,
+    _aliased_leaf,
+    _microbatch_len,
+    _note_compiled_dispatch,
+    _signature,
+    _unrolled,
+    _warmup_report,
+)
 from metrics_tpu_torch.observability.events import EVENTS
 from metrics_tpu_torch.observability.histogram import observe_dispatch
 from metrics_tpu_torch.observability.registry import TELEMETRY
-from metrics_tpu_torch.utilities.data import Tensor, check_device, resolve_device
+from metrics_tpu_torch.utilities.aot import CompiledDispatch, GraphPool
+from metrics_tpu_torch.utilities.data import Tensor, _counts_traces, _is_traced, check_device, resolve_device
 from metrics_tpu_torch.utilities.stacked import broadcast_stack, row_states, vmap_compute
 
 __all__ = ["KeyedMetric", "MultiTenantCollection"]
@@ -119,6 +140,39 @@ def _note_keyed_update(obj: Any, start: float, rows: int, **payload: Any) -> Non
             "update", key, dur_s=dur, t_start=start, path="keyed_scatter", tenants=obj.num_tenants, rows=rows,
             **payload,
         )
+
+
+#: the compiled dispatches of a MultiTenantCollection (each with its copying twin)
+_MTC_DISPATCHES = ("_keyed_update_fn", "_keyed_update_fn_copy", "_update_many_fn", "_update_many_fn_copy")
+
+
+def _note_keyed_compiled(obj: Any, fn: CompiledDispatch, start: Optional[float], rows: int, **payload: Any) -> None:
+    """The compiled keyed update's telemetry (``multitenant.py:726-760``)."""
+    if start is None:
+        return
+    dur = time.perf_counter() - start
+    key = obj.telemetry_key
+    if TELEMETRY.enabled:
+        TELEMETRY.inc(key, "keyed_update_rows", rows)
+        observe_dispatch(dur, "keyed_scatter")
+        _note_compiled_dispatch(obj, fn, counter="keyed_update_dispatches")
+    EVENTS.record(
+        "update", key, dur_s=dur, t_start=start, path="keyed_scatter", tenants=obj.num_tenants, rows=rows,
+        compiled_this_call=bool(fn.last_compiled), donated=fn.donate_state, **payload,
+    )
+
+
+def _stacked_ids(owner: Any, tenant_ids: Any) -> Tensor:
+    """``update_many``'s ``(K, B)`` tenant ids as an integer tensor on the
+    owner's device."""
+    ids = _unstage(tenant_ids)
+    ids = ids if isinstance(ids, Tensor) else torch.as_tensor(np.asarray(ids), device=owner.device)
+    check_device(owner.device, ids)
+    if ids.dtype.is_floating_point or ids.is_complex() or ids.dtype == torch.bool:
+        raise ValueError(f"tenant_ids must be an integer array, got dtype {ids.dtype}")
+    if ids.ndim != 2:
+        raise ValueError(f"update_many's tenant_ids must be (K, B), got shape {tuple(ids.shape)}")
+    return ids if ids.dtype in (torch.int32, torch.int64) else ids.long()
 
 
 def _unstage(x: Any) -> Any:
@@ -475,7 +529,8 @@ class KeyedMetric(Metric):
         """
         child = self._child
         n = self._capacity
-        child._validate_batch(*args, **kwargs)
+        if not _is_traced():
+            child._validate_batch(*args, **kwargs)
         per_row = row_states(child, args, kwargs)
         new: StateDict = {}
         counts: Optional[Tensor] = None
@@ -515,10 +570,109 @@ class KeyedMetric(Metric):
     def apply_update(self, state: StateDict, tenant_ids: Any, *args: Any, **kwargs: Any) -> StateDict:
         """Pure keyed update: the stacked state advanced by one mixed event
         batch; invalid ids are dropped (this path never raises on them) and
-        counted under ``invalid_tenant_ids`` while telemetry is on."""
+        counted under ``invalid_tenant_ids`` while telemetry is on (outside
+        a compiled program: its dispatch counts them from the program's
+        output)."""
+        if TELEMETRY.enabled and _counts_traces():
+            TELEMETRY.inc(self.telemetry_key, "update_traces")
         new_state, invalid = self._segment_scatter(state, self._canonical_ids(tenant_ids), args, kwargs)
-        TELEMETRY.add_device(self.telemetry_key, "invalid_tenant_ids", invalid)
+        if not _is_traced():
+            TELEMETRY.add_device(self.telemetry_key, "invalid_tenant_ids", invalid)
         return new_state
+
+    # -- the compiled keyed update ---------------------------------------------
+
+    def _dispatch_scatter(self, state: StateDict, ids: Tensor, *args: Any, **kwargs: Any
+                          ) -> Tuple[StateDict, Tuple[Tensor, Tensor]]:
+        """The program behind the compiled ``update`` (``multitenant.py:625``):
+        ``(new state, (invalid count, per-tenant row counts))``."""
+        new_state, invalid, counts = self._scatter_counted(state, ids, args, kwargs)
+        return new_state, (invalid, counts)
+
+    def _scan_update_many(self, state: StateDict, stacked: Tuple, stacked_kwargs: Dict
+                          ) -> Tuple[StateDict, Tuple[Tensor, Tensor]]:
+        """K keyed updates unrolled into one program; their invalid counts
+        and per-tenant row counts summed."""
+        totals: List[Tensor] = []
+
+        def step(s: StateDict, ids: Tensor, *args: Any, **kwargs: Any) -> StateDict:
+            if TELEMETRY.enabled and _counts_traces():  # as the JAX scan traces apply_update
+                TELEMETRY.inc(self.telemetry_key, "update_traces")
+            new, invalid, counts = self._scatter_counted(s, ids, args, kwargs)
+            totals[:] = [invalid, counts] if not totals else [totals[0] + invalid, totals[1] + counts]
+            return new
+
+        return _unrolled(step, state, stacked, stacked_kwargs), (totals[0], totals[1])
+
+    def jit_forward(self, enable: bool = True, donate: bool = True) -> "KeyedMetric":
+        """:meth:`Metric.jit_forward`, and the compiled keyed ``update``
+        (one graph per batch signature) with it."""
+        super().jit_forward(enable, donate)
+        self._keyed_compiled = bool(enable)
+        return self
+
+    def _drop_compiled_dispatch(self) -> None:
+        super()._drop_compiled_dispatch()
+        self.__dict__["_keyed_update_fn"] = None
+        self.__dict__["_keyed_update_copy_fn"] = None
+
+    def _keyed_dispatch(self, donate: bool) -> CompiledDispatch:
+        name = "_keyed_update_fn" if donate else "_keyed_update_copy_fn"
+        fn = self.__dict__.get(name)
+        if fn is None:
+            fn = CompiledDispatch(self._dispatch_scatter, donate_state=donate, pool=self._pool(),
+                                  owner_refs=self._dispatch_refs)
+            self.__dict__[name] = fn
+        return fn
+
+    def _after_keyed_dispatch(self, invalid: Tensor, counts: Tensor) -> None:
+        if TELEMETRY.enabled:
+            self._traffic.note(counts)
+            TELEMETRY.add_device(self.telemetry_key, "invalid_tenant_ids", invalid)
+
+    def _update_compiled(self, ids: Tensor, args: Tuple, kwargs: Dict) -> None:
+        start = time.perf_counter() if (TELEMETRY.enabled or EVENTS.enabled) else None
+        with self._serial_lock():
+            self._computed = None
+            state = self._get_states()
+            donatable = False
+            if self._jit_forward_donate:
+                state, donatable = self._donation_safe_state(state)
+            fn = self._keyed_dispatch(donatable)
+            new_state, (invalid, counts) = fn(state, ids, *args, **kwargs)
+            self._set_states(new_state)
+            self._update_called = True
+        self._after_keyed_dispatch(invalid, counts)
+        _note_keyed_compiled(self, fn, start, int(ids.shape[0]))
+
+    def warmup(self, tenant_ids: Any, *sample_batch: Any, **kwargs: Any) -> Dict[str, Any]:
+        """Capture the compiled keyed update for this batch's signature
+        (``multitenant.py:764``; see :meth:`Metric.warmup`), which ``update``
+        then replays. The state does not change."""
+        self._keyed_compiled = True
+        ids = self._canonical_ids(tenant_ids)
+        sample_batch = tuple(_unstage(a) for a in sample_batch)
+        kwargs = {k: _unstage(v) for k, v in kwargs.items()}
+        fn = self._keyed_dispatch(self._jit_forward_donate)
+        start = time.perf_counter()
+        with self._serial_lock():
+            fresh = fn.warm(self._get_states(), ids, *sample_batch, **kwargs)
+        return _warmup_report(self, fn, fresh, start, _signature(ids, *sample_batch, **kwargs),
+                              f"KeyedMetric({type(self._child).__name__})", tenants=self.num_tenants)
+
+    def update_many(self, tenant_ids: Any, *stacked: Any, **stacked_kwargs: Any) -> None:
+        """K stacked keyed cohorts in ONE compiled dispatch
+        (``multitenant.py:746``): ``tenant_ids`` is ``(K, B)``, every tensor
+        argument has a matching leading K; the eager id check covers the
+        whole stack first (``validate_ids=True``)."""
+        ids = _stacked_ids(self, tenant_ids)
+        if self.validate_ids:
+            self._validate_ids_eager(ids.reshape(-1))
+        stacked = tuple(_unstage(a) for a in stacked)
+        stacked_kwargs = {k: _unstage(v) for k, v in stacked_kwargs.items()}
+        with self._serial_lock():
+            invalid, counts = self._dispatch_update_many((ids,) + stacked, stacked_kwargs)
+        self._after_keyed_dispatch(invalid, counts)
 
     def update(self, tenant_ids: Any, *args: Any, **kwargs: Any) -> None:
         """Route one mixed event batch to every tenant.
@@ -537,6 +691,9 @@ class KeyedMetric(Metric):
             self._validate_ids_eager(ids if host_ids is None else host_ids)
         args = tuple(_unstage(a) for a in args)
         kwargs = {k: _unstage(v) for k, v in kwargs.items()}
+        if self.__dict__.get("_keyed_compiled"):
+            self._check_input_device(args, kwargs)
+            return self._update_compiled(ids, args, kwargs)
         start = time.perf_counter() if (TELEMETRY.enabled or EVENTS.enabled) else None
         with self._serial_lock():
             new_state, invalid, counts = self._scatter_counted(self._get_states(), ids, args, kwargs)
@@ -797,10 +954,10 @@ class MultiTenantCollection:
 
     def _scatter_all(
         self, state: Dict[str, StateDict], ids: Tensor, *args: Any, **kwargs: Any
-    ) -> Tuple[Dict[str, StateDict], Tensor]:
+    ) -> Tuple[Dict[str, StateDict], Tuple[Tensor, Tensor]]:
         """Every bundle advanced by one batch (each member's kwargs filtered),
-        and the first bundle's per-tenant row counts; its invalid-id count
-        goes under the collection's key."""
+        and the first bundle's invalid-id count and per-tenant row counts
+        (the pure program of the compiled update, too)."""
         new: Dict[str, StateDict] = {}
         invalid = counts = None
         for owner, keyed in self._keyed.items():
@@ -808,8 +965,131 @@ class MultiTenantCollection:
             new[owner], inv, cnt = keyed._scatter_counted(state[owner], ids, args, fkw)
             if invalid is None:
                 invalid, counts = inv, cnt
+        return new, (invalid, counts)
+
+    # -- the compiled update ------------------------------------------------------
+
+    #: the compiled update: off until ``warmup``
+    _compiled = False
+    _donate = True
+
+    def _scan_update_many(self, state: Dict[str, StateDict], stacked: Tuple, stacked_kwargs: Dict
+                          ) -> Tuple[Dict[str, StateDict], Tuple[Tensor, Tensor]]:
+        """K updates of every bundle unrolled into one program
+        (``multitenant.py:1380``); invalid counts and row counts summed."""
+        totals: List[Tensor] = []
+
+        def step(s: Dict[str, StateDict], ids: Tensor, *args: Any, **kwargs: Any) -> Dict[str, StateDict]:
+            new, (invalid, counts) = self._scatter_all(s, ids, *args, **kwargs)
+            totals[:] = [invalid, counts] if not totals else [totals[0] + invalid, totals[1] + counts]
+            return new
+
+        return _unrolled(step, state, stacked, stacked_kwargs), (totals[0], totals[1])
+
+    def _pool(self) -> GraphPool:
+        pool = self.__dict__.get("_graph_pool")
+        if pool is None:
+            pool = self.__dict__["_graph_pool"] = GraphPool()
+        return pool
+
+    def _dispatch_refs(self, t: Tensor) -> int:
+        """References to ``t`` held by every compiled dispatch of this
+        collection and of its keyed bundles."""
+        mine = (self.__dict__.get(n) for n in _MTC_DISPATCHES)
+        return sum(d.refs(t) for d in mine if d is not None) + sum(km._dispatch_refs(t) for km in self._keyed.values())
+
+    def _dispatch(self, name: str, program: Any, donate: bool) -> CompiledDispatch:
+        fn = self.__dict__.get(name)
+        if fn is None:
+            fn = CompiledDispatch(program, donate_state=donate, pool=self._pool(), owner_refs=self._dispatch_refs)
+            self.__dict__[name] = fn
+        return fn
+
+    def _donation_safe_state(self, state: Dict[str, StateDict]) -> Tuple[Dict[str, StateDict], bool]:
+        """Whether the stacked bundles may be written in place: no leaf held
+        outside its keyed bundle (see :meth:`Metric._donation_safe_state`)."""
+        mine = tuple(self.__dict__.get(n) for n in _MTC_DISPATCHES)
+        for owner, km in self._keyed.items():
+            name = _aliased_leaf(state[owner], mine + km._dispatches())
+            if name is not None:
+                km._note_alias_fallback(name)
+                return state, False
+        return state, True
+
+    def _dispatch_compiled(self, name: str, program: Any, args: Tuple, kwargs: Dict) -> Tuple[Any, CompiledDispatch]:
+        """One compiled dispatch over every bundle under the serial lock:
+        ``((invalid, counts), fn)``."""
+        keyed = self._keyed
+        with self._serial_lock():
+            state = {owner: km._get_states() for owner, km in keyed.items()}
+            donatable = False
+            if self._donate:
+                state, donatable = self._donation_safe_state(state)
+            fn = self._dispatch(name if donatable else f"{name}_copy", program, donatable)
+            new_state, extra = fn(state, *args, **kwargs)
+            for owner, km in keyed.items():
+                km._set_states(new_state[owner])
+                km._update_called = True
+                km._computed = None
+        return extra, fn
+
+    def _after_dispatch(self, invalid: Tensor, counts: Tensor) -> None:
+        if TELEMETRY.enabled:
+            self._traffic.note(counts)
         TELEMETRY.add_device(self.telemetry_key, "invalid_tenant_ids", invalid)
-        return new, counts
+
+    def warmup(self, tenant_ids: Any, *sample_batch: Any, **kwargs: Any) -> Dict[str, Any]:
+        """Build the bundles if needed and capture the compiled update for
+        this batch's signature (``multitenant.py:1454``); ``update`` then
+        replays it. The state does not change."""
+        if self._keyed is None:
+            self.build()
+        self._compiled = True
+        ids = self._canonical_ids(tenant_ids)
+        sample_batch = tuple(_unstage(a) for a in sample_batch)
+        kwargs = {k: _unstage(v) for k, v in kwargs.items()}
+        self._collection._check_input_device(sample_batch, kwargs)
+        fn = self._dispatch("_keyed_update_fn", self._scatter_all, self._donate)
+        start = time.perf_counter()
+        with self._serial_lock():
+            state = {owner: km._get_states() for owner, km in self._keyed.items()}
+            fresh = fn.warm(state, ids, *sample_batch, **kwargs)
+        return _warmup_report(
+            self, fn, fresh, start, _signature(ids, *sample_batch, **kwargs), "MultiTenantCollection",
+            tenants=self.num_tenants, members=len(self._collection), state_bundles=len(self._keyed),
+        )
+
+    def update_many(self, tenant_ids: Any, *stacked: Any, **stacked_kwargs: Any) -> None:
+        """K stacked cohorts through every bundle in ONE compiled dispatch
+        (``multitenant.py:1405``): ``tenant_ids`` is ``(K, B)``, every tensor
+        argument has a matching leading K."""
+        if self._keyed is None:
+            self.build()
+        ids = _stacked_ids(self, tenant_ids)
+        stacked = tuple(_unstage(a) for a in stacked)
+        stacked_kwargs = {k: _unstage(v) for k, v in stacked_kwargs.items()}
+        self._collection._check_input_device(stacked, stacked_kwargs)
+        k = _microbatch_len((ids,) + stacked, stacked_kwargs)
+        if self.validate_ids:
+            next(iter(self._keyed.values()))._validate_ids_eager(ids.reshape(-1))
+        start = time.perf_counter() if (TELEMETRY.enabled or EVENTS.enabled) else None
+        (invalid, counts), fn = self._dispatch_compiled(
+            "_update_many_fn", self._scan_update_many, ((ids,) + stacked, stacked_kwargs), {}
+        )
+        self._after_dispatch(invalid, counts)
+        if start is not None:
+            dur = time.perf_counter() - start
+            key = self.telemetry_key
+            if TELEMETRY.enabled:
+                TELEMETRY.inc(key, "update_many_calls")
+                TELEMETRY.inc(key, "update_many_batches", k)
+                observe_dispatch(dur, "update_many")
+                _note_compiled_dispatch(self, fn, counter="update_many_dispatches")
+            EVENTS.record(
+                "update", key, dur_s=dur, t_start=start, path="scan_microbatch", batches=k,
+                tenants=self.num_tenants, state_bundles=len(self._keyed),
+                compiled_this_call=bool(fn.last_compiled), donated=fn.donate_state,
+            )
 
     def _canonical_ids(self, tenant_ids: Any) -> Tensor:
         return next(iter(self._require_built().values()))._canonical_ids(tenant_ids)
@@ -829,13 +1109,25 @@ class MultiTenantCollection:
         if self.validate_ids:
             next(iter(keyed.values()))._validate_ids_eager(ids if host_ids is None else host_ids)
         start = time.perf_counter() if (TELEMETRY.enabled or EVENTS.enabled) else None
+        if self._compiled:
+            (invalid, counts), fn = self._dispatch_compiled("_keyed_update_fn", self._scatter_all, (ids,) + args, kwargs)
+            self._after_dispatch(invalid, counts)
+            if TELEMETRY.enabled:
+                TELEMETRY.inc(self.telemetry_key, "update_calls")
+                skipped = sum(len(ns) - 1 for _, ns in self._layout)
+                if skipped:
+                    TELEMETRY.inc(self.telemetry_key, "update_dedup_skipped", skipped)
+            _note_keyed_compiled(self, fn, start, int(ids.shape[0]), members=len(self._collection),
+                                 state_bundles=len(keyed))
+            return
         with self._serial_lock():
             state = {owner: km._get_states() for owner, km in keyed.items()}
-            new_state, counts = self._scatter_all(state, ids, *args, **kwargs)
+            new_state, (invalid, counts) = self._scatter_all(state, ids, *args, **kwargs)
             for owner, km in keyed.items():
                 km._set_states(new_state[owner])
                 km._update_called = True
                 km._computed = None
+        TELEMETRY.add_device(self.telemetry_key, "invalid_tenant_ids", invalid)
         if TELEMETRY.enabled:
             self._traffic.note(counts)
         if start is not None:
@@ -955,9 +1247,11 @@ class MultiTenantCollection:
         return len(self._collection)
 
     def __getstate__(self) -> dict:
-        # a copy registers a telemetry key of its own; the lock stays here
+        # a copy registers a telemetry key of its own; the lock stays here;
+        # captured graphs never pickle nor copy
         with self._serial_lock():
-            return {k: v for k, v in self.__dict__.items() if k not in ("_telemetry_key", "_ingest_lock")}
+            drop = ("_telemetry_key", "_ingest_lock", "_graph_pool", *_MTC_DISPATCHES)
+            return {k: v for k, v in self.__dict__.items() if k not in drop}
 
     def __repr__(self) -> str:
         return (

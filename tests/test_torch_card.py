@@ -13,7 +13,10 @@ and must count one launch per call; the keyed collection on the card must
 equal the same collection on the CPU, directly and through the serving
 queue (unstaged and staged, and staged with the flusher prefetching on
 the staging lane), and the tenant ledger kept on the card must read what a
-CPU twin's ledger reads.
+CPU twin's ledger reads. The compiled step's cases capture each kernel into
+a CUDA graph and replay it against the plain version (launches counted per
+replay), replay the compiled collection, keyed update and capacity mode
+against the CPU, and capture while the serving flusher's thread works.
 """
 import numpy as np
 import pytest
@@ -328,3 +331,206 @@ def test_the_device_ledger_equals_the_host_ledger(cuda_device):
     reports = [m.tenant_report() for m in (card, host)]
     for key in ("rows_routed", "occupancy", "top_traffic", "invalid_tenant_ids", "invalid_rate"):
         assert reports[0][key] == reports[1][key]
+
+
+# -- the compiled step: CUDA graphs -------------------------------------------------
+
+
+def _graph_cases(dev):
+    """``(name, op, make inputs, kernel, plain, tolerance)`` of every kernel
+    at a path's shape, B3/B4 and B5's add mode (cooperative launches) among them."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+
+    def ids_rows(d):
+        return lambda: (torch.randint(-1, 10_001, (4096,), generator=gen, device=dev),
+                        torch.randint(0, 2, (4096, d), generator=gen, device=dev).float())
+
+    def binary(n, c):
+        return lambda: (torch.randint(0, 2, (n, c), generator=gen, device=dev, dtype=torch.int32),
+                        torch.randint(0, 2, (n, c), generator=gen, device=dev, dtype=torch.int32))
+
+    def labels():
+        return (torch.randint(0, 1000, (1024,), generator=gen, device=dev),
+                torch.randint(0, 1000, (1024,), generator=gen, device=dev))
+
+    def scores_ids():
+        return (torch.rand((1024, 1000), generator=gen, device=dev),
+                torch.randint(0, 1000, (1024,), generator=gen, device=dev))
+
+    def stream():
+        s = torch.rand((10_000, 1), generator=gen, device=dev)
+        return s, (torch.rand((10_000, 1), generator=gen, device=dev) < s).to(torch.int32)
+
+    def dense():
+        return (torch.rand((1024, 1000), generator=gen, device=dev),
+                torch.randint(0, 2, (1024, 1000), generator=gen, device=dev, dtype=torch.int32))
+
+    return [
+        ("B1", "stat_scores_counts", binary(1024, 1000), lambda p, t: stat_scores_counts_cuda(p, t, device=dev),
+         stat_scores_counts_torch),
+        ("B2", "confmat_counts", labels, lambda p, t: (confmat_counts_cuda(p, t, 1000, device=dev),),
+         lambda p, t: (confmat_counts_torch(p, t, 1000),)),
+        ("B3", "segment_scatter_add", ids_rows(40), lambda i, r: segment_scatter_add_cuda(r, i, 10_000, device=dev),
+         lambda i, r: segment_scatter_add_torch(r, i, 10_000)),
+        ("B4 max", "segment_scatter_max", ids_rows(1),
+         lambda i, r: segment_scatter_max_cuda(r, i, 10_000, device=dev),
+         lambda i, r: segment_scatter_max_torch(r, i, 10_000)),
+        ("B4 min", "segment_scatter_min", ids_rows(1),
+         lambda i, r: segment_scatter_min_cuda(r, i, 10_000, device=dev),
+         lambda i, r: segment_scatter_min_torch(r, i, 10_000)),
+        ("B5 class ids", _HIST, scores_ids, lambda s, i: _label_score_histograms_onevsrest(s, i, 2048),
+         lambda s, i: bc._onevsrest_torch(s, i, 2048)),
+        ("B5 dense", _HIST, dense, lambda s, t: label_score_histograms_cuda(s, t, 2048, device=dev),
+         lambda s, t: label_score_histograms_torch(s, t, 2048)),
+        ("B5 add mode", _HIST, stream, lambda s, t: label_score_histograms_cuda(s, t, 2048, device=dev),
+         lambda s, t: label_score_histograms_torch(s, t, 2048)),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(8), ids=["B1", "B2", "B3", "B4 max", "B4 min", "B5 class ids", "B5 dense",
+                                               "B5 add mode"])
+def test_a_captured_then_replayed_launch_equals_the_plain_version(cuda_device, case):
+    """Each kernel captured once into a CUDA graph (thread-local capture, as
+    the compiled step captures) and replayed on fresh inputs copied into its
+    input buffers: every replay equals the plain version exactly (B3's rows
+    are integer-valued), and each replay counts one launch (the capture's
+    tally), the capture none."""
+    name, op, make, kernel, plain = _graph_cases(cuda_device)[case]
+    static = [x.clone() for x in make()]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernel(*static)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    _common.reset_dispatch_counters()
+    graph = torch.cuda.CUDAGraph()
+    with _common.capture_tally() as tally, torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        captured = kernel(*static)
+    assert tally == {op: 1} and _common.launch_count(op) == 0
+    for replay in range(1, 3):
+        fresh = make()
+        for buf, x in zip(static, fresh):
+            buf.copy_(x)
+        graph.replay()
+        _common.note_replay(tally)
+        torch.cuda.synchronize()
+        for g, w in zip(captured, plain(*fresh)):
+            assert g.dtype == w.dtype and torch.equal(g, w), name
+        assert _common.launch_count(op) == replay
+
+
+def _compiled_members(device):
+    kw = dict(average="macro", num_classes=C, device=device)
+    return {"Accuracy": T.Accuracy(device=device), "Precision": T.Precision(**kw), "Recall": T.Recall(**kw),
+            "ConfusionMatrix": T.ConfusionMatrix(num_classes=C, device=device)}
+
+
+def _softmax_batches(seed, count, n=256):
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(count):
+        logits = rng.rand(n, C).astype(np.float32)
+        out.append((logits / logits.sum(-1, keepdims=True), rng.randint(0, C, n)))
+    return out
+
+
+@pytest.mark.cuda
+def test_the_compiled_collection_replays_in_place_and_counts_its_launches(cuda_device):
+    """``jit_forward`` + ``warmup`` on the card: each forward one replay (B1
+    and B2 counted once per replay), the state tensors written where they
+    lie, every value equal to the CPU's, and a ``reset()`` copied into the
+    graph's tensors without a new capture."""
+    card = T.MetricCollection(_compiled_members(cuda_device)).jit_forward()
+    host = T.MetricCollection(_compiled_members("cpu"))
+    batches = _softmax_batches(3, 6)
+    card.warmup(_t(batches[0][0]).to(cuda_device), _t(batches[0][1]).to(cuda_device))
+    ptr = card["Precision"].tp.data_ptr()
+    _common.reset_dispatch_counters()
+    for i, (p, t) in enumerate(batches):
+        if i == 3:
+            card.reset()
+            host.reset()
+        got = card(_t(p).to(cuda_device), _t(t).to(cuda_device))
+        want = host(_t(p), _t(t))
+        for name, value in want.items():
+            assert torch.allclose(got[name].cpu().float(), value.float(), atol=1e-6, rtol=0), name
+    torch.cuda.synchronize()
+    assert _common.launch_count("stat_scores_counts") == 6 and _common.launch_count("confmat_counts") == 6
+    assert card._jit_forward_fn.cache_info() == {"entries": 1, "hits": 6, "misses": 1}
+    assert card["Precision"].tp.data_ptr() == ptr and card["Recall"].tp is card["Precision"].tp
+    for name, value in host.compute().items():
+        assert torch.allclose(card.compute()[name].cpu().float(), value.float(), atol=1e-6, rtol=0), name
+
+
+@pytest.mark.cuda
+def test_a_graph_captured_while_a_serving_flusher_runs(cuda_device):
+    """The capture's thread-local mode: while the admission queue's flusher
+    thread dispatches keyed updates on the card, this thread captures (and
+    replays) the compiled collection; neither fails, and both states equal
+    the CPU's after the same rows."""
+    from metrics_tpu_torch.serving import AdmissionQueue
+
+    n, batch = 40, 128
+    keyed = T.MultiTenantCollection(_members(device=cuda_device), n, validate_ids=False, device=cuda_device)
+    keyed_host = T.MultiTenantCollection(_members(device="cpu"), n, validate_ids=False, device="cpu")
+    col = T.MetricCollection(_compiled_members(cuda_device)).jit_forward()
+    col_host = T.MetricCollection(_compiled_members("cpu"))
+    batches = _softmax_batches(4, 8)
+    q = AdmissionQueue(keyed.update, max_batch=batch, max_delay_ms=1.0)
+    try:
+        for k, (ids, preds, target) in enumerate(_keyed_cohorts(6, [batch] * 16, n)):
+            q.submit_many(ids, preds, target)
+            keyed_host.update(_t(ids), _t(preds), _t(target))
+            if k < len(batches):
+                p, t = batches[k]
+                if k in (0, 5):  # a capture while the flusher works (batch 5 is one row short)
+                    p, t = (p, t) if k == 0 else (p[:-1], t[:-1])
+                    col.warmup(_t(p).to(cuda_device), _t(t).to(cuda_device))
+                col(_t(p).to(cuda_device), _t(t).to(cuda_device))
+                col_host(_t(p), _t(t))
+        assert q.drain(timeout=60)
+        stats = q.stats()
+    finally:
+        q.close(timeout=10)
+    torch.cuda.synchronize()
+    assert stats["last_error"] is None and stats["dispatched"] == 16 * batch
+    for owner, km in keyed_host._keyed.items():
+        for name, value in km._get_states().items():
+            assert torch.equal(getattr(keyed._keyed[owner], name).cpu(), value)
+    assert col._jit_forward_fn.cache_info()["misses"] == 2
+    for name, value in col_host.compute().items():
+        assert torch.allclose(col.compute()[name].cpu().float(), value.float(), atol=1e-6, rtol=0), name
+
+
+@pytest.mark.cuda
+def test_the_compiled_keyed_update_and_capacity_mode_on_the_card_match_the_cpu(cuda_device):
+    n = 50
+    card = T.MultiTenantCollection(_members(device=cuda_device), n, validate_ids=False, device=cuda_device)
+    host = T.MultiTenantCollection(_members(device="cpu"), n, validate_ids=False, device="cpu")
+    cohorts = _keyed_cohorts(7, [256] * 6, n)
+    ids, preds, target = (np.stack([c[j] for c in cohorts[:3]]) for j in range(3))
+    card.warmup(*(_t(x[0]).to(cuda_device) for x in (ids, preds, target)))
+    card.update_many(*(_t(x).to(cuda_device) for x in (ids, preds, target)))
+    for c in cohorts[3:]:
+        card.update(*(_t(x).to(cuda_device) for x in c))
+    for c in cohorts:
+        host.update(*(_t(x) for x in c))
+    torch.cuda.synchronize()
+    for owner, km in host._keyed.items():
+        for name, value in km._get_states().items():
+            assert torch.equal(getattr(card._keyed[owner], name).cpu(), value)
+    assert card.tenant_report()["rows_routed"] == host.tenant_report()["rows_routed"]
+    rng = np.random.RandomState(8)
+    auroc = T.AUROC(capacity=5000, device=cuda_device).jit_forward()
+    auroc_host = T.AUROC(capacity=5000, device="cpu")
+    for _ in range(4):
+        s = rng.rand(1000).astype(np.float32)
+        l = (rng.rand(1000) < s).astype(np.int64)
+        got = auroc(_t(s).to(cuda_device), _t(l).to(cuda_device))
+        want = auroc_host(_t(s), _t(l))
+        assert abs(float(got) - float(want)) <= 1e-6
+    assert torch.equal(auroc.buf.cpu(), auroc_host.buf) and int(auroc.count) == 4000
+    assert abs(float(auroc.compute()) - float(auroc_host.compute())) <= 1e-6

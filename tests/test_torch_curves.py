@@ -208,15 +208,28 @@ def test_sketched_forward_on_a_one_label_batch_raises_like_jax():
             m(conv(p), conv(t))
 
 
-def test_capacity_mode_is_not_ported_yet():
-    for name in ("AUROC", "AveragePrecision"):
-        with pytest.raises(NotImplementedError, match="queue A item 11"):
-            getattr(T, name)(capacity=64, **CPU)
-        with pytest.raises(NotImplementedError, match="queue A item 11"):
-            getattr(T, name)(overflow="error", **CPU)
-        with pytest.raises(ValueError, match="mutually exclusive"):
-            getattr(T, name)(capacity=64, sketched=True, **CPU)
-        getattr(T, name)(sketched=True, overflow="error", **CPU)  # ignored by the sketched mode, as in JAX
+@pytest.mark.parametrize("name", ["AUROC", "AveragePrecision"])
+@pytest.mark.parametrize("kind,kw", [
+    ("binary", {}),
+    ("multiclass", {"num_classes": 4}),
+    ("multilabel", {"num_classes": 4, "multilabel": True}),
+])
+@pytest.mark.parametrize("capacity", [500, 100])
+def test_capacity_mode_matches_jax(name, kind, kw, capacity):
+    """``capacity=`` (the fixed-size sample buffer) against the JAX package:
+    states, forward values and compute, within capacity and past it (the
+    drop-and-warn default); the modes' exclusions and the sketched mode's
+    indifference to ``overflow=`` as in JAX."""
+    port, ref = _pair(name, capacity=capacity, **kw)
+    _drive(port, ref, _batches(kind, seed=capacity), forward=True)
+    np.testing.assert_array_equal(port.buf.numpy(), np.asarray(ref.buf))
+    assert int(port.count) == int(ref.count) and port.count.dtype == torch.int32
+    _assert_close(port.compute(), ref.compute())
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        getattr(T, name)(capacity=64, sketched=True, **CPU)
+    getattr(T, name)(sketched=True, overflow="error", **CPU)  # ignored by the sketched mode, as in JAX
+    with pytest.raises(ValueError, match="overflow"):
+        getattr(T, name)(capacity=64, overflow="explode", **CPU)
 
 
 @pytest.mark.parametrize("kwargs,match", [

@@ -41,8 +41,11 @@ from metrics_tpu_torch.kernels import _common as tcommon
 
 CPU = {"device": "cpu"}
 C = 5
-#: the JAX package's counters of its compiled paths (no port counterpart yet)
-_COMPILE_COUNTERS = {"jit_forward_compiles", "update_traces", "compute_traces"}
+#: the JAX package's counters that these eager call sequences still set on
+#: its side only: every JAX keyed update compiles (``jit_forward_compiles``),
+#: where the port's keyed update stays eager until ``warmup``/``jit_forward``
+#: (ROADMAP queue C); ``compute_traces`` has no port counterpart yet
+_COMPILE_COUNTERS = {"jit_forward_compiles", "compute_traces"}
 
 
 @pytest.fixture(autouse=True)
