@@ -183,6 +183,40 @@ Phases, in order; any failure exits non-zero before the last line:
    forwards equals a synchronous ``compute()`` at that point and is not
    moved by the 24 forwards after it; the caller's time in each is printed,
    and the time of the clone (the snapshot) alone.
+3j. The regression slice (after 3h). (a) A stream of 1,000,000 seeded
+   float32 pairs in 100 chunks of 10,000 (log-normal targets, preds =
+   target * (1 + N(0, 0.1)) clipped at 0), one ``forward`` per chunk, through
+   ``MetricCollection({MSE, RMSE, MAE, MAPE, MSLE, ExplainedVariance,
+   R2Score, PearsonCorrcoef(), PearsonCorrcoef(streaming=True),
+   SpearmanCorrcoef(), SpearmanCorrcoef(capacity=1_000_000),
+   SpearmanCorrcoef(sketched=True, num_bins=512, value_range=(0, 8))})``
+   beside ``CosineSimilarity`` in both modes on (10,000, 128) embedding
+   chunks; ``compute()`` must equal the port on the CPU over the same chunks
+   (relative 1e-5 for float32 states, 1e-12 for float64; counts, the
+   capacity buffer and the grid exactly) and the float64 numpy/scipy oracle
+   (relative 1e-4); the sketched rho within 1e-2 of the exact one; no kernel
+   launches. The tie groups of the 1,000,000 sorted preds by the port's
+   cumsum and scatter against ``torch.cummax``/``cummin`` (equal, both
+   timed). Then the 10 fixed-state members and streaming cosine under
+   ``jit_forward`` + ``warmup``, interleaved call by call with a fresh eager
+   run (every on-step value and state equal; medians, capture time, idle
+   share), zero synchronizing calls in 10 compiled forwards and in one
+   ``update_many``, and ``update_many`` over 10 stacks of 10 chunks equal to
+   100 eager updates. (b) ``MultiTenantCollection([MSE, MAE,
+   PearsonCorrcoef(streaming=True)], 10,000)`` over phase 3b's 50 cohorts of
+   tenant ids with seeded pairs on a 2^-8 grid (every per-tenant sum of one
+   update exact in any order): B3 once per bundle per update (150), one
+   plain ``index_add_`` per bundle per update for the int64 and float64
+   leaves (150); the stacked states equal the CPU run's exactly and a float64
+   per-tenant numpy oracle (float32 leaves within 1e-5, the others exactly);
+   then ``warmup`` + ``update_many`` (K = 5): states equal, B3 150 through
+   the replays; the update median beside phase 3b's. (c) 50 batches of 16 x
+   3 x 512 x 512 images (preds = target + N(0, 0.05) clipped to [0, 1])
+   through ``SSIM(streaming=True, data_range=1.0)`` and
+   ``PSNR(data_range=1.0)``: the first 4 batches' values equal the CPU port's
+   within 1e-5, the buffered ``SSIM(data_range=1.0)`` equals the streaming
+   one on them; the per-batch median and the idle share of 10 batches.
+   ``regression_phase_main()`` runs 3j alone.
 5. One JSON line ``{"kernels": [...]}``, the card line again, and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -232,6 +266,18 @@ SOAK_PRODUCERS = 4
 SOAK_COHORT = 64
 SOAK_SECONDS = 10.0
 SOAK_READ_TENANTS = 16
+#: phase 3j: the regression stream of 1,000,000 pairs in chunks of 10,000
+#: (the binary stream's size), cosine over (10,000, 128) embedding chunks,
+#: the sketched Spearman's class default grid over the stream's range, and
+#: image quality over 800 crops of 512 x 512 (a super-resolution evaluation)
+REG_UPDATES = 100
+REG_CHUNK = 10_000
+REG_DIM = 128
+REG_BINS = 512
+REG_RANGE = (0.0, 8.0)
+IMG_BATCHES = 50
+IMG_BATCH = 16
+IMG_SIDE = 512
 
 
 def fail(message: str) -> None:
@@ -796,9 +842,9 @@ def compiled_phase(torch, M, dev, card) -> dict:
     return record
 
 
-def compiled_phase_main(record_path: str = "") -> int:
-    """Build the kernels and run :func:`compiled_phase` alone; with
-    ``record_path``, write its record there as JSON."""
+def _phase_alone(run, record_path: str) -> int:
+    """Build the kernels and run one phase, ``run(torch, M, dev, card)``,
+    alone; with ``record_path``, write its record there as JSON."""
     import torch
 
     import metrics_tpu_torch as M
@@ -810,12 +856,17 @@ def compiled_phase_main(record_path: str = "") -> int:
     card = card_line()
     print(card)
     _common.build_library()
-    record = compiled_phase(torch, M, torch.device("cuda", 0), card)
+    record = run(torch, M, torch.device("cuda", 0), card)
     if record_path:
         os.makedirs(os.path.dirname(os.path.abspath(record_path)), exist_ok=True)
         with open(record_path, "w") as fh:
             json.dump(record, fh, indent=1, default=str)
     return 0
+
+
+def compiled_phase_main(record_path: str = "") -> int:
+    """Run :func:`compiled_phase` alone (see :func:`_phase_alone`)."""
+    return _phase_alone(compiled_phase, record_path)
 
 
 def make_batches(torch, device):
@@ -1636,6 +1687,481 @@ def serving_soak(torch, M, dev, staging, card) -> dict:
     return out
 
 
+
+# --------------------------------------------------------------------------
+# phase 3j: the regression slice
+# --------------------------------------------------------------------------
+
+
+def build_regression(M, device):
+    """The regression stream's collection: every mode of the family that
+    takes (N,) pairs."""
+    return M.MetricCollection({
+        "MSE": M.MeanSquaredError(device=device),
+        "RMSE": M.MeanSquaredError(squared=False, device=device),
+        "MAE": M.MeanAbsoluteError(device=device),
+        "MAPE": M.MeanAbsolutePercentageError(device=device),
+        "MSLE": M.MeanSquaredLogError(device=device),
+        "ExplainedVariance": M.ExplainedVariance(device=device),
+        "R2Score": M.R2Score(device=device),
+        "Pearson": M.PearsonCorrcoef(device=device),
+        "PearsonStreaming": M.PearsonCorrcoef(streaming=True, device=device),
+        "Spearman": M.SpearmanCorrcoef(device=device),
+        "SpearmanCapacity": M.SpearmanCorrcoef(capacity=REG_UPDATES * REG_CHUNK, device=device),
+        "SpearmanSketched": M.SpearmanCorrcoef(sketched=True, num_bins=REG_BINS, value_range=REG_RANGE,
+                                               device=device),
+    })
+
+
+#: the members whose state is fixed-shape, which the compiled step takes
+REG_FIXED = ("MSE", "RMSE", "MAE", "MAPE", "MSLE", "ExplainedVariance", "R2Score", "PearsonStreaming",
+             "SpearmanCapacity", "SpearmanSketched")
+
+
+def build_regression_fixed(M, device):
+    full = build_regression(M, device)
+    return M.MetricCollection({name: full[name] for name in REG_FIXED})
+
+
+def make_regression_stream(torch, device):
+    """100 seeded chunks of 10,000 float32 pairs: log-normal targets (so MAPE
+    and MSLE are defined), preds = target * (1 + N(0, 0.1)) clipped at 0;
+    and 100 chunks of (10,000, 128) embeddings, preds = target + N(0, 0.5)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 10)
+    pairs, embeddings = [], []
+    for _ in range(REG_UPDATES):
+        target = torch.exp(0.5 * torch.randn(REG_CHUNK, generator=gen, device=device))
+        noise = torch.randn(REG_CHUNK, generator=gen, device=device)
+        pairs.append((torch.clamp(target * (1 + 0.1 * noise), min=0.0), target))
+        emb_t = torch.randn((REG_CHUNK, REG_DIM), generator=gen, device=device)
+        emb_p = emb_t + 0.5 * torch.randn((REG_CHUNK, REG_DIM), generator=gen, device=device)
+        embeddings.append((emb_p, emb_t))
+    return pairs, embeddings
+
+
+def _rel_diff(got: float, want: float) -> float:
+    return abs(got - want) / max(abs(want), 1e-30)
+
+
+def _regression_oracle(np, preds, target):
+    """The float64 numpy/scipy values of the stream's metrics."""
+    from scipy.stats import pearsonr, spearmanr
+
+    p, t = preds.astype(np.float64), target.astype(np.float64)
+    diff = t - p
+    mse = float(np.mean(diff ** 2))
+    pearson = float(pearsonr(p, t).statistic)
+    spearman = float(spearmanr(p, t).statistic)
+    return {
+        "MSE": mse, "RMSE": float(np.sqrt(mse)), "MAE": float(np.mean(np.abs(diff))),
+        "MAPE": float(np.mean(np.abs(diff) / np.clip(np.abs(t), 1.17e-06, None))),
+        "MSLE": float(np.mean((np.log1p(p) - np.log1p(t)) ** 2)),
+        "ExplainedVariance": float(1 - np.var(diff) / np.var(t)),
+        "R2Score": float(1 - np.sum(diff ** 2) / np.sum((t - t.mean()) ** 2)),
+        "Pearson": pearson, "PearsonStreaming": pearson, "Spearman": spearman, "SpearmanCapacity": spearman,
+    }
+
+
+def _keyed_regression_cohorts(torch, keyed_batches, device):
+    """Phase 3b's 50 cohorts of tenant ids with seeded float32 (preds,
+    target) on a 2^-8 grid in [0, 4): every per-tenant sum of one update is
+    exact in float32 and float64 in any order, so the card's atomics (whose
+    order changes from run to run) and the CPU's loop give the same bits."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 11)
+
+    def grid(x):
+        return torch.clamp(torch.floor(x * 256) / 256, 0.0, 4.0 - 1 / 256)
+
+    cohorts = []
+    for ids, _, _ in keyed_batches:
+        target = torch.exp(0.5 * torch.randn(KEYED_ROWS, generator=gen, device=device))
+        preds = target * (1 + 0.1 * torch.randn(KEYED_ROWS, generator=gen, device=device))
+        cohorts.append((ids, grid(preds), grid(target)))
+    return cohorts
+
+
+def _regression_stream(torch, np, M, dev, card, _common, record) -> list:
+    """Phase 3j-a: the stream through the 12 members and cosine, eagerly,
+    against the CPU port and the float64 oracle. Returns the chunks."""
+    pairs, embeddings = make_regression_stream(torch, dev)
+    coll = build_regression(M, dev)
+    cos = {"streaming": M.CosineSimilarity(reduction="mean", streaming=True, device=dev),
+           "buffered": M.CosineSimilarity(reduction="mean", device=dev)}
+    torch.cuda.synchronize()
+    _common.reset_dispatch_counters()
+    fwd_ms, cos_ms = [], []
+    for (preds, target), (emb_p, emb_t) in zip(pairs, embeddings):
+        t0 = time.perf_counter()
+        coll(preds, target)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for m in cos.values():
+            m(emb_p, emb_t)
+        torch.cuda.synchronize()
+        fwd_ms.append((t1 - t0) * 1e3)
+        cos_ms.append((time.perf_counter() - t1) * 1e3)
+    t0 = time.perf_counter()
+    out = coll.compute()
+    torch.cuda.synchronize()
+    compute_ms = (time.perf_counter() - t0) * 1e3
+    out.update({f"Cosine{k.title()}": m.compute() for k, m in cos.items()})
+    launches = {op: _common.launch_count(op) for op in KERNEL_OPS}
+    if any(launches.values()):
+        fail(f"[regression] a kernel launched on the regression stream, which has none: {launches}")
+    for name, value in out.items():
+        if value.shape != () or not bool(torch.isfinite(value)):
+            fail(f"[regression] {name}: {tuple(value.shape)} {value} is not a finite scalar")
+
+    # the port on the CPU over the same chunks
+    cpu = build_regression(M, "cpu")
+    cos_cpu = {k: M.CosineSimilarity(reduction="mean", streaming=(k == "streaming"), device="cpu") for k in cos}
+    for (preds, target), (emb_p, emb_t) in zip(pairs, embeddings):
+        cpu.update(preds.cpu(), target.cpu())
+        for m in cos_cpu.values():
+            m.update(emb_p.cpu(), emb_t.cpu())
+    cpu_out = cpu.compute()
+    cpu_out.update({f"Cosine{k.title()}": m.compute() for k, m in cos_cpu.items()})
+    diffs_cpu = {}
+    for name, value in out.items():
+        want = cpu_out[name]
+        if value.dtype != want.dtype:
+            fail(f"[regression] {name}: {value.dtype} on the card, {want.dtype} on the CPU")
+        diffs_cpu[name] = _rel_diff(float(value), float(want))
+        limit = 1e-12 if value.dtype == torch.float64 else 1e-5
+        if diffs_cpu[name] > limit:
+            fail(f"[regression] {name}: {float(value)} on the card, {float(want)} on the CPU (relative "
+                 f"{diffs_cpu[name]:.2e} > {limit})")
+    # the states: counts, the capacity buffer and the grid exactly, float64
+    # moments within 1e-12 (float32 sums are held through the values above)
+    for name, m in coll.items(keep_base=True):
+        for leaf, value in m._get_states().items():
+            if isinstance(value, list):
+                continue
+            want = getattr(cpu[name], leaf)
+            if value.dtype != want.dtype or value.shape != want.shape:
+                fail(f"[regression] state {name}.{leaf}: {value.dtype} {tuple(value.shape)} on the card, "
+                     f"{want.dtype} {tuple(want.shape)} on the CPU")
+            if not value.is_floating_point() or name in ("SpearmanCapacity", "SpearmanSketched"):
+                if not torch.equal(value.cpu(), want):
+                    fail(f"[regression] state {name}.{leaf} differs from the CPU's (counts and buffers exactly)")
+            elif value.dtype == torch.float64:
+                rel = float(((value.cpu() - want).abs() / want.abs().clamp(min=1e-30)).max())
+                if rel > 1e-12:
+                    fail(f"[regression] state {name}.{leaf} differs from the CPU's by {rel:.2e} (relative)")
+
+    # the float64 numpy/scipy oracle
+    oracle = _regression_oracle(np, torch.cat([p for p, _ in pairs]).cpu().numpy(),
+                                torch.cat([t for _, t in pairs]).cpu().numpy())
+    ep = torch.cat([p for p, _ in embeddings]).cpu().double().numpy()
+    et = torch.cat([t for _, t in embeddings]).cpu().double().numpy()
+    cos_oracle = float(np.mean(np.sum(ep * et, 1) / (np.linalg.norm(ep, axis=1) * np.linalg.norm(et, axis=1))))
+    del ep, et
+    oracle.update({"CosineStreaming": cos_oracle, "CosineBuffered": cos_oracle})
+    diffs_oracle = {name: _rel_diff(float(out[name]), want) for name, want in oracle.items()}
+    for name, d in diffs_oracle.items():
+        if d > 1e-4:
+            fail(f"[regression] {name}: {float(out[name])} on the card, float64 oracle {oracle[name]} "
+                 f"(relative {d:.2e})")
+    sketch_gap = abs(float(out["SpearmanSketched"]) - oracle["Spearman"])
+    if sketch_gap > 1e-2:
+        fail(f"[regression] sketched Spearman {float(out['SpearmanSketched'])} is {sketch_gap:.3e} from the exact "
+             f"{oracle['Spearman']} (limit 1e-2)")
+    clipped = float(coll["SpearmanSketched"].sketch_clipped)
+    prof = profile_steps(torch, coll, pairs[:10])
+    idle = 1 - prof["device_busy_ms"] / prof["wall_ms"]
+    print(f"[regression] {REG_UPDATES} forwards of {REG_CHUNK} pairs through 12 regression members on {card}: "
+          f"forward median {statistics.median(fwd_ms):.3f} ms (first {fwd_ms[0]:.3f} ms), compute "
+          f"{compute_ms:.3f} ms; cosine ({REG_CHUNK}, {REG_DIM}) both modes median {statistics.median(cos_ms):.3f} ms; "
+          f"launches {launches}; 10 forwards under the profiler: wall {prof['wall_ms']:.3f} ms, busy "
+          f"{prof['device_busy_ms']:.3f} ms (idle share {idle:.3f})")
+    print(f"[regression] values { {k: round(float(v), 8) for k, v in out.items()} }")
+    print(f"[regression] card == CPU port (max relative {max(diffs_cpu.values()):.2e}; float64 within 1e-12); == "
+          f"float64 oracle (max relative {max(diffs_oracle.values()):.2e}, limit 1e-4); sketched Spearman "
+          f"|rho - exact| {sketch_gap:.3e} (limit 1e-2, {clipped:.0f} clipped pairs)")
+    for row in prof["top_device"][:6]:
+        print(f"[regression]   {row['device_us']:10.1f} us  {row['calls']:4d} x  {row['name']}")
+    # the tie groups of the stream's 1,000,000 sorted preds: the port's cumsum
+    # and scatter against the running max/min scans the JAX package uses
+    from metrics_tpu_torch.utilities.data import tie_group_bounds
+
+    keys = torch.sort(torch.cat([p for p, _ in pairs])).values
+    changed = keys[1:] != keys[:-1]
+    idx = torch.arange(keys.numel(), device=dev)
+    n = keys.numel()
+
+    def scans():
+        one = torch.ones((1,), dtype=torch.bool, device=dev)
+        start = torch.cummax(torch.where(torch.cat([one, changed]), idx, 0), dim=0).values
+        end = torch.flip(torch.cummin(torch.flip(torch.where(torch.cat([changed, one]), idx, n - 1), (0,)), dim=0).values,
+                         (0,))
+        return start, end
+
+    if not all(torch.equal(a, b) for a, b in zip(tie_group_bounds(changed), scans())):
+        fail("[regression] the port's tie groups differ from the running max/min scans")
+    tie_ms = {"cumsum_scatter": cuda_ms(lambda: tie_group_bounds(changed), reps=20),
+              "cummax_cummin": cuda_ms(scans, reps=20)}
+    print(f"[regression] tie groups of {n} sorted keys: cumsum + scatter {tie_ms['cumsum_scatter']:.3f} ms, "
+          f"cummax + cummin {tie_ms['cummax_cummin']:.3f} ms (equal results)")
+    record["stream"] = {"tie_groups_ms": tie_ms, "forward_ms": fwd_ms, "cosine_ms": cos_ms, "compute_ms": compute_ms,
+                        "values": {k: float(v) for k, v in out.items()}, "oracle": oracle,
+                        "rel_diff_vs_cpu": diffs_cpu, "rel_diff_vs_oracle": diffs_oracle,
+                        "sketch_gap": sketch_gap, "sketch_clipped": clipped, "profile": prof}
+    return pairs, embeddings
+
+
+def _regression_compiled(torch, M, dev, card, pairs, embeddings, record) -> None:
+    """Phase 3j-a, compiled: the fixed-state members (and streaming cosine)
+    under ``jit_forward`` against a fresh eager run, call by call, and
+    ``update_many`` against eager updates."""
+    eager = build_regression_fixed(M, dev)
+    comp = build_regression_fixed(M, dev).jit_forward()
+    cos_eager = M.CosineSimilarity(reduction="mean", streaming=True, device=dev)
+    cos_comp = M.CosineSimilarity(reduction="mean", streaming=True, device=dev).jit_forward()
+    start = time.perf_counter()
+    comp.warmup(*pairs[0])
+    cos_comp.warmup(*embeddings[0])
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - start) * 1e3
+    e_ms, c_ms = [], []
+    for i, ((preds, target), emb) in enumerate(zip(pairs, embeddings)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = eager(preds, target)
+        cos_want = cos_eager(*emb)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = comp(preds, target)
+        cos_got = cos_comp(*emb)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        e_ms.append((t1 - t0) * 1e3)
+        c_ms.append((t2 - t1) * 1e3)
+        for name, value in want.items():
+            if not torch.equal(got[name], value):
+                fail(f"[regression] compiled step {i} {name}: {got[name]} against eager {value}")
+        if not torch.equal(cos_got, cos_want):
+            fail(f"[regression] compiled step {i} cosine: {cos_got} against eager {cos_want}")
+    for name, m in eager.items(keep_base=True):
+        _states_equal(torch, f"regression {name}", comp[name], m)
+    _states_equal(torch, "regression cosine", cos_comp, cos_eager)
+    syncs = sync_calls(torch, lambda: [comp(*pairs[k]) for k in range(10)])
+    syncs += sync_calls(torch, lambda: [cos_comp(*embeddings[k]) for k in range(10)])
+    if syncs:
+        fail(f"[regression] 10 compiled forwards made {len(syncs)} synchronizing calls: {syncs[:5]}")
+    prof = profile_steps(torch, comp, pairs[:10])
+    # update_many: 10 stacked groups of 10 chunks; a first pass captures, then reset() and the counted pass
+    many = build_regression_fixed(M, dev)
+    stacks = [(torch.stack([p for p, _ in pairs[k:k + 10]]), torch.stack([t for _, t in pairs[k:k + 10]]))
+              for k in range(0, REG_UPDATES, 10)]
+    many.update_many(*stacks[0])
+    many.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for stacked in stacks:
+        many.update_many(*stacked)
+    torch.cuda.synchronize()
+    many_ms = (time.perf_counter() - t0) * 1e3 / len(stacks)
+    check = build_regression_fixed(M, dev)
+    for preds, target in pairs:
+        check.update(preds, target)
+    for name, m in check.items(keep_base=True):
+        _states_equal(torch, f"regression update_many {name}", many[name], m)
+    many_syncs = sync_calls(torch, lambda: many.update_many(*stacks[0]))
+    if many_syncs:
+        fail(f"[regression] update_many made {len(many_syncs)} synchronizing calls: {many_syncs[:5]}")
+    e_med, c_med = statistics.median(e_ms), statistics.median(c_ms)
+    idle = 1 - prof["device_busy_ms"] / prof["wall_ms"]
+    print(f"[regression] the {len(REG_FIXED)} fixed-state members + streaming cosine, eager and compiled "
+          f"interleaved over {REG_UPDATES} chunks on {card}: eager median {e_med:.3f} ms, compiled median "
+          f"{c_med:.3f} ms (ratio {c_med / e_med:.3f}); capture {warm_ms:.1f} ms; every on-step value and state "
+          f"== eager; 0 synchronizing calls in 10 compiled forwards and in one update_many; update_many (K = 10) "
+          f"{many_ms:.3f} ms a call, states == {REG_UPDATES} eager updates; 10 compiled forwards under the "
+          f"profiler: wall {prof['wall_ms']:.3f} ms, busy {prof['device_busy_ms']:.3f} ms (idle share {idle:.3f})")
+    record["compiled"] = {"eager_ms": e_ms, "compiled_ms": c_ms, "capture_ms": warm_ms, "update_many_ms": many_ms,
+                          "profile": prof}
+
+
+def _regression_keyed(torch, np, M, dev, card, _common, keyed_batches, keyed_update_ms, record) -> None:
+    """Phase 3j-b: the keyed regression update on phase 3b's cohorts, against
+    the CPU port and a float64 per-tenant oracle, eager and through
+    ``update_many``."""
+    cohorts = _keyed_regression_cohorts(torch, keyed_batches, dev)
+
+    def build(device):
+        return M.MultiTenantCollection([M.MeanSquaredError(device=device), M.MeanAbsoluteError(device=device),
+                                        M.PearsonCorrcoef(streaming=True, device=device)], KEYED_TENANTS,
+                                       validate_ids=False, device=device)
+
+    kgpu = build(dev)
+    torch.cuda.synchronize()
+    _common.reset_dispatch_counters()
+    k_ms = []
+    for ids, preds, target in cohorts:
+        t0 = time.perf_counter()
+        kgpu.update(ids, preds, target)
+        torch.cuda.synchronize()
+        k_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {op: _common.launch_count(op) for op in KERNEL_OPS}
+    plain = _common.dispatch_count("segment_scatter_add", "plain")
+    bundles = kgpu.state_bundles
+    expected = {op: (bundles * KEYED_UPDATES if op == "segment_scatter_add" else 0) for op in KERNEL_OPS}
+    if launches != expected or plain != bundles * KEYED_UPDATES:
+        fail(f"[keyed regression] launches {launches} and {plain} plain scatters, expected {expected} and "
+             f"{bundles * KEYED_UPDATES}: one B3 launch and one plain scatter per bundle per update")
+    kcpu = build("cpu")
+    for ids, preds, target in cohorts:
+        kcpu.update(ids.cpu(), preds.cpu(), target.cpu())
+    # the float64 per-tenant oracle over the valid ids
+    host = [tuple(x.cpu().numpy() for x in c) for c in cohorts]
+    ids_all = np.concatenate([c[0] for c in host])
+    valid = (ids_all >= 0) & (ids_all < KEYED_TENANTS)
+    ids_v = ids_all[valid]
+    p_v = np.concatenate([c[1] for c in host]).astype(np.float64)[valid]
+    t_v = np.concatenate([c[2] for c in host]).astype(np.float64)[valid]
+
+    def per_tenant(values):
+        acc = np.zeros(KEYED_TENANTS, np.float64)
+        np.add.at(acc, ids_v, values)
+        return acc
+
+    count = per_tenant(np.ones_like(p_v))
+    oracle = {"MeanSquaredError": {"sum_squared_error": per_tenant((p_v - t_v) ** 2), "total": count},
+              "MeanAbsoluteError": {"sum_abs_error": per_tenant(np.abs(p_v - t_v)), "total": count},
+              "PearsonCorrcoef": {"n_total": count, "sum_x": per_tenant(p_v), "sum_y": per_tenant(t_v),
+                                  "sum_xx": per_tenant(p_v * p_v), "sum_yy": per_tenant(t_v * t_v),
+                                  "sum_xy": per_tenant(p_v * t_v)}}
+    dtypes = {}
+    for owner, km in kgpu._keyed.items():
+        for name, value in km._get_states().items():
+            want_cpu = getattr(kcpu._keyed[owner], name)
+            dtypes[f"{owner}.{name}"] = str(value.dtype).replace("torch.", "")
+            if value.dtype != want_cpu.dtype or not torch.equal(value.cpu(), want_cpu):
+                fail(f"[keyed regression] {owner}.{name} ({value.dtype}) on the card differs from the CPU's")
+            got, want = value.cpu().double().numpy(), oracle[owner][name]
+            if value.dtype == torch.float32:
+                rel = float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-30)))
+                if rel > 1e-5:
+                    fail(f"[keyed regression] {owner}.{name} differs from the float64 oracle by {rel:.2e} (relative)")
+            elif not np.array_equal(got, want):
+                fail(f"[keyed regression] {owner}.{name} ({value.dtype}) differs from the float64 oracle")
+    values, values_cpu = kgpu.compute(), kcpu.compute()
+    for name, value in values.items():
+        got = value.cpu()
+        if not torch.equal(got.isnan(), values_cpu[name].isnan()) or float(
+                torch.nan_to_num(got - values_cpu[name]).abs().max()) > 1e-6:
+            fail(f"[keyed regression] per-tenant {name} on the card differs from the CPU's")
+    # warmup + update_many, K = 5: a first pass captures, then reset() and the counted pass
+    kmany = build(dev)
+    stacks = [tuple(torch.stack([c[j] for c in cohorts[k:k + 5]]) for j in range(3))
+              for k in range(0, KEYED_UPDATES, 5)]
+    kmany.warmup(*cohorts[0])
+    kmany.update_many(*stacks[0])
+    kmany.reset()
+    torch.cuda.synchronize()
+    _common.reset_dispatch_counters()
+    t0 = time.perf_counter()
+    for stacked in stacks:
+        kmany.update_many(*stacked)
+    torch.cuda.synchronize()
+    many_ms = (time.perf_counter() - t0) * 1e3 / KEYED_UPDATES
+    many_launches = _common.launch_count("segment_scatter_add")
+    if many_launches != bundles * KEYED_UPDATES:
+        fail(f"[keyed regression] B3 launched {many_launches} times through the update_many replays, expected "
+             f"{bundles * KEYED_UPDATES}")
+    for owner, km in kgpu._keyed.items():
+        _states_equal(torch, f"keyed regression update_many {owner}", kmany._keyed[owner], km)
+    print(f"[keyed regression] MultiTenantCollection([MSE, MAE, Pearson(streaming)], {KEYED_TENANTS}) on {card}: "
+          f"{KEYED_UPDATES} updates of {KEYED_ROWS} rows, median {statistics.median(k_ms):.3f} ms (phase 3b's keyed "
+          f"update {keyed_update_ms:.3f} ms); {bundles} bundles; launches {launches}, {plain} plain scatters "
+          f"(leaf dtypes {dtypes}); states == CPU exactly and == float64 oracle (float32 leaves within 1e-5, the "
+          f"others exactly); update_many K = 5 {many_ms:.3f} ms a cohort, B3 {many_launches} through the replays, "
+          f"states == eager")
+    record["keyed"] = {"update_ms": k_ms, "keyed_3b_median_ms": keyed_update_ms, "launches": launches,
+                       "plain_scatters": plain, "bundles": bundles, "leaf_dtypes": dtypes,
+                       "update_many_ms_per_cohort": many_ms, "update_many_launches": many_launches}
+
+
+def _regression_images(torch, M, dev, card, record) -> None:
+    """Phase 3j-c: SSIM(streaming) and PSNR over 50 batches of 16 crops of
+    512 x 512, the first 4 batches against the CPU port, buffered SSIM
+    against streaming."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 12)
+    shape = (IMG_BATCH, 3, IMG_SIDE, IMG_SIDE)
+    images = []
+    for _ in range(IMG_BATCHES):
+        target = torch.rand(shape, generator=gen, device=dev)
+        images.append((torch.clamp(target + 0.05 * torch.randn(shape, generator=gen, device=dev), 0.0, 1.0), target))
+    ssim = M.SSIM(streaming=True, data_range=1.0, device=dev)
+    psnr = M.PSNR(data_range=1.0, device=dev)
+    torch.cuda.synchronize()
+    img_ms, values = [], []
+    for preds, target in images:
+        t0 = time.perf_counter()
+        values.append((ssim(preds, target), psnr(preds, target)))
+        torch.cuda.synchronize()
+        img_ms.append((time.perf_counter() - t0) * 1e3)
+    out = {"SSIM": ssim.compute(), "PSNR": psnr.compute()}
+    for name, value in out.items():
+        if value.shape != () or not bool(torch.isfinite(value)):
+            fail(f"[image] {name}: {value} is not a finite scalar")
+    ssim_cpu = M.SSIM(streaming=True, data_range=1.0, device="cpu")
+    psnr_cpu = M.PSNR(data_range=1.0, device="cpu")
+    diffs = []
+    for i, (preds, target) in enumerate(images[:4]):
+        want = (ssim_cpu(preds.cpu(), target.cpu()), psnr_cpu(preds.cpu(), target.cpu()))
+        for name, got, w in zip(("SSIM", "PSNR"), values[i], want):
+            diffs.append(abs(float(got) - float(w)))
+            if got.dtype != w.dtype or diffs[-1] > 1e-5:
+                fail(f"[image] batch {i} {name}: {float(got)} {got.dtype} on the card, {float(w)} {w.dtype} on the CPU")
+    buffered = M.SSIM(data_range=1.0, device=dev)
+    streaming = M.SSIM(streaming=True, data_range=1.0, device=dev)
+    for preds, target in images[:4]:
+        buffered.update(preds, target)
+        streaming.update(preds, target)
+    buf_value, stream_value = float(buffered.compute()), float(streaming.compute())
+    buf_gap = abs(buf_value - stream_value)
+    if buf_gap > 1e-5:
+        fail(f"[image] the buffered SSIM {buf_value} differs from the streaming {stream_value}")
+    del buffered, streaming
+    prof = profile_steps(torch, lambda p, t: (ssim(p, t), psnr(p, t)), images[:10])
+    idle = 1 - prof["device_busy_ms"] / prof["wall_ms"]
+    print(f"[image] {IMG_BATCHES} batches of {IMG_BATCH} x 3 x {IMG_SIDE} x {IMG_SIDE} through SSIM(streaming) + PSNR "
+          f"on {card}: median {statistics.median(img_ms):.3f} ms a batch (first {img_ms[0]:.3f} ms); SSIM "
+          f"{float(out['SSIM']):.6f}, PSNR {float(out['PSNR']):.4f} dB; first 4 batches == CPU port (max |diff| "
+          f"{max(diffs):.2e}); buffered SSIM == streaming (|diff| {buf_gap:.2e}); 10 batches under the profiler: "
+          f"wall {prof['wall_ms']:.3f} ms, busy {prof['device_busy_ms']:.3f} ms (idle share {idle:.3f})")
+    for row in prof["top_device"][:6]:
+        print(f"[image]   {row['device_us']:10.1f} us  {row['calls']:4d} x  {row['name']}")
+    record["image"] = {"batch_ms": img_ms, "values": {k: float(v) for k, v in out.items()},
+                       "max_abs_diff_vs_cpu": max(diffs), "buffered_gap": buf_gap, "profile": prof}
+
+
+def regression_phase(torch, M, dev, card, keyed_batches, keyed_update_ms) -> dict:
+    """Phase 3j: the regression slice at full width (see the module
+    docstring): (a) the regression stream, eager and compiled; (b) the keyed
+    regression update; (c) image quality."""
+    import numpy as np
+
+    from metrics_tpu_torch.kernels import _common
+
+    record = {}
+    pairs, embeddings = _regression_stream(torch, np, M, dev, card, _common, record)
+    _regression_compiled(torch, M, dev, card, pairs, embeddings, record)
+    del pairs, embeddings
+    _regression_keyed(torch, np, M, dev, card, _common, keyed_batches, keyed_update_ms, record)
+    _regression_images(torch, M, dev, card, record)
+    return record
+
+
+def regression_phase_main(record_path: str = "") -> int:
+    """Run :func:`regression_phase` alone (see :func:`_phase_alone`); phase
+    3b's keyed update is not timed then, and its median prints as 0."""
+    return _phase_alone(lambda torch, M, dev, card: regression_phase(
+        torch, M, dev, card, make_keyed_batches(torch, dev), 0.0), record_path)
+
 def compute_async_phase(torch, M, dev, batches, card) -> dict:
     """Phase 3h-c: ``compute_async`` of the ImageNet-1k collection after 25 of
     its 49 forwards against a synchronous ``compute()`` at that point."""
@@ -2284,6 +2810,9 @@ def main() -> int:
         "compute_async": compute_async_phase(torch, M, dev, batches, card),
     }
 
+    # -- 3j. the regression slice ---------------------------------------------------
+    record["regression"] = regression_phase(torch, M, dev, card, keyed_batches, statistics.median(update_ms))
+
     # -- 4. times at the main-path shapes ------------------------------------
     preds, target = batches[0]
     canon_p, canon_t, _ = _input_format_classification(preds, target)
@@ -2498,6 +3027,13 @@ def main() -> int:
                 **{f"replay_{path}": serving["replay"][path]["launches"][entry["name"]] for path in ("unstaged", "staged", "prefetched")},
                 **{run: serving[run]["launches"][entry["name"]] for run in ("soak_unstaged", "soak_staged")},
             }
+    # B3 on the regression slice's keyed path (phase 3j-b): eager and through the update_many replays
+    regression = record["regression"]["keyed"]
+    for entry in kernels:
+        if entry["name"] == "segment_scatter_add":
+            entry["regression_launches"] = {"eager": regression["launches"]["segment_scatter_add"],
+                                            "update_many": regression["update_many_launches"],
+                                            "plain_scatters": regression["plain_scatters"]}
     record["kernels"] = kernels
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)

@@ -23,9 +23,15 @@ collective spans, ``snapshot()``, ``render_prometheus()``), and the serving
 plane (``serving``: ``AdmissionQueue``, ``SLOScheduler``, the staging ring;
 ``compute_async`` on the background engine of ``utilities/async_sync.py``;
 ``resilience``: ``RetryPolicy``, ``DeadlineBudget``, ``CircuitBreaker``),
-and the compiled step (``jit_forward``, ``warmup``, ``update_many``: one
+the compiled step (``jit_forward``, ``warmup``, ``update_many``: one
 CUDA graph per input signature, replayed over the metric's own state; the
-curves' ``capacity=`` mode, ``BufferOverflowError``).
+curves' ``capacity=`` mode, ``BufferOverflowError``), and the regression
+family (``MeanSquaredError``, ``MeanAbsoluteError``,
+``MeanAbsolutePercentageError``, ``MeanSquaredLogError``,
+``ExplainedVariance``, ``R2Score``, ``PearsonCorrcoef``,
+``CosineSimilarity`` and ``SpearmanCorrcoef``, with their streaming,
+``capacity=`` and ``sketched=True`` modes) with the image metrics ``PSNR``
+and ``SSIM``.
 """
 from metrics_tpu_torch.average import AverageMeter  # noqa: F401
 from metrics_tpu_torch.classification import (  # noqa: F401
@@ -53,7 +59,19 @@ from metrics_tpu_torch.classification import (  # noqa: F401
     StatScores,
 )
 from metrics_tpu_torch.collections import MetricCollection  # noqa: F401
+from metrics_tpu_torch.image import PSNR, SSIM  # noqa: F401
 from metrics_tpu_torch.metric import CompositionalMetric, Metric  # noqa: F401
+from metrics_tpu_torch.regression import (  # noqa: F401
+    CosineSimilarity,
+    ExplainedVariance,
+    MeanAbsoluteError,
+    MeanAbsolutePercentageError,
+    MeanSquaredError,
+    MeanSquaredLogError,
+    PearsonCorrcoef,
+    R2Score,
+    SpearmanCorrcoef,
+)
 from metrics_tpu_torch.utilities.capped_buffer import BufferOverflowError  # noqa: F401
 from metrics_tpu_torch.wrappers import KeyedMetric, MultiTenantCollection  # noqa: F401
 from metrics_tpu_torch import serving  # noqa: F401 E402

@@ -775,6 +775,19 @@ class MetricCollection:
             for _, m in self.items(keep_base=True):
                 m.reset()
 
+    def keyed(self, num_tenants: int, **kwargs: Any) -> Any:
+        """An N-tenant stacked view of this collection (``collections.py:1148``):
+        a :class:`~metrics_tpu_torch.wrappers.multitenant.MultiTenantCollection`
+        holding one stacked state bundle per compute-group layout entry, all
+        advanced by one update per batch, on the members' device unless
+        ``device=`` says otherwise. State starts at the defaults."""
+        from metrics_tpu_torch.wrappers.multitenant import MultiTenantCollection
+
+        first = next(iter(self.values()), None)
+        if first is not None:
+            kwargs.setdefault("device", first.device)
+        return MultiTenantCollection(self, num_tenants, **kwargs)
+
     def clone(self, prefix: Optional[str] = None, postfix: Optional[str] = None) -> "MetricCollection":
         mc = deepcopy(self)
         if prefix:

@@ -1,0 +1,77 @@
+"""Explained variance.
+
+Counterpart of ``metrics_tpu/functional/regression/explained_variance.py``:
+streaming moment sums, with the zero-variance policies as ``where`` selects.
+"""
+from typing import Sequence, Tuple, Union
+
+import torch
+
+from metrics_tpu_torch.utilities.checks import _check_same_shape
+from metrics_tpu_torch.utilities.data import Tensor
+
+
+def _explained_variance_update(preds: Tensor, target: Tensor) -> Tuple[int, Tensor, Tensor, Tensor, Tensor]:
+    _check_same_shape(preds, target)
+    n_obs = preds.shape[0]
+    diff = target - preds
+    sum_error = torch.sum(diff, dim=0)
+    sum_squared_error = torch.sum(diff * diff, dim=0)
+    sum_target = torch.sum(target, dim=0)
+    sum_squared_target = torch.sum(target * target, dim=0)
+    return n_obs, sum_error, sum_squared_error, sum_target, sum_squared_target
+
+
+def _explained_variance_compute(
+    n_obs: Union[int, Tensor],
+    sum_error: Tensor,
+    sum_squared_error: Tensor,
+    sum_target: Tensor,
+    sum_squared_target: Tensor,
+    multioutput: str = "uniform_average",
+) -> Union[Tensor, Sequence[Tensor]]:
+    diff_avg = sum_error / n_obs
+    numerator = sum_squared_error / n_obs - diff_avg * diff_avg
+
+    target_avg = sum_target / n_obs
+    denominator = sum_squared_target / n_obs - target_avg * target_avg
+
+    nonzero_numerator = numerator != 0
+    nonzero_denominator = denominator != 0
+    valid_score = nonzero_numerator & nonzero_denominator
+    # perfect predictions (num == 0) score 1; zero-variance targets with errors score 0
+    output_scores = torch.where(
+        valid_score,
+        1.0 - numerator / torch.where(valid_score, denominator, torch.ones_like(denominator)),
+        torch.where(nonzero_numerator & ~nonzero_denominator, torch.zeros_like(diff_avg), torch.ones_like(diff_avg)),
+    )
+
+    if multioutput == "raw_values":
+        return output_scores
+    if multioutput == "uniform_average":
+        return torch.mean(output_scores)
+    if multioutput == "variance_weighted":
+        denom_sum = torch.sum(denominator)
+        return torch.sum(denominator / denom_sum * output_scores)
+    raise ValueError(f"Invalid `multioutput` {multioutput!r}")
+
+
+def explained_variance(
+    preds: Tensor,
+    target: Tensor,
+    multioutput: str = "uniform_average",
+) -> Union[Tensor, Sequence[Tensor]]:
+    """Explained variance ``1 - Var[y - y_hat] / Var[y]``.
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch.functional import explained_variance
+        >>> target = torch.tensor([3, -0.5, 2, 7])
+        >>> preds = torch.tensor([2.5, 0.0, 2, 8])
+        >>> print(f"{explained_variance(preds, target):.4f}")
+        0.9572
+    """
+    n_obs, sum_error, sum_squared_error, sum_target, sum_squared_target = _explained_variance_update(preds, target)
+    return _explained_variance_compute(
+        n_obs, sum_error, sum_squared_error, sum_target, sum_squared_target, multioutput
+    )

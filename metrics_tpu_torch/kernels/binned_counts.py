@@ -166,7 +166,8 @@ def load_width(c: int, k: int, address: int) -> int:
 
 def _bin_index(x: Tensor, num_bins: int, lo: float, hi: float) -> Tensor:
     """int64 bin of each float32 score; NaN goes to bin 0."""
-    span = torch.tensor(hi - lo, dtype=torch.float32, device=x.device)
+    # a fill on the device (no copy from the host, so it can be captured)
+    span = torch.full((), hi - lo, dtype=torch.float32, device=x.device)
     raw = torch.floor((x - lo) / span * num_bins)
     return torch.where(torch.isnan(raw), 0.0, torch.clamp(raw, 0, num_bins - 1)).long()
 

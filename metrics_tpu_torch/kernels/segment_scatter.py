@@ -9,6 +9,10 @@ per-segment results plus ``(S,)`` int32 counts of valid rows; an id < 0 or
   :func:`segment_scatter_min_torch`, the plain versions: ``index_add_`` or
   ``scatter_reduce_`` into an ``S+1``-row buffer whose last row takes the
   invalid ids and is cut off (the ``_xla`` formulations of the JAX package).
+  Their cores, :func:`segment_sum_plain` and :func:`segment_extremal_plain`,
+  keep the rows' own dtype: the keyed update routes the leaves the kernels
+  do not take exactly (float64, int64) through them, as the JAX package
+  routes them through ``segment_sum``/``segment_max``.
 * :func:`segment_scatter_add_cuda` (B3) and :func:`segment_scatter_max_cuda`
   / :func:`segment_scatter_min_cuda` (B4), the wrappers of the hand-written
   kernels in ``csrc/segment_scatter.cu`` (which replace the Pallas
@@ -70,34 +74,54 @@ def _counts(valid: Tensor, safe: Tensor, num_segments: int) -> Tensor:
     return counts.index_add_(0, safe, valid.to(torch.int32))[:num_segments]
 
 
+def segment_sum_plain(rows: Tensor, safe: Tensor, num_segments: int) -> Tensor:
+    """``(S, D)`` sums of ``(R, D)`` rows in the rows' own dtype, routed by
+    ``safe`` ids (:func:`_safe_ids`: invalid ids sent to the discard row)."""
+    sums = torch.zeros((num_segments + 1, rows.shape[1]), dtype=rows.dtype, device=rows.device)
+    return sums.index_add_(0, safe, rows)[:num_segments]
+
+
+def segment_extremal_plain(rows: Tensor, safe: Tensor, num_segments: int, op: str) -> Tensor:
+    """``(S, D)`` maxima (``op="max"``) or minima of ``(R, D)`` rows in the
+    rows' own dtype, routed as :func:`segment_sum_plain`; in XLA's order
+    for floats (NaN on top, +0.0 above -0.0). An empty segment holds the
+    identity: -inf/+inf for floats, the dtype's least/greatest integer."""
+    is_max = op == "max"
+    floating = rows.is_floating_point()
+    if floating:
+        fill = float("-inf") if is_max else float("inf")
+    else:
+        info = torch.iinfo(rows.dtype)
+        fill = info.min if is_max else info.max
+    shape = (num_segments + 1, rows.shape[1])
+    index = safe.unsqueeze(1).expand_as(rows)
+    ext = torch.full(shape, fill, dtype=rows.dtype, device=rows.device)
+    if not floating:
+        return ext.scatter_reduce_(0, index, rows, "amax" if is_max else "amin", include_self=True)[:num_segments]
+    nan = torch.isnan(rows)
+    ext.scatter_reduce_(0, index, torch.where(nan, fill, rows), "amax" if is_max else "amin", include_self=True)
+    # the zero of the winning sign: +0.0 for max if any row holds +0.0, -0.0
+    # for min if any holds -0.0; NaN wherever a row is NaN
+    winning_zero = (rows == 0) & (torch.signbit(rows) != is_max)
+    any_zero = torch.zeros(shape, dtype=torch.int32, device=rows.device).index_add_(0, safe, winning_zero.int()) > 0
+    any_nan = torch.zeros(shape, dtype=torch.int32, device=rows.device).index_add_(0, safe, nan.int()) > 0
+    ext = torch.where((ext == 0) & any_zero, 0.0 if is_max else -0.0, ext)
+    ext = torch.where(any_nan, float("nan"), ext)
+    return ext[:num_segments]
+
+
 def segment_scatter_add_torch(rows: Tensor, segment_ids: Tensor, num_segments: int) -> Tuple[Tensor, Tensor]:
     """``((S, D) float32 sums, (S,) int32 counts)`` of ``(R, D)`` rows by id."""
     valid, safe = _safe_ids(segment_ids, num_segments)
-    sums = torch.zeros((num_segments + 1, rows.shape[1]), dtype=torch.float32, device=rows.device)
-    sums.index_add_(0, safe, rows.to(torch.float32))
-    return sums[:num_segments], _counts(valid, safe, num_segments)
+    return segment_sum_plain(rows.to(torch.float32), safe, num_segments), _counts(valid, safe, num_segments)
 
 
 def _segment_scatter_extremal_torch(
     rows: Tensor, segment_ids: Tensor, num_segments: int, op: str
 ) -> Tuple[Tensor, Tensor]:
     valid, safe = _safe_ids(segment_ids, num_segments)
-    is_max = op == "max"
-    fill = float("-inf") if is_max else float("inf")
-    x = rows.to(torch.float32)
-    shape = (num_segments + 1, x.shape[1])
-    index = safe.unsqueeze(1).expand_as(x)
-    nan = torch.isnan(x)
-    ext = torch.full(shape, fill, dtype=torch.float32, device=x.device)
-    ext.scatter_reduce_(0, index, torch.where(nan, fill, x), "amax" if is_max else "amin", include_self=True)
-    # the zero of the winning sign: +0.0 for max if any row holds +0.0, -0.0
-    # for min if any holds -0.0; NaN wherever a row is NaN
-    winning_zero = (x == 0) & (torch.signbit(x) != is_max)
-    any_zero = torch.zeros(shape, dtype=torch.int32, device=x.device).index_add_(0, safe, winning_zero.int()) > 0
-    any_nan = torch.zeros(shape, dtype=torch.int32, device=x.device).index_add_(0, safe, nan.int()) > 0
-    ext = torch.where((ext == 0) & any_zero, 0.0 if is_max else -0.0, ext)
-    ext = torch.where(any_nan, float("nan"), ext)
-    return ext[:num_segments], _counts(valid, safe, num_segments)
+    ext = segment_extremal_plain(rows.to(torch.float32), safe, num_segments, op)
+    return ext, _counts(valid, safe, num_segments)
 
 
 def segment_scatter_max_torch(rows: Tensor, segment_ids: Tensor, num_segments: int) -> Tuple[Tensor, Tensor]:

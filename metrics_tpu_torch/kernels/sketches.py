@@ -1,12 +1,23 @@
-"""Threshold metrics from binned label histograms.
+"""Fixed-size sketches: threshold metrics from binned label histograms,
+the CDF sketch and the joint rank grid.
 
-Counterpart of the histogram half of ``metrics_tpu/kernels/sketches.py``
-(``:62-172``): the curve functions that reconstruct AUROC, ROC, the
-precision-recall curve and average precision from the per-bin score counts
-of :func:`~metrics_tpu_torch.kernels.binned_counts.label_score_histograms`,
+Counterpart of ``metrics_tpu/kernels/sketches.py:62-241``: the curve
+functions that reconstruct AUROC, ROC, the precision-recall curve and
+average precision from the per-bin score counts of
+:func:`~metrics_tpu_torch.kernels.binned_counts.label_score_histograms`,
 treating each bin as one prediction tie group, plus :func:`grid_index` and
 :func:`clipped_count`. The result equals the exact computation whenever no
 two samples share a bin and degrades smoothly (O(1/num_bins)) otherwise.
+
+The CDF sketch (:func:`cdf_sketch_update`, :func:`cdf_sketch_cdf`,
+:func:`cdf_sketch_quantile`) and the joint rank grid behind
+``SpearmanCorrcoef(sketched=True)`` (:func:`joint_grid_update`,
+:func:`spearman_from_grid`) are plain XLA in the JAX package and plain
+PyTorch here. Their counts are added with ``index_add`` into the flat view
+of the grid (``ix * By + iy`` where the JAX package writes
+``grid.at[ix, iy].add(1.0)``): no value is read to the host, so an update
+can be captured into a CUDA graph. (``torch.bincount`` would read the
+largest index to the host on the card.)
 
 Convention shared by every ``hist_*`` function: ``pos_hist``/``neg_hist``
 hold per-bin counts over the LAST axis (leading axes are classes or labels),
@@ -15,7 +26,7 @@ are plain float32 tensor math, safe under ``torch.func.vmap`` (the keyed
 compute fans them out per tenant). The CDF grid, the Spearman grid and the
 reservoir wait for the regression and retrieval metrics that use them.
 """
-from typing import Tuple
+from typing import Any, Tuple
 
 import torch
 
@@ -23,12 +34,17 @@ from metrics_tpu_torch.kernels.binned_counts import _bin_index
 from metrics_tpu_torch.utilities.data import METRIC_EPS, Tensor
 
 __all__ = [
+    "cdf_sketch_cdf",
+    "cdf_sketch_quantile",
+    "cdf_sketch_update",
     "clipped_count",
     "grid_index",
     "hist_auroc",
     "hist_average_precision",
     "hist_precision_recall_curve",
     "hist_roc",
+    "joint_grid_update",
+    "spearman_from_grid",
 ]
 
 
@@ -127,3 +143,72 @@ def grid_index(x: Tensor, num_bins: int, lo: float, hi: float) -> Tensor:
 def clipped_count(x: Tensor, lo: float, hi: float) -> Tensor:
     """How many values fell outside [lo, hi] (clipped into an edge bin), as float32."""
     return torch.sum((x < lo) | (x > hi)).to(torch.float32)
+
+
+def cdf_sketch_update(counts: Tensor, x: Tensor, lo: float, hi: float) -> Tensor:
+    """A batch accumulated into a ``(num_bins,)`` CDF sketch (merge = ``+``)."""
+    idx = grid_index(x.reshape(-1), counts.shape[-1], lo, hi).long()
+    return counts.index_add(0, idx, torch.ones(idx.shape, dtype=counts.dtype, device=counts.device))
+
+
+def cdf_sketch_cdf(counts: Tensor, v: Tensor, lo: float, hi: float) -> Tensor:
+    """P(X <= v) under the sketch (bin mass attributed to the bin midpoint)."""
+    num_bins = counts.shape[-1]
+    total = torch.clamp(torch.sum(counts), min=1.0)
+    idx = grid_index(v, num_bins, lo, hi).long()
+    cum = torch.cumsum(counts, dim=0)
+    below = torch.where(idx > 0, cum[torch.clamp(idx - 1, min=0)], 0.0)
+    return (below + counts[idx] * 0.5) / total
+
+
+def cdf_sketch_quantile(counts: Tensor, q: Any, lo: float, hi: float) -> Tensor:
+    """Interpolated quantile(s): walk the cumulative mass to the target rank
+    and interpolate linearly inside the crossing bin."""
+    num_bins = counts.shape[-1]
+    total = torch.clamp(torch.sum(counts), min=1.0)
+    cum = torch.cumsum(counts, dim=0)
+    rank = torch.as_tensor(q, dtype=torch.float32, device=counts.device) * total
+    idx = torch.searchsorted(cum, rank.reshape(-1), side="left").reshape(rank.shape)
+    idx = torch.clamp(idx, 0, num_bins - 1)
+    prev = torch.where(idx > 0, cum[torch.clamp(idx - 1, min=0)], 0.0)
+    in_bin = torch.clamp(counts[idx], min=METRIC_EPS)
+    frac = torch.clamp((rank - prev) / in_bin, 0.0, 1.0)
+    width = (hi - lo) / num_bins
+    return lo + (idx.to(torch.float32) + frac) * width
+
+
+def joint_grid_update(
+    grid: Tensor, x: Tensor, y: Tensor, x_range: Tuple[float, float], y_range: Tuple[float, float]
+) -> Tuple[Tensor, Tensor]:
+    """``(x, y)`` pairs accumulated into a ``(Bx, By)`` joint grid; returns
+    the advanced grid and this batch's out-of-range (clipped) pair count, as
+    float32. Each pair adds one at the flat index ``ix * By + iy``."""
+    bx, by = grid.shape
+    x = x.reshape(-1)
+    y = y.reshape(-1)
+    ix = grid_index(x, bx, *x_range).long()
+    iy = grid_index(y, by, *y_range).long()
+    clipped = torch.sum((x < x_range[0]) | (x > x_range[1]) | (y < y_range[0]) | (y > y_range[1])).to(torch.float32)
+    ones = torch.ones(ix.shape, dtype=grid.dtype, device=grid.device)
+    return grid.reshape(-1).index_add(0, ix * by + iy, ones).reshape(bx, by), clipped
+
+
+def spearman_from_grid(grid: Tensor) -> Tensor:
+    """Spearman's rho from joint bin counts with midrank tie correction:
+    exactly the rho of the stream discretized onto the grid (error -> 0 as
+    the grid refines for continuous in-range data). An empty grid divides
+    0/0 -> NaN, as the exact formula on an empty stream does."""
+    g = grid.to(torch.float32)
+    nx = torch.sum(g, dim=1)
+    ny = torch.sum(g, dim=0)
+    n = torch.sum(nx)
+    # midrank of every bin: ranks 1..n, ties averaged within a bin
+    rx = torch.cumsum(nx, dim=0) - nx + (nx + 1.0) / 2.0
+    ry = torch.cumsum(ny, dim=0) - ny + (ny + 1.0) / 2.0
+    rbar = (n + 1.0) / 2.0
+    dx = rx - rbar
+    dy = ry - rbar
+    cov = dx @ (g @ dy)
+    var_x = torch.sum(nx * dx * dx)
+    var_y = torch.sum(ny * dy * dy)
+    return cov / torch.sqrt(var_x * var_y)

@@ -1124,6 +1124,18 @@ class Metric(ABC):
     def clone(self) -> "Metric":
         return deepcopy(self)
 
+    def keyed(self, num_tenants: int, **kwargs: Any) -> "Metric":
+        """An N-tenant stacked view of this metric (``metric.py:1475``): a
+        :class:`~metrics_tpu_torch.wrappers.multitenant.KeyedMetric` holding
+        the state of ``num_tenants`` logical streams on a leading tenant axis,
+        advanced by one segment-scatter update per batch, on this metric's
+        device unless ``device=`` says otherwise. The keyed state starts at
+        the defaults (this instance's accumulated state is not inherited)."""
+        from metrics_tpu_torch.wrappers.multitenant import KeyedMetric
+
+        kwargs.setdefault("device", self.device)
+        return KeyedMetric(self, num_tenants, **kwargs)
+
     def persistent(self, mode: bool = False) -> None:
         for key in self._persistent:
             if not self._buffers[key]:

@@ -10,19 +10,33 @@ tenant with ``update(tenant_ids, *batch)``, in one pass:
    event-row axis (:func:`~metrics_tpu_torch.utilities.stacked.row_states`),
    each row's batch-local state delta; the child's value checks run once on
    the whole batch first, since no value can be read inside the vmap;
-2. **sum leaves** — every ``"sum"`` leaf of the bundle, as ``per_row -
+2. **sum leaves** — every ``"sum"`` leaf of the bundle in a dtype that B3
+   adds exactly through float32 (float32, int32, bfloat16), as ``per_row -
    default``, packed into ONE ``(R, ΣD)`` float32 matrix and added into the
    stacked state by ONE launch of the segment-scatter kernel B3
    (:func:`~metrics_tpu_torch.kernels.segment_scatter.segment_scatter_add_cuda`);
-3. **extremal leaves** — each ``"max"``/``"min"`` leaf through one launch of
-   kernel B4, merged where the kernel's count of rows is non-zero, so empty
-   segments leave their tenants untouched.
+3. **extremal leaves** — each ``"max"``/``"min"`` leaf of a dtype that B4
+   picks exactly through one launch of kernel B4, merged where the kernel's
+   count of rows is non-zero, so empty segments leave their tenants
+   untouched;
+4. **leaves of any other dtype** (float64, int64: the regression metrics'
+   moment sums and counts) — added in their own dtype by a plain
+   ``index_add_`` over an ``S+1``-row buffer whose last row takes the ids
+   outside ``[0, capacity)`` (one per dtype, the leaves of a dtype packed),
+   or picked by a plain ``scatter_reduce_``
+   (:func:`~metrics_tpu_torch.kernels.segment_scatter.segment_sum_plain`,
+   :func:`~metrics_tpu_torch.kernels.segment_scatter.segment_extremal_plain`).
+   This is the counterpart of the JAX package's ``segment_sum`` for such
+   leaves (``multitenant.py:489-511``), chosen by the leaf's dtype alone: a
+   float32 leaf on the card always goes through B3. Each such scatter counts
+   under its op's ``"plain"`` dispatch path (once per dispatch, and once per
+   capture inside a compiled step).
 
-Where the JAX package sends a mixed bundle's sums through XLA's
-``segment_sum`` (``multitenant.py:606-615``), the port sends them through B3
-as well: the deltas of the ported metrics are integer-valued and each batch's
-per-tenant sums stay far below 2^24, so the values are the same, and B3 has
-no VMEM gate on the card.
+Where the JAX package sends a mixed bundle's float32-exact sums through
+XLA's ``segment_sum`` (``multitenant.py:606-615``), the port sends them
+through B3 as well: the deltas of the ported metrics are integer-valued or
+float32, and each batch's per-tenant sums of the integer ones stay far below
+2^24, so the values are the same, and B3 has no VMEM gate on the card.
 
 :class:`MultiTenantCollection` is the collection form: members whose
 :meth:`~metrics_tpu_torch.metric.Metric._shared_update_key` and state layout
@@ -88,10 +102,15 @@ import numpy as np
 import torch
 
 from metrics_tpu_torch.collections import MetricCollection
+from metrics_tpu_torch.kernels._common import note_kernel_dispatch
 from metrics_tpu_torch.kernels.segment_scatter import (
+    _counts,
+    _safe_ids,
+    segment_extremal_plain,
     segment_scatter_add_cuda,
     segment_scatter_max_cuda,
     segment_scatter_min_cuda,
+    segment_sum_plain,
 )
 from metrics_tpu_torch.metric import (
     Metric,
@@ -114,9 +133,11 @@ __all__ = ["KeyedMetric", "MultiTenantCollection"]
 
 #: reductions the segment router can route exactly (see :func:`_keyed_gate`)
 _SEGMENT_REDUCTIONS = ("sum", "max", "min")
-#: leaf dtypes B3 accumulates exactly through its float32 rows
+#: leaf dtypes B3 accumulates exactly through its float32 rows (others take
+#: the plain ``index_add_`` in their own dtype)
 _FUSED_SCATTER_DTYPES = (torch.float32, torch.int32, torch.bfloat16)
-#: leaf dtypes B4 picks exactly through its float32 rows
+#: leaf dtypes B4 picks exactly through its float32 rows (others take the
+#: plain ``scatter_reduce_`` in their own dtype)
 _EXTREMAL_SCATTER_DTYPES = (torch.float32, torch.int32, torch.bfloat16, torch.int16, torch.int8)
 
 
@@ -322,11 +343,11 @@ def _keyed_gate(metric: Metric, what: str = "base_metric") -> None:
     """Raise a descriptive ``ValueError`` when ``metric`` cannot be keyed.
 
     Keying needs fixed-shape leaves whose reductions the segment router can
-    express (``"sum"`` through B3, ``"max"``/``"min"`` through B4) in dtypes
-    the kernels take exactly, and the base pure-state protocol. Unbounded
-    list states, ``"cat"``/``"mean"``/custom reductions, other leaf dtypes
-    (the JAX package sends those to XLA) and ``dist_sync_on_step`` all stay
-    single-stream.
+    express (``"sum"`` through B3, ``"max"``/``"min"`` through B4, each in
+    its own dtype by the plain route where the kernels do not take it
+    exactly) and the base pure-state protocol. Unbounded list states,
+    ``"cat"``/``"mean"``/custom reductions and ``dist_sync_on_step`` all
+    stay single-stream.
 
     Integer ``"sum"`` leaves (int32) reach B3 as float32 deltas, so a keyed
     update is exact only while each tenant's sum of one leaf element within
@@ -360,17 +381,6 @@ def _keyed_gate(metric: Metric, what: str = "base_metric") -> None:
             f" {list(_SEGMENT_REDUCTIONS)} leaves ('sum' via segment_sum,"
             " 'max'/'min' via masked segment extremes); 'cat'/'mean'/callable"
             " reductions stay single-stream."
-        )
-    dtypes = {
-        k: metric._defaults[k].dtype
-        for k, fx in metric._reductions.items()
-        if metric._defaults[k].dtype not in (_FUSED_SCATTER_DTYPES if fx == "sum" else _EXTREMAL_SCATTER_DTYPES)
-    }
-    if dtypes:
-        raise ValueError(
-            f"{what} {name} has state dtypes the segment-scatter kernels cannot"
-            f" route exactly: {dtypes}. 'sum' leaves take {list(_FUSED_SCATTER_DTYPES)},"
-            f" 'max'/'min' leaves {list(_EXTREMAL_SCATTER_DTYPES)}."
         )
     if set(metric.init_state()) != set(metric._defaults):
         raise ValueError(
@@ -520,43 +530,72 @@ class KeyedMetric(Metric):
         self, state: StateDict, ids: Tensor, args: Tuple, kwargs: Dict
     ) -> Tuple[StateDict, Tensor, Tensor]:
         """``(new_stacked_state, invalid_count, counts)``: the keyed update
-        and the first kernel's ``(capacity,)`` int32 row counts per tenant
-        (the traffic ledger's feed).
+        and the ``(capacity,)`` int32 row counts per tenant (the traffic
+        ledger's feed) of the first kernel launched, B3 before B4.
 
         The kernels drop ids < 0 or >= the PHYSICAL capacity; an id in the
         padding band ``[num_tenants, capacity)`` lands in a padding row, which
         compute slices off. ``invalid_count`` stays on the device.
+
+        Leaves the kernels do not take exactly take the plain route in their
+        own dtype (see the module docstring). A bundle with no leaf for
+        either kernel gets its counts from a plain ``index_add_`` of its
+        valid rows into int32, on the device: no update reads an id to the
+        host, so every route can be captured.
         """
         child = self._child
         n = self._capacity
         if not _is_traced():
             child._validate_batch(*args, **kwargs)
         per_row = row_states(child, args, kwargs)
-        new: StateDict = {}
-        counts: Optional[Tensor] = None
+        dtypes = {name: child._defaults[name].dtype for name in child._reductions}
         sums = [name for name, fx in child._reductions.items() if fx == "sum"]
-        if sums:
+        extremal = [name for name, fx in child._reductions.items() if fx != "sum"]
+        fused = any(dtypes[name] in _FUSED_SCATTER_DTYPES for name in sums)
+        fused_extremal = [name for name in extremal if dtypes[name] in _EXTREMAL_SCATTER_DTYPES]
+        plain_extremal = [name for name in extremal if name not in fused_extremal]
+        counts: Optional[Tensor] = None
+        if plain_extremal or any(dtypes[name] not in _FUSED_SCATTER_DTYPES for name in sums) or not (
+                fused or fused_extremal):
+            # the plain route's ids (made only where a leaf takes it), and the
+            # row counts where no kernel gives them
+            valid, safe = _safe_ids(ids, n)
+            if not (fused or fused_extremal):
+                counts = _counts(valid, safe, n)
+                note_kernel_dispatch("segment_scatter_add", "plain")
+        new: StateDict = {}
+        by_dtype: Dict[torch.dtype, List[str]] = {}
+        for name in sums:
+            by_dtype.setdefault(torch.float32 if dtypes[name] in _FUSED_SCATTER_DTYPES else dtypes[name], []).append(name)
+        for dtype, names in by_dtype.items():
             layout, columns = [], []
-            for name in sums:
+            for name in names:
                 delta = per_row[name] - child._defaults[name]
-                flat = delta.reshape(delta.shape[0], -1).to(torch.float32)
+                flat = delta.reshape(delta.shape[0], -1).to(dtype)
                 layout.append((name, tuple(delta.shape[1:]), flat.shape[1]))
                 columns.append(flat)
-            packed, counts = segment_scatter_add_cuda(torch.cat(columns, dim=1).contiguous(), ids, n, device=self.device)
+            packed = torch.cat(columns, dim=1)
+            if dtype == torch.float32:
+                packed, counts = segment_scatter_add_cuda(packed.contiguous(), ids, n, device=self.device)
+            else:
+                packed = segment_sum_plain(packed, safe, n)
+                note_kernel_dispatch("segment_scatter_add", "plain")
             offset = 0
             for name, shape, width in layout:
                 delta = packed[:, offset:offset + width].reshape((n,) + shape)
                 new[name] = state[name] + delta.to(state[name].dtype)
                 offset += width
-        for name, fx in child._reductions.items():
-            if fx == "sum":
-                continue
-            rows = per_row[name]
-            kernel, pick = (segment_scatter_max_cuda, torch.maximum) if fx == "max" else (segment_scatter_min_cuda,
-                                                                                           torch.minimum)
-            flat = rows.reshape(rows.shape[0], -1).to(torch.float32).contiguous()
-            seg, seg_counts = kernel(flat, ids, n, device=self.device)
-            counts = seg_counts if counts is None else counts
+        for name in fused_extremal + plain_extremal:
+            fx, rows = child._reductions[name], per_row[name]
+            pick = torch.maximum if fx == "max" else torch.minimum
+            flat = rows.reshape(rows.shape[0], -1)
+            if name in fused_extremal:
+                kernel = segment_scatter_max_cuda if fx == "max" else segment_scatter_min_cuda
+                seg, seg_counts = kernel(flat.to(torch.float32).contiguous(), ids, n, device=self.device)
+                counts = seg_counts if counts is None else counts
+            else:
+                seg, seg_counts = segment_extremal_plain(flat, safe, n, fx), counts
+                note_kernel_dispatch(f"segment_scatter_{fx}", "plain")
             seg = seg.reshape((n,) + tuple(rows.shape[1:]))
             has_rows = (seg_counts > 0).reshape((n,) + (1,) * (rows.ndim - 1))
             new[name] = torch.where(has_rows, pick(state[name], seg.to(state[name].dtype)), state[name])

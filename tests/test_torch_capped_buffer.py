@@ -186,6 +186,23 @@ class TestOverflowErrorPolicy:
         with pytest.raises(T.BufferOverflowError, match=r"capacity=8.*10 sample"):
             m.compute()
 
+    def test_compiled_spearman_overflow_raises_at_next_eager_compute(self):
+        """The JAX package's case: ``SpearmanCorrcoef(capacity=8,
+        overflow="error")`` under ``jit_forward``, 18 samples; the same
+        message on both sides."""
+        m = T.SpearmanCorrcoef(capacity=8, overflow="error", compute_on_step=False, **CPU).jit_forward()
+        jm = J.SpearmanCorrcoef(capacity=8, overflow="error", compute_on_step=False).jit_forward()
+        x = torch.linspace(0.0, 1.0, 6)
+        for _ in range(3):  # 18 samples through the compiled, in-place step
+            m(x, x)
+            jm(jnp.linspace(0.0, 1.0, 6), jnp.linspace(0.0, 1.0, 6))
+        np.testing.assert_array_equal(m.buf.numpy(), np.asarray(jm.buf))
+        with pytest.raises(T.BufferOverflowError, match=r"capacity=8.*10 sample") as err:
+            m.compute()
+        with pytest.raises(J.BufferOverflowError) as jerr:
+            jm.compute()
+        assert str(err.value) == str(jerr.value)
+
     def test_update_many_overflow_raises_at_compute(self):
         m = T.AveragePrecision(capacity=4, overflow="error", **CPU)
         p = torch.stack([torch.linspace(0, 1, 4)] * 3)

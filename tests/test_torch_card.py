@@ -534,3 +534,110 @@ def test_the_compiled_keyed_update_and_capacity_mode_on_the_card_match_the_cpu(c
         assert abs(float(got) - float(want)) <= 1e-6
     assert torch.equal(auroc.buf.cpu(), auroc_host.buf) and int(auroc.count) == 4000
     assert abs(float(auroc.compute()) - float(auroc_host.compute())) <= 1e-6
+
+
+# -- the regression slice ---------------------------------------------------------
+
+
+class _ThreeSums(T.Metric):
+    """A float32, a float64 and an int64 ``"sum"`` leaf: B3 takes the first,
+    the plain ``index_add_`` the other two, in their own dtypes."""
+
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self.add_state("f32", torch.zeros((2,), dtype=torch.float32), dist_reduce_fx="sum")
+        self.add_state("f64", torch.zeros((), dtype=torch.float64), dist_reduce_fx="sum")
+        self.add_state("i64", torch.zeros((), dtype=torch.int64), dist_reduce_fx="sum")
+
+    def update(self, x, k):
+        self.f32 = self.f32 + torch.stack([x.sum(), (x * x).sum()]).to(torch.float32)
+        self.f64 = self.f64 + (x / 1024).sum()
+        self.i64 = self.i64 + k.sum()
+
+    def compute(self):
+        return self.f64 / self.i64
+
+
+@pytest.mark.cuda
+def test_keyed_float32_float64_and_int64_sum_leaves_on_the_card_match_the_cpu(cuda_device):
+    """Integer-valued float32 rows (B3 adds them exactly in any order), float64
+    rows on a 1/1024 grid and int64 counts past 2^24: the card's stacked
+    state equals the CPU's exactly; B3 launches once per update, the plain
+    route twice (one scatter per dtype)."""
+    rng = np.random.RandomState(21)
+    n = 300
+    card = T.KeyedMetric(_ThreeSums(device=cuda_device), n, validate_ids=False, device=cuda_device)
+    host = T.KeyedMetric(_ThreeSums(device="cpu"), n, validate_ids=False, device="cpu")
+    for _ in range(4):
+        ids = rng.randint(-2, n + 3, 4096)
+        x = rng.randint(-1000, 1000, 4096).astype(np.float64)  # integer-valued; the float64 leaf adds x / 1024
+        k = rng.randint(0, 2**40, 4096).astype(np.int64)
+        card.update(_t(ids).to(cuda_device), _t(x).to(cuda_device), _t(k).to(cuda_device))
+        host.update(_t(ids), _t(x), _t(k))
+    torch.cuda.synchronize()
+    for name in ("f32", "f64", "i64"):
+        got = getattr(card, name)
+        assert got.dtype == getattr(host, name).dtype and torch.equal(got.cpu(), getattr(host, name)), name
+    assert _common.launch_count("segment_scatter_add") == 4
+    assert _common.dispatch_count("segment_scatter_add", "plain") == 4 * 2 * 2  # card and host
+
+    members = lambda d: [T.MeanSquaredError(device=d), T.MeanAbsoluteError(device=d),  # noqa: E731
+                         T.PearsonCorrcoef(streaming=True, device=d)]
+    card = T.MultiTenantCollection(members(cuda_device), n, validate_ids=False, device=cuda_device)
+    host = T.MultiTenantCollection(members("cpu"), n, validate_ids=False, device="cpu")
+    _common.reset_dispatch_counters()
+    for _ in range(3):
+        ids = rng.randint(-1, n, 2048)
+        p, t = rng.rand(2048).astype(np.float32), rng.rand(2048).astype(np.float32)
+        card.update(_t(ids).to(cuda_device), _t(p).to(cuda_device), _t(t).to(cuda_device))
+        host.update(_t(ids), _t(p), _t(t))
+    assert _common.launch_count("segment_scatter_add") == 3 * 3  # one per bundle per update
+    for owner, km in host._keyed.items():
+        for name, value in km._get_states().items():
+            got = getattr(card._keyed[owner], name).cpu()
+            assert got.dtype == value.dtype, name
+            if value.is_floating_point():
+                torch.testing.assert_close(got, value, rtol=1e-5, atol=1e-9)
+            else:
+                assert torch.equal(got, value), name
+
+
+@pytest.mark.cuda
+def test_joint_grid_and_capacity_spearman_captured_in_a_graph_equal_their_eager_run(cuda_device):
+    from metrics_tpu_torch.kernels.sketches import joint_grid_update
+
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(22)
+    x = torch.rand(10_000, generator=gen, device=cuda_device)
+    y = x + 0.1 * torch.randn(10_000, generator=gen, device=cuda_device)
+    grid = torch.zeros((512, 512), device=cuda_device)
+    eager, _ = joint_grid_update(grid, x, y, (0.0, 1.0), (-0.5, 1.5))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        joint_grid_update(grid, x, y, (0.0, 1.0), (-0.5, 1.5))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        out, clipped = joint_grid_update(grid, x, y, (0.0, 1.0), (-0.5, 1.5))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(out, eager) and float(out.sum()) == 10_000
+
+    m = T.SpearmanCorrcoef(capacity=50_000, compute_on_step=False, device=cuda_device).jit_forward()
+    host = T.SpearmanCorrcoef(capacity=50_000, compute_on_step=False, device="cpu")
+    m.warmup(x, y)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(4):
+            m(x, y)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for _ in range(4):
+        host(x.cpu(), y.cpu())
+    assert torch.equal(m.buf.cpu(), host.buf) and int(m.count) == 40_000
+    assert abs(float(m.compute()) - float(host.compute())) <= 1e-6

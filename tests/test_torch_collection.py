@@ -157,6 +157,7 @@ def test_port_imports_neither_jax_nor_metrics_tpu():
         "import metrics_tpu_torch.observability, metrics_tpu_torch.observability.export, metrics_tpu_torch.average\n"
         "import metrics_tpu_torch.classification.hinge, metrics_tpu_torch.classification.kldivergence\n"
         "import metrics_tpu_torch.classification.hamming_distance, metrics_tpu_torch.functional.classification.dice\n"
+        "import metrics_tpu_torch.regression, metrics_tpu_torch.image, metrics_tpu_torch.functional.regression\n"
         "bad = [m for m in sys.modules if m in ('jax', 'metrics_tpu') or m.startswith(('jax.', 'metrics_tpu.'))]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
     )
@@ -188,7 +189,19 @@ def test_port_sources_import_neither_jax_nor_metrics_tpu():
                 "observability/events.py", "observability/tracing.py", "observability/export.py", "average.py",
                 "classification/hamming_distance.py", "classification/hinge.py", "classification/kldivergence.py",
                 "functional/classification/hamming_distance.py", "functional/classification/dice.py",
-                "functional/classification/hinge.py", "functional/classification/kldivergence.py"):
+                "functional/classification/hinge.py", "functional/classification/kldivergence.py",
+                "regression/__init__.py", "regression/mean_squared_error.py", "regression/mean_absolute_error.py",
+                "regression/mean_absolute_percentage_error.py", "regression/mean_squared_log_error.py",
+                "regression/explained_variance.py", "regression/r2score.py", "regression/cosine_similarity.py",
+                "regression/pearson.py", "regression/spearman.py", "regression/psnr.py", "regression/ssim.py",
+                "image/__init__.py", "image/psnr.py", "image/ssim.py", "functional/regression/__init__.py",
+                "functional/regression/mean_squared_error.py", "functional/regression/mean_absolute_error.py",
+                "functional/regression/mean_absolute_percentage_error.py",
+                "functional/regression/mean_relative_error.py", "functional/regression/mean_squared_log_error.py",
+                "functional/regression/explained_variance.py", "functional/regression/r2score.py",
+                "functional/regression/cosine_similarity.py", "functional/regression/pearson.py",
+                "functional/regression/spearman.py", "functional/regression/psnr.py",
+                "functional/regression/ssim.py"):
         assert ROOT / "metrics_tpu_torch" / new in files
     for path in files:
         for name in _imported_modules(path):

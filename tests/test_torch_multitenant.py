@@ -291,12 +291,6 @@ class _MeanState(Metric):
         return self.x
 
 
-class _Int64Sum(_MeanState):
-    def __init__(self, **kw):
-        Metric.__init__(self, **kw)
-        self.add_state("x", torch.zeros((), dtype=torch.int64), dist_reduce_fx="sum")
-
-
 class _NoStates(_MeanState):
     def __init__(self, **kw):
         Metric.__init__(self, **kw)
@@ -307,7 +301,6 @@ class _NoStates(_MeanState):
     [
         (lambda: T.StatScores(reduce="samples", **CPU), "unbounded list states"),
         (lambda: _MeanState(**CPU), "reductions the segment router cannot route"),
-        (lambda: _Int64Sum(**CPU), "dtypes the segment-scatter kernels cannot"),
         (lambda: _NoStates(**CPU), "registers no states"),
         (lambda: T.Accuracy(dist_sync_on_step=True, **CPU), "dist_sync_on_step"),
         (lambda: "Accuracy", "metrics_tpu_torch.Metric"),
@@ -498,3 +491,224 @@ def test_injected_sync_doubles_sum_leaves_and_keeps_the_max_leaf():
     _assert_values(keyed.compute(), plain.compute())  # ratios of doubled counts
     for name, value in before.items():
         assert torch.equal(getattr(keyed, name), value)  # local states restored
+
+
+# ---------------------------------------------------------------- regression: leaves of any dtype
+
+
+def _regression_batch(rng, rows=32):
+    return rng.randn(rows), rng.randn(rows)
+
+
+def _assert_float_states(port_keyed, jax_keyed, rtol):
+    """Integer leaves exactly; float leaves within ``rtol`` (the port's float32
+    leaves against the JAX package's float64, or float64 against float64)."""
+    for name in jax_keyed._child._defaults:
+        got, want = getattr(port_keyed, name), np.asarray(getattr(jax_keyed, name))
+        assert got.dtype == port_keyed._child._defaults[name].dtype, name
+        assert tuple(got.shape) == want.shape, name
+        if got.dtype.is_floating_point:
+            np.testing.assert_allclose(got.numpy(), want, rtol=rtol, atol=1e-12, err_msg=name)
+        else:
+            np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
+
+
+def test_parity_fuzz_regression_with_interleaved_resets():
+    port, ref = T.KeyedMetric(T.MeanSquaredError(**CPU), 5, **CPU), J.KeyedMetric(J.MeanSquaredError(), 5)
+    _fuzz(port, ref, _regression_batch, steps=6, reset_at=(1, 3))
+    assert port.sum_squared_error.dtype == torch.float32 and port.total.dtype == torch.int64
+    _assert_float_states(port, ref, rtol=1e-6)
+    got, want = _compute_both(port, ref)
+    assert got.dtype == torch.float32
+    _assert_values(got, want)
+    # B3 took the float32 leaf, the plain route the int64 count, once per update
+    assert _common.dispatch_count("segment_scatter_add", "torch") == 6
+    assert _common.dispatch_count("segment_scatter_add", "plain") == 6
+
+
+def test_parity_fuzz_streaming_pearson_float64_moments():
+    port = T.KeyedMetric(T.PearsonCorrcoef(streaming=True, **CPU), 4, **CPU)
+    ref = J.KeyedMetric(J.PearsonCorrcoef(streaming=True), 4)
+    _fuzz(port, ref, _regression_batch, steps=5, reset_at=(2,))
+    assert port.sum_xy.dtype == torch.float64 and port.n_total.dtype == torch.int32
+    _assert_float_states(port, ref, rtol=1e-12)
+    got, want = _compute_both(port, ref)
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12, atol=1e-12)
+
+
+def test_mixed_dtypes_and_empty_segments():
+    """Leaf dtypes survive stacking; tenants that never receive a row keep
+    their default state exactly."""
+    child = T.MeanSquaredError(**CPU)
+    keyed = T.KeyedMetric(child, 4, **CPU)
+    for name, default in child._defaults.items():
+        assert getattr(keyed, name).dtype == default.dtype
+        assert tuple(getattr(keyed, name).shape) == (4,) + tuple(default.shape)
+    ref = J.KeyedMetric(J.MeanSquaredError(), 4)
+    ids, preds, target = [0, 2, 0], [1.0, 2.0, 3.0], [1.5, 2.5, 2.0]
+    keyed.update(_t(ids), _t(preds), _t(target))
+    ref.update(_j(ids), _j(preds), _j(target))
+    for name, default in child._defaults.items():
+        stacked = getattr(keyed, name)
+        for empty in (1, 3):
+            assert torch.equal(stacked[empty], default)
+    assert int(keyed.total[0]) == 2 and int(keyed.total[2]) == 1
+    _assert_float_states(keyed, ref, rtol=1e-6)
+
+
+class _Int64AndFloat64Sums(Metric):
+    """An int64 and a float64 ``"sum"`` leaf (beside a float32 one): the
+    dtypes B3 does not take exactly."""
+
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self.add_state("count", torch.zeros((), dtype=torch.int64), dist_reduce_fx="sum")
+        self.add_state("moments", torch.zeros((3,), dtype=torch.float64), dist_reduce_fx="sum")
+        self.add_state("f32", torch.zeros((), dtype=torch.float32), dist_reduce_fx="sum")
+
+    def update(self, x, k):
+        self.count = self.count + k.sum()
+        self.moments = self.moments + torch.stack([x.sum(), (x * x).sum(), (x ** 3).sum()])
+        self.f32 = self.f32 + x.sum().to(torch.float32)
+
+    def compute(self):
+        return self.moments[1] / self.count
+
+
+class _JInt64AndFloat64Sums(J.Metric):
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self.add_state("count", jnp.zeros((), jnp.int64), dist_reduce_fx="sum")
+        self.add_state("moments", jnp.zeros((3,), jnp.float64), dist_reduce_fx="sum")
+        self.add_state("f32", jnp.zeros((), jnp.float32), dist_reduce_fx="sum")
+
+    def update(self, x, k):
+        self.count = self.count + k.sum()
+        self.moments = self.moments + jnp.stack([x.sum(), (x * x).sum(), (x ** 3).sum()])
+        self.f32 = self.f32 + x.sum().astype(jnp.float32)
+
+    def compute(self):
+        return self.moments[1] / self.count
+
+
+def test_int64_and_float64_sum_leaves_key_exactly():
+    """An int64 and a float64 ``"sum"`` leaf key exactly, as the JAX
+    package's ``segment_sum`` keys them: counts past 2^24 stay exact, and
+    float64 moments agree to float64 rounding. Ids outside the capacity are
+    dropped; a tenant with no row keeps its default."""
+    rng = np.random.RandomState(11)
+    port = T.KeyedMetric(_Int64AndFloat64Sums(**CPU), 6, validate_ids=False, **CPU)
+    ref = J.KeyedMetric(_JInt64AndFloat64Sums(), 6, validate_ids=False)
+    for _ in range(4):
+        ids = rng.randint(-1, 6, 40)
+        ids[ids == 5] = 7  # tenant 5 never receives a row; 7 is outside the capacity
+        x = rng.randn(40) * 1e3
+        k = rng.randint(0, 2**40, 40).astype(np.int64)  # far past float32's 2^24
+        port.update(_t(ids), _t(x), _t(k))
+        ref.update(_j(ids), _j(x), _j(k))
+    assert port.count.dtype == torch.int64 and port.moments.dtype == torch.float64
+    np.testing.assert_array_equal(port.count.numpy(), np.asarray(ref.count))
+    assert int(port.count[5]) == 0 and int(port.count.max()) > 2**41
+    np.testing.assert_allclose(port.moments.numpy(), np.asarray(ref.moments), rtol=1e-12, atol=1e-9)
+    np.testing.assert_allclose(port.f32.numpy(), np.asarray(ref.f32), rtol=1e-6, atol=1e-3)
+    np.testing.assert_allclose(port.compute().numpy(), np.asarray(ref.compute()), rtol=1e-12, equal_nan=True)
+    # B3 once per update for the float32 leaf, one plain scatter per other dtype
+    assert _common.dispatch_count("segment_scatter_add", "torch") == 4
+    assert _common.dispatch_count("segment_scatter_add", "plain") == 8
+
+
+class _Float64Extrema(Metric):
+    """Only leaves no kernel takes exactly: a float64 max, an int64 min and a
+    float64 sum; the row counts then come from the plain route too."""
+
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self.add_state("hi", torch.full((2,), -float("inf"), dtype=torch.float64), dist_reduce_fx="max")
+        self.add_state("lo", torch.full((), 2**62, dtype=torch.int64), dist_reduce_fx="min")
+        self.add_state("s", torch.zeros((), dtype=torch.float64), dist_reduce_fx="sum")
+
+    def update(self, x, k):
+        self.hi = torch.maximum(self.hi, torch.stack([x.max(), -x.min()]))
+        self.lo = torch.minimum(self.lo, k.min())
+        self.s = self.s + x.sum()
+
+    def compute(self):
+        return self.hi[0] + self.s
+
+
+class _JFloat64Extrema(J.Metric):
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self.add_state("hi", jnp.full((2,), -jnp.inf, jnp.float64), dist_reduce_fx="max")
+        self.add_state("lo", jnp.full((), 2**62, jnp.int64), dist_reduce_fx="min")
+        self.add_state("s", jnp.zeros((), jnp.float64), dist_reduce_fx="sum")
+
+    def update(self, x, k):
+        self.hi = jnp.maximum(self.hi, jnp.stack([x.max(), -x.min()]))
+        self.lo = jnp.minimum(self.lo, k.min())
+        self.s = self.s + x.sum()
+
+    def compute(self):
+        return self.hi[0] + self.s
+
+
+def test_extremal_leaves_of_any_dtype_and_counts_without_a_kernel():
+    rng = np.random.RandomState(12)
+    port = T.KeyedMetric(_Float64Extrema(**CPU), 5, validate_ids=False, **CPU)
+    ref = J.KeyedMetric(_JFloat64Extrema(), 5, validate_ids=False)
+    port.update(_t([0, 0]), _t([-0.0, 0.0]), _t([3, 4]))  # +0.0 wins a max over -0.0, as in XLA
+    ref.update(_j([0, 0]), _j([-0.0, 0.0]), _j([3, 4]))
+    routed = 2
+    for _ in range(3):
+        ids = rng.randint(-2, 7, 30)
+        ids[ids == 3] = -1  # tenant 3 never receives a row
+        routed += int(((ids >= 0) & (ids < 5)).sum())
+        x = rng.randn(30)
+        k = rng.randint(-(2**50), 2**50, 30).astype(np.int64)
+        port.update(_t(ids), _t(x), _t(k))
+        ref.update(_j(ids), _j(x), _j(k))
+    for name in ("hi", "lo", "s"):
+        got, want = getattr(port, name), np.asarray(getattr(ref, name))
+        assert got.dtype == port._child._defaults[name].dtype
+        np.testing.assert_array_equal(np.signbit(got.numpy()), np.signbit(want), err_msg=name)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12, err_msg=name)
+    assert float(port.hi[3, 0]) == -np.inf and int(port.lo[3]) == 2**62
+    assert _common.dispatch_count("segment_scatter_add", "torch") == 0
+    assert _common.dispatch_count("segment_scatter_max", "torch") == 0
+    # per update: the float64 sum, the counts, the max and the min
+    assert _common.dispatch_count("segment_scatter_add", "plain") == 8
+    assert _common.dispatch_count("segment_scatter_max", "plain") == 4
+    assert _common.dispatch_count("segment_scatter_min", "plain") == 4
+    # the ledger is fed the plain counts
+    assert port.tenant_report()["rows_routed"] == routed
+
+
+def test_regression_collection_matches_jax_and_the_hooks_key_it():
+    members = lambda pkg, **d: [pkg.MeanSquaredError(**d), pkg.MeanAbsoluteError(**d),  # noqa: E731
+                                pkg.PearsonCorrcoef(streaming=True, **d)]
+    port = T.MetricCollection(members(T, **CPU)).keyed(10)
+    ref = J.MetricCollection(members(J)).keyed(10)
+    assert isinstance(port, T.MultiTenantCollection) and port.device == torch.device("cpu")
+    rng = np.random.RandomState(13)
+    for step in range(4):
+        ids = rng.randint(0, 10, 64)
+        p = rng.rand(64).astype(np.float32)
+        t = (p * 0.9 + 0.1 * rng.rand(64)).astype(np.float32)
+        port.update(_t(ids), _t(p), _t(t))
+        ref.update(_j(ids), _j(p), _j(t))
+        if step == 1:
+            port.reset(tenant_ids=_t([2, 7]))
+            ref.reset(tenant_ids=_j([2, 7]))
+    assert port.state_bundles == 3
+    for owner, km in port._keyed.items():
+        _assert_float_states(km, ref._keyed[owner], rtol=1e-6)
+    got, want = port.compute(), ref.compute()
+    for name, value in want.items():
+        tol = 1e-12 if got[name].dtype == torch.float64 else 1e-6
+        np.testing.assert_allclose(got[name].numpy(), np.asarray(value), rtol=tol, atol=tol, equal_nan=True)
+    # three bundles, each with one B3 launch (on the card) and one plain scatter per update
+    assert _common.dispatch_count("segment_scatter_add", "torch") == 12
+    assert _common.dispatch_count("segment_scatter_add", "plain") == 12
+    keyed = T.MeanSquaredError(**CPU).keyed(3, validate_ids=False)
+    assert isinstance(keyed, T.KeyedMetric) and keyed.num_tenants == 3 and not keyed.validate_ids
