@@ -217,6 +217,32 @@ Phases, in order; any failure exits non-zero before the last line:
    within 1e-5, the buffered ``SSIM(data_range=1.0)`` equals the streaming
    one on them; the per-batch median and the idle share of 10 batches.
    ``regression_phase_main()`` runs 3j alone.
+3k. The retrieval slice (after 3j): the MS MARCO passage-ranking dev set as
+   rerankers evaluate it, made from a seed on the card: 6,980 queries, 90%
+   with 1,000 candidates and the rest with a length uniform in [1, 999]
+   (about 6.63 M rows), one relevant passage per query (6.5% of queries
+   two, 15% none in the list), scores N(0, 1) and N(1.5, 1) rounded through
+   bfloat16 (exact ties). (a) The rows, query-major in chunks of 50,000,
+   through ``MetricCollection({RetrievalMAP, RetrievalMRR,
+   RetrievalPrecision(k=10), RetrievalRecall(k=100),
+   RetrievalNormalizedDCG(k=10), RetrievalFallOut(k=10)})`` by ``update``,
+   then ``compute()``: == the same collection on the CPU within 1e-6 and ==
+   a float64 numpy oracle (lexsort, one vectorized pass) within 1e-5. (b)
+   The same queries as (64, 1000) rows with a mask (the last batch padded
+   with fully masked rows) through the members with ``padded=True``: eager
+   ``forward`` and ``jit_forward`` + ``warmup`` interleaved call by call
+   (on-step values equal within 1e-6, 0 synchronizing calls in 10 compiled
+   forwards, medians), then ``update_many`` (K = 10); each == (a) within
+   1e-5. (c) The stream into ``RetrievalMAP(sketched=True,
+   sketch_capacity=1_048_576)``: the reservoir == the CPU run's bit for bit,
+   the sampled MAP within 0.05 of (a)'s. (d) ``MultiTenantCollection(
+   [RetrievalMAP, RetrievalMRR, RetrievalNormalizedDCG(k=10)](padded=True),
+   10,000)``: 50 updates of 4096 query rows x 100 candidates, tenant ids
+   uniform (the last update 3000 real rows, padded with id -1): B3 once per
+   bundle per update (150), B1, B2, B4, B5 never; ``query_total`` == the
+   CPU's exactly, ``value_sum`` and the per-tenant values within rtol = atol
+   = 1e-5; then ``warmup`` + ``update_many`` (K = 5), B3 150 through the
+   replays. ``retrieval_phase_main()`` runs 3k alone.
 5. One JSON line ``{"kernels": [...]}``, the card line again, and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -2162,6 +2188,429 @@ def regression_phase_main(record_path: str = "") -> int:
     return _phase_alone(lambda torch, M, dev, card: regression_phase(
         torch, M, dev, card, make_keyed_batches(torch, dev), 0.0), record_path)
 
+
+# --------------------------------------------------------------------------
+# phase 3k: the retrieval slice
+# --------------------------------------------------------------------------
+
+#: the MS MARCO passage-ranking dev set as rerankers evaluate it: 6,980
+#: queries, each with BM25's top 1,000 candidates
+RET_QUERIES = 6980
+RET_DEPTH = 1000
+RET_CHUNK = 50_000
+RET_PAD_ROWS = 64
+RET_MANY = 10
+RET_SKETCH_CAPACITY = 1_048_576
+RET_KEYED_DEPTH = 100
+RET_KEYS = ("MAP", "MRR", "P@10", "R@100", "nDCG@10", "FallOut@10")
+
+
+def build_retrieval(M, device, **kw):
+    """The reranker evaluation's six members, in one mode (``kw``)."""
+    return M.MetricCollection({
+        "MAP": M.RetrievalMAP(device=device, **kw),
+        "MRR": M.RetrievalMRR(device=device, **kw),
+        "P@10": M.RetrievalPrecision(k=10, device=device, **kw),
+        "R@100": M.RetrievalRecall(k=100, device=device, **kw),
+        "nDCG@10": M.RetrievalNormalizedDCG(k=10, device=device, **kw),
+        "FallOut@10": M.RetrievalFallOut(k=10, device=device, **kw),
+    })
+
+
+def _relevance(torch, gen, dev, lengths):
+    """Per query, the positions of its relevant passages in its list: one
+    (6.5% of queries two, distinct), none in 15% (BM25 missed it)."""
+    n = lengths.shape[0]
+    r = torch.rand(n, generator=gen, device=dev)
+    n_rel = torch.minimum(torch.where(r < 0.15, 0, torch.where(r < 0.215, 2, 1)), lengths)
+    first = (torch.rand(n, generator=gen, device=dev) * lengths).long()
+    second = (first + 1 + (torch.rand(n, generator=gen, device=dev) * (lengths - 1)).long()) % lengths
+    return n_rel, first, second
+
+
+def _reranker_scores(torch, gen, dev, target):
+    """A reranker's logits: N(0, 1) for negatives, N(1.5, 1) for positives,
+    rounded through bfloat16, so exact ties occur."""
+    noise = torch.randn(target.shape, generator=gen, device=dev)
+    return (noise + 1.5 * target).to(torch.bfloat16).float()
+
+
+def make_reranker_stream(torch, dev):
+    """The seeded reranker evaluation, query-major: ``(query ids, scores,
+    int64 relevance)`` rows and each row's ``(query, position)``. 90% of
+    queries hold 1,000 candidates, the rest a length uniform in [1, 999];
+    the query ids are MS MARCO-like (distinct, below 1,102,000)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 20)
+    full = torch.rand(RET_QUERIES, generator=gen, device=dev) < 0.9
+    short = torch.randint(1, RET_DEPTH, (RET_QUERIES,), generator=gen, device=dev)
+    lengths = torch.where(full, RET_DEPTH, short)
+    n_rel, first, second = _relevance(torch, gen, dev, lengths)
+    qids = torch.randperm(1_102_000, generator=gen, device=dev)[:RET_QUERIES]
+    row_q = torch.repeat_interleave(torch.arange(RET_QUERIES, device=dev), lengths)
+    pos = torch.arange(row_q.numel(), device=dev) - (torch.cumsum(lengths, 0) - lengths)[row_q]
+    target = (((n_rel[row_q] >= 1) & (pos == first[row_q])) | ((n_rel[row_q] >= 2) & (pos == second[row_q]))).long()
+    return qids[row_q], _reranker_scores(torch, gen, dev, target), target, row_q, pos
+
+
+def _reranker_oracle(np, idx, preds, target) -> dict:
+    """The six values in float64 numpy over the whole stream: numpy's
+    ``lexsort((-preds, inverse))`` and one vectorized pass, no loop over
+    queries (default policies: an empty query scores 0, FallOut's 1)."""
+    _, inverse = np.unique(idx, return_inverse=True)
+    order = np.lexsort((-preds, inverse))
+    q, t = inverse[order], target[order].astype(np.float64)
+    nq = int(q.max()) + 1
+    counts = np.bincount(q, minlength=nq)
+    starts = np.cumsum(counts) - counts
+    rank = np.arange(q.size) - starts[q]
+    csum = np.concatenate([[0.0], np.cumsum(t)])
+    hits = csum[1:] - csum[starts[q]]
+
+    def per_query(weights):
+        return np.bincount(q, weights=weights, minlength=nq)
+
+    n_rel = per_query(t)
+    has = n_rel > 0
+    safe = np.maximum(n_rel, 1)
+    first = np.full(nq, np.inf)
+    np.minimum.at(first, q[t > 0], rank[t > 0])
+    disc = np.concatenate([[0.0], np.cumsum(1.0 / np.log2(np.arange(10) + 2.0))])
+    idcg = disc[np.minimum(n_rel, 10).astype(np.int64)]
+    neg = counts - n_rel
+    values = {
+        "MAP": np.where(has, per_query(np.where(t > 0, hits / (rank + 1), 0.0)) / safe, 0.0),
+        "MRR": np.where(has, 1.0 / (first + 1), 0.0),
+        "P@10": np.where(has, per_query(t * (rank < 10)) / 10, 0.0),
+        "R@100": np.where(has, per_query(t * (rank < 100)) / safe, 0.0),
+        "nDCG@10": np.where(idcg > 0, per_query(t * (rank < 10) / np.log2(rank + 2.0)) / np.maximum(idcg, 1e-30), 0.0),
+        "FallOut@10": np.where(neg > 0, per_query((1 - t) * (rank < 10)) / np.maximum(neg, 1), 1.0),
+    }
+    return {name: float(np.mean(v)) for name, v in values.items()}
+
+
+def _retrieval_flat(torch, np, M, dev, card, stream, record) -> dict:
+    """Phase 3k-a: the stream in chunks of 50,000 through the flat members,
+    against the CPU port and the float64 oracle. Returns the values."""
+    idx, preds, target = stream[:3]
+    chunks = list(zip(torch.split(idx, RET_CHUNK), torch.split(preds, RET_CHUNK), torch.split(target, RET_CHUNK)))
+    coll = build_retrieval(M, dev, compute_on_step=False)
+    torch.cuda.synchronize()
+    update_ms = []
+    for i, p, t in chunks:
+        t0 = time.perf_counter()
+        coll.update(p, t, indexes=i)
+        torch.cuda.synchronize()
+        update_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    out = coll.compute()
+    torch.cuda.synchronize()
+    compute_ms = (time.perf_counter() - t0) * 1e3
+    for name, value in out.items():
+        if value.shape != () or value.dtype != torch.float32 or not bool(torch.isfinite(value)):
+            fail(f"[retrieval flat] {name}: {value} is not a finite float32 scalar")
+    values = {name: float(v) for name, v in out.items()}
+    cpu = build_retrieval(M, "cpu", compute_on_step=False)
+    for i, p, t in chunks:
+        cpu.update(p.cpu(), t.cpu(), indexes=i.cpu())
+    t0 = time.perf_counter()
+    cpu_values = {name: float(v) for name, v in cpu.compute().items()}
+    cpu_compute_ms = (time.perf_counter() - t0) * 1e3
+    del cpu
+    oracle = _reranker_oracle(np, idx.cpu().numpy(), preds.cpu().numpy(), target.cpu().numpy())
+    cpu_diff = {n: abs(values[n] - cpu_values[n]) for n in values}
+    oracle_diff = {n: abs(values[n] - oracle[n]) for n in values}
+    for name in values:
+        if cpu_diff[name] > 1e-6:
+            fail(f"[retrieval flat] {name}: {values[name]} on the card, {cpu_values[name]} on the CPU")
+        if oracle_diff[name] > 1e-5:
+            fail(f"[retrieval flat] {name}: {values[name]} on the card, {oracle[name]} by the float64 oracle")
+    prof = profile_steps(torch, lambda i, p, t: coll.update(p, t, indexes=i), chunks[:10])
+    idle = 1 - prof["device_busy_ms"] / prof["wall_ms"]
+    # where a member's compute() goes: the grouping of the whole stream into its layout
+    from metrics_tpu_torch.retrieval.retrieval_metric import RetrievalMetric
+
+    flat = (idx.to(torch.int32), preds, target.to(torch.int32))
+    group = profile_steps(torch, lambda: RetrievalMetric._group_arrays_into_rows(*flat), [()])
+    print(f"[retrieval flat] {RET_QUERIES} queries, {idx.numel()} rows in {len(chunks)} chunks of {RET_CHUNK} through "
+          f"MAP, MRR, P@10, R@100, nDCG@10, FallOut@10 on {card}: update median {statistics.median(update_ms):.3f} ms "
+          f"(first {update_ms[0]:.3f} ms), compute {compute_ms:.3f} ms (the CPU's {cpu_compute_ms:.1f} ms); values "
+          f"{json.dumps({n: round(v, 6) for n, v in values.items()})}; == CPU (max |diff| {max(cpu_diff.values()):.2e}), "
+          f"== float64 oracle (max |diff| {max(oracle_diff.values()):.2e}); 10 updates under the profiler: wall "
+          f"{prof['wall_ms']:.3f} ms, busy {prof['device_busy_ms']:.3f} ms (idle share {idle:.3f}); one grouping of "
+          f"the stream: wall {group['wall_ms']:.3f} ms, busy {group['device_busy_ms']:.3f} ms")
+    for row in group["top_device"][:5]:
+        print(f"[retrieval flat]   {row['device_us']:10.1f} us  {row['calls']:4d} x  {row['name']}")
+    record["flat"] = {"rows": int(idx.numel()), "update_ms": update_ms, "compute_ms": compute_ms,
+                      "cpu_compute_ms": cpu_compute_ms, "values": values, "cpu_values": cpu_values, "oracle": oracle,
+                      "max_abs_diff_vs_cpu": max(cpu_diff.values()), "max_abs_diff_vs_oracle": max(oracle_diff.values()),
+                      "profile": prof, "grouping_profile": group}
+    del coll
+    return values
+
+
+def _retrieval_padded(torch, M, dev, card, stream, flat_values, record) -> None:
+    """Phase 3k-b: the same queries as (64, 1000) rows with a mask: eager
+    forward and the compiled forward interleaved call by call, then
+    ``update_many``; each == 3k-a's values within 1e-5."""
+    _, preds, target, row_q, pos = stream
+    rows = -(-RET_QUERIES // RET_PAD_ROWS) * RET_PAD_ROWS  # the last batch padded with fully masked rows
+    p_rows = torch.zeros((rows, RET_DEPTH), device=dev)
+    t_rows = torch.zeros((rows, RET_DEPTH), dtype=torch.long, device=dev)
+    m_rows = torch.zeros((rows, RET_DEPTH), dtype=torch.bool, device=dev)
+    p_rows[row_q, pos], t_rows[row_q, pos], m_rows[row_q, pos] = preds, target, True
+    batches = list(zip(torch.split(p_rows, RET_PAD_ROWS), torch.split(t_rows, RET_PAD_ROWS),
+                       torch.split(m_rows, RET_PAD_ROWS)))
+    eager = build_retrieval(M, dev, padded=True)
+    compiled = build_retrieval(M, dev, padded=True).jit_forward()
+    t0 = time.perf_counter()
+    compiled.warmup(batches[0][0], batches[0][1], mask=batches[0][2])
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    eager_ms, compiled_ms, syncs, step_diff = [], [], [], 0.0
+    for n, (p, t, m) in enumerate(batches):
+        t0 = time.perf_counter()
+        want = eager(p, t, mask=m)
+        torch.cuda.synchronize()
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+        if n < 10:  # the synchronizing calls of the first ten compiled forwards (not timed)
+            got = {}
+            syncs += sync_calls(torch, lambda: got.update(compiled(p, t, mask=m)))
+        else:
+            t0 = time.perf_counter()
+            got = compiled(p, t, mask=m)
+            torch.cuda.synchronize()
+            compiled_ms.append((time.perf_counter() - t0) * 1e3)
+        for name in want:
+            step_diff = max(step_diff, abs(float(got[name]) - float(want[name])))
+    if syncs:
+        fail(f"[retrieval padded] the compiled forward made synchronizing calls: {syncs}")
+    if step_diff > 1e-6:
+        fail(f"[retrieval padded] a compiled on-step value differs from the eager one by {step_diff}")
+    # update_many: a first call captures, then reset() and the timed pass, which only replays
+    many = build_retrieval(M, dev, padded=True)
+    stacks = [tuple(torch.stack(col) for col in zip(*batches[k:k + RET_MANY])) for k in range(0, len(batches), RET_MANY)]
+    many.update_many(stacks[0][0], stacks[0][1], mask=stacks[0][2])
+    many.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p, t, m in stacks:
+        many.update_many(p, t, mask=m)
+    torch.cuda.synchronize()
+    many_ms = (time.perf_counter() - t0) * 1e3
+    diffs = {}
+    for label, coll in (("eager", eager), ("compiled", compiled), ("update_many", many)):
+        values = {name: float(v) for name, v in coll.compute().items()}
+        diffs[label] = max(abs(values[n] - flat_values[n]) for n in RET_KEYS)
+        if diffs[label] > 1e-5:
+            fail(f"[retrieval padded] {label}: {values} against the flat mode's {flat_values}")
+        queries = {int(coll[n].query_total) for n in RET_KEYS}
+        if queries != {RET_QUERIES}:
+            fail(f"[retrieval padded] {label} counted {queries} queries, expected {RET_QUERIES}")
+    prof_e = profile_steps(torch, lambda p, t, m: eager(p, t, mask=m), batches[:10])
+    prof_c = profile_steps(torch, lambda p, t, m: compiled(p, t, mask=m), batches[:10])
+    idle_e = 1 - prof_e["device_busy_ms"] / prof_e["wall_ms"]
+    idle_c = 1 - prof_c["device_busy_ms"] / prof_c["wall_ms"]
+    e_med, c_med = statistics.median(eager_ms[10:]), statistics.median(compiled_ms)
+    print(f"[retrieval padded] {len(batches)} batches of {RET_PAD_ROWS} x {RET_DEPTH} (the last with "
+          f"{rows - RET_QUERIES} masked rows) on {card}: eager forward {e_med:.3f} ms, compiled {c_med:.3f} ms "
+          f"(ratio {c_med / e_med:.3f}, interleaved, batches 10 on), capture {capture_ms:.1f} ms, 0 synchronizing "
+          f"calls in 10 compiled forwards; update_many K = {RET_MANY} {many_ms / len(batches):.3f} ms a batch; "
+          f"== flat values (max |diff| {diffs}); idle share eager {idle_e:.3f}, compiled {idle_c:.3f}")
+    record["padded"] = {"batches": len(batches), "eager_ms": eager_ms, "compiled_ms": compiled_ms,
+                        "capture_ms": capture_ms, "update_many_ms_per_batch": many_ms / len(batches),
+                        "sync_calls": syncs, "max_abs_diff_vs_flat": diffs, "step_diff": step_diff,
+                        "profile_eager": prof_e, "profile_compiled": prof_c}
+
+
+def _retrieval_sketched(torch, np, M, dev, card, stream, flat_values, record) -> None:
+    """Phase 3k-c: the stream into the 1,048,576-row query reservoir: its
+    states == the CPU run's bit for bit, its MAP within 0.05 of the exact."""
+    import warnings
+
+    idx, preds, target = stream[:3]
+    chunks = list(zip(torch.split(idx, RET_CHUNK), torch.split(preds, RET_CHUNK), torch.split(target, RET_CHUNK)))
+    m = M.RetrievalMAP(sketched=True, sketch_capacity=RET_SKETCH_CAPACITY, compute_on_step=False, device=dev)
+    host = M.RetrievalMAP(sketched=True, sketch_capacity=RET_SKETCH_CAPACITY, compute_on_step=False, device="cpu")
+    torch.cuda.synchronize()
+    update_ms = []
+    for i, p, t in chunks:
+        t0 = time.perf_counter()
+        m.update(p, t, indexes=i)
+        torch.cuda.synchronize()
+        update_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    for i, p, t in chunks:
+        host.update(p.cpu(), t.cpu(), indexes=i.cpu())
+    cpu_ms = (time.perf_counter() - t0) * 1e3 / len(chunks)
+    for name in ("res_key", "res_qid", "res_pred", "res_target", "res_seen", "res_overflow"):
+        got, want = getattr(m, name).cpu(), getattr(host, name)
+        if got.is_floating_point():
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        if not torch.equal(got, want):
+            fail(f"[retrieval sketched] the reservoir's {name} on the card differs from the CPU run's")
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        value = float(m.compute())
+        torch.cuda.synchronize()
+        compute_ms = (time.perf_counter() - t0) * 1e3
+        cpu_value = float(host.compute())
+    sampled = [str(w.message) for w in seen if "sampled the query stream" in str(w.message)]
+    if len(sampled) != 2:
+        fail(f"[retrieval sketched] expected the sampling warning from both runs, got {sampled}")
+    if abs(value - cpu_value) > 1e-6:
+        fail(f"[retrieval sketched] MAP {value} on the card, {cpu_value} on the CPU")
+    gap = abs(value - flat_values["MAP"])
+    if gap > 0.05:
+        fail(f"[retrieval sketched] the sampled MAP {value} is {gap} from the exact {flat_values['MAP']}")
+    kept = int(torch.unique(m.res_qid[torch.isfinite(m.res_key)]).numel())
+    print(f"[retrieval sketched] RetrievalMAP(sketched=True, sketch_capacity={RET_SKETCH_CAPACITY}) on {card}: update "
+          f"median {statistics.median(update_ms):.3f} ms a chunk (the CPU's {cpu_ms:.1f} ms), compute {compute_ms:.3f} "
+          f"ms; reservoir == CPU bit for bit; {kept} queries in the reservoir; {sampled[0].split(': ')[1][:60]}...; "
+          f"MAP {value:.6f}, exact {flat_values['MAP']:.6f} (|diff| {gap:.4f})")
+    record["sketched"] = {"update_ms": update_ms, "cpu_update_ms": cpu_ms, "compute_ms": compute_ms, "value": value,
+                          "exact": flat_values["MAP"], "gap": gap, "queries_in_reservoir": kept,
+                          "warning": sampled[0]}
+
+
+def make_keyed_retrieval(torch, dev):
+    """50 seeded cohorts of 4096 query rows x 100 candidates (a second-stage
+    top-100 rerank) with tenant ids uniform in [0, 10000); the last holds
+    3000 real rows, padded with id -1 and zero rows."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 21)
+    lengths = torch.full((KEYED_ROWS,), RET_KEYED_DEPTH, device=dev)
+    col = torch.arange(RET_KEYED_DEPTH, device=dev)
+    cohorts = []
+    for step in range(KEYED_UPDATES):
+        ids = torch.randint(0, KEYED_TENANTS, (KEYED_ROWS,), generator=gen, device=dev)
+        n_rel, first, second = _relevance(torch, gen, dev, lengths)
+        target = (((n_rel >= 1)[:, None] & (col == first[:, None]))
+                  | ((n_rel >= 2)[:, None] & (col == second[:, None]))).long()
+        preds = _reranker_scores(torch, gen, dev, target)
+        if step == KEYED_UPDATES - 1:
+            ids[KEYED_LAST_REAL:] = -1
+            preds[KEYED_LAST_REAL:] = 0.0
+            target[KEYED_LAST_REAL:] = 0
+        cohorts.append((ids, preds, target))
+    return cohorts
+
+
+def build_keyed_retrieval(M, device):
+    return M.MultiTenantCollection([M.RetrievalMAP(padded=True, device=device),
+                                    M.RetrievalMRR(padded=True, device=device),
+                                    M.RetrievalNormalizedDCG(padded=True, k=10, device=device)],
+                                   KEYED_TENANTS, validate_ids=False, device=device)
+
+
+def _retrieval_keyed(torch, M, dev, card, _common, record) -> None:
+    """Phase 3k-d: per-tenant ranking quality over 10,000 tenants: B3 once
+    per bundle per update, no other kernel; the stacked states and the
+    per-tenant values against the CPU; then ``update_many``."""
+    cohorts = make_keyed_retrieval(torch, dev)
+    kgpu = build_keyed_retrieval(M, dev)
+    torch.cuda.synchronize()
+    _common.reset_dispatch_counters()
+    k_ms = []
+    for ids, preds, target in cohorts:
+        t0 = time.perf_counter()
+        kgpu.update(ids, preds, target)
+        torch.cuda.synchronize()
+        k_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {op: _common.launch_count(op) for op in KERNEL_OPS}
+    bundles = kgpu.state_bundles
+    expected = {op: (bundles * KEYED_UPDATES if op == "segment_scatter_add" else 0) for op in KERNEL_OPS}
+    if bundles != 3 or launches != expected:
+        fail(f"[retrieval keyed] {bundles} bundles, launches {launches}, expected 3 and {expected}: one B3 launch "
+             "per bundle per update (value_sum and query_total packed), no other kernel")
+    kcpu = build_keyed_retrieval(M, "cpu")
+    for ids, preds, target in cohorts:
+        kcpu.update(ids.cpu(), preds.cpu(), target.cpu())
+    sum_diff = 0.0
+    for owner, km in kgpu._keyed.items():
+        ref = kcpu._keyed[owner]
+        if km.query_total.dtype != torch.int32 or not torch.equal(km.query_total.cpu(), ref.query_total):
+            fail(f"[retrieval keyed] {owner}.query_total on the card differs from the CPU's")
+        got, want = km.value_sum.cpu(), ref.value_sum
+        sum_diff = max(sum_diff, float((got - want).abs().max()))
+        if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
+            fail(f"[retrieval keyed] {owner}.value_sum on the card differs from the CPU's by {sum_diff}")
+    queries = int(sum(km.query_total.sum() for km in kcpu._keyed.values()))
+    if queries != 3 * ((KEYED_UPDATES - 1) * KEYED_ROWS + KEYED_LAST_REAL):
+        fail(f"[retrieval keyed] {queries} queries counted over the three members")
+    values, values_cpu = kgpu.compute(), kcpu.compute()
+    value_diff = 0.0
+    for name, value in values.items():
+        got = value.cpu()
+        value_diff = max(value_diff, float((got - values_cpu[name]).abs().max()))
+        if not torch.allclose(got, values_cpu[name], rtol=1e-5, atol=1e-5):
+            fail(f"[retrieval keyed] per-tenant {name} on the card differs from the CPU's by {value_diff}")
+    telemetry = check_telemetry("retrieval keyed", [("MultiTenantCollection", kgpu, kcpu)])
+    # warmup + update_many, K = 5: a first pass captures, then reset() and the counted pass
+    kmany = build_keyed_retrieval(M, dev)
+    stacks = [tuple(torch.stack([c[j] for c in cohorts[k:k + 5]]) for j in range(3))
+              for k in range(0, KEYED_UPDATES, 5)]
+    kmany.warmup(*cohorts[0])
+    kmany.update_many(*stacks[0])
+    kmany.reset()
+    torch.cuda.synchronize()
+    _common.reset_dispatch_counters()
+    t0 = time.perf_counter()
+    for stacked in stacks:
+        kmany.update_many(*stacked)
+    torch.cuda.synchronize()
+    many_ms = (time.perf_counter() - t0) * 1e3 / KEYED_UPDATES
+    many_launches = _common.launch_count("segment_scatter_add")
+    if many_launches != bundles * KEYED_UPDATES:
+        fail(f"[retrieval keyed] B3 launched {many_launches} times through the update_many replays, expected "
+             f"{bundles * KEYED_UPDATES}")
+    for owner, km in kgpu._keyed.items():
+        if not torch.equal(kmany._keyed[owner].query_total, km.query_total) or not torch.allclose(
+                kmany._keyed[owner].value_sum, km.value_sum, rtol=1e-5, atol=1e-5):
+            fail(f"[retrieval keyed] update_many's {owner} differs from the eager updates'")
+    prof = profile_steps(torch, lambda i, p, t: kgpu.update(i, p, t), cohorts[:10])
+    idle = 1 - prof["device_busy_ms"] / prof["wall_ms"]
+    print(f"[retrieval keyed] MultiTenantCollection([MAP, MRR, nDCG@10](padded=True), {KEYED_TENANTS}) on {card}: "
+          f"{KEYED_UPDATES} updates of {KEYED_ROWS} x {RET_KEYED_DEPTH}, median {statistics.median(k_ms):.3f} ms "
+          f"(first {k_ms[0]:.3f} ms); launches {launches}; query_total == CPU exactly, value_sum within "
+          f"{sum_diff:.2e}, per-tenant values within {value_diff:.2e}; update_many K = 5 {many_ms:.3f} ms a cohort, "
+          f"B3 {many_launches} through the replays; 10 updates under the profiler: wall {prof['wall_ms']:.3f} ms, "
+          f"busy {prof['device_busy_ms']:.3f} ms (idle share {idle:.3f})")
+    for row in prof["top_device"][:5]:
+        print(f"[retrieval keyed]   {row['device_us']:10.1f} us  {row['calls']:4d} x  {row['name']}")
+    record["keyed"] = {"update_ms": k_ms, "launches": launches, "bundles": bundles, "value_sum_diff": sum_diff,
+                       "value_diff": value_diff, "update_many_ms_per_cohort": many_ms,
+                       "update_many_launches": many_launches, "telemetry": telemetry, "profile": prof}
+
+
+def retrieval_phase(torch, M, dev, card) -> dict:
+    """Phase 3k: the retrieval slice at full width (see the module
+    docstring): (a) the reranker evaluation, flat; (b) the same queries
+    padded, eager and compiled; (c) the query reservoir; (d) per-tenant
+    ranking quality, keyed."""
+    import numpy as np
+
+    from metrics_tpu_torch.kernels import _common
+
+    record = {}
+    t0 = time.perf_counter()
+    stream = make_reranker_stream(torch, dev)
+    flat_values = _retrieval_flat(torch, np, M, dev, card, stream, record)
+    _retrieval_padded(torch, M, dev, card, stream, flat_values, record)
+    _retrieval_sketched(torch, np, M, dev, card, stream, flat_values, record)
+    del stream
+    _retrieval_keyed(torch, M, dev, card, _common, record)
+    record["phase_s"] = time.perf_counter() - t0
+    print(f"[retrieval] phase 3k took {record['phase_s']:.1f} s on {card}")
+    return record
+
+
+def retrieval_phase_main(record_path: str = "") -> int:
+    """Run :func:`retrieval_phase` alone (see :func:`_phase_alone`)."""
+    return _phase_alone(retrieval_phase, record_path)
+
+
 def compute_async_phase(torch, M, dev, batches, card) -> dict:
     """Phase 3h-c: ``compute_async`` of the ImageNet-1k collection after 25 of
     its 49 forwards against a synchronous ``compute()`` at that point."""
@@ -2813,6 +3262,9 @@ def main() -> int:
     # -- 3j. the regression slice ---------------------------------------------------
     record["regression"] = regression_phase(torch, M, dev, card, keyed_batches, statistics.median(update_ms))
 
+    # -- 3k. the retrieval slice ----------------------------------------------------
+    record["retrieval"] = retrieval_phase(torch, M, dev, card)
+
     # -- 4. times at the main-path shapes ------------------------------------
     preds, target = batches[0]
     canon_p, canon_t, _ = _input_format_classification(preds, target)
@@ -3034,6 +3486,12 @@ def main() -> int:
             entry["regression_launches"] = {"eager": regression["launches"]["segment_scatter_add"],
                                             "update_many": regression["update_many_launches"],
                                             "plain_scatters": regression["plain_scatters"]}
+    # B3 on the retrieval slice's keyed path (phase 3k-d): eager and through the update_many replays
+    retrieval = record["retrieval"]["keyed"]
+    for entry in kernels:
+        if entry["name"] == "segment_scatter_add":
+            entry["retrieval_launches"] = {"eager": retrieval["launches"]["segment_scatter_add"],
+                                           "update_many": retrieval["update_many_launches"]}
     record["kernels"] = kernels
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)

@@ -31,7 +31,10 @@ family (``MeanSquaredError``, ``MeanAbsoluteError``,
 ``ExplainedVariance``, ``R2Score``, ``PearsonCorrcoef``,
 ``CosineSimilarity`` and ``SpearmanCorrcoef``, with their streaming,
 ``capacity=`` and ``sketched=True`` modes) with the image metrics ``PSNR``
-and ``SSIM``.
+and ``SSIM``, and the retrieval family (``RetrievalMAP``, ``RetrievalMRR``,
+``RetrievalPrecision``, ``RetrievalRecall``, ``RetrievalNormalizedDCG``,
+``RetrievalFallOut``) in its flat, ``padded=True`` and ``sketched=True``
+(query reservoir) modes.
 """
 from metrics_tpu_torch.average import AverageMeter  # noqa: F401
 from metrics_tpu_torch.classification import (  # noqa: F401
@@ -71,6 +74,15 @@ from metrics_tpu_torch.regression import (  # noqa: F401
     PearsonCorrcoef,
     R2Score,
     SpearmanCorrcoef,
+)
+from metrics_tpu_torch.retrieval import (  # noqa: F401
+    RetrievalFallOut,
+    RetrievalMAP,
+    RetrievalMetric,
+    RetrievalMRR,
+    RetrievalNormalizedDCG,
+    RetrievalPrecision,
+    RetrievalRecall,
 )
 from metrics_tpu_torch.utilities.capped_buffer import BufferOverflowError  # noqa: F401
 from metrics_tpu_torch.wrappers import KeyedMetric, MultiTenantCollection  # noqa: F401

@@ -38,3 +38,11 @@ from metrics_tpu_torch.functional.regression import (  # noqa: F401
     spearman_corrcoef,
     ssim,
 )
+from metrics_tpu_torch.functional.retrieval import (  # noqa: F401
+    retrieval_average_precision,
+    retrieval_fall_out,
+    retrieval_normalized_dcg,
+    retrieval_precision,
+    retrieval_recall,
+    retrieval_reciprocal_rank,
+)

@@ -1,7 +1,10 @@
 """Pearson correlation coefficient.
 
 Counterpart of ``metrics_tpu/functional/regression/pearson.py``, with its
-eps-guarded denominator and clipping to [-1, 1].
+eps-guarded denominator and clipping to [-1, 1]. Integer (and boolean)
+inputs compute in float32, the port's float policy (``torch.mean`` refuses
+integer tensors, where ``jnp.mean`` promotes them); float inputs keep their
+dtype.
 """
 from typing import Tuple
 
@@ -11,13 +14,19 @@ from metrics_tpu_torch.utilities.checks import _check_same_shape
 from metrics_tpu_torch.utilities.data import Tensor
 
 
-def _pearson_corrcoef_update(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:
+def _pearson_check(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:
+    """The shape checks: equal shapes, 1-D after squeezing."""
     _check_same_shape(preds, target)
     preds = torch.squeeze(preds)
     target = torch.squeeze(target)
     if preds.ndim > 1 or target.ndim > 1:
         raise ValueError("Expected both predictions and target to be 1 dimensional tensors.")
     return preds, target
+
+
+def _pearson_corrcoef_update(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:
+    preds, target = _pearson_check(preds, target)
+    return tuple(x if x.is_floating_point() else x.to(torch.float32) for x in (preds, target))
 
 
 def _pearson_corrcoef_compute(preds: Tensor, target: Tensor, eps: float = 1e-6) -> Tensor:

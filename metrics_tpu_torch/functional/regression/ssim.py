@@ -12,7 +12,7 @@ The reflect padding gathers along precomputed reflected positions (an
 most the pad, bouncing as often as ``jnp.pad(mode="reflect")`` does, where
 ``F.pad`` refuses. The convolutions run in full float32 on the card (no
 TF32): the variance cancellation ``E[X^2] - mu^2`` amplifies any rounding of
-the window means.
+the window means. Integer images compute in float32.
 """
 import contextlib
 from typing import Iterator, Optional, Sequence, Tuple
@@ -91,6 +91,11 @@ def _ssim_compute(
         raise ValueError(f"Expected `kernel_size` to have odd positive number. Got {kernel_size}.")
     if any(y <= 0 for y in sigma):
         raise ValueError(f"Expected `sigma` to have positive number. Got {sigma}.")
+    if not preds.is_floating_point():
+        # integer images compute in float32 (the port's float policy): the
+        # window, the pad and the convolutions. The JAX package builds its
+        # window in the images' integer dtype, where it truncates to zeros.
+        preds, target = preds.to(torch.float32), target.to(torch.float32)
 
     if data_range is None:
         data_range = torch.maximum(preds.max() - preds.min(), target.max() - target.min())

@@ -1,7 +1,7 @@
 """Fixed-size sketches: threshold metrics from binned label histograms,
-the CDF sketch and the joint rank grid.
+the CDF sketch, the joint rank grid and the priority reservoir.
 
-Counterpart of ``metrics_tpu/kernels/sketches.py:62-241``: the curve
+Counterpart of ``metrics_tpu/kernels/sketches.py``: the curve
 functions that reconstruct AUROC, ROC, the precision-recall curve and
 average precision from the per-bin score counts of
 :func:`~metrics_tpu_torch.kernels.binned_counts.label_score_histograms`,
@@ -23,8 +23,18 @@ Convention shared by every ``hist_*`` function: ``pos_hist``/``neg_hist``
 hold per-bin counts over the LAST axis (leading axes are classes or labels),
 bin b covering scores in ``[edge_b, edge_{b+1})`` of an ascending grid. All
 are plain float32 tensor math, safe under ``torch.func.vmap`` (the keyed
-compute fans them out per tenant). The CDF grid, the Spearman grid and the
-reservoir wait for the regression and retrieval metrics that use them.
+compute fans them out per tenant).
+
+The reservoir (:func:`uniform_hash`, :func:`weighted_priority`,
+:func:`bounded_priority_keep`, ``sketches.py:252-291``) backs
+``RetrievalMetric(sketched=True)``. :func:`uniform_hash` reproduces the
+JAX package's uint32 murmur3 finalizer bit for bit in int64 arithmetic
+(PyTorch has no shift of ``uint32``): each product is split into 16-bit
+halves so no intermediate passes 2^63, and every step is masked to 32
+bits. :func:`bounded_priority_keep` is the JAX package's two-key stable
+``lax.sort`` as two stable sorts, by the tie-break and then by the key.
+Every constant is a Python scalar, so a reservoir update can be captured
+into a CUDA graph.
 """
 from typing import Any, Tuple
 
@@ -45,6 +55,9 @@ __all__ = [
     "hist_roc",
     "joint_grid_update",
     "spearman_from_grid",
+    "bounded_priority_keep",
+    "uniform_hash",
+    "weighted_priority",
 ]
 
 
@@ -212,3 +225,61 @@ def spearman_from_grid(grid: Tensor) -> Tensor:
     var_x = torch.sum(nx * dx * dx)
     var_y = torch.sum(ny * dy * dy)
     return cov / torch.sqrt(var_x * var_y)
+
+
+# ---------------------------------------------------------------------------
+# weighted reservoir sampling (bounded-priority sample)
+# ---------------------------------------------------------------------------
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _mul32(x: Tensor, c: int) -> Tensor:
+    """``x * c mod 2^32`` for int64 ``x`` in ``[0, 2^32)`` and a 32-bit
+    constant, with no intermediate past 2^48."""
+    lo = x & 0xFFFF
+    hi = x >> 16
+    return (lo * c + (((hi * c) & 0xFFFF) << 16)) & _MASK32
+
+
+def uniform_hash(ids: Tensor) -> Tensor:
+    """Deterministic uniform in [0, 1] per integer id (murmur3 finalizer),
+    float32, bit-identical to the JAX package's.
+
+    The id's low 32 bits are hashed, as the JAX package's cast to uint32
+    takes them (so ids 5 and 2^32 + 5 collide). The uint32 result is
+    rounded to the nearest float32 and divided by 2^32, so a hash near 2^32
+    gives exactly 1.0, as there.
+    """
+    x = (ids.to(torch.int64) & _MASK32) + 0x9E3779B9
+    x = x & _MASK32
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    x = x ^ (x >> 16)
+    return x.to(torch.float32) / 4294967296.0
+
+
+def weighted_priority(uniform: Tensor, weight: Any = 1.0) -> Tensor:
+    """Efraimidis-Spirakis priority: an Exp(weight) variate from a uniform.
+
+    Keeping the ``capacity`` SMALLEST priorities draws a weighted sample
+    without replacement; ``weight=1`` degrades to uniform sampling."""
+    u = torch.clamp(uniform.to(torch.float32), 1e-12, 1.0)
+    weight = weight.to(torch.float32) if isinstance(weight, Tensor) else float(weight)
+    return -torch.log(u) / weight
+
+
+def bounded_priority_keep(
+    keys: Tensor, tiebreak: Tensor, values: Tuple[Tensor, ...], capacity: int
+) -> Tuple[Tensor, Tensor, Tuple[Tensor, ...]]:
+    """Keep the ``capacity`` rows with the smallest ``(key, tiebreak)``,
+    rows equal in both in the order they came (``sketches.py:276``).
+
+    Two stable sorts, by ``tiebreak`` and then by ``key``, give the JAX
+    package's stable two-key sort; the payload columns follow by one
+    gather each. Empty slots carry ``key = +inf`` and fall off the end."""
+    order = torch.sort(tiebreak, stable=True).indices
+    order = order[torch.sort(keys[order], stable=True).indices][:capacity]
+    return keys[order], tiebreak[order], tuple(v[order] for v in values)

@@ -11,7 +11,11 @@ from typing import Any, Callable, Optional, Union
 
 import torch
 
-from metrics_tpu_torch.functional.regression.pearson import _pearson_corrcoef_compute, _pearson_corrcoef_update
+from metrics_tpu_torch.functional.regression.pearson import (
+    _pearson_check,
+    _pearson_corrcoef_compute,
+    _pearson_corrcoef_update,
+)
 from metrics_tpu_torch.metric import Metric
 from metrics_tpu_torch.utilities.data import Tensor, dim_zero_cat
 
@@ -56,9 +60,10 @@ class PearsonCorrcoef(Metric):
             self.add_state("target", default=[], dist_reduce_fx="cat")
 
     def update(self, preds: Tensor, target: Tensor) -> None:
-        """Append the batch pairs (or fold them into the co-moment sums)."""
-        preds, target = _pearson_corrcoef_update(preds, target)
+        """Append the batch pairs, integers as float32 (or fold them into the
+        float64 co-moment sums, integers converted straight to float64)."""
         if self.streaming:
+            preds, target = _pearson_check(preds, target)
             x = torch.atleast_1d(preds).to(self.sum_x.dtype)
             y = torch.atleast_1d(target).to(self.sum_y.dtype)
             self.n_total = self.n_total + x.numel()
@@ -68,6 +73,7 @@ class PearsonCorrcoef(Metric):
             self.sum_yy = self.sum_yy + torch.sum(y * y)
             self.sum_xy = self.sum_xy + torch.sum(x * y)
         else:
+            preds, target = _pearson_corrcoef_update(preds, target)
             self.preds.append(preds)
             self.target.append(target)
 

@@ -1,8 +1,11 @@
-"""Input canonicalization and validation for classification metrics.
+"""Input canonicalization and validation for classification and retrieval metrics.
 
 Counterpart of ``metrics_tpu/utilities/checks.py`` (``_check_classification_inputs``
-and ``_input_format_classification``, ``checks.py:182-304``), with the same
-case inference, override matrix and error messages.
+and ``_input_format_classification``, ``checks.py:182-304``; the retrieval
+checks ``_check_retrieval_functional_inputs`` and ``_check_retrieval_inputs``,
+``checks.py:334-395``), with the same case inference, override matrix and
+error messages. The retrieval checks read the targets' range to the host
+once, in one transfer, and skip that read where no value can be read.
 
 The value checks (non-negative targets, label ranges, binary targets for
 float predictions) need data values on the host. Each tensor's
@@ -335,3 +338,69 @@ def _input_format_classification(
         preds, target = torch.squeeze(preds, -1), torch.squeeze(target, -1)
 
     return preds.to(torch.int32), target.to(torch.int32), case
+
+
+def _is_integer(x: Tensor) -> bool:
+    return not (x.dtype.is_floating_point or x.is_complex() or x.dtype == torch.bool)
+
+
+def _check_retrieval_target_dtype(target: Tensor, allow_non_binary_target: bool) -> bool:
+    """Raise unless the targets are booleans or integers (or, for graded
+    relevance, floats); returns whether they are booleans or integers."""
+    target_is_int = _is_integer(target) or target.dtype == torch.bool
+    if not target_is_int and not (allow_non_binary_target and target.is_floating_point()):
+        raise ValueError("`target` must be a tensor of booleans or integers")
+    return target_is_int
+
+
+def _retrieval_target(target: Tensor, target_is_int: bool, allow_non_binary_target: bool) -> Tensor:
+    """The targets' value check (one host read of their range, skipped where
+    no value can be read), then int32, or float32 for graded relevance."""
+    if not _is_traced(target):
+        lo, hi = _host_range(target)
+        if (not allow_non_binary_target and hi > 1) or lo < 0:
+            raise ValueError("`target` must contain `binary` values")
+    return target.to(torch.int32 if target_is_int else torch.float32).reshape(-1)
+
+
+def _check_retrieval_functional_inputs(
+    preds: Tensor,
+    target: Tensor,
+    allow_non_binary_target: bool = False,
+) -> Tuple[Tensor, Tensor]:
+    """Validate and flatten a (preds, target) retrieval pair -> (float32,
+    int32), or float32 targets for graded relevance (nDCG)."""
+    if preds.shape != target.shape:
+        raise ValueError("`preds` and `target` must be of the same shape")
+    if preds.ndim == 0 or preds.numel() == 0:
+        raise ValueError("`preds` and `target` must be non-empty and non-scalar tensors")
+    target_is_int = _check_retrieval_target_dtype(target, allow_non_binary_target)
+    if not preds.is_floating_point():
+        raise ValueError("`preds` must be a tensor of floats")
+    return preds.to(torch.float32).reshape(-1), _retrieval_target(target, target_is_int, allow_non_binary_target)
+
+
+def _check_retrieval_inputs(
+    indexes: Tensor,
+    preds: Tensor,
+    target: Tensor,
+    allow_non_binary_target: bool = False,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Validate and flatten an (indexes, preds, target) triple -> (int32,
+    float32, int32), or float32 targets for graded relevance (nDCG). The
+    query ids are cast to int32 as the JAX package casts them, wrapping ids
+    outside its range."""
+    if indexes.shape != preds.shape or preds.shape != target.shape:
+        raise ValueError("`indexes`, `preds` and `target` must be of the same shape")
+    if indexes.ndim == 0 or indexes.numel() == 0:
+        raise ValueError("`indexes`, `preds` and `target` must be non-empty and non-scalar tensors")
+    if not _is_integer(indexes):
+        raise ValueError("`indexes` must be a tensor of long integers")
+    if not preds.is_floating_point():
+        raise ValueError("`preds` must be a tensor of floats")
+    target_is_int = _check_retrieval_target_dtype(target, allow_non_binary_target)
+    return (
+        indexes.to(torch.int32).reshape(-1),
+        preds.to(torch.float32).reshape(-1),
+        _retrieval_target(target, target_is_int, allow_non_binary_target),
+    )

@@ -1,9 +1,10 @@
 """Tensor and device helpers shared by the metrics.
 
 Counterpart of ``metrics_tpu/utilities/data.py``, limited to what the
-classification and regression paths use (with ``METRIC_EPS``, the curves'
-guard against a zero denominator, and :func:`tie_group_bounds`, the tie
-groups behind Spearman's fractional ranks), plus the device rule of the port
+classification, regression and retrieval paths use (with ``METRIC_EPS``,
+the curves' guard against a zero denominator, :func:`tie_group_bounds`, the
+tie groups behind Spearman's fractional ranks, and :func:`get_group_indexes`,
+``data.py:172-188``), plus the device rule of the port
 (:func:`resolve_device`, :func:`check_device`). The one-hot and top-k masks are built by
 comparison with an ``arange`` along the class axis, so a label outside
 ``[0, C)`` gives an all-zero row (as ``jax.nn.one_hot`` does) instead of a
@@ -159,6 +160,19 @@ def tie_group_bounds(changed: Tensor) -> Tuple[Tensor, Tensor]:
     starts = torch.zeros(n + 1, dtype=idx.dtype, device=idx.device).scatter_(0, torch.where(is_start, group, n), idx)
     ends = torch.zeros(n + 1, dtype=idx.dtype, device=idx.device).scatter_(0, torch.where(is_end, group, n), idx)
     return starts[group], ends[group]
+
+
+def get_group_indexes(indexes: Tensor) -> List[Tensor]:
+    """Positions of each distinct value of ``indexes``, grouped, the groups
+    in order of first appearance (``data.py:172``): int32 tensors on the
+    ids' device. A sort, not the reference's per-element loop; the split
+    reads the group sizes to the host once."""
+    idx = indexes.reshape(-1)
+    _, inverse, counts = torch.unique(idx, sorted=True, return_inverse=True, return_counts=True)
+    order = torch.sort(inverse, stable=True).indices  # positions grouped by sorted-unique value
+    first_pos = order[torch.cumsum(counts, 0) - counts]  # each group's first position
+    splits = torch.split(order.to(torch.int32), counts.tolist())
+    return [splits[g] for g in torch.sort(first_pos).indices.tolist()]
 
 
 def dim_zero_sum(x: Tensor) -> Tensor:

@@ -17,10 +17,11 @@ count.
 
 :class:`SketchTelemetryMixin` (``metrics_tpu/utilities/sketching.py:60-85``)
 is the sketches' telemetry: a ``sketch_merges`` counter (each state merge
-of a fused forward; the JAX package's cross-shard count at compute,
-``_count_sketch_merges``, comes with the retrieval metrics that call it) and the
-``info.sketch`` snapshot blob (kind, bins, range, classes, the clipped
-count), published at compute with the blob's tensor values read to the host
+of a fused forward, and the cross-shard merges the retrieval reservoir
+counts at compute with :meth:`~SketchTelemetryMixin._count_sketch_merges`)
+and the ``info.sketch`` snapshot blob (the histograms' kind, bins, range,
+classes and clipped count; the reservoir's capacity and rows and queries
+kept), published at compute with the blob's tensor values read to the host
 in one read.
 """
 from typing import Optional, Tuple
@@ -64,6 +65,11 @@ class SketchTelemetryMixin:
         if self.sketched and TELEMETRY.enabled and not _is_traced(*a.values(), *b.values()):
             TELEMETRY.inc(self.telemetry_key, "sketch_merges")
         return merged
+
+    def _count_sketch_merges(self, n: int) -> None:
+        """Cross-shard sketch merges performed at compute (eager sync)."""
+        if n > 0 and TELEMETRY.enabled:
+            TELEMETRY.inc(self.telemetry_key, "sketch_merges", n)
 
     def _publish_sketch_info(self, **info) -> None:
         """Publish the ``info.sketch`` snapshot blob. Its tensor values are

@@ -93,6 +93,7 @@ instead.) The admission queue's staged host view carries its device twin
 (``device_tensor``): the twin is what the update dispatches, and the host
 view validates the ids without a read.
 """
+import copy
 import threading
 import time
 from collections import OrderedDict
@@ -363,11 +364,12 @@ def _keyed_gate(metric: Metric, what: str = "base_metric") -> None:
             f"{what} {name} registers no states, so there is nothing to key per"
             " tenant (compositions key their children instead)."
         )
+    hint = f" {metric._sketch_hint}" if metric._sketch_hint else ""
     if any(isinstance(v, list) for v in metric._defaults.values()):
         raise ValueError(
             f"{what} {name} holds unbounded list states, whose size grows every"
             " step; keyed state must be fixed-shape — use the metric's"
-            " `capacity=`/`streaming=` mode, or keep per-tenant instances."
+            f" `capacity=`/`streaming=` mode, or keep per-tenant instances.{hint}"
         )
     bad = {
         k: fx
@@ -380,7 +382,7 @@ def _keyed_gate(metric: Metric, what: str = "base_metric") -> None:
             f" exactly: {bad}. Keyed updates support"
             f" {list(_SEGMENT_REDUCTIONS)} leaves ('sum' via segment_sum,"
             " 'max'/'min' via masked segment extremes); 'cat'/'mean'/callable"
-            " reductions stay single-stream."
+            f" reductions stay single-stream.{hint}"
         )
     if set(metric.init_state()) != set(metric._defaults):
         raise ValueError(
@@ -844,9 +846,13 @@ class KeyedMetric(Metric):
 
     def __getstate__(self) -> dict:
         # a snapshot (clone, pickle) is taken between two updates, never in
-        # the middle of one; the lock itself stays with the live instance
+        # the middle of one; the lock itself stays with the live instance.
+        # The child is copied under the lock: an update binds its states to
+        # the vmap's batched tensors, and a copy made after the lock is
+        # released would read them
         with self._serial_lock():
             state = super().__getstate__()
+            state["_child"] = self._child.clone()
         state.pop("_ingest_lock", None)
         return state
 
@@ -1290,7 +1296,12 @@ class MultiTenantCollection:
         # captured graphs never pickle nor copy
         with self._serial_lock():
             drop = ("_telemetry_key", "_ingest_lock", "_graph_pool", *_MTC_DISPATCHES)
-            return {k: v for k, v in self.__dict__.items() if k not in drop}
+            state = {k: v for k, v in self.__dict__.items() if k not in drop}
+            if self._keyed is not None:
+                # each bundle's child copied while no update binds it (see
+                # KeyedMetric.__getstate__)
+                state["_keyed"] = OrderedDict((owner, copy.copy(km)) for owner, km in self._keyed.items())
+            return state
 
     def __repr__(self) -> str:
         return (

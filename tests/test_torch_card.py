@@ -16,7 +16,11 @@ the staging lane), and the tenant ledger kept on the card must read what a
 CPU twin's ledger reads. The compiled step's cases capture each kernel into
 a CUDA graph and replay it against the plain version (launches counted per
 replay), replay the compiled collection, keyed update and capacity mode
-against the CPU, and capture while the serving flusher's thread works.
+against the CPU, and capture while the serving flusher's thread works. The
+retrieval cases hold the flat, padded and sketched modes on the card against
+the CPU (the query reservoir and the hash bit for bit), replay the padded
+compiled forward and the reservoir update, and count the keyed padded
+update's B3 launches.
 """
 import numpy as np
 import pytest
@@ -641,3 +645,137 @@ def test_joint_grid_and_capacity_spearman_captured_in_a_graph_equal_their_eager_
         host(x.cpu(), y.cpu())
     assert torch.equal(m.buf.cpu(), host.buf) and int(m.count) == 40_000
     assert abs(float(m.compute()) - float(host.compute())) <= 1e-6
+
+
+# -- the retrieval slice ------------------------------------------------------------
+
+
+_RETRIEVAL = ("RetrievalMAP", "RetrievalMRR", "RetrievalPrecision", "RetrievalRecall", "RetrievalFallOut",
+              "RetrievalNormalizedDCG")
+
+
+def _retrieval_stream(seed, n=20_000, queries=700):
+    """Query-major rows with bfloat16-rounded scores (exact ties), a few NaN."""
+    rng = np.random.RandomState(seed)
+    idx = np.sort(rng.randint(0, queries, n))
+    preds = torch.from_numpy(rng.randn(n).astype(np.float32)).to(torch.bfloat16).float().numpy()
+    preds[rng.rand(n) < 0.01] = np.nan
+    return idx, preds, (rng.rand(n) < 0.05).astype(np.int64)
+
+
+def _retrieval_members(device, **kw):
+    return {name: getattr(T, name)(**({"k": 10} if name not in ("RetrievalMAP", "RetrievalMRR") else {}), **kw,
+                                   device=device) for name in _RETRIEVAL}
+
+
+@pytest.mark.cuda
+def test_flat_retrieval_on_the_card_matches_the_cpu(cuda_device):
+    from metrics_tpu_torch.retrieval.retrieval_metric import RetrievalMetric
+
+    idx, preds, target = _retrieval_stream(30)
+    card = T.MetricCollection(_retrieval_members(cuda_device, compute_on_step=False))
+    host = T.MetricCollection(_retrieval_members("cpu", compute_on_step=False))
+    for chunk in np.array_split(np.arange(idx.size), 7):
+        card(_t(preds[chunk]).to(cuda_device), _t(target[chunk]).to(cuda_device), indexes=_t(idx[chunk]).to(cuda_device))
+        host(_t(preds[chunk]), _t(target[chunk]), indexes=_t(idx[chunk]))
+    got, want = card.compute(), host.compute()
+    for name in want:
+        assert got[name].device.type == cuda_device.type
+        assert abs(float(got[name]) - float(want[name])) <= 1e-6, name
+    marks = np.arange(idx.size)
+    rows, lengths = RetrievalMetric._group_arrays_into_rows(
+        _t(idx).to(cuda_device), _t(preds).to(cuda_device), _t(marks).to(cuda_device))
+    host_rows, host_lengths = RetrievalMetric._group_arrays_into_rows(_t(idx), _t(preds), _t(marks))
+    assert torch.equal(rows.cpu(), host_rows) and torch.equal(lengths.cpu(), host_lengths)
+
+
+@pytest.mark.cuda
+def test_padded_retrieval_on_the_card_matches_the_cpu_and_replays_compiled(cuda_device):
+    rng = np.random.RandomState(31)
+    batches = []
+    for _ in range(6):
+        preds = torch.from_numpy(rng.randn(64, 100).astype(np.float32)).to(torch.bfloat16).float().numpy()
+        mask = np.arange(100)[None, :] < rng.randint(0, 101, 64)[:, None]
+        batches.append((preds, (rng.rand(64, 100) < 0.05).astype(np.int64), mask))
+    eager = T.MetricCollection(_retrieval_members(cuda_device, padded=True))
+    compiled = T.MetricCollection(_retrieval_members(cuda_device, padded=True)).jit_forward()
+    host = T.MetricCollection(_retrieval_members("cpu", padded=True))
+    on_card = [tuple(_t(x).to(cuda_device) for x in b) for b in batches]
+    compiled.warmup(on_card[0][0], on_card[0][1], mask=on_card[0][2])
+    torch.cuda.synchronize()
+    for (p, t, m), (cp, ct, cm) in zip(batches, on_card):
+        want = host(_t(p), _t(t), mask=_t(m))
+        got = eager(cp, ct, mask=cm)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            replayed = compiled(cp, ct, mask=cm)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        for name in want:
+            assert abs(float(got[name]) - float(want[name])) <= 1e-6, name
+            assert float(replayed[name]) == float(got[name]), name
+    for name, m in host.items(keep_base=True):
+        assert int(eager[name].query_total) == int(compiled[name].query_total) == int(m.query_total)
+        assert abs(float(compiled[name].compute()) - float(m.compute())) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_the_reservoir_on_the_card_is_bit_exact_and_replays(cuda_device):
+    from metrics_tpu_torch.kernels.sketches import uniform_hash
+
+    rng = np.random.RandomState(32)
+    ids = rng.randint(-2**62, 2**62, 1_000_000)
+    assert torch.equal(uniform_hash(_t(ids).to(cuda_device)).cpu(), uniform_hash(_t(ids)))
+    idx, preds, target = _retrieval_stream(33, n=60_000, queries=3000)
+    card = T.RetrievalMAP(sketched=True, sketch_capacity=8192, compute_on_step=False, device=cuda_device).jit_forward()
+    host = T.RetrievalMAP(sketched=True, sketch_capacity=8192, device="cpu")
+    chunks = np.array_split(np.arange(idx.size), 6)
+    on_card = [tuple(_t(x[chunk]).to(cuda_device) for x in (preds, target, idx)) for chunk in chunks]
+    card.warmup(on_card[0][0], on_card[0][1], indexes=on_card[0][2])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for p, t, i in on_card:
+            card(p, t, indexes=i)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for chunk in chunks:
+        host.update(_t(preds[chunk]), _t(target[chunk]), indexes=_t(idx[chunk]))
+    for name in ("res_key", "res_qid", "res_pred", "res_target", "res_seen", "res_overflow"):
+        got, want = getattr(card, name).cpu(), getattr(host, name)
+        if got.is_floating_point():  # bit for bit, the NaN scores too
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        assert torch.equal(got, want), name
+    with pytest.warns(UserWarning, match="sampled"):
+        got = card.compute()
+    with pytest.warns(UserWarning, match="sampled"):
+        assert abs(float(got) - float(host.compute())) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_the_keyed_padded_update_launches_b3_once_per_bundle(cuda_device):
+    def members(device):
+        return [T.RetrievalMAP(padded=True, device=device), T.RetrievalMRR(padded=True, device=device),
+                T.RetrievalNormalizedDCG(padded=True, k=10, device=device)]
+
+    n = 500
+    card = T.MultiTenantCollection(members(cuda_device), n, validate_ids=False, device=cuda_device)
+    host = T.MultiTenantCollection(members("cpu"), n, validate_ids=False, device="cpu")
+    rng = np.random.RandomState(34)
+    for _ in range(4):
+        ids = rng.randint(-1, n, 1024)
+        preds = rng.randn(1024, 100).astype(np.float32)
+        target = (rng.rand(1024, 100) < 0.05).astype(np.int64)
+        card.update(*(_t(x).to(cuda_device) for x in (ids, preds, target)))
+        host.update(*(_t(x) for x in (ids, preds, target)))
+    torch.cuda.synchronize()
+    assert _common.launch_count("segment_scatter_add") == 3 * 4  # one per bundle per update
+    for op in ("stat_scores_counts", "confmat_counts", "segment_scatter_max", "segment_scatter_min",
+               "label_score_histograms"):
+        assert _common.launch_count(op) == 0, op
+    for owner, km in host._keyed.items():
+        assert torch.equal(card._keyed[owner].query_total.cpu(), km.query_total)
+        torch.testing.assert_close(card._keyed[owner].value_sum.cpu(), km.value_sum, rtol=1e-5, atol=1e-5)
+    got, want = card.compute(), host.compute()
+    for name in want:
+        torch.testing.assert_close(got[name].cpu(), want[name], rtol=1e-5, atol=1e-5, equal_nan=True)

@@ -158,6 +158,7 @@ def test_port_imports_neither_jax_nor_metrics_tpu():
         "import metrics_tpu_torch.classification.hinge, metrics_tpu_torch.classification.kldivergence\n"
         "import metrics_tpu_torch.classification.hamming_distance, metrics_tpu_torch.functional.classification.dice\n"
         "import metrics_tpu_torch.regression, metrics_tpu_torch.image, metrics_tpu_torch.functional.regression\n"
+        "import metrics_tpu_torch.retrieval, metrics_tpu_torch.functional.retrieval\n"
         "bad = [m for m in sys.modules if m in ('jax', 'metrics_tpu') or m.startswith(('jax.', 'metrics_tpu.'))]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
     )
@@ -201,7 +202,12 @@ def test_port_sources_import_neither_jax_nor_metrics_tpu():
                 "functional/regression/explained_variance.py", "functional/regression/r2score.py",
                 "functional/regression/cosine_similarity.py", "functional/regression/pearson.py",
                 "functional/regression/spearman.py", "functional/regression/psnr.py",
-                "functional/regression/ssim.py"):
+                "functional/regression/ssim.py", "retrieval/__init__.py", "retrieval/retrieval_metric.py",
+                "retrieval/mean_average_precision.py", "retrieval/mean_reciprocal_rank.py",
+                "retrieval/retrieval_precision.py", "retrieval/retrieval_recall.py", "retrieval/retrieval_fallout.py",
+                "retrieval/retrieval_ndcg.py", "functional/retrieval/__init__.py", "functional/retrieval/precision.py",
+                "functional/retrieval/average_precision.py", "functional/retrieval/reciprocal_rank.py",
+                "functional/retrieval/recall.py", "functional/retrieval/fall_out.py", "functional/retrieval/ndcg.py"):
         assert ROOT / "metrics_tpu_torch" / new in files
     for path in files:
         for name in _imported_modules(path):

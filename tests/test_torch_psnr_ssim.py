@@ -339,3 +339,42 @@ def test_keyed_running_range_psnr_routes_its_extremal_leaves():
     _close(port.sum_squared_error, ref.sum_squared_error)
     _close(port.compute(), ref.compute())
 
+
+
+# -- integer images -------------------------------------------------------------------
+
+
+def _int_image_pair():
+    rs = np.random.RandomState(0)
+    return rs.randint(0, 255, (1, 1, 16, 16)), rs.randint(0, 255, (1, 1, 16, 16))
+
+
+@pytest.mark.parametrize("data_range", [None, 255.0])
+def test_ssim_on_integer_images_computes_in_float32_where_the_jax_window_truncates(data_range):
+    """Two random int64 images: the port computes in float32 and gives the
+    float64 pair's value (-0.088029 with the range taken from the data,
+    -0.087978 with ``data_range=255``), functional and module (buffered and
+    streaming). The JAX package builds its window in the images' integer
+    dtype, where it truncates to zeros, and returns 1.0 for any pair: a
+    fault of the reference, pinned here as such."""
+    a, b = _int_image_pair()
+    kwargs = {} if data_range is None else {"data_range": data_range}
+    want = float(TF.ssim(_t(a.astype(np.float64)), _t(b.astype(np.float64)), **kwargs))
+    np.testing.assert_allclose(want, -0.088029 if data_range is None else -0.087978, atol=1e-6)
+    np.testing.assert_allclose(float(JF.ssim(jnp.asarray(a.astype(np.float64)), jnp.asarray(b.astype(np.float64)),
+                                             **kwargs)), want, **F64)
+    got = TF.ssim(_t(a), _t(b), **kwargs)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(float(got), want, **SSIM_F32)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        buffered = T.SSIM(**kwargs, **CPU)
+        buffered.update(_t(a), _t(b))
+        assert buffered.compute().dtype == torch.float32
+        np.testing.assert_allclose(float(buffered.compute()), want, **SSIM_F32)
+        if data_range is not None:
+            streaming = T.SSIM(streaming=True, **kwargs, **CPU)
+            streaming.update(_t(a), _t(b))
+            np.testing.assert_allclose(float(streaming.compute()), want, **SSIM_F32)
+    # the reference's fault: its integer window is all zeros, so SSIM is 1.0
+    assert float(JF.ssim(jnp.asarray(a), jnp.asarray(b), **kwargs)) == 1.0

@@ -301,6 +301,31 @@ def test_cosine_similarity_functional(reduction):
         _close(got, want)
 
 
+
+@pytest.mark.parametrize("dtype", [np.int64, np.int32])
+def test_pearson_on_integer_inputs_computes_in_float32(dtype):
+    """Integer pairs: the functional and the list-mode module compute in
+    float32 (``torch.mean`` refuses integers, ``jnp.mean`` promotes them) and
+    give the JAX package's value, 0.094066, within float32 rounding; the
+    streaming module keeps its float64 sums."""
+    rs = np.random.RandomState(0)
+    preds, target = rs.randint(0, 100, 50).astype(dtype), rs.randint(0, 100, 50).astype(dtype)
+    want = JF.pearson_corrcoef(jnp.asarray(preds), jnp.asarray(target))
+    np.testing.assert_allclose(float(want), 0.094066, atol=1e-6)
+    got = TF.pearson_corrcoef(_t(preds), _t(target))
+    assert got.dtype == torch.float32
+    _close(got, want)
+    for streaming, result_dtype in ((False, torch.float32), (True, torch.float64)):
+        m, ref = T.PearsonCorrcoef(streaming=streaming, **CPU), J.PearsonCorrcoef(streaming=streaming)
+        for half in (slice(0, 25), slice(25, 50)):
+            m.update(_t(preds[half]), _t(target[half]))
+            ref.update(jnp.asarray(preds[half]), jnp.asarray(target[half]))
+        value = m.compute()
+        assert value.dtype == result_dtype
+        _close(value, ref.compute())
+        np.testing.assert_allclose(float(value), float(want), **F32)
+
+
 # -- the streaming modes --------------------------------------------------------------
 
 

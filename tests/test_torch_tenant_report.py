@@ -388,3 +388,58 @@ def test_concurrent_updates_and_reports_lose_nothing(members):
     for owner, km in keyed_t.items():
         for name, value in km._get_states().items():
             np.testing.assert_array_equal(value.numpy(), np.asarray(getattr(keyed_j[owner], name)))
+
+
+@pytest.mark.parametrize("members", [False, True])
+def test_snapshots_taken_while_updates_run_copy_no_batched_tensor(members):
+    """A clone (the serving scheduler's refresh snapshot), a deepcopy and a
+    pickle taken while another thread updates: an update binds the child's
+    states to the vmap's batched tensors, so the child is copied under the
+    serial lock. Every snapshot computes, and counts a whole number of the
+    writer's batches (an update is never torn)."""
+    import sys
+
+    def build():
+        if members:
+            return T.MultiTenantCollection([T.Accuracy(**CPU)], N_TENANTS, validate_ids=False, **CPU)
+        return T.KeyedMetric(T.Accuracy(**CPU), N_TENANTS, validate_ids=False, **CPU)
+
+    tm = build()
+    ids, preds, target = _writer_batches(0)[0]
+    batch = (torch.from_numpy(ids), torch.from_numpy(preds), torch.from_numpy(target))
+    tm.update(*batch)  # built before the threads start
+    errors, stop = [], threading.Event()
+
+    def writer():
+        try:
+            while not stop.is_set():
+                tm.update(*batch)
+        except Exception as err:  # noqa: BLE001 - asserted below
+            errors.append(err)
+
+    def rows(obj):
+        keyed = next(iter(obj._keyed.values())) if members else obj
+        return int((keyed.tp + keyed.fp + keyed.tn + keyed.fn).sum())
+
+    takers = [copy.deepcopy, lambda m: pickle.loads(pickle.dumps(m))] + ([] if members else [lambda m: m.clone()])
+    snapshots = []
+    saved = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)  # interleave the threads as often as the interpreter can
+    thread = threading.Thread(target=writer)
+    thread.start()
+    try:
+        deadline = time.monotonic() + 3.0
+        while time.monotonic() < deadline and not errors:
+            for take in takers:
+                snapshots.append(take(tm))
+    except Exception as err:  # noqa: BLE001 - asserted below
+        errors.append(err)
+    finally:
+        sys.setswitchinterval(saved)
+        stop.set()
+        thread.join(timeout=60)
+    assert not thread.is_alive() and not errors, errors
+    assert len(snapshots) > 10
+    for snap in snapshots[::7]:
+        assert rows(snap) % ROWS == 0 and rows(snap) >= ROWS
+        snap.compute()
