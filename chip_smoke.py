@@ -243,6 +243,52 @@ Phases, in order; any failure exits non-zero before the last line:
    CPU's exactly, ``value_sum`` and the per-tenant values within rtol = atol
    = 1e-5; then ``warmup`` + ``update_many`` (K = 5), B3 150 through the
    replays. ``retrieval_phase_main()`` runs 3k alone.
+3l. The small metrics of the last slice (after 3k). (a) Speech separation
+   evaluation shaped like the WSJ0-2mix test set: 3000 mixtures x 2 sources
+   of 4 s at 8 kHz (32,000 samples; speech-like targets, Gaussian under a
+   slow envelope, predictions at 5-15 dB SNR), 47 forwards of (64, 2,
+   32000) through ``SI_SDR``, ``SI_SNR`` and ``SNR`` and their functionals:
+   == the CPU port within 1e-5 relative, per signal within 1e-3 dB of a
+   float64 numpy oracle; no kernel; per-forward medians and the idle share.
+   (b) ``MultiTenantCollection([SI_SDR(), SNR()], 10,000)`` over the last 20
+   of phase 3b's cohorts of tenant ids, one 1 s clip at 16 kHz a row (262 MB
+   of preds and of targets an update): B3 once per bundle per update (40),
+   B1, B2, B4, B5 never; the int32 counts == the CPU's exactly, the sums and
+   per-tenant values within 1e-5 relative. (c) BLEU over 3003
+   newstest2014-shaped pairs (5-80 tokens from a Zipf vocabulary of 32,000,
+   30% of each hypothesis replaced), with and without smoothing: card ==
+   CPU and == a pure-Python float64 oracle within 1e-6. (d)
+   ``embedding_similarity`` at SimCLR's (4096, 128), cosine and dot, none and
+   mean: == CPU within 1e-5, identical rows 1.0 within 1e-6 (no TF32); time
+   beside the bound. (e) ``image_gradients`` of 16 x 3 x 512 x 512 crops: ==
+   CPU exactly; time beside the bound. (f) ``BootStrapper(Accuracy(average=
+   "macro", num_classes=1000), 20, quantile=[0.025, 0.975], raw=True)`` over
+   phase 3's 49 batches: eager, B1 980 and 980 Poisson totals read, == a CPU
+   run replaying the card's index vectors within 1e-6; pure
+   (``init_state``/``apply_update``), B1 49 (its batched form, one launch an
+   update for the 20 children's (1024, 1000) stack, held against its plain
+   version at that shape first) and no synchronizing call in 10 updates, ==
+   a CPU run replaying the card's index matrices within 1e-6, its mean
+   within 4 std of the plain macro accuracy.
+   ``small_metrics_phase_main()`` runs 3l alone.
+3m. The generative metrics shaped like CIFAR-10 FID (after 3l): 4,000 real
+   and 4,000 generated seeded uint8 3 x 32 x 32 images (the FID-50k protocol
+   cut 12.5-fold) in batches of 250, resized to 299, through the InceptionV3
+   port with seeded weights (batch-norm statistics from the first real
+   batch), into ``FID()``, ``FID(streaming=True)``, ``KID(subsets=100,
+   subset_size=1000)`` and ``IS(splits=10)`` (generated images, logits tap):
+   the first 32 images' 2048-d features == the CPU's within 1e-3 relative;
+   FID == the float64 ``scipy.linalg.sqrtm`` formula on the same features
+   within 1e-3, Newton-Schulz == eigh within 1e-3, KID and IS == float64
+   numpy oracles on the same subsets and permutation within 1e-4; singular
+   covariances on the 'auto' form against a float64 numpy eigh oracle
+   within 1e-4, with 123 features zeroed (oracle on the live features) and
+   with 1,000 images a side (fewer than the 2048 dims); the jittered eigh
+   rescue of a non-finite Newton-Schulz trace (float32 moments of 33
+   samples a side at d = 512) == the CPU's within 1e-3; no kernel.
+   Printed: the extractor's images/s beside its float32 bound, per-update and
+   ``compute()`` times with the 2048 x 2048 trace term apart, peak memory.
+   ``generative_phase_main()`` runs 3m alone.
 5. One JSON line ``{"kernels": [...]}``, the card line again, and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -2611,6 +2657,823 @@ def retrieval_phase_main(record_path: str = "") -> int:
     return _phase_alone(retrieval_phase, record_path)
 
 
+# --------------------------------------------------------------------------
+# phase 3l: the small metrics of the last slice
+# --------------------------------------------------------------------------
+
+#: WSJ0-2mix's test set as speech separation evaluates it: 3000 mixtures of
+#: two sources at 8 kHz, 4 s each
+SPEECH_MIXTURES = 3000
+SPEECH_SOURCES = 2
+SPEECH_SAMPLES = 32_000
+SPEECH_BATCH = 64
+#: the keyed speech-enhancement service: one 1 s clip at 16 kHz per row
+SPEECH_KEYED_SAMPLES = 16_000
+SPEECH_KEYED_UPDATES = 20
+#: WMT14 En->De newstest2014: 3003 sentence pairs, one reference each
+BLEU_PAIRS = 3003
+BLEU_VOCAB = 32_000
+#: SimCLR's similarity matrix: a batch of 4096 projections of width 128
+SIMCLR_BATCH = 4096
+SIMCLR_DIM = 128
+BOOTSTRAPS = 20
+
+
+def _speech(torch, gen, dev, rows, samples, snr_db=(5.0, 15.0)):
+    """Speech-like targets (Gaussian under a slow random envelope) and
+    predictions at a per-row SNR uniform in ``snr_db``: ``(rows, samples)``
+    float32 each."""
+    t = torch.arange(samples, device=dev, dtype=torch.float32)
+    rate = 2.0 + 4.0 * torch.rand((rows, 1), generator=gen, device=dev)
+    phase = 6.283 * torch.rand((rows, 1), generator=gen, device=dev)
+    envelope = 0.2 + torch.abs(torch.sin(t * (rate / samples * 6.283) + phase))
+    target = torch.randn((rows, samples), generator=gen, device=dev) * envelope
+    snr = snr_db[0] + (snr_db[1] - snr_db[0]) * torch.rand((rows, 1), generator=gen, device=dev)
+    rms = target.pow(2).mean(dim=1, keepdim=True).sqrt()
+    preds = target + torch.randn((rows, samples), generator=gen, device=dev) * rms * 10.0 ** (-snr / 20.0)
+    return preds, target
+
+
+def _audio_oracle(np, preds, target):
+    """Per-signal SI-SDR, SI-SNR and SNR in float64 numpy (eps of float32,
+    as the metrics use for float32 signals)."""
+    p, t = preds.astype(np.float64), target.astype(np.float64)
+    eps = float(np.finfo(np.float32).eps)
+
+    def si_sdr(p, t):
+        alpha = ((p * t).sum(-1, keepdims=True) + eps) / ((t * t).sum(-1, keepdims=True) + eps)
+        ts = alpha * t
+        return 10 * np.log10(((ts * ts).sum(-1) + eps) / (((ts - p) ** 2).sum(-1) + eps))
+
+    pc, tc = p - p.mean(-1, keepdims=True), t - t.mean(-1, keepdims=True)
+    snr = 10 * np.log10(((t * t).sum(-1) + eps) / (((t - p) ** 2).sum(-1) + eps))
+    return {"SI_SDR": si_sdr(p, t), "SI_SNR": si_sdr(pc, tc), "SNR": snr}
+
+
+def _speech_separation(torch, np, M, dev, card, _common, record) -> None:
+    """Phase 3l-a: WSJ0-2mix-shaped separation scores through SI_SDR, SI_SNR
+    and SNR (forward) and their functionals, against the CPU port and a
+    float64 oracle."""
+    from metrics_tpu_torch import functional as MF
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 30)
+    batches = []
+    for start in range(0, SPEECH_MIXTURES, SPEECH_BATCH):
+        n = min(SPEECH_BATCH, SPEECH_MIXTURES - start)
+        preds, target = _speech(torch, gen, dev, n * SPEECH_SOURCES, SPEECH_SAMPLES)
+        batches.append((preds.view(n, SPEECH_SOURCES, SPEECH_SAMPLES), target.view(n, SPEECH_SOURCES, SPEECH_SAMPLES)))
+    names = ("SI_SDR", "SI_SNR", "SNR")
+    fns = {"SI_SDR": MF.si_sdr, "SI_SNR": MF.si_snr, "SNR": MF.snr}
+
+    def build(device):
+        return {name: getattr(M, name)(device=device) for name in names}
+
+    gpu, cpu = build(dev), build("cpu")
+    torch.cuda.synchronize()
+    _common.reset_dispatch_counters()
+    fwd_ms = {name: [] for name in names}
+    step_diff, fn_diff, oracle_db = 0.0, 0.0, 0.0
+    sums = {name: 0.0 for name in names}
+    for preds, target in batches:
+        p_cpu, t_cpu = preds.cpu(), target.cpu()
+        oracle = _audio_oracle(np, p_cpu.numpy(), t_cpu.numpy())
+        for name in names:
+            t0 = time.perf_counter()
+            value = gpu[name](preds, target)
+            torch.cuda.synchronize()
+            fwd_ms[name].append((time.perf_counter() - t0) * 1e3)
+            want = cpu[name](p_cpu, t_cpu)
+            step_diff = max(step_diff, _rel_diff(float(value), float(want)))
+            per_signal, per_signal_cpu = fns[name](preds, target).cpu(), fns[name](p_cpu, t_cpu)
+            fn_diff = max(fn_diff, float(((per_signal - per_signal_cpu).abs()
+                                          / per_signal_cpu.abs().clamp(min=1e-30)).max()))
+            oracle_db = max(oracle_db, float(np.abs(per_signal.double().numpy() - oracle[name]).max()))
+            sums[name] += float(oracle[name].sum())
+    launches = {op: _common.launch_count(op) for op in KERNEL_OPS}
+    if any(launches.values()):
+        fail(f"[audio] a kernel launched on the separation scores, which have none: {launches}")
+    if step_diff > 1e-5 or fn_diff > 1e-5:
+        fail(f"[audio] values on the card differ from the CPU's: on-step {step_diff:.2e}, per signal {fn_diff:.2e} "
+             "(relative; limit 1e-5)")
+    if oracle_db > 1e-3:
+        fail(f"[audio] per-signal values differ from the float64 oracle by {oracle_db:.2e} dB (limit 1e-3)")
+    signals = SPEECH_MIXTURES * SPEECH_SOURCES
+    epoch = {}
+    for name in names:
+        got, want = gpu[name].compute(), cpu[name].compute()
+        if int(gpu[name].total) != signals or not torch.equal(gpu[name].total.cpu(), cpu[name].total):
+            fail(f"[audio] {name} counted {int(gpu[name].total)} signals, expected {signals}")
+        rel_cpu, rel_oracle = _rel_diff(float(got), float(want)), _rel_diff(float(got), sums[name] / signals)
+        if rel_cpu > 1e-5 or abs(float(got) - sums[name] / signals) > 1e-3:
+            fail(f"[audio] {name} compute() {float(got)} against the CPU's {float(want)} and the oracle's "
+                 f"{sums[name] / signals}")
+        epoch[name] = {"value": float(got), "rel_diff_cpu": rel_cpu, "rel_diff_oracle": rel_oracle}
+    prof = profile_steps(torch, lambda p, t: [gpu[name](p, t) for name in names], batches[:10])
+    idle = 1 - prof["device_busy_ms"] / prof["wall_ms"]
+    medians = {name: statistics.median(ms) for name, ms in fwd_ms.items()}
+    print(f"[audio] WSJ0-2mix-shaped separation scores on {card}: {len(batches)} forwards of "
+          f"({SPEECH_BATCH}, {SPEECH_SOURCES}, {SPEECH_SAMPLES}) float32 through SI_SDR, SI_SNR, SNR: median ms per "
+          f"forward { {k: round(v, 4) for k, v in medians.items()} }; values "
+          f"{ {k: round(v['value'], 4) for k, v in epoch.items()} } dB, == CPU (on-step {step_diff:.2e}, per signal "
+          f"{fn_diff:.2e} relative), per signal within {oracle_db:.2e} dB of the float64 oracle; no kernel; 10 "
+          f"batches of the three forwards under the profiler: wall {prof['wall_ms']:.3f} ms, busy "
+          f"{prof['device_busy_ms']:.3f} ms (idle share {idle:.3f})")
+    record["speech"] = {"forward_ms": fwd_ms, "median_ms": medians, "epoch": epoch, "step_rel_diff": step_diff,
+                        "signal_rel_diff": fn_diff, "oracle_max_db": oracle_db, "launches": launches,
+                        "profile": prof, "idle_share": idle}
+
+
+def _speech_keyed(torch, M, dev, card, _common, keyed_batches, record) -> None:
+    """Phase 3l-b: per-customer speech quality: ``MultiTenantCollection([SI_SDR,
+    SNR], 10,000)`` over the last 20 of phase 3b's cohorts of tenant ids, one
+    1 s clip at 16 kHz per row; B3 once per bundle per update."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 31)
+
+    def build(device):
+        return M.MultiTenantCollection([M.SI_SDR(device=device), M.SNR(device=device)], KEYED_TENANTS,
+                                       validate_ids=False, device=device)
+
+    kgpu, kcpu = build(dev), build("cpu")
+    ids_list = [ids for ids, _, _ in keyed_batches[-SPEECH_KEYED_UPDATES:]]
+    k_ms, prof_inputs = [], []
+    launches = {op: 0 for op in KERNEL_OPS}
+    for step, ids in enumerate(ids_list):
+        preds, target = _speech(torch, gen, dev, KEYED_ROWS, SPEECH_KEYED_SAMPLES)
+        if step < 5:
+            prof_inputs.append((ids, preds, target))
+        torch.cuda.synchronize()
+        _common.reset_dispatch_counters()
+        t0 = time.perf_counter()
+        kgpu.update(ids, preds, target)
+        torch.cuda.synchronize()
+        k_ms.append((time.perf_counter() - t0) * 1e3)
+        for op in KERNEL_OPS:
+            launches[op] += _common.launch_count(op)
+        kcpu.update(ids.cpu(), preds.cpu(), target.cpu())
+    bundles = kgpu.state_bundles
+    expected = {op: (bundles * SPEECH_KEYED_UPDATES if op == "segment_scatter_add" else 0) for op in KERNEL_OPS}
+    if bundles != 2 or launches != expected:
+        fail(f"[audio keyed] {bundles} bundles, launches {launches}, expected 2 and {expected}: one B3 launch per "
+             "bundle per update (the float32 sum and the int32 count packed), no other kernel")
+    sum_diff = 0.0
+    for owner, km in kgpu._keyed.items():
+        ref = kcpu._keyed[owner]
+        if km.total.dtype != torch.int32 or not torch.equal(km.total.cpu(), ref.total):
+            fail(f"[audio keyed] {owner}.total on the card differs from the CPU's")
+        value_sum = next(n for n in km._reductions if n.startswith("sum_"))
+        got, want = getattr(km, value_sum).cpu(), getattr(ref, value_sum)
+        rel = float(((got - want).abs() / want.abs().clamp(min=1e-3)).max())
+        sum_diff = max(sum_diff, rel)
+        if rel > 1e-5:
+            fail(f"[audio keyed] {owner}.{value_sum} on the card differs from the CPU's by {rel:.2e} (relative)")
+    rows = int(sum(int(km.total.sum()) for km in kcpu._keyed.values()))
+    if rows != 2 * ((SPEECH_KEYED_UPDATES - 1) * KEYED_ROWS + KEYED_LAST_REAL):
+        fail(f"[audio keyed] {rows} clips counted over the two members")
+    values, values_cpu = kgpu.compute(), kcpu.compute()
+    value_diff = 0.0
+    for name, value in values.items():
+        got, want = value.cpu(), values_cpu[name]
+        if not torch.equal(got.isnan(), want.isnan()):
+            fail(f"[audio keyed] per-tenant {name}: the tenants without clips differ from the CPU's")
+        rel = float(torch.nan_to_num((got - want).abs() / want.abs().clamp(min=1e-3)).max())
+        value_diff = max(value_diff, rel)
+        if rel > 1e-5:
+            fail(f"[audio keyed] per-tenant {name} on the card differs from the CPU's by {rel:.2e} (relative)")
+    prof = profile_steps(torch, lambda i, p, t: kgpu.update(i, p, t), prof_inputs)
+    idle = 1 - prof["device_busy_ms"] / prof["wall_ms"]
+    print(f"[audio keyed] MultiTenantCollection([SI_SDR, SNR], {KEYED_TENANTS}) on {card}: {SPEECH_KEYED_UPDATES} "
+          f"updates of {KEYED_ROWS} clips x {SPEECH_KEYED_SAMPLES} samples (preds and target "
+          f"{KEYED_ROWS * SPEECH_KEYED_SAMPLES * 4 / 1e6:.0f} MB each), median {statistics.median(k_ms):.3f} ms "
+          f"(first {k_ms[0]:.3f} ms); {bundles} bundles, launches "
+          f"{ {k: v for k, v in launches.items() if v} }; counts == CPU exactly, sums within {sum_diff:.2e} and "
+          f"per-tenant values within {value_diff:.2e} (relative); 5 updates under the profiler: wall "
+          f"{prof['wall_ms']:.3f} ms, busy {prof['device_busy_ms']:.3f} ms (idle share {idle:.3f})")
+    record["speech_keyed"] = {"update_ms": k_ms, "launches": launches, "bundles": bundles, "sum_rel_diff": sum_diff,
+                              "value_rel_diff": value_diff, "profile": prof, "idle_share": idle}
+
+
+def _bleu_corpus(np, seed):
+    """newstest2014-shaped pairs: references of 5-80 tokens (mean about 27)
+    from a Zipf vocabulary of 32,000 token strings, hypotheses with 30% of
+    their tokens replaced."""
+    rng = np.random.RandomState(seed)
+    words = [f"tok{i}" for i in range(BLEU_VOCAB)]
+    lengths = np.clip(np.round(rng.lognormal(3.2, 0.5, BLEU_PAIRS)), 5, 80).astype(int)
+    hyps, refs = [], []
+    for length in lengths:
+        ranks = np.minimum(rng.zipf(1.1, length), BLEU_VOCAB) - 1
+        ref = [words[r] for r in ranks]
+        swap = rng.rand(length) < 0.3
+        hyp = [words[rng.randint(BLEU_VOCAB)] if s else w for w, s in zip(ref, swap)]
+        hyps.append(hyp)
+        refs.append([ref])
+    return hyps, refs, float(lengths.mean())
+
+
+def _bleu_oracle(hyps, refs, smooth, n_gram=4):
+    """BLEU in Python floats (float64), from the formula."""
+    import math
+    from collections import Counter
+
+    num, den, c, r = [0] * n_gram, [0] * n_gram, 0, 0
+    for hyp, rs in zip(hyps, refs):
+        c += len(hyp)
+        r += len(min(rs, key=lambda x: abs(len(hyp) - len(x))))  # the first closest length
+        hc = Counter(tuple(hyp[j:j + n]) for n in range(1, n_gram + 1) for j in range(len(hyp) - n + 1))
+        rc = Counter()
+        for x in rs:
+            rc |= Counter(tuple(x[j:j + n]) for n in range(1, n_gram + 1) for j in range(len(x) - n + 1))
+        for g, k in (hc & rc).items():
+            num[len(g) - 1] += k
+        for g, k in hc.items():
+            den[len(g) - 1] += k
+    if min(num) == 0:
+        return 0.0
+    prec = [(num[i] + (1 if smooth and i else 0)) / (den[i] + (1 if smooth and i else 0)) for i in range(n_gram)]
+    bp = 1.0 if c > r else math.exp(1 - r / c)
+    return bp * math.exp(sum(math.log(p) for p in prec) / n_gram)
+
+
+def _bleu(torch, np, dev, card, record) -> None:
+    """Phase 3l-c: BLEU over newstest2014-shaped pairs, with and without
+    smoothing, on the card, on the CPU and from a float64 oracle."""
+    from metrics_tpu_torch.functional import bleu_score
+
+    hyps, refs, mean_len = _bleu_corpus(np, SEED + 32)
+    out = {}
+    for smooth in (False, True):
+        t0 = time.perf_counter()
+        got = bleu_score(hyps, refs, smooth=smooth, device=dev)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        cpu = float(bleu_score(hyps, refs, smooth=smooth, device="cpu"))
+        oracle = _bleu_oracle(hyps, refs, smooth)
+        if got.device != dev or abs(float(got) - cpu) > 1e-6 or abs(float(got) - oracle) > 1e-6:
+            fail(f"[bleu] smooth={smooth}: {float(got)} on {got.device}, CPU {cpu}, oracle {oracle} (limit 1e-6)")
+        out[f"smooth={smooth}"] = {"value": float(got), "host_ms": host_ms, "diff_cpu": abs(float(got) - cpu),
+                                   "diff_oracle": abs(float(got) - oracle)}
+    print(f"[bleu] newstest2014-shaped corpus ({BLEU_PAIRS} pairs, mean length {mean_len:.1f} tokens, Zipf vocabulary "
+          f"of {BLEU_VOCAB}) on {card}: " + "; ".join(
+              f"{k}: {v['value']:.6f} in {v['host_ms']:.1f} ms (host), |card - CPU| {v['diff_cpu']:.1e}, "
+              f"|card - oracle| {v['diff_oracle']:.1e}" for k, v in out.items()))
+    record["bleu"] = out
+
+
+def _embedding_similarity(torch, M, dev, card, record) -> None:
+    """Phase 3l-d: SimCLR-shaped similarity matrices, card against CPU;
+    identical rows read 1.0 (the guard against TF32)."""
+    from metrics_tpu_torch.functional import embedding_similarity
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 33)
+    batch = torch.randn((SIMCLR_BATCH, SIMCLR_DIM), generator=gen, device=dev)
+    batch_cpu = batch.cpu()
+    out = {}
+    for similarity in ("cosine", "dot"):
+        for reduction in ("none", "mean"):
+            kw = dict(similarity=similarity, reduction=reduction)
+            got, want = embedding_similarity(batch, **kw).cpu(), embedding_similarity(batch_cpu, **kw)
+            diff = float(((got - want).abs() / want.abs().clamp(min=1.0)).max())
+            if diff > 1e-5:
+                fail(f"[similarity] {similarity}/{reduction} on the card differs from the CPU's by {diff:.2e}")
+            ms = cuda_ms(lambda: embedding_similarity(batch, **kw))
+            out[f"{similarity}/{reduction}"] = {"ms": ms, "max_diff": diff}
+    same = batch[:1].repeat(SIMCLR_BATCH, 1)
+    ones = embedding_similarity(same, zero_diagonal=False)
+    one_diff = float((ones - 1.0).abs().max())
+    if one_diff > 1e-6:
+        fail(f"[similarity] identical rows read {one_diff:.2e} off 1.0 (limit 1e-6): the product ran in TF32")
+    bound_ms, bound_by = bound(SIMCLR_BATCH * SIMCLR_DIM * 4 + SIMCLR_BATCH ** 2 * 4,
+                               2 * SIMCLR_BATCH ** 2 * SIMCLR_DIM)
+    library_ms = cuda_ms(lambda: torch.mm(batch, batch.T))
+    print(f"[similarity] embedding_similarity at SimCLR's shape ({SIMCLR_BATCH}, {SIMCLR_DIM}) on {card}: "
+          + "; ".join(f"{k} {v['ms']:.4f} ms (|card - CPU| {v['max_diff']:.1e})" for k, v in out.items())
+          + f"; bound {bound_ms:.4f} ms ({bound_by}); the bare product torch.mm {library_ms:.4f} ms; identical rows "
+          f"within {one_diff:.1e} of 1.0")
+    record["similarity"] = {"cases": out, "bound_ms": bound_ms, "bound_by": bound_by, "mm_ms": library_ms,
+                            "identical_rows_diff": one_diff}
+
+
+def _image_gradients(torch, dev, card, record) -> None:
+    """Phase 3l-e: image gradients of phase 3j's 16 x 3 x 512 x 512 crops,
+    card against CPU exactly."""
+    from metrics_tpu_torch.functional import image_gradients
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 12)
+    img = torch.rand((IMG_BATCH, 3, IMG_SIDE, IMG_SIDE), generator=gen, device=dev)
+    dy, dx = image_gradients(img)
+    want_dy, want_dx = image_gradients(img.cpu())
+    if not (torch.equal(dy.cpu(), want_dy) and torch.equal(dx.cpu(), want_dx)):
+        fail("[gradients] image_gradients on the card differ from the CPU's")
+    ms = cuda_ms(lambda: image_gradients(img))
+    nbytes = img.numel() * 4 * 3
+    bound_ms, bound_by = bound(nbytes, 2 * img.numel())
+    print(f"[gradients] image_gradients of ({IMG_BATCH}, 3, {IMG_SIDE}, {IMG_SIDE}) float32 on {card}: "
+          f"{ms:.4f} ms, == CPU exactly; bound {bound_ms:.4f} ms ({bound_by}: {img.numel() * 4 / 1e6:.1f} MB read, "
+          f"{2 * img.numel() * 4 / 1e6:.1f} MB written)")
+    record["image_gradients"] = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _bootstrap(torch, M, dev, card, _common, batches, record) -> None:
+    """Phase 3l-f: a bootstrap confidence interval of macro top-1 accuracy
+    over phase 3's 49 ImageNet-1k batches, eager (B1 once per child per
+    update; one Poisson total read per child per update) and pure (B1's
+    batched form once per update for all the children, no synchronizing
+    call); each run replayed on the CPU with the card's index vectors or
+    matrices."""
+    import metrics_tpu_torch.wrappers.bootstrapping as boot
+    from metrics_tpu_torch.observability.registry import TELEMETRY
+
+    def build(device, **kw):
+        return M.BootStrapper(M.Accuracy(average="macro", num_classes=NUM_CLASSES, device=device),
+                              num_bootstraps=BOOTSTRAPS, quantile=[0.025, 0.975], raw=True, seed=SEED, **kw)
+
+    real_sampler, recorded = boot._bootstrap_sampler, []
+
+    def recording(*args, **kwargs):
+        idx = real_sampler(*args, **kwargs)
+        recorded.append(idx)
+        return idx
+
+    eager = build(dev)
+    torch.cuda.synchronize()
+    _common.reset_dispatch_counters()
+    boot._bootstrap_sampler = recording
+    eager_ms = []
+    try:
+        for preds, target in batches:
+            t0 = time.perf_counter()
+            eager.update(preds, target)
+            torch.cuda.synchronize()
+            eager_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        boot._bootstrap_sampler = real_sampler
+    launches = {op: _common.launch_count(op) for op in KERNEL_OPS}
+    want = {op: (BOOTSTRAPS * len(batches) if op == "stat_scores_counts" else 0) for op in KERNEL_OPS}
+    if launches != want:
+        fail(f"[bootstrap] eager launches {launches}, expected {want}: B1 once per child per update")
+    reads = TELEMETRY.counter(eager.telemetry_key, "bootstrap_host_reads")
+    if TELEMETRY.enabled and reads != BOOTSTRAPS * len(batches):
+        fail(f"[bootstrap] {reads} Poisson totals read to the host, expected {BOOTSTRAPS * len(batches)}")
+    got = {k: v.cpu() for k, v in eager.compute().items()}
+    one_update = sync_calls(torch, lambda: build(dev).update(*batches[0]))
+    cpu = build("cpu")
+    replay = iter(recorded)
+    boot._bootstrap_sampler = lambda *a, **k: next(replay).cpu()
+    try:
+        for preds, target in batches:
+            cpu.update(preds.cpu(), target.cpu())
+    finally:
+        boot._bootstrap_sampler = real_sampler
+    want_cpu = cpu.compute()
+    eager_diff = max(float((got[k] - want_cpu[k]).abs().max()) for k in got)
+    if eager_diff > 1e-6:
+        fail(f"[bootstrap] the eager statistics on the card differ from the CPU replay by {eager_diff:.2e}")
+
+    # B1's batched form at the pure path's shape (the 20 children's canonical
+    # (1024, 1000) inputs in one stack) against its plain version; these
+    # launches are not counted
+    from metrics_tpu_torch.kernels.stat_scores import stat_scores_counts_cuda, stat_scores_counts_torch
+
+    stack_gen = torch.Generator(device=dev)
+    stack_gen.manual_seed(SEED + 12)
+    stack = [torch.randint(0, 2, (BOOTSTRAPS, BATCH, NUM_CLASSES), generator=stack_gen, device=dev,
+                           dtype=torch.int32) for _ in range(2)]
+    batched = {"shape": [BOOTSTRAPS, BATCH, NUM_CLASSES], "max_abs_err": max(
+        int((g - w).abs().max()) for g, w in zip(stat_scores_counts_cuda(*stack, device=dev),
+                                                 stat_scores_counts_torch(*stack)))}
+    if batched["max_abs_err"]:
+        fail(f"[bootstrap] B1's batched form differs from its plain version by {batched['max_abs_err']} at "
+             f"{batched['shape']}")
+    batched["ms"] = cuda_ms(lambda: stat_scores_counts_cuda(*stack, device=dev))
+    batched["plain_ms"] = cuda_ms(lambda: stat_scores_counts_torch(*stack))
+    elems = BOOTSTRAPS * BATCH * NUM_CLASSES
+    batched["bound_ms"], batched["bound_by"] = bound(2 * elems * 4 + 4 * BOOTSTRAPS * NUM_CLASSES * 4, 5 * elems)
+    del stack
+
+    real_indices, matrices = boot._bootstrap_indices, []
+
+    def recording_indices(*args, **kwargs):
+        idx = real_indices(*args, **kwargs)
+        matrices.append(idx)
+        return idx
+
+    pure = build(dev)
+    pure.apply_update(pure.init_state(), *batches[0])  # the first call's warm-up, not counted
+    state = pure.init_state()
+    torch.cuda.synchronize()
+    _common.reset_dispatch_counters()
+    boot._bootstrap_indices = recording_indices
+    pure_ms = []
+    try:
+        for preds, target in batches:
+            t0 = time.perf_counter()
+            state = pure.apply_update(state, preds, target)
+            torch.cuda.synchronize()
+            pure_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        boot._bootstrap_indices = real_indices
+    pure_launches = {op: _common.launch_count(op) for op in KERNEL_OPS}
+    want_pure = {op: (len(batches) if op == "stat_scores_counts" else 0) for op in KERNEL_OPS}
+    if pure_launches != want_pure:
+        fail(f"[bootstrap] the pure path launched {pure_launches}, expected {want_pure}: B1's batched form once "
+             "per update for all the children")
+
+    def ten_updates():
+        s = pure.init_state()
+        for preds, target in batches[:10]:
+            s = pure.apply_update(s, preds, target)
+
+    pure_syncs = sync_calls(torch, ten_updates)
+    if pure_syncs:
+        fail(f"[bootstrap] the pure path made {len(pure_syncs)} synchronizing calls in 10 updates "
+             f"({pure_syncs[:3]}), expected none")
+    stats = pure.apply_compute(state, process_group=None)
+    # the pure run replayed on the CPU with the card's index matrices
+    cpu_pure = build("cpu")
+    cpu_state = cpu_pure.init_state()
+    replay_pure = iter(matrices)
+    boot._bootstrap_indices = lambda *a, **k: next(replay_pure).cpu()
+    try:
+        for preds, target in batches:
+            cpu_state = cpu_pure.apply_update(cpu_state, preds.cpu(), target.cpu())
+    finally:
+        boot._bootstrap_indices = real_indices
+    want_pure_cpu = cpu_pure.apply_compute(cpu_state, process_group=None)
+    pure_diff = max(float((stats[k].cpu() - want_pure_cpu[k]).abs().max()) for k in stats)
+    if pure_diff > 1e-6:
+        fail(f"[bootstrap] the pure statistics on the card differ from the CPU replay by {pure_diff:.2e}")
+    plain = M.Accuracy(average="macro", num_classes=NUM_CLASSES, device=dev)
+    for preds, target in batches:
+        plain.update(preds, target)
+    plain_value = float(plain.compute())
+    mean, std = float(stats["mean"]), float(stats["std"])
+    if not (abs(mean - plain_value) <= 4 * std and std > 0):
+        fail(f"[bootstrap] pure mean {mean} is not within 4 std ({std}) of the plain accuracy {plain_value}")
+    print(f"[bootstrap] BootStrapper(Accuracy(average='macro', num_classes={NUM_CLASSES}), {BOOTSTRAPS}, "
+          f"quantile=[0.025, 0.975]) over the {len(batches)} ImageNet-1k batches on {card}: eager median "
+          f"{statistics.median(eager_ms):.3f} ms an update, launches { {k: v for k, v in launches.items() if v} }, "
+          f"{reads} Poisson totals read ({len(one_update)} synchronizing calls in one update), == the CPU replay of "
+          f"the card's indices within {eager_diff:.1e}: mean {float(got['mean']):.5f}, 95% interval "
+          f"[{float(got['quantile'][0]):.5f}, {float(got['quantile'][1]):.5f}]; pure median "
+          f"{statistics.median(pure_ms):.3f} ms an update, launches "
+          f"{ {k: v for k, v in pure_launches.items() if v} } over {len(batches)} updates, no synchronizing call "
+          f"in 10, == the CPU replay of the card's index matrices within {pure_diff:.1e}: mean {mean:.5f} std "
+          f"{std:.5f}, plain accuracy {plain_value:.5f}; B1 batched {batched['shape']}: "
+          f"{batched['ms']:.4f} ms (plain {batched['plain_ms']:.4f} ms, bound {batched['bound_ms']:.4f} ms, "
+          f"{batched['bound_by']}), == plain")
+    record["bootstrap"] = {"eager_ms": eager_ms, "pure_ms": pure_ms, "launches": launches,
+                           "pure_launches": pure_launches, "host_reads": reads, "syncs_one_update": len(one_update),
+                           "eager_diff_cpu": eager_diff, "pure_diff_cpu": pure_diff, "b1_batched": batched,
+                           "eager": {k: v.tolist() for k, v in got.items()},
+                           "pure": {k: v.tolist() for k, v in stats.items()}, "plain": plain_value}
+
+
+def small_metrics_phase(torch, M, dev, card, batches, keyed_batches) -> dict:
+    """Phase 3l: the small metrics of the last slice at full width (see the
+    module docstring)."""
+    import numpy as np
+
+    from metrics_tpu_torch.kernels import _common
+
+    record = {"part_s": {}}
+    t0 = time.perf_counter()
+    for name, run in (
+        ("speech", lambda: _speech_separation(torch, np, M, dev, card, _common, record)),
+        ("speech_keyed", lambda: _speech_keyed(torch, M, dev, card, _common, keyed_batches, record)),
+        ("bleu", lambda: _bleu(torch, np, dev, card, record)),
+        ("similarity", lambda: _embedding_similarity(torch, M, dev, card, record)),
+        ("image_gradients", lambda: _image_gradients(torch, dev, card, record)),
+        ("bootstrap", lambda: _bootstrap(torch, M, dev, card, _common, batches, record)),
+    ):
+        start = time.perf_counter()
+        run()
+        record["part_s"][name] = time.perf_counter() - start
+    record["phase_s"] = time.perf_counter() - t0
+    print(f"[small] phase 3l took {record['phase_s']:.1f} s on {card}: "
+          f"{ {k: round(v, 1) for k, v in record['part_s'].items()} } s")
+    return record
+
+
+def small_metrics_phase_main(record_path: str = "") -> int:
+    """Run :func:`small_metrics_phase` alone (see :func:`_phase_alone`)."""
+    return _phase_alone(lambda torch, M, dev, card: small_metrics_phase(
+        torch, M, dev, card, make_batches(torch, dev), make_keyed_batches(torch, dev)), record_path)
+
+
+# --------------------------------------------------------------------------
+# phase 3m: the generative metrics
+# --------------------------------------------------------------------------
+
+#: CIFAR-10 FID as generative models report it (50,000 real and 50,000
+#: generated 32 x 32 images), cut to 4,000 of each to fit the script's time
+GEN_IMAGES = 4000
+GEN_BATCH = 250
+GEN_SIDE = 32
+KID_SUBSETS = 100
+KID_SUBSET_SIZE = 1000
+IS_SPLITS = 10
+#: images of the first batch whose features are held against the CPU's
+GEN_CPU_CHECK = 32
+#: features zeroed for the dead-feature FID check (as many as the seeded net
+#: with identity batch norms left dead), and images a side for the rescue check
+FID_DEAD = 123
+FID_FEW = 1000
+#: operations of one InceptionV3 forward at 299 x 299 (5.7 G multiply-adds)
+INCEPTION_OPS = 11.4e9
+
+
+def make_generative_images(torch, dev):
+    """Seeded uint8 CIFAR-10-shaped images in batches of 250: "real" ones are
+    random fields at three scales (4, 8 and 16 a side, upsampled) with
+    grain, "generated" ones the same with a slight colour cast."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 40)
+
+    def batch(cast):
+        fields = torch.zeros((GEN_BATCH, 3, GEN_SIDE, GEN_SIDE), device=dev)
+        for size, weight in ((4, 0.5), (8, 0.3), (16, 0.2)):
+            coarse = torch.rand((GEN_BATCH, 3, size, size), generator=gen, device=dev)
+            fields += weight * torch.nn.functional.interpolate(coarse, size=(GEN_SIDE, GEN_SIDE), mode="bilinear",
+                                                               align_corners=False)
+        noise = torch.randn((GEN_BATCH, 3, GEN_SIDE, GEN_SIDE), generator=gen, device=dev) * 0.1
+        shift = torch.tensor(cast, device=dev).view(1, 3, 1, 1)
+        return torch.clamp((fields + shift + noise) * 255.0, 0, 255).to(torch.uint8)
+
+    count = GEN_IMAGES // GEN_BATCH
+    real = [batch((0.0, 0.0, 0.0)) for _ in range(count)]
+    fake = [batch((0.03, -0.02, 0.02)) for _ in range(count)]
+    return real, fake
+
+
+def calibrated_inception(torch, seed, imgs):
+    """The seeded InceptionV3 with its batch norms' running statistics taken
+    from ``imgs`` (resized and normalized as the extractor does), as a
+    trained net's come from its data: with the identity statistics of
+    :func:`~metrics_tpu_torch.image.inception_net.seeded_inception`, about a
+    sixteenth of the 2048 features are zero for every image (a ReLU channel
+    negative everywhere), and the covariances are singular."""
+    from metrics_tpu_torch.image.inception_net import _bilinear_resize, seeded_inception
+
+    net = seeded_inception(seed).to(imgs.device)
+    for module in net.modules():
+        if isinstance(module, torch.nn.BatchNorm2d):
+            module.momentum = None  # a cumulative average: one batch sets the statistics
+            module.reset_running_stats()
+    net.train()
+    with torch.no_grad():
+        net(_bilinear_resize((imgs.to(torch.float32) - 128.0) / 128.0, 299))
+    return net.eval()
+
+
+def _np_kid(np, real, fake, real_idx, fake_idx, degree=3, coef=1.0):
+    """KID's per-subset unbiased MMD² in float64 numpy from the three full
+    kernel matrices, indexed by each subset's rows."""
+    gamma = 1.0 / real.shape[1]
+    k_rr = (real @ real.T * gamma + coef) ** degree
+    k_ff = (fake @ fake.T * gamma + coef) ** degree
+    k_rf = (real @ fake.T * gamma + coef) ** degree
+    m = real_idx.shape[1]
+    scores = []
+    for r, f in zip(real_idx, fake_idx):
+        kxx, kyy, kxy = k_rr[np.ix_(r, r)], k_ff[np.ix_(f, f)], k_rf[np.ix_(r, f)]
+        scores.append((kxx.sum() - np.trace(kxx)) / (m * (m - 1)) + (kyy.sum() - np.trace(kyy)) / (m * (m - 1))
+                      - 2 * kxy.sum() / m ** 2)
+    return np.mean(scores), np.std(scores)
+
+
+def _np_is(np, logits, perm, splits):
+    """The inception score in float64 numpy on the given permutation."""
+    import scipy.special
+
+    x = logits[perm].astype(np.float64)
+    n = x.shape[0] // splits
+    x = x[: n * splits].reshape(splits, n, -1)
+    log_p = x - scipy.special.logsumexp(x, axis=-1, keepdims=True)
+    p = np.exp(log_p)
+    marginal = p.mean(axis=1, keepdims=True)
+    scores = np.exp((p * (log_p - np.log(marginal))).sum(-1).mean(-1))
+    return scores.mean(), scores.std(ddof=1)
+
+
+def _np_fid_eigh(np, mu1, c1, mu2, c2, jitter=0.0):
+    """FID in float64 numpy by the symmetric form
+    ``Tr((C1^1/2 C2 C1^1/2)^1/2)``, the square roots from LAPACK's eigh with
+    negative eigenvalues clipped to zero; ``jitter`` is added to both
+    diagonals inside the square root only, as the port's rescue does."""
+    eye = np.eye(c1.shape[0]) * jitter
+    w, v = np.linalg.eigh((c1 + c1.T) / 2 + eye)
+    half = (v * np.sqrt(np.clip(w, 0, None))) @ v.T
+    inner = half @ (c2 + eye) @ half
+    trace = np.sqrt(np.clip(np.linalg.eigvalsh((inner + inner.T) / 2), 0, None)).sum()
+    diff = mu1 - mu2
+    return float(diff @ diff + np.trace(c1) + np.trace(c2) - 2 * trace)
+
+
+def _singular_fid(torch, np, fid_mod, real_f, fake_f) -> dict:
+    """FID on singular covariances. (a) The card's features with their first
+    ``FID_DEAD`` columns zeroed (dead features, as a net with identity batch
+    norms leaves them) and (b) the first ``FID_FEW`` images a side (fewer
+    samples than dims), both on the float64 moments and the ``'auto'`` form
+    (Newton-Schulz), each against :func:`_np_fid_eigh` (on the live columns
+    for (a); with the rescue's jitter where the rescue ran). (c) The rescue
+    branch itself: float32 moments of 33 seeded normal samples a side at
+    d = 512, where Newton-Schulz goes non-finite and the jittered eigh rescue
+    must run, against the port's CPU result of the same call."""
+    import warnings
+
+    def fid_of(mu1, c1, mu2, c2, method):
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            value = float(fid_mod._compute_fid(mu1, c1, mu2, c2, method=method))
+        return value, any("non-finite" in str(w.message) for w in seen)
+
+    out = {}
+    zeroed = [f.clone() for f in (real_f, fake_f)]
+    for f in zeroed:
+        f[:, :FID_DEAD] = 0.0
+    few = [f[:FID_FEW] for f in (real_f, fake_f)]
+    jitter = 1e-6  # _compute_fid's default eps
+    for case, (r, f) in (("dead", zeroed), ("few", few)):
+        mu1, c1 = fid_mod._mean_cov(r)
+        mu2, c2 = fid_mod._mean_cov(f)
+        method = fid_mod.resolve_sqrtm_method(r.shape[0], r.shape[1], "auto")
+        value, rescued = fid_of(mu1, c1, mu2, c2, method)
+        r_np, f_np = r.cpu().numpy(), f.cpu().numpy()
+        if case == "dead":
+            r_np, f_np = r_np[:, FID_DEAD:], f_np[:, FID_DEAD:]
+        oracle = _np_fid_eigh(np, r_np.mean(0), np.cov(r_np, rowvar=False), f_np.mean(0),
+                              np.cov(f_np, rowvar=False), jitter if rescued else 0.0)
+        out[case] = {"method": method, "rescued": rescued, "fid": value, "oracle": oracle,
+                     "rel": _rel_diff(value, oracle), "samples": int(r.shape[0])}
+    rng = np.random.RandomState(3)
+    sides = [torch.from_numpy(rng.randn(33, 512).astype(np.float32)) for _ in range(2)]
+    results = []
+    for device in (real_f.device, "cpu"):
+        (mu1, c1), (mu2, c2) = (fid_mod._mean_cov(x.to(device)) for x in sides)
+        results.append(fid_of(mu1, c1, mu2, c2, "ns"))
+    (card_value, card_rescued), (cpu_value, cpu_rescued) = results
+    out["rescue"] = {"method": "ns", "rescued": card_rescued and cpu_rescued, "fid": card_value, "cpu": cpu_value,
+                     "rel": _rel_diff(card_value, cpu_value), "samples": 33}
+    return out
+
+
+def generative_phase(torch, M, dev, card) -> dict:
+    """Phase 3m: FID (buffered and streaming), KID and IS on a CIFAR-10-shaped
+    stream through the InceptionV3 port with seeded weights (see the module
+    docstring)."""
+    import warnings
+
+    import numpy as np
+    import scipy.linalg
+
+    import metrics_tpu_torch.image.fid as fid_mod
+    from metrics_tpu_torch.image.inception_net import InceptionFeatureExtractor, seeded_inception
+    from metrics_tpu_torch.image.kid import subset_indices
+    from metrics_tpu_torch.kernels import _common
+    from metrics_tpu_torch.utilities.data import full_fp32
+
+    record = {}
+    t_phase = time.perf_counter()
+    real, fake = make_generative_images(torch, dev)
+    with full_fp32(dev):
+        net = calibrated_inception(torch, SEED, real[0])
+    pool = InceptionFeatureExtractor(2048, net=net, device=dev)
+    logits = InceptionFeatureExtractor("logits_unbiased", net=net, device=dev)
+    # the first batch's features on the card against the port on the CPU
+    # (its first GEN_CPU_CHECK images: the CPU takes about 0.1 s an image)
+    cpu_net = seeded_inception(SEED)
+    cpu_net.load_state_dict(net.state_dict())
+    first = pool(real[0][:GEN_CPU_CHECK])
+    cpu_first = InceptionFeatureExtractor(2048, net=cpu_net, device="cpu")(real[0][:GEN_CPU_CHECK].cpu())
+    feat_diff = float((first.cpu() - cpu_first).abs().max() / cpu_first.abs().max())
+    if feat_diff > 1e-3:
+        fail(f"[generative] the first batch's 2048-d features differ from the CPU's by {feat_diff:.2e} (limit 1e-3)")
+    # the extractor alone: images/s at 299 x 299 from 32 x 32 uint8
+    ext_ms = cuda_ms(lambda: pool(real[1]), reps=10, warmup=2)
+    images_s = GEN_BATCH / ext_ms * 1e3
+    bound_s = PEAK_OPS_PER_S / INCEPTION_OPS
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the buffered metrics' footprint notices
+        fid = M.FID(feature=pool, device=dev)
+        fid_stream = M.FID(feature=pool, streaming=True, feature_dim=2048, device=dev)
+        kid = M.KID(feature=pool, subsets=KID_SUBSETS, subset_size=KID_SUBSET_SIZE, device=dev)
+        inception = M.IS(feature=logits, splits=IS_SPLITS, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _common.reset_dispatch_counters()
+    update_ms = {"FID": [], "FID(streaming)": [], "KID": [], "IS": []}
+    for batches, is_real in ((real, True), (fake, False)):
+        for imgs in batches:
+            for name, metric in (("FID", fid), ("FID(streaming)", fid_stream), ("KID", kid)):
+                t0 = time.perf_counter()
+                metric.update(imgs, real=is_real)
+                torch.cuda.synchronize()
+                update_ms[name].append((time.perf_counter() - t0) * 1e3)
+            if not is_real:
+                t0 = time.perf_counter()
+                inception.update(imgs)
+                torch.cuda.synchronize()
+                update_ms["IS"].append((time.perf_counter() - t0) * 1e3)
+    launches = {op: _common.launch_count(op) for op in KERNEL_OPS}
+    if any(launches.values()):
+        fail(f"[generative] a kernel launched on the generative metrics, which have none: {launches}")
+    compute_ms, values = {}, {}
+    for name, metric in (("FID", fid), ("FID(streaming)", fid_stream), ("KID", kid), ("IS", inception)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = metric.compute()
+        out = [float(v) for v in out] if isinstance(out, tuple) else float(out)
+        compute_ms[name] = (time.perf_counter() - t0) * 1e3
+        values[name] = out
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+
+    real_f = torch.cat(fid.real_features).double()
+    fake_f = torch.cat(fid.fake_features).double()
+    # the 2048 x 2048 square root alone, each form, on the card's float64 moments
+    mu1, cov1 = fid_mod._mean_cov(real_f)
+    mu2, cov2 = fid_mod._mean_cov(fake_f)
+    sqrtm = {}
+    for method in ("ns", "eigh"):
+        fid_mod._trace_sqrt_product(cov1, cov2, method)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trace = float(fid_mod._trace_sqrt_product(cov1, cov2, method))
+        sqrtm[method] = {"ms": (time.perf_counter() - t0) * 1e3,
+                         "fid": float(fid_mod._compute_fid(mu1, cov1, mu2, cov2, method=method)), "trace": trace}
+    # the float64 scipy formula on the same features
+    t0 = time.perf_counter()
+    r_np, f_np = real_f.cpu().numpy(), fake_f.cpu().numpy()
+    c1, c2 = np.cov(r_np, rowvar=False), np.cov(f_np, rowvar=False)
+    covmean = scipy.linalg.sqrtm(c1 @ c2).real
+    scipy_fid = float(((r_np.mean(0) - f_np.mean(0)) ** 2).sum() + np.trace(c1 + c2 - 2 * covmean))
+    scipy_s = time.perf_counter() - t0
+    checks = {
+        "FID vs scipy": _rel_diff(values["FID"], scipy_fid),
+        "FID(streaming) vs scipy": _rel_diff(values["FID(streaming)"], scipy_fid),
+        "ns vs eigh": _rel_diff(sqrtm["ns"]["fid"], sqrtm["eigh"]["fid"]),
+    }
+    limits = {"FID vs scipy": 1e-3, "FID(streaming) vs scipy": 1e-3, "ns vs eigh": 1e-3}
+    # KID against the float64 numpy oracle on the same subsets
+    gen = torch.Generator().manual_seed(kid.rng_seed)
+    ridx = subset_indices(gen, KID_SUBSETS, GEN_IMAGES, KID_SUBSET_SIZE).numpy()
+    fidx = subset_indices(gen, KID_SUBSETS, GEN_IMAGES, KID_SUBSET_SIZE).numpy()
+    kid_mean, kid_std = _np_kid(np, torch.cat(kid.real_features).double().cpu().numpy(),
+                                torch.cat(kid.fake_features).double().cpu().numpy(), ridx, fidx)
+    checks["KID vs numpy"] = _rel_diff(values["KID"][0], kid_mean)
+    perm = torch.randperm(GEN_IMAGES, generator=torch.Generator().manual_seed(inception.rng_seed)).numpy()
+    is_mean, is_std = _np_is(np, torch.cat(inception.features).double().cpu().numpy(), perm, IS_SPLITS)
+    checks["IS vs numpy"] = _rel_diff(values["IS"][0], is_mean)
+    limits.update({"KID vs numpy": 1e-4, "IS vs numpy": 1e-4})
+    t0 = time.perf_counter()
+    singular = _singular_fid(torch, np, fid_mod, real_f, fake_f)
+    singular_s = time.perf_counter() - t0
+    if not singular["rescue"]["rescued"]:
+        fail(f"[generative] float32 FID on 33 samples a side took no rescue on the Newton-Schulz form: "
+             f"{singular['rescue']}")
+    checks["FID dead features vs eigh oracle"] = singular["dead"]["rel"]
+    checks["FID few samples vs eigh oracle"] = singular["few"]["rel"]
+    checks["FID float32 rescue vs CPU"] = singular["rescue"]["rel"]
+    limits.update({"FID dead features vs eigh oracle": 1e-4, "FID few samples vs eigh oracle": 1e-4,
+                   "FID float32 rescue vs CPU": 1e-3})
+    record.update({
+        "feature_rel_diff_cpu": feat_diff, "extractor_ms_per_batch": ext_ms, "images_per_s": images_s,
+        "images_per_s_bound": bound_s, "update_ms": update_ms, "compute_ms": compute_ms, "values": values,
+        "sqrtm": sqrtm, "scipy_fid": scipy_fid, "scipy_s": scipy_s, "kid_oracle": [kid_mean, kid_std],
+        "is_oracle": [is_mean, is_std], "checks": checks, "peak_memory_gb": peak_gb, "launches": launches,
+        "singular": singular, "singular_s": singular_s,
+    })
+    record["phase_s"] = time.perf_counter() - t_phase
+    medians = {k: round(statistics.median(v), 3) for k, v in update_ms.items()}
+    print(f"[generative] CIFAR-10-shaped FID/KID/IS ({GEN_IMAGES} real + {GEN_IMAGES} generated uint8 3 x {GEN_SIDE} x "
+          f"{GEN_SIDE}, batches of {GEN_BATCH}, resized to 299; InceptionV3 with seeded weights, batch-norm statistics from the first real batch) on {card}: the first "
+          f"batch's first {GEN_CPU_CHECK} images' features == CPU within {feat_diff:.1e}; extractor {images_s:.0f} images/s (bound "
+          f"{bound_s:.0f} images/s at {INCEPTION_OPS / 1e9:.1f} GFLOP an image, float32 peak); update median ms "
+          f"{medians}; compute ms { {k: round(v, 1) for k, v in compute_ms.items()} }, the 2048 x 2048 trace "
+          f"term alone: ns {sqrtm['ns']['ms']:.1f} ms, eigh {sqrtm['eigh']['ms']:.1f} ms; values {values}; scipy "
+          f"sqrtm FID {scipy_fid:.6f} ({scipy_s:.1f} s on the host); singular covariances ({singular_s:.1f} s): "
+          f"{FID_DEAD} dead features on '{singular['dead']['method']}' (rescued: {singular['dead']['rescued']}), "
+          f"{FID_FEW} samples a side on '{singular['few']['method']}' (rescued: {singular['few']['rescued']}), "
+          f"float32 33 a side on 'ns' (rescued: {singular['rescue']['rescued']}); checks "
+          f"{ {k: f'{v:.1e}' for k, v in checks.items()} }; no kernel; peak memory {peak_gb:.2f} GB; phase 3m took "
+          f"{record['phase_s']:.1f} s")
+    for what, rel in checks.items():
+        if not rel <= limits[what]:
+            fail(f"[generative] {what}: {rel:.2e} apart (relative; limit {limits[what]:.0e})")
+    if not all(np.isfinite(values["IS"])):
+        fail(f"[generative] IS {values['IS']} is not finite")
+    return record
+
+
+def generative_phase_main(record_path: str = "") -> int:
+    """Run :func:`generative_phase` alone (see :func:`_phase_alone`)."""
+    return _phase_alone(generative_phase, record_path)
+
+
 def compute_async_phase(torch, M, dev, batches, card) -> dict:
     """Phase 3h-c: ``compute_async`` of the ImageNet-1k collection after 25 of
     its 49 forwards against a synchronous ``compute()`` at that point."""
@@ -3265,6 +4128,12 @@ def main() -> int:
     # -- 3k. the retrieval slice ----------------------------------------------------
     record["retrieval"] = retrieval_phase(torch, M, dev, card)
 
+    # -- 3l. the small metrics: audio, BLEU, similarity, gradients, bootstrap ---------
+    record["small_metrics"] = small_metrics_phase(torch, M, dev, card, batches, keyed_batches)
+
+    # -- 3m. the generative metrics: FID, KID, IS on InceptionV3 ------------------------
+    record["generative"] = generative_phase(torch, M, dev, card)
+
     # -- 4. times at the main-path shapes ------------------------------------
     preds, target = batches[0]
     canon_p, canon_t, _ = _input_format_classification(preds, target)
@@ -3492,6 +4361,15 @@ def main() -> int:
         if entry["name"] == "segment_scatter_add":
             entry["retrieval_launches"] = {"eager": retrieval["launches"]["segment_scatter_add"],
                                            "update_many": retrieval["update_many_launches"]}
+    # B1 under the eager BootStrapper (phase 3l-f) and B3 under the keyed audio collection (phase 3l-b)
+    small = record["small_metrics"]
+    for entry in kernels:
+        if entry["name"] == "stat_scores_counts":
+            entry["bootstrap_launches"] = {"eager": small["bootstrap"]["launches"]["stat_scores_counts"],
+                                           "pure": small["bootstrap"]["pure_launches"]["stat_scores_counts"]}
+            entry["batched"] = small["bootstrap"]["b1_batched"]
+        if entry["name"] == "segment_scatter_add":
+            entry["audio_keyed_launches"] = small["speech_keyed"]["launches"]["segment_scatter_add"]
     record["kernels"] = kernels
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)

@@ -34,8 +34,13 @@ family (``MeanSquaredError``, ``MeanAbsoluteError``,
 and ``SSIM``, and the retrieval family (``RetrievalMAP``, ``RetrievalMRR``,
 ``RetrievalPrecision``, ``RetrievalRecall``, ``RetrievalNormalizedDCG``,
 ``RetrievalFallOut``) in its flat, ``padded=True`` and ``sketched=True``
-(query reservoir) modes.
+(query reservoir) modes, and the rest of the metric inventory: the audio
+metrics (``SNR``, ``SI_SNR``, ``SI_SDR``), ``BootStrapper``, and ``FID``,
+``KID`` and ``IS`` on an InceptionV3 carried across from the JAX package's
+Flax net (``image/inception_net.py``), with the functional ``bleu_score``,
+``embedding_similarity`` and ``image_gradients``.
 """
+from metrics_tpu_torch.audio import SI_SDR, SI_SNR, SNR  # noqa: F401
 from metrics_tpu_torch.average import AverageMeter  # noqa: F401
 from metrics_tpu_torch.classification import (  # noqa: F401
     AUC,
@@ -62,7 +67,7 @@ from metrics_tpu_torch.classification import (  # noqa: F401
     StatScores,
 )
 from metrics_tpu_torch.collections import MetricCollection  # noqa: F401
-from metrics_tpu_torch.image import PSNR, SSIM  # noqa: F401
+from metrics_tpu_torch.image import FID, IS, KID, PSNR, SSIM  # noqa: F401
 from metrics_tpu_torch.metric import CompositionalMetric, Metric  # noqa: F401
 from metrics_tpu_torch.regression import (  # noqa: F401
     CosineSimilarity,
@@ -85,7 +90,7 @@ from metrics_tpu_torch.retrieval import (  # noqa: F401
     RetrievalRecall,
 )
 from metrics_tpu_torch.utilities.capped_buffer import BufferOverflowError  # noqa: F401
-from metrics_tpu_torch.wrappers import KeyedMetric, MultiTenantCollection  # noqa: F401
+from metrics_tpu_torch.wrappers import BootStrapper, KeyedMetric, MultiTenantCollection  # noqa: F401
 from metrics_tpu_torch import serving  # noqa: F401 E402
 from metrics_tpu_torch.serving import AdmissionQueue, SLOScheduler  # noqa: F401 E402
 from metrics_tpu_torch import resilience  # noqa: F401 E402

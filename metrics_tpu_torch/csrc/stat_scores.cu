@@ -16,6 +16,12 @@
 // counts exact and independent of the order of the blocks. The ragged edges
 // are masked here (columns past C) and by the row bounds, so no sentinel
 // padding is needed.
+//
+// Batched form: a (B, N, C) stack of independent inputs (the children of a
+// bootstrap, whose update runs under torch.func.vmap, as pallas_call's
+// batching rule runs the Pallas kernel over a leading grid axis) takes the
+// grid's z axis for its batch index; each z counts its own (N, C) slice into
+// its own (C,) rows of the (4, B, C) output. B = 1 is the plain form.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -25,11 +31,18 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int64_t kTargetBlocks = 264;  // two blocks per SM of the H100's 132
+// a stack's blocks: eight per SM (2048 threads, the SM's most), enough loads
+// in flight to stream a (20, 1024, 1000) stack's 164 MB
+constexpr int64_t kBatchedTargetBlocks = 1056;
 
 __global__ void stat_scores_counts_kernel(const int* __restrict__ preds, const int* __restrict__ target,
-                                          int64_t n, int64_t c, int64_t rows_per_chunk, int* __restrict__ out) {
+                                          int64_t batch, int64_t n, int64_t c, int64_t rows_per_chunk,
+                                          int* __restrict__ out) {
   const int64_t col = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (col >= c) return;
+  const int64_t slice = blockIdx.z;
+  preds += slice * n * c;
+  target += slice * n * c;
   const int64_t row_begin = static_cast<int64_t>(blockIdx.y) * rows_per_chunk;
   const int64_t row_end = row_begin + rows_per_chunk < n ? row_begin + rows_per_chunk : n;
   int tp = 0, fp = 0, tn = 0, fn = 0;
@@ -45,10 +58,38 @@ __global__ void stat_scores_counts_kernel(const int* __restrict__ preds, const i
       fn += 1 - eq;
     }
   }
-  if (tp) atomicAdd(out + col, tp);
-  if (fp) atomicAdd(out + c + col, fp);
-  if (tn) atomicAdd(out + 2 * c + col, tn);
-  if (fn) atomicAdd(out + 3 * c + col, fn);
+  // rows tp, fp, tn, fn of the (4, batch, c) output
+  const int64_t stride = batch * c;
+  out += slice * c + col;
+  if (tp) atomicAdd(out, tp);
+  if (fp) atomicAdd(out + stride, fp);
+  if (tn) atomicAdd(out + 2 * stride, tn);
+  if (fn) atomicAdd(out + 3 * stride, fn);
+}
+
+constexpr int64_t kMaxGridZ = 65535;
+
+// Launches the batch in groups of at most kMaxGridZ slices (the grid's z
+// limit); each group's blocks split N so that about kTargetBlocks blocks
+// (kBatchedTargetBlocks for a stack) are in flight.
+int launch(const int* preds, const int* target, int64_t batch, int64_t n, int64_t c, int* out,
+           cudaStream_t stream) {
+  const int64_t col_blocks = (c + kThreads - 1) / kThreads;
+  for (int64_t first = 0; first < batch; first += kMaxGridZ) {
+    const int64_t slices = batch - first < kMaxGridZ ? batch - first : kMaxGridZ;
+    int64_t chunks = (batch > 1 ? kBatchedTargetBlocks : kTargetBlocks) / (col_blocks * slices);
+    if (chunks < 1) chunks = 1;
+    if (chunks > n) chunks = n;
+    const int64_t rows_per_chunk = (n + chunks - 1) / chunks;
+    chunks = (n + rows_per_chunk - 1) / rows_per_chunk;
+    const dim3 grid(static_cast<unsigned>(col_blocks), static_cast<unsigned>(chunks), static_cast<unsigned>(slices));
+    // the group's first slice: its inputs, and its columns of every output row
+    stat_scores_counts_kernel<<<grid, kThreads, 0, stream>>>(preds + first * n * c, target + first * n * c, batch, n,
+                                                           c, rows_per_chunk, out + first * c);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 }  // namespace
@@ -61,15 +102,17 @@ extern "C" int stat_scores_counts_launch(const void* preds, const void* target, 
   if (n <= 0 || c <= 0) return 0;
   DeviceScope scope(device);
   if (scope.error() != cudaSuccess) return static_cast<int>(scope.error());
-  const int64_t col_blocks = (c + kThreads - 1) / kThreads;
-  int64_t chunks = kTargetBlocks / col_blocks;
-  if (chunks < 1) chunks = 1;
-  if (chunks > n) chunks = n;
-  const int64_t rows_per_chunk = (n + chunks - 1) / chunks;
-  chunks = (n + rows_per_chunk - 1) / rows_per_chunk;
-  const dim3 grid(static_cast<unsigned>(col_blocks), static_cast<unsigned>(chunks));
-  stat_scores_counts_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(preds), static_cast<const int*>(target), n, c, rows_per_chunk,
-      static_cast<int*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return launch(static_cast<const int*>(preds), static_cast<const int*>(target), 1, n, c, static_cast<int*>(out),
+                static_cast<cudaStream_t>(stream));
+}
+
+// The batched form: preds, target: (batch, n, c) int32, contiguous. out:
+// (4, batch, c) int32, zero-filled. Otherwise as stat_scores_counts_launch.
+extern "C" int stat_scores_counts_batched_launch(const void* preds, const void* target, int64_t batch, int64_t n,
+                                                 int64_t c, void* out, int device, void* stream) {
+  if (batch <= 0 || n <= 0 || c <= 0) return 0;
+  DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return static_cast<int>(scope.error());
+  return launch(static_cast<const int*>(preds), static_cast<const int*>(target), batch, n, c,
+                static_cast<int*>(out), static_cast<cudaStream_t>(stream));
 }

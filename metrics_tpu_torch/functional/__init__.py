@@ -1,6 +1,7 @@
 """Stateless functional metrics (counterpart of ``metrics_tpu/functional/``): each is
 a plain function on tensors, split into ``_update``/``_compute`` halves that the
 module metrics reuse."""
+from metrics_tpu_torch.functional.audio import si_sdr, si_snr, snr  # noqa: F401
 from metrics_tpu_torch.functional.classification import (  # noqa: F401
     accuracy,
     auc,
@@ -24,6 +25,8 @@ from metrics_tpu_torch.functional.classification import (  # noqa: F401
     specificity,
     stat_scores,
 )
+from metrics_tpu_torch.functional.image_gradients import image_gradients  # noqa: F401
+from metrics_tpu_torch.functional.nlp import bleu_score  # noqa: F401
 from metrics_tpu_torch.functional.regression import (  # noqa: F401
     cosine_similarity,
     explained_variance,
@@ -46,3 +49,4 @@ from metrics_tpu_torch.functional.retrieval import (  # noqa: F401
     retrieval_recall,
     retrieval_reciprocal_rank,
 )
+from metrics_tpu_torch.functional.self_supervised import embedding_similarity  # noqa: F401

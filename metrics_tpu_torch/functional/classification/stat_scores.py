@@ -4,21 +4,23 @@ Counterpart of ``metrics_tpu/functional/classification/stat_scores.py``:
 the masked sums of ``_stat_scores``, the update/compute split, and the
 weighted reduction ``_reduce_stat_scores``. The per-class counts of 2-D
 canonical inputs (``reduce="macro"``) go through the CUDA kernel
-:func:`~metrics_tpu_torch.kernels.stat_scores.stat_scores_counts_cuda` at
+(:func:`~metrics_tpu_torch.kernels.stat_scores.stat_scores_counts_cuda`) at
 the seam where the JAX package consults its Pallas kernel
 (``stat_scores.py:46-55``).
 
-Inside ``torch.func.vmap`` (the keyed path's per-row update) that seam takes
-the plain compare chain instead: each row is a length-1 batch, so there is
-no row reduction for the kernel to do, and the per-row terms are
-elementwise. On a TPU the JAX package batches its ``pallas_call`` there;
-the CUDA kernel takes no batched tensor.
+Inside ``torch.func.vmap`` the seam calls
+:func:`~metrics_tpu_torch.kernels.stat_scores.stat_scores_counts_stacked`,
+whose vmap rule launches the kernel once over the whole stack of per-sample
+``(N, C)`` inputs (a bootstrap's children), as the JAX package's
+``pallas_call`` batches over a leading grid axis there. The keyed path's
+per-row update is the exception: each row is a length-1 batch, so there is
+no row to reduce, and its four terms are the compare chain itself.
 """
 from typing import Optional, Tuple
 
 import torch
 
-from metrics_tpu_torch.kernels.stat_scores import stat_scores_counts_cuda
+from metrics_tpu_torch.kernels.stat_scores import stat_scores_counts_stacked
 from metrics_tpu_torch.utilities.checks import _input_format_classification
 from metrics_tpu_torch.utilities.data import Tensor, _is_batched
 from metrics_tpu_torch.utilities.enums import AverageMethod, MDMCAverageMethod
@@ -43,8 +45,9 @@ def _stat_scores(
 
     Output shapes: micro -> scalar / ``(N,)``; macro -> ``(C,)`` / ``(N, C)``;
     samples -> ``(N,)`` / ``(N, X)``. Macro counts of 2-D inputs go through
-    the B1 kernel, except inside ``torch.func.vmap``, where the compare chain
-    below computes each row's terms.
+    the B1 kernel, batched over the stack inside ``torch.func.vmap``, except
+    for a length-1 batch there (a keyed row), whose terms the compare chain
+    below computes.
     """
     if reduce == "micro":
         dim = (0, 1) if preds.ndim == 2 else (1, 2)
@@ -55,8 +58,8 @@ def _stat_scores(
     else:
         raise ValueError(f"The `reduce` {reduce} is not valid.")
 
-    if reduce == "macro" and preds.ndim == 2 and not _is_batched(preds, target):
-        return stat_scores_counts_cuda(preds.contiguous(), target.contiguous(), device=preds.device)
+    if reduce == "macro" and preds.ndim == 2 and (preds.shape[0] > 1 or not _is_batched(preds, target)):
+        return stat_scores_counts_stacked(preds, target)
 
     true_pred = target == preds
     false_pred = target != preds

@@ -14,15 +14,14 @@ most the pad, bouncing as often as ``jnp.pad(mode="reflect")`` does, where
 TF32): the variance cancellation ``E[X^2] - mu^2`` amplifies any rounding of
 the window means. Integer images compute in float32.
 """
-import contextlib
-from typing import Iterator, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from metrics_tpu_torch.functional.regression.spearman import _dtype_name
 from metrics_tpu_torch.utilities.checks import _check_same_shape
-from metrics_tpu_torch.utilities.data import Tensor
+from metrics_tpu_torch.utilities.data import Tensor, full_fp32
 from metrics_tpu_torch.utilities.distributed import reduce
 
 
@@ -41,20 +40,6 @@ def _reflect_index(size: int, pad: int, device: torch.device) -> Tensor:
     period = 2 * (size - 1)
     idx = torch.remainder(idx, period)
     return torch.where(idx >= size, period - idx, idx)
-
-
-@contextlib.contextmanager
-def _full_fp32_convs(device: torch.device) -> Iterator[None]:
-    """No TF32 in cuDNN's convolutions for the block (a CUDA device only)."""
-    if device.type != "cuda":
-        yield
-        return
-    saved = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = saved
 
 
 def _ssim_update(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:
@@ -115,7 +100,7 @@ def _ssim_compute(
     padded = stack.index_select(-2, _reflect_index(h, pad_h, device)).index_select(-1, _reflect_index(w, pad_w, device))
     kern_h = _gaussian(kernel_size[0], sigma[0], dtype, device).reshape(1, 1, kernel_size[0], 1).expand(channel, 1, -1, 1)
     kern_w = _gaussian(kernel_size[1], sigma[1], dtype, device).reshape(1, 1, 1, kernel_size[1]).expand(channel, 1, 1, -1)
-    with _full_fp32_convs(device):
+    with full_fp32(device):
         outputs = F.conv2d(padded, kern_h, groups=channel)
         outputs = F.conv2d(outputs, kern_w, groups=channel)
     batch = preds.shape[0]

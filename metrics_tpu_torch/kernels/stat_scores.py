@@ -10,10 +10,15 @@ binary ``(N, C)`` inputs with four masked sums. Two formulations:
   ``csrc/stat_scores.cu`` (which replaces the Pallas ``_stat_scores_kernel``):
   one pass over both inputs, one thread per class column, exact int32
   counts. It takes a CUDA tensor to the kernel and a CPU tensor to the plain
-  version.
+  version, and a ``(B, N, C)`` stack as well as one ``(N, C)`` input: the
+  kernel's batched form counts every slice in one launch.
+* :func:`stat_scores_counts_stacked`, the seam's call inside
+  ``torch.func.vmap``: its vmap rule hands the whole stack to the wrapper
+  in one launch, as ``pallas_call``'s batching rule runs the Pallas kernel
+  over a leading grid axis.
 """
 import ctypes
-from typing import Tuple, Union
+from typing import Any, Optional, Tuple, Union
 
 import torch
 
@@ -25,40 +30,47 @@ from metrics_tpu_torch.kernels._common import (
     note_kernel_dispatch,
     require_capability,
 )
-from metrics_tpu_torch.utilities.data import Tensor, check_device
+from metrics_tpu_torch.utilities.data import Tensor, _is_batched, check_device
 
 _OP = "stat_scores_counts"
 _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p
 )
+_BATCHED_ARGTYPES = (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_void_p,
+)
 
 
 def stat_scores_counts_torch(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Four ``(C,)`` int32 count vectors (tp, fp, tn, fn) over canonical
-    binary ``(N, C)`` inputs (the ``reduce="macro"`` sums of ``_stat_scores``)."""
+    binary ``(N, C)`` inputs (the ``reduce="macro"`` sums of ``_stat_scores``),
+    or four ``(B, C)`` ones, a row per slice of a ``(B, N, C)`` stack."""
     true_pred = target == preds
     false_pred = target != preds
     pos_pred = preds == 1
     neg_pred = preds == 0
-    tp = torch.sum(true_pred & pos_pred, dim=0)
-    fp = torch.sum(false_pred & pos_pred, dim=0)
-    tn = torch.sum(true_pred & neg_pred, dim=0)
-    fn = torch.sum(false_pred & neg_pred, dim=0)
+    tp = torch.sum(true_pred & pos_pred, dim=-2)
+    fp = torch.sum(false_pred & pos_pred, dim=-2)
+    tn = torch.sum(true_pred & neg_pred, dim=-2)
+    fn = torch.sum(false_pred & neg_pred, dim=-2)
     return tp.to(torch.int32), fp.to(torch.int32), tn.to(torch.int32), fn.to(torch.int32)
 
 
 def stat_scores_counts_cuda(
     preds: Tensor, target: Tensor, device: Union[str, torch.device] = "cuda"
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-    """Per-class tp/fp/tn/fn of canonical binary ``(N, C)`` int32 inputs lying on ``device``.
+    """Per-class tp/fp/tn/fn of canonical binary ``(N, C)`` int32 inputs lying
+    on ``device``, or of each slice of a ``(B, N, C)`` stack (four ``(B, C)``
+    outputs).
 
-    On a CUDA device the kernel counts; on the CPU the plain version does.
-    Raises on inputs the kernel does not take.
+    On a CUDA device the kernel counts, in one launch either way; on the CPU
+    the plain version does. Raises on inputs the kernel does not take.
     """
     device = kernel_device(device)
     check_device(device, preds, target)
-    if preds.ndim != 2 or preds.shape != target.shape:
-        raise ValueError(f"expected preds and target of one shape (N, C), got {tuple(preds.shape)} and"
+    if preds.ndim not in (2, 3) or preds.shape != target.shape:
+        raise ValueError(f"expected preds and target of one shape (N, C) or (B, N, C), got {tuple(preds.shape)} and"
                          f" {tuple(target.shape)}")
     if device.type == "cpu":
         note_kernel_dispatch(_OP, "torch")
@@ -70,6 +82,8 @@ def stat_scores_counts_cuda(
     if not (preds.is_contiguous() and target.is_contiguous()):
         raise ValueError(f"{_OP} takes contiguous inputs")
     require_capability(device)
+    if preds.ndim == 3:
+        return _batched_counts_cuda(preds, target, device)
     return _counts_cuda(preds, target, device)
 
 
@@ -84,3 +98,56 @@ def _counts_cuda(preds: Tensor, target: Tensor, device: torch.device) -> Tuple[T
         check_launch(_OP, err)
         note_kernel_dispatch(_OP, "cuda")
     return out[0], out[1], out[2], out[3]
+
+
+def _batched_counts_cuda(preds: Tensor, target: Tensor,
+                         device: torch.device) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The batched form of :func:`_counts_cuda`: one launch counts every
+    ``(N, C)`` slice of the stack into the ``(4, B, C)`` output."""
+    b, n, c = preds.shape
+    out = torch.zeros((4, b, c), dtype=torch.int32, device=device)
+    if b and n and c:
+        err = kernel_function("stat_scores_counts_batched_launch", _BATCHED_ARGTYPES)(
+            preds.data_ptr(), target.data_ptr(), b, n, c, out.data_ptr(), device.index, current_stream_handle(device))
+        check_launch(_OP, err)
+        note_kernel_dispatch(_OP, "cuda")
+    return out[0], out[1], out[2], out[3]
+
+
+def _batch_first(x: Tensor, dim: Optional[int], size: int) -> Tensor:
+    """``x`` with its vmap batch axis ``dim`` moved first, or broadcast to
+    ``size`` along a new first axis where it has none."""
+    return x.movedim(dim, 0) if dim is not None else x.expand((size,) + tuple(x.shape))
+
+
+class _StackedCounts(torch.autograd.Function):
+    """B1 for inputs batched by ``torch.func.vmap``: the vmap rule launches
+    the kernel once over the whole ``(B, N, C)`` stack (the batch axes of
+    nested vmaps flattened into one), where the transform would otherwise
+    take the plain ops one batch at a time."""
+
+    @staticmethod
+    def forward(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+        return stat_scores_counts_stacked(preds, target)
+
+    @staticmethod
+    def setup_context(ctx: Any, inputs: Any, output: Any) -> None:
+        pass  # integer counts: nothing to differentiate
+
+    @staticmethod
+    def vmap(info: Any, in_dims: Tuple[Optional[int], Optional[int]], preds: Tensor,
+             target: Tensor) -> Tuple[Tuple[Tensor, ...], Tuple[int, ...]]:
+        preds, target = (_batch_first(x, d, info.batch_size) for x, d in zip((preds, target), in_dims))
+        lead, tail = tuple(preds.shape[:-2]), tuple(preds.shape[-2:])
+        counts = stat_scores_counts_stacked(preds.reshape((-1,) + tail), target.reshape((-1,) + tail))
+        return tuple(x.reshape(lead + tuple(x.shape[-1:])) for x in counts), (0, 0, 0, 0)
+
+
+def stat_scores_counts_stacked(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Per-class counts of ``(N, C)`` inputs, or of each ``(N, C)`` slice of a
+    ``(B, N, C)`` stack, on the inputs' device. Inside ``torch.func.vmap`` the
+    vmap rule of :class:`_StackedCounts` takes the whole batch to one launch
+    of :func:`stat_scores_counts_cuda`."""
+    if _is_batched(preds, target):
+        return _StackedCounts.apply(preds, target)
+    return stat_scores_counts_cuda(preds.contiguous(), target.contiguous(), device=preds.device)

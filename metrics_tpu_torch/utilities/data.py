@@ -17,9 +17,13 @@ runs its program (:class:`trace_scope`, set by
 :class:`~metrics_tpu_torch.utilities.aot.CompiledDispatch`: on the card the
 program is captured into a CUDA graph, which no host read may enter). Both
 times a value cannot be read to the host, and the value checks skip.
+
+:func:`full_fp32` keeps a block's float32 matmuls and convolutions on the
+card out of TF32, whatever the process's precision settings say.
 """
+import contextlib
 import threading
-from typing import Any, Callable, List, Mapping, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Iterator, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -111,6 +115,42 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+class _Fp32Blocks:
+    """The process-wide TF32 flags' owner while any :func:`full_fp32` block
+    is open on any thread: the first block to open saves and clears them,
+    the last to close restores them, all under one lock. The flags are
+    process-wide, so blocks on the serving flusher or the async sync worker
+    would otherwise restore each other's saved values mid-block."""
+
+    lock = threading.Lock()
+    depth = 0
+    saved: Tuple[bool, bool] = (False, False)
+
+
+@contextlib.contextmanager
+def full_fp32(device: torch.device) -> Iterator[None]:
+    """Full float32 (no TF32) in cuBLAS matmuls and cuDNN convolutions for
+    the block, on a CUDA device; the flags are restored when the last open
+    block (on any thread) closes. The JAX package pins ``precision=HIGHEST``
+    or ``"float32"`` per product for the same reason."""
+    if device.type != "cuda":
+        yield
+        return
+    with _Fp32Blocks.lock:
+        if _Fp32Blocks.depth == 0:
+            _Fp32Blocks.saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        _Fp32Blocks.depth += 1
+    try:
+        yield
+    finally:
+        with _Fp32Blocks.lock:
+            _Fp32Blocks.depth -= 1
+            if _Fp32Blocks.depth == 0:
+                torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = _Fp32Blocks.saved
 
 
 def check_device(device: torch.device, *tensors: Any) -> None:

@@ -3,7 +3,7 @@
 Counterpart of ``metrics_tpu/utilities/stacked.py``, with
 ``torch.func.vmap`` in place of ``jax.vmap``. A wrapper that holds many
 logical copies of one metric (``KeyedMetric``/``MultiTenantCollection``,
-whose axis is tenants; later the bootstrapper, whose axis is replicas) keeps
+whose axis is tenants; ``BootStrapper``, whose axis is replicas) keeps
 them as ONE state dict whose every tensor carries an extra leading axis:
 
 * **stack build** — :func:`stack_pytrees` (stack N concrete child states) and

@@ -93,6 +93,21 @@ def test_stat_scores_kernel_matches_plain(cuda_device, n, c):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c", [(1, 1, 1), (3, 1023, 129), (20, 1024, 1000), (70_000, 2, 3)])
+def test_stat_scores_batched_kernel_matches_plain(cuda_device, b, n, c):
+    """The batched form, one launch for the stack; 70,000 slices pass the
+    grid's z limit of 65,535 and go in two groups."""
+    rng = np.random.RandomState(b + c)
+    preds, target = (torch.from_numpy(rng.randint(0, 3, (b, n, c)).astype(np.int32)).to(cuda_device)
+                     for _ in range(2))
+    got = stat_scores_counts_cuda(preds, target)
+    torch.cuda.synchronize()
+    for g, w in zip(got, stat_scores_counts_torch(preds, target)):
+        assert g.shape == (b, c) and torch.equal(g, w)
+    assert _common.launch_count("stat_scores_counts") == 1
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,c,dtype", [(1, 1000, torch.int64), (1024, 3, torch.int64), (1024, 64, torch.int32),
                                        (1024, 1000, torch.int64)])
 def test_confmat_kernel_matches_plain(cuda_device, n, c, dtype):
@@ -779,3 +794,141 @@ def test_the_keyed_padded_update_launches_b3_once_per_bundle(cuda_device):
     got, want = card.compute(), host.compute()
     for name in want:
         torch.testing.assert_close(got[name].cpu(), want[name], rtol=1e-5, atol=1e-5, equal_nan=True)
+
+
+# -- the rest of the metric inventory ---------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_the_inception_extractor_taps_on_the_card_match_the_cpu(cuda_device):
+    """Every tap of the seeded net on the card equals the CPU's within 1e-4
+    relative to the tap's largest magnitude (full float32: no TF32), from
+    an upsampled and a downsampled input."""
+    from metrics_tpu_torch.image.inception_net import InceptionFeatureExtractor, seeded_inception
+
+    net_cpu, net_gpu = seeded_inception(1), seeded_inception(1)
+    gen = torch.Generator().manual_seed(3)
+    for side in (32, 320):
+        imgs = torch.randint(0, 256, (4, 3, side, side), generator=gen, dtype=torch.uint8)
+        for tap in (64, 192, 768, 2048, "logits_unbiased"):
+            want = InceptionFeatureExtractor(tap, net=net_cpu, device="cpu")(imgs)
+            got = InceptionFeatureExtractor(tap, net=net_gpu, device=cuda_device)(imgs.to(cuda_device)).cpu()
+            scale = float(want.abs().max())
+            torch.testing.assert_close(got / scale, want / scale, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_tf32_stays_off_in_the_extractor_and_embedding_similarity(cuda_device):
+    """With TF32 switched on for the whole process, the extractor and
+    ``embedding_similarity`` still compute in full float32: identical rows
+    read 1.0 within 1e-6, and the process's flags are restored after."""
+    from metrics_tpu_torch.functional import embedding_similarity
+    from metrics_tpu_torch.image.inception_net import InceptionFeatureExtractor, seeded_inception
+
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        gen = torch.Generator().manual_seed(4)
+        row = torch.randn(1, 128, generator=gen)
+        sim = embedding_similarity(row.repeat(64, 1).to(cuda_device), zero_diagonal=False)
+        torch.testing.assert_close(sim.cpu(), torch.ones(64, 64), rtol=0, atol=1e-6)
+        x = torch.randn(256, 128, generator=gen)
+        torch.testing.assert_close(embedding_similarity(x.to(cuda_device)).cpu(), embedding_similarity(x),
+                                   rtol=1e-5, atol=1e-6)
+        net = seeded_inception(2)
+        imgs = torch.randint(0, 256, (2, 3, 64, 64), generator=gen, dtype=torch.uint8)
+        want = InceptionFeatureExtractor(2048, net=net, device="cpu")(imgs)
+        got = InceptionFeatureExtractor(2048, net=net, device=cuda_device)(imgs.to(cuda_device)).cpu()
+        torch.testing.assert_close(got / want.abs().max(), want / want.abs().max(), rtol=0, atol=1e-4)
+        assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+def test_fixed_length_poisson_sampler_on_the_card_matches_the_cpu_contract(cuda_device):
+    """The card's fixed-length resample from a seeded generator equals the
+    CPU's contract applied to the same Poisson counts and visit orders."""
+    from metrics_tpu_torch.wrappers.bootstrapping import _bootstrap_indices, _fixed_length_repeat
+
+    for seed, num, size in ((0, 1, 1), (1, 3, 7), (2, 20, 4096)):
+        gen = torch.Generator(device=cuda_device).manual_seed(seed)
+        got = _bootstrap_indices(num, size, gen, "poisson")
+        replay = torch.Generator(device=cuda_device).manual_seed(seed)
+        counts = torch.poisson(torch.ones(num, size, device=cuda_device), generator=replay).long().cpu()
+        order = torch.argsort(torch.rand(num, size, generator=replay, device=cuda_device), dim=1).cpu()
+        assert got.device.type == "cuda" and got.shape == (num, size)
+        assert torch.equal(got.cpu(), _fixed_length_repeat(order, torch.gather(counts, 1, order), size))
+
+
+@pytest.mark.cuda
+def test_the_pure_bootstrap_path_makes_no_synchronizing_call(cuda_device):
+    import warnings
+
+    b = T.BootStrapper(T.Accuracy(device=cuda_device), num_bootstraps=20, sampling_strategy="poisson")
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    preds = torch.rand(1024, 10, generator=gen, device=cuda_device).softmax(-1)
+    target = torch.randint(0, 10, (1024,), generator=gen, device=cuda_device)
+    state = b.apply_update(b.init_state(), preds, target)  # first call: allocator and library warm-up
+    _common.reset_dispatch_counters()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(3):
+                state = b.apply_update(state, preds, target)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message) for w in seen if "synchroniz" in str(w.message) and "prototype" not in str(w.message)]
+    assert syncs == []
+    assert _common.launch_count("stat_scores_counts") == 0
+    out = b.apply_compute(state, process_group=None)
+    assert out["mean"].device.type == "cuda" and 0.0 <= float(out["mean"]) <= 1.0
+
+
+@pytest.mark.cuda
+def test_the_pure_bootstrap_path_counts_its_macro_children_in_one_b1_launch_an_update(cuda_device, monkeypatch):
+    """A macro child's counts go through B1's batched form, one launch an
+    update for all 20 children, with no synchronizing call; the statistics
+    equal the CPU's pure path fed the card's index matrices."""
+    import warnings
+
+    import metrics_tpu_torch.wrappers.bootstrapping as boot
+
+    def build(device):
+        return T.BootStrapper(T.Accuracy(average="macro", num_classes=10, device=device), num_bootstraps=20,
+                              raw=True, seed=4)
+
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    batches = [(torch.rand(1024, 10, generator=gen, device=cuda_device).softmax(-1),
+                torch.randint(0, 10, (1024,), generator=gen, device=cuda_device)) for _ in range(3)]
+    real, recorded = boot._bootstrap_indices, []
+    monkeypatch.setattr(boot, "_bootstrap_indices", lambda *a, **k: recorded.append(real(*a, **k)) or recorded[-1])
+    b = build(cuda_device)
+    b.apply_update(b.init_state(), *batches[0])  # first call: allocator and library warm-up
+    recorded.clear()
+    state = b.init_state()
+    _common.reset_dispatch_counters()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for preds, target in batches:
+                state = b.apply_update(state, preds, target)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message) for w in seen if "synchroniz" in str(w.message) and "prototype" not in str(w.message)]
+    assert syncs == []
+    assert _common.launch_count("stat_scores_counts") == len(batches)
+    got = b.apply_compute(state, process_group=None)
+    replay = iter(recorded)
+    monkeypatch.setattr(boot, "_bootstrap_indices", lambda *a, **k: next(replay).cpu())
+    cpu = build("cpu")
+    cpu_state = cpu.init_state()
+    for preds, target in batches:
+        cpu_state = cpu.apply_update(cpu_state, preds.cpu(), target.cpu())
+    want = cpu.apply_compute(cpu_state, process_group=None)
+    for key in want:
+        torch.testing.assert_close(got[key].cpu(), want[key], rtol=0, atol=1e-6)

@@ -8,7 +8,8 @@ answers: the capability of a device is asked once, and a resolved C entry is
 read without the lock, a resolved device is taken as it is. The CUDA path's
 plumbing of B1 and B2 (one call into the C library with the device index
 and the stream handle, no ``torch.cuda.device`` context) is held against a
-fake library. The cases that launch the CUDA kernels need a card: they live
+fake library, as is B1's batched entry and its vmap rule (one dispatch for
+a whole ``torch.func.vmap`` stack). The cases that launch the CUDA kernels need a card: they live
 in ``tests/test_torch_card.py``.
 """
 import jax.numpy as jnp
@@ -52,6 +53,50 @@ def test_stat_scores_plain_matches_jax(n, c):
         assert g.dtype == torch.int32 and g.shape == (c,)
         np.testing.assert_array_equal(g.numpy(), np.asarray(x))
         np.testing.assert_array_equal(g.numpy(), np.asarray(p))
+
+
+@pytest.mark.parametrize("b,n,c", [(1, 1, 1), (3, 37, 5), (20, 64, 129)])
+def test_stat_scores_plain_batched_matches_jax_vmapped(b, n, c):
+    """The plain version of a ``(B, N, C)`` stack against the JAX package's
+    Pallas kernel under ``jax.vmap`` (``pallas_call``'s batching rule, in
+    interpret mode) and its ``_xla`` formulation slice by slice."""
+    import jax
+
+    preds, target = _binary(b * n, c, seed=b * 100 + c)
+    preds, target = preds.reshape(b, n, c), target.reshape(b, n, c)
+    want_pallas = jax.vmap(lambda p, t: stat_scores_counts_pallas(p, t, interpret=True))(
+        jnp.asarray(preds), jnp.asarray(target))
+    got = stat_scores_counts_torch(torch.from_numpy(preds), torch.from_numpy(target))
+    for k, (g, p) in enumerate(zip(got, want_pallas)):
+        assert g.dtype == torch.int32 and g.shape == (b, c)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(p))
+        for i in range(b):
+            np.testing.assert_array_equal(g[i].numpy(), np.asarray(stat_scores_counts_xla(preds[i], target[i])[k]))
+
+
+@pytest.mark.parametrize("target_batched", [True, False])
+def test_stacked_counts_under_vmap_dispatch_once_for_the_whole_stack(target_batched):
+    """Inside ``torch.func.vmap`` the vmap rule hands the whole stack to the
+    wrapper in one dispatch (one launch on the card); a nested vmap's batch
+    axes flatten into the same one."""
+    preds, target = _binary(24 * 9, 7, seed=5)
+    p = torch.from_numpy(preds).reshape(2, 3, 36, 7)
+    t = torch.from_numpy(target).reshape(2, 3, 36, 7)
+    if not target_batched:
+        t = t[0, 0]
+    dims = 0 if target_batched else None
+    got = torch.func.vmap(st.stat_scores_counts_stacked, in_dims=(0, dims))(p[0], t[0] if target_batched else t)
+    assert _common.dispatch_count("stat_scores_counts", "torch") == 1
+    for i in range(3):
+        want = stat_scores_counts_torch(p[0, i], t[0, i] if target_batched else t)
+        for g, w in zip(got, want):
+            assert torch.equal(g[i], w)
+    nested = torch.func.vmap(torch.func.vmap(st.stat_scores_counts_stacked, in_dims=(0, dims)),
+                             in_dims=(0, dims))(p, t)
+    assert _common.dispatch_count("stat_scores_counts", "torch") == 2
+    for g, w in zip(nested, stat_scores_counts_torch(p, t if target_batched else t.expand(2, 3, 36, 7))):
+        assert g.shape == (2, 3, 7) and torch.equal(g, w)
+    assert _common.launch_count("stat_scores_counts") == 0
 
 
 @pytest.mark.parametrize("n,c", [(1, 1), (37, 3), (256, 129), (200, 600)])
@@ -231,6 +276,20 @@ def test_stat_scores_cuda_path_makes_one_library_call_with_the_device_index(fake
     assert args[:4] == (preds.data_ptr(), target.data_ptr(), n, c) and args[5:] == (None, 1234)
     assert len(out) == 4 and all(o.shape == (c,) and o.dtype == torch.int32 for o in out)
     assert args[4] == out[0].data_ptr()
+    assert _common.launch_count("stat_scores_counts") == 1
+
+
+def test_stat_scores_batched_cuda_path_makes_one_library_call(fake_library):
+    """A ``(B, N, C)`` stack goes to the batched C entry in one call, with
+    its ``(4, B, C)`` output."""
+    preds, target = (torch.from_numpy(a).reshape(4, 30, 9) for a in _binary(120, 9, seed=8))
+    out = st._batched_counts_cuda(preds, target, torch.device("cpu"))
+    assert fake_library.entries == ["stat_scores_counts_batched_launch"] and len(fake_library.calls) == 1
+    args = fake_library.calls[0]
+    assert len(args) == len(st._BATCHED_ARGTYPES)
+    assert args[:5] == (preds.data_ptr(), target.data_ptr(), 4, 30, 9) and args[6:] == (None, 1234)
+    assert len(out) == 4 and all(o.shape == (4, 9) and o.dtype == torch.int32 for o in out)
+    assert args[5] == out[0].data_ptr()
     assert _common.launch_count("stat_scores_counts") == 1
 
 

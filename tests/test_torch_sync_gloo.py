@@ -17,6 +17,9 @@ collective (``utilities/distributed.py::_all_gather``) on each rank. Cases:
 * groups: a ``ProcessGroup`` handle over both ranks, one over rank 0 alone,
   and disjoint rank collections in one round;
 * ``apply_compute(state, process_group=WORLD)`` against ``compute()``;
+* ``BootStrapper``'s pure ``apply_compute`` over the group: the stacked
+  children synced leaf by leaf under their reductions, against the two
+  ranks' stacked states merged in one process;
 * telemetry: the collection's sync and one ``sync_state_packed`` with its
   spans and sync records, against the JAX package's (its collection in N
   threads at a barrier, its packed sync in ``shard_map`` over two devices).
@@ -196,6 +199,21 @@ def _case_apply_compute(rank, data):
     return out
 
 
+def _bootstrapper():
+    return T.BootStrapper(T.Accuracy(**CPU), num_bootstraps=4, raw=True, sampling_strategy="multinomial")
+
+
+def _case_bootstrap(rank, data):
+    import torch.distributed as dist
+
+    b = _bootstrapper()
+    state = b.init_state()
+    for preds, target in data["collection"][:3] if rank == 0 else data["collection"][3:]:
+        state = b.apply_update(state, _t(preds), _t(target))
+    synced = b.apply_compute(state, process_group=dist.group.WORLD)
+    return {"children": _np(state["children"]), "synced": _np(synced)}
+
+
 def _case_telemetry(rank, data):
     import torch.distributed as dist
 
@@ -229,6 +247,7 @@ CASES = {
     "group_handle": _case_group_handle,
     "disjoint_rank_groups": _case_disjoint_rank_groups,
     "apply_compute": _case_apply_compute,
+    "bootstrap": _case_bootstrap,
     "telemetry": _case_telemetry,
 }
 
@@ -414,6 +433,21 @@ def test_apply_compute_over_a_process_group_equals_the_gather_path(synced, name)
         packed, gathered = r[name]
         assert packed.dtype == gathered.dtype
         np.testing.assert_array_equal(packed, gathered)
+
+
+def test_bootstrap_apply_compute_syncs_the_stacked_children_leaf_by_leaf(synced):
+    got, rounds, _ = _ok(synced, "bootstrap")
+    b = _bootstrapper()
+    merged = {}
+    for name, fx in b.metrics[0]._reductions.items():
+        a, c = (torch.from_numpy(r["children"][name]) for r in got)
+        merged[name] = {"sum": torch.add, "max": torch.maximum, "min": torch.minimum}[fx](a, c)
+    want = _np(b.apply_compute({"children": merged}, process_group=None))
+    assert rounds == [0, 0]  # elementwise leaves: all_reduce buckets, no gather round
+    for r in got:
+        assert sorted(r["synced"]) == sorted(want) == ["mean", "raw", "std"]
+        for key in want:
+            np.testing.assert_array_equal(r["synced"][key], want[key])
 
 
 # -- telemetry: spans and sync records against the JAX package -------------------------
