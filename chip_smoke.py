@@ -289,6 +289,32 @@ Phases, in order; any failure exits non-zero before the last line:
    Printed: the extractor's images/s beside its float32 bound, per-update and
    ``compute()`` times with the 2048 x 2048 trace term apart, peak memory.
    ``generative_phase_main()`` runs 3m alone.
+3n. The observability plane armed on the main paths (after 3m). (a) The
+   ImageNet-1k collection under ``jit_forward`` with health ``"record"`` and
+   ``set_profiling(10)``, 49 forwards: B1 49 and B2 49; every synchronizing
+   call of the run one of the profiler's 5 sampled waits, none from the
+   health guard (and none in 10 forwards with health alone); the guard's
+   flag copies drained, the health ledger healthy; the sampled
+   ``dispatch_device_seconds{path=compiled}`` of one forward beside the
+   torch profiler's device time of it. With everything off: B1 49, B2 49,
+   0 synchronizing calls in 10 forwards, two captures of one B1 and one B2
+   launch each (phase 3i's). Health on over off, call by call over 2 x 49
+   forwards (medians, ratio). (b) Phase 3j-b's keyed regression collection
+   with one NaN pred in cohort 20, eager and after ``warmup``: B3 150 each;
+   three health events (one per member, naming its states), at the step of
+   cohort 20 eager and at most one dispatch later compiled; then the same
+   cohorts through ``AdmissionQueue(quarantine="auto")``: the NaN row shed
+   as ``"poisoned"``, no health event, states == the CPU run over the clean
+   rows exactly. (c) ``memory_report()`` of the 10,000-tenant keyed
+   collection == its tensors' ``nbytes``, ``warmup``'s ``"state_memory"`` ==
+   ``state_memory_report()``, the caching allocator's blocks under a second
+   one's state tensors hold its ``nbytes`` within 512 bytes a tensor, and an
+   ``on_pressure`` watermark fires exactly once. (d) The SLO on the staged soak's ingest histogram (p99 <=
+   100 ms, ``scripts/soak.py:60``), ticked each second: the burn rates.
+   (e) ``timeline.export`` and ``export_fleet`` load back as JSON with the
+   serving, profile, memory and collective tracks, and
+   ``aggregate_snapshots`` over a one-rank NCCL group.
+   ``observability_phase_main()`` runs 3n alone (with a 3 s soak).
 5. One JSON line ``{"kernels": [...]}``, the card line again, and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -338,6 +364,8 @@ SOAK_PRODUCERS = 4
 SOAK_COHORT = 64
 SOAK_SECONDS = 10.0
 SOAK_READ_TENANTS = 16
+#: the soak's ingest-latency objective: p99 at or below 100 ms (scripts/soak.py:60)
+SOAK_SLO_S = 0.1
 #: phase 3j: the regression stream of 1,000,000 pairs in chunks of 10,000
 #: (the binary stream's size), cosine over (10,000, 128) embedding chunks,
 #: the sketched Spearman's class default grid over the stream's range, and
@@ -1603,9 +1631,11 @@ def _ms(value) -> str:
     return "none" if value is None else f"{value:.3f}"
 
 
-def serving_soak(torch, M, dev, staging, card) -> dict:
-    """Phase 3h-b: the soak at its full width for ``SOAK_SECONDS``; every
-    check of the module docstring; returns the run's record."""
+def serving_soak(torch, M, dev, staging, card, seconds: float = SOAK_SECONDS) -> dict:
+    """Phase 3h-b: the soak at its full width for ``seconds``; every check
+    of the module docstring; returns the run's record. An SLO on the ingest
+    histogram at the soak's 100 ms p99 objective (``scripts/soak.py:60``) is
+    ticked by the reader each second (phase 3n-d reads its burn rates)."""
     import threading
 
     import numpy as np
@@ -1618,7 +1648,7 @@ def serving_soak(torch, M, dev, staging, card) -> dict:
 
     label = "soak staged" if staging else "soak unstaged"
     rng = np.random.default_rng(SEED + 8)
-    per_producer = int(SOAK_RATE * SOAK_SECONDS) // SOAK_PRODUCERS // SOAK_COHORT * SOAK_COHORT
+    per_producer = int(SOAK_RATE * seconds) // SOAK_PRODUCERS // SOAK_COHORT * SOAK_COHORT
     data = []
     for _ in range(SOAK_PRODUCERS):
         scores = rng.random(per_producer, dtype=np.float32)
@@ -1634,6 +1664,9 @@ def serving_soak(torch, M, dev, staging, card) -> dict:
 
     keyed.update = recorded_update
     observability.reset()
+    observability.SLO_REGISTRY.declare(name="ingest_p99", series="serving_ingest_seconds", threshold=SOAK_SLO_S,
+                                       percentile=99.0, labels={"policy": "shed_oldest"})
+    slo_ticks = []  # the watchdog's statuses, one a second
     svc = SLOScheduler(keyed, max_batch=SOAK_MAX_BATCH, max_delay_ms=SOAK_DELAY_MS, policy="shed_oldest",
                        max_staleness_s=1.0, pad_to_bucket=True, staging=staging)
     # one warm cohort through, and a first read that installs the cache
@@ -1675,6 +1708,11 @@ def serving_soak(torch, M, dev, staging, card) -> dict:
                 read_ms.append((time.perf_counter() - start) * 1e3)
                 if values.shape != (SOAK_READ_TENANTS,):
                     errors.append(ValueError(f"a read returned {values.shape}"))
+                status = observability.WATCHDOG.tick().get("ingest_p99")
+                if status is not None:
+                    slo_ticks.append({"t_s": time.perf_counter() - begun, "fast_burn": status["fast"]["burn_rate"],
+                                      "slow_burn": status["slow"]["burn_rate"], "window_p_ms": status["window_p"] * 1e3,
+                                      "fast_total": status["fast"]["total"], "breached": status["breached"]})
             read_span.append(time.perf_counter() - begun)
         except Exception as err:  # noqa: BLE001 - failed below
             errors.append(err)
@@ -1683,13 +1721,13 @@ def serving_soak(torch, M, dev, staging, card) -> dict:
     read_thread = threading.Thread(target=reader)
     for t in threads + [read_thread]:
         t.start()
-    time.sleep(max(0.0, t0 + SOAK_SECONDS / 2 - 0.5 - time.perf_counter()))
+    time.sleep(max(0.0, t0 + seconds / 2 - 0.5 - time.perf_counter()))
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         window_start = time.perf_counter()
         time.sleep(1.0)
         window_ms = (time.perf_counter() - window_start) * 1e3
     for t in threads:
-        t.join(timeout=SOAK_SECONDS + 60)
+        t.join(timeout=seconds + 60)
     submit_s = time.perf_counter() - t0
     drained = svc.drain(timeout=120)
     drain_s = time.perf_counter() - t0
@@ -1741,11 +1779,12 @@ def serving_soak(torch, M, dev, staging, card) -> dict:
         "dispatch_p50_ms": pct("serving_dispatch_seconds", 50), "dispatch_p99_ms": pct("serving_dispatch_seconds", 99),
         "reads": reads, "reader_reads_done": len(read_ms), "reader_reads_due": reads_due, "read_ms": read_ms,
         "read_p50_ms": read_p50, "read_p99_ms": read_p99, "device_busy_ms": busy_ms, "window_ms": window_ms, "idle_share": 1 - busy_ms / window_ms,
-        "launches": launches, "staging": stats["staging"],
+        "launches": launches, "staging": stats["staging"], "slo_ticks": slo_ticks,
+        "slo_breaches_total": observability.SLO_REGISTRY.summary()["breaches_total"],
     }
     staged = (f"; overlap {stats['staging']['overlap_seconds']:.4f} s over {stats['staging']['prefetched_cohorts']} "
               f"prefetched of {stats['staging']['staged_cohorts']} staged cohorts") if staging else ""
-    print(f"[{label}] {SOAK_SECONDS:.0f} s at {SOAK_RATE} rows/s on {card}: achieved {out['achieved_rows_per_s']:.1f} "
+    print(f"[{label}] {seconds:.0f} s at {SOAK_RATE} rows/s on {card}: achieved {out['achieved_rows_per_s']:.1f} "
           f"rows/s submitted ({stats['submitted']} rows, drained {drain_s:.3f} s after start), {stats['flushes']} flushes "
           f"({out['rows_per_flush']:.1f} rows each), flushes/s by trigger "
           f"{ {k: round(v, 3) for k, v in triggers.items()} }; ingest p50 {out['ingest_p50_ms']:.3f} ms, p99 "
@@ -3474,6 +3513,370 @@ def generative_phase_main(record_path: str = "") -> int:
     return _phase_alone(generative_phase, record_path)
 
 
+# --------------------------------------------------------------------------
+# phase 3n: the observability plane on the main paths
+# --------------------------------------------------------------------------
+
+#: phase 3n: the sampling stride of the dispatch profiler, the keyed cohort
+#: that carries the NaN, and the event log's room for the phase
+OBS_PROFILE_EVERY = 10
+OBS_NAN_COHORT = 20
+OBS_EVENT_CAPACITY = 65_536
+
+
+def _obs_compiled(torch, M, dev, card, batches, record) -> None:
+    """Phase 3n-a: the ImageNet-1k collection compiled, with health
+    ``"record"`` and the profiler sampling every 10th dispatch; then with
+    everything off (phase 3i's launches and synchronizing calls); then health
+    on and off interleaved call by call."""
+    from metrics_tpu_torch import observability
+    from metrics_tpu_torch.kernels import _common
+    from metrics_tpu_torch.observability.profiling import split_series_keys
+
+    scope_ops = ("stat_scores_counts", "confmat_counts")
+    observability.set_health_policy("record")
+    observability.set_profiling(OBS_PROFILE_EVERY)
+    comp = build_collection(M, dev).jit_forward()
+    comp.warmup(*batches[0])
+    comp.warmup(*batches[-1])
+    torch.cuda.synchronize()
+    _common.reset_dispatch_counters()
+    before = observability.snapshot()["profiling"]["dispatches"].get("compiled", 0)
+    syncs = sync_calls(torch, lambda: [comp(*b) for b in batches])
+    torch.cuda.synchronize()
+    launches = {op: _common.launch_count(op) for op in KERNEL_OPS}
+    if launches != {op: (len(batches) if op in scope_ops else 0) for op in KERNEL_OPS}:
+        fail(f"[observability] the armed compiled forward launched {launches}, expected B1 and B2 49 each")
+    prof_summary = observability.snapshot()["profiling"]
+    samples = prof_summary["samples"]["compiled"]
+    if prof_summary["dispatches"]["compiled"] - before != len(batches) or samples != -(-len(batches) // OBS_PROFILE_EVERY):
+        fail(f"[observability] the profiler counted {prof_summary}, expected 49 dispatches and 5 samples")
+    # every synchronizing call of the run is a sampled dispatch's deliberate
+    # wait on the stream (``Stream.synchronize``, one a sample)
+    guard_syncs = [s for s in syncs if "torch/cuda/streams.py" not in s]
+    if guard_syncs or len(syncs) != samples:
+        fail(f"[observability] the armed compiled forwards made {len(syncs)} synchronizing calls for {samples} "
+             f"samples; outside the samples' stream waits: {guard_syncs[:5]}")
+    in_flight = observability.HEALTH.in_flight()
+    torch.cuda.synchronize()
+    observability.HEALTH.drain()
+    health = observability.HEALTH.summary()
+    checks = sum(r["checks"] for r in health["metrics"].values())
+    if health["unhealthy_total"] or not checks or observability.HEALTH.in_flight():
+        fail(f"[observability] the compiled collection's health after the drain: {health}")
+    # health alone (no profiler): no synchronizing call at all
+    observability.set_profiling(0)
+    guard_alone = sync_calls(torch, lambda: [comp(*b) for b in batches[1:11]])
+    if guard_alone:
+        fail(f"[observability] 10 compiled forwards with health armed made {len(guard_alone)} synchronizing calls")
+    # one sampled forward: the profiler's device window beside the torch profiler's device time
+    observability.set_profiling(1)
+    host_key, device_key = split_series_keys("compiled")
+    hist = observability.HISTOGRAMS.get("dispatch_device_seconds", unit="s", path="compiled")
+    sum_before = hist.sum
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tprof:
+        comp(*batches[5])
+        torch.cuda.synchronize()
+    sampled_ms = (hist.sum - sum_before) * 1e3
+    traced_ms = _device_us(tprof) / 1e3
+    hists = observability.snapshot()["histograms"]
+    split = {k: {"count": hists[k]["count"], "p50_ms": hists[k]["p50"] * 1e3, "p99_ms": hists[k]["p99"] * 1e3}
+             for k in (host_key, device_key)}
+    observability.set_profiling(0)
+    record["armed"] = {"launches": launches, "sync_calls": len(syncs), "sync_sites": sorted(set(syncs)),
+                       "samples": samples, "health_checks": checks, "in_flight_at_end": in_flight,
+                       "split": split, "sampled_device_ms": sampled_ms, "profiler_device_ms": traced_ms,
+                       "guard_alone_sync_calls": len(guard_alone)}
+    print(f"[observability] ImageNet-1k collection compiled, health record + profiling every {OBS_PROFILE_EVERY} on "
+          f"{card}: launches {launches}; {len(syncs)} synchronizing calls, every one a profiled sample's wait "
+          f"({samples} samples; sites {sorted(set(syncs))}), 0 from the health guard (10 forwards with health alone: "
+          f"{len(guard_alone)}); {in_flight} flag copies in flight after the last forward, health after the drain: "
+          f"{checks} checks, unhealthy {health['unhealthy_total']}; split {split}; one sampled forward: "
+          f"dispatch_device_seconds {sampled_ms:.4f} ms beside the torch profiler's device time {traced_ms:.4f} ms")
+
+    # everything off: phase 3i's launches, captures and synchronizing calls
+    observability.set_health_policy("off")
+    plain = build_collection(M, dev).jit_forward()
+    plain.warmup(*batches[0])
+    plain.warmup(*batches[-1])
+    torch.cuda.synchronize()
+    _common.reset_dispatch_counters()
+    for preds, target in batches:
+        plain(preds, target)
+    torch.cuda.synchronize()
+    off_launches = {op: _common.launch_count(op) for op in KERNEL_OPS}
+    off_syncs = sync_calls(torch, lambda: [plain(*b) for b in batches[1:11]])
+    cache = plain._jit_forward_fn.cache_info()
+    tallies = [dict(e.tally) for e in plain._jit_forward_fn._cache.values()]
+    if off_launches != launches or off_syncs or cache["entries"] != 2 or any(
+            t != {"stat_scores_counts": 1, "confmat_counts": 1} for t in tallies):
+        fail(f"[observability] everything off: launches {off_launches}, {len(off_syncs)} synchronizing calls, cache "
+             f"{cache}, launches per replay {tallies}; phase 3i's are B1 49, B2 49, 0, two captures, one each")
+    # health on against health off, call by call (each collection replays the graph captured under its policy)
+    on_ms, off_ms = [], []
+    for _ in range(2):
+        for preds, target in batches:
+            for policy, coll, out in (("record", comp, on_ms), ("off", plain, off_ms)):
+                observability.set_health_policy(policy)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                coll(preds, target)
+                torch.cuda.synchronize()
+                out.append((time.perf_counter() - t0) * 1e3)
+    observability.set_health_policy("off")
+    ratio = statistics.median(on_ms) / statistics.median(off_ms)
+    record["off"] = {"launches": off_launches, "sync_calls": len(off_syncs), "cache": cache,
+                     "launches_per_replay": tallies}
+    record["health_cost"] = {"on_ms": on_ms, "off_ms": off_ms, "ratio": ratio}
+    print(f"[observability] everything off: launches {off_launches}, {len(off_syncs)} synchronizing calls in 10 "
+          f"forwards, captures {cache['entries']}, launches per replay {tallies[0]} (phase 3i's); health on/off "
+          f"interleaved over 2 x 49 forwards: median {statistics.median(on_ms):.4f} / {statistics.median(off_ms):.4f} ms "
+          f"(ratio {ratio:.4f})")
+
+
+def _obs_keyed(torch, np, M, dev, card, keyed_batches, record) -> None:
+    """Phase 3n-b: phase 3j-b's keyed regression collection with one NaN pred
+    in cohort 20, eager and compiled (the health event names the state and
+    the update within one dispatch), then through an admission queue with
+    ``quarantine="auto"`` (the NaN row shed as ``"poisoned"``; the state ==
+    the CPU run over the clean rows). Phase 3n-c: the memory ledger."""
+    from metrics_tpu_torch import observability
+    from metrics_tpu_torch.kernels import _common
+    from metrics_tpu_torch.serving import AdmissionQueue
+
+    cohorts = _keyed_regression_cohorts(torch, keyed_batches, dev)
+    ids20 = cohorts[OBS_NAN_COHORT][0]
+    row = int(torch.nonzero(ids20 >= 0)[0])
+    preds20 = cohorts[OBS_NAN_COHORT][1].clone()
+    preds20[row] = float("nan")
+    cohorts[OBS_NAN_COHORT] = (ids20, preds20, cohorts[OBS_NAN_COHORT][2])
+
+    def build(device):
+        return M.MultiTenantCollection([M.MeanSquaredError(device=device), M.MeanAbsoluteError(device=device),
+                                        M.PearsonCorrcoef(streaming=True, device=device)], KEYED_TENANTS,
+                                       validate_ids=False, device=device)
+
+    def health_events():
+        return [e for e in observability.EVENTS.events() if e.kind == "health"]
+
+    observability.set_health_policy("record")
+    out = {}
+    for mode in ("eager", "compiled"):
+        kgpu = build(dev)
+        if mode == "compiled":
+            kgpu.warmup(*cohorts[0])
+        seen = len(health_events())
+        torch.cuda.synchronize()
+        _common.reset_dispatch_counters()
+        for i, (ids, preds, target) in enumerate(cohorts):
+            with observability.step_context(i):
+                kgpu.update(ids, preds, target)
+        torch.cuda.synchronize()
+        with observability.step_context(len(cohorts)):
+            observability.HEALTH.drain()
+        launches = {op: _common.launch_count(op) for op in KERNEL_OPS}
+        expected = {op: (3 * KEYED_UPDATES if op == "segment_scatter_add" else 0) for op in KERNEL_OPS}
+        if launches != expected:
+            fail(f"[observability] keyed regression {mode}: launches {launches}, expected B3 150")
+        events = health_events()[seen:]
+        flagged = {e.metric: sorted(e.payload["nan"]) for e in events}
+        steps = sorted({e.step for e in events})
+        lag_ok = steps == [OBS_NAN_COHORT] if mode == "eager" else (steps and steps[0] in (OBS_NAN_COHORT, OBS_NAN_COHORT + 1))
+        if len(events) != 3 or not lag_ok or not all(names for names in flagged.values()):
+            fail(f"[observability] keyed regression {mode}: health events {[(e.metric, e.step, e.payload) for e in events]}; "
+                 f"expected one per member naming its states, at step {OBS_NAN_COHORT} (compiled: or the next)")
+        out[mode] = {"launches": launches, "events": [(e.metric, e.step, e.payload["source"], e.payload["nan"])
+                                                      for e in events]}
+        if mode == "eager":
+            keyed_eager = kgpu
+    record["keyed_health"] = out
+    print(f"[observability] keyed regression (10,000 tenants, 50 cohorts, NaN pred in cohort {OBS_NAN_COHORT}) on "
+          f"{card}: eager launches {out['eager']['launches']}, health events {out['eager']['events']}; compiled "
+          f"(warmup) launches {out['compiled']['launches']}, events {out['compiled']['events']} (step = the dispatch "
+          f"that noted it)")
+
+    # the same cohorts through the queue: quarantine "auto" follows the policy
+    unhealthy_before = observability.HEALTH.summary()["unhealthy_total"]
+    kq = build(dev)
+    q = AdmissionQueue(kq.update, start=False, max_batch=KEYED_ROWS, pad_to_bucket=True,
+                                 quarantine="auto", device=dev)
+    host = _host_cohorts(keyed_batches)
+    host = [(ids, c[1].cpu().numpy()[: len(ids)], c[2].cpu().numpy()[: len(ids)]) for (ids, _, _), c in zip(host, cohorts)]
+    torch.cuda.synchronize()
+    _common.reset_dispatch_counters()
+    for ids, preds, target in host:
+        q.submit_many(ids, preds, target)
+        q.flush()
+    torch.cuda.synchronize()
+    q_launches = _common.launch_count("segment_scatter_add")
+    stats = check_ledger("observability queue", q, kq.tenant_report()["rows_routed"])
+    q.close()
+    if stats["shed_by_reason"] != {"poisoned": 1} or observability.HEALTH.summary()["unhealthy_total"] != unhealthy_before:
+        fail(f"[observability] quarantine auto: shed {stats['shed_by_reason']}, health events added "
+             f"{observability.HEALTH.summary()['unhealthy_total'] - unhealthy_before}; expected 1 poisoned row, none")
+    kcpu = build("cpu")
+    for ids, preds, target in host:
+        keep = ~np.isnan(preds)
+        kcpu.update(torch.from_numpy(ids[keep]), torch.from_numpy(preds[keep]), torch.from_numpy(target[keep]))
+    for owner, km in kq._keyed.items():
+        for name, value in km._get_states().items():
+            if not torch.equal(value.cpu(), getattr(kcpu._keyed[owner], name)):
+                fail(f"[observability] quarantined queue: {owner}.{name} differs from the CPU run over the clean rows")
+    record["quarantine"] = {"shed_by_reason": stats["shed_by_reason"], "launches": q_launches,
+                            "flushes": stats["flushes"]}
+    print(f"[observability] the same cohorts through AdmissionQueue(quarantine='auto') with health record: shed "
+          f"{stats['shed_by_reason']}, {stats['flushes']} flushes, B3 {q_launches}; states == the CPU run over the "
+          f"clean rows exactly")
+    observability.set_health_policy("off")
+
+    # 3n-c: the memory ledger of the 10,000-tenant keyed collection
+    torch.cuda.synchronize()
+    nbytes = sum(v.numel() * v.element_size() for km in keyed_eager._keyed.values() for v in km._get_states().values())
+    observability.LEDGER.track(keyed_eager)
+    report = observability.memory_report()
+    entry = report["owners"][keyed_eager.telemetry_key]
+    if entry["device_bytes"] != nbytes or not report["conservation_ok"]:
+        fail(f"[observability] the ledger reads {entry}, the states' nbytes {nbytes} ({report})")
+    warm = build(dev)
+    warm_report = warm.warmup(*cohorts[0])
+    if warm_report["state_memory"] != {o: km.state_memory_report() for o, km in warm._keyed.items()}:
+        fail("[observability] warmup's state_memory differs from state_memory_report()")
+    fired = []
+    handle = observability.on_pressure(fired.append, high=report["tracked_bytes"] + nbytes // 2)
+    second = build(dev)
+    second.build()
+    observability.LEDGER.track(second)  # crosses the watermark once
+    observability.LEDGER.note(second)  # still above it: no second call
+    handle.cancel()
+    states = [v for km in second._keyed.values() for v in km._get_states().values()]
+    tensors = len(states)
+    alloc = sum(allocator_blocks(torch, states))
+    if len(fired) != 1:
+        fail(f"[observability] the pressure watermark fired {len(fired)} times, expected once")
+    if not 0 <= alloc - nbytes <= 512 * tensors:
+        fail(f"[observability] the allocator's blocks of the {tensors} state tensors hold {alloc} bytes for {nbytes} "
+             "bytes of state")
+    summary = observability.snapshot()["memory"]
+    record["memory"] = {"state_bytes": nbytes, "ledger": entry, "allocator_bytes": alloc, "tensors": tensors,
+                        "pressure_calls": len(fired), "summary": summary}
+    print(f"[observability] memory: the keyed collection's {nbytes} bytes of state == the ledger's "
+          f"{entry['device_bytes']} (conservation ok), warmup's state_memory == state_memory_report(), the allocator's "
+          f"blocks of a second one's {tensors} state tensors hold {alloc} bytes (within 512 each), the watermark fired "
+          f"{len(fired)} time; snapshot memory {summary}")
+    observability.LEDGER.untrack(second)
+
+
+def _obs_exports(torch, card, record) -> None:
+    """Phase 3n-e: ``timeline.export`` and ``export_fleet`` and
+    ``aggregate_snapshots`` over an NCCL group of world size 1."""
+    import socket
+    import tempfile
+
+    import torch.distributed as dist
+    from metrics_tpu_torch import observability
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        aggregated = observability.aggregate_snapshots()
+        with tempfile.TemporaryDirectory() as tmp:
+            local = observability.timeline.export(os.path.join(tmp, "timeline.json"))
+            fleet = observability.timeline.export_fleet(os.path.join(tmp, "fleet.json"))
+            docs = {}
+            for name, path in (("timeline", local), ("fleet", fleet)):
+                with open(path) as fh:
+                    docs[name] = json.load(fh)
+                docs[name]["bytes"] = os.path.getsize(path)
+    finally:
+        dist.destroy_process_group()
+    tracks = {}
+    for name, doc in docs.items():
+        events = doc["traceEvents"]
+        threads = {e["args"]["name"] for e in events if e.get("name") == "thread_name"}
+        tracks[name] = {
+            "serving": "<serving>" in threads or any(e.get("name", "").startswith("serving") for e in events),
+            "profile": any(e.get("cat") == "profile" for e in events),
+            "memory": any(e.get("name") == "memory.tracked_bytes" for e in events),
+            "collective": "<collectives>" in threads and any(e.get("cat") == "collective" for e in events),
+        }
+    if not (tracks["timeline"]["serving"] and tracks["timeline"]["profile"] and tracks["timeline"]["memory"]
+            and tracks["fleet"]["collective"] and tracks["fleet"]["profile"] and tracks["fleet"]["serving"]):
+        fail(f"[observability] exported tracks {tracks}")
+    merged = aggregated["merged"]
+    if aggregated["process_count"] != 1 or not all(merged.get(k) for k in ("health", "profiling", "memory", "retrace")):
+        fail(f"[observability] aggregate_snapshots over the NCCL group: {aggregated['process_count']} processes, "
+             f"sections {[k for k in merged if merged[k]]}")
+    record["exports"] = {"tracks": tracks, "bytes": {k: d["bytes"] for k, d in docs.items()},
+                         "trace_events": {k: len(d["traceEvents"]) for k, d in docs.items()},
+                         "aggregated_sections": sorted(k for k in merged if merged[k])}
+    print(f"[observability] timeline.export ({docs['timeline']['bytes']} bytes, {len(docs['timeline']['traceEvents'])} "
+          f"events) and export_fleet ({docs['fleet']['bytes']} bytes) load back as JSON with tracks {tracks}; "
+          f"aggregate_snapshots over the one-rank NCCL group: 1 process, sections {record['exports']['aggregated_sections']}")
+
+
+def allocator_blocks(torch, tensors) -> list:
+    """The size of the caching allocator's block under each tensor (from
+    ``torch.cuda.memory_snapshot()``; a tensor that starts no block fails)."""
+    ptrs = {t.data_ptr() for t in tensors}
+    sizes = {}
+    for segment in torch.cuda.memory_snapshot():
+        address = segment["address"]
+        for block in segment["blocks"]:
+            if address in ptrs:
+                sizes[address] = block["size"]
+            address += block["size"]
+    if set(sizes) != ptrs:
+        fail(f"[observability] {len(ptrs) - len(sizes)} state tensors start no allocator block")
+    return [sizes[t.data_ptr()] for t in tensors]
+
+
+def observability_phase(torch, M, dev, card, soak=None) -> dict:
+    """Phase 3n: the observability plane armed on the main paths (3n-a to
+    3n-e of the module docstring). ``soak`` is phase 3h's staged soak record
+    (its SLO ticks); alone, a 3 s soak stands in."""
+    import numpy as np
+
+    from metrics_tpu_torch import observability
+
+    start = time.perf_counter()
+    record = {}
+    if soak is None:  # first: the soak resets the observability plane
+        soak = serving_soak(torch, M, dev, True, card, seconds=3.0)
+    observability.reset()
+    capacity = observability.EVENTS.capacity
+    observability.EVENTS.set_capacity(OBS_EVENT_CAPACITY)
+    try:
+        _obs_compiled(torch, M, dev, card, make_batches(torch, dev), record)
+        _obs_keyed(torch, np, M, dev, card, make_keyed_batches(torch, dev), record)
+        # 3n-d: the SLO on the soak's ingest histogram, ticked each second
+        ticks = soak["slo_ticks"]
+        if not ticks:
+            fail("[observability] the soak's SLO watchdog never ticked")
+        record["slo"] = {"ticks": ticks, "breaches_total": soak["slo_breaches_total"]}
+        print(f"[observability] SLO ingest p99 <= {SOAK_SLO_S * 1e3:.0f} ms over the staged soak, ticked each second: "
+              f"burn rates fast {[round(t['fast_burn'], 4) for t in ticks]}, slow "
+              f"{[round(t['slow_burn'], 4) for t in ticks]}, window p99 ms {[round(t['window_p_ms'], 3) for t in ticks]}, "
+              f"breaches {soak['slo_breaches_total']}")
+        _obs_exports(torch, card, record)
+    finally:
+        observability.set_health_policy("off")
+        observability.set_profiling(0)
+        observability.EVENTS.set_capacity(capacity)
+    record["phase_s"] = time.perf_counter() - start
+    print(f"[observability] phase 3n took {record['phase_s']:.1f} s on {card}")
+    return record
+
+
+def observability_phase_main(record_path: str = "") -> int:
+    """Run :func:`observability_phase` alone (see :func:`_phase_alone`)."""
+    return _phase_alone(observability_phase, record_path)
+
+
 def compute_async_phase(torch, M, dev, batches, card) -> dict:
     """Phase 3h-c: ``compute_async`` of the ImageNet-1k collection after 25 of
     its 49 forwards against a synchronous ``compute()`` at that point."""
@@ -4134,6 +4537,9 @@ def main() -> int:
     # -- 3m. the generative metrics: FID, KID, IS on InceptionV3 ------------------------
     record["generative"] = generative_phase(torch, M, dev, card)
 
+    # -- 3n. the observability plane armed on the main paths ------------------------------
+    record["observability"] = observability_phase(torch, M, dev, card, soak=record["serving"]["soak_staged"])
+
     # -- 4. times at the main-path shapes ------------------------------------
     preds, target = batches[0]
     canon_p, canon_t, _ = _input_format_classification(preds, target)
@@ -4370,6 +4776,18 @@ def main() -> int:
             entry["batched"] = small["bootstrap"]["b1_batched"]
         if entry["name"] == "segment_scatter_add":
             entry["audio_keyed_launches"] = small["speech_keyed"]["launches"]["segment_scatter_add"]
+    # B1 and B2 under the armed compiled forward, B3 under the keyed regression
+    # with health armed, eager, compiled and through the quarantining queue (phase 3n)
+    obs = record["observability"]
+    for entry in kernels:
+        if entry["name"] in ("stat_scores_counts", "confmat_counts"):
+            entry["observability_launches"] = obs["armed"]["launches"][entry["name"]]
+        if entry["name"] == "segment_scatter_add":
+            entry["observability_launches"] = {
+                "eager": obs["keyed_health"]["eager"]["launches"]["segment_scatter_add"],
+                "compiled": obs["keyed_health"]["compiled"]["launches"]["segment_scatter_add"],
+                "quarantined_queue": obs["quarantine"]["launches"],
+            }
     record["kernels"] = kernels
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)

@@ -52,17 +52,21 @@ from metrics_tpu_torch.metric import (
     _microbatch_len,
     _note_compiled_dispatch,
     _observed_forward,
-    _signature,
     _unrolled,
     _warmup_report,
 )
+from metrics_tpu_torch.observability.cost import program_cost
 from metrics_tpu_torch.observability.events import EVENTS
 from metrics_tpu_torch.observability.histogram import observe_dispatch
+from metrics_tpu_torch.observability.memory import LEDGER
+from metrics_tpu_torch.observability.profiling import PROFILER
 from metrics_tpu_torch.observability.registry import TELEMETRY
+from metrics_tpu_torch.observability.retrace import arg_signature
 from metrics_tpu_torch.utilities.aot import CompiledDispatch, GraphPool
 from metrics_tpu_torch.observability.tracing import TRACER
 from metrics_tpu_torch.utilities import distributed as _dist
 from metrics_tpu_torch.utilities.prints import rank_zero_warn
+from metrics_tpu_torch.utilities.profiling import compiled_scope, eager_span
 
 
 class MetricCollection:
@@ -138,13 +142,14 @@ class MetricCollection:
         for name, m in self.items(keep_base=True):
             deltas = shared.get(name)
             if deltas is not None and m._states_mergeable():
-                out[self._set_name(name)] = _observed_forward(
-                    m,
-                    "forward_fused_calls",
-                    lambda m=m, d=deltas: m._forward_fused(
-                        *args, _update_thunk=lambda: m._accumulate(*d), **m._filter_kwargs(**kwargs)
-                    ),
-                )
+                with eager_span(f"{type(m).__name__}.forward"):
+                    out[self._set_name(name)] = _observed_forward(
+                        m,
+                        "forward_fused_calls",
+                        lambda m=m, d=deltas: m._forward_fused(
+                            *args, _update_thunk=lambda: m._accumulate(*d), **m._filter_kwargs(**kwargs)
+                        ),
+                    )
             else:
                 out[self._set_name(name)] = m(*args, **m._filter_kwargs(**kwargs))
         return out
@@ -183,7 +188,8 @@ class MetricCollection:
             if len(names) < 2:
                 continue
             rep = self._metrics[names[0]]
-            value = rep._batch_deltas(*args, **rep._filter_kwargs(**kwargs))
+            with compiled_scope(f"{type(rep).__name__}.shared_update"):
+                value = rep._batch_deltas(*args, **rep._filter_kwargs(**kwargs))
             for name in names:
                 deltas[name] = value
         return deltas
@@ -584,10 +590,14 @@ class MetricCollection:
             state, donatable = self._donation_safe_state(state)
         fn = self._dispatch("_jit_forward_fn" if donatable else "_jit_forward_copy_fn",
                             self._grouped_apply_forward, donatable)
+        prof = PROFILER.begin("compiled", self._device())
         start = time.perf_counter() if (EVENTS.enabled or TELEMETRY.enabled) else None
         new_state, values = fn(state, *args, **kwargs)
+        submitted = time.perf_counter() if (start is not None or prof is not None) else None
+        if prof is not None:
+            PROFILER.finish(prof, self.telemetry_key, fn, submit_end=submitted)
         if start is not None:
-            dur = time.perf_counter() - start
+            dur = submitted - start
             if TELEMETRY.enabled:
                 observe_dispatch(dur, "compiled")
             EVENTS.record(
@@ -599,7 +609,7 @@ class MetricCollection:
         if record:
             # one program serves every member: the collection's key carries
             # the compiles, each member counts its dispatch
-            _note_compiled_dispatch(self, fn)
+            _note_compiled_dispatch(self, fn, args, kwargs)
         skipped = self._writeback_dispatch_state(new_state)
         if record and skipped:
             TELEMETRY.inc(self.telemetry_key, "update_dedup_skipped", skipped)
@@ -623,8 +633,8 @@ class MetricCollection:
                             self._grouped_apply_forward, self._jit_forward_donate)
         start = time.perf_counter()
         fresh = fn.warm(state, *sample_batch, **kwargs)
-        return _warmup_report(self, fn, fresh, start, _signature(*sample_batch, **kwargs), type(self).__name__,
-                              members=len(self._metrics))
+        return _warmup_report(self, fn, fresh, start, arg_signature(*sample_batch, **kwargs), type(self).__name__,
+                              self.state_memory_report(), members=len(self._metrics))
 
     def _scan_update_many(self, state: Dict[str, StateDict], stacked: Tuple, stacked_kwargs: Dict
                           ) -> Tuple[Dict[str, StateDict], None]:
@@ -650,16 +660,20 @@ class MetricCollection:
             state, donatable = self._donation_safe_state(state)
         donate = donatable and self._jit_forward_donate
         fn = self._dispatch("_update_many_fn" if donate else "_update_many_copy_fn", self._scan_update_many, donate)
+        prof = PROFILER.begin("update_many", self._device())
         start = time.perf_counter() if (TELEMETRY.enabled or EVENTS.enabled) else None
         new_state, _ = fn(state, stacked, stacked_kwargs)
+        submitted = time.perf_counter() if (start is not None or prof is not None) else None
+        if prof is not None:
+            PROFILER.finish(prof, self.telemetry_key, fn, submit_end=submitted)
         if start is not None:
-            dur = time.perf_counter() - start
+            dur = submitted - start
             key = self.telemetry_key
             if TELEMETRY.enabled:
                 TELEMETRY.inc(key, "update_many_calls")
                 TELEMETRY.inc(key, "update_many_batches", k)
                 observe_dispatch(dur, "update_many")
-                _note_compiled_dispatch(self, fn, counter="update_many_dispatches")
+                _note_compiled_dispatch(self, fn, stacked, stacked_kwargs, counter="update_many_dispatches")
             EVENTS.record(
                 "update", key, dur_s=dur, t_start=start, path="scan_microbatch", batches=k,
                 members=len(self._metrics), state_bundles=len(state),
@@ -806,6 +820,39 @@ class MetricCollection:
             m.state_dict(destination, prefix=f"{prefix}{name}.")
         return destination
 
+    # ------------------------------------------------------------------
+    # observability reports
+    # ------------------------------------------------------------------
+
+    def _device(self) -> torch.device:
+        """Where the members' states live (the first member's device)."""
+        return next(iter(self._metrics.values())).device
+
+    def check_health(self, state: Optional[Dict[str, StateDict]] = None) -> Dict[str, Any]:
+        """Every member's :meth:`Metric.check_health`, keyed by base name,
+        plus their conjunction (``collections.py:1428``)."""
+        state = state or {}
+        members = {name: m.check_health(state.get(name)) for name, m in self.items(keep_base=True)}
+        return {"healthy": all(r["healthy"] for r in members.values()), "members": members}
+
+    def state_memory_report(self) -> Dict[str, Any]:
+        """Every member's :meth:`Metric.state_memory_report`
+        (``collections.py:1441``); members of a group share one bundle and
+        each reports it."""
+        per_metric = {name: m.state_memory_report() for name, m in self.items(keep_base=True)}
+        return {"per_metric": per_metric, "total_bytes": int(sum(r["total_bytes"] for r in per_metric.values()))}
+
+    def cost_report(self, *example_batch: Any, **kwargs: Any) -> Dict[str, Any]:
+        """The JAX package's keys (``collections.py:1450``): the fused
+        update's and each member's cost entries are unavailable without an
+        XLA cost analysis; ``state_memory`` is :meth:`state_memory_report`."""
+        return {
+            "fused_update": program_cost(self.apply_update, self.init_state(), *example_batch, **kwargs),
+            "members": {name: m.cost_report(*example_batch, **m._filter_kwargs(**kwargs))
+                        for name, m in self.items(keep_base=True)},
+            "state_memory": self.state_memory_report(),
+        }
+
     def load_state_dict(self, state_dict: dict, prefix: str = "") -> None:
         # loaded states may disagree within a group: regroup (value-checked)
         # at the next compiled dispatch
@@ -832,6 +879,9 @@ class MetricCollection:
                         del self._metrics[n]
                     self._members_changed()
                     raise ValueError(f"member {name!r}: {err}") from None
+        # new members mean new state bundles: re-note the memory ledger at
+        # the seam that invalidated the captured programs
+        LEDGER.note(self)
 
     def _members_changed(self) -> None:
         """The member set changed: drop the cached layout, the groups and

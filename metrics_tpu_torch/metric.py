@@ -35,6 +35,13 @@ limited to the eager stateful path:
   host times: on the card ``update`` and ``forward`` return once their work
   is enqueued, so they measure dispatch, as the JAX package's asynchronous
   dispatch does; nothing synchronizes to make them "true".
+* **Observability planes** (``metric.py:537-685,921,1130-1180,1537-1600``):
+  the per-update health guard after every state advance
+  (``observability.set_health_policy``; off by default), the retrace
+  ledger fed by every fresh capture, the sampled dispatch profiler around
+  the compiled dispatches, ``metrics/<Metric>.<phase>`` profiler ranges,
+  and :meth:`Metric.check_health`, :meth:`Metric.state_memory_report` and
+  :meth:`Metric.cost_report`.
 * **Arithmetic.** ``a + b``, ``a * 2``, ``abs(a)``, ``a[1]`` and the other
   operators build a lazy :class:`CompositionalMetric` (``metric.py:1722-1925``).
 * **The compiled step** (``metric.py:596-1085``). :meth:`Metric.jit_forward`
@@ -62,9 +69,13 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 import torch
 import torch.distributed as dist
 
+from metrics_tpu_torch.observability.cost import executable_cost, leaf_nbytes, program_cost
 from metrics_tpu_torch.observability.events import EVENTS
+from metrics_tpu_torch.observability.health import HEALTH, guard_state
 from metrics_tpu_torch.observability.histogram import observe_dispatch
+from metrics_tpu_torch.observability.profiling import PROFILER
 from metrics_tpu_torch.observability.registry import TELEMETRY
+from metrics_tpu_torch.observability.retrace import MONITOR, arg_signature
 from metrics_tpu_torch.observability.tracing import TRACER
 from metrics_tpu_torch.utilities.aot import CompiledDispatch, GraphPool, _storage_users
 from metrics_tpu_torch.utilities.data import (
@@ -86,6 +97,7 @@ from metrics_tpu_torch.utilities.distributed import (
     sync_state_packed,
 )
 from metrics_tpu_torch.utilities.prints import rank_zero_warn
+from metrics_tpu_torch.utilities.profiling import compiled_scope, eager_span
 
 Tensor = torch.Tensor
 StateValue = Union[Tensor, List[Tensor]]
@@ -132,34 +144,25 @@ _DISPATCH_ATTRS = (
 _COMPILED_ATTRS = _DISPATCH_ATTRS + ("_graph_pool", "_donation_warned")
 
 
-def _signature(*args: Any, **kwargs: Any) -> str:
-    """A compact description of a call's arguments (shapes and dtypes of
-    tensors, the values of the rest) for the ``compile`` events."""
-    def one(x: Any) -> str:
-        if isinstance(x, Tensor):
-            return f"{str(x.dtype).replace('torch.', '')}{list(x.shape)}"
-        return repr(x)
-
-    parts = [one(a) for a in args] + [f"{k}={one(v)}" for k, v in sorted(kwargs.items())]
-    return "(" + ", ".join(parts) + ")"
-
-
-def _note_compiled_dispatch(obj: Any, fn: CompiledDispatch, counter: str = "forward_compiled_calls") -> None:
+def _note_compiled_dispatch(obj: Any, fn: CompiledDispatch, args: Tuple, kwargs: Dict,
+                            counter: str = "forward_compiled_calls") -> None:
     """Telemetry of one compiled dispatch (``metric.py:141``): count the call
-    and, when it captured afresh, the compile. ``warmup`` captures count
-    apart (``warmup_compiles``)."""
+    and, when it captured afresh, the compile, into the counters and the
+    retrace ledger with the signature that forced it. ``warmup`` captures
+    count apart (``warmup_compiles``)."""
     key = obj.telemetry_key
     TELEMETRY.inc(key, counter)
     if fn.last_compiled:
         TELEMETRY.inc(key, "jit_forward_compiles")
+        MONITOR.note_compile(key, arg_signature(*args, **kwargs), count=1)
 
 
 def _warmup_report(obj: Any, fn: CompiledDispatch, fresh: bool, start: float, signature: str, metric: str,
-                   **extra: Any) -> Dict[str, Any]:
+                   state_memory: Any, program: str = "forward", **extra: Any) -> Dict[str, Any]:
     """A ``warmup``'s bookkeeping (``metric.py:952``): its counters, the
-    ``compile`` event, and the JAX package's report keys; ``"forward"`` has
-    no cost analysis and ``"state_memory"`` no ledger until the cost and
-    memory planes."""
+    ``compile`` event, and the JAX package's report keys. The ``program``
+    entry (``"forward"``, or ``"update"`` for the keyed wrappers) is the
+    cost report a CUDA graph cannot give (``observability/cost.py``)."""
     key = obj.telemetry_key
     if TELEMETRY.enabled:
         TELEMETRY.inc(key, "warmup_calls")
@@ -177,8 +180,8 @@ def _warmup_report(obj: Any, fn: CompiledDispatch, fresh: bool, start: float, si
         "donated": fn.donate_state,
         "executables_cached": fn._cache_size(),
         "dispatch_cache": fn.cache_info(),
-        "forward": {"available": False, "reason": "no cost analysis of a CUDA graph yet"},
-        "state_memory": None,
+        program: executable_cost(),
+        "state_memory": state_memory,
     }
 
 
@@ -431,9 +434,14 @@ class Metric(ABC):
         program, where its capture counts ``update_traces``."""
         if TELEMETRY.enabled and _counts_traces():
             TELEMETRY.inc(self.telemetry_key, "update_traces")
-        with self._bound_state({k: (list(v) if isinstance(v, list) else v) for k, v in state.items()}):
-            self._unwrapped_update(*args, **kwargs)
-            return self._get_states()
+            MONITOR.note_trace(self.telemetry_key, arg_signature(*args, **kwargs))
+        with compiled_scope(f"{self.__class__.__name__}.update"):
+            with self._bound_state({k: (list(v) if isinstance(v, list) else v) for k, v in state.items()}):
+                self._unwrapped_update(*args, **kwargs)
+                new_state = self._get_states()
+        if HEALTH.enabled:
+            guard_state(self, new_state, source="apply_update")
+        return new_state
 
     def apply_compute(self, state: StateDict, process_group: Any = _GROUP_UNSET) -> Any:
         """Pure compute: the value of ``state``, synced over ``process_group``
@@ -442,9 +450,12 @@ class Metric(ABC):
         raises, on every process alike."""
         if process_group is _GROUP_UNSET:
             process_group = self.process_group
-        state = self.sync_state(state, process_group)
-        with self._bound_state(state):
-            return self._unwrapped_compute()
+        if TELEMETRY.enabled and _counts_traces():
+            TELEMETRY.inc(self.telemetry_key, "compute_traces")
+        with compiled_scope(f"{self.__class__.__name__}.compute"):
+            state = self.sync_state(state, process_group)
+            with self._bound_state(state):
+                return self._unwrapped_compute()
 
     def apply_forward(
         self,
@@ -465,6 +476,9 @@ class Metric(ABC):
         value = self.apply_compute(batch_state, process_group=process_group if self.dist_sync_on_step else None)
         if self._states_mergeable():
             new_state = self.merge_states(state, batch_state)
+            # the merged accumulator never passes apply_update's guard
+            if HEALTH.enabled:
+                guard_state(self, new_state, source="apply_forward")
         else:
             new_state = self.apply_update(state, *args, **kwargs)
         return new_state, value
@@ -472,9 +486,13 @@ class Metric(ABC):
     def _apply_accumulate(self, state: StateDict, deltas: Tuple) -> StateDict:
         """Pure analogue of :meth:`_accumulate`: ``state`` advanced by
         precomputed shared deltas."""
-        with self._bound_state({k: (list(v) if isinstance(v, list) else v) for k, v in state.items()}):
-            self._accumulate(*deltas)
-            return self._get_states()
+        with compiled_scope(f"{self.__class__.__name__}.update"):
+            with self._bound_state({k: (list(v) if isinstance(v, list) else v) for k, v in state.items()}):
+                self._accumulate(*deltas)
+                new_state = self._get_states()
+        if HEALTH.enabled:
+            guard_state(self, new_state, source="apply_update")
+        return new_state
 
     def sync_state(self, state: StateDict, process_group: Any) -> StateDict:
         """``state`` synced over ``process_group`` (a ``torch.distributed``
@@ -484,7 +502,8 @@ class Metric(ABC):
         ``None`` returns it as it is."""
         if process_group is None:
             return state
-        return sync_state_packed(state, self._reductions, process_group)
+        with compiled_scope(f"{self.__class__.__name__}.sync"):
+            return sync_state_packed(state, self._reductions, process_group)
 
     def _restore_derived(self, state: StateDict) -> None:
         """Refresh Python attributes that ``update`` learns from the data
@@ -542,6 +561,8 @@ class Metric(ABC):
         if EVENTS.enabled:
             EVENTS.record("update", self.telemetry_key, path="shared_deltas")
         self._accumulate(*deltas)
+        if HEALTH.enabled:
+            guard_state(self, self._get_states(), source="update")
 
     def _states_mergeable(self) -> bool:
         if not self._fusable:
@@ -590,13 +611,14 @@ class Metric(ABC):
     def forward(self, *args: Any, **kwargs: Any) -> Any:
         """Accumulate this batch and (if ``compute_on_step``) return its value."""
         self._check_input_device(args, kwargs)
-        if self._jit_forward_enabled:
-            return self._forward_jitted(*args, **kwargs)
-        if self._states_mergeable():
-            return _observed_forward(self, "forward_fused_calls", lambda: self._forward_fused(*args, **kwargs))
-        return _observed_forward(
-            self, "forward_double_update_calls", lambda: self._forward_double_update(*args, **kwargs)
-        )
+        with eager_span(f"{self.__class__.__name__}.forward"):
+            if self._jit_forward_enabled:
+                return self._forward_jitted(*args, **kwargs)
+            if self._states_mergeable():
+                return _observed_forward(self, "forward_fused_calls", lambda: self._forward_fused(*args, **kwargs))
+            return _observed_forward(
+                self, "forward_double_update_calls", lambda: self._forward_double_update(*args, **kwargs)
+            )
 
     # -- the compiled step ----------------------------------------------------
 
@@ -743,11 +765,15 @@ class Metric(ABC):
         if self._jit_forward_donate:
             state, donatable = self._donation_safe_state(state)
         fn = self._forward_dispatch(donatable)
+        prof = PROFILER.begin("compiled", self.device)
         start = time.perf_counter() if (EVENTS.enabled or TELEMETRY.enabled) else None
         new_state, value = fn(state, *args, **kwargs)
+        submitted = time.perf_counter() if (start is not None or prof is not None) else None
+        if prof is not None:
+            PROFILER.finish(prof, self.telemetry_key, fn, submit_end=submitted)
         if start is not None:
             # host time of the dispatch (a replay is enqueued, not waited for)
-            dur = time.perf_counter() - start
+            dur = submitted - start
             if TELEMETRY.enabled:
                 observe_dispatch(dur, "compiled")
             EVENTS.record(
@@ -755,7 +781,7 @@ class Metric(ABC):
                 compiled_this_call=bool(fn.last_compiled), donated=fn.donate_state,
             )
         if TELEMETRY.enabled:
-            _note_compiled_dispatch(self, fn)
+            _note_compiled_dispatch(self, fn, args, kwargs)
         self._set_states(new_state)
         self._update_called = True
         self._computed = None
@@ -775,7 +801,8 @@ class Metric(ABC):
         fn = self._forward_dispatch(self._jit_forward_donate)
         start = time.perf_counter()
         fresh = fn.warm(self._get_states(), *sample_batch, **kwargs)
-        return _warmup_report(self, fn, fresh, start, _signature(*sample_batch, **kwargs), type(self).__name__)
+        return _warmup_report(self, fn, fresh, start, arg_signature(*sample_batch, **kwargs), type(self).__name__,
+                              self.state_memory_report())
 
     # -- K micro-batches in one program ----------------------------------------
 
@@ -817,16 +844,20 @@ class Metric(ABC):
         if self._jit_forward_donate:
             state, donatable = self._donation_safe_state(state)
         fn = self._update_many_dispatch(donatable)
+        prof = PROFILER.begin("update_many", self.device)
         start = time.perf_counter() if (TELEMETRY.enabled or EVENTS.enabled) else None
         new_state, extra = fn(state, stacked, stacked_kwargs)
+        submitted = time.perf_counter() if (start is not None or prof is not None) else None
+        if prof is not None:
+            PROFILER.finish(prof, self.telemetry_key, fn, submit_end=submitted)
         if start is not None:
-            dur = time.perf_counter() - start
+            dur = submitted - start
             key = self.telemetry_key
             if TELEMETRY.enabled:
                 TELEMETRY.inc(key, "update_many_calls")
                 TELEMETRY.inc(key, "update_many_batches", k)
                 observe_dispatch(dur, "update_many")
-                _note_compiled_dispatch(self, fn, counter="update_many_dispatches")
+                _note_compiled_dispatch(self, fn, stacked, stacked_kwargs, counter="update_many_dispatches")
             EVENTS.record(
                 "update", key, dur_s=dur, t_start=start, path="scan_microbatch", batches=k,
                 compiled_this_call=bool(fn.last_compiled), donated=fn.donate_state,
@@ -864,6 +895,9 @@ class Metric(ABC):
         self._restore_cache = True
         self._to_sync = True
         self._computed = None
+        if HEALTH.enabled:
+            # the accumulator after the merge: under "raise" this forward raises
+            guard_state(self, self._get_states(), source="forward")
         return result
 
     def _forward_double_update(self, *args: Any, **kwargs: Any) -> Any:
@@ -894,16 +928,21 @@ class Metric(ABC):
             self._check_input_device(args, kwargs)
             self._computed = None
             self._update_called = True
-            if not (TELEMETRY.enabled or EVENTS.enabled):
+            observed = TELEMETRY.enabled or EVENTS.enabled
+            if not observed and not HEALTH.enabled:
                 return update(*args, **kwargs)
-            start = time.perf_counter()
+            start = time.perf_counter() if observed else 0.0
             try:
-                return update(*args, **kwargs)
+                result = update(*args, **kwargs)
             finally:
-                dur = time.perf_counter() - start
-                key = self.telemetry_key
-                TELEMETRY.record_call(key, "update_calls", "update", dur)
-                EVENTS.record("update", key, dur_s=dur, t_start=start)
+                if observed:
+                    dur = time.perf_counter() - start
+                    key = self.telemetry_key
+                    TELEMETRY.record_call(key, "update_calls", "update", dur)
+                    EVENTS.record("update", key, dur_s=dur, t_start=start)
+            if HEALTH.enabled:
+                guard_state(self, self._get_states(), source="update")
+            return result
 
         return wrapped_func
 
@@ -919,6 +958,7 @@ class Metric(ABC):
                 )
             if TELEMETRY.enabled:
                 TELEMETRY.inc(self.telemetry_key, "compute_calls")
+            HEALTH.drain()
             if self._computed is not None:
                 return self._computed
             start = time.perf_counter() if (TELEMETRY.enabled or EVENTS.enabled) else None
@@ -1172,6 +1212,51 @@ class Metric(ABC):
                 self.__dict__["_loaded_state"] = True
 
     # ------------------------------------------------------------------
+    # observability reports
+    # ------------------------------------------------------------------
+
+    def check_health(self, state: Optional[StateDict] = None) -> Dict[str, Any]:
+        """Numerical health report of ``state`` (default: the live states;
+        ``metric.py:1537``): per-state NaN/Inf element counts plus the zero
+        total-weight flag of mean-style denominators. Works at any health
+        policy; an explicit check never raises or warns, but an unhealthy
+        result records a ``health`` event and the ``health_events`` counter.
+        Reads the states to the host. The automatic per-update guard is
+        armed with ``observability.set_health_policy``."""
+        from metrics_tpu_torch.observability.health import check_state
+
+        return check_state(self, self._get_states() if state is None else state)
+
+    def state_memory_report(self) -> Dict[str, Any]:
+        """Bytes held by each registered state right now (``metric.py:1554``),
+        from tensor metadata (no read from the card). List accumulators
+        report their element count beside the summed bytes."""
+        per_state: Dict[str, Any] = {}
+        total = 0
+        for name in self._defaults:
+            value = getattr(self, name)
+            nbytes = leaf_nbytes(value)
+            entry: Dict[str, Any] = {"bytes": int(nbytes)}
+            if isinstance(value, list):
+                entry["elements"] = len(value)
+            per_state[name] = entry
+            total += nbytes
+        return {"per_state": per_state, "total_bytes": int(total)}
+
+    def cost_report(self, *example_batch: Any, **kwargs: Any) -> Dict[str, Any]:
+        """The JAX package's cost report keys (``metric.py:1575``): its
+        ``update`` and ``compute`` entries read XLA's cost analysis, which a
+        CUDA graph has none of, so they say so
+        (:mod:`~metrics_tpu_torch.observability.cost`); nothing runs.
+        ``state_memory`` is :meth:`state_memory_report`."""
+        return {
+            "metric": type(self).__name__,
+            "update": program_cost(self.apply_update, self.init_state(), *example_batch, **kwargs),
+            "state_memory": self.state_memory_report(),
+            "compute": program_cost(self.apply_compute),
+        }
+
+    # ------------------------------------------------------------------
     # misc protocol
     # ------------------------------------------------------------------
 
@@ -1287,6 +1372,35 @@ class CompositionalMetric(Metric):
             self.metric_a.persistent(mode=mode)
         if isinstance(self.metric_b, Metric):
             self.metric_b.persistent(mode=mode)
+
+    def check_health(self, state: Optional[StateDict] = None) -> Dict[str, Any]:
+        """The children's health reports (``metric.py:1785``), keyed like the
+        pure-state layout, an aliased child checked once."""
+        state = state or {}
+        children: Dict[str, Any] = {}
+        if isinstance(self.metric_a, Metric):
+            children["a"] = self.metric_a.check_health(state.get("a"))
+        if isinstance(self.metric_b, Metric) and self.metric_b is not self.metric_a:
+            children["b"] = self.metric_b.check_health(state.get("b"))
+        return {
+            "metric": self.telemetry_key,
+            "healthy": all(c["healthy"] for c in children.values()),
+            "children": children,
+        }
+
+    def state_memory_report(self) -> Dict[str, Any]:
+        """The children's state bytes (``metric.py:1800``), keyed like the
+        pure-state layout, an aliased child counted once."""
+        report: Dict[str, Any] = {"per_state": {}, "total_bytes": 0}
+        if isinstance(self.metric_a, Metric):
+            sub = self.metric_a.state_memory_report()
+            report["per_state"]["a"] = sub
+            report["total_bytes"] += sub["total_bytes"]
+        if isinstance(self.metric_b, Metric) and self.metric_b is not self.metric_a:
+            sub = self.metric_b.state_memory_report()
+            report["per_state"]["b"] = sub
+            report["total_bytes"] += sub["total_bytes"]
+        return report
 
     # pure API: child states keyed "a"/"b" (an aliased child, ``m + m``,
     # holds one state "a" that advances twice per step, as the eager update

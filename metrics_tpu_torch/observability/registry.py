@@ -337,11 +337,17 @@ class TelemetryRegistry:
             return entry["counters"].get(name, default)
 
     def _state_memory(self, key: str) -> Optional[Dict[str, Any]]:
-        """The live state-memory report of ``key``'s instance. The port has
-        no memory ledger yet (``state_memory_report`` and
-        ``observability/memory.py`` come with ROADMAP queue A item 13), so
-        the snapshot carries no ``state_memory`` entry: always ``None``."""
-        return None
+        """The live ``state_memory_report()`` of ``key``'s instance (tensor
+        metadata only), ``None`` when it has none or is gone."""
+        ref = self._instances.get(key)
+        obj = ref() if ref is not None else None
+        report_fn = getattr(obj, "state_memory_report", None)
+        if report_fn is None:
+            return None
+        try:
+            return report_fn()
+        except Exception:  # a snapshot never raises
+            return None
 
     def snapshot(self, include_timers: bool = True) -> Dict[str, Any]:
         """JSON-serializable view: per-metric counters (+timers, +live state

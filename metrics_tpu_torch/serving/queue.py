@@ -41,11 +41,12 @@ resident)`` holds at every quiescent point whether telemetry is on or off.
 The flusher dispatches on the legacy default stream, which every thread
 shares, so its updates order after the callers' work.
 
-Not ported yet: the sampled profiler brackets of the reference
-(``observability/profiling.py``, ``queue.py:587,651,725,780``; ROADMAP queue
-A item 13) and its fault seam ``serving.dispatch`` (item 14).
-``quarantine="auto"`` arms with the health policy in the JAX package; the
-port has no health plane yet (item 13), so ``"auto"`` reads as off.
+The sampled dispatch profiler (``observability/profiling.py``) brackets the
+flush-side work of each flush (``"serving_flush"``) and each staged
+cohort's fill and copy (``"serving_stage"``), as the reference does
+(``queue.py:587,651,725,780,958``). ``quarantine="auto"`` follows the health
+policy: it scans whenever ``set_health_policy`` is not ``"off"``. Not ported
+yet: the fault seam ``serving.dispatch`` (ROADMAP queue A item 14).
 """
 import inspect
 import threading
@@ -57,6 +58,8 @@ import numpy as np
 import torch
 
 from metrics_tpu_torch.observability.events import EVENTS
+from metrics_tpu_torch.observability.health import get_health_policy
+from metrics_tpu_torch.observability.profiling import PROFILER
 from metrics_tpu_torch.observability.registry import TELEMETRY
 from metrics_tpu_torch.observability.tracing import TRACER
 from metrics_tpu_torch.serving.policy import AdmissionPolicy, resolve_policy
@@ -122,8 +125,10 @@ class AdmissionQueue:
         quarantine: ``"on"`` sheds every row with a NaN/Inf float value under
             the exact reason ``"poisoned"`` (counted as dead letters, a
             bounded sample kept in :meth:`dead_letters`) and dispatches the
-            rest; ``"off"`` never scans; ``"auto"`` (default) reads as off
-            until the health plane is ported.
+            rest; ``"off"`` never scans; ``"auto"`` (default) scans whenever
+            the health policy (``observability.set_health_policy``) is not
+            ``"off"``: the switch that arms the state guard arms the
+            ingest-side quarantine.
         breaker: optional
             :class:`~metrics_tpu_torch.resilience.policies.CircuitBreaker`
             fronting the dispatch: while open, cohorts shed at once under
@@ -477,6 +482,9 @@ class AdmissionQueue:
                 self._in_dispatch += 1
                 self._cv.notify_all()  # room freed: wake blocked producers
             popped = len(rows)
+            # the sampled bracket spans the whole flush-side host work: cohort
+            # formation, the quarantine scan, the pad and the target's submit
+            prof = PROFILER.begin("serving_flush", self.device)
             try:
                 t0 = time.perf_counter()
                 ids = np.asarray([r[0] for r in rows], dtype=np.int32)
@@ -522,6 +530,9 @@ class AdmissionQueue:
                         error = err
                         if self.breaker is not None:
                             self.breaker.record_failure()
+                if prof is not None:
+                    PROFILER.finish(prof, self.telemetry_key)
+                    prof = None
                 end = time.perf_counter()
                 kept = rows
                 self._note_flush(
@@ -534,6 +545,8 @@ class AdmissionQueue:
                     error,
                 )
             finally:
+                if prof is not None:  # formation raised: close the bracket
+                    PROFILER.finish(prof, self.telemetry_key)
                 with self._cv:
                     self._in_dispatch -= 1
                     self._cv.notify_all()
@@ -596,6 +609,10 @@ class AdmissionQueue:
         to the device. Runs on the staging lane (prefetch) or the flushing
         thread; touches only the slot."""
         t0 = time.perf_counter()
+        copy_stream = None
+        if self.device.type == "cuda" and self.staging_transfer:
+            copy_stream = self._side_stream()
+        prof = PROFILER.begin("serving_stage", self.device if copy_stream is not None else None, copy_stream)
         m = n
         if self._quarantine_active():
             mask: Optional[np.ndarray] = None
@@ -626,6 +643,9 @@ class AdmissionQueue:
                     buf[m:bucket] = 0
         ids_view: np.ndarray = slot.ids[:bucket]
         col_views: List[np.ndarray] = [buf[:bucket] for buf in slot.cols]
+        fill_end = time.perf_counter()
+        if prof is not None:
+            prof.mark_device_start()  # the device half is the copy alone
         event = None
         if m and self.staging_transfer:
             twins, event = self._transfer_cohort(slot, bucket)
@@ -636,6 +656,9 @@ class AdmissionQueue:
             # slot is reused once the dispatch returns
             ids_view = np.array(ids_view)
             col_views = [np.array(v) for v in col_views]
+        if prof is not None:
+            # host half: the slot fill; device half: the copy to the card
+            PROFILER.finish(prof, self.telemetry_key, submit_end=fill_end)
         return StagedCohort(
             slot, m, bucket, ids_view, col_views, slot.t_submit[:m], slot.cohorts[:m], (t0, time.perf_counter()), event
         )
@@ -650,14 +673,18 @@ class AdmissionQueue:
             return [torch.from_numpy(slot.ids[:bucket]).clone()] + [
                 torch.from_numpy(buf[:bucket]).clone() for buf in slot.cols
             ], None
-        if self._copy_stream is None:
-            self._copy_stream = torch.cuda.Stream(device=self.device)
-        with torch.cuda.stream(self._copy_stream):
+        with torch.cuda.stream(self._side_stream()):
             twins = [t[:bucket].to(self.device, non_blocking=True) for t in slot.tensors]
             event = torch.cuda.Event()
             event.record(self._copy_stream)
         slot.event = event
         return twins, event
+
+    def _side_stream(self) -> Any:
+        """The queue's side CUDA stream for cohort copies (made at first use)."""
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(device=self.device)
+        return self._copy_stream
 
     def _submit_stage_job(self, slot: StagingSlot, n: int) -> Any:
         from metrics_tpu_torch.utilities.async_sync import staging_lane
@@ -775,6 +802,7 @@ class AdmissionQueue:
                     self._shed_rows("breaker_open", rows_n)
                     rows_n = 0
                 if rows_n:
+                    prof = PROFILER.begin("serving_flush", self.device)
                     try:
                         self._dispatch_staged(cohort)
                         if self.breaker is not None:
@@ -783,6 +811,9 @@ class AdmissionQueue:
                         error = err
                         if self.breaker is not None:
                             self.breaker.record_failure()
+                    finally:
+                        if prof is not None:
+                            PROFILER.finish(prof, self.telemetry_key)
                 end = time.perf_counter()
                 self._last_dispatch_window = (t0, end)
                 if cohort is None or not rows_n:
@@ -804,8 +835,10 @@ class AdmissionQueue:
         return popped_n
 
     def _quarantine_active(self) -> bool:
-        """``"on"`` scans, ``"off"`` does not; ``"auto"`` follows the health
-        policy in the JAX package, which the port does not have yet: off."""
+        """``"on"`` scans, ``"off"`` does not; ``"auto"`` scans whenever the
+        health policy is armed (``queue.py:1008``)."""
+        if self.quarantine == "auto":
+            return get_health_policy() != "off"
         return self.quarantine == "on"
 
     def _shed_rows(

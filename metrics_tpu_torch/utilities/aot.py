@@ -9,7 +9,10 @@ port keeps, per signature, one ``torch.cuda.CUDAGraph`` of the pure program:
   needs; the live state does not change), then is captured with
   ``capture_error_mode="thread_local"``, so CUDA work that other threads
   issue meanwhile (the serving flusher, the staging lane, the async engine)
-  neither fails nor joins the capture. The graphs of one owner share one
+  neither fails nor joins the capture. The cycle collector is paused for
+  the capture: an owner and its dispatches hold each other, so a dropped
+  owner's graphs are freed by the collector, and destroying a graph while
+  this thread captures invalidates the capture. The graphs of one owner share one
   memory pool (:class:`GraphPool`). A capture that fails raises: nothing
   runs the step uncaptured instead.
 * **Donation is writing in place.** With ``donate_state=True`` the graph's
@@ -33,12 +36,23 @@ and writes the new state in place just as the graph does, and the cache
 and its accounting (``last_compiled``, ``last_compile_s``, ``cache_info``)
 are kept exactly as on the card.
 
+**The health guard** (``observability/health.py``). With a health policy
+armed, the program's guards compute their flags on the device and hand the
+tensors to the dispatch instead of reading them; the program's last step
+packs them into one flat tensor, a graph buffer of the capture, and each
+replay queues one asynchronous copy of it to the host
+(:meth:`~metrics_tpu_torch.observability.health.HealthMonitor.defer`), then
+notes every earlier copy that has completed. Whether the policy is
+armed is part of the key, so arming it captures afresh and disarming it
+replays the graphs captured without the guard.
+
 The key mirrors the JAX package's: python ``bool``/``str`` leaves are static
 (part of the key, seen by the program as they are), tensors are traced, and
 python numbers become 0-d tensors filled on every call (never baked into a
 graph). The state's and the arguments' shapes, dtypes and devices are part
 of the key, and ``context_fn`` (the collection's group signature) too.
 """
+import gc
 import sys
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -48,6 +62,7 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from metrics_tpu_torch.kernels._common import capture_tally, note_replay
+from metrics_tpu_torch.observability.health import HEALTH, FlagSlot, collect_guard_flags, pack_guard_flags
 from metrics_tpu_torch.utilities.data import trace_scope
 
 __all__ = ["CompiledDispatch", "GraphPool"]
@@ -85,7 +100,7 @@ class _Entry:
     """One signature's compiled program: on the card its graph, state and
     argument buffers, output buffers and launch tally; on the CPU a marker."""
 
-    __slots__ = ("graph", "state", "args", "out_state", "in_place", "extra", "tally")
+    __slots__ = ("graph", "state", "args", "out_state", "in_place", "extra", "tally", "slots", "flags")
 
     def __init__(self) -> None:
         self.graph = None
@@ -95,6 +110,9 @@ class _Entry:
         self.in_place: List[bool] = []
         self.extra: Any = None
         self.tally: Dict[str, int] = {}
+        #: the health guards' slots in the captured program's packed flags
+        self.slots: List[FlagSlot] = []
+        self.flags: Optional[torch.Tensor] = None
 
 
 class CompiledDispatch:
@@ -179,6 +197,7 @@ class CompiledDispatch:
             static_key = tuple(repr(s) for s in static)
         return (
             self._context_fn() if self._context_fn is not None else None,
+            HEALTH.enabled,
             state_def,
             tuple(self._sig(leaf) for leaf in state_leaves),
             treedef,
@@ -230,14 +249,21 @@ class CompiledDispatch:
         current = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(current)
-        with torch.cuda.stream(side), trace_scope(count_traces=False):
+        with torch.cuda.stream(side), trace_scope(count_traces=False), collect_guard_flags():
             # the warm-up a capture needs, on a clone: the live state stays as it is
             self._program(state_def, [t.clone() for t in entry.state], treedef, layout, entry.args, static)
         current.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with capture_tally() as tally, trace_scope(count_traces=True):
-            with torch.cuda.graph(graph, pool=self._pool.handle(), capture_error_mode="thread_local"):
-                out, in_place, extra = self._program(state_def, entry.state, treedef, layout, entry.args, static)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with capture_tally() as tally, trace_scope(count_traces=True), collect_guard_flags() as flags:
+                with torch.cuda.graph(graph, pool=self._pool.handle(), capture_error_mode="thread_local"):
+                    out, in_place, extra = self._program(state_def, entry.state, treedef, layout, entry.args, static)
+                    entry.slots, entry.flags = pack_guard_flags(flags)
+        finally:
+            if collecting:
+                gc.enable()
         entry.graph, entry.out_state, entry.in_place, entry.extra, entry.tally = graph, out, in_place, extra, tally
         return entry
 
@@ -291,6 +317,7 @@ class CompiledDispatch:
                 buf.fill_(t)
         entry.graph.replay()
         note_replay(entry.tally)
+        _defer_flags(entry.slots, entry.flags)
         out = [b if keep else b.clone() for b, keep in zip(entry.out_state, entry.in_place)]
         return entry, out
 
@@ -327,12 +354,13 @@ class CompiledDispatch:
                 # the CPU's counterpart of lowering: one run on a copy, whose
                 # trace telemetry counts as the capture's does on the card
                 start = time.perf_counter()
-                with trace_scope(count_traces=True):
+                with trace_scope(count_traces=True), collect_guard_flags():
                     self._program(state_def, [t.clone() for t in state_leaves], treedef, layout, traced, static)
                 self.last_compile_s = time.perf_counter() - start
             return None, fresh
-        with trace_scope(count_traces=fresh):
+        with trace_scope(count_traces=fresh), collect_guard_flags() as flags:
             out, _, extra = self._program(state_def, state_leaves, treedef, layout, traced, static)
+        _defer_flags(*pack_guard_flags(flags))
         return (tree_unflatten(out, state_def), extra), fresh
 
     # -- public surface -----------------------------------------------------------
@@ -360,6 +388,14 @@ class CompiledDispatch:
 
     def __reduce__(self) -> None:
         raise TypeError("a CompiledDispatch holds CUDA graphs, which never pickle; drop it first")
+
+
+def _defer_flags(slots: List[FlagSlot], flags: Optional[torch.Tensor]) -> None:
+    """Queue the packed guard flags of the program just run (or replayed)
+    and note every queued copy that has completed."""
+    if flags is not None:
+        HEALTH.defer(slots, flags)
+    HEALTH.drain()
 
 
 def _clone_tensors(tree: Any) -> Any:

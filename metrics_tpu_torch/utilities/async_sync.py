@@ -25,16 +25,22 @@ thread:
   per key: what the stale policy serves and what keeps a late round from
   overwriting a newer result.
 
-What the port does not have yet. The JAX engine also asks, before every
-attempt, which peers are degraded (``tracing.degraded_processes``, the
-fleet half of tracing, ROADMAP queue A item 13, and the resilience plane's
-membership epoch, item 14), narrows a ``"quorum"`` round to the healthy
-subgroup through transport overrides, labels its gathers ``"dcn"``, feeds
-the failure detector and consults the fault plan. None of those pieces is
-ported, so here no peer is ever flagged degraded (``degraded_rounds`` and
-``quorum_syncs`` stay 0), the membership epoch on every event is 0, and the
-engine's gathers count under the inline ``"gather"`` label. The policies
-still act on every round that raises or times out.
+**Degraded peers** (``async_sync.py:156-168,411-420``). Before every attempt
+the engine asks which peers are degraded: the processes the latest
+published straggler report flags
+(:func:`~metrics_tpu_torch.observability.tracing.degraded_processes`). A
+round started with degraded peers counts under ``degraded_rounds``, and the
+``"stale"`` policy then serves the last completed generation without
+contacting them.
+
+What the port does not have yet (ROADMAP queue A item 14): the resilience
+plane's membership epoch (the JAX engine also treats peers the epoch
+excludes as dead), the ``"quorum"`` round narrowed to the healthy subgroup
+through transport overrides (here ``"quorum"`` retries like ``"retry"`` and
+``quorum_syncs`` stays 0), the ``"dcn"`` gather label (the engine's gathers
+count under the inline ``"gather"`` label), the failure detector's feed and
+the ``async.attempt`` fault seam. The membership epoch on every event is 0.
+The policies still act on every round that raises or times out.
 
 Collective discipline holds across processes as for ``compute()``: every
 process submits the same ``compute_async`` calls in the same order, which
@@ -48,6 +54,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 from metrics_tpu_torch.observability.events import EVENTS
 from metrics_tpu_torch.observability.registry import TELEMETRY
+from metrics_tpu_torch.observability.tracing import degraded_processes
 from metrics_tpu_torch.resilience.policies import RetryPolicy, retry_policy_for
 
 #: default bounded-backoff parameters of the "retry" policy
@@ -65,6 +72,14 @@ class AsyncSyncError(RuntimeError):
 
 class SyncTimeout(AsyncSyncError):
     """A round exceeded its ``round_timeout_s``."""
+
+
+def _degraded() -> List[int]:
+    """Peers the engine treats as degraded before an attempt: those the
+    latest published straggler report flags (``async_sync.py:156``). The
+    JAX package adds the membership epoch's dead peers (ROADMAP queue A
+    item 14)."""
+    return degraded_processes()
 
 
 class SyncFuture:
@@ -296,6 +311,12 @@ class AsyncSyncEngine:
         future = job.future
         attempt = 0
         while True:
+            degraded = _degraded()
+            if degraded:
+                with self._lock:
+                    self._counters["degraded_rounds"] += 1
+                if job.on_degraded == "stale" and self._serve_stale(job, reason=f"degraded peers {degraded}"):
+                    return
             try:
                 future.attempts = attempt + 1
                 value = self._attempt(job.thunk, job.round_timeout_s)

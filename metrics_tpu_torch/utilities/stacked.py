@@ -25,6 +25,8 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import torch
 from torch.utils import _pytree as pytree
 
+from metrics_tpu_torch.observability.health import HEALTH, guard_rows
+
 __all__ = [
     "broadcast_stack",
     "row_states",
@@ -72,7 +74,9 @@ def row_states(metric: Any, args: Tuple, kwargs: Dict) -> Dict[str, Any]:
     row is presented to ``metric.apply_update`` as a length-1 batch (shape
     ``(1, ...)``), so the child runs the exact program it was written for.
     Returns the per-row batch-local states stacked to ``(B, ...)`` leaves —
-    the input of a segment scatter routing rows to stacked replicas."""
+    the input of a segment scatter routing rows to stacked replicas. With a
+    health policy armed every row's state is checked under ``metric``'s key
+    (:func:`~metrics_tpu_torch.observability.health.guard_rows`)."""
     leaves, treedef = pytree.tree_flatten((args, kwargs))
     mapped = [isinstance(leaf, torch.Tensor) and leaf.ndim >= 1 for leaf in leaves]
     lengths = {int(leaf.shape[0]) for leaf, m in zip(leaves, mapped) if m}
@@ -101,4 +105,8 @@ def row_states(metric: Any, args: Tuple, kwargs: Dict) -> Dict[str, Any]:
         row_args, row_kwargs = pytree.tree_unflatten(merged, treedef)
         return metric.apply_update(init, *row_args, **row_kwargs)
 
-    return torch.func.vmap(one)(tuple(leaf for leaf, m in zip(expanded, mapped) if m))
+    rows = torch.func.vmap(one)(tuple(leaf for leaf, m in zip(expanded, mapped) if m))
+    if HEALTH.enabled:
+        # the JAX package's guard runs inside its vmap, one check per row
+        guard_rows(metric, rows, source="apply_update")
+    return rows

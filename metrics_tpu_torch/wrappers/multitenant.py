@@ -119,15 +119,19 @@ from metrics_tpu_torch.metric import (
     _aliased_leaf,
     _microbatch_len,
     _note_compiled_dispatch,
-    _signature,
     _unrolled,
     _warmup_report,
 )
 from metrics_tpu_torch.observability.events import EVENTS
+from metrics_tpu_torch.observability.health import HEALTH, guard_state
 from metrics_tpu_torch.observability.histogram import observe_dispatch
+from metrics_tpu_torch.observability.memory import LEDGER
+from metrics_tpu_torch.observability.profiling import PROFILER
 from metrics_tpu_torch.observability.registry import TELEMETRY
+from metrics_tpu_torch.observability.retrace import MONITOR, arg_signature
 from metrics_tpu_torch.utilities.aot import CompiledDispatch, GraphPool
 from metrics_tpu_torch.utilities.data import Tensor, _counts_traces, _is_traced, check_device, resolve_device
+from metrics_tpu_torch.utilities.profiling import compiled_scope
 from metrics_tpu_torch.utilities.stacked import broadcast_stack, row_states, vmap_compute
 
 __all__ = ["KeyedMetric", "MultiTenantCollection"]
@@ -168,16 +172,19 @@ def _note_keyed_update(obj: Any, start: float, rows: int, **payload: Any) -> Non
 _MTC_DISPATCHES = ("_keyed_update_fn", "_keyed_update_fn_copy", "_update_many_fn", "_update_many_fn_copy")
 
 
-def _note_keyed_compiled(obj: Any, fn: CompiledDispatch, start: Optional[float], rows: int, **payload: Any) -> None:
-    """The compiled keyed update's telemetry (``multitenant.py:726-760``)."""
+def _note_keyed_compiled(obj: Any, fn: CompiledDispatch, start: Optional[float], args: Tuple, kwargs: Dict,
+                         **payload: Any) -> None:
+    """The compiled keyed update's telemetry (``multitenant.py:726-760``);
+    ``args`` (the ids first) and ``kwargs`` are the dispatch's."""
     if start is None:
         return
     dur = time.perf_counter() - start
     key = obj.telemetry_key
+    rows = int(args[0].shape[0])
     if TELEMETRY.enabled:
         TELEMETRY.inc(key, "keyed_update_rows", rows)
         observe_dispatch(dur, "keyed_scatter")
-        _note_compiled_dispatch(obj, fn, counter="keyed_update_dispatches")
+        _note_compiled_dispatch(obj, fn, args, kwargs, counter="keyed_update_dispatches")
     EVENTS.record(
         "update", key, dur_s=dur, t_start=start, path="keyed_scatter", tenants=obj.num_tenants, rows=rows,
         compiled_this_call=bool(fn.last_compiled), donated=fn.donate_state, **payload,
@@ -616,9 +623,13 @@ class KeyedMetric(Metric):
         output)."""
         if TELEMETRY.enabled and _counts_traces():
             TELEMETRY.inc(self.telemetry_key, "update_traces")
-        new_state, invalid = self._segment_scatter(state, self._canonical_ids(tenant_ids), args, kwargs)
+            MONITOR.note_trace(self.telemetry_key, arg_signature(tenant_ids, *args, **kwargs))
+        with compiled_scope(f"{type(self._child).__name__}.keyed_update"):
+            new_state, invalid = self._segment_scatter(state, self._canonical_ids(tenant_ids), args, kwargs)
         if not _is_traced():
             TELEMETRY.add_device(self.telemetry_key, "invalid_tenant_ids", invalid)
+        if HEALTH.enabled:
+            guard_state(self, new_state, source="apply_update")
         return new_state
 
     # -- the compiled keyed update ---------------------------------------------
@@ -641,6 +652,8 @@ class KeyedMetric(Metric):
                 TELEMETRY.inc(self.telemetry_key, "update_traces")
             new, invalid, counts = self._scatter_counted(s, ids, args, kwargs)
             totals[:] = [invalid, counts] if not totals else [totals[0] + invalid, totals[1] + counts]
+            if HEALTH.enabled:  # the JAX scan's apply_update guards each step's stacked state
+                guard_state(self, new, source="apply_update")
             return new
 
         return _unrolled(step, state, stacked, stacked_kwargs), (totals[0], totals[1])
@@ -680,11 +693,14 @@ class KeyedMetric(Metric):
             if self._jit_forward_donate:
                 state, donatable = self._donation_safe_state(state)
             fn = self._keyed_dispatch(donatable)
+            prof = PROFILER.begin("keyed_scatter", self.device)
             new_state, (invalid, counts) = fn(state, ids, *args, **kwargs)
+            if prof is not None:
+                PROFILER.finish(prof, self.telemetry_key, fn)
             self._set_states(new_state)
             self._update_called = True
         self._after_keyed_dispatch(invalid, counts)
-        _note_keyed_compiled(self, fn, start, int(ids.shape[0]))
+        _note_keyed_compiled(self, fn, start, (ids, *args), kwargs)
 
     def warmup(self, tenant_ids: Any, *sample_batch: Any, **kwargs: Any) -> Dict[str, Any]:
         """Capture the compiled keyed update for this batch's signature
@@ -698,8 +714,9 @@ class KeyedMetric(Metric):
         start = time.perf_counter()
         with self._serial_lock():
             fresh = fn.warm(self._get_states(), ids, *sample_batch, **kwargs)
-        return _warmup_report(self, fn, fresh, start, _signature(ids, *sample_batch, **kwargs),
-                              f"KeyedMetric({type(self._child).__name__})", tenants=self.num_tenants)
+        return _warmup_report(self, fn, fresh, start, arg_signature(ids, *sample_batch, **kwargs),
+                              f"KeyedMetric({type(self._child).__name__})", self.state_memory_report(),
+                              program="update", tenants=self.num_tenants)
 
     def update_many(self, tenant_ids: Any, *stacked: Any, **stacked_kwargs: Any) -> None:
         """K stacked keyed cohorts in ONE compiled dispatch
@@ -737,7 +754,10 @@ class KeyedMetric(Metric):
             return self._update_compiled(ids, args, kwargs)
         start = time.perf_counter() if (TELEMETRY.enabled or EVENTS.enabled) else None
         with self._serial_lock():
+            prof = PROFILER.begin("keyed_scatter", self.device)
             new_state, invalid, counts = self._scatter_counted(self._get_states(), ids, args, kwargs)
+            if prof is not None:
+                PROFILER.finish(prof, self.telemetry_key)
             self._set_states(new_state)
         if TELEMETRY.enabled:
             self._traffic.note(counts)
@@ -973,6 +993,8 @@ class MultiTenantCollection:
                 members=len(coll),
                 groups=list(groups.values()),
             )
+        # the stacked bundles now exist: re-note the memory ledger
+        LEDGER.note(self)
         return groups
 
     def _require_built(self) -> "OrderedDict[str, KeyedMetric]":
@@ -1061,9 +1083,10 @@ class MultiTenantCollection:
                 return state, False
         return state, True
 
-    def _dispatch_compiled(self, name: str, program: Any, args: Tuple, kwargs: Dict) -> Tuple[Any, CompiledDispatch]:
+    def _dispatch_compiled(self, name: str, program: Any, args: Tuple, kwargs: Dict, path: str
+                           ) -> Tuple[Any, CompiledDispatch]:
         """One compiled dispatch over every bundle under the serial lock:
-        ``((invalid, counts), fn)``."""
+        ``((invalid, counts), fn)``; ``path`` names its profiler bracket."""
         keyed = self._keyed
         with self._serial_lock():
             state = {owner: km._get_states() for owner, km in keyed.items()}
@@ -1071,7 +1094,10 @@ class MultiTenantCollection:
             if self._donate:
                 state, donatable = self._donation_safe_state(state)
             fn = self._dispatch(name if donatable else f"{name}_copy", program, donatable)
+            prof = PROFILER.begin(path, self.device)
             new_state, extra = fn(state, *args, **kwargs)
+            if prof is not None:
+                PROFILER.finish(prof, self.telemetry_key, fn)
             for owner, km in keyed.items():
                 km._set_states(new_state[owner])
                 km._update_called = True
@@ -1100,7 +1126,8 @@ class MultiTenantCollection:
             state = {owner: km._get_states() for owner, km in self._keyed.items()}
             fresh = fn.warm(state, ids, *sample_batch, **kwargs)
         return _warmup_report(
-            self, fn, fresh, start, _signature(ids, *sample_batch, **kwargs), "MultiTenantCollection",
+            self, fn, fresh, start, arg_signature(ids, *sample_batch, **kwargs), "MultiTenantCollection",
+            {owner: km.state_memory_report() for owner, km in self._keyed.items()}, program="update",
             tenants=self.num_tenants, members=len(self._collection), state_bundles=len(self._keyed),
         )
 
@@ -1119,7 +1146,7 @@ class MultiTenantCollection:
             next(iter(self._keyed.values()))._validate_ids_eager(ids.reshape(-1))
         start = time.perf_counter() if (TELEMETRY.enabled or EVENTS.enabled) else None
         (invalid, counts), fn = self._dispatch_compiled(
-            "_update_many_fn", self._scan_update_many, ((ids,) + stacked, stacked_kwargs), {}
+            "_update_many_fn", self._scan_update_many, ((ids,) + stacked, stacked_kwargs), {}, "update_many"
         )
         self._after_dispatch(invalid, counts)
         if start is not None:
@@ -1129,7 +1156,7 @@ class MultiTenantCollection:
                 TELEMETRY.inc(key, "update_many_calls")
                 TELEMETRY.inc(key, "update_many_batches", k)
                 observe_dispatch(dur, "update_many")
-                _note_compiled_dispatch(self, fn, counter="update_many_dispatches")
+                _note_compiled_dispatch(self, fn, (ids,) + stacked, stacked_kwargs, counter="update_many_dispatches")
             EVENTS.record(
                 "update", key, dur_s=dur, t_start=start, path="scan_microbatch", batches=k,
                 tenants=self.num_tenants, state_bundles=len(self._keyed),
@@ -1155,19 +1182,24 @@ class MultiTenantCollection:
             next(iter(keyed.values()))._validate_ids_eager(ids if host_ids is None else host_ids)
         start = time.perf_counter() if (TELEMETRY.enabled or EVENTS.enabled) else None
         if self._compiled:
-            (invalid, counts), fn = self._dispatch_compiled("_keyed_update_fn", self._scatter_all, (ids,) + args, kwargs)
+            (invalid, counts), fn = self._dispatch_compiled(
+                "_keyed_update_fn", self._scatter_all, (ids,) + args, kwargs, "keyed_scatter"
+            )
             self._after_dispatch(invalid, counts)
             if TELEMETRY.enabled:
                 TELEMETRY.inc(self.telemetry_key, "update_calls")
                 skipped = sum(len(ns) - 1 for _, ns in self._layout)
                 if skipped:
                     TELEMETRY.inc(self.telemetry_key, "update_dedup_skipped", skipped)
-            _note_keyed_compiled(self, fn, start, int(ids.shape[0]), members=len(self._collection),
+            _note_keyed_compiled(self, fn, start, (ids, *args), kwargs, members=len(self._collection),
                                  state_bundles=len(keyed))
             return
         with self._serial_lock():
             state = {owner: km._get_states() for owner, km in keyed.items()}
+            prof = PROFILER.begin("keyed_scatter", self.device)
             new_state, (invalid, counts) = self._scatter_all(state, ids, *args, **kwargs)
+            if prof is not None:
+                PROFILER.finish(prof, self.telemetry_key)
             for owner, km in keyed.items():
                 km._set_states(new_state[owner])
                 km._update_called = True

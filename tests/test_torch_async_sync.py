@@ -9,9 +9,12 @@ or time out, counters and ``sync`` events. ``Metric.compute_async`` and
 the same seeded numpy batches as the JAX package's ``compute_async``, and
 later updates must not change the result.
 
-Not mirrored here: the JAX tests' two-process cases that flag degraded
-peers (``tracing.degraded_processes``, item 13) or narrow a quorum round to
-a subgroup (transport overrides, item 14), which the port does not have.
+Elsewhere: the engine's degraded rounds (peers a published straggler
+report flags) against the JAX engine's are in
+``tests/test_torch_aggregate_fleet.py``, and over two gloo processes in
+``tests/test_torch_sync_gloo.py``. Not mirrored: the JAX tests that narrow
+a quorum round to a subgroup (transport overrides, ROADMAP queue A item 14),
+which the port does not have.
 """
 import threading
 import time

@@ -20,7 +20,10 @@ against the CPU, and capture while the serving flusher's thread works. The
 retrieval cases hold the flat, padded and sketched modes on the card against
 the CPU (the query reservoir and the hash bit for bit), replay the padded
 compiled forward and the reservoir update, and count the keyed padded
-update's B3 launches.
+update's B3 launches. The observability cases run the compiled health guard
+with no synchronizing call, split a sampled dispatch by CUDA events, hold the
+memory ledger's bytes against the caching allocator's, and name the
+collection's members in a ``torch.profiler`` trace.
 """
 import numpy as np
 import pytest
@@ -525,6 +528,32 @@ def test_a_graph_captured_while_a_serving_flusher_runs(cuda_device):
 
 
 @pytest.mark.cuda
+def test_a_capture_survives_the_cycle_collector_freeing_dead_graphs(cuda_device):
+    """A compiled metric and its dispatches hold each other, so a dropped one
+    is freed by the cycle collector; a collection that runs inside another
+    capture destroys graphs there and invalidates it. The capture pauses the
+    collector: with a collection forced at nearly every allocation, a
+    capture next to dead captured metrics completes and replays right."""
+    import gc
+
+    x = torch.rand(64, device=cuda_device)
+    for _ in range(3):
+        dead = T.MeanSquaredError(device=cuda_device).jit_forward()
+        dead.warmup(x, x)  # a captured graph, freed only by the collector
+    del dead
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        live = T.MeanAbsoluteError(device=cuda_device).jit_forward()
+        live.warmup(x, x)
+    finally:
+        gc.set_threshold(*thresholds)
+    y = torch.rand(64, device=cuda_device)
+    got = live(x, y)
+    assert torch.allclose(got.cpu(), (x - y).abs().mean().cpu(), atol=1e-6)
+
+
+@pytest.mark.cuda
 def test_the_compiled_keyed_update_and_capacity_mode_on_the_card_match_the_cpu(cuda_device):
     n = 50
     card = T.MultiTenantCollection(_members(device=cuda_device), n, validate_ids=False, device=cuda_device)
@@ -932,3 +961,120 @@ def test_the_pure_bootstrap_path_counts_its_macro_children_in_one_b1_launch_an_u
     want = cpu.apply_compute(cpu_state, process_group=None)
     for key in want:
         torch.testing.assert_close(got[key].cpu(), want[key], rtol=0, atol=1e-6)
+
+
+# -- observability on the card ----------------------------------------------------
+
+
+def _count_syncs(fn):
+    """``fn()``'s synchronizing calls, as ``torch.cuda.set_sync_debug_mode``
+    warns them."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [str(w.message) for w in seen if "synchroniz" in str(w.message) and "prototype" not in str(w.message)]
+
+
+@pytest.mark.cuda
+def test_the_compiled_health_guard_makes_no_synchronizing_call(cuda_device):
+    """Policy ``"record"``: the compiled collection's replays make no
+    synchronizing call, the flags of a NaN poisoned into a state are noted
+    once their copy completes (at most one dispatch late), and policy
+    ``"off"`` replays the graph captured without the guard."""
+    from metrics_tpu_torch import observability
+
+    observability.reset()
+    observability.set_health_policy("record")
+    try:
+        card = T.MetricCollection([T.MeanSquaredError(device=cuda_device), T.MeanAbsoluteError(device=cuda_device)])
+        card.jit_forward()
+        x = torch.rand(64, device=cuda_device)
+        card.warmup(x, x)
+        assert _count_syncs(lambda: [card(x, x) for _ in range(5)]) == []
+        card["MeanSquaredError"].sum_squared_error.fill_(float("nan"))
+        assert _count_syncs(lambda: card(x, x)) == []
+        torch.cuda.synchronize()
+        observability.HEALTH.drain()
+        key = card["MeanSquaredError"].telemetry_key
+        record = observability.HEALTH.summary()["metrics"][key]
+        assert record["nan"] >= 1 and record["checks"] >= 6
+        assert observability.HEALTH.in_flight() == 0
+    finally:
+        observability.set_health_policy("off")
+        observability.reset()
+
+
+@pytest.mark.cuda
+def test_a_sampled_dispatch_splits_by_cuda_events(cuda_device):
+    from metrics_tpu_torch import observability
+    from metrics_tpu_torch.observability.profiling import split_series_keys
+
+    observability.reset()
+    observability.set_profiling(1)
+    try:
+        card = T.MetricCollection(_compiled_members(cuda_device)).jit_forward()
+        probs, target = _softmax_batches(1, 1)[0]
+        p, t = _t(probs).to(cuda_device), _t(target).to(cuda_device)
+        card.warmup(p, t)
+        for _ in range(3):
+            card(p, t)
+        hists = observability.snapshot()["histograms"]
+        host, device = (hists[k] for k in split_series_keys("compiled"))
+        assert host["count"] == device["count"] == 3
+        assert device["sum"] > 0.0
+        assert observability.snapshot()["profiling"]["samples"] == {"compiled": 3}
+    finally:
+        observability.set_profiling(0)
+        observability.reset()
+
+
+@pytest.mark.cuda
+def test_the_ledger_bytes_match_the_allocator_within_a_block_per_tensor(cuda_device):
+    """The ledger's logical bytes against the caching allocator's block under
+    each state tensor (``torch.cuda.memory_snapshot()``): within 512 bytes a
+    tensor, the allocator's rounding."""
+    from metrics_tpu_torch import observability
+
+    mtc = T.MultiTenantCollection([T.MeanSquaredError(device=cuda_device), T.MeanAbsoluteError(device=cuda_device),
+                                   T.PearsonCorrcoef(streaming=True, device=cuda_device)], 10_000, device=cuda_device)
+    mtc.build()
+    tensors = [v for km in mtc._keyed.values() for v in km._get_states().values()]
+    ptrs = {t.data_ptr() for t in tensors}
+    blocks = {}
+    for segment in torch.cuda.memory_snapshot():
+        address = segment["address"]
+        for block in segment["blocks"]:
+            if address in ptrs:
+                blocks[address] = block["size"]
+            address += block["size"]
+    assert set(blocks) == ptrs
+    observability.LEDGER.track(mtc)
+    try:
+        ledger = observability.LEDGER.owner_bytes(mtc)
+        assert ledger == sum(v.numel() * v.element_size() for v in tensors) == 680_000
+        for t in tensors:
+            assert 0 <= blocks[t.data_ptr()] - t.numel() * t.element_size() < 512
+    finally:
+        observability.LEDGER.untrack(mtc)
+
+
+@pytest.mark.cuda
+def test_a_torch_profiler_trace_names_each_member_of_a_collection_forward(cuda_device):
+    members = _compiled_members(cuda_device)
+    card = T.MetricCollection(members)
+    probs, target = _softmax_batches(1, 1)[0]
+    p, t = _t(probs).to(cuda_device), _t(target).to(cuda_device)
+    card(p, t)
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        card(p, t)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages() if e.key.startswith("metrics/")}
+    assert {f"metrics/{type(m).__name__}.forward" for m in card.values()} <= names

@@ -19,13 +19,12 @@ package's (wrap-around, slot reuse, the pad folded in place, pickling); the
 scheduler's cache hits, stale serves, refreshes and their coalescing, the
 per-tenant generations and the serving spans likewise.
 
-Left out, with the reason: the JAX tests that arm ``quarantine="auto"``
-through ``observability.set_health_policy`` (the port has no health plane
-yet, ROADMAP queue A item 13: ``"auto"`` reads as off, pinned below), that
-export the serving timeline (``observability.timeline``, item 13), that
-merge fleet snapshots (``observability.aggregate``, item 13), that compact
-or grow the keyed state (item 14), and that count compiled executables per
-bucket (item 11).
+Elsewhere: the cases that arm ``quarantine="auto"`` through
+``observability.set_health_policy`` are in ``tests/test_torch_health.py``,
+the serving timeline in ``tests/test_torch_slo_timeline.py`` and the fleet
+snapshots in ``tests/test_torch_aggregate_fleet.py``. Left out, with the
+reason: the JAX tests that compact or grow the keyed state (ROADMAP queue A
+item 14), and that count compiled executables per bucket (item 11).
 """
 import json
 import pickle
@@ -899,9 +898,9 @@ def test_poisoned_rows_shed_exactly_and_clean_rows_dispatch(staging):
 
 @pytest.mark.parametrize("mode", ["auto", "off"])
 def test_quarantine_auto_and_off_let_nan_rows_through(mode):
-    """``"off"`` never scans; ``"auto"`` follows the health policy, which the
-    port does not have yet: it reads as off (the JAX package's default health
-    policy is ``"off"`` too, so both packages agree here)."""
+    """``"off"`` never scans; ``"auto"`` follows the health policy, whose
+    default ``"off"`` leaves the scan off in both packages (the armed
+    policies are in ``tests/test_torch_health.py``)."""
 
     def scenario(side):
         rec, q = _recording_queue(side, quarantine=mode)

@@ -22,11 +22,17 @@ collective (``utilities/distributed.py::_all_gather``) on each rank. Cases:
   ranks' stacked states merged in one process;
 * telemetry: the collection's sync and one ``sync_state_packed`` with its
   spans and sync records, against the JAX package's (its collection in N
-  threads at a barrier, its packed sync in ``shard_map`` over two devices).
+  threads at a barrier, its packed sync in ``shard_map`` over two devices);
+* the fleet: the clock handshake, four gathers that rank 1 enters 50 ms
+  late, ``gather_fleet`` and the published ``straggler_report`` (rank 1
+  flagged on both ranks, ``degraded_processes() == [1]``), the
+  ``aggregate_snapshots`` round, and the async engine's ``degraded_rounds``
+  and stale serve under ``on_degraded="stale"``.
 """
 import datetime
 import multiprocessing as mp
 import socket
+import time
 import warnings
 
 import numpy as np
@@ -235,6 +241,45 @@ def _case_telemetry(rank, data):
     }
 
 
+#: how late rank 1 enters each of the fleet case's gathers
+FLEET_DELAY_S = 0.05
+
+
+def _case_fleet(rank, data):
+    from metrics_tpu_torch import observability
+
+    observability.reset()
+    clock = observability.estimate_clock_offsets(3)
+    for i in range(4):
+        if rank == 1:
+            time.sleep(FLEET_DELAY_S)
+        tdist.gather_all_tensors(torch.tensor([rank, i]))
+    fleet = observability.tracing.gather_fleet()
+    report = observability.straggler_report(fleet, publish=True, min_lag_s=FLEET_DELAY_S / 2)
+    degraded = observability.degraded_processes()
+    m = T.Accuracy(**CPU)
+    preds, target = data["collection"][rank]
+    m.update(_t(preds), _t(target))
+    before = observability.snapshot()["sync"]
+    aggregated = observability.aggregate_snapshots()
+    after = observability.snapshot()["sync"]
+    first = m.compute_async(on_degraded="stale").result(timeout=30)  # no generation yet: a fresh round
+    second = m.compute_async(on_degraded="stale")
+    value = second.result(timeout=30)
+    engine = observability.snapshot()["async_sync"]
+    observability.TRACER.set_fleet_report(None)  # the cases after this one see no degraded peer
+    return {
+        "clock": clock, "processes": [p["process"] for p in fleet["processes"]],
+        "analyzed": report["collectives"], "flagged": report["flagged"], "degraded": degraded,
+        "lag_p50": {p: e["lag_p50_s"] for p, e in report["processes"].items()},
+        "aggregated": {"process_count": aggregated["process_count"], "per_process": sorted(aggregated["per_process"]),
+                       "updates": aggregated["merged"]["metrics"][m.telemetry_key]["counters"]["update_calls"]},
+        "aggregate_rounds": [after[k] - before[k] for k in ("descriptor_rounds", "payload_rounds")],
+        "first": float(first), "second": float(value), "stale": second.stale,
+        "degraded_rounds": engine["degraded_rounds"], "stale_serves": engine["stale_serves"],
+    }
+
+
 CASES = {
     "probe_auroc": _case_probe_auroc,
     "probe_samples": _case_probe_samples,
@@ -249,6 +294,7 @@ CASES = {
     "apply_compute": _case_apply_compute,
     "bootstrap": _case_bootstrap,
     "telemetry": _case_telemetry,
+    "fleet": _case_fleet,
 }
 
 
@@ -570,3 +616,40 @@ def test_sync_spans_and_records_equal_the_jax_package(synced):
                       "collectives_after", "dedup_groups", "dedup_members", "levels"):
             assert ig[field] == record[field], field
         assert ig["axes"] == {repr("[0, 1]"): 1}
+
+
+# -- the fleet --------------------------------------------------------------------
+
+
+def test_the_clock_handshake_over_two_processes(synced):
+    got, _, _ = _ok(synced, "fleet")
+    for rank, r in enumerate(got):
+        clock = r["clock"]
+        assert len(clock["offsets"]) == WORLD and clock["offsets"][rank] == 0.0 and clock["process"] == rank
+        # both are rounded to 1e-9 s from the same unrounded round trip
+        assert clock["rounds"] == 3 and abs(clock["uncertainty_s"] - clock["rtt_s"] / 2) <= 1e-9
+
+
+def test_a_late_rank_is_flagged_on_every_rank(synced):
+    got, _, _ = _ok(synced, "fleet")
+    for r in got:
+        assert r["processes"] == [0, 1] and r["analyzed"] >= 4
+        assert r["flagged"] == [1] and r["degraded"] == [1]
+        assert r["lag_p50"]["1"] >= FLEET_DELAY_S / 2 > r["lag_p50"]["0"]
+
+
+def test_aggregate_snapshots_over_two_processes(synced):
+    """Each process's snapshot rides one uint8 JSON leaf: one descriptor
+    round and one payload round for the fleet."""
+    got, _, _ = _ok(synced, "fleet")
+    for r in got:
+        assert r["aggregated"] == {"process_count": WORLD, "per_process": ["0", "1"], "updates": WORLD}
+        assert r["aggregate_rounds"] == [1, 1]
+
+
+def test_the_async_engine_serves_stale_while_a_peer_is_degraded(synced):
+    got, _, data = _ok(synced, "fleet")
+    whole = _whole(T.Accuracy(**CPU), data["collection"][:WORLD])
+    for r in got:
+        assert r["degraded_rounds"] == 2 and r["stale_serves"] == 1
+        assert r["stale"] is True and r["second"] == r["first"] == pytest.approx(float(whole), abs=1e-6)
