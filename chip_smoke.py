@@ -315,6 +315,45 @@ Phases, in order; any failure exits non-zero before the last line:
    serving, profile, memory and collective tracks, and
    ``aggregate_snapshots`` over a one-rank NCCL group.
    ``observability_phase_main()`` runs 3n alone (with a 3 s soak).
+3o. Durability, resilience and transport (after 3n). (a) The JAX package's
+   checkpoint capture (``scripts/bench_suite.py:2059-2160``):
+   ``KeyedMetric(ConfusionMatrix(16))`` over 4,096 tenants, 8,192 seeded
+   rows, 5 rounds of a full save, 64 tenants touched and a delta save (the
+   delta stamps exactly those 64, its payload <= full * 64 / 4096 + 256),
+   one ``save_async`` while 256-row updates land (their synchronizing calls
+   == as many as without a save in flight), B2's batched form (the keyed
+   rows' counts, one launch for an update's rows) and B3 one launch an
+   update, B2's batched form held against its plain version at the keyed
+   rows' shapes and a bootstrap's (20, 1024, 1000) and timed; the
+   restores onto a fresh card metric, a CPU metric and a card metric grown to
+   8,192 == the cut exactly; a CPU-written snapshot == on the card; each of
+   the seven crash points leaves the last complete snapshot restorable. (b)
+   Phase 3b's collection saved after 25 cohorts, its owner dropped, restored
+   into a new owner (eager, and compiled with the restore taking the graph's
+   copy-in path), the last 25 cohorts: states == the uninterrupted run
+   exactly, B3 100 and B4 50 each; ``grow(20,000)`` and ``compact(10,000)``
+   under the compiled update == an eager twin, one capture per capacity, the
+   ledger's bytes == the states' ``nbytes``. (c) The spill capture
+   (``bench_suite.py:2166-2240``): ``KeyedMetric(Accuracy())`` over 2,048
+   tenants at ``resident_cap`` 256, 7 rounds of fault-back then evict of 64:
+   per-tenant times and synchronizing calls, reads == a never-evicted control
+   bit for bit, conservation exact, the ledger's spilled bytes == the rows';
+   then (b)'s compiled collection at 1,250 resident: a compiled update through
+   the held graph and a read == its eager twin; then what an ``auto=True``
+   spiller adds to a 512-row keyed update (its time and synchronizing calls
+   without a spiller, with the hooks alone, and evicting to 256). (d) The chaos capture
+   (``scripts/soak.py:184-316,417-975``): a 3-rank fleet of threads (rank 2
+   dead) over ``StoreSubgroupChannel``s and one ``TCPStore`` with a dropped
+   payload round, a hung channel get and rank 1's death promoted by the
+   detector (failover time), then 10 s of 8,000 rows/s into 2,048 tenants
+   (max batch 512) with ``serving.dispatch`` errors at hits 3 and 9, an
+   auto-save crashed at ``checkpoint.before_manifest``, NaN rows quarantined:
+   zero lost updates, the schedule fired, quarantine exact, restore
+   bit-identical, no deadlock; ingest p50/p99. (e) An NCCL world of 1:
+   ``ShardedTransport`` over a one-device mesh (``shard_state``,
+   ``reduce_states``, a restore through ``place_state``) == the replicated
+   state, a 1 x 1 ``Hierarchy`` == the flat sync, ``InGraphTransport`` == the
+   eager pair. ``durability_phase_main()`` runs 3o alone.
 5. One JSON line ``{"kernels": [...]}``, the card line again, and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -3877,6 +3916,896 @@ def observability_phase_main(record_path: str = "") -> int:
     return _phase_alone(observability_phase, record_path)
 
 
+# --------------------------------------------------------------------------
+# phase 3o: durability, resilience and transport
+# --------------------------------------------------------------------------
+
+#: 3o-a: the JAX package's checkpoint capture (scripts/bench_suite.py:2059-2065)
+CKPT_TENANTS, CKPT_CLASSES, CKPT_TOUCH, CKPT_ROUNDS, CKPT_FLIGHT_ROWS = 4096, 16, 64, 5, 256
+#: 3o-c: the spill capture (scripts/bench_suite.py:2066-2067,2166-2240)
+SPILL_TENANTS, SPILL_COHORT, SPILL_ROUNDS = 2048, 64, 7
+SPILL_AUTO_ROWS, SPILL_AUTO_UPDATES = 512, 20
+#: 3o-d: the chaos capture (scripts/bench_suite.py:2243-2250, scripts/soak.py:52-66)
+CHAOS_TENANTS, CHAOS_QPS, CHAOS_MAX_BATCH, CHAOS_SECONDS, CHAOS_SEED = 2048, 8000, 512, 10.0, 1234
+CHAOS_PRODUCERS, CHAOS_ROWS_PER_SUBMIT, CHAOS_DELAY_MS, CHAOS_POISON_EVERY = 4, 64, 5.0, 7
+
+
+def _sync(torch, dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _durable_states_equal(torch, label, got, want) -> None:
+    """Every leaf of two keyed objects (a ``KeyedMetric`` or a
+    ``MultiTenantCollection``) equal exactly, on the host."""
+    def leaves(obj):
+        bundles = obj._keyed if hasattr(obj, "_keyed") else {"": obj}
+        return {(o, n): t for o, km in bundles.items() for n, t in km._get_states().items()}
+
+    g, w = leaves(got), leaves(want)
+    if set(g) != set(w):
+        fail(f"[{label}] state leaves differ: {sorted(g)} against {sorted(w)}")
+    for key in g:
+        a, b = g[key], w[key]
+        a = a.full_tensor() if hasattr(a, "full_tensor") else a
+        if a.shape != b.shape or not torch.equal(a.cpu(), b.cpu().to(a.dtype)):
+            fail(f"[{label}] state {key} differs")
+
+
+def _ckpt_batch(np, rng, ids, nc):
+    rows = len(ids)
+    logits = rng.rand(rows, nc).astype(np.float32)
+    return np.asarray(ids, np.int32), logits / logits.sum(-1, keepdims=True), rng.randint(0, nc, rows)
+
+
+def _durability_checkpoint(torch, np, M, dev, card, record) -> None:
+    """Phase 3o-a: full and delta saves, an async save under updates, the
+    restores, a CPU-written snapshot, the seven crash points; the keyed rows'
+    counts go through B2's batched form (one launch an update), held against
+    its plain version at the path's shapes and a bootstrap's."""
+    import tempfile
+
+    from metrics_tpu_torch.durability import CheckpointCrash, CheckpointManager, inject_crash, restore_checkpoint
+    from metrics_tpu_torch.durability import save_checkpoint
+    from metrics_tpu_torch.durability.checkpoint import CRASH_POINTS, resolve_chain
+    from metrics_tpu_torch.kernels import _common
+
+    n, nc, k = CKPT_TENANTS, CKPT_CLASSES, CKPT_TOUCH
+    rng = np.random.RandomState(0)
+
+    def build(device):
+        return M.KeyedMetric(M.ConfusionMatrix(num_classes=nc, device=device), num_tenants=n, validate_ids=False,
+                             device=device)
+
+    def on(device, batch):
+        return tuple(torch.as_tensor(a, device=device) for a in batch)
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, "trail")
+        m = build(dev)
+        first = _ckpt_batch(np, rng, rng.randint(0, n, 2 * n), nc)
+        _common.reset_dispatch_counters()
+        updates = 1
+        m.update(*on(dev, first))
+        first_state = m.confmat.clone()
+        mgr = CheckpointManager(d, m)
+        mgr.save()
+        full_ms, delta_ms, stamped = [], [], 0
+        full = delta = None
+        for _ in range(CKPT_ROUNDS):
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            full = mgr.save(delta=False)
+            full_ms.append((time.perf_counter() - t0) * 1e3)
+            touched = rng.choice(n, k, replace=False)
+            m.update(*on(dev, _ckpt_batch(np, rng, touched, nc)))
+            updates += 1
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            delta = mgr.save()
+            delta_ms.append((time.perf_counter() - t0) * 1e3)
+            if delta["kind"] != "delta" or sorted(delta["tenants"]) != sorted(int(t) for t in touched):
+                fail(f"[checkpoint] a delta save stamped {delta['kind']} {len(delta['tenants'] or [])} tenants,"
+                     f" expected the {k} touched")
+            stamped += len(delta["tenants"])
+        confmat_bytes = n * nc * nc * 4
+        if [r["dtype"] for r in full["layout"]] != ["int32", "int64"] or full["payload_bytes"] != confmat_bytes + n * 8:
+            fail(f"[checkpoint] the full payload holds {full['payload_bytes']} bytes, layout {full['layout']}")
+        delta_limit = full["payload_bytes"] * k / n + 256
+        if delta["payload_bytes"] > delta_limit:
+            fail(f"[checkpoint] the delta payload {delta['payload_bytes']} exceeds {delta_limit}")
+        # the synchronizing calls of 20 updates with no save in flight
+        pool = [on(dev, _ckpt_batch(np, rng, rng.randint(0, n, CKPT_FLIGHT_ROWS), nc)) for _ in range(32)]
+        _sync(torch, dev)
+        base_syncs = sync_calls(torch, lambda: [m.update(*b) for b in pool[:20]])
+        updates += 20
+        # the async save, with updates landing while it flies
+        saved = m.confmat.clone()  # the cut's state: no update comes between
+        flight = {}
+
+        def fly():
+            future = mgr.save_async()
+            busy, steps, t0 = 0.0, 0, time.perf_counter()
+            while not future.done():
+                u0 = time.perf_counter()
+                m.update(*pool[steps % len(pool)])
+                busy += time.perf_counter() - u0
+                steps += 1
+            flight["manifest"] = future.result(timeout=60)
+            flight["wall_s"] = time.perf_counter() - t0
+            flight["busy_s"], flight["steps"] = busy, steps
+
+        _sync(torch, dev)
+        syncs = sync_calls(torch, fly)
+        updates += flight["steps"]
+        save_syncs = [s for s in syncs if "durability" in s]
+        update_syncs = [s for s in syncs if "durability" not in s]
+        per_update = len(base_syncs) / 20
+        if len(update_syncs) != per_update * flight["steps"]:
+            fail(f"[checkpoint] {flight['steps']} updates during the async save made {len(update_syncs)} "
+                 f"synchronizing calls, {per_update} each without one: {update_syncs[:6]}")
+        launches = {op: _common.launch_count(op) for op in KERNEL_OPS}
+        if launches["segment_scatter_add"] != updates or launches["confmat_counts"] != updates or any(
+                v for op, v in launches.items() if op not in ("segment_scatter_add", "confmat_counts")):
+            fail(f"[checkpoint] launches {launches} over {updates} keyed updates (B2's batched form and B3 one "
+                 "each)")
+        b2_batched = _b2_batched(torch, dev, [(2 * n, 1, nc), (CKPT_FLIGHT_ROWS, 1, nc),
+                                              (BOOTSTRAPS, BATCH, NUM_CLASSES)])
+        # restores: a fresh card metric, a CPU metric, a card metric grown to 2n
+        restored = {}
+        for name, target in (("card", build(dev)), ("cpu", build("cpu")), ("grown", build(dev))):
+            if name == "grown":
+                target.grow(2 * n)
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            mgr.restore(target)
+            _sync(torch, dev)
+            restored[name] = (time.perf_counter() - t0) * 1e3
+            got = target.confmat
+            if not torch.equal(got[:n].cpu(), saved.cpu()) or (name == "grown" and (
+                    got.shape[0] != 2 * n or bool(got[n:].any()))):
+                fail(f"[checkpoint] the {name} restore differs from the saved state")
+        # a snapshot written by a CPU run of the port restores onto the card
+        cpu_src = build("cpu")
+        cpu_src.update(*on("cpu", first))
+        save_checkpoint(os.path.join(tmp, "cpu"), cpu_src)
+        from_cpu = restore_checkpoint(os.path.join(tmp, "cpu"), build(dev))
+        if not torch.equal(from_cpu.confmat.cpu(), cpu_src.confmat) or not torch.equal(from_cpu.confmat, first_state):
+            fail("[checkpoint] the CPU-written snapshot restores differently onto the card")
+        # every crash point: the torn ones leave the previous snapshot, the
+        # ones after the rename the new one, complete
+        crashes = {}
+        last_complete = saved
+        for point in CRASH_POINTS:
+            m.update(*pool[len(crashes)])
+            before = m.confmat.clone()
+            try:
+                with inject_crash(point):
+                    mgr.save()
+                fail(f"[checkpoint] the save armed at {point} did not crash")
+            except CheckpointCrash:
+                pass
+            chain = resolve_chain(d)
+            fresh = mgr.restore(build(dev))
+            complete = point in ("after_rename", "before_latest")
+            want = before if complete else last_complete
+            if not torch.equal(fresh.confmat, want):
+                fail(f"[checkpoint] after a crash at {point} the restore is not the last complete snapshot")
+            last_complete = want
+            crashes[point] = {"restored": "new" if complete else "previous", "chain": len(chain)}
+        out.update({
+            "full_payload_bytes": full["payload_bytes"], "confmat_bytes": confmat_bytes, "ledger_bytes": n * 8,
+            "delta_payload_bytes": delta["payload_bytes"], "delta_limit": delta_limit, "tenants_stamped": stamped,
+            "full_save_ms": statistics.median(full_ms), "delta_save_ms": statistics.median(delta_ms),
+            "full_save_ms_all": full_ms, "delta_save_ms_all": delta_ms,
+            "async": {"kind": flight["manifest"]["kind"], "wall_ms": flight["wall_s"] * 1e3,
+                      "updates_in_flight": flight["steps"], "overlap": min(1.0, flight["busy_s"] / flight["wall_s"]),
+                      "update_syncs": len(update_syncs), "update_syncs_without_save": per_update * flight["steps"],
+                      "save_syncs": save_syncs},
+            "restore_ms": restored, "launches": launches, "keyed_updates": updates, "crashes": crashes,
+            "b2_batched": b2_batched,
+        })
+    print(f"[checkpoint] KeyedMetric(ConfusionMatrix({nc})) over {n} tenants on {card}: full save "
+          f"{out['full_payload_bytes']} bytes (confmat {confmat_bytes} + ledger {n * 8}) median "
+          f"{out['full_save_ms']:.3f} ms, delta of {k} tenants {out['delta_payload_bytes']} bytes (limit "
+          f"{delta_limit:.0f}) median {out['delta_save_ms']:.3f} ms, {stamped} tenants stamped in {CKPT_ROUNDS} deltas; "
+          f"async {out['async']['kind']} save {out['async']['wall_ms']:.3f} ms with {flight['steps']} updates landing "
+          f"(overlap {out['async']['overlap']:.3f}; their synchronizing calls {len(update_syncs)}, as many as without a "
+          f"save; the save's own {len(save_syncs)}); restores ms {({k_: round(v, 3) for k_, v in restored.items()})} "
+          f"== the cut exactly (card, CPU, grown to {2 * n}), the CPU-written snapshot == on the card; crash points "
+          f"{ {p: c['restored'] for p, c in crashes.items()} }; launches {launches}")
+    for b in b2_batched:
+        dev_ms = {k: "none" if b[k] is None else f"{b[k]:.5f}" for k in ("device_ms", "plain_device_ms")}
+        print(f"[checkpoint] B2 batched {b['shape']}: {b['ms']:.4f} ms, device {dev_ms['device_ms']} (plain "
+              f"{b['plain_ms']:.4f} ms, device {dev_ms['plain_device_ms']}; bound {b['bound_ms']:.4f} ms, "
+              f"{b['bound_by']}), {b['launches']} launch, == plain")
+    record["checkpoint"] = out
+
+
+def _b2_batched(torch, dev, shapes) -> list:
+    """B2's batched form held against its plain version at ``(B, N, C)``
+    stacks: the keyed rows' (length-1 rows of a keyed ``ConfusionMatrix``'s
+    update) and a bootstrap's children; labels in [-1, C] so that dropped
+    pairs are held too, and timed. These launches are not counted."""
+    from metrics_tpu_torch.kernels import _common
+    from metrics_tpu_torch.kernels.confusion_matrix import confmat_counts_batched_cuda, confmat_counts_batched_torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 14)
+    out = []
+    for b, n, c in shapes:
+        preds, target = (torch.randint(-1, c + 1, (b, n), generator=gen, device=dev) for _ in range(2))
+        before = _common.launch_count("confmat_counts")
+        got = confmat_counts_batched_cuda(preds, target, c, device=dev)
+        launched = _common.launch_count("confmat_counts") - before
+        err = int((got - confmat_counts_batched_torch(preds, target, c)).abs().max())
+        if err or got.shape != (b, c, c):
+            fail(f"[checkpoint] B2's batched form differs from its plain version by {err} at ({b}, {n}), C={c}")
+        entry = {"shape": [b, n, c], "launches": launched, "max_abs_err": err,
+                 "ms": cuda_ms(lambda: confmat_counts_batched_cuda(preds, target, c, device=dev)),
+                 "plain_ms": cuda_ms(lambda: confmat_counts_batched_torch(preds, target, c)),
+                 "device_ms": device_ms(lambda: confmat_counts_batched_cuda(preds, target, c, device=dev)),
+                 "plain_device_ms": device_ms(lambda: confmat_counts_batched_torch(preds, target, c))}
+        entry["bound_ms"], entry["bound_by"] = bound(2 * b * n * 8 + b * c * c * 4, 6 * b * n)
+        out.append(entry)
+        del got
+    return out
+
+
+def _durability_collection(torch, np, M, dev, card, record) -> tuple:
+    """Phase 3o-b: phase 3b's collection saved after 25 cohorts, its owner
+    dropped, restored into a new owner (eager, and compiled after its
+    capture), the last 25 cohorts run; == the uninterrupted run; then
+    ``grow``/``compact`` under the compiled update. Returns the compiled
+    owner and its eager twin (3o-c spills it)."""
+    import gc
+    import tempfile
+
+    from metrics_tpu_torch.durability import CheckpointManager
+    from metrics_tpu_torch.kernels import _common
+    from metrics_tpu_torch.observability.memory import LEDGER
+
+    batches = make_keyed_batches(torch, dev)
+    half = KEYED_UPDATES // 2
+    ref = build_keyed(M, dev)
+    for batch in batches:
+        ref.update(*batch)
+    out = {}
+    owner = None
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode in ("eager", "compiled"):
+            d = os.path.join(tmp, mode)
+            first = build_keyed(M, dev)
+            first.build()
+            if mode == "compiled":
+                first.warmup(*batches[0])
+            _sync(torch, dev)
+            _common.reset_dispatch_counters()
+            for batch in batches[:half]:
+                first.update(*batch)
+            launches = {op: _common.launch_count(op) for op in ("segment_scatter_add", "segment_scatter_max")}
+            manifest = CheckpointManager(d, first).save()
+            del first
+            gc.collect()
+            second = build_keyed(M, dev)
+            second.build()
+            if mode == "compiled":
+                second.warmup(*batches[0])  # the restore then takes the graph's copy-in path
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            CheckpointManager(d, second).restore()
+            _sync(torch, dev)
+            restore_ms = (time.perf_counter() - t0) * 1e3
+            _common.reset_dispatch_counters()
+            for batch in batches[half:]:
+                second.update(*batch)
+            for op in launches:
+                launches[op] += _common.launch_count(op)
+            if launches != {"segment_scatter_add": 2 * KEYED_UPDATES, "segment_scatter_max": KEYED_UPDATES}:
+                fail(f"[restart {mode}] launches {launches} over the 50 cohorts, phase 3b's are 100 and 50")
+            _durable_states_equal(torch, f"restart {mode}", second, ref)
+            out[mode] = {"launches": launches, "payload_bytes": manifest["payload_bytes"], "restore_ms": restore_ms}
+            owner = second
+        # grow and compact under the compiled update, against an eager twin
+        LEDGER.track(owner)
+        shifted = (torch.where(batches[0][0] >= 0, batches[0][0] + KEYED_TENANTS, batches[0][0]),) + batches[0][1:]
+        steps = []
+        for obj in (owner, ref):
+            steps.append(obj.grow(2 * KEYED_TENANTS))
+            obj.update(*shifted)
+            steps.append(obj.compact(KEYED_TENANTS))
+            obj.update(*batches[1])
+        _durable_states_equal(torch, "grow/compact", owner, ref)
+        fn = owner.__dict__.get("_keyed_update_fn")
+        captures = fn._cache_size() if fn is not None else 0
+        capacities = {KEYED_TENANTS, steps[0], steps[1]}
+        expected = [1 << (2 * KEYED_TENANTS - 1).bit_length(), 1 << (KEYED_TENANTS - 1).bit_length()]
+        if steps[:2] != expected or captures != len(capacities):
+            fail(f"[grow/compact] capacities {steps[:2]}, {captures} captures for capacities {sorted(capacities)}")
+        nbytes = sum(t.numel() * t.element_size() for km in owner._keyed.values() for t in km._get_states().values())
+        ledger = LEDGER.owner_bytes(owner)
+        if ledger != nbytes:
+            fail(f"[grow/compact] the memory ledger reads {ledger} bytes, the states hold {nbytes}")
+        out["elastic"] = {"capacities": steps[:2], "captures": captures, "ledger_bytes": ledger, "nbytes": nbytes,
+                          "capture_bound": int(np.log2(2 * KEYED_TENANTS)) + 1}
+    print(f"[restart] phase 3b's collection over {KEYED_TENANTS} tenants saved after {half} cohorts, restored into "
+          f"a new owner, {KEYED_UPDATES - half} more: == the uninterrupted run exactly, eager (launches "
+          f"{out['eager']['launches']}, restore {out['eager']['restore_ms']:.3f} ms) and compiled (launches "
+          f"{out['compiled']['launches']}, restore {out['compiled']['restore_ms']:.3f} ms); grow({2 * KEYED_TENANTS}) "
+          f"-> capacity {steps[0]}, compact({KEYED_TENANTS}) -> {steps[1]}: == eager, {captures} captures for "
+          f"{len(capacities)} capacities; ledger {ledger} bytes == the states' nbytes, on {card}")
+    record["collection"] = out
+    return owner, ref
+
+
+def _durability_spill(torch, np, M, dev, card, record, owner, twin) -> None:
+    """Phase 3o-c: the spill capture, then the same spiller on the
+    10,000-tenant collection (the compiled owner of 3o-b) at n/8."""
+    from metrics_tpu_torch.durability import TenantSpiller
+    from metrics_tpu_torch.kernels import _common
+    from metrics_tpu_torch.observability.memory import LEDGER
+
+    n, cohort = SPILL_TENANTS, SPILL_COHORT
+    rows = 4 * n
+    metrics = []
+    for _ in range(2):
+        rng = np.random.RandomState(0)
+        m = M.KeyedMetric(M.Accuracy(device=dev), num_tenants=n, validate_ids=False, device=dev)
+        m.update(torch.as_tensor(rng.randint(0, n, rows), device=dev),
+                 torch.as_tensor(rng.rand(rows).astype(np.float32), device=dev),
+                 torch.as_tensor(rng.randint(0, 2, rows), device=dev))
+        metrics.append(m)
+    m, control = metrics
+    sp = TenantSpiller(m, resident_cap=n // 8, auto=False)
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    evicted = sp.maybe_evict()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    occ = sp.report()
+    row_bytes = sum(t[:1].numel() * t.element_size() for t in m._get_states().values())
+    if not (occ["conservation_ok"] and occ["resident_under_cap"]) or occ["spilled_bytes"] != occ["spilled"] * row_bytes:
+        fail(f"[spill] after the first pass: {occ}")
+    if LEDGER.report()["owners"][m.telemetry_key]["spilled_bytes"] != occ["spilled_bytes"]:
+        fail(f"[spill] the memory ledger's spilled bytes differ from the spilled rows' {occ['spilled_bytes']}")
+    pick = np.random.RandomState(7)
+    evict_us, back_us, evict_syncs, back_syncs = [], [], [], []
+    for _ in range(SPILL_ROUNDS):
+        ids = pick.choice(sorted(sp._spilled), cohort, replace=False)
+        for what, times, syncs in (("fault_back", back_us, back_syncs), ("evict", evict_us, evict_syncs)):
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            syncs.append(len(sync_calls(torch, lambda: getattr(sp, what)(ids))))
+            times.append((time.perf_counter() - t0) * 1e6 / cohort)
+    occ = sp.report()
+    got, want = m.compute(), control.compute()
+    same = torch.equal(got.isnan(), want.isnan()) and torch.equal(got[~want.isnan()], want[~want.isnan()])
+    if not same or not occ["conservation_ok"]:
+        fail(f"[spill] the fault-back read differs from the never-evicted control, or conservation broke: {occ}")
+    if sp.report()["spilled"] != 0 or LEDGER.report()["owners"][m.telemetry_key]["spilled_bytes"] != 0:
+        fail("[spill] a read left tenants spilled")
+    out = {"tenants": n, "resident_cap": n // 8, "first_pass": {"evicted": evicted, "ms": first_ms},
+           "evict_us_per_tenant": statistics.median(evict_us), "fault_back_us_per_tenant": statistics.median(back_us),
+           "evict_syncs": evict_syncs, "fault_back_syncs": back_syncs, "row_bytes": row_bytes}
+    sp.detach()
+    # the 10,000-tenant collection, compiled, at n/8
+    big = TenantSpiller(owner, resident_cap=KEYED_TENANTS // 8, auto=False)
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    big_evicted = big.maybe_evict()
+    _sync(torch, dev)
+    big_evict_ms = (time.perf_counter() - t0) * 1e3
+    big_occ = big.report()
+    if not (big_occ["conservation_ok"] and big_occ["resident_under_cap"]):
+        fail(f"[spill] the collection's pass: {big_occ}")
+    batches = make_keyed_batches(torch, dev)
+    _common.reset_dispatch_counters()
+    for obj in (owner, twin):  # a compiled update whose tenants fault back first, under the held graph
+        obj.update(*batches[2])
+    launches = {op: _common.launch_count(op) for op in ("segment_scatter_add", "segment_scatter_max")}
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    got = owner.compute()  # faults back every spilled tenant
+    _sync(torch, dev)
+    read_ms = (time.perf_counter() - t0) * 1e3
+    want = twin.compute()
+    for name in want:
+        g, w = got[name].cpu(), want[name].cpu()
+        if not (torch.equal(g.isnan(), w.isnan()) and torch.equal(g[~w.isnan()], w[~w.isnan()])):
+            fail(f"[spill] the collection's {name} after the spill differs from its never-evicted twin")
+    _durable_states_equal(torch, "spill collection", owner, twin)
+    big.detach()
+    out["collection"] = {"tenants": KEYED_TENANTS, "resident_cap": KEYED_TENANTS // 8, "evicted": big_evicted,
+                         "spilled_bytes": big_occ["spilled_bytes"], "evict_ms": big_evict_ms,
+                         "read_with_fault_back_ms": read_ms, "launches": launches}
+    out["auto"] = _spill_auto_cost(torch, np, M, dev)
+    print(f"[spill] KeyedMetric(Accuracy()) over {n} tenants at resident_cap {n // 8} on {card}: first pass evicted "
+          f"{evicted} ({first_ms:.3f} ms), {SPILL_ROUNDS} rounds of {cohort}: evict {out['evict_us_per_tenant']:.3f} "
+          f"us/tenant ({evict_syncs} synchronizing calls), fault-back {out['fault_back_us_per_tenant']:.3f} us/tenant "
+          f"({back_syncs}); read == the never-evicted control bit for bit, conservation exact, ledger's spilled bytes "
+          f"== the rows'; the {KEYED_TENANTS}-tenant compiled collection at {KEYED_TENANTS // 8}: {big_evicted} "
+          f"evicted, {big_occ['spilled_bytes']} bytes, {big_evict_ms:.3f} ms, a compiled update through the held "
+          f"graph (launches {launches}) and a read with fault-back {read_ms:.3f} ms == its twin")
+    for kind, a in out["auto"].items():
+        print(f"[spill] a keyed update of {SPILL_AUTO_ROWS} rows over {n} tenants, {kind} (auto spiller at "
+              f"resident_cap {a['resident_cap']}): median {a['ms']:.3f} ms, {a['syncs_per_update']} synchronizing "
+              f"calls an update at {a['sync_sites']}, {a.get('spilled_at_end', 0)} spilled at the end; read == the "
+              f"bare metric's")
+    record["spill"] = out
+
+
+def _spill_auto_cost(torch, np, M, dev) -> dict:
+    """What an ``auto=True`` spiller adds to a keyed update on the card: the
+    same updates timed (synchronized after each) and their synchronizing
+    calls counted without a spiller, with one whose ``resident_cap`` holds
+    every tenant (the hooks alone), and with one at n/8 and ``min_idle_s`` 0
+    (an eviction pass after every update, which the uniform traffic makes
+    fault back and evict hundreds of tenants an update), then without one
+    again (the spread of the host's time); the metrics' reads must then
+    agree bit for bit."""
+    from metrics_tpu_torch.durability import TenantSpiller
+
+    n = SPILL_TENANTS
+    rng = np.random.RandomState(5)
+    pool = [tuple(torch.as_tensor(a, device=dev) for a in (rng.randint(0, n, SPILL_AUTO_ROWS),
+                                                             rng.rand(SPILL_AUTO_ROWS).astype(np.float32),
+                                                             rng.randint(0, 2, SPILL_AUTO_ROWS)))
+            for _ in range(SPILL_AUTO_UPDATES)]
+    out, reads = {}, {}
+    for kind, cap in (("bare", None), ("hooks", n), ("evicting", n // 8), ("bare_again", None)):
+        m = M.KeyedMetric(M.Accuracy(device=dev), num_tenants=n, validate_ids=False, device=dev)
+        m.update(*pool[0])  # first call's warm-up, not counted
+        sp = None if cap is None else TenantSpiller(m, resident_cap=cap, min_idle_s=0.0, auto=True)
+        ms = []
+        for batch in pool:
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            m.update(*batch)
+            _sync(torch, dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        sites = sync_calls(torch, lambda: [m.update(*b) for b in pool])
+        out[kind] = {"resident_cap": cap, "ms": statistics.median(ms), "ms_all": ms,
+                     "syncs_per_update": len(sites) / len(pool), "sync_sites": sorted(set(sites))}
+        if sp is not None:
+            occ = sp.report()
+            if not occ["conservation_ok"]:
+                fail(f"[spill] the auto spiller at {cap} broke conservation: {occ}")
+            out[kind]["spilled_at_end"] = int(occ["spilled"])
+        reads[kind] = m.compute()
+        if sp is not None:
+            sp.detach()
+    want = reads["bare"]
+    for kind in ("hooks", "evicting", "bare_again"):
+        got = reads[kind]
+        if not (torch.equal(got.isnan(), want.isnan()) and torch.equal(got[~want.isnan()], want[~want.isnan()])):
+            fail(f"[spill] the metric under the {kind} auto spiller reads differently from the bare one")
+    return out
+
+
+class _RankChannels:
+    """The thread-simulated fleet's subgroup channel: each rank (a thread)
+    exchanges through its own ``StoreSubgroupChannel`` and store client."""
+
+    def __init__(self, channels, rank_of) -> None:
+        self.channels, self.rank_of = channels, rank_of
+
+    def _mine(self):
+        import threading
+
+        return self.channels[self.rank_of[threading.get_ident()]]
+
+    def __call__(self, buf, participants):
+        return self._mine()(buf, participants)
+
+    def consume_round(self, participants) -> None:
+        self._mine().consume_round(participants)
+
+
+def chaos_fleet(torch, dev, seed: int = CHAOS_SEED, channel_timeout_s: float = 0.5) -> dict:
+    """Phase 3o-d's fleet: a 3-rank world of threads (rank 2 dead from the
+    start, so every round is a subgroup round over [0, 1] through
+    ``StoreSubgroupChannel``s over one ``TCPStore``), rank 1's first payload
+    round dropped, a 0.2 s hung channel get on rank 0, then rank 1's death:
+    the detector's strikes promote it out of the membership epoch and the
+    first round over [0] closes the failover time (``scripts/soak.py:184``)."""
+    import socket
+    import threading
+    from datetime import timedelta
+
+    import metrics_tpu_torch.resilience as res
+    from metrics_tpu_torch.observability import tracing as ttracing
+    from metrics_tpu_torch.transport.gather import GatherTransport, StoreSubgroupChannel, set_subgroup_allgather
+    from metrics_tpu_torch.utilities import distributed as tdist
+
+    res.MEMBERSHIP.reset(world=3)
+    detector = res.FailureDetector(membership=res.MEMBERSHIP, fail_after=2, phi_threshold=8.0)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    master = torch.distributed.TCPStore("localhost", port, is_master=True, wait_for_workers=False,
+                                        timeout=timedelta(seconds=30))
+    clients = [torch.distributed.TCPStore("localhost", port, is_master=False, timeout=timedelta(seconds=30))
+               for _ in range(2)]
+    rank_of = {}
+    channel = _RankChannels({r: StoreSubgroupChannel(clients[r], timeout_s=channel_timeout_s, rank_fn=lambda r=r: r)
+                             for r in range(2)}, rank_of)
+    plan = res.FaultPlan(seed, [
+        res.FaultSpec("transport.payload", "drop", at=[0], process=1),
+        res.FaultSpec("subgroup.exchange", "delay", at=[4], process=0, delay_s=0.2),
+    ])
+    out = {"payload_drop_recovered": False, "round_counter_consistent": False, "hung_get_absorbed": False,
+           "failover_mttr_ms": None}
+    errors = {}
+    barrier = threading.Barrier(2, timeout=30.0)
+
+    def tree(rank, k):
+        return {"v": torch.tensor([rank, k], dtype=torch.int32, device=dev)}
+
+    def rank1():
+        transport = GatherTransport(participants=[0, 1])
+        try:
+            transport.gather_pytrees([tree(1, 0)])
+            errors["rank1_drop"] = "the payload drop did not fire"
+        except res.DroppedFault:
+            pass
+        barrier.wait()
+        transport.gather_pytrees([tree(1, 1)])
+        barrier.wait()
+        for k in range(3):
+            transport.gather_pytrees([tree(1, 2 + k)])
+
+    def rank0():
+        transport = GatherTransport(participants=[0, 1])
+        try:
+            transport.gather_pytrees([tree(0, 0)])
+            errors["rank0_drop"] = "expected a timed-out round"
+        except Exception:  # noqa: BLE001 - rank 1 dropped its payload
+            pass
+        barrier.wait()
+        got = transport.gather_pytrees([tree(0, 1)])[0]["v"]
+        out["round_counter_consistent"] = bool(
+            len(got) == 2 and got[0].tolist() == [0, 1] and got[1].tolist() == [1, 1])
+        out["payload_drop_recovered"] = out["round_counter_consistent"]
+        barrier.wait()
+        t0 = time.monotonic()
+        transport.gather_pytrees([tree(0, 2)])
+        out["hung_get_absorbed"] = (time.monotonic() - t0) >= 0.18
+        detector.observe_round([1], ok=True)
+        for k in range(2):
+            transport.gather_pytrees([tree(0, 3 + k)])
+            detector.observe_round([1], ok=True)
+        t_death = time.monotonic()
+        for _ in range(detector.fail_after + 2):
+            if 1 in res.MEMBERSHIP.dead():
+                break
+            try:
+                transport.gather_pytrees([tree(0, 9)])
+                detector.observe_round([0, 1], ok=True)
+            except Exception:  # noqa: BLE001 - rank 1 is dead
+                detector.observe_round([1], ok=False)
+                detector.promote()
+        if 1 not in res.MEMBERSHIP.dead():
+            errors["rank0_detector"] = "the detector never promoted the dead peer"
+            return
+        got = transport.subgroup([0]).gather_pytrees([tree(0, 10)])[0]["v"]
+        out["failover_mttr_ms"] = (time.monotonic() - t_death) * 1e3
+        out["degraded_round"] = [t.tolist() for t in got]
+
+    def named(rank, fn):
+        def run():
+            rank_of[threading.get_ident()] = rank
+            try:
+                fn()
+            except Exception as err:  # noqa: BLE001 - in the record
+                errors[f"rank{rank}"] = f"{type(err).__name__}: {err}"
+        return run
+
+    def no_global_round(buf, group):
+        raise AssertionError("a global round in the subgroup-only fleet")
+
+    saved = (tdist._all_gather, tdist.distributed_available, tdist.world_size, ttracing._process_index)
+    tdist._all_gather, tdist.distributed_available, tdist.world_size = no_global_round, lambda: True, lambda: 3
+    ttracing._process_index = lambda: rank_of.get(threading.get_ident(), 0)
+    previous = set_subgroup_allgather(channel)
+    try:
+        with res.fault_plan(plan):
+            threads = [threading.Thread(target=named(r, fn)) for r, fn in ((0, rank0), (1, rank1))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60.0)
+            if any(t.is_alive() for t in threads):
+                errors["deadlock"] = "a fleet rank did not finish"
+    finally:
+        set_subgroup_allgather(previous)
+        tdist._all_gather, tdist.distributed_available, tdist.world_size, ttracing._process_index = saved
+        del clients, master
+    res.MEMBERSHIP.mark_recovered(1, reason="chaos-rejoin")
+    out["epoch_final"] = res.MEMBERSHIP.current().epoch
+    out["epoch_transitions"] = len(res.MEMBERSHIP.transitions())
+    out["faults"] = plan.report()
+    out["errors"] = errors
+    out["ok"] = bool(not errors and out["payload_drop_recovered"] and out["round_counter_consistent"]
+                     and out["hung_get_absorbed"] and out["failover_mttr_ms"] is not None
+                     and out["epoch_transitions"] >= 2)
+    return out
+
+
+def chaos_window(torch, M, dev, *, seconds: float = CHAOS_SECONDS, qps: int = CHAOS_QPS,
+                 tenants: int = CHAOS_TENANTS, max_batch: int = CHAOS_MAX_BATCH, seed: int = CHAOS_SEED) -> dict:
+    """Phase 3o-d's serving window (``scripts/soak.py:417-975``, chaos):
+    producers into an ``SLOScheduler(KeyedMetric(Accuracy()))`` with the
+    quarantine on, interval auto-saves on the durability lane, and a seeded
+    plan: ``serving.dispatch`` errors at hits 3 and 9, the auto-save crashed
+    at ``checkpoint.before_manifest`` (hit 1), a NaN row every 7th cohort.
+    Returns the record with its invariants (``ok``)."""
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    import metrics_tpu_torch.resilience as res
+    from metrics_tpu_torch import observability
+    from metrics_tpu_torch.durability import CheckpointManager
+    from metrics_tpu_torch.kernels import _common
+    from metrics_tpu_torch.observability.histogram import HISTOGRAMS
+    from metrics_tpu_torch.serving import SERVING_STATS, SLOScheduler
+    from metrics_tpu_torch.utilities.async_sync import get_engine
+
+    observability.reset()
+    metric = M.KeyedMetric(M.Accuracy(device=dev), num_tenants=tenants, validate_ids=False, device=dev)
+    calls = [0]
+    real_update = metric.update
+
+    def counted_update(ids, *cols):
+        real_update(ids, *cols)
+        calls[0] += 1
+
+    metric.update = counted_update
+    svc = SLOScheduler(metric, max_staleness_s=1.0, max_batch=max_batch, max_delay_ms=CHAOS_DELAY_MS,
+                       policy="shed_oldest", pad_to_bucket=True, quarantine="on")
+    rng = np.random.RandomState(seed)
+    b = 1
+    while b <= max_batch:  # one cohort of every power-of-two bucket before the window
+        preds = rng.rand(b).astype(np.float32)
+        svc.submit_many(rng.randint(0, tenants, b), preds, (preds > 0.5).astype(np.int32))
+        svc.queue.flush()
+        b *= 2
+    svc.read(max_staleness_s=0.0)
+    HISTOGRAMS.reset()
+    _sync(torch, dev)
+    _common.reset_dispatch_counters()
+    calls[0] = 0
+    out = {}
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        mgr = CheckpointManager(ckpt_dir, svc)
+        mgr.save(delta=False)
+        plan = res.FaultPlan(seed + 1, [res.FaultSpec("serving.dispatch", "error", at=[3, 9]),
+                                        res.FaultSpec("checkpoint.before_manifest", "error", at=[1])])
+        res.install_fault_plan(plan)
+        mgr.enable_auto_save(interval_s=min(0.8, max(0.2, seconds / 5.0)), tick_s=0.05)
+        stop = threading.Event()
+        counters = {"submitted": 0, "poisoned": 0, "reads": 0, "read_errors": 0}
+        lock = threading.Lock()
+        rate = qps / CHAOS_PRODUCERS
+        errors = []
+
+        def producer(k):
+            prng = np.random.RandomState(seed + 1 + k)
+            interval = CHAOS_ROWS_PER_SUBMIT / rate
+            next_at = time.perf_counter()
+            cohort = 0
+            try:
+                while not stop.is_set():
+                    ids = prng.randint(0, tenants, CHAOS_ROWS_PER_SUBMIT)
+                    preds = prng.rand(CHAOS_ROWS_PER_SUBMIT).astype(np.float32)
+                    target = (prng.rand(CHAOS_ROWS_PER_SUBMIT) < preds).astype(np.int32)
+                    cohort += 1
+                    poisoned = cohort % CHAOS_POISON_EVERY == 0
+                    if poisoned:
+                        preds[int(prng.randint(CHAOS_ROWS_PER_SUBMIT))] = np.nan
+                    svc.submit_many(ids, preds, target)
+                    with lock:
+                        counters["submitted"] += CHAOS_ROWS_PER_SUBMIT
+                        counters["poisoned"] += int(poisoned)
+                    next_at += interval
+                    delay = next_at - time.perf_counter()
+                    if delay > 0:
+                        stop.wait(delay)
+                    elif delay < -1.0:
+                        next_at = time.perf_counter()
+            except Exception as err:  # noqa: BLE001 - in the record
+                errors.append(f"{type(err).__name__}: {err}")
+
+        def reader():
+            rrng = np.random.RandomState(10_007)
+            while not stop.is_set():
+                try:
+                    svc.read(rrng.randint(0, tenants, 16), max_staleness_s=1.0)
+                    counters["reads"] += 1
+                except Exception:  # noqa: BLE001 - counted
+                    counters["read_errors"] += 1
+                stop.wait(1.0)
+
+        threads = [threading.Thread(target=producer, args=(k,)) for k in range(CHAOS_PRODUCERS)]
+        threads.append(threading.Thread(target=reader))
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        time.sleep(seconds)
+        stop.set()
+        for t in threads:
+            t.join(timeout=30.0)
+        joined = not any(t.is_alive() for t in threads)
+        drained = svc.drain(timeout=60.0)
+        get_engine().drain(timeout=30.0)
+        elapsed = time.perf_counter() - t0
+        auto = mgr.auto_save_report()
+        mgr.disable_auto_save()
+        lane_drained = get_engine("durability").drain(timeout=30.0)
+        res.install_fault_plan(None)
+        stats = svc.queue.stats()
+        routed = metric.tenant_report()["rows_routed"]
+        zero_lost = stats["submitted"] - stats["shed"] == stats["dispatched"] == routed and stats["resident"] == 0
+        serving = SERVING_STATS.summary()
+        telemetry_ok = (serving["shed_rows"] == stats["shed"] and serving["dispatched_rows"] == stats["dispatched"]
+                        and serving["shed_by_reason"] == {r: v for r, v in stats["shed_by_reason"].items() if v})
+        fired = [(seam, mode) for seam, mode, _ in plan.fired()]
+        schedule_ok = (fired.count(("serving.dispatch", "error")) == 2
+                       and fired.count(("checkpoint.before_manifest", "error")) == 1)
+        shed = stats["shed_by_reason"]
+        quarantined = int(shed.get("poisoned", 0))
+        quarantine_ok = (quarantined == counters["poisoned"] if not shed.get("shed_oldest")
+                         else 1 <= quarantined <= counters["poisoned"])
+        values = metric.compute()
+        rows = metric._traffic.arrays()[0]
+        touched = torch.as_tensor(rows > 0, device=values.device)
+        none_leaked = bool(torch.isfinite(values[touched]).all())
+        durability = observability.snapshot()["durability"]
+        final = mgr.save(delta=False)
+        fresh = M.KeyedMetric(M.Accuracy(device=dev), num_tenants=tenants, validate_ids=False, device=dev)
+        CheckpointManager(ckpt_dir, fresh).restore(fresh)
+        restore_ok = all(torch.equal(a, b) for a, b in zip(metric._get_states().values(),
+                                                           fresh._get_states().values()))
+        launches = {op: _common.launch_count(op) for op in ("segment_scatter_add", "segment_scatter_max")}
+        # one B3 and one B4 launch a dispatch on the card (the CPU launches none)
+        expected = calls[0] if torch.device(dev).type == "cuda" else 0
+        launches_ok = launches == {"segment_scatter_add": expected, "segment_scatter_max": expected}
+
+        def pct(name, q):
+            return HISTOGRAMS.get(name, unit="s", policy="shed_oldest").percentile(q) * 1e3
+
+        out.update({
+            "seconds": elapsed, "submitted": stats["submitted"], "dispatched": stats["dispatched"],
+            "rows_routed": routed, "shed_by_reason": {r: v for r, v in shed.items() if v},
+            "achieved_rows_per_s": counters["submitted"] / seconds, "dispatches": calls[0], "launches": launches,
+            "ingest_p50_ms": pct("serving_ingest_seconds", 50), "ingest_p99_ms": pct("serving_ingest_seconds", 99),
+            "poisoned": {"injected": counters["poisoned"], "quarantined": quarantined, "none_leaked": none_leaked},
+            "checkpoint": {"auto_saves": auto["auto_saves"], "save_errors": durability.get("save_errors", 0),
+                           "restore_bit_identical": restore_ok, "last_snapshot": final["name"]},
+            "reads": counters["reads"], "read_errors": counters["read_errors"], "errors": errors,
+            "faults": plan.report(), "invariants": {
+                "zero_lost_updates": bool(zero_lost), "telemetry_matches": bool(telemetry_ok),
+                "schedule_fired": schedule_ok, "quarantine_exact": bool(quarantine_ok), "none_leaked": none_leaked,
+                "mid_save_crash": durability.get("save_errors", 0) >= 1, "auto_saves": auto["auto_saves"] >= 2,
+                "restore_bit_identical": restore_ok, "no_deadlocks": bool(joined and drained and lane_drained),
+                "launches_per_dispatch": launches_ok, "dispatch_errors": shed.get("dispatch_error", 0) >= 1,
+            },
+        })
+    svc.close(timeout=30)
+    out["ok"] = bool(all(out["invariants"].values()) and not errors)
+    return out
+
+
+def _durability_chaos(torch, M, dev, card, record) -> None:
+    """Phase 3o-d: the fleet, then the serving window."""
+    fleet = chaos_fleet(torch, dev)
+    if not fleet["ok"]:
+        fail(f"[chaos] the fleet phase failed: {fleet}")
+    window = chaos_window(torch, M, dev)
+    if not window["ok"]:
+        fail(f"[chaos] an invariant broke: {window['invariants']}, errors {window['errors']}")
+    print(f"[chaos] fleet of 3 (rank 2 dead) on {card}: payload drop recovered, round counters consistent, hung get "
+          f"absorbed, failover {fleet['failover_mttr_ms']:.1f} ms, epoch {fleet['epoch_final']} after "
+          f"{fleet['epoch_transitions']} transitions; serving window {window['seconds']:.1f} s at {CHAOS_QPS} rows/s "
+          f"over {CHAOS_TENANTS} tenants: {window['submitted']} submitted, {window['dispatched']} dispatched == "
+          f"{window['rows_routed']} routed, shed {window['shed_by_reason']}, ingest p50 {window['ingest_p50_ms']:.3f} / "
+          f"p99 {window['ingest_p99_ms']:.3f} ms, poisoned {window['poisoned']}, auto-saves "
+          f"{window['checkpoint']['auto_saves']} ({window['checkpoint']['save_errors']} crashed), restore bit-identical, "
+          f"launches {window['launches']} for {window['dispatches']} dispatches; invariants all held")
+    record["chaos"] = {"fleet": fleet, "window": window}
+
+
+def _durability_transport(torch, M, dev, card, record) -> None:
+    """Phase 3o-e: ``ShardedTransport`` over a one-device mesh, a 1 x 1
+    ``Hierarchy`` and ``InGraphTransport`` over an NCCL world of 1."""
+    import socket
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from metrics_tpu_torch.durability import CheckpointManager
+    from metrics_tpu_torch.transport import InGraphTransport, ShardedTransport, get_transport
+    from metrics_tpu_torch.utilities.distributed import Hierarchy, sync_state_packed
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        m = M.KeyedMetric(M.Accuracy(device=dev), num_tenants=SPILL_TENANTS, validate_ids=False, device=dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 14)
+        rows = 4 * SPILL_TENANTS
+        m.update(torch.randint(0, SPILL_TENANTS, (rows,), generator=gen, device=dev),
+                 torch.rand((rows,), generator=gen, device=dev), torch.randint(0, 2, (rows,), generator=gen, device=dev))
+        state, reductions = m._get_states(), m._reductions
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("shard",))
+        sharded_t = ShardedTransport(mesh, "shard")
+        sharded = sharded_t.shard_state(state)
+        reduced = sharded_t.reduce_states(sharded, reductions)
+        mesh2 = init_device_mesh("cuda", (1, 1), mesh_dim_names=("shard", "replica"))
+        replica_t = ShardedTransport(mesh2, "shard", replica_axis="replica")
+        replica = replica_t.reduce_states(replica_t.shard_state(state), reductions)
+        for label, tree in (("shard_state", sharded), ("reduce_states", reduced), ("replica reduce", replica)):
+            for name, value in tree.items():
+                if not torch.equal(value.full_tensor(), state[name]):
+                    fail(f"[transport] {label} of {name} differs from the replicated state")
+        fractions = {name: sharded_t.max_shard_fraction(v) for name, v in sharded.items()}
+        with tempfile.TemporaryDirectory() as tmp:
+            CheckpointManager(tmp, m).save()
+            target = M.KeyedMetric(M.Accuracy(device=dev), num_tenants=SPILL_TENANTS, validate_ids=False, device=dev)
+            CheckpointManager(tmp, target).restore(target, transport=sharded_t)
+            _durable_states_equal(torch, "place_state", target, m)
+        hierarchy = Hierarchy(1)
+        flat = sync_state_packed(dict(state), reductions, dist.group.WORLD)
+        hier = sync_state_packed(dict(state), reductions, hierarchy)
+        for name in state:
+            if not (torch.equal(flat[name], state[name]) and torch.equal(hier[name], flat[name])):
+                fail(f"[transport] the 1 x 1 hierarchy's {name} differs from the flat sync")
+        tree = [{"state": dict(state)}]
+        in_graph = InGraphTransport().gather_pytrees(tree)
+        eager = get_transport().gather_pytrees(tree)
+        for name in state:
+            if not all(torch.equal(a, b) for a, b in zip(in_graph[0]["state"][name], eager[0]["state"][name])):
+                fail(f"[transport] InGraphTransport's gather of {name} differs from the eager pair's")
+    finally:
+        dist.destroy_process_group()
+    record["transport"] = {"leaves": len(state), "max_shard_fraction": fractions, "hierarchy": repr(hierarchy)}
+    print(f"[transport] NCCL world of 1 on {card}: ShardedTransport over a 1-device mesh (Shard(0)): shard_state, "
+          f"reduce_states (and across a 1-wide replica axis) and a restore through place_state == the replicated "
+          f"{len(state)} leaves, max shard fraction {sorted(set(fractions.values()))}; {hierarchy} == the flat sync; "
+          f"InGraphTransport == the eager pair")
+
+
+def durability_phase(torch, M, dev, card) -> dict:
+    """Phase 3o: durability, resilience and transport (3o-a to 3o-e of the
+    module docstring)."""
+    import numpy as np
+
+    from metrics_tpu_torch import observability
+
+    start = time.perf_counter()
+    record = {}
+    observability.reset()
+    _durability_checkpoint(torch, np, M, dev, card, record)
+    owner, twin = _durability_collection(torch, np, M, dev, card, record)
+    _durability_spill(torch, np, M, dev, card, record, owner, twin)
+    _durability_chaos(torch, M, dev, card, record)
+    _durability_transport(torch, M, dev, card, record)
+    observability.reset()
+    record["phase_s"] = time.perf_counter() - start
+    print(f"[durability] phase 3o took {record['phase_s']:.1f} s on {card}")
+    return record
+
+
+def durability_phase_main(record_path: str = "") -> int:
+    """Run :func:`durability_phase` alone (see :func:`_phase_alone`)."""
+    return _phase_alone(durability_phase, record_path)
+
+
 def compute_async_phase(torch, M, dev, batches, card) -> dict:
     """Phase 3h-c: ``compute_async`` of the ImageNet-1k collection after 25 of
     its 49 forwards against a synchronous ``compute()`` at that point."""
@@ -4540,6 +5469,9 @@ def main() -> int:
     # -- 3n. the observability plane armed on the main paths ------------------------------
     record["observability"] = observability_phase(torch, M, dev, card, soak=record["serving"]["soak_staged"])
 
+    # -- 3o. durability, resilience and transport -----------------------------------------
+    record["durability"] = durability_phase(torch, M, dev, card)
+
     # -- 4. times at the main-path shapes ------------------------------------
     preds, target = batches[0]
     canon_p, canon_t, _ = _input_format_classification(preds, target)
@@ -4733,6 +5665,8 @@ def main() -> int:
          "plain_ms": timings[op]["plain_ms"], "bound_ms": timings[op]["bound"][0],
          "bound_by": timings[op]["bound"][1], "library_ms": timings[op]["library_ms"],
          "library_alloc_ms": timings[op].get("library_alloc_ms"), "device_ms": timings[op]["device_ms"],
+         "plain_device_ms": timings[op]["plain_device_ms"], "library_device_ms": timings[op]["library_device_ms"],
+         "library_alloc_device_ms": timings[op].get("library_alloc_device_ms"),
          "graph_ms": timings[op]["graph_ms"], "compiled_launches": compiled_launches[op]}
         for op in sources
     ]
@@ -4742,6 +5676,7 @@ def main() -> int:
     for suffix in ("dense", "c1"):
         t = timings[f"label_score_histograms_{suffix}"]
         kernels[-1].update({f"{suffix}_ms": t["ms"], f"{suffix}_device_ms": t["device_ms"],
+                            f"{suffix}_library_device_ms": t["library_device_ms"],
                             f"{suffix}_graph_ms": t["graph_ms"],
                             f"{suffix}_plain_ms": t["plain_ms"], f"{suffix}_bound_ms": t["bound"][0],
                             f"{suffix}_library_ms": t["library_ms"]})
@@ -4787,6 +5722,22 @@ def main() -> int:
                 "eager": obs["keyed_health"]["eager"]["launches"]["segment_scatter_add"],
                 "compiled": obs["keyed_health"]["compiled"]["launches"]["segment_scatter_add"],
                 "quarantined_queue": obs["quarantine"]["launches"],
+            }
+    # B3 and B4 max on the durability paths (phase 3o), and B2's batched
+    # form on the keyed ConfusionMatrix's rows (phase 3o-a)
+    dur = record["durability"]
+    for entry in kernels:
+        if entry["name"] == "confmat_counts":
+            entry["durability_launches"] = {"checkpoint": dur["checkpoint"]["launches"]["confmat_counts"]}
+            entry["batched"] = dur["checkpoint"]["b2_batched"]
+        if entry["name"] in ("segment_scatter_add", "segment_scatter_max"):
+            op = entry["name"]
+            entry["durability_launches"] = {
+                "checkpoint": dur["checkpoint"]["launches"][op],
+                "restart_eager": dur["collection"]["eager"]["launches"][op],
+                "restart_compiled": dur["collection"]["compiled"]["launches"][op],
+                "spill_collection": dur["spill"]["collection"]["launches"][op],
+                "chaos": dur["chaos"]["window"]["launches"][op],
             }
     record["kernels"] = kernels
     if args.record:

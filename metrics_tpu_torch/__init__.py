@@ -38,8 +38,14 @@ and ``SSIM``, and the retrieval family (``RetrievalMAP``, ``RetrievalMRR``,
 metrics (``SNR``, ``SI_SNR``, ``SI_SDR``), ``BootStrapper``, and ``FID``,
 ``KID`` and ``IS`` on an InceptionV3 carried across from the JAX package's
 Flax net (``image/inception_net.py``), with the functional ``bleu_score``,
-``embedding_similarity`` and ``image_gradients``.
+``embedding_similarity`` and ``image_gradients``; the durability plane
+(``durability``: ``CheckpointManager`` in the JAX package's on-disk format,
+``TenantSpiller``, ``KeyedMetric.grow``/``compact``), the resilience plane's
+fault plans, failure detector and membership epoch (``FaultPlan``,
+``FailureDetector``, ``Membership``), and the transports' true subgroups,
+``ShardedTransport`` and ``Hierarchy``.
 """
+from metrics_tpu_torch.__about__ import __version__  # noqa: F401
 from metrics_tpu_torch.audio import SI_SDR, SI_SNR, SNR  # noqa: F401
 from metrics_tpu_torch.average import AverageMeter  # noqa: F401
 from metrics_tpu_torch.classification import (  # noqa: F401
@@ -94,4 +100,15 @@ from metrics_tpu_torch.wrappers import BootStrapper, KeyedMetric, MultiTenantCol
 from metrics_tpu_torch import serving  # noqa: F401 E402
 from metrics_tpu_torch.serving import AdmissionQueue, SLOScheduler  # noqa: F401 E402
 from metrics_tpu_torch import resilience  # noqa: F401 E402
-from metrics_tpu_torch.resilience import CircuitBreaker, DeadlineBudget, RetryPolicy  # noqa: F401 E402
+from metrics_tpu_torch.utilities.distributed import Hierarchy  # noqa: F401 E402
+from metrics_tpu_torch import durability  # noqa: F401 E402
+from metrics_tpu_torch.durability import CheckpointManager, TenantSpiller  # noqa: F401 E402
+from metrics_tpu_torch.resilience import (  # noqa: F401 E402
+    CircuitBreaker,
+    DeadlineBudget,
+    FailureDetector,
+    FaultPlan,
+    FaultSpec,
+    Membership,
+    RetryPolicy,
+)

@@ -1,17 +1,19 @@
 """Confusion matrix.
 
 Counterpart of ``metrics_tpu/functional/classification/confusion_matrix.py``.
-Multiclass pairs are always counted by the CUDA kernel
-:func:`~metrics_tpu_torch.kernels.confusion_matrix.confmat_counts_cuda` (the
-JAX package contracts its already-built one-hots on the TPU's matrix unit
-for C <= 128 instead; the counts are the same integers). The multilabel
-per-class 2x2 case stays four boolean-mask sums.
+Multiclass pairs are always counted by the CUDA kernel through
+:func:`~metrics_tpu_torch.kernels.confusion_matrix.confmat_counts_stacked`
+(the JAX package contracts its already-built one-hots on the TPU's matrix
+unit for C <= 128 instead; the counts are the same integers): inside
+``torch.func.vmap`` (a keyed metric's rows, a bootstrap's children) its vmap
+rule counts the whole stack in one launch of the kernel's batched form. The
+multilabel per-class 2x2 case stays four boolean-mask sums.
 """
 from typing import Optional
 
 import torch
 
-from metrics_tpu_torch.kernels.confusion_matrix import confmat_counts_cuda
+from metrics_tpu_torch.kernels.confusion_matrix import confmat_counts_stacked
 from metrics_tpu_torch.utilities.checks import _input_format_classification
 from metrics_tpu_torch.utilities.data import Tensor, _is_traced
 from metrics_tpu_torch.utilities.enums import DataType
@@ -44,9 +46,7 @@ def _confusion_matrix_update(
         hi = int(torch.stack([preds.amax(), target.amax()]).amax().item())
         if hi >= num_classes:
             raise ValueError(f"Detected class label {hi} but `num_classes={num_classes}`")
-    return confmat_counts_cuda(
-        preds.reshape(-1).contiguous(), target.reshape(-1).contiguous(), num_classes, device=preds.device
-    )
+    return confmat_counts_stacked(preds.reshape(-1), target.reshape(-1), num_classes)
 
 
 def _confusion_matrix_compute(confmat: Tensor, normalize: Optional[str] = None) -> Tensor:

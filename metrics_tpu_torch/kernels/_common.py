@@ -99,6 +99,13 @@ def sm_count(device: torch.device) -> int:
     return count
 
 
+def batch_first(x: torch.Tensor, dim: Optional[int], size: int) -> torch.Tensor:
+    """``x`` with its ``torch.func.vmap`` batch axis ``dim`` moved first, or
+    broadcast to ``size`` along a new first axis where it has none (a vmap
+    rule's inputs)."""
+    return x.movedim(dim, 0) if dim is not None else x.expand((size,) + tuple(x.shape))
+
+
 def current_stream_handle(device: torch.device) -> int:
     """The raw handle of PyTorch's current stream on ``device``, without
     building a ``torch.cuda.Stream`` object (which ``current_stream(device)

@@ -10,18 +10,30 @@ Counterpart of ``metrics_tpu/kernels/confusion_matrix.py``. Two formulations:
   ``_confmat_kernel``): an integer-atomic histogram, privatised in shared
   memory for small C. It takes a CUDA tensor to the kernel and a CPU tensor
   to the plain version.
+* :func:`confmat_counts_batched_torch` and :func:`confmat_counts_batched_cuda`,
+  the same for a ``(B, N)`` stack of pair vectors into ``(B, C, C)`` counts.
+  The batched form launches the same kernel once over the stack: each pair
+  counts into cell ``b * C * C + t * C + p`` of one flat histogram, laid out
+  as the kernel's square of side ``ceil(sqrt(B * C * C))``, whose leading
+  ``B * C * C`` cells are the stack's counts.
+* :func:`confmat_counts_stacked`, the seam's call inside ``torch.func.vmap``:
+  its vmap rule hands the whole stack to the batched wrapper in one launch,
+  as ``pallas_call``'s batching rule runs the Pallas kernel over a leading
+  grid axis.
 
-Both DROP an out-of-range pair, as the JAX package's ``confmat_counts_pallas``
+All DROP an out-of-range pair, as the JAX package's ``confmat_counts_pallas``
 does; its ``confmat_counts_xla`` wraps the flat index instead. The metric
-path never reaches that case: ``_confusion_matrix_update`` raises on the
-host first.
+path reaches that case only inside ``torch.func.vmap``, where no value can
+be read: elsewhere ``_confusion_matrix_update`` raises on the host first.
 """
 import ctypes
-from typing import Union
+import math
+from typing import Any, Optional, Tuple, Union
 
 import torch
 
 from metrics_tpu_torch.kernels._common import (
+    batch_first,
     check_launch,
     current_stream_handle,
     kernel_device,
@@ -29,7 +41,7 @@ from metrics_tpu_torch.kernels._common import (
     note_kernel_dispatch,
     require_capability,
 )
-from metrics_tpu_torch.utilities.data import Tensor, check_device
+from metrics_tpu_torch.utilities.data import Tensor, _is_batched, check_device
 
 _OP = "confmat_counts"
 _ARGTYPES = (
@@ -51,6 +63,36 @@ def confmat_counts_torch(preds: Tensor, target: Tensor, num_classes: int) -> Ten
     return bins.to(torch.int32).reshape(num_classes, num_classes)
 
 
+def confmat_counts_batched_torch(preds: Tensor, target: Tensor, num_classes: int) -> Tensor:
+    """``(B, C, C)`` int32 counts of each row of ``(B, N)`` label pairs; out-of-range pairs dropped."""
+    b, cells = preds.shape[0], num_classes * num_classes
+    p, t = preds.long(), target.long()
+    keep = (p >= 0) & (p < num_classes) & (t >= 0) & (t < num_classes)
+    row = torch.arange(b, device=preds.device).unsqueeze(-1) * cells
+    flat = torch.where(keep, row + t * num_classes + p, b * cells)
+    bins = torch.bincount(flat.reshape(-1), minlength=b * cells + 1)[: b * cells]
+    return bins.to(torch.int32).reshape(b, num_classes, num_classes)
+
+
+def _check_pairs(preds: Tensor, target: Tensor, num_classes: int, ndim: int) -> None:
+    if preds.ndim != ndim or preds.shape != target.shape:
+        shape = "(N,)" if ndim == 1 else "(B, N)"
+        raise ValueError(f"expected preds and target of one shape {shape}, got {tuple(preds.shape)} and"
+                         f" {tuple(target.shape)}")
+    if not 1 <= num_classes <= _MAX_CLASSES:
+        raise ValueError(f"{_OP} takes 1 <= num_classes <= {_MAX_CLASSES}, got {num_classes}")
+
+
+def _check_cuda_inputs(preds: Tensor, target: Tensor, device: torch.device) -> None:
+    if device.type != "cuda":
+        raise ValueError(f"{_OP} runs on a CUDA or the CPU device, not on {device}")
+    if preds.dtype != target.dtype or preds.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"{_OP} takes two int32 or two int64 inputs, got {preds.dtype} and {target.dtype}")
+    if not (preds.is_contiguous() and target.is_contiguous()):
+        raise ValueError(f"{_OP} takes contiguous inputs")
+    require_capability(device)
+
+
 def confmat_counts_cuda(
     preds: Tensor, target: Tensor, num_classes: int, device: Union[str, torch.device] = "cuda"
 ) -> Tensor:
@@ -61,22 +103,33 @@ def confmat_counts_cuda(
     """
     device = kernel_device(device)
     check_device(device, preds, target)
-    if preds.ndim != 1 or preds.shape != target.shape:
-        raise ValueError(f"expected preds and target of one shape (N,), got {tuple(preds.shape)} and"
-                         f" {tuple(target.shape)}")
-    if not 1 <= num_classes <= _MAX_CLASSES:
-        raise ValueError(f"{_OP} takes 1 <= num_classes <= {_MAX_CLASSES}, got {num_classes}")
+    _check_pairs(preds, target, num_classes, 1)
     if device.type == "cpu":
         note_kernel_dispatch(_OP, "torch")
         return confmat_counts_torch(preds, target, num_classes)
-    if device.type != "cuda":
-        raise ValueError(f"{_OP} runs on a CUDA or the CPU device, not on {device}")
-    if preds.dtype != target.dtype or preds.dtype not in (torch.int32, torch.int64):
-        raise TypeError(f"{_OP} takes two int32 or two int64 inputs, got {preds.dtype} and {target.dtype}")
-    if not (preds.is_contiguous() and target.is_contiguous()):
-        raise ValueError(f"{_OP} takes contiguous inputs")
-    require_capability(device)
+    _check_cuda_inputs(preds, target, device)
     return _counts_cuda(preds, target, num_classes, device)
+
+
+def confmat_counts_batched_cuda(
+    preds: Tensor, target: Tensor, num_classes: int, device: Union[str, torch.device] = "cuda"
+) -> Tensor:
+    """``(B, C, C)`` int32 counts of each row of a ``(B, N)`` stack of
+    int32/int64 label pairs lying on ``device``.
+
+    On a CUDA device the kernel counts the whole stack in one launch (one a
+    chunk of rows where ``B * C * C`` passes the kernel's int32 indexing);
+    on the CPU the plain version does. Raises on inputs the kernel does not
+    take.
+    """
+    device = kernel_device(device)
+    check_device(device, preds, target)
+    _check_pairs(preds, target, num_classes, 2)
+    if device.type == "cpu":
+        note_kernel_dispatch(_OP, "torch")
+        return confmat_counts_batched_torch(preds, target, num_classes)
+    _check_cuda_inputs(preds, target, device)
+    return _batched_counts_cuda(preds, target, num_classes, device)
 
 
 def _counts_cuda(preds: Tensor, target: Tensor, num_classes: int, device: torch.device) -> Tensor:
@@ -91,3 +144,62 @@ def _counts_cuda(preds: Tensor, target: Tensor, num_classes: int, device: torch.
         check_launch(_OP, err)
         note_kernel_dispatch(_OP, "cuda")
     return out
+
+
+def _batched_counts_cuda(preds: Tensor, target: Tensor, num_classes: int, device: torch.device) -> Tensor:
+    """The batched form of :func:`_counts_cuda`: each pair's cell of the
+    stack's flat ``(B, C, C)`` histogram is split into the row and column of
+    the kernel's square (a dropped pair gets the row ``side``, which the
+    kernel drops), and one launch counts a chunk of rows into the square,
+    whose leading cells are the chunk's counts."""
+    b, n = preds.shape
+    cells = num_classes * num_classes
+    if not (b and n):
+        return torch.zeros((b, num_classes, num_classes), dtype=torch.int32, device=device)
+    chunk = _MAX_CLASSES * _MAX_CLASSES // cells
+    p, t = preds.long(), target.long()
+    keep = (p >= 0) & (p < num_classes) & (t >= 0) & (t < num_classes)
+    flat = t * num_classes + p
+    parts = []
+    for lo in range(0, b, chunk):
+        rows = min(b, lo + chunk) - lo
+        side = math.isqrt(rows * cells - 1) + 1
+        cell = torch.arange(rows, device=device).unsqueeze(-1) * cells + flat[lo:lo + rows]
+        sq_t = torch.where(keep[lo:lo + rows], cell // side, side).reshape(-1)
+        square = _counts_cuda((cell % side).reshape(-1), sq_t, side, device)
+        parts.append(square.reshape(-1)[: rows * cells].reshape(rows, num_classes, num_classes))
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+class _StackedConfmat(torch.autograd.Function):
+    """B2 for inputs batched by ``torch.func.vmap``: the vmap rule counts the
+    whole ``(B, N)`` stack (the batch axes of nested vmaps flattened into
+    one) in one launch, where the transform would otherwise take the plain
+    ops one batch at a time."""
+
+    @staticmethod
+    def forward(preds: Tensor, target: Tensor, num_classes: int) -> Tensor:
+        return confmat_counts_stacked(preds, target, num_classes)
+
+    @staticmethod
+    def setup_context(ctx: Any, inputs: Any, output: Any) -> None:
+        pass  # integer counts: nothing to differentiate
+
+    @staticmethod
+    def vmap(info: Any, in_dims: Tuple[Optional[int], ...], preds: Tensor, target: Tensor,
+             num_classes: int) -> Tuple[Tensor, int]:
+        preds, target = (batch_first(x, d, info.batch_size) for x, d in zip((preds, target), in_dims))
+        lead, n = tuple(preds.shape[:-1]), preds.shape[-1]
+        counts = confmat_counts_stacked(preds.reshape(-1, n), target.reshape(-1, n), num_classes)
+        return counts.reshape(lead + (num_classes, num_classes)), 0
+
+
+def confmat_counts_stacked(preds: Tensor, target: Tensor, num_classes: int) -> Tensor:
+    """Counts of ``(N,)`` label pairs, or of each row of a ``(B, N)`` stack,
+    on the inputs' device. Inside ``torch.func.vmap`` the vmap rule of
+    :class:`_StackedConfmat` takes the whole batch to one launch of
+    :func:`confmat_counts_batched_cuda`."""
+    if _is_batched(preds, target):
+        return _StackedConfmat.apply(preds, target, num_classes)
+    wrapper = confmat_counts_cuda if preds.ndim == 1 else confmat_counts_batched_cuda
+    return wrapper(preds.contiguous(), target.contiguous(), num_classes, device=preds.device)

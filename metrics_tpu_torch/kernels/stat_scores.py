@@ -23,6 +23,7 @@ from typing import Any, Optional, Tuple, Union
 import torch
 
 from metrics_tpu_torch.kernels._common import (
+    batch_first,
     check_launch,
     current_stream_handle,
     kernel_device,
@@ -114,12 +115,6 @@ def _batched_counts_cuda(preds: Tensor, target: Tensor,
     return out[0], out[1], out[2], out[3]
 
 
-def _batch_first(x: Tensor, dim: Optional[int], size: int) -> Tensor:
-    """``x`` with its vmap batch axis ``dim`` moved first, or broadcast to
-    ``size`` along a new first axis where it has none."""
-    return x.movedim(dim, 0) if dim is not None else x.expand((size,) + tuple(x.shape))
-
-
 class _StackedCounts(torch.autograd.Function):
     """B1 for inputs batched by ``torch.func.vmap``: the vmap rule launches
     the kernel once over the whole ``(B, N, C)`` stack (the batch axes of
@@ -137,7 +132,7 @@ class _StackedCounts(torch.autograd.Function):
     @staticmethod
     def vmap(info: Any, in_dims: Tuple[Optional[int], Optional[int]], preds: Tensor,
              target: Tensor) -> Tuple[Tuple[Tensor, ...], Tuple[int, ...]]:
-        preds, target = (_batch_first(x, d, info.batch_size) for x, d in zip((preds, target), in_dims))
+        preds, target = (batch_first(x, d, info.batch_size) for x, d in zip((preds, target), in_dims))
         lead, tail = tuple(preds.shape[:-2]), tuple(preds.shape[-2:])
         counts = stat_scores_counts_stacked(preds.reshape((-1,) + tail), target.reshape((-1,) + tail))
         return tuple(x.reshape(lead + tuple(x.shape[-1:])) for x in counts), (0, 0, 0, 0)

@@ -51,9 +51,6 @@ whether telemetry is on or off. Typical scrape::
     snap = observability.snapshot()           # JSON-serializable dict
     text = observability.render_prometheus()  # Prometheus text format
     observability.timeline.export("metrics-timeline.json")
-
-The JAX package's durability section comes with the durability plane
-(ROADMAP queue A item 14).
 """
 from metrics_tpu_torch.observability import timeline, tracing  # noqa: F401
 from metrics_tpu_torch.observability.aggregate import (  # noqa: F401
@@ -145,7 +142,7 @@ def reset() -> None:
     events, histograms (window rings included), collective spans, SLO
     declarations and watchdog state, profiling tallies, memory-ledger
     high-waters and watermarks, health records, and the async engine's,
-    serving plane's and resilience plane's counters; enablement, the health
+    serving, durability and resilience planes' counters; enablement, the health
     policy, the step tag, the profiler's stride, the ledger's tracked owners
     and the kernels' dispatch counters survive. Span-id sequence counters
     and async generations reset too — like any collective, reset on every
@@ -168,6 +165,9 @@ def reset() -> None:
     serving = sys.modules.get("metrics_tpu_torch.serving.telemetry")
     if serving is not None:
         serving.SERVING_STATS.reset()
+    durability = sys.modules.get("metrics_tpu_torch.durability.telemetry")
+    if durability is not None:
+        durability.DURABILITY_STATS.reset()
     resilience = sys.modules.get("metrics_tpu_torch.resilience.telemetry")
     if resilience is not None:
         resilience.RESILIENCE_STATS.reset()

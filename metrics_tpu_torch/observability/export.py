@@ -5,10 +5,8 @@ Counterpart of ``metrics_tpu/observability/export.py`` (``snapshot``,
 (counters, timers, info blobs, live state memory), ``retrace``, ``sync``,
 ``events``, ``health``, ``histograms``, ``tracing`` (with the published
 straggler report), ``async_sync``, ``serving``, ``kernels`` (dispatch counts
-per op and path), ``resilience``, ``slo``, ``profiling`` and ``memory``. The
-JAX package's ``durability`` section comes with the durability plane
-(ROADMAP queue A item 14); until then it is absent, and a renderer given the
-JAX package's layout renders every other section in the same text.
+per op and path), ``durability``, ``resilience``, ``slo``, ``profiling`` and
+``memory``.
 :func:`render_prometheus` gives the Prometheus text exposition format: every
 series carries ``# HELP`` / ``# TYPE`` metadata, histograms render as
 ``_bucket``/``_sum``/``_count``, and ``aggregated=True`` renders a fleet-wide
@@ -125,6 +123,27 @@ _HELP: Dict[str, str] = {
     "serving_read_staleness_seconds": "Cache-generation age observed by scheduler reads (0 for fresh hits).",
     "serving_flush_seconds": "One coalesced keyed dispatch's wall time.",
     "serving_queue_depth": "Rows resident at flush time (log2 count histogram).",
+    "durability_saves_total": "Checkpoint snapshots written (full + delta).",
+    "durability_delta_saves_total": "Delta checkpoints (only dirty tenants stamped).",
+    "durability_save_errors_total": "Snapshot writes that failed (crash/IO) before completing.",
+    "durability_restores_total": "Checkpoint chains restored.",
+    "durability_restore_errors_total": "Restores that found no complete snapshot.",
+    "durability_bytes_written_total": "Checkpoint payload bytes written (post-encoding).",
+    "durability_bytes_read_total": "Checkpoint payload bytes read at restore.",
+    "durability_tenants_stamped_total": "Tenant rows written by delta checkpoints (the O(k) evidence).",
+    "durability_evictions_total": "Tenants spilled to host memory (cold-tenant eviction).",
+    "durability_fault_backs_total": "Spilled tenants faulted back to the device.",
+    "durability_grows_total": "Elastic tenant-axis grows (pow2-padded capacity).",
+    "durability_compactions_total": "Elastic tenant-axis compactions.",
+    "durability_spillers": "Live tenant spillers in the durability plane.",
+    "durability_spilled_tenants": "Tenants currently spilled to host memory.",
+    "durability_resident_tenants": "Active tenants currently device-resident.",
+    "durability_spilled_bytes": "Host bytes held by spilled tenant rows.",
+    "durability_spilled_high_water": "Peak spilled-tenant count observed.",
+    "durability_save_seconds": "One checkpoint snapshot write's wall time.",
+    "durability_restore_seconds": "One checkpoint chain restore's wall time.",
+    "durability_faultback_seconds": "One spill fault-back cohort's wall time.",
+    "durability_auto_saves_total": "Background auto-save policy triggers (interval/dirty-threshold).",
     "resilience_faults_injected_total": "Faults fired by the installed FaultPlan (all seams).",
     "resilience_faults_by_seam_total": "Injected faults split by (seam, mode).",
     "resilience_detector_suspects_total": "Peers the phi-accrual detector promoted to failed.",
@@ -147,6 +166,10 @@ _SERVING_FIELDS = (
     "submitted_rows", "admitted_rows", "shed_rows", "dispatched_rows", "flushes", "dispatch_errors", "reads",
     "cache_hits", "cache_misses", "stale_serves", "tenant_cache_hits", "refreshes", "coalesced_refreshes",
     "generation_bumps",
+)
+_DURABILITY_FIELDS = (
+    "saves", "delta_saves", "auto_saves", "save_errors", "restores", "restore_errors", "bytes_written", "bytes_read",
+    "tenants_stamped", "evictions", "fault_backs", "grows", "compactions",
 )
 _RESILIENCE_FIELDS = (
     "faults_injected", "detector_suspects", "peer_failures", "peer_rejoins", "epoch_transitions", "policy_retries",
@@ -219,6 +242,7 @@ def snapshot(include_timers: bool = True) -> Dict[str, Any]:
     for section, module in (
         ("async_sync", "metrics_tpu_torch.utilities.async_sync"),
         ("serving", "metrics_tpu_torch.serving.telemetry"),
+        ("durability", "metrics_tpu_torch.durability.telemetry"),
         ("resilience", "metrics_tpu_torch.resilience.telemetry"),
     ):
         loaded = sys.modules.get(module)
@@ -352,7 +376,7 @@ def _render_sync(snap: Dict[str, Any], base: Dict[str, str], out: _Renderer) -> 
 
 
 def _render_planes(snap: Dict[str, Any], base: Dict[str, str], out: _Renderer) -> None:
-    """The ``async_sync``, ``serving``, ``resilience``, ``slo``,
+    """The ``async_sync``, ``serving``, ``durability``, ``resilience``, ``slo``,
     ``profiling`` and ``memory`` families under the JAX package's series
     names."""
     async_sync = snap.get("async_sync", {})
@@ -373,6 +397,17 @@ def _render_planes(snap: Dict[str, Any], base: Dict[str, str], out: _Renderer) -
             out.emit("serving_shed_by_reason_total", {**base, "reason": reason}, n, "counter")
         for trigger, n in sorted(serving.get("flushes_by_trigger", {}).items()):
             out.emit("serving_flushes_by_trigger_total", {**base, "trigger": trigger}, n, "counter")
+    durability = snap.get("durability", {})
+    if durability:
+        # checkpoint/spill/elastic outcomes are counters, spill occupancy
+        # gauges (the save/restore/fault-back histograms ride the
+        # histograms section)
+        for field in _DURABILITY_FIELDS:
+            if field in durability:
+                out.emit(f"durability_{field}_total", base, durability[field], "counter")
+        for gauge in ("spillers", "spilled_tenants", "resident_tenants", "spilled_bytes", "spilled_high_water"):
+            if gauge in durability:
+                out.emit(f"durability_{gauge}", base, durability[gauge])
     resilience = snap.get("resilience", {})
     if resilience:
         for field in _RESILIENCE_FIELDS:

@@ -12,12 +12,14 @@ re-noted at the seams that already invalidate compiled programs, because
 those are the only places the byte total can change:
 
 * ``MetricCollection.add_metrics`` (new bundles appear),
-* ``MultiTenantCollection.build`` (the stacked bundles are allocated).
+* ``MultiTenantCollection.build`` (the stacked bundles are allocated),
+* ``KeyedMetric.grow``/``compact`` and ``MultiTenantCollection.grow``/
+  ``compact`` (the tenant axis changes capacity),
+* a checkpoint ``restore`` (whole bundles are replaced),
 
-The JAX package's other seams (``KeyedMetric.grow``/``compact``, the
-``TenantSpiller``'s evict and fault-back, checkpoint ``restore``) come
-with the durability plane (ROADMAP queue A item 14): :meth:`MemoryLedger.note_spilled`
-is here and has no caller yet.
+and the ``TenantSpiller``'s evict and fault-back call
+:meth:`MemoryLedger.note_spilled` (the host-spilled byte gauge; the device
+bytes stay as they are, since rows reset in place).
 
 On top of the per-owner gauge the ledger keeps an incremental
 ``tracked_bytes`` total with high-water tracking, a bounded sample ring

@@ -32,9 +32,9 @@ The fleet half (``tracing.py:323-646``):
   for the slowest peer and the transfer; a process that arrives last in a
   persistent fraction of collectives is flagged. The published report joins
   ``summary()["straggler"]`` and the ``metrics_tpu_straggler*`` Prometheus
-  family, and the async engine treats flagged peers as degraded. (The JAX
-  package also feeds its failure detector here; that comes with the
-  resilience plane, ROADMAP queue A item 14.)
+  family, the async engine treats flagged peers as degraded, and each
+  flagged process takes one strike in the resilience plane's failure
+  detector (:func:`~metrics_tpu_torch.resilience.detector.note_straggler_report`).
 
 Recording a span is a host clock read plus a bounded append; the times are
 host times (under NCCL a payload round returns once enqueued).
@@ -588,6 +588,15 @@ def straggler_report(
                     lag_p95_s=entry["lag_p95_s"],
                     collectives=collectives,
                 )
+        if flagged:
+            # one strike of evidence each in the failure detector (guarded:
+            # the detector must never break a report)
+            try:
+                from metrics_tpu_torch.resilience.detector import note_straggler_report
+
+                note_straggler_report(flagged)
+            except Exception:  # pragma: no cover - diagnostics only
+                pass
     return report
 
 

@@ -1,13 +1,13 @@
 """The ``resilience.*`` telemetry family: evidence for the robustness plane.
 
 Counterpart of ``metrics_tpu/resilience/telemetry.py``. One process-global
-:class:`ResilienceStats` ledger records every policy decision (retries
-spent, deadline exhaustions, circuit-breaker opens and short-circuits) and
-carries the JAX package's slots for injected faults, detector verdicts and
-membership transitions, which stay at zero until fault injection, the
-detector and the membership epoch are ported (ROADMAP queue A item 14). The
-ledger surfaces as ``observability.snapshot()["resilience"]`` (``{}`` until
-first touched) and the ``metrics_tpu_resilience_*`` Prometheus series.
+:class:`ResilienceStats` ledger records every injected fault (by seam and
+mode), every failure-detector verdict, every membership epoch transition
+(failures and rejoins apart) and every policy decision (retries spent,
+deadline exhaustions, circuit-breaker opens and short-circuits). The ledger
+surfaces as ``observability.snapshot()["resilience"]`` (``{}`` until first
+touched), the ``metrics_tpu_resilience_*`` Prometheus series and one
+``resilience`` timeline event per fault and per transition.
 
 Counting sits behind the lock-free ``TELEMETRY.enabled`` gate, but for
 membership transitions, which are always counted.

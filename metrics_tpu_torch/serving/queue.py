@@ -45,8 +45,10 @@ The sampled dispatch profiler (``observability/profiling.py``) brackets the
 flush-side work of each flush (``"serving_flush"``) and each staged
 cohort's fill and copy (``"serving_stage"``), as the reference does
 (``queue.py:587,651,725,780,958``). ``quarantine="auto"`` follows the health
-policy: it scans whenever ``set_health_policy`` is not ``"off"``. Not ported
-yet: the fault seam ``serving.dispatch`` (ROADMAP queue A item 14).
+policy: it scans whenever ``set_health_policy`` is not ``"off"``. Each
+dispatch consults the resilience plane's ``serving.dispatch`` fault seam
+first (``queue.py:640,962``): an injected error lands in the flush's exact
+accounting as any failed dispatch does.
 """
 import inspect
 import threading
@@ -62,6 +64,7 @@ from metrics_tpu_torch.observability.health import get_health_policy
 from metrics_tpu_torch.observability.profiling import PROFILER
 from metrics_tpu_torch.observability.registry import TELEMETRY
 from metrics_tpu_torch.observability.tracing import TRACER
+from metrics_tpu_torch.resilience.faults import maybe_fault
 from metrics_tpu_torch.serving.policy import AdmissionPolicy, resolve_policy
 from metrics_tpu_torch.serving.staging import (
     StagedCohort,
@@ -521,6 +524,7 @@ class AdmissionQueue:
                             ids = np.concatenate([ids, np.full(pad, -1, ids.dtype)])
                             cols = [np.concatenate([c, np.zeros((pad,) + c.shape[1:], c.dtype)]) for c in cols]
                     try:
+                        maybe_fault("serving.dispatch", rows=len(rows))
                         host = [ids] + cols
                         staged = [as_staged(h, d) for h, d in zip(host, self._twins(host))]
                         self._target(*staged)
@@ -804,6 +808,7 @@ class AdmissionQueue:
                 if rows_n:
                     prof = PROFILER.begin("serving_flush", self.device)
                     try:
+                        maybe_fault("serving.dispatch", rows=rows_n)
                         self._dispatch_staged(cohort)
                         if self.breaker is not None:
                             self.breaker.record_success()

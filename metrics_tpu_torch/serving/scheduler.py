@@ -27,9 +27,16 @@ owns both and arbitrates by the **staleness SLO**:
 
 A read selects its tenants on the device the values lie on and copies the
 selection to the host (one copy per member); it never reads a whole tensor
-off the card to index it. The membership epoch of the JAX package's
-resilience plane (a cache-invalidation edge) is not ported yet (ROADMAP
-queue A item 14), so cache entries carry epoch 0.
+off the card to index it.
+
+The resilience plane's membership epoch is a cache-invalidation edge like a
+write generation (``scheduler.py:59-66,253-260``): each cache entry carries
+the epoch it computed under, and a read under another epoch treats it as
+expired. The per-tenant generation ledger is pruned of tenants past the
+metric's current count after an elastic shrink
+(:meth:`SLOScheduler.prune_tenant_generations`), and it is the checkpoint
+plane's preferred delta dirty-set source
+(:meth:`SLOScheduler.tenant_generations`).
 """
 import copy
 import threading
@@ -47,6 +54,15 @@ from metrics_tpu_torch.serving.telemetry import SERVING_STATS, observe_read_stal
 from metrics_tpu_torch.utilities.async_sync import get_engine
 
 __all__ = ["SLOScheduler"]
+
+
+
+def _membership_epoch() -> int:
+    """The resilience plane's current membership epoch (0 while idle)."""
+    from metrics_tpu_torch.resilience.membership import current_epoch
+
+    return current_epoch()
+
 
 #: default read staleness budget (seconds)
 DEFAULT_MAX_STALENESS_S = 1.0
@@ -98,6 +114,8 @@ class SLOScheduler:
         self._generation = 0
         #: tenant id -> generation of its last dispatched write
         self._tenant_gen: Dict[int, int] = {}
+        #: the metric's tenant count the ledger was last pruned against
+        self._pruned_for_tenants: Optional[int] = getattr(metric, "num_tenants", None)
         #: {"generation", "values", "at", "epoch", "span"}: the result cache
         self._cache: Optional[Dict[str, Any]] = None
         self._refresh_future: Optional[Any] = None
@@ -124,9 +142,32 @@ class SLOScheduler:
             for t in touched.tolist():
                 self._tenant_gen[t] = self._generation
         SERVING_STATS.inc("generation_bumps")
+        self.prune_tenant_generations()
+
+    def prune_tenant_generations(self) -> int:
+        """Drop ledger entries of tenants past the metric's current tenant
+        count (``scheduler.py:152``); returns the entries dropped. It runs
+        after every flush but works only when the count changed since the
+        last prune (an elastic shrink), so an entry of a compacted tenant can
+        neither leak nor mark a later tenant reusing the id as written."""
+        n = getattr(self._metric, "num_tenants", None)
+        if n is None:
+            return 0
+        with self._lock:
+            if n == self._pruned_for_tenants:
+                return 0
+            stale = [t for t in self._tenant_gen if t >= n]
+            for t in stale:
+                del self._tenant_gen[t]
+            self._pruned_for_tenants = n
+        if stale and TELEMETRY.enabled:
+            TELEMETRY.inc(self.telemetry_key, "tenant_generations_pruned", len(stale))
+        return len(stale)
 
     def tenant_generations(self) -> Dict[int, int]:
-        """One consistent copy of the per-tenant write-generation ledger."""
+        """One consistent copy of the per-tenant write-generation ledger
+        (pruned first): the checkpoint plane's delta dirty-set source."""
+        self.prune_tenant_generations()
         with self._lock:
             return dict(self._tenant_gen)
 
@@ -178,8 +219,12 @@ class SLOScheduler:
         budget = self.max_staleness_s if max_staleness_s is None else float(max_staleness_s)
         now = time.monotonic()
         ids = None if tenant_ids is None else np.asarray(tenant_ids).reshape(-1)
+        # a value computed under an older membership epoch's peer set expires
+        epoch = _membership_epoch()
         with self._lock:
             cache = self._cache
+            if cache is not None and cache.get("epoch", 0) != epoch:
+                cache = None
             generation = self._generation
             tenant_scoped_fresh = (
                 cache is not None
@@ -281,7 +326,8 @@ class SLOScheduler:
         flush_span = self.queue.last_dispatch_span()
         with self._lock:
             if self._cache is None or self._cache["generation"] <= generation:
-                self._cache = {"generation": generation, "values": values, "at": time.monotonic(), "epoch": 0,
+                self._cache = {"generation": generation, "values": values, "at": time.monotonic(),
+                               "epoch": _membership_epoch(),
                                "span": flush_span}
 
     # ------------------------------------------------------------------
@@ -301,7 +347,7 @@ class SLOScheduler:
                 "tenant_generations_tracked": len(self._tenant_gen),
                 "max_staleness_s": self.max_staleness_s,
                 "on_degraded": self.on_degraded,
-                "membership_epoch": 0,
+                "membership_epoch": _membership_epoch(),
                 "cache_epoch": cache.get("epoch", 0) if cache else None,
             }
         out["queue"] = self.queue.stats()

@@ -34,7 +34,7 @@ class Transport:
         leaf becomes the list of the members' tensors in ascending rank order."""
         from metrics_tpu_torch.utilities.distributed import _gather_pytrees_impl
 
-        return _gather_pytrees_impl(trees, group, participants=self.participants)
+        return _gather_pytrees_impl(trees, group, participants=self.participants, label=self.name)
 
     def gather_array(self, result: Any, group: Optional[Any] = None) -> List[Any]:
         """Per-tensor form of :meth:`gather_pytrees` (the ``gather_all_tensors`` contract)."""

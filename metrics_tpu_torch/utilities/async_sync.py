@@ -19,28 +19,28 @@ thread:
   exceeds ``round_timeout_s``: ``"retry"`` (bounded exponential backoff
   through :class:`~metrics_tpu_torch.resilience.policies.RetryPolicy`),
   ``"stale"`` (serve the last completed generation, ``future.stale=True``),
-  ``"quorum"`` (retries like ``"retry"`` here).
+  ``"quorum"`` (with degraded peers, the round narrowed to the healthy
+  subgroup; a failed round retries like ``"retry"``).
 * **Generation counter.** Every submission under one key gets the next
   generation; the engine keeps the latest completed ``(generation, value)``
   per key: what the stale policy serves and what keeps a late round from
   overwriting a newer result.
 
-**Degraded peers** (``async_sync.py:156-168,411-420``). Before every attempt
-the engine asks which peers are degraded: the processes the latest
+**Degraded peers** (``async_sync.py:156-197,366-456``). Before every
+attempt the engine asks which peers are degraded: the processes the latest
 published straggler report flags
-(:func:`~metrics_tpu_torch.observability.tracing.degraded_processes`). A
-round started with degraded peers counts under ``degraded_rounds``, and the
-``"stale"`` policy then serves the last completed generation without
-contacting them.
-
-What the port does not have yet (ROADMAP queue A item 14): the resilience
-plane's membership epoch (the JAX engine also treats peers the epoch
-excludes as dead), the ``"quorum"`` round narrowed to the healthy subgroup
-through transport overrides (here ``"quorum"`` retries like ``"retry"`` and
-``quorum_syncs`` stays 0), the ``"dcn"`` gather label (the engine's gathers
-count under the inline ``"gather"`` label), the failure detector's feed and
-the ``async.attempt`` fault seam. The membership epoch on every event is 0.
-The policies still act on every round that raises or times out.
+(:func:`~metrics_tpu_torch.observability.tracing.degraded_processes`), with
+the peers the resilience plane's membership epoch excludes (dead until an
+explicit rejoin). A round started with degraded peers counts under
+``degraded_rounds``; the ``"stale"`` policy then serves the last completed
+generation without contacting them, and ``"quorum"`` runs the round over
+the healthy subgroup (``quorum_syncs``): the active transport's
+:meth:`~metrics_tpu_torch.transport.Transport.subgroup`, whose rounds span
+only those ranks when a subgroup channel is registered, under
+:class:`~metrics_tpu_torch.utilities.distributed.transport_overrides`
+narrowing the decode. Every attempt consults the ``async.attempt`` fault
+seam, runs its gathers under the ``"dcn"`` label, and feeds the failure
+detector its outcome; every event carries the membership epoch.
 
 Collective discipline holds across processes as for ``compute()``: every
 process submits the same ``compute_async`` calls in the same order, which
@@ -55,6 +55,9 @@ from typing import Any, Callable, Dict, List, Optional
 from metrics_tpu_torch.observability.events import EVENTS
 from metrics_tpu_torch.observability.registry import TELEMETRY
 from metrics_tpu_torch.observability.tracing import degraded_processes
+from metrics_tpu_torch.resilience.detector import note_round_outcome
+from metrics_tpu_torch.resilience.faults import maybe_fault
+from metrics_tpu_torch.resilience.membership import current_epoch, dead_processes
 from metrics_tpu_torch.resilience.policies import RetryPolicy, retry_policy_for
 
 #: default bounded-backoff parameters of the "retry" policy
@@ -75,11 +78,33 @@ class SyncTimeout(AsyncSyncError):
 
 
 def _degraded() -> List[int]:
-    """Peers the engine treats as degraded before an attempt: those the
-    latest published straggler report flags (``async_sync.py:156``). The
-    JAX package adds the membership epoch's dead peers (ROADMAP queue A
-    item 14)."""
-    return degraded_processes()
+    """Peers the engine treats as degraded before an attempt
+    (``async_sync.py:156``): those the latest published straggler report
+    flags, and those the membership epoch excludes (the hint can narrow the
+    healthy set further, never resurrect a dead peer)."""
+    return sorted({int(p) for p in degraded_processes()} | {int(p) for p in dead_processes()})
+
+
+def _all_processes() -> List[int]:
+    from metrics_tpu_torch.utilities.distributed import world_size
+
+    return list(range(world_size()))
+
+
+def _healthy_subgroup(degraded: List[int]) -> List[int]:
+    """The world without ``degraded``; never empty."""
+    everyone = _all_processes()
+    healthy = [p for p in everyone if p not in set(degraded)]
+    return healthy or everyone
+
+
+def _note_round_outcome(peers: List[int], ok: bool) -> None:
+    """Feed the failure detector one round's outcome (guarded: diagnostics
+    must not break a sync)."""
+    try:
+        note_round_outcome(peers, ok)
+    except Exception:  # pragma: no cover - diagnostics only
+        pass
 
 
 class SyncFuture:
@@ -267,17 +292,19 @@ class AsyncSyncEngine:
         helper thread that is abandoned on expiry (a hung round can only be
         orphaned; it works on the job's detached snapshot, so its late
         completion changes nothing the caller sees). The helper inherits
-        the worker's transport."""
+        the worker's transport and transport overrides."""
         if timeout is None:
             return thunk()
         from metrics_tpu_torch.transport import get_transport, use_transport
+        from metrics_tpu_torch.utilities.distributed import applied_transport_overrides, current_transport_overrides
 
         box: Dict[str, Any] = {}
         transport = get_transport()
+        overrides = current_transport_overrides()
 
         def run() -> None:
             try:
-                with use_transport(transport):
+                with use_transport(transport), applied_transport_overrides(overrides):
                     box["value"] = thunk()
             except BaseException as err:  # noqa: BLE001 - relayed to the policy
                 box["error"] = err
@@ -308,19 +335,37 @@ class AsyncSyncEngine:
         return True
 
     def _run_job(self, job: _Job) -> None:
+        from metrics_tpu_torch.transport import resolve_transport, use_transport
+        from metrics_tpu_torch.utilities.distributed import transport_overrides
+
         future = job.future
         attempt = 0
         while True:
             degraded = _degraded()
+            quorum: Optional[List[int]] = None
             if degraded:
                 with self._lock:
                     self._counters["degraded_rounds"] += 1
                 if job.on_degraded == "stale" and self._serve_stale(job, reason=f"degraded peers {degraded}"):
                     return
+                if job.on_degraded == "quorum":
+                    quorum = _healthy_subgroup(degraded)
             try:
                 future.attempts = attempt + 1
-                value = self._attempt(job.thunk, job.round_timeout_s)
+                maybe_fault("async.attempt", key=future.key, attempt=attempt + 1)
+                if quorum is not None:
+                    with self._lock:
+                        self._counters["quorum_syncs"] += 1
+                    # a true subgroup where the transport can form one; the
+                    # decode narrows either way
+                    with use_transport(resolve_transport().subgroup(quorum)), transport_overrides(
+                            quorum=quorum, transport_label="dcn"):
+                        value = self._attempt(job.thunk, job.round_timeout_s)
+                else:
+                    with transport_overrides(transport_label="dcn"):
+                        value = self._attempt(job.thunk, job.round_timeout_s)
             except BaseException as err:  # noqa: BLE001 - the policy decides
+                _note_round_outcome(degraded, ok=False)
                 reason = f"{type(err).__name__}: {err}"
                 if job.on_degraded == "stale" and self._serve_stale(job, reason=reason):
                     return
@@ -346,13 +391,15 @@ class AsyncSyncEngine:
                 # a late round never overwrites a newer completed generation
                 if prev is None or prev[0] < future.generation:
                     self._last[future.key] = (future.generation, value)
+            # a completed round is a heartbeat of every peer it spanned
+            _note_round_outcome(quorum if quorum is not None else _all_processes(), ok=True)
             future._resolve(value)
-            self._record_event(job, outcome="completed")
+            self._record_event(job, outcome="quorum" if quorum is not None else "completed", quorum=quorum)
             return
 
     def _record_event(self, job: _Job, *, outcome: str, **payload: Any) -> None:
-        """One ``sync`` event per finished job (``membership_epoch`` is 0
-        until the membership epoch is ported)."""
+        """One ``sync`` event per finished job, stamped with the membership
+        epoch."""
         if EVENTS.enabled:
             EVENTS.record(
                 "sync",
@@ -363,7 +410,7 @@ class AsyncSyncEngine:
                 generation=job.future.generation,
                 attempts=job.future.attempts,
                 stale=job.future.stale,
-                membership_epoch=0,
+                membership_epoch=current_epoch(),
                 **{k: v for k, v in payload.items() if v is not None},
             )
 

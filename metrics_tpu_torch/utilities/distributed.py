@@ -5,8 +5,12 @@ the descriptor + payload gather protocol (``_leaf_descriptor`` ``:411``,
 ``_align_leaf`` ``:436``, ``_gather_all_leaves`` ``:490``,
 ``gather_all_arrays`` ``:740``, ``gather_all_pytrees`` ``:782``,
 ``_gather_pytrees_impl`` ``:820``), the eager meaning of the packed sync
-``sync_state_packed`` ``:1152``, and ``reduce`` ``:77``. The JAX package's
-in-graph sync (mesh axes, ``Hierarchy``) has no counterpart here.
+``sync_state_packed`` ``:1152``, and ``reduce`` ``:77``; the thread-scoped
+:class:`transport_overrides` (``:253-330``), the fault seams (``:706-735``)
+and :class:`Hierarchy` (``:163-250``). The JAX package's in-graph sync over
+mesh axes has no counterpart: :class:`Hierarchy` here is two levels of
+``torch.distributed`` process groups, which :func:`sync_state_packed`
+reduces over one after the other.
 
 **The gather protocol.** Every leaf of a whole state bundle crosses the
 processes in ONE descriptor round and at most ONE payload round:
@@ -60,7 +64,9 @@ read; under NCCL the payload round's time is the time to enqueue it (the
 card copies on after it returns), and nothing synchronizes to change that.
 """
 import math
+import threading
 import time
+from contextlib import contextmanager
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -69,7 +75,9 @@ import torch.distributed as dist
 from metrics_tpu_torch.observability.events import EVENTS
 from metrics_tpu_torch.observability.histogram import observe_gather_payload, observe_sync_round_trip
 from metrics_tpu_torch.observability.registry import TELEMETRY
+from metrics_tpu_torch.observability import tracing as _tracing
 from metrics_tpu_torch.observability.tracing import TRACER
+from metrics_tpu_torch.resilience.faults import maybe_fault
 
 Tensor = torch.Tensor
 
@@ -101,6 +109,140 @@ def reduce(to_reduce: Tensor, reduction: str) -> Tensor:
     if reduction == "sum":
         return torch.sum(to_reduce)
     raise ValueError("Reduction parameter unknown.")
+
+
+class Hierarchy:
+    """Two-level process groups for a hierarchical packed sync
+    (``metrics_tpu/utilities/distributed.py:163``).
+
+    ``Hierarchy(node_size)`` splits the world into nodes of ``node_size``
+    consecutive ranks and builds one ``torch.distributed`` group per node
+    (``"intra"``, innermost) and one over the node leaders, each node's
+    first rank (``"inter"``). :func:`sync_state_packed` given a hierarchy
+    reduces each packed bucket within the node, then among the leaders, then
+    broadcasts the result back within the node: each bucket crosses the
+    slow inter-node link once per node instead of once per rank, and the
+    result equals a flat sync over the world (integer and extremal leaves
+    bit for bit, float sums to reassociation). Gathered leaves ("cat",
+    ``None``, callables) sync over :attr:`flat`, the world, as the JAX
+    package lowers per-leaf paths over its flat axis tuple.
+
+    ``new_group`` is itself collective: every rank constructs the same
+    hierarchy, in the same order relative to its other groups. The world
+    size must be a multiple of ``node_size``.
+    """
+
+    __slots__ = ("node_size", "nodes", "levels", "leader", "_intra_groups", "_inter")
+
+    def __init__(self, node_size: int) -> None:
+        if not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError("Hierarchy needs an initialised torch.distributed process group")
+        world = dist.get_world_size()
+        node_size = int(node_size)
+        if node_size < 1 or world % node_size:
+            raise ValueError(f"node_size must divide the world size {world}, got {node_size}")
+        rank = dist.get_rank()
+        self.node_size = node_size
+        self.nodes = world // node_size
+        # every rank builds every group, in one order (new_group is collective)
+        self._intra_groups = [
+            dist.new_group(ranks=list(range(n * node_size, (n + 1) * node_size))) for n in range(self.nodes)
+        ]
+        self._inter = dist.new_group(ranks=[n * node_size for n in range(self.nodes)])
+        node = rank // node_size
+        #: this rank's node leader (global rank)
+        self.leader = node * node_size
+        #: ``((label, group), ...)``, innermost first; ``None`` where this
+        #: rank is not a member (the inter level of a non-leader)
+        self.levels = (("intra", self._intra_groups[node]), ("inter", self._inter if rank == self.leader else None))
+
+    @property
+    def flat(self) -> Any:
+        """The equivalent flat group: the world."""
+        return dist.group.WORLD
+
+    def all_reduce(self, buf: Tensor, op: Any) -> None:
+        """``buf`` reduced in place over the world by ``op``, level by level:
+        within the node, among the leaders, then a broadcast from the leader."""
+        intra, inter = self.levels[0][1], self.levels[1][1]
+        dist.all_reduce(buf, op=op, group=intra)
+        if inter is not None:
+            dist.all_reduce(buf, op=op, group=inter)
+        dist.broadcast(buf, src=self.leader, group=intra)
+
+    def __repr__(self) -> str:
+        return f"Hierarchy(intra={self.node_size} ranks x inter={self.nodes} nodes)"
+
+
+#: thread-scoped overrides of the eager gather (see :class:`transport_overrides`)
+_EAGER_OVERRIDES = threading.local()
+
+
+class transport_overrides:
+    """Thread-scoped overrides of the eager gather, a re-entrant context
+    manager (``metrics_tpu/utilities/distributed.py:257``).
+
+    ``quorum`` narrows the decoded members of every gather this thread
+    issues to those ranks (the async engine's ``on_degraded="quorum"``
+    hook); it never widens a group. ``transport_label`` renames the rounds
+    in the telemetry (the engine's legs count as ``"dcn"``). Overrides nest,
+    one instance may be entered again, each exit restores what its entry
+    found (per thread), and arguments are checked at construction.
+    :func:`current_transport_overrides`/:func:`applied_transport_overrides`
+    carry a snapshot onto helper threads.
+    """
+
+    def __init__(self, *, quorum: Optional[Sequence[int]] = None, transport_label: Optional[str] = None) -> None:
+        self._quorum = sorted({int(i) for i in quorum}) if quorum is not None else None
+        self._label = str(transport_label) if transport_label is not None else None
+        self._saved = threading.local()
+
+    def __enter__(self) -> "transport_overrides":
+        stack = getattr(self._saved, "stack", None)
+        if stack is None:
+            stack = self._saved.stack = []
+        stack.append(current_transport_overrides())
+        if self._quorum is not None:
+            _EAGER_OVERRIDES.quorum = self._quorum
+        if self._label is not None:
+            _EAGER_OVERRIDES.transport_label = self._label
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        _EAGER_OVERRIDES.quorum, _EAGER_OVERRIDES.transport_label = self._saved.stack.pop()
+        return False
+
+
+def current_transport_overrides() -> Tuple[Optional[List[int]], Optional[str]]:
+    """This thread's ``(quorum, transport_label)`` override snapshot."""
+    return getattr(_EAGER_OVERRIDES, "quorum", None), getattr(_EAGER_OVERRIDES, "transport_label", None)
+
+
+@contextmanager
+def applied_transport_overrides(snapshot: Tuple[Optional[List[int]], Optional[str]]):
+    """Install an override snapshot on this thread for the block (the async
+    engine's timeout helper threads inherit the worker's); always restores."""
+    prev = current_transport_overrides()
+    _EAGER_OVERRIDES.quorum, _EAGER_OVERRIDES.transport_label = snapshot
+    try:
+        yield
+    finally:
+        _EAGER_OVERRIDES.quorum, _EAGER_OVERRIDES.transport_label = prev
+
+
+def _subgroup_channel() -> Optional[Callable]:
+    """The registered subgroup channel (``transport/gather.py``), or ``None``."""
+    from metrics_tpu_torch.transport.gather import subgroup_allgather
+
+    return subgroup_allgather()
+
+
+def _consume_subgroup_round(participants: Sequence[int]) -> bool:
+    """Advance the subgroup channel's round counter for a round this process
+    skips while its peers run it (``distributed.py:728``)."""
+    from metrics_tpu_torch.transport.gather import consume_subgroup_round
+
+    return consume_subgroup_round(participants)
 
 
 def distributed_available() -> bool:
@@ -245,18 +387,45 @@ def _gather_all_leaves(
     group: Optional[Any],
     *,
     participants: Optional[Sequence[int]] = None,
+    label: Optional[str] = None,
 ) -> List[List[Tensor]]:
     """Every leaf from every member of ``group``, in ONE descriptor round and
     at most ONE payload round: per leaf, the members' tensors in ascending
     rank order, each on the device of the local leaf.
 
     ``participants`` (a transport's subgroup) narrows the decoded members
-    and never widens them; the rounds still span the group.
+    and never widens them. With a subgroup channel registered
+    (:func:`metrics_tpu_torch.transport.gather.set_subgroup_allgather`) and
+    the rounds over the world, both rounds run among the participants
+    alone, so a dead peer outside them is never contacted; without one the
+    rounds span the group. A thread's :class:`transport_overrides` quorum
+    narrows the decode the same way, and its label names the rounds in the
+    telemetry (else ``label``, else ``"gather"``). The fault seams
+    ``transport.descriptor`` and ``transport.payload`` are consulted before
+    each round.
     """
     observed = TELEMETRY.enabled or EVENTS.enabled
     transport_start = time.perf_counter() if observed else 0.0
     round_group = group if isinstance(group, dist.ProcessGroup) else None
     device = _exchange_device(round_group)
+    quorum, override_label = current_transport_overrides()
+    transport_label = override_label or label or "gather"
+    local_rank = _tracing._process_index()
+    # the global ranks of the slots when a subgroup channel carries the rounds
+    channel_ranks: Optional[List[int]] = None
+    channel = None
+    if participants is not None and round_group is None:
+        world = world_size()
+        want = sorted({int(p) for p in participants if 0 <= int(p) < world})
+        if want and want != list(range(world)):
+            channel = _subgroup_channel()
+            if channel is not None:
+                channel_ranks = want
+
+    def exchange(buf: Tensor) -> Tensor:
+        if channel_ranks is None:
+            return _all_gather(buf, round_group)
+        return channel(buf.cpu(), list(channel_ranks)).to(buf.device)
 
     rows: List[List[int]] = []
     local_error: Optional[str] = None
@@ -268,28 +437,41 @@ def _gather_all_leaves(
     desc_bytes = desc.numel() * desc.element_size()
     if device.type == "cuda":  # from pinned memory the copy does not wait for the card
         desc = desc.pin_memory().to(device, non_blocking=True)
-    # the global rank of each slot of a round over a ProcessGroup handle
-    slot_ranks = dist.get_process_group_ranks(round_group) if round_group is not None else None
+    # the global rank of each slot of a round over a ProcessGroup handle or
+    # a subgroup channel
+    slot_ranks = dist.get_process_group_ranks(round_group) if round_group is not None else channel_ranks
     t_span = d_span = None
     if TRACER.enabled:
-        label = _span_group(group, slot_ranks, participants)
-        t_span = TRACER.begin("gather", group=label, bucket="transport")
-        d_span = TRACER.begin("gather", group=label, bucket="descriptor")
+        if channel_ranks is None:
+            span_label = _span_group(group, slot_ranks, participants)
+        else:  # the channel's participants, as every one of them labels them
+            span_label = ",".join(str(r) for r in channel_ranks)
+        t_span = TRACER.begin("gather", group=span_label, bucket="transport")
+        d_span = TRACER.begin("gather", group=span_label, bucket="descriptor")
+    maybe_fault("transport.descriptor", process=local_rank, leaves=len(leaves))
     desc_start = time.perf_counter() if observed else 0.0
-    all_desc = _all_gather(desc, round_group).cpu().tolist()  # the sync's one host read
+    all_desc = exchange(desc).cpu().tolist()  # the sync's one host read
     desc_dur = time.perf_counter() - desc_start if observed else 0.0
     nprocs = len(all_desc)
     if d_span is not None:
         TRACER.end(d_span, leaves=len(leaves), bytes=desc_bytes)
 
     arg_error: Optional[Exception] = None
+    resolve_over = nprocs if channel_ranks is None else world_size()
     try:
-        members = _resolve_group(group, nprocs)
+        members = _resolve_group(group, resolve_over)
     except (TypeError, ValueError) as err:
-        arg_error, members = err, list(range(nprocs))
-    if participants is not None:
+        arg_error, members = err, list(range(resolve_over))
+    if channel_ranks is not None:
+        # decode in slots: the participants' positions in the channel's rounds
+        slot_of = {r: i for i, r in enumerate(channel_ranks)}
+        members = [slot_of[m] for m in members if m in slot_of] or list(range(nprocs))
+    elif participants is not None:
         wanted = set(participants)
         members = [m for m in members if m in wanted] or members
+    if quorum is not None:
+        healthy = set(quorum)
+        members = [m for m in members if _ranks([m], slot_ranks)[0] in healthy] or members
 
     aligned = [_align_leaf([all_desc[i][j] for i in range(nprocs)], members) for j in range(len(leaves))]
     group_error = next((a[3] for a in aligned if a[3] is not None), None)
@@ -305,9 +487,18 @@ def _gather_all_leaves(
             n = _row_count(row) * _GATHER_DTYPES[row[-1]].itemsize
             if n:  # an unalignable leaf's row is empty: it rides as no bytes
                 buf[offset : offset + n].copy_(leaf.reshape(-1).view(torch.uint8))
+        # a raise between the two rounds (an injected payload fault) still
+        # consumes the subgroup channel's round, which the peers run anyway:
+        # a channel whose round counter lags by one desyncs every later round
+        try:
+            maybe_fault("transport.payload", process=local_rank, bytes=max_bytes)
+        except BaseException:
+            if channel_ranks is not None:
+                _consume_subgroup_round(channel_ranks)
+            raise
         p_span = TRACER.begin("gather", group=t_span.group, bucket="payload") if t_span is not None else None
         payload_start = time.perf_counter() if observed else 0.0
-        gathered = _all_gather(buf, round_group)
+        gathered = exchange(buf)
         payload_dur = time.perf_counter() - payload_start if observed else 0.0
         if p_span is not None:
             TRACER.end(p_span, leaves=len(leaves), bytes=nprocs * max_bytes)
@@ -327,6 +518,7 @@ def _gather_all_leaves(
             descriptor_s=desc_dur,
             payload_s=payload_dur,
             span_id=span_id,
+            transport=transport_label,
         )
 
     if arg_error is not None:
@@ -390,6 +582,7 @@ def _record_gather(
     descriptor_s: float,
     payload_s: float,
     span_id: Optional[str],
+    transport: str = "gather",
 ) -> None:
     """One gather into the registry, the histograms and the event log
     (``metrics_tpu/utilities/distributed.py:860-937``). ``bytes_out``/
@@ -411,10 +604,10 @@ def _record_gather(
         world = max(world_size(), nprocs)
         dur = time.perf_counter() - start
         if TELEMETRY.enabled:
-            observe_sync_round_trip(dur, transport="gather")
-            observe_sync_round_trip(descriptor_s, transport="gather_descriptor")
+            observe_sync_round_trip(dur, transport=transport)
+            observe_sync_round_trip(descriptor_s, transport=f"{transport}_descriptor")
             if payload_rounds:
-                observe_sync_round_trip(payload_s, transport="gather_payload")
+                observe_sync_round_trip(payload_s, transport=f"{transport}_payload")
             observe_gather_payload(transport_bytes)
             TELEMETRY.record_gather(
                 bytes_out=bytes_out,
@@ -428,6 +621,7 @@ def _record_gather(
                 leaves=len(rows),
                 descriptor_s=descriptor_s,
                 payload_s=payload_s,
+                transport=transport,
                 participants=participants,
             )
         if EVENTS.enabled:
@@ -438,7 +632,7 @@ def _record_gather(
                 None,
                 dur_s=dur,
                 t_start=start,
-                transport="gather",
+                transport=transport,
                 leaves=len(rows),
                 bytes_out=bytes_out,
                 bytes_in=bytes_in,
@@ -482,13 +676,17 @@ def _tree_refill(tree: Any, leaves: Any) -> Any:
 
 
 def _gather_pytrees_impl(
-    trees: List[Any], group: Optional[Any] = None, *, participants: Optional[Sequence[int]] = None
+    trees: List[Any],
+    group: Optional[Any] = None,
+    *,
+    participants: Optional[Sequence[int]] = None,
+    label: Optional[str] = None,
 ) -> List[Any]:
     """The rounds behind :func:`gather_all_pytrees` when distributed, the
     world-1 identity otherwise."""
     leaves = [torch.as_tensor(leaf) for leaf in _tree_leaves(trees, [])]
     if distributed_available():
-        gathered = _gather_all_leaves(leaves, group, participants=participants)
+        gathered = _gather_all_leaves(leaves, group, participants=participants, label=label)
     else:
         gathered = [[leaf] for leaf in leaves]
     return _tree_refill(list(trees), iter(gathered))
@@ -546,6 +744,10 @@ def sync_state_packed(
       stacked ``(world, ...)``;
     * a callable reduction keeps its own gather and sees the stacked leaf.
 
+    ``process_group`` may be a :class:`Hierarchy`: each bucket's
+    ``all_reduce`` then runs level by level (see :meth:`Hierarchy.all_reduce`)
+    and the gathers over the world.
+
     List states are concatenated first; an empty one contributes the
     protocol's placeholder and stays as it was when every member is empty.
     Integer, extremal and gathered leaves equal the gather path
@@ -559,10 +761,13 @@ def sync_state_packed(
     package counts them), bytes, buckets, and the collectives per leaf
     against those issued (``all_reduce`` calls plus gathers).
     """
+    hierarchy = process_group if isinstance(process_group, Hierarchy) else None
+    if hierarchy is not None:
+        process_group = hierarchy.flat
     if not isinstance(process_group, dist.ProcessGroup):
         raise TypeError(
             "sync_state_packed reduces over a torch.distributed ProcessGroup (e.g."
-            f" torch.distributed.group.WORLD); got {process_group!r}"
+            f" torch.distributed.group.WORLD) or a Hierarchy; got {process_group!r}"
         )
     device = _exchange_device(process_group)
     # where an empty list state's placeholder lives: beside the other states
@@ -609,7 +814,10 @@ def sync_state_packed(
     for (op, dtype), entries in buckets.items():
         buf = torch.cat([v.reshape(-1) for _, v in entries]).to(device)
         span = TRACER.begin("in_graph", group=label, bucket=f"p{op}/{_dtype_name(dtype)}") if TRACER.enabled else None
-        dist.all_reduce(buf, op=ops[op], group=process_group)
+        if hierarchy is not None:
+            hierarchy.all_reduce(buf, ops[op])
+        else:
+            dist.all_reduce(buf, op=ops[op], group=process_group)
         if span is not None:
             TRACER.end(span, leaves=len(entries))
         offset = 0

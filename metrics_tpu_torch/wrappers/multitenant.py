@@ -92,6 +92,19 @@ with telemetry on as off. (The JAX package reads the ids on the host
 instead.) The admission queue's staged host view carries its device twin
 (``device_tensor``): the twin is what the update dispatches, and the host
 view validates the ids without a read.
+
+Elastic capacity and durability (``multitenant.py:697-1040,1337,1603-1650``):
+:meth:`KeyedMetric.grow`/:meth:`KeyedMetric.compact` (and the collection's)
+resize the tenant axis to power-of-two capacities, so the compiled keyed
+update captures once per capacity it passes through. A durability actor
+installs itself as ``_durability_hooks`` (the cold-tenant spiller,
+:mod:`metrics_tpu_torch.durability.spill`): the stateful paths call its
+``before_update``/``after_update`` around each scatter (with the staged host
+view of the ids when there is one, else the id tensor), ``before_read``
+before a compute, ``before_snapshot`` before a copy or a resize and
+``on_resize`` after one; a checkpoint restore calls ``on_restore``. A
+checkpoint trail or a spiller pins the traffic ledger open
+(``_durability_traffic_pin``), so updates feed it with telemetry off.
 """
 import copy
 import threading
@@ -259,6 +272,37 @@ class _TenantTraffic:
             self.rows += counts
             self.last_seen.masked_fill_(counts > 0, stamp)
 
+    def resize(self, new_n: int) -> None:
+        """Resize to ``new_n`` tenants, keeping the overlapping prefix's
+        counts and stamps (``multitenant.py:213``, the elastic grow/compact
+        path); tenants at or past ``new_n`` are dropped as compaction drops
+        their rows. On the device, no read."""
+        new_n = int(new_n)
+        with self._lock:
+            old_rows, old_seen, keep = self.rows, self.last_seen, min(self.n, new_n)
+            self.n = new_n
+            if old_rows is None:
+                return
+            self.rows = old_rows.new_zeros(new_n)
+            self.last_seen = old_seen.new_full((new_n,), float("nan"))
+            self.rows[:keep] = old_rows[:keep]
+            self.last_seen[:keep] = old_seen[:keep]
+
+    def marks(self) -> Optional[Tensor]:
+        """A device copy of the routed-row counts (``None`` when nothing was
+        recorded): the checkpoint plane's write marks, cut without a read."""
+        with self._lock:
+            return None if self.rows is None else self.rows.clone()
+
+    def restore(self, rows: np.ndarray, device: torch.device) -> None:
+        """Install saved routed-row counts (a checkpoint restore); the stamps
+        restart unseen."""
+        with self._lock:
+            self.rows = torch.zeros(self.n, dtype=torch.int64, device=device)
+            k = min(len(rows), self.n)
+            self.rows[:k] = torch.as_tensor(np.asarray(rows[:k], dtype=np.int64), device=device)
+            self.last_seen = torch.full((self.n,), float("nan"), dtype=torch.float64, device=device)
+
     def arrays(self) -> Tuple[Optional[np.ndarray], Optional[np.ndarray]]:
         """One consistent ``(rows, last_seen)`` host copy (``(None, None)``
         when nothing was recorded), read in one transfer."""
@@ -347,6 +391,14 @@ def _serial_lock(obj: Any) -> "threading.RLock":
     return lock
 
 
+def _ledger_fed(obj: Any) -> bool:
+    """Whether an update feeds ``obj``'s traffic ledger: while telemetry is
+    on, or while a durability actor (a checkpoint trail, a spiller) pins the
+    ledger open (``multitenant.py:719-722``): frozen counts would drop
+    tenants from the next delta's dirty set."""
+    return TELEMETRY.enabled or bool(obj.__dict__.get("_durability_traffic_pin"))
+
+
 def _keyed_gate(metric: Metric, what: str = "base_metric") -> None:
     """Raise a descriptive ``ValueError`` when ``metric`` cannot be keyed.
 
@@ -423,7 +475,7 @@ class KeyedMetric(Metric):
         capacity: physical tenant-axis size of the stacked leaves (default:
             exactly ``num_tenants``). Rows in ``[num_tenants, capacity)`` are
             padding: ids validate against ``num_tenants``, and compute slices
-            the padding off.
+            the padding off. :meth:`grow`/:meth:`compact` change both.
         compute_on_step: default ``False`` — per-step per-tenant values are
             rarely wanted and cost a full compute fan-out.
         dist_sync_on_step / process_group / dist_sync_fn / device: the common
@@ -680,13 +732,17 @@ class KeyedMetric(Metric):
         return fn
 
     def _after_keyed_dispatch(self, invalid: Tensor, counts: Tensor) -> None:
-        if TELEMETRY.enabled:
+        if _ledger_fed(self):
             self._traffic.note(counts)
+        if TELEMETRY.enabled:
             TELEMETRY.add_device(self.telemetry_key, "invalid_tenant_ids", invalid)
 
-    def _update_compiled(self, ids: Tensor, args: Tuple, kwargs: Dict) -> None:
+    def _update_compiled(self, ids: Tensor, args: Tuple, kwargs: Dict, hook_ids: Any = None) -> None:
         start = time.perf_counter() if (TELEMETRY.enabled or EVENTS.enabled) else None
+        hooks = self.__dict__.get("_durability_hooks")
         with self._serial_lock():
+            if hooks is not None:
+                hooks.before_update(ids if hook_ids is None else hook_ids)
             self._computed = None
             state = self._get_states()
             donatable = False
@@ -699,6 +755,8 @@ class KeyedMetric(Metric):
                 PROFILER.finish(prof, self.telemetry_key, fn)
             self._set_states(new_state)
             self._update_called = True
+            if hooks is not None:
+                hooks.after_update(ids if hook_ids is None else hook_ids)
         self._after_keyed_dispatch(invalid, counts)
         _note_keyed_compiled(self, fn, start, (ids, *args), kwargs)
 
@@ -728,8 +786,13 @@ class KeyedMetric(Metric):
             self._validate_ids_eager(ids.reshape(-1))
         stacked = tuple(_unstage(a) for a in stacked)
         stacked_kwargs = {k: _unstage(v) for k, v in stacked_kwargs.items()}
+        hooks = self.__dict__.get("_durability_hooks")
         with self._serial_lock():
+            if hooks is not None:
+                hooks.before_update(ids.reshape(-1))
             invalid, counts = self._dispatch_update_many((ids,) + stacked, stacked_kwargs)
+            if hooks is not None:
+                hooks.after_update(ids.reshape(-1))
         self._after_keyed_dispatch(invalid, counts)
 
     def update(self, tenant_ids: Any, *args: Any, **kwargs: Any) -> None:
@@ -751,15 +814,22 @@ class KeyedMetric(Metric):
         kwargs = {k: _unstage(v) for k, v in kwargs.items()}
         if self.__dict__.get("_keyed_compiled"):
             self._check_input_device(args, kwargs)
-            return self._update_compiled(ids, args, kwargs)
+            return self._update_compiled(ids, args, kwargs, host_ids)
         start = time.perf_counter() if (TELEMETRY.enabled or EVENTS.enabled) else None
+        hooks = self.__dict__.get("_durability_hooks")
         with self._serial_lock():
+            if hooks is not None:
+                # spilled tenants named in this batch fault back before the
+                # scatter reads the stacked state
+                hooks.before_update(ids if host_ids is None else host_ids)
             prof = PROFILER.begin("keyed_scatter", self.device)
             new_state, invalid, counts = self._scatter_counted(self._get_states(), ids, args, kwargs)
             if prof is not None:
                 PROFILER.finish(prof, self.telemetry_key)
             self._set_states(new_state)
-        if TELEMETRY.enabled:
+            if hooks is not None:
+                hooks.after_update(ids if host_ids is None else host_ids)
+        if _ledger_fed(self):
             self._traffic.note(counts)
         if start is not None:
             TELEMETRY.add_device(self.telemetry_key, "invalid_tenant_ids", invalid)
@@ -783,7 +853,11 @@ class KeyedMetric(Metric):
         """Per-tenant values: the child's compute fanned out over the tenant
         axis of the (synced) stacked state. Tenants that never received a row
         compute on the default state — typically NaN for ratio metrics.
-        Padding rows past ``num_tenants`` are sliced off."""
+        Padding rows past ``num_tenants`` are sliced off; spilled tenants
+        fault back first (:mod:`metrics_tpu_torch.durability.spill`)."""
+        hooks = self.__dict__.get("_durability_hooks")
+        if hooks is not None:
+            hooks.before_read()
         state = self._visible_state(self._get_states())
         self._child._restore_derived(state)
         return vmap_compute(self._child)(state)
@@ -836,6 +910,94 @@ class KeyedMetric(Metric):
         return report
 
     # ------------------------------------------------------------------
+    # elastic tenant capacity
+    # ------------------------------------------------------------------
+
+    def _resize(self, num_tenants: int, new_capacity: int) -> None:
+        """Re-stack every leaf to ``new_capacity`` rows (logical size
+        ``num_tenants``), keeping the overlapping tenant prefix's
+        accumulation (``multitenant.py:899``). Spilled tenants fault back
+        first.
+
+        A new capacity makes new state tensors, so the compiled keyed update
+        lands on a new key (the state's shapes are part of it) and captures
+        once per capacity; the graphs of earlier capacities stay cached, so a
+        service that grows and compacts captures at most once per power of
+        two it passes through. Within one capacity the rows leaving or
+        entering the logical band are reset to the defaults in place, under
+        the tensors a held graph writes."""
+        num_tenants, new_capacity = int(num_tenants), int(new_capacity)
+        if num_tenants < 1:
+            raise ValueError(f"num_tenants must be >= 1, got {num_tenants}")
+        if new_capacity < num_tenants:
+            raise ValueError(f"capacity ({new_capacity}) must be >= num_tenants ({num_tenants})")
+        hooks = self.__dict__.get("_durability_hooks")
+        with self._serial_lock():
+            if hooks is not None:
+                hooks.before_snapshot()
+            keep = min(self.num_tenants, num_tenants)
+            child_defaults = self._child._defaults
+            if new_capacity != self._capacity:
+                new_state: StateDict = {}
+                for name, stacked in broadcast_stack(dict(child_defaults), new_capacity).items():
+                    leaf = stacked.clone()
+                    leaf[:keep].copy_(getattr(self, name)[:keep])
+                    new_state[name] = leaf
+                    self._defaults[name] = stacked
+                self._set_states(new_state)
+            else:
+                lo, hi = keep, max(self.num_tenants, num_tenants)
+                if hi > lo:
+                    for name, default in child_defaults.items():
+                        getattr(self, name)[lo:hi].copy_(default.expand((hi - lo,) + tuple(default.shape)))
+            self.num_tenants = num_tenants
+            self._capacity = new_capacity
+            self._traffic.resize(num_tenants)
+            self._computed = None
+            self._forward_cache = None
+            if hooks is not None:
+                hooks.on_resize(num_tenants)
+        # outside the serial lock: a pressure callback may evict, which takes it
+        LEDGER.note(self)
+
+    def grow(self, num_tenants: int) -> int:
+        """Grow the logical tenant axis to ``num_tenants`` (a smaller value is
+        a no-op), keeping every tenant's accumulation. The physical capacity
+        pads to the next power of two, so the compiled keyed update captures
+        at most ``log2(max N) + 1`` times. Returns the new capacity."""
+        target = int(num_tenants)
+        if target <= self.num_tenants:
+            return self._capacity
+        new_capacity = max(self._capacity, _pow2_at_least(target))
+        self._resize(target, new_capacity)
+        from metrics_tpu_torch.durability.telemetry import note_resize
+
+        note_resize(self.telemetry_key, "grow", target, new_capacity)
+        return self._capacity
+
+    def compact(self, num_tenants: Optional[int] = None) -> int:
+        """Shrink the tenant axis to ``num_tenants`` (default: the highest
+        tenant that ever received a row, +1, read from the traffic ledger),
+        dropping the tail tenants' accumulation; the capacity becomes the
+        smallest power of two that holds the survivors. Returns it."""
+        if num_tenants is None:
+            rows, _ = self._traffic.arrays()
+            active = np.nonzero(rows)[0] if rows is not None else np.array([], np.int64)
+            num_tenants = int(active[-1]) + 1 if active.size else 1
+        target = int(num_tenants)
+        if target > self.num_tenants:
+            raise ValueError(
+                f"compact target ({target}) exceeds the current tenant count"
+                f" ({self.num_tenants}); use grow() to add tenants"
+            )
+        new_capacity = _pow2_at_least(target)
+        self._resize(target, new_capacity)
+        from metrics_tpu_torch.durability.telemetry import note_resize
+
+        note_resize(self.telemetry_key, "compact", target, new_capacity)
+        return self._capacity
+
+    # ------------------------------------------------------------------
     # lifecycle
     # ------------------------------------------------------------------
 
@@ -869,11 +1031,16 @@ class KeyedMetric(Metric):
         # the middle of one; the lock itself stays with the live instance.
         # The child is copied under the lock: an update binds its states to
         # the vmap's batched tensors, and a copy made after the lock is
-        # released would read them
+        # released would read them. Spilled tenants fault back first; the
+        # spiller and the durability pins stay with the live instance
+        hooks = self.__dict__.get("_durability_hooks")
+        if hooks is not None:
+            hooks.before_snapshot()
         with self._serial_lock():
             state = super().__getstate__()
             state["_child"] = self._child.clone()
-        state.pop("_ingest_lock", None)
+        for k in ("_ingest_lock", "_durability_hooks", "_durability_traffic_pin"):
+            state.pop(k, None)
         return state
 
     def __repr__(self) -> str:
@@ -1083,12 +1250,16 @@ class MultiTenantCollection:
                 return state, False
         return state, True
 
-    def _dispatch_compiled(self, name: str, program: Any, args: Tuple, kwargs: Dict, path: str
-                           ) -> Tuple[Any, CompiledDispatch]:
+    def _dispatch_compiled(self, name: str, program: Any, args: Tuple, kwargs: Dict, path: str,
+                           hook_ids: Any = None) -> Tuple[Any, CompiledDispatch]:
         """One compiled dispatch over every bundle under the serial lock:
-        ``((invalid, counts), fn)``; ``path`` names its profiler bracket."""
+        ``((invalid, counts), fn)``; ``path`` names its profiler bracket and
+        ``hook_ids`` are the ids the durability hooks see."""
         keyed = self._keyed
+        hooks = self.__dict__.get("_durability_hooks")
         with self._serial_lock():
+            if hooks is not None:
+                hooks.before_update(hook_ids)
             state = {owner: km._get_states() for owner, km in keyed.items()}
             donatable = False
             if self._donate:
@@ -1102,10 +1273,12 @@ class MultiTenantCollection:
                 km._set_states(new_state[owner])
                 km._update_called = True
                 km._computed = None
+            if hooks is not None:
+                hooks.after_update(hook_ids)
         return extra, fn
 
     def _after_dispatch(self, invalid: Tensor, counts: Tensor) -> None:
-        if TELEMETRY.enabled:
+        if _ledger_fed(self):
             self._traffic.note(counts)
         TELEMETRY.add_device(self.telemetry_key, "invalid_tenant_ids", invalid)
 
@@ -1146,7 +1319,8 @@ class MultiTenantCollection:
             next(iter(self._keyed.values()))._validate_ids_eager(ids.reshape(-1))
         start = time.perf_counter() if (TELEMETRY.enabled or EVENTS.enabled) else None
         (invalid, counts), fn = self._dispatch_compiled(
-            "_update_many_fn", self._scan_update_many, ((ids,) + stacked, stacked_kwargs), {}, "update_many"
+            "_update_many_fn", self._scan_update_many, ((ids,) + stacked, stacked_kwargs), {}, "update_many",
+            hook_ids=ids.reshape(-1),
         )
         self._after_dispatch(invalid, counts)
         if start is not None:
@@ -1183,7 +1357,8 @@ class MultiTenantCollection:
         start = time.perf_counter() if (TELEMETRY.enabled or EVENTS.enabled) else None
         if self._compiled:
             (invalid, counts), fn = self._dispatch_compiled(
-                "_keyed_update_fn", self._scatter_all, (ids,) + args, kwargs, "keyed_scatter"
+                "_keyed_update_fn", self._scatter_all, (ids,) + args, kwargs, "keyed_scatter",
+                hook_ids=ids if host_ids is None else host_ids,
             )
             self._after_dispatch(invalid, counts)
             if TELEMETRY.enabled:
@@ -1194,7 +1369,11 @@ class MultiTenantCollection:
             _note_keyed_compiled(self, fn, start, (ids, *args), kwargs, members=len(self._collection),
                                  state_bundles=len(keyed))
             return
+        hooks = self.__dict__.get("_durability_hooks")
+        hook_ids = ids if host_ids is None else host_ids
         with self._serial_lock():
+            if hooks is not None:
+                hooks.before_update(hook_ids)
             state = {owner: km._get_states() for owner, km in keyed.items()}
             prof = PROFILER.begin("keyed_scatter", self.device)
             new_state, (invalid, counts) = self._scatter_all(state, ids, *args, **kwargs)
@@ -1204,8 +1383,10 @@ class MultiTenantCollection:
                 km._set_states(new_state[owner])
                 km._update_called = True
                 km._computed = None
+            if hooks is not None:
+                hooks.after_update(hook_ids)
         TELEMETRY.add_device(self.telemetry_key, "invalid_tenant_ids", invalid)
-        if TELEMETRY.enabled:
+        if _ledger_fed(self):
             self._traffic.note(counts)
         if start is not None:
             if TELEMETRY.enabled:
@@ -1231,6 +1412,9 @@ class MultiTenantCollection:
         (its stacked leaves in one descriptor round and one payload round,
         whatever the number of tenants) and fans out to every member's own
         compute, vmapped over the tenant axis."""
+        hooks = self.__dict__.get("_durability_hooks")
+        if hooks is not None:
+            hooks.before_read()
         out: Dict[str, Any] = {}
         keyed = self._require_built()
         for owner, names in self._layout:
@@ -1258,6 +1442,9 @@ class MultiTenantCollection:
             )
         owner = next(o for o, ns in self._layout if metric in ns)
         km = keyed[owner]
+        hooks = self.__dict__.get("_durability_hooks")
+        if hooks is not None:
+            hooks.before_read()
         with km.sync_context(dist_sync_fn=km.dist_sync_fn):
             vals = self._member_values(metric, km._visible_state(km._get_states()))
         if isinstance(vals, dict):
@@ -1311,6 +1498,55 @@ class MultiTenantCollection:
         return report
 
     # ------------------------------------------------------------------
+    # elastic tenant capacity
+    # ------------------------------------------------------------------
+
+    def grow(self, num_tenants: int) -> int:
+        """Grow every bundle's logical tenant axis to ``num_tenants``
+        (``multitenant.py:1603``; see :meth:`KeyedMetric.grow`). Returns the
+        new physical capacity."""
+        target = int(num_tenants)
+        if target <= self.num_tenants:
+            return self._capacity
+        with self._serial_lock():
+            for km in (self._keyed or {}).values():
+                km.grow(target)
+            self.num_tenants = target
+            self._capacity = max(self._capacity, _pow2_at_least(target))
+            self._traffic.resize(target)
+            hooks = self.__dict__.get("_durability_hooks")
+            if hooks is not None:
+                hooks.on_resize(target)
+        LEDGER.note(self)
+        return self._capacity
+
+    def compact(self, num_tenants: Optional[int] = None) -> int:
+        """Compact every bundle's tenant axis (``multitenant.py:1621``; see
+        :meth:`KeyedMetric.compact`); the default target is the highest tenant
+        that ever received a row, +1. Returns the new physical capacity."""
+        if num_tenants is None:
+            rows, _ = self._traffic.arrays()
+            active = np.nonzero(rows)[0] if rows is not None else np.array([], np.int64)
+            num_tenants = int(active[-1]) + 1 if active.size else 1
+        target = int(num_tenants)
+        if target > self.num_tenants:
+            raise ValueError(
+                f"compact target ({target}) exceeds the current tenant count"
+                f" ({self.num_tenants}); use grow() to add tenants"
+            )
+        with self._serial_lock():
+            for km in (self._keyed or {}).values():
+                km.compact(target)
+            self.num_tenants = target
+            self._capacity = _pow2_at_least(target)
+            self._traffic.resize(target)
+            hooks = self.__dict__.get("_durability_hooks")
+            if hooks is not None:
+                hooks.on_resize(target)
+        LEDGER.note(self)
+        return self._capacity
+
+    # ------------------------------------------------------------------
     # container / misc protocol
     # ------------------------------------------------------------------
 
@@ -1324,10 +1560,15 @@ class MultiTenantCollection:
         return len(self._collection)
 
     def __getstate__(self) -> dict:
-        # a copy registers a telemetry key of its own; the lock stays here;
-        # captured graphs never pickle nor copy
+        # a copy registers a telemetry key of its own; the lock, the spiller
+        # and the durability pins stay here (spilled tenants fault back
+        # first); captured graphs never pickle nor copy
+        hooks = self.__dict__.get("_durability_hooks")
+        if hooks is not None:
+            hooks.before_snapshot()
         with self._serial_lock():
-            drop = ("_telemetry_key", "_ingest_lock", "_graph_pool", *_MTC_DISPATCHES)
+            drop = ("_telemetry_key", "_ingest_lock", "_graph_pool", "_durability_hooks", "_durability_traffic_pin",
+                    *_MTC_DISPATCHES)
             state = {k: v for k, v in self.__dict__.items() if k not in drop}
             if self._keyed is not None:
                 # each bundle's child copied while no update binds it (see

@@ -91,7 +91,6 @@ def snapshots():
 
 
 def test_merge_rules_equal_the_jax_package():
-    # the durability plane's rules stay: the port renders a JAX fleet view as it is
     assert tagg.MERGE_RULES == jagg.MERGE_RULES
     for path in [("metrics", "A#0", "counters", "update_calls"), ("health", "policy"), ("memory", "high_water_bytes"),
                  ("slo", "slos", "x", "fast", "burn_rate"), ("profiling", "sample_every"), ("tracing", "straggler"),
@@ -124,7 +123,7 @@ def test_snapshot_pytree_and_apply_pytree_equal_the_jax_package(snapshots, side)
 
 def test_the_port_snapshot_has_the_jax_sections_and_rules(snapshots):
     jsnaps, tsnaps = snapshots
-    assert set(tsnaps[0]) == set(jsnaps[0]) - {"durability"}
+    assert set(tsnaps[0]) == set(jsnaps[0])
     for section in ("retrace", "health", "slo", "profiling", "memory"):
         assert tsnaps[0][section], section
         assert set(tsnaps[0][section]) == set(jsnaps[0][section]), section

@@ -12,9 +12,10 @@ later updates must not change the result.
 Elsewhere: the engine's degraded rounds (peers a published straggler
 report flags) against the JAX engine's are in
 ``tests/test_torch_aggregate_fleet.py``, and over two gloo processes in
-``tests/test_torch_sync_gloo.py``. Not mirrored: the JAX tests that narrow
-a quorum round to a subgroup (transport overrides, ROADMAP queue A item 14),
-which the port does not have.
+``tests/test_torch_sync_gloo.py``. The quorum round narrowed to a subgroup
+(transport overrides, the membership epoch) is in
+``tests/test_torch_faults_membership.py`` and, over four gloo processes, in
+``tests/test_torch_hierarchical_sync.py``.
 """
 import threading
 import time

@@ -23,7 +23,11 @@ compiled forward and the reservoir update, and count the keyed padded
 update's B3 launches. The observability cases run the compiled health guard
 with no synchronizing call, split a sampled dispatch by CUDA events, hold the
 memory ledger's bytes against the caching allocator's, and name the
-collection's members in a ``torch.profiler`` trace.
+collection's members in a ``torch.profiler`` trace. The durability cases
+restore a checkpoint across devices, hold the compiled keyed update after
+``grow``/``compact`` against eager (one capture a capacity), spill and fault
+back under a held graph, and count the synchronizing calls of updates while
+an async save flies.
 """
 import numpy as np
 import pytest
@@ -32,6 +36,7 @@ import torch
 import metrics_tpu_torch as T
 from metrics_tpu_torch.kernels import _common
 from metrics_tpu_torch.kernels import binned_counts as bc
+from metrics_tpu_torch.kernels import confusion_matrix as cm
 from metrics_tpu_torch.kernels.binned_counts import (
     _label_score_histograms_onevsrest,
     label_score_histograms_cuda,
@@ -120,6 +125,25 @@ def test_confmat_kernel_matches_plain(cuda_device, n, c, dtype):
     torch.cuda.synchronize()
     assert torch.equal(got, confmat_counts_torch(preds, target, c))
     assert _common.launch_count("confmat_counts") == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c,dtype,limit", [(1, 1, 1, torch.int64, None), (8192, 1, 16, torch.int64, None),
+                                               (20, 1024, 1000, torch.int64, None),
+                                               (3, 1023, 129, torch.int32, None), (30, 7, 20, torch.int64, 50)])
+def test_confmat_batched_kernel_matches_plain(cuda_device, monkeypatch, b, n, c, dtype, limit):
+    """B2's batched form at the keyed rows' shape (8,192 length-1 rows of
+    16 classes) and the bootstrap's (20 children of 1,024 pairs over 1,000
+    classes), one launch for the stack; with the kernel's side limit cut to
+    50, six rows a square and five launches; out-of-range pairs dropped."""
+    if limit:
+        monkeypatch.setattr(cm, "_MAX_CLASSES", limit)
+    rng = np.random.RandomState(b + c)
+    preds, target = (torch.from_numpy(rng.randint(-1, c + 1, (b, n))).to(cuda_device, dtype) for _ in range(2))
+    got = cm.confmat_counts_batched_cuda(preds, target, c)
+    torch.cuda.synchronize()
+    assert got.shape == (b, c, c) and torch.equal(got, cm.confmat_counts_batched_torch(preds, target, c))
+    assert _common.launch_count("confmat_counts") == -(-b // (cm._MAX_CLASSES ** 2 // (c * c)))
 
 
 @pytest.mark.cuda
@@ -1078,3 +1102,139 @@ def test_a_torch_profiler_trace_names_each_member_of_a_collection_forward(cuda_d
         torch.cuda.synchronize()
     names = {e.key for e in prof.key_averages() if e.key.startswith("metrics/")}
     assert {f"metrics/{type(m).__name__}.forward" for m in card.values()} <= names
+
+
+# -- the durability slice -----------------------------------------------------------
+
+
+def _durable_acc(device, n=64):
+    return T.KeyedMetric(T.Accuracy(device=device), n, validate_ids=False, device=device)
+
+
+def _acc_batch(rng, n, rows):
+    return _t(rng.randint(0, n, rows)), _t(rng.rand(rows).astype(np.float32)), _t(rng.randint(0, 2, rows))
+
+
+@pytest.mark.cuda
+def test_a_checkpoint_restores_across_devices(cuda_device, tmp_path):
+    from metrics_tpu_torch.durability import CheckpointManager
+
+    rng = np.random.RandomState(0)
+    card, host = _durable_acc(cuda_device), _durable_acc("cpu")
+    for _ in range(3):
+        batch = _acc_batch(rng, 64, 200)
+        card.update(*(x.to(cuda_device) for x in batch))
+        host.update(*batch)
+    CheckpointManager(str(tmp_path / "card"), card).save()
+    CheckpointManager(str(tmp_path / "host"), host).save()
+    on_cpu, on_card = _durable_acc("cpu"), _durable_acc(cuda_device)
+    CheckpointManager(str(tmp_path / "card"), on_cpu).restore(on_cpu)
+    CheckpointManager(str(tmp_path / "host"), on_card).restore(on_card)
+    for name, value in host._get_states().items():
+        assert torch.equal(getattr(on_cpu, name), value) and torch.equal(getattr(on_card, name).cpu(), value)
+        assert getattr(on_card, name).is_cuda
+    assert torch.equal(on_card.compute().cpu().isnan(), host.compute().isnan())
+
+
+@pytest.mark.cuda
+def test_the_compiled_keyed_update_after_grow_and_compact_equals_eager(cuda_device):
+    rng = np.random.RandomState(1)
+    batches = [_acc_batch(rng, 10, 128) for _ in range(4)]
+    compiled, eager = _durable_acc(cuda_device, 10), _durable_acc(cuda_device, 10)
+    compiled.warmup(*(x.to(cuda_device) for x in batches[0]))
+    for obj in (compiled, eager):
+        for step, batch in zip(("grow", "compact", "grow", None), batches):
+            obj.update(*(x.to(cuda_device) for x in batch))
+            if step == "grow":
+                obj.grow(40)
+            elif step == "compact":
+                obj.compact(10)
+    for name, value in eager._get_states().items():
+        assert torch.equal(getattr(compiled, name), value), name
+    fn = compiled.__dict__["_keyed_update_fn"] or compiled.__dict__["_keyed_update_copy_fn"]
+    assert fn._cache_size() == 3  # capacities 10, 64 and 16, the second grow replays
+    # four updates of each owner, and the warm-up run of each of the three captures
+    assert _common.launch_count("segment_scatter_add") == 2 * 4 + 3
+
+
+@pytest.mark.cuda
+def test_a_spill_round_trip_under_a_held_compiled_graph(cuda_device):
+    from metrics_tpu_torch.durability import TenantSpiller
+
+    rng = np.random.RandomState(2)
+    batches = [_acc_batch(rng, 64, 256) for _ in range(6)]
+    compiled, control = _durable_acc(cuda_device), _durable_acc(cuda_device)
+    compiled.warmup(*(x.to(cuda_device) for x in batches[0]))
+    spiller = TenantSpiller(compiled, resident_cap=8, auto=True)
+    held = compiled.tp.data_ptr()
+    for batch in batches:
+        for obj in (compiled, control):
+            obj.update(*(x.to(cuda_device) for x in batch))
+    assert compiled.tp.data_ptr() == held  # evictions and fault-backs wrote the graph's own tensors
+    report = spiller.report()
+    assert report["conservation_ok"] and report["resident_under_cap"] and report["spilled"] > 0
+    got, want = compiled.compute(), control.compute()
+    assert torch.equal(got.isnan(), want.isnan()) and torch.equal(got[~want.isnan()], want[~want.isnan()])
+    for name, value in control._get_states().items():
+        assert torch.equal(getattr(compiled, name), value), name
+
+
+@pytest.mark.cuda
+def test_an_async_save_adds_no_synchronizing_call_to_the_updates_in_flight(cuda_device, tmp_path):
+    import warnings
+
+    from metrics_tpu_torch.durability import CheckpointManager
+
+    rng = np.random.RandomState(3)
+    m = T.KeyedMetric(T.ConfusionMatrix(num_classes=16, device=cuda_device), 4096, validate_ids=False,
+                      device=cuda_device)
+    pool = []
+    for _ in range(8):
+        logits = rng.rand(256, 16).astype(np.float32)
+        pool.append(tuple(_t(a).to(cuda_device) for a in (rng.randint(0, 4096, 256), logits / logits.sum(1, keepdims=True),
+                                                           rng.randint(0, 16, 256))))
+    m.update(*pool[0])
+    mgr = CheckpointManager(str(tmp_path), m)
+    mgr.save()
+    m.update(*pool[1])
+    torch.cuda.synchronize()
+
+    def syncs(fn):
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return [w for w in seen if "synchroniz" in str(w.message) and "prototype" not in str(w.message)]
+
+    base = syncs(lambda: [m.update(*b) for b in pool])
+    steps = [0]
+
+    def fly():
+        future = mgr.save_async()
+        while not future.done() or steps[0] < 4:
+            m.update(*pool[steps[0] % len(pool)])
+            steps[0] += 1
+        assert future.result(timeout=60)["kind"] == "delta"
+
+    during = syncs(fly)
+    assert len([w for w in during if "durability" not in w.filename]) == len(base) / len(pool) * steps[0]
+    assert [w for w in during if "durability" in w.filename] == []
+
+
+@pytest.mark.cuda
+def test_a_keyed_confusion_matrix_on_the_card_matches_the_cpu(cuda_device):
+    # its rows inside the vmap go to B2's batched form: one launch for the
+    # update's 512 rows, then B3 routes their counts
+    rng = np.random.RandomState(4)
+    logits = rng.rand(512, 16).astype(np.float32)
+    batch = (_t(rng.randint(0, 64, 512)), _t(logits / logits.sum(1, keepdims=True)), _t(rng.randint(0, 16, 512)))
+    card = T.KeyedMetric(T.ConfusionMatrix(num_classes=16, device=cuda_device), 64, validate_ids=False,
+                         device=cuda_device)
+    host = T.KeyedMetric(T.ConfusionMatrix(num_classes=16, device="cpu"), 64, validate_ids=False, device="cpu")
+    card.update(*(x.to(cuda_device) for x in batch))
+    host.update(*batch)
+    assert torch.equal(card.confmat.cpu(), host.confmat) and int(host.confmat.sum()) == 512
+    assert _common.launch_count("confmat_counts") == 1 and _common.launch_count("segment_scatter_add") == 1

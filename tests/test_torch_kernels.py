@@ -8,8 +8,10 @@ answers: the capability of a device is asked once, and a resolved C entry is
 read without the lock, a resolved device is taken as it is. The CUDA path's
 plumbing of B1 and B2 (one call into the C library with the device index
 and the stream handle, no ``torch.cuda.device`` context) is held against a
-fake library, as is B1's batched entry and its vmap rule (one dispatch for
-a whole ``torch.func.vmap`` stack). The cases that launch the CUDA kernels need a card: they live
+fake library, as are B1's batched entry and the vmap rules of B1 and B2 (one
+dispatch for a whole ``torch.func.vmap`` stack); B2's batched form packs
+the stack into the one square the kernel counts, held here with the plain
+version standing in for the launch. The cases that launch the CUDA kernels need a card: they live
 in ``tests/test_torch_card.py``.
 """
 import jax.numpy as jnp
@@ -109,6 +111,80 @@ def test_confmat_plain_matches_jax(n, c):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want_xla))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want_pallas))
     assert int(got.sum()) == n
+
+
+@pytest.mark.parametrize("b,n,c", [(1, 1, 1), (3, 37, 5), (8, 1, 16), (4, 50, 129)])
+def test_confmat_plain_batched_matches_jax_vmapped(b, n, c):
+    """The plain version of a ``(B, N)`` stack against the JAX package's
+    Pallas kernel under ``jax.vmap`` (``pallas_call``'s batching rule, in
+    interpret mode) and its ``_xla`` formulation row by row."""
+    import jax
+
+    preds, target = (x.reshape(b, n) for x in _labels(b * n, c, seed=b * 100 + c))
+    want_pallas = jax.vmap(lambda p, t: confmat_counts_pallas(p, t, c, interpret=True))(
+        jnp.asarray(preds), jnp.asarray(target))
+    got = cm.confmat_counts_batched_torch(torch.from_numpy(preds), torch.from_numpy(target), c)
+    assert got.dtype == torch.int32 and got.shape == (b, c, c)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want_pallas))
+    for i in range(b):
+        np.testing.assert_array_equal(got[i].numpy(), np.asarray(confmat_counts_xla(preds[i], target[i], c)))
+
+
+@pytest.mark.parametrize("target_batched", [True, False])
+def test_stacked_confmat_under_vmap_dispatch_once_for_the_whole_stack(target_batched):
+    """Inside ``torch.func.vmap`` B2's vmap rule hands the whole stack to the
+    batched wrapper in one dispatch (one launch on the card); a nested
+    vmap's batch axes flatten into the same one."""
+    preds, target = _labels(2 * 3 * 40, 6, seed=11)
+    p = torch.from_numpy(preds).reshape(2, 3, 40)
+    t = torch.from_numpy(target).reshape(2, 3, 40)
+    if not target_batched:
+        t = t[0, 0]
+    dims = 0 if target_batched else None
+    got = torch.func.vmap(cm.confmat_counts_stacked, in_dims=(0, dims, None))(
+        p[0], t[0] if target_batched else t, 6)
+    assert _common.dispatch_count("confmat_counts", "torch") == 1
+    for i in range(3):
+        assert torch.equal(got[i], confmat_counts_torch(p[0, i], t[0, i] if target_batched else t, 6))
+    nested = torch.func.vmap(torch.func.vmap(cm.confmat_counts_stacked, in_dims=(0, dims, None)),
+                             in_dims=(0, dims, None))(p, t, 6)
+    assert _common.dispatch_count("confmat_counts", "torch") == 2
+    assert nested.shape == (2, 3, 6, 6)
+    for i in range(2):
+        for j in range(3):
+            assert torch.equal(nested[i, j], confmat_counts_torch(p[i, j], t[i, j] if target_batched else t, 6))
+    assert _common.launch_count("confmat_counts") == 0
+
+
+@pytest.mark.parametrize("max_classes", [46340, 9])
+def test_confmat_batched_cuda_path_counts_the_stack_in_one_square(monkeypatch, max_classes):
+    """The CUDA path's packing, with the plain version standing in for the
+    launch: each chunk of rows is one call on its square (one for the whole
+    stack unless ``B * C * C`` passes the kernel's indexing, forced here by
+    a small limit), out-of-range pairs dropped, counts equal to the plain
+    batched version."""
+    calls = []
+
+    def square_counts(preds, target, side, device):
+        calls.append((side, preds.shape, preds.dtype))
+        _common.note_kernel_dispatch("confmat_counts", "cuda")
+        return confmat_counts_torch(preds, target, side)
+
+    monkeypatch.setattr(cm, "_counts_cuda", square_counts)
+    monkeypatch.setattr(cm, "_MAX_CLASSES", max_classes)
+    b, n, c = 7, 30, 4
+    preds, target = (torch.from_numpy(x).reshape(b, n) for x in _labels(b * n, c, seed=12))
+    preds[0, :3] = torch.tensor([-1, 4, 2])
+    target[1, :2] = torch.tensor([5, -3])
+    got = cm._batched_counts_cuda(preds, target, c, torch.device("cpu"))
+    want = cm.confmat_counts_batched_torch(preds, target, c)
+    assert got.shape == (b, c, c) and got.dtype == torch.int32 and torch.equal(got, want)
+    assert int(got.sum()) == b * n - 4
+    chunk = max_classes * max_classes // (c * c)
+    rows = [min(chunk, b - lo) for lo in range(0, b, chunk)]
+    assert [k[1] for k in calls] == [(r * n,) for r in rows]
+    assert all((side - 1) ** 2 < r * c * c <= side * side <= max_classes ** 2 for (side, _, _), r in zip(calls, rows))
+    assert _common.launch_count("confmat_counts") == len(calls) == -(-b // chunk)
 
 
 def test_confmat_out_of_range_pairs_are_dropped():

@@ -358,8 +358,8 @@ def test_snapshot_is_json_and_has_the_port_sections():
     _run_both("keyed")
     snap = json.loads(tobs.dumps())
     assert snap["schema"] == jobs.snapshot()["schema"] == 1
-    # every section of the JAX package's but the durability plane's (item 14)
-    assert set(snap) == set(jobs.snapshot()) - {"durability"}
+    # every section of the JAX package's
+    assert set(snap) == set(jobs.snapshot())
     assert "dispatch_seconds{path=keyed_scatter}" in snap["histograms"]
     assert snap["tracing"]["straggler"] is None
 

@@ -22,9 +22,10 @@ per-tenant generations and the serving spans likewise.
 Elsewhere: the cases that arm ``quarantine="auto"`` through
 ``observability.set_health_policy`` are in ``tests/test_torch_health.py``,
 the serving timeline in ``tests/test_torch_slo_timeline.py`` and the fleet
-snapshots in ``tests/test_torch_aggregate_fleet.py``. Left out, with the
-reason: the JAX tests that compact or grow the keyed state (ROADMAP queue A
-item 14), and that count compiled executables per bucket (item 11).
+snapshots in ``tests/test_torch_aggregate_fleet.py``, and the scheduler's
+generation ledger after the keyed state is compacted in
+``tests/test_torch_spill_elastic.py``. Left out, with the reason: the JAX
+tests that count compiled executables per bucket (item 11).
 """
 import json
 import pickle
