@@ -51,7 +51,9 @@ Phases, in order; any failure exits non-zero before the last line:
    batches (float32 softmax rows, int64 targets, tenant ids uniform in
    [0, 10000); the last batch holds 3000 real rows padded with id -1 and
    zero rows), then ``compute()``. B3 must launch once per bundle per update
-   (100), B4 max once per update (50), B1 and B2 never; every multiclass row
+   (100), B4 max once per update (50), B1 once per update (50: the macro
+   bundle's (4096, 1, 10) stack of rows, in its short-slice layout), B2
+   never; every multiclass row
    has one true class, so the Accuracy bundle's tp + fn over all tenants
    must count the real rows; the stacked states must equal the same
    collection's on the CPU exactly, the per-tenant values within 1e-6.
@@ -87,7 +89,7 @@ Phases, in order; any failure exits non-zero before the last line:
    first pass, ``reset()``, and counted in a second: states == 49 eager
    updates, B1 49, B2 49. (b) Phase 3b's keyed collection: ``warmup``, then
    ``update_many`` with K = 5 ten times over the 50 cohorts (captured by a
-   first call, then ``reset()``): B3 100, B4 50, stacked states and the
+   first call, then ``reset()``): B3 100, B4 50, B1 50, stacked states and the
    tenant report (all but its clock) == the eager updates'; then the
    compiled ``update`` after ``warmup`` against the eager one, call by call
    (medians, states equal, synchronizing calls of one update). (c) Phase
@@ -145,7 +147,9 @@ Phases, in order; any failure exits non-zero before the last line:
    calls captured into one CUDA graph and replayed between two CUDA events
    (the launch cost amortized); the device time of B1, B2 and B5 is split by
    device operation (fill, memset, kernel), and an empty kernel's device
-   time is printed as the floor under the stream shape's byte bound.
+   time is printed as the floor under the stream shape's byte bound. B1's
+   batched form is timed at the keyed rows' (4096, 1, 10) stack (its
+   short-slice layout), B2's in phase 3o-a.
 3h. The serving plane (``metrics_tpu_torch.serving``). (a) Replay: phase
    3b's 50 cohorts (49 x 4096 rows and the last cohort's 3000 real rows, as
    host numpy) through ``AdmissionQueue(keyed.update, start=False,
@@ -154,8 +158,8 @@ Phases, in order; any failure exits non-zero before the last line:
    every cohort resident before the flusher starts, so that each flush
    prefetches the next cohort on the staging lane (prefetched cohorts must
    be > 0): the stacked states must equal
-   phase 3b's exactly and the values within 1e-6, 50 flushes, B3 100 and
-   B4 max 50 launches per path, 1096 ``invalid_tenant_ids`` (the last flush padded
+   phase 3b's exactly and the values within 1e-6, 50 flushes, B3 100, B4
+   max 50 and B1 50 launches per path, 1096 ``invalid_tenant_ids`` (the last flush padded
    3000 -> 4096), ``rows_routed`` = 49 * 4096 + 3000, both conservation
    laws, no ``dispatch_error``; under the sync debug mode a staged flush
    makes exactly the synchronizing calls of a direct ``update`` of the same
@@ -324,7 +328,8 @@ Phases, in order; any failure exits non-zero before the last line:
    == as many as without a save in flight), B2's batched form (the keyed
    rows' counts, one launch for an update's rows) and B3 one launch an
    update, B2's batched form held against its plain version at the keyed
-   rows' shapes and a bootstrap's (20, 1024, 1000) and timed; the
+   rows' shapes and a bootstrap's (20, 1024, 1000) and timed (wrapper,
+   device, bound, plain and ``bincount``); the
    restores onto a fresh card metric, a CPU metric and a card metric grown to
    8,192 == the cut exactly; a CPU-written snapshot == on the card; each of
    the seven crash points leaves the last complete snapshot restorable. (b)
@@ -354,8 +359,9 @@ Phases, in order; any failure exits non-zero before the last line:
    ``reduce_states``, a restore through ``place_state``) == the replicated
    state, a 1 x 1 ``Hierarchy`` == the flat sync, ``InGraphTransport`` == the
    eager pair. ``durability_phase_main()`` runs 3o alone.
-5. One JSON line ``{"kernels": [...]}``, the card line again, and, last,
-   ``{"ok": true, "device": {...}}``.
+5. One JSON line ``{"kernels": [...]}`` (the five kernels, then the batched
+   forms of B1 and B2 as entries of their own), the card line again, and,
+   last, ``{"ok": true, "device": {...}}``.
 
 With ``--record PATH`` the full record (every parity case, every forward's
 time, the profile, the timings) is also written to PATH as JSON.
@@ -876,7 +882,8 @@ def compiled_phase(torch, M, dev, card) -> dict:
         keyed_many_ms.append((time.perf_counter() - t0) * 1e3)
     keyed_launches = {op: _common.launch_count(op) for op in KERNEL_OPS}
     want_launches = {op: 0 for op in KERNEL_OPS}
-    want_launches.update(segment_scatter_add=2 * KEYED_UPDATES, segment_scatter_max=KEYED_UPDATES)
+    want_launches.update(segment_scatter_add=2 * KEYED_UPDATES, segment_scatter_max=KEYED_UPDATES,
+                         stat_scores_counts=KEYED_UPDATES)
     if keyed_launches != want_launches:
         fail(f"[compiled] keyed update_many launched {keyed_launches}, expected {want_launches}")
     for owner, km in keyed_ref._keyed.items():
@@ -1605,7 +1612,7 @@ def serving_replay(torch, M, dev, keyed_batches, keyed_gpu, keyed_out, direct_ms
         launches = {op: _common.launch_count(op) for op in ("segment_scatter_add", "segment_scatter_max",
                                                            "segment_scatter_min", "stat_scores_counts")}
         want = {"segment_scatter_add": 2 * KEYED_UPDATES, "segment_scatter_max": KEYED_UPDATES,
-                "segment_scatter_min": 0, "stat_scores_counts": 0}
+                "segment_scatter_min": 0, "stat_scores_counts": KEYED_UPDATES}
         if launches != want:
             fail(f"[replay {path}] launches {launches}, expected {want}")
         for owner, km in keyed._keyed.items():
@@ -4116,10 +4123,12 @@ def _durability_checkpoint(torch, np, M, dev, card, record) -> None:
           f"== the cut exactly (card, CPU, grown to {2 * n}), the CPU-written snapshot == on the card; crash points "
           f"{ {p: c['restored'] for p, c in crashes.items()} }; launches {launches}")
     for b in b2_batched:
-        dev_ms = {k: "none" if b[k] is None else f"{b[k]:.5f}" for k in ("device_ms", "plain_device_ms")}
+        dev_ms = {k: "none" if b[k] is None else f"{b[k]:.5f}"
+                  for k in ("device_ms", "plain_device_ms", "library_device_ms")}
         print(f"[checkpoint] B2 batched {b['shape']}: {b['ms']:.4f} ms, device {dev_ms['device_ms']} (plain "
-              f"{b['plain_ms']:.4f} ms, device {dev_ms['plain_device_ms']}; bound {b['bound_ms']:.4f} ms, "
-              f"{b['bound_by']}), {b['launches']} launch, == plain")
+              f"{b['plain_ms']:.4f} ms, device {dev_ms['plain_device_ms']}; bincount {b['library_ms']:.4f} ms, device "
+              f"{dev_ms['library_device_ms']}; bound {b['bound_ms']:.4f} ms, {b['bound_by']}), {b['launches']} "
+              f"launch, == plain")
     record["checkpoint"] = out
 
 
@@ -4147,6 +4156,12 @@ def _b2_batched(torch, dev, shapes) -> list:
                  "plain_ms": cuda_ms(lambda: confmat_counts_batched_torch(preds, target, c)),
                  "device_ms": device_ms(lambda: confmat_counts_batched_cuda(preds, target, c, device=dev)),
                  "plain_device_ms": device_ms(lambda: confmat_counts_batched_torch(preds, target, c))}
+        # the library call: one bincount of the kept pairs' flat cells, made
+        # outside the timed region
+        keep = (preds >= 0) & (preds < c) & (target >= 0) & (target < c)
+        flat = (torch.arange(b, device=dev).unsqueeze(1) * (c * c) + target * c + preds)[keep]
+        entry["library_ms"] = cuda_ms(lambda: torch.bincount(flat, minlength=b * c * c))
+        entry["library_device_ms"] = device_ms(lambda: torch.bincount(flat, minlength=b * c * c))
         entry["bound_ms"], entry["bound_by"] = bound(2 * b * n * 8 + b * c * c * 4, 6 * b * n)
         out.append(entry)
         del got
@@ -4974,6 +4989,41 @@ def main() -> int:
               f"{'equal' if ok else 'DIFFERENT'}")
         if not ok:
             fail(f"confmat_counts differs from its plain version at N={n}, C={c}")
+    # the batched forms: B1's short-slice layout (the keyed rows' stack, past
+    # the z form's 65,535 slices, a mid shape, empty slices) and its z form;
+    # B2's batched entry on both sides of the 48 KB line and of the shared
+    # route's limit (C = 241), with out-of-range pairs, int32 and int64
+    from metrics_tpu_torch.kernels.confusion_matrix import confmat_counts_batched_cuda, confmat_counts_batched_torch
+
+    errors.update(stat_scores_counts_batched=0, confmat_counts_batched=0)
+    for b, n, c in [(KEYED_ROWS, 1, KEYED_CLASSES), (70_000, 1, 3), (3, 5, 1000), (5, 0, 7), (20, 1024, 1000)]:
+        preds, target = (torch.randint(0, 3, (b, n, c), generator=gen, device=dev, dtype=torch.int32) for _ in range(2))
+        got = stat_scores_counts_cuda(preds, target, device=dev)
+        torch.cuda.synchronize()
+        want = stat_scores_counts_torch(preds, target)
+        err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+        ok = all(torch.equal(g, w) and g.dtype == torch.int32 for g, w in zip(got, want))
+        errors["stat_scores_counts_batched"] = max(errors["stat_scores_counts_batched"], err)
+        parity.append({"kernel": "stat_scores_counts_batched", "shape": [b, n, c], "equal": ok})
+        print(f"[parity] stat_scores_counts batched B={b} N={n} C={c}: {'equal' if ok else 'DIFFERENT'}")
+        if not ok:
+            fail(f"stat_scores_counts' batched form differs from its plain version at ({b}, {n}, {c})")
+    for b, n, c in [(2 * CKPT_TENANTS, 1, CKPT_CLASSES), (CKPT_FLIGHT_ROWS, 1, CKPT_CLASSES), (40, 3, 110),
+                    (40, 3, 111), (5, 20, 241), (5, 20, 242), (BOOTSTRAPS, BATCH, NUM_CLASSES)]:
+        for dtype in (torch.int64, torch.int32):
+            preds, target = (torch.randint(-1, c + 1, (b, n), generator=gen, device=dev, dtype=dtype)
+                             for _ in range(2))
+            got = confmat_counts_batched_cuda(preds, target, c, device=dev)
+            torch.cuda.synchronize()
+            want = confmat_counts_batched_torch(preds, target, c)
+            err = int((got.long() - want.long()).abs().max())
+            ok = torch.equal(got, want) and got.dtype == torch.int32
+            errors["confmat_counts_batched"] = max(errors["confmat_counts_batched"], err)
+            parity.append({"kernel": "confmat_counts_batched", "shape": [b, n, c], "dtype": str(dtype), "equal": ok})
+            print(f"[parity] confmat_counts batched B={b} N={n} C={c} {dtype}, labels in [-1, C]: "
+                  f"{'equal' if ok else 'DIFFERENT'}")
+            if not ok:
+                fail(f"confmat_counts' batched form differs from its plain version at ({b}, {n}), C={c}")
 
     scatter = {"segment_scatter_add": (segment_scatter_add_cuda, segment_scatter_add_torch),
                "segment_scatter_max": (segment_scatter_max_cuda, segment_scatter_max_torch),
@@ -5202,8 +5252,9 @@ def main() -> int:
     print(f"[keyed] {KEYED_UPDATES} update of {KEYED_ROWS} rows into {KEYED_TENANTS} tenants + compute on {kind}: "
           f"launches {keyed_launches}; update median {statistics.median(update_ms):.3f} ms "
           f"(first {update_ms[0]:.3f} ms), compute {keyed_compute_ms:.3f} ms")
+    # B1 once an update: the macro bundle's (4096, 1, 10) stack of rows
     expected = {"segment_scatter_add": 2 * KEYED_UPDATES, "segment_scatter_max": KEYED_UPDATES,
-                "segment_scatter_min": 0, "stat_scores_counts": 0, "confmat_counts": 0}
+                "segment_scatter_min": 0, "stat_scores_counts": KEYED_UPDATES, "confmat_counts": 0}
     for op, count in expected.items():
         if keyed_launches[op] != count:
             fail(f"{op} launched {keyed_launches[op]} times on the keyed path, expected {count}")
@@ -5498,6 +5549,19 @@ def main() -> int:
         "stat_scores_counts": {"bound": b1_bound, "shape": f"preds, target ({n}, {c}) int32"},
         "confmat_counts": {"bound": b2_bound, "shape": f"preds, target ({n},) int64, C={c}"},
     }
+    # B1's batched form at the keyed rows' shape: phase 3b's first cohort in
+    # canonical form as the (4096, 1, 10) stack the keyed update's vmap rule
+    # hands over (its short-slice layout); no one library call counts it
+    rows_p, rows_t, _ = _input_format_classification(keyed_batches[0][1], keyed_batches[0][2])
+    rows_p, rows_t = (x.reshape(KEYED_ROWS, 1, KEYED_CLASSES).contiguous() for x in (rows_p, rows_t))
+    calls["stat_scores_counts_batched"] = {
+        "ms": lambda: stat_scores_counts_cuda(rows_p, rows_t, device=dev),
+        "plain_ms": lambda: stat_scores_counts_torch(rows_p, rows_t),
+        "library_ms": None,
+    }
+    row_cells = KEYED_ROWS * KEYED_CLASSES
+    timings["stat_scores_counts_batched"] = {"bound": bound(2 * row_cells * 4 + 4 * row_cells * 4, 5 * row_cells),
+                                             "shape": f"preds, target ({KEYED_ROWS}, 1, {KEYED_CLASSES}) int32"}
     # the keyed path's shapes: its ids, and rows of 0/1-valued deltas
     s_ = KEYED_TENANTS
     keyed_ids = keyed_batches[0][0]
@@ -5595,7 +5659,8 @@ def main() -> int:
               f"({fmt(t.get('library_alloc_device_ms'))}), bound {t['bound'][0]:.4f} ms ({t['bound'][1]})")
     # the device time of B1, B2 and B5 by device operation: the wrappers'
     # fills and memsets apart from their kernels
-    splits = {op: device_split(calls[op]["ms"]) for op in ("stat_scores_counts", "confmat_counts",
+    splits = {op: device_split(calls[op]["ms"]) for op in ("stat_scores_counts", "stat_scores_counts_batched",
+                                                           "confmat_counts",
                                                            "label_score_histograms", "label_score_histograms_dense",
                                                            "label_score_histograms_c1")}
     for op, split in splits.items():
@@ -5739,6 +5804,30 @@ def main() -> int:
                 "spill_collection": dur["spill"]["collection"]["launches"][op],
                 "chaos": dur["chaos"]["window"]["launches"][op],
             }
+    # the batched forms, each an entry of its own: B1's at the keyed rows'
+    # shape (its launches those of phase 3b, and through phase 3i's keyed
+    # update_many replays), B2's at the keyed ConfusionMatrix's rows (its
+    # launches those of phase 3o-a; every stack of 3o-a in "stacks")
+    t = timings["stat_scores_counts_batched"]
+    kernels.append({
+        "name": "stat_scores_counts_batched", "route": "cuda", "source": sources["stat_scores_counts"],
+        "replaces": replaces["stat_scores_counts"], "launches": keyed_launches["stat_scores_counts"],
+        "max_abs_err": errors["stat_scores_counts_batched"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound"][0], "bound_by": t["bound"][1], "library_ms": None, "device_ms": t["device_ms"],
+        "plain_device_ms": t["plain_device_ms"], "graph_ms": t["graph_ms"],
+        "compiled_launches": compiled["keyed"]["launches"]["stat_scores_counts"], "shape": t["shape"],
+    })
+    stacks = dur["checkpoint"]["b2_batched"]
+    keyed_stack = stacks[0]
+    kernels.append({
+        "name": "confmat_counts_batched", "route": "cuda", "source": sources["confmat_counts"],
+        "replaces": replaces["confmat_counts"], "launches": dur["checkpoint"]["launches"]["confmat_counts"],
+        "max_abs_err": max([errors["confmat_counts_batched"]] + [x["max_abs_err"] for x in stacks]),
+        "ms": keyed_stack["ms"], "plain_ms": keyed_stack["plain_ms"], "bound_ms": keyed_stack["bound_ms"],
+        "bound_by": keyed_stack["bound_by"], "library_ms": keyed_stack["library_ms"],
+        "device_ms": keyed_stack["device_ms"], "plain_device_ms": keyed_stack["plain_device_ms"],
+        "library_device_ms": keyed_stack["library_device_ms"], "shape": keyed_stack["shape"], "stacks": stacks,
+    })
     record["kernels"] = kernels
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)

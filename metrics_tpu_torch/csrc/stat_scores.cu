@@ -17,11 +17,21 @@
 // are masked here (columns past C) and by the row bounds, so no sentinel
 // padding is needed.
 //
-// Batched form: a (B, N, C) stack of independent inputs (the children of a
-// bootstrap, whose update runs under torch.func.vmap, as pallas_call's
-// batching rule runs the Pallas kernel over a leading grid axis) takes the
-// grid's z axis for its batch index; each z counts its own (N, C) slice into
-// its own (C,) rows of the (4, B, C) output. B = 1 is the plain form.
+// Batched form: a (B, N, C) stack of independent inputs (under
+// torch.func.vmap, as pallas_call's batching rule runs the Pallas kernel over
+// a leading grid axis) has two layouts, picked by the C entry from (B, N, C):
+//
+// * Long slices (a bootstrap's children, (20, 1024, 1000)) take the grid's z
+//   axis for their batch index; each z counts its own (N, C) slice into its
+//   own (C,) rows of the (4, B, C) output with the atomics above, after a
+//   cudaMemsetAsync of the output on the same stream.
+// * Short slices (the keyed path's rows, (R, 1, C)): a flat 1-D grid over the
+//   B*C (slice, column) pairs. Thread i owns slice i / C and column i % C,
+//   loops over the slice's few rows and stores its four counts: no atomics,
+//   and every output cell is written once, so the output needs no zero fill.
+//   At N = 1 the 32 threads of a warp read 32 consecutive ints. The z form
+//   would give each slice a block of 256 threads for its C columns (246 of
+//   them idle at C = 10) and loop over groups of 65,535 slices.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -67,6 +77,41 @@ __global__ void stat_scores_counts_kernel(const int* __restrict__ preds, const i
   if (fn) atomicAdd(out + 3 * stride, fn);
 }
 
+// One thread per (slice, column) pair of a stack of short slices: the
+// (4, batch, c) output's cell slice * c + col of each row, stored once.
+__global__ void stat_scores_counts_short_kernel(const int* __restrict__ preds, const int* __restrict__ target,
+                                                int64_t batch, int64_t n, int64_t c, int* __restrict__ out) {
+  const int64_t pairs = batch * c;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= pairs) return;
+  const int64_t slice = i / c;
+  const int64_t col = i - slice * c;
+  const int* p_row = preds + slice * n * c + col;
+  const int* t_row = target + slice * n * c + col;
+  int tp = 0, fp = 0, tn = 0, fn = 0;
+  for (int64_t r = 0; r < n; ++r) {
+    const int p = __ldg(p_row + r * c);
+    const int t = __ldg(t_row + r * c);
+    const int eq = p == t;
+    if (p == 1) {
+      tp += eq;
+      fp += 1 - eq;
+    } else if (p == 0) {
+      tn += eq;
+      fn += 1 - eq;
+    }
+  }
+  out[i] = tp;
+  out[pairs + i] = fp;
+  out[2 * pairs + i] = tn;
+  out[3 * pairs + i] = fn;
+}
+
+// A slice of at most this many rows is short: one thread loops over all of
+// its rows, where the z form would split them into chunks of a row or two,
+// each ending in atomics.
+constexpr int64_t kShortRows = 32;
+
 constexpr int64_t kMaxGridZ = 65535;
 
 // Launches the batch in groups of at most kMaxGridZ slices (the grid's z
@@ -107,12 +152,27 @@ extern "C" int stat_scores_counts_launch(const void* preds, const void* target, 
 }
 
 // The batched form: preds, target: (batch, n, c) int32, contiguous. out:
-// (4, batch, c) int32, zero-filled. Otherwise as stat_scores_counts_launch.
+// (4, batch, c) int32, need not be initialised: the short-slice layout stores
+// every cell, the long-slice one zero-fills it on `stream` first. A slice is
+// short when it has at most kShortRows rows, or when the z form's grid is
+// full without splitting any slice's rows (one chunk covers a whole slice).
+// Otherwise as stat_scores_counts_launch.
 extern "C" int stat_scores_counts_batched_launch(const void* preds, const void* target, int64_t batch, int64_t n,
                                                  int64_t c, void* out, int device, void* stream) {
-  if (batch <= 0 || n <= 0 || c <= 0) return 0;
+  if (batch <= 0 || c <= 0) return 0;
   DeviceScope scope(device);
   if (scope.error() != cudaSuccess) return static_cast<int>(scope.error());
-  return launch(static_cast<const int*>(preds), static_cast<const int*>(target), batch, n, c,
-                static_cast<int*>(out), static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* p = static_cast<const int*>(preds);
+  const int* t = static_cast<const int*>(target);
+  int* o = static_cast<int*>(out);
+  const int64_t col_blocks = (c + kThreads - 1) / kThreads;
+  if (n <= kShortRows || col_blocks * batch >= kBatchedTargetBlocks) {
+    const int64_t blocks = (batch * c + kThreads - 1) / kThreads;
+    stat_scores_counts_short_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(p, t, batch, n, c, o);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const cudaError_t err = cudaMemsetAsync(o, 0, static_cast<size_t>(4 * batch * c) * sizeof(int), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch(p, t, batch, n, c, o, s);
 }

@@ -11,10 +11,9 @@ the seam where the JAX package consults its Pallas kernel
 Inside ``torch.func.vmap`` the seam calls
 :func:`~metrics_tpu_torch.kernels.stat_scores.stat_scores_counts_stacked`,
 whose vmap rule launches the kernel once over the whole stack of per-sample
-``(N, C)`` inputs (a bootstrap's children), as the JAX package's
-``pallas_call`` batches over a leading grid axis there. The keyed path's
-per-row update is the exception: each row is a length-1 batch, so there is
-no row to reduce, and its four terms are the compare chain itself.
+``(N, C)`` inputs, as the JAX package's ``pallas_call`` batches over a
+leading grid axis there: a bootstrap's children, and the keyed path's rows,
+each a length-1 batch (one launch for an update's ``(R, 1, C)`` stack).
 """
 from typing import Optional, Tuple
 
@@ -22,7 +21,7 @@ import torch
 
 from metrics_tpu_torch.kernels.stat_scores import stat_scores_counts_stacked
 from metrics_tpu_torch.utilities.checks import _input_format_classification
-from metrics_tpu_torch.utilities.data import Tensor, _is_batched
+from metrics_tpu_torch.utilities.data import Tensor
 from metrics_tpu_torch.utilities.enums import AverageMethod, MDMCAverageMethod
 
 
@@ -45,9 +44,7 @@ def _stat_scores(
 
     Output shapes: micro -> scalar / ``(N,)``; macro -> ``(C,)`` / ``(N, C)``;
     samples -> ``(N,)`` / ``(N, X)``. Macro counts of 2-D inputs go through
-    the B1 kernel, batched over the stack inside ``torch.func.vmap``, except
-    for a length-1 batch there (a keyed row), whose terms the compare chain
-    below computes.
+    the B1 kernel, batched over the stack inside ``torch.func.vmap``.
     """
     if reduce == "micro":
         dim = (0, 1) if preds.ndim == 2 else (1, 2)
@@ -58,7 +55,7 @@ def _stat_scores(
     else:
         raise ValueError(f"The `reduce` {reduce} is not valid.")
 
-    if reduce == "macro" and preds.ndim == 2 and (preds.shape[0] > 1 or not _is_batched(preds, target)):
+    if reduce == "macro" and preds.ndim == 2:
         return stat_scores_counts_stacked(preds, target)
 
     true_pred = target == preds

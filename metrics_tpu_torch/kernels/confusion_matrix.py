@@ -12,10 +12,11 @@ Counterpart of ``metrics_tpu/kernels/confusion_matrix.py``. Two formulations:
   to the plain version.
 * :func:`confmat_counts_batched_torch` and :func:`confmat_counts_batched_cuda`,
   the same for a ``(B, N)`` stack of pair vectors into ``(B, C, C)`` counts.
-  The batched form launches the same kernel once over the stack: each pair
-  counts into cell ``b * C * C + t * C + p`` of one flat histogram, laid out
-  as the kernel's square of side ``ceil(sqrt(B * C * C))``, whose leading
-  ``B * C * C`` cells are the stack's counts.
+  The batched form is an entry of its own in ``csrc/confusion_matrix.cu``:
+  one launch over the stack, which writes every cell of the output (a
+  block's slices counted in shared memory where ``C * C`` fits there, else
+  atomics into an output the entry zeroes on the stream), cell offsets in
+  int64.
 * :func:`confmat_counts_stacked`, the seam's call inside ``torch.func.vmap``:
   its vmap rule hands the whole stack to the batched wrapper in one launch,
   as ``pallas_call``'s batching rule runs the Pallas kernel over a leading
@@ -27,7 +28,6 @@ path reaches that case only inside ``torch.func.vmap``, where no value can
 be read: elsewhere ``_confusion_matrix_update`` raises on the host first.
 """
 import ctypes
-import math
 from typing import Any, Optional, Tuple, Union
 
 import torch
@@ -48,7 +48,11 @@ _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
     ctypes.c_void_p,
 )
-#: largest C whose C*C flat index fits the kernel's int32 output indexing
+_BATCHED_ARGTYPES = (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_void_p,
+)
+#: largest C whose C*C flat index fits the single form's int32 output indexing
 _MAX_CLASSES = 46340
 
 
@@ -117,9 +121,8 @@ def confmat_counts_batched_cuda(
     """``(B, C, C)`` int32 counts of each row of a ``(B, N)`` stack of
     int32/int64 label pairs lying on ``device``.
 
-    On a CUDA device the kernel counts the whole stack in one launch (one a
-    chunk of rows where ``B * C * C`` passes the kernel's int32 indexing);
-    on the CPU the plain version does. Raises on inputs the kernel does not
+    On a CUDA device the kernel counts the whole stack in one launch; on
+    the CPU the plain version does. Raises on inputs the kernel does not
     take.
     """
     device = kernel_device(device)
@@ -147,28 +150,18 @@ def _counts_cuda(preds: Tensor, target: Tensor, num_classes: int, device: torch.
 
 
 def _batched_counts_cuda(preds: Tensor, target: Tensor, num_classes: int, device: torch.device) -> Tensor:
-    """The batched form of :func:`_counts_cuda`: each pair's cell of the
-    stack's flat ``(B, C, C)`` histogram is split into the row and column of
-    the kernel's square (a dropped pair gets the row ``side``, which the
-    kernel drops), and one launch counts a chunk of rows into the square,
-    whose leading cells are the chunk's counts."""
+    """The batched form of :func:`_counts_cuda`: one call into the C library,
+    whose launch writes every cell of the ``(B, C, C)`` output, so it is
+    allocated without a fill."""
     b, n = preds.shape
-    cells = num_classes * num_classes
-    if not (b and n):
-        return torch.zeros((b, num_classes, num_classes), dtype=torch.int32, device=device)
-    chunk = _MAX_CLASSES * _MAX_CLASSES // cells
-    p, t = preds.long(), target.long()
-    keep = (p >= 0) & (p < num_classes) & (t >= 0) & (t < num_classes)
-    flat = t * num_classes + p
-    parts = []
-    for lo in range(0, b, chunk):
-        rows = min(b, lo + chunk) - lo
-        side = math.isqrt(rows * cells - 1) + 1
-        cell = torch.arange(rows, device=device).unsqueeze(-1) * cells + flat[lo:lo + rows]
-        sq_t = torch.where(keep[lo:lo + rows], cell // side, side).reshape(-1)
-        square = _counts_cuda((cell % side).reshape(-1), sq_t, side, device)
-        parts.append(square.reshape(-1)[: rows * cells].reshape(rows, num_classes, num_classes))
-    return parts[0] if len(parts) == 1 else torch.cat(parts)
+    out = torch.empty((b, num_classes, num_classes), dtype=torch.int32, device=device)
+    if b:
+        err = kernel_function("confmat_counts_batched_launch", _BATCHED_ARGTYPES)(
+            preds.data_ptr(), target.data_ptr(), b, n, num_classes, preds.element_size(), out.data_ptr(),
+            device.index, current_stream_handle(device))
+        check_launch(_OP, err)
+        note_kernel_dispatch(_OP, "cuda")
+    return out
 
 
 class _StackedConfmat(torch.autograd.Function):

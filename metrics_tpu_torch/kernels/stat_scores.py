@@ -11,7 +11,9 @@ binary ``(N, C)`` inputs with four masked sums. Two formulations:
   one pass over both inputs, one thread per class column, exact int32
   counts. It takes a CUDA tensor to the kernel and a CPU tensor to the plain
   version, and a ``(B, N, C)`` stack as well as one ``(N, C)`` input: the
-  kernel's batched form counts every slice in one launch.
+  kernel's batched form counts every slice in one launch, with one thread
+  per (slice, column) where the slices are short (the keyed path's
+  ``(R, 1, C)`` rows).
 * :func:`stat_scores_counts_stacked`, the seam's call inside
   ``torch.func.vmap``: its vmap rule hands the whole stack to the wrapper
   in one launch, as ``pallas_call``'s batching rule runs the Pallas kernel
@@ -104,10 +106,12 @@ def _counts_cuda(preds: Tensor, target: Tensor, device: torch.device) -> Tuple[T
 def _batched_counts_cuda(preds: Tensor, target: Tensor,
                          device: torch.device) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """The batched form of :func:`_counts_cuda`: one launch counts every
-    ``(N, C)`` slice of the stack into the ``(4, B, C)`` output."""
+    ``(N, C)`` slice of the stack into the ``(4, B, C)`` output, which the C
+    entry fills itself (short slices store every cell, long ones are zeroed
+    on the stream first), so it is allocated without a fill."""
     b, n, c = preds.shape
-    out = torch.zeros((4, b, c), dtype=torch.int32, device=device)
-    if b and n and c:
+    out = torch.empty((4, b, c), dtype=torch.int32, device=device)
+    if b and c:
         err = kernel_function("stat_scores_counts_batched_launch", _BATCHED_ARGTYPES)(
             preds.data_ptr(), target.data_ptr(), b, n, c, out.data_ptr(), device.index, current_stream_handle(device))
         check_launch(_OP, err)

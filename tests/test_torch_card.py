@@ -115,6 +115,32 @@ def test_stat_scores_batched_kernel_matches_plain(cuda_device, b, n, c):
     assert _common.launch_count("stat_scores_counts") == 1
 
 
+def _dirty_pool(device, nbytes):
+    """Leave ``nbytes`` of the caching allocator's pool filled with -1, so an
+    output allocated without a fill next shows every cell a kernel fails to write."""
+    torch.full((nbytes // 4,), -1, dtype=torch.int32, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c", [(4096, 1, 10), (70_000, 1, 3), (3, 5, 1000), (5, 0, 7), (1, 32, 300),
+                                   (2000, 33, 10)])
+def test_stat_scores_short_slices_match_plain(cuda_device, b, n, c):
+    """B1's short-slice layout (one thread a (slice, column) pair, every
+    cell stored): the keyed rows' (4096, 1, 10), 70,000 slices past the z
+    form's 65,535, a mid shape, empty slices, the 32-row edge; and 2000
+    slices of 33 rows, whose z grid is full without splitting a slice. The
+    output comes from a pool of -1s, so a cell left unwritten shows."""
+    rng = np.random.RandomState(b + n + c)
+    preds, target = (torch.from_numpy(rng.randint(0, 3, (b, n, c)).astype(np.int32)).to(cuda_device)
+                     for _ in range(2))
+    _dirty_pool(cuda_device, 16 * b * c)
+    got = stat_scores_counts_cuda(preds, target)
+    torch.cuda.synchronize()
+    for g, w in zip(got, stat_scores_counts_torch(preds, target)):
+        assert g.shape == (b, c) and torch.equal(g, w)
+    assert _common.launch_count("stat_scores_counts") == 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,c,dtype", [(1, 1000, torch.int64), (1024, 3, torch.int64), (1024, 64, torch.int32),
                                        (1024, 1000, torch.int64)])
@@ -128,22 +154,41 @@ def test_confmat_kernel_matches_plain(cuda_device, n, c, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n,c,dtype,limit", [(1, 1, 1, torch.int64, None), (8192, 1, 16, torch.int64, None),
-                                               (20, 1024, 1000, torch.int64, None),
-                                               (3, 1023, 129, torch.int32, None), (30, 7, 20, torch.int64, 50)])
-def test_confmat_batched_kernel_matches_plain(cuda_device, monkeypatch, b, n, c, dtype, limit):
-    """B2's batched form at the keyed rows' shape (8,192 length-1 rows of
-    16 classes) and the bootstrap's (20 children of 1,024 pairs over 1,000
-    classes), one launch for the stack; with the kernel's side limit cut to
-    50, six rows a square and five launches; out-of-range pairs dropped."""
-    if limit:
-        monkeypatch.setattr(cm, "_MAX_CLASSES", limit)
+@pytest.mark.parametrize("b,n,c", [(1, 1, 1), (8192, 1, 16), (256, 1, 16), (20, 1024, 1000), (3, 1023, 129),
+                                   (30, 7, 20), (40, 3, 110), (40, 3, 111), (9, 50, 200), (5, 20, 241),
+                                   (5, 20, 242), (7, 0, 5)])
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+def test_confmat_batched_kernel_matches_plain(cuda_device, b, n, c, dtype):
+    """B2's batched entry at the keyed rows' shapes (8,192 and 256
+    length-1 rows of 16 classes) and the bootstrap's (20 children of 1,024
+    pairs over 1,000 classes), one launch for the stack; on both sides of
+    the 48 KB line (C = 110, 111) and of the shared route's opt-in limit
+    (C = 241, 242); odd C, whose blocks start unaligned; empty rows. Labels
+    in [-1, C], so out-of-range pairs are dropped; the output comes from a
+    pool of -1s, so a cell left unwritten shows."""
     rng = np.random.RandomState(b + c)
     preds, target = (torch.from_numpy(rng.randint(-1, c + 1, (b, n))).to(cuda_device, dtype) for _ in range(2))
+    _dirty_pool(cuda_device, 4 * b * c * c)
     got = cm.confmat_counts_batched_cuda(preds, target, c)
     torch.cuda.synchronize()
     assert got.shape == (b, c, c) and torch.equal(got, cm.confmat_counts_batched_torch(preds, target, c))
-    assert _common.launch_count("confmat_counts") == -(-b // (cm._MAX_CLASSES ** 2 // (c * c)))
+    assert _common.launch_count("confmat_counts") == 1
+
+
+@pytest.mark.cuda
+def test_confmat_batched_kernel_past_2_31_cells(cuda_device):
+    """One stack of 2049 x 1024 x 1024 cells, past 2^31: one launch at
+    int64 offsets, compared slice by slice."""
+    b, c = 2049, 1024
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    preds, target = (torch.randint(-1, c + 1, (b, 1), generator=gen, device=cuda_device) for _ in range(2))
+    got = cm.confmat_counts_batched_cuda(preds, target, c)
+    torch.cuda.synchronize()
+    assert got.shape == (b, c, c) and _common.launch_count("confmat_counts") == 1
+    for i in range(b):
+        assert torch.equal(got[i], confmat_counts_torch(preds[i], target[i], c)), i
+    keep = ((preds >= 0) & (preds < c) & (target >= 0) & (target < c)).sum()
+    assert int(got.sum(dtype=torch.int64)) == int(keep)
 
 
 @pytest.mark.cuda
@@ -258,7 +303,8 @@ def test_keyed_collection_on_the_card_matches_the_cpu(cuda_device):
         card.update(_t(ids).to(cuda_device), _t(preds).to(cuda_device), _t(target).to(cuda_device))
         host.update(_t(ids), _t(preds), _t(target))
     assert _common.launch_count("segment_scatter_add") == 6 and _common.launch_count("segment_scatter_max") == 3
-    assert _common.launch_count("stat_scores_counts") == 0
+    # the macro bundle's rows: one B1 launch an update, over the (256, 1, C) stack
+    assert _common.launch_count("stat_scores_counts") == 3
     for owner, km in host._keyed.items():
         for name, value in km._get_states().items():
             assert torch.equal(getattr(card._keyed[owner], name).cpu(), value)
@@ -317,6 +363,7 @@ def test_the_queue_on_the_card_matches_the_cpu(cuda_device, staging):
         assert all(s is None or s.tensors[0].is_pinned() for s in queues[0]._slots._slots)
     assert _common.launch_count("segment_scatter_add") == 2 * len(cohorts)
     assert _common.launch_count("segment_scatter_max") == len(cohorts)
+    assert _common.launch_count("stat_scores_counts") == len(cohorts)
     for owner, km in host._keyed.items():
         for name, value in km._get_states().items():
             assert torch.equal(getattr(card._keyed[owner], name).cpu(), value)
@@ -443,7 +490,46 @@ def test_a_captured_then_replayed_launch_equals_the_plain_version(cuda_device, c
     input buffers: every replay equals the plain version exactly (B3's rows
     are integer-valued), and each replay counts one launch (the capture's
     tally), the capture none."""
-    name, op, make, kernel, plain = _graph_cases(cuda_device)[case]
+    _capture_and_replay(*_graph_cases(cuda_device)[case])
+
+
+def _batched_graph_cases(dev):
+    """The batched forms of B1 and B2 at the keyed rows' shapes, B2's global
+    route (its memset is captured too) and a shared route past 48 KB (the
+    opt-in is set while the capture runs)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+
+    def binary(b, n, c):
+        return lambda: tuple(torch.randint(0, 2, (b, n, c), generator=gen, device=dev, dtype=torch.int32)
+                             for _ in range(2))
+
+    def labels(b, n, c):
+        return lambda: tuple(torch.randint(-1, c + 1, (b, n), generator=gen, device=dev) for _ in range(2))
+
+    def b2(c):
+        return (lambda p, t: (cm.confmat_counts_batched_cuda(p, t, c, device=dev),),
+                lambda p, t: (cm.confmat_counts_batched_torch(p, t, c),))
+
+    return [
+        ("B1 short slices", "stat_scores_counts", binary(4096, 1, 10),
+         lambda p, t: stat_scores_counts_cuda(p, t, device=dev), stat_scores_counts_torch),
+        ("B2 batched shared", "confmat_counts", labels(8192, 1, 16), *b2(16)),
+        ("B2 batched opt-in", "confmat_counts", labels(9, 50, 200), *b2(200)),
+        ("B2 batched global", "confmat_counts", labels(20, 1024, 1000), *b2(1000)),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(4), ids=["B1 short slices", "B2 batched shared", "B2 batched opt-in",
+                                               "B2 batched global"])
+def test_a_captured_batched_launch_equals_the_plain_version(cuda_device, case):
+    """The batched entries inside a capture, as the compiled keyed update
+    takes them: each replay equals the plain version and counts one launch."""
+    _capture_and_replay(*_batched_graph_cases(cuda_device)[case])
+
+
+def _capture_and_replay(name, op, make, kernel, plain):
     static = [x.clone() for x in make()]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())

@@ -8,11 +8,11 @@ answers: the capability of a device is asked once, and a resolved C entry is
 read without the lock, a resolved device is taken as it is. The CUDA path's
 plumbing of B1 and B2 (one call into the C library with the device index
 and the stream handle, no ``torch.cuda.device`` context) is held against a
-fake library, as are B1's batched entry and the vmap rules of B1 and B2 (one
-dispatch for a whole ``torch.func.vmap`` stack); B2's batched form packs
-the stack into the one square the kernel counts, held here with the plain
-version standing in for the launch. The cases that launch the CUDA kernels need a card: they live
-in ``tests/test_torch_card.py``.
+fake library, as are the batched entries of B1 (a bootstrap's stack and the
+keyed rows' ``(R, 1, C)`` stack) and B2 (one call, no index ops, the
+output its only allocation) and the vmap rules of B1 and B2 (one dispatch
+for a whole ``torch.func.vmap`` stack). The cases that launch the CUDA
+kernels need a card: they live in ``tests/test_torch_card.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -154,37 +154,6 @@ def test_stacked_confmat_under_vmap_dispatch_once_for_the_whole_stack(target_bat
         for j in range(3):
             assert torch.equal(nested[i, j], confmat_counts_torch(p[i, j], t[i, j] if target_batched else t, 6))
     assert _common.launch_count("confmat_counts") == 0
-
-
-@pytest.mark.parametrize("max_classes", [46340, 9])
-def test_confmat_batched_cuda_path_counts_the_stack_in_one_square(monkeypatch, max_classes):
-    """The CUDA path's packing, with the plain version standing in for the
-    launch: each chunk of rows is one call on its square (one for the whole
-    stack unless ``B * C * C`` passes the kernel's indexing, forced here by
-    a small limit), out-of-range pairs dropped, counts equal to the plain
-    batched version."""
-    calls = []
-
-    def square_counts(preds, target, side, device):
-        calls.append((side, preds.shape, preds.dtype))
-        _common.note_kernel_dispatch("confmat_counts", "cuda")
-        return confmat_counts_torch(preds, target, side)
-
-    monkeypatch.setattr(cm, "_counts_cuda", square_counts)
-    monkeypatch.setattr(cm, "_MAX_CLASSES", max_classes)
-    b, n, c = 7, 30, 4
-    preds, target = (torch.from_numpy(x).reshape(b, n) for x in _labels(b * n, c, seed=12))
-    preds[0, :3] = torch.tensor([-1, 4, 2])
-    target[1, :2] = torch.tensor([5, -3])
-    got = cm._batched_counts_cuda(preds, target, c, torch.device("cpu"))
-    want = cm.confmat_counts_batched_torch(preds, target, c)
-    assert got.shape == (b, c, c) and got.dtype == torch.int32 and torch.equal(got, want)
-    assert int(got.sum()) == b * n - 4
-    chunk = max_classes * max_classes // (c * c)
-    rows = [min(chunk, b - lo) for lo in range(0, b, chunk)]
-    assert [k[1] for k in calls] == [(r * n,) for r in rows]
-    assert all((side - 1) ** 2 < r * c * c <= side * side <= max_classes ** 2 for (side, _, _), r in zip(calls, rows))
-    assert _common.launch_count("confmat_counts") == len(calls) == -(-b // chunk)
 
 
 def test_confmat_out_of_range_pairs_are_dropped():
@@ -367,6 +336,43 @@ def test_stat_scores_batched_cuda_path_makes_one_library_call(fake_library):
     assert len(out) == 4 and all(o.shape == (4, 9) and o.dtype == torch.int32 for o in out)
     assert args[5] == out[0].data_ptr()
     assert _common.launch_count("stat_scores_counts") == 1
+
+
+def test_stat_scores_batched_cuda_path_gives_the_keyed_rows_one_call(fake_library):
+    """The keyed path's ``(R, 1, C)`` stack of length-1 rows is one call into
+    the batched C entry, which picks its short-slice layout itself."""
+    preds, target = (torch.from_numpy(a).reshape(4096, 1, 10) for a in _binary(4096, 10, seed=9))
+    out = st._batched_counts_cuda(preds, target, torch.device("cpu"))
+    assert fake_library.entries == ["stat_scores_counts_batched_launch"] and len(fake_library.calls) == 1
+    args = fake_library.calls[0]
+    assert args[:5] == (preds.data_ptr(), target.data_ptr(), 4096, 1, 10) and args[6:] == (None, 1234)
+    assert len(out) == 4 and all(o.shape == (4096, 10) and o.dtype == torch.int32 for o in out)
+    assert args[5] == out[0].data_ptr()
+    assert _common.launch_count("stat_scores_counts") == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_confmat_batched_cuda_path_makes_one_library_call(fake_library, monkeypatch, dtype):
+    """B2's batched form is one call into its own C entry with the stack's
+    pointers, B, N, C, the index width and the output pointer; the output
+    (allocated without a fill) is its only allocation, and no index op runs
+    on the pairs."""
+    preds, target = (torch.from_numpy(x).to(dtype).reshape(8192, 1) for x in _labels(8192, 16, seed=13))
+    allocated = []
+    real_empty = torch.empty
+    with monkeypatch.context() as mp:
+        mp.setattr(torch, "empty", lambda *a, **k: allocated.append(a) or real_empty(*a, **k))
+        for name in ("zeros", "where", "arange", "cat", "bincount"):
+            mp.setattr(torch, name, _forbid)
+        mp.setattr(torch.Tensor, "long", _forbid)
+        out = cm._batched_counts_cuda(preds, target, 16, torch.device("cpu"))
+    assert fake_library.entries == ["confmat_counts_batched_launch"] and len(fake_library.calls) == 1
+    args = fake_library.calls[0]
+    assert len(args) == len(cm._BATCHED_ARGTYPES)
+    assert args == (preds.data_ptr(), target.data_ptr(), 8192, 1, 16, preds.element_size(), out.data_ptr(), None,
+                    1234)
+    assert allocated == [((8192, 16, 16),)] and out.shape == (8192, 16, 16) and out.dtype == torch.int32
+    assert _common.launch_count("confmat_counts") == 1
 
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])

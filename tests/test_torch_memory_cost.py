@@ -243,8 +243,20 @@ def test_the_collection_seams_renote_the_ledger():
     tobs.LEDGER.untrack(mtc)
 
 
+def _untrack_leftovers(ledger):
+    """Untrack the owners earlier tests in this process left in ``ledger``
+    (kept alive by compiled functions that close over them), so that a
+    whole-ledger comparison sees this test's owners alone."""
+    for entry in list(ledger._entries.values()):
+        owner = entry["ref"]()
+        if owner is not None:
+            ledger.untrack(owner)
+
+
 def test_snapshot_memory_section_and_prometheus_equal_the_jax_package():
     texts = []
+    for mod in (jmemory, tmemory):
+        _untrack_leftovers(mod.LEDGER)
     for mod, obs in ((jmemory, jobs), (tmemory, tobs)):
         owner = _Owner("Owner#0", 4096)
         mod.LEDGER.track(owner)

@@ -140,7 +140,8 @@ def test_collection_update_runs_one_scatter_per_bundle_and_no_count_kernel():
         port.update(_t(rng.randint(0, 4, 24)), _t(preds), _t(target))
     assert _common.dispatch_count("segment_scatter_add", "torch") == 3 * 2
     assert _common.dispatch_count("segment_scatter_max", "torch") == 3
-    assert _common.dispatch_count("stat_scores_counts", "torch") == 0  # per-row terms under vmap
+    # one stacked B1 dispatch an update for the macro P/R/F1 bundle's rows
+    assert _common.dispatch_count("stat_scores_counts", "torch") == 3
     for op in ("segment_scatter_add", "segment_scatter_max", "stat_scores_counts"):
         assert _common.launch_count(op) == 0
 
@@ -386,8 +387,41 @@ def test_row_states_equal_each_rows_own_update(monkeypatch, make, batch):
     for name, value in per_row.items():
         assert value.dtype == child._defaults[name].dtype
         np.testing.assert_array_equal(value.numpy(), np.asarray(want[name]), err_msg=name)
-    # only the rows' own updates (with macro counts) ran the count pass
-    assert _common.dispatch_count("stat_scores_counts", "torch") == (len(target) if child.reduce == "macro" else 0)
+    # a macro child: one stacked dispatch for all rows, beside each row's own update
+    assert _common.dispatch_count("stat_scores_counts", "torch") == (len(target) + 1 if child.reduce == "macro" else 0)
+
+
+@pytest.mark.parametrize(
+    "make,batch",
+    [
+        (lambda pkg, **d: pkg.Precision(average="macro", num_classes=NC, **d), lambda rng: _probs_batch(rng, rows=12)),
+        (lambda pkg, **d: pkg.Recall(average="macro", num_classes=NC, **d), lambda rng: _probs_batch(rng, rows=12)),
+        (lambda pkg, **d: pkg.F1(average="macro", num_classes=NC, **d), lambda rng: _probs_batch(rng, rows=12)),
+        (lambda pkg, **d: pkg.StatScores(reduce="macro", num_classes=NC, **d),
+         lambda rng: (rng.randint(0, NC, 12), rng.randint(0, NC, 12))),
+    ],
+    ids=["Precision", "Recall", "F1", "StatScores"],
+)
+def test_length_1_macro_rows_reach_b1_as_one_stack(monkeypatch, make, batch):
+    """Each keyed row is a length-1 batch under ``torch.func.vmap``; its
+    macro counts go through B1's vmap rule, which hands the wrapper the whole
+    ``(R, 1, C)`` stack in one dispatch (one launch on the card). The row
+    states equal the JAX package's exactly."""
+    from metrics_tpu_torch.kernels import stat_scores as st
+
+    preds, target = batch(np.random.RandomState(7))
+    shapes = []
+    wrapper = st.stat_scores_counts_cuda
+    monkeypatch.setattr(st, "stat_scores_counts_cuda",
+                        lambda p, t, device="cuda": shapes.append(tuple(p.shape)) or wrapper(p, t, device=device))
+    per_row = row_states(make(T, **CPU), (_t(preds), _t(target)), {})
+    assert shapes == [(len(target), 1, NC)]
+    assert _common.dispatch_count("stat_scores_counts", "torch") == 1
+    want = jax_row_states(make(J), (_j(preds), _j(target)), {})
+    assert sorted(per_row) == sorted(want)
+    for name, value in per_row.items():
+        assert value.dtype == torch.int32 and value.shape[0] == len(target), name
+        np.testing.assert_array_equal(value.numpy(), np.asarray(want[name]), err_msg=name)
 
 
 def test_stack_helpers_and_vmap_update():

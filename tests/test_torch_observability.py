@@ -438,8 +438,9 @@ def test_disabled_telemetry_reads_no_clock(monkeypatch):
 
 def test_snapshot_kernels_counts_the_cpu_dispatches():
     """Five collection batches: B1 and B2 once per batch (the shared class
-    and the confusion-matrix class); three keyed updates: B3 once per bundle
-    and B4 once for Accuracy's ``"max"`` leaf; three sketched batches: B5
+    and the confusion-matrix class); three keyed updates: B3 once per bundle,
+    B4 once for Accuracy's ``"max"`` leaf and B1 once for the macro bundle's
+    rows (one stacked dispatch); three sketched batches: B5
     once each. Where the JAX package's path calls the same op as often (the
     keyed scatter, the histograms), its ``"xla"`` count is the same."""
     tcommon.reset_dispatch_counters()
@@ -449,7 +450,7 @@ def test_snapshot_kernels_counts_the_cpu_dispatches():
     port = tobs.snapshot()["kernels"]["dispatch"]
     ref = jobs.snapshot()["kernels"]["dispatch"]
     assert port == {
-        "stat_scores_counts": {"torch": 5},
+        "stat_scores_counts": {"torch": 5 + 3},
         "confmat_counts": {"torch": 5},
         "segment_scatter_add": {"torch": 6},
         "segment_scatter_max": {"torch": 3},
