@@ -28,12 +28,21 @@ Phases, in order; any failure exits non-zero before the last line:
    vector width B3 takes (D = 40, 8, 6, 4, 2, 1 at the keyed path's shapes,
    and ragged shapes), each with int64 and int32 ids and with rows 16-, 4-
    and 8-byte aligned (views that start one or two floats into a buffer).
+   B5's batched entry (``hist_batched_parity``) is held the same way, one
+   launch a stack, at the keyed binary rows' (4096, 1, 1), the keyed
+   10-class rows' (4096, 1, 10) and a bootstrap's (20, 1024, 1000) stacks,
+   at C = 7, 65,536 slices (a last z group of one), slices of no row,
+   ragged tiles, scores 4 bytes into their buffer, dense labels and int32 and
+   int64 class ids (some outside [0, C)), every bin edge, the global mode,
+   and outputs past 2^31 cells in the store mode ((131,200, 1, 8)) and the
+   global mode ((66,000, 1, 1) at B = 32,768).
 2b. Each kernel's wrapper captured once into a CUDA graph
    (``capture_error_mode="thread_local"``, as the compiled step captures) at
    its path's shape and replayed twice on fresh inputs, each replay equal
    to the plain version (B3's float sums within rtol = atol = 1e-5): B1, B2,
    B3, B4 max, B5 with class ids and B5's add mode (the binary stream's
-   shape), the cooperative launches among them.
+   shape), the cooperative launches among them, and B5's batched entry at
+   the keyed binary rows' stack.
 3. The first path: ImageNet-1k evaluation (1000 classes, the 50,000-image
    validation split in batches of 1024 float32 softmax rows, 49 ``forward``
    calls, then ``compute()``) through
@@ -359,9 +368,37 @@ Phases, in order; any failure exits non-zero before the last line:
    ``reduce_states``, a restore through ``place_state``) == the replicated
    state, a 1 x 1 ``Hierarchy`` == the flat sync, ``InGraphTransport`` == the
    eager pair. ``durability_phase_main()`` runs 3o alone.
+3p. The keyed and bootstrapped sketched curves, B5's batched form (after
+   3o). (a) ``KeyedMetric(AUROC(sketched=True))`` over 10,000 tenants (2048
+   bins over (0, 1); a 164 MB state): phase 3b's 50 cohorts of tenant ids
+   with the binary stream's scores and labels, 4096 at a time, then
+   ``compute()``: B5 batched 50 (one (4096, 1, 1) stack an update), B3 50,
+   no plain B5 dispatch; states == the CPU run's exactly, values within
+   1e-6; four tenants' AUROC == their own rows' unkeyed sketched AUROC on
+   the card; the idle share of ten updates. (b) ``KeyedMetric(AUROC(
+   num_classes=10, sketched=True))`` (a 1.64 GB state) over the first 10 of
+   phase 3b's cohorts, cut for the CPU twin's time: B5 10 (class ids), B3
+   10, == CPU. (c) (a) under ``warmup`` + ``update_many`` (K = 5, captured
+   by a first call, then ``reset()``): B5 50 and B3 50 through the replays,
+   states == (a)'s. (d) ``BootStrapper(AUROC(num_classes=1000,
+   sketched=True), 20)`` through ``init_state``/``apply_update``/
+   ``apply_compute`` over 5 ImageNet-1k batches: B5 5 (one (20, 1024, 1000)
+   stack an update), the children's histograms == a CPU replay of the card's
+   index matrices exactly, the statistics within 1e-6 (NaN in the same
+   places). (b) and (d) also compute their states per class
+   (``average=None``) on both devices, since their macro values are NaN
+   (a tenant or a resample with a class of one label): at least one finite
+   value must be compared, within 1e-6. At each of the three stacks, B5
+   batched's wrapper, device and graph time, the plain batched version and
+   ``torch.bincount`` over the same flat index, beside the byte bound. The
+   kernel's device time is the mean of the profile's records (a long
+   process's profile drops some; their count is printed); one still below
+   the bound is kept apart and the graph's time reported as the device
+   time. ``sketched_keyed_phase_main()``
+   runs 3p alone.
 5. One JSON line ``{"kernels": [...]}`` (the five kernels, then the batched
-   forms of B1 and B2 as entries of their own), the card line again, and,
-   last, ``{"ok": true, "device": {...}}``.
+   forms of B1, B5 and B2 as entries of their own), the card line again,
+   and, last, ``{"ok": true, "device": {...}}``.
 
 With ``--record PATH`` the full record (every parity case, every forward's
 time, the profile, the timings) is also written to PATH as JSON.
@@ -503,6 +540,28 @@ def device_ms(fn, reps: int = REPS):
     return total_us / reps / 1e3 if total_us > 0 else None
 
 
+def device_ms_records(fn, reps: int = REPS) -> tuple:
+    """Device time of one call of ``fn``, which runs each of its device
+    operations once a call, by the profiler, and how many records of its
+    busiest operation the profile holds (``reps`` where none was dropped).
+    A long process's profile can drop records, and :func:`device_ms`, which
+    divides by the calls, then reads short: here each operation's time is
+    the mean of the records the profile holds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in _device_events(prof) if e.count]
+    total_us = sum(e.self_device_time_total / e.count for e in events)
+    records = max(events, key=lambda e: e.self_device_time_total).count if events else 0
+    return (total_us / 1e3 if total_us > 0 else None), records
+
+
 def graph_ms(fn, reps: int = REPS) -> float:
     """Device time of one call of ``fn`` without the host's launch cost:
     ``reps`` calls captured into one CUDA graph (their launches counted per
@@ -569,6 +628,8 @@ def graph_probe(torch, dev) -> dict:
         _label_score_histograms_onevsrest,
         _onevsrest_torch,
         histogram_plan,
+        label_score_histograms_batched_cuda,
+        label_score_histograms_batched_torch,
         label_score_histograms_cuda,
         label_score_histograms_torch,
     )
@@ -596,6 +657,10 @@ def graph_probe(torch, dev) -> dict:
         s = torch.rand((STREAM_CHUNK, 1), generator=gen, device=dev)
         return s, (torch.rand((STREAM_CHUNK, 1), generator=gen, device=dev) < s).to(torch.int32)
 
+    def keyed_rows():
+        s = torch.rand((KEYED_ROWS, 1, 1), generator=gen, device=dev)
+        return s, (torch.rand((KEYED_ROWS, 1, 1), generator=gen, device=dev) < s).to(torch.int32)
+
     def canonical():
         return (torch.randint(0, 2, (BATCH, NUM_CLASSES), generator=gen, device=dev, dtype=torch.int32),
                 torch.randint(0, 2, (BATCH, NUM_CLASSES), generator=gen, device=dev, dtype=torch.int32))
@@ -621,6 +686,9 @@ def graph_probe(torch, dev) -> dict:
         ("label_score_histograms_stream", stream,
          lambda s, t: label_score_histograms_cuda(s, t, NUM_BINS, device=dev),
          lambda s, t: label_score_histograms_torch(s, t, NUM_BINS), 0.0),
+        ("label_score_histograms_batched", keyed_rows,
+         lambda s, t: label_score_histograms_batched_cuda(s, t, NUM_BINS, device=dev),
+         lambda s, t: label_score_histograms_batched_torch(s, t, NUM_BINS), 0.0),
     ]
     out = {}
     for name, make, kernel, plain, tol in cases:
@@ -1477,6 +1545,16 @@ def tree_max_diff(torch, got, want) -> float:
         fail(f"{tuple(got.shape)} {got.dtype} on the card against {tuple(want.shape)} {want.dtype} on the CPU, "
              "or NaN in other places")
     return float(torch.nan_to_num(got - want).abs().max()) if got.numel() else 0.0
+
+
+def finite_max_diff(torch, label, got, want) -> tuple:
+    """:func:`tree_max_diff`, and how many finite values it compared: fails
+    where there is none, since NaN against NaN passes it on any output."""
+    diff = tree_max_diff(torch, got, want)
+    finite = sum(int(torch.isfinite(w).sum()) for w in (want if isinstance(want, (list, tuple)) else (want,)))
+    if not finite:
+        fail(f"{label}: no finite value to compare with the CPU's")
+    return diff, finite
 
 
 def profile_steps(torch, step, inputs):
@@ -4821,6 +4899,407 @@ def durability_phase_main(record_path: str = "") -> int:
     return _phase_alone(durability_phase, record_path)
 
 
+# --------------------------------------------------------------------------
+# phase 3p: the keyed and bootstrapped sketched curves (B5's batched form)
+# --------------------------------------------------------------------------
+
+#: phase 3p-b's cut: the first 10 of phase 3b's cohorts (the CPU twin's
+#: 1.64 GB keyed state is updated on the host, about a second an update)
+SKETCH_CLASS_COHORTS = 10
+#: phase 3p-d: the pure bootstrap over the first 5 ImageNet-1k batches
+SKETCH_BOOT_BATCHES = 5
+_HIST_STATES = ("pos_hist", "neg_hist", "sketch_clipped")
+
+
+def keyed_binary_cohorts(torch, keyed_batches, device):
+    """Phase 3b's 50 cohorts of tenant ids (the last one 3000 real rows,
+    padded with id -1) with the binary scorer stream's scores and labels,
+    4096 at a time."""
+    chunks = make_stream(torch, device)
+    scores = torch.cat([s for s, _ in chunks])
+    labels = torch.cat([t for _, t in chunks])
+    return [(ids, scores[k * KEYED_ROWS:(k + 1) * KEYED_ROWS], labels[k * KEYED_ROWS:(k + 1) * KEYED_ROWS])
+            for k, (ids, _, _) in enumerate(keyed_batches)]
+
+
+def build_sketched_keyed(M, device, **kw):
+    """``KeyedMetric(AUROC(sketched=True))`` over 10,000 tenants at the class
+    default of 2048 bins over (0, 1)."""
+    return M.KeyedMetric(M.AUROC(sketched=True, device=device, **kw), num_tenants=KEYED_TENANTS,
+                         validate_ids=False, device=device)
+
+
+def _hist_batched_stack(torch, dev, r, n, c, dense, gen):
+    """One stack as B5's batched entry takes it: uniform scores with dense
+    int32 labels or int64 class ids (some outside [0, C))."""
+    scores = torch.rand((r, n, c), generator=gen, device=dev)
+    if dense:
+        return scores, torch.randint(0, 2, (r, n, c), generator=gen, device=dev, dtype=torch.int32)
+    return scores, torch.randint(-1, c + 1, (r, n), generator=gen, device=dev)
+
+
+def hist_batched_timing(torch, dev, label, scores, labels) -> dict:
+    """B5's batched wrapper at one stack: wrapper (CUDA events), device time
+    (profiler) and its split, 50 calls in one replayed graph, the plain
+    version, ``torch.bincount`` over the same flat (slice, label, class, bin)
+    index (computed outside the timed region) and the byte bound."""
+    from metrics_tpu_torch.kernels.binned_counts import (
+        _bin_index,
+        label_score_histograms_batched_cuda,
+        label_score_histograms_batched_torch,
+    )
+
+    r, n, c = scores.shape
+    dense = labels.ndim == 3
+    cells = c * NUM_BINS
+    positive = labels == 1 if dense else labels.unsqueeze(-1) == torch.arange(c, device=dev)
+    flat = (torch.arange(r, device=dev).view(r, 1, 1) * (2 * cells) + torch.where(positive, 0, cells)
+            + torch.arange(c, device=dev) * NUM_BINS + _bin_index(scores, NUM_BINS, 0.0, 1.0)).reshape(-1)
+    calls = {"ms": lambda: label_score_histograms_batched_cuda(scores, labels, NUM_BINS, device=dev),
+             "plain_ms": lambda: label_score_histograms_batched_torch(scores, labels, NUM_BINS),
+             "library_ms": lambda: torch.bincount(flat, minlength=r * 2 * cells)}
+    label_bytes = r * n * c * 4 if dense else r * n * labels.element_size()
+    bound_ms, bound_by = bound(r * n * c * 4 + label_bytes + 2 * r * cells * 4 + r * 4, 4 * r * n * c)
+    out = {"shape": f"{label}: scores ({r}, {n}, {c}) float32, "
+                    + (f"labels ({r}, {n}, {c}) int32" if dense else f"class ids ({r}, {n}) {labels.dtype}")
+                    + f", B={NUM_BINS}",
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    for key, fn in calls.items():
+        out[key] = cuda_ms(fn)
+        out[key.replace("ms", "device_ms")] = device_ms(fn) if key != "ms" else None
+    out["device_ms"], out["profiler_records"] = device_ms_records(calls["ms"])
+    out["graph_ms"] = graph_ms(calls["ms"])
+    out["device_split_us"] = device_split(calls["ms"])
+    out["device_ms_from"] = "profiler"
+    if out["device_ms"] is not None and out["device_ms"] < bound_ms:
+        # a profiler time below the byte bound is no time the card can take for the work (PERF.md section 6,
+        # scripts/torch_hist_ab.py --profiler-check): the kernel's time is the replayed graph's
+        out["profiler_device_ms"], out["device_ms"], out["device_ms_from"] = out["device_ms"], out["graph_ms"], "graph"
+    print(f"[sketched keyed] B5 batched at {out['shape']}: wrapper {out['ms']:.4f} ms (device "
+          f"{out['device_ms']:.4f} from the {out['device_ms_from']}"
+          + (f", the profiler's {out['profiler_device_ms']:.4f} below the bound" if "profiler_device_ms" in out else "")
+          + f"; {out['profiler_records']} kernel records of {REPS} calls in its profile"
+          + f"; in a replayed graph of 50 calls {out['graph_ms']:.4f}), plain "
+          f"{out['plain_ms']:.4f} ms ({out['plain_device_ms']:.4f}), torch.bincount {out['library_ms']:.4f} ms "
+          f"({out['library_device_ms']:.4f}), bound {bound_ms:.4f} ms ({bound_by}); device split "
+          + "; ".join(f"{us:.2f} us {name}" for name, us in out["device_split_us"].items()))
+    return out
+
+
+def hist_batched_parity(torch, dev, gen, parity) -> float:
+    """Phase 2, B5's batched entry: each stack counted by one call of the
+    wrapper (one launch counted) == the plain batched version on the card
+    exactly, and == the plain version on the CPU where the stack fits the
+    host's time (the card's plain version divides by a device tensor). The
+    three paths' stacks, ragged ones (C = 7, a last z group of one slice,
+    slices of no row, ragged tiles, misaligned scores), both label forms
+    with int32 and int64 ids (some outside [0, C)), every bin edge with its
+    float32 neighbours and NaN, +-inf and subnormal scores, the global mode,
+    and outputs past 2^31 cells in both modes. Returns the largest
+    |kernel - plain|."""
+    from metrics_tpu_torch.kernels import _common
+    from metrics_tpu_torch.kernels.binned_counts import (
+        batched_histogram_plan,
+        label_score_histograms_batched_cuda,
+        label_score_histograms_batched_torch,
+    )
+
+    def stack(r, n, c, form):
+        scores, labels = _hist_batched_stack(torch, dev, r, n, c, form == "dense", gen)
+        return scores, labels if form != "ids32" else labels.to(torch.int32)
+
+    cases = [(f"({r}, {n}, {c}) B={b} {form}{note}", *stack(r, n, c, form), b, 0.0, 1.0, on_cpu)
+             for r, n, c, b, form, note, on_cpu in [
+                 (KEYED_ROWS, 1, 1, NUM_BINS, "dense", ", the keyed binary rows", True),
+                 (KEYED_ROWS, 1, KEYED_CLASSES, NUM_BINS, "ids64", ", the keyed 10-class rows", True),
+                 (BOOTSTRAPS, BATCH, NUM_CLASSES, NUM_BINS, "ids64", ", a bootstrap's resamples", True),
+                 (300, 5, 7, NUM_BINS, "dense", "", True), (300, 5, 7, NUM_BINS, "ids32", "", True),
+                 (65_536, 1, 1, NUM_BINS, "dense", ", a last z group of one slice", True),
+                 (5, 0, 7, NUM_BINS, "dense", ", no rows", True), (5, 0, 7, NUM_BINS, "ids64", ", no rows", True),
+                 (3, 64, 1001, NUM_BINS, "ids32", ", ragged tiles", True),
+                 (4, 300, 1000, NUM_BINS, "dense", ", 16-byte loads", True),
+                 (3, 16, 4, 65536, "dense", ", global mode", True), (5, 7, 3, 40_000, "ids64", ", global mode", True),
+                 (131_200, 1, 8, NUM_BINS, "dense", ", past 2^31 cells an output", False),
+                 (66_000, 1, 1, 32_768, "ids64", ", global mode past 2^31 cells and 65,535 slices", False),
+             ]]
+    buf = torch.rand(8 * 16 * 8 + 1, generator=gen, device=dev)
+    cases.append(("(8, 16, 8) B=2048 dense, scores 4 bytes into their buffer", buf[1:].view(8, 16, 8),
+                  torch.randint(0, 2, (8, 16, 8), generator=gen, device=dev, dtype=torch.int32), NUM_BINS, 0.0, 1.0,
+                  True))
+    for b, lo, hi in [(NUM_BINS, 0.0, 1.0), (1000, 0.0, 1.0), (4096, 0.1, 0.7)]:
+        edges = edge_scores(torch, dev, b, lo, hi)
+        alternate = (torch.arange(edges.shape[0], device=dev) % 2).int()
+        cases.append((f"every edge of B={b} over ({lo}, {hi}) with neighbours, NaN, +-inf, subnormals: a slice each",
+                      edges.reshape(-1, 1, 1), alternate.reshape(-1, 1, 1), b, lo, hi, True))
+        cases.append(("the same in one slice, class ids of 3 columns", edges.reshape(1, -1, 1).expand(1, -1, 3)
+                      .contiguous(), alternate.reshape(1, -1).long(), b, lo, hi, True))
+    worst = 0.0
+    for label, scores, labels, b, lo, hi, on_cpu in cases:
+        before = _common.launch_count("label_score_histograms")
+        got = label_score_histograms_batched_cuda(scores, labels, b, lo, hi, device=dev)
+        torch.cuda.synchronize()
+        if _common.launch_count("label_score_histograms") != before + 1:
+            fail(f"label_score_histograms' batched form did not count one launch: {label}")
+        want = label_score_histograms_batched_torch(scores, labels, b, lo, hi)
+        ok = all(g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w) for g, w in zip(got, want))
+        if ok and on_cpu:
+            ok = trees_equal(torch, got, label_score_histograms_batched_torch(scores.cpu(), labels.cpu(), b, lo, hi))
+        err = 0.0 if ok else max(float((g - w).abs().max()) for g, w in zip(got, want) if g.numel())
+        worst = max(worst, err)
+        plan = batched_histogram_plan(scores.shape[1], scores.shape[2], b)
+        mode = ("store", "add", "global")[plan.mode]
+        parity.append({"kernel": "label_score_histograms_batched", "case": label, "equal": ok, "max_abs_err": err,
+                       "clipped": float(got[2].sum())})
+        print(f"[parity] label_score_histograms batched {label}: {'equal' if ok else 'DIFFERENT'} (kernel == plain "
+              f"on the card{' == plain on the CPU' if on_cpu else ''}; clipped {float(got[2].sum()):.0f}; {mode}, "
+              f"{plan.tiles} tiles of {plan.k} a slice, {plan.threads} threads)")
+        if not ok:
+            fail(f"label_score_histograms' batched form differs from its plain version: {label}")
+        del got, want
+        torch.cuda.empty_cache()
+    return worst
+
+
+def _sketched_keyed_run(torch, _common, label, gpu, cpu, cohorts, want_launches, per_class=None) -> dict:
+    """One keyed sketched run: the updates on the card (timed, launches
+    counted, no plain B5 dispatch), ``compute()``, the same cohorts on the
+    CPU twin, the stacked states equal exactly and the values within 1e-6,
+    at least one of them finite. ``per_class``, a pair of the same keyed
+    metric with ``average=None`` on the card and on the CPU, also computes
+    each device's states per class: where every macro value is NaN (a
+    tenant with a class of one label), those hold the finite values."""
+    torch.cuda.synchronize()
+    _common.reset_dispatch_counters()
+    update_ms = []
+    for cohort in cohorts:
+        start = time.perf_counter()
+        gpu.update(*cohort)
+        torch.cuda.synchronize()
+        update_ms.append((time.perf_counter() - start) * 1e3)
+    launches = {op: _common.launch_count(op) for op in KERNEL_OPS}
+    plain = _common.dispatch_count("label_score_histograms", "torch")
+    if launches != want_launches or plain:
+        fail(f"[sketched keyed] {label}: launches {launches} and {plain} plain B5 dispatches, expected "
+             f"{want_launches} and none")
+    start = time.perf_counter()
+    out = gpu.compute()
+    torch.cuda.synchronize()
+    compute_ms = (time.perf_counter() - start) * 1e3
+    for cohort in cohorts:
+        cpu.update(*(x.cpu() for x in cohort))
+    for name, value in cpu._get_states().items():
+        got = getattr(gpu, name)
+        if got.dtype != value.dtype or not torch.equal(got.cpu(), value):
+            fail(f"[sketched keyed] {label}: state {name} on the card differs from the CPU's")
+    if per_class is None:
+        diff, compared = finite_max_diff(torch, f"[sketched keyed] {label}", out, cpu.compute())
+    else:
+        diff = tree_max_diff(torch, out, cpu.compute())
+        gpu_per_class, cpu_per_class = per_class
+        per_class_diff, compared = finite_max_diff(
+            torch, f"[sketched keyed] {label} per class",
+            gpu_per_class.apply_compute(gpu._get_states(), process_group=None),
+            cpu_per_class.apply_compute(cpu._get_states(), process_group=None))
+        diff = max(diff, per_class_diff)
+    if diff > 1e-6:
+        fail(f"[sketched keyed] {label}: values differ from the CPU's by {diff}")
+    finite = out[~out.isnan()]
+    print(f"[sketched keyed] {label}: {len(cohorts)} updates, launches "
+          f"{ {k: v for k, v in launches.items() if v} }, 0 plain B5 dispatches; update median "
+          f"{statistics.median(update_ms):.3f} ms (first {update_ms[0]:.3f}), compute {compute_ms:.3f} ms; states "
+          f"== CPU exactly, values within {diff:.1e} over {compared} finite "
+          f"{'per-class values of the same states' if per_class else 'values'}; {finite.numel()} tenants with a "
+          f"value, mean {float(finite.mean()) if finite.numel() else float('nan'):.6f}")
+    return {"launches": launches, "update_ms": update_ms, "compute_ms": compute_ms, "max_abs_diff_vs_cpu": diff,
+            "finite_values_compared": compared, "tenants_with_value": finite.numel(),
+            "mean": float(finite.mean()) if finite.numel() else None, "values": out}
+
+
+def sketched_keyed_phase(torch, M, dev, card, batches=None, keyed_batches=None) -> dict:
+    """Phase 3p: B5's batched form on its two paths. (a) ``KeyedMetric(
+    AUROC(sketched=True))`` over 10,000 tenants, phase 3b's tenant ids with
+    the binary stream's scores, 50 updates of 4096 rows; (b) the 10-class
+    one-vs-rest ``KeyedMetric(AUROC(num_classes=10, sketched=True))`` over
+    phase 3b's first 10 cohorts; (c) (a) under ``warmup`` + ``update_many``
+    (K = 5); (d) the pure ``BootStrapper`` of sketched 1000-class ``AUROC``
+    (20 resamples) over 5 ImageNet-1k batches. Each launches the batched
+    entry once an update and never the plain version on the card; states
+    == the CPU's exactly, values within 1e-6."""
+    from metrics_tpu_torch.kernels import _common
+    import metrics_tpu_torch.wrappers.bootstrapping as boot
+
+    record = {}
+    if batches is None:
+        batches = make_batches(torch, dev)
+    if keyed_batches is None:
+        keyed_batches = make_keyed_batches(torch, dev)
+    none = {op: 0 for op in KERNEL_OPS}
+
+    # (a) the keyed binary curve
+    cohorts = keyed_binary_cohorts(torch, keyed_batches, dev)
+    gpu, cpu = build_sketched_keyed(M, dev), build_sketched_keyed(M, "cpu")
+    want = {**none, "label_score_histograms": KEYED_UPDATES, "segment_scatter_add": KEYED_UPDATES}
+    binary = _sketched_keyed_run(torch, _common, "(a) binary AUROC", gpu, cpu, cohorts, want)
+    values = binary.pop("values").cpu()
+    scores = torch.cat([s for _, s, _ in cohorts]).cpu()
+    labels = torch.cat([t for _, _, t in cohorts]).cpu()
+    ids = torch.cat([i for i, _, _ in cohorts]).cpu()
+    alone = {}
+    for tenant in torch.nonzero(~values.isnan()).reshape(-1)[:4].tolist():
+        m = M.AUROC(sketched=True, device=dev)
+        rows = ids == tenant
+        m.update(scores[rows].to(dev), labels[rows].to(dev))
+        alone[tenant] = (float(m.compute()), float(values[tenant]))
+        if abs(alone[tenant][0] - alone[tenant][1]) > 1e-6:
+            fail(f"[sketched keyed] tenant {tenant}: keyed AUROC {alone[tenant][1]} against "
+                 f"{alone[tenant][0]} of its own rows alone")
+    print(f"[sketched keyed] (a) tenants' AUROC == their own unkeyed sketched AUROC on the card: {alone}")
+    binary["alone"] = alone
+    binary["state_bytes"] = sum(getattr(gpu, s).numel() * 4 for s in _HIST_STATES)
+    prof = build_sketched_keyed(M, dev)
+    prof.update(*cohorts[0])
+    binary["profile"] = profile_steps(torch, prof.update, cohorts[1:11])
+    p = binary["profile"]
+    print(f"[sketched keyed] (a) 10 updates under the profiler: wall {p['wall_ms']:.3f} ms, device busy "
+          f"{p['device_busy_ms']:.3f} ms (idle share {1 - p['device_busy_ms'] / p['wall_ms']:.3f})")
+    for row in p["top_device"]:
+        print(f"[sketched keyed]   {row['device_us']:10.1f} us  {row['calls']:4d} x  {row['name']}")
+    record["binary"] = binary
+    del prof, cpu
+
+    # (c) (a) compiled: warmup, then update_many with K = 5 ten times
+    many = build_sketched_keyed(M, dev)
+    many.warmup(*cohorts[0])
+    stacks = [[torch.stack([c[j] for c in cohorts[k:k + 5]]) for j in range(3)] for k in range(0, KEYED_UPDATES, 5)]
+    many.update_many(*stacks[0])  # captures the graph (cohorts 0-4 hold no invalid id); then reset()
+    many.reset()
+    torch.cuda.synchronize()
+    _common.reset_dispatch_counters()
+    many_ms = []
+    for stacked in stacks:
+        start = time.perf_counter()
+        many.update_many(*stacked)
+        torch.cuda.synchronize()
+        many_ms.append((time.perf_counter() - start) * 1e3)
+    many_launches = {op: _common.launch_count(op) for op in KERNEL_OPS}
+    if many_launches != want or _common.dispatch_count("label_score_histograms", "torch"):
+        fail(f"[sketched keyed] (c) update_many launched {many_launches}, expected {want} and no plain B5")
+    for name in _HIST_STATES:
+        if not torch.equal(getattr(many, name), getattr(gpu, name)):
+            fail(f"[sketched keyed] (c) update_many's {name} differs from the eager updates'")
+    print(f"[sketched keyed] (c) warmup + update_many (K = 5) x 10: launches "
+          f"{ {k: v for k, v in many_launches.items() if v} } through the replays, states == (a)'s eager updates; "
+          f"per call median {statistics.median(many_ms):.3f} ms")
+    record["compiled"] = {"launches": many_launches, "update_many_ms": many_ms}
+    del many, stacks
+
+    # the batched entry at the keyed binary rows' stack, as the vmap rule hands it over
+    _, first_scores, first_labels = cohorts[0]
+    timing = {"keyed_binary": hist_batched_timing(
+        torch, dev, "keyed binary rows", first_scores.reshape(KEYED_ROWS, 1, 1).contiguous(),
+        (first_labels == 1).to(torch.int32).reshape(KEYED_ROWS, 1, 1))}
+    del gpu, cohorts
+
+    # (b) the keyed 10-class one-vs-rest curve, first cohorts only
+    gpu = build_sketched_keyed(M, dev, num_classes=KEYED_CLASSES)
+    cpu = build_sketched_keyed(M, "cpu", num_classes=KEYED_CLASSES)
+    want_b = {**none, "label_score_histograms": SKETCH_CLASS_COHORTS, "segment_scatter_add": SKETCH_CLASS_COHORTS}
+    per_class = tuple(build_sketched_keyed(M, d, num_classes=KEYED_CLASSES, average=None) for d in (dev, "cpu"))
+    multiclass = _sketched_keyed_run(torch, _common, "(b) 10-class one-vs-rest AUROC", gpu, cpu,
+                                     keyed_batches[:SKETCH_CLASS_COHORTS], want_b, per_class)
+    multiclass.pop("values")
+    multiclass["state_bytes"] = sum(getattr(gpu, s).numel() * 4 for s in _HIST_STATES)
+    record["multiclass"] = multiclass
+    del gpu, cpu, per_class
+    ids0, preds0, target0 = keyed_batches[0]
+    timing["keyed_classes"] = hist_batched_timing(
+        torch, dev, "keyed 10-class rows", preds0.reshape(KEYED_ROWS, 1, KEYED_CLASSES).contiguous(),
+        target0.reshape(KEYED_ROWS, 1))
+
+    # (d) the pure bootstrap of sketched 1000-class AUROC
+    def build_boot(device, average="macro"):
+        return M.BootStrapper(M.AUROC(num_classes=NUM_CLASSES, sketched=True, average=average, device=device),
+                              num_bootstraps=BOOTSTRAPS, seed=SEED)
+
+    real_indices, matrices = boot._bootstrap_indices, []
+
+    def recording_indices(*args, **kwargs):
+        idx = real_indices(*args, **kwargs)
+        matrices.append(idx)
+        return idx
+
+    boot_batches = batches[:SKETCH_BOOT_BATCHES]
+    pure = build_boot(dev)
+    state = pure.init_state()
+    torch.cuda.synchronize()
+    _common.reset_dispatch_counters()
+    boot._bootstrap_indices = recording_indices
+    pure_ms = []
+    try:
+        for preds, target in boot_batches:
+            start = time.perf_counter()
+            state = pure.apply_update(state, preds, target)
+            torch.cuda.synchronize()
+            pure_ms.append((time.perf_counter() - start) * 1e3)
+    finally:
+        boot._bootstrap_indices = real_indices
+    pure_launches = {op: _common.launch_count(op) for op in KERNEL_OPS}
+    want_d = {**none, "label_score_histograms": SKETCH_BOOT_BATCHES}
+    if pure_launches != want_d or _common.dispatch_count("label_score_histograms", "torch"):
+        fail(f"[sketched keyed] (d) the pure bootstrap launched {pure_launches}, expected {want_d} and no plain B5")
+    start = time.perf_counter()
+    stats = pure.apply_compute(state, process_group=None)
+    torch.cuda.synchronize()
+    boot_compute_ms = (time.perf_counter() - start) * 1e3
+    cpu_pure = build_boot("cpu")
+    cpu_state = cpu_pure.init_state()
+    replay = iter(matrices)
+    boot._bootstrap_indices = lambda *a, **k: next(replay).cpu()
+    try:
+        for preds, target in boot_batches:
+            cpu_state = cpu_pure.apply_update(cpu_state, preds.cpu(), target.cpu())
+    finally:
+        boot._bootstrap_indices = real_indices
+    for name in _HIST_STATES:
+        if not torch.equal(state["children"][name].cpu(), cpu_state["children"][name]):
+            fail(f"[sketched keyed] (d) the children's {name} on the card differs from the CPU replay's")
+    want_stats = cpu_pure.apply_compute(cpu_state, process_group=None)
+    # NaN in the same places (tree_max_diff): a resample of 5,120 rows misses some of the 1000 classes'
+    # positives, and the macro AUROC of such a child is NaN in both packages
+    boot_diff = max(tree_max_diff(torch, stats[k], want_stats[k]) for k in stats)
+    # so the statistics per class of the same states hold the finite values compared
+    per_class_stats = build_boot(dev, None).apply_compute(state, process_group=None)
+    want_per_class = build_boot("cpu", None).apply_compute(cpu_state, process_group=None)
+    per_class_diff, compared = finite_max_diff(torch, "[sketched keyed] (d) the bootstrap statistics per class",
+                                               [per_class_stats[k] for k in sorted(want_per_class)],
+                                               [want_per_class[k] for k in sorted(want_per_class)])
+    boot_diff = max(boot_diff, per_class_diff)
+    if boot_diff > 1e-6:
+        fail(f"[sketched keyed] (d) the bootstrap statistics differ from the CPU replay's by {boot_diff}")
+    print(f"[sketched keyed] (d) BootStrapper(AUROC(num_classes={NUM_CLASSES}, sketched=True), {BOOTSTRAPS}) pure "
+          f"over {SKETCH_BOOT_BATCHES} ImageNet-1k batches: launches "
+          f"{ {k: v for k, v in pure_launches.items() if v} }, 0 plain B5 dispatches; apply_update median "
+          f"{statistics.median(pure_ms):.3f} ms, apply_compute {boot_compute_ms:.3f} ms; children's histograms == "
+          f"the CPU replay of the card's index matrices exactly, statistics within {boot_diff:.1e} ({compared} "
+          f"finite statistics per class of the same states compared): mean "
+          f"{float(stats['mean']):.6f} std {float(stats['std']):.6f}")
+    record["bootstrap"] = {"launches": pure_launches, "apply_update_ms": pure_ms, "apply_compute_ms": boot_compute_ms,
+                           "max_abs_diff_vs_cpu": boot_diff, "finite_values_compared": compared,
+                           "mean": float(stats["mean"]), "std": float(stats["std"])}
+    idx = matrices[0]
+    preds0, target0 = boot_batches[0]
+    timing["bootstrap"] = hist_batched_timing(torch, dev, "bootstrap resamples", preds0[idx].contiguous(),
+                                              target0[idx].contiguous())
+    record["timing"] = timing
+    del pure, state, cpu_pure, cpu_state
+    return record
+
+
+def sketched_keyed_phase_main(record_path: str = "") -> int:
+    """Run :func:`sketched_keyed_phase` alone (see :func:`_phase_alone`)."""
+    return _phase_alone(sketched_keyed_phase, record_path)
+
+
 def compute_async_phase(torch, M, dev, batches, card) -> dict:
     """Phase 3h-c: ``compute_async`` of the ImageNet-1k collection after 25 of
     its 49 forwards against a synchronous ``compute()`` at that point."""
@@ -5150,6 +5629,7 @@ def main() -> int:
               f"{plan.tiles} tiles of {plan.k} x {plan.chunks} chunks)")
         if not ok:
             fail(f"label_score_histograms differs from its plain version: {label}")
+    errors["label_score_histograms_batched"] = hist_batched_parity(torch, dev, gen, parity)
     record["parity"] = parity
 
     # -- 2b. each kernel captured into a CUDA graph and replayed ------------------
@@ -5523,6 +6003,9 @@ def main() -> int:
     # -- 3o. durability, resilience and transport -----------------------------------------
     record["durability"] = durability_phase(torch, M, dev, card)
 
+    # -- 3p. the keyed and bootstrapped sketched curves: B5's batched form ---------------
+    record["sketched_keyed"] = sketched_keyed_phase(torch, M, dev, card, batches, keyed_batches)
+
     # -- 4. times at the main-path shapes ------------------------------------
     preds, target = batches[0]
     canon_p, canon_t, _ = _input_format_classification(preds, target)
@@ -5816,6 +6299,24 @@ def main() -> int:
         "bound_ms": t["bound"][0], "bound_by": t["bound"][1], "library_ms": None, "device_ms": t["device_ms"],
         "plain_device_ms": t["plain_device_ms"], "graph_ms": t["graph_ms"],
         "compiled_launches": compiled["keyed"]["launches"]["stat_scores_counts"], "shape": t["shape"],
+    })
+    # B5's batched form at the keyed binary rows' stack, its launches those of
+    # phase 3p-a (3p-b, c and d in "path_launches"; every stack of 3p in "stacks")
+    sk = record["sketched_keyed"]
+    t = sk["timing"]["keyed_binary"]
+    kernels.append({
+        "name": "label_score_histograms_batched", "route": "cuda", "source": sources["label_score_histograms"],
+        "replaces": replaces["label_score_histograms"], "launches": sk["binary"]["launches"]["label_score_histograms"],
+        "max_abs_err": errors["label_score_histograms_batched"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "device_ms": t["device_ms"], "plain_device_ms": t["plain_device_ms"],
+        "library_device_ms": t["library_device_ms"], "graph_ms": t["graph_ms"],
+        "compiled_launches": sk["compiled"]["launches"]["label_score_histograms"], "shape": t["shape"],
+        "path_launches": {"keyed_binary": sk["binary"]["launches"]["label_score_histograms"],
+                          "keyed_classes": sk["multiclass"]["launches"]["label_score_histograms"],
+                          "keyed_binary_update_many": sk["compiled"]["launches"]["label_score_histograms"],
+                          "bootstrap_pure": sk["bootstrap"]["launches"]["label_score_histograms"]},
+        "stacks": [{k: v for k, v in x.items() if k != "device_split_us"} for x in sk["timing"].values()],
     })
     stacks = dur["checkpoint"]["b2_batched"]
     keyed_stack = stacks[0]

@@ -100,7 +100,7 @@ from metrics_tpu_torch.wrappers import BootStrapper, KeyedMetric, MultiTenantCol
 from metrics_tpu_torch import serving  # noqa: F401 E402
 from metrics_tpu_torch.serving import AdmissionQueue, SLOScheduler  # noqa: F401 E402
 from metrics_tpu_torch import resilience  # noqa: F401 E402
-from metrics_tpu_torch.utilities.distributed import Hierarchy  # noqa: F401 E402
+from metrics_tpu_torch.utilities.distributed import Hierarchy, hierarchical_axis  # noqa: F401 E402
 from metrics_tpu_torch import durability  # noqa: F401 E402
 from metrics_tpu_torch.durability import CheckpointManager, TenantSpiller  # noqa: F401 E402
 from metrics_tpu_torch.resilience import (  # noqa: F401 E402

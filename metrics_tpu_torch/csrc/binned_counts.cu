@@ -46,6 +46,25 @@
 // row ((N,) int32 or int64, positive where the id equals the column; an id
 // outside [0, C) makes the whole row negative), which saves reading and
 // building N * C labels in the one-vs-rest case.
+//
+// The batched form (label_score_histograms_batched_launch) is the same
+// kernel under `jax.vmap`, where `pallas_call`'s batching rule runs
+// `_hist_kernel` over a stack of R slices: (R, N, C) scores with (R, N, C)
+// dense labels or (R, N) class ids, giving (R, C, B) x 2 and (R,). Every
+// slice is counted exactly as one call of the single form counts it. Bound:
+// bytes, dominated by the output's 2 * R * C * B floats where the slices are
+// short (the keyed path's (R, 1, C) rows: 67 MB, 0.020 ms, at R = 4096,
+// C = 1, B = 2048). Design: the store mode with the slice on the grid's z
+// axis, in groups of 65,535 slices. Block (tile, 0, slice) counts its
+// slice's rows for its tile of columns in shared memory and stores both
+// output tiles once, zeros included: no fill before the launch and no
+// atomic on the histograms. A slice cut into several tiles adds its clipped
+// count from each tile to a cell zeroed by a memset of R floats; a slice of
+// one tile stores it. Long slices (a bootstrap's (20, 1024, 1000)) take the
+// same layout, each block walking all of its slice's rows. A num_bins whose
+// single column does not fit in shared memory takes the global mode: a
+// memset of the outputs, then one float atomic per score. Offsets of slices
+// are int64, so the outputs may pass 2^31 cells.
 // A warp's lanes cover several rows of the tile's K columns, so scores that
 // share a bin (softmax negatives near 0) meet at one shared-memory address:
 // 32 / K ways with 4-byte loads; with 16-byte loads each lane starts at
@@ -96,6 +115,9 @@ struct Job {
   float* pos;
   float* neg;
   float* clipped;
+  // the batched form: the stack's slices, and the first of this launch's z group
+  int64_t slices = 1;
+  int64_t first_slice = 0;
 };
 
 // XLA reads a subnormal as zero (on the TPU and on the CPU), which decides
@@ -167,23 +189,39 @@ __device__ __forceinline__ void add_tile(const unsigned int* __restrict__ src, f
   }
 }
 
-// Block (tile, chunk) = (blockIdx.x, blockIdx.y): columns [k0, k0 + kw) of
-// rows [row_begin, row_end). V = 4 reads four columns per 16-byte load (the
-// entry checks C % 4 == 0, K % 4 == 0 and the pointers' alignment).
+// The labels of slice `slice`: (n, c) dense int32 or (n,) ids.
+template <int kLabels>
+__device__ __forceinline__ const void* slice_labels(const void* labels, int64_t slice, int64_t n, int64_t c) {
+  if constexpr (kLabels == kDense) return static_cast<const int*>(labels) + slice * n * c;
+  if constexpr (kLabels == kIds64) return static_cast<const int64_t*>(labels) + slice * n;
+  return static_cast<const int*>(labels) + slice * n;
+}
+
+// Block (tile, chunk, slice) = (blockIdx.x, blockIdx.y, first_slice +
+// blockIdx.z): columns [k0, k0 + kw) of rows [row_begin, row_end) of the
+// slice (the single form has one slice). V = 4 reads four columns per
+// 16-byte load (the entry checks C % 4 == 0, K % 4 == 0 and the pointers'
+// alignment, which every slice then keeps).
 template <int kLabels, int V>
 __global__ void __launch_bounds__(kMaxThreads) hist_tile_kernel(const Job job) {
   extern __shared__ __align__(16) unsigned int counts[];
   const Grid g = job.g;
   const int b = g.num_bins;
   const int c = job.c;
+  const int64_t slice = job.first_slice + blockIdx.z;
+  const int64_t slice_cells = static_cast<int64_t>(c) * b;
+  float* const pos = job.pos + slice * slice_cells;
+  float* const neg = job.neg + slice * slice_cells;
+  float* const clipped_out = job.clipped + slice;
+  const void* const labels = slice_labels<kLabels>(job.labels, slice, job.n, c);
   const int k0 = blockIdx.x * job.k;
   const int kw = min(job.k, c - k0);
   const int words = kw * b;
   const int neg_offset = (words + 3) & ~3;  // the neg tile starts 16-byte aligned
   const unsigned row_begin = blockIdx.y * static_cast<unsigned>(job.rows_per_chunk);
   const unsigned row_end = min(static_cast<unsigned>(job.n), row_begin + static_cast<unsigned>(job.rows_per_chunk));
-  const float* __restrict__ x = job.x;
-  const int* __restrict__ dense = static_cast<const int*>(job.labels);
+  const float* __restrict__ x = job.x + slice * job.n * static_cast<int64_t>(c);
+  const int* __restrict__ dense = static_cast<const int*>(labels);
 
   if (job.mode == kAdd) {
     // this block's share of the outputs' zeroes; no add lands before the grid sync below
@@ -191,10 +229,10 @@ __global__ void __launch_bounds__(kMaxThreads) hist_tile_kernel(const Job job) {
     const int64_t first = (static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x) * blockDim.x + threadIdx.x;
     const int64_t stride = static_cast<int64_t>(gridDim.x) * gridDim.y * blockDim.x;
     for (int64_t i = first; i < cells; i += stride) {
-      job.pos[i] = 0.0f;
-      job.neg[i] = 0.0f;
+      pos[i] = 0.0f;
+      neg[i] = 0.0f;
     }
-    if (first == 0) *job.clipped = 0.0f;
+    if (first == 0) *clipped_out = 0.0f;
   }
   for (int i = threadIdx.x; i < neg_offset / 2; i += blockDim.x) {
     reinterpret_cast<uint4*>(counts)[i] = make_uint4(0u, 0u, 0u, 0u);
@@ -226,7 +264,7 @@ __global__ void __launch_bounds__(kMaxThreads) hist_tile_kernel(const Job job) {
               if constexpr (kLabels == kDense) {
                 ts[u] = *reinterpret_cast<const int4*>(dense + r * c + k0 + j);
               } else {
-                ids[u] = row_id<kLabels>(job.labels, r);
+                ids[u] = row_id<kLabels>(labels, r);
               }
             }
           }
@@ -258,7 +296,7 @@ __global__ void __launch_bounds__(kMaxThreads) hist_tile_kernel(const Job job) {
               if constexpr (kLabels == kDense) {
                 ts[u] = dense[r * c + k0 + j];
               } else {
-                ts[u] = row_id<kLabels>(job.labels, r);
+                ts[u] = row_id<kLabels>(labels, r);
               }
             }
           }
@@ -277,67 +315,75 @@ __global__ void __launch_bounds__(kMaxThreads) hist_tile_kernel(const Job job) {
 
   const int out_offset = k0 * b;
   if (job.mode == kStore) {
-    store_tile(counts, job.pos + out_offset, words);
-    store_tile(counts + neg_offset, job.neg + out_offset, words);
+    store_tile(counts, pos + out_offset, words);
+    store_tile(counts + neg_offset, neg + out_offset, words);
   } else {
     cooperative_groups::this_grid().sync();
-    add_tile(counts, job.pos + out_offset, words);
-    add_tile(counts + neg_offset, job.neg + out_offset, words);
+    add_tile(counts, pos + out_offset, words);
+    add_tile(counts + neg_offset, neg + out_offset, words);
   }
   const int total = block_sum(clipped);
   if (threadIdx.x == 0) {
     if (job.mode == kStore && gridDim.x == 1) {
-      *job.clipped = static_cast<float>(total);
+      *clipped_out = static_cast<float>(total);
     } else if (total) {
-      atomicAdd(job.clipped, static_cast<float>(total));
+      atomicAdd(clipped_out, static_cast<float>(total));
     }
   }
 }
 
 // One float atomic per score into zeroed outputs, for grids whose single
-// column does not fit in shared memory.
+// column does not fit in shared memory. Slice blockIdx.y (and every
+// gridDim.y-th after it) by a grid-stride loop over the x blocks.
 template <int kLabels>
 __global__ void hist_global_kernel(const Job job) {
   const Grid g = job.g;
   const int64_t c = job.c;
   const int64_t total = static_cast<int64_t>(job.n) * c;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const float* __restrict__ x = job.x;
-  int clipped = 0;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < total; i += stride) {
-    const float v = flush_subnormal(x[i]);
-    const int64_t row = i / c;
-    const int col = static_cast<int>(i - row * c);
-    bool positive;
-    if constexpr (kLabels == kDense) {
-      positive = static_cast<const int*>(job.labels)[i] == 1;
-    } else {
-      positive = row_id<kLabels>(job.labels, row) == col;
+  for (int64_t slice = blockIdx.y; slice < job.slices; slice += gridDim.y) {
+    const float* __restrict__ x = job.x + slice * total;
+    const void* const labels = slice_labels<kLabels>(job.labels, slice, job.n, c);
+    float* const pos = job.pos + slice * c * g.num_bins;
+    float* const neg = job.neg + slice * c * g.num_bins;
+    int clipped = 0;
+    for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < total; i += stride) {
+      const float v = flush_subnormal(x[i]);
+      const int64_t row = i / c;
+      const int col = static_cast<int>(i - row * c);
+      bool positive;
+      if constexpr (kLabels == kDense) {
+        positive = static_cast<const int*>(labels)[i] == 1;
+      } else {
+        positive = row_id<kLabels>(labels, row) == col;
+      }
+      atomicAdd((positive ? pos : neg) + col * g.num_bins + bin_of(v, g), 1.0f);
+      clipped += out_of_range(v, g);
     }
-    atomicAdd((positive ? job.pos : job.neg) + col * g.num_bins + bin_of(v, g), 1.0f);
-    clipped += out_of_range(v, g);
+    const int sum = block_sum(clipped);
+    if (threadIdx.x == 0 && sum) atomicAdd(job.clipped + slice, static_cast<float>(sum));
+    __syncthreads();  // the next slice's block_sum reuses the warp sums
   }
-  const int sum = block_sum(clipped);
-  if (threadIdx.x == 0 && sum) atomicAdd(job.clipped, static_cast<float>(sum));
 }
 
 int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
-// Zeroes of the two (c, b) outputs and the clipped count, on `stream`.
+// Zeroes of the two (slices, c, b) outputs and the slices' clipped counts, on `stream`.
 cudaError_t zero_outputs(const Job& job, cudaStream_t stream) {
-  const size_t cells = static_cast<size_t>(job.c) * job.g.num_bins;
+  const size_t slices = static_cast<size_t>(job.slices);
+  const size_t cells = slices * job.c * job.g.num_bins;
   cudaError_t err = cudaMemsetAsync(job.pos, 0, cells * sizeof(float), stream);
   if (err == cudaSuccess) err = cudaMemsetAsync(job.neg, 0, cells * sizeof(float), stream);
-  if (err == cudaSuccess) err = cudaMemsetAsync(job.clipped, 0, sizeof(float), stream);
+  if (err == cudaSuccess) err = cudaMemsetAsync(job.clipped, 0, slices * sizeof(float), stream);
   return err;
 }
 
+// The shared memory of a tile block, after the kernel opted into the most a
+// block may use (above 48 KB only once its kernel opted in, per device).
 template <int kLabels, int V>
-cudaError_t launch_tiles(const Job& job, int tiles, int chunks, int threads, int device, cudaStream_t stream) {
-  const int b = job.g.num_bins;
-  const size_t shared = 2 * static_cast<size_t>((job.k * b + 3) & ~3) * sizeof(unsigned int);
-  if (shared > static_cast<size_t>(kMaxDynamicShared)) return cudaErrorInvalidValue;
-  // a block may use more than 48 KB of shared memory only once its kernel opted in, per device
+cudaError_t tile_shared(const Job& job, int device, size_t* shared) {
+  *shared = 2 * static_cast<size_t>((job.k * job.g.num_bins + 3) & ~3) * sizeof(unsigned int);
+  if (*shared > static_cast<size_t>(kMaxDynamicShared)) return cudaErrorInvalidValue;
   static std::atomic<bool> opted_in[kMaxDevices];
   if (!opted_in[device].load(std::memory_order_acquire)) {
     const cudaError_t err = cudaFuncSetAttribute(hist_tile_kernel<kLabels, V>,
@@ -345,6 +391,14 @@ cudaError_t launch_tiles(const Job& job, int tiles, int chunks, int threads, int
     if (err != cudaSuccess) return err;
     opted_in[device].store(true, std::memory_order_release);
   }
+  return cudaSuccess;
+}
+
+template <int kLabels, int V>
+cudaError_t launch_tiles(const Job& job, int tiles, int chunks, int threads, int device, cudaStream_t stream) {
+  size_t shared;
+  const cudaError_t opt = tile_shared<kLabels, V>(job, device, &shared);
+  if (opt != cudaSuccess) return opt;
   const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(chunks));
   if (job.mode == kAdd) {
     void* args[] = {const_cast<Job*>(&job)};
@@ -357,6 +411,49 @@ cudaError_t launch_tiles(const Job& job, int tiles, int chunks, int threads, int
   }
   hist_tile_kernel<kLabels, V><<<grid, threads, shared, stream>>>(job);
   return cudaGetLastError();
+}
+
+constexpr int64_t kMaxGridZ = 65535;
+
+// The batched store mode: grid (tiles, 1, slices) in groups of kMaxGridZ slices.
+template <int kLabels, int V>
+cudaError_t launch_batched_tiles(const Job& job, int tiles, int threads, int device, cudaStream_t stream) {
+  size_t shared;
+  cudaError_t err = tile_shared<kLabels, V>(job, device, &shared);
+  if (err != cudaSuccess) return err;
+  if (tiles > 1) {  // the tiles of a slice add to its clipped count; a slice of one tile stores it
+    err = cudaMemsetAsync(job.clipped, 0, static_cast<size_t>(job.slices) * sizeof(float), stream);
+    if (err != cudaSuccess) return err;
+  }
+  for (int64_t first = 0; first < job.slices; first += kMaxGridZ) {
+    Job group = job;
+    group.first_slice = first;
+    const int64_t slices = job.slices - first < kMaxGridZ ? job.slices - first : kMaxGridZ;
+    const dim3 grid(static_cast<unsigned>(tiles), 1u, static_cast<unsigned>(slices));
+    hist_tile_kernel<kLabels, V><<<grid, threads, shared, stream>>>(group);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+template <int kLabels>
+cudaError_t launch_batched(const Job& job, int tiles, int threads, int vec, int device, cudaStream_t stream) {
+  if (job.mode == kGlobal) {
+    const cudaError_t err = zero_outputs(job, stream);
+    if (err != cudaSuccess) return err;
+    const int64_t rows = job.slices < kMaxGridZ ? job.slices : kMaxGridZ;  // slices on y: at most 65535 too
+    int64_t blocks = ceil_div(static_cast<int64_t>(job.n) * job.c, kGlobalThreads);
+    const int64_t cap = kMaxGlobalBlocks / rows > 1 ? kMaxGlobalBlocks / rows : 1;
+    if (blocks > cap) blocks = cap;
+    if (blocks > 0) {
+      const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(rows));
+      hist_global_kernel<kLabels><<<grid, kGlobalThreads, 0, stream>>>(job);
+    }
+    return cudaGetLastError();
+  }
+  if (vec == 4) return launch_batched_tiles<kLabels, 4>(job, tiles, threads, device, stream);
+  return launch_batched_tiles<kLabels, 1>(job, tiles, threads, device, stream);
 }
 
 template <int kLabels>
@@ -424,6 +521,62 @@ extern "C" int label_score_histograms_launch(const void* preds, const void* labe
     case 0: return static_cast<int>(launch<kDense>(job, tiles, chunks, threads, vec, device, st));
     case 4: return static_cast<int>(launch<kIds32>(job, tiles, chunks, threads, vec, device, st));
     case 8: return static_cast<int>(launch<kIds64>(job, tiles, chunks, threads, vec, device, st));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The batched form: preds (slices, n, c) float32, contiguous; labels, by
+// label_form, (slices, n, c) int32 (0) or (slices, n) int32/int64 class ids
+// (4/8), contiguous; pos, neg: (slices, c, num_bins) float32, clipped:
+// (slices,) float32, all uninitialised: the call writes every element. Each
+// slice is counted as label_score_histograms_launch counts one call. The
+// plan, chosen by the caller: mode 0 (store, one block per (column tile,
+// slice) walking all of the slice's rows; k columns per tile, 2 * k *
+// num_bins counts within the shared-memory budget) or 2 (global); threads
+// per block (a multiple of 32, at most 1024); vec 4 or 1, as for the single
+// form. Returns the first CUDA error of the call (0 if none).
+extern "C" int label_score_histograms_batched_launch(const void* preds, const void* labels, int label_form,
+                                                     int64_t slices, int n, int c, int num_bins, float lo, float hi,
+                                                     float span, int mode, int k, int threads, int vec, void* pos,
+                                                     void* neg, void* clipped, int device, void* stream) {
+  if (slices < 0 || n < 0 || c < 0 || num_bins < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (mode == kStore) {
+    if (k < 1 || threads < 32 || threads > kMaxThreads || threads % 32 != 0) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else if (mode != kGlobal) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (vec == 4) {
+    const uintptr_t address =
+        reinterpret_cast<uintptr_t>(preds) | (label_form == 0 ? reinterpret_cast<uintptr_t>(labels) : 0);
+    if (c % 4 != 0 || k % 4 != 0 || address % 16 != 0) return static_cast<int>(cudaErrorMisalignedAddress);
+  } else if (vec != 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (slices == 0) return 0;
+  DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return static_cast<int>(scope.error());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (c == 0) return static_cast<int>(cudaMemsetAsync(clipped, 0, static_cast<size_t>(slices) * sizeof(float), st));
+  Job job;
+  job.x = static_cast<const float*>(preds);
+  job.labels = labels;
+  job.n = n;
+  job.c = c;
+  job.g = Grid{lo, hi, span, static_cast<float>(num_bins), static_cast<float>(num_bins - 1), num_bins};
+  job.k = k;
+  job.rows_per_chunk = n;
+  job.mode = mode;
+  job.pos = static_cast<float*>(pos);
+  job.neg = static_cast<float*>(neg);
+  job.clipped = static_cast<float*>(clipped);
+  job.slices = slices;
+  const int tiles = mode == kGlobal ? 0 : static_cast<int>(ceil_div(c, k));
+  switch (label_form) {
+    case 0: return static_cast<int>(launch_batched<kDense>(job, tiles, threads, vec, device, st));
+    case 4: return static_cast<int>(launch_batched<kIds32>(job, tiles, threads, vec, device, st));
+    case 8: return static_cast<int>(launch_batched<kIds64>(job, tiles, threads, vec, device, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -44,7 +44,8 @@ def _masked_rank(data: Tensor, valid: Tensor) -> Tensor:
     # at least float32, so half-precision dtypes don't overflow on start + end (~2n)
     frac_dtype = torch.promote_types(dtype, torch.float32)
     frac = ((start_idx + end_idx).to(frac_dtype) / 2 + 1).to(dtype)
-    return torch.empty((n,), dtype=dtype, device=data.device).scatter_(0, orig, frac)
+    # out of place, so that torch.func.vmap batches it (the pure bootstrap's compute)
+    return torch.scatter(torch.empty((n,), dtype=dtype, device=data.device), 0, orig, frac)
 
 
 def _spearman_corrcoef_update(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:

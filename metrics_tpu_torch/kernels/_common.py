@@ -38,9 +38,10 @@ import subprocess
 import threading
 from contextlib import contextmanager
 from pathlib import Path
-from typing import Dict, Iterator, List, Optional, Sequence, Set, Tuple, Union
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Set, Tuple, Union
 
 import torch
+from torch._C import _functorch
 
 from metrics_tpu_torch.utilities.data import resolve_device
 
@@ -104,6 +105,61 @@ def batch_first(x: torch.Tensor, dim: Optional[int], size: int) -> torch.Tensor:
     broadcast to ``size`` along a new first axis where it has none (a vmap
     rule's inputs)."""
     return x.movedim(dim, 0) if dim is not None else x.expand((size,) + tuple(x.shape))
+
+
+def vmap_stack(fn: Callable[..., Any], tensors: Sequence[torch.Tensor], *args: Any) -> Any:
+    """The kernels' vmap rule: ``fn(*tensors, *args)`` for tensors batched by
+    ``torch.func.vmap``, as one call of ``fn`` over the whole stack.
+
+    Every vmap level that batches one of the tensors is taken off, innermost
+    first: the tensors batched at a level are unwrapped with their batch axis
+    moved first, and one that is not batched there is broadcast along a new
+    first axis (:func:`batch_first`). The batch axes of nested vmaps are then
+    flattened into one leading axis, ``fn`` runs once outside them all on
+    that stack, and each output gets its leading axes back and is batched
+    again, level by level. A level that batches none of the tensors is taken
+    off and put back around ``fn`` as it is. A transform other than ``vmap``
+    above a batched tensor is refused.
+
+    This is what a ``torch.autograd.Function`` with a ``vmap`` staticmethod
+    does, without the Function's dispatch, which cost more host time than
+    the launch it leads to (``scripts/torch_hist_ab.py --rule-forms`` times
+    the two forms). It uses functorch's interpreter stack
+    (``torch._C._functorch``), which ``tests/test_torch_kernels.py`` pins.
+    """
+    xs = list(tensors)
+    popped: List[Tuple[Any, int, Optional[int]]] = []  # (layer, level, batch size or None), innermost first
+    try:
+        while any(_functorch.is_batchedtensor(x) for x in xs):
+            interpreter = _functorch.peek_interpreter_stack()
+            if interpreter is None or interpreter.key() != _functorch.TransformType.Vmap:
+                raise RuntimeError(
+                    "the kernels' vmap rule takes tensors batched by torch.func.vmap alone, but the innermost"
+                    f" transform is {None if interpreter is None else interpreter.key()}"
+                )
+            level = interpreter.level()
+            inputs = [(_functorch.get_unwrapped(x), _functorch.maybe_get_bdim(x)) if _functorch.maybe_get_level(x) == level
+                      else (x, None) for x in xs]
+            size = next((x.shape[d] for x, d in inputs if d is not None), None)
+            popped.append((_functorch.pop_dynamic_layer_stack(), level, size))
+            if size is not None:
+                xs = [batch_first(x, d, size) for x, d in inputs]
+        lead = tuple(size for _, _, size in reversed(popped) if size is not None)
+        if len(lead) > 1:
+            xs = [x.reshape((-1,) + tuple(x.shape[len(lead):])) for x in xs]
+        out = fn(*xs, *args)
+        outs = (out,) if isinstance(out, torch.Tensor) else tuple(out)
+        if len(lead) > 1:
+            outs = tuple(o.reshape(lead + tuple(o.shape[1:])) for o in outs)
+    except BaseException:
+        for layer, _, _ in reversed(popped):
+            _functorch.push_dynamic_layer_stack(layer)
+        raise
+    for layer, level, size in reversed(popped):
+        _functorch.push_dynamic_layer_stack(layer)
+        if size is not None:
+            outs = tuple(_functorch._add_batch_dim(o, 0, level) for o in outs)
+    return outs[0] if isinstance(out, torch.Tensor) else outs
 
 
 def current_stream_handle(device: torch.device) -> int:

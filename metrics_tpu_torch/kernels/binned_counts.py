@@ -28,6 +28,23 @@ The multiclass one-vs-rest case hands its ``(N,)`` class ids over in place
 of their ``(N, C)`` one-hot (:func:`_label_score_histograms_onevsrest`):
 the kernel counts a score as positive where its row's id equals its column.
 
+The batched form is ``jax.vmap`` of the Pallas kernel, which ``pallas_call``'s
+batching rule runs over a stack: the keyed path's per-row updates and the
+pure ``BootStrapper``'s resamples, both under ``torch.func.vmap``:
+
+* :func:`label_score_histograms_batched_torch`, its plain version: one
+  out-of-place ``scatter_add`` over the flat ``(slice, label, class, bin)``
+  index of an ``(R, N, C)`` stack, with dense ``(R, N, C)`` labels or
+  ``(R, N)`` class ids;
+* :func:`label_score_histograms_batched_cuda`, the wrapper of the kernel's
+  batched entry (``label_score_histograms_batched_launch``): one C call and
+  three ``torch.empty`` outputs, ``(R, C, B)`` twice and ``(R,)``, every
+  slice counted as one call of the single form counts it
+  (:func:`batched_histogram_plan`);
+* :func:`label_score_histograms_stacked`, the seam's call inside the vmap:
+  its vmap rule (``_common.vmap_stack``) hands the whole stack to the
+  batched wrapper in one launch.
+
 Both give the JAX package's histograms bit for bit. The bin index is
 ``floor((x - lo) / span * num_bins)`` in float32, in that order, clipped to
 ``[0, num_bins - 1]``, with ``lo``, ``span = hi - lo`` (taken in double) and
@@ -58,6 +75,7 @@ from metrics_tpu_torch.kernels._common import (
     note_kernel_dispatch,
     require_capability,
     sm_count,
+    vmap_stack,
 )
 from metrics_tpu_torch.utilities.data import Tensor, _is_batched, check_device, to_onehot
 
@@ -67,6 +85,13 @@ _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_float, ctypes.c_float, ctypes.c_float,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+)
+_BATCHED_ENTRY = "label_score_histograms_batched_launch"
+_BATCHED_ARGTYPES = (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_float, ctypes.c_float, ctypes.c_float,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
 )
 #: largest cell count 2 * C * num_bins the wrapper takes (num_bins reaches the kernel as a 32-bit int)
@@ -116,6 +141,14 @@ def tile_shared_bytes(k: int, num_bins: int) -> int:
     return 2 * ((k * num_bins + 3) // 4 * 4) * 4
 
 
+def _columns_that_fit(num_bins: int) -> int:
+    """How many class columns' two count tiles fit in ``SHARED_BUDGET``."""
+    fits = SHARED_BUDGET // tile_shared_bytes(1, num_bins)
+    while tile_shared_bytes(fits, num_bins) > SHARED_BUDGET:  # the padding of an odd tile
+        fits -= 1
+    return fits
+
+
 @lru_cache(maxsize=256)
 def histogram_plan(n: int, c: int, num_bins: int, sms: int = 132) -> HistogramPlan:
     """The B5 kernel's plan for ``(n, c)`` scores on ``num_bins`` bins, on a
@@ -138,9 +171,7 @@ def histogram_plan(n: int, c: int, num_bins: int, sms: int = 132) -> HistogramPl
     """
     if tile_shared_bytes(1, num_bins) > SHARED_BUDGET:
         return HistogramPlan(GLOBAL, 0, 0, 0, n, 0, 0)
-    fits = SHARED_BUDGET // tile_shared_bytes(1, num_bins)
-    while tile_shared_bytes(fits, num_bins) > SHARED_BUDGET:  # the padding of an odd tile
-        fits -= 1
+    fits = _columns_that_fit(num_bins)
     k = min(c, fits)
     if c >= 8 and fits >= 8:
         k = min(max(c // sms // 8 * 8, 8), fits // 8 * 8)
@@ -157,6 +188,31 @@ def histogram_plan(n: int, c: int, num_bins: int, sms: int = 132) -> HistogramPl
     return HistogramPlan(ADD, k, tiles, chunks, rows_per_chunk, _SMALL_THREADS if small else _THREADS, shared)
 
 
+@lru_cache(maxsize=256)
+def batched_histogram_plan(n: int, c: int, num_bins: int) -> HistogramPlan:
+    """The plan of B5's batched entry for a stack of ``(n, c)`` slices on
+    ``num_bins`` bins: ``STORE``, one block per (column tile, slice) that
+    walks all of its slice's rows, or ``GLOBAL`` where not even one column
+    fits in shared memory.
+
+    * The tile width ``k``: every column where they fit (one tile a slice:
+      the keyed rows' C = 1 and C = 10 at 2048 bins), else as many as fit, a
+      multiple of 8 where the budget allows. The stack's slices fill the
+      card, so no column is split off to do so.
+    * Threads: 1024 for slices with more than ``_ONE_CHUNK_ITEMS`` scores in
+      a tile, else about one thread per four 16-byte stores of the block's
+      two output tiles (at least 128): a short slice's block does little
+      more than store its tiles.
+    """
+    if tile_shared_bytes(1, num_bins) > SHARED_BUDGET:
+        return HistogramPlan(GLOBAL, 0, 0, 0, n, 0, 0)
+    fits = _columns_that_fit(num_bins)
+    k = max(c, 1) if c <= fits else (fits // 8 * 8 if fits >= 8 else fits)
+    tiles = -(-c // k)
+    threads = _THREADS if n * k > _ONE_CHUNK_ITEMS else min(_THREADS, max(128, -(-2 * k * num_bins // 512) * 32))
+    return HistogramPlan(STORE, k, tiles, 1, n, threads, tile_shared_bytes(k, num_bins))
+
+
 def load_width(c: int, k: int, address: int) -> int:
     """Scores per load of the B5 kernel: 4 (16 bytes) where the row stride
     ``c`` and the tile width ``k`` are multiples of 4 and ``address`` (the
@@ -170,6 +226,34 @@ def _bin_index(x: Tensor, num_bins: int, lo: float, hi: float) -> Tensor:
     span = torch.full((), hi - lo, dtype=torch.float32, device=x.device)
     raw = torch.floor((x - lo) / span * num_bins)
     return torch.where(torch.isnan(raw), 0.0, torch.clamp(raw, 0, num_bins - 1)).long()
+
+
+def label_score_histograms_batched_torch(
+    preds: Tensor, labels: Tensor, num_bins: int, lo: float = 0.0, hi: float = 1.0
+) -> Histograms:
+    """``(pos_hist, neg_hist, clipped)`` of each ``(N, C)`` slice of an
+    ``(R, N, C)`` stack: two ``(R, C, num_bins)`` float32 histograms and the
+    ``(R,)`` float32 clipped counts. ``labels`` are dense ``(R, N, C)``
+    (``== 1`` positive) or ``(R, N)`` integer class ids (positive where the
+    id, cut to int32, equals the column; an id outside ``[0, C)`` gives an
+    all-negative row), as in the two single forms. The plain version and
+    oracle of the batched entry: one out-of-place ``scatter_add`` over the
+    flat ``(slice, label, class, bin)`` index, safe under ``torch.func.vmap``."""
+    x = preds.to(torch.float32)
+    x = torch.where(torch.abs(x) < _TINY, 0.0, x)  # subnormals read as zero, as XLA reads them
+    r, _, c = x.shape
+    if labels.ndim == x.ndim:
+        positive = labels == 1
+    else:
+        positive = labels.to(torch.int32).unsqueeze(-1) == torch.arange(c, dtype=torch.int32, device=x.device)
+    cells = c * num_bins
+    flat = (torch.arange(r, device=x.device).view(r, 1, 1) * (2 * cells) + torch.where(positive, 0, cells)
+            + torch.arange(c, device=x.device) * num_bins + _bin_index(x, num_bins, lo, hi))
+    ones = torch.ones(flat.numel(), dtype=torch.float32, device=x.device)
+    hist = torch.zeros(r * 2 * cells, dtype=torch.float32, device=x.device).scatter_add(0, flat.reshape(-1), ones)
+    hist = hist.reshape(r, 2, c, num_bins)
+    clipped = torch.sum((x < lo) | (x > hi), dim=(1, 2)).to(torch.float32)
+    return hist[:, 0], hist[:, 1], clipped
 
 
 def label_score_histograms_torch(
@@ -200,20 +284,22 @@ def _onevsrest_torch(preds: Tensor, labels: Tensor, num_bins: int, lo: float = 0
 
 
 def _check(preds: Tensor, labels: Tensor, dense: bool, num_bins: int, lo: float, hi: float,
-           device: torch.device) -> None:
+           device: torch.device, stacked: bool = False) -> None:
     # attribute reads first; the device comparison last
+    ndim, shape, ids = (3, "(R, N, C)", "(R, N)") if stacked else (2, "(N, C)", "(N,)")
     if dense:
-        if preds.ndim != 2 or preds.shape != labels.shape:
-            raise ValueError(f"{_OP} takes preds and target of one shape (N, C), got {tuple(preds.shape)} and"
+        if preds.ndim != ndim or preds.shape != labels.shape:
+            raise ValueError(f"{_OP} takes preds and target of one shape {shape}, got {tuple(preds.shape)} and"
                              f" {tuple(labels.shape)}")
-    elif preds.ndim != 2 or labels.ndim != 1 or labels.shape[0] != preds.shape[0]:
-        raise ValueError(f"{_OP} takes preds of shape (N, C) and class ids of shape (N,), got {tuple(preds.shape)}"
-                         f" and {tuple(labels.shape)}")
-    if not (isinstance(num_bins, int) and num_bins >= 1 and 2 * preds.shape[1] * num_bins <= _MAX_CELLS):
+    elif preds.ndim != ndim or labels.shape != preds.shape[:-1]:
+        raise ValueError(f"{_OP} takes preds of shape {shape} and class ids of shape {ids}, got"
+                         f" {tuple(preds.shape)} and {tuple(labels.shape)}")
+    c, n = preds.shape[-1], preds.shape[-2]
+    if not (isinstance(num_bins, int) and num_bins >= 1 and 2 * c * num_bins <= _MAX_CELLS):
         raise ValueError(f"{_OP} takes an integer num_bins >= 1 with 2 * C * num_bins <= {_MAX_CELLS}, got"
-                         f" {num_bins} at C = {preds.shape[1]}")
-    if preds.shape[0] > _MAX_ROWS:
-        raise ValueError(f"{_OP} takes at most {_MAX_ROWS} rows, got {preds.shape[0]}")
+                         f" {num_bins} at C = {c}")
+    if n > _MAX_ROWS:
+        raise ValueError(f"{_OP} takes at most {_MAX_ROWS} rows, got {n}")
     if not lo < hi:
         raise ValueError(f"{_OP} needs lo < hi, got {lo} and {hi}")
     if device.type not in ("cuda", "cpu"):
@@ -225,7 +311,9 @@ def _histograms_cuda(preds: Tensor, labels: Tensor, dense: bool, num_bins: int, 
                      device: torch.device) -> Histograms:
     """One call into the C library, which counts into three uninitialised
     outputs (and writes every element of them) on the current stream of
-    ``device``. Inputs the kernel reads as they are pass untouched."""
+    ``device``: the single entry for ``(N, C)`` scores, the batched one for
+    an ``(R, N, C)`` stack. Inputs the kernel reads as they are pass
+    untouched."""
     x = preds if preds.dtype == torch.float32 and preds.is_contiguous() else preds.to(torch.float32).contiguous()
     if dense:
         t = labels if labels.dtype == torch.int32 else (labels == 1).to(torch.int32)
@@ -235,17 +323,22 @@ def _histograms_cuda(preds: Tensor, labels: Tensor, dense: bool, num_bins: int, 
         form = t.element_size()
     if not t.is_contiguous():
         t = t.contiguous()
-    n, c = x.shape
-    plan = histogram_plan(n, c, num_bins, sm_count(device))
+    *lead, n, c = x.shape
     # the shapes as separate arguments, one tensor per output: cheaper on the host than views of one buffer
-    pos = torch.empty(c, num_bins, dtype=torch.float32, device=device)
-    neg = torch.empty(c, num_bins, dtype=torch.float32, device=device)
-    clipped = torch.empty((), dtype=torch.float32, device=device)
+    pos = torch.empty(*lead, c, num_bins, dtype=torch.float32, device=device)
+    neg = torch.empty(*lead, c, num_bins, dtype=torch.float32, device=device)
+    clipped = torch.empty(lead, dtype=torch.float32, device=device)
     x_ptr, t_ptr = x.data_ptr(), t.data_ptr()
+    plan = batched_histogram_plan(n, c, num_bins) if lead else histogram_plan(n, c, num_bins, sm_count(device))
     vec = load_width(c, plan.k, x_ptr | t_ptr if dense else x_ptr)
-    err = kernel_function(_ENTRY, _ARGTYPES)(
-        x_ptr, t_ptr, form, n, c, num_bins, lo, hi, hi - lo, plan.mode, plan.k, plan.chunks, plan.threads, vec,
-        pos.data_ptr(), neg.data_ptr(), clipped.data_ptr(), device.index, current_stream_handle(device))
+    if lead:
+        err = kernel_function(_BATCHED_ENTRY, _BATCHED_ARGTYPES)(
+            x_ptr, t_ptr, form, lead[0], n, c, num_bins, lo, hi, hi - lo, plan.mode, plan.k, plan.threads, vec,
+            pos.data_ptr(), neg.data_ptr(), clipped.data_ptr(), device.index, current_stream_handle(device))
+    else:
+        err = kernel_function(_ENTRY, _ARGTYPES)(
+            x_ptr, t_ptr, form, n, c, num_bins, lo, hi, hi - lo, plan.mode, plan.k, plan.chunks, plan.threads, vec,
+            pos.data_ptr(), neg.data_ptr(), clipped.data_ptr(), device.index, current_stream_handle(device))
     check_launch(_OP, err)
     note_kernel_dispatch(_OP, "cuda")
     return pos, neg, clipped
@@ -274,6 +367,46 @@ def label_score_histograms_cuda(
     return _histograms_cuda(preds, target, True, num_bins, lo, hi, device)
 
 
+def label_score_histograms_batched_cuda(
+    preds: Tensor,
+    labels: Tensor,
+    num_bins: int,
+    lo: float = 0.0,
+    hi: float = 1.0,
+    device: Union[str, torch.device] = "cuda",
+) -> Histograms:
+    """``(pos_hist, neg_hist, clipped)`` of each slice of an ``(R, N, C)``
+    stack of scores lying on ``device``, with dense ``(R, N, C)`` labels or
+    ``(R, N)`` class ids: ``(R, C, num_bins)`` twice and ``(R,)``.
+
+    On a CUDA device the batched B5 entry counts the whole stack in one C
+    call; on the CPU the plain version does. Raises on inputs the kernel
+    does not take.
+    """
+    device = kernel_device(device)
+    dense = labels.ndim == preds.ndim
+    _check(preds, labels, dense, num_bins, lo, hi, device, stacked=True)
+    if device.type == "cpu":
+        note_kernel_dispatch(_OP, "torch")
+        return label_score_histograms_batched_torch(preds, labels, num_bins, lo, hi)
+    require_capability(device)
+    return _histograms_cuda(preds, labels, dense, num_bins, lo, hi, device)
+
+
+def label_score_histograms_stacked(
+    preds: Tensor, labels: Tensor, num_bins: int, lo: float = 0.0, hi: float = 1.0
+) -> Histograms:
+    """Histograms of each ``(N, C)`` slice of an ``(R, N, C)`` stack (dense
+    labels of the scores' shape, or class ids of one dimension fewer), on
+    the scores' device. Inside ``torch.func.vmap`` the vmap rule
+    (:func:`~metrics_tpu_torch.kernels._common.vmap_stack`) takes the whole
+    batch, the axes of nested vmaps flattened into one, to one call of
+    :func:`label_score_histograms_batched_cuda`."""
+    if _is_batched(preds, labels):
+        return vmap_stack(label_score_histograms_stacked, (preds, labels), num_bins, lo, hi)
+    return label_score_histograms_batched_cuda(preds, labels, num_bins, lo, hi, device=preds.device)
+
+
 def label_score_histograms(
     preds: Tensor, target: Tensor, num_bins: int, lo: float = 0.0, hi: float = 1.0
 ) -> Histograms:
@@ -281,11 +414,11 @@ def label_score_histograms(
 
     Dispatches by the scores' device: a CUDA tensor to kernel B5, a CPU
     tensor to the plain version. Inside ``torch.func.vmap`` (the keyed
-    path's per-row update) the plain version runs, since the kernel takes
-    no batched tensor.
+    path's per-row update, the pure bootstrap's resamples) the whole stack
+    goes to the batched form in one call (:func:`label_score_histograms_stacked`).
     """
     if _is_batched(preds, target):
-        return label_score_histograms_torch(preds, target, num_bins, lo, hi)
+        return label_score_histograms_stacked(preds, target, num_bins, lo, hi)
     return label_score_histograms_cuda(preds, target, num_bins, lo, hi, device=preds.device)
 
 
@@ -296,11 +429,12 @@ def _label_score_histograms_onevsrest(
     one-hot of ``(N,)`` integer class ids (one class against the rest),
     without building the one-hot on the card: kernel B5 takes the ids and
     counts a score as positive where its row's id equals its column. On the
-    CPU and inside ``torch.func.vmap`` the plain version builds the one-hot.
+    CPU the plain version builds the one-hot; inside ``torch.func.vmap`` the
+    stack goes to the batched form, which takes the ids as they are.
     Equal to ``label_score_histograms(preds, to_onehot(labels.to(int32), C))``
     for every id, one outside ``[0, C)`` included (an all-negative row)."""
     if _is_batched(preds, labels):
-        return _onevsrest_torch(preds, labels, num_bins, lo, hi)
+        return label_score_histograms_stacked(preds, labels, num_bins, lo, hi)
     device = preds.device
     _check(preds, labels, False, num_bins, lo, hi, device)
     if device.type == "cpu":

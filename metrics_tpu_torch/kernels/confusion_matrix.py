@@ -18,7 +18,8 @@ Counterpart of ``metrics_tpu/kernels/confusion_matrix.py``. Two formulations:
   atomics into an output the entry zeroes on the stream), cell offsets in
   int64.
 * :func:`confmat_counts_stacked`, the seam's call inside ``torch.func.vmap``:
-  its vmap rule hands the whole stack to the batched wrapper in one launch,
+  its vmap rule (``_common.vmap_stack``) hands the whole stack to the
+  batched wrapper in one launch,
   as ``pallas_call``'s batching rule runs the Pallas kernel over a leading
   grid axis.
 
@@ -28,18 +29,18 @@ path reaches that case only inside ``torch.func.vmap``, where no value can
 be read: elsewhere ``_confusion_matrix_update`` raises on the host first.
 """
 import ctypes
-from typing import Any, Optional, Tuple, Union
+from typing import Union
 
 import torch
 
 from metrics_tpu_torch.kernels._common import (
-    batch_first,
     check_launch,
     current_stream_handle,
     kernel_device,
     kernel_function,
     note_kernel_dispatch,
     require_capability,
+    vmap_stack,
 )
 from metrics_tpu_torch.utilities.data import Tensor, _is_batched, check_device
 
@@ -164,35 +165,13 @@ def _batched_counts_cuda(preds: Tensor, target: Tensor, num_classes: int, device
     return out
 
 
-class _StackedConfmat(torch.autograd.Function):
-    """B2 for inputs batched by ``torch.func.vmap``: the vmap rule counts the
-    whole ``(B, N)`` stack (the batch axes of nested vmaps flattened into
-    one) in one launch, where the transform would otherwise take the plain
-    ops one batch at a time."""
-
-    @staticmethod
-    def forward(preds: Tensor, target: Tensor, num_classes: int) -> Tensor:
-        return confmat_counts_stacked(preds, target, num_classes)
-
-    @staticmethod
-    def setup_context(ctx: Any, inputs: Any, output: Any) -> None:
-        pass  # integer counts: nothing to differentiate
-
-    @staticmethod
-    def vmap(info: Any, in_dims: Tuple[Optional[int], ...], preds: Tensor, target: Tensor,
-             num_classes: int) -> Tuple[Tensor, int]:
-        preds, target = (batch_first(x, d, info.batch_size) for x, d in zip((preds, target), in_dims))
-        lead, n = tuple(preds.shape[:-1]), preds.shape[-1]
-        counts = confmat_counts_stacked(preds.reshape(-1, n), target.reshape(-1, n), num_classes)
-        return counts.reshape(lead + (num_classes, num_classes)), 0
-
-
 def confmat_counts_stacked(preds: Tensor, target: Tensor, num_classes: int) -> Tensor:
     """Counts of ``(N,)`` label pairs, or of each row of a ``(B, N)`` stack,
-    on the inputs' device. Inside ``torch.func.vmap`` the vmap rule of
-    :class:`_StackedConfmat` takes the whole batch to one launch of
+    on the inputs' device. Inside ``torch.func.vmap`` the vmap rule
+    (:func:`~metrics_tpu_torch.kernels._common.vmap_stack`) takes the whole
+    batch, the axes of nested vmaps flattened into one, to one launch of
     :func:`confmat_counts_batched_cuda`."""
     if _is_batched(preds, target):
-        return _StackedConfmat.apply(preds, target, num_classes)
+        return vmap_stack(confmat_counts_stacked, (preds, target), num_classes)
     wrapper = confmat_counts_cuda if preds.ndim == 1 else confmat_counts_batched_cuda
     return wrapper(preds.contiguous(), target.contiguous(), num_classes, device=preds.device)

@@ -15,23 +15,23 @@ binary ``(N, C)`` inputs with four masked sums. Two formulations:
   per (slice, column) where the slices are short (the keyed path's
   ``(R, 1, C)`` rows).
 * :func:`stat_scores_counts_stacked`, the seam's call inside
-  ``torch.func.vmap``: its vmap rule hands the whole stack to the wrapper
-  in one launch, as ``pallas_call``'s batching rule runs the Pallas kernel
-  over a leading grid axis.
+  ``torch.func.vmap``: its vmap rule (``_common.vmap_stack``) hands the
+  whole stack to the wrapper in one launch, as ``pallas_call``'s batching
+  rule runs the Pallas kernel over a leading grid axis.
 """
 import ctypes
-from typing import Any, Optional, Tuple, Union
+from typing import Tuple, Union
 
 import torch
 
 from metrics_tpu_torch.kernels._common import (
-    batch_first,
     check_launch,
     current_stream_handle,
     kernel_device,
     kernel_function,
     note_kernel_dispatch,
     require_capability,
+    vmap_stack,
 )
 from metrics_tpu_torch.utilities.data import Tensor, _is_batched, check_device
 
@@ -119,34 +119,12 @@ def _batched_counts_cuda(preds: Tensor, target: Tensor,
     return out[0], out[1], out[2], out[3]
 
 
-class _StackedCounts(torch.autograd.Function):
-    """B1 for inputs batched by ``torch.func.vmap``: the vmap rule launches
-    the kernel once over the whole ``(B, N, C)`` stack (the batch axes of
-    nested vmaps flattened into one), where the transform would otherwise
-    take the plain ops one batch at a time."""
-
-    @staticmethod
-    def forward(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-        return stat_scores_counts_stacked(preds, target)
-
-    @staticmethod
-    def setup_context(ctx: Any, inputs: Any, output: Any) -> None:
-        pass  # integer counts: nothing to differentiate
-
-    @staticmethod
-    def vmap(info: Any, in_dims: Tuple[Optional[int], Optional[int]], preds: Tensor,
-             target: Tensor) -> Tuple[Tuple[Tensor, ...], Tuple[int, ...]]:
-        preds, target = (batch_first(x, d, info.batch_size) for x, d in zip((preds, target), in_dims))
-        lead, tail = tuple(preds.shape[:-2]), tuple(preds.shape[-2:])
-        counts = stat_scores_counts_stacked(preds.reshape((-1,) + tail), target.reshape((-1,) + tail))
-        return tuple(x.reshape(lead + tuple(x.shape[-1:])) for x in counts), (0, 0, 0, 0)
-
-
 def stat_scores_counts_stacked(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Per-class counts of ``(N, C)`` inputs, or of each ``(N, C)`` slice of a
-    ``(B, N, C)`` stack, on the inputs' device. Inside ``torch.func.vmap`` the
-    vmap rule of :class:`_StackedCounts` takes the whole batch to one launch
-    of :func:`stat_scores_counts_cuda`."""
+    ``(B, N, C)`` stack, on the inputs' device. Inside ``torch.func.vmap``
+    the vmap rule (:func:`~metrics_tpu_torch.kernels._common.vmap_stack`)
+    takes the whole batch, the axes of nested vmaps flattened into one, to
+    one launch of :func:`stat_scores_counts_cuda`."""
     if _is_batched(preds, target):
-        return _StackedCounts.apply(preds, target)
+        return vmap_stack(stat_scores_counts_stacked, (preds, target))
     return stat_scores_counts_cuda(preds.contiguous(), target.contiguous(), device=preds.device)

@@ -196,9 +196,11 @@ def tie_group_bounds(changed: Tensor) -> Tuple[Tensor, Tensor]:
     is_start = torch.cat([edge, changed])
     is_end = torch.cat([changed, edge])
     group = torch.cumsum(is_start, dim=0) - 1
-    # row n of each table takes the positions that are no start (no end)
-    starts = torch.zeros(n + 1, dtype=idx.dtype, device=idx.device).scatter_(0, torch.where(is_start, group, n), idx)
-    ends = torch.zeros(n + 1, dtype=idx.dtype, device=idx.device).scatter_(0, torch.where(is_end, group, n), idx)
+    # row n of each table takes the positions that are no start (no end);
+    # out-of-place scatters, which torch.func.vmap batches into a fresh table
+    table = torch.zeros(n + 1, dtype=idx.dtype, device=idx.device)
+    starts = torch.scatter(table, 0, torch.where(is_start, group, n), idx)
+    ends = torch.scatter(table, 0, torch.where(is_end, group, n), idx)
     return starts[group], ends[group]
 
 
@@ -257,7 +259,9 @@ def select_topk(prob_tensor: Tensor, topk: int = 1, dim: int = 1) -> Tensor:
         classes = _class_axis(prob_tensor.shape[dim], moved.ndim, prob_tensor.device)
         return (moved == classes).movedim(1, dim).to(torch.int32)
     top_idx = torch.topk(prob_tensor, topk, dim=dim).indices
-    return torch.zeros(prob_tensor.shape, dtype=torch.int32, device=prob_tensor.device).scatter_(dim, top_idx, 1)
+    # out of place: torch.func.vmap batches a scatter of batched indices into a fresh tensor, not scatter_
+    zeros = torch.zeros(prob_tensor.shape, dtype=torch.int32, device=prob_tensor.device)
+    return torch.scatter(zeros, dim, top_idx, 1)
 
 
 def to_categorical(x: Tensor, argmax_dim: int = 1) -> Tensor:

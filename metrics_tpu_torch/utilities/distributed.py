@@ -5,12 +5,14 @@ the descriptor + payload gather protocol (``_leaf_descriptor`` ``:411``,
 ``_align_leaf`` ``:436``, ``_gather_all_leaves`` ``:490``,
 ``gather_all_arrays`` ``:740``, ``gather_all_pytrees`` ``:782``,
 ``_gather_pytrees_impl`` ``:820``), the eager meaning of the packed sync
-``sync_state_packed`` ``:1152``, and ``reduce`` ``:77``; the thread-scoped
+``sync_state_packed`` ``:1152``, ``reduce`` ``:77`` and ``class_reduce``
+``:88``; the thread-scoped
 :class:`transport_overrides` (``:253-330``), the fault seams (``:706-735``)
-and :class:`Hierarchy` (``:163-250``). The JAX package's in-graph sync over
-mesh axes has no counterpart: :class:`Hierarchy` here is two levels of
-``torch.distributed`` process groups, which :func:`sync_state_packed`
-reduces over one after the other.
+and :class:`Hierarchy` (``:163-250``) with :func:`hierarchical_axis`. The
+JAX package's in-graph sync over mesh axes has no counterpart:
+:class:`Hierarchy` here is two levels of ``torch.distributed`` process
+groups, which :func:`sync_state_packed` reduces over one after the other,
+and :func:`shard_map_compat` raises.
 
 **The gather protocol.** Every leaf of a whole state bundle crosses the
 processes in ONE descriptor round and at most ONE payload round:
@@ -111,6 +113,45 @@ def reduce(to_reduce: Tensor, reduction: str) -> Tensor:
     raise ValueError("Reduction parameter unknown.")
 
 
+def class_reduce(num: Tensor, denom: Tensor, weights: Tensor, class_reduction: str = "none") -> Tensor:
+    """Reduce per-class fractions ``num / denom`` with micro/macro/weighted/none
+    (``metrics_tpu/utilities/distributed.py:88``).
+
+    A 0/0 class (NaN) counts as 0; infinities stay as they are.
+    """
+    valid_reduction = ("micro", "macro", "weighted", "none", None)
+    fraction = torch.sum(num) / torch.sum(denom) if class_reduction == "micro" else num / denom
+    fraction = torch.where(torch.isnan(fraction), torch.zeros_like(fraction), fraction)
+    if class_reduction == "micro":
+        return fraction
+    if class_reduction == "macro":
+        return torch.mean(fraction)
+    if class_reduction == "weighted":
+        w = weights.to(fraction.dtype)
+        return torch.sum(fraction * (w / torch.sum(w)))
+    if class_reduction == "none" or class_reduction is None:
+        return fraction
+    raise ValueError(
+        f"Reduction parameter {class_reduction} unknown. Choose between one of these: {valid_reduction}"
+    )
+
+
+def shard_map_compat(fn: Callable, *, mesh: Any, in_specs: Any, out_specs: Any, **kwargs: Any) -> Callable:
+    """Raises: the JAX package's ``shard_map`` shim
+    (``metrics_tpu/utilities/distributed.py:145``) has no counterpart.
+
+    The port runs no program over mesh axes. Its processes sync a state
+    over ``torch.distributed``: ``Metric.sync``/``compute()``,
+    ``apply_compute(state, process_group=...)``, :func:`sync_state_packed`
+    (with a :class:`Hierarchy` for two levels) and :func:`gather_all_pytrees`.
+    """
+    raise NotImplementedError(
+        "shard_map_compat: the port has no shard_map; sync a state over torch.distributed with"
+        " Metric.compute()/apply_compute(state, process_group=...), sync_state_packed (a Hierarchy for two levels)"
+        " or gather_all_pytrees"
+    )
+
+
 class Hierarchy:
     """Two-level process groups for a hierarchical packed sync
     (``metrics_tpu/utilities/distributed.py:163``).
@@ -172,6 +213,14 @@ class Hierarchy:
 
     def __repr__(self) -> str:
         return f"Hierarchy(intra={self.node_size} ranks x inter={self.nodes} nodes)"
+
+
+def hierarchical_axis(node_size: int) -> Hierarchy:
+    """The two-level spec (``metrics_tpu/utilities/distributed.py:245``):
+    nodes of ``node_size`` ranks reduced first (``"intra"``), then their
+    leaders (``"inter"``), as a :class:`Hierarchy` of process groups. Where
+    the JAX package names two mesh axes, the port takes the node size."""
+    return Hierarchy(node_size)
 
 
 #: thread-scoped overrides of the eager gather (see :class:`transport_overrides`)

@@ -189,13 +189,15 @@ class BootStrapper(Metric):
         """The requested statistics of the stacked per-child values, shared
         by the stateful and the pure calls."""
         output_dict = {}
+        # integer values (a confusion matrix, stat scores) in float32, as jnp.mean/std/quantile give
+        stats = computed_vals if computed_vals.is_floating_point() else computed_vals.to(torch.float32)
         if self.mean:
-            output_dict["mean"] = torch.mean(computed_vals, dim=0)
+            output_dict["mean"] = torch.mean(stats, dim=0)
         if self.std:
-            output_dict["std"] = torch.std(computed_vals, dim=0, correction=1)
+            output_dict["std"] = torch.std(stats, dim=0, correction=1)
         if self.quantile is not None:
-            q = torch.as_tensor(self.quantile, dtype=computed_vals.dtype, device=computed_vals.device)
-            output_dict["quantile"] = torch.quantile(computed_vals, q)  # linear, as jnp.quantile
+            q = torch.as_tensor(self.quantile, dtype=stats.dtype, device=stats.device)
+            output_dict["quantile"] = torch.quantile(stats, q)  # linear, as jnp.quantile
         if self.raw:
             output_dict["raw"] = computed_vals
         return output_dict

@@ -14,8 +14,14 @@ tensor and launches nothing; the cases that launch kernel B5 live in
 width, row chunks, mode, shared memory) and load width are pure functions
 held here; the CUDA path's plumbing (one C call, no fill, no device context)
 is held against a fake library; and the class-id label form is held exact
-against the JAX package's functions on the one-hot of the ids.
+against the JAX package's functions on the one-hot of the ids. The batched
+form (``label_score_histograms_batched_torch``) is held exact against
+``jax.vmap`` of the Pallas kernel in interpret mode and of ``_xla``, slice
+by slice, with both label forms; its vmap rule dispatches once a stack
+(nested vmaps, unbatched labels), and its plan and CUDA plumbing are held
+as the single form's are.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -36,9 +42,12 @@ from metrics_tpu_torch.kernels.binned_counts import (
     SHARED_BUDGET,
     STORE,
     _label_score_histograms_onevsrest,
+    batched_histogram_plan,
     binned_tp_fp_fn,
     histogram_plan,
     label_score_histograms,
+    label_score_histograms_batched_cuda,
+    label_score_histograms_batched_torch,
     label_score_histograms_cuda,
     label_score_histograms_torch,
     load_width,
@@ -197,8 +206,9 @@ class TestLabelScoreHistograms:
             label_score_histograms_cuda(preds, target.to("meta"), 16, device="cpu")
 
     def test_plain_version_runs_under_vmap(self):
-        """The keyed path's per-row update: each row a length-1 batch, the
-        out-of-place plain version inside ``torch.func.vmap``."""
+        """The keyed path's per-row update: each row a length-1 batch inside
+        ``torch.func.vmap``, the whole stack handed by the vmap rule to the
+        batched wrapper, whose plain version counts it on the CPU."""
         rng = np.random.RandomState(16)
         preds = torch.from_numpy(rng.rand(30, 1, 1).astype(np.float32))
         target = torch.from_numpy(rng.randint(0, 2, (30, 1, 1)).astype(np.int32))
@@ -207,7 +217,7 @@ class TestLabelScoreHistograms:
         want = label_score_histograms_torch(preds.reshape(-1, 1), target.reshape(-1, 1), 8)
         np.testing.assert_array_equal(pos.sum(0).numpy(), want[0].numpy())
         np.testing.assert_array_equal(neg.sum(0).numpy(), want[1].numpy())
-        assert _common.dispatch_count(_OP, "torch") == 0  # the wrapper was not reached
+        assert _common.dispatch_count(_OP, "torch") == 1  # the batched wrapper, once for the stack
 
 
 class TestHistCurves:
@@ -459,4 +469,121 @@ class TestClassIdLabels:
         want = _label_score_histograms_onevsrest(preds.reshape(-1, 4), ids.reshape(-1), 8)
         np.testing.assert_array_equal(pos.sum(0).numpy(), want[0].numpy())
         np.testing.assert_array_equal(neg.sum(0).numpy(), want[1].numpy())
-        assert _common.dispatch_count(_OP, "torch") == 1  # the flat call only: under the vmap no wrapper is reached
+        assert _common.dispatch_count(_OP, "torch") == 2  # the flat call and the batched wrapper, once for the stack
+
+
+class TestBatchedForm:
+    """B5 under ``jax.vmap``: ``pallas_call``'s batching rule runs the
+    kernel over the stack, one ``(N, C)`` slice at a time."""
+
+    @staticmethod
+    def _stack(seed, r, n, c, form):
+        rng = np.random.RandomState(seed)
+        preds = (rng.rand(r, n, c) * 1.2 - 0.1).astype(np.float32)  # some scores outside [0, 1]
+        if form == "dense":
+            return preds, rng.randint(0, 2, (r, n, c)).astype(np.int32)
+        return preds, rng.randint(-1, c + 1, (r, n)).astype(np.int64 if form == "ids64" else np.int32)
+
+    @pytest.mark.parametrize("r,n,c,b", [(33, 1, 1, 2048), (17, 1, 10, 2048), (5, 9, 3, 64), (4, 0, 3, 16)])
+    @pytest.mark.parametrize("form", ["dense", "ids32", "ids64"])
+    def test_plain_batched_equals_the_vmapped_jax_kernel(self, r, n, c, b, form):
+        preds, labels = self._stack(r + n + c, r, n, c, form)
+        dense = labels if form == "dense" else (labels[..., None] == np.arange(c)).astype(np.int32)
+        got = label_score_histograms_batched_torch(torch.from_numpy(preds), torch.from_numpy(labels), b)
+        assert got[0].shape == got[1].shape == (r, c, b) and got[2].shape == (r,)
+        assert all(g.dtype == torch.float32 for g in got)
+        vmapped = jax.vmap(lambda p, t: label_score_histograms_pallas(p, t, b, interpret=True))
+        for g, w in zip(got, vmapped(jnp.asarray(preds), jnp.asarray(dense))):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        for i in range(r):  # and the _xla formulation, slice by slice
+            for g, w in zip(got, label_score_histograms_xla(jnp.asarray(preds[i]), jnp.asarray(dense[i]), b)):
+                np.testing.assert_array_equal(g[i].numpy(), np.asarray(w))
+
+    def test_nan_inf_and_subnormals_as_the_single_form_counts_them(self):
+        x = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1e-45, -1e-45, -1e-39, 1.0, 0.5, 2.0, -1.0], np.float32)
+        preds = torch.from_numpy(x).reshape(-1, 1, 1)
+        labels = torch.from_numpy(np.arange(x.size) % 2).int().reshape(-1, 1, 1)
+        got = label_score_histograms_batched_torch(preds, labels, 16)
+        for i in range(x.size):
+            for g, w in zip(got, label_score_histograms_torch(preds[i], labels[i], 16)):
+                assert torch.equal(g[i], w)
+
+    def test_wrapper_takes_a_cpu_stack_to_the_plain_version_and_rejects_what_it_does_not_take(self):
+        preds, labels = (torch.from_numpy(x) for x in self._stack(3, 6, 2, 4, "ids64"))
+        got = label_score_histograms_batched_cuda(preds, labels, 32, device="cpu")
+        for g, w in zip(got, label_score_histograms_batched_torch(preds, labels, 32)):
+            assert torch.equal(g, w)
+        assert _common.dispatch_count(_OP, "torch") == 1 and _common.launch_count(_OP) == 0
+        with pytest.raises(ValueError, match="one shape"):
+            label_score_histograms_batched_cuda(preds, torch.zeros(6, 2, 3, dtype=torch.int32), 32, device="cpu")
+        with pytest.raises(ValueError, match="class ids of shape"):
+            label_score_histograms_batched_cuda(preds, labels[:, :1], 32, device="cpu")
+        with pytest.raises(ValueError, match="num_bins"):
+            label_score_histograms_batched_cuda(preds, labels, 0, device="cpu")
+        with pytest.raises(ValueError, match="lo < hi"):
+            label_score_histograms_batched_cuda(preds, labels, 32, 1.0, 0.0, device="cpu")
+
+    @pytest.mark.parametrize("ids", [False, True])
+    def test_the_vmap_rule_hands_a_nested_vmap_to_one_call(self, ids):
+        """Two nested vmaps: one dispatch of the batched wrapper over the
+        flattened (6 * 5) stack, as ``test_stacked_confmat_under_vmap_dispatch_once_for_the_whole_stack``
+        holds B2's rule."""
+        preds, labels = (torch.from_numpy(x) for x in self._stack(4, 30, 1, 4, "ids64" if ids else "dense"))
+        preds, labels = preds.reshape((6, 5) + preds.shape[1:]), labels.reshape((6, 5) + labels.shape[1:])
+        fn = _label_score_histograms_onevsrest if ids else label_score_histograms
+        got = torch.func.vmap(torch.func.vmap(lambda p, t: fn(p, t, 16)))(preds, labels)
+        want = label_score_histograms_batched_torch(preds.reshape(30, 1, 4), labels.reshape((30,) + labels.shape[2:]),
+                                                    16)
+        for g, w in zip(got, want):
+            assert g.shape == (6, 5) + w.shape[1:] and torch.equal(g.reshape(w.shape), w)
+        assert _common.dispatch_count(_OP, "torch") == 1
+
+    def test_the_vmap_rule_broadcasts_an_unbatched_label_tensor(self):
+        rng = np.random.RandomState(5)
+        preds = torch.from_numpy(rng.rand(7, 3, 2).astype(np.float32))
+        labels = torch.from_numpy(rng.randint(0, 2, (3, 2)).astype(np.int32))
+        got = torch.func.vmap(lambda p: label_score_histograms(p, labels, 8))(preds)
+        want = label_score_histograms_batched_torch(preds, labels.expand(7, 3, 2), 8)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert _common.dispatch_count(_OP, "torch") == 1
+
+    @pytest.mark.parametrize("n,c,b,mode,k,tiles,threads", [
+        (1, 1, 2048, STORE, 1, 1, 256),  # the keyed binary rows: one block a slice stores 16 KB
+        (1, 10, 2048, STORE, 10, 1, 1024),  # the keyed 10-class rows: one tile of every column
+        (1024, 1000, 2048, STORE, 8, 125, 1024),  # a bootstrap's resamples: the single form's tiles
+        (5, 7, 2048, STORE, 7, 1, 1024),
+        (0, 7, 2048, STORE, 7, 1, 1024),
+        (64, 1001, 2048, STORE, 8, 126, 1024),
+        (16, 4, 65536, GLOBAL, 0, 0, 0),
+        (1, 1, 1000, STORE, 1, 1, 128),
+    ])
+    def test_plans_of_the_paths_stacks(self, n, c, b, mode, k, tiles, threads):
+        plan = batched_histogram_plan(n, c, b)
+        assert (plan.mode, plan.k, plan.tiles, plan.threads) == (mode, k, tiles, threads)
+        if mode == STORE:
+            assert plan.chunks == 1 and plan.rows_per_chunk == n
+            assert plan.shared_bytes == tile_shared_bytes(k, b) <= SHARED_BUDGET
+
+    @pytest.mark.parametrize("r,n,c,b", [(4096, 1, 1, 2048), (20, 64, 8, 2048), (7, 3, 5, 65536)])
+    @pytest.mark.parametrize("form", ["dense", "ids32", "ids64"])
+    def test_the_cuda_path_makes_one_library_call(self, fake_library, r, n, c, b, form):
+        """A stack goes to the batched C entry in one call: three
+        ``torch.empty`` outputs of ``(R, C, B)``, ``(R, C, B)`` and ``(R,)``,
+        no fill, inputs that qualify passed as they are, the plan's mode, tile
+        width and threads; a failed launch raises and counts nothing."""
+        preds, labels = (torch.from_numpy(x) for x in self._stack(r, r, n, c, form))
+        pos, neg, clipped = bc._histograms_cuda(preds, labels, form == "dense", b, 0.0, 1.0, torch.device("cpu"))
+        assert fake_library.entries == ["label_score_histograms_batched_launch"] and len(fake_library.calls) == 1
+        args = fake_library.calls[0]
+        plan = batched_histogram_plan(n, c, b)
+        assert len(args) == len(bc._BATCHED_ARGTYPES)
+        assert args[0] == preds.data_ptr() and args[1] == labels.data_ptr()
+        assert args[2] == {"dense": 0, "ids32": 4, "ids64": 8}[form] and args[3:7] == (r, n, c, b)
+        assert args[7:10] == (0.0, 1.0, 1.0) and args[10:13] == (plan.mode, plan.k, plan.threads)
+        assert args[14:17] == (pos.data_ptr(), neg.data_ptr(), clipped.data_ptr()) and args[17:] == (None, 1234)
+        assert pos.shape == neg.shape == (r, c, b) and clipped.shape == (r,)
+        assert _common.launch_count(_OP) == 1
+        fake_library.err = 700
+        with pytest.raises(RuntimeError, match="CUDA error 700"):
+            bc._histograms_cuda(preds, labels, form == "dense", b, 0.0, 1.0, torch.device("cpu"))
+        assert _common.launch_count(_OP) == 1

@@ -274,25 +274,19 @@ _PURE_CHILDREN = [
 ]
 
 
-@pytest.mark.parametrize("sampling_strategy", ["multinomial", "poisson"])
-@pytest.mark.parametrize("metric, metric_kw", _PURE_CHILDREN)
-def test_pure_path_equals_the_jax_pure_path_on_the_same_index_matrices(monkeypatch, sampling_strategy, metric,
-                                                                       metric_kw):
+def _pure_both(monkeypatch, jb, tb, steps, sampling_strategy):
     """Both packages' pure ``init_state``/``apply_update``/``apply_compute``
-    on the same ``(num_bootstraps, size)`` index matrices. The JAX side's
-    keys are replaced by ``(step, child)`` pairs: its ``jax.random.split``
-    is patched to hand them out (the wrapper splits the state's key once a
-    step, then the sub-key once per child), and its ``_bootstrap_sampler``
-    to read row ``child`` of matrix ``step``. The port's macro children
-    count through one B1 dispatch a step for the whole stack."""
+    on the same ``(num_bootstraps, size)`` index matrices: ``(port stats,
+    JAX stats, port state, JAX state)``. The JAX side's keys are replaced
+    by ``(step, child)`` pairs: its ``jax.random.split`` is patched to hand
+    them out (the wrapper splits the state's key once a step, then the
+    sub-key once per child), and its ``_bootstrap_sampler`` to read row
+    ``child`` of matrix ``step``."""
     import jax
 
-    from metrics_tpu_torch.kernels import _common
-
-    num, steps = 6, [_acc_inputs(20 + s) for s in range(4)]
     size = steps[0][0].shape[0]
     gen = _gen(7)
-    matrices = [tboot._bootstrap_indices(num, size, gen, sampling_strategy) for _ in steps]
+    matrices = [tboot._bootstrap_indices(tb.num_bootstraps, size, gen, sampling_strategy) for _ in steps]
     stacked = jnp.asarray(torch.stack(matrices).numpy())
 
     def split(key, num=2):
@@ -304,23 +298,117 @@ def test_pure_path_equals_the_jax_pure_path_on_the_same_index_matrices(monkeypat
     monkeypatch.setattr(jboot, "_bootstrap_sampler", lambda size, key, **kw: stacked[key[0], key[1]])
     replay = iter(matrices)
     monkeypatch.setattr(tboot, "_bootstrap_indices", lambda *a, **k: next(replay))
-
-    kw = dict(num_bootstraps=num, raw=True, sampling_strategy=sampling_strategy, seed=3)
-    jb = J.BootStrapper(getattr(J, metric)(**metric_kw), quantile=jnp.asarray([0.1, 0.9]), **kw)
-    tb = BootStrapper(getattr(T, metric)(**metric_kw, **CPU), quantile=torch.tensor([0.1, 0.9]), **kw)
     jstate = dict(jb.init_state(), key=jnp.zeros(2, jnp.uint32))
     tstate = tb.init_state()
-    _common.reset_dispatch_counters()
-    for p, t in steps:
-        jstate = jb.apply_update(jstate, jnp.asarray(p.numpy()), jnp.asarray(t.numpy()))
-        tstate = tb.apply_update(tstate, p, t)
-    assert _common.dispatch_count("stat_scores_counts", "torch") == (len(steps) if metric_kw else 0)
+    for step in steps:
+        jstate = jb.apply_update(jstate, *(jnp.asarray(x.numpy()) for x in step))
+        tstate = tb.apply_update(tstate, *step)
     assert int(jstate["key"][0]) == int(tstate["step"]) == len(steps)
-    got, want = tb.apply_compute(tstate), jb.apply_compute(jstate)
+    return tb.apply_compute(tstate), jb.apply_compute(jstate), tstate, jstate
+
+
+@pytest.mark.parametrize("sampling_strategy", ["multinomial", "poisson"])
+@pytest.mark.parametrize("metric, metric_kw", _PURE_CHILDREN)
+def test_pure_path_equals_the_jax_pure_path_on_the_same_index_matrices(monkeypatch, sampling_strategy, metric,
+                                                                       metric_kw):
+    """Both packages' pure paths on the same index matrices
+    (:func:`_pure_both`). The port's macro children count through one B1
+    dispatch a step for the whole stack."""
+    from metrics_tpu_torch.kernels import _common
+
+    steps = [_acc_inputs(20 + s) for s in range(4)]
+    kw = dict(num_bootstraps=6, raw=True, sampling_strategy=sampling_strategy, seed=3)
+    jb = J.BootStrapper(getattr(J, metric)(**metric_kw), quantile=jnp.asarray([0.1, 0.9]), **kw)
+    tb = BootStrapper(getattr(T, metric)(**metric_kw, **CPU), quantile=torch.tensor([0.1, 0.9]), **kw)
+    _common.reset_dispatch_counters()
+    got, want, _, _ = _pure_both(monkeypatch, jb, tb, steps, sampling_strategy)
+    assert _common.dispatch_count("stat_scores_counts", "torch") == (len(steps) if metric_kw else 0)
     assert sorted(got) == sorted(want) == ["mean", "quantile", "raw", "std"]
     for key in got:
         np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), **TOL)
     assert float(got["std"]) > 0
+
+
+_TOP_K_CHILDREN = [
+    ("Accuracy", {}), ("Precision", {"average": "macro"}), ("Recall", {"average": "micro"}),
+    ("F1", {"average": "macro"}), ("FBeta", {"average": "weighted", "beta": 0.5}),
+    ("Specificity", {"average": "macro"}), ("StatScores", {"reduce": "macro"}),
+]
+
+
+@pytest.mark.parametrize("metric, metric_kw", _TOP_K_CHILDREN)
+def test_pure_path_of_a_top_k_child_equals_the_jax_pure_path(monkeypatch, metric, metric_kw):
+    """A ``top_k=2`` child on probabilities under the pure path's vmap: the
+    top-k mask is an out-of-place scatter, which ``torch.func.vmap``
+    batches (an in-place ``scatter_`` into a fresh tensor raised)."""
+    steps = [_acc_inputs(40 + s) for s in range(3)]
+    kw = dict(top_k=2, num_classes=4, **metric_kw)
+    boot_kw = dict(num_bootstraps=5, raw=True, sampling_strategy="multinomial", seed=4)
+    jb = J.BootStrapper(getattr(J, metric)(**kw), **boot_kw)
+    tb = BootStrapper(getattr(T, metric)(**kw, **CPU), **boot_kw)
+    got, want, _, _ = _pure_both(monkeypatch, jb, tb, steps, "multinomial")
+    for key in ("raw", "mean", "std"):
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), **TOL)
+    assert got["mean"].dtype == got["std"].dtype == torch.float32
+
+
+def test_pure_bootstrap_of_capacity_spearman_equals_the_jax_pure_path(monkeypatch):
+    """``apply_compute`` of ``SpearmanCorrcoef(capacity=N)`` ranks each
+    child's buffer under the vmap: the ranks are un-permuted by an
+    out-of-place scatter (an in-place one raised)."""
+    rng = np.random.RandomState(12)
+    steps = []
+    for _ in range(3):
+        x = rng.randn(40).astype(np.float32)
+        steps.append((_t(x), _t((x + 0.5 * rng.randn(40)).astype(np.float32))))
+    kw = dict(num_bootstraps=4, raw=True, sampling_strategy="multinomial", seed=2)
+    jb = J.BootStrapper(J.SpearmanCorrcoef(capacity=256), **kw)
+    tb = BootStrapper(T.SpearmanCorrcoef(capacity=256, **CPU), **kw)
+    got, want, _, _ = _pure_both(monkeypatch, jb, tb, steps, "multinomial")
+    for key in ("raw", "mean", "std"):
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), rtol=1e-5, atol=1e-6)
+    assert float(got["mean"]) > 0.5
+
+
+_INTEGER_CHILDREN = [("ConfusionMatrix", {"num_classes": 4}), ("StatScores", {"num_classes": 4, "reduce": "macro"})]
+
+
+@pytest.mark.parametrize("metric, metric_kw", _INTEGER_CHILDREN)
+def test_statistics_of_integer_values_are_float32_as_in_the_jax_package(monkeypatch, metric, metric_kw):
+    """A child that computes integer counts: mean, std and quantiles in
+    float32 (``torch.mean``/``std`` refuse integers, and the quantile's q
+    is built in the float dtype), as the JAX package's (float32 from int32
+    counts, x64 or not), equal within float32 rounding."""
+    rng = np.random.RandomState(2)
+    batches = [(_t(rng.randint(0, 4, 96)), _t(rng.randint(0, 4, 96))) for _ in range(2)]
+    shared = _SharedIndices(13, "poisson")
+    shared.patch(monkeypatch)
+    kw = dict(num_bootstraps=3, raw=True, seed=1)
+    jb = J.BootStrapper(getattr(J, metric)(**metric_kw), quantile=jnp.asarray([0.05, 0.95]), **kw)
+    tb = BootStrapper(getattr(T, metric)(**metric_kw, **CPU), quantile=torch.tensor([0.05, 0.95]), **kw)
+    for p, t in batches:
+        jb.update(jnp.asarray(p.numpy()), jnp.asarray(t.numpy()))
+        tb.update(p, t)
+    got, want = tb.compute(), jb.compute()
+    assert not got["raw"].is_floating_point()
+    for key in ("mean", "std", "quantile"):
+        assert got[key].dtype == torch.float32 and np.asarray(want[key]).dtype == np.float32, key
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), rtol=1e-6, atol=1e-6, err_msg=key)
+    np.testing.assert_array_equal(got["raw"].numpy(), np.asarray(want["raw"]))
+
+
+@pytest.mark.parametrize("metric, metric_kw", _INTEGER_CHILDREN)
+def test_pure_statistics_of_integer_values_are_float32_as_in_the_jax_package(monkeypatch, metric, metric_kw):
+    # probabilities: the JAX package's traced canonicalization needs no num_classes for them
+    steps = [_acc_inputs(60 + s) for s in range(3)]
+    kw = dict(num_bootstraps=4, raw=True, sampling_strategy="poisson", seed=6)
+    jb = J.BootStrapper(getattr(J, metric)(**metric_kw), quantile=jnp.asarray([0.1, 0.9]), **kw)
+    tb = BootStrapper(getattr(T, metric)(**metric_kw, **CPU), quantile=torch.tensor([0.1, 0.9]), **kw)
+    got, want, _, _ = _pure_both(monkeypatch, jb, tb, steps, "poisson")
+    for key in ("mean", "std", "quantile"):
+        assert got[key].dtype == torch.float32, key
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), rtol=1e-6, atol=1e-6, err_msg=key)
+    np.testing.assert_array_equal(got["raw"].numpy(), np.asarray(want["raw"]))
 
 
 def test_pure_path_sane_stats():

@@ -27,7 +27,10 @@ collection's members in a ``torch.profiler`` trace. The durability cases
 restore a checkpoint across devices, hold the compiled keyed update after
 ``grow``/``compact`` against eager (one capture a capacity), spill and fault
 back under a held graph, and count the synchronizing calls of updates while
-an async save flies.
+an async save flies. B5's batched entry is held against its plain version
+at the keyed rows' and a bootstrap's stacks, at ragged ones, at every bin
+edge and past 2^31 cells, captured and replayed, behind the vmap rule
+(nested vmaps, unbatched labels) and on the keyed sketched curves.
 """
 import numpy as np
 import pytest
@@ -511,18 +514,35 @@ def _batched_graph_cases(dev):
         return (lambda p, t: (cm.confmat_counts_batched_cuda(p, t, c, device=dev),),
                 lambda p, t: (cm.confmat_counts_batched_torch(p, t, c),))
 
+    def scores(r, n, c, dense):
+        def make():
+            s = torch.rand((r, n, c), generator=gen, device=dev)
+            if dense:
+                return s, torch.randint(0, 2, (r, n, c), generator=gen, device=dev, dtype=torch.int32)
+            return s, torch.randint(-1, c + 1, (r, n), generator=gen, device=dev)
+        return make
+
+    def b5(b):
+        return (lambda s, t: bc.label_score_histograms_batched_cuda(s, t, b, device=dev),
+                lambda s, t: bc.label_score_histograms_batched_torch(s, t, b))
+
     return [
         ("B1 short slices", "stat_scores_counts", binary(4096, 1, 10),
          lambda p, t: stat_scores_counts_cuda(p, t, device=dev), stat_scores_counts_torch),
         ("B2 batched shared", "confmat_counts", labels(8192, 1, 16), *b2(16)),
         ("B2 batched opt-in", "confmat_counts", labels(9, 50, 200), *b2(200)),
         ("B2 batched global", "confmat_counts", labels(20, 1024, 1000), *b2(1000)),
+        ("B5 batched keyed rows", _HIST, scores(4096, 1, 1, True), *b5(2048)),
+        ("B5 batched class ids", _HIST, scores(4096, 1, 10, False), *b5(2048)),
+        ("B5 batched tiles", _HIST, scores(20, 1024, 1000, False), *b5(2048)),
+        ("B5 batched global", _HIST, scores(3, 16, 4, True), *b5(65536)),
     ]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", range(4), ids=["B1 short slices", "B2 batched shared", "B2 batched opt-in",
-                                               "B2 batched global"])
+@pytest.mark.parametrize("case", range(8), ids=["B1 short slices", "B2 batched shared", "B2 batched opt-in",
+                                               "B2 batched global", "B5 batched keyed rows", "B5 batched class ids",
+                                               "B5 batched tiles", "B5 batched global"])
 def test_a_captured_batched_launch_equals_the_plain_version(cuda_device, case):
     """The batched entries inside a capture, as the compiled keyed update
     takes them: each replay equals the plain version and counts one launch."""
@@ -1308,6 +1328,133 @@ def test_an_async_save_adds_no_synchronizing_call_to_the_updates_in_flight(cuda_
     during = syncs(fly)
     assert len([w for w in during if "durability" not in w.filename]) == len(base) / len(pool) * steps[0]
     assert [w for w in during if "durability" in w.filename] == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,n,c,b", [(4096, 1, 1, 2048), (4096, 1, 10, 2048), (20, 1024, 1000, 2048),
+                                     (300, 5, 7, 2048), (65_536, 1, 1, 2048), (5, 0, 7, 2048), (3, 64, 1001, 2048),
+                                     (4, 300, 1000, 2048), (3, 16, 4, 65536), (5, 7, 3, 40_000)])
+@pytest.mark.parametrize("form", ["dense", "ids32", "ids64"])
+def test_histogram_batched_kernel_matches_plain(cuda_device, r, n, c, b, form):
+    """B5's batched entry at the paths' stacks (the keyed binary and
+    10-class rows, a bootstrap's resamples), C = 7, a last z group of one
+    slice (65,536), slices of no row, ragged tiles, 16-byte loads and the
+    global mode (B past one tile), one launch for the stack: == the plain
+    batched version on the card and on the CPU. Ids in [-1, C]; the outputs
+    come from a pool of -1s, so a cell left unwritten shows."""
+    gen = torch.Generator(device=cuda_device).manual_seed(r + c + b)
+    scores = torch.rand((r, n, c), generator=gen, device=cuda_device)
+    if form == "dense":
+        labels = torch.randint(0, 2, (r, n, c), generator=gen, device=cuda_device, dtype=torch.int32)
+    else:
+        labels = torch.randint(-1, c + 1, (r, n), generator=gen, device=cuda_device)
+        labels = labels.to(torch.int32 if form == "ids32" else torch.int64)
+    _dirty_pool(cuda_device, 8 * r * c * b)
+    got = bc.label_score_histograms_batched_cuda(scores, labels, b)
+    torch.cuda.synchronize()
+    assert _common.launch_count(_HIST) == 1
+    assert got[0].shape == got[1].shape == (r, c, b) and got[2].shape == (r,)
+    for g, w, h in zip(got, bc.label_score_histograms_batched_torch(scores, labels, b),
+                       bc.label_score_histograms_batched_torch(scores.cpu(), labels.cpu(), b)):
+        assert g.dtype == torch.float32 and torch.equal(g, w) and torch.equal(g.cpu(), h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lo,hi", [(2048, 0.0, 1.0), (1000, 0.0, 1.0), (4096, 0.1, 0.7)])
+def test_histogram_batched_kernel_at_every_bin_edge(cuda_device, b, lo, hi):
+    """Every bin edge with its float32 neighbours, NaN, +-inf, signed zeros,
+    subnormals and scores outside [lo, hi]: one score a slice with dense
+    labels, and all in one slice with class ids, == the plain version on the
+    card and on the CPU."""
+    edges = (lo + (hi - lo) * torch.arange(b + 1, dtype=torch.float64) / b).float()
+    special = torch.tensor([float("nan"), float("inf"), float("-inf"), 0.0, -0.0, 1e-45, -1e-45, -1e-39, lo - 1.0,
+                            hi + 1.0])
+    x = torch.cat([edges, torch.nextafter(edges, torch.tensor(2.0)), torch.nextafter(edges, torch.tensor(-1.0)),
+                   special]).to(cuda_device)
+    alternate = (torch.arange(x.shape[0], device=cuda_device) % 2).int()
+    for scores, labels in ((x.reshape(-1, 1, 1), alternate.reshape(-1, 1, 1)),
+                           (x.reshape(1, -1, 1).expand(1, -1, 3).contiguous(), alternate.reshape(1, -1).long())):
+        got = bc.label_score_histograms_batched_cuda(scores, labels, b, lo, hi)
+        torch.cuda.synchronize()
+        for g, w, h in zip(got, bc.label_score_histograms_batched_torch(scores, labels, b, lo, hi),
+                           bc.label_score_histograms_batched_torch(scores.cpu(), labels.cpu(), b, lo, hi)):
+            assert torch.equal(g, w) and torch.equal(g.cpu(), h)
+    assert _common.launch_count(_HIST) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,c,b,form", [(131_200, 8, 2048, "dense"), (66_000, 1, 32_768, "ids64")])
+def test_histogram_batched_kernel_past_2_31_cells(cuda_device, r, c, b, form):
+    """Each output past 2^31 cells, in the store mode and in the global mode
+    (which also takes more than 65,535 slices on its grid's y axis): one
+    launch at int64 offsets, == the plain version on the card."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    scores = torch.rand((r, 1, c), generator=gen, device=cuda_device)
+    labels = (torch.randint(0, 2, (r, 1, c), generator=gen, device=cuda_device, dtype=torch.int32) if form == "dense"
+              else torch.randint(-1, c + 1, (r, 1), generator=gen, device=cuda_device))
+    got = bc.label_score_histograms_batched_cuda(scores, labels, b)
+    torch.cuda.synchronize()
+    assert r * c * b > 2**31 and _common.launch_count(_HIST) == 1
+    want = bc.label_score_histograms_batched_torch(scores, labels, b)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert float(got[0].sum(dtype=torch.float64) + got[1].sum(dtype=torch.float64)) == r * c
+
+
+@pytest.mark.cuda
+def test_the_batched_histogram_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    scores = torch.rand(4, 3, 2, device=cuda_device)
+    with pytest.raises(ValueError, match="one shape"):
+        bc.label_score_histograms_batched_cuda(scores, torch.zeros(4, 3, 1, dtype=torch.int32, device=cuda_device), 8)
+    with pytest.raises(ValueError, match="class ids of shape"):
+        bc.label_score_histograms_batched_cuda(scores, torch.zeros(4, 2, dtype=torch.int64, device=cuda_device), 8)
+    with pytest.raises(ValueError, match="num_bins"):
+        bc.label_score_histograms_batched_cuda(scores, torch.zeros(4, 3, dtype=torch.int64, device=cuda_device), 0)
+    assert _common.launch_count(_HIST) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_classes", [None, 10])
+def test_a_keyed_sketched_auroc_on_the_card_matches_the_cpu(cuda_device, num_classes):
+    """The keyed rows of a sketched curve inside the vmap go to B5's batched
+    entry: one launch for the update's 512 rows (binary, and 10-class one
+    against the rest with class ids), then B3 routes their histograms; no
+    plain B5 dispatch on the card; states == the CPU's exactly."""
+    rng = np.random.RandomState(6)
+    if num_classes is None:
+        scores = rng.rand(512).astype(np.float32)
+        batch = (_t(rng.randint(-1, 64, 512)), _t(scores), _t((rng.rand(512) < scores).astype(np.int64)))
+    else:
+        logits = rng.rand(512, num_classes).astype(np.float32)
+        batch = (_t(rng.randint(-1, 64, 512)), _t(logits / logits.sum(1, keepdims=True)),
+                 _t(rng.randint(0, num_classes, 512)))
+    kw = dict(sketched=True, num_classes=num_classes)
+    card = T.KeyedMetric(T.AUROC(**kw, device=cuda_device), 64, validate_ids=False, device=cuda_device)
+    host = T.KeyedMetric(T.AUROC(**kw, device="cpu"), 64, validate_ids=False, device="cpu")
+    card.update(*(x.to(cuda_device) for x in batch))
+    assert _common.launch_count(_HIST) == 1 and _common.launch_count("segment_scatter_add") == 1
+    assert _common.dispatch_count(_HIST, "torch") == 0
+    host.update(*batch)
+    for name in ("pos_hist", "neg_hist", "sketch_clipped"):
+        assert torch.equal(getattr(card, name).cpu(), getattr(host, name)), name
+    got, want = card.compute().cpu(), host.compute()
+    assert torch.equal(got.isnan(), want.isnan()) and float(torch.nan_to_num(got - want).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_the_histogram_vmap_rule_launches_once_for_nested_vmaps_and_unbatched_labels(cuda_device):
+    """Nested vmaps flatten into one stack; an unbatched label tensor is
+    broadcast along the stack: one launch each, == the plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    scores = torch.rand((6, 5, 1, 4), generator=gen, device=cuda_device)
+    ids = torch.randint(0, 4, (6, 5, 1), generator=gen, device=cuda_device)
+    got = torch.func.vmap(torch.func.vmap(lambda s, i: bc._label_score_histograms_onevsrest(s, i, 64)))(scores, ids)
+    want = bc.label_score_histograms_batched_torch(scores.reshape(30, 1, 4), ids.reshape(30, 1), 64)
+    assert all(torch.equal(g.reshape(w.shape), w) for g, w in zip(got, want))
+    assert _common.launch_count(_HIST) == 1
+    labels = torch.randint(0, 2, (1, 4), generator=gen, device=cuda_device, dtype=torch.int32)
+    got = torch.func.vmap(lambda s: bc.label_score_histograms(s, labels, 64))(scores[0])
+    want = bc.label_score_histograms_batched_torch(scores[0], labels.expand(5, 1, 4).contiguous(), 64)
+    assert all(torch.equal(g, w) for g, w in zip(got, want)) and _common.launch_count(_HIST) == 2
 
 
 @pytest.mark.cuda

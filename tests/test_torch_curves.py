@@ -455,8 +455,9 @@ def test_load_numpy_states_carries_jax_state_across(name, kind, kw, sketched):
 
 
 def test_keyed_sketched_auroc_matches_jax_keyed_metric():
-    """Each event row through the plain B5 version under ``torch.func.vmap``,
-    the per-row histograms through B3's plain version into four tenants."""
+    """The event rows under ``torch.func.vmap`` through B5's vmap rule, one
+    call of the batched wrapper (its plain version on the CPU), the per-row
+    histograms through B3's plain version into four tenants."""
     rng = np.random.RandomState(0)
     ids = rng.randint(0, 4, 200)
     p = rng.rand(200).astype(np.float32)
@@ -466,7 +467,7 @@ def test_keyed_sketched_auroc_matches_jax_keyed_metric():
     port = T.KeyedMetric(T.AUROC(sketched=True, num_bins=16, **CPU), num_tenants=4, **CPU)
     port.update(torch.from_numpy(ids), torch.from_numpy(p), torch.from_numpy(t))
     assert _common.dispatch_count("segment_scatter_add", "torch") == 1
-    assert _common.dispatch_count("label_score_histograms", "torch") == 0  # the wrapper is not reached under vmap
+    assert _common.dispatch_count("label_score_histograms", "torch") == 1  # the vmap rule's one batched call
     _assert_hist_states(port, ref)
     got = port.compute()
     _assert_close(got, ref.compute())
@@ -475,3 +476,59 @@ def test_keyed_sketched_auroc_matches_jax_keyed_metric():
         alone = T.AUROC(sketched=True, num_bins=16, **CPU)
         alone.update(torch.from_numpy(p[ids == k]), torch.from_numpy(t[ids == k]))
         assert float(alone.compute()) == pytest.approx(float(got[k]), abs=1e-6)
+
+
+@pytest.mark.parametrize("name,kw", [("AUROC", {}), ("AveragePrecision", {}), ("AUROC", {"num_classes": 4}),
+                                     ("AveragePrecision", {"num_classes": 4})])
+def test_keyed_sketched_curves_match_the_jax_keyed_metric(name, kw):
+    """Binary and one-vs-rest (class ids) keyed sketched curves: the event
+    rows under ``torch.func.vmap`` go to B5's batched form in one call an
+    update, then B3 routes the per-row histograms, over three updates with a
+    partial reset between; states exact, values within 1e-6."""
+    rng = np.random.RandomState(7)
+    port = T.KeyedMetric(getattr(T, name)(sketched=True, num_bins=32, **kw, **CPU), num_tenants=5, **CPU)
+    ref = J.KeyedMetric(getattr(J, name)(sketched=True, num_bins=32, **kw), num_tenants=5)
+    for step in range(3):
+        if kw:
+            p, t = _softmax(rng.rand(90, 4).astype(np.float32)), rng.randint(0, 4, 90)
+        else:
+            p = rng.rand(90).astype(np.float32)
+            t = (rng.rand(90) < p).astype(np.int64)
+        ids = rng.randint(0, 5, 90)
+        port.update(torch.from_numpy(ids), torch.from_numpy(p), torch.from_numpy(t))
+        ref.update(jnp.asarray(ids), jnp.asarray(p), jnp.asarray(t))
+        if step == 1:
+            port.reset(tenant_ids=torch.tensor([2]))
+            ref.reset(tenant_ids=jnp.asarray([2]))
+    assert _common.dispatch_count("label_score_histograms", "torch") == 3
+    assert _common.dispatch_count("segment_scatter_add", "torch") == 3
+    _assert_hist_states(port, ref)
+    _assert_close(port.compute(), ref.compute())
+
+
+@pytest.mark.parametrize("kw", [{}, {"num_classes": 4}])
+def test_pure_bootstrap_of_a_sketched_auroc_matches_the_jax_package(monkeypatch, kw):
+    """The pure ``BootStrapper`` vmaps the child's update over the
+    resamples: one batched B5 call an update for the whole stack, the
+    children's histograms exact against the JAX package's on the same index
+    matrices, the statistics within 1e-6."""
+    from tests.test_torch_bootstrapping import _pure_both
+
+    rng = np.random.RandomState(8)
+    steps = []
+    for _ in range(3):
+        if kw:
+            steps.append((torch.from_numpy(_softmax(rng.rand(80, 4).astype(np.float32))),
+                          torch.from_numpy(rng.randint(0, 4, 80))))
+        else:
+            p = rng.rand(80).astype(np.float32)
+            steps.append((torch.from_numpy(p), torch.from_numpy((rng.rand(80) < p).astype(np.int64))))
+    boot_kw = dict(num_bootstraps=6, raw=True, sampling_strategy="multinomial", seed=5)
+    jb = J.BootStrapper(J.AUROC(sketched=True, num_bins=64, **kw), **boot_kw)
+    tb = T.BootStrapper(T.AUROC(sketched=True, num_bins=64, **kw, **CPU), **boot_kw)
+    got, want, tstate, jstate = _pure_both(monkeypatch, jb, tb, steps, "multinomial")
+    assert _common.dispatch_count("label_score_histograms", "torch") == len(steps)
+    for name in HIST_STATES:
+        np.testing.assert_array_equal(tstate["children"][name].numpy(), np.asarray(jstate["children"][name]))
+    for key in ("raw", "mean", "std"):
+        _assert_close(got[key], want[key])

@@ -398,3 +398,61 @@ def test_a_failed_launch_raises_and_is_not_counted(fake_library, op):
             cm._counts_cuda(torch.ones(4, dtype=torch.int64), torch.ones(4, dtype=torch.int64), 3,
                             torch.device("cpu"))
     assert _common.launch_count(op) == 0 and _common.dispatch_count(op, "torch") == 0
+
+
+def _stack_fn(x, y):
+    """A stand-in for a batched wrapper: called on plain stacks only."""
+    assert not torch._C._functorch.is_batchedtensor(x) and not torch._C._functorch.is_batchedtensor(y)
+    return x * 2 + y.unsqueeze(-2), x.sum(-1)
+
+
+def test_vmap_stack_takes_every_vmap_level_off_in_one_call():
+    """The vmap rule leans on ``torch._C._functorch``'s interpreter stack;
+    this holds its contract (so a torch release that changes those internals
+    fails here): three nested vmaps, the middle one batching neither
+    tensor, end in one call of ``fn`` on the flattened stack, with an
+    unbatched tensor broadcast, and the outputs batched again level by level."""
+    from torch._C import _functorch
+
+    calls = []
+
+    def fn(x, y):
+        calls.append((tuple(x.shape), tuple(y.shape)))
+        return _stack_fn(x, y)
+
+    x = torch.arange(2 * 3 * 4 * 5, dtype=torch.float32).reshape(2, 3, 4, 5)
+    y = torch.arange(5, dtype=torch.float32) * 10
+    zs = torch.zeros(7)
+    a, b = torch.func.vmap(lambda xa: torch.func.vmap(lambda z: torch.func.vmap(
+        lambda xc: _common.vmap_stack(fn, (xc, y)))(xa))(zs))(x)
+    assert calls == [((6, 4, 5), (6, 5))]
+    want_a, want_b = _stack_fn(x, y.expand(2, 3, 5))
+    assert a.shape == (2, 7, 3, 4, 5) and b.shape == (2, 7, 3, 4)
+    for k in range(7):
+        assert torch.equal(a[:, k], want_a) and torch.equal(b[:, k], want_b)
+    assert _functorch.get_dynamic_layer_stack_depth() == 0
+
+
+def test_vmap_stack_refuses_a_transform_other_than_vmap_on_top():
+    """A grad level above the batched tensor is refused, not mistaken for a
+    vmap level; the layer stack is left whole by the refusal and by an
+    error raised inside ``fn``."""
+    from torch._C import _functorch
+
+    ys = torch.ones(3, 5)
+
+    def under_grad(y):
+        return torch.func.grad(lambda w: _common.vmap_stack(_stack_fn, (y, w))[1].sum())(torch.ones(5))
+
+    with pytest.raises(RuntimeError, match="innermost transform is TransformType.Grad"):
+        torch.func.vmap(under_grad)(ys)
+    assert _functorch.get_dynamic_layer_stack_depth() == 0
+
+    def fails(x, y):
+        raise ValueError("inside fn")
+
+    with pytest.raises(ValueError, match="inside fn"):
+        torch.func.vmap(torch.func.vmap(lambda x: _common.vmap_stack(fails, (x, x))))(torch.ones(2, 3, 4))
+    assert _functorch.get_dynamic_layer_stack_depth() == 0
+    got = torch.func.vmap(lambda x: _common.vmap_stack(_stack_fn, (x, x[0])))(torch.ones(2, 3, 4))
+    assert got[0].shape == (2, 3, 4)

@@ -111,6 +111,75 @@ def test_keyed_macro_precision_matches_jax():
     _assert_values(*_compute_both(port, ref))
 
 
+_TOP_K = [("Accuracy", {}), ("Precision", {"average": "macro"}), ("Recall", {"average": "micro"}),
+          ("F1", {"average": "macro"}), ("FBeta", {"average": "weighted", "beta": 0.5}),
+          ("Specificity", {"average": "macro"}), ("StatScores", {"reduce": "macro"})]
+
+
+@pytest.mark.parametrize("collection", [False, True], ids=["KeyedMetric", "MultiTenantCollection"])
+@pytest.mark.parametrize("metric, metric_kw", _TOP_K)
+def test_keyed_top_k_on_probabilities_matches_jax(metric, metric_kw, collection):
+    """``top_k=2`` on probabilities under the keyed vmap: the top-k mask is
+    an out-of-place scatter of the batched indices (an in-place one into a
+    fresh tensor raised in ``torch.func.vmap``)."""
+    kw = dict(top_k=2, num_classes=NC, **metric_kw)
+    if collection:
+        port = T.MultiTenantCollection({metric: getattr(T, metric)(**kw, **CPU)}, 5, **CPU)
+        ref = J.MultiTenantCollection({metric: getattr(J, metric)(**kw)}, 5)
+    else:
+        port, ref = T.KeyedMetric(getattr(T, metric)(**kw, **CPU), 5, **CPU), J.KeyedMetric(getattr(J, metric)(**kw), 5)
+    _fuzz(port, ref, _probs_batch)
+    for got_keyed, want_keyed in ([(port._keyed[o], ref._keyed[o]) for o in ref._keyed] if collection
+                                  else [(port, ref)]):
+        _assert_states(got_keyed, want_keyed)
+    got, want = _compute_both(port, ref)
+    for g, w in ([(got[k], want[k]) for k in want] if collection else [(got, want)]):
+        _assert_values(g, w)
+
+
+def test_keyed_top_2_accuracy_gives_the_jax_package_s_values():
+    rng = np.random.RandomState(0)
+    p = rng.rand(64, 5).astype(np.float32)
+    p /= p.sum(1, keepdims=True)
+    t, ids = rng.randint(0, 5, 64), rng.randint(0, 6, 64)
+    port, ref = T.KeyedMetric(T.Accuracy(top_k=2, **CPU), 6, **CPU), J.KeyedMetric(J.Accuracy(top_k=2), 6)
+    port.update(_t(ids), _t(p), _t(t))
+    ref.update(_j(ids), _j(p), _j(t))
+    got, want = _compute_both(port, ref)
+    _assert_values(got, want)
+    np.testing.assert_allclose(got.numpy(), [0.5, 0.3333, 0.5385, 0.2, 0.5455, 0.4167], atol=1e-4)
+
+
+def test_the_scatters_outside_vmap_are_unchanged_bit_for_bit():
+    """``select_topk``, ``tie_group_bounds`` and ``_rank_data`` against the
+    in-place scatters they replace, on seeded inputs with ties."""
+    from metrics_tpu_torch.functional.regression.spearman import _rank_data
+    from metrics_tpu_torch.utilities.data import select_topk, tie_group_bounds
+
+    rng = np.random.RandomState(3)
+    probs = _t(rng.rand(50, 7).astype(np.float32))
+    for k in (2, 3):
+        top = torch.topk(probs, k, dim=1).indices
+        want = torch.zeros(probs.shape, dtype=torch.int32).scatter_(1, top, 1)
+        assert torch.equal(select_topk(probs, k), want)
+    keys = torch.sort(_t(rng.randint(0, 20, 200))).values
+    changed = keys[1:] != keys[:-1]
+    n, idx = keys.shape[0], torch.arange(keys.shape[0])
+    is_start = torch.cat([torch.ones(1, dtype=torch.bool), changed])
+    is_end = torch.cat([changed, torch.ones(1, dtype=torch.bool)])
+    group = torch.cumsum(is_start, 0) - 1
+    starts = torch.zeros(n + 1, dtype=torch.int64).scatter_(0, torch.where(is_start, group, n), idx)[group]
+    ends = torch.zeros(n + 1, dtype=torch.int64).scatter_(0, torch.where(is_end, group, n), idx)[group]
+    got = tie_group_bounds(changed)
+    assert torch.equal(got[0], starts) and torch.equal(got[1], ends)
+    data = _t(rng.randint(0, 30, 300).astype(np.float32))
+    order = torch.sort(data, stable=True).indices
+    x = data[order]
+    s_idx, e_idx = tie_group_bounds(x[1:] != x[:-1])
+    ranks = torch.empty(300).scatter_(0, order, (s_idx + e_idx).float() / 2 + 1)
+    assert torch.equal(_rank_data(data), ranks)
+
+
 def _members(pkg, **device):
     kw = dict(average="macro", num_classes=C, **device)
     return {"Accuracy": pkg.Accuracy(**device), "Precision": pkg.Precision(**kw), "Recall": pkg.Recall(**kw),
