@@ -17,7 +17,7 @@ from metrics_tpu_torch.functional.classification.accuracy import (
     _subset_accuracy_compute,
     _subset_accuracy_update,
 )
-from metrics_tpu_torch.utilities.data import Tensor, _is_traced
+from metrics_tpu_torch.utilities.data import Tensor, _is_traced, to_host
 from metrics_tpu_torch.utilities.enums import DataType
 
 #: mode <-> synced-code mapping for the ``mode_code`` state (0 = unset; the
@@ -169,7 +169,7 @@ class Accuracy(StatScores):
         read once, on the host, before a keyed compute fans out per tenant."""
         if self.mode is not None or "mode_code" not in state:
             return
-        code = int(torch.as_tensor(state["mode_code"]).max())
+        code = int(to_host(torch.as_tensor(state["mode_code"]).max()))
         if code:
             self.mode = _MODE_CODES[code]
 
@@ -180,7 +180,7 @@ class Accuracy(StatScores):
         be read: the mode is then what update or :meth:`_restore_derived` set."""
         if self.mode is not None or _is_traced(self.mode_code):
             return self.mode
-        return _MODE_CODES[int(self.mode_code.max().item())]
+        return _MODE_CODES[int(to_host(self.mode_code.max()))]
 
     def compute(self) -> Tensor:
         """Accuracy over everything seen so far."""

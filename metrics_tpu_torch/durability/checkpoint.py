@@ -73,6 +73,7 @@ from metrics_tpu_torch.durability.telemetry import (
 from metrics_tpu_torch.observability.events import EVENTS
 from metrics_tpu_torch.observability.registry import TELEMETRY
 from metrics_tpu_torch.resilience.faults import FaultInjected, maybe_fault
+from metrics_tpu_torch.utilities.data import to_host
 
 __all__ = [
     "CRASH_POINTS",
@@ -708,10 +709,10 @@ class CheckpointManager:
             # no marks baseline (first save predated any traffic): every
             # tenant with ANY write mark is dirty relative to that save
             if cur[0] == "rows":
-                return int(torch.count_nonzero(cur[1]))
+                return int(to_host(torch.count_nonzero(cur[1])))
             return int(len(cur[1]))
         if cur[0] == "rows" and prev[0] == "rows" and prev[1].shape == cur[1].shape:
-            return int(torch.count_nonzero(cur[1] != prev[1]))
+            return int(to_host(torch.count_nonzero(cur[1] != prev[1])))
         dirty = self._dirty_tenants(prev, cur, None)
         return None if dirty is None else int(len(dirty))
 

@@ -61,6 +61,7 @@ from metrics_tpu_torch.durability.telemetry import (
 )
 from metrics_tpu_torch.observability.events import EVENTS
 from metrics_tpu_torch.observability.registry import TELEMETRY
+from metrics_tpu_torch.utilities.data import to_host
 
 __all__ = ["TenantSpiller"]
 
@@ -80,7 +81,7 @@ def _host_ids(ids: Any) -> np.ndarray:
     """The hooks' ids on the host: a host array (a staged cohort's view) as
     it is, a tensor read once."""
     if isinstance(ids, torch.Tensor):
-        return ids.detach().cpu().numpy().reshape(-1)
+        return to_host(ids.detach(), numpy=True).reshape(-1)
     return np.asarray(ids).reshape(-1)
 
 

@@ -6,7 +6,7 @@ from typing import Tuple
 
 import torch
 
-from metrics_tpu_torch.utilities.data import Tensor
+from metrics_tpu_torch.utilities.data import Tensor, to_host
 
 
 def _auc_update(x: Tensor, y: Tensor) -> Tuple[Tensor, Tensor]:
@@ -35,7 +35,7 @@ def _auc_compute(x: Tensor, y: Tensor, reorder: bool = False) -> Tensor:
         x, y = x[x_idx], y[x_idx]
 
     dx = x[1:] - x[:-1]
-    decreasing, monotone = torch.stack([torch.any(dx < 0), torch.all(dx <= 0)]).tolist()
+    decreasing, monotone = to_host(torch.stack([torch.any(dx < 0), torch.all(dx <= 0)]))
     if decreasing:
         if monotone:
             direction = -1.0

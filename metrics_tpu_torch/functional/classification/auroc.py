@@ -12,7 +12,7 @@ import torch
 from metrics_tpu_torch.functional.classification.auc import _auc_compute_without_check
 from metrics_tpu_torch.functional.classification.roc import roc
 from metrics_tpu_torch.utilities.checks import _input_format_classification
-from metrics_tpu_torch.utilities.data import Tensor
+from metrics_tpu_torch.utilities.data import Tensor, to_host
 from metrics_tpu_torch.utilities.enums import AverageMethod, DataType
 
 
@@ -95,7 +95,7 @@ def _auroc_compute(
 
     # partial AUC up to max_fpr with linear interpolation at the cut
     max_fpr_t = torch.tensor(max_fpr, dtype=fpr.dtype, device=fpr.device)
-    stop = int(torch.searchsorted(fpr, max_fpr_t, right=True))
+    stop = int(to_host(torch.searchsorted(fpr, max_fpr_t, right=True)))
     weight = (max_fpr_t - fpr[stop - 1]) / (fpr[stop] - fpr[stop - 1])
     interp_tpr = tpr[stop - 1] + weight * (tpr[stop] - tpr[stop - 1])
     tpr = torch.cat([tpr[:stop], interp_tpr.reshape(1)])

@@ -15,7 +15,7 @@ import torch
 
 from metrics_tpu_torch.kernels.confusion_matrix import confmat_counts_stacked
 from metrics_tpu_torch.utilities.checks import _input_format_classification
-from metrics_tpu_torch.utilities.data import Tensor, _is_traced
+from metrics_tpu_torch.utilities.data import Tensor, _is_traced, to_host
 from metrics_tpu_torch.utilities.enums import DataType
 from metrics_tpu_torch.utilities.prints import rank_zero_warn
 
@@ -43,7 +43,7 @@ def _confusion_matrix_update(
     # (one transfer for both maxima); under a trace no value can be read and
     # the check skips, as the JAX package's does (``confusion_matrix.py:62``)
     if preds.numel() and not _is_traced(preds, target):
-        hi = int(torch.stack([preds.amax(), target.amax()]).amax().item())
+        hi = int(to_host(torch.stack([preds.amax(), target.amax()]).amax()))
         if hi >= num_classes:
             raise ValueError(f"Detected class label {hi} but `num_classes={num_classes}`")
     return confmat_counts_stacked(preds.reshape(-1), target.reshape(-1), num_classes)
@@ -63,7 +63,7 @@ def _confusion_matrix_compute(confmat: Tensor, normalize: Optional[str] = None) 
             cm = confmat / torch.sum(confmat)
         nan_mask = torch.isnan(cm)
         cm = torch.where(nan_mask, 0.0, cm)
-        num_nan = 0 if _is_traced(cm) else int(torch.sum(nan_mask).item())
+        num_nan = 0 if _is_traced(cm) else int(to_host(torch.sum(nan_mask)))
         if num_nan:
             rank_zero_warn(f"{num_nan} nan values found in confusion matrix have been replaced with zeros.")
         return cm

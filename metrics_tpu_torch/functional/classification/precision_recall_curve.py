@@ -17,7 +17,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from metrics_tpu_torch.utilities.data import Tensor
+from metrics_tpu_torch.utilities.data import Tensor, to_host
 from metrics_tpu_torch.utilities.prints import rank_zero_warn
 
 CurveOutput = Union[Tuple[Tensor, Tensor, Tensor], Tuple[List[Tensor], List[Tensor], List[Tensor]]]
@@ -118,7 +118,7 @@ def _precision_recall_curve_compute(
 
         # stop once full recall is attained, reverse so recall decreases,
         # and append the (1, 0) endpoint
-        last_ind = int(torch.nonzero(tps == tps[-1])[0, 0])
+        last_ind = int(to_host(torch.nonzero(tps == tps[-1])[0, 0]))
         sl = slice(0, last_ind + 1)
 
         one = torch.ones(1, dtype=precision.dtype, device=precision.device)

@@ -15,7 +15,7 @@ from metrics_tpu_torch.functional.classification.precision_recall_curve import (
     _binary_clf_curve,
     _precision_recall_curve_update,
 )
-from metrics_tpu_torch.utilities.data import Tensor
+from metrics_tpu_torch.utilities.data import Tensor, to_host
 
 
 def _roc_update(
@@ -43,7 +43,7 @@ def _roc_compute(
         fps = torch.cat([torch.zeros(1, dtype=fps.dtype, device=fps.device), fps])
         thresholds = torch.cat([thresholds[:1] + 1, thresholds])
 
-        fps_last, tps_last = torch.stack([fps[-1], tps[-1]]).tolist()
+        fps_last, tps_last = to_host(torch.stack([fps[-1], tps[-1]]))
         if fps_last <= 0:
             raise ValueError("No negative samples in targets, false positive value should be meaningless")
         fpr = fps / fps[-1]

@@ -380,7 +380,9 @@ def apply_pytree(snap: Dict[str, Any], state: Dict[str, Any]) -> Dict[str, Any]:
 def _host_bytes(buf: Any) -> bytes:
     """The bytes of one gathered uint8 leaf (a tensor or an array)."""
     if hasattr(buf, "detach"):
-        buf = buf.detach().cpu().numpy()
+        from metrics_tpu_torch.utilities.data import to_host
+
+        buf = to_host(buf.detach(), numpy=True)
     return np.asarray(buf, dtype=np.uint8).tobytes()
 
 

@@ -203,7 +203,9 @@ def snapshot(include_timers: bool = True) -> Dict[str, Any]:
                           "p50": float, "p95": float, "p99": float}, ...},
           "tracing": {"enabled": bool, "capacity": int, "size": int,
                       "recorded_total": int, "dropped": int,
-                      "by_kind": {...}, "straggler": <fleet report or None>},
+                      "by_kind": {...}, "straggler": <fleet report or None>,
+                      "host": {"capacity": int, "size": int, "recorded": int,
+                               "dropped": int, "host_reads": int}},
           "async_sync": {"engine_alive": bool, "in_flight": int,
                          "submitted": int, ..., "generations": {key: int}},
           "serving": {"queues": int, "depth": int, "shed_by_reason": {...}, ...},

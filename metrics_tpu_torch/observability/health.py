@@ -60,7 +60,7 @@ import torch
 
 from metrics_tpu_torch.observability.events import EVENTS
 from metrics_tpu_torch.observability.registry import TELEMETRY
-from metrics_tpu_torch.utilities.data import _is_batched, _is_traced
+from metrics_tpu_torch.utilities.data import _is_batched, _is_traced, to_host
 from metrics_tpu_torch.utilities.prints import rank_zero_warn
 
 #: accepted health policies, least to most intrusive
@@ -417,7 +417,7 @@ def _guard(metric: Any, names: List[str], flags: Optional[torch.Tensor], source:
             _COLLECT.entries.append((key, tuple(names), source, flags, rows))
         return
     escalate = HEALTH.policy == "raise"
-    host = flags.cpu().numpy()  # the eager guard's direct read
+    host = to_host(flags, numpy=True)  # the eager guard's direct read
     if rows:
         unhealthy = HEALTH.note_rows(key, names, host, source=source, escalate=escalate)
         if unhealthy and escalate:
@@ -469,13 +469,13 @@ def check_state(metric: Any, state: Dict[str, Any]) -> Dict[str, Any]:
     leaves = list(_iter_array_states(state))
     # a fresh (never-updated) metric legitimately holds total == 0; only an
     # updated one whose WHOLE state is still zero accumulated no weight
-    all_zero = bool(denoms) and updated and all(bool(torch.all(value == 0)) for _, _, value in leaves)
+    all_zero = bool(denoms) and updated and all(bool(to_host(torch.all(value == 0))) for _, _, value in leaves)
     states: Dict[str, Any] = {}
     flagged: Dict[str, List[str]] = {kind: [] for kind in _FLAG_KINDS}
     for label, base, value in leaves:
         entry = {
-            "nan": int(torch.isnan(value).sum()) if _inexact(value) else 0,
-            "inf": int(torch.isinf(value).sum()) if _inexact(value) else 0,
+            "nan": int(to_host(torch.isnan(value).sum())) if _inexact(value) else 0,
+            "inf": int(to_host(torch.isinf(value).sum())) if _inexact(value) else 0,
         }
         if base in denoms:
             entry["zero_weight"] = all_zero

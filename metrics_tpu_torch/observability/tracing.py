@@ -38,9 +38,76 @@ The fleet half (``tracing.py:323-646``):
 
 Recording a span is a host clock read plus a bounded append; the times are
 host times (under NCCL a payload round returns once enqueued).
+
+**Host spans** (:meth:`SpanTracker.span`, :func:`span`) time the phases of
+the port's own host path where the work happens, so that one keyed
+update's host time splits into its parts::
+
+    with TRACER.span("my.phase", batch=7) as s:
+        ...
+        s.note(rows=4096)           # attributes known only later
+    TRACER.host_records()           # HostRequest records, oldest first
+
+* **Off** (the tracker disabled, as ``observability.disable()`` leaves it,
+  and no ``torch.profiler`` running): one shared null context, after two
+  flag reads.
+* **Under an active torch profiler**: a ``metrics/<name>`` range
+  (:func:`~metrics_tpu_torch.utilities.profiling.compiled_scope`, the
+  ranges the metrics' phases open), so in any profiler trace a span sits
+  over the kernels it launched, on the device trace's clock.
+* **On**: the outermost open span on a thread is a *request*. A span
+  inside it appends nothing: on exit it adds its self time (its length
+  less the spans directly inside it) to the request's ``phases`` under its
+  name. The request, on exit, is one :class:`HostRequest` appended to a
+  ring of its own: its id (``<name>|<n>``, a sequence a name), its
+  ``enter_s``/``exit_s`` on the event-log clock (:meth:`EventLog.now`),
+  ``thread``, ``profiled`` (a profiler was active, which slows the host),
+  ``spans`` (itself and every span inside it), ``host_reads`` and
+  ``attrs``. The phases' self times sum to the request's length.
+
+The spans of the keyed wrapper (:mod:`~metrics_tpu_torch.wrappers.multitenant`):
+``keyed.update`` (attrs ``rows``, ``bundles``, ``path`` ``"eager"`` or
+``"compiled"``), the whole of ``MultiTenantCollection.update`` and
+``KeyedMetric.update``; inside it, for each state bundle, ``checks`` (the
+child's input checks on the whole batch, :mod:`~metrics_tpu_torch.utilities.checks`),
+``row_states`` (the vmapped per-row child update,
+:func:`~metrics_tpu_torch.utilities.stacked.row_states`) and ``scatter``
+(column packing, the B3/B4 wrappers or the plain routes, the state merge,
+the invalid-id sum); and a ``host_read`` span for each read of tensor
+values to the host (:func:`~metrics_tpu_torch.utilities.data.to_host`),
+counted in the request's ``host_reads`` and in ``summary()["host"]
+["host_reads"]``. The request's own phase holds the rest: id
+canonicalization, the lock, setting the states, the telemetry. Inside a
+compiled program's run (a CUDA-graph capture on the card, every call on
+the CPU) a span records nothing, so a compiled keyed update is a request
+with ``path="compiled"`` and no phase but its own. ``Metric`` and
+``MetricCollection`` open no host span: their ``metrics/<Metric>.<phase>``
+ranges stay profiler-only, and a child's ``metrics/<Metric>.update`` range
+nests under ``row_states``.
+
+The host-read counter sees the reads written as ``to_host``: every
+``.tolist()``, ``.item()`` and ``.numpy()`` of the package and every
+``int``/``float``/``bool`` of a reduction (an AST scan in the port's tests
+keeps it so, bar a named list). It does not see an implicit read (a tensor
+in an ``if``) or a wait for a data-dependent shape (a boolean mask,
+``nonzero``, ``unique``); on the keyed update's path a test counts every
+form of read and finds only ``to_host``'s.
+
+The host ring is apart from the collective ledger, so
+:meth:`SpanTracker.records`, :meth:`SpanTracker.spans_payload`, the fleet
+gather and the timeline stay as the JAX package's. It holds the last
+:data:`DEFAULT_HOST_CAPACITY` requests, a ``deque`` that drops its oldest
+and counts it, as the collective ledger is; ``summary()["host"]`` gives
+its ``capacity``, ``size``, ``recorded``, ``dropped`` and the
+``host_reads`` total, and :meth:`SpanTracker.clear` empties both rings.
+Off, a span costs a method call and two flag reads; on, a span inside a
+request costs two clock reads and a dict update, a request one more record
+and one append under the lock (``scripts/torch_span_cost.py``).
 """
+import itertools
 import json
 import threading
+from collections import deque
 from contextlib import contextmanager
 from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple, Union
 
@@ -51,9 +118,17 @@ import torch.distributed as dist
 from metrics_tpu_torch.observability.events import EVENTS, EventLog
 from metrics_tpu_torch.observability.histogram import observe_sync_round_trip
 from metrics_tpu_torch.observability.registry import TELEMETRY
+from metrics_tpu_torch.utilities.profiling import compiled_scope
 
 #: default bound on retained spans (~150 bytes each)
 DEFAULT_SPAN_CAPACITY = 4096
+
+#: bound on retained host requests (about 0.5 KB each with a few phases)
+DEFAULT_HOST_CAPACITY = 16384
+
+#: the name of the host span of one read of tensor values to the host, each
+#: counted in its request's ``host_reads`` and in ``summary()["host"]``
+HOST_READ = "host_read"
 
 #: fraction of analyzed collectives a process must be the last arriver of
 #: before it is flagged as persistently slow
@@ -94,6 +169,100 @@ class _OpenSpan(NamedTuple):
     enter_s: float
 
 
+class HostRequest(NamedTuple):
+    """One recorded request: an outermost host span (:meth:`SpanTracker.span`)
+    and every host span inside it.
+
+    ``enter_s``/``exit_s`` are on the event-log clock (:meth:`EventLog.now`).
+    ``phases`` maps each span name met in the request to the summed self
+    time of its spans (a span's length less the spans directly inside it),
+    the request's own name included: the values sum to ``exit_s - enter_s``.
+    ``spans`` counts the request and every span inside it, ``host_reads``
+    the reads of tensor values to the host made in it. ``profiled`` says a
+    ``torch.profiler`` was active, which slows the host.
+    """
+
+    request: str
+    name: str
+    enter_s: float
+    exit_s: float
+    thread: int
+    profiled: bool
+    spans: int
+    host_reads: int
+    phases: Dict[str, float]
+    attrs: Dict[str, Any]
+
+
+class _NullSpan:
+    """The shared context of a span that neither records nor opens a range."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_NullSpan":
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        return None
+
+    def note(self, **attrs: Any) -> None:
+        """Add attributes to the span (a no-op here)."""
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class _Span(_NullSpan):
+    """An open host span: a profiler range while a profiler runs, and a part
+    of its request in ``tracker``'s host ring when ``tracker`` is given."""
+
+    __slots__ = ("_tracker", "_range", "name", "attrs", "profiled", "enter_s", "inner_s", "request")
+
+    def __init__(self, tracker: Optional["SpanTracker"], name: str, attrs: Dict[str, Any]) -> None:
+        self._tracker = tracker
+        self.name = name
+        self.attrs = attrs
+        self.profiled = bool(torch._C._autograd._profiler_enabled())
+        self._range = compiled_scope(name) if self.profiled else None
+
+    def __enter__(self) -> "_Span":
+        if self._range is not None:
+            self._range.__enter__()
+        if self._tracker is not None:
+            self._tracker._open_host(self)
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        if self._tracker is not None:
+            self._tracker._close_host(self)
+        if self._range is not None:
+            self._range.__exit__(*exc)
+
+    def note(self, **attrs: Any) -> None:
+        """Add attributes to the span (kept on a request's record)."""
+        self.attrs = {**self.attrs, **attrs}
+
+
+class _Request:
+    """What a request gathers while it is open."""
+
+    __slots__ = ("span_id", "spans", "host_reads", "phases", "profiled")
+
+    def __init__(self, span_id: str, profiled: bool) -> None:
+        self.span_id = span_id
+        self.spans = 1
+        self.host_reads = 0
+        self.phases: Dict[str, float] = {}
+        self.profiled = profiled
+
+
+class _HostStack(threading.local):
+    """Per thread: the open host spans, innermost last."""
+
+    def __init__(self) -> None:
+        self.open: List[_Span] = []
+
+
 def _process_index() -> int:
     """This process's rank in the default ``torch.distributed`` group, 0
     when none is initialised."""
@@ -127,12 +296,18 @@ class SpanTracker:
         self._enabled = enabled
         self._capacity = int(capacity)
         self._log = EVENTS if log is None else log
-        self._spans: List[CollectiveSpan] = []
+        self._spans: "deque[CollectiveSpan]" = deque(maxlen=self._capacity)
         self._seq: Dict[Tuple[int, str, str, str], int] = {}
         self._recorded = 0
         self._dropped = 0
         self._by_kind: Dict[str, int] = {}
         self._fleet_report: Optional[Dict[str, Any]] = None
+        self._host: "deque[Tuple[Any, ...]]" = deque(maxlen=DEFAULT_HOST_CAPACITY)
+        self._host_seq: Dict[str, "itertools.count[int]"] = {}
+        self._host_recorded = 0
+        self._host_dropped = 0
+        self._host_reads = 0
+        self._stack = _HostStack()
 
     # -- enablement (lock-free read) ----------------------------------------
 
@@ -180,12 +355,11 @@ class SpanTracker:
             payload,
         )
         with self._lock:
+            if len(self._spans) == self._capacity:
+                self._dropped += 1
             self._spans.append(record)
             self._recorded += 1
             self._by_kind[span.kind] = self._by_kind.get(span.kind, 0) + 1
-            if len(self._spans) > self._capacity:
-                del self._spans[0]
-                self._dropped += 1
         return record.span_id
 
     def end(self, span: Optional[_OpenSpan], **payload: Any) -> Optional[str]:
@@ -230,6 +404,73 @@ class SpanTracker:
         exit_ago = min(max(float(exit_ago_s), 0.0), enter_ago)
         return self._append(span._replace(enter_s=span.enter_s - enter_ago), span.enter_s - exit_ago, payload)
 
+    # -- host spans -----------------------------------------------------------
+
+    def span(self, name: str, **attrs: Any) -> _NullSpan:
+        """A host span ``name`` as a context manager: ``with TRACER.span(
+        "keyed.update", path="eager") as s: ...; s.note(rows=n)``.
+
+        Enabled, it is a request of its own (a :class:`HostRequest` on exit)
+        or, inside one on the same thread, a part of it; under an active
+        ``torch.profiler`` it is also a ``metrics/<name>`` range. Inside a
+        compiled program's run (a capture on the card, every call on the
+        CPU) it records nothing. Disabled with no profiler running, it is
+        one shared null context, after two flag reads."""
+        if self._enabled:
+            return _Span(self, name, attrs)
+        if torch._C._autograd._profiler_enabled():
+            return _Span(None, name, attrs)
+        return _NULL_SPAN
+
+    def _open_host(self, span: _Span) -> None:
+        if _in_compiled_program():
+            span._tracker = None
+            return
+        stack = self._stack.open
+        if stack:
+            request = stack[0].request
+            request.spans += 1
+            request.profiled = request.profiled or span.profiled
+        else:
+            # one sequence a name; next() on a count is atomic
+            seq = self._host_seq.get(span.name)
+            if seq is None:
+                seq = self._host_seq.setdefault(span.name, itertools.count())
+            request = _Request(f"{span.name}|{next(seq)}", span.profiled)
+        if span.name == HOST_READ:
+            request.host_reads += 1
+        span.request = request
+        span.inner_s = 0.0
+        stack.append(span)
+        span.enter_s = self._log.now()
+
+    def _close_host(self, span: _Span) -> None:
+        exit_s = self._log.now()
+        stack = self._stack.open
+        stack.pop()  # a with block's span: the innermost open one
+        length = exit_s - span.enter_s
+        request = span.request
+        phases = request.phases
+        phases[span.name] = phases.get(span.name, 0.0) + length - span.inner_s
+        if stack:
+            stack[-1].inner_s += length
+            return
+        record = (request.span_id, span.name, span.enter_s, exit_s, threading.get_ident(), request.profiled,
+                  request.spans, request.host_reads, phases, span.attrs)
+        with self._lock:
+            if len(self._host) == self._host.maxlen:
+                self._host_dropped += 1
+            self._host.append(record)
+            self._host_recorded += 1
+            self._host_reads += request.host_reads
+
+    def host_records(self) -> List[HostRequest]:
+        """A consistent copy of the retained requests, in the order they
+        closed."""
+        with self._lock:
+            records = list(self._host)
+        return [HostRequest._make(r) for r in records]
+
     # -- reading ------------------------------------------------------------
 
     def records(self) -> List[CollectiveSpan]:
@@ -270,6 +511,13 @@ class SpanTracker:
                 "dropped": self._dropped,
                 "by_kind": dict(self._by_kind),
                 "straggler": self._fleet_report,
+                "host": {
+                    "capacity": self._host.maxlen,
+                    "size": len(self._host),
+                    "recorded": self._host_recorded,
+                    "dropped": self._host_dropped,
+                    "host_reads": self._host_reads,
+                },
             }
 
     def clear(self) -> None:
@@ -285,6 +533,11 @@ class SpanTracker:
             self._dropped = 0
             self._by_kind.clear()
             self._fleet_report = None
+            self._host.clear()
+            self._host_seq.clear()
+            self._host_recorded = 0
+            self._host_dropped = 0
+            self._host_reads = 0
 
 
 #: the process-global span tracker every instrumented collective feeds
@@ -295,6 +548,26 @@ def collective_span(kind: str, *, group: str = "all", bucket: str = "-", **paylo
     """Scope a collective span on the global tracker (see
     :meth:`SpanTracker.collective_span`)."""
     return TRACER.collective_span(kind, group=group, bucket=bucket, **payload)
+
+
+def span(name: str, **attrs: Any) -> _NullSpan:
+    """A host span on the global tracker (see :meth:`SpanTracker.span`)."""
+    return TRACER.span(name, **attrs)
+
+
+_TRACE_STATE: Any = None
+
+
+def _in_compiled_program() -> bool:
+    """True while a compiled dispatch runs its program on this thread
+    (:class:`~metrics_tpu_torch.utilities.data.trace_scope`, looked up on
+    first use: the utilities import this package)."""
+    global _TRACE_STATE
+    if _TRACE_STATE is None:
+        from metrics_tpu_torch.utilities.data import _TRACE
+
+        _TRACE_STATE = _TRACE
+    return _TRACE_STATE.active
 
 
 # ---------------------------------------------------------------------------
@@ -327,6 +600,7 @@ def estimate_clock_offsets(
     the local clock. Single-process runs return the identity alignment.
     """
     from metrics_tpu_torch.utilities import distributed as _dist
+    from metrics_tpu_torch.utilities.data import to_host
 
     now = EVENTS.now if now_fn is None else now_fn
     if not _dist.distributed_available():
@@ -344,7 +618,7 @@ def estimate_clock_offsets(
         # round's own buffer; reading the gather back is the round's one
         # deliberate host wait (under NCCL the gather returns once enqueued)
         reading = torch.full((1,), now(), dtype=torch.float64, device=device)
-        gathered = _dist._all_gather(reading, None).cpu().numpy().reshape(-1)
+        gathered = to_host(_dist._all_gather(reading, None), numpy=True).reshape(-1)
         t1 = now()
         rtt = max(0.0, t1 - t0)
         mid = 0.5 * (t0 + t1)
@@ -396,6 +670,7 @@ def gather_fleet(
     """
     from metrics_tpu_torch.observability.timeline import _json_safe
     from metrics_tpu_torch.utilities import distributed as _dist
+    from metrics_tpu_torch.utilities.data import to_host
 
     log = EVENTS if log is None else log
     tracker = TRACER if tracker is None else tracker
@@ -415,7 +690,7 @@ def gather_fleet(
     }
     payload = torch.frombuffer(bytearray(json.dumps(blob).encode("utf-8")), dtype=torch.uint8)
     gathered = _dist.gather_all_pytrees([payload])[0]
-    blobs = [json.loads(bytes(buf.cpu().numpy()).decode("utf-8")) for buf in gathered]
+    blobs = [json.loads(bytes(to_host(buf, numpy=True)).decode("utf-8")) for buf in gathered]
 
     offsets = clock["offsets"]
     processes: List[Dict[str, Any]] = []

@@ -36,7 +36,7 @@ from metrics_tpu_torch.functional.retrieval.precision import _check_k
 from metrics_tpu_torch.kernels.sketches import bounded_priority_keep, uniform_hash
 from metrics_tpu_torch.metric import Metric
 from metrics_tpu_torch.utilities.checks import _check_retrieval_inputs
-from metrics_tpu_torch.utilities.data import Tensor, _is_traced, dim_zero_cat
+from metrics_tpu_torch.utilities.data import Tensor, _is_traced, dim_zero_cat, to_host
 from metrics_tpu_torch.utilities.prints import rank_zero_warn
 from metrics_tpu_torch.utilities.sketching import SketchTelemetryMixin
 
@@ -229,7 +229,7 @@ class RetrievalMetric(SketchTelemetryMixin, Metric, ABC):
         kept_qids = qid[keep]
         queries_kept = int(torch.unique(kept_qids).numel())
         counts = (torch.sum(~keep & ~torch.isinf(key)), full.any(), self.res_seen, torch.sum(keep))
-        dropped_rows, any_full, rows_seen, rows_kept = torch.stack([c.to(torch.int64) for c in counts]).tolist()
+        dropped_rows, any_full, rows_seen, rows_kept = to_host(torch.stack([c.to(torch.int64) for c in counts]))
         if dropped_rows > 0 or any_full:
             rank_zero_warn(
                 f"{self.__class__.__name__}(sketched=True, sketch_capacity={cap})"
@@ -267,7 +267,7 @@ class RetrievalMetric(SketchTelemetryMixin, Metric, ABC):
             raise ValueError("`preds` must be a tensor of floats")
         if not self.allow_non_binary_target and not _is_traced(preds, target, mask):
             valid = torch.where(mask, target, 0)
-            if bool(torch.any((valid != 0) & (valid != 1))):
+            if bool(to_host(torch.any((valid != 0) & (valid != 1)))):
                 raise ValueError("`target` must contain `binary` values")
         return mask
 
@@ -338,7 +338,7 @@ class RetrievalMetric(SketchTelemetryMixin, Metric, ABC):
         _, inverse, counts = torch.unique(indexes, sorted=True, return_inverse=True, return_counts=True)
         order = torch.sort(-preds, stable=True).indices
         order = order[torch.sort(inverse[order], stable=True).indices]
-        max_len = int(torch.max(counts))  # the one host read: the layout's width
+        max_len = int(to_host(torch.max(counts)))  # the one host read: the layout's width
         row = inverse[order]
         col = torch.arange(indexes.numel(), device=indexes.device) - (torch.cumsum(counts, 0) - counts)[row]
         target_rows = torch.zeros((counts.numel(), max_len), dtype=target.dtype, device=target.device)
@@ -354,7 +354,7 @@ class RetrievalMetric(SketchTelemetryMixin, Metric, ABC):
         values = self._metric_rows(target_rows, lengths)
 
         if self.empty_target_action == "error":
-            if bool(torch.any(self._relevant(target_rows, lengths) == 0)):
+            if bool(to_host(torch.any(self._relevant(target_rows, lengths) == 0))):
                 kind = self._empty_relevance
                 raise ValueError(f"`compute` method was provided with a query with no {kind} target.")
             return torch.mean(values)

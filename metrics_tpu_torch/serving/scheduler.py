@@ -52,6 +52,7 @@ from metrics_tpu_torch.observability.tracing import TRACER
 from metrics_tpu_torch.serving.queue import AdmissionQueue
 from metrics_tpu_torch.serving.telemetry import SERVING_STATS, observe_read_staleness
 from metrics_tpu_torch.utilities.async_sync import get_engine
+from metrics_tpu_torch.utilities.data import to_host
 
 __all__ = ["SLOScheduler"]
 
@@ -386,5 +387,5 @@ def _select(values: Any, ids: Optional[np.ndarray]) -> Any:
     if isinstance(values, dict):
         return {k: _select(v, ids) for k, v in values.items()}
     if isinstance(values, torch.Tensor):
-        return values[torch.as_tensor(ids, device=values.device)].cpu().numpy()
+        return to_host(values[torch.as_tensor(ids, device=values.device)], numpy=True)
     return np.asarray(values)[ids]

@@ -37,6 +37,7 @@ import torch
 
 from metrics_tpu_torch.resilience.faults import maybe_fault
 from metrics_tpu_torch.transport.base import Transport
+from metrics_tpu_torch.utilities.data import to_host
 
 __all__ = [
     "GatherTransport",
@@ -181,8 +182,8 @@ class StoreSubgroupChannel:
         store = self._get_store()
         peers = "-".join(map(str, key_set))
         prefix = f"{self.prefix}/{peers}/{seq}"
-        payload = buf.detach().contiguous().cpu()
-        raw = payload.reshape(-1).view(torch.uint8).numpy().tobytes()
+        payload = buf.detach().contiguous()
+        raw = to_host(payload.reshape(-1).view(torch.uint8), numpy=True).tobytes()
         store.set(f"{prefix}/{rank}", raw)
         budget = DeadlineBudget(self.timeout_s if timeout_s is None else timeout_s)
         rows = []

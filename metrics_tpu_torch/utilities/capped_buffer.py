@@ -27,7 +27,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from metrics_tpu_torch.utilities.data import Tensor, _is_traced, dim_zero_cat
+from metrics_tpu_torch.utilities.data import Tensor, _is_traced, dim_zero_cat, to_host
 from metrics_tpu_torch.utilities.enums import DataType
 from metrics_tpu_torch.utilities.prints import rank_zero_warn
 
@@ -107,7 +107,7 @@ def feature_buffer_read(buf, count, capacity: int, slack: int, owner: str = "met
             " the valid-row count is data-dependent. Call compute()/apply_compute"
             " outside a compiled program (the fixed-shape part is the update path)."
         )
-    counts = torch.cat([torch.atleast_1d(torch.as_tensor(c)).reshape(-1).cpu() for c in raw_counts]).tolist()
+    counts = to_host(torch.cat([torch.atleast_1d(torch.as_tensor(c)).reshape(-1).cpu() for c in raw_counts]))
     rows_per_shard = capacity + slack
     shards = []
     for b in bufs:
@@ -263,9 +263,9 @@ class CappedBufferMixin:
         counts = torch.atleast_1d(count).reshape(-1)
 
         if not _is_traced(counts):
-            received, overflow = torch.stack(
+            received, overflow = to_host(torch.stack(
                 [counts.to(torch.int64).sum(), torch.clamp(counts.to(torch.int64) - self.capacity, min=0).sum()]
-            ).tolist()
+            ))
             if overflow > 0:
                 if self._buf_overflow_policy == "error":
                     raise BufferOverflowError(
@@ -327,7 +327,7 @@ class CappedBufferMixin:
             pos = supports
         else:
             pos = torch.sum(torch.where(valid, (target == 1).to(torch.float32), 0.0)).reshape(1)
-        n_valid, *pos_counts = torch.cat([torch.sum(valid).to(torch.float32).reshape(1), pos]).tolist()
+        n_valid, *pos_counts = to_host(torch.cat([torch.sum(valid).to(torch.float32).reshape(1), pos]))
         if n_valid == 0:
             return None
         for p in pos_counts:

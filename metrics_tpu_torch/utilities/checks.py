@@ -32,7 +32,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from metrics_tpu_torch.utilities.data import Tensor, _is_traced, select_topk, to_onehot
+from metrics_tpu_torch.utilities.data import Tensor, _is_traced, select_topk, to_host, to_onehot
 from metrics_tpu_torch.utilities.enums import DataType
 
 Number = Union[int, float]
@@ -55,7 +55,7 @@ def _host_range(x: Tensor) -> Range:
     elif x.dtype in (torch.float16, torch.bfloat16):
         x = x.float()
     lo, hi = torch.aminmax(x)
-    return tuple(torch.stack([lo, hi]).tolist())
+    return tuple(to_host(torch.stack([lo, hi])))
 
 
 def _basic_input_validation(

@@ -20,6 +20,9 @@ times a value cannot be read to the host, and the value checks skip.
 
 :func:`full_fp32` keeps a block's float32 matmuls and convolutions on the
 card out of TF32, whatever the process's precision settings say.
+
+:func:`to_host` is the port's one read of tensor values into Python, so the
+tracer can count and time every wait of the host for the card.
 """
 import contextlib
 import threading
@@ -99,6 +102,19 @@ class untraced_repeats:
 
     def __exit__(self, *exc: Any) -> None:
         _TRACE.count_traces = self._saved
+
+
+def to_host(t: Any, numpy: bool = False) -> Any:
+    """``t.tolist()``, or with ``numpy`` ``t.cpu().numpy()``: the values of a
+    tensor read to the host, the port's one way to do so. Each such read
+    waits for the card to finish the work that makes ``t`` and copies it
+    back. With the tracer on it is a ``host_read`` span, counted in its
+    request (see :meth:`~metrics_tpu_torch.observability.tracing.SpanTracker.span`);
+    off, it is the bare read after one flag read."""
+    if not TRACER.enabled:
+        return t.cpu().numpy() if numpy else t.tolist()
+    with TRACER.span(HOST_READ):
+        return t.cpu().numpy() if numpy else t.tolist()
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -213,8 +229,8 @@ def get_group_indexes(indexes: Tensor) -> List[Tensor]:
     _, inverse, counts = torch.unique(idx, sorted=True, return_inverse=True, return_counts=True)
     order = torch.sort(inverse, stable=True).indices  # positions grouped by sorted-unique value
     first_pos = order[torch.cumsum(counts, 0) - counts]  # each group's first position
-    splits = torch.split(order.to(torch.int32), counts.tolist())
-    return [splits[g] for g in torch.sort(first_pos).indices.tolist()]
+    splits = torch.split(order.to(torch.int32), to_host(counts))
+    return [splits[g] for g in to_host(torch.sort(first_pos).indices)]
 
 
 def dim_zero_sum(x: Tensor) -> Tensor:
@@ -246,7 +262,7 @@ def to_onehot(label_tensor: Tensor, num_classes: Optional[int] = None) -> Tensor
     if num_classes is None:
         if _is_traced(label_tensor):
             raise ValueError("`num_classes` must be given explicitly when one-hot encoding inside a traced program.")
-        num_classes = int(label_tensor.max().item()) + 1
+        num_classes = int(to_host(label_tensor.max())) + 1
     classes = _class_axis(num_classes, label_tensor.ndim + 1, label_tensor.device)
     return (label_tensor.unsqueeze(1) == classes).to(label_tensor.dtype)
 
@@ -278,8 +294,8 @@ def get_num_classes(preds: Tensor, target: Tensor, num_classes: Optional[int] = 
         if num_classes is None:
             raise ValueError("`num_classes` must be given explicitly inside a traced program.")
         return num_classes
-    num_target_classes = int(target.max().item()) + 1
-    num_pred_classes = int(preds.max().item()) + 1
+    num_target_classes = int(to_host(target.max())) + 1
+    num_pred_classes = int(to_host(preds.max())) + 1
     num_all_classes = max(num_target_classes, num_pred_classes)
     if num_classes is None:
         return num_all_classes
@@ -321,3 +337,7 @@ def apply_to_collection(
             [apply_to_collection(d, dtype, function, *args, wrong_dtype=wrong_dtype, **kwargs) for d in data]
         )
     return data
+
+
+# last: the tracer's package imports this module, which must be whole by then
+from metrics_tpu_torch.observability.tracing import HOST_READ, TRACER  # noqa: E402

@@ -80,6 +80,7 @@ from metrics_tpu_torch.observability.registry import TELEMETRY
 from metrics_tpu_torch.observability import tracing as _tracing
 from metrics_tpu_torch.observability.tracing import TRACER
 from metrics_tpu_torch.resilience.faults import maybe_fault
+from metrics_tpu_torch.utilities.data import to_host
 
 Tensor = torch.Tensor
 
@@ -499,7 +500,7 @@ def _gather_all_leaves(
         d_span = TRACER.begin("gather", group=span_label, bucket="descriptor")
     maybe_fault("transport.descriptor", process=local_rank, leaves=len(leaves))
     desc_start = time.perf_counter() if observed else 0.0
-    all_desc = exchange(desc).cpu().tolist()  # the sync's one host read
+    all_desc = to_host(exchange(desc).cpu())  # the sync's one host read
     desc_dur = time.perf_counter() - desc_start if observed else 0.0
     nprocs = len(all_desc)
     if d_span is not None:

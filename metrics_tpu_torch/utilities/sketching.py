@@ -31,7 +31,7 @@ import torch
 from metrics_tpu_torch.functional.classification.auroc import _auroc_update
 from metrics_tpu_torch.kernels.binned_counts import _label_score_histograms_onevsrest, label_score_histograms
 from metrics_tpu_torch.observability.registry import TELEMETRY
-from metrics_tpu_torch.utilities.data import Tensor, _is_traced
+from metrics_tpu_torch.utilities.data import Tensor, _is_traced, to_host
 from metrics_tpu_torch.utilities.enums import DataType
 
 __all__ = ["HistogramSketchMixin", "SketchTelemetryMixin"]
@@ -82,7 +82,7 @@ class SketchTelemetryMixin:
         if tensors:
             if _is_traced(*tensors.values()):
                 return
-            values = torch.stack([v.reshape(()).to(torch.float64) for v in tensors.values()]).tolist()
+            values = to_host(torch.stack([v.reshape(()).to(torch.float64) for v in tensors.values()]))
             info = {**info, **dict(zip(tensors, values))}
         TELEMETRY.set_info(self.telemetry_key, "sketch", info)
 
@@ -171,7 +171,7 @@ class HistogramSketchMixin(SketchTelemetryMixin):
             return None
         pos = torch.sum(self.pos_hist, dim=-1)
         neg = torch.sum(self.neg_hist, dim=-1)
-        pos_host, neg_host = torch.stack([pos, neg]).tolist()
+        pos_host, neg_host = to_host(torch.stack([pos, neg]))
         if sum(pos_host) + sum(neg_host) == 0:  # empty stream: compute-before-update already warned
             return None
         for p, n in zip(pos_host, neg_host):

@@ -26,6 +26,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from metrics_tpu_torch.observability.health import HEALTH, guard_rows
+from metrics_tpu_torch.observability.tracing import span
 
 __all__ = [
     "broadcast_stack",
@@ -76,37 +77,39 @@ def row_states(metric: Any, args: Tuple, kwargs: Dict) -> Dict[str, Any]:
     Returns the per-row batch-local states stacked to ``(B, ...)`` leaves —
     the input of a segment scatter routing rows to stacked replicas. With a
     health policy armed every row's state is checked under ``metric``'s key
-    (:func:`~metrics_tpu_torch.observability.health.guard_rows`)."""
-    leaves, treedef = pytree.tree_flatten((args, kwargs))
-    mapped = [isinstance(leaf, torch.Tensor) and leaf.ndim >= 1 for leaf in leaves]
-    lengths = {int(leaf.shape[0]) for leaf, m in zip(leaves, mapped) if m}
-    if not lengths:
-        raise ValueError(
-            "keyed update expects at least one array argument whose leading axis"
-            " is the event-row axis (aligned with `tenant_ids`)"
-        )
-    if len(lengths) > 1:
-        raise ValueError(
-            "keyed update: array arguments disagree on the event-row axis"
-            f" (leading axes {sorted(lengths)}); every array argument must carry"
-            " the same leading row count as `tenant_ids`"
-        )
-    b = lengths.pop()
-    # keep a length-1 batch axis per row: (B, ...) -> (B, 1, ...)
-    expanded = [leaf.reshape((b, 1) + tuple(leaf.shape[1:])) if m else leaf for leaf, m in zip(leaves, mapped)]
-    init = metric.init_state()
+    (:func:`~metrics_tpu_torch.observability.health.guard_rows`). The whole
+    is the ``row_states`` host span."""
+    with span("row_states"):
+        leaves, treedef = pytree.tree_flatten((args, kwargs))
+        mapped = [isinstance(leaf, torch.Tensor) and leaf.ndim >= 1 for leaf in leaves]
+        lengths = {int(leaf.shape[0]) for leaf, m in zip(leaves, mapped) if m}
+        if not lengths:
+            raise ValueError(
+                "keyed update expects at least one array argument whose leading axis"
+                " is the event-row axis (aligned with `tenant_ids`)"
+            )
+        if len(lengths) > 1:
+            raise ValueError(
+                "keyed update: array arguments disagree on the event-row axis"
+                f" (leading axes {sorted(lengths)}); every array argument must carry"
+                " the same leading row count as `tenant_ids`"
+            )
+        b = lengths.pop()
+        # keep a length-1 batch axis per row: (B, ...) -> (B, 1, ...)
+        expanded = [leaf.reshape((b, 1) + tuple(leaf.shape[1:])) if m else leaf for leaf, m in zip(leaves, mapped)]
+        init = metric.init_state()
 
-    def one(row_leaves: Tuple) -> Dict[str, Any]:
-        merged = list(expanded)
-        it = iter(row_leaves)
-        for i, m in enumerate(mapped):
-            if m:
-                merged[i] = next(it)
-        row_args, row_kwargs = pytree.tree_unflatten(merged, treedef)
-        return metric.apply_update(init, *row_args, **row_kwargs)
+        def one(row_leaves: Tuple) -> Dict[str, Any]:
+            merged = list(expanded)
+            it = iter(row_leaves)
+            for i, m in enumerate(mapped):
+                if m:
+                    merged[i] = next(it)
+            row_args, row_kwargs = pytree.tree_unflatten(merged, treedef)
+            return metric.apply_update(init, *row_args, **row_kwargs)
 
-    rows = torch.func.vmap(one)(tuple(leaf for leaf, m in zip(expanded, mapped) if m))
-    if HEALTH.enabled:
-        # the JAX package's guard runs inside its vmap, one check per row
-        guard_rows(metric, rows, source="apply_update")
-    return rows
+        rows = torch.func.vmap(one)(tuple(leaf for leaf, m in zip(expanded, mapped) if m))
+        if HEALTH.enabled:
+            # the JAX package's guard runs inside its vmap, one check per row
+            guard_rows(metric, rows, source="apply_update")
+        return rows

@@ -38,7 +38,7 @@ from torch.utils import _pytree as pytree
 
 from metrics_tpu_torch.metric import _GROUP_UNSET, Metric
 from metrics_tpu_torch.observability.registry import TELEMETRY
-from metrics_tpu_torch.utilities.data import Tensor, apply_to_collection
+from metrics_tpu_torch.utilities.data import Tensor, apply_to_collection, to_host
 from metrics_tpu_torch.utilities.distributed import sync_state_packed
 from metrics_tpu_torch.utilities.stacked import stack_pytrees, vmap_compute, vmap_update
 
@@ -70,7 +70,7 @@ def _bootstrap_sampler(size: int, generator: torch.Generator, sampling_strategy:
     device = generator.device
     if sampling_strategy == "poisson":
         counts = torch.poisson(torch.ones(size, device=device), generator=generator).long()
-        total = int(counts.sum())  # the random length: one host read
+        total = int(to_host(counts.sum()))  # the random length: one host read
         return torch.repeat_interleave(torch.arange(size, device=device), counts, output_size=total)
     if sampling_strategy == "multinomial":
         return torch.randint(0, size, (size,), generator=generator, device=device)

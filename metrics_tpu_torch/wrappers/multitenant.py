@@ -142,8 +142,16 @@ from metrics_tpu_torch.observability.memory import LEDGER
 from metrics_tpu_torch.observability.profiling import PROFILER
 from metrics_tpu_torch.observability.registry import TELEMETRY
 from metrics_tpu_torch.observability.retrace import MONITOR, arg_signature
+from metrics_tpu_torch.observability.tracing import span
 from metrics_tpu_torch.utilities.aot import CompiledDispatch, GraphPool
-from metrics_tpu_torch.utilities.data import Tensor, _counts_traces, _is_traced, check_device, resolve_device
+from metrics_tpu_torch.utilities.data import (
+    Tensor,
+    _counts_traces,
+    _is_traced,
+    check_device,
+    resolve_device,
+    to_host,
+)
 from metrics_tpu_torch.utilities.profiling import compiled_scope
 from metrics_tpu_torch.utilities.stacked import broadcast_stack, row_states, vmap_compute
 
@@ -310,7 +318,7 @@ class _TenantTraffic:
             if self.rows is None:
                 return None, None
             # both tensors in one read: the stamps ride as their int64 bits
-            both = torch.cat([self.rows, self.last_seen.view(torch.int64)]).cpu().numpy()
+            both = to_host(torch.cat([self.rows, self.last_seen.view(torch.int64)]), numpy=True)
         return both[: self.n], both[self.n:].view(np.float64)
 
     def clear(self, ids: Optional[Tensor] = None) -> None:
@@ -566,7 +574,7 @@ class KeyedMetric(Metric):
         else:
             bad = (ids < 0) | (ids >= self.num_tenants)
             first = torch.argmax(bad.to(torch.int32))
-            count, first, value = torch.stack([bad.sum(), first, ids[first].long()]).tolist()
+            count, first, value = to_host(torch.stack([bad.sum(), first, ids[first].long()]))
         if count:
             raise ValueError(
                 f"tenant_ids contains {count} id(s) outside the valid range"
@@ -603,12 +611,25 @@ class KeyedMetric(Metric):
         either kernel gets its counts from a plain ``index_add_`` of its
         valid rows into int32, on the device: no update reads an id to the
         host, so every route can be captured.
+
+        Its host spans: ``checks`` (the child's input checks on the whole
+        batch), ``row_states`` and ``scatter`` (:meth:`_scatter_rows`).
         """
         child = self._child
-        n = self._capacity
         if not _is_traced():
-            child._validate_batch(*args, **kwargs)
+            with span("checks"):
+                child._validate_batch(*args, **kwargs)
         per_row = row_states(child, args, kwargs)
+        with span("scatter"):
+            return self._scatter_rows(state, ids, per_row)
+
+    def _scatter_rows(self, state: StateDict, ids: Tensor, per_row: StateDict
+                      ) -> Tuple[StateDict, Tensor, Tensor]:
+        """The rest of :meth:`_scatter_counted`: the row states packed into
+        columns per dtype and routed through B3/B4 (or the plain routes),
+        merged into ``state``, and the invalid-id count."""
+        child = self._child
+        n = self._capacity
         dtypes = {name: child._defaults[name].dtype for name in child._reductions}
         sums = [name for name, fx in child._reductions.items() if fx == "sum"]
         extremal = [name for name, fx in child._reductions.items() if fx != "sum"]
@@ -806,34 +827,37 @@ class KeyedMetric(Metric):
         twins; its host view keeps the id check free of host reads.
         Concurrent callers are serialized.
         """
-        host_ids = tenant_ids if getattr(tenant_ids, "device_tensor", None) is not None else None
-        ids = self._canonical_ids(tenant_ids)
-        if self.validate_ids:
-            self._validate_ids_eager(ids if host_ids is None else host_ids)
-        args = tuple(_unstage(a) for a in args)
-        kwargs = {k: _unstage(v) for k, v in kwargs.items()}
-        if self.__dict__.get("_keyed_compiled"):
-            self._check_input_device(args, kwargs)
-            return self._update_compiled(ids, args, kwargs, host_ids)
-        start = time.perf_counter() if (TELEMETRY.enabled or EVENTS.enabled) else None
-        hooks = self.__dict__.get("_durability_hooks")
-        with self._serial_lock():
-            if hooks is not None:
-                # spilled tenants named in this batch fault back before the
-                # scatter reads the stacked state
-                hooks.before_update(ids if host_ids is None else host_ids)
-            prof = PROFILER.begin("keyed_scatter", self.device)
-            new_state, invalid, counts = self._scatter_counted(self._get_states(), ids, args, kwargs)
-            if prof is not None:
-                PROFILER.finish(prof, self.telemetry_key)
-            self._set_states(new_state)
-            if hooks is not None:
-                hooks.after_update(ids if host_ids is None else host_ids)
-        if _ledger_fed(self):
-            self._traffic.note(counts)
-        if start is not None:
-            TELEMETRY.add_device(self.telemetry_key, "invalid_tenant_ids", invalid)
-            _note_keyed_update(self, start, int(ids.shape[0]))
+        compiled = bool(self.__dict__.get("_keyed_compiled"))
+        with span("keyed.update", bundles=1, path="compiled" if compiled else "eager") as request:
+            host_ids = tenant_ids if getattr(tenant_ids, "device_tensor", None) is not None else None
+            ids = self._canonical_ids(tenant_ids)
+            request.note(rows=int(ids.shape[0]))
+            if self.validate_ids:
+                self._validate_ids_eager(ids if host_ids is None else host_ids)
+            args = tuple(_unstage(a) for a in args)
+            kwargs = {k: _unstage(v) for k, v in kwargs.items()}
+            if compiled:
+                self._check_input_device(args, kwargs)
+                return self._update_compiled(ids, args, kwargs, host_ids)
+            start = time.perf_counter() if (TELEMETRY.enabled or EVENTS.enabled) else None
+            hooks = self.__dict__.get("_durability_hooks")
+            with self._serial_lock():
+                if hooks is not None:
+                    # spilled tenants named in this batch fault back before the
+                    # scatter reads the stacked state
+                    hooks.before_update(ids if host_ids is None else host_ids)
+                prof = PROFILER.begin("keyed_scatter", self.device)
+                new_state, invalid, counts = self._scatter_counted(self._get_states(), ids, args, kwargs)
+                if prof is not None:
+                    PROFILER.finish(prof, self.telemetry_key)
+                self._set_states(new_state)
+                if hooks is not None:
+                    hooks.after_update(ids if host_ids is None else host_ids)
+            if _ledger_fed(self):
+                self._traffic.note(counts)
+            if start is not None:
+                TELEMETRY.add_device(self.telemetry_key, "invalid_tenant_ids", invalid)
+                _note_keyed_update(self, start, int(ids.shape[0]))
 
     # ------------------------------------------------------------------
     # compute fan-out + rollups
@@ -1347,56 +1371,58 @@ class MultiTenantCollection:
         if self._keyed is None:
             self.build()
         keyed = self._keyed
-        host_ids = tenant_ids if getattr(tenant_ids, "device_tensor", None) is not None else None
-        args = tuple(_unstage(a) for a in args)
-        kwargs = {k: _unstage(v) for k, v in kwargs.items()}
-        self._collection._check_input_device(args, kwargs)
-        ids = self._canonical_ids(tenant_ids)
-        if self.validate_ids:
-            next(iter(keyed.values()))._validate_ids_eager(ids if host_ids is None else host_ids)
-        start = time.perf_counter() if (TELEMETRY.enabled or EVENTS.enabled) else None
-        if self._compiled:
-            (invalid, counts), fn = self._dispatch_compiled(
-                "_keyed_update_fn", self._scatter_all, (ids,) + args, kwargs, "keyed_scatter",
-                hook_ids=ids if host_ids is None else host_ids,
-            )
-            self._after_dispatch(invalid, counts)
-            if TELEMETRY.enabled:
-                TELEMETRY.inc(self.telemetry_key, "update_calls")
-                skipped = sum(len(ns) - 1 for _, ns in self._layout)
-                if skipped:
-                    TELEMETRY.inc(self.telemetry_key, "update_dedup_skipped", skipped)
-            _note_keyed_compiled(self, fn, start, (ids, *args), kwargs, members=len(self._collection),
-                                 state_bundles=len(keyed))
-            return
-        hooks = self.__dict__.get("_durability_hooks")
-        hook_ids = ids if host_ids is None else host_ids
-        with self._serial_lock():
-            if hooks is not None:
-                hooks.before_update(hook_ids)
-            state = {owner: km._get_states() for owner, km in keyed.items()}
-            prof = PROFILER.begin("keyed_scatter", self.device)
-            new_state, (invalid, counts) = self._scatter_all(state, ids, *args, **kwargs)
-            if prof is not None:
-                PROFILER.finish(prof, self.telemetry_key)
-            for owner, km in keyed.items():
-                km._set_states(new_state[owner])
-                km._update_called = True
-                km._computed = None
-            if hooks is not None:
-                hooks.after_update(hook_ids)
-        TELEMETRY.add_device(self.telemetry_key, "invalid_tenant_ids", invalid)
-        if _ledger_fed(self):
-            self._traffic.note(counts)
-        if start is not None:
-            if TELEMETRY.enabled:
-                TELEMETRY.inc(self.telemetry_key, "update_calls")
-                skipped = sum(len(ns) - 1 for _, ns in self._layout)
-                if skipped:
-                    TELEMETRY.inc(self.telemetry_key, "update_dedup_skipped", skipped)
-            _note_keyed_update(
-                self, start, int(ids.shape[0]), members=len(self._collection), state_bundles=len(state)
-            )
+        with span("keyed.update", bundles=len(keyed), path="compiled" if self._compiled else "eager") as request:
+            host_ids = tenant_ids if getattr(tenant_ids, "device_tensor", None) is not None else None
+            args = tuple(_unstage(a) for a in args)
+            kwargs = {k: _unstage(v) for k, v in kwargs.items()}
+            self._collection._check_input_device(args, kwargs)
+            ids = self._canonical_ids(tenant_ids)
+            request.note(rows=int(ids.shape[0]))
+            if self.validate_ids:
+                next(iter(keyed.values()))._validate_ids_eager(ids if host_ids is None else host_ids)
+            start = time.perf_counter() if (TELEMETRY.enabled or EVENTS.enabled) else None
+            if self._compiled:
+                (invalid, counts), fn = self._dispatch_compiled(
+                    "_keyed_update_fn", self._scatter_all, (ids,) + args, kwargs, "keyed_scatter",
+                    hook_ids=ids if host_ids is None else host_ids,
+                )
+                self._after_dispatch(invalid, counts)
+                if TELEMETRY.enabled:
+                    TELEMETRY.inc(self.telemetry_key, "update_calls")
+                    skipped = sum(len(ns) - 1 for _, ns in self._layout)
+                    if skipped:
+                        TELEMETRY.inc(self.telemetry_key, "update_dedup_skipped", skipped)
+                _note_keyed_compiled(self, fn, start, (ids, *args), kwargs, members=len(self._collection),
+                                     state_bundles=len(keyed))
+                return
+            hooks = self.__dict__.get("_durability_hooks")
+            hook_ids = ids if host_ids is None else host_ids
+            with self._serial_lock():
+                if hooks is not None:
+                    hooks.before_update(hook_ids)
+                state = {owner: km._get_states() for owner, km in keyed.items()}
+                prof = PROFILER.begin("keyed_scatter", self.device)
+                new_state, (invalid, counts) = self._scatter_all(state, ids, *args, **kwargs)
+                if prof is not None:
+                    PROFILER.finish(prof, self.telemetry_key)
+                for owner, km in keyed.items():
+                    km._set_states(new_state[owner])
+                    km._update_called = True
+                    km._computed = None
+                if hooks is not None:
+                    hooks.after_update(hook_ids)
+            TELEMETRY.add_device(self.telemetry_key, "invalid_tenant_ids", invalid)
+            if _ledger_fed(self):
+                self._traffic.note(counts)
+            if start is not None:
+                if TELEMETRY.enabled:
+                    TELEMETRY.inc(self.telemetry_key, "update_calls")
+                    skipped = sum(len(ns) - 1 for _, ns in self._layout)
+                    if skipped:
+                        TELEMETRY.inc(self.telemetry_key, "update_dedup_skipped", skipped)
+                _note_keyed_update(
+                    self, start, int(ids.shape[0]), members=len(self._collection), state_bundles=len(state)
+                )
 
     # ------------------------------------------------------------------
     # compute fan-out + rollups
