@@ -13,6 +13,7 @@ from metrics_tpu_torch.functional.classification.accuracy import (
     _accuracy_compute,
     _accuracy_update,
     _check_subset_validity,
+    _check_top_k_mode,
     _mode,
     _subset_accuracy_compute,
     _subset_accuracy_update,
@@ -132,11 +133,7 @@ class Accuracy(StatScores):
     def update(self, preds: Tensor, target: Tensor) -> None:
         """Accumulate accuracy statistics from a batch."""
         mode = _mode(preds, target, self.threshold, self.top_k, self.num_classes, self.multiclass)
-
-        if self.mode is None:
-            self.mode = mode
-        elif self.mode != mode:
-            raise ValueError(f"You can not use {mode} inputs with {self.mode} inputs.")
+        self._lock_mode(mode)
         self.mode_code = torch.clamp(self.mode_code, min=_MODE_CODES.index(mode))
 
         if self.subset_accuracy and not _check_subset_validity(self.mode):
@@ -161,6 +158,32 @@ class Accuracy(StatScores):
             )
 
             self._accumulate(tp, fp, tn, fn)
+
+    def _lock_mode(self, mode: DataType) -> None:
+        """Learn the data mode from the first batch; raise on a later batch of
+        another mode."""
+        if self.mode is None:
+            self.mode = mode
+        elif self.mode != mode:
+            raise ValueError(f"You can not use {mode} inputs with {self.mode} inputs.")
+
+    def _row_states(self, *args: Any, **kwargs: Any) -> Optional[Dict[str, Tensor]]:
+        """The batched-rows form (:meth:`Metric._row_states`) of
+        ``Accuracy.update`` outside subset accuracy: the StatScores rows,
+        ``correct``/``total`` at their defaults and ``mode_code`` the batch's
+        code on every row. The batch's case locks ``mode`` as ``update`` does,
+        raising on a change before any state changes."""
+        batch = self._rows_batch(args, kwargs)
+        if batch is None or type(self).update is not Accuracy.update or self.subset_accuracy:
+            return None
+        rows, mode = self._rows_counts(*batch)
+        self._lock_mode(mode)
+        _check_top_k_mode(mode, self.top_k)
+        b = batch[0].shape[0]
+        rows["correct"] = self._defaults["correct"].expand(b)
+        rows["total"] = self._defaults["total"].expand(b)
+        rows["mode_code"] = torch.full((b,), _MODE_CODES.index(mode), dtype=torch.int32, device=batch[0].device)
+        return rows
 
     def _restore_derived(self, state: Dict[str, Tensor]) -> None:
         """Decode the learned data mode from installed ``mode_code`` states

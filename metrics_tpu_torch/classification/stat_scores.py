@@ -5,15 +5,27 @@ sum-reduced states for global counting (micro scalar / macro ``(C,)``), or
 list ("cat") states for samplewise counting. Base class of Accuracy /
 Precision / Recall / FBeta / F1.
 """
-from typing import Any, Callable, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
-from metrics_tpu_torch.functional.classification.stat_scores import _stat_scores_compute, _stat_scores_update
+from metrics_tpu_torch.functional.classification.stat_scores import (
+    _stat_scores_compute,
+    _stat_scores_count,
+    _stat_scores_update,
+)
 from metrics_tpu_torch.metric import Metric
-from metrics_tpu_torch.utilities.checks import _check_classification_inputs, _input_squeeze
+from metrics_tpu_torch.utilities.checks import (
+    _check_classification_inputs,
+    _input_format_classification,
+    _input_squeeze,
+    _rows_format_alike,
+)
 from metrics_tpu_torch.utilities.data import Tensor, dim_zero_cat
-from metrics_tpu_torch.utilities.enums import AverageMethod, MDMCAverageMethod
+from metrics_tpu_torch.utilities.enums import AverageMethod, DataType, MDMCAverageMethod
+from metrics_tpu_torch.utilities.profiling import compiled_scope
+
+_COUNTS = ("tp", "fp", "tn", "fn")
 
 
 class StatScores(Metric):
@@ -116,6 +128,44 @@ class StatScores(Metric):
         if preds.dtype in (torch.float16, torch.bfloat16):
             preds = preds.float()
         _check_classification_inputs(preds, target, self.threshold, self.num_classes, self.multiclass, self.top_k)
+
+    def _row_states(self, *args: Any, **kwargs: Any) -> Optional[Dict[str, Tensor]]:
+        """The batched-rows form (:meth:`Metric._row_states`) of
+        ``StatScores.update``: the batch canonicalized once without reading a
+        value, then each row's counts, micro ones summed a row, macro ones
+        from B1's batched entry over the ``(B, 1, C)`` stack."""
+        batch = self._rows_batch(args, kwargs)
+        if batch is None or type(self).update is not StatScores.update:
+            return None
+        return self._rows_counts(*batch)[0]
+
+    def _rows_batch(self, args: Tuple, kwargs: Dict[str, Any]) -> Optional[Tuple[Tensor, Tensor]]:
+        """``(preds, target)`` of an update's arguments where the batched-rows
+        form holds: fixed-shape states (``reduce`` micro or macro, no
+        samplewise ``mdmc_reduce``) and a batch that canonicalizes row by row
+        as each row alone does (:func:`_rows_format_alike`); else ``None``."""
+        if self.reduce == AverageMethod.SAMPLES or self.mdmc_reduce == MDMCAverageMethod.SAMPLEWISE:
+            return None
+        bound = dict(zip(("preds", "target"), args), **kwargs)
+        if len(args) + len(kwargs) != 2 or set(bound) != {"preds", "target"}:
+            return None
+        preds, target = bound["preds"], bound["target"]
+        if not _rows_format_alike(preds, target, self.num_classes, self.multiclass):
+            return None
+        return preds, target
+
+    def _rows_counts(self, preds: Tensor, target: Tensor) -> Tuple[Dict[str, Tensor], DataType]:
+        """Each row's ``tp``/``fp``/``tn``/``fn`` of a batch that
+        :meth:`_rows_batch` admitted, and the batch's case: the batch
+        canonicalized once as ``update`` canonicalizes it, with no value read,
+        then counted a row."""
+        with compiled_scope(f"{type(self).__name__}.update"):
+            preds, target, case = _input_format_classification(
+                preds, target, threshold=self.threshold, top_k=self.top_k, num_classes=self.num_classes,
+                multiclass=self.multiclass, read_values=False,
+            )
+            counts = _stat_scores_count(preds, target, self.reduce, self.mdmc_reduce, self.ignore_index, rows=True)
+        return dict(zip(_COUNTS, counts)), case
 
     def _shared_update_key(self) -> Optional[Tuple]:
         # sharing is only valid when the subclass runs StatScores' update

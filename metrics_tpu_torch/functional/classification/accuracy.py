@@ -39,6 +39,11 @@ def _mode(
     )
 
 
+def _check_top_k_mode(mode: DataType, top_k: Optional[int]) -> None:
+    if mode == DataType.MULTILABEL and top_k:
+        raise ValueError("You can not use the `top_k` parameter to calculate accuracy for multi-label inputs.")
+
+
 def _accuracy_update(
     preds: Tensor,
     target: Tensor,
@@ -51,9 +56,7 @@ def _accuracy_update(
     ignore_index: Optional[int],
     mode: DataType,
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-    if mode == DataType.MULTILABEL and top_k:
-        raise ValueError("You can not use the `top_k` parameter to calculate accuracy for multi-label inputs.")
-
+    _check_top_k_mode(mode, top_k)
     preds, target = _input_squeeze(preds, target)
     return _stat_scores_update(
         preds,

@@ -13,7 +13,9 @@ Inside ``torch.func.vmap`` the seam calls
 whose vmap rule launches the kernel once over the whole stack of per-sample
 ``(N, C)`` inputs, as the JAX package's ``pallas_call`` batches over a
 leading grid axis there: a bootstrap's children, and the keyed path's rows,
-each a length-1 batch (one launch for an update's ``(R, 1, C)`` stack).
+each a length-1 batch (one launch for an update's ``(R, 1, C)`` stack). The
+keyed path's batched-rows form counts the same stack without the vmap
+(:func:`_stat_scores_count` with ``rows``).
 """
 from typing import Optional, Tuple
 
@@ -39,13 +41,29 @@ def _stat_scores(
     preds: Tensor,
     target: Tensor,
     reduce: str = "micro",
+    rows: bool = False,
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Count tp/fp/tn/fn over canonical binary ``(N, C)`` or ``(N, C, X)`` inputs.
 
     Output shapes: micro -> scalar / ``(N,)``; macro -> ``(C,)`` / ``(N, C)``;
     samples -> ``(N,)`` / ``(N, X)``. Macro counts of 2-D inputs go through
     the B1 kernel, batched over the stack inside ``torch.func.vmap``.
+
+    With ``rows`` (``reduce`` micro or macro) each row of ``(N, C)`` inputs
+    is counted as a batch of its own: macro ``(N, C)`` from B1's batched
+    entry over the ``(N, 1, C)`` stack, the stack the vmap hands it for
+    length-1 rows; micro ``(N,)``, the row sums over classes, every count
+    from one reduction of ``p * t``, ``p`` and ``t`` (canonical inputs are 0
+    or 1: ``fp = Σp - tp``, ``fn = Σt - tp``, ``tn = C - Σp - fn``), exact in
+    int32.
     """
+    if rows:
+        n, c = preds.shape
+        if reduce == "macro":
+            return stat_scores_counts_stacked(preds.reshape(n, 1, c), target.reshape(n, 1, c))
+        tp, pos, true = torch.stack((preds & target, preds, target)).sum(-1, dtype=torch.int32)
+        fn = true - tp
+        return tp, pos - tp, c - pos - fn, fn
     if reduce == "micro":
         dim = (0, 1) if preds.ndim == 2 else (1, 2)
     elif reduce == "macro":
@@ -87,7 +105,20 @@ def _stat_scores_update(
     preds, target, _ = _input_format_classification(
         preds, target, threshold=threshold, num_classes=num_classes, multiclass=multiclass, top_k=top_k
     )
+    return _stat_scores_count(preds, target, reduce, mdmc_reduce, ignore_index)
 
+
+def _stat_scores_count(
+    preds: Tensor,
+    target: Tensor,
+    reduce: str,
+    mdmc_reduce: Optional[str],
+    ignore_index: Optional[int],
+    rows: bool = False,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Count stats of canonical inputs (the second half of
+    :func:`_stat_scores_update`); with ``rows``, of each row of 2-D ones as
+    a batch of its own (see :func:`_stat_scores`)."""
     if ignore_index is not None and not 0 <= ignore_index < preds.shape[1]:
         raise ValueError(f"The `ignore_index` {ignore_index} is not valid for inputs with {preds.shape[1]} classes")
 
@@ -108,7 +139,7 @@ def _stat_scores_update(
         preds = _del_column(preds, ignore_index)
         target = _del_column(target, ignore_index)
 
-    tp, fp, tn, fn = _stat_scores(preds, target, reduce=reduce)
+    tp, fp, tn, fn = _stat_scores(preds, target, reduce=reduce, rows=rows)
 
     if ignore_index is not None and reduce == "macro":
         # flag the ignored class with -1 so downstream reductions mask it out

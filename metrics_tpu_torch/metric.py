@@ -432,9 +432,7 @@ class Metric(ABC):
         """Pure update: ``state`` advanced by this batch; the live states stay
         as they were. Safe under ``torch.func.vmap`` and inside a compiled
         program, where its capture counts ``update_traces``."""
-        if TELEMETRY.enabled and _counts_traces():
-            TELEMETRY.inc(self.telemetry_key, "update_traces")
-            MONITOR.note_trace(self.telemetry_key, arg_signature(*args, **kwargs))
+        self._note_update_trace(*args, **kwargs)
         with compiled_scope(f"{self.__class__.__name__}.update"):
             with self._bound_state({k: (list(v) if isinstance(v, list) else v) for k, v in state.items()}):
                 self._unwrapped_update(*args, **kwargs)
@@ -442,6 +440,13 @@ class Metric(ABC):
         if HEALTH.enabled:
             guard_state(self, new_state, source="apply_update")
         return new_state
+
+    def _note_update_trace(self, *args: Any, **kwargs: Any) -> None:
+        """Count a compiled capture's trace of this update (``update_traces``
+        and the retrace ledger's signature of ``args``)."""
+        if TELEMETRY.enabled and _counts_traces():
+            TELEMETRY.inc(self.telemetry_key, "update_traces")
+            MONITOR.note_trace(self.telemetry_key, arg_signature(*args, **kwargs))
 
     def apply_compute(self, state: StateDict, process_group: Any = _GROUP_UNSET) -> Any:
         """Pure compute: the value of ``state``, synced over ``process_group``
@@ -512,8 +517,18 @@ class Metric(ABC):
 
     def _validate_batch(self, *args: Any, **kwargs: Any) -> None:
         """The value checks of ``update`` on a whole batch. The keyed path
-        runs them once before its vmapped per-row update, in which no value
-        can be read to the host. Default: none."""
+        runs them once before its per-row states, in which no value can be
+        read to the host. Default: none."""
+
+    def _row_states(self, *args: Any, **kwargs: Any) -> Optional[StateDict]:
+        """The batched-rows form of the keyed path's per-row states: for a
+        batch whose tensor arguments share the leading row axis ``B``, the
+        state of a fresh update on each row alone as a length-1 batch,
+        stacked to ``(B, ...)`` leaves, computed without the vmap and reading
+        no value, or ``None`` where this metric has no such form for these
+        inputs (:func:`~metrics_tpu_torch.utilities.stacked.row_states` then
+        vmaps :meth:`apply_update`). Default: ``None``."""
+        return None
 
 
     def _check_input_device(self, args: Tuple, kwargs: Dict) -> None:

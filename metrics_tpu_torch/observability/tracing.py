@@ -62,16 +62,19 @@ update's host time splits into its parts::
   ring of its own: its id (``<name>|<n>``, a sequence a name), its
   ``enter_s``/``exit_s`` on the event-log clock (:meth:`EventLog.now`),
   ``thread``, ``profiled`` (a profiler was active, which slows the host),
-  ``spans`` (itself and every span inside it), ``host_reads`` and
-  ``attrs``. The phases' self times sum to the request's length.
+  ``spans`` (itself and every span inside it), ``host_reads``, ``attrs``
+  and ``rows_batched``. The phases' self times sum to the request's length.
 
 The spans of the keyed wrapper (:mod:`~metrics_tpu_torch.wrappers.multitenant`):
 ``keyed.update`` (attrs ``rows``, ``bundles``, ``path`` ``"eager"`` or
 ``"compiled"``), the whole of ``MultiTenantCollection.update`` and
 ``KeyedMetric.update``; inside it, for each state bundle, ``checks`` (the
 child's input checks on the whole batch, :mod:`~metrics_tpu_torch.utilities.checks`),
-``row_states`` (the vmapped per-row child update,
-:func:`~metrics_tpu_torch.utilities.stacked.row_states`) and ``scatter``
+``row_states`` (the per-row child states,
+:func:`~metrics_tpu_torch.utilities.stacked.row_states`, in its batched-rows
+form or vmapped; each bundle whose rows took the batched form counts one in
+the request's ``rows_batched``, :meth:`SpanTracker.note_rows_batched`, and
+in ``summary()["host"]["rows_batched"]``) and ``scatter``
 (column packing, the B3/B4 wrappers or the plain routes, the state merge,
 the invalid-id sum); and a ``host_read`` span for each read of tensor
 values to the host (:func:`~metrics_tpu_torch.utilities.data.to_host`),
@@ -80,10 +83,10 @@ counted in the request's ``host_reads`` and in ``summary()["host"]
 canonicalization, the lock, setting the states, the telemetry. Inside a
 compiled program's run (a CUDA-graph capture on the card, every call on
 the CPU) a span records nothing, so a compiled keyed update is a request
-with ``path="compiled"`` and no phase but its own. ``Metric`` and
-``MetricCollection`` open no host span: their ``metrics/<Metric>.<phase>``
-ranges stay profiler-only, and a child's ``metrics/<Metric>.update`` range
-nests under ``row_states``.
+with ``path="compiled"``, no phase but its own and ``rows_batched`` 0.
+``Metric`` and ``MetricCollection`` open no host span: their
+``metrics/<Metric>.<phase>`` ranges stay profiler-only, and a child's
+``metrics/<Metric>.update`` range nests under ``row_states`` in either form.
 
 The host-read counter sees the reads written as ``to_host``: every
 ``.tolist()``, ``.item()`` and ``.numpy()`` of the package and every
@@ -99,7 +102,8 @@ gather and the timeline stay as the JAX package's. It holds the last
 :data:`DEFAULT_HOST_CAPACITY` requests, a ``deque`` that drops its oldest
 and counts it, as the collective ledger is; ``summary()["host"]`` gives
 its ``capacity``, ``size``, ``recorded``, ``dropped`` and the
-``host_reads`` total, and :meth:`SpanTracker.clear` empties both rings.
+``host_reads`` and ``rows_batched`` totals, and :meth:`SpanTracker.clear`
+empties both rings.
 Off, a span costs a method call and two flag reads; on, a span inside a
 request costs two clock reads and a dict update, a request one more record
 and one append under the lock (``scripts/torch_span_cost.py``).
@@ -178,8 +182,9 @@ class HostRequest(NamedTuple):
     time of its spans (a span's length less the spans directly inside it),
     the request's own name included: the values sum to ``exit_s - enter_s``.
     ``spans`` counts the request and every span inside it, ``host_reads``
-    the reads of tensor values to the host made in it. ``profiled`` says a
-    ``torch.profiler`` was active, which slows the host.
+    the reads of tensor values to the host made in it, ``rows_batched`` the
+    state bundles whose per-row states took the batched-rows form in it.
+    ``profiled`` says a ``torch.profiler`` was active, which slows the host.
     """
 
     request: str
@@ -192,6 +197,7 @@ class HostRequest(NamedTuple):
     host_reads: int
     phases: Dict[str, float]
     attrs: Dict[str, Any]
+    rows_batched: int
 
 
 class _NullSpan:
@@ -246,12 +252,13 @@ class _Span(_NullSpan):
 class _Request:
     """What a request gathers while it is open."""
 
-    __slots__ = ("span_id", "spans", "host_reads", "phases", "profiled")
+    __slots__ = ("span_id", "spans", "host_reads", "rows_batched", "phases", "profiled")
 
     def __init__(self, span_id: str, profiled: bool) -> None:
         self.span_id = span_id
         self.spans = 1
         self.host_reads = 0
+        self.rows_batched = 0
         self.phases: Dict[str, float] = {}
         self.profiled = profiled
 
@@ -307,6 +314,7 @@ class SpanTracker:
         self._host_recorded = 0
         self._host_dropped = 0
         self._host_reads = 0
+        self._rows_batched = 0
         self._stack = _HostStack()
 
     # -- enablement (lock-free read) ----------------------------------------
@@ -456,13 +464,24 @@ class SpanTracker:
             stack[-1].inner_s += length
             return
         record = (request.span_id, span.name, span.enter_s, exit_s, threading.get_ident(), request.profiled,
-                  request.spans, request.host_reads, phases, span.attrs)
+                  request.spans, request.host_reads, phases, span.attrs, request.rows_batched)
         with self._lock:
             if len(self._host) == self._host.maxlen:
                 self._host_dropped += 1
             self._host.append(record)
             self._host_recorded += 1
             self._host_reads += request.host_reads
+            self._rows_batched += request.rows_batched
+
+    def note_rows_batched(self) -> None:
+        """Count one state bundle whose per-row states took the batched-rows
+        form (:func:`~metrics_tpu_torch.utilities.stacked.row_states`) in the
+        request open on this thread. Outside a request, inside a compiled
+        program's run or disabled, it records nothing."""
+        if self._enabled and not _in_compiled_program():
+            stack = self._stack.open
+            if stack:
+                stack[0].request.rows_batched += 1
 
     def host_records(self) -> List[HostRequest]:
         """A consistent copy of the retained requests, in the order they
@@ -517,6 +536,7 @@ class SpanTracker:
                     "recorded": self._host_recorded,
                     "dropped": self._host_dropped,
                     "host_reads": self._host_reads,
+                    "rows_batched": self._rows_batched,
                 },
             }
 
@@ -538,6 +558,7 @@ class SpanTracker:
             self._host_recorded = 0
             self._host_dropped = 0
             self._host_reads = 0
+            self._rows_batched = 0
 
 
 #: the process-global span tracker every instrumented collective feeds

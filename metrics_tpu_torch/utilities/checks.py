@@ -23,12 +23,15 @@ into a CUDA graph on the card) no value can be read
 ``None`` and :func:`_host_range` is never called, so every value check and
 the class-count inference skip, where the JAX package skips them under
 ``_is_traced`` (``checks.py:40,72,141,205``). The eager keyed path runs the
-same checks once on the whole batch before the vmap. Label predictions
-without ``num_classes`` raise there, as they do under a JAX trace
-(``checks.py:280-284``).
+same checks once on the whole batch before its per-row states. Label
+predictions without ``num_classes`` raise in the vmap, as they do under a
+JAX trace (``checks.py:280-284``). The keyed path's batched-rows form
+canonicalizes the whole batch once with ``read_values=False``, the same
+skips without a vmap, where :func:`_rows_format_alike` finds that equal to
+each row's own canonical form.
 """
 import math
-from typing import Optional, Tuple, Union
+from typing import Any, Optional, Tuple, Union
 
 import torch
 
@@ -209,11 +212,13 @@ def _check_inputs_with_ranges(
     num_classes: Optional[int],
     multiclass: Optional[bool],
     top_k: Optional[int],
+    read_values: bool = True,
 ) -> Tuple[DataType, Range, Range]:
     """Full input validation: the inferred case, plus the host ranges of
     ``target`` and of integer ``preds`` (``None`` for float ``preds``, and
-    for both inside a traced program, where the value checks are skipped)."""
-    traced = _is_traced(preds, target)
+    for both inside a traced program or without ``read_values``, where the
+    value checks are skipped)."""
+    traced = not read_values or _is_traced(preds, target)
     t_range = None if traced else _host_range(target)
     p_range = None if traced or preds.is_floating_point() else _host_range(preds)
 
@@ -275,6 +280,7 @@ def _input_format_classification(
     top_k: Optional[int] = None,
     num_classes: Optional[int] = None,
     multiclass: Optional[bool] = None,
+    read_values: bool = True,
 ) -> Tuple[Tensor, Tensor, DataType]:
     """Canonicalize every classification input into binary int tensors.
 
@@ -285,6 +291,10 @@ def _input_format_classification(
     * (multi-dim) multi-class: targets one-hot; float preds top-k one-hot;
       ``multiclass=False`` squashes 2-class data down to the positive column.
     * all extra dims are flattened into ``X``; size-1 dims (except N) squeezed.
+
+    Without ``read_values`` no value is read, as inside a traced program: the
+    value checks and the class-count inference skip (the keyed path's
+    batched rows, :func:`_rows_format_alike`).
     """
     preds = torch.as_tensor(preds)
     target = torch.as_tensor(target)
@@ -296,7 +306,7 @@ def _input_format_classification(
         preds = preds.float()
 
     case, t_range, p_range = _check_inputs_with_ranges(
-        preds, target, num_classes=num_classes, multiclass=multiclass, top_k=top_k
+        preds, target, num_classes=num_classes, multiclass=multiclass, top_k=top_k, read_values=read_values
     )
 
     if case in (DataType.BINARY, DataType.MULTILABEL) and not top_k:
@@ -312,7 +322,7 @@ def _input_format_classification(
             preds = select_topk(preds, top_k or 1)
         else:
             if not num_classes:
-                if _is_traced(preds, target):
+                if not read_values or _is_traced(preds, target):
                     raise ValueError(
                         "`num_classes` must be given explicitly when canonicalizing label "
                         "predictions inside a traced (vmapped or compiled) program."
@@ -338,6 +348,30 @@ def _input_format_classification(
         preds, target = torch.squeeze(preds, -1), torch.squeeze(target, -1)
 
     return preds.to(torch.int32), target.to(torch.int32), case
+
+
+def _rows_format_alike(preds: Any, target: Any, num_classes: Optional[int], multiclass: Optional[bool]) -> bool:
+    """Whether :func:`_input_format_classification` of a whole ``(B, ...)``
+    batch, without reading a value, equals row by row that of each row alone
+    as a length-1 batch, which is what the keyed path's vmap gives
+    (:func:`~metrics_tpu_torch.utilities.stacked.row_states`), and is 2-D.
+
+    That holds for tensors of B >= 1 rows with no other axis of size 1 (a
+    length-1 row's squeeze would drop it) and no ``multiclass`` override, in
+    the cases whose canonical form is ``(B, C)`` and whose class count needs
+    no value: float binary ``(B,)``, multi-label ``(B, L)`` and multi-class
+    ``(B, C)`` predictions with ``(B,)`` targets, and ``(B,)`` label
+    predictions with ``num_classes``. Every step of the canonicalization is
+    then a row-wise op (threshold, top-k, one-hot, reshape)."""
+    if not (isinstance(preds, Tensor) and isinstance(target, Tensor)) or multiclass is not None:
+        return False
+    if preds.ndim not in (1, 2) or preds.shape[0] == 0 or 1 in preds.shape[1:]:
+        return False
+    if target.ndim != 1 and target.shape != preds.shape:
+        return False
+    if preds.is_floating_point():
+        return True
+    return preds.ndim == 1 and bool(num_classes) and (_is_integer(preds) or preds.dtype == torch.bool)
 
 
 def _is_integer(x: Tensor) -> bool:

@@ -110,10 +110,9 @@ def to_host(t: Any, numpy: bool = False) -> Any:
     waits for the card to finish the work that makes ``t`` and copies it
     back. With the tracer on it is a ``host_read`` span, counted in its
     request (see :meth:`~metrics_tpu_torch.observability.tracing.SpanTracker.span`);
-    off, it is the bare read after one flag read."""
-    if not TRACER.enabled:
-        return t.cpu().numpy() if numpy else t.tolist()
-    with TRACER.span(HOST_READ):
+    off, it is the bare read after one flag read. Both read on one line, so
+    that a synchronizing call is reported at the same place either way."""
+    with (TRACER.span(HOST_READ) if TRACER.enabled else _NULL_SPAN):
         return t.cpu().numpy() if numpy else t.tolist()
 
 
@@ -274,7 +273,9 @@ def select_topk(prob_tensor: Tensor, topk: int = 1, dim: int = 1) -> Tensor:
         moved = top_idx.movedim(dim, 1)
         classes = _class_axis(prob_tensor.shape[dim], moved.ndim, prob_tensor.device)
         return (moved == classes).movedim(1, dim).to(torch.int32)
-    top_idx = torch.topk(prob_tensor, topk, dim=dim).indices
+    # a stable descending sort keeps the lower index first among ties, as the
+    # JAX package's ``lax.top_k`` does; ``torch.topk`` leaves their order open
+    top_idx = torch.sort(prob_tensor, dim=dim, descending=True, stable=True).indices.narrow(dim, 0, topk)
     # out of place: torch.func.vmap batches a scatter of batched indices into a fresh tensor, not scatter_
     zeros = torch.zeros(prob_tensor.shape, dtype=torch.int32, device=prob_tensor.device)
     return torch.scatter(zeros, dim, top_idx, 1)
@@ -340,4 +341,4 @@ def apply_to_collection(
 
 
 # last: the tracer's package imports this module, which must be whole by then
-from metrics_tpu_torch.observability.tracing import HOST_READ, TRACER  # noqa: E402
+from metrics_tpu_torch.observability.tracing import _NULL_SPAN, HOST_READ, TRACER  # noqa: E402

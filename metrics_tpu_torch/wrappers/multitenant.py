@@ -6,10 +6,13 @@ one metric per user, segment or model variant holds N states; a
 instead (``(N, ...)`` tensors) and routes one mixed event batch to every
 tenant with ``update(tenant_ids, *batch)``, in one pass:
 
-1. **per-row states** — the child's pure ``apply_update`` vmapped over the
-   event-row axis (:func:`~metrics_tpu_torch.utilities.stacked.row_states`),
-   each row's batch-local state delta; the child's value checks run once on
-   the whole batch first, since no value can be read inside the vmap;
+1. **per-row states** — each row's batch-local state delta
+   (:func:`~metrics_tpu_torch.utilities.stacked.row_states`): the child's
+   batched-rows form where it has one for the inputs (the stat-scores
+   family: the batch canonicalized once, macro rows counted by one launch of
+   B1's batched entry), else its pure ``apply_update`` vmapped over the
+   event-row axis; the child's value checks run once on the whole batch
+   first, since neither form reads a value;
 2. **sum leaves** — every ``"sum"`` leaf of the bundle in a dtype that B3
    adds exactly through float32 (float32, int32, bfloat16), as ``per_row -
    default``, packed into ONE ``(R, ΣD)`` float32 matrix and added into the

@@ -316,6 +316,75 @@ def test_keyed_collection_on_the_card_matches_the_cpu(cuda_device):
         torch.testing.assert_close(got[name].cpu(), want[name], rtol=1e-6, atol=1e-7, equal_nan=True)
 
 
+@pytest.mark.cuda
+def test_the_batched_rows_on_the_card_equal_the_vmap_route(cuda_device, monkeypatch):
+    """The benchmark cell's collection (Accuracy, macro P/R/F1; 10,000 tenants,
+    4,096-row cohorts, the last padded with all-zero rows of id -1, tie rows
+    in each) on the card: the batched-rows form gives the vmap route's
+    states exactly, with one launch of B1's batched entry over the
+    ``(4096, 1, C)`` stack an update for the macro bundle, as the vmap route
+    makes."""
+    from metrics_tpu_torch.kernels import stat_scores as st
+    from metrics_tpu_torch.utilities import stacked
+
+    rng = np.random.RandomState(21)
+    cohorts = []
+    for k in range(4):
+        logits = rng.rand(4096, C).astype(np.float32)
+        preds, target = logits / logits.sum(-1, keepdims=True), rng.randint(0, C, 4096)
+        ids = rng.randint(0, 10_000, 4096)
+        preds[:8] = 1.0 / C
+        if k == 3:
+            preds[3000:], target[3000:], ids[3000:] = 0.0, 0, -1
+        cohorts.append(tuple(_t(x).to(cuda_device) for x in (ids, preds, target)))
+    batched = T.MultiTenantCollection(_members(device=cuda_device), 10_000, validate_ids=False, device=cuda_device)
+    vmapped = T.MultiTenantCollection(_members(device=cuda_device), 10_000, validate_ids=False, device=cuda_device)
+    vmapped.build()
+    for km in vmapped._keyed.values():
+        km._child._row_states = lambda *a, **k: None
+    shapes, taken = [], []
+    wrapper, vmap_rows = st.stat_scores_counts_cuda, stacked._vmapped_rows
+    monkeypatch.setattr(st, "stat_scores_counts_cuda",
+                        lambda p, t, device="cuda": shapes.append(tuple(p.shape)) or wrapper(p, t, device=device))
+    monkeypatch.setattr(stacked, "_vmapped_rows", lambda metric, *a: taken.append(metric) or vmap_rows(metric, *a))
+    for cohort in cohorts:
+        batched.update(*cohort)
+    assert not taken and shapes == [(4096, 1, C)] * len(cohorts)
+    assert _common.launch_count("stat_scores_counts") == len(cohorts)
+    for cohort in cohorts:
+        vmapped.update(*cohort)
+    assert len(taken) == 2 * len(cohorts) and shapes == [(4096, 1, C)] * (2 * len(cohorts))
+    assert _common.launch_count("stat_scores_counts") == 2 * len(cohorts)
+    for owner, km in vmapped._keyed.items():
+        for name, value in km._get_states().items():
+            got = getattr(batched._keyed[owner], name)
+            assert got.dtype == value.dtype and torch.equal(got, value), (owner, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 3])
+def test_select_topk_keeps_the_lower_class_among_ties_on_the_card(cuda_device, k):
+    """The card's top k of tied probabilities are the lowest classes among the
+    tied, as on the CPU and in the JAX package's ``lax.top_k``: rows of equal
+    values, all-zero rows, a tie at the k-th place, a NaN; on a batch, on
+    wide rows and on each row under ``torch.func.vmap``."""
+    from metrics_tpu_torch.utilities.data import select_topk
+
+    probs = np.array([[0.25] * 4, [0.0] * 4, [0.1, 0.3, 0.3, 0.3], [0.4, 0.2, 0.2, 0.2],
+                      [np.nan, 0.1, 0.2, 0.3]], dtype=np.float32)
+    want = {2: [[1, 1, 0, 0], [1, 1, 0, 0], [0, 1, 1, 0], [1, 1, 0, 0], [1, 0, 0, 1]],
+            3: [[1, 1, 1, 0], [1, 1, 1, 0], [0, 1, 1, 1], [1, 1, 1, 0], [1, 0, 1, 1]]}[k]
+    dev = _t(probs).to(cuda_device)
+    assert select_topk(dev, k).cpu().tolist() == want
+    vmapped = torch.func.vmap(lambda row: select_topk(row, k))(dev.unsqueeze(1)).squeeze(1)
+    assert vmapped.cpu().tolist() == want
+    wide = torch.zeros((4096, 1000), device=cuda_device)
+    wide[1::2, 500:] = 1.0
+    got = select_topk(wide, k).cpu()
+    assert torch.equal(got[0::2], torch.zeros(2048, 1000, dtype=torch.int32).index_fill_(1, torch.arange(k), 1))
+    assert torch.equal(got[1::2], torch.zeros(2048, 1000, dtype=torch.int32).index_fill_(1, torch.arange(500, 500 + k), 1))
+
+
 # -- the serving plane -----------------------------------------------------------------
 
 

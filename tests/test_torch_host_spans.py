@@ -179,7 +179,7 @@ def test_disabled_a_span_is_one_shared_null_context_and_records_nothing():
     _collection().update(*_batch())
     assert tobs.TRACER.host_records() == []
     assert tobs.TRACER.summary()["host"] == {"capacity": DEFAULT_HOST_CAPACITY, "size": 0, "recorded": 0,
-                                              "dropped": 0, "host_reads": 0}
+                                              "dropped": 0, "host_reads": 0, "rows_batched": 0}
 
 
 @pytest.mark.parametrize("tracer_on", [True, False])

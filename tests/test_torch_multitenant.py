@@ -18,10 +18,12 @@ import torch
 
 import metrics_tpu as J
 import metrics_tpu_torch as T
+import metrics_tpu_torch.observability as tobs
 from metrics_tpu.utilities.stacked import row_states as jax_row_states
 from metrics_tpu_torch.kernels import _common
 from metrics_tpu_torch.metric import Metric
 from metrics_tpu_torch.utilities import checks
+from metrics_tpu_torch.utilities import stacked as tstacked
 from metrics_tpu_torch.utilities.convert import load_numpy_states
 from metrics_tpu_torch.utilities.stacked import broadcast_stack, row_states, stack_pytrees, vmap_update
 from metrics_tpu_torch.wrappers.multitenant import _pow2_at_least
@@ -148,6 +150,50 @@ def test_keyed_top_2_accuracy_gives_the_jax_package_s_values():
     got, want = _compute_both(port, ref)
     _assert_values(got, want)
     np.testing.assert_allclose(got.numpy(), [0.5, 0.3333, 0.5385, 0.2, 0.5455, 0.4167], atol=1e-4)
+
+
+def _tied_probs():
+    """Rows whose top k ties: four equal values, all zero (a keyed cohort's
+    padding), a tie at the second and third places, a NaN (the largest for
+    both packages)."""
+    return np.array([[0.25] * 4, [0.0] * 4, [0.1, 0.3, 0.3, 0.3], [0.4, 0.2, 0.2, 0.2],
+                     [np.nan, 0.1, 0.2, 0.3]], dtype=np.float32)
+
+
+@pytest.mark.parametrize("route", ["eager", "vmap"])
+@pytest.mark.parametrize("k", [2, 3])
+def test_select_topk_keeps_the_lower_class_among_ties_as_lax_top_k(route, k):
+    """The top k of tied probabilities are the lowest classes among the tied,
+    as the JAX package's ``lax.top_k`` takes them, on a batch and on each row
+    under ``torch.func.vmap``."""
+    from metrics_tpu.utilities.data import select_topk as jax_select_topk
+    from metrics_tpu_torch.utilities.data import select_topk
+
+    probs = _tied_probs()
+    if route == "eager":
+        got = select_topk(_t(probs), k)
+    else:
+        got = torch.func.vmap(lambda row: select_topk(row, k))(_t(probs).unsqueeze(1)).squeeze(1)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_select_topk(_j(probs), k)))
+    np.testing.assert_array_equal(got.numpy()[:2, :k], 1)
+
+
+@pytest.mark.parametrize("name,kw", [("Accuracy", dict(top_k=2)),
+                                     ("Precision", dict(average="macro", num_classes=NC, top_k=2))])
+def test_top_2_of_tied_rows_counts_as_the_jax_package(name, kw):
+    """A top-2 metric over rows that tie every class, eager and keyed, gives
+    the JAX package's values."""
+    probs, target = _tied_probs()[:4], np.array([0, 2, 1, 3])
+    port, ref = getattr(T, name)(**kw, **CPU), getattr(J, name)(**kw)
+    port.update(_t(probs), _t(target))
+    ref.update(_j(probs), _j(target))
+    np.testing.assert_allclose(port.compute().numpy(), np.asarray(ref.compute()), rtol=0, atol=0)
+    ids = np.array([0, 1, 0, 1])
+    kport, kref = T.KeyedMetric(getattr(T, name)(**kw, **CPU), 2, **CPU), J.KeyedMetric(getattr(J, name)(**kw), 2)
+    kport.update(_t(ids), _t(probs), _t(target))
+    kref.update(_j(ids), _j(probs), _j(target))
+    np.testing.assert_allclose(kport.compute().numpy(), np.asarray(kref.compute()), rtol=0, atol=0)
 
 
 def test_the_scatters_outside_vmap_are_unchanged_bit_for_bit():
@@ -532,6 +578,224 @@ def test_batch_value_checks_run_once_before_the_vmap():
         keyed.update(_t([0, 1, 2, 0, 1, 2]), _t(preds), _t([0, 1, 2, 3, 4, 0]))
     with pytest.raises(ValueError, match="non-negative"):
         keyed.update(_t([0, 1, 2, 0, 1, 2]), _t(preds), _t([0, 1, -1, 3, 0, 0]))
+
+
+# ---------------------------------------------------------------- batched rows
+
+
+def _ties(probs):
+    """Rows 0-1 tie every class and rows 2-3 are all zero, as the keyed
+    cell's padding rows are: the top-1 is class 0 and the top-2 classes 0
+    and 1 in both packages, the lower index first among ties. Row 4 ties the
+    top two."""
+    probs[0:2] = 1.0 / probs.shape[1]
+    probs[2:4] = 0.0
+    probs[4] = [0.4, 0.4] + [0.2 / (probs.shape[1] - 2)] * (probs.shape[1] - 2)
+    return probs
+
+
+def _multiclass_rows(rng, rows=16):
+    return _ties(rng.rand(rows, NC).astype(np.float32)), rng.randint(0, NC, rows)
+
+
+def _binary_rows(rng, rows=16):
+    preds = rng.rand(rows).astype(np.float32)
+    preds[0:2], preds[2:4] = 0.5, 0.0  # at the threshold, and padding
+    return preds, rng.randint(0, 2, rows)
+
+
+def _multilabel_rows(rng, rows=16):
+    return _ties(rng.rand(rows, NC).astype(np.float32)), rng.randint(0, 2, (rows, NC))
+
+
+def _label_rows(rng, rows=16):
+    return rng.randint(0, NC, rows), rng.randint(0, NC, rows)
+
+
+_MC = dict(num_classes=NC)
+_ROWS_CASES = [
+    ("multiclass", _multiclass_rows, "Accuracy", {}),
+    ("multiclass", _multiclass_rows, "Accuracy", dict(top_k=2)),
+    ("multiclass", _multiclass_rows, "Accuracy", dict(average="macro", **_MC)),
+    ("multiclass", _multiclass_rows, "Precision", dict(average="macro", **_MC)),
+    ("multiclass", _multiclass_rows, "Precision", dict(average="macro", top_k=2, **_MC)),
+    ("multiclass", _multiclass_rows, "Recall", dict(average="micro")),
+    ("multiclass", _multiclass_rows, "Recall", dict(average="micro", ignore_index=2, **_MC)),
+    ("multiclass", _multiclass_rows, "F1", dict(average="macro", **_MC)),
+    ("multiclass", _multiclass_rows, "Specificity", dict(average="macro", **_MC)),
+    ("multiclass", _multiclass_rows, "StatScores", dict(reduce="micro", top_k=2)),
+    ("multiclass", _multiclass_rows, "StatScores", dict(reduce="macro", ignore_index=1, **_MC)),
+    ("binary", _binary_rows, "Accuracy", {}),
+    ("binary", _binary_rows, "Precision", {}),
+    ("binary", _binary_rows, "F1", dict(average="macro", num_classes=1)),
+    ("binary", _binary_rows, "StatScores", dict(reduce="macro", num_classes=1)),
+    ("multilabel", _multilabel_rows, "Accuracy", {}),
+    ("multilabel", _multilabel_rows, "Recall", dict(average="macro", **_MC)),
+    ("multilabel", _multilabel_rows, "Specificity", dict(average="micro")),
+    ("multilabel", _multilabel_rows, "StatScores", dict(reduce="micro", top_k=2)),
+    ("labels", _label_rows, "Accuracy", _MC),
+    ("labels", _label_rows, "Precision", dict(average="macro", **_MC)),
+    ("labels", _label_rows, "StatScores", dict(reduce="micro", **_MC)),
+]
+
+
+def _no_host_read(x):
+    raise AssertionError("a host read in the row states")
+
+
+def _no_vmap(*args):
+    raise AssertionError("the vmap route was taken")
+
+
+def _vmap_route(child, args):
+    """The oracle: the child's rows through the vmap route alone."""
+    child._row_states = lambda *a, **k: None
+    return row_states(child, args, {})
+
+
+@pytest.mark.parametrize("case,batch,name,kw", _ROWS_CASES,
+                         ids=[f"{c[0]}-{c[2]}-" + ",".join(f"{k}={v}" for k, v in c[3].items()) for c in _ROWS_CASES])
+def test_batched_rows_equal_the_vmap_route_and_the_jax_package(monkeypatch, case, batch, name, kw):
+    """The batched-rows form, taken without a vmap and without a host read,
+    equals the vmap route bit for bit and the JAX package's row states,
+    in each leaf's dtype, tie and all-zero rows included; a macro child's
+    rows reach B1 as one ``(B, 1, C)`` stack."""
+    from metrics_tpu_torch.kernels import stat_scores as st
+
+    preds, target = batch(np.random.RandomState(3))
+    make = lambda pkg, **d: getattr(pkg, name)(**kw, **d)  # noqa: E731
+    child = make(T, **CPU)
+    shapes = []
+    wrapper = st.stat_scores_counts_cuda
+    monkeypatch.setattr(st, "stat_scores_counts_cuda",
+                        lambda p, t, device="cuda": shapes.append(tuple(p.shape)) or wrapper(p, t, device=device))
+    monkeypatch.setattr(checks, "_host_range", _no_host_read)
+    monkeypatch.setattr(tstacked, "_vmapped_rows", _no_vmap)
+    rows = row_states(child, (_t(preds), _t(target)), {})
+    monkeypatch.undo()
+    assert shapes == ([(len(target), 1, child.num_classes)] if child.reduce == "macro" else [])
+    oracle = make(T, **CPU)
+    vmapped = _vmap_route(oracle, (_t(preds), _t(target)))
+    want = jax_row_states(make(J), (_j(preds), _j(target)), {})
+    assert sorted(rows) == sorted(vmapped) == sorted(want)
+    for leaf, value in rows.items():
+        assert value.dtype == vmapped[leaf].dtype == child._defaults[leaf].dtype, leaf
+        assert value.shape == (len(target),) + tuple(child._defaults[leaf].shape), leaf
+        assert torch.equal(value, vmapped[leaf]), leaf
+        np.testing.assert_array_equal(value.numpy(), np.asarray(want[leaf]), err_msg=leaf)
+    # Accuracy learns its mode from the batch as the vmap route does
+    assert getattr(child, "mode", None) == getattr(oracle, "mode", None)
+
+
+@pytest.fixture()
+def tracer():
+    tobs.reset()
+    tobs.enable()
+    yield tobs.TRACER
+    tobs.reset()
+    tobs.enable()
+
+
+def test_a_mode_change_raises_the_vmap_route_s_error_before_any_state_changes():
+    rng = np.random.RandomState(9)
+    ids = rng.randint(0, 4, 12)
+    binary, probs = _binary_batch(rng, rows=12), _probs_batch(rng, rows=12)
+    messages = []
+    for batched in (True, False):
+        keyed = T.KeyedMetric(T.Accuracy(**CPU), 4, **CPU)
+        if not batched:
+            keyed._child._row_states = lambda *a, **k: None
+        keyed.update(_t(ids), *(_t(x) for x in binary))
+        before = {name: value.clone() for name, value in keyed._get_states().items()}
+        with pytest.raises(ValueError, match="You can not use") as err:
+            keyed.update(_t(ids), *(_t(x) for x in probs))
+        messages.append(str(err.value))
+        for name, value in before.items():
+            assert torch.equal(getattr(keyed, name), value), name
+    assert messages[0] == messages[1]
+
+
+def _bypass_cases():
+    rng = np.random.RandomState(12)
+    probs, target = _probs_batch(rng, rows=10)
+    ids = _t(rng.randint(0, 3, 10))
+    regression = (_t(rng.randn(10).astype(np.float32)), _t(rng.randn(10).astype(np.float32)))
+    labels = (_t(rng.randint(0, NC, 10)), _t(rng.randint(0, NC, 10)))
+    return {
+        "MeanSquaredError": lambda: T.KeyedMetric(T.MeanSquaredError(**CPU), 3, **CPU).update(ids, *regression),
+        "ConfusionMatrix": lambda: T.KeyedMetric(T.ConfusionMatrix(num_classes=NC, **CPU), 3, **CPU).update(
+            ids, _t(probs), _t(target)),
+        "samplewise StatScores": lambda: row_states(
+            T.StatScores(reduce="macro", mdmc_reduce="samplewise", num_classes=NC, **CPU), (_t(probs), _t(target)), {}),
+        "labels without num_classes": lambda: row_states(T.Accuracy(**CPU), labels, {}),
+    }
+
+
+@pytest.mark.parametrize("case", ["MeanSquaredError", "ConfusionMatrix", "samplewise StatScores",
+                                  "labels without num_classes"])
+def test_the_vmap_route_stays_for_what_has_no_batched_rows(monkeypatch, tracer, case):
+    """Children without the batched form, samplewise counts, and label
+    predictions without ``num_classes`` (which raise as
+    ``test_label_preds_without_num_classes_raise_in_the_vmap`` has it) go
+    through the vmap; the request counts no batched bundle."""
+    taken = []
+    real = tstacked._vmapped_rows
+    monkeypatch.setattr(tstacked, "_vmapped_rows", lambda metric, *a: taken.append(metric) or real(metric, *a))
+    with tracer.span("probe"):
+        if case == "labels without num_classes":
+            with pytest.raises(ValueError, match="must be given explicitly"):
+                _bypass_cases()[case]()
+        else:
+            _bypass_cases()[case]()
+    assert len(taken) == 1
+    (request,) = tracer.host_records()
+    assert request.rows_batched == 0 and tracer.summary()["host"]["rows_batched"] == 0
+
+
+def test_the_cell_s_collection_counts_two_batched_bundles_an_update(monkeypatch, tracer):
+    """``MultiTenantCollection([Accuracy, macro P/R/F1])`` on float
+    probabilities: both bundles take the batched rows on every update, and
+    the states equal those of the vmap route."""
+    coll = T.MultiTenantCollection(_members(T, **CPU), 6, **CPU)
+    oracle = T.MultiTenantCollection(_members(T, **CPU), 6, **CPU)
+    oracle.build()
+    for km in oracle._keyed.values():
+        km._child._row_states = lambda *a, **k: None
+    rng = np.random.RandomState(14)
+    batches = [(rng.randint(0, 6, 32),) + _probs_batch(rng, rows=32, c=C) for _ in range(3)]
+    monkeypatch.setattr(tstacked, "_vmapped_rows", _no_vmap)
+    for batch in batches:
+        coll.update(*(_t(x) for x in batch))
+    monkeypatch.undo()
+    requests = tracer.host_records()
+    assert [r.rows_batched for r in requests] == [2, 2, 2]
+    assert tracer.summary()["host"]["rows_batched"] == 6
+    for batch in batches:
+        oracle.update(*(_t(x) for x in batch))
+    assert [r.rows_batched for r in tracer.host_records()[3:]] == [0, 0, 0]
+    for owner, km in oracle._keyed.items():
+        for name, value in km._get_states().items():
+            assert torch.equal(getattr(coll._keyed[owner], name), value), (owner, name)
+
+
+def test_a_compiled_keyed_update_takes_the_batched_rows_and_equals_the_eager_one(monkeypatch, tracer):
+    rng = np.random.RandomState(15)
+    batches = [(rng.randint(0, 6, 24),) + _probs_batch(rng, rows=24, c=C) for _ in range(3)]
+    compiled = T.MultiTenantCollection(_members(T, **CPU), 6, **CPU)
+    eager = T.MultiTenantCollection(_members(T, **CPU), 6, **CPU)
+    monkeypatch.setattr(tstacked, "_vmapped_rows", _no_vmap)
+    compiled.warmup(*(_t(x) for x in batches[0]))
+    for batch in batches:
+        compiled.update(*(_t(x) for x in batch))
+        eager.update(*(_t(x) for x in batch))
+    # inside the compiled program's run nothing is recorded; its capture traced each bundle's child once
+    assert [(r.attrs["path"], r.rows_batched) for r in tracer.host_records()] == [("compiled", 0), ("eager", 2)] * 3
+    counters = tobs.snapshot()["metrics"]
+    assert [counters[km._child.telemetry_key]["counters"]["update_traces"] for km in compiled._keyed.values()] == [1, 1]
+    for owner, km in eager._keyed.items():
+        for name, value in km._get_states().items():
+            assert torch.equal(getattr(compiled._keyed[owner], name), value), (owner, name)
+    assert compiled._keyed_update_fn.cache_info()["hits"] == 3
 
 
 # ---------------------------------------------------------------- state carried across, sync
