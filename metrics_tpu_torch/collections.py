@@ -155,14 +155,21 @@ class MetricCollection:
         return out
 
     def update(self, *args: Any, **kwargs: Any) -> None:
+        """Update every member with this batch: each shared-update class
+        computes its deltas once (:meth:`_shared_deltas`), the other members
+        update alone. The host span ``collection.update`` and its phases
+        (``observability/tracing.py``) time it."""
         self._check_input_device(args, kwargs)
-        with self._keeping_groups():
+        request = TRACER.span("collection.update", path="eager", members=len(self._metrics))
+        with request, self._keeping_groups():
             shared = self._shared_deltas(args, kwargs)
+            request.note(shared_members=len(shared))
             for name, m in self.items(keep_base=True):
-                if name in shared:
-                    m._update_from_deltas(*shared[name])
-                else:
-                    m.update(*args, **m._filter_kwargs(**kwargs))
+                with TRACER.phase("member_update"):
+                    if name in shared:
+                        m._update_from_deltas(*shared[name])
+                    else:
+                        m.update(*args, **m._filter_kwargs(**kwargs))
 
     def _class_groups(self) -> Dict[Tuple, list]:
         """Member names per shared-update equivalence key (insertion order)."""
@@ -188,7 +195,7 @@ class MetricCollection:
             if len(names) < 2:
                 continue
             rep = self._metrics[names[0]]
-            with compiled_scope(f"{type(rep).__name__}.shared_update"):
+            with TRACER.phase("shared_update"), compiled_scope(f"{type(rep).__name__}.shared_update"):
                 value = rep._batch_deltas(*args, **rep._filter_kwargs(**kwargs))
             for name in names:
                 deltas[name] = value

@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 
 from metrics_tpu_torch.kernels.confusion_matrix import confmat_counts_stacked
+from metrics_tpu_torch.observability.tracing import TRACER
 from metrics_tpu_torch.utilities.checks import _input_format_classification
 from metrics_tpu_torch.utilities.data import Tensor, _is_traced, to_host
 from metrics_tpu_torch.utilities.enums import DataType
@@ -40,12 +41,14 @@ def _confusion_matrix_update(
         return confmat.to(torch.int32)
 
     # the kernel drops out-of-bounds pairs; fail loudly on the host instead
-    # (one transfer for both maxima); under a trace no value can be read and
-    # the check skips, as the JAX package's does (``confusion_matrix.py:62``)
+    # (one transfer for both maxima; the ``checks`` phase of an open host
+    # request); under a trace no value can be read and the check skips, as
+    # the JAX package's does (``confusion_matrix.py:62``)
     if preds.numel() and not _is_traced(preds, target):
-        hi = int(to_host(torch.stack([preds.amax(), target.amax()]).amax()))
-        if hi >= num_classes:
-            raise ValueError(f"Detected class label {hi} but `num_classes={num_classes}`")
+        with TRACER.phase("checks"):
+            hi = int(to_host(torch.stack([preds.amax(), target.amax()]).amax()))
+            if hi >= num_classes:
+                raise ValueError(f"Detected class label {hi} but `num_classes={num_classes}`")
     return confmat_counts_stacked(preds.reshape(-1), target.reshape(-1), num_classes)
 
 

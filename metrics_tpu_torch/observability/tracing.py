@@ -84,9 +84,24 @@ canonicalization, the lock, setting the states, the telemetry. Inside a
 compiled program's run (a CUDA-graph capture on the card, every call on
 the CPU) a span records nothing, so a compiled keyed update is a request
 with ``path="compiled"``, no phase but its own and ``rows_batched`` 0.
-``Metric`` and ``MetricCollection`` open no host span: their
-``metrics/<Metric>.<phase>`` ranges stay profiler-only, and a child's
-``metrics/<Metric>.update`` range nests under ``row_states`` in either form.
+
+The eager ``MetricCollection.update`` is a request of its own,
+``collection.update`` (attrs ``path`` ``"eager"``, ``members`` and
+``shared_members``, the members fed a shared-update class's deltas).
+Inside it: ``shared_update`` (each shared-update class's
+``_batch_deltas``: the canonicalization and the B1 or B2 launch),
+``member_update`` (each member updated alone, and each member's
+``_update_from_deltas``), ``checks`` (the input checks where they run:
+``utilities/checks.py::_check_inputs_with_ranges`` and the confusion
+matrix's label range, wherever values can be read) and ``host_read``; its
+own phase holds the rest (the group bookkeeping and the loop). These inner
+spans are phases (:meth:`SpanTracker.phase`): each is a part of the request
+open on this thread and nothing else, so a ``Metric`` updated on its own
+records no request for them, and a keyed update, whose ``checks`` span
+already holds the input checks, keeps exactly its phases.
+``Metric`` opens no host span of its own: its ``metrics/<Metric>.<phase>``
+ranges stay profiler-only, and a child's ``metrics/<Metric>.update`` range
+nests under ``row_states`` in either form.
 
 The host-read counter sees the reads written as ``to_host``: every
 ``.tolist()``, ``.item()`` and ``.numpy()`` of the package and every
@@ -104,7 +119,7 @@ and counts it, as the collective ledger is; ``summary()["host"]`` gives
 its ``capacity``, ``size``, ``recorded``, ``dropped`` and the
 ``host_reads`` and ``rows_batched`` totals, and :meth:`SpanTracker.clear`
 empties both rings.
-Off, a span costs a method call and two flag reads; on, a span inside a
+Off, a span costs a method call and two flag reads, a phase one; on, a span inside a
 request costs two clock reads and a dict update, a request one more record
 and one append under the lock (``scripts/torch_span_cost.py``).
 """
@@ -428,6 +443,18 @@ class SpanTracker:
             return _Span(self, name, attrs)
         if torch._C._autograd._profiler_enabled():
             return _Span(None, name, attrs)
+        return _NULL_SPAN
+
+    def phase(self, name: str) -> _NullSpan:
+        """A host span ``name`` that is only ever a part of a request: inside
+        a request open on this thread, and not directly inside a span of its
+        own name, it is :meth:`span`; anywhere else (no request open, the
+        tracker disabled, which with a profiler running too opens no range)
+        it is the shared null context."""
+        if self._enabled:
+            stack = self._stack.open
+            if stack and stack[-1].name != name:
+                return _Span(self, name, {})
         return _NULL_SPAN
 
     def _open_host(self, span: _Span) -> None:

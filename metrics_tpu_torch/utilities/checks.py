@@ -35,6 +35,7 @@ from typing import Any, Optional, Tuple, Union
 
 import torch
 
+from metrics_tpu_torch.observability.tracing import _NULL_SPAN, TRACER
 from metrics_tpu_torch.utilities.data import Tensor, _is_traced, select_topk, to_host, to_onehot
 from metrics_tpu_torch.utilities.enums import DataType
 
@@ -219,36 +220,38 @@ def _check_inputs_with_ranges(
     for both inside a traced program or without ``read_values``, where the
     value checks are skipped)."""
     traced = not read_values or _is_traced(preds, target)
-    t_range = None if traced else _host_range(target)
-    p_range = None if traced or preds.is_floating_point() else _host_range(preds)
+    # the value and shape checks: the ``checks`` phase of an open host request
+    with (_NULL_SPAN if traced else TRACER.phase("checks")):
+        t_range = None if traced else _host_range(target)
+        p_range = None if traced or preds.is_floating_point() else _host_range(preds)
 
-    _basic_input_validation(preds, target, multiclass, t_range, p_range)
+        _basic_input_validation(preds, target, multiclass, t_range, p_range)
 
-    case, implied_classes = _check_shape_and_type_consistency(preds, target, t_range)
+        case, implied_classes = _check_shape_and_type_consistency(preds, target, t_range)
 
-    if preds.shape != target.shape:
-        if multiclass is False and implied_classes != 2:
-            raise ValueError(
-                "You have set `multiclass=False`, but have more than 2 classes in your data,"
-                " based on the C dimension of `preds`."
-            )
-        if t_range is not None and t_range[1] >= implied_classes:
-            raise ValueError(
-                "The highest label in `target` should be smaller than the size of the `C` dimension of `preds`."
-            )
+        if preds.shape != target.shape:
+            if multiclass is False and implied_classes != 2:
+                raise ValueError(
+                    "You have set `multiclass=False`, but have more than 2 classes in your data,"
+                    " based on the C dimension of `preds`."
+                )
+            if t_range is not None and t_range[1] >= implied_classes:
+                raise ValueError(
+                    "The highest label in `target` should be smaller than the size of the `C` dimension of `preds`."
+                )
 
-    if num_classes:
-        if case == DataType.BINARY:
-            _check_num_classes_binary(num_classes, multiclass)
-        elif case in (DataType.MULTICLASS, DataType.MULTIDIM_MULTICLASS):
-            _check_num_classes_mc(preds, target, num_classes, multiclass, implied_classes, t_range, p_range)
-        elif case == DataType.MULTILABEL:
-            _check_num_classes_ml(num_classes, multiclass, implied_classes)
+        if num_classes:
+            if case == DataType.BINARY:
+                _check_num_classes_binary(num_classes, multiclass)
+            elif case in (DataType.MULTICLASS, DataType.MULTIDIM_MULTICLASS):
+                _check_num_classes_mc(preds, target, num_classes, multiclass, implied_classes, t_range, p_range)
+            elif case == DataType.MULTILABEL:
+                _check_num_classes_ml(num_classes, multiclass, implied_classes)
 
-    if top_k is not None:
-        _check_top_k(top_k, case, implied_classes, multiclass, preds.is_floating_point())
+        if top_k is not None:
+            _check_top_k(top_k, case, implied_classes, multiclass, preds.is_floating_point())
 
-    return case, t_range, p_range
+        return case, t_range, p_range
 
 
 def _check_classification_inputs(

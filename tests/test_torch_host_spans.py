@@ -16,6 +16,14 @@ host-read counter (``utilities/data.py::to_host``).
   trace too, and the records say ``profiled``.
 * The rings are bounded deques that count what they drop; the collective
   ledger (``records()``) and the event log do not change with host spans.
+* One eager ``MetricCollection.update`` is one request,
+  ``collection.update``, holding a ``shared_update`` span per shared-update
+  class, a ``member_update`` span per member, and ``checks`` and
+  ``host_read`` spans where they run; its ``shared_members`` attr counts
+  the members fed shared deltas. Its inner spans are phases
+  (``TRACER.phase``): outside a request, disabled, or directly inside a
+  span of their own name they record nothing, so a keyed update keeps
+  exactly its phases and a compiled ``update_many`` records nothing.
 """
 import ast
 import json
@@ -419,3 +427,104 @@ def test_every_host_read_goes_through_to_host():
 def test_the_scan_finds_a_stray_read(read, found, tmp_path):
     (tmp_path / "mod.py").write_text(f"def f(t):\n    def g():\n        return {read}\n    return g\n")
     assert _reads_outside_to_host(tmp_path) == ([("mod.py", "g", read, 3)] if found else [])
+
+
+# -- the eager collection update -----------------------------------------------------
+
+COLLECTION_PHASES = {"collection.update", "checks", "shared_update", "member_update", "host_read"}
+
+
+def _nine():
+    """The nine-member ImageNet-style collection at ``NC`` classes."""
+    macro = dict(average="macro", num_classes=NC, **CPU)
+    return T.MetricCollection({
+        "Accuracy": T.Accuracy(**CPU), "Precision": T.Precision(**macro), "Recall": T.Recall(**macro),
+        "F1": T.F1(**macro), "Specificity": T.Specificity(**macro),
+        "ConfusionMatrix": T.ConfusionMatrix(NC, **CPU), "IoU": T.IoU(NC, **CPU),
+        "CohenKappa": T.CohenKappa(NC, **CPU), "MatthewsCorrcoef": T.MatthewsCorrcoef(NC, **CPU),
+    })
+
+
+def _two():
+    """Two members, no shared-update class between them."""
+    return T.MetricCollection({"Accuracy": T.Accuracy(**CPU), "ConfusionMatrix": T.ConfusionMatrix(NC, **CPU)})
+
+
+# collection, members, shared members, shared-update classes, host reads an update
+# (Accuracy reads the target range twice, a stat-scores class once, a
+# confusion-matrix class twice: the range and the label maximum)
+@pytest.mark.parametrize("build, members, shared, classes, reads", [(_nine, 9, 8, 2, 5), (_two, 2, 0, 0, 4)])
+def test_an_eager_collection_update_is_one_request_with_its_phases(build, members, shared, classes, reads,
+                                                                    monkeypatch):
+    read_calls = Counter()
+    for form in READ_FORMS:
+        def counted(self, *a, _read=getattr(torch.Tensor, form), _form=form, **k):
+            read_calls[_form] += 1
+            return _read(self, *a, **k)
+
+        monkeypatch.setattr(torch.Tensor, form, counted)
+    coll = build()
+    for seed in range(3):
+        coll.update(*_batch(seed)[1:])
+    requests = tobs.TRACER.host_records()
+    assert [r.request for r in requests] == [f"collection.update|{i}" for i in range(3)]
+    for r in requests:
+        assert set(r.phases) == COLLECTION_PHASES - ({"shared_update"} if not classes else set())
+        assert r.attrs == {"path": "eager", "members": members, "shared_members": shared}
+        # the request, a span a shared class, a span a member, and a checks and a host_read span a read
+        assert r.spans == 1 + classes + members + 2 * reads
+        assert sum(r.phases.values()) == pytest.approx(r.exit_s - r.enter_s, rel=1e-9, abs=1e-12)
+        assert all(v >= 0 for v in r.phases.values())
+        assert not r.profiled and r.thread == threading.get_ident()
+    # every read of a value is a to_host read, counted in its request
+    assert read_calls == Counter(tolist=3 * reads)
+    assert [r.host_reads for r in requests] == [reads] * 3
+    assert tobs.TRACER.summary()["host"]["host_reads"] == 3 * reads
+
+
+def test_a_phase_is_only_ever_a_part_of_a_request():
+    tracker = SpanTracker()
+    null = tracing._NULL_SPAN
+    assert tracker.phase("a") is null  # no request open
+    with tracker.span("outer"):
+        with tracker.phase("a"):
+            with tracker.phase("a") as inner:  # directly inside its own name
+                assert inner is null
+            with tracker.phase("b"):
+                pass
+    (request,) = tracker.host_records()
+    assert set(request.phases) == {"outer", "a", "b"} and request.spans == 3
+    tracker.disable()
+    with tracker.span("outer"):
+        assert tracker.phase("a") is null
+    assert len(tracker.host_records()) == 1
+
+
+def test_nothing_is_recorded_disabled_or_inside_a_compiled_update_many():
+    coll = _nine()
+    _, preds, target = _batch()
+    tobs.disable()
+    coll.update(preds, target)
+    assert tobs.TRACER.host_records() == []
+    tobs.enable()
+    stacked = (torch.stack([preds] * 3), torch.stack([target] * 3))
+    coll.update_many(*stacked)
+    assert tobs.TRACER.host_records() == []
+    # inside a request of the caller's, the program's run adds no phase to it
+    with tobs.TRACER.span("caller"):
+        coll.update_many(*stacked)
+    (request,) = tobs.TRACER.host_records()
+    assert set(request.phases) == {"caller"} and request.spans == 1 and request.host_reads == 0
+
+
+def test_a_keyed_update_of_the_nine_members_keeps_exactly_its_phases():
+    keyed = _nine().keyed(TENANTS, validate_ids=False)
+    keyed.update(*_batch())
+    request = _request()
+    assert set(request.phases) == {"keyed.update"} | PHASES
+    # checks, row_states and scatter a bundle, and a host_read a read (the
+    # Accuracy and the stat-scores bundles read their target range; the
+    # confusion matrix's checks run under the vmap, which reads nothing)
+    assert request.attrs == {"bundles": 3, "path": "eager", "rows": ROWS}
+    assert request.host_reads == 2 and request.spans == 1 + 3 * 3 + 2
+
