@@ -59,8 +59,8 @@ Phases, in order; any failure exits non-zero before the last line:
    card, ``validate_ids=False``; 50 ``update`` calls of 4096-row mixed
    batches (float32 softmax rows, int64 targets, tenant ids uniform in
    [0, 10000); the last batch holds 3000 real rows padded with id -1 and
-   zero rows), then ``compute()``. B3 must launch once per bundle per update
-   (100), B4 max once per update (50), B1 once per update (50: the macro
+   zero rows), then ``compute()``. The merge must launch once per update
+   (50, both bundles' eleven leaves), B3 and B4 never, B1 once per update (50: the macro
    bundle's (4096, 1, 10) stack of rows, in its short-slice layout), B2
    never; every multiclass row
    has one true class, so the Accuracy bundle's tp + fn over all tenants
@@ -98,7 +98,7 @@ Phases, in order; any failure exits non-zero before the last line:
    first pass, ``reset()``, and counted in a second: states == 49 eager
    updates, B1 49, B2 49. (b) Phase 3b's keyed collection: ``warmup``, then
    ``update_many`` with K = 5 ten times over the 50 cohorts (captured by a
-   first call, then ``reset()``): B3 100, B4 50, B1 50, stacked states and the
+   first call, then ``reset()``): the merge 50, B1 50, B3 and B4 none, stacked states and the
    tenant report (all but its clock) == the eager updates'; then the
    compiled ``update`` after ``warmup`` against the eager one, call by call
    (medians, states equal, synchronizing calls of one update). (c) Phase
@@ -167,8 +167,8 @@ Phases, in order; any failure exits non-zero before the last line:
    every cohort resident before the flusher starts, so that each flush
    prefetches the next cohort on the staging lane (prefetched cohorts must
    be > 0): the stacked states must equal
-   phase 3b's exactly and the values within 1e-6, 50 flushes, B3 100, B4
-   max 50 and B1 50 launches per path, 1096 ``invalid_tenant_ids`` (the last flush padded
+   phase 3b's exactly and the values within 1e-6, 50 flushes, the merge 50
+   and B1 50 launches per path (B3 and B4 none), 1096 ``invalid_tenant_ids`` (the last flush padded
    3000 -> 4096), ``rows_routed`` = 49 * 4096 + 3000, both conservation
    laws, no ``dispatch_error``; under the sync debug mode a staged flush
    makes exactly the synchronizing calls of a direct ``update`` of the same
@@ -189,7 +189,7 @@ Phases, in order; any failure exits non-zero before the last line:
    window (profiler). At
    drain: both conservation laws exactly, submitted - shed == the tenant
    report's ``rows_routed``, the ``serving.*`` counters == the queue's
-   ledger, no ``dispatch_error`` and no ``_last_error``, B3 and B4 max
+   ledger, no ``dispatch_error`` and no ``_last_error``, the merge
    launched once per flush, and the keyed state == a CPU ``KeyedMetric``
    updated in one call with every cohort the scheduler dispatched.
    (c) ``compute_async()`` of the ImageNet-1k collection after 25 of its 49
@@ -218,11 +218,11 @@ Phases, in order; any failure exits non-zero before the last line:
    100 eager updates. (b) ``MultiTenantCollection([MSE, MAE,
    PearsonCorrcoef(streaming=True)], 10,000)`` over phase 3b's 50 cohorts of
    tenant ids with seeded pairs on a 2^-8 grid (every per-tenant sum of one
-   update exact in any order): B3 once per bundle per update (150), one
+   update exact in any order): the merge once per update (50), one
    plain ``index_add_`` per bundle per update for the int64 and float64
    leaves (150); the stacked states equal the CPU run's exactly and a float64
    per-tenant numpy oracle (float32 leaves within 1e-5, the others exactly);
-   then ``warmup`` + ``update_many`` (K = 5): states equal, B3 150 through
+   then ``warmup`` + ``update_many`` (K = 5): states equal, the merge 50 through
    the replays; the update median beside phase 3b's. (c) 50 batches of 16 x
    3 x 512 x 512 images (preds = target + N(0, 0.05) clipped to [0, 1])
    through ``SSIM(streaming=True, data_range=1.0)`` and
@@ -251,10 +251,10 @@ Phases, in order; any failure exits non-zero before the last line:
    the sampled MAP within 0.05 of (a)'s. (d) ``MultiTenantCollection(
    [RetrievalMAP, RetrievalMRR, RetrievalNormalizedDCG(k=10)](padded=True),
    10,000)``: 50 updates of 4096 query rows x 100 candidates, tenant ids
-   uniform (the last update 3000 real rows, padded with id -1): B3 once per
-   bundle per update (150), B1, B2, B4, B5 never; ``query_total`` == the
+   uniform (the last update 3000 real rows, padded with id -1): the merge
+   once per update (50), B1-B5 never; ``query_total`` == the
    CPU's exactly, ``value_sum`` and the per-tenant values within rtol = atol
-   = 1e-5; then ``warmup`` + ``update_many`` (K = 5), B3 150 through the
+   = 1e-5; then ``warmup`` + ``update_many`` (K = 5), the merge 50 through the
    replays. ``retrieval_phase_main()`` runs 3k alone.
 3l. The small metrics of the last slice (after 3k). (a) Speech separation
    evaluation shaped like the WSJ0-2mix test set: 3000 mixtures x 2 sources
@@ -265,8 +265,8 @@ Phases, in order; any failure exits non-zero before the last line:
    float64 numpy oracle; no kernel; per-forward medians and the idle share.
    (b) ``MultiTenantCollection([SI_SDR(), SNR()], 10,000)`` over the last 20
    of phase 3b's cohorts of tenant ids, one 1 s clip at 16 kHz a row (262 MB
-   of preds and of targets an update): B3 once per bundle per update (40),
-   B1, B2, B4, B5 never; the int32 counts == the CPU's exactly, the sums and
+   of preds and of targets an update): the merge once per update (20),
+   B1-B5 never; the int32 counts == the CPU's exactly, the sums and
    per-tenant values within 1e-5 relative. (c) BLEU over 3003
    newstest2014-shaped pairs (5-80 tokens from a Zipf vocabulary of 32,000,
    30% of each hypothesis replaced), with and without smoothing: card ==
@@ -313,7 +313,7 @@ Phases, in order; any failure exits non-zero before the last line:
    0 synchronizing calls in 10 forwards, two captures of one B1 and one B2
    launch each (phase 3i's). Health on over off, call by call over 2 x 49
    forwards (medians, ratio). (b) Phase 3j-b's keyed regression collection
-   with one NaN pred in cohort 20, eager and after ``warmup``: B3 150 each;
+   with one NaN pred in cohort 20, eager and after ``warmup``: the merge 50 each;
    three health events (one per member, naming its states), at the step of
    cohort 20 eager and at most one dispatch later compiled; then the same
    cohorts through ``AdmissionQueue(quarantine="auto")``: the NaN row shed
@@ -335,7 +335,7 @@ Phases, in order; any failure exits non-zero before the last line:
    delta stamps exactly those 64, its payload <= full * 64 / 4096 + 256),
    one ``save_async`` while 256-row updates land (their synchronizing calls
    == as many as without a save in flight), B2's batched form (the keyed
-   rows' counts, one launch for an update's rows) and B3 one launch an
+   rows' counts, one launch for an update's rows) and the merge one launch an
    update, B2's batched form held against its plain version at the keyed
    rows' shapes and a bootstrap's (20, 1024, 1000) and timed (wrapper,
    device, bound, plain and ``bincount``); the
@@ -345,7 +345,7 @@ Phases, in order; any failure exits non-zero before the last line:
    Phase 3b's collection saved after 25 cohorts, its owner dropped, restored
    into a new owner (eager, and compiled with the restore taking the graph's
    copy-in path), the last 25 cohorts: states == the uninterrupted run
-   exactly, B3 100 and B4 50 each; ``grow(20,000)`` and ``compact(10,000)``
+   exactly, the merge 50 each (B3 and B4 none); ``grow(20,000)`` and ``compact(10,000)``
    under the compiled update == an eager twin, one capture per capacity, the
    ledger's bytes == the states' ``nbytes``. (c) The spill capture
    (``bench_suite.py:2166-2240``): ``KeyedMetric(Accuracy())`` over 2,048
@@ -372,14 +372,14 @@ Phases, in order; any failure exits non-zero before the last line:
    3o). (a) ``KeyedMetric(AUROC(sketched=True))`` over 10,000 tenants (2048
    bins over (0, 1); a 164 MB state): phase 3b's 50 cohorts of tenant ids
    with the binary stream's scores and labels, 4096 at a time, then
-   ``compute()``: B5 batched 50 (one (4096, 1, 1) stack an update), B3 50,
+   ``compute()``: B5 batched 50 (one (4096, 1, 1) stack an update), the merge 50,
    no plain B5 dispatch; states == the CPU run's exactly, values within
    1e-6; four tenants' AUROC == their own rows' unkeyed sketched AUROC on
    the card; the idle share of ten updates. (b) ``KeyedMetric(AUROC(
    num_classes=10, sketched=True))`` (a 1.64 GB state) over the first 10 of
-   phase 3b's cohorts, cut for the CPU twin's time: B5 10 (class ids), B3
-   10, == CPU. (c) (a) under ``warmup`` + ``update_many`` (K = 5, captured
-   by a first call, then ``reset()``): B5 50 and B3 50 through the replays,
+   phase 3b's cohorts, cut for the CPU twin's time: B5 10 (class ids), the
+   merge 10, == CPU. (c) (a) under ``warmup`` + ``update_many`` (K = 5, captured
+   by a first call, then ``reset()``): B5 50 and the merge 50 through the replays,
    states == (a)'s. (d) ``BootStrapper(AUROC(num_classes=1000,
    sketched=True), 20)`` through ``init_state``/``apply_update``/
    ``apply_compute`` over 5 ImageNet-1k batches: B5 5 (one (20, 1024, 1000)
@@ -396,8 +396,19 @@ Phases, in order; any failure exits non-zero before the last line:
    the bound is kept apart and the graph's time reported as the device
    time. ``sketched_keyed_phase_main()``
    runs 3p alone.
-5. One JSON line ``{"kernels": [...]}`` (the five kernels, then the batched
-   forms of B1, B5 and B2 as entries of their own), the card line again,
+3q. The merge (``segment_merge``, the keyed update's one launch over every
+   int32/float32 leaf): at the keyed path's shapes (4096 rows, 10,000
+   tenants, the eleven leaves of phase 3b's two bundles, rows strided and
+   broadcast, non-zero defaults, int32 and float32, int64 and int32 ids)
+   the kernel == its plain version bit for bit; phase 3b's real leaves ==
+   the plain version == the per-leaf chain through B3 and B4 that it
+   replaced; a keyed regression bundle's float32 sums within rtol 1e-6 and
+   its int32 count exactly; phase 3b's collection eager and compiled: the
+   merge 50 launches each, B3 and B4 none; times of the merge against the
+   chain (CUDA events, device, a replayed graph, host time a call). Alone:
+   ``chip_smoke.merge_phase_main(path)``.
+5. One JSON line ``{"kernels": [...]}`` (the five kernels, the merge, then
+   the batched forms of B1, B5 and B2 as entries of their own), the card line again,
    and, last, ``{"ok": true, "device": {...}}``.
 
 With ``--record PATH`` the full record (every parity case, every forward's
@@ -950,8 +961,7 @@ def compiled_phase(torch, M, dev, card) -> dict:
         keyed_many_ms.append((time.perf_counter() - t0) * 1e3)
     keyed_launches = {op: _common.launch_count(op) for op in KERNEL_OPS}
     want_launches = {op: 0 for op in KERNEL_OPS}
-    want_launches.update(segment_scatter_add=2 * KEYED_UPDATES, segment_scatter_max=KEYED_UPDATES,
-                         stat_scores_counts=KEYED_UPDATES)
+    want_launches.update(segment_merge=KEYED_UPDATES, stat_scores_counts=KEYED_UPDATES)
     if keyed_launches != want_launches:
         fail(f"[compiled] keyed update_many launched {keyed_launches}, expected {want_launches}")
     for owner, km in keyed_ref._keyed.items():
@@ -1574,7 +1584,7 @@ def profile_steps(torch, step, inputs):
 
 
 KERNEL_OPS = ("stat_scores_counts", "confmat_counts", "segment_scatter_add", "segment_scatter_max",
-              "segment_scatter_min", "label_score_histograms")
+              "segment_scatter_min", "label_score_histograms", "segment_merge")
 
 
 def check_telemetry(phase, pairs):
@@ -1687,9 +1697,10 @@ def serving_replay(torch, M, dev, keyed_batches, keyed_gpu, keyed_out, direct_ms
                 q.flush()
                 torch.cuda.synchronize()
                 flush_ms.append((time.perf_counter() - start) * 1e3)
-        launches = {op: _common.launch_count(op) for op in ("segment_scatter_add", "segment_scatter_max",
-                                                           "segment_scatter_min", "stat_scores_counts")}
-        want = {"segment_scatter_add": 2 * KEYED_UPDATES, "segment_scatter_max": KEYED_UPDATES,
+        launches = {op: _common.launch_count(op) for op in ("segment_merge", "segment_scatter_add",
+                                                           "segment_scatter_max", "segment_scatter_min",
+                                                           "stat_scores_counts")}
+        want = {"segment_merge": KEYED_UPDATES, "segment_scatter_add": 0, "segment_scatter_max": 0,
                 "segment_scatter_min": 0, "stat_scores_counts": KEYED_UPDATES}
         if launches != want:
             fail(f"[replay {path}] launches {launches}, expected {want}")
@@ -1869,8 +1880,8 @@ def serving_soak(torch, M, dev, staging, card, seconds: float = SOAK_SECONDS) ->
     if serving["shed_by_reason"] != stats["shed_by_reason"]:
         fail(f"[{label}] serving.shed_by_reason {serving['shed_by_reason']} != {stats['shed_by_reason']}")
     window_flushes = stats["flushes"] - flushes_before
-    launches = {op: _common.launch_count(op) for op in ("segment_scatter_add", "segment_scatter_max")}
-    if launches != {"segment_scatter_add": window_flushes, "segment_scatter_max": window_flushes}:
+    launches = {op: _common.launch_count(op) for op in ("segment_merge", "segment_scatter_add", "segment_scatter_max")}
+    if launches != {"segment_merge": window_flushes, "segment_scatter_add": 0, "segment_scatter_max": 0}:
         fail(f"[{label}] launches {launches} over {window_flushes} flushes")
     svc.close(timeout=30)
     # the keyed state == a CPU KeyedMetric given every dispatched cohort in one update
@@ -2241,10 +2252,10 @@ def _regression_keyed(torch, np, M, dev, card, _common, keyed_batches, keyed_upd
     launches = {op: _common.launch_count(op) for op in KERNEL_OPS}
     plain = _common.dispatch_count("segment_scatter_add", "plain")
     bundles = kgpu.state_bundles
-    expected = {op: (bundles * KEYED_UPDATES if op == "segment_scatter_add" else 0) for op in KERNEL_OPS}
+    expected = {op: (KEYED_UPDATES if op == "segment_merge" else 0) for op in KERNEL_OPS}
     if launches != expected or plain != bundles * KEYED_UPDATES:
         fail(f"[keyed regression] launches {launches} and {plain} plain scatters, expected {expected} and "
-             f"{bundles * KEYED_UPDATES}: one B3 launch and one plain scatter per bundle per update")
+             f"{bundles * KEYED_UPDATES}: one merge launch an update and one plain scatter per bundle per update")
     kcpu = build("cpu")
     for ids, preds, target in cohorts:
         kcpu.update(ids.cpu(), preds.cpu(), target.cpu())
@@ -2301,17 +2312,18 @@ def _regression_keyed(torch, np, M, dev, card, _common, keyed_batches, keyed_upd
         kmany.update_many(*stacked)
     torch.cuda.synchronize()
     many_ms = (time.perf_counter() - t0) * 1e3 / KEYED_UPDATES
-    many_launches = _common.launch_count("segment_scatter_add")
-    if many_launches != bundles * KEYED_UPDATES:
-        fail(f"[keyed regression] B3 launched {many_launches} times through the update_many replays, expected "
-             f"{bundles * KEYED_UPDATES}")
+    many_launches = _common.launch_count("segment_merge")
+    if many_launches != KEYED_UPDATES:
+        fail(f"[keyed regression] the merge launched {many_launches} times through the update_many replays, "
+             f"expected {KEYED_UPDATES}")
     for owner, km in kgpu._keyed.items():
         _states_equal(torch, f"keyed regression update_many {owner}", kmany._keyed[owner], km)
     print(f"[keyed regression] MultiTenantCollection([MSE, MAE, Pearson(streaming)], {KEYED_TENANTS}) on {card}: "
           f"{KEYED_UPDATES} updates of {KEYED_ROWS} rows, median {statistics.median(k_ms):.3f} ms (phase 3b's keyed "
           f"update {keyed_update_ms:.3f} ms); {bundles} bundles; launches {launches}, {plain} plain scatters "
           f"(leaf dtypes {dtypes}); states == CPU exactly and == float64 oracle (float32 leaves within 1e-5, the "
-          f"others exactly); update_many K = 5 {many_ms:.3f} ms a cohort, B3 {many_launches} through the replays, "
+          f"others exactly); update_many K = 5 {many_ms:.3f} ms a cohort, the merge {many_launches} through the "
+          "replays, "
           f"states == eager")
     record["keyed"] = {"update_ms": k_ms, "keyed_3b_median_ms": keyed_update_ms, "launches": launches,
                        "plain_scatters": plain, "bundles": bundles, "leaf_dtypes": dtypes,
@@ -2714,8 +2726,8 @@ def build_keyed_retrieval(M, device):
 
 
 def _retrieval_keyed(torch, M, dev, card, _common, record) -> None:
-    """Phase 3k-d: per-tenant ranking quality over 10,000 tenants: B3 once
-    per bundle per update, no other kernel; the stacked states and the
+    """Phase 3k-d: per-tenant ranking quality over 10,000 tenants: the merge
+    once per update, no other kernel; the stacked states and the
     per-tenant values against the CPU; then ``update_many``."""
     cohorts = make_keyed_retrieval(torch, dev)
     kgpu = build_keyed_retrieval(M, dev)
@@ -2729,10 +2741,10 @@ def _retrieval_keyed(torch, M, dev, card, _common, record) -> None:
         k_ms.append((time.perf_counter() - t0) * 1e3)
     launches = {op: _common.launch_count(op) for op in KERNEL_OPS}
     bundles = kgpu.state_bundles
-    expected = {op: (bundles * KEYED_UPDATES if op == "segment_scatter_add" else 0) for op in KERNEL_OPS}
+    expected = {op: (KEYED_UPDATES if op == "segment_merge" else 0) for op in KERNEL_OPS}
     if bundles != 3 or launches != expected:
-        fail(f"[retrieval keyed] {bundles} bundles, launches {launches}, expected 3 and {expected}: one B3 launch "
-             "per bundle per update (value_sum and query_total packed), no other kernel")
+        fail(f"[retrieval keyed] {bundles} bundles, launches {launches}, expected 3 and {expected}: one merge "
+             "launch an update (every bundle's value_sum and query_total), no other kernel")
     kcpu = build_keyed_retrieval(M, "cpu")
     for ids, preds, target in cohorts:
         kcpu.update(ids.cpu(), preds.cpu(), target.cpu())
@@ -2770,10 +2782,10 @@ def _retrieval_keyed(torch, M, dev, card, _common, record) -> None:
         kmany.update_many(*stacked)
     torch.cuda.synchronize()
     many_ms = (time.perf_counter() - t0) * 1e3 / KEYED_UPDATES
-    many_launches = _common.launch_count("segment_scatter_add")
-    if many_launches != bundles * KEYED_UPDATES:
-        fail(f"[retrieval keyed] B3 launched {many_launches} times through the update_many replays, expected "
-             f"{bundles * KEYED_UPDATES}")
+    many_launches = _common.launch_count("segment_merge")
+    if many_launches != KEYED_UPDATES:
+        fail(f"[retrieval keyed] the merge launched {many_launches} times through the update_many replays, "
+             f"expected {KEYED_UPDATES}")
     for owner, km in kgpu._keyed.items():
         if not torch.equal(kmany._keyed[owner].query_total, km.query_total) or not torch.allclose(
                 kmany._keyed[owner].value_sum, km.value_sum, rtol=1e-5, atol=1e-5):
@@ -2784,7 +2796,8 @@ def _retrieval_keyed(torch, M, dev, card, _common, record) -> None:
           f"{KEYED_UPDATES} updates of {KEYED_ROWS} x {RET_KEYED_DEPTH}, median {statistics.median(k_ms):.3f} ms "
           f"(first {k_ms[0]:.3f} ms); launches {launches}; query_total == CPU exactly, value_sum within "
           f"{sum_diff:.2e}, per-tenant values within {value_diff:.2e}; update_many K = 5 {many_ms:.3f} ms a cohort, "
-          f"B3 {many_launches} through the replays; 10 updates under the profiler: wall {prof['wall_ms']:.3f} ms, "
+          f"the merge {many_launches} through the replays; 10 updates under the profiler: wall "
+          f"{prof['wall_ms']:.3f} ms, "
           f"busy {prof['device_busy_ms']:.3f} ms (idle share {idle:.3f})")
     for row in prof["top_device"][:5]:
         print(f"[retrieval keyed]   {row['device_us']:10.1f} us  {row['calls']:4d} x  {row['name']}")
@@ -2950,7 +2963,7 @@ def _speech_separation(torch, np, M, dev, card, _common, record) -> None:
 def _speech_keyed(torch, M, dev, card, _common, keyed_batches, record) -> None:
     """Phase 3l-b: per-customer speech quality: ``MultiTenantCollection([SI_SDR,
     SNR], 10,000)`` over the last 20 of phase 3b's cohorts of tenant ids, one
-    1 s clip at 16 kHz per row; B3 once per bundle per update."""
+    1 s clip at 16 kHz per row; the merge once per update."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 31)
 
@@ -2976,10 +2989,10 @@ def _speech_keyed(torch, M, dev, card, _common, keyed_batches, record) -> None:
             launches[op] += _common.launch_count(op)
         kcpu.update(ids.cpu(), preds.cpu(), target.cpu())
     bundles = kgpu.state_bundles
-    expected = {op: (bundles * SPEECH_KEYED_UPDATES if op == "segment_scatter_add" else 0) for op in KERNEL_OPS}
+    expected = {op: (SPEECH_KEYED_UPDATES if op == "segment_merge" else 0) for op in KERNEL_OPS}
     if bundles != 2 or launches != expected:
-        fail(f"[audio keyed] {bundles} bundles, launches {launches}, expected 2 and {expected}: one B3 launch per "
-             "bundle per update (the float32 sum and the int32 count packed), no other kernel")
+        fail(f"[audio keyed] {bundles} bundles, launches {launches}, expected 2 and {expected}: one merge launch "
+             "an update (each bundle's float32 sum and int32 count), no other kernel")
     sum_diff = 0.0
     for owner, km in kgpu._keyed.items():
         ref = kcpu._keyed[owner]
@@ -3801,9 +3814,9 @@ def _obs_keyed(torch, np, M, dev, card, keyed_batches, record) -> None:
         with observability.step_context(len(cohorts)):
             observability.HEALTH.drain()
         launches = {op: _common.launch_count(op) for op in KERNEL_OPS}
-        expected = {op: (3 * KEYED_UPDATES if op == "segment_scatter_add" else 0) for op in KERNEL_OPS}
+        expected = {op: (KEYED_UPDATES if op == "segment_merge" else 0) for op in KERNEL_OPS}
         if launches != expected:
-            fail(f"[observability] keyed regression {mode}: launches {launches}, expected B3 150")
+            fail(f"[observability] keyed regression {mode}: launches {launches}, expected the merge 50")
         events = health_events()[seen:]
         flagged = {e.metric: sorted(e.payload["nan"]) for e in events}
         steps = sorted({e.step for e in events})
@@ -3834,7 +3847,7 @@ def _obs_keyed(torch, np, M, dev, card, keyed_batches, record) -> None:
         q.submit_many(ids, preds, target)
         q.flush()
     torch.cuda.synchronize()
-    q_launches = _common.launch_count("segment_scatter_add")
+    q_launches = _common.launch_count("segment_merge")
     stats = check_ledger("observability queue", q, kq.tenant_report()["rows_routed"])
     q.close()
     if stats["shed_by_reason"] != {"poisoned": 1} or observability.HEALTH.summary()["unhealthy_total"] != unhealthy_before:
@@ -3851,7 +3864,8 @@ def _obs_keyed(torch, np, M, dev, card, keyed_batches, record) -> None:
     record["quarantine"] = {"shed_by_reason": stats["shed_by_reason"], "launches": q_launches,
                             "flushes": stats["flushes"]}
     print(f"[observability] the same cohorts through AdmissionQueue(quarantine='auto') with health record: shed "
-          f"{stats['shed_by_reason']}, {stats['flushes']} flushes, B3 {q_launches}; states == the CPU run over the "
+          f"{stats['shed_by_reason']}, {stats['flushes']} flushes, the merge {q_launches}; states == the CPU run "
+          "over the "
           f"clean rows exactly")
     observability.set_health_policy("off")
 
@@ -4131,10 +4145,10 @@ def _durability_checkpoint(torch, np, M, dev, card, record) -> None:
             fail(f"[checkpoint] {flight['steps']} updates during the async save made {len(update_syncs)} "
                  f"synchronizing calls, {per_update} each without one: {update_syncs[:6]}")
         launches = {op: _common.launch_count(op) for op in KERNEL_OPS}
-        if launches["segment_scatter_add"] != updates or launches["confmat_counts"] != updates or any(
-                v for op, v in launches.items() if op not in ("segment_scatter_add", "confmat_counts")):
-            fail(f"[checkpoint] launches {launches} over {updates} keyed updates (B2's batched form and B3 one "
-                 "each)")
+        if launches["segment_merge"] != updates or launches["confmat_counts"] != updates or any(
+                v for op, v in launches.items() if op not in ("segment_merge", "confmat_counts")):
+            fail(f"[checkpoint] launches {launches} over {updates} keyed updates (B2's batched form and the merge "
+                 "one each)")
         b2_batched = _b2_batched(torch, dev, [(2 * n, 1, nc), (CKPT_FLIGHT_ROWS, 1, nc),
                                               (BOOTSTRAPS, BATCH, NUM_CLASSES)])
         # restores: a fresh card metric, a CPU metric, a card metric grown to 2n
@@ -4277,7 +4291,8 @@ def _durability_collection(torch, np, M, dev, card, record) -> tuple:
             _common.reset_dispatch_counters()
             for batch in batches[:half]:
                 first.update(*batch)
-            launches = {op: _common.launch_count(op) for op in ("segment_scatter_add", "segment_scatter_max")}
+            launches = {op: _common.launch_count(op) for op in ("segment_merge", "segment_scatter_add",
+                                                               "segment_scatter_max")}
             manifest = CheckpointManager(d, first).save()
             del first
             gc.collect()
@@ -4295,8 +4310,8 @@ def _durability_collection(torch, np, M, dev, card, record) -> tuple:
                 second.update(*batch)
             for op in launches:
                 launches[op] += _common.launch_count(op)
-            if launches != {"segment_scatter_add": 2 * KEYED_UPDATES, "segment_scatter_max": KEYED_UPDATES}:
-                fail(f"[restart {mode}] launches {launches} over the 50 cohorts, phase 3b's are 100 and 50")
+            if launches != {"segment_merge": KEYED_UPDATES, "segment_scatter_add": 0, "segment_scatter_max": 0}:
+                fail(f"[restart {mode}] launches {launches} over the 50 cohorts, phase 3b's are 50 merges")
             _durable_states_equal(torch, f"restart {mode}", second, ref)
             out[mode] = {"launches": launches, "payload_bytes": manifest["payload_bytes"], "restore_ms": restore_ms}
             owner = second
@@ -4395,7 +4410,7 @@ def _durability_spill(torch, np, M, dev, card, record, owner, twin) -> None:
     _common.reset_dispatch_counters()
     for obj in (owner, twin):  # a compiled update whose tenants fault back first, under the held graph
         obj.update(*batches[2])
-    launches = {op: _common.launch_count(op) for op in ("segment_scatter_add", "segment_scatter_max")}
+    launches = {op: _common.launch_count(op) for op in ("segment_merge", "segment_scatter_add", "segment_scatter_max")}
     _sync(torch, dev)
     t0 = time.perf_counter()
     got = owner.compute()  # faults back every spilled tenant
@@ -4760,10 +4775,11 @@ def chaos_window(torch, M, dev, *, seconds: float = CHAOS_SECONDS, qps: int = CH
         CheckpointManager(ckpt_dir, fresh).restore(fresh)
         restore_ok = all(torch.equal(a, b) for a, b in zip(metric._get_states().values(),
                                                            fresh._get_states().values()))
-        launches = {op: _common.launch_count(op) for op in ("segment_scatter_add", "segment_scatter_max")}
-        # one B3 and one B4 launch a dispatch on the card (the CPU launches none)
+        launches = {op: _common.launch_count(op) for op in ("segment_merge", "segment_scatter_add",
+                                                           "segment_scatter_max")}
+        # one merge launch a dispatch on the card (the CPU launches none)
         expected = calls[0] if torch.device(dev).type == "cuda" else 0
-        launches_ok = launches == {"segment_scatter_add": expected, "segment_scatter_max": expected}
+        launches_ok = launches == {"segment_merge": expected, "segment_scatter_add": 0, "segment_scatter_max": 0}
 
         def pct(name, q):
             return HISTOGRAMS.get(name, unit="s", policy="shed_oldest").percentile(q) * 1e3
@@ -5138,7 +5154,7 @@ def sketched_keyed_phase(torch, M, dev, card, batches=None, keyed_batches=None) 
     # (a) the keyed binary curve
     cohorts = keyed_binary_cohorts(torch, keyed_batches, dev)
     gpu, cpu = build_sketched_keyed(M, dev), build_sketched_keyed(M, "cpu")
-    want = {**none, "label_score_histograms": KEYED_UPDATES, "segment_scatter_add": KEYED_UPDATES}
+    want = {**none, "label_score_histograms": KEYED_UPDATES, "segment_merge": KEYED_UPDATES}
     binary = _sketched_keyed_run(torch, _common, "(a) binary AUROC", gpu, cpu, cohorts, want)
     values = binary.pop("values").cpu()
     scores = torch.cat([s for _, s, _ in cohorts]).cpu()
@@ -5203,7 +5219,7 @@ def sketched_keyed_phase(torch, M, dev, card, batches=None, keyed_batches=None) 
     # (b) the keyed 10-class one-vs-rest curve, first cohorts only
     gpu = build_sketched_keyed(M, dev, num_classes=KEYED_CLASSES)
     cpu = build_sketched_keyed(M, "cpu", num_classes=KEYED_CLASSES)
-    want_b = {**none, "label_score_histograms": SKETCH_CLASS_COHORTS, "segment_scatter_add": SKETCH_CLASS_COHORTS}
+    want_b = {**none, "label_score_histograms": SKETCH_CLASS_COHORTS, "segment_merge": SKETCH_CLASS_COHORTS}
     per_class = tuple(build_sketched_keyed(M, d, num_classes=KEYED_CLASSES, average=None) for d in (dev, "cpu"))
     multiclass = _sketched_keyed_run(torch, _common, "(b) 10-class one-vs-rest AUROC", gpu, cpu,
                                      keyed_batches[:SKETCH_CLASS_COHORTS], want_b, per_class)
@@ -5298,6 +5314,203 @@ def sketched_keyed_phase(torch, M, dev, card, batches=None, keyed_batches=None) 
 def sketched_keyed_phase_main(record_path: str = "") -> int:
     """Run :func:`sketched_keyed_phase` alone (see :func:`_phase_alone`)."""
     return _phase_alone(sketched_keyed_phase, record_path)
+
+
+def _merge_inputs(torch, dev, gen, dtype, ids_dtype=None):
+    """The merge's inputs at the keyed path's shapes: ids (-2 and ids past S
+    among them), Accuracy's rows as the columns of one (R, 5) tensor (tp, fp,
+    tn, fn, mode_code), the macro bundle's (R, 4, 10) rows as B1's batched
+    entry gives them, non-zero defaults (0-d and (10,)) and the eleven
+    (S, ...) states; float32 rows hold NaN, -0.0 and +0.0 in the max leaf."""
+    ids = torch.randint(-2, KEYED_TENANTS + 8, (KEYED_ROWS,), generator=gen, device=dev)
+    ids = ids if ids_dtype is None else ids.to(ids_dtype)
+    acc = torch.randint(-1, 3, (KEYED_ROWS, 5), generator=gen, device=dev).to(dtype)
+    if dtype == torch.float32:
+        acc[:3, 4] = torch.tensor([float("nan"), -0.0, 0.0], device=dev)
+    macro = torch.randint(0, 3, (KEYED_ROWS, 4, KEYED_CLASSES), generator=gen, device=dev).to(dtype)
+    d0, d10 = torch.ones((), dtype=dtype, device=dev), torch.ones(KEYED_CLASSES, dtype=dtype, device=dev)
+    states = [torch.randint(-5, 6, (KEYED_TENANTS,) + shape, generator=gen, device=dev).to(dtype)
+              for shape in [()] * 7 + [(KEYED_CLASSES,)] * 4]
+    r = KEYED_ROWS
+    rows = [acc[:, k] for k in range(4)] + [d0.expand(r), d0.expand(r), acc[:, 4]] + [macro[:, k] for k in range(4)]
+    ops = ["sum"] * 6 + ["max"] + ["sum"] * 4
+    return ids, [(x, st, d, op) for x, st, d, op in zip(rows, states, [d0] * 7 + [d10] * 4, ops)]
+
+
+def _per_leaf_chain(torch, leaves, ids, s, dev):
+    """One bundle's route before the merge, through B3 and B4 on the card:
+    its sum leaves' ``rows - default`` cast to float32, packed by ``cat``
+    into one B3 launch, the columns sliced, cast back and added to the
+    states; each extremal leaf through one B4 launch, then ``maximum`` or
+    ``minimum`` against its state where its count is non-zero; the dropped
+    ids summed."""
+    from metrics_tpu_torch.kernels.segment_scatter import (
+        segment_scatter_add_cuda,
+        segment_scatter_max_cuda,
+        segment_scatter_min_cuda,
+    )
+
+    outs, counts = [None] * len(leaves), None
+    sums = [i for i, leaf in enumerate(leaves) if leaf[3] == "sum"]
+    if sums:
+        columns = [(leaves[i][0] - leaves[i][2]).reshape(ids.shape[0], -1).to(torch.float32) for i in sums]
+        packed, counts = segment_scatter_add_cuda(torch.cat(columns, dim=1).contiguous(), ids, s, device=dev)
+        offset = 0
+        for i, column in zip(sums, columns):
+            state = leaves[i][1]
+            width = column.shape[1]
+            outs[i] = state + packed[:, offset:offset + width].reshape(state.shape).to(state.dtype)
+            offset += width
+    for i, (rows, state, _, op) in enumerate(leaves):
+        if op == "sum":
+            continue
+        kernel = segment_scatter_max_cuda if op == "max" else segment_scatter_min_cuda
+        seg, seg_counts = kernel(rows.reshape(ids.shape[0], -1).to(torch.float32).contiguous(), ids, s, device=dev)
+        counts = seg_counts if counts is None else counts
+        pick = torch.maximum if op == "max" else torch.minimum
+        has_rows = (seg_counts > 0).reshape((s,) + (1,) * (state.ndim - 1))
+        outs[i] = torch.where(has_rows, pick(state, seg.reshape(state.shape).to(state.dtype)), state)
+    return outs, counts, torch.sum((ids < 0) | (ids >= s)).to(torch.int32)
+
+
+def merge_phase(torch, M, dev, card, keyed_batches=None) -> dict:
+    """Phase 3q: the merge (``segment_merge``), the keyed update's one launch.
+    (a) At the keyed path's shapes (R = 4096, S = 10,000, the keyed cell's
+    eleven leaves, strided and broadcast rows, non-zero defaults), int32 and
+    float32, int64 and int32 ids: the kernel == its plain version bit for
+    bit, one launch each. (b) Phase 3b's real leaves (the two bundles' row
+    states of its first cohort): the kernel == the plain version == the
+    per-leaf chain through B3 and B4 it replaced, bit for bit. (c) A keyed
+    regression bundle's leaves (float32 sums of real-valued rows over a large
+    state, an int32 count): the count exactly, the sums within rtol 1e-6 of
+    the plain version's. (d) Phase 3b's collection over its 50 cohorts,
+    eager and compiled (``warmup``): the merge 50 launches each, B3 and B4
+    none, the compiled states == the eager ones exactly. (e) Times at (b)'s
+    leaves: the merge and the chain (two bundles: B3 and B4, B3) by CUDA
+    events, device time, 50 in a replayed graph, and host time per call
+    (1000 calls back to back), beside the plain version and the bound."""
+    from metrics_tpu_torch.kernels import _common
+    from metrics_tpu_torch.kernels.segment_scatter import segment_merge_cuda, segment_merge_torch
+
+    if keyed_batches is None:
+        keyed_batches = make_keyed_batches(torch, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 47)
+    s = KEYED_TENANTS
+    out = {"parity": []}
+
+    def exact(got, want):
+        for g, w in zip(got, want):
+            if g.dtype != w.dtype or g.shape != w.shape:
+                return False
+            gf, wf = g.double(), w.double()
+            same = (gf == wf) | (gf.isnan() & wf.isnan())
+            signs = torch.signbit(gf) == torch.signbit(wf)
+            if not bool((same & (signs | gf.isnan())).all()):
+                return False
+        return True
+
+    def flat(result):
+        outs, counts, invalid = result
+        return list(outs) + [counts, invalid]
+
+    # (a) the kernel against its plain version
+    for dtype in (torch.int32, torch.float32):
+        for ids_dtype in (torch.int64, torch.int32):
+            ids, leaves = _merge_inputs(torch, dev, gen, dtype, ids_dtype)
+            _common.reset_dispatch_counters()
+            got = flat(segment_merge_cuda(leaves, ids, s, device=dev))
+            torch.cuda.synchronize()
+            launches = {op: _common.launch_count(op) for op in KERNEL_OPS}
+            want = flat(segment_merge_torch(leaves, ids, s))
+            ok = exact(got, want) and launches == {op: int(op == "segment_merge") for op in KERNEL_OPS}
+            out["parity"].append({"dtype": str(dtype), "ids": str(ids_dtype), "exact": ok, "launches": launches})
+            if not ok:
+                fail(f"[merge] (a) {dtype} rows, {ids_dtype} ids: the kernel differs from its plain version or "
+                     f"launched {launches}")
+    # (b) phase 3b's real leaves: kernel == plain == the chain through B3 and B4
+    keyed = build_keyed(M, dev)
+    keyed.build()
+    ids, preds, target = keyed_batches[0]
+    bundles = [(km, km._get_states(), km._bundle_rows((preds, target), {})) for km in keyed._keyed.values()]
+    real = [[(per_row[name], state[name], default, fx) for name, fx, default in km._scatter_plan().merged]
+            for km, state, per_row in bundles]
+    leaves = [leaf for bundle in real for leaf in bundle]
+    strides = [leaf[0].stride() for leaf in leaves]
+    got = flat(segment_merge_cuda(leaves, ids, s, device=dev))
+    want = flat(segment_merge_torch(leaves, ids, s))
+    chain = [_per_leaf_chain(torch, bundle, ids, s, dev) for bundle in real]
+    chain_flat = chain[0][0] + chain[1][0] + [chain[0][1], chain[0][2]]
+    torch.cuda.synchronize()
+    if len(leaves) != 11 or not exact(got, want) or not exact(got, chain_flat):
+        fail(f"[merge] (b) phase 3b's {len(leaves)} leaves: the kernel, its plain version and the per-leaf chain "
+             "through B3 and B4 differ")
+    # (c) a keyed regression bundle
+    err = torch.randn(KEYED_ROWS, generator=gen, device=dev)
+    big = 1e6 * torch.rand(s, generator=gen, device=dev)
+    zero_f, zero_i = torch.zeros((), device=dev), torch.zeros((), dtype=torch.int32, device=dev)
+    reg = [(err * err, big, zero_f, "sum"), (err.abs(), big.clone(), zero_f, "sum"),
+           (torch.ones((), dtype=torch.int32, device=dev).expand(KEYED_ROWS),
+            torch.randint(0, 9, (s,), generator=gen, device=dev, dtype=torch.int32), zero_i, "sum")]
+    reg_ids = keyed_batches[1][0]
+    got_r = segment_merge_cuda(reg, reg_ids, s, device=dev)
+    want_r = segment_merge_torch(reg, reg_ids, s)
+    torch.cuda.synchronize()
+    reg_diff = max(float(((g - w).abs() / w.abs().clamp_min(1e-30)).max()) for g, w in zip(got_r[0][:2], want_r[0][:2]))
+    if reg_diff > 1e-6 or not (torch.equal(got_r[0][2], want_r[0][2]) and torch.equal(got_r[1], want_r[1])
+                               and torch.equal(got_r[2], want_r[2])):
+        fail(f"[merge] (c) the regression bundle: sums within {reg_diff:.2e} (limit 1e-6), count or counts differ")
+    # (d) the keyed collection eager and compiled: one merge an update, no B3, no B4
+    eager, compiled = build_keyed(M, dev), build_keyed(M, dev)
+    compiled.warmup(*keyed_batches[0])
+    update_launches = {}
+    for label, obj in (("eager", eager), ("compiled", compiled)):
+        torch.cuda.synchronize()
+        _common.reset_dispatch_counters()
+        for batch in keyed_batches:
+            obj.update(*batch)
+        torch.cuda.synchronize()
+        update_launches[label] = {op: _common.launch_count(op) for op in KERNEL_OPS}
+        want_l = {op: (KEYED_UPDATES if op in ("segment_merge", "stat_scores_counts") else 0) for op in KERNEL_OPS}
+        if update_launches[label] != want_l:
+            fail(f"[merge] (d) the {label} keyed collection launched {update_launches[label]}, expected {want_l}")
+    for owner, km in eager._keyed.items():
+        _states_equal(torch, f"merge (d) compiled {owner}", compiled._keyed[owner], km)
+    # (e) times: the merge against the chain it replaced, at (b)'s leaves
+    nbytes = (sum(leaf[0].shape[0] * max(leaf[2].numel(), 1) * 4 for leaf in leaves) + KEYED_ROWS * 8
+              + 2 * sum(leaf[1].numel() * 4 for leaf in leaves) + s * 4)
+    merge_call = (lambda: segment_merge_cuda(leaves, ids, s, device=dev))
+    chain_call = (lambda: [_per_leaf_chain(torch, bundle, ids, s, dev) for bundle in real])
+    plain_call = (lambda: segment_merge_torch(leaves, ids, s))
+    times = {"bound": bound(nbytes, sum(leaf[0].shape[0] * max(leaf[2].numel(), 1) for leaf in leaves))}
+    for key, fn in (("ms", merge_call), ("chain_ms", chain_call), ("plain_ms", plain_call)):
+        times[key] = cuda_ms(fn)
+        times[key.replace("ms", "device_ms")] = device_ms(fn)
+    times["graph_ms"] = graph_ms(merge_call)
+    times["chain_graph_ms"] = graph_ms(chain_call)
+    times["host_us"] = host_us([("merge", merge_call), ("chain", chain_call)])
+    out.update({"real_leaves": len(leaves), "real_row_strides": strides, "regression_rel_diff": reg_diff,
+                "update_launches": update_launches, "times": times})
+
+    def fmt(ms):
+        return "none" if ms is None else f"{ms:.4f} ms"
+
+    print(f"[merge] (a) the kernel == its plain version bit for bit at ({KEYED_ROWS} rows, {s} tenants, 11 leaves), "
+          f"int32 and float32 rows, int64 and int32 ids, one launch each; (b) phase 3b's real leaves (row strides "
+          f"{strides}): kernel == plain == the per-leaf chain through B3/B4; (c) the regression bundle within "
+          f"{reg_diff:.2e}; (d) {KEYED_UPDATES} keyed updates eager and compiled: launches {update_launches['eager']} "
+          f"and {update_launches['compiled']} (compiled states == eager) on {card}")
+    print(f"[merge] (e) at phase 3b's leaves: merge {fmt(times['ms'])} (device {fmt(times['device_ms'])}; "
+          f"graph {fmt(times['graph_ms'])}; host {times['host_us']['merge']:.3f} us a call) against the chain "
+          f"through B3/B4 {fmt(times['chain_ms'])} (device {fmt(times['chain_device_ms'])}; graph "
+          f"{fmt(times['chain_graph_ms'])}; host {times['host_us']['chain']:.3f} us); plain {fmt(times['plain_ms'])} "
+          f"({fmt(times['plain_device_ms'])}); bound {times['bound'][0]:.5f} ms ({times['bound'][1]})")
+    return out
+
+
+def merge_phase_main(record_path: str = "") -> int:
+    """Run :func:`merge_phase` alone (see :func:`_phase_alone`)."""
+    return _phase_alone(merge_phase, record_path)
 
 
 def compute_async_phase(torch, M, dev, batches, card) -> dict:
@@ -5726,14 +5939,14 @@ def main() -> int:
     keyed_out = keyed_gpu.compute()
     torch.cuda.synchronize()
     keyed_compute_ms = (time.perf_counter() - start) * 1e3
-    keyed_ops = ("segment_scatter_add", "segment_scatter_max", "segment_scatter_min", "stat_scores_counts",
-                 "confmat_counts")
+    keyed_ops = ("segment_merge", "segment_scatter_add", "segment_scatter_max", "segment_scatter_min",
+                 "stat_scores_counts", "confmat_counts")
     keyed_launches = {op: _common.launch_count(op) for op in keyed_ops}
     print(f"[keyed] {KEYED_UPDATES} update of {KEYED_ROWS} rows into {KEYED_TENANTS} tenants + compute on {kind}: "
           f"launches {keyed_launches}; update median {statistics.median(update_ms):.3f} ms "
           f"(first {update_ms[0]:.3f} ms), compute {keyed_compute_ms:.3f} ms")
     # B1 once an update: the macro bundle's (4096, 1, 10) stack of rows
-    expected = {"segment_scatter_add": 2 * KEYED_UPDATES, "segment_scatter_max": KEYED_UPDATES,
+    expected = {"segment_merge": KEYED_UPDATES, "segment_scatter_add": 0, "segment_scatter_max": 0,
                 "segment_scatter_min": 0, "stat_scores_counts": KEYED_UPDATES, "confmat_counts": 0}
     for op, count in expected.items():
         if keyed_launches[op] != count:
@@ -6006,6 +6219,9 @@ def main() -> int:
     # -- 3p. the keyed and bootstrapped sketched curves: B5's batched form ---------------
     record["sketched_keyed"] = sketched_keyed_phase(torch, M, dev, card, batches, keyed_batches)
 
+    # -- 3q. the merge: the keyed update's one launch -------------------------------------
+    record["merge"] = merge_phase(torch, M, dev, card, keyed_batches)
+
     # -- 4. times at the main-path shapes ------------------------------------
     preds, target = batches[0]
     canon_p, canon_t, _ = _input_format_classification(preds, target)
@@ -6197,16 +6413,16 @@ def main() -> int:
                 "segment_scatter_min": "metrics_tpu/kernels/segment_scatter.py:227",
                 "label_score_histograms": "metrics_tpu/kernels/binned_counts.py:81"}
     # launches on each kernel's own path: the ImageNet-1k collection for B1
-    # and B2, the keyed collection for B3 and B4 (no ported metric has a
-    # "min" leaf yet, so B4 min is held against its plain version only), the
-    # sketched curve collection for B5 (the binary stream's 300 are in the
-    # record); times at each path's shape
+    # and B2, the keyed collection for B3 and B4 (where the merge took their
+    # place: none; B3 and B4 are held against their plain versions in
+    # phases 2 and 2b), the sketched curve collection for B5 (the binary
+    # stream's 300 are in the record); times at each path's shape
     path_launches = {**launches, **{op: keyed_launches[op] for op in scatter},
                      "label_score_histograms": curve_launches["label_score_histograms"]}
     # launches counted through the replays of the compiled step (phase 3i)
     compiled = record["compiled"]
     compiled_launches = {op: compiled["collection"]["launches"][op] + compiled["keyed"]["launches"][op]
-                         + compiled["curves"]["launches"][op] for op in sources}
+                         + compiled["curves"]["launches"][op] for op in (*sources, "segment_merge")}
     kernels = [
         {"name": op, "route": "cuda", "source": sources[op], "replaces": replaces[op],
          "launches": path_launches[op], "max_abs_err": errors[op], "ms": timings[op]["ms"],
@@ -6229,64 +6445,69 @@ def main() -> int:
                             f"{suffix}_plain_ms": t["plain_ms"], f"{suffix}_bound_ms": t["bound"][0],
                             f"{suffix}_library_ms": t["library_ms"]})
     kernels[-1]["c1_launches"] = stream_launches["label_score_histograms"]
-    # B3 and B4 max on the serving path too: the replay's paths and the soaks
+    # the merge (phase 3q) at phase 3b's leaves, beside the per-leaf chain
+    # through B3 and B4 it replaced; its launches on the keyed paths
+    t = record["merge"]["times"]
+    merge = {
+        "name": "segment_merge", "route": "cuda", "source": sources["segment_scatter_add"],
+        "replaces": "none: the keyed update's per-leaf chain around B3 and B4 (one XLA program in the JAX package)",
+        "launches": keyed_launches["segment_merge"], "max_abs_err": 0.0, "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound"][0], "bound_by": t["bound"][1], "library_ms": None, "device_ms": t["device_ms"],
+        "plain_device_ms": t["plain_device_ms"], "graph_ms": t["graph_ms"], "chain_ms": t["chain_ms"],
+        "chain_device_ms": t["chain_device_ms"], "chain_graph_ms": t["chain_graph_ms"], "host_us": t["host_us"],
+        "compiled_launches": compiled_launches["segment_merge"],
+    }
+    kernels.append(merge)
+    # the merge on the serving path too: the replay's paths and the soaks
     serving = record["serving"]
-    for entry in kernels:
-        if entry["name"] in ("segment_scatter_add", "segment_scatter_max"):
-            entry["serving_launches"] = {
-                **{f"replay_{path}": serving["replay"][path]["launches"][entry["name"]] for path in ("unstaged", "staged", "prefetched")},
-                **{run: serving[run]["launches"][entry["name"]] for run in ("soak_unstaged", "soak_staged")},
-            }
-    # B3 on the regression slice's keyed path (phase 3j-b): eager and through the update_many replays
+    merge["serving_launches"] = {
+        **{f"replay_{path}": serving["replay"][path]["launches"]["segment_merge"]
+           for path in ("unstaged", "staged", "prefetched")},
+        **{run: serving[run]["launches"]["segment_merge"] for run in ("soak_unstaged", "soak_staged")},
+    }
+    # on the regression slice's keyed path (phase 3j-b): eager and through the update_many replays
     regression = record["regression"]["keyed"]
-    for entry in kernels:
-        if entry["name"] == "segment_scatter_add":
-            entry["regression_launches"] = {"eager": regression["launches"]["segment_scatter_add"],
-                                            "update_many": regression["update_many_launches"],
-                                            "plain_scatters": regression["plain_scatters"]}
-    # B3 on the retrieval slice's keyed path (phase 3k-d): eager and through the update_many replays
+    merge["regression_launches"] = {"eager": regression["launches"]["segment_merge"],
+                                    "update_many": regression["update_many_launches"],
+                                    "plain_scatters": regression["plain_scatters"]}
+    # on the retrieval slice's keyed path (phase 3k-d): eager and through the update_many replays
     retrieval = record["retrieval"]["keyed"]
-    for entry in kernels:
-        if entry["name"] == "segment_scatter_add":
-            entry["retrieval_launches"] = {"eager": retrieval["launches"]["segment_scatter_add"],
-                                           "update_many": retrieval["update_many_launches"]}
-    # B1 under the eager BootStrapper (phase 3l-f) and B3 under the keyed audio collection (phase 3l-b)
+    merge["retrieval_launches"] = {"eager": retrieval["launches"]["segment_merge"],
+                                   "update_many": retrieval["update_many_launches"]}
+    # B1 under the eager BootStrapper (phase 3l-f) and the merge under the keyed audio collection (phase 3l-b)
     small = record["small_metrics"]
     for entry in kernels:
         if entry["name"] == "stat_scores_counts":
             entry["bootstrap_launches"] = {"eager": small["bootstrap"]["launches"]["stat_scores_counts"],
                                            "pure": small["bootstrap"]["pure_launches"]["stat_scores_counts"]}
             entry["batched"] = small["bootstrap"]["b1_batched"]
-        if entry["name"] == "segment_scatter_add":
-            entry["audio_keyed_launches"] = small["speech_keyed"]["launches"]["segment_scatter_add"]
-    # B1 and B2 under the armed compiled forward, B3 under the keyed regression
-    # with health armed, eager, compiled and through the quarantining queue (phase 3n)
+    merge["audio_keyed_launches"] = small["speech_keyed"]["launches"]["segment_merge"]
+    # B1 and B2 under the armed compiled forward, the merge under the keyed
+    # regression with health armed, eager, compiled and through the
+    # quarantining queue (phase 3n)
     obs = record["observability"]
     for entry in kernels:
         if entry["name"] in ("stat_scores_counts", "confmat_counts"):
             entry["observability_launches"] = obs["armed"]["launches"][entry["name"]]
-        if entry["name"] == "segment_scatter_add":
-            entry["observability_launches"] = {
-                "eager": obs["keyed_health"]["eager"]["launches"]["segment_scatter_add"],
-                "compiled": obs["keyed_health"]["compiled"]["launches"]["segment_scatter_add"],
-                "quarantined_queue": obs["quarantine"]["launches"],
-            }
-    # B3 and B4 max on the durability paths (phase 3o), and B2's batched
-    # form on the keyed ConfusionMatrix's rows (phase 3o-a)
+    merge["observability_launches"] = {
+        "eager": obs["keyed_health"]["eager"]["launches"]["segment_merge"],
+        "compiled": obs["keyed_health"]["compiled"]["launches"]["segment_merge"],
+        "quarantined_queue": obs["quarantine"]["launches"],
+    }
+    # the merge on the durability paths (phase 3o), and B2's batched form on
+    # the keyed ConfusionMatrix's rows (phase 3o-a)
     dur = record["durability"]
     for entry in kernels:
         if entry["name"] == "confmat_counts":
             entry["durability_launches"] = {"checkpoint": dur["checkpoint"]["launches"]["confmat_counts"]}
             entry["batched"] = dur["checkpoint"]["b2_batched"]
-        if entry["name"] in ("segment_scatter_add", "segment_scatter_max"):
-            op = entry["name"]
-            entry["durability_launches"] = {
-                "checkpoint": dur["checkpoint"]["launches"][op],
-                "restart_eager": dur["collection"]["eager"]["launches"][op],
-                "restart_compiled": dur["collection"]["compiled"]["launches"][op],
-                "spill_collection": dur["spill"]["collection"]["launches"][op],
-                "chaos": dur["chaos"]["window"]["launches"][op],
-            }
+    merge["durability_launches"] = {
+        "checkpoint": dur["checkpoint"]["launches"]["segment_merge"],
+        "restart_eager": dur["collection"]["eager"]["launches"]["segment_merge"],
+        "restart_compiled": dur["collection"]["compiled"]["launches"]["segment_merge"],
+        "spill_collection": dur["spill"]["collection"]["launches"]["segment_merge"],
+        "chaos": dur["chaos"]["window"]["launches"]["segment_merge"],
+    }
     # the batched forms, each an entry of its own: B1's at the keyed rows'
     # shape (its launches those of phase 3b, and through phase 3i's keyed
     # update_many replays), B2's at the keyed ConfusionMatrix's rows (its

@@ -1,7 +1,9 @@
 // Segment scatter: per-segment sums (B3) and per-segment max/min (B4) of rows
-// routed by segment id, plus each segment's count of valid rows.
+// routed by segment id, plus each segment's count of valid rows; and the merge,
+// which routes every int32/float32 leaf of a keyed update into its new stacked
+// state in one launch.
 //
-// Replaces the Pallas kernels of metrics_tpu/kernels/segment_scatter.py:
+// B3 and B4 replace the Pallas kernels of metrics_tpu/kernels/segment_scatter.py:
 // `_scatter_kernel` (entry `segment_scatter_add_pallas`) and `_extremal_kernel`
 // (entry `_segment_scatter_extremal_pallas`, behind `segment_scatter_max_pallas`
 // and `segment_scatter_min_pallas`). There the TPU contracts a one-hot of the
@@ -50,10 +52,42 @@
 //   (min). The ordered-int atomicMax trick would not propagate NaN this way.
 //   There is no vector CAS, so B4 stays scalar.
 //
-// An id < 0 or >= S is dropped from both outputs, as the TPU kernels drop it.
+// The merge (`segment_merge_launch`) replaces no TPU kernel: it is the keyed
+// update's whole per-leaf chain (XLA fuses the JAX package's segment_sum and
+// segment_max of every leaf, their `state + delta` and masked `maximum` into
+// its program). Launched per leaf, B3 and B4 left the host a chain of about
+// 60 small launches a keyed update of two bundles: the subtraction of each
+// sum leaf's default, the casts to and from float32, the `cat` of the
+// columns, B3, the slices and adds back into the state, B4, its `counts > 0`
+// mask, `maximum` and `where`, and the invalid-id sum. The host's dispatch of
+// that chain, not the device, bounded the update. The merge does it all in
+// one cooperative launch over a table of leaves passed by value (a
+// `__grid_constant__` parameter, so nothing is copied to the device per
+// call), each leaf int32 or float32, "sum", "max" or "min":
+//
+// 1. Fill: each leaf's output takes its state (int32 sums, every extremum)
+//    or zeros (float32 sums); the counts and the invalid count take zeros.
+// 2. Sync the grid, then scatter over one flat item space: an item per row
+//    reads its id once and adds the row to its segment's count or, for an id
+//    < 0 or >= S, to the dropped rows (summed in the warp, one atomic a
+//    warp); then an item per (leaf, row, vector) of V = 4, 2 or 1 elements,
+//    vectors as B3 takes them, where the leaf's D, row stride and pointers
+//    allow. Rows are read in place at any row stride: 0 for a broadcast
+//    default, 4 * D for B1's batched output. A sum adds `row - default` per
+//    element where it is not zero: int32 by integer atomics (exact at any
+//    size, wrapping as int32 adds do), float32 by B3's vector atomics. An
+//    extremum picks by B4's ordered CAS (int32 by atomicMax/atomicMin) into
+//    the output that already holds the state, so a segment without rows
+//    keeps its state and a NaN state stays NaN: no mask, no `where`.
+// 3. Only with a float32 sum leaf: sync the grid again and add the state to
+//    the batch's sum, `state + sum` as the per-leaf route took it, so a large
+//    accumulated state does not round each of the batch's adds.
+//
+// An id < 0 or >= S is dropped from every output, as the TPU kernels drop it.
 // The order of the float additions changes from run to run, so float sums
-// agree with a sequential sum to rounding only; integer-valued rows whose
-// per-segment sums stay below 2^24 are exact.
+// agree with a sequential sum to rounding only; B3's integer-valued rows
+// whose per-segment sums stay below 2^24 are exact, and the merge's int32
+// sums are exact at any size.
 #include <atomic>
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -112,6 +146,18 @@ __device__ __forceinline__ bool beats(float x, float old) {
   return x < old || (x == old && !negative(old) && negative(x));
 }
 
+// Stores x into *slot where x beats the slot's value (B4's CAS loop; the merge's
+// float extrema too).
+template <bool kIsMax>
+__device__ __forceinline__ void pick_slot(unsigned int* slot, float x) {
+  unsigned int old = *reinterpret_cast<volatile unsigned int*>(slot);
+  while (beats<kIsMax>(x, __uint_as_float(old))) {
+    const unsigned int assumed = old;
+    old = atomicCAS(slot, assumed, __float_as_uint(x));
+    if (old == assumed) break;
+  }
+}
+
 template <typename Index, bool kIsMax>
 __device__ __forceinline__ void extremal_items(const float* __restrict__ rows, const Index* __restrict__ ids, int r,
                                                int d, int s, float* __restrict__ out, int* __restrict__ counts,
@@ -125,14 +171,7 @@ __device__ __forceinline__ void extremal_items(const float* __restrict__ rows, c
     if (id < 0 || id >= s) continue;
     if (f == 0) atomicAdd(counts + id, 1);
     if (d == 0) continue;
-    const float x = rows[i];
-    unsigned int* slot = reinterpret_cast<unsigned int*>(out + id * d + f);
-    unsigned int old = *reinterpret_cast<volatile unsigned int*>(slot);
-    while (beats<kIsMax>(x, __uint_as_float(old))) {
-      const unsigned int assumed = old;
-      old = atomicCAS(slot, assumed, __float_as_uint(x));
-      if (old == assumed) break;
-    }
+    pick_slot<kIsMax>(reinterpret_cast<unsigned int*>(out + id * d + f), rows[i]);
   }
 }
 
@@ -174,24 +213,30 @@ __global__ void __launch_bounds__(kThreads) scatter_kernel(const float* rows, co
   scatter_items<Index, V, kOp>(rows, ids, r, d, s, out, counts, first, stride);
 }
 
-// The SMs of `device` and the most blocks of this kernel a cooperative launch
-// can hold there (all co-resident), asked once per device.
-template <typename Index, int V, int kOp>
-cudaError_t grid_limits(int device, int* sms, int* max_blocks) {
+// The grid of a cooperative launch of kKernel on `device` for `work` items
+// (row vectors to scatter, or 16-byte stores of the fill): one block per SM
+// until each thread would take more than kItemsPerThread of them, then as
+// many as the work asks for, up to every co-resident block. The SMs and the
+// co-resident blocks are asked once per device and kernel.
+template <auto kKernel>
+cudaError_t cooperative_grid(int device, int64_t work, unsigned* grid) {
   static std::atomic<int> cached_sms[kMaxDevices];
   static std::atomic<int> cached_max[kMaxDevices];
-  *sms = cached_sms[device].load(std::memory_order_acquire);
-  *max_blocks = cached_max[device].load(std::memory_order_relaxed);
-  if (*sms > 0) return cudaSuccess;
-  int per_sm = 0;
-  cudaError_t err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, scatter_kernel<Index, V, kOp>, kThreads, 0);
+  int sms = cached_sms[device].load(std::memory_order_acquire);
+  int max_blocks = cached_max[device].load(std::memory_order_relaxed);
+  if (sms <= 0) {
+    int per_sm = 0;
+    cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kKernel, kThreads, 0);
+    if (err != cudaSuccess) return err;
+    max_blocks = per_sm * sms;
+    cached_max[device].store(max_blocks, std::memory_order_relaxed);
+    cached_sms[device].store(sms, std::memory_order_release);
   }
-  if (err != cudaSuccess) return err;
-  *max_blocks = per_sm * *sms;
-  cached_max[device].store(*max_blocks, std::memory_order_relaxed);
-  cached_sms[device].store(*sms, std::memory_order_release);
+  int64_t blocks = (work + kThreads * kItemsPerThread - 1) / (kThreads * kItemsPerThread);
+  if (blocks < sms) blocks = sms;
+  if (blocks > max_blocks) blocks = max_blocks;
+  *grid = static_cast<unsigned>(blocks);
   return cudaSuccess;
 }
 
@@ -202,21 +247,15 @@ int launch(const void* rows_, const void* ids_, int r, int d, int s, void* out_,
   const Index* ids = static_cast<const Index*>(ids_);
   float* out = static_cast<float*>(out_);
   int* counts = static_cast<int*>(counts_);
-  int sms = 0, max_blocks = 0;
-  cudaError_t err = grid_limits<Index, V, kOp>(device, &sms, &max_blocks);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // One block per SM until each thread would take more than kItemsPerThread
-  // items (row vectors to scatter, or 16-byte stores of the fill); then as
-  // many as the work asks for, up to every co-resident block.
   const int64_t items = static_cast<int64_t>(r) * (d > 0 ? d / V : 1);
   const int64_t stores = static_cast<int64_t>(s) * d / 4 + s / 4;
-  const int64_t work = items > stores ? items : stores;
-  int64_t grid = (work + kThreads * kItemsPerThread - 1) / (kThreads * kItemsPerThread);
-  if (grid < sms) grid = sms;
-  if (grid > max_blocks) grid = max_blocks;
+  unsigned grid = 0;
+  const cudaError_t err = cooperative_grid<scatter_kernel<Index, V, kOp>>(device, items > stores ? items : stores,
+                                                                         &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
   void* args[] = {&rows, &ids, &r, &d, &s, &out, &counts, &value};
   return static_cast<int>(cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(scatter_kernel<Index, V, kOp>),
-                                                      static_cast<unsigned>(grid), kThreads, args, 0, stream));
+                                                      grid, kThreads, args, 0, stream));
 }
 
 template <typename Index>
@@ -231,6 +270,223 @@ int dispatch(const void* rows, const void* ids, int r, int d, int s, int op, int
     case kMin * 8 + 1: return launch<Index, 1, kMin>(rows, ids, r, d, s, out, counts, inf, device, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// --- the merge: every int32/float32 leaf of a keyed update in one launch -------
+
+// Leaves a launch takes; the entry launches once per chunk of this many (a
+// table of 64 leaves is 3.6 KB of the 4 KB a kernel's parameters may hold).
+constexpr int kMaxMergeLeaves = 64;
+// The fields of a leaf in the caller's table, each an int64: rows, row stride
+// (elements), state, out, default, D, V, kind.
+constexpr int kMergeFields = 8;
+
+// A leaf's kind: its op * 2 + 1 where it is float32 (op 0 sum, 1 max, 2 min).
+enum MergeKind { kSumInt = 0, kSumFloat = 1, kMaxInt = 2, kMaxFloat = 3, kMinInt = 4, kMinFloat = 5 };
+
+struct MergeLeaf {
+  const void* rows;      // row i's D elements at rows + i * row_stride
+  const void* state;     // (S, D), contiguous
+  void* out;             // (S, D), contiguous, uninitialised
+  const void* dflt;      // (D,), contiguous: subtracted from a sum's rows
+  long long row_stride;  // in elements; 0 where every row is the same
+  int d;                 // elements a row
+  int vec;               // elements a vector access: 4, 2 or 1, d % vec == 0
+  int kind;              // MergeKind
+  unsigned first;        // the leaf's first item in the flat item space
+};
+
+struct MergeTable {
+  MergeLeaf leaf[kMaxMergeLeaves];
+  int n;            // leaves
+  unsigned items;   // R count items, then every leaf's R * D / V
+  int float_sums;   // a float32 sum leaf is here: phase 3 runs
+};
+
+template <int V>
+__device__ __forceinline__ void load_words(const unsigned int* p, unsigned int (&w)[V]) {
+  if constexpr (V == 4) {
+    const uint4 t = *reinterpret_cast<const uint4*>(p);
+    w[0] = t.x;
+    w[1] = t.y;
+    w[2] = t.z;
+    w[3] = t.w;
+  } else if constexpr (V == 2) {
+    const uint2 t = *reinterpret_cast<const uint2*>(p);
+    w[0] = t.x;
+    w[1] = t.y;
+  } else {
+    w[0] = *p;
+  }
+}
+
+// Vector v of row `row` of one leaf into segment id's slots of its output.
+template <int V>
+__device__ __forceinline__ void merge_vector(const MergeLeaf& leaf, unsigned row, int64_t id, unsigned v) {
+  const unsigned e = v * V;
+  unsigned int x[V];
+  load_words<V>(static_cast<const unsigned int*>(leaf.rows) + row * leaf.row_stride + e, x);
+  unsigned int* slot = static_cast<unsigned int*>(leaf.out) + id * leaf.d + e;
+  if (leaf.kind == kSumInt || leaf.kind == kSumFloat) {
+    unsigned int def[V];
+    load_words<V>(static_cast<const unsigned int*>(leaf.dflt) + e, def);
+    if (leaf.kind == kSumInt) {
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const int delta = static_cast<int>(x[k] - def[k]);  // int32's wrapping subtraction
+        if (delta != 0) atomicAdd(reinterpret_cast<int*>(slot) + k, delta);
+      }
+      return;
+    }
+    float f[V];
+    bool any = false;
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      f[k] = __uint_as_float(x[k]) - __uint_as_float(def[k]);
+      any |= f[k] != 0.0f;
+    }
+    if (!any) return;
+    float* sum = reinterpret_cast<float*>(slot);
+    if constexpr (V == 4) {
+      atomicAdd(reinterpret_cast<float4*>(sum), make_float4(f[0], f[1], f[2], f[3]));
+    } else if constexpr (V == 2) {
+      atomicAdd(reinterpret_cast<float2*>(sum), make_float2(f[0], f[1]));
+    } else {
+      atomicAdd(sum, f[0]);
+    }
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    int* islot = reinterpret_cast<int*>(slot) + k;
+    const int xi = static_cast<int>(x[k]);
+    switch (leaf.kind) {
+      case kMaxInt:
+        if (xi > *reinterpret_cast<volatile int*>(islot)) atomicMax(islot, xi);
+        break;
+      case kMinInt:
+        if (xi < *reinterpret_cast<volatile int*>(islot)) atomicMin(islot, xi);
+        break;
+      case kMaxFloat: pick_slot<true>(slot + k, __uint_as_float(x[k])); break;
+      default: pick_slot<false>(slot + k, __uint_as_float(x[k])); break;
+    }
+  }
+}
+
+// Phase 1 for one leaf: out = state, or zeros for a float32 sum; 16-byte
+// stores where both pointers allow, the rest one by one.
+__device__ __forceinline__ void fill_leaf(const MergeLeaf& leaf, int64_t n, int64_t first, int64_t stride) {
+  const bool zero = leaf.kind == kSumFloat;
+  const unsigned int* in = static_cast<const unsigned int*>(leaf.state);
+  unsigned int* out = static_cast<unsigned int*>(leaf.out);
+  int64_t done = 0;
+  if (((reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(out)) & 15) == 0) {
+    const int64_t n4 = n / 4;
+    for (int64_t i = first; i < n4; i += stride) {
+      reinterpret_cast<uint4*>(out)[i] = zero ? make_uint4(0u, 0u, 0u, 0u) : reinterpret_cast<const uint4*>(in)[i];
+    }
+    done = n4 * 4;
+  }
+  for (int64_t i = done + first; i < n; i += stride) out[i] = zero ? 0u : in[i];
+}
+
+// Phase 3 for one float32 sum leaf: out = state + out.
+__device__ __forceinline__ void add_state(const MergeLeaf& leaf, int64_t n, int64_t first, int64_t stride) {
+  const float* in = static_cast<const float*>(leaf.state);
+  float* out = static_cast<float*>(leaf.out);
+  int64_t done = 0;
+  if (((reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(out)) & 15) == 0) {
+    const int64_t n4 = n / 4;
+    for (int64_t i = first; i < n4; i += stride) {
+      const float4 a = reinterpret_cast<const float4*>(in)[i];
+      float4 b = reinterpret_cast<float4*>(out)[i];
+      b.x = a.x + b.x;
+      b.y = a.y + b.y;
+      b.z = a.z + b.z;
+      b.w = a.w + b.w;
+      reinterpret_cast<float4*>(out)[i] = b;
+    }
+    done = n4 * 4;
+  }
+  for (int64_t i = done + first; i < n; i += stride) out[i] = in[i] + out[i];
+}
+
+// One cooperative launch: fill, sync the grid, scatter every row of every
+// leaf, and, with a float32 sum leaf, sync again and add the states.
+template <typename Index>
+__global__ void __launch_bounds__(kThreads) merge_kernel(const __grid_constant__ MergeTable table,
+                                                         const Index* __restrict__ ids, int r, int s,
+                                                         int* __restrict__ counts, int* __restrict__ invalid) {
+  const unsigned first = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned stride = gridDim.x * blockDim.x;
+  for (int l = 0; l < table.n; ++l) {
+    fill_leaf(table.leaf[l], static_cast<int64_t>(s) * table.leaf[l].d, first, stride);
+  }
+  const int64_t s4 = s / 4;  // counts is 16-byte aligned (the entry checks)
+  for (int64_t i = first; i < s4; i += stride) reinterpret_cast<int4*>(counts)[i] = make_int4(0, 0, 0, 0);
+  for (int64_t i = s4 * 4 + first; i < s; i += stride) counts[i] = 0;
+  if (first == 0) *invalid = 0;
+  cooperative_groups::this_grid().sync();
+
+  unsigned dropped = 0;
+  int l = -1;
+  unsigned next = table.n > 0 ? table.leaf[0].first : table.items;
+  unsigned per_row = 1;
+  MergeLeaf leaf = {};
+  for (unsigned i = first; i < table.items; i += stride) {
+    if (i < static_cast<unsigned>(r)) {
+      const int64_t id = static_cast<int64_t>(ids[i]);
+      if (id < 0 || id >= s) {
+        ++dropped;
+      } else {
+        atomicAdd(counts + id, 1);
+      }
+      continue;
+    }
+    while (i >= next) {  // i only grows: the thread's leaf only moves on
+      leaf = table.leaf[++l];
+      per_row = static_cast<unsigned>(leaf.d / leaf.vec);
+      next = l + 1 < table.n ? table.leaf[l + 1].first : table.items;
+    }
+    const unsigned j = i - leaf.first;
+    const unsigned row = j / per_row;
+    const int64_t id = static_cast<int64_t>(ids[row]);
+    if (id < 0 || id >= s) continue;
+    const unsigned v = j - row * per_row;
+    if (leaf.vec == 4) {
+      merge_vector<4>(leaf, row, id, v);
+    } else if (leaf.vec == 2) {
+      merge_vector<2>(leaf, row, id, v);
+    } else {
+      merge_vector<1>(leaf, row, id, v);
+    }
+  }
+  dropped = __reduce_add_sync(0xffffffffu, dropped);
+  if ((threadIdx.x & 31) == 0 && dropped != 0) atomicAdd(invalid, static_cast<int>(dropped));
+
+  if (table.float_sums) {
+    cooperative_groups::this_grid().sync();
+    for (int k = 0; k < table.n; ++k) {
+      if (table.leaf[k].kind == kSumFloat) {
+        add_state(table.leaf[k], static_cast<int64_t>(s) * table.leaf[k].d, first, stride);
+      }
+    }
+  }
+}
+
+template <typename Index>
+int launch_merge(MergeTable& table, const void* ids_, int r, int s, void* counts_, void* invalid_, int64_t stores,
+                 int device, cudaStream_t stream) {
+  const Index* ids = static_cast<const Index*>(ids_);
+  int* counts = static_cast<int*>(counts_);
+  int* invalid = static_cast<int*>(invalid_);
+  unsigned grid = 0;
+  const int64_t items = table.items;
+  const cudaError_t err = cooperative_grid<merge_kernel<Index>>(device, items > stores ? items : stores, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&table, &ids, &r, &s, &counts, &invalid};
+  return static_cast<int>(cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(merge_kernel<Index>), grid,
+                                                      kThreads, args, 0, stream));
 }
 
 }  // namespace
@@ -255,4 +511,65 @@ extern "C" int segment_scatter_launch(const void* rows, const void* ids, int r, 
   if (index_bytes == 8) return dispatch<int64_t>(rows, ids, r, d, s, op, vec, out, counts, device, st);
   if (index_bytes == 4) return dispatch<int32_t>(rows, ids, r, d, s, op, vec, out, counts, device, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// leaves: n rows of kMergeFields int64 each (rows, row stride in elements,
+// state, out, default, D, V, kind; see MergeLeaf), read before the call
+// returns. Each leaf's rows are int32 or float32 as its kind says, its row i at
+// rows + i * row stride; state and out (S, D) and default (D,) contiguous;
+// D % V == 0, and rows, out and default aligned to 4 * V bytes with the row
+// stride a multiple of V. ids: (r,) int32 (index_bytes=4) or int64 (8). counts:
+// (s,) int32, 16-byte aligned, and invalid: one int32, both uninitialised.
+// One cooperative launch for every kMaxMergeLeaves leaves, on `stream`, with
+// `device` made current for the call; each launch writes the same counts.
+// r * (1 + the sum of D / V over the leaves) < 2^31. Returns the first CUDA
+// error of the call (0 if none); s <= 0 does nothing.
+extern "C" int segment_merge_launch(const long long* leaves, int n, const void* ids, int r, int s, int index_bytes,
+                                    void* counts, void* invalid, int device, void* stream) {
+  if (s <= 0) return 0;
+  if (n < 0 || r < 0 || (index_bytes != 4 && index_bytes != 8)) return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<uintptr_t>(counts) % 16 != 0) return static_cast<int>(cudaErrorMisalignedAddress);
+  DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return static_cast<int>(scope.error());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int done = 0;
+  do {
+    MergeTable table;
+    table.n = n - done < kMaxMergeLeaves ? n - done : kMaxMergeLeaves;
+    table.float_sums = 0;
+    int64_t items = r;
+    int64_t stores = s / 4;
+    for (int k = 0; k < table.n; ++k) {
+      const long long* f = leaves + static_cast<int64_t>(done + k) * kMergeFields;
+      MergeLeaf& leaf = table.leaf[k];
+      leaf.rows = reinterpret_cast<const void*>(f[0]);
+      leaf.row_stride = f[1];
+      leaf.state = reinterpret_cast<const void*>(f[2]);
+      leaf.out = reinterpret_cast<void*>(f[3]);
+      leaf.dflt = reinterpret_cast<const void*>(f[4]);
+      leaf.d = static_cast<int>(f[5]);
+      leaf.vec = static_cast<int>(f[6]);
+      leaf.kind = static_cast<int>(f[7]);
+      if ((leaf.vec != 1 && leaf.vec != 2 && leaf.vec != 4) || f[5] < 0 || f[5] >= (1LL << 31) ||
+          leaf.d % leaf.vec != 0 || leaf.kind < kSumInt || leaf.kind > kMinFloat) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      const uintptr_t address = static_cast<uintptr_t>(f[0]) | static_cast<uintptr_t>(f[3]) |
+                                static_cast<uintptr_t>(f[4]);
+      if (address % (4 * leaf.vec) != 0 || leaf.row_stride % leaf.vec != 0) {
+        return static_cast<int>(cudaErrorMisalignedAddress);
+      }
+      leaf.first = static_cast<unsigned>(items);
+      items += static_cast<int64_t>(r) * (leaf.d / leaf.vec);
+      if (items >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+      stores += static_cast<int64_t>(s) * leaf.d / 4;
+      if (leaf.kind == kSumFloat) table.float_sums = 1;
+    }
+    table.items = static_cast<unsigned>(items);
+    const int err = index_bytes == 8 ? launch_merge<int64_t>(table, ids, r, s, counts, invalid, stores, device, st)
+                                     : launch_merge<int32_t>(table, ids, r, s, counts, invalid, stores, device, st);
+    if (err != 0) return err;
+    done += table.n;
+  } while (done < n);
+  return 0;
 }

@@ -10,7 +10,8 @@ against. Each launch adds one to the op's count
 * ``stat_scores_counts`` — fused tp/fp/tn/fn counting for the stat-scores family;
 * ``confmat_counts`` — confusion-matrix counting (and ``confmat_counts_batched``);
 * ``segment_scatter_add``, ``segment_scatter_max``, ``segment_scatter_min`` —
-  the keyed update's routing of per-row deltas to tenants;
+  the routing of per-row deltas to tenants, and ``segment_merge``, the keyed
+  update's every int32/float32 leaf routed into its new state in one launch;
 * ``label_score_histograms`` — the sketched curves' per-class score
   histograms split by label (and ``label_score_histograms_batched``, a stack
   of them: the keyed rows and a bootstrap's resamples).
@@ -35,6 +36,8 @@ from metrics_tpu_torch.kernels.confusion_matrix import (  # noqa: F401
 )
 from metrics_tpu_torch.kernels.stat_scores import stat_scores_counts_cuda, stat_scores_counts_torch  # noqa: F401
 from metrics_tpu_torch.kernels.segment_scatter import (  # noqa: F401
+    segment_merge_cuda,
+    segment_merge_torch,
     segment_scatter_add_cuda,
     segment_scatter_add_torch,
     segment_scatter_max_cuda,

@@ -33,9 +33,28 @@ identity (-inf for max, +inf for min), which callers mask with
 ``counts > 0``. ``scatter_reduce_`` alone keeps the first of two equal zeros
 and may drop NaN on the card, so the plain extrema set both with explicit
 terms.
+
+The merge, :func:`segment_merge_cuda` (plain version
+:func:`segment_merge_torch`), is the keyed update's routing in one call: a
+list of leaves, each ``(rows, state, default, op)`` with ``(R, ...)`` rows,
+the ``(S, ...)`` stacked state, the leaf's default and ``op`` ``"sum"``,
+``"max"`` or ``"min"``, all int32 or all float32, becomes each leaf's new
+state (a sum adds ``rows - default`` into it, an extremum picks in XLA's
+order against it, a segment without rows keeps it), with the ``(S,)`` int32
+counts of valid rows and the 0-d int32 count of dropped ids. On the card it
+is one call into the C library and one cooperative launch
+(``csrc/segment_scatter.cu``, ``segment_merge_launch``) that reads every
+leaf's rows in place at their row stride (0 for a broadcast default) and
+writes new output tensors, so the update stays out of place. int32 sums are
+exact at any size (integer atomics); float32 sums take the batch's sum first
+and then ``state + sum``, in an order of adds that changes from run to run.
+The plain version is the per-leaf route: ``index_add_`` in the leaf's dtype,
+``state + sum``, and the plain extrema picked against the state in XLA's
+order.
 """
 import ctypes
-from typing import Tuple, Union
+import struct
+from typing import Dict, List, Sequence, Tuple, Union
 
 import torch
 
@@ -60,6 +79,22 @@ _ADD, _MAX, _MIN = 0, 1, 2
 _MAX_ITEMS = 2**31
 #: largest segment count the int32 counts and the JAX package's int32 ids address
 _MAX_SEGMENTS = 2**31 - 1
+
+_MERGE_ARGTYPES = (
+    ctypes.c_char_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+)
+_MERGE_ENTRY = "segment_merge_launch"
+#: a merged leaf's op; its kind in the C entry's table is ``op * 2 + 1`` for float32, ``op * 2`` for int32
+_MERGE_OPS = {"sum": 0, "max": 1, "min": 2}
+#: the leaf dtypes the merge takes
+MERGE_DTYPES = (torch.int32, torch.float32)
+#: a leaf's row in the C entry's table, int64 each: rows, row stride, state, out, default, D, V, kind
+_MERGE_FIELDS = 8
+#: ``{leaves: struct}`` packing a table of that many leaves
+_MERGE_TABLES: Dict[int, struct.Struct] = {}
+#: one merged leaf: ``(rows, state, default, op)``
+MergeLeaf = Tuple[Tensor, Tensor, Tensor, str]
 
 
 def _safe_ids(segment_ids: Tensor, num_segments: int) -> Tuple[Tensor, Tensor]:
@@ -242,3 +277,155 @@ def segment_scatter_min_cuda(
 ) -> Tuple[Tensor, Tensor]:
     """:func:`segment_scatter_max_cuda` for minima; empty segments hold +inf."""
     return _segment_scatter_extremal_cuda(rows, segment_ids, num_segments, "min", device)
+
+
+# --------------------------------------------------------------------------
+# the merge: every int32/float32 leaf of a keyed update in one launch
+# --------------------------------------------------------------------------
+
+
+def _ordered_pick(state: Tensor, seg: Tensor, is_max: bool) -> Tensor:
+    """``state`` or ``seg``, whichever wins a max (``is_max``) or a min in
+    XLA's order: NaN on top, +0.0 above -0.0 (B4's ``beats``). An empty
+    segment's identity (-inf, +inf, or the integer extremes) never wins."""
+    if not state.is_floating_point():
+        return torch.maximum(state, seg) if is_max else torch.minimum(state, seg)
+    wins = seg > state if is_max else seg < state
+    sign = torch.signbit(state) & ~torch.signbit(seg) if is_max else ~torch.signbit(state) & torch.signbit(seg)
+    wins = wins | ((seg == state) & sign) | (torch.isnan(seg) & ~torch.isnan(state))
+    return torch.where(wins, seg, state)
+
+
+def segment_merge_torch(leaves: Sequence[MergeLeaf], segment_ids: Tensor, num_segments: int
+                        ) -> Tuple[List[Tensor], Tensor, Tensor]:
+    """``(new states, (S,) int32 counts, 0-d int32 dropped ids)`` of the
+    merge (see the module docstring), one leaf at a time: a sum leaf's
+    ``rows - default`` summed by ``index_add_`` in its own dtype and added to
+    the state, an extremal leaf's rows picked in XLA's order
+    (:func:`segment_extremal_plain`) and then against the state."""
+    valid, safe = _safe_ids(segment_ids, num_segments)
+    outs = []
+    for rows, state, default, op in leaves:
+        r, d = rows.shape[0], default.numel()
+        if op == "sum":
+            sums = segment_sum_plain((rows - default).reshape(r, d), safe, num_segments)
+            outs.append(state + sums.reshape(state.shape))
+        else:
+            seg = segment_extremal_plain(rows.reshape(r, d), safe, num_segments, op).reshape(state.shape)
+            outs.append(_ordered_pick(state, seg, op == "max"))
+    return outs, _counts(valid, safe, num_segments), (~valid).sum().to(torch.int32)
+
+
+def _check_merge(leaves: Sequence[MergeLeaf], segment_ids: Tensor, num_segments: int, device: torch.device) -> None:
+    # attribute reads and element counts only: the shapes' slices cost the
+    # host more than the rest of a leaf's checks
+    name = "segment_merge"
+    if segment_ids.ndim != 1:
+        raise ValueError(f"{name} takes ids of shape (R,), got {tuple(segment_ids.shape)}")
+    if not 1 <= num_segments <= _MAX_SEGMENTS:
+        raise ValueError(f"{name} takes 1 <= num_segments <= {_MAX_SEGMENTS}, got {num_segments}")
+    ids_dtype = segment_ids.dtype
+    if ids_dtype.is_floating_point or ids_dtype.is_complex or ids_dtype == torch.bool:
+        raise TypeError(f"{name} takes integer segment ids, got {ids_dtype}")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} runs on a CUDA or the CPU device, not on {device}")
+    cuda = device.type == "cuda"
+    # Tensor.get_device(): the CUDA index, -1 on the CPU
+    where = device.index if cuda else -1
+    r = segment_ids.shape[0]
+    items = r
+    for rows, state, default, op in leaves:
+        if op not in _MERGE_OPS:
+            raise ValueError(f"{name} takes the ops {list(_MERGE_OPS)}, got {op!r}")
+        dtype = state.dtype
+        if dtype not in MERGE_DTYPES or rows.dtype != dtype or default.dtype != dtype:
+            raise TypeError(f"{name} takes int32 or float32 leaves whose rows, state and default share the dtype,"
+                            f" got {rows.dtype}, {dtype} and {default.dtype}")
+        d = default.numel()
+        ndim = default.ndim + 1
+        if state.ndim != ndim or rows.ndim != ndim or state.shape[0] != num_segments or rows.shape[0] != r or \
+                state.numel() != num_segments * d or rows.numel() != r * d:
+            raise ValueError(f"{name} takes rows (R, ...), state (S, ...) and a default (...) of one leaf shape, with"
+                             f" R={r} and S={num_segments}; got {tuple(rows.shape)}, {tuple(state.shape)} and"
+                             f" {tuple(default.shape)}")
+        if cuda and not (state.is_contiguous() and default.is_contiguous()):
+            raise ValueError(f"{name} takes contiguous states and defaults")
+        if rows.get_device() != where or state.get_device() != where or default.get_device() != where:
+            raise ValueError(f"{name}: expected the leaves on {device}, got {rows.device}, {state.device} and"
+                             f" {default.device}")
+        items += r * d
+    if items >= _MAX_ITEMS:
+        raise ValueError(f"{name} takes R * (1 + the leaves' widths) < {_MAX_ITEMS} (the kernel indexes in 32 bits),"
+                         f" got {items}")
+    check_device(device, segment_ids)
+    if cuda:
+        if ids_dtype not in (torch.int32, torch.int64) or not segment_ids.is_contiguous():
+            raise TypeError(f"{name} takes contiguous int32 or int64 ids, got {ids_dtype}")
+        require_capability(device)
+
+
+def _row_view(rows: Tensor, r: int, d: int) -> Tuple[Tensor, int]:
+    """``(rows as (R, D) whose row elements are adjacent, their row stride in
+    elements)``: the rows themselves or a view of them where their layout
+    allows (a broadcast default's stride 0, a slice of B1's batched output),
+    else a contiguous copy."""
+    if rows.ndim == 1 or (rows.ndim == 2 and (d <= 1 or rows.stride(1) == 1)):
+        return rows, rows.stride(0)
+    flat = rows.reshape(r, d)
+    if d > 1 and flat.stride(1) != 1:
+        flat = flat.contiguous()
+    return flat, flat.stride(0)
+
+
+def _merge_table(n: int) -> struct.Struct:
+    table = _MERGE_TABLES.get(n)
+    if table is None:
+        table = _MERGE_TABLES.setdefault(n, struct.Struct(f"<{n * _MERGE_FIELDS}q"))
+    return table
+
+
+def _merge_cuda(leaves: Sequence[MergeLeaf], segment_ids: Tensor, num_segments: int, device: torch.device
+                ) -> Tuple[List[Tensor], Tensor, Tensor]:
+    """One call into the C library: the leaves' table packed by value, the
+    outputs, counts and dropped count allocated uninitialised (the launch
+    fills them), one launch on the current stream of ``device``."""
+    r = segment_ids.shape[0]
+    fields: List[int] = []
+    outs, views = [], []
+    for rows, state, default, op in leaves:
+        d = default.numel()
+        view, stride = _row_view(rows, r, d)
+        out = torch.empty_like(state)
+        rows_ptr, out_ptr, default_ptr = view.data_ptr(), out.data_ptr(), default.data_ptr()
+        # the row stride's bytes join the address: every row then shares the first one's alignment
+        vec = vector_width(d, rows_ptr | out_ptr | default_ptr | 4 * stride)
+        kind = _MERGE_OPS[op] * 2 + (state.dtype == torch.float32)
+        fields += (rows_ptr, stride, state.data_ptr(), out_ptr, default_ptr, d, vec, kind)
+        outs.append(out)
+        views.append(view)
+    counts = torch.empty(num_segments, dtype=torch.int32, device=device)
+    invalid = torch.empty((), dtype=torch.int32, device=device)
+    err = kernel_function(_MERGE_ENTRY, _MERGE_ARGTYPES)(
+        _merge_table(len(leaves)).pack(*fields), len(leaves), segment_ids.data_ptr(), r, num_segments,
+        segment_ids.element_size(), counts.data_ptr(), invalid.data_ptr(), device.index, current_stream_handle(device))
+    check_launch("segment_merge", err)
+    note_kernel_dispatch("segment_merge", "cuda")
+    return outs, counts, invalid
+
+
+def segment_merge_cuda(
+    leaves: Sequence[MergeLeaf], segment_ids: Tensor, num_segments: int, device: Union[str, torch.device] = "cuda"
+) -> Tuple[List[Tensor], Tensor, Tensor]:
+    """``(new states, (S,) int32 counts, 0-d int32 dropped ids)`` of the
+    merge (see the module docstring) of leaves lying on ``device``.
+
+    On a CUDA device one launch of the merge kernel does it (int32 or int64
+    ids); on the CPU the plain version does. The states are new tensors.
+    Raises on inputs the kernel does not take.
+    """
+    device = kernel_device(device)
+    _check_merge(leaves, segment_ids, num_segments, device)
+    if device.type == "cpu":
+        note_kernel_dispatch("segment_merge", "torch")
+        return segment_merge_torch(leaves, segment_ids, num_segments)
+    return _merge_cuda(leaves, segment_ids, num_segments, device)

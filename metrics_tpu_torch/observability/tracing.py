@@ -62,8 +62,9 @@ update's host time splits into its parts::
   ring of its own: its id (``<name>|<n>``, a sequence a name), its
   ``enter_s``/``exit_s`` on the event-log clock (:meth:`EventLog.now`),
   ``thread``, ``profiled`` (a profiler was active, which slows the host),
-  ``spans`` (itself and every span inside it), ``host_reads``, ``attrs``
-  and ``rows_batched``. The phases' self times sum to the request's length.
+  ``spans`` (itself and every span inside it), ``host_reads``, ``attrs``,
+  ``rows_batched`` and ``merged_leaves``. The phases' self times sum to the
+  request's length.
 
 The spans of the keyed wrapper (:mod:`~metrics_tpu_torch.wrappers.multitenant`):
 ``keyed.update`` (attrs ``rows``, ``bundles``, ``path`` ``"eager"`` or
@@ -74,16 +75,19 @@ child's input checks on the whole batch, :mod:`~metrics_tpu_torch.utilities.chec
 :func:`~metrics_tpu_torch.utilities.stacked.row_states`, in its batched-rows
 form or vmapped; each bundle whose rows took the batched form counts one in
 the request's ``rows_batched``, :meth:`SpanTracker.note_rows_batched`, and
-in ``summary()["host"]["rows_batched"]``) and ``scatter``
-(column packing, the B3/B4 wrappers or the plain routes, the state merge,
-the invalid-id sum); and a ``host_read`` span for each read of tensor
+in ``summary()["host"]["rows_batched"]``) and ``scatter`` (one for the
+update: the merge's host side, the leaves' table and its one launch, and
+the routes of the leaves outside it; the leaves that took the merge count
+in the request's ``merged_leaves``, :meth:`SpanTracker.note_merged_leaves`,
+and in ``summary()["host"]["merged_leaves"]``); and a ``host_read`` span for each read of tensor
 values to the host (:func:`~metrics_tpu_torch.utilities.data.to_host`),
 counted in the request's ``host_reads`` and in ``summary()["host"]
 ["host_reads"]``. The request's own phase holds the rest: id
 canonicalization, the lock, setting the states, the telemetry. Inside a
 compiled program's run (a CUDA-graph capture on the card, every call on
 the CPU) a span records nothing, so a compiled keyed update is a request
-with ``path="compiled"``, no phase but its own and ``rows_batched`` 0.
+with ``path="compiled"``, no phase but its own and ``rows_batched`` and
+``merged_leaves`` 0.
 
 The eager ``MetricCollection.update`` is a request of its own,
 ``collection.update`` (attrs ``path`` ``"eager"``, ``members`` and
@@ -117,7 +121,8 @@ gather and the timeline stay as the JAX package's. It holds the last
 :data:`DEFAULT_HOST_CAPACITY` requests, a ``deque`` that drops its oldest
 and counts it, as the collective ledger is; ``summary()["host"]`` gives
 its ``capacity``, ``size``, ``recorded``, ``dropped`` and the
-``host_reads`` and ``rows_batched`` totals, and :meth:`SpanTracker.clear`
+``host_reads``, ``rows_batched`` and ``merged_leaves`` totals, and
+:meth:`SpanTracker.clear`
 empties both rings.
 Off, a span costs a method call and two flag reads, a phase one; on, a span inside a
 request costs two clock reads and a dict update, a request one more record
@@ -198,7 +203,8 @@ class HostRequest(NamedTuple):
     the request's own name included: the values sum to ``exit_s - enter_s``.
     ``spans`` counts the request and every span inside it, ``host_reads``
     the reads of tensor values to the host made in it, ``rows_batched`` the
-    state bundles whose per-row states took the batched-rows form in it.
+    state bundles whose per-row states took the batched-rows form in it,
+    ``merged_leaves`` the state leaves that took the merge in it.
     ``profiled`` says a ``torch.profiler`` was active, which slows the host.
     """
 
@@ -213,6 +219,7 @@ class HostRequest(NamedTuple):
     phases: Dict[str, float]
     attrs: Dict[str, Any]
     rows_batched: int
+    merged_leaves: int
 
 
 class _NullSpan:
@@ -267,13 +274,14 @@ class _Span(_NullSpan):
 class _Request:
     """What a request gathers while it is open."""
 
-    __slots__ = ("span_id", "spans", "host_reads", "rows_batched", "phases", "profiled")
+    __slots__ = ("span_id", "spans", "host_reads", "rows_batched", "merged_leaves", "phases", "profiled")
 
     def __init__(self, span_id: str, profiled: bool) -> None:
         self.span_id = span_id
         self.spans = 1
         self.host_reads = 0
         self.rows_batched = 0
+        self.merged_leaves = 0
         self.phases: Dict[str, float] = {}
         self.profiled = profiled
 
@@ -330,6 +338,7 @@ class SpanTracker:
         self._host_dropped = 0
         self._host_reads = 0
         self._rows_batched = 0
+        self._merged_leaves = 0
         self._stack = _HostStack()
 
     # -- enablement (lock-free read) ----------------------------------------
@@ -491,7 +500,8 @@ class SpanTracker:
             stack[-1].inner_s += length
             return
         record = (request.span_id, span.name, span.enter_s, exit_s, threading.get_ident(), request.profiled,
-                  request.spans, request.host_reads, phases, span.attrs, request.rows_batched)
+                  request.spans, request.host_reads, phases, span.attrs, request.rows_batched,
+                  request.merged_leaves)
         with self._lock:
             if len(self._host) == self._host.maxlen:
                 self._host_dropped += 1
@@ -499,6 +509,7 @@ class SpanTracker:
             self._host_recorded += 1
             self._host_reads += request.host_reads
             self._rows_batched += request.rows_batched
+            self._merged_leaves += request.merged_leaves
 
     def note_rows_batched(self) -> None:
         """Count one state bundle whose per-row states took the batched-rows
@@ -509,6 +520,16 @@ class SpanTracker:
             stack = self._stack.open
             if stack:
                 stack[0].request.rows_batched += 1
+
+    def note_merged_leaves(self, leaves: int) -> None:
+        """Count ``leaves`` state leaves that took the merge
+        (:func:`~metrics_tpu_torch.kernels.segment_scatter.segment_merge_cuda`)
+        in the request open on this thread. Outside a request, inside a
+        compiled program's run or disabled, it records nothing."""
+        if self._enabled and not _in_compiled_program():
+            stack = self._stack.open
+            if stack:
+                stack[0].request.merged_leaves += leaves
 
     def host_records(self) -> List[HostRequest]:
         """A consistent copy of the retained requests, in the order they
@@ -564,6 +585,7 @@ class SpanTracker:
                     "dropped": self._host_dropped,
                     "host_reads": self._host_reads,
                     "rows_batched": self._rows_batched,
+                    "merged_leaves": self._merged_leaves,
                 },
             }
 
@@ -586,6 +608,7 @@ class SpanTracker:
             self._host_dropped = 0
             self._host_reads = 0
             self._rows_batched = 0
+            self._merged_leaves = 0
 
 
 #: the process-global span tracker every instrumented collective feeds

@@ -13,15 +13,26 @@ tenant with ``update(tenant_ids, *batch)``, in one pass:
    B1's batched entry), else its pure ``apply_update`` vmapped over the
    event-row axis; the child's value checks run once on the whole batch
    first, since neither form reads a value;
-2. **sum leaves** — every ``"sum"`` leaf of the bundle in a dtype that B3
-   adds exactly through float32 (float32, int32, bfloat16), as ``per_row -
-   default``, packed into ONE ``(R, ΣD)`` float32 matrix and added into the
-   stacked state by ONE launch of the segment-scatter kernel B3
+2. **the merge** — every int32 and float32 leaf of the update, ``"sum"``,
+   ``"max"`` or ``"min"``, of every bundle (a :class:`MultiTenantCollection`
+   merges all its bundles' leaves at once), routed into its new stacked
+   state by ONE launch of the merge kernel
+   (:func:`~metrics_tpu_torch.kernels.segment_scatter.segment_merge_cuda`):
+   a sum leaf adds ``per_row - default`` (int32 exactly at any size, by
+   integer atomics; float32 as the batch's sum, then ``state + sum``), an
+   extremal leaf picks against its state in XLA's order (NaN on top, +0.0
+   above -0.0), and a tenant without rows keeps its state. The rows are
+   read where they lie (a broadcast default, a slice of B1's batched
+   output); the launch also gives the per-tenant row counts and the
+   dropped-id count. Which leaves take it is fixed by their dtypes when the
+   bundle's plan is built (:meth:`KeyedMetric._scatter_plan`);
+3. **bfloat16 sums and small-integer extrema** — the bfloat16 ``"sum"``
+   leaves as ``per_row - default`` packed into ONE ``(R, ΣD)`` float32
+   matrix and added by ONE launch of B3
    (:func:`~metrics_tpu_torch.kernels.segment_scatter.segment_scatter_add_cuda`);
-3. **extremal leaves** — each ``"max"``/``"min"`` leaf of a dtype that B4
-   picks exactly through one launch of kernel B4, merged where the kernel's
-   count of rows is non-zero, so empty segments leave their tenants
-   untouched;
+   each bfloat16, int16 or int8 ``"max"``/``"min"`` leaf picked by one
+   launch of B4 and merged where the kernel's count of rows is non-zero, so
+   empty segments leave their tenants untouched;
 4. **leaves of any other dtype** (float64, int64: the regression metrics'
    moment sums and counts) — added in their own dtype by a plain
    ``index_add_`` over an ``S+1``-row buffer whose last row takes the ids
@@ -30,16 +41,15 @@ tenant with ``update(tenant_ids, *batch)``, in one pass:
    (:func:`~metrics_tpu_torch.kernels.segment_scatter.segment_sum_plain`,
    :func:`~metrics_tpu_torch.kernels.segment_scatter.segment_extremal_plain`).
    This is the counterpart of the JAX package's ``segment_sum`` for such
-   leaves (``multitenant.py:489-511``), chosen by the leaf's dtype alone: a
-   float32 leaf on the card always goes through B3. Each such scatter counts
-   under its op's ``"plain"`` dispatch path (once per dispatch, and once per
-   capture inside a compiled step).
+   leaves (``multitenant.py:489-511``), chosen by the leaf's dtype alone.
+   Each such scatter counts under its op's ``"plain"`` dispatch path (once
+   per dispatch, and once per capture inside a compiled step).
 
-Where the JAX package sends a mixed bundle's float32-exact sums through
-XLA's ``segment_sum`` (``multitenant.py:606-615``), the port sends them
-through B3 as well: the deltas of the ported metrics are integer-valued or
-float32, and each batch's per-tenant sums of the integer ones stay far below
-2^24, so the values are the same, and B3 has no VMEM gate on the card.
+Where the JAX package sends a mixed bundle's leaves through XLA's
+``segment_sum``/``segment_max`` (``multitenant.py:606-615``), fused by XLA
+into one program, the port sends its int32 and float32 leaves through the
+merge: int32 sums exact as ``segment_sum`` in int32 is, extrema in XLA's
+order, float32 sums to rounding.
 
 :class:`MultiTenantCollection` is the collection form: members whose
 :meth:`~metrics_tpu_torch.metric.Metric._shared_update_key` and state layout
@@ -53,8 +63,9 @@ always on the pure ``apply_update`` path — invalid rows are dropped by the
 kernels (ids are clipped against the physical ``capacity``, so an id in the
 padding band ``[num_tenants, capacity)`` lands in a padding row that compute
 slices off). :meth:`KeyedMetric._segment_scatter` returns the dropped count
-as a device scalar; no update reads it to the host. With telemetry on it is
-added into a device-side accumulator under ``invalid_tenant_ids``
+(the merge's, else a sum of the ids out of range) as a device scalar; no
+update reads it to the host. With telemetry on it is added into a
+device-side accumulator under ``invalid_tenant_ids``
 (``metrics_tpu/wrappers/multitenant.py:318-321``), read only when
 ``observability.snapshot()`` or ``TELEMETRY.counter`` asks, so a keyed
 update makes the same synchronizing calls with telemetry on as off.
@@ -88,10 +99,10 @@ ingest threads never interleave their read-modify-write of the stacked
 state. While telemetry is on every update feeds a per-tenant traffic ledger
 (:class:`_TenantTraffic`: rows routed and the last time each tenant was
 seen) behind :meth:`KeyedMetric.tenant_report`. The ledger lives on the
-update's device and is fed the segment-scatter kernel's per-tenant row
-counts (three device operations per update); it is read to the host only
-when a report asks, so a keyed update makes the same synchronizing calls
-with telemetry on as off. (The JAX package reads the ids on the host
+update's device and is fed the merge's (else B3's, B4's or the plain
+route's) per-tenant row counts (three device operations per update); it is
+read to the host only when a report asks, so a keyed update makes the same
+synchronizing calls with telemetry on as off. (The JAX package reads the ids on the host
 instead.) The admission queue's staged host view carries its device twin
 (``device_tensor``): the twin is what the update dispatches, and the host
 view validates the ids without a read.
@@ -113,7 +124,7 @@ import copy
 import threading
 import time
 from collections import OrderedDict
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -121,9 +132,11 @@ import torch
 from metrics_tpu_torch.collections import MetricCollection
 from metrics_tpu_torch.kernels._common import note_kernel_dispatch
 from metrics_tpu_torch.kernels.segment_scatter import (
+    MERGE_DTYPES,
     _counts,
     _safe_ids,
     segment_extremal_plain,
+    segment_merge_cuda,
     segment_scatter_add_cuda,
     segment_scatter_max_cuda,
     segment_scatter_min_cuda,
@@ -145,7 +158,7 @@ from metrics_tpu_torch.observability.memory import LEDGER
 from metrics_tpu_torch.observability.profiling import PROFILER
 from metrics_tpu_torch.observability.registry import TELEMETRY
 from metrics_tpu_torch.observability.retrace import MONITOR, arg_signature
-from metrics_tpu_torch.observability.tracing import span
+from metrics_tpu_torch.observability.tracing import TRACER, span
 from metrics_tpu_torch.utilities.aot import CompiledDispatch, GraphPool
 from metrics_tpu_torch.utilities.data import (
     Tensor,
@@ -162,12 +175,59 @@ __all__ = ["KeyedMetric", "MultiTenantCollection"]
 
 #: reductions the segment router can route exactly (see :func:`_keyed_gate`)
 _SEGMENT_REDUCTIONS = ("sum", "max", "min")
-#: leaf dtypes B3 accumulates exactly through its float32 rows (others take
-#: the plain ``index_add_`` in their own dtype)
-_FUSED_SCATTER_DTYPES = (torch.float32, torch.int32, torch.bfloat16)
-#: leaf dtypes B4 picks exactly through its float32 rows (others take the
-#: plain ``scatter_reduce_`` in their own dtype)
-_EXTREMAL_SCATTER_DTYPES = (torch.float32, torch.int32, torch.bfloat16, torch.int16, torch.int8)
+#: sum-leaf dtypes outside the merge that B3 accumulates exactly through its
+#: float32 rows (others take the plain ``index_add_`` in their own dtype)
+_FUSED_SCATTER_DTYPES = (torch.bfloat16,)
+#: extremal-leaf dtypes outside the merge that B4 picks exactly through its
+#: float32 rows (others take the plain ``scatter_reduce_`` in their own dtype)
+_EXTREMAL_SCATTER_DTYPES = (torch.bfloat16, torch.int16, torch.int8)
+
+
+class _ScatterPlan(NamedTuple):
+    """A bundle's routes, fixed by its leaves' dtypes and reductions."""
+
+    #: ``(name, reduction, default)`` of the int32/float32 leaves: the merge
+    merged: Tuple[Tuple[str, str, Tensor], ...]
+    #: the other ``"sum"`` leaves by the dtype they are added in: float32
+    #: (B3, the bfloat16 leaves), else their own (the plain route)
+    sums: Dict[torch.dtype, List[str]]
+    #: the other ``"max"``/``"min"`` leaves: B4's first, then the plain route's
+    extremal: Tuple[str, ...]
+    #: how many of ``extremal`` B4 takes
+    b4: int
+    #: a leaf takes a plain route
+    plain: bool
+    #: a leaf outside the merge takes B3 or B4, which give the row counts
+    kernel: bool
+
+
+def _scatter_bundles(bundles: Sequence[Tuple["KeyedMetric", StateDict, StateDict]], ids: Tensor, n: int,
+                     device: torch.device) -> Tuple[List[StateDict], Tensor, Optional[Tensor]]:
+    """The scatter of one keyed update over ``(keyed bundle, stacked state,
+    per-row states)`` triples sharing ``ids`` and the capacity ``n``: ONE
+    merge launch over the int32/float32 leaves of every bundle, then each
+    bundle's other leaves (:meth:`KeyedMetric._scatter_rest`). Returns the
+    new stacked states, the invalid-id count and the per-tenant row counts
+    (the merge's, else the first bundle's)."""
+    leaves = []
+    for keyed, state, per_row in bundles:
+        for name, fx, default in keyed._scatter_plan().merged:
+            rows = per_row[name]
+            leaves.append((rows if rows.dtype == default.dtype else rows.to(default.dtype), state[name], default, fx))
+    counts = invalid = None
+    outs: List[Tensor] = []
+    if leaves:
+        outs, counts, invalid = segment_merge_cuda(leaves, ids, n, device=device)
+        TRACER.note_merged_leaves(len(leaves))
+    merged = iter(outs)
+    news = []
+    for keyed, state, per_row in bundles:
+        new = {name: next(merged) for name, _, _ in keyed._scatter_plan().merged}
+        counts = keyed._scatter_rest(state, ids, per_row, new, counts)
+        news.append({name: new[name] for name in keyed._child._reductions})
+    if invalid is None:
+        invalid = torch.sum((ids < 0) | (ids >= n)).to(torch.int32)
+    return news, invalid, counts
 
 
 def _pow2_at_least(n: int) -> int:
@@ -420,11 +480,10 @@ def _keyed_gate(metric: Metric, what: str = "base_metric") -> None:
     ``"cat"``/``"mean"``/custom reductions and ``dist_sync_on_step`` all
     stay single-stream.
 
-    Integer ``"sum"`` leaves (int32) reach B3 as float32 deltas, so a keyed
-    update is exact only while each tenant's sum of one leaf element within
-    one batch stays below 2^24; nothing checks that bound at run time. In
-    the ported metrics a row adds at most its number of elements to a leaf
-    element, so a 4096-row batch of up to 4096 elements per row stays exact.
+    int32 ``"sum"`` leaves take the merge's integer atomics, exact at any
+    size. bfloat16 ``"sum"`` leaves reach B3 as float32 deltas, so they are
+    exact only while each tenant's sum of one leaf element within one batch
+    stays below 2^24; nothing checks that bound at run time.
     """
     if not isinstance(metric, Metric):
         raise ValueError(f"Expected {what} to be a metrics_tpu_torch.Metric, got {metric!r}")
@@ -603,56 +662,80 @@ class KeyedMetric(Metric):
     ) -> Tuple[StateDict, Tensor, Tensor]:
         """``(new_stacked_state, invalid_count, counts)``: the keyed update
         and the ``(capacity,)`` int32 row counts per tenant (the traffic
-        ledger's feed) of the first kernel launched, B3 before B4.
+        ledger's feed) of the merge, else of the first kernel launched, B3
+        before B4.
 
         The kernels drop ids < 0 or >= the PHYSICAL capacity; an id in the
         padding band ``[num_tenants, capacity)`` lands in a padding row, which
         compute slices off. ``invalid_count`` stays on the device.
 
-        Leaves the kernels do not take exactly take the plain route in their
-        own dtype (see the module docstring). A bundle with no leaf for
-        either kernel gets its counts from a plain ``index_add_`` of its
-        valid rows into int32, on the device: no update reads an id to the
-        host, so every route can be captured.
+        Leaves outside the merge take B3, B4 or the plain route in their own
+        dtype (see the module docstring). A bundle with no leaf for any
+        kernel gets its counts from a plain ``index_add_`` of its valid rows
+        into int32, on the device: no update reads an id to the host, so
+        every route can be captured.
 
-        Its host spans: ``checks`` (the child's input checks on the whole
-        batch), ``row_states`` and ``scatter`` (:meth:`_scatter_rows`).
+        Its host spans: ``checks`` and ``row_states`` (:meth:`_bundle_rows`)
+        and ``scatter`` (:func:`_scatter_bundles`: one merge launch).
         """
+        per_row = self._bundle_rows(args, kwargs)
+        with span("scatter"):
+            (new,), invalid, counts = _scatter_bundles(((self, state, per_row),), ids, self._capacity, self.device)
+        return new, invalid, counts
+
+    def _bundle_rows(self, args: Tuple, kwargs: Dict) -> StateDict:
+        """The child's input checks on the whole batch (the ``checks`` span;
+        they raise before any state changes) and its per-row states
+        (:func:`~metrics_tpu_torch.utilities.stacked.row_states`)."""
         child = self._child
         if not _is_traced():
             with span("checks"):
                 child._validate_batch(*args, **kwargs)
-        per_row = row_states(child, args, kwargs)
-        with span("scatter"):
-            return self._scatter_rows(state, ids, per_row)
+        return row_states(child, args, kwargs)
 
-    def _scatter_rows(self, state: StateDict, ids: Tensor, per_row: StateDict
-                      ) -> Tuple[StateDict, Tensor, Tensor]:
-        """The rest of :meth:`_scatter_counted`: the row states packed into
-        columns per dtype and routed through B3/B4 (or the plain routes),
-        merged into ``state``, and the invalid-id count."""
+    def _scatter_plan(self) -> _ScatterPlan:
+        """The bundle's routes by leaf dtype and reduction, built at the first
+        update: int32 and float32 leaves take the merge; bfloat16 sums B3;
+        bfloat16, int16 and int8 extrema B4; the rest the plain routes."""
+        plan = self.__dict__.get("_plan")
+        if plan is None:
+            child = self._child
+            merged, sums, b4, plain_extremal = [], {}, [], []
+            for name, fx in child._reductions.items():
+                default = child._defaults[name]
+                if default.dtype in MERGE_DTYPES:
+                    merged.append((name, fx, default.contiguous()))
+                elif fx == "sum":
+                    fused = default.dtype in _FUSED_SCATTER_DTYPES
+                    sums.setdefault(torch.float32 if fused else default.dtype, []).append(name)
+                elif default.dtype in _EXTREMAL_SCATTER_DTYPES:
+                    b4.append(name)
+                else:
+                    plain_extremal.append(name)
+            plain = bool(plain_extremal) or any(dtype != torch.float32 for dtype in sums)
+            plan = self.__dict__["_plan"] = _ScatterPlan(
+                tuple(merged), sums, tuple(b4 + plain_extremal), len(b4), plain, torch.float32 in sums or bool(b4))
+        return plan
+
+    def _scatter_rest(self, state: StateDict, ids: Tensor, per_row: StateDict, new: StateDict,
+                      counts: Optional[Tensor]) -> Optional[Tensor]:
+        """The leaves outside the merge routed into ``new``: the bfloat16 sums
+        packed into columns through B3, the other sums by dtype through the
+        plain route, the extrema through B4 or the plain route, merged where
+        a tenant has rows. Returns the row counts: ``counts`` (the merge's
+        or an earlier bundle's) where given, else those of this bundle's
+        first kernel or of the plain route."""
+        plan = self._scatter_plan()
         child = self._child
         n = self._capacity
-        dtypes = {name: child._defaults[name].dtype for name in child._reductions}
-        sums = [name for name, fx in child._reductions.items() if fx == "sum"]
-        extremal = [name for name, fx in child._reductions.items() if fx != "sum"]
-        fused = any(dtypes[name] in _FUSED_SCATTER_DTYPES for name in sums)
-        fused_extremal = [name for name in extremal if dtypes[name] in _EXTREMAL_SCATTER_DTYPES]
-        plain_extremal = [name for name in extremal if name not in fused_extremal]
-        counts: Optional[Tensor] = None
-        if plain_extremal or any(dtypes[name] not in _FUSED_SCATTER_DTYPES for name in sums) or not (
-                fused or fused_extremal):
+        if plan.plain or (counts is None and not plan.kernel):
             # the plain route's ids (made only where a leaf takes it), and the
-            # row counts where no kernel gives them
+            # row counts where nothing else gives them
             valid, safe = _safe_ids(ids, n)
-            if not (fused or fused_extremal):
+            if counts is None and not plan.kernel:
                 counts = _counts(valid, safe, n)
                 note_kernel_dispatch("segment_scatter_add", "plain")
-        new: StateDict = {}
-        by_dtype: Dict[torch.dtype, List[str]] = {}
-        for name in sums:
-            by_dtype.setdefault(torch.float32 if dtypes[name] in _FUSED_SCATTER_DTYPES else dtypes[name], []).append(name)
-        for dtype, names in by_dtype.items():
+        for dtype, names in plan.sums.items():
             layout, columns = [], []
             for name in names:
                 delta = per_row[name] - child._defaults[name]
@@ -661,7 +744,8 @@ class KeyedMetric(Metric):
                 columns.append(flat)
             packed = torch.cat(columns, dim=1)
             if dtype == torch.float32:
-                packed, counts = segment_scatter_add_cuda(packed.contiguous(), ids, n, device=self.device)
+                packed, seg_counts = segment_scatter_add_cuda(packed.contiguous(), ids, n, device=self.device)
+                counts = seg_counts if counts is None else counts
             else:
                 packed = segment_sum_plain(packed, safe, n)
                 note_kernel_dispatch("segment_scatter_add", "plain")
@@ -670,11 +754,11 @@ class KeyedMetric(Metric):
                 delta = packed[:, offset:offset + width].reshape((n,) + shape)
                 new[name] = state[name] + delta.to(state[name].dtype)
                 offset += width
-        for name in fused_extremal + plain_extremal:
+        for i, name in enumerate(plan.extremal):
             fx, rows = child._reductions[name], per_row[name]
             pick = torch.maximum if fx == "max" else torch.minimum
             flat = rows.reshape(rows.shape[0], -1)
-            if name in fused_extremal:
+            if i < plan.b4:
                 kernel = segment_scatter_max_cuda if fx == "max" else segment_scatter_min_cuda
                 seg, seg_counts = kernel(flat.to(torch.float32).contiguous(), ids, n, device=self.device)
                 counts = seg_counts if counts is None else counts
@@ -684,8 +768,7 @@ class KeyedMetric(Metric):
             seg = seg.reshape((n,) + tuple(rows.shape[1:]))
             has_rows = (seg_counts > 0).reshape((n,) + (1,) * (rows.ndim - 1))
             new[name] = torch.where(has_rows, pick(state[name], seg.to(state[name].dtype)), state[name])
-        invalid = torch.sum((ids < 0) | (ids >= n)).to(torch.int32)
-        return {name: new[name] for name in child._reductions}, invalid, counts
+        return counts
 
     # ------------------------------------------------------------------
     # pure and stateful API
@@ -1066,7 +1149,7 @@ class KeyedMetric(Metric):
         with self._serial_lock():
             state = super().__getstate__()
             state["_child"] = self._child.clone()
-        for k in ("_ingest_lock", "_durability_hooks", "_durability_traffic_pin"):
+        for k in ("_ingest_lock", "_durability_hooks", "_durability_traffic_pin", "_plan"):
             state.pop(k, None)
         return state
 
@@ -1217,16 +1300,17 @@ class MultiTenantCollection:
         self, state: Dict[str, StateDict], ids: Tensor, *args: Any, **kwargs: Any
     ) -> Tuple[Dict[str, StateDict], Tuple[Tensor, Tensor]]:
         """Every bundle advanced by one batch (each member's kwargs filtered),
-        and the first bundle's invalid-id count and per-tenant row counts
-        (the pure program of the compiled update, too)."""
-        new: Dict[str, StateDict] = {}
-        invalid = counts = None
+        and the invalid-id count and per-tenant row counts (the pure program
+        of the compiled update, too): every bundle's checks and row states
+        first, then ONE merge launch over the int32/float32 leaves of all of
+        them (:func:`_scatter_bundles`)."""
+        bundles = []
         for owner, keyed in self._keyed.items():
             fkw = self._collection[owner]._filter_kwargs(**kwargs)
-            new[owner], inv, cnt = keyed._scatter_counted(state[owner], ids, args, fkw)
-            if invalid is None:
-                invalid, counts = inv, cnt
-        return new, (invalid, counts)
+            bundles.append((keyed, state[owner], keyed._bundle_rows(args, fkw)))
+        with span("scatter"):
+            new, invalid, counts = _scatter_bundles(bundles, ids, self._capacity, self.device)
+        return dict(zip(self._keyed, new)), (invalid, counts)
 
     # -- the compiled update ------------------------------------------------------
 

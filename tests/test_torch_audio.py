@@ -182,8 +182,8 @@ def test_keyed_matches_the_jax_keyed_form_through_one_b3_dispatch(name, fn, args
     for ids, p, t in batches:
         jk.update(jnp.asarray(ids), jnp.asarray(p), jnp.asarray(t))
         tk.update(_t(ids), _t(p), _t(t))
-    # both leaves (float32 sum, int32 count) ride one B3 dispatch per update
-    assert _common.dispatch_summary()["dispatch"] == {"segment_scatter_add": {"torch": len(batches)}}
+    # both leaves (float32 sum, int32 count) ride one merge dispatch per update
+    assert _common.dispatch_summary()["dispatch"] == {"segment_merge": {"torch": len(batches)}}
     assert tk.total.dtype == torch.int32
     np.testing.assert_array_equal(tk.total.numpy(), np.asarray(jk.total))
     with warnings.catch_warnings():
@@ -202,7 +202,8 @@ def test_multitenant_collection_of_si_sdr_and_snr_matches_the_jax_package():
         jc.update(jnp.asarray(ids), jnp.asarray(p), jnp.asarray(t))
         tc.update(_t(ids), _t(p), _t(t))
     assert tc.state_bundles == 2
-    assert _common.dispatch_summary()["dispatch"] == {"segment_scatter_add": {"torch": 2 * len(batches)}}
+    # one merge an update over both bundles' leaves
+    assert _common.dispatch_summary()["dispatch"] == {"segment_merge": {"torch": len(batches)}}
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         got, want = tc.compute(), jc.compute()

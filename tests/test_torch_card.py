@@ -20,7 +20,7 @@ against the CPU, and capture while the serving flusher's thread works. The
 retrieval cases hold the flat, padded and sketched modes on the card against
 the CPU (the query reservoir and the hash bit for bit), replay the padded
 compiled forward and the reservoir update, and count the keyed padded
-update's B3 launches. The observability cases run the compiled health guard
+update's merge launches. The observability cases run the compiled health guard
 with no synchronizing call, split a sampled dispatch by CUDA events, hold the
 memory ledger's bytes against the caching allocator's, and name the
 collection's members in a ``torch.profiler`` trace. The durability cases
@@ -47,6 +47,8 @@ from metrics_tpu_torch.kernels.binned_counts import (
 )
 from metrics_tpu_torch.kernels.confusion_matrix import confmat_counts_cuda, confmat_counts_torch
 from metrics_tpu_torch.kernels.segment_scatter import (
+    segment_merge_cuda,
+    segment_merge_torch,
     segment_scatter_add_cuda,
     segment_scatter_add_torch,
     segment_scatter_max_cuda,
@@ -253,6 +255,139 @@ def test_b3_b4_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     assert _common.launch_count("segment_scatter_add") == 0
 
 
+# -- the merge ----------------------------------------------------------------------
+
+
+def _b_merge_inputs(dev, gen, dtype, r=4096, s=10_000):
+    """The merge's inputs as the keyed cell's update gives them: ids (invalid
+    ones among them), Accuracy's rows as the columns of one (R, 5) tensor
+    (tp, fp, tn, fn, mode_code), the macro bundle's (R, 4, 10) output of B1's
+    batched entry, the defaults (non-zero here, 0-d and (10,)) and the
+    eleven (S, ...) states."""
+    ids = torch.randint(-2, s + 8, (r,), generator=gen, device=dev)
+    acc = torch.randint(-1, 3, (r, 5), generator=gen, device=dev).to(dtype)
+    macro = torch.randint(0, 3, (r, 4, 10), generator=gen, device=dev).to(dtype)
+    d0, d10 = torch.ones((), dtype=dtype, device=dev), torch.ones(10, dtype=dtype, device=dev)
+    states = [torch.randint(-5, 6, (s,) + shape, generator=gen, device=dev).to(dtype)
+              for shape in [()] * 7 + [(10,)] * 4]
+    return (ids, acc, macro, d0, d10, *states)
+
+
+def _b_merge_leaves(ids, acc, macro, d0, d10, *states):
+    """The keyed cell's eleven leaves: Accuracy's four sums read in place at
+    row stride 5, ``correct`` and ``total`` as its broadcast default (stride
+    0), its ``mode_code`` max, and the macro bundle's four (R, 10) sums read
+    in place at row stride 40."""
+    r = ids.shape[0]
+    rows = [acc[:, k] for k in range(4)] + [d0.expand(r), d0.expand(r), acc[:, 4]] + [macro[:, k] for k in range(4)]
+    ops = ["sum"] * 6 + ["max"] + ["sum"] * 4
+    defaults = [d0] * 7 + [d10] * 4
+    return [(x, state, d, op) for x, state, d, op in zip(rows, states, defaults, ops)]
+
+
+def _flat_merge(fn):
+    """``fn`` (the merge's kernel or plain version) over :func:`_b_merge_inputs`,
+    its outputs as one flat tuple."""
+    def call(*inputs):
+        outs, counts, invalid = fn(_b_merge_leaves(*inputs), inputs[0], inputs[5].shape[0])
+        return (*outs, counts, invalid)
+    return call
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("ids_dtype", [torch.int64, torch.int32])
+def test_merge_kernel_matches_plain_at_the_keyed_shapes(cuda_device, dtype, ids_dtype):
+    """The keyed cell's eleven leaves at R = 4096, S = 10,000, their rows read
+    in place (strided and broadcast), non-zero defaults, NaN and signed zeros
+    among the float max leaf's rows: bit for bit the plain version, in one
+    launch and no B3 or B4."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    inputs = list(_b_merge_inputs(cuda_device, gen, dtype))
+    inputs[0] = inputs[0].to(ids_dtype)
+    if dtype == torch.float32:
+        inputs[1][:3, 4] = torch.tensor([float("nan"), -0.0, 0.0], device=cuda_device)
+    got = _flat_merge(lambda leaves, ids, s: segment_merge_cuda(leaves, ids, s, device=cuda_device))(*inputs)
+    torch.cuda.synchronize()
+    want = _flat_merge(segment_merge_torch)(*inputs)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        _assert_exact(g.cpu().numpy(), w.cpu().numpy())
+    assert int(got[-2].sum()) + int(got[-1]) == 4096
+    assert _common.launch_count("segment_merge") == 1
+    assert all(_common.launch_count(f"segment_scatter_{op}") == 0 for op in ("add", "max", "min"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["sum", "max", "min"])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("d", [40, 10, 6, 3, 1])
+@pytest.mark.parametrize("offset", [0, 1, 2])
+def test_merge_kernel_vector_widths_match_plain(cuda_device, op, dtype, d, offset):
+    """Rows, and the default, 0, 4 or 8 bytes into their buffers (V = 4, 1 or
+    2 where D allows): bit for bit the plain version, with a ragged R."""
+    rng = np.random.RandomState(d + 7 * offset)
+    r, s = 4099, 1000
+    buf = torch.from_numpy(rng.randint(-3, 4, r * d + offset).astype(np.float32)).to(dtype).to(cuda_device)
+    rows = buf[offset:offset + r * d].view(r, d)
+    default = torch.from_numpy(rng.randint(-2, 3, d + offset).astype(np.float32)).to(dtype).to(cuda_device)
+    default = default[offset:]
+    state = torch.from_numpy(rng.randint(-9, 10, (s, d)).astype(np.float32)).to(dtype).to(cuda_device)
+    ids = torch.from_numpy(rng.randint(-1, s + 3, r)).to(cuda_device)
+    leaves = [(rows, state, default, op)]
+    got = segment_merge_cuda(leaves, ids, s, device=cuda_device)
+    torch.cuda.synchronize()
+    want = segment_merge_torch(leaves, ids, s)
+    _assert_exact(got[0][0].cpu().numpy(), want[0][0].cpu().numpy())
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert _common.launch_count("segment_merge") == 1
+
+
+@pytest.mark.cuda
+def test_merge_kernel_on_a_keyed_regression_bundle(cuda_device):
+    """Float32 sums of real-valued rows (squared and absolute errors) over a
+    large accumulated state, with an int32 count: the count exactly, the sums
+    as the plain version's ``state + sum`` to float32 rounding."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    r, s = 4096, 10_000
+    err = torch.randn(r, generator=gen, device=cuda_device)
+    ids = torch.randint(-1, s + 1, (r,), generator=gen, device=cuda_device)
+    big = 1e6 * torch.rand(s, generator=gen, device=cuda_device)
+    zero_f, zero_i = torch.zeros((), device=cuda_device), torch.zeros((), dtype=torch.int32, device=cuda_device)
+    leaves = [(err * err, big, zero_f, "sum"), (err.abs(), big.clone(), zero_f, "sum"),
+              (torch.ones((), dtype=torch.int32, device=cuda_device).expand(r),
+               torch.randint(0, 9, (s,), generator=gen, device=cuda_device, dtype=torch.int32), zero_i, "sum")]
+    got = segment_merge_cuda(leaves, ids, s, device=cuda_device)
+    torch.cuda.synchronize()
+    want = segment_merge_torch(leaves, ids, s)
+    for g, w in zip(got[0][:2], want[0][:2]):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=0.0)
+    assert torch.equal(got[0][2], want[0][2]) and torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert _common.launch_count("segment_merge") == 1
+
+
+@pytest.mark.cuda
+def test_the_keyed_collection_launches_one_merge_an_update_eager_and_compiled(cuda_device):
+    """Eager and compiled, the keyed collection's update launches the merge
+    exactly once (each replay counts its one launch) and B3 and B4 never;
+    both end in the same states."""
+    n = 50
+    cohorts = _keyed_cohorts(12, [256] * 4, n)
+    eager = T.MultiTenantCollection(_members(device=cuda_device), n, validate_ids=False, device=cuda_device)
+    compiled = T.MultiTenantCollection(_members(device=cuda_device), n, validate_ids=False, device=cuda_device)
+    compiled.warmup(*(_t(x).to(cuda_device) for x in cohorts[0]))
+    for obj in (eager, compiled):
+        _common.reset_dispatch_counters()
+        for c in cohorts:
+            obj.update(*(_t(x).to(cuda_device) for x in c))
+        torch.cuda.synchronize()
+        assert _common.launch_count("segment_merge") == len(cohorts)
+        assert all(_common.launch_count(f"segment_scatter_{op}") == 0 for op in ("add", "max", "min"))
+    for owner, km in eager._keyed.items():
+        for name, value in km._get_states().items():
+            assert torch.equal(getattr(compiled._keyed[owner], name), value), name
+
+
 # -- B5 ---------------------------------------------------------------------------
 
 
@@ -305,7 +440,9 @@ def test_keyed_collection_on_the_card_matches_the_cpu(cuda_device):
         preds, target = logits / logits.sum(-1, keepdims=True), rng.randint(0, C, 256)
         card.update(_t(ids).to(cuda_device), _t(preds).to(cuda_device), _t(target).to(cuda_device))
         host.update(_t(ids), _t(preds), _t(target))
-    assert _common.launch_count("segment_scatter_add") == 6 and _common.launch_count("segment_scatter_max") == 3
+    # one merge an update for both bundles' eleven leaves, no B3, no B4
+    assert _common.launch_count("segment_merge") == 3
+    assert _common.launch_count("segment_scatter_add") == 0 and _common.launch_count("segment_scatter_max") == 0
     # the macro bundle's rows: one B1 launch an update, over the (256, 1, C) stack
     assert _common.launch_count("stat_scores_counts") == 3
     for owner, km in host._keyed.items():
@@ -402,7 +539,7 @@ def _keyed_cohorts(seed, cohorts, n):
 def test_the_queue_on_the_card_matches_the_cpu(cuda_device, staging):
     """Cohorts through an ``AdmissionQueue`` over a card collection and over
     a CPU one: ledgers and stacked states equal, the pad rows counted as
-    invalid ids, B3/B4 launched once per bundle per flush. Staged, the twins
+    invalid ids, the merge launched once per flush. Staged, the twins
     are copied on the queue's side stream from pinned slots."""
     from metrics_tpu_torch.serving import AdmissionQueue
 
@@ -433,8 +570,8 @@ def test_the_queue_on_the_card_matches_the_cpu(cuda_device, staging):
     if staging:
         assert queues[0]._copy_stream is not None and queues[0]._slots.pin
         assert all(s is None or s.tensors[0].is_pinned() for s in queues[0]._slots._slots)
-    assert _common.launch_count("segment_scatter_add") == 2 * len(cohorts)
-    assert _common.launch_count("segment_scatter_max") == len(cohorts)
+    assert _common.launch_count("segment_merge") == len(cohorts)
+    assert _common.launch_count("segment_scatter_add") == 0 and _common.launch_count("segment_scatter_max") == 0
     assert _common.launch_count("stat_scores_counts") == len(cohorts)
     for owner, km in host._keyed.items():
         for name, value in km._get_states().items():
@@ -544,6 +681,9 @@ def _graph_cases(dev):
         ("B4 min", "segment_scatter_min", ids_rows(1),
          lambda i, r: segment_scatter_min_cuda(r, i, 10_000, device=dev),
          lambda i, r: segment_scatter_min_torch(r, i, 10_000)),
+        ("merge", "segment_merge", lambda: _b_merge_inputs(dev, gen, torch.int32),
+         _flat_merge(lambda leaves, ids, s: segment_merge_cuda(leaves, ids, s, device=dev)),
+         _flat_merge(segment_merge_torch)),
         ("B5 class ids", _HIST, scores_ids, lambda s, i: _label_score_histograms_onevsrest(s, i, 2048),
          lambda s, i: bc._onevsrest_torch(s, i, 2048)),
         ("B5 dense", _HIST, dense, lambda s, t: label_score_histograms_cuda(s, t, 2048, device=dev),
@@ -554,8 +694,8 @@ def _graph_cases(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", range(8), ids=["B1", "B2", "B3", "B4 max", "B4 min", "B5 class ids", "B5 dense",
-                                               "B5 add mode"])
+@pytest.mark.parametrize("case", range(9), ids=["B1", "B2", "B3", "B4 max", "B4 min", "merge", "B5 class ids",
+                                               "B5 dense", "B5 add mode"])
 def test_a_captured_then_replayed_launch_equals_the_plain_version(cuda_device, case):
     """Each kernel captured once into a CUDA graph (thread-local capture, as
     the compiled step captures) and replayed on fresh inputs copied into its
@@ -787,7 +927,7 @@ def test_the_compiled_keyed_update_and_capacity_mode_on_the_card_match_the_cpu(c
 
 
 class _ThreeSums(T.Metric):
-    """A float32, a float64 and an int64 ``"sum"`` leaf: B3 takes the first,
+    """A float32, a float64 and an int64 ``"sum"`` leaf: the merge takes the first,
     the plain ``index_add_`` the other two, in their own dtypes."""
 
     def __init__(self, **kw):
@@ -807,10 +947,10 @@ class _ThreeSums(T.Metric):
 
 @pytest.mark.cuda
 def test_keyed_float32_float64_and_int64_sum_leaves_on_the_card_match_the_cpu(cuda_device):
-    """Integer-valued float32 rows (B3 adds them exactly in any order), float64
-    rows on a 1/1024 grid and int64 counts past 2^24: the card's stacked
-    state equals the CPU's exactly; B3 launches once per update, the plain
-    route twice (one scatter per dtype)."""
+    """Integer-valued float32 rows (the merge adds them exactly in any order),
+    float64 rows on a 1/1024 grid and int64 counts past 2^24: the card's
+    stacked state equals the CPU's exactly; the merge launches once per
+    update, the plain route twice (one scatter per dtype)."""
     rng = np.random.RandomState(21)
     n = 300
     card = T.KeyedMetric(_ThreeSums(device=cuda_device), n, validate_ids=False, device=cuda_device)
@@ -825,7 +965,7 @@ def test_keyed_float32_float64_and_int64_sum_leaves_on_the_card_match_the_cpu(cu
     for name in ("f32", "f64", "i64"):
         got = getattr(card, name)
         assert got.dtype == getattr(host, name).dtype and torch.equal(got.cpu(), getattr(host, name)), name
-    assert _common.launch_count("segment_scatter_add") == 4
+    assert _common.launch_count("segment_merge") == 4 and _common.launch_count("segment_scatter_add") == 0
     assert _common.dispatch_count("segment_scatter_add", "plain") == 4 * 2 * 2  # card and host
 
     members = lambda d: [T.MeanSquaredError(device=d), T.MeanAbsoluteError(device=d),  # noqa: E731
@@ -838,7 +978,8 @@ def test_keyed_float32_float64_and_int64_sum_leaves_on_the_card_match_the_cpu(cu
         p, t = rng.rand(2048).astype(np.float32), rng.rand(2048).astype(np.float32)
         card.update(_t(ids).to(cuda_device), _t(p).to(cuda_device), _t(t).to(cuda_device))
         host.update(_t(ids), _t(p), _t(t))
-    assert _common.launch_count("segment_scatter_add") == 3 * 3  # one per bundle per update
+    assert _common.launch_count("segment_merge") == 3  # one per update, over the three bundles
+    assert _common.launch_count("segment_scatter_add") == 0
     for owner, km in host._keyed.items():
         for name, value in km._get_states().items():
             got = getattr(card._keyed[owner], name).cpu()
@@ -1012,9 +1153,9 @@ def test_the_keyed_padded_update_launches_b3_once_per_bundle(cuda_device):
         card.update(*(_t(x).to(cuda_device) for x in (ids, preds, target)))
         host.update(*(_t(x) for x in (ids, preds, target)))
     torch.cuda.synchronize()
-    assert _common.launch_count("segment_scatter_add") == 3 * 4  # one per bundle per update
-    for op in ("stat_scores_counts", "confmat_counts", "segment_scatter_max", "segment_scatter_min",
-               "label_score_histograms"):
+    assert _common.launch_count("segment_merge") == 4  # one per update, over the three bundles
+    for op in ("stat_scores_counts", "confmat_counts", "segment_scatter_add", "segment_scatter_max",
+               "segment_scatter_min", "label_score_histograms"):
         assert _common.launch_count(op) == 0, op
     for owner, km in host._keyed.items():
         assert torch.equal(card._keyed[owner].query_total.cpu(), km.query_total)
@@ -1329,7 +1470,8 @@ def test_the_compiled_keyed_update_after_grow_and_compact_equals_eager(cuda_devi
     fn = compiled.__dict__["_keyed_update_fn"] or compiled.__dict__["_keyed_update_copy_fn"]
     assert fn._cache_size() == 3  # capacities 10, 64 and 16, the second grow replays
     # four updates of each owner, and the warm-up run of each of the three captures
-    assert _common.launch_count("segment_scatter_add") == 2 * 4 + 3
+    assert _common.launch_count("segment_merge") == 2 * 4 + 3
+    assert _common.launch_count("segment_scatter_add") == 0 and _common.launch_count("segment_scatter_max") == 0
 
 
 @pytest.mark.cuda
@@ -1486,7 +1628,7 @@ def test_the_batched_histogram_wrapper_rejects_what_the_kernel_does_not_take(cud
 def test_a_keyed_sketched_auroc_on_the_card_matches_the_cpu(cuda_device, num_classes):
     """The keyed rows of a sketched curve inside the vmap go to B5's batched
     entry: one launch for the update's 512 rows (binary, and 10-class one
-    against the rest with class ids), then B3 routes their histograms; no
+    against the rest with class ids), then the merge routes their histograms; no
     plain B5 dispatch on the card; states == the CPU's exactly."""
     rng = np.random.RandomState(6)
     if num_classes is None:
@@ -1500,7 +1642,7 @@ def test_a_keyed_sketched_auroc_on_the_card_matches_the_cpu(cuda_device, num_cla
     card = T.KeyedMetric(T.AUROC(**kw, device=cuda_device), 64, validate_ids=False, device=cuda_device)
     host = T.KeyedMetric(T.AUROC(**kw, device="cpu"), 64, validate_ids=False, device="cpu")
     card.update(*(x.to(cuda_device) for x in batch))
-    assert _common.launch_count(_HIST) == 1 and _common.launch_count("segment_scatter_add") == 1
+    assert _common.launch_count(_HIST) == 1 and _common.launch_count("segment_merge") == 1
     assert _common.dispatch_count(_HIST, "torch") == 0
     host.update(*batch)
     for name in ("pos_hist", "neg_hist", "sketch_clipped"):
@@ -1529,7 +1671,7 @@ def test_the_histogram_vmap_rule_launches_once_for_nested_vmaps_and_unbatched_la
 @pytest.mark.cuda
 def test_a_keyed_confusion_matrix_on_the_card_matches_the_cpu(cuda_device):
     # its rows inside the vmap go to B2's batched form: one launch for the
-    # update's 512 rows, then B3 routes their counts
+    # update's 512 rows, then the merge routes their counts
     rng = np.random.RandomState(4)
     logits = rng.rand(512, 16).astype(np.float32)
     batch = (_t(rng.randint(0, 64, 512)), _t(logits / logits.sum(1, keepdims=True)), _t(rng.randint(0, 16, 512)))
@@ -1539,4 +1681,4 @@ def test_a_keyed_confusion_matrix_on_the_card_matches_the_cpu(cuda_device):
     card.update(*(x.to(cuda_device) for x in batch))
     host.update(*batch)
     assert torch.equal(card.confmat.cpu(), host.confmat) and int(host.confmat.sum()) == 512
-    assert _common.launch_count("confmat_counts") == 1 and _common.launch_count("segment_scatter_add") == 1
+    assert _common.launch_count("confmat_counts") == 1 and _common.launch_count("segment_merge") == 1

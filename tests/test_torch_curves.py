@@ -457,7 +457,7 @@ def test_load_numpy_states_carries_jax_state_across(name, kind, kw, sketched):
 def test_keyed_sketched_auroc_matches_jax_keyed_metric():
     """The event rows under ``torch.func.vmap`` through B5's vmap rule, one
     call of the batched wrapper (its plain version on the CPU), the per-row
-    histograms through B3's plain version into four tenants."""
+    histograms through the merge's plain version into four tenants."""
     rng = np.random.RandomState(0)
     ids = rng.randint(0, 4, 200)
     p = rng.rand(200).astype(np.float32)
@@ -466,7 +466,8 @@ def test_keyed_sketched_auroc_matches_jax_keyed_metric():
     ref.update(jnp.asarray(ids), jnp.asarray(p), jnp.asarray(t))
     port = T.KeyedMetric(T.AUROC(sketched=True, num_bins=16, **CPU), num_tenants=4, **CPU)
     port.update(torch.from_numpy(ids), torch.from_numpy(p), torch.from_numpy(t))
-    assert _common.dispatch_count("segment_scatter_add", "torch") == 1
+    assert _common.dispatch_count("segment_merge", "torch") == 1
+    assert _common.dispatch_count("segment_scatter_add", "torch") == 0
     assert _common.dispatch_count("label_score_histograms", "torch") == 1  # the vmap rule's one batched call
     _assert_hist_states(port, ref)
     got = port.compute()
@@ -501,7 +502,7 @@ def test_keyed_sketched_curves_match_the_jax_keyed_metric(name, kw):
             port.reset(tenant_ids=torch.tensor([2]))
             ref.reset(tenant_ids=jnp.asarray([2]))
     assert _common.dispatch_count("label_score_histograms", "torch") == 3
-    assert _common.dispatch_count("segment_scatter_add", "torch") == 3
+    assert _common.dispatch_count("segment_merge", "torch") == 3
     _assert_hist_states(port, ref)
     _assert_close(port.compute(), ref.compute())
 

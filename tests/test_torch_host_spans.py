@@ -81,7 +81,8 @@ def _request(name="keyed.update"):
 
 def _check_request(request, bundles, extra_reads=0):
     assert set(request.phases) == {"keyed.update"} | PHASES
-    assert request.spans == 1 + 4 * bundles + extra_reads
+    # checks, row_states and a host_read a bundle, and one scatter for the update
+    assert request.spans == 1 + 3 * bundles + 1 + extra_reads
     assert request.host_reads == bundles + extra_reads
     assert all(v >= 0 for v in request.phases.values())
     # the self times partition the request
@@ -99,6 +100,8 @@ def test_a_collection_update_records_its_phases_under_one_request(validate_ids):
     assert request.attrs == {"bundles": 2, "path": "eager", "rows": ROWS}
     # each bundle reads its target's range; validate_ids reads the ids' range once more
     _check_request(request, bundles=2, extra_reads=int(validate_ids))
+    # Accuracy's seven int32 leaves and the macro bundle's four in one merge
+    assert request.merged_leaves == 11 and tobs.TRACER.summary()["host"]["merged_leaves"] == 11
 
 
 def test_a_keyed_metric_update_records_one_bundle():
@@ -107,6 +110,7 @@ def test_a_keyed_metric_update_records_one_bundle():
     request = _request()
     assert request.attrs == {"bundles": 1, "path": "eager", "rows": ROWS}
     _check_request(request, bundles=1)
+    assert request.merged_leaves == 7
 
 
 def test_nested_spans_add_their_self_times_to_the_request():
@@ -187,7 +191,8 @@ def test_disabled_a_span_is_one_shared_null_context_and_records_nothing():
     _collection().update(*_batch())
     assert tobs.TRACER.host_records() == []
     assert tobs.TRACER.summary()["host"] == {"capacity": DEFAULT_HOST_CAPACITY, "size": 0, "recorded": 0,
-                                              "dropped": 0, "host_reads": 0, "rows_batched": 0}
+                                              "dropped": 0, "host_reads": 0, "rows_batched": 0,
+                                              "merged_leaves": 0}
 
 
 @pytest.mark.parametrize("tracer_on", [True, False])
@@ -204,7 +209,8 @@ def test_under_a_profiler_the_spans_are_nested_ranges(tracer_on, tmp_path):
     assert len(outer) == 1
     for name in names:
         inner = [e for e in events if e.name == name]
-        assert len(inner) == 2, name
+        # checks and row_states a bundle; one scatter, the merge of both
+        assert len(inner) == (1 if name == "metrics/scatter" else 2), name
         for e in inner:
             parent = e.cpu_parent
             while parent is not None and parent is not outer[0] and parent.name != "metrics/keyed.update":
@@ -225,7 +231,7 @@ def test_under_a_profiler_the_spans_are_nested_ranges(tracer_on, tmp_path):
 
     requests = tobs.TRACER.host_records()
     if tracer_on:
-        assert len(requests) == 1 and requests[0].profiled and requests[0].spans == 9
+        assert len(requests) == 1 and requests[0].profiled and requests[0].spans == 8
     else:
         assert requests == []
 
@@ -522,9 +528,10 @@ def test_a_keyed_update_of_the_nine_members_keeps_exactly_its_phases():
     keyed.update(*_batch())
     request = _request()
     assert set(request.phases) == {"keyed.update"} | PHASES
-    # checks, row_states and scatter a bundle, and a host_read a read (the
-    # Accuracy and the stat-scores bundles read their target range; the
-    # confusion matrix's checks run under the vmap, which reads nothing)
+    # checks and row_states a bundle, one scatter for the update, and a
+    # host_read a read (the Accuracy and the stat-scores bundles read their
+    # target range; the confusion matrix's checks run under the vmap, which
+    # reads nothing)
     assert request.attrs == {"bundles": 3, "path": "eager", "rows": ROWS}
-    assert request.host_reads == 2 and request.spans == 1 + 3 * 3 + 2
+    assert request.host_reads == 2 and request.spans == 1 + 2 * 3 + 1 + 2
 

@@ -253,11 +253,13 @@ def test_collection_update_runs_one_scatter_per_bundle_and_no_count_kernel():
     for _ in range(3):
         preds, target = _probs_batch(rng, rows=24, c=C)
         port.update(_t(rng.randint(0, 4, 24)), _t(preds), _t(target))
-    assert _common.dispatch_count("segment_scatter_add", "torch") == 3 * 2
-    assert _common.dispatch_count("segment_scatter_max", "torch") == 3
+    # one merge an update for both bundles' eleven int32 leaves: no B3, no B4, no count kernel
+    assert _common.dispatch_count("segment_merge", "torch") == 3
+    for op in ("segment_scatter_add", "segment_scatter_max"):
+        assert _common.dispatch_count(op, "torch") == 0 and _common.dispatch_count(op, "plain") == 0
     # one stacked B1 dispatch an update for the macro P/R/F1 bundle's rows
     assert _common.dispatch_count("stat_scores_counts", "torch") == 3
-    for op in ("segment_scatter_add", "segment_scatter_max", "stat_scores_counts"):
+    for op in ("segment_merge", "segment_scatter_add", "segment_scatter_max", "stat_scores_counts"):
         assert _common.launch_count(op) == 0
 
 
@@ -888,8 +890,9 @@ def test_parity_fuzz_regression_with_interleaved_resets():
     got, want = _compute_both(port, ref)
     assert got.dtype == torch.float32
     _assert_values(got, want)
-    # B3 took the float32 leaf, the plain route the int64 count, once per update
-    assert _common.dispatch_count("segment_scatter_add", "torch") == 6
+    # the merge took the float32 leaf, the plain route the int64 count, once per update
+    assert _common.dispatch_count("segment_merge", "torch") == 6
+    assert _common.dispatch_count("segment_scatter_add", "torch") == 0
     assert _common.dispatch_count("segment_scatter_add", "plain") == 6
 
 
@@ -980,8 +983,9 @@ def test_int64_and_float64_sum_leaves_key_exactly():
     np.testing.assert_allclose(port.moments.numpy(), np.asarray(ref.moments), rtol=1e-12, atol=1e-9)
     np.testing.assert_allclose(port.f32.numpy(), np.asarray(ref.f32), rtol=1e-6, atol=1e-3)
     np.testing.assert_allclose(port.compute().numpy(), np.asarray(ref.compute()), rtol=1e-12, equal_nan=True)
-    # B3 once per update for the float32 leaf, one plain scatter per other dtype
-    assert _common.dispatch_count("segment_scatter_add", "torch") == 4
+    # the merge once per update for the float32 leaf, one plain scatter per other dtype
+    assert _common.dispatch_count("segment_merge", "torch") == 4
+    assert _common.dispatch_count("segment_scatter_add", "torch") == 0
     assert _common.dispatch_count("segment_scatter_add", "plain") == 8
 
 
@@ -1051,6 +1055,94 @@ def test_extremal_leaves_of_any_dtype_and_counts_without_a_kernel():
     assert port.tenant_report()["rows_routed"] == routed
 
 
+class _MergeLeaves(Metric):
+    """An int32 sum with a non-zero default and float32 max/min leaves: the
+    dtypes the merge takes."""
+
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self.add_state("total", torch.tensor(5, dtype=torch.int32), dist_reduce_fx="sum")
+        self.add_state("hi", torch.full((2,), -float("inf")), dist_reduce_fx="max")
+        self.add_state("lo", torch.tensor(float("inf")), dist_reduce_fx="min")
+
+    def update(self, x, k):
+        self.total = self.total + k.sum(dtype=torch.int32)
+        self.hi = torch.maximum(self.hi, torch.stack([x.max(), -x.min()]))
+        self.lo = torch.minimum(self.lo, x.min())
+
+    def compute(self):
+        return self.hi[0] + self.lo + self.total
+
+
+class _JMergeLeaves(J.Metric):
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self.add_state("total", jnp.asarray(5, jnp.int32), dist_reduce_fx="sum")
+        self.add_state("hi", jnp.full((2,), -jnp.inf, jnp.float32), dist_reduce_fx="max")
+        self.add_state("lo", jnp.asarray(jnp.inf, jnp.float32), dist_reduce_fx="min")
+
+    def update(self, x, k):
+        self.total = self.total + k.sum(dtype=jnp.int32)
+        self.hi = jnp.maximum(self.hi, jnp.stack([x.max(), -x.min()]))
+        self.lo = jnp.minimum(self.lo, x.min())
+
+    def compute(self):
+        return self.hi[0] + self.lo + self.total
+
+
+def _assert_bits(got, want, name):
+    """Equal values, NaN where NaN, and the same sign of every zero."""
+    got, want = got.numpy(), np.asarray(want)
+    np.testing.assert_array_equal(got, want, err_msg=name)
+    np.testing.assert_array_equal(np.signbit(got) & ~np.isnan(got), np.signbit(want) & ~np.isnan(want), err_msg=name)
+
+
+def test_int32_sums_past_2_24_key_exactly():
+    """An int32 sum takes the merge's integer adds: a tenant's batch sum past
+    2^24 of odd values, which float32 would round, equals numpy's int64 sum
+    and the JAX package's ``segment_sum`` in int32."""
+    rng = np.random.RandomState(21)
+    port = T.KeyedMetric(_MergeLeaves(**CPU), 3, validate_ids=False, **CPU)
+    ref = J.KeyedMetric(_JMergeLeaves(), 3, validate_ids=False)
+    want = np.full(3, 5, np.int64)
+    for _ in range(2):
+        ids = rng.randint(-1, 3, 64)
+        k = (rng.randint(2**21, 2**22, 64) | 1).astype(np.int32)
+        x = rng.randn(64).astype(np.float32)
+        port.update(_t(ids), _t(x), _t(k))
+        ref.update(_j(ids), _j(x), _j(k))
+        for tenant in range(3):
+            want[tenant] += k[ids == tenant].astype(np.int64).sum()
+    assert port.total.dtype == torch.int32 and want.min() > 2**24
+    np.testing.assert_array_equal(port.total.numpy(), want)
+    np.testing.assert_array_equal(port.total.numpy(), np.asarray(ref.total))
+    assert _common.dispatch_count("segment_merge", "torch") == 2
+    assert all(_common.dispatch_count(f"segment_scatter_{op}", path) == 0
+               for op in ("add", "max", "min") for path in ("torch", "plain"))
+
+
+def test_float32_extrema_meet_signed_zero_and_nan_states_as_the_jax_package():
+    """Where a float32 extremum meets a state of the other signed zero or a
+    NaN, the keyed update picks as the JAX package's does (XLA's order:
+    +0.0 above -0.0, NaN on top), in one merge an update; tenant 4 never
+    receives a row and keeps its defaults."""
+    port = T.KeyedMetric(_MergeLeaves(**CPU), 5, **CPU)
+    ref = J.KeyedMetric(_JMergeLeaves(), 5)
+    k = np.ones(4, np.int32)
+    for x in ([-0.0, 0.0, np.nan, 1.0], [0.0, -0.0, 5.0, np.nan]):
+        x = np.asarray(x, np.float32)
+        port.update(_t(np.arange(4)), _t(x), _t(k))
+        ref.update(_j(np.arange(4)), _j(x), _j(k))
+    for name in ("hi", "lo", "total"):
+        _assert_bits(getattr(port, name), getattr(ref, name), name)
+    # tenant 0 held -0.0 and met +0.0, tenant 1 the other way round
+    assert not np.signbit(port.hi.numpy()[0, 0]) and np.signbit(port.lo.numpy()[1])
+    assert np.isnan(port.hi.numpy()[2:4]).all() and np.isnan(port.lo.numpy()[2:4]).all()
+    assert np.isneginf(port.hi.numpy()[4]).all() and np.isposinf(port.lo.numpy()[4])
+    _assert_bits(port.compute(), ref.compute(), "compute")
+    assert _common.dispatch_count("segment_merge", "torch") == 2
+
+
 def test_regression_collection_matches_jax_and_the_hooks_key_it():
     members = lambda pkg, **d: [pkg.MeanSquaredError(**d), pkg.MeanAbsoluteError(**d),  # noqa: E731
                                 pkg.PearsonCorrcoef(streaming=True, **d)]
@@ -1074,8 +1166,10 @@ def test_regression_collection_matches_jax_and_the_hooks_key_it():
     for name, value in want.items():
         tol = 1e-12 if got[name].dtype == torch.float64 else 1e-6
         np.testing.assert_allclose(got[name].numpy(), np.asarray(value), rtol=tol, atol=tol, equal_nan=True)
-    # three bundles, each with one B3 launch (on the card) and one plain scatter per update
-    assert _common.dispatch_count("segment_scatter_add", "torch") == 12
+    # one merge launch (on the card) an update over the three bundles' float32/int32 leaves,
+    # and each bundle's one plain scatter of its float64/int64 leaves
+    assert _common.dispatch_count("segment_merge", "torch") == 4
+    assert _common.dispatch_count("segment_scatter_add", "torch") == 0
     assert _common.dispatch_count("segment_scatter_add", "plain") == 12
     keyed = T.MeanSquaredError(**CPU).keyed(3, validate_ids=False)
     assert isinstance(keyed, T.KeyedMetric) and keyed.num_tenants == 3 and not keyed.validate_ids

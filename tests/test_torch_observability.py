@@ -438,11 +438,11 @@ def test_disabled_telemetry_reads_no_clock(monkeypatch):
 
 def test_snapshot_kernels_counts_the_cpu_dispatches():
     """Five collection batches: B1 and B2 once per batch (the shared class
-    and the confusion-matrix class); three keyed updates: B3 once per bundle,
-    B4 once for Accuracy's ``"max"`` leaf and B1 once for the macro bundle's
-    rows (one stacked dispatch); three sketched batches: B5
-    once each. Where the JAX package's path calls the same op as often (the
-    keyed scatter, the histograms), its ``"xla"`` count is the same."""
+    and the confusion-matrix class); three keyed updates: the merge once for
+    both bundles' leaves (where the JAX package's path scatters each bundle
+    once) and B1 once for the macro bundle's rows (one stacked dispatch);
+    three sketched batches: B5 once each. Where the JAX package's path calls
+    the same op as often (the histograms), its ``"xla"`` count is the same."""
     tcommon.reset_dispatch_counters()
     jcommon.reset_dispatch_counters()
     for seq in ("collection", "keyed", "sketch"):
@@ -452,10 +452,9 @@ def test_snapshot_kernels_counts_the_cpu_dispatches():
     assert port == {
         "stat_scores_counts": {"torch": 5 + 3},
         "confmat_counts": {"torch": 5},
-        "segment_scatter_add": {"torch": 6},
-        "segment_scatter_max": {"torch": 3},
+        "segment_merge": {"torch": 3},
         "label_score_histograms": {"torch": 3},
     }
-    for op in ("segment_scatter_add", "label_score_histograms"):
-        assert ref[op] == {"xla": port[op]["torch"]}, op
+    assert ref["segment_scatter_add"] == {"xla": 2 * port["segment_merge"]["torch"]}
+    assert ref["label_score_histograms"] == {"xla": port["label_score_histograms"]["torch"]}
     assert all(tcommon.launch_count(op) == 0 for op in port)  # no card: no launch

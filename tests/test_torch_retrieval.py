@@ -716,13 +716,13 @@ def test_keyed_padded_parity_fuzz(name):
     """``tests/wrappers/test_multitenant.py:138-147`` for every member: the
     tenant axis on the query-row axis, each row a ``(1, D)`` batch of its
     tenant; ``query_total`` exactly, ``value_sum`` and the per-tenant values
-    within float32 rounding; both leaves through the segment-scatter path."""
+    within float32 rounding; both leaves through the merge."""
     kwargs = {"k": 3} if name not in ("RetrievalMAP", "RetrievalMRR") else {}
     port = T.KeyedMetric(getattr(T, name)(padded=True, **kwargs, **CPU), 4, **CPU)
     ref = J.KeyedMetric(getattr(J, name)(padded=True, **kwargs), 4)
     _common.reset_dispatch_counters()
     _keyed_fuzz(port, ref)
-    assert _common.dispatch_count("segment_scatter_add", "torch") == 4  # one per update: both leaves packed
+    assert _common.dispatch_count("segment_merge", "torch") == 4  # one per update: both leaves in it
     np.testing.assert_array_equal(port.query_total.numpy(), np.asarray(ref.query_total))
     assert port.query_total.dtype == torch.int32 and port.value_sum.dtype == torch.float32
     np.testing.assert_allclose(port.value_sum.numpy(), np.asarray(ref.value_sum), rtol=1e-6, atol=1e-6)
@@ -776,7 +776,7 @@ def test_keyed_padded_collection_matches_the_jax_collection_and_compiles_without
         port.update(_t(ids[i]), _t(preds[i]), _t(target[i]), mask=_t(mask[i]))
         ref.update(_j(ids[i]), _j(preds[i]), _j(target[i]), mask=_j(mask[i]))
     assert port.state_bundles == 3
-    assert _common.dispatch_count("segment_scatter_add", "torch") == 3 * 5  # one per bundle per update
+    assert _common.dispatch_count("segment_merge", "torch") == 5  # one per update, over the three bundles
     got, want = port.compute(), ref.compute()
     assert sorted(got) == sorted(want)
     for name in want:

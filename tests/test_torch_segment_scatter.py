@@ -16,7 +16,17 @@ live in ``tests/test_torch_card.py``. The CUDA path's plumbing (one call
 into the C library, outputs left unfilled for it, the vector width, the
 32-bit size limit, a failed launch raising) is tested on the CPU against a
 stand-in for the library.
+
+The merge (``segment_merge_{torch,cuda}``) replaces no JAX kernel: its plain
+version is held bit for bit against the per-leaf route the keyed update took
+through B3's and B4's plain versions before it (``_per_leaf_route``), over
+int32 and float32 leaves with integer-valued rows, wherever that route was
+exact; where the two differ (an int32 sum past 2^24, a signed zero or a NaN
+state meeting an extremum) ``tests/test_torch_multitenant.py`` holds the
+keyed update against the JAX package's.
 """
+import struct
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -33,6 +43,8 @@ from metrics_tpu.kernels.segment_scatter import (
 from metrics_tpu_torch.kernels import _common
 from metrics_tpu_torch.kernels import segment_scatter as ss
 from metrics_tpu_torch.kernels.segment_scatter import (
+    segment_merge_cuda,
+    segment_merge_torch,
     segment_scatter_add_cuda,
     segment_scatter_add_torch,
     segment_scatter_max_cuda,
@@ -368,3 +380,246 @@ def test_a_failed_launch_raises_and_is_not_counted(fake_library, op, code):
     with pytest.raises(RuntimeError, match="CUDA error 700"):
         ss._scatter_cuda(name, code, torch.ones(8, 4), torch.arange(8), 10, torch.device("cpu"))
     assert _common.launch_count(name) == 0
+
+
+# --------------------------------------------------------------------------
+# the merge
+# --------------------------------------------------------------------------
+
+
+def _per_leaf_route(leaves, ids, s):
+    """The keyed update's route before the merge: each sum leaf's ``rows -
+    default`` through B3's plain version in float32, cast back and added to
+    the state; each extremal leaf through B4's plain version, then
+    ``torch.maximum``/``minimum`` against the state where the segment has
+    rows; the counts of the first call; the dropped ids summed."""
+    outs, counts = [], None
+    for rows, state, default, op in leaves:
+        r, d = rows.shape[0], default.numel()
+        if op == "sum":
+            sums, c = segment_scatter_add_torch((rows - default).reshape(r, d).to(torch.float32), ids, s)
+            outs.append(state + sums.reshape(state.shape).to(state.dtype))
+        else:
+            seg, c = _TORCH["max" if op == "max" else "min"](rows.reshape(r, d).to(torch.float32), ids, s)
+            pick = torch.maximum if op == "max" else torch.minimum
+            has_rows = (c > 0).reshape((s,) + (1,) * (state.ndim - 1))
+            outs.append(torch.where(has_rows, pick(state, seg.reshape(state.shape).to(state.dtype)), state))
+        counts = c if counts is None else counts
+    return outs, counts, torch.sum((ids < 0) | (ids >= s)).to(torch.int32)
+
+
+def _rows(rng, r, shape, dtype, layout):
+    """Integer-valued ``(r, *shape)`` rows in [-3, 3], laid out ``"dense"``,
+    ``"broadcast"`` (one row expanded: stride 0, as Accuracy's ``correct`` and
+    ``total`` rows) or ``"strided"`` (a slice of an ``(r, 4, D)`` buffer, as
+    B1's batched output)."""
+    d = int(np.prod(shape, dtype=np.int64))
+    if layout == "broadcast":
+        return torch.from_numpy(rng.randint(-3, 4, shape).astype(np.float32)).to(dtype).expand((r,) + shape)
+    if layout == "strided":
+        buf = torch.from_numpy(rng.randint(-3, 4, (r, 4, d)).astype(np.float32)).to(dtype)
+        return buf[:, 2, :].reshape((r,) + shape) if len(shape) == 1 else buf[:, 2, :]
+    return torch.from_numpy(rng.randint(-3, 4, (r,) + shape).astype(np.float32)).to(dtype)
+
+
+def _merge_leaves(rng, r, s, dtype, specials=True):
+    """One leaf per (op, shape, layout): states integer-valued and non-zero,
+    defaults non-zero; the float extrema's rows hold NaN, +0.0 and -0.0."""
+    leaves = []
+    for op in ("sum", "max", "min"):
+        for shape, layout in (((), "dense"), ((), "broadcast"), ((10,), "strided"), ((2, 3), "dense"),
+                              ((10,), "broadcast")):
+            rows = _rows(rng, r, shape, dtype, layout)
+            if specials and op != "sum" and dtype == torch.float32 and layout == "dense" and r >= 3:
+                rows = rows.clone()
+                rows[0] = float("nan")
+                rows[1] = -0.0
+                rows[2] = 0.0
+            state = torch.from_numpy(rng.choice([-5, -2, 1, 4, 7], (s,) + shape).astype(np.float32)).to(dtype)
+            default = torch.full(shape, 2, dtype=dtype)
+            leaves.append((rows, state, default, op))
+    return leaves
+
+
+def _merge_ids(rng, r, s, dtype):
+    """Ids over the segments and the padding band near S - 1, with ids below
+    0, at S and far past it."""
+    ids = rng.randint(0, s, r)
+    bad = rng.rand(r) < 0.2
+    ids[bad] = rng.choice([-7, -1, s, s + 5, 2**30], bad.sum())
+    return torch.from_numpy(ids).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("ids_dtype", [torch.int64, torch.int32])
+@pytest.mark.parametrize("r,s", [(64, 10), (300, 7), (5, 1), (1, 3), (0, 4)])
+def test_merge_plain_equals_the_per_leaf_route_bit_for_bit(dtype, ids_dtype, r, s):
+    """Sums with non-zero defaults, extrema with NaN and signed-zero rows, rows
+    dense, broadcast and strided, ids dropped and in the band: the new states,
+    the counts and the dropped count equal the per-leaf route's bit for bit,
+    and a segment without rows keeps its state."""
+    rng = np.random.RandomState(r * 31 + s + (dtype == torch.int32))
+    leaves = _merge_leaves(rng, r, s, dtype)
+    ids = _merge_ids(rng, r, s, ids_dtype)
+    outs, counts, invalid = segment_merge_torch(leaves, ids, s)
+    want_outs, want_counts, want_invalid = _per_leaf_route(leaves, ids, s)
+    assert len(outs) == len(leaves)
+    for (_, state, _, op), got, want in zip(leaves, outs, want_outs):
+        assert got.dtype == state.dtype and got.shape == state.shape, op
+        _assert_exact(got.numpy(), want.numpy())
+        empty = (want_counts == 0).numpy()
+        _assert_exact(got.numpy()[empty], state.numpy()[empty])
+    assert counts.dtype == torch.int32 and torch.equal(counts, want_counts)
+    assert invalid.dtype == torch.int32 and invalid.shape == () and torch.equal(invalid, want_invalid)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_merge_wrapper_on_the_cpu_runs_the_plain_version_and_launches_nothing(dtype):
+    rng = np.random.RandomState(5)
+    leaves, ids = _merge_leaves(rng, 40, 6, dtype), _merge_ids(rng, 40, 6, torch.int64)
+    got = segment_merge_cuda(leaves, ids, 6, device="cpu")
+    want = segment_merge_torch(leaves, ids, 6)
+    assert all(torch.equal(g, w) or torch.equal(g.isnan(), w.isnan()) for g, w in zip(got[0], want[0]))
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert _common.dispatch_count("segment_merge", "torch") == 1 and _common.launch_count("segment_merge") == 0
+    for op in ("add", "max", "min"):
+        assert _common.dispatch_count(f"segment_scatter_{op}", "torch") == 0
+
+
+def test_merge_int32_sums_are_exact_past_2_24():
+    """int32 sums add in int32: a segment's batch sum past 2^24 of odd values,
+    where float32 would round, equals numpy's int64 sum."""
+    rng = np.random.RandomState(7)
+    x = (rng.randint(2**21, 2**22, 64) | 1).astype(np.int32)
+    ids = rng.randint(0, 2, 64)
+    state = torch.tensor([[3], [-9]], dtype=torch.int32)
+    (out,), counts, _ = segment_merge_torch([(torch.from_numpy(x).reshape(64, 1), state,
+                                              torch.zeros(1, dtype=torch.int32), "sum")], torch.from_numpy(ids), 2)
+    want = np.array([[3 + x[ids == 0].astype(np.int64).sum()], [-9 + x[ids == 1].astype(np.int64).sum()]])
+    assert want.max() > 2**24
+    np.testing.assert_array_equal(out.numpy(), want)
+    assert out.numpy().astype(np.float64).tolist() != want.astype(np.float32).astype(np.float64).tolist()
+
+
+def test_merge_picks_against_the_state_in_xla_order():
+    """An extremum picks against the state in XLA's order: +0.0 beats a -0.0
+    state in a max, -0.0 a +0.0 state in a min, a NaN state stays NaN and a
+    NaN row makes the segment NaN; an empty segment keeps even a -0.0 state."""
+    state = torch.tensor([[-0.0], [0.0], [float("nan")], [1.0], [-0.0]])
+    rows = torch.tensor([[0.0], [-0.0], [5.0], [float("nan")]])
+    ids = torch.arange(4)
+    zero = torch.zeros(1)
+    (hi, lo), _, _ = segment_merge_torch([(rows, state, zero, "max"), (rows, state, zero, "min")], ids, 5)
+    assert hi[0, 0] == 0 and not torch.signbit(hi[0, 0]) and hi[1, 0] == 0 and not torch.signbit(hi[1, 0])
+    assert lo[0, 0] == 0 and torch.signbit(lo[0, 0]) and lo[1, 0] == 0 and torch.signbit(lo[1, 0])
+    assert torch.isnan(hi[2:4]).all() and torch.isnan(lo[2:4]).all()
+    assert hi[4, 0] == 0 and torch.signbit(hi[4, 0]) and lo[4, 0] == 0 and torch.signbit(lo[4, 0])
+
+
+def test_merge_rows_are_read_in_place_at_their_row_stride():
+    """A slice of B1's ``(R, 4, D)`` output and a broadcast default go to the
+    kernel as they lie (their own pointer, stride 4 * D and 0); only rows whose
+    elements are not adjacent are copied."""
+    buf = torch.arange(8 * 4 * 10, dtype=torch.int32).reshape(8, 4, 10)
+    view, stride = ss._row_view(buf[:, 1, :], 8, 10)
+    assert view.data_ptr() == buf[:, 1, :].data_ptr() and stride == 40
+    scalar = torch.tensor(3, dtype=torch.int32).expand(8)
+    view, stride = ss._row_view(scalar, 8, 1)
+    assert view.data_ptr() == scalar.data_ptr() and stride == 0
+    wide = torch.zeros(10, dtype=torch.int32).expand(8, 10)
+    view, stride = ss._row_view(wide, 8, 10)
+    assert view.data_ptr() == wide.data_ptr() and stride == 0
+    cube = torch.zeros(8, 2, 5)
+    view, stride = ss._row_view(cube, 8, 10)
+    assert view.data_ptr() == cube.data_ptr() and stride == 10 and view.shape == (8, 10)
+    transposed = torch.arange(80.0).reshape(10, 8).t()
+    view, stride = ss._row_view(transposed, 8, 10)
+    assert view.is_contiguous() and stride == 10 and torch.equal(view, transposed)
+
+
+_S = torch.zeros((3, 2), dtype=torch.int32)
+_D = torch.zeros(2, dtype=torch.int32)
+_R = torch.zeros((4, 2), dtype=torch.int32)
+_IDS = torch.zeros(4, dtype=torch.int64)
+
+
+@pytest.mark.parametrize(
+    "leaves,ids,s,error",
+    [
+        ([(_R.double(), _S.double(), _D.double(), "sum")], _IDS, 3, TypeError),
+        ([(_R.float(), _S, _D, "sum")], _IDS, 3, TypeError),
+        ([(_R, _S, _D.float(), "max")], _IDS, 3, TypeError),
+        ([(_R, _S, _D, "mean")], _IDS, 3, ValueError),
+        ([(_R[:3], _S, _D, "sum")], _IDS, 3, ValueError),
+        ([(_R, _S[:2], _D, "sum")], _IDS, 3, ValueError),
+        ([(_R, _S, _D[:1], "sum")], _IDS, 3, ValueError),
+        ([(_R[:, :1], _S, _D, "min")], _IDS, 3, ValueError),
+        ([(_R, _S, _D, "sum")], _IDS.reshape(4, 1), 3, ValueError),
+        ([(_R, _S, _D, "sum")], _IDS.float(), 3, TypeError),
+        ([(_R, _S[:0], _D, "sum")], _IDS, 0, ValueError),
+    ],
+)
+def test_merge_rejects_what_the_kernel_does_not_take(leaves, ids, s, error):
+    with pytest.raises(error):
+        segment_merge_cuda(leaves, ids, s, device="cpu")
+    assert _common.dispatch_count("segment_merge", "torch") == 0
+
+
+def test_merge_rejects_items_past_the_32_bit_index(monkeypatch):
+    """R * (1 + the leaves' widths) must stay below 2**31 (lowered here)."""
+    monkeypatch.setattr(ss, "_MAX_ITEMS", 4 * (1 + 2 + 2))
+    leaf = (_R, _S, _D, "sum")
+    with pytest.raises(ValueError, match="32 bits"):
+        segment_merge_cuda([leaf, leaf], _IDS, 3, device="cpu")
+    outs, counts, _ = segment_merge_cuda([leaf], _IDS, 3, device="cpu")
+    assert len(outs) == 1 and int(counts.sum()) == 4
+
+
+def _merge_case():
+    """Four leaves as B's bundles give them: a broadcast int32 sum, a dense
+    float32 sum of width 40, an int32 max, a float32 min sliced from an
+    (R, 4, 10) buffer at 40 bytes (8-byte aligned)."""
+    r, s = 8, 10
+    buf = torch.ones(r, 4, 10)
+    leaves = [
+        (torch.tensor(1, dtype=torch.int32).expand(r), torch.ones(s, dtype=torch.int32),
+         torch.tensor(0, dtype=torch.int32), "sum"),
+        (torch.ones(r, 40), torch.ones(s, 40), torch.ones(40), "sum"),
+        (torch.ones(r, dtype=torch.int32), torch.ones(s, dtype=torch.int32), torch.tensor(0, dtype=torch.int32),
+         "max"),
+        (buf[:, 1, :], torch.ones(s, 10), torch.ones(10), "min"),
+    ]
+    return leaves, torch.arange(r), s
+
+
+@pytest.mark.parametrize("ids_dtype", [torch.int64, torch.int32])
+def test_merge_cuda_path_makes_one_library_call_with_the_leaf_table(fake_library, ids_dtype):
+    """One call into the C library with the leaves' table packed by value
+    (rows, row stride, state, out, default, D, V, kind per leaf), the outputs
+    allocated with ``torch.empty`` only, the device index and the stream."""
+    leaves, ids, s = _merge_case()
+    ids = ids.to(ids_dtype)
+    outs, counts, invalid = ss._merge_cuda(leaves, ids, s, torch.device("cpu"))
+    assert fake_library.entries == ["segment_merge_launch"] and len(fake_library.calls) == 1
+    args = fake_library.calls[0]
+    assert args[1] == 4 and args[2] == ids.data_ptr() and args[3:6] == (8, s, ids.element_size())
+    assert args[6] == counts.data_ptr() and args[7] == invalid.data_ptr() and args[9] == 1234
+    table = np.asarray(struct.unpack("<32q", args[0])).reshape(4, 8)
+    strides, widths, vecs, kinds = (0, 40, 1, 40), (1, 40, 1, 10), (1, 4, 1, 2), (0, 1, 2, 5)
+    for (rows, state, default, _), out, row, stride, d, vec, kind in zip(leaves, outs, table, strides, widths,
+                                                                      vecs, kinds):
+        assert row.tolist() == [rows.data_ptr(), stride, state.data_ptr(), out.data_ptr(), default.data_ptr(), d,
+                                vec, kind]
+        assert out.shape == state.shape and out.dtype == state.dtype and out.is_contiguous()
+        assert out.data_ptr() != state.data_ptr()
+    assert counts.shape == (s,) and counts.dtype == torch.int32
+    assert invalid.shape == () and invalid.dtype == torch.int32
+    assert _common.launch_count("segment_merge") == 1
+
+
+def test_a_failed_merge_launch_raises_and_is_not_counted(fake_library):
+    fake_library.err = 700
+    leaves, ids, s = _merge_case()
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        ss._merge_cuda(leaves, ids, s, torch.device("cpu"))
+    assert _common.launch_count("segment_merge") == 0

@@ -31,6 +31,7 @@ _KERNELS = ["binned_tp_fp_fn", "hist_auroc", "hist_roc", "hist_average_precision
             "confmat_counts_batched_cuda", "confmat_counts_batched_torch",
             "segment_scatter_add_cuda", "segment_scatter_add_torch", "segment_scatter_max_cuda",
             "segment_scatter_max_torch", "segment_scatter_min_cuda", "segment_scatter_min_torch",
+            "segment_merge_cuda", "segment_merge_torch",
             "label_score_histograms_cuda", "label_score_histograms_torch",
             "label_score_histograms_batched_cuda", "label_score_histograms_batched_torch"]
 
