@@ -397,14 +397,18 @@ Phases, in order; any failure exits non-zero before the last line:
    time. ``sketched_keyed_phase_main()``
    runs 3p alone.
 3q. The merge (``segment_merge``, the keyed update's one launch over every
-   int32/float32 leaf): at the keyed path's shapes (4096 rows, 10,000
-   tenants, the eleven leaves of phase 3b's two bundles, rows strided and
-   broadcast, non-zero defaults, int32 and float32, int64 and int32 ids)
-   the kernel == its plain version bit for bit; phase 3b's real leaves ==
+   int32, float32, bfloat16, int16 and int8 leaf): at the keyed path's
+   shapes (4096 rows, 10,000 tenants, the eleven leaves of phase 3b's two
+   bundles, rows strided and broadcast, non-zero defaults, each of those
+   dtypes, int64 and int32 ids) the kernel == its plain version bit for bit; phase 3b's real leaves ==
    the plain version == the per-leaf chain through B3 and B4 that it
    replaced; a keyed regression bundle's float32 sums within rtol 1e-6 and
    its int32 count exactly; phase 3b's collection eager and compiled: the
-   merge 50 launches each, B3 and B4 none; times of the merge against the
+   merge 50 launches each, B3 and B4 none; a keyed bundle of narrow leaves
+   (a bfloat16 sum, a wrapping int8 sum, int16 and int8 extrema, a bfloat16
+   max over NaN and both signed zeros), alone and beside a second bundle,
+   eager and compiled: == the CPU bit for bit, the merge once an update, B3
+   and B4 none; times of the merge against the
    chain (CUDA events, device, a replayed graph, host time a call). Alone:
    ``chip_smoke.merge_phase_main(path)``.
 5. One JSON line ``{"kernels": [...]}`` (the five kernels, the merge, then
@@ -5321,11 +5325,11 @@ def _merge_inputs(torch, dev, gen, dtype, ids_dtype=None):
     among them), Accuracy's rows as the columns of one (R, 5) tensor (tp, fp,
     tn, fn, mode_code), the macro bundle's (R, 4, 10) rows as B1's batched
     entry gives them, non-zero defaults (0-d and (10,)) and the eleven
-    (S, ...) states; float32 rows hold NaN, -0.0 and +0.0 in the max leaf."""
+    (S, ...) states; float rows hold NaN, -0.0 and +0.0 in the max leaf."""
     ids = torch.randint(-2, KEYED_TENANTS + 8, (KEYED_ROWS,), generator=gen, device=dev)
     ids = ids if ids_dtype is None else ids.to(ids_dtype)
     acc = torch.randint(-1, 3, (KEYED_ROWS, 5), generator=gen, device=dev).to(dtype)
-    if dtype == torch.float32:
+    if dtype.is_floating_point:
         acc[:3, 4] = torch.tensor([float("nan"), -0.0, 0.0], device=dev)
     macro = torch.randint(0, 3, (KEYED_ROWS, 4, KEYED_CLASSES), generator=gen, device=dev).to(dtype)
     d0, d10 = torch.ones((), dtype=dtype, device=dev), torch.ones(KEYED_CLASSES, dtype=dtype, device=dev)
@@ -5376,16 +5380,21 @@ def _per_leaf_chain(torch, leaves, ids, s, dev):
 def merge_phase(torch, M, dev, card, keyed_batches=None) -> dict:
     """Phase 3q: the merge (``segment_merge``), the keyed update's one launch.
     (a) At the keyed path's shapes (R = 4096, S = 10,000, the keyed cell's
-    eleven leaves, strided and broadcast rows, non-zero defaults), int32 and
-    float32, int64 and int32 ids: the kernel == its plain version bit for
-    bit, one launch each. (b) Phase 3b's real leaves (the two bundles' row
+    eleven leaves, strided and broadcast rows, non-zero defaults), int32,
+    float32, bfloat16, int16 and int8, int64 and int32 ids: the kernel == its
+    plain version on the CPU bit for bit, one launch each. (b) Phase 3b's real leaves (the two bundles' row
     states of its first cohort): the kernel == the plain version == the
     per-leaf chain through B3 and B4 it replaced, bit for bit. (c) A keyed
     regression bundle's leaves (float32 sums of real-valued rows over a large
     state, an int32 count): the count exactly, the sums within rtol 1e-6 of
     the plain version's. (d) Phase 3b's collection over its 50 cohorts,
     eager and compiled (``warmup``): the merge 50 launches each, B3 and B4
-    none, the compiled states == the eager ones exactly. (e) Times at (b)'s
+    none, the compiled states == the eager ones exactly; a keyed bundle of
+    narrow leaves (:func:`_narrow_leaf_metrics`) over the padding band and
+    dropped ids, alone (a ``KeyedMetric``) and beside a second bundle (a
+    ``MultiTenantCollection``), eager and compiled: the card's states == the
+    CPU's bit for bit, the merge once an update, B3 and B4 none. (e) Times
+    at (b)'s
     leaves: the merge and the chain (two bundles: B3 and B4, B3) by CUDA
     events, device time, 50 in a replayed graph, and host time per call
     (1000 calls back to back), beside the plain version and the bound."""
@@ -5415,14 +5424,15 @@ def merge_phase(torch, M, dev, card, keyed_batches=None) -> dict:
         return list(outs) + [counts, invalid]
 
     # (a) the kernel against its plain version
-    for dtype in (torch.int32, torch.float32):
+    for dtype in (torch.int32, torch.float32, torch.bfloat16, torch.int16, torch.int8):
         for ids_dtype in (torch.int64, torch.int32):
             ids, leaves = _merge_inputs(torch, dev, gen, dtype, ids_dtype)
             _common.reset_dispatch_counters()
-            got = flat(segment_merge_cuda(leaves, ids, s, device=dev))
-            torch.cuda.synchronize()
+            got = [t.cpu() for t in flat(segment_merge_cuda(leaves, ids, s, device=dev))]
             launches = {op: _common.launch_count(op) for op in KERNEL_OPS}
-            want = flat(segment_merge_torch(leaves, ids, s))
+            # the plain version on the CPU: the card's scatter_reduce_ need not take int8/int16
+            host = [(x.cpu(), st.cpu(), d.cpu(), op) for x, st, d, op in leaves]
+            want = flat(segment_merge_torch(host, ids.cpu(), s))
             ok = exact(got, want) and launches == {op: int(op == "segment_merge") for op in KERNEL_OPS}
             out["parity"].append({"dtype": str(dtype), "ids": str(ids_dtype), "exact": ok, "launches": launches})
             if not ok:
@@ -5476,6 +5486,36 @@ def merge_phase(torch, M, dev, card, keyed_batches=None) -> dict:
             fail(f"[merge] (d) the {label} keyed collection launched {update_launches[label]}, expected {want_l}")
     for owner, km in eager._keyed.items():
         _states_equal(torch, f"merge (d) compiled {owner}", compiled._keyed[owner], km)
+    small, beside = _narrow_leaf_metrics(torch, M)
+    narrow_batches = _narrow_leaf_batches(torch)
+    narrow_kw = dict(validate_ids=False, capacity=2 * s)
+    makers = {"KeyedMetric": lambda d: M.KeyedMetric(small(device=d), s, device=d, **narrow_kw),
+              "MultiTenantCollection": lambda d: M.MultiTenantCollection(
+                  {"small": small(device=d), "merged": beside(device=d)}, s, device=d, **narrow_kw)}
+    narrow_launches = {}
+    for label, make in makers.items():
+        host = make("cpu")
+        for batch in narrow_batches:
+            host.update(*batch)
+        for path in ("eager", "compiled"):
+            card_obj = make(dev)
+            if path == "compiled":  # both row counts captured before counting
+                for batch in (narrow_batches[0], narrow_batches[-1]):
+                    card_obj.warmup(*[b.to(dev) for b in batch])
+            torch.cuda.synchronize()
+            _common.reset_dispatch_counters()
+            for batch in narrow_batches:
+                card_obj.update(*[b.to(dev) for b in batch])
+            torch.cuda.synchronize()
+            launches = narrow_launches[f"{label} {path}"] = {op: _common.launch_count(op) for op in KERNEL_OPS}
+            if launches != {op: (len(narrow_batches) if op == "segment_merge" else 0) for op in KERNEL_OPS}:
+                fail(f"[merge] (d) the {path} {label} of narrow leaves launched {launches}: expected the merge once "
+                     "an update and nothing else")
+            bundles = (lambda o: list(o._keyed.values())) if label == "MultiTenantCollection" else (lambda o: [o])
+            for got, want in zip(bundles(card_obj), bundles(host)):
+                for name, value in want._get_states().items():
+                    if not exact([getattr(got, name).cpu()], [value]):
+                        fail(f"[merge] (d) the {path} {label}'s narrow leaf {name} differs from the CPU's")
     # (e) times: the merge against the chain it replaced, at (b)'s leaves
     nbytes = (sum(leaf[0].shape[0] * max(leaf[2].numel(), 1) * 4 for leaf in leaves) + KEYED_ROWS * 8
               + 2 * sum(leaf[1].numel() * 4 for leaf in leaves) + s * 4)
@@ -5490,22 +5530,86 @@ def merge_phase(torch, M, dev, card, keyed_batches=None) -> dict:
     times["chain_graph_ms"] = graph_ms(chain_call)
     times["host_us"] = host_us([("merge", merge_call), ("chain", chain_call)])
     out.update({"real_leaves": len(leaves), "real_row_strides": strides, "regression_rel_diff": reg_diff,
-                "update_launches": update_launches, "times": times})
+                "update_launches": update_launches, "narrow_leaf_launches": narrow_launches, "times": times})
 
     def fmt(ms):
         return "none" if ms is None else f"{ms:.4f} ms"
 
     print(f"[merge] (a) the kernel == its plain version bit for bit at ({KEYED_ROWS} rows, {s} tenants, 11 leaves), "
-          f"int32 and float32 rows, int64 and int32 ids, one launch each; (b) phase 3b's real leaves (row strides "
+          f"int32, float32, bfloat16, int16 and int8 rows, int64 and int32 ids, one launch each; (b) phase 3b's real "
+          f"leaves (row strides "
           f"{strides}): kernel == plain == the per-leaf chain through B3/B4; (c) the regression bundle within "
           f"{reg_diff:.2e}; (d) {KEYED_UPDATES} keyed updates eager and compiled: launches {update_launches['eager']} "
-          f"and {update_launches['compiled']} (compiled states == eager) on {card}")
+          f"and {update_launches['compiled']} (compiled states == eager); narrow leaves == the CPU, "
+          f"launches {narrow_launches} on {card}")
     print(f"[merge] (e) at phase 3b's leaves: merge {fmt(times['ms'])} (device {fmt(times['device_ms'])}; "
           f"graph {fmt(times['graph_ms'])}; host {times['host_us']['merge']:.3f} us a call) against the chain "
           f"through B3/B4 {fmt(times['chain_ms'])} (device {fmt(times['chain_device_ms'])}; graph "
           f"{fmt(times['chain_graph_ms'])}; host {times['host_us']['chain']:.3f} us); plain {fmt(times['plain_ms'])} "
           f"({fmt(times['plain_device_ms'])}); bound {times['bound'][0]:.5f} ms ({times['bound'][1]})")
     return out
+
+
+def _narrow_leaf_metrics(torch, M):
+    """Two metrics updated with ``(x, z, k)``: the first holds narrow leaves
+    (a bfloat16 sum, an int8 sum, an int16 max, an int8 min, a bfloat16
+    max), the second an int32 count and a float32 max."""
+
+    class SmallLeaves(M.Metric):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.add_state("s", torch.zeros((2,), dtype=torch.bfloat16), dist_reduce_fx="sum")
+            self.add_state("c8", torch.tensor(0, dtype=torch.int8), dist_reduce_fx="sum")
+            self.add_state("hi16", torch.tensor(-(2**15), dtype=torch.int16), dist_reduce_fx="max")
+            self.add_state("lo8", torch.tensor(127, dtype=torch.int8), dist_reduce_fx="min")
+            self.add_state("hib", torch.tensor(-float("inf"), dtype=torch.bfloat16), dist_reduce_fx="max")
+
+        def update(self, x, z, k):
+            self.s = self.s + torch.stack([x.sum(), (2 * x).sum()])
+            self.c8 = self.c8 + k.sum().to(torch.int8)
+            self.hi16 = torch.maximum(self.hi16, k.max())
+            self.lo8 = torch.minimum(self.lo8, k.min().to(torch.int8))
+            self.hib = torch.maximum(self.hib, z.max())
+
+        def compute(self):
+            return self.s[0].float() + self.hib.float()
+
+    class MergedBeside(M.Metric):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.add_state("n", torch.tensor(0, dtype=torch.int32), dist_reduce_fx="sum")
+            self.add_state("z32", torch.tensor(-float("inf")), dist_reduce_fx="max")
+
+        def update(self, x, z, k):
+            self.n = self.n + (k != 0).sum(dtype=torch.int32)
+            self.z32 = torch.maximum(self.z32, z.float().max())
+
+        def compute(self):
+            return self.z32 + self.n
+
+    return SmallLeaves, MergedBeside
+
+
+def _narrow_leaf_batches(torch, updates=10):
+    """``(ids, x, z, k)`` CPU batches for :func:`_narrow_leaf_metrics`: two
+    where tenants 0 and 1 hold one signed zero and meet the other and
+    tenants 2 and 4 meet a NaN, then ``updates`` of the keyed path's rows
+    with ids over the padding band ``[10,000, 20,000)`` and outside it,
+    integer-valued ``x`` (its bfloat16 sums exact in any order)."""
+    ids = torch.tensor([0, 1, 2, 4])
+    k = torch.tensor([7, -3, 100, -100], dtype=torch.int16)
+    nan = float("nan")
+    batches = [(ids, torch.ones(4), torch.tensor([-0.0, 0.0, nan, -1.0]), k),
+               (ids, -torch.ones(4), torch.tensor([0.0, -0.0, -1.0, nan]), -k)]
+    gen = torch.Generator()
+    gen.manual_seed(SEED + 53)
+    for _ in range(updates):
+        z = torch.tensor([0.0, -0.0, -1.0, -0.5])[torch.randint(0, 4, (KEYED_ROWS,), generator=gen)]
+        z[torch.rand(KEYED_ROWS, generator=gen) < 0.01] = nan
+        batches.append((torch.randint(-2, 2 * KEYED_TENANTS + 2, (KEYED_ROWS,), generator=gen),
+                        torch.randint(-4, 5, (KEYED_ROWS,), generator=gen).float(), z,
+                        torch.randint(-120, 121, (KEYED_ROWS,), generator=gen, dtype=torch.int16)))
+    return [(i, x.to(torch.bfloat16), z.to(torch.bfloat16), k) for i, x, z, k in batches]
 
 
 def merge_phase_main(record_path: str = "") -> int:

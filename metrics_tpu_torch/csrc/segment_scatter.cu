@@ -55,33 +55,46 @@
 // The merge (`segment_merge_launch`) replaces no TPU kernel: it is the keyed
 // update's whole per-leaf chain (XLA fuses the JAX package's segment_sum and
 // segment_max of every leaf, their `state + delta` and masked `maximum` into
-// its program). Launched per leaf, B3 and B4 left the host a chain of about
-// 60 small launches a keyed update of two bundles: the subtraction of each
-// sum leaf's default, the casts to and from float32, the `cat` of the
-// columns, B3, the slices and adds back into the state, B4, its `counts > 0`
-// mask, `maximum` and `where`, and the invalid-id sum. The host's dispatch of
-// that chain, not the device, bounded the update. The merge does it all in
-// one cooperative launch over a table of leaves passed by value (a
-// `__grid_constant__` parameter, so nothing is copied to the device per
-// call), each leaf int32 or float32, "sum", "max" or "min":
+// its program, and sends bfloat16 sums and bfloat16/int16/int8 extrema to
+// `_scatter_kernel` and `_extremal_kernel` on the TPU). Launched per leaf, B3
+// and B4 left the host a chain of about 60 small launches a keyed update of
+// two bundles: the subtraction of each sum leaf's default, the casts to and
+// from float32, the `cat` of the columns, B3, the slices and adds back into
+// the state, B4, its `counts > 0` mask, `maximum` and `where`, and the
+// invalid-id sum. The host's dispatch of that chain, not the device, bounded
+// the update. The merge does it all in one cooperative launch over a table of
+// leaves passed by value (a `__grid_constant__` parameter, so nothing is
+// copied to the device per call), each leaf int32, float32, bfloat16, int16
+// or int8, "sum", "max" or "min":
 //
-// 1. Fill: each leaf's output takes its state (int32 sums, every extremum)
-//    or zeros (float32 sums); the counts and the invalid count take zeros.
+// 1. Fill: each int32/float32 leaf's output takes its state (int32 sums,
+//    every extremum) or zeros (float32 sums); a narrow leaf (bfloat16, int16,
+//    int8) works in a 32-bit accumulator the caller allocates, float32 for
+//    bfloat16 and int32 for the integers, as B3 and B4 worked in float32:
+//    it takes the widened state (an extremum) or zeros (a sum). The counts
+//    and the invalid count take zeros.
 // 2. Sync the grid, then scatter over one flat item space: an item per row
 //    reads its id once and adds the row to its segment's count or, for an id
 //    < 0 or >= S, to the dropped rows (summed in the warp, one atomic a
 //    warp); then an item per (leaf, row, vector) of V = 4, 2 or 1 elements,
 //    vectors as B3 takes them, where the leaf's D, row stride and pointers
-//    allow. Rows are read in place at any row stride: 0 for a broadcast
-//    default, 4 * D for B1's batched output. A sum adds `row - default` per
-//    element where it is not zero: int32 by integer atomics (exact at any
-//    size, wrapping as int32 adds do), float32 by B3's vector atomics. An
-//    extremum picks by B4's ordered CAS (int32 by atomicMax/atomicMin) into
-//    the output that already holds the state, so a segment without rows
-//    keeps its state and a NaN state stays NaN: no mask, no `where`.
-// 3. Only with a float32 sum leaf: sync the grid again and add the state to
-//    the batch's sum, `state + sum` as the per-leaf route took it, so a large
-//    accumulated state does not round each of the batch's adds.
+//    allow (a narrow leaf takes V = 1). Rows are read in place at any row
+//    stride: 0 for a broadcast default, 4 * D for B1's batched output. A sum
+//    adds `row - default` per element where it is not zero: int32 by integer
+//    atomics (exact at any size, wrapping as int32 adds do; an int16/int8
+//    leaf's sum then wraps as its own adds would), float32 by B3's vector
+//    atomics (a bfloat16 delta rounded to bfloat16 first, as the leaf's own
+//    subtraction rounds it). An extremum picks by B4's ordered CAS (int32 by
+//    atomicMax/atomicMin) into the output or accumulator that already holds
+//    the state, so a segment without rows keeps its state and a NaN state
+//    stays NaN: no mask, no `where`.
+// 3. Only with a float32 sum leaf or a narrow leaf: sync the grid again and
+//    add the state to the batch's float32 sum, `state + sum` as the per-leaf
+//    route took it, so a large accumulated state does not round each of the
+//    batch's adds; a narrow leaf's output takes its accumulator narrowed back
+//    (a sum: `state + sum` in the leaf's dtype, the bfloat16 sum rounded to
+//    bfloat16 first; an extremum: exactly, since it holds a value of the
+//    leaf's dtype).
 //
 // An id < 0 or >= S is dropped from every output, as the TPU kernels drop it.
 // The order of the float additions changes from run to run, so float sums
@@ -91,6 +104,7 @@
 #include <atomic>
 #include <cooperative_groups.h>
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits>
 
@@ -272,27 +286,34 @@ int dispatch(const void* rows, const void* ids, int r, int d, int s, int op, int
   }
 }
 
-// --- the merge: every int32/float32 leaf of a keyed update in one launch -------
+// --- the merge: every leaf of a keyed update in one launch ---------------------
 
 // Leaves a launch takes; the entry launches once per chunk of this many (a
-// table of 64 leaves is 3.6 KB of the 4 KB a kernel's parameters may hold).
-constexpr int kMaxMergeLeaves = 64;
+// table of 48 leaves is 3.4 KB of the 4 KB a kernel's parameters may hold).
+constexpr int kMaxMergeLeaves = 48;
 // The fields of a leaf in the caller's table, each an int64: rows, row stride
-// (elements), state, out, default, D, V, kind.
-constexpr int kMergeFields = 8;
+// (elements), state, out, default, D, V, kind, wide.
+constexpr int kMergeFields = 9;
 
-// A leaf's kind: its op * 2 + 1 where it is float32 (op 0 sum, 1 max, 2 min).
+// How a leaf adds or picks in 32 bits: its op * 2 + 1 where as float32, + 0
+// where as int32 (op 0 sum, 1 max, 2 min). The table's kind field adds
+// 8 * the leaf's Narrow type.
 enum MergeKind { kSumInt = 0, kSumFloat = 1, kMaxInt = 2, kMaxFloat = 3, kMinInt = 4, kMinFloat = 5 };
+// A leaf's element type: 32 bits, else a narrow type with its 32-bit
+// accumulator (float32 for bfloat16, int32 for int16 and int8).
+enum Narrow { kWord = 0, kBf16 = 1, kInt16 = 2, kInt8 = 3 };
 
 struct MergeLeaf {
   const void* rows;      // row i's D elements at rows + i * row_stride
   const void* state;     // (S, D), contiguous
   void* out;             // (S, D), contiguous, uninitialised
   const void* dflt;      // (D,), contiguous: subtracted from a sum's rows
+  void* wide;            // a narrow leaf's (S, D) 32-bit accumulator, uninitialised
   long long row_stride;  // in elements; 0 where every row is the same
   int d;                 // elements a row
   int vec;               // elements a vector access: 4, 2 or 1, d % vec == 0
   int kind;              // MergeKind
+  int narrow;            // Narrow
   unsigned first;        // the leaf's first item in the flat item space
 };
 
@@ -300,8 +321,9 @@ struct MergeTable {
   MergeLeaf leaf[kMaxMergeLeaves];
   int n;            // leaves
   unsigned items;   // R count items, then every leaf's R * D / V
-  int float_sums;   // a float32 sum leaf is here: phase 3 runs
+  int finish;       // a float32 sum or a narrow leaf is here: phase 3 runs
 };
+static_assert(sizeof(MergeTable) + 64 <= 4096, "the table and the kernel's other parameters fit 4 KB");
 
 template <int V>
 __device__ __forceinline__ void load_words(const unsigned int* p, unsigned int (&w)[V]) {
@@ -320,7 +342,33 @@ __device__ __forceinline__ void load_words(const unsigned int* p, unsigned int (
   }
 }
 
-// Vector v of row `row` of one leaf into segment id's slots of its output.
+// Element e of a narrow array as its accumulator's 32-bit word: bfloat16 as
+// float32's bits, int16 and int8 sign-extended to int32.
+__device__ __forceinline__ unsigned int widen(const void* p, int64_t e, int narrow) {
+  if (narrow == kBf16) return static_cast<unsigned int>(static_cast<const unsigned short*>(p)[e]) << 16;
+  if (narrow == kInt16) return static_cast<unsigned int>(static_cast<int>(static_cast<const short*>(p)[e]));
+  return static_cast<unsigned int>(static_cast<int>(static_cast<const signed char*>(p)[e]));
+}
+
+// An extremum's pick of the word x into *slot: int32 by atomicMax/atomicMin
+// (the slot is read first and the atomic skipped where x cannot win), float32
+// by B4's ordered CAS.
+__device__ __forceinline__ void pick_word(int kind, unsigned int* slot, unsigned int x) {
+  int* islot = reinterpret_cast<int*>(slot);
+  const int xi = static_cast<int>(x);
+  switch (kind) {
+    case kMaxInt:
+      if (xi > *reinterpret_cast<volatile int*>(islot)) atomicMax(islot, xi);
+      break;
+    case kMinInt:
+      if (xi < *reinterpret_cast<volatile int*>(islot)) atomicMin(islot, xi);
+      break;
+    case kMaxFloat: pick_slot<true>(slot, __uint_as_float(x)); break;
+    default: pick_slot<false>(slot, __uint_as_float(x)); break;
+  }
+}
+
+// Vector v of row `row` of one int32/float32 leaf into segment id's slots of its output.
 template <int V>
 __device__ __forceinline__ void merge_vector(const MergeLeaf& leaf, unsigned row, int64_t id, unsigned v) {
   const unsigned e = v * V;
@@ -357,24 +405,30 @@ __device__ __forceinline__ void merge_vector(const MergeLeaf& leaf, unsigned row
     return;
   }
 #pragma unroll
-  for (int k = 0; k < V; ++k) {
-    int* islot = reinterpret_cast<int*>(slot) + k;
-    const int xi = static_cast<int>(x[k]);
-    switch (leaf.kind) {
-      case kMaxInt:
-        if (xi > *reinterpret_cast<volatile int*>(islot)) atomicMax(islot, xi);
-        break;
-      case kMinInt:
-        if (xi < *reinterpret_cast<volatile int*>(islot)) atomicMin(islot, xi);
-        break;
-      case kMaxFloat: pick_slot<true>(slot + k, __uint_as_float(x[k])); break;
-      default: pick_slot<false>(slot + k, __uint_as_float(x[k])); break;
-    }
+  for (int k = 0; k < V; ++k) pick_word(leaf.kind, slot + k, x[k]);
+}
+
+// Element e of row `row` of a narrow leaf into segment id's slot of its
+// accumulator: the delta added as an int32 (int16, int8) or as a float32
+// rounded to bfloat16, as the leaf's own subtraction rounds it; an extremum
+// picked as an int32 or a float32.
+__device__ __forceinline__ void merge_narrow(const MergeLeaf& leaf, unsigned row, int64_t id, unsigned e) {
+  const unsigned int x = widen(leaf.rows, row * leaf.row_stride + e, leaf.narrow);
+  unsigned int* slot = static_cast<unsigned int*>(leaf.wide) + id * leaf.d + e;
+  if (leaf.kind == kSumInt) {
+    const int delta = static_cast<int>(x) - static_cast<int>(widen(leaf.dflt, e, leaf.narrow));
+    if (delta != 0) atomicAdd(reinterpret_cast<int*>(slot), delta);
+  } else if (leaf.kind == kSumFloat) {
+    const float delta = __bfloat162float(
+        __float2bfloat16_rn(__uint_as_float(x) - __uint_as_float(widen(leaf.dflt, e, leaf.narrow))));
+    if (delta != 0.0f) atomicAdd(reinterpret_cast<float*>(slot), delta);
+  } else {
+    pick_word(leaf.kind, slot, x);
   }
 }
 
-// Phase 1 for one leaf: out = state, or zeros for a float32 sum; 16-byte
-// stores where both pointers allow, the rest one by one.
+// Phase 1 for one int32/float32 leaf: out = state, or zeros for a float32
+// sum; 16-byte stores where both pointers allow, the rest one by one.
 __device__ __forceinline__ void fill_leaf(const MergeLeaf& leaf, int64_t n, int64_t first, int64_t stride) {
   const bool zero = leaf.kind == kSumFloat;
   const unsigned int* in = static_cast<const unsigned int*>(leaf.state);
@@ -388,6 +442,13 @@ __device__ __forceinline__ void fill_leaf(const MergeLeaf& leaf, int64_t n, int6
     done = n4 * 4;
   }
   for (int64_t i = done + first; i < n; i += stride) out[i] = zero ? 0u : in[i];
+}
+
+// Phase 1 for one narrow leaf: its accumulator = the widened state, or zeros for a sum.
+__device__ __forceinline__ void fill_wide(const MergeLeaf& leaf, int64_t n, int64_t first, int64_t stride) {
+  const bool zero = leaf.kind == kSumInt || leaf.kind == kSumFloat;
+  unsigned int* wide = static_cast<unsigned int*>(leaf.wide);
+  for (int64_t i = first; i < n; i += stride) wide[i] = zero ? 0u : widen(leaf.state, i, leaf.narrow);
 }
 
 // Phase 3 for one float32 sum leaf: out = state + out.
@@ -411,8 +472,33 @@ __device__ __forceinline__ void add_state(const MergeLeaf& leaf, int64_t n, int6
   for (int64_t i = done + first; i < n; i += stride) out[i] = in[i] + out[i];
 }
 
+// Phase 3 for one narrow leaf: out = its accumulator narrowed back. A sum
+// first takes `state + sum` in the leaf's dtype: bfloat16 as
+// `state + sum.to(bfloat16)` rounds it, int16 and int8 wrapping. An
+// extremum's accumulator holds a value of the leaf's dtype, so it narrows
+// exactly.
+__device__ __forceinline__ void finish_narrow(const MergeLeaf& leaf, int64_t n, int64_t first, int64_t stride) {
+  const bool sum = leaf.kind == kSumInt || leaf.kind == kSumFloat;
+  const unsigned int* wide = static_cast<const unsigned int*>(leaf.wide);
+  for (int64_t i = first; i < n; i += stride) {
+    unsigned int w = wide[i];
+    if (leaf.narrow == kBf16) {
+      float value = __uint_as_float(w);
+      if (sum) value = __uint_as_float(widen(leaf.state, i, kBf16)) + __bfloat162float(__float2bfloat16_rn(value));
+      static_cast<__nv_bfloat16*>(leaf.out)[i] = __float2bfloat16_rn(value);
+      continue;
+    }
+    if (sum) w += widen(leaf.state, i, leaf.narrow);  // wraps as the leaf's own adds
+    if (leaf.narrow == kInt16) {
+      static_cast<short*>(leaf.out)[i] = static_cast<short>(w);
+    } else {
+      static_cast<signed char*>(leaf.out)[i] = static_cast<signed char>(w);
+    }
+  }
+}
+
 // One cooperative launch: fill, sync the grid, scatter every row of every
-// leaf, and, with a float32 sum leaf, sync again and add the states.
+// leaf, and, with a float32 sum or a narrow leaf, sync again and finish them.
 template <typename Index>
 __global__ void __launch_bounds__(kThreads) merge_kernel(const __grid_constant__ MergeTable table,
                                                          const Index* __restrict__ ids, int r, int s,
@@ -420,7 +506,12 @@ __global__ void __launch_bounds__(kThreads) merge_kernel(const __grid_constant__
   const unsigned first = blockIdx.x * blockDim.x + threadIdx.x;
   const unsigned stride = gridDim.x * blockDim.x;
   for (int l = 0; l < table.n; ++l) {
-    fill_leaf(table.leaf[l], static_cast<int64_t>(s) * table.leaf[l].d, first, stride);
+    const int64_t n = static_cast<int64_t>(s) * table.leaf[l].d;
+    if (table.leaf[l].narrow == kWord) {
+      fill_leaf(table.leaf[l], n, first, stride);
+    } else {
+      fill_wide(table.leaf[l], n, first, stride);
+    }
   }
   const int64_t s4 = s / 4;  // counts is 16-byte aligned (the entry checks)
   for (int64_t i = first; i < s4; i += stride) reinterpret_cast<int4*>(counts)[i] = make_int4(0, 0, 0, 0);
@@ -453,7 +544,9 @@ __global__ void __launch_bounds__(kThreads) merge_kernel(const __grid_constant__
     const int64_t id = static_cast<int64_t>(ids[row]);
     if (id < 0 || id >= s) continue;
     const unsigned v = j - row * per_row;
-    if (leaf.vec == 4) {
+    if (leaf.narrow != kWord) {
+      merge_narrow(leaf, row, id, v);
+    } else if (leaf.vec == 4) {
       merge_vector<4>(leaf, row, id, v);
     } else if (leaf.vec == 2) {
       merge_vector<2>(leaf, row, id, v);
@@ -464,11 +557,14 @@ __global__ void __launch_bounds__(kThreads) merge_kernel(const __grid_constant__
   dropped = __reduce_add_sync(0xffffffffu, dropped);
   if ((threadIdx.x & 31) == 0 && dropped != 0) atomicAdd(invalid, static_cast<int>(dropped));
 
-  if (table.float_sums) {
+  if (table.finish) {
     cooperative_groups::this_grid().sync();
     for (int k = 0; k < table.n; ++k) {
-      if (table.leaf[k].kind == kSumFloat) {
-        add_state(table.leaf[k], static_cast<int64_t>(s) * table.leaf[k].d, first, stride);
+      const int64_t n = static_cast<int64_t>(s) * table.leaf[k].d;
+      if (table.leaf[k].narrow != kWord) {
+        finish_narrow(table.leaf[k], n, first, stride);
+      } else if (table.leaf[k].kind == kSumFloat) {
+        add_state(table.leaf[k], n, first, stride);
       }
     }
   }
@@ -514,16 +610,21 @@ extern "C" int segment_scatter_launch(const void* rows, const void* ids, int r, 
 }
 
 // leaves: n rows of kMergeFields int64 each (rows, row stride in elements,
-// state, out, default, D, V, kind; see MergeLeaf), read before the call
-// returns. Each leaf's rows are int32 or float32 as its kind says, its row i at
+// state, out, default, D, V, kind, wide; see MergeLeaf), read before the
+// call returns; kind is a MergeKind + 8 * a Narrow type. Each leaf's rows,
+// state, out and default are of its type: int32 or float32 as its MergeKind
+// says, or bfloat16 (float kinds), int16 or int8 (int kinds); its row i at
 // rows + i * row stride; state and out (S, D) and default (D,) contiguous;
-// D % V == 0, and rows, out and default aligned to 4 * V bytes with the row
-// stride a multiple of V. ids: (r,) int32 (index_bytes=4) or int64 (8). counts:
-// (s,) int32, 16-byte aligned, and invalid: one int32, both uninitialised.
-// One cooperative launch for every kMaxMergeLeaves leaves, on `stream`, with
-// `device` made current for the call; each launch writes the same counts.
-// r * (1 + the sum of D / V over the leaves) < 2^31. Returns the first CUDA
-// error of the call (0 if none); s <= 0 does nothing.
+// D % V == 0, and rows, out and default aligned to V elements with the row
+// stride a multiple of V. A narrow leaf takes V = 1 and wide, its (S, D)
+// 32-bit accumulator (float32 for bfloat16, int32 for int16 and int8),
+// uninitialised and 4-byte aligned; wide is 0 for any other leaf. ids: (r,)
+// int32 (index_bytes=4) or int64 (8). counts: (s,) int32, 16-byte aligned,
+// and invalid: one int32, both uninitialised. One cooperative launch for
+// every kMaxMergeLeaves leaves, on `stream`, with `device` made current for
+// the call; each launch writes the same counts. r * (1 + the sum of D / V
+// over the leaves) < 2^31. Returns the first CUDA error of the call (0 if
+// none); s <= 0 does nothing.
 extern "C" int segment_merge_launch(const long long* leaves, int n, const void* ids, int r, int s, int index_bytes,
                                     void* counts, void* invalid, int device, void* stream) {
   if (s <= 0) return 0;
@@ -536,7 +637,7 @@ extern "C" int segment_merge_launch(const long long* leaves, int n, const void* 
   do {
     MergeTable table;
     table.n = n - done < kMaxMergeLeaves ? n - done : kMaxMergeLeaves;
-    table.float_sums = 0;
+    table.finish = 0;
     int64_t items = r;
     int64_t stores = s / 4;
     for (int k = 0; k < table.n; ++k) {
@@ -549,21 +650,26 @@ extern "C" int segment_merge_launch(const long long* leaves, int n, const void* 
       leaf.dflt = reinterpret_cast<const void*>(f[4]);
       leaf.d = static_cast<int>(f[5]);
       leaf.vec = static_cast<int>(f[6]);
-      leaf.kind = static_cast<int>(f[7]);
+      leaf.kind = static_cast<int>(f[7] & 7);
+      leaf.narrow = static_cast<int>(f[7] >> 3);
+      leaf.wide = reinterpret_cast<void*>(f[8]);
+      const bool floating = (leaf.kind & 1) != 0;
       if ((leaf.vec != 1 && leaf.vec != 2 && leaf.vec != 4) || f[5] < 0 || f[5] >= (1LL << 31) ||
-          leaf.d % leaf.vec != 0 || leaf.kind < kSumInt || leaf.kind > kMinFloat) {
+          leaf.d % leaf.vec != 0 || f[7] < 0 || f[7] >= 8 * (kInt8 + 1) || leaf.kind > kMinFloat ||
+          (leaf.narrow != kWord && (leaf.vec != 1 || f[8] == 0 || floating != (leaf.narrow == kBf16)))) {
         return static_cast<int>(cudaErrorInvalidValue);
       }
+      const int bytes = leaf.narrow == kWord ? 4 : leaf.narrow == kInt8 ? 1 : 2;
       const uintptr_t address = static_cast<uintptr_t>(f[0]) | static_cast<uintptr_t>(f[3]) |
                                 static_cast<uintptr_t>(f[4]);
-      if (address % (4 * leaf.vec) != 0 || leaf.row_stride % leaf.vec != 0) {
+      if (address % (bytes * leaf.vec) != 0 || leaf.row_stride % leaf.vec != 0 || static_cast<uintptr_t>(f[8]) % 4) {
         return static_cast<int>(cudaErrorMisalignedAddress);
       }
       leaf.first = static_cast<unsigned>(items);
       items += static_cast<int64_t>(r) * (leaf.d / leaf.vec);
       if (items >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
       stores += static_cast<int64_t>(s) * leaf.d / 4;
-      if (leaf.kind == kSumFloat) table.float_sums = 1;
+      if (leaf.kind == kSumFloat || leaf.narrow != kWord) table.finish = 1;
     }
     table.items = static_cast<unsigned>(items);
     const int err = index_bytes == 8 ? launch_merge<int64_t>(table, ids, r, s, counts, invalid, stores, device, st)

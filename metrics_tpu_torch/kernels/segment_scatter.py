@@ -38,7 +38,8 @@ The merge, :func:`segment_merge_cuda` (plain version
 :func:`segment_merge_torch`), is the keyed update's routing in one call: a
 list of leaves, each ``(rows, state, default, op)`` with ``(R, ...)`` rows,
 the ``(S, ...)`` stacked state, the leaf's default and ``op`` ``"sum"``,
-``"max"`` or ``"min"``, all int32 or all float32, becomes each leaf's new
+``"max"`` or ``"min"``, all of one dtype of :data:`MERGE_DTYPES` (int32,
+float32, bfloat16, int16, int8), becomes each leaf's new
 state (a sum adds ``rows - default`` into it, an extremum picks in XLA's
 order against it, a segment without rows keeps it), with the ``(S,)`` int32
 counts of valid rows and the 0-d int32 count of dropped ids. On the card it
@@ -48,7 +49,12 @@ leaf's rows in place at their row stride (0 for a broadcast default) and
 writes new output tensors, so the update stays out of place. int32 sums are
 exact at any size (integer atomics); float32 sums take the batch's sum first
 and then ``state + sum``, in an order of adds that changes from run to run.
-The plain version is the per-leaf route: ``index_add_`` in the leaf's dtype,
+A bfloat16, int16 or int8 leaf works in a 32-bit accumulator, as B3 and B4
+work in float32: bfloat16 sums add their deltas in float32 (exact while a
+tenant's batch sum of one element stays below 2^24) and then take
+``state + sum`` in bfloat16; int16 and int8 sums add in int32, which wraps
+to the leaf's own sum; extrema pick exactly. The plain version is the
+per-leaf route: ``index_add_`` in the leaf's dtype (float32 for bfloat16),
 ``state + sum``, and the plain extrema picked against the state in XLA's
 order.
 """
@@ -85,12 +91,15 @@ _MERGE_ARGTYPES = (
     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
 )
 _MERGE_ENTRY = "segment_merge_launch"
-#: a merged leaf's op; its kind in the C entry's table is ``op * 2 + 1`` for float32, ``op * 2`` for int32
+#: a merged leaf's op; its kind in the C entry's table is ``op * 2 + 1`` for a float dtype, ``op * 2`` for an
+#: integer one, plus ``8 *`` its :data:`_NARROW` code
 _MERGE_OPS = {"sum": 0, "max": 1, "min": 2}
+#: the narrow leaf dtypes' codes in the C entry's table, each with the dtype of its 32-bit accumulator
+_NARROW = {torch.bfloat16: (1, torch.float32), torch.int16: (2, torch.int32), torch.int8: (3, torch.int32)}
 #: the leaf dtypes the merge takes
-MERGE_DTYPES = (torch.int32, torch.float32)
-#: a leaf's row in the C entry's table, int64 each: rows, row stride, state, out, default, D, V, kind
-_MERGE_FIELDS = 8
+MERGE_DTYPES = (torch.int32, torch.float32) + tuple(_NARROW)
+#: a leaf's row in the C entry's table, int64 each: rows, row stride, state, out, default, D, V, kind, wide
+_MERGE_FIELDS = 9
 #: ``{leaves: struct}`` packing a table of that many leaves
 _MERGE_TABLES: Dict[int, struct.Struct] = {}
 #: one merged leaf: ``(rows, state, default, op)``
@@ -300,16 +309,18 @@ def segment_merge_torch(leaves: Sequence[MergeLeaf], segment_ids: Tensor, num_se
                         ) -> Tuple[List[Tensor], Tensor, Tensor]:
     """``(new states, (S,) int32 counts, 0-d int32 dropped ids)`` of the
     merge (see the module docstring), one leaf at a time: a sum leaf's
-    ``rows - default`` summed by ``index_add_`` in its own dtype and added to
-    the state, an extremal leaf's rows picked in XLA's order
-    (:func:`segment_extremal_plain`) and then against the state."""
+    ``rows - default`` summed by ``index_add_`` in its own dtype (bfloat16
+    in float32) and added to the state in the leaf's dtype, an extremal
+    leaf's rows picked in XLA's order (:func:`segment_extremal_plain`) and
+    then against the state."""
     valid, safe = _safe_ids(segment_ids, num_segments)
     outs = []
     for rows, state, default, op in leaves:
         r, d = rows.shape[0], default.numel()
         if op == "sum":
-            sums = segment_sum_plain((rows - default).reshape(r, d), safe, num_segments)
-            outs.append(state + sums.reshape(state.shape))
+            delta = (rows - default).reshape(r, d)
+            sums = segment_sum_plain(delta.float() if delta.dtype == torch.bfloat16 else delta, safe, num_segments)
+            outs.append(state + sums.reshape(state.shape).to(state.dtype))
         else:
             seg = segment_extremal_plain(rows.reshape(r, d), safe, num_segments, op).reshape(state.shape)
             outs.append(_ordered_pick(state, seg, op == "max"))
@@ -339,8 +350,8 @@ def _check_merge(leaves: Sequence[MergeLeaf], segment_ids: Tensor, num_segments:
             raise ValueError(f"{name} takes the ops {list(_MERGE_OPS)}, got {op!r}")
         dtype = state.dtype
         if dtype not in MERGE_DTYPES or rows.dtype != dtype or default.dtype != dtype:
-            raise TypeError(f"{name} takes int32 or float32 leaves whose rows, state and default share the dtype,"
-                            f" got {rows.dtype}, {dtype} and {default.dtype}")
+            raise TypeError(f"{name} takes leaves of one of {[str(t) for t in MERGE_DTYPES]} whose rows, state and"
+                            f" default share the dtype, got {rows.dtype}, {dtype} and {default.dtype}")
         d = default.numel()
         ndim = default.ndim + 1
         if state.ndim != ndim or rows.ndim != ndim or state.shape[0] != num_segments or rows.shape[0] != r or \
@@ -388,21 +399,28 @@ def _merge_cuda(leaves: Sequence[MergeLeaf], segment_ids: Tensor, num_segments: 
                 ) -> Tuple[List[Tensor], Tensor, Tensor]:
     """One call into the C library: the leaves' table packed by value, the
     outputs, counts and dropped count allocated uninitialised (the launch
-    fills them), one launch on the current stream of ``device``."""
+    fills them), with a 32-bit accumulator for each narrow leaf, one launch
+    on the current stream of ``device``."""
     r = segment_ids.shape[0]
     fields: List[int] = []
-    outs, views = [], []
+    outs, held = [], []
     for rows, state, default, op in leaves:
         d = default.numel()
         view, stride = _row_view(rows, r, d)
         out = torch.empty_like(state)
         rows_ptr, out_ptr, default_ptr = view.data_ptr(), out.data_ptr(), default.data_ptr()
-        # the row stride's bytes join the address: every row then shares the first one's alignment
-        vec = vector_width(d, rows_ptr | out_ptr | default_ptr | 4 * stride)
-        kind = _MERGE_OPS[op] * 2 + (state.dtype == torch.float32)
-        fields += (rows_ptr, stride, state.data_ptr(), out_ptr, default_ptr, d, vec, kind)
+        kind = _MERGE_OPS[op] * 2 + state.dtype.is_floating_point
+        narrow = _NARROW.get(state.dtype)
+        if narrow is None:
+            # the row stride's bytes join the address: every row then shares the first one's alignment
+            vec, wide_ptr = vector_width(d, rows_ptr | out_ptr | default_ptr | 4 * stride), 0
+        else:
+            wide = torch.empty(state.shape, dtype=narrow[1], device=device)
+            vec, wide_ptr, kind = 1, wide.data_ptr(), kind + 8 * narrow[0]
+            held.append(wide)
+        fields += (rows_ptr, stride, state.data_ptr(), out_ptr, default_ptr, d, vec, kind, wide_ptr)
         outs.append(out)
-        views.append(view)
+        held.append(view)
     counts = torch.empty(num_segments, dtype=torch.int32, device=device)
     invalid = torch.empty((), dtype=torch.int32, device=device)
     err = kernel_function(_MERGE_ENTRY, _MERGE_ARGTYPES)(

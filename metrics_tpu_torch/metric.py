@@ -185,6 +185,26 @@ def _warmup_report(obj: Any, fn: CompiledDispatch, fresh: bool, start: float, si
     }
 
 
+def _note_update_many(obj: Any, start: Optional[float], submitted: Optional[float], fn: CompiledDispatch, k: int,
+                      stacked: Tuple, stacked_kwargs: Dict, **payload: Any) -> None:
+    """An ``update_many``'s telemetry (``metric.py:1038``): its call, its K
+    batches, the host time of its submit (``start`` to ``submitted``) under
+    ``dispatch_seconds{path=update_many}``, the compiled dispatch, and the
+    ``scan_microbatch`` event with ``payload``. ``start`` is ``None`` while
+    telemetry and events are off."""
+    if start is None:
+        return
+    dur = submitted - start
+    key = obj.telemetry_key
+    if TELEMETRY.enabled:
+        TELEMETRY.inc(key, "update_many_calls")
+        TELEMETRY.inc(key, "update_many_batches", k)
+        observe_dispatch(dur, "update_many")
+        _note_compiled_dispatch(obj, fn, stacked, stacked_kwargs, counter="update_many_dispatches")
+    EVENTS.record("update", key, dur_s=dur, t_start=start, path="scan_microbatch", batches=k, **payload,
+                  compiled_this_call=bool(fn.last_compiled), donated=fn.donate_state)
+
+
 def _microbatch_len(args: Tuple, kwargs: Dict) -> int:
     """The micro-batch count K of an ``update_many`` call (``metric.py:174``):
     the shared leading axis of every stacked tensor argument. 0-d leaves and
@@ -847,13 +867,21 @@ class Metric(ABC):
         same refusals apply."""
         self._dispatch_update_many(stacked, stacked_kwargs)
 
-    def _dispatch_update_many(self, stacked: Tuple, stacked_kwargs: Dict) -> Any:
-        """:meth:`update_many`'s body; returns the program's extra output."""
+    def _begin_update_many(self, stacked: Tuple, stacked_kwargs: Dict) -> int:
+        """:meth:`update_many`'s refusals and cache clears before its
+        dispatch; returns K."""
         self._compiled_state_gate()
         self._check_input_device(stacked, stacked_kwargs)
         k = _microbatch_len(stacked, stacked_kwargs)
+        # a cached compute() result may be a state tensor: cleared before the
+        # alias check, so it cannot be written under a caller holding it
         self._computed = None
         self._forward_cache = None
+        return k
+
+    def _dispatch_update_many(self, stacked: Tuple, stacked_kwargs: Dict) -> Any:
+        """:meth:`update_many`'s body; returns the program's extra output."""
+        k = self._begin_update_many(stacked, stacked_kwargs)
         state = self._get_states()
         donatable = True
         if self._jit_forward_donate:
@@ -865,18 +893,7 @@ class Metric(ABC):
         submitted = time.perf_counter() if (start is not None or prof is not None) else None
         if prof is not None:
             PROFILER.finish(prof, self.telemetry_key, fn, submit_end=submitted)
-        if start is not None:
-            dur = submitted - start
-            key = self.telemetry_key
-            if TELEMETRY.enabled:
-                TELEMETRY.inc(key, "update_many_calls")
-                TELEMETRY.inc(key, "update_many_batches", k)
-                observe_dispatch(dur, "update_many")
-                _note_compiled_dispatch(self, fn, stacked, stacked_kwargs, counter="update_many_dispatches")
-            EVENTS.record(
-                "update", key, dur_s=dur, t_start=start, path="scan_microbatch", batches=k,
-                compiled_this_call=bool(fn.last_compiled), donated=fn.donate_state,
-            )
+        _note_update_many(self, start, submitted, fn, k, stacked, stacked_kwargs)
         self._set_states(new_state)
         self._update_called = True
         self._computed = None

@@ -13,43 +13,43 @@ tenant with ``update(tenant_ids, *batch)``, in one pass:
    B1's batched entry), else its pure ``apply_update`` vmapped over the
    event-row axis; the child's value checks run once on the whole batch
    first, since neither form reads a value;
-2. **the merge** — every int32 and float32 leaf of the update, ``"sum"``,
-   ``"max"`` or ``"min"``, of every bundle (a :class:`MultiTenantCollection`
-   merges all its bundles' leaves at once), routed into its new stacked
-   state by ONE launch of the merge kernel
+2. **the merge** — every int32, float32, bfloat16, int16 and int8 leaf of
+   the update, ``"sum"``, ``"max"`` or ``"min"``, of every bundle (a
+   :class:`MultiTenantCollection` merges all its bundles' leaves at once),
+   routed into its new stacked state by ONE launch of the merge kernel
    (:func:`~metrics_tpu_torch.kernels.segment_scatter.segment_merge_cuda`):
    a sum leaf adds ``per_row - default`` (int32 exactly at any size, by
-   integer atomics; float32 as the batch's sum, then ``state + sum``), an
-   extremal leaf picks against its state in XLA's order (NaN on top, +0.0
-   above -0.0), and a tenant without rows keeps its state. The rows are
+   integer atomics, int16 and int8 likewise, wrapping to the leaf's dtype;
+   float32 as the batch's sum, then ``state + sum``; bfloat16 as float32
+   deltas, then ``state + sum`` in bfloat16), an extremal leaf picks
+   against its state in XLA's order (NaN on top, +0.0 above -0.0), and a
+   tenant without rows keeps its state. The rows are
    read where they lie (a broadcast default, a slice of B1's batched
    output); the launch also gives the per-tenant row counts and the
    dropped-id count. Which leaves take it is fixed by their dtypes when the
    bundle's plan is built (:meth:`KeyedMetric._scatter_plan`);
-3. **bfloat16 sums and small-integer extrema** — the bfloat16 ``"sum"``
-   leaves as ``per_row - default`` packed into ONE ``(R, ΣD)`` float32
-   matrix and added by ONE launch of B3
-   (:func:`~metrics_tpu_torch.kernels.segment_scatter.segment_scatter_add_cuda`);
-   each bfloat16, int16 or int8 ``"max"``/``"min"`` leaf picked by one
-   launch of B4 and merged where the kernel's count of rows is non-zero, so
-   empty segments leave their tenants untouched;
-4. **leaves of any other dtype** (float64, int64: the regression metrics'
-   moment sums and counts) — added in their own dtype by a plain
+3. **the plain route** — every other leaf (float64 and int64: the
+   regression metrics' moment sums and counts) in its own dtype: the
+   ``"sum"`` leaves as ``per_row - default`` added by a plain
    ``index_add_`` over an ``S+1``-row buffer whose last row takes the ids
    outside ``[0, capacity)`` (one per dtype, the leaves of a dtype packed),
-   or picked by a plain ``scatter_reduce_``
+   each ``"max"``/``"min"`` leaf picked by a plain ``scatter_reduce_`` and
+   merged in XLA's order where a tenant has rows
    (:func:`~metrics_tpu_torch.kernels.segment_scatter.segment_sum_plain`,
    :func:`~metrics_tpu_torch.kernels.segment_scatter.segment_extremal_plain`).
-   This is the counterpart of the JAX package's ``segment_sum`` for such
-   leaves (``multitenant.py:489-511``), chosen by the leaf's dtype alone.
-   Each such scatter counts under its op's ``"plain"`` dispatch path (once
-   per dispatch, and once per capture inside a compiled step).
+   This is the counterpart of the JAX package's ``segment_sum`` and
+   ``segment_max``/``segment_min`` for such leaves
+   (``multitenant.py:599-625``). Each such scatter counts under its op's
+   ``"plain"`` dispatch path (once per dispatch, and once per capture
+   inside a compiled step).
 
 Where the JAX package sends a mixed bundle's leaves through XLA's
 ``segment_sum``/``segment_max`` (``multitenant.py:606-615``), fused by XLA
-into one program, the port sends its int32 and float32 leaves through the
-merge: int32 sums exact as ``segment_sum`` in int32 is, extrema in XLA's
-order, float32 sums to rounding.
+into one program, and its bfloat16 sums and bfloat16/int16/int8 extrema
+through its Pallas kernels in float32 (``multitenant.py:490,543``), the port
+sends all of these leaves through the merge: integer sums exact as
+``segment_sum`` in their dtype is, extrema in XLA's order, float sums to
+rounding.
 
 :class:`MultiTenantCollection` is the collection form: members whose
 :meth:`~metrics_tpu_torch.metric.Metric._shared_update_key` and state layout
@@ -99,8 +99,8 @@ ingest threads never interleave their read-modify-write of the stacked
 state. While telemetry is on every update feeds a per-tenant traffic ledger
 (:class:`_TenantTraffic`: rows routed and the last time each tenant was
 seen) behind :meth:`KeyedMetric.tenant_report`. The ledger lives on the
-update's device and is fed the merge's (else B3's, B4's or the plain
-route's) per-tenant row counts (three device operations per update); it is
+update's device and is fed the merge's (else the plain route's)
+per-tenant row counts (three device operations per update); it is
 read to the host only when a report asks, so a keyed update makes the same
 synchronizing calls with telemetry on as off. (The JAX package reads the ids on the host
 instead.) The admission queue's staged host view carries its device twin
@@ -121,6 +121,7 @@ checkpoint trail or a spiller pins the traffic ledger open
 (``_durability_traffic_pin``), so updates feed it with telemetry off.
 """
 import copy
+import functools
 import threading
 import time
 from collections import OrderedDict
@@ -134,12 +135,10 @@ from metrics_tpu_torch.kernels._common import note_kernel_dispatch
 from metrics_tpu_torch.kernels.segment_scatter import (
     MERGE_DTYPES,
     _counts,
+    _ordered_pick,
     _safe_ids,
     segment_extremal_plain,
     segment_merge_cuda,
-    segment_scatter_add_cuda,
-    segment_scatter_max_cuda,
-    segment_scatter_min_cuda,
     segment_sum_plain,
 )
 from metrics_tpu_torch.metric import (
@@ -148,6 +147,7 @@ from metrics_tpu_torch.metric import (
     _aliased_leaf,
     _microbatch_len,
     _note_compiled_dispatch,
+    _note_update_many,
     _unrolled,
     _warmup_report,
 )
@@ -175,40 +175,27 @@ __all__ = ["KeyedMetric", "MultiTenantCollection"]
 
 #: reductions the segment router can route exactly (see :func:`_keyed_gate`)
 _SEGMENT_REDUCTIONS = ("sum", "max", "min")
-#: sum-leaf dtypes outside the merge that B3 accumulates exactly through its
-#: float32 rows (others take the plain ``index_add_`` in their own dtype)
-_FUSED_SCATTER_DTYPES = (torch.bfloat16,)
-#: extremal-leaf dtypes outside the merge that B4 picks exactly through its
-#: float32 rows (others take the plain ``scatter_reduce_`` in their own dtype)
-_EXTREMAL_SCATTER_DTYPES = (torch.bfloat16, torch.int16, torch.int8)
 
 
 class _ScatterPlan(NamedTuple):
     """A bundle's routes, fixed by its leaves' dtypes and reductions."""
 
-    #: ``(name, reduction, default)`` of the int32/float32 leaves: the merge
+    #: ``(name, reduction, default)`` of the leaves of the merge's dtypes
     merged: Tuple[Tuple[str, str, Tensor], ...]
-    #: the other ``"sum"`` leaves by the dtype they are added in: float32
-    #: (B3, the bfloat16 leaves), else their own (the plain route)
+    #: the plain route's ``"sum"`` leaves by dtype
     sums: Dict[torch.dtype, List[str]]
-    #: the other ``"max"``/``"min"`` leaves: B4's first, then the plain route's
+    #: the plain route's ``"max"``/``"min"`` leaves
     extremal: Tuple[str, ...]
-    #: how many of ``extremal`` B4 takes
-    b4: int
-    #: a leaf takes a plain route
-    plain: bool
-    #: a leaf outside the merge takes B3 or B4, which give the row counts
-    kernel: bool
 
 
 def _scatter_bundles(bundles: Sequence[Tuple["KeyedMetric", StateDict, StateDict]], ids: Tensor, n: int,
                      device: torch.device) -> Tuple[List[StateDict], Tensor, Optional[Tensor]]:
     """The scatter of one keyed update over ``(keyed bundle, stacked state,
     per-row states)`` triples sharing ``ids`` and the capacity ``n``: ONE
-    merge launch over the int32/float32 leaves of every bundle, then each
+    merge launch over the merged leaves of every bundle, then each
     bundle's other leaves (:meth:`KeyedMetric._scatter_rest`). Returns the
     new stacked states, the invalid-id count and the per-tenant row counts
-    (the merge's, else the first bundle's)."""
+    (the merge's, else the first bundle's plain route's)."""
     leaves = []
     for keyed, state, per_row in bundles:
         for name, fx, default in keyed._scatter_plan().merged:
@@ -236,43 +223,69 @@ def _pow2_at_least(n: int) -> int:
     return 1 << max(0, int(n) - 1).bit_length()
 
 
-def _note_keyed_update(obj: Any, start: float, rows: int, **payload: Any) -> None:
-    """The keyed update's telemetry (``multitenant.py:719-745``): rows,
-    dispatch count and host time, and the ``keyed_scatter`` event."""
-    dur = time.perf_counter() - start
-    key = obj.telemetry_key
-    if TELEMETRY.enabled:
-        TELEMETRY.inc(key, "keyed_update_rows", rows)
-        TELEMETRY.inc(key, "keyed_update_dispatches")
-        observe_dispatch(dur, "keyed_scatter")
-    if EVENTS.enabled:
-        EVENTS.record(
-            "update", key, dur_s=dur, t_start=start, path="keyed_scatter", tenants=obj.num_tenants, rows=rows,
-            **payload,
-        )
-
-
-#: the compiled dispatches of a MultiTenantCollection (each with its copying twin)
-_MTC_DISPATCHES = ("_keyed_update_fn", "_keyed_update_fn_copy", "_update_many_fn", "_update_many_fn_copy")
-
-
-def _note_keyed_compiled(obj: Any, fn: CompiledDispatch, start: Optional[float], args: Tuple, kwargs: Dict,
-                         **payload: Any) -> None:
-    """The compiled keyed update's telemetry (``multitenant.py:726-760``);
-    ``args`` (the ids first) and ``kwargs`` are the dispatch's."""
+def _note_keyed_update(obj: Any, start: Optional[float], fn: Optional[CompiledDispatch], args: Tuple, kwargs: Dict,
+                       **payload: Any) -> None:
+    """The keyed update's telemetry (``multitenant.py:719-760``): rows,
+    dispatch count (with its capture where ``fn``, the compiled dispatch,
+    ran it) and host time, and the ``keyed_scatter`` event; ``args`` (the
+    ids first) and ``kwargs`` are the update's."""
     if start is None:
         return
     dur = time.perf_counter() - start
     key = obj.telemetry_key
     rows = int(args[0].shape[0])
+    if fn is not None:
+        payload.update(compiled_this_call=bool(fn.last_compiled), donated=fn.donate_state)
     if TELEMETRY.enabled:
         TELEMETRY.inc(key, "keyed_update_rows", rows)
         observe_dispatch(dur, "keyed_scatter")
-        _note_compiled_dispatch(obj, fn, args, kwargs, counter="keyed_update_dispatches")
-    EVENTS.record(
-        "update", key, dur_s=dur, t_start=start, path="keyed_scatter", tenants=obj.num_tenants, rows=rows,
-        compiled_this_call=bool(fn.last_compiled), donated=fn.donate_state, **payload,
-    )
+        if fn is None:
+            TELEMETRY.inc(key, "keyed_update_dispatches")
+        else:
+            _note_compiled_dispatch(obj, fn, args, kwargs, counter="keyed_update_dispatches")
+    EVENTS.record("update", key, dur_s=dur, t_start=start, path="keyed_scatter", tenants=obj.num_tenants, rows=rows,
+                  **payload)
+
+
+def _keyed_commit(owner: Any, program: Callable, args: Tuple, kwargs: Dict, path: str, hook_ids: Any,
+                  dispatch: Optional[Callable[[bool], CompiledDispatch]]
+                  ) -> Tuple[Optional[CompiledDispatch], Optional[float], Optional[float]]:
+    """The stateful shell of every keyed update of ``owner`` (a
+    :class:`KeyedMetric` or a :class:`MultiTenantCollection`):
+    ``program(state, *args, **kwargs) -> (new state, (invalid count, row
+    counts))`` over its stacked states (``owner._get_states()``), run eagerly
+    or, where ``dispatch`` is given, through the compiled dispatch
+    ``dispatch(donate)`` returns, ``donate`` when no leaf is held outside.
+    The durability hooks see ``hook_ids``; the profiler bracket is named
+    ``path``. Returns the compiled dispatch (or ``None``) and the host clock
+    before the program's submit (``None`` while telemetry and events are
+    off) and after it (``None`` while the profiler is off too)."""
+    hooks = owner.__dict__.get("_durability_hooks")
+    with owner._serial_lock():
+        if hooks is not None:
+            # spilled tenants named in this batch fault back before the
+            # program reads the stacked state
+            hooks.before_update(hook_ids)
+        state = owner._get_states()
+        fn = None if dispatch is None else dispatch(owner._donatable(state))
+        prof = PROFILER.begin(path, owner.device)
+        start = time.perf_counter() if (TELEMETRY.enabled or EVENTS.enabled) else None
+        new_state, (invalid, counts) = (program if fn is None else fn)(state, *args, **kwargs)
+        submitted = time.perf_counter() if (start is not None or prof is not None) else None
+        if prof is not None:
+            PROFILER.finish(prof, owner.telemetry_key, fn, submit_end=submitted)
+        owner._commit_states(new_state)
+        if hooks is not None:
+            hooks.after_update(hook_ids)
+    # outside the serial lock: a pressure callback may evict, which takes it
+    if _ledger_fed(owner):
+        owner._traffic.note(counts)
+    TELEMETRY.add_device(owner.telemetry_key, "invalid_tenant_ids", invalid)
+    return fn, start, submitted
+
+
+#: the compiled dispatches of a MultiTenantCollection (each with its copying twin)
+_MTC_DISPATCHES = ("_keyed_update_fn", "_keyed_update_copy_fn", "_update_many_fn", "_update_many_copy_fn")
 
 
 def _stacked_ids(owner: Any, tenant_ids: Any) -> Tensor:
@@ -474,14 +487,16 @@ def _keyed_gate(metric: Metric, what: str = "base_metric") -> None:
     """Raise a descriptive ``ValueError`` when ``metric`` cannot be keyed.
 
     Keying needs fixed-shape leaves whose reductions the segment router can
-    express (``"sum"`` through B3, ``"max"``/``"min"`` through B4, each in
-    its own dtype by the plain route where the kernels do not take it
-    exactly) and the base pure-state protocol. Unbounded list states,
+    express (``"sum"``, ``"max"``, ``"min"``: int32, float32, bfloat16,
+    int16 and int8 leaves through the merge, the rest in their own dtype
+    through the plain route)
+    and the base pure-state protocol. Unbounded list states,
     ``"cat"``/``"mean"``/custom reductions and ``dist_sync_on_step`` all
     stay single-stream.
 
     int32 ``"sum"`` leaves take the merge's integer atomics, exact at any
-    size. bfloat16 ``"sum"`` leaves reach B3 as float32 deltas, so they are
+    size (int16 and int8 ones too, wrapping as their own adds would).
+    bfloat16 ``"sum"`` leaves are added as float32 deltas, so they are
     exact only while each tenant's sum of one leaf element within one batch
     stays below 2^24; nothing checks that bound at run time.
     """
@@ -654,26 +669,20 @@ class KeyedMetric(Metric):
     ) -> Tuple[StateDict, Tensor]:
         """Pure keyed update core: ``(new_stacked_state, invalid_count)``
         (see :meth:`_scatter_counted`)."""
-        new_state, invalid, _ = self._scatter_counted(state, ids, args, kwargs)
+        new_state, (invalid, _) = self._scatter_counted(state, ids, *args, **kwargs)
         return new_state, invalid
 
-    def _scatter_counted(
-        self, state: StateDict, ids: Tensor, args: Tuple, kwargs: Dict
-    ) -> Tuple[StateDict, Tensor, Tensor]:
-        """``(new_stacked_state, invalid_count, counts)``: the keyed update
+    def _scatter_counted(self, state: StateDict, ids: Tensor, *args: Any, **kwargs: Any
+                         ) -> Tuple[StateDict, Tuple[Tensor, Tensor]]:
+        """``(new_stacked_state, (invalid_count, counts))``: the keyed update
         and the ``(capacity,)`` int32 row counts per tenant (the traffic
-        ledger's feed) of the merge, else of the first kernel launched, B3
-        before B4.
+        ledger's feed) of the merge, else of the plain route; the program
+        of the stateful ``update``, eager or compiled (``multitenant.py:625``).
 
         The kernels drop ids < 0 or >= the PHYSICAL capacity; an id in the
         padding band ``[num_tenants, capacity)`` lands in a padding row, which
-        compute slices off. ``invalid_count`` stays on the device.
-
-        Leaves outside the merge take B3, B4 or the plain route in their own
-        dtype (see the module docstring). A bundle with no leaf for any
-        kernel gets its counts from a plain ``index_add_`` of its valid rows
-        into int32, on the device: no update reads an id to the host, so
-        every route can be captured.
+        compute slices off. ``invalid_count`` stays on the device. No route
+        reads an id to the host, so every route can be captured.
 
         Its host spans: ``checks`` and ``row_states`` (:meth:`_bundle_rows`)
         and ``scatter`` (:func:`_scatter_bundles`: one merge launch).
@@ -681,7 +690,7 @@ class KeyedMetric(Metric):
         per_row = self._bundle_rows(args, kwargs)
         with span("scatter"):
             (new,), invalid, counts = _scatter_bundles(((self, state, per_row),), ids, self._capacity, self.device)
-        return new, invalid, counts
+        return new, (invalid, counts)
 
     def _bundle_rows(self, args: Tuple, kwargs: Dict) -> StateDict:
         """The child's input checks on the whole batch (the ``checks`` span;
@@ -695,46 +704,38 @@ class KeyedMetric(Metric):
 
     def _scatter_plan(self) -> _ScatterPlan:
         """The bundle's routes by leaf dtype and reduction, built at the first
-        update: int32 and float32 leaves take the merge; bfloat16 sums B3;
-        bfloat16, int16 and int8 extrema B4; the rest the plain routes."""
+        update: the leaves of the merge's dtypes take the merge, the rest the
+        plain route."""
         plan = self.__dict__.get("_plan")
         if plan is None:
             child = self._child
-            merged, sums, b4, plain_extremal = [], {}, [], []
+            merged, sums, extremal = [], {}, []
             for name, fx in child._reductions.items():
-                default = child._defaults[name]
-                if default.dtype in MERGE_DTYPES:
-                    merged.append((name, fx, default.contiguous()))
+                dtype = child._defaults[name].dtype
+                if dtype in MERGE_DTYPES:
+                    merged.append((name, fx, child._defaults[name].contiguous()))
                 elif fx == "sum":
-                    fused = default.dtype in _FUSED_SCATTER_DTYPES
-                    sums.setdefault(torch.float32 if fused else default.dtype, []).append(name)
-                elif default.dtype in _EXTREMAL_SCATTER_DTYPES:
-                    b4.append(name)
+                    sums.setdefault(dtype, []).append(name)
                 else:
-                    plain_extremal.append(name)
-            plain = bool(plain_extremal) or any(dtype != torch.float32 for dtype in sums)
-            plan = self.__dict__["_plan"] = _ScatterPlan(
-                tuple(merged), sums, tuple(b4 + plain_extremal), len(b4), plain, torch.float32 in sums or bool(b4))
+                    extremal.append(name)
+            plan = self.__dict__["_plan"] = _ScatterPlan(tuple(merged), sums, tuple(extremal))
         return plan
 
     def _scatter_rest(self, state: StateDict, ids: Tensor, per_row: StateDict, new: StateDict,
-                      counts: Optional[Tensor]) -> Optional[Tensor]:
-        """The leaves outside the merge routed into ``new``: the bfloat16 sums
-        packed into columns through B3, the other sums by dtype through the
-        plain route, the extrema through B4 or the plain route, merged where
-        a tenant has rows. Returns the row counts: ``counts`` (the merge's
-        or an earlier bundle's) where given, else those of this bundle's
-        first kernel or of the plain route."""
+                      counts: Optional[Tensor]) -> Tensor:
+        """The leaves outside the merge routed into ``new`` by the plain
+        route: the sums packed by dtype, the extrema picked in XLA's order
+        where a tenant has rows. Returns the row counts: ``counts`` (the
+        merge's or an earlier bundle's) where given, else the plain route's."""
         plan = self._scatter_plan()
+        if counts is not None and not (plan.sums or plan.extremal):
+            return counts
         child = self._child
         n = self._capacity
-        if plan.plain or (counts is None and not plan.kernel):
-            # the plain route's ids (made only where a leaf takes it), and the
-            # row counts where nothing else gives them
-            valid, safe = _safe_ids(ids, n)
-            if counts is None and not plan.kernel:
-                counts = _counts(valid, safe, n)
-                note_kernel_dispatch("segment_scatter_add", "plain")
+        valid, safe = _safe_ids(ids, n)
+        if counts is None:
+            counts = _counts(valid, safe, n)
+            note_kernel_dispatch("segment_scatter_add", "plain")
         for dtype, names in plan.sums.items():
             layout, columns = [], []
             for name in names:
@@ -742,32 +743,20 @@ class KeyedMetric(Metric):
                 flat = delta.reshape(delta.shape[0], -1).to(dtype)
                 layout.append((name, tuple(delta.shape[1:]), flat.shape[1]))
                 columns.append(flat)
-            packed = torch.cat(columns, dim=1)
-            if dtype == torch.float32:
-                packed, seg_counts = segment_scatter_add_cuda(packed.contiguous(), ids, n, device=self.device)
-                counts = seg_counts if counts is None else counts
-            else:
-                packed = segment_sum_plain(packed, safe, n)
-                note_kernel_dispatch("segment_scatter_add", "plain")
+            packed = segment_sum_plain(torch.cat(columns, dim=1), safe, n)
+            note_kernel_dispatch("segment_scatter_add", "plain")
             offset = 0
             for name, shape, width in layout:
                 delta = packed[:, offset:offset + width].reshape((n,) + shape)
-                new[name] = state[name] + delta.to(state[name].dtype)
+                new[name] = state[name] + delta
                 offset += width
-        for i, name in enumerate(plan.extremal):
+        for name in plan.extremal:
             fx, rows = child._reductions[name], per_row[name]
-            pick = torch.maximum if fx == "max" else torch.minimum
-            flat = rows.reshape(rows.shape[0], -1)
-            if i < plan.b4:
-                kernel = segment_scatter_max_cuda if fx == "max" else segment_scatter_min_cuda
-                seg, seg_counts = kernel(flat.to(torch.float32).contiguous(), ids, n, device=self.device)
-                counts = seg_counts if counts is None else counts
-            else:
-                seg, seg_counts = segment_extremal_plain(flat, safe, n, fx), counts
-                note_kernel_dispatch(f"segment_scatter_{fx}", "plain")
-            seg = seg.reshape((n,) + tuple(rows.shape[1:]))
-            has_rows = (seg_counts > 0).reshape((n,) + (1,) * (rows.ndim - 1))
-            new[name] = torch.where(has_rows, pick(state[name], seg.to(state[name].dtype)), state[name])
+            seg = segment_extremal_plain(rows.reshape(rows.shape[0], -1), safe, n, fx)
+            note_kernel_dispatch(f"segment_scatter_{fx}", "plain")
+            seg = seg.reshape((n,) + tuple(rows.shape[1:])).to(state[name].dtype)
+            has_rows = (counts > 0).reshape((n,) + (1,) * (rows.ndim - 1))
+            new[name] = torch.where(has_rows, _ordered_pick(state[name], seg, fx == "max"), state[name])
         return counts
 
     # ------------------------------------------------------------------
@@ -793,13 +782,6 @@ class KeyedMetric(Metric):
 
     # -- the compiled keyed update ---------------------------------------------
 
-    def _dispatch_scatter(self, state: StateDict, ids: Tensor, *args: Any, **kwargs: Any
-                          ) -> Tuple[StateDict, Tuple[Tensor, Tensor]]:
-        """The program behind the compiled ``update`` (``multitenant.py:625``):
-        ``(new state, (invalid count, per-tenant row counts))``."""
-        new_state, invalid, counts = self._scatter_counted(state, ids, args, kwargs)
-        return new_state, (invalid, counts)
-
     def _scan_update_many(self, state: StateDict, stacked: Tuple, stacked_kwargs: Dict
                           ) -> Tuple[StateDict, Tuple[Tensor, Tensor]]:
         """K keyed updates unrolled into one program; their invalid counts
@@ -809,7 +791,7 @@ class KeyedMetric(Metric):
         def step(s: StateDict, ids: Tensor, *args: Any, **kwargs: Any) -> StateDict:
             if TELEMETRY.enabled and _counts_traces():  # as the JAX scan traces apply_update
                 TELEMETRY.inc(self.telemetry_key, "update_traces")
-            new, invalid, counts = self._scatter_counted(s, ids, args, kwargs)
+            new, (invalid, counts) = self._scatter_counted(s, ids, *args, **kwargs)
             totals[:] = [invalid, counts] if not totals else [totals[0] + invalid, totals[1] + counts]
             if HEALTH.enabled:  # the JAX scan's apply_update guards each step's stacked state
                 guard_state(self, new, source="apply_update")
@@ -833,39 +815,21 @@ class KeyedMetric(Metric):
         name = "_keyed_update_fn" if donate else "_keyed_update_copy_fn"
         fn = self.__dict__.get(name)
         if fn is None:
-            fn = CompiledDispatch(self._dispatch_scatter, donate_state=donate, pool=self._pool(),
+            fn = CompiledDispatch(self._scatter_counted, donate_state=donate, pool=self._pool(),
                                   owner_refs=self._dispatch_refs)
             self.__dict__[name] = fn
         return fn
 
-    def _after_keyed_dispatch(self, invalid: Tensor, counts: Tensor) -> None:
-        if _ledger_fed(self):
-            self._traffic.note(counts)
-        if TELEMETRY.enabled:
-            TELEMETRY.add_device(self.telemetry_key, "invalid_tenant_ids", invalid)
+    def _donatable(self, state: StateDict) -> bool:
+        """Whether a compiled keyed update may write ``state`` in place (see
+        :meth:`Metric._donation_safe_state`)."""
+        return self._jit_forward_donate and self._donation_safe_state(state)[1]
 
-    def _update_compiled(self, ids: Tensor, args: Tuple, kwargs: Dict, hook_ids: Any = None) -> None:
-        start = time.perf_counter() if (TELEMETRY.enabled or EVENTS.enabled) else None
-        hooks = self.__dict__.get("_durability_hooks")
-        with self._serial_lock():
-            if hooks is not None:
-                hooks.before_update(ids if hook_ids is None else hook_ids)
-            self._computed = None
-            state = self._get_states()
-            donatable = False
-            if self._jit_forward_donate:
-                state, donatable = self._donation_safe_state(state)
-            fn = self._keyed_dispatch(donatable)
-            prof = PROFILER.begin("keyed_scatter", self.device)
-            new_state, (invalid, counts) = fn(state, ids, *args, **kwargs)
-            if prof is not None:
-                PROFILER.finish(prof, self.telemetry_key, fn)
-            self._set_states(new_state)
-            self._update_called = True
-            if hooks is not None:
-                hooks.after_update(ids if hook_ids is None else hook_ids)
-        self._after_keyed_dispatch(invalid, counts)
-        _note_keyed_compiled(self, fn, start, (ids, *args), kwargs)
+    def _commit_states(self, new_state: StateDict) -> None:
+        """Install a keyed update's new stacked state."""
+        self._set_states(new_state)
+        self._update_called = True
+        self._computed = None
 
     def warmup(self, tenant_ids: Any, *sample_batch: Any, **kwargs: Any) -> Dict[str, Any]:
         """Capture the compiled keyed update for this batch's signature
@@ -891,16 +855,12 @@ class KeyedMetric(Metric):
         ids = _stacked_ids(self, tenant_ids)
         if self.validate_ids:
             self._validate_ids_eager(ids.reshape(-1))
-        stacked = tuple(_unstage(a) for a in stacked)
+        stacked = (ids,) + tuple(_unstage(a) for a in stacked)
         stacked_kwargs = {k: _unstage(v) for k, v in stacked_kwargs.items()}
-        hooks = self.__dict__.get("_durability_hooks")
-        with self._serial_lock():
-            if hooks is not None:
-                hooks.before_update(ids.reshape(-1))
-            invalid, counts = self._dispatch_update_many((ids,) + stacked, stacked_kwargs)
-            if hooks is not None:
-                hooks.after_update(ids.reshape(-1))
-        self._after_keyed_dispatch(invalid, counts)
+        k = self._begin_update_many(stacked, stacked_kwargs)
+        fn, start, submitted = _keyed_commit(self, self._scan_update_many, (stacked, stacked_kwargs), {},
+                                             "update_many", ids.reshape(-1), self._update_many_dispatch)
+        _note_update_many(self, start, submitted, fn, k, stacked, stacked_kwargs)
 
     def update(self, tenant_ids: Any, *args: Any, **kwargs: Any) -> None:
         """Route one mixed event batch to every tenant.
@@ -924,26 +884,10 @@ class KeyedMetric(Metric):
             kwargs = {k: _unstage(v) for k, v in kwargs.items()}
             if compiled:
                 self._check_input_device(args, kwargs)
-                return self._update_compiled(ids, args, kwargs, host_ids)
             start = time.perf_counter() if (TELEMETRY.enabled or EVENTS.enabled) else None
-            hooks = self.__dict__.get("_durability_hooks")
-            with self._serial_lock():
-                if hooks is not None:
-                    # spilled tenants named in this batch fault back before the
-                    # scatter reads the stacked state
-                    hooks.before_update(ids if host_ids is None else host_ids)
-                prof = PROFILER.begin("keyed_scatter", self.device)
-                new_state, invalid, counts = self._scatter_counted(self._get_states(), ids, args, kwargs)
-                if prof is not None:
-                    PROFILER.finish(prof, self.telemetry_key)
-                self._set_states(new_state)
-                if hooks is not None:
-                    hooks.after_update(ids if host_ids is None else host_ids)
-            if _ledger_fed(self):
-                self._traffic.note(counts)
-            if start is not None:
-                TELEMETRY.add_device(self.telemetry_key, "invalid_tenant_ids", invalid)
-                _note_keyed_update(self, start, int(ids.shape[0]))
+            fn, _, _ = _keyed_commit(self, self._scatter_counted, (ids,) + args, kwargs, "keyed_scatter",
+                                     ids if host_ids is None else host_ids, self._keyed_dispatch if compiled else None)
+            _note_keyed_update(self, start, fn, (ids,) + args, kwargs)
 
     # ------------------------------------------------------------------
     # compute fan-out + rollups
@@ -1302,7 +1246,7 @@ class MultiTenantCollection:
         """Every bundle advanced by one batch (each member's kwargs filtered),
         and the invalid-id count and per-tenant row counts (the pure program
         of the compiled update, too): every bundle's checks and row states
-        first, then ONE merge launch over the int32/float32 leaves of all of
+        first, then ONE merge launch over the merged leaves of all of
         them (:func:`_scatter_bundles`)."""
         bundles = []
         for owner, keyed in self._keyed.items():
@@ -1316,7 +1260,6 @@ class MultiTenantCollection:
 
     #: the compiled update: off until ``warmup``
     _compiled = False
-    _donate = True
 
     def _scan_update_many(self, state: Dict[str, StateDict], stacked: Tuple, stacked_kwargs: Dict
                           ) -> Tuple[Dict[str, StateDict], Tuple[Tensor, Tensor]]:
@@ -1344,13 +1287,16 @@ class MultiTenantCollection:
         return sum(d.refs(t) for d in mine if d is not None) + sum(km._dispatch_refs(t) for km in self._keyed.values())
 
     def _dispatch(self, name: str, program: Any, donate: bool) -> CompiledDispatch:
-        fn = self.__dict__.get(name)
+        """The compiled dispatch of ``program``: ``{name}_fn``, which writes
+        the state in place, or its copying twin ``{name}_copy_fn``."""
+        attr = f"{name}_fn" if donate else f"{name}_copy_fn"
+        fn = self.__dict__.get(attr)
         if fn is None:
             fn = CompiledDispatch(program, donate_state=donate, pool=self._pool(), owner_refs=self._dispatch_refs)
-            self.__dict__[name] = fn
+            self.__dict__[attr] = fn
         return fn
 
-    def _donation_safe_state(self, state: Dict[str, StateDict]) -> Tuple[Dict[str, StateDict], bool]:
+    def _donatable(self, state: Dict[str, StateDict]) -> bool:
         """Whether the stacked bundles may be written in place: no leaf held
         outside its keyed bundle (see :meth:`Metric._donation_safe_state`)."""
         mine = tuple(self.__dict__.get(n) for n in _MTC_DISPATCHES)
@@ -1358,40 +1304,18 @@ class MultiTenantCollection:
             name = _aliased_leaf(state[owner], mine + km._dispatches())
             if name is not None:
                 km._note_alias_fallback(name)
-                return state, False
-        return state, True
+                return False
+        return True
 
-    def _dispatch_compiled(self, name: str, program: Any, args: Tuple, kwargs: Dict, path: str,
-                           hook_ids: Any = None) -> Tuple[Any, CompiledDispatch]:
-        """One compiled dispatch over every bundle under the serial lock:
-        ``((invalid, counts), fn)``; ``path`` names its profiler bracket and
-        ``hook_ids`` are the ids the durability hooks see."""
-        keyed = self._keyed
-        hooks = self.__dict__.get("_durability_hooks")
-        with self._serial_lock():
-            if hooks is not None:
-                hooks.before_update(hook_ids)
-            state = {owner: km._get_states() for owner, km in keyed.items()}
-            donatable = False
-            if self._donate:
-                state, donatable = self._donation_safe_state(state)
-            fn = self._dispatch(name if donatable else f"{name}_copy", program, donatable)
-            prof = PROFILER.begin(path, self.device)
-            new_state, extra = fn(state, *args, **kwargs)
-            if prof is not None:
-                PROFILER.finish(prof, self.telemetry_key, fn)
-            for owner, km in keyed.items():
-                km._set_states(new_state[owner])
-                km._update_called = True
-                km._computed = None
-            if hooks is not None:
-                hooks.after_update(hook_ids)
-        return extra, fn
+    def _get_states(self) -> Dict[str, StateDict]:
+        """Every bundle's stacked state by owner name: the state of the
+        collection's keyed programs."""
+        return {owner: km._get_states() for owner, km in self._keyed.items()}
 
-    def _after_dispatch(self, invalid: Tensor, counts: Tensor) -> None:
-        if _ledger_fed(self):
-            self._traffic.note(counts)
-        TELEMETRY.add_device(self.telemetry_key, "invalid_tenant_ids", invalid)
+    def _commit_states(self, new_state: Dict[str, StateDict]) -> None:
+        """Install a keyed update's new stacked states, bundle by bundle."""
+        for owner, km in self._keyed.items():
+            km._commit_states(new_state[owner])
 
     def warmup(self, tenant_ids: Any, *sample_batch: Any, **kwargs: Any) -> Dict[str, Any]:
         """Build the bundles if needed and capture the compiled update for
@@ -1404,11 +1328,10 @@ class MultiTenantCollection:
         sample_batch = tuple(_unstage(a) for a in sample_batch)
         kwargs = {k: _unstage(v) for k, v in kwargs.items()}
         self._collection._check_input_device(sample_batch, kwargs)
-        fn = self._dispatch("_keyed_update_fn", self._scatter_all, self._donate)
+        fn = self._dispatch("_keyed_update", self._scatter_all, True)
         start = time.perf_counter()
         with self._serial_lock():
-            state = {owner: km._get_states() for owner, km in self._keyed.items()}
-            fresh = fn.warm(state, ids, *sample_batch, **kwargs)
+            fresh = fn.warm(self._get_states(), ids, *sample_batch, **kwargs)
         return _warmup_report(
             self, fn, fresh, start, arg_signature(ids, *sample_batch, **kwargs), "MultiTenantCollection",
             {owner: km.state_memory_report() for owner, km in self._keyed.items()}, program="update",
@@ -1422,31 +1345,17 @@ class MultiTenantCollection:
         if self._keyed is None:
             self.build()
         ids = _stacked_ids(self, tenant_ids)
-        stacked = tuple(_unstage(a) for a in stacked)
+        stacked = (ids,) + tuple(_unstage(a) for a in stacked)
         stacked_kwargs = {k: _unstage(v) for k, v in stacked_kwargs.items()}
         self._collection._check_input_device(stacked, stacked_kwargs)
-        k = _microbatch_len((ids,) + stacked, stacked_kwargs)
+        k = _microbatch_len(stacked, stacked_kwargs)
         if self.validate_ids:
             next(iter(self._keyed.values()))._validate_ids_eager(ids.reshape(-1))
-        start = time.perf_counter() if (TELEMETRY.enabled or EVENTS.enabled) else None
-        (invalid, counts), fn = self._dispatch_compiled(
-            "_update_many_fn", self._scan_update_many, ((ids,) + stacked, stacked_kwargs), {}, "update_many",
-            hook_ids=ids.reshape(-1),
-        )
-        self._after_dispatch(invalid, counts)
-        if start is not None:
-            dur = time.perf_counter() - start
-            key = self.telemetry_key
-            if TELEMETRY.enabled:
-                TELEMETRY.inc(key, "update_many_calls")
-                TELEMETRY.inc(key, "update_many_batches", k)
-                observe_dispatch(dur, "update_many")
-                _note_compiled_dispatch(self, fn, (ids,) + stacked, stacked_kwargs, counter="update_many_dispatches")
-            EVENTS.record(
-                "update", key, dur_s=dur, t_start=start, path="scan_microbatch", batches=k,
-                tenants=self.num_tenants, state_bundles=len(self._keyed),
-                compiled_this_call=bool(fn.last_compiled), donated=fn.donate_state,
-            )
+        fn, start, submitted = _keyed_commit(
+            self, self._scan_update_many, (stacked, stacked_kwargs), {}, "update_many", ids.reshape(-1),
+            functools.partial(self._dispatch, "_update_many", self._scan_update_many))
+        _note_update_many(self, start, submitted, fn, k, stacked, stacked_kwargs, tenants=self.num_tenants,
+                          state_bundles=len(self._keyed))
 
     def _canonical_ids(self, tenant_ids: Any) -> Tensor:
         return next(iter(self._require_built().values()))._canonical_ids(tenant_ids)
@@ -1468,48 +1377,16 @@ class MultiTenantCollection:
             if self.validate_ids:
                 next(iter(keyed.values()))._validate_ids_eager(ids if host_ids is None else host_ids)
             start = time.perf_counter() if (TELEMETRY.enabled or EVENTS.enabled) else None
-            if self._compiled:
-                (invalid, counts), fn = self._dispatch_compiled(
-                    "_keyed_update_fn", self._scatter_all, (ids,) + args, kwargs, "keyed_scatter",
-                    hook_ids=ids if host_ids is None else host_ids,
-                )
-                self._after_dispatch(invalid, counts)
-                if TELEMETRY.enabled:
-                    TELEMETRY.inc(self.telemetry_key, "update_calls")
-                    skipped = sum(len(ns) - 1 for _, ns in self._layout)
-                    if skipped:
-                        TELEMETRY.inc(self.telemetry_key, "update_dedup_skipped", skipped)
-                _note_keyed_compiled(self, fn, start, (ids, *args), kwargs, members=len(self._collection),
-                                     state_bundles=len(keyed))
-                return
-            hooks = self.__dict__.get("_durability_hooks")
-            hook_ids = ids if host_ids is None else host_ids
-            with self._serial_lock():
-                if hooks is not None:
-                    hooks.before_update(hook_ids)
-                state = {owner: km._get_states() for owner, km in keyed.items()}
-                prof = PROFILER.begin("keyed_scatter", self.device)
-                new_state, (invalid, counts) = self._scatter_all(state, ids, *args, **kwargs)
-                if prof is not None:
-                    PROFILER.finish(prof, self.telemetry_key)
-                for owner, km in keyed.items():
-                    km._set_states(new_state[owner])
-                    km._update_called = True
-                    km._computed = None
-                if hooks is not None:
-                    hooks.after_update(hook_ids)
-            TELEMETRY.add_device(self.telemetry_key, "invalid_tenant_ids", invalid)
-            if _ledger_fed(self):
-                self._traffic.note(counts)
-            if start is not None:
-                if TELEMETRY.enabled:
-                    TELEMETRY.inc(self.telemetry_key, "update_calls")
-                    skipped = sum(len(ns) - 1 for _, ns in self._layout)
-                    if skipped:
-                        TELEMETRY.inc(self.telemetry_key, "update_dedup_skipped", skipped)
-                _note_keyed_update(
-                    self, start, int(ids.shape[0]), members=len(self._collection), state_bundles=len(state)
-                )
+            dispatch = functools.partial(self._dispatch, "_keyed_update", self._scatter_all) if self._compiled else None
+            fn, _, _ = _keyed_commit(self, self._scatter_all, (ids,) + args, kwargs, "keyed_scatter",
+                                     ids if host_ids is None else host_ids, dispatch)
+            if TELEMETRY.enabled:
+                TELEMETRY.inc(self.telemetry_key, "update_calls")
+                skipped = sum(len(ns) - 1 for _, ns in self._layout)
+                if skipped:
+                    TELEMETRY.inc(self.telemetry_key, "update_dedup_skipped", skipped)
+            _note_keyed_update(self, start, fn, (ids,) + args, kwargs, members=len(self._collection),
+                               state_bundles=len(keyed))
 
     # ------------------------------------------------------------------
     # compute fan-out + rollups

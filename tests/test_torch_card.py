@@ -2,8 +2,8 @@
 
 Every case here launches a kernel of ``metrics_tpu_torch/csrc`` and needs a
 Hopper card: each carries the ``cuda`` marker and skips where there is none.
-The file imports ``torch`` and the port only (no JAX, no ``metrics_tpu``),
-so it runs on a machine that has no JAX:
+The file imports ``torch``, the port and ``tests/helpers/keyed_leaves.py``
+only (no JAX, no ``metrics_tpu``), so it runs on a machine that has no JAX:
 
     python -m pytest -m cuda tests/test_torch_card.py
 
@@ -57,6 +57,7 @@ from metrics_tpu_torch.kernels.segment_scatter import (
     segment_scatter_min_torch,
 )
 from metrics_tpu_torch.kernels.stat_scores import stat_scores_counts_cuda, stat_scores_counts_torch
+from helpers.keyed_leaves import MergedBeside, SmallLeaves
 
 _TORCH = {"add": segment_scatter_add_torch, "max": segment_scatter_max_torch, "min": segment_scatter_min_torch}
 _CUDA = {"add": segment_scatter_add_cuda, "max": segment_scatter_max_cuda, "min": segment_scatter_min_cuda}
@@ -341,6 +342,72 @@ def test_merge_kernel_vector_widths_match_plain(cuda_device, op, dtype, d, offse
     _assert_exact(got[0][0].cpu().numpy(), want[0][0].cpu().numpy())
     assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
     assert _common.launch_count("segment_merge") == 1
+
+
+def _narrow_merge_leaves(rng, dtype, r, s, dev):
+    """Sums, maxima and minima of ``dtype`` with rows dense ``(R, 10)``,
+    broadcast (one row, stride 0) and strided (a slice of an ``(R, 4, 6)``
+    buffer), non-zero defaults: bfloat16 rows integer-valued in [-3, 3]
+    (sums exact in any order), the extrema's dense rows led by NaN, -0.0 and
+    +0.0 and their states holding NaN and both zeros; integer sums' rows
+    near the dtype's bounds, so that the sums wrap; then an int32 sum and a
+    float32 max in the same launch."""
+    floating = dtype.is_floating_point
+    info = None if floating else torch.iinfo(dtype)
+
+    def values(shape, op):
+        if floating:
+            return torch.from_numpy(rng.randint(-3, 4, shape).astype(np.float32)).to(dtype)
+        lo, hi = (info.min + 2, info.max) if op == "sum" else (info.min, info.max)
+        return torch.from_numpy(rng.randint(lo, hi + 1, shape)).to(dtype)
+
+    leaves = []
+    for op in ("sum", "max", "min"):
+        dense = values((r, 10), op)
+        if floating and op != "sum":
+            dense[:3, 0] = torch.tensor([float("nan"), -0.0, 0.0])
+        rows = {"dense": dense, "broadcast": values((), op).expand(r),
+                "strided": values((r, 4, 6), op)[:, 2, :]}
+        for layout, x in rows.items():
+            shape = tuple(x.shape[1:])
+            if floating and op != "sum":
+                pool = np.asarray([-5.0, -0.0, 0.0, 4.0, np.nan], np.float32)
+                state = torch.from_numpy(rng.choice(pool, (s,) + shape)).to(dtype)
+            else:
+                state = values((s,) + shape, "max" if op == "sum" else op)
+            leaves.append((x.to(dev), state.to(dev), torch.full(shape, 2, dtype=dtype, device=dev), op))
+    leaves.append((torch.from_numpy(rng.randint(-9, 10, (r, 3)).astype(np.int32)).to(dev),
+                   torch.zeros((s, 3), dtype=torch.int32, device=dev), torch.ones(3, dtype=torch.int32, device=dev),
+                   "sum"))
+    leaves.append((torch.randn(r, device=dev), torch.zeros(s, device=dev), torch.zeros((), device=dev), "max"))
+    return leaves
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int16, torch.int8])
+@pytest.mark.parametrize("ids_dtype", [torch.int64, torch.int32])
+def test_merge_kernel_takes_narrow_leaves_as_its_plain_version(cuda_device, dtype, ids_dtype):
+    """bfloat16, int16 and int8 leaves (see :func:`_narrow_merge_leaves`),
+    over ids dropped and in the band, with a ragged R: bit for bit the plain
+    version, in one launch and no B3 or B4."""
+    rng = np.random.RandomState(29 + (ids_dtype == torch.int32))
+    r, s = 4099, 1000
+    leaves = _narrow_merge_leaves(rng, dtype, r, s, cuda_device)
+    ids = torch.from_numpy(rng.randint(-2, s + 3, r)).to(ids_dtype).to(cuda_device)
+    got = segment_merge_cuda(leaves, ids, s, device=cuda_device)
+    torch.cuda.synchronize()
+    host = [tuple(t.cpu() for t in leaf[:3]) + (leaf[3],) for leaf in leaves]
+    want = segment_merge_torch(host, ids.cpu(), s)
+    for (_, state, _, op), g, w in zip(leaves, got[0], want[0]):
+        assert g.dtype == state.dtype and g.shape == state.shape, op
+        _assert_exact(g.cpu().float().numpy(), w.float().numpy())
+    assert torch.equal(got[1].cpu(), want[1]) and torch.equal(got[2].cpu(), want[2])
+    if not dtype.is_floating_point:  # the integer sums wrapped
+        info = torch.iinfo(dtype)
+        wide = segment_merge_torch([(x.long(), st.long(), d.long(), op) for x, st, d, op in host[:3]], ids.cpu(), s)
+        assert any(bool(((o < info.min) | (o > info.max)).any()) for o in wide[0])
+    assert _common.launch_count("segment_merge") == 1
+    assert all(_common.launch_count(f"segment_scatter_{op}") == 0 for op in ("add", "max", "min"))
 
 
 @pytest.mark.cuda
@@ -988,6 +1055,57 @@ def test_keyed_float32_float64_and_int64_sum_leaves_on_the_card_match_the_cpu(cu
                 torch.testing.assert_close(got, value, rtol=1e-5, atol=1e-9)
             else:
                 assert torch.equal(got, value), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("collection", [False, True], ids=["KeyedMetric", "MultiTenantCollection"])
+def test_bfloat16_and_small_integer_leaves_on_the_card_take_the_merge(cuda_device, collection):
+    """A bfloat16 sum (integer-valued rows, exact in any order), a wrapping
+    int8 sum, int16/int8 extrema and a bfloat16 max fed NaN and both signed
+    zeros, over the padding band and dropped ids, eager and compiled: the
+    card's stacked state equals the CPU's (the merge's plain version) bit
+    for bit; the merge launches once an update, alone or beside a second
+    bundle, and B3 and B4 never."""
+    n, cap, rows = 300, 512, 4096
+    rng = np.random.RandomState(24)
+    ids = np.asarray([0, 1, 2, 4])
+    batches = [(ids, np.ones(4), np.asarray([-0.0, 0.0, np.nan, -1.0]), np.asarray([7, -3, 100, -100])),
+               (ids, -np.ones(4), np.asarray([0.0, -0.0, -1.0, np.nan]), np.asarray([-7, 3, -100, 100]))]
+    for _ in range(4):
+        z = rng.choice(np.asarray([0.0, -0.0, -1.0, -0.5]), rows)
+        z[rng.rand(rows) < 0.01] = np.nan
+        batches.append((rng.randint(-2, cap + 2, rows), rng.randint(-4, 5, rows), z, rng.randint(-120, 121, rows)))
+    batches = [(_t(i), _t(x).to(torch.bfloat16), _t(z).to(torch.bfloat16), _t(k).to(torch.int16))
+               for i, x, z, k in batches]
+
+    def make(dev):
+        kw = dict(validate_ids=False, capacity=cap, device=dev)
+        if collection:
+            return T.MultiTenantCollection({"small": SmallLeaves(device=dev), "merged": MergedBeside(device=dev)},
+                                           n, **kw)
+        return T.KeyedMetric(SmallLeaves(device=dev), n, **kw)
+
+    eager, compiled, host = make(cuda_device), make(cuda_device), make("cpu")
+    for batch in (batches[0], batches[-1]):  # both row counts captured before counting
+        compiled.warmup(*[b.to(cuda_device) for b in batch])
+    torch.cuda.synchronize()
+    _common.reset_dispatch_counters()
+    for batch in batches:
+        for obj in (eager, compiled):
+            obj.update(*[b.to(cuda_device) for b in batch])
+        host.update(*batch)
+    torch.cuda.synchronize()
+    assert _common.launch_count("segment_merge") == 2 * len(batches)
+    for op in ("segment_scatter_add", "segment_scatter_max", "segment_scatter_min"):
+        assert _common.launch_count(op) == 0, op
+    bundles = (lambda o: o._keyed.values()) if collection else (lambda o: [o])  # noqa: E731
+    for card in (eager, compiled):
+        for got, want in zip(bundles(card), bundles(host)):
+            for name, value in want._get_states().items():
+                leaf = getattr(got, name)
+                assert leaf.dtype == value.dtype, name
+                _assert_exact(leaf.cpu().float().numpy() if value.is_floating_point() else leaf.cpu().numpy(),
+                              value.float().numpy() if value.is_floating_point() else value.numpy())
 
 
 @pytest.mark.cuda

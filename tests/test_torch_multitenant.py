@@ -27,6 +27,7 @@ from metrics_tpu_torch.utilities import stacked as tstacked
 from metrics_tpu_torch.utilities.convert import load_numpy_states
 from metrics_tpu_torch.utilities.stacked import broadcast_stack, row_states, stack_pytrees, vmap_update
 from metrics_tpu_torch.wrappers.multitenant import _pow2_at_least
+from tests.helpers.keyed_leaves import MergedBeside, SmallLeaves
 
 NC = 4
 C = 10
@@ -1141,6 +1142,103 @@ def test_float32_extrema_meet_signed_zero_and_nan_states_as_the_jax_package():
     assert np.isneginf(port.hi.numpy()[4]).all() and np.isposinf(port.lo.numpy()[4])
     _assert_bits(port.compute(), ref.compute(), "compute")
     assert _common.dispatch_count("segment_merge", "torch") == 2
+
+
+class _JSmallLeaves(J.Metric):
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self.add_state("s", jnp.zeros((2,), jnp.bfloat16), dist_reduce_fx="sum")
+        self.add_state("c8", jnp.asarray(0, jnp.int8), dist_reduce_fx="sum")
+        self.add_state("hi16", jnp.asarray(-(2**15), jnp.int16), dist_reduce_fx="max")
+        self.add_state("lo8", jnp.asarray(127, jnp.int8), dist_reduce_fx="min")
+        self.add_state("hib", jnp.asarray(-jnp.inf, jnp.bfloat16), dist_reduce_fx="max")
+
+    def update(self, x, z, k):
+        self.s = self.s + jnp.stack([x.sum(), (2 * x).sum()])
+        self.c8 = self.c8 + k.sum().astype(jnp.int8)
+        self.hi16 = jnp.maximum(self.hi16, k.max())
+        self.lo8 = jnp.minimum(self.lo8, k.min().astype(jnp.int8))
+        self.hib = jnp.maximum(self.hib, z.max())
+
+    def compute(self):
+        return self.s[0].astype(jnp.float32) + self.hib.astype(jnp.float32)
+
+
+class _JMergedBeside(J.Metric):
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self.add_state("n", jnp.asarray(0, jnp.int32), dist_reduce_fx="sum")
+        self.add_state("z32", jnp.asarray(-jnp.inf, jnp.float32), dist_reduce_fx="max")
+
+    def update(self, x, z, k):
+        self.n = self.n + (k != 0).sum(dtype=jnp.int32)
+        self.z32 = jnp.maximum(self.z32, z.astype(jnp.float32).max())
+
+    def compute(self):
+        return self.z32 + self.n
+
+
+def _small_leaf_batches(rows=24, steps=3, capacity=8):
+    """Integer-valued bfloat16 sums (exact in bfloat16 as in float32), a
+    bfloat16 max over NaN, +0.0, -0.0 and negatives, int16 values that fit
+    int8 (whose int8 sums wrap); ids over the padding band [5, capacity) and outside the capacity,
+    tenant 3 never routed. First, tenants 0 and 1 hold one signed zero and
+    meet the other, tenants 2 and 4 meet a NaN."""
+    k = np.asarray([7, -3, 100, -100], np.int16)
+    ids = np.asarray([0, 1, 2, 4])
+    yield ids, np.ones(4, np.float32), np.asarray([-0.0, 0.0, np.nan, -1.0], np.float32), k
+    yield ids, -np.ones(4, np.float32), np.asarray([0.0, -0.0, -1.0, np.nan], np.float32), -k
+    rng = np.random.RandomState(24)
+    for _ in range(steps):
+        ids = rng.randint(-2, capacity + 2, rows)
+        ids[ids == 3] = -1
+        x = rng.randint(-4, 5, rows).astype(np.float32)
+        z = rng.choice(np.asarray([0.0, -0.0, -1.0, -0.5], np.float32), rows)
+        z[rng.rand(rows) < 0.06] = np.nan
+        k = rng.randint(-120, 121, rows).astype(np.int16)
+        yield ids, x, z, k
+
+
+@pytest.mark.parametrize("compiled", [False, True], ids=["eager", "compiled"])
+@pytest.mark.parametrize("collection", [False, True], ids=["KeyedMetric", "MultiTenantCollection"])
+def test_bfloat16_and_small_integer_leaves_take_the_merge_as_the_jax_package(collection, compiled):
+    """bfloat16 sums added in float32, a wrapping int8 sum, int16/int8
+    extrema and a bfloat16 max meeting NaN and both signed zeros key as the
+    JAX package keys them, bit for bit, through the merge: one merge
+    dispatch an update, alone or beside a second bundle's int32/float32
+    leaves, and no B3, B4 or plain dispatch."""
+    kw = dict(validate_ids=False, capacity=8)
+    if collection:
+        port = T.MultiTenantCollection({"small": SmallLeaves(**CPU), "merged": MergedBeside(**CPU)}, 5, **kw, **CPU)
+        ref = J.MultiTenantCollection({"small": _JSmallLeaves(), "merged": _JMergedBeside()}, 5, **kw)
+    else:
+        port, ref = T.KeyedMetric(SmallLeaves(**CPU), 5, **kw, **CPU), J.KeyedMetric(_JSmallLeaves(), 5, **kw)
+    batches = list(_small_leaf_batches())
+    bf16 = lambda a: torch.from_numpy(a).to(torch.bfloat16)  # noqa: E731
+    if compiled:
+        ids, x, z, k = batches[0]
+        port.warmup(_t(ids), bf16(x), bf16(z), _t(k))
+    _common.reset_dispatch_counters()
+    for ids, x, z, k in batches:
+        port.update(_t(ids), bf16(x), bf16(z), _t(k))
+        ref.update(_j(ids), jnp.asarray(x, jnp.bfloat16), jnp.asarray(z, jnp.bfloat16), _j(k))
+    pairs = ([(port._keyed[o], ref._keyed[o]) for o in ref._keyed] if collection else [(port, ref)])
+    for km, jm in pairs:
+        for name in jm._child._defaults:
+            got, want = getattr(km, name), np.asarray(getattr(jm, name))
+            assert got.dtype == km._child._defaults[name].dtype and tuple(got.shape) == want.shape, name
+            if got.dtype == torch.bfloat16:
+                got, want = got.float(), want.astype(np.float32)
+            _assert_bits(got, want, name)
+    small = port._keyed["small"] if collection else port
+    # tenant 0 held -0.0 and met +0.0, tenant 1 the other way round; 2 and 4 met a NaN
+    assert float(small.hib[0]) == 0 and not torch.signbit(small.hib[:2]).any()
+    assert torch.isnan(small.hib[[2, 4]]).all() and float(small.hib[3]) == -np.inf and int(small.lo8[3]) == 127
+    assert int(small.c8[1]) == -198 + 256 and int(small.c8[2]) == 146 - 256  # the int8 sums wrapped
+    assert _common.dispatch_count("segment_merge", "torch") == len(batches)
+    for op in ("add", "max", "min"):
+        for path in ("torch", "plain"):
+            assert _common.dispatch_count(f"segment_scatter_{op}", path) == 0, (op, path)
 
 
 def test_regression_collection_matches_jax_and_the_hooks_key_it():

@@ -473,6 +473,57 @@ def test_merge_plain_equals_the_per_leaf_route_bit_for_bit(dtype, ids_dtype, r, 
     assert invalid.dtype == torch.int32 and invalid.shape == () and torch.equal(invalid, want_invalid)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int16, torch.int8])
+@pytest.mark.parametrize("ids_dtype", [torch.int64, torch.int32])
+@pytest.mark.parametrize("r,s", [(64, 10), (300, 7), (1, 3), (0, 4)])
+def test_merge_plain_takes_narrow_leaves_as_b3_and_b4_did(dtype, ids_dtype, r, s):
+    """bfloat16, int16 and int8 leaves, integer-valued, dense, broadcast and
+    strided, with non-zero defaults: the merge's plain version equals the
+    route through B3 and B4's plain versions in float32 (the sums cast back
+    and added to the state, the extrema met where a segment has rows) bit
+    for bit, with the same counts and dropped count."""
+    rng = np.random.RandomState(r * 37 + s)
+    leaves = _merge_leaves(rng, r, s, dtype)
+    ids = _merge_ids(rng, r, s, ids_dtype)
+    outs, counts, invalid = segment_merge_torch(leaves, ids, s)
+    want_outs, want_counts, want_invalid = _per_leaf_route(leaves, ids, s)
+    for (_, state, _, op), got, want in zip(leaves, outs, want_outs):
+        assert got.dtype == state.dtype and got.shape == state.shape, op
+        _assert_exact(got.float().numpy(), want.float().numpy())
+    assert torch.equal(counts, want_counts) and torch.equal(invalid, want_invalid)
+
+
+def test_merge_plain_adds_bfloat16_sums_in_float32_and_wraps_int8_sums():
+    """A bfloat16 sum's deltas add in float32: 300 ones sum to 300, where
+    adds in bfloat16 stall at 256; then ``state + sum`` rounds once to
+    bfloat16. An int8 sum wraps as int8 adds do."""
+    ids = torch.zeros(300, dtype=torch.int64)
+    ones = torch.ones(300, dtype=torch.bfloat16)
+    (sb,), _, _ = segment_merge_torch([(ones, torch.tensor([0.5], dtype=torch.bfloat16),
+                                        torch.zeros((), dtype=torch.bfloat16), "sum")], ids, 1)
+    assert float(sb[0]) == float(torch.tensor(300.0).to(torch.bfloat16) + torch.tensor(0.5, dtype=torch.bfloat16))
+    assert float(sb[0]) == 300.0
+    k = torch.full((300,), 100, dtype=torch.int8)
+    (s8,), _, _ = segment_merge_torch([(k, torch.tensor([7], dtype=torch.int8), torch.zeros((), dtype=torch.int8),
+                                        "sum")], ids, 1)
+    assert int(s8[0]) == int(np.int64(7 + 300 * 100).astype(np.int8))
+
+
+def test_merge_plain_picks_bfloat16_against_the_state_in_xla_order():
+    """:func:`test_merge_picks_against_the_state_in_xla_order` at bfloat16."""
+    bf = torch.bfloat16
+    state = torch.tensor([[-0.0], [0.0], [float("nan")], [1.0], [-0.0]], dtype=bf)
+    rows = torch.tensor([[0.0], [-0.0], [5.0], [float("nan")]], dtype=bf)
+    ids = torch.arange(4)
+    zero = torch.zeros(1, dtype=bf)
+    (hi, lo), _, _ = segment_merge_torch([(rows, state, zero, "max"), (rows, state, zero, "min")], ids, 5)
+    assert hi.dtype == lo.dtype == bf
+    assert hi[0, 0] == 0 and not torch.signbit(hi[0, 0]) and hi[1, 0] == 0 and not torch.signbit(hi[1, 0])
+    assert lo[0, 0] == 0 and torch.signbit(lo[0, 0]) and lo[1, 0] == 0 and torch.signbit(lo[1, 0])
+    assert torch.isnan(hi[2:4]).all() and torch.isnan(lo[2:4]).all()
+    assert hi[4, 0] == 0 and torch.signbit(hi[4, 0]) and lo[4, 0] == 0 and torch.signbit(lo[4, 0])
+
+
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
 def test_merge_wrapper_on_the_cpu_runs_the_plain_version_and_launches_nothing(dtype):
     rng = np.random.RandomState(5)
@@ -595,8 +646,9 @@ def _merge_case():
 @pytest.mark.parametrize("ids_dtype", [torch.int64, torch.int32])
 def test_merge_cuda_path_makes_one_library_call_with_the_leaf_table(fake_library, ids_dtype):
     """One call into the C library with the leaves' table packed by value
-    (rows, row stride, state, out, default, D, V, kind per leaf), the outputs
-    allocated with ``torch.empty`` only, the device index and the stream."""
+    (rows, row stride, state, out, default, D, V, kind, wide per leaf; wide 0
+    for an int32 or float32 leaf), the outputs allocated with ``torch.empty``
+    only, the device index and the stream."""
     leaves, ids, s = _merge_case()
     ids = ids.to(ids_dtype)
     outs, counts, invalid = ss._merge_cuda(leaves, ids, s, torch.device("cpu"))
@@ -604,16 +656,49 @@ def test_merge_cuda_path_makes_one_library_call_with_the_leaf_table(fake_library
     args = fake_library.calls[0]
     assert args[1] == 4 and args[2] == ids.data_ptr() and args[3:6] == (8, s, ids.element_size())
     assert args[6] == counts.data_ptr() and args[7] == invalid.data_ptr() and args[9] == 1234
-    table = np.asarray(struct.unpack("<32q", args[0])).reshape(4, 8)
+    table = np.asarray(struct.unpack("<36q", args[0])).reshape(4, 9)
     strides, widths, vecs, kinds = (0, 40, 1, 40), (1, 40, 1, 10), (1, 4, 1, 2), (0, 1, 2, 5)
     for (rows, state, default, _), out, row, stride, d, vec, kind in zip(leaves, outs, table, strides, widths,
                                                                       vecs, kinds):
         assert row.tolist() == [rows.data_ptr(), stride, state.data_ptr(), out.data_ptr(), default.data_ptr(), d,
-                                vec, kind]
+                                vec, kind, 0]
         assert out.shape == state.shape and out.dtype == state.dtype and out.is_contiguous()
         assert out.data_ptr() != state.data_ptr()
     assert counts.shape == (s,) and counts.dtype == torch.int32
     assert invalid.shape == () and invalid.dtype == torch.int32
+    assert _common.launch_count("segment_merge") == 1
+
+
+def test_merge_cuda_path_gives_a_narrow_leaf_a_32_bit_accumulator(fake_library, monkeypatch):
+    """A bfloat16 sum, an int16 max and an int8 min: each row of the table
+    takes V = 1, its kind plus 8 * its narrow code (bfloat16 1, int16 2, int8
+    3), and the address of a fresh ``(S, ...)`` accumulator, float32 for
+    bfloat16 and int32 for the integers, allocated with ``torch.empty``."""
+    made = []
+    empty = torch.empty
+
+    def recording_empty(*shape, **kw):
+        out = empty(*shape, **kw)
+        made.append(out)
+        return out
+
+    monkeypatch.setattr(torch, "empty", recording_empty)
+    r, s = 8, 10
+    leaves = [(torch.ones(r, 2, dtype=torch.bfloat16), torch.ones(s, 2, dtype=torch.bfloat16),
+               torch.ones(2, dtype=torch.bfloat16), "sum"),
+              (torch.ones(r, dtype=torch.int16), torch.ones(s, dtype=torch.int16), torch.tensor(0, dtype=torch.int16),
+               "max"),
+              (torch.ones(r, 3, dtype=torch.int8), torch.ones(s, 3, dtype=torch.int8), torch.ones(3, dtype=torch.int8),
+               "min")]
+    outs, _, _ = ss._merge_cuda(leaves, torch.arange(r), s, torch.device("cpu"))
+    table = np.asarray(struct.unpack("<27q", fake_library.calls[0][0])).reshape(3, 9)
+    wides = {t.data_ptr(): t for t in made}
+    for (rows, state, default, _), out, row, kind, wide_dtype in zip(
+            leaves, outs, table, (1 + 8, 2 + 16, 4 + 24), (torch.float32, torch.int32, torch.int32)):
+        assert row[:8].tolist() == [rows.data_ptr(), rows.stride(0), state.data_ptr(), out.data_ptr(),
+                                    default.data_ptr(), default.numel(), 1, kind]
+        wide = wides[int(row[8])]
+        assert wide.dtype == wide_dtype and wide.shape == state.shape and out.dtype == state.dtype
     assert _common.launch_count("segment_merge") == 1
 
 
